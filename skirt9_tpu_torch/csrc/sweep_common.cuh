@@ -1,5 +1,5 @@
 // Shared per-lane geometry and per-slab sub-DDA of the slab-sweep kernels
-// (sweep_dtau.cu, sweep_deposit.cu).
+// (sweep_dtau.cu, sweep_deposit.cu, sweepxl_dtau.cu, sweepxl_deposit.cu).
 //
 // A lane marches the slabs of its dominant axis a; inside slab t the ray
 // crosses at most 3 cells, enumerated by a bounded sub-DDA over the two minor
@@ -141,6 +141,14 @@ __device__ __forceinline__ float opacity(const Lane& L, const float* nd,
     if (c < C) k = k + row[c] * L.sig[c];
   }
   return k;
+}
+
+// (1 - e^-dtau) / dtau: the exact integral of e^-tau over a segment per unit
+// dtau; below dtau = 1e-3 the series form avoids the cancellation in
+// 1 - e^-dtau.
+__device__ __forceinline__ float segment_factor(float dtau) {
+  return dtau < 1e-3f ? 1.0f - 0.5f * dtau
+                      : (1.0f - expf(-fminf(dtau, 80.0f))) / fmaxf(dtau, 1e-37f);
 }
 
 }  // namespace skirt9

@@ -51,10 +51,7 @@ __global__ void sweep_deposit_kernel(
       int cell;
       sub_step(L, t, S, ds, cell);
       const float dtau = opacity(L, nd, cell, C) * ds;
-      const float gfac = dtau < 1e-3f
-          ? 1.0f - 0.5f * dtau
-          : (1.0f - expf(-fminf(dtau, 80.0f))) / fmaxf(dtau, 1e-37f);
-      const float contrib = sc * expf(-tau_loc) * ds * gfac;
+      const float contrib = sc * expf(-tau_loc) * ds * segment_factor(dtau);
       if (contrib != 0.0f) atomicAdd(rf_row + cell, contrib);
       const float rem = rl - tau_loc;
       if (!hit_any && rem >= 0.0f && rem < dtau) {

@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels are CUDA C++ sources in `skirt9_tpu_torch/csrc/`, compiled at
-first use with `nvcc` for `sm_90a` into one shared library with a plain C
-interface, and bound with `ctypes` (pointers and the stream as c_void_p).
+first use with `nvcc` for `sm_90a`, one process per source, all started
+together, then linked into one shared library with a plain C interface, and
+bound with `ctypes` (pointers and the stream as c_void_p).
 The library lands in `build/skirt9_tpu_torch/<hash>/` at the repository root
 and is reused while the hash of the sources and flags is unchanged.
 
@@ -31,9 +32,12 @@ _LIB_NAME = "libskirt9_kernels.so"
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round like
 # the plain PyTorch versions (one op per launch) and the JAX reference.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("sweep_dtau", "sweep_deposit", "scatter_add")
+# one entry point and counter each, even where two share source through
+# csrc/sweep_common.cuh, so a run shows which contract its path went through
+KERNELS = ("sweep_dtau", "sweep_deposit", "scatter_add", "sweepxl_dtau",
+           "sweepxl_deposit")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -49,6 +53,12 @@ _SIGNATURES = {
     "sweep_deposit_launch": [_P] * 13 + [_I] * 7 + [_F] * 6 + [_P],
     # idx, val, out, n, size, stream
     "scatter_add_launch": [_P] * 3 + [_I] * 2 + [_P],
+    # pos, dir, axis, smin, smax, sig, nd, out, B, C, nx, ny, nz, nmax,
+    # want_sub, lox, loy, loz, hx, hy, hz, stream
+    "sweepxl_dtau_launch": [_P] * 8 + [_I] * 7 + [_F] * 6 + [_P],
+    # pos, dir, axis, smin, smax, dsub, scale, rf, B, nx, ny, nz, nmax,
+    # n_groups, lox, loy, loz, hx, hy, hz, stream
+    "sweepxl_deposit_launch": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
 }
 
 _lib = None
@@ -90,19 +100,42 @@ def build() -> Path:
         build_info.update(path=str(lib_path), cached=True)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sources if p.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib_path)
+    nvcc = _nvcc()
+    log, ptxas = [], []
+
+    def finish(cmd, proc):
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            (out_dir / "build.log").write_text("\n".join(log))
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
+        ptxas.append(err.strip())
+
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        compiles = []
+        for p in sources:
+            if p.suffix == ".cu":
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                       os.path.join(tmp, p.stem + ".o"), str(p)]
+                compiles.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+        try:
+            for cmd, proc in compiles:
+                finish(cmd, proc)
+        finally:
+            for _, proc in compiles:
+                proc.kill()
+                proc.wait()
+        lib_tmp = os.path.join(tmp, _LIB_NAME)
+        cmd = [nvcc, "-shared", "-o", lib_tmp,
+               *sorted(str(p) for p in Path(tmp).glob("*.o"))]
+        finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))
+        (out_dir / "build.log").write_text("\n".join(log))
+        os.replace(lib_tmp, lib_path)
     build_info.update(path=str(lib_path), cached=False,
-                      ptxas=res.stderr.strip())
+                      ptxas="\n".join(ptxas).strip())
     return lib_path
 
 

@@ -31,6 +31,7 @@ from .ops import rng
 from .sources import base as src
 from .transport import lifecycle as lc
 from .transport import sweep as sw
+from .transport import sweepxl as xl
 from .utils.guards import check_finite
 
 
@@ -76,7 +77,7 @@ class Simulation:
         self._rf_borders_dev = (
             torch.tensor(np.asarray(self.rf_borders, np.float32), device=dev)
             if self.rf_borders is not None else None)
-        self._sweep_tabs = sw.build_tables(self.grid, self.medium)
+        self._sweep_tabs = self._engine_tables()
         # RF accumulator unit [W m]: keeps f32 in range for luminous sources
         self.rf_scale = max(L_tot / max(self.num_packets, 1)
                             * self.grid.diagonal(), 1e-300)
@@ -84,6 +85,21 @@ class Simulation:
         self.last_stats: dict = {}
 
     # -------------------------------------------------------------- internals
+
+    def _engine_tables(self):
+        """The reference's engine choice (`skirt9_tpu/simulation.py:194-215`):
+        the resident sweep while it supports the grid, else the large-grid
+        (XL) contracts."""
+        if sw.supports_sweep(self.grid, self.medium):
+            return sw.build_tables(self.grid, self.medium)
+        if xl.supports_xl(self.grid, self.medium):
+            _log().info("transport: large-grid (XL) sweep for "
+                        f"{'x'.join(map(str, self.grid.shape))}")
+            return xl.build_tables(self.grid, self.medium)
+        raise NotImplementedError(
+            f"no transport engine for a {'x'.join(map(str, self.grid.shape))} "
+            f"grid with {self.medium.ncomp} components (the sweeps take axes "
+            "<= 512 and <= 4 components; the scan march is not ported yet)")
 
     def _source_allocation(self, n: int) -> np.ndarray:
         """History counts per source with the composite luminosity/uniform

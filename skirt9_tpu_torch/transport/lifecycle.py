@@ -1,6 +1,6 @@
 """The photon-packet life cycle of one batch, on PyTorch tensors.
 
-Port of `skirt9_tpu/transport/lifecycle.py` for its slab-sweep path: the
+Port of `skirt9_tpu/transport/lifecycle.py` for its slab-sweep paths: the
 emission peel-off, then up to max_events forced-scattering events, each
 
   1. pass 1 `sweep_dtau` and the ray-ordered slab prefix,
@@ -9,6 +9,14 @@ emission peel-off, then up to max_events forced-scattering events, each
   4. HG peel-off toward every distant instrument (`sweep_dtau` along the
      observer direction, then `instruments.distant.detect`),
   5. HG scattering, albedo weighting and the weight-cutoff test.
+
+With `sweepxl.XLTables` (large uniform grids) the event runs the XL
+contracts instead: lanes sorted by (axis, major sign, entry slab), pass 1
+records the optical depth per sub-step, `resolve_interaction` finds the
+interaction point from that record, and `sweepxl.sweep_deposit` deposits
+from it when an RF is stored. Everything between pass 1 and the
+interaction search stays in sorted lane order; only per-lane results go
+back to launch order.
 
 The event loop exits early once no lane is alive; that test is one host
 sync per event. There is no scan-march fallback: every option outside this
@@ -29,6 +37,7 @@ from ..media import system as msys
 from ..ops import phase as phs
 from ..ops import rng
 from . import sweep as sw
+from . import sweepxl as xl
 
 _TAG_PATH_CHOICE = 21
 _TAG_PATH_TAU_UNI = 22
@@ -174,6 +183,13 @@ def peel_off(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr, kind: int,
     return accs
 
 
+def _unsort(x, perm):
+    """Per-lane results of sorted lanes back in launch order."""
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
+
+
 # ---------------------------------------------------------------- the life cycle
 
 def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
@@ -190,11 +206,18 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     opt = msys.optics_at(med, pkt.lam)
     sigma_lanes = opt.sigma_ext.T.contiguous()   # (H, B)
     h_cells = np.asarray(sweep_tabs.h)
+    is_xl = isinstance(sweep_tabs, xl.XLTables)
 
     def tracer(pos, kdir, mask, kobs_host):
         # every lane marches toward the same observer: one shared slab axis
         hint = int(np.argmax(np.abs(np.asarray(kobs_host, np.float64))
                              / h_cells))
+        if is_xl:
+            prm = xl.entry_order(sweep_tabs, pos, hint)
+            tau = torch.sum(xl.sweep_dtau(
+                sweep_tabs, pos[prm], kdir[prm], sigma_lanes[:, prm],
+                mask[prm], axis_hint=hint), dim=0)
+            return _unsort(tau, prm)
         return torch.sum(sw.sweep_dtau(sweep_tabs, pos, kdir, sigma_lanes,
                                        mask, axis_hint=hint), dim=0)
 
@@ -205,6 +228,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
 
     use_rf = opts.store_rf and rf is not None and rf_borders is not None
     if use_rf:
+        # one bin, so one lane group: the XL sort key needs no group term
         if rf_borders.shape[0] != 2 or rf.shape[1] != 1:
             raise NotImplementedError("multi-bin radiation field not ported "
                                       "yet (one RF bin only)")
@@ -236,24 +260,48 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
         active = pkt.alive
 
         # pass 1: optical depth per slab and along the whole path
-        dtau_slab = sw.sweep_dtau(sweep_tabs, pkt.pos, pkt.dir, sigma_lanes,
-                                  active)
         grp = sw.dominant_axis(sweep_tabs, pkt.dir)
-        dmaj = pkt.dir.gather(1, grp[:, None])[:, 0]
+        if is_xl:
+            perm = xl.lane_order(sweep_tabs, pkt.pos, pkt.dir, grp)
+            p_pos, p_dir, p_act, grp = (pkt.pos[perm], pkt.dir[perm],
+                                        active[perm], grp[perm])
+            dtau_sub = xl.sweep_dtau(sweep_tabs, p_pos, p_dir,
+                                     sigma_lanes[:, perm], p_act,
+                                     want_sub=True)
+            dtau_slab = torch.sum(dtau_sub, dim=1)
+        else:
+            p_dir = pkt.dir
+            dtau_slab = sw.sweep_dtau(sweep_tabs, pkt.pos, pkt.dir,
+                                      sigma_lanes, active)
+        dmaj = p_dir.gather(1, grp[:, None])[:, 0]
         tb_slab, tau_path = sw.slab_prefix(dtau_slab, dmaj > 0)
+        if is_xl:
+            tau_path = _unsort(tau_path, perm)
         tau_int, w_bias, tau_ok = sample_interaction_tau(opts, u, tau_path)
         active_int = active & tau_ok
 
         # pass 2: RF deposits and the exact interaction point
         rf_mask = (active & rf_in_range) if use_rf else torch.zeros_like(active)
         lum_half = (pkt.lum * rf_mask) * inv_sqrt
-        scale_slab = (lum_half[None, :] * torch.exp(-tb_slab)) * inv_sqrt
-        rel_slab = tau_int[None, :] - tb_slab
-        rf_delta, s_int, icell, found = sw.sweep_deposit(
-            sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active, scale_slab,
-            rel_slab)
-        if use_rf:
-            rf[:, 0] += rf_delta[0]
+        if is_xl:
+            if use_rf:
+                scale_slab = (lum_half[perm][None, :]
+                              * torch.exp(-tb_slab)) * inv_sqrt
+                rf[:, 0] += xl.sweep_deposit(sweep_tabs, p_pos, p_dir, p_act,
+                                             dtau_sub, scale_slab)[0]
+            s_int, icell, found = (_unsort(x, perm) for x in
+                                   xl.resolve_interaction(
+                                       sweep_tabs, p_pos, p_dir,
+                                       active_int[perm], dtau_sub, tb_slab,
+                                       tau_int[perm]))
+        else:
+            scale_slab = (lum_half[None, :] * torch.exp(-tb_slab)) * inv_sqrt
+            rel_slab = tau_int[None, :] - tb_slab
+            rf_delta, s_int, icell, found = sw.sweep_deposit(
+                sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active, scale_slab,
+                rel_slab)
+            if use_rf:
+                rf[:, 0] += rf_delta[0]
         ipos = pkt.pos + s_int[:, None] * pkt.dir
         active_int = active_int & found
 

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..grids.cartesian import UniformCartesianGrid
 from ..kernels import build as kb
 
 _BIG = 3e37
@@ -45,6 +46,28 @@ class SweepTables(NamedTuple):
         return self.nd.shape[1]
 
 
+def supports_sweep(grid, med) -> bool:
+    """True when (grid, medium) takes the resident-table sweep.
+
+    The rule is the reference's geometry test (`skirt9_tpu/transport/
+    sweep.py:93-108`: a uniform grid, 3 * ceil(minor plane / 128) <= 128
+    rows, axes <= 256, the VMEM formula, <= 4 components) without its
+    backend test, so that the port picks the engine the reference picks on
+    its accelerator and each contract is held against its own counterpart.
+    It mirrors TPU limits (VMEM, the deposit's 128-row encoding), not
+    limits of the H100 kernels, which take any uniform grid."""
+    if not isinstance(grid, UniformCartesianGrid):
+        return False
+    nx, ny, nz = grid.shape
+    minor = max(ny * nz, nx * nz, nx * ny)
+    rows = -(-minor // 128)
+    nmax = max(nx, ny, nz)
+    if 3 * rows > 128 or nmax > 256:
+        return False
+    vmem = (med.ncomp * 3 + 3) * nmax * rows * 128 * 4
+    return med.ncomp <= 4 and vmem <= 10 * 2**20
+
+
 def build_tables(grid, med) -> SweepTables:
     lo = grid.lo.cpu().numpy().astype(np.float64)
     h = grid.h.cpu().numpy().astype(np.float64)
@@ -61,9 +84,9 @@ def dominant_axis(tabs: SweepTables, dirn: torch.Tensor) -> torch.Tensor:
     return torch.argmax(torch.abs(dirn) * inv_h, dim=-1)
 
 
-def _prep(tabs: SweepTables, pos, dirn, sigma, active):
-    """Per-lane setup: dominant axis (int32), in-grid range [smin, smax] with
-    smax = smin for inactive lanes, and (C, B) contiguous cross sections."""
+def _lane_range(tabs, pos, dirn, active):
+    """Per-lane dominant axis (int32) and in-grid path range [smin, smax],
+    with smax = smin for inactive lanes."""
     dev = pos.device
     lo = torch.tensor(tabs.lo, dtype=torch.float32, device=dev)
     hi = lo + (torch.tensor(tabs.n, dtype=torch.float32, device=dev)
@@ -81,40 +104,55 @@ def _prep(tabs: SweepTables, pos, dirn, sigma, active):
     # only if its position lies within that dimension's range
     inbox = ~torch.any(tiny & ((pos < lo) | (pos >= hi)), dim=-1)
     smax = torch.where(active & inbox & (smax > smin), smax, smin)
+    return group, smin.contiguous(), smax.contiguous()
+
+
+def _prep(tabs: SweepTables, pos, dirn, sigma, active):
+    """`_lane_range` plus the (C, B) contiguous f32 cross sections."""
+    group, smin, smax = _lane_range(tabs, pos, dirn, active)
     if sigma.dim() == 1:
         sigma = sigma[None, :]
-    return (group, smin.contiguous(), smax.contiguous(),
-            sigma.to(torch.float32).contiguous())
+    return group, smin, smax, sigma.to(torch.float32).contiguous()
 
 
-def _check(tabs: SweepTables, pos, dirn, sig, *slab_tables):
+def _check_inputs(pos, dirn, shaped):
     """Raise on inputs the kernels do not take (the wrappers pass raw
-    pointers): f32 (B, 3) rays, (C, B) cross sections with 1 <= C <= 4 and
-    C equal to the table's, (nmax, B) slab tables, all on one device."""
+    pointers): f32 (B, 3) rays and f32 tables of the given shapes, all on
+    one device. shaped: (tensor, expected shape, name) triples."""
     B = pos.shape[0]
     if pos.shape != (B, 3) or dirn.shape != (B, 3):
         raise ValueError(f"pos {tuple(pos.shape)} / dir {tuple(dirn.shape)} "
                          "must be (B, 3)")
-    if not 1 <= sig.shape[0] <= 4 or sig.shape != (tabs.ncomp, B):
-        raise ValueError(f"sigma {tuple(sig.shape)} must be (C, B) with "
-                         f"C = {tabs.ncomp} <= 4 components")
-    for t in slab_tables:
-        if t.shape != (tabs.nmax, B):
-            raise ValueError(f"slab table {tuple(t.shape)} must be "
-                             f"({tabs.nmax}, {B})")
-    for t in (pos, dirn, sig, tabs.nd, *slab_tables):
+    for t, shape, name in shaped:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} {tuple(t.shape)} must be {tuple(shape)}")
+    for t in (pos, dirn, *(t for t, _, _ in shaped)):
         if t.dtype != torch.float32:
             raise ValueError(f"sweep inputs must be float32, got {t.dtype}")
         if t.device != pos.device:
             raise ValueError("all sweep inputs must lie on one device")
 
 
+def _check(tabs: SweepTables, pos, dirn, sig, *slab_tables):
+    """`_check_inputs` for the resident kernels: (C, B) cross sections with
+    1 <= C <= 4 and C equal to the table's, the (ncells, C) table, and
+    (nmax, B) slab tables."""
+    B = pos.shape[0]
+    if not 1 <= sig.shape[0] <= 4 or sig.shape != (tabs.ncomp, B):
+        raise ValueError(f"sigma {tuple(sig.shape)} must be (C, B) with "
+                         f"C = {tabs.ncomp} <= 4 components")
+    _check_inputs(pos, dirn, [(sig, sig.shape, "sigma"),
+                              (tabs.nd, tabs.nd.shape, "density table")]
+                  + [(t, (tabs.nmax, B), "slab table") for t in slab_tables])
+
+
 # ------------------------------------------------------- plain PyTorch march
 
-def _march_plain(tabs: SweepTables, pos, dirn, group, smin, smax, sig):
-    """The slab march vectorised over (slab, lane): for each of the 3
-    sub-steps yields (s_cur, ds, dtau, cell) as (nmax, B) tensors, plus the
-    activity mask. Same f32 operations, in the same order, as the kernels."""
+def _lane_geometry(tabs, pos, dirn, group):
+    """Per-lane major/minor decomposition for the dominant axis `group`
+    (the reference's `_axis_geometry`): minor axes (u, v) = (y, z), (x, z),
+    (x, y) for axis 0, 1, 2, and the flat-cell strides of (slab, u, v).
+    Returns a dict of (B,) tensors."""
     dev = pos.device
     a = group.to(torch.int64)
     n_t = torch.tensor(tabs.n, dtype=torch.int64, device=dev)
@@ -123,24 +161,30 @@ def _march_plain(tabs: SweepTables, pos, dirn, group, smin, smax, sig):
     ua = torch.tensor([1, 0, 0], device=dev)[a]
     va = torch.tensor([2, 2, 1], device=dev)[a]
     sel = lambda x, ax: x.gather(1, ax[:, None])[:, 0]
-    pa, da = sel(pos, a), sel(dirn, a)
-    pu, du = sel(pos, ua), sel(dirn, ua)
-    pv, dv = sel(pos, va), sel(dirn, va)
-    loa, ha, na = lo_t[a], h_t[a], n_t[a]
-    lou, hu, nu = lo_t[ua], h_t[ua], n_t[ua]
-    lov, hv, nv = lo_t[va], h_t[va], n_t[va]
     nx, ny, nz = tabs.n
-    t_stride = torch.tensor([ny * nz, nz, 1], device=dev)[a]
-    u_stride = torch.tensor([nz, ny * nz, ny * nz], device=dev)[a]
-    v_stride = torch.tensor([1, 1, nz], device=dev)[a]
+    return dict(
+        pa=sel(pos, a), da=sel(dirn, a), loa=lo_t[a], ha=h_t[a], na=n_t[a],
+        pu=sel(pos, ua), du=sel(dirn, ua), lou=lo_t[ua], hu=h_t[ua],
+        nu=n_t[ua],
+        pv=sel(pos, va), dv=sel(dirn, va), lov=lo_t[va], hv=h_t[va],
+        nv=n_t[va],
+        t_stride=torch.tensor([ny * nz, nz, 1], device=dev)[a],
+        u_stride=torch.tensor([nz, ny * nz, ny * nz], device=dev)[a],
+        v_stride=torch.tensor([1, 1, nz], device=dev)[a])
 
-    t_i = torch.arange(tabs.nmax, device=dev)[:, None]          # (nmax, 1)
+
+def _substeps(g, t, smin, smax):
+    """The <= 3 sub-segments of slab t for every lane (the reference's
+    `sweepxl._substeps`): t is an int64 slab index broadcasting against the
+    lanes, (nmax, 1) for a whole march or (B,) for one slab per lane.
+    Returns [(s_cur, ds, iu, iv)] * 3 and the slab's activity mask. Same f32
+    operations, in the same order, as the kernels."""
     # slab entry [s_in, s_out) clipped to the in-grid range
-    tiny = torch.abs(da) < 1e-30
-    inv_da = 1.0 / torch.where(tiny, torch.ones_like(da), da)
-    b0 = loa + t_i.to(torch.float32) * ha
-    s0 = (b0 - pa) * inv_da
-    s1 = (b0 + ha - pa) * inv_da
+    tiny = torch.abs(g["da"]) < 1e-30
+    inv_da = 1.0 / torch.where(tiny, torch.ones_like(g["da"]), g["da"])
+    b0 = g["loa"] + t.to(torch.float32) * g["ha"]
+    s0 = (b0 - g["pa"]) * inv_da
+    s1 = (b0 + g["ha"] - g["pa"]) * inv_da
     s_in = torch.maximum(torch.where(tiny, smin, torch.minimum(s0, s1)), smin)
     s_out = torch.minimum(torch.where(tiny, smax, torch.maximum(s0, s1)), smax)
     act = s_in < s_out
@@ -153,6 +197,8 @@ def _march_plain(tabs: SweepTables, pos, dirn, group, smin, smax, sig):
                              ).to(torch.int64)
 
     s_nudge = s_in + 1e-4 * span
+    pu, du, lou, hu, nu = (g[k] for k in ("pu", "du", "lou", "hu", "nu"))
+    pv, dv, lov, hv, nv = (g[k] for k in ("pv", "dv", "lov", "hv", "nv"))
     iu = minor(pu, du, lou, hu, nu, s_nudge)
     iv = minor(pv, dv, lov, hv, nv, s_nudge)
     tiny_u = torch.abs(du) < 1e-30
@@ -161,10 +207,7 @@ def _march_plain(tabs: SweepTables, pos, dirn, group, smin, smax, sig):
     dv_safe = torch.where(tiny_v, torch.ones_like(dv), dv)
     step_u = torch.where(du > 0, 1, -1)
     step_v = torch.where(dv > 0, 1, -1)
-    # slabs past the lane's own axis length are inactive (ds = 0); clamp
-    # their index so the lookup stays inside the table
-    t_c = torch.minimum(t_i, na - 1)
-    big = torch.full((), _BIG, device=dev)
+    big = torch.full((), _BIG, device=du.device)
     s_cur = s_in
     steps = []
     for _ in range(3):
@@ -174,11 +217,7 @@ def _march_plain(tabs: SweepTables, pos, dirn, group, smin, smax, sig):
         sv = torch.where(tiny_v, big, (bv - pv) / dv_safe)
         s_nxt = torch.minimum(torch.minimum(su, sv), s_out)
         ds = torch.clamp_min(s_nxt - s_cur, 0.0) * actf
-        cell = t_c * t_stride + iu * u_stride + iv * v_stride
-        k = tabs.nd[cell, 0] * sig[0]
-        for c in range(1, sig.shape[0]):
-            k = k + tabs.nd[cell, c] * sig[c]
-        steps.append((s_cur, ds, k * ds, cell))
+        steps.append((s_cur, ds, iu, iv))
         cross_u = su <= sv
         iu = torch.minimum(torch.clamp_min(
             iu + torch.where(cross_u, step_u, 0), 0), nu - 1)
@@ -186,6 +225,35 @@ def _march_plain(tabs: SweepTables, pos, dirn, group, smin, smax, sig):
             iv + torch.where(cross_u, 0, step_v), 0), nv - 1)
         s_cur = s_nxt
     return steps, act
+
+
+def _slab_cells(tabs, pos, dirn, group, smin, smax):
+    """The march vectorised over (slab, lane), without the density: for each
+    of the 3 sub-steps (s_cur, ds, cell) as (nmax, B) tensors, plus the
+    activity mask."""
+    g = _lane_geometry(tabs, pos, dirn, group)
+    t_i = torch.arange(tabs.nmax, device=pos.device)[:, None]   # (nmax, 1)
+    subs, act = _substeps(g, t_i, smin, smax)
+    # slabs past the lane's own axis length are inactive (ds = 0); clamp
+    # their index so the lookup stays inside the table
+    t_c = torch.minimum(t_i, g["na"] - 1)
+    steps = [(s_cur, ds, t_c * g["t_stride"] + iu * g["u_stride"]
+              + iv * g["v_stride"]) for s_cur, ds, iu, iv in subs]
+    return steps, act
+
+
+def _march_plain(tabs: SweepTables, pos, dirn, group, smin, smax, sig):
+    """`_slab_cells` with the optical depth: for each of the 3 sub-steps
+    yields (s_cur, ds, dtau, cell) as (nmax, B) tensors, plus the activity
+    mask."""
+    steps, act = _slab_cells(tabs, pos, dirn, group, smin, smax)
+    out = []
+    for s_cur, ds, cell in steps:
+        k = tabs.nd[cell, 0] * sig[0]
+        for c in range(1, sig.shape[0]):
+            k = k + tabs.nd[cell, c] * sig[c]
+        out.append((s_cur, ds, k * ds, cell))
+    return out, act
 
 
 def _dtau_plain(tabs, pos, dirn, group, smin, smax, sig):
@@ -196,20 +264,24 @@ def _dtau_plain(tabs, pos, dirn, group, smin, smax, sig):
     return dtau
 
 
+def _segment_factor(dtau):
+    """(1 - e^-dtau) / dtau: the exact integral of e^-tau over a segment per
+    unit dtau; below dtau = 1e-3 the series form avoids the cancellation in
+    1 - e^-dtau."""
+    return torch.where(dtau < 1e-3, 1.0 - 0.5 * dtau,
+                       (1.0 - torch.exp(-torch.clamp_max(dtau, 80.0)))
+                       / torch.clamp_min(dtau, 1e-37))
+
+
 def _deposit_plain(tabs, pos, dirn, group, smin, smax, sig, scale, rel,
                    n_groups):
     steps, act = _march_plain(tabs, pos, dirn, group, smin, smax, sig)
     B = pos.shape[0]
-    ncells = tabs.nd.shape[0]
     tau_loc = torch.zeros_like(scale)
     contribs, hits, s_hits, cells = [], [], [], []
     for s_cur, ds, dtau, cell in steps:
-        # exact integral of L e^-tau over the segment; below dtau = 1e-3 the
-        # series form avoids the cancellation in 1 - e^-dtau
-        gfac = torch.where(dtau < 1e-3, 1.0 - 0.5 * dtau,
-                           (1.0 - torch.exp(-torch.clamp_max(dtau, 80.0)))
-                           / torch.clamp_min(dtau, 1e-37))
-        contribs.append(scale * torch.exp(-tau_loc) * ds * gfac)
+        contribs.append(scale * torch.exp(-tau_loc) * ds
+                        * _segment_factor(dtau))
         rem = rel - tau_loc
         hits.append(act & (rem >= 0.0) & (rem < dtau))
         s_hits.append(s_cur + rem / torch.clamp_min(dtau, 1e-37) * ds)
@@ -223,11 +295,20 @@ def _deposit_plain(tabs, pos, dirn, group, smin, smax, sig, scale, rel,
     icell = torch.stack(cells, dim=1).reshape(-1, B).gather(0, first)[0]
     s_int = torch.where(found, s_int, torch.zeros_like(s_int))
     icell = torch.where(found, icell, torch.full_like(icell, -1))
-    grp = torch.arange(B, device=pos.device) // (B // n_groups)
-    flat = grp * ncells + torch.stack(cells, dim=1)
-    rf = torch.zeros(n_groups * ncells, dtype=torch.float32, device=pos.device)
-    rf.index_add_(0, flat.reshape(-1), torch.stack(contribs, dim=1).reshape(-1))
-    return rf.reshape(n_groups, ncells), s_int, icell, found
+    rf = _deposit_sum(torch.stack(cells, dim=1),
+                      torch.stack(contribs, dim=1), tabs.nd.shape[0], n_groups)
+    return rf, s_int, icell, found
+
+
+def _deposit_sum(cells, contribs, ncells: int, n_groups: int):
+    """Sum (..., B) per-segment contributions into (n_groups, ncells) RF rows;
+    lane b deposits into row b // (B / n_groups)."""
+    B = cells.shape[-1]
+    grp = torch.arange(B, device=cells.device) // (B // n_groups)
+    rf = torch.zeros(n_groups * ncells, dtype=torch.float32,
+                     device=cells.device)
+    rf.index_add_(0, (grp * ncells + cells).reshape(-1), contribs.reshape(-1))
+    return rf.reshape(n_groups, ncells)
 
 
 # ----------------------------------------------------------- CUDA launches

@@ -6,9 +6,10 @@ suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Small shapes (16^3 grid, a few thousand lanes). Bounds as in chip_smoke.py:
-tau within 1e-5 relative, interaction points on the same cells, RF within
-1e-4 of its maximum, scatter sums within 1e-5 of the largest bin.
+Small shapes (a 16x12x20 grid, a few thousand lanes). Bounds as in
+chip_smoke.py: tau within 1e-5 relative, interaction points on the same
+cells, RF within 1e-4 of its maximum, scatter sums within 1e-5 of the
+largest bin; the XL pass 1's summed form within 1e-6 of its sub-step sum.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from skirt9_tpu_torch.kernels import build as kb
 from skirt9_tpu_torch.media import system as msys
 from skirt9_tpu_torch.ops import scatteradd as sca
 from skirt9_tpu_torch.transport import sweep as sw
+from skirt9_tpu_torch.transport import sweepxl as xl
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +89,50 @@ def test_sweep_deposit_kernel(dev, C, n_groups):
     both = f_k & f_p
     assert torch.equal(c_k[both], c_p[both])
     assert float((s_k[both] - s_p[both]).abs().max()) <= 1e-5 * tabs.h[0]
+    assert float((rf_k - rf_p).abs().max()) <= 1e-4 * float(rf_p.abs().max())
+
+
+def _xl_tables(tabs):
+    return xl.XLTables(nd=tabs.nd, n=tabs.n, lo=tabs.lo, h=tabs.h,
+                       nmax=tabs.nmax)
+
+
+@pytest.mark.parametrize("C,hint", [(1, None), (2, None), (3, 2)])
+def test_sweepxl_dtau_kernel(dev, C, hint):
+    tabs, pos, d, sig, active, _ = _inputs(dev, C, 3000, seed=20 + C)
+    args = (_xl_tables(tabs), pos, d, sig, active, hint)
+    kb.reset_launches()
+    k = xl.sweep_dtau(*args, want_sub=True)
+    summed = xl.sweep_dtau(*args)
+    assert kb.LAUNCHES["sweepxl_dtau"] == 2 and kb.LAUNCHES["sweep_dtau"] == 0
+    p = xl.sweep_dtau_plain(*args, want_sub=True)
+    assert k.shape == p.shape == (tabs.nmax, 3, 3000)
+    tk, tp = k.sum(dim=(0, 1)), p.sum(dim=(0, 1))
+    assert int((tp > 0).sum()) > 1000
+    rel = ((tk - tp).abs() / tp.clamp_min(1e-30))[tp > 0]
+    assert float(rel.max()) <= 1e-5
+    scale = float(summed.abs().max())
+    assert float((summed - k.sum(dim=1)).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("C,n_groups", [(1, 1), (2, 4)])
+def test_sweepxl_deposit_kernel(dev, C, n_groups):
+    B = 4096
+    tabs, pos, d, sig, active, rs = _inputs(dev, C, B, seed=30 + C)
+    xt = _xl_tables(tabs)
+    sub = xl.sweep_dtau_plain(xt, pos, d, sig, active, want_sub=True)
+    grp = sw.dominant_axis(tabs, d)
+    tb, _ = sw.slab_prefix(sub.sum(dim=1),
+                           d.gather(1, grp[:, None])[:, 0] > 0)
+    scale = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                         device=dev)[None] * torch.exp(-tb)
+    args = (xt, pos, d, active, sub, scale, n_groups)
+    kb.reset_launches()
+    rf_k = xl.sweep_deposit(*args)
+    assert kb.LAUNCHES["sweepxl_deposit"] == 1
+    rf_p = xl.sweep_deposit_plain(*args)
+    assert rf_k.shape == rf_p.shape == (n_groups, tabs.nd.shape[0])
+    assert float(rf_p.min()) >= 0 and float(rf_p.max()) > 0
     assert float((rf_k - rf_p).abs().max()) <= 1e-4 * float(rf_p.abs().max())
 
 

@@ -8,6 +8,12 @@ scan march, the port on the plain versions of its sweep kernels) and draw
 the same random numbers. Bounds: each SED kind within 1e-4 relative, the
 frame within 1e-3 of its brightest pixel, the statistics N within 0.1%, the
 one-bin RF within 1e-4 of its maximum.
+
+The same holds with the large-grid (XL) contracts put in place of the
+resident sweep. At 80^3 the port picks the XL contracts by itself, and its
+run matches the same seed on the resident sweep, at the CPU-vs-GPU
+draw-for-draw bounds of chip_smoke.py (SEDs 1e-4, frame 1e-3 of its
+maximum, RF total 1e-4).
 """
 
 import dataclasses
@@ -26,9 +32,15 @@ from skirt9_tpu.simulation import Simulation as RefSimulation
 from skirt9_tpu.sources.base import PointSource as RefPointSource
 from skirt9_tpu.transport import lifecycle as ref_lc
 from skirt9_tpu_torch import bridge
+from skirt9_tpu_torch.grids.cartesian import make_cartesian as port_cartesian
 from skirt9_tpu_torch.instruments import distant as dinst
 from skirt9_tpu_torch.kernels import build as kb
+from skirt9_tpu_torch.media import system as msys
 from skirt9_tpu_torch.simulation import Simulation
+from skirt9_tpu_torch.sources.base import PointSource
+from skirt9_tpu_torch.transport import lifecycle as lc
+from skirt9_tpu_torch.transport import sweep as sw
+from skirt9_tpu_torch.transport import sweepxl as xl
 
 PC = 3.0857e16
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,6 +117,61 @@ def test_config1_rf_matches_reference():
     rf = rf.numpy().astype(np.float64)
     assert rf.shape == rf_r.shape == (16 ** 3, 1)
     assert np.abs(rf - rf_r).max() <= 1e-4 * np.abs(rf_r).max()
+
+
+@pytest.mark.parametrize("store_rf", [False, True], ids=["no_rf", "rf"])
+def test_config1_xl_matches_reference(store_rf):
+    ref_sim = _reference_config1(store_rf=store_rf)
+    sim = bridge.simulation(ref_sim, device="cpu")
+    assert isinstance(sim._sweep_tabs, sw.SweepTables)
+    sim._sweep_tabs = xl.build_tables(sim.grid, sim.medium)
+    rf_r, rf = _compare(ref_sim, sim)
+    if store_rf:
+        rf_r = np.asarray(rf_r, np.float64)
+        rf = rf.numpy().astype(np.float64)
+        assert np.abs(rf - rf_r).max() <= 1e-4 * np.abs(rf_r).max()
+
+
+def _port_config1(n: int):
+    """Config 1 with a one-bin RF on an n^3 grid, through the port's API."""
+    grid = port_cartesian(((-1.2 * PC, 1.2 * PC),) * 3, (n,) * 3)
+    nd = msys.uniform_density_sphere(grid, 1.0, 1e-24, PC)
+    med = msys.make_medium(grid, nd, np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), 1e-24),
+                           albedo=np.full((1, 2), 0.6), g=np.full((1, 2), 0.5))
+    inst = dinst.DistantInstrumentCfg(
+        name="i0", wave_borders=(0.5e-6, 0.6e-6), distance=100 * PC,
+        npx=16, npy=16, fovx=4 * PC, fovy=4 * PC)
+    return Simulation(grid=grid, medium=med,
+                      sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
+                      instruments=[inst],
+                      options=lc.TransportOptions(max_steps=grid.max_steps(),
+                                                  max_events=8),
+                      rf_borders=np.array([0.5e-6, 0.6e-6]),
+                      num_packets=2048, batch_size=1024, seed=0,
+                      device="cpu")
+
+
+def test_xl_engine_at_80_matches_resident():
+    runs = []
+    for engine in ("xl", "resident"):
+        sim = _port_config1(80)
+        assert isinstance(sim._sweep_tabs, xl.XLTables)
+        if engine == "resident":
+            sim._sweep_tabs = sw.build_tables(sim.grid, sim.medium)
+        kb.reset_launches()
+        runs.append(sim.run_primary(verbose=False))
+        assert all(v == 0 for v in kb.LAUNCHES.values())
+    (rf_x, accs_x), (rf_s, accs_s) = runs
+    sed_x = dinst.calibrate_sed(sim.instruments[0], accs_x[0])
+    sed_s = dinst.calibrate_sed(sim.instruments[0], accs_s[0])
+    for kind in ("transparent", "primarydirect", "primaryscattered", "total"):
+        assert sed_s[kind][0] > 0
+        assert abs(sed_x[kind][0] - sed_s[kind][0]) <= 1e-4 * sed_s[kind][0]
+    fx, fs = accs_x[0]["frame"].double(), accs_s[0]["frame"].double()
+    assert float((fx - fs).abs().max()) <= 1e-3 * float(fs.abs().max())
+    tx, ts = float(rf_x.double().sum()), float(rf_s.double().sum())
+    assert ts > 0 and abs(tx - ts) <= 1e-4 * ts
 
 
 def test_two_components_match_reference():
