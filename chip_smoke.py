@@ -7,8 +7,10 @@ Drives config 1 of bench.py (point source, uniform dust sphere, forced
 scattering, HG peel-off to one SED + 64x64 frame instrument) through the
 port's Python API on two paths: the 32^3 grid of bench.py config 1 (resident
 sweep, kernels 1-3) and the 256^3 grid of bench.py `bench_config1x256`
-(large-grid XL sweep, kernels 6-7 and 3). Each hand-written CUDA kernel is
-checked against its plain PyTorch version. Phases, one JSON line each:
+(large-grid XL sweep, kernels 6-7 and 3); then bench.py's clumpy-ISM
+site-list octrees `bench_config3ism` and `bench_config3ismxl` (multi-level
+tree sweep, kernels 4-5 and 3). Each hand-written CUDA kernel is checked
+against its plain PyTorch version. Phases, one JSON line each:
 
   env               torch / CUDA / nvcc versions, the card, its power limit
   build             nvcc build of skirt9_tpu_torch/csrc/*.cu, one process per
@@ -37,12 +39,45 @@ checked against its plain PyTorch version. Phases, one JSON line each:
   rf_xl             the same with a one-bin RF: kernel 7 launched, the RF
                     finite and positive, its total within 1e-4 of the same
                     seed's run on the resident sweep (kernels 1-2)
+  kernels_ml        kernels 4-5 (the multi-level tree sweep) vs their plain
+                    versions through their public wrappers, B = 65536,
+                    C = 1: kernel 4 on bench_config3ism's site-list octree
+                    (a 128^3 fine raster) and on bench_config3ismxl's (256^3,
+                    its leaf map beyond L2), with want_sub, summed and with
+                    the +z peel-off hint, tau within 1e-5 relative
+                    (bit-identical expected) and leaf ids identical; kernel
+                    5 on config3ism's tree, its RF within 1e-5 of its
+                    maximum, s_int, found and the interaction cells equal;
+                    timed, with resolve_interaction (the no-RF pass 2)
+                    beside kernel 5
+  draw_for_draw_ml  the density octree of tests/test_mlsweep.py (max_level
+                    4) with a one-bin RF, 16,384 packets, CPU vs GPU: SEDs
+                    within 1e-4, frame 1e-3 of its brightest pixel, RF total
+                    1e-4
+  full_width_ml     bench_config3ism (bench.py:317-367: 46 x 26 sites,
+                    max_level 7, about 5,000 leaves, 2^17 packets in batches
+                    of 2^16, 16 events, no RF), timed after a warm-up:
+                    kernels 4 and 3 launched, no uniform-grid sweep; the
+                    transparent SED analytic within 1e-5, direct/transparent
+                    = exp(-0.5) within 1e-3, R < 0.01
+  full_width_ml_large  bench_config3ismxl's tree (bench.py:370-420: 400 x 96
+                    sites, max_level 8, about 1.4e5 leaves on a 256^3 fine
+                    raster), the same run and gates; the reference sends
+                    this tree to its XL fine raster, the port's rule to
+                    kernels 4-5
+  breakdown_ml      one more full_width_ml run under torch.profiler: device
+                    launches per event, busy and idle shares, top kernels
+  rf_ml             full_width_ml with a one-bin RF: kernel 5 launched, the
+                    RF finite and positive, packets/s against full_width_ml
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
-the kernel summary line, the nvidia-smi name/power line, and last
-{"ok": true, "device": {...}}. Any failed check raises and the script exits
-non-zero without that line; so does a machine without CUDA.
+the kernel summary line (each kernel's launches on its path, its error and
+time against the plain version, its bound from this run's inputs and, where
+one PyTorch call computes the same function, that call's time), the
+nvidia-smi name/power line, and last {"ok": true, "device": {...}}. Any
+failed check raises and the script exits non-zero without that line; so
+does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -59,6 +94,17 @@ import numpy as np
 
 PC = 3.0857e16
 B_FULL = 1 << 17
+B_ML = 1 << 16            # bench_config3ism's batch
+
+# the H100 SXM's published peaks (NVIDIA's datasheet, at 700 W): HBM
+# bytes/s and f32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per active (slab or plan step, lane) thread, counted in
+# csrc/sweep_common.cuh: entering the slab (29), one sub-step of the minor
+# DDA (14), the opacity of C components (2C), a deposit's contribution with
+# its segment factor and the interaction test (12)
+OPS_SLAB, OPS_SUB, OPS_DEP = 29, 14, 12
 
 
 def emit(obj) -> None:
@@ -157,6 +203,28 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the HBM rate and
+    the f32 operations over the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def lane_bytes(B: int, C: int) -> int:
+    """Per-lane inputs of a sweep kernel: pos, dir, axis, smin, smax, sig."""
+    return B * (12 + 12 + 4 + 4 + 4 + 4 * C)
+
+
+def active_slabs(tabs, pos, dirn, g, smin, smax) -> int:
+    """(slab, lane) pairs whose slab the ray crosses (uniform grids)."""
+    from skirt9_tpu_torch.transport import sweep as sw
+    return int(sw._slab_cells(tabs, pos, dirn, g, smin, smax)[1].sum())
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_env(torch) -> str:
@@ -218,8 +286,13 @@ def phase_kernels(torch) -> dict:
     ms1 = cuda_ms(lambda: sw._dtau_cuda(tabs, pos, dirn, g, smin, smax, sg))
     pms1 = cuda_ms(lambda: sw._dtau_plain(tabs, pos, dirn, g, smin, smax, sg),
                    reps=5)
-    out["sweep_dtau"] = dict(max_abs_err=err1, max_rel_tau_err=rel1, ms=ms1,
-                             plain_ms=pms1)
+    n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
+    tab_bytes = tabs.nd.numel() * 4
+    out["sweep_dtau"] = dict(
+        max_abs_err=err1, max_rel_tau_err=rel1, ms=ms1, plain_ms=pms1,
+        library_ms=None, active_pairs=n_act,
+        **bound(lane_bytes(B, 1) + tab_bytes + tabs.nmax * B * 4,
+                n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)))
 
     # kernel 2: deposits with nonzero scale, interaction at a random depth
     grp = sw.dominant_axis(tabs, dirn)
@@ -246,9 +319,12 @@ def phase_kernels(torch) -> dict:
             f"kernel 2 rf error {rf_err} <= 1e-4 * {rf_max}")
     ms2 = cuda_ms(lambda: sw._deposit_cuda(*dep_args))
     pms2 = cuda_ms(lambda: sw._deposit_plain(*dep_args), reps=5)
-    out["sweep_deposit"] = dict(max_abs_err=rf_err, rf_max=rf_max,
-                                found_agreement=agree, s_int_err=ds_err,
-                                ms=ms2, plain_ms=pms2)
+    out["sweep_deposit"] = dict(
+        max_abs_err=rf_err, rf_max=rf_max, found_agreement=agree,
+        s_int_err=ds_err, ms=ms2, plain_ms=pms2, library_ms=None,
+        **bound(lane_bytes(B, 1) + tab_bytes + 2 * tabs.nmax * B * 4
+                + rf_k.numel() * 4 + B * 12,
+                n_act * (OPS_SLAB + 3 * (OPS_SUB + 2 + OPS_DEP))))
 
     # kernel 3: the SED / statistics bin (size 1) and the frame (size 4096)
     err3, times = 0.0, {}
@@ -263,11 +339,16 @@ def phase_kernels(torch) -> dict:
         require(e <= 1e-5 * float(p_.abs().max()),
                 f"kernel 3 size {size} error {e} <= 1e-5 relative")
         err3 = max(err3, e)
+        # the library yardstick: one index_add_ call into a zeroed table
+        acc, idx64 = torch.zeros(size, device=dev), idx.long()
         times[size] = (cuda_ms(lambda: sca.scatter_add(idx, val, size)),
-                       cuda_ms(lambda: sca.scatter_add_plain(idx, val, size)))
-    out["scatter_add"] = dict(max_abs_err=err3, ms=times[4096][0],
-                              plain_ms=times[4096][1], ms_size1=times[1][0],
-                              plain_ms_size1=times[1][1])
+                       cuda_ms(lambda: sca.scatter_add_plain(idx, val, size)),
+                       cuda_ms(lambda: acc.index_add_(0, idx64, val)))
+    out["scatter_add"] = dict(
+        max_abs_err=err3, ms=times[4096][0], plain_ms=times[4096][1],
+        library_ms=times[4096][2], ms_size1=times[1][0],
+        plain_ms_size1=times[1][1], library_ms_size1=times[1][2],
+        **bound(B * 8 + 4096 * 4, B))
     emit({"phase": "kernels", "batch": B, "grid": list(tabs.n), **out})
     return out
 
@@ -353,13 +434,20 @@ def phase_kernels_xl(torch) -> dict:
     ms1_sorted = cuda_ms(lambda: sw._dtau_cuda(*ev))
     ms1_unsorted = cuda_ms(lambda: sw._dtau_cuda(*ev_u))
     ms7 = cuda_ms(lambda: xl._deposit_cuda(*dep))
+    n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
+    rec = tabs.nmax * B * 4
     out["sweepxl_dtau"] = dict(
         max_abs_err=err6, max_rel_tau_err=rel6, summed_err=sum_err, ms=ms6,
-        plain_ms=pms6, ms_summed=ms6_sum, ms_peel_z=ms6_peel,
+        plain_ms=pms6, library_ms=None, ms_summed=ms6_sum, ms_peel_z=ms6_peel,
         ms_unsorted=ms6_unsorted, kernel1_ms_sorted=ms1_sorted,
-        kernel1_ms_unsorted=ms1_unsorted)
-    out["sweepxl_deposit"] = dict(max_abs_err=rf_err, rf_max=rf_max, ms=ms7,
-                                  plain_ms=pms7)
+        kernel1_ms_unsorted=ms1_unsorted, active_pairs=n_act,
+        **bound(lane_bytes(B, 1) + tabs.nd.numel() * 4 + 3 * rec,
+                n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)))
+    out["sweepxl_deposit"] = dict(
+        max_abs_err=rf_err, rf_max=rf_max, ms=ms7, plain_ms=pms7,
+        library_ms=None,
+        **bound(lane_bytes(B, 0) + 4 * rec + tabs.nd.shape[0] * 4,
+                n_act * (OPS_SLAB + 3 * (OPS_SUB + OPS_DEP))))
     emit({"phase": "kernels_xl", "batch": B, "grid": list(tabs.n), **out})
     return out
 
@@ -415,7 +503,7 @@ def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
                      must=RESIDENT + ("scatter_add",), must_not=XL, **kw):
     """A config-1 path at full width, timed after one warm-up run, with the
     correctness gates. kw: config1's arguments (grid size, packets)."""
-    from skirt9_tpu.utils.fits import read_fits
+    from skirt9_tpu_torch.utils.fits import read_fits
     sim = config1("cuda", **kw)
     require(type(sim._sweep_tabs).__name__ == tables,
             f"{sim.grid.nx}^3 builds {tables}")
@@ -514,6 +602,364 @@ def phase_rf_xl(torch) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ tree grids
+
+ML = ("mlsweep_dtau", "mlsweep_deposit")
+# bench_config3ism (bench.py:336-342) and bench_config3ismxl (:390-396):
+# clumps, sites per clump, clump scale [pc], max_level
+ISM = {"config3ism": (46, 26, 0.04, 7), "config3ismxl": (400, 96, 0.03, 8)}
+
+
+def config3ism(device, name="config3ism", store_rf=False,
+               num_packets=1 << 17, batch_size=B_ML):
+    """bench.py's clumpy-ISM configuration through the port's API: a
+    site-list octree over (-1 pc, 1 pc)^3, uniform nd = 1/(sigma 2 pc) with
+    sigma = 1e-25 m^2, albedo 0.5, g = 0.3, one distant instrument with a
+    64x64 frame, 16 events. Returns (sim, host seconds of the tree build,
+    host seconds of the Simulation set-up, which builds the tables)."""
+    from skirt9_tpu_torch.grids.octree import build_octree, site_list_refine_fn
+    from skirt9_tpu_torch.instruments.distant import DistantInstrumentCfg
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.simulation import Simulation
+    from skirt9_tpu_torch.sources.base import PointSource
+    from skirt9_tpu_torch.transport.lifecycle import TransportOptions
+
+    n_clumps, n_sites, scale, max_level = ISM[name]
+    sigma = 1e-25
+    rs = np.random.default_rng(9)
+    cc = rs.uniform(-0.85, 0.85, size=(n_clumps, 3)) * PC
+    sites = np.concatenate(
+        [c + rs.normal(scale=scale * PC, size=(n_sites, 3)) for c in cc])
+    t0 = time.perf_counter()
+    grid = build_octree(((-PC, PC),) * 3, lambda p: np.ones(len(p)),
+                        max_level=max_level, min_level=2,
+                        refine_fn=site_list_refine_fn(sites, 1))
+    t_tree = time.perf_counter() - t0
+    nd = (1.0 / (sigma * 2 * PC)) * np.ones(grid.ncells, np.float32)
+    med = msys.make_medium(grid, nd, np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), sigma),
+                           albedo=np.full((1, 2), 0.5), g=np.full((1, 2), 0.3))
+    inst = DistantInstrumentCfg(name="i0", wave_borders=(0.5e-6, 0.6e-6),
+                                distance=100 * PC, npx=64, npy=64,
+                                fovx=4 * PC, fovy=4 * PC)
+    opts = TransportOptions(max_steps=grid.max_steps(), max_events=16,
+                            store_rf=store_rf)
+    t0 = time.perf_counter()
+    sim = Simulation(grid=grid, medium=med,
+                     sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
+                     instruments=[inst], options=opts,
+                     rf_borders=(np.array([0.5e-6, 0.6e-6]) if store_rf
+                                 else None),
+                     num_packets=num_packets, batch_size=batch_size, seed=0,
+                     device=device)
+    return sim, t_tree, time.perf_counter() - t0
+
+
+def box_rays(torch, sim, rs, B):
+    """B packets uniform in the tree's box with isotropic directions: pos,
+    dir (B, 3), cross sections (1, B), in-grid mask."""
+    lo = sim.grid.box_lo.double().cpu().numpy()
+    hi = sim.grid.box_hi.double().cpu().numpy()
+    d = rs.normal(size=(B, 3))
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=sim.device)
+    pos = t32(rs.uniform(lo, hi, (B, 3)))
+    dirn = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    sig = torch.full((1, B), 1e-25, dtype=torch.float32, device=sim.device)
+    return pos, dirn, sig, sim.grid.locate(pos) >= 0
+
+
+def _dtau_ml(torch, sim, rs):
+    """Kernel 4 against its plain version on one tree at B = 65536, both
+    through the public wrappers (`mlsweep.sweep_dtau`, `sweep_dtau_plain`):
+    the event record (want_sub: tau and leaf ids), the summed form, and the
+    +z peel-off march with its axis hint; tau within 1e-5 relative and the
+    leaf ids identical. Then its timings on the launch alone (the lane
+    set-up done once) and its bound. Returns (entry, rays, lane set-up,
+    the kernel's and the plain version's record)."""
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    from skirt9_tpu_torch.transport import sweep as sw
+    tabs = sim._sweep_tabs
+    require(isinstance(tabs, ml.MLTables), "the tree builds MLTables")
+    B = B_ML
+    rays = box_rays(torch, sim, rs, B)
+    pos, dirn, sig, active = rays
+    kz = torch.zeros_like(dirn)
+    kz[:, 2] = 1.0
+    sub_k, cell_k = ml.sweep_dtau(tabs, pos, dirn, sig, active, want_sub=True)
+    sub_p, cell_p = ml.sweep_dtau_plain(tabs, pos, dirn, sig, active,
+                                        want_sub=True)
+    sum_k = ml.sweep_dtau(tabs, pos, dirn, sig, active)
+    sum_p = ml.sweep_dtau_plain(tabs, pos, dirn, sig, active)
+    z_k = ml.sweep_dtau(tabs, pos, kz, sig, active, axis_hint=2)
+    z_p = ml.sweep_dtau_plain(tabs, pos, kz, sig, active, axis_hint=2)
+    torch.cuda.synchronize()
+    rel = 0.0
+    for tk, tp in ((sub_k.sum(dim=(0, 1)), sub_p.sum(dim=(0, 1))),
+                   (sum_k.sum(0), sum_p.sum(0)), (z_k.sum(0), z_p.sum(0))):
+        require(bool((tp > 0).sum() > B // 2), "kernel 4 test rays see dust")
+        rel = max(rel, float(((tk - tp).abs()
+                              / tp.clamp_min(1e-30))[tp > 0].max()))
+    require(rel <= 1e-5, f"kernel 4 max relative tau error {rel} <= 1e-5 "
+            f"({tabs.n[0]}^3 raster)")
+    require(bool(torch.equal(cell_k, cell_p)),
+            f"kernel 4 leaf ids identical ({tabs.n[0]}^3 raster)")
+    err = max(float((a - b).abs().max()) for a, b in
+              ((sub_k, sub_p), (sum_k, sum_p), (z_k, z_p)))
+    identical = all(bool(torch.equal(a, b)) for a, b in
+                    ((sub_k, sub_p), (sum_k, sum_p), (z_k, z_p)))
+    del sum_k, sum_p, z_k, z_p
+
+    lanes = sw._prep(tabs, pos, dirn, sig, active)
+    g, smin, smax, sg = lanes
+    gz, sminz, smaxz, _ = sw._prep(tabs, pos, kz, sig, active)
+    ev = (tabs, pos, dirn, g, smin, smax, sg)
+    pl = (tabs, pos, kz, torch.full_like(gz, 2), sminz, smaxz, sg)
+    pms = cuda_ms(lambda: ml._dtau_plain(*ev, True), reps=3)
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: ml._dtau_cuda(*ev, True))
+    ms_sum = cuda_ms(lambda: ml._dtau_cuda(*ev, False))
+    ms_peel = cuda_ms(lambda: ml._dtau_cuda(*pl, False))
+    # the rate of PyTorch's own gather on the leaf map (L2-resident on a
+    # 128^3 raster, not on a 256^3 one)
+    flat = torch.randint(0, tabs.leafmap.numel(), (1 << 24,),
+                         device=dirn.device)
+    gather_ms = cuda_ms(lambda: tabs.leafmap[flat])
+    gathers_per_s = flat.numel() / (gather_ms * 1e-3)
+    del flat
+    n_live = int(ml._plan_substeps(tabs, pos, dirn, g, smin, smax)[3].sum())
+    rec = tabs.n_steps * 3 * B * 4
+    entry = dict(
+        max_abs_err=err, bit_identical=identical, max_rel_tau_err=rel, ms=ms,
+        plain_ms=pms, library_ms=None, ms_summed=ms_sum, ms_peel_z=ms_peel,
+        live_pairs=n_live, fine_grid=list(tabs.n), n_steps=tabs.n_steps,
+        leaves=tabs.nd.shape[0], torch_gather_per_s=gathers_per_s,
+        gather_bound_ms=2 * 3 * n_live / gathers_per_s * 1e3,
+        **bound(lane_bytes(B, 1) + tabs.nd.numel() * 4
+                + tabs.leafmap.numel() * 4 + 2 * tabs.n_steps * 4 + 2 * rec,
+                n_live * (OPS_SLAB + 3 * (OPS_SUB + 2 + 1))))
+    return entry, rays, lanes, (sub_k, cell_k), (sub_p, cell_p)
+
+
+def phase_kernels_ml(torch) -> dict:
+    """Kernels 4 and 5 against their plain versions at B = 65536 through
+    their public wrappers: kernel 4 on bench_config3ism's tree (the
+    full_width_ml path) and on bench_config3ismxl's (full_width_ml_large:
+    a 256^3 raster whose leaf map exceeds L2), kernel 5 on config3ism's
+    (rf_ml); then timings, with resolve_interaction (pass 2 of the path
+    without an RF) beside kernel 5."""
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    from skirt9_tpu_torch.transport import sweep as sw
+    sim_l, _, _ = config3ism("cuda", "config3ismxl")
+    large = _dtau_ml(torch, sim_l, np.random.default_rng(5))[0]
+    del sim_l
+    torch.cuda.empty_cache()
+    sim, _, _ = config3ism("cuda")
+    tabs = sim._sweep_tabs
+    rs = np.random.default_rng(4)
+    k4, (pos, dirn, _, active), (g, smin, smax, _), (sub_k, cell_k), \
+        (sub_p, cell_p) = _dtau_ml(torch, sim, rs)
+    B = B_ML
+
+    # kernel 5: deposits and the interaction at a random depth
+    dmaj = dirn.gather(1, g.long()[:, None])[:, 0]
+    tb, tot = sw.slab_prefix(sub_p.sum(dim=1), dmaj > 0)
+    lum = torch.tensor(rs.uniform(0.5, 2.0, B), dtype=torch.float32,
+                       device=dirn.device) * active
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dirn.device) * tot
+    rf_k, s_k, c_k, f_k = ml.sweep_deposit(tabs, pos, dirn, active, sub_p,
+                                           cell_p, lum, tau_int, tb, 0.5)
+    rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(tabs, pos, dirn, active,
+                                                 sub_p, cell_p, lum, tau_int,
+                                                 tb, 0.5)
+    torch.cuda.synchronize()
+    require(int(f_p.sum()) > B // 2, "kernel 5 test rays interact")
+    require(bool(torch.equal(f_k, f_p)), "kernel 5 found identical")
+    s_err = float((s_k[f_k] - s_p[f_p]).abs().max())
+    require(s_err <= 1e-5 * tabs.h[0], f"kernel 5 s_int error {s_err}")
+    require(bool(torch.equal(c_k, c_p)), "kernel 5 interaction cells equal")
+    rf_err = float((rf_k - rf_p).abs().max())
+    rf_max = float(rf_p.abs().max())
+    require(rf_max > 0 and rf_err <= 1e-5 * rf_max,
+            f"kernel 5 rf error {rf_err} <= 1e-5 * {rf_max}")
+
+    # timings on the launch alone: plain version first, then free its tensors
+    dep = (tabs, pos, dirn, g, smin, smax, sub_p, cell_p, lum, tau_int, tb,
+           0.5)
+    pms5 = cuda_ms(lambda: ml._deposit_plain(*dep), reps=3)
+    del sub_p, cell_p, rf_p, dep
+    dep = (tabs, pos, dirn, g, smin, smax, sub_k, cell_k, lum, tau_int, tb,
+           0.5)
+    torch.cuda.empty_cache()
+    ms5 = cuda_ms(lambda: ml._deposit_cuda(*dep))
+    # pass 2 as the path calls it: kernel 5 with the interaction cell, or
+    # without an RF the reference's resolve_interaction in torch ops
+    act_int = active & (tot > 1e-6)
+    ms_pass2_rf = cuda_ms(lambda: ml.sweep_deposit(
+        tabs, pos, dirn, active, sub_k, cell_k, lum, tau_int, tb, 0.5))
+    ms_resolve = cuda_ms(lambda: ml.resolve_interaction(
+        tabs, pos, dirn, act_int, sub_k, tb, tau_int))
+
+    rec = tabs.n_steps * 3 * B * 4
+    n_live = k4["live_pairs"]
+    k4["large_tree"] = large
+    k4["max_abs_err"] = max(k4["max_abs_err"], large["max_abs_err"])
+    out = {"mlsweep_dtau": k4}
+    out["mlsweep_deposit"] = dict(
+        max_abs_err=rf_err, rf_max=rf_max, s_int_err=s_err, ms=ms5,
+        plain_ms=pms5, library_ms=None, ms_pass2_rf=ms_pass2_rf,
+        ms_resolve_interaction=ms_resolve,
+        **bound(lane_bytes(B, 0) + 8 * B + 2 * rec + rec // 3
+                + 2 * tabs.n_steps * 4 + tabs.nd.shape[0] * 4 + 8 * B,
+                n_live * (OPS_SLAB + 3 + 3 * (OPS_SUB + OPS_DEP))))
+    emit({"phase": "kernels_ml", "batch": B, **out})
+    return out
+
+
+def ml_problem(device, num_packets=16384, batch_size=4096):
+    """The density octree of tests/test_mlsweep.py:30-47 (max_level 4) with
+    a one-bin RF and a 64x64 frame, through the port's API."""
+    from skirt9_tpu_torch.grids.octree import build_octree
+    from skirt9_tpu_torch.instruments.distant import DistantInstrumentCfg
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.simulation import Simulation
+    from skirt9_tpu_torch.sources.base import PointSource
+    from skirt9_tpu_torch.transport.lifecycle import TransportOptions
+
+    sigma = 1e-24
+
+    def dens(p):
+        r = np.linalg.norm(p, axis=-1)
+        return np.where(r < PC, (PC / np.maximum(r, 0.1 * PC)) ** 2, 0.0)
+
+    grid = build_octree(((-1.2 * PC, 1.2 * PC),) * 3, dens, max_level=4,
+                        min_level=1, max_fraction=2e-2)
+    nd = dens(grid.cell_centers().double().numpy()) / (sigma * PC)
+    med = msys.make_medium(grid, nd.astype(np.float32),
+                           np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), sigma),
+                           albedo=np.full((1, 2), 0.5), g=np.full((1, 2), 0.3))
+    inst = DistantInstrumentCfg(name="i", wave_borders=(0.5e-6, 0.6e-6),
+                                distance=100 * PC, npx=64, npy=64,
+                                fovx=4 * PC, fovy=4 * PC)
+    return Simulation(grid=grid, medium=med,
+                      sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
+                      instruments=[inst],
+                      options=TransportOptions(max_steps=grid.max_steps(),
+                                               max_events=16),
+                      rf_borders=np.array([0.5e-6, 0.6e-6]),
+                      num_packets=num_packets, batch_size=batch_size, seed=4,
+                      device=device)
+
+
+def phase_draw_for_draw_ml(torch) -> None:
+    """The port on the CPU (plain versions) against the port on the GPU
+    (kernels 4-5), the same seed, on a density octree with a one-bin RF."""
+    runs = {}
+    for device in ("cpu", "cuda"):
+        sim = ml_problem(device)
+        require(type(sim._sweep_tabs).__name__ == "MLTables",
+                "the density octree builds MLTables")
+        rf, accs = sim.run_primary(verbose=False)
+        runs[device] = (sim, rf, accs)
+    (sc, rfc, ac), (sg, rfg, ag) = runs["cpu"], runs["cuda"]
+    sed_c, sed_g = _sed(sc, ac), _sed(sg, ag)
+    worst = 0.0
+    for kind in ("transparent", "primarydirect", "primaryscattered", "total"):
+        require(sed_c[kind][0] > 0, f"{kind} SED positive")
+        e = abs(sed_g[kind][0] - sed_c[kind][0]) / sed_c[kind][0]
+        require(e <= 1e-4, f"draw-for-draw (octree) {kind} SED {e} <= 1e-4")
+        worst = max(worst, e)
+    fc = ac[0]["frame"].double()
+    fg = ag[0]["frame"].double().cpu()
+    fe = float((fg - fc).abs().max() / fc.abs().max())
+    require(fe <= 1e-3, f"draw-for-draw (octree) frame {fe} <= 1e-3 of max")
+    tc, tg = float(rfc.double().sum()), float(rfg.double().sum())
+    e_rf = abs(tg - tc) / tc
+    require(tc > 0 and e_rf <= 1e-4, f"draw-for-draw (octree) RF total {e_rf}")
+    emit({"phase": "draw_for_draw_ml", "leaves": sc.grid.ncells,
+          "fine_grid": list(sc._sweep_tabs.n), "packets": sc.num_packets,
+          "batch": sc.batch_size, "sed_rel_err": worst, "frame_err": fe,
+          "rf_total_rel_err": e_rf,
+          "rf_cell_err": float((rfg.double().cpu() - rfc.double()).abs().max()
+                               / rfc.abs().max())})
+
+
+def phase_full_width_ml(torch, smi: str, phase="full_width_ml",
+                        name="config3ism", store_rf=False):
+    """A clumpy-ISM tree at full width, timed after one warm-up run, with
+    the correctness gates."""
+    sim, t_tree, t_setup = config3ism("cuda", name, store_rf=store_rf)
+    tabs = sim._sweep_tabs
+    require(type(tabs).__name__ == "MLTables", f"{name} builds MLTables")
+    sim.run_primary(verbose=False)          # warm-up
+    must = ("mlsweep_dtau", "scatter_add") + (("mlsweep_deposit",)
+                                              if store_rf else ())
+    must_not = RESIDENT + XL + (() if store_rf else ("mlsweep_deposit",))
+    (rf, accs), launches = drive(must, must_not,
+                                 lambda: sim.run_primary(verbose=False))
+    stats = dict(sim.last_stats)
+    sed = _sed(sim, accs)
+    cfg = sim.instruments[0]
+    dlam = cfg.wave_borders[1] - cfg.wave_borders[0]
+    expect = 1.0 / (4.0 * math.pi * cfg.distance ** 2 * dlam)
+    e_tr = abs(sed["transparent"][0] - expect) / expect
+    require(e_tr <= 1e-5, f"transparent SED {e_tr} <= 1e-5 of L/(4 pi d^2)")
+    # tau from the centre to the box face along +z: nd sigma pc = 0.5
+    ratio = sed["primarydirect"][0] / sed["transparent"][0]
+    e_dir = abs(ratio - math.exp(-0.5))
+    require(e_dir <= 1e-3, f"direct/transparent {ratio} vs exp(-0.5) "
+            "within 1e-3")
+    require(sed["R"][0] < 0.01, f"SED relative error R {sed['R'][0]} < 0.01")
+    res = {"phase": phase, "config": name, "leaves": sim.grid.ncells,
+           "fine_grid": list(tabs.n), "n_steps": tabs.n_steps,
+           "levels": len(tabs.levels), "tree_build_s": t_tree,
+           "setup_s": t_setup, "packets": sim.num_packets,
+           "batch": sim.batch_size, "packets_per_s": sim.last_rate,
+           "seconds": stats["seconds"], "events": stats["events"],
+           "sync_wait_s": stats["sync_s"], "launches": launches,
+           "transparent_rel_err": e_tr, "direct_over_transparent": ratio,
+           "exp_minus_tau": math.exp(-0.5), "R": float(sed["R"][0]),
+           "scattered_over_transparent":
+           float(sed["primaryscattered"][0] / sed["transparent"][0]),
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    if name == "config3ismxl":
+        res["reference_engine"] = ("the XL fine raster "
+                                   "(sweepxl.build_tree_tables)")
+    if store_rf:
+        require(bool(torch.isfinite(rf).all()) and float(rf.min()) >= 0
+                and float(rf.sum()) > 0, "tree RF finite and positive")
+        res["rf_total"] = float(rf.double().sum())
+    emit(res)
+    return sim, launches
+
+
+def phase_breakdown_ml(torch, sim) -> None:
+    """One more run of a tree path under torch.profiler: device kernels,
+    their launches per event, the device's busy and idle shares of the
+    wall, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_primary(verbose=False)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    n = sum(e.count for e in kernels)
+    events = sim.last_stats["events"]
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    emit({"phase": "breakdown_ml", "profiled_wall_s": wall,
+          "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+          "device_launches": n, "events": events,
+          "launches_per_event": n / events,
+          "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                  for e in top]})
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -537,6 +983,21 @@ def main() -> int:
         ("sweepxl_dtau", "scatter_add"), RESIDENT + ("sweepxl_deposit",),
         num_packets=B_FULL, n=256)
     launches_rf = phase_rf_xl(torch)
+    torch.cuda.empty_cache()
+    kern.update(phase_kernels_ml(torch))
+    torch.cuda.empty_cache()
+    phase_draw_for_draw_ml(torch)
+    sim, launches_ml = phase_full_width_ml(torch, smi)
+    rate_ml = sim.last_rate
+    phase_breakdown_ml(torch, sim)
+    del sim
+    phase_full_width_ml(torch, smi, "full_width_ml_large", "config3ismxl")
+    sim, launches_rf_ml = phase_full_width_ml(torch, smi, "rf_ml",
+                                              store_rf=True)
+    emit({"phase": "rf_ml_vs_full_width_ml", "packets_per_s_rf":
+          sim.last_rate, "packets_per_s": rate_ml,
+          "ratio": sim.last_rate / rate_ml})
+    del sim
     rows = []
     for name, src, ref, path, counts in (
             ("sweep_dtau", "sweep_dtau.cu", "skirt9_tpu/transport/sweep.py:238",
@@ -549,13 +1010,20 @@ def main() -> int:
              "skirt9_tpu/transport/sweepxl.py:392", "full_width_xl",
              launches_xl),
             ("sweepxl_deposit", "sweepxl_deposit.cu",
-             "skirt9_tpu/transport/sweepxl.py:493", "rf_xl", launches_rf)):
+             "skirt9_tpu/transport/sweepxl.py:493", "rf_xl", launches_rf),
+            ("mlsweep_dtau", "mlsweep_dtau.cu",
+             "skirt9_tpu/transport/mlsweep.py:635", "full_width_ml",
+             launches_ml),
+            ("mlsweep_deposit", "mlsweep_deposit.cu",
+             "skirt9_tpu/transport/mlsweep.py:719", "rf_ml",
+             launches_rf_ml)):
         k = kern[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"skirt9_tpu_torch/csrc/{src}", "replaces": ref,
                      "path": path, "launches": counts[name],
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"]})
+                     **{key: k[key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}})
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

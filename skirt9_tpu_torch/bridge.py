@@ -13,7 +13,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .grids.bintree import BinTreeGrid
 from .grids.cartesian import UniformCartesianGrid
+from .grids.octree import OctreeGrid
 from .instruments.distant import DistantInstrumentCfg
 from .media.system import MediumTables
 from .simulation import Simulation
@@ -31,7 +33,29 @@ def _kind(obj, name: str) -> None:
                                   f"(expected {name})")
 
 
-def grid(ref_grid) -> UniformCartesianGrid:
+def _tree(cls, ref_grid):
+    """A tree grid field by field; a reference leaf map is left behind (the
+    port's Simulation builds its own)."""
+    fields = {}
+    for name in cls._fields:
+        if name in ("leafmap", "fine_n"):
+            continue
+        value = getattr(ref_grid, name)
+        if name == "levels":
+            fields[name] = int(value)
+        else:
+            arr = np.asarray(value)
+            fields[name] = torch.tensor(
+                arr.astype(np.int32 if arr.dtype.kind in "iu" else np.float32))
+    return cls(**fields)
+
+
+def grid(ref_grid):
+    name = type(ref_grid).__name__
+    if name == "OctreeGrid":
+        return _tree(OctreeGrid, ref_grid)
+    if name == "BinTreeGrid":
+        return _tree(BinTreeGrid, ref_grid)
     _kind(ref_grid, "UniformCartesianGrid")
     return UniformCartesianGrid(
         lo=_f32(ref_grid.lo), hi=_f32(ref_grid.hi), inv_h=_f32(ref_grid.inv_h),

@@ -1,5 +1,6 @@
 // Shared per-lane geometry and per-slab sub-DDA of the slab-sweep kernels
-// (sweep_dtau.cu, sweep_deposit.cu, sweepxl_dtau.cu, sweepxl_deposit.cu).
+// (sweep_dtau.cu, sweep_deposit.cu, sweepxl_dtau.cu, sweepxl_deposit.cu,
+// mlsweep_dtau.cu, mlsweep_deposit.cu).
 //
 // A lane marches the slabs of its dominant axis a; inside slab t the ray
 // crosses at most 3 cells, enumerated by a bounded sub-DDA over the two minor
@@ -33,6 +34,16 @@ struct GridGeom {
   int nx, ny, nz;
   float lo[3], h[3];
 };
+
+// The grid at granularity 2^gs (the tree sweep's coarse plan steps): cell
+// sizes x 2^gs, counts >> gs; exact, since the fine counts are powers of two
+// and scaling by a power of two does not round.
+__device__ __forceinline__ GridGeom coarsen(const GridGeom& g, int gs) {
+  const float s = (float)(1 << gs);
+  return GridGeom{g.nx >> gs, g.ny >> gs, g.nz >> gs,
+                  {g.lo[0], g.lo[1], g.lo[2]},
+                  {g.h[0] * s, g.h[1] * s, g.h[2] * s}};
+}
 
 __device__ __forceinline__ float sel3(int a, float x0, float x1, float x2) {
   return a == 0 ? x0 : (a == 1 ? x1 : x2);

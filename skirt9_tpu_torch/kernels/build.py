@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # one entry point and counter each, even where two share source through
 # csrc/sweep_common.cuh, so a run shows which contract its path went through
 KERNELS = ("sweep_dtau", "sweep_deposit", "scatter_add", "sweepxl_dtau",
-           "sweepxl_deposit")
+           "sweepxl_deposit", "mlsweep_dtau", "mlsweep_deposit")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -59,6 +59,14 @@ _SIGNATURES = {
     # pos, dir, axis, smin, smax, dsub, scale, rf, B, nx, ny, nz, nmax,
     # n_groups, lox, loy, loz, hx, hy, hz, stream
     "sweepxl_deposit_launch": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
+    # pos, dir, axis, smin, smax, sig, nd, leafmap, step_tlev, step_gs, out,
+    # cells, B, C, nx, ny, nz, n_steps, want_sub, lox, loy, loz, hx, hy, hz,
+    # stream
+    "mlsweep_dtau_launch": [_P] * 12 + [_I] * 7 + [_F] * 6 + [_P],
+    # pos, dir, axis, smin, smax, dsub, csub, lum, tau_int, tb, step_tlev,
+    # step_gs, rf, first_hit, B, nx, ny, nz, n_steps, lox, loy, loz, hx, hy,
+    # hz, inv2, stream
+    "mlsweep_deposit_launch": [_P] * 14 + [_I] * 5 + [_F] * 7 + [_P],
 }
 
 _lib = None

@@ -1,6 +1,7 @@
 """Monte Carlo simulation orchestrator on PyTorch tensors.
 
-Port of `skirt9_tpu/simulation.py` for primary emission on one device:
+Port of `skirt9_tpu/simulation.py` for primary emission on one device, on
+uniform Cartesian grids, octrees and bintrees:
 `run_primary` launches each source's history range in batches through
 `transport.lifecycle.life_cycle` and accumulates the radiation field and
 instrument records on the device; `write_outputs` calibrates and writes the
@@ -19,27 +20,31 @@ import time
 import numpy as np
 import torch
 
-from skirt9_tpu.utils import fits as fitsio
-from skirt9_tpu.utils.log import default as _log
-from skirt9_tpu.utils.unitsystem import UnitSystem
-
 from . import device as dv
+from .grids.bintree import BinTreeGrid
 from .grids.cartesian import UniformCartesianGrid
+from .grids.octree import OctreeGrid
 from .instruments import distant as dinst
 from .media import system as msys
 from .ops import rng
 from .sources import base as src
 from .transport import lifecycle as lc
+from .transport import mlsweep as ml
 from .transport import sweep as sw
 from .transport import sweepxl as xl
+from .utils import fits as fitsio
 from .utils.guards import check_finite
+from .utils.log import default as _log
+from .utils.unitsystem import UnitSystem
+
+_GRIDS = (UniformCartesianGrid, OctreeGrid, BinTreeGrid)
 
 
 @dataclasses.dataclass
 class Simulation:
     """A configured simulation: grid + medium + sources + instruments."""
 
-    grid: UniformCartesianGrid
+    grid: UniformCartesianGrid | OctreeGrid | BinTreeGrid
     medium: msys.MediumTables
     sources: list
     instruments: list           # list[DistantInstrumentCfg]
@@ -54,10 +59,10 @@ class Simulation:
     def __post_init__(self):
         self.device = dv.resolve(self.device)
         lc.check_supported(self.options)
-        if not isinstance(self.grid, UniformCartesianGrid):
+        if not isinstance(self.grid, _GRIDS):
             raise NotImplementedError(
-                f"grid {type(self.grid).__name__} not ported yet "
-                "(UniformCartesianGrid only)")
+                f"grid {type(self.grid).__name__} not ported yet (uniform "
+                "Cartesian grids, octrees and bintrees only)")
         if self.rf_borders is not None and self.options.store_rf \
                 and len(self.rf_borders) != 2:
             raise NotImplementedError("multi-bin radiation field not ported "
@@ -88,10 +93,26 @@ class Simulation:
 
     def _engine_tables(self):
         """The reference's engine choice (`skirt9_tpu/simulation.py:194-215`):
-        the resident sweep while it supports the grid, else the large-grid
-        (XL) contracts."""
+        the resident sweep while it supports the grid, then the multi-level
+        sweep for trees, else the large-grid (XL) contracts. A tree on the
+        multi-level sweep gets its fine leaf map attached, so that launch-time
+        `locate` is one gather (`:199-202`)."""
         if sw.supports_sweep(self.grid, self.medium):
             return sw.build_tables(self.grid, self.medium)
+        if ml.supports(self.grid, self.medium, self.options):
+            tabs = ml.build_tables(self.grid, self.medium)
+            if self.grid.leafmap is None:
+                self.grid = self.grid._replace(leafmap=tabs.leafmap,
+                                               fine_n=tabs.n)
+            return tabs
+        if isinstance(self.grid, (OctreeGrid, BinTreeGrid)):
+            raise NotImplementedError(
+                f"no transport engine for this {type(self.grid).__name__} "
+                f"({self.grid.ncells} leaves, {self.medium.ncomp} components):"
+                " the multi-level sweep takes power-of-two trees with fine "
+                f"rasters <= {ml.NF_MAX} per axis, <= 4 components and none "
+                "of kinematics, Lya, Compton, X-ray or explicit absorption; "
+                "the tree XL raster and the scan march are not ported yet")
         if xl.supports_xl(self.grid, self.medium):
             _log().info("transport: large-grid (XL) sweep for "
                         f"{'x'.join(map(str, self.grid.shape))}")
@@ -116,6 +137,9 @@ class Simulation:
     def _init_rf(self):
         if self.rf_borders is None or not self.options.store_rf:
             return None
+        # per cell on every engine: the tree kernels deposit straight into
+        # leaf cells, where the reference accumulates in per-level plane
+        # space and maps to cells once per segment (its finalize_rf)
         return torch.zeros((self.grid.ncells, len(self.rf_borders) - 1),
                            dtype=torch.float32, device=self.device)
 

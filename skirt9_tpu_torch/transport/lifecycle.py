@@ -18,6 +18,13 @@ from it when an RF is stored. Everything between pass 1 and the
 interaction search stays in sorted lane order; only per-lane results go
 back to launch order.
 
+With `mlsweep.MLTables` (octrees and bintrees) the event follows the
+reference's tree branch: pass 1 records the optical depth and leaf id per
+sub-step of the multi-granularity plan, in launch order (no lane sort), and
+`slab_prefix` runs over the plan's steps, which lie in spatial order along
+the major axis. Pass 2 is `mlsweep.sweep_deposit` when an RF is stored,
+else `mlsweep.resolve_interaction`, whose cell comes from the fine leaf map.
+
 The event loop exits early once no lane is alive; that test is one host
 sync per event. There is no scan-march fallback: every option outside this
 path raises NotImplementedError and names itself.
@@ -36,6 +43,7 @@ from ..instruments import distant as dinst
 from ..media import system as msys
 from ..ops import phase as phs
 from ..ops import rng
+from . import mlsweep as ml
 from . import sweep as sw
 from . import sweepxl as xl
 
@@ -207,6 +215,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     sigma_lanes = opt.sigma_ext.T.contiguous()   # (H, B)
     h_cells = np.asarray(sweep_tabs.h)
     is_xl = isinstance(sweep_tabs, xl.XLTables)
+    is_ml = isinstance(sweep_tabs, ml.MLTables)
 
     def tracer(pos, kdir, mask, kobs_host):
         # every lane marches toward the same observer: one shared slab axis
@@ -218,6 +227,9 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                 sweep_tabs, pos[prm], kdir[prm], sigma_lanes[:, prm],
                 mask[prm], axis_hint=hint), dim=0)
             return _unsort(tau, prm)
+        if is_ml:
+            return torch.sum(ml.sweep_dtau(sweep_tabs, pos, kdir, sigma_lanes,
+                                           mask, axis_hint=hint), dim=0)
         return torch.sum(sw.sweep_dtau(sweep_tabs, pos, kdir, sigma_lanes,
                                        mask, axis_hint=hint), dim=0)
 
@@ -269,6 +281,13 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                                      sigma_lanes[:, perm], p_act,
                                      want_sub=True)
             dtau_slab = torch.sum(dtau_sub, dim=1)
+        elif is_ml:
+            # per plan step; the record feeds pass 2 without the density
+            p_dir = pkt.dir
+            dtau_sub, cell_sub = ml.sweep_dtau(sweep_tabs, pkt.pos, pkt.dir,
+                                               sigma_lanes, active,
+                                               want_sub=True)
+            dtau_slab = torch.sum(dtau_sub, dim=1)
         else:
             p_dir = pkt.dir
             dtau_slab = sw.sweep_dtau(sweep_tabs, pkt.pos, pkt.dir,
@@ -294,6 +313,16 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                                        sweep_tabs, p_pos, p_dir,
                                        active_int[perm], dtau_sub, tb_slab,
                                        tau_int[perm]))
+        elif is_ml:
+            if use_rf:
+                rf_delta, s_int, icell, found = ml.sweep_deposit(
+                    sweep_tabs, pkt.pos, pkt.dir, active, dtau_sub, cell_sub,
+                    lum_half, tau_int, tb_slab, inv_sqrt)
+                rf[:, 0] += rf_delta[0]
+            else:
+                s_int, icell, found = ml.resolve_interaction(
+                    sweep_tabs, pkt.pos, pkt.dir, active_int, dtau_sub,
+                    tb_slab, tau_int)
         else:
             scale_slab = (lum_half[None, :] * torch.exp(-tb_slab)) * inv_sqrt
             rel_slab = tau_int[None, :] - tb_slab

@@ -1,0 +1,510 @@
+"""Multi-level slab sweep: the tree-grid engine's contracts.
+
+Port of `skirt9_tpu/transport/mlsweep.py` for octrees and bintrees. Every
+leaf of a power-of-two tree is an aligned block of voxels of the finest
+level's uniform raster (the fine grid, nf per axis), so a ray marches that
+raster's slabs with the resident sweep's <= 3-cell sub-DDA
+(`sweep._substeps`) along a static multi-granularity plan (`_make_plan`):
+steps of 2^gs fine slabs where every level the step crosses is at least
+2^gs fine voxels wide, so that a step's sub-segment never straddles a leaf
+boundary. One fine leaf map (fine voxel -> leaf id) then gives each
+sub-segment's cell exactly, with one lookup.
+
+  pass 1 `sweep_dtau`         -> (n_steps, B) optical depth per plan step,
+         or with want_sub per sub-step (n_steps, 3, B) with the leaf id of
+         each sub-step, so that nothing after it reads the density;
+  pass 2 `sweep_deposit`      -> RF deposits (n_groups, ncells) per leaf and
+         the interaction point, from that record;
+  `resolve_interaction`       -> the interaction point alone, in plain tensor
+         ops, for segments that store no RF.
+
+Both passes are CUDA kernels on the GPU (`csrc/mlsweep_dtau.cu`,
+`csrc/mlsweep_deposit.cu`) beside their plain PyTorch versions. What the
+reference needs for the TPU and the port does not: the per-level density
+planes with the -1 non-leaf flag, the select loop over (level, layout,
+row), the level clustering and merging that keep encoding rows and VMEM
+tables small (`_cluster_levels`, `_merge_coarse_levels`), the packed
+(row, col, leaf) deposit encoding, the one-hot MXU deposit and the plane
+decode. The levels here are the raw stack, one per leaf signature; they
+only set the plan.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..grids.bintree import BinTreeGrid
+from ..grids.octree import OctreeGrid
+from ..kernels import build as kb
+from . import sweep as sw
+
+NF_MAX = 256           # fine raster cells per axis the engine takes
+
+
+class _LevelAxis(NamedTuple):
+    """One level's bounding box along the major axis of one slab layout: its
+    slab range [t0, t1) in level coordinates and the fine -> level shift of
+    that axis (per axis, for bintrees)."""
+
+    t0: int
+    t1: int
+    sht: int
+
+
+class _Level(NamedTuple):
+    shift: tuple        # per-physical-axis fine-minus-level shifts
+    ax: tuple           # (_LevelAxis,) * 3, layout a has major axis a
+
+
+class MLTables(NamedTuple):
+    """Density table, fine leaf map and the static march plan."""
+
+    nd: torch.Tensor          # (ncells, C) f32: the medium's own table
+    leafmap: torch.Tensor     # (nfx*nfy*nfz,) int32 fine voxel -> leaf id
+    n: tuple                  # fine grid (nfx, nfy, nfz)
+    lo: tuple                 # box lower corner
+    h: tuple                  # fine cell sizes
+    nmax: int                 # max(n): fine slabs along the longest axis
+    levels: tuple             # (_Level,) * L, one per leaf signature
+    n_steps: int              # march steps of the plan
+    step_tlev: torch.Tensor   # (n_steps,) int32 slab index at granularity gs
+    step_gs: torch.Tensor     # (n_steps,) int32 granularity shift
+
+    @property
+    def ncomp(self) -> int:
+        return self.nd.shape[1]
+
+
+# ------------------------------------------------------------------ host side
+
+def _signature_levels(grid) -> np.ndarray:
+    """(ncells, 3) per-axis refinement level of every leaf: its size is
+    box / 2^l along each axis. Raises ValueError when a leaf is not a
+    power-of-two fraction of the root box (`mlsweep.py:274-284`)."""
+    lo0 = grid.box_lo.cpu().numpy().astype(np.float64)
+    hi0 = grid.box_hi.cpu().numpy().astype(np.float64)
+    size = (grid.cell_hi.cpu().numpy().astype(np.float64)
+            - grid.cell_lo.cpu().numpy().astype(np.float64))
+    lev_f = np.log2((hi0 - lo0)[None, :] / np.maximum(size, 1e-300))
+    lev = np.rint(lev_f).astype(np.int64)
+    if (np.abs(lev_f - lev) > 1e-3).any():
+        raise ValueError("cells are not power-of-two fractions of the box")
+    return lev
+
+
+def _analyze(grid) -> dict:
+    """Host: classify leaves by signature (per-axis levels), one level per
+    signature with its leaves' ids and level coordinates (the raw level
+    stack; the reference's candidate search over merged and clustered
+    layouts is a TPU budget, `mlsweep.py:295-309`)."""
+    lev = _signature_levels(grid)
+    lo0 = grid.box_lo.cpu().numpy().astype(np.float64)
+    box = grid.box_hi.cpu().numpy().astype(np.float64) - lo0
+    clo = grid.cell_lo.cpu().numpy().astype(np.float64)
+    Lmax = tuple(int(v) for v in lev.max(axis=0))
+    sigs, inverse = np.unique(lev, axis=0, return_inverse=True)
+    order = sorted(range(len(sigs)), key=lambda i: (int(sigs[i].sum()),
+                                                     tuple(sigs[i])))
+    coords = {}
+    for i in order:
+        sig = tuple(int(v) for v in sigs[i])
+        ids = np.flatnonzero(inverse.reshape(-1) == i)
+        hsig = box / (1 << np.asarray(sig))
+        coords[sig] = (ids, np.rint((clo[ids] - lo0) / hsig).astype(np.int64))
+    return {"coords": coords, "Lmax": Lmax, "nf": tuple(1 << L for L in Lmax),
+            "lo0": lo0, "box": box, "levels": _level_meta(coords, Lmax)}
+
+
+def _level_meta(coords, Lmax):
+    """Per level: its shifts and, per slab layout, its bounding box along
+    the major axis (`mlsweep.py:445-470`, reduced to what the plan reads)."""
+    levels = []
+    for sig, (_, cl) in coords.items():
+        shifts = tuple(Lmax[i] - sig[i] for i in range(3))
+        lo, hi = cl.min(axis=0), cl.max(axis=0) + 1
+        levels.append(_Level(shift=shifts, ax=tuple(
+            _LevelAxis(int(lo[a]), int(hi[a]), shifts[a]) for a in range(3))))
+    return tuple(levels)
+
+
+def _make_plan(levels, nmax: int):
+    """Static multi-granularity march plan over the fine slab axis
+    (`mlsweep.py:143-193`).
+
+    Granularity at fine slab t = min over (level, axis-layout) pairs whose
+    bounding box covers t of the level's minimum per-axis shift: every
+    covering level's voxels are then aligned blocks of >= 2^gs fine voxels
+    along all three axes, so a gs-granularity sub-DDA step never straddles a
+    leaf boundary. Aligned greedy packing gives the steps. Returns (tlev,
+    gs) as (n_steps,) int32 arrays: each step's slab index at its
+    granularity and the granularity shift. The reference then groups the
+    steps into segments of constant (gs, covering levels) to prune its
+    select loop per segment, and broadcasts the step tables across 128
+    lanes; the port needs neither."""
+    gs_t = np.zeros(nmax, np.int64)
+    for t in range(nmax):
+        gh = None
+        for lv in levels:
+            for a in range(3):
+                g = lv.ax[a]
+                if g.t0 <= (t >> g.sht) < g.t1:
+                    m = min(lv.shift)
+                    gh = m if gh is None else min(gh, m)
+        gs_t[t] = 0 if gh is None else gh
+    tlev, gs = [], []
+    t = 0
+    while t < nmax:
+        g = int(gs_t[t])
+        while g > 0 and (t % (1 << g) or (gs_t[t:t + (1 << g)] < g).any()):
+            g -= 1
+        tlev.append(t >> g)
+        gs.append(g)
+        t += 1 << g
+    return np.asarray(tlev, np.int32), np.asarray(gs, np.int32)
+
+
+def supports(grid, med, options=None) -> bool:
+    """True when (grid, medium) takes the multi-level sweep.
+
+    The reference's tree-class, option and component gates
+    (`mlsweep.py:225-234`) and its fine-raster cap max(nf) <= 256
+    (`:248-250`). It departs from the reference on purpose: the backend
+    test, the encoding-row cap and the VMEM table cap (`:222-224`,
+    `:239-247`, `:251-261`) are TPU limits and are dropped. So, for
+    example, `bench_config3ismxl`'s 1.4e5-leaf octree (nf = 256) rides
+    this engine here, where the reference sends it to the XL fine raster
+    (`skirt9_tpu/simulation.py:216-217`)."""
+    if not isinstance(grid, (OctreeGrid, BinTreeGrid)):
+        return False
+    if options is not None and (options.kinematics or options.lya
+                                or options.compton or options.xray
+                                or options.explicit_absorption):
+        return False
+    if med.ncomp > 4:
+        return False
+    try:
+        lev = _signature_levels(grid)
+    except ValueError:
+        return False
+    return (1 << int(lev.max())) <= NF_MAX
+
+
+def build_tables(grid, med) -> MLTables:
+    """The leaf map (vectorised per level), the raw level stack and the
+    plan, on the medium's device; the density is the medium's table."""
+    meta = _analyze(grid)
+    nf, Lmax = meta["nf"], meta["Lmax"]
+    leafmap = np.full(nf, -1, np.int32)
+    for sig, (ids, cl) in meta["coords"].items():
+        blocks = []
+        for a in range(3):
+            s = Lmax[a] - sig[a]
+            idx = (cl[:, a:a + 1] << s) + np.arange(1 << s)   # (n_l, 2^s)
+            shape = [len(ids), 1, 1, 1]
+            shape[a + 1] = 1 << s
+            blocks.append(idx.reshape(shape))
+        leafmap[blocks[0], blocks[1], blocks[2]] = ids[:, None, None, None]
+    nmax = int(max(nf))
+    tlev, gs = _make_plan(meta["levels"], nmax)
+    dev = med.nd.device
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    hf = meta["box"] / np.asarray(nf, np.float64)
+    return MLTables(nd=med.nd.contiguous(), leafmap=i32(leafmap.reshape(-1)),
+                    n=tuple(int(v) for v in nf),
+                    lo=tuple(float(v) for v in meta["lo0"]),
+                    h=tuple(float(v) for v in hf), nmax=nmax,
+                    levels=meta["levels"], n_steps=len(tlev),
+                    step_tlev=i32(tlev), step_gs=i32(gs))
+
+
+def locate_cells(tabs: MLTables, pos) -> torch.Tensor:
+    """Fine-raster locate (`mlsweep.py:1106-1116`): position -> leaf id
+    (int64), -1 outside."""
+    dev = pos.device
+    lo = torch.tensor(tabs.lo, dtype=torch.float32, device=dev)
+    h = torch.tensor(tabs.h, dtype=torch.float32, device=dev)
+    nf = torch.tensor(tabs.n, dtype=torch.int64, device=dev)
+    ijk = torch.floor((pos - lo) / h).to(torch.int64)
+    inside = torch.all((ijk >= 0) & (ijk < nf), dim=-1)
+    ijk = torch.minimum(torch.clamp_min(ijk, 0), nf - 1)
+    flat = (ijk[..., 0] * tabs.n[1] + ijk[..., 1]) * tabs.n[2] + ijk[..., 2]
+    cell = tabs.leafmap[flat].to(torch.int64)
+    return torch.where(inside, cell, torch.full_like(cell, -1))
+
+
+# ------------------------------------------------------- plain PyTorch versions
+
+def _scaled(g: dict, gs) -> dict:
+    """Per-lane geometry at granularity 2^gs (the reference's
+    `_scaled_geom`, `mlsweep.py:707-716`): cell sizes x 2^gs, counts >> gs.
+    gs broadcasts against the lanes: (n_steps, 1) or (B,)."""
+    scale = torch.bitwise_left_shift(torch.ones_like(gs), gs).to(torch.float32)
+    gg = dict(g)
+    for k in ("ha", "hu", "hv"):
+        gg[k] = g[k] * scale
+    for k in ("na", "nu", "nv"):
+        gg[k] = torch.bitwise_right_shift(g[k], gs)
+    return gg
+
+
+def _plan_substeps(tabs, pos, dirn, group, smin, smax):
+    """The <= 3 sub-steps of every (plan step, lane) at the step's
+    granularity: [(s_cur, ds, iu, iv)] * 3 as (n_steps, B) tensors (minor
+    indices at the step's granularity), the fine slab index tf (n_steps, 1),
+    the mask of live steps (the slab exists on the lane's axis and the ray
+    crosses it) and the fine per-lane geometry."""
+    g = sw._lane_geometry(tabs, pos, dirn, group)
+    tlev = tabs.step_tlev.to(torch.int64)[:, None]
+    gs = tabs.step_gs.to(torch.int64)[:, None]
+    gg = _scaled(g, gs)
+    subs, act = sw._substeps(gg, tlev, smin, smax)
+    live = act & (tlev < gg["na"])
+    return subs, tlev, gs, live, g
+
+
+def _leaf_ids(tabs, group, tlev, gs, iu, iv, live, na):
+    """Leaf id of each sub-step: its fine voxel (tlev, iu, iv) << gs mapped
+    to (x, y, z) by the axis layout (a=0: (t, u, v) = (x, y, z); a=1:
+    (y, x, z); a=2: (z, x, y)), x-major flat index, -1 on dead steps."""
+    a = group.to(torch.int64)
+    tf = torch.minimum(tlev << gs, na - 1)
+    uf, vf = iu << gs, iv << gs
+    x = torch.where(a == 0, tf, uf)
+    y = torch.where(a == 0, uf, torch.where(a == 1, tf, vf))
+    z = torch.where(a == 2, tf, vf)
+    flat = (x * tabs.n[1] + y) * tabs.n[2] + z
+    cell = tabs.leafmap[flat].to(torch.int64)
+    return torch.where(live, cell, torch.full_like(cell, -1))
+
+
+def _march_plain(tabs, pos, dirn, group, smin, smax, sig):
+    """Per sub-step (dtau, cell) as (n_steps, B) tensors: sum_c nd[cell, c]
+    * sig[c] * ds, zero where the cell is -1. The kernel's f32 operations,
+    in its order."""
+    subs, tlev, gs, live, g = _plan_substeps(tabs, pos, dirn, group, smin,
+                                             smax)
+    out = []
+    for _, ds, iu, iv in subs:
+        cell = _leaf_ids(tabs, group, tlev, gs, iu, iv, live, g["na"])
+        c0 = torch.clamp_min(cell, 0)
+        k = tabs.nd[c0, 0] * sig[0]
+        for c in range(1, sig.shape[0]):
+            k = k + tabs.nd[c0, c] * sig[c]
+        out.append((torch.where(cell >= 0, k * ds, torch.zeros_like(ds)),
+                    cell))
+    return out
+
+
+def _dtau_plain(tabs, pos, dirn, group, smin, smax, sig, want_sub):
+    steps = _march_plain(tabs, pos, dirn, group, smin, smax, sig)
+    if want_sub:
+        return (torch.stack([d for d, _ in steps], dim=1),
+                torch.stack([c for _, c in steps], dim=1).to(torch.int32))
+    return steps[0][0] + steps[1][0] + steps[2][0]
+
+
+def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
+                   lum_pre, tau_int, tb_slab, inv2):
+    """RF deposits into (1, ncells), the kernel's f32 contributions summed
+    per leaf in f64, and the first interaction in (step, sub-step) order:
+    (rf, s_int, found), s_int undefined where not found."""
+    B = pos.shape[0]
+    subs, _, _, live, _ = _plan_substeps(tabs, pos, dirn, group, smin, smax)
+    scale = (lum_pre[None, :] * torch.exp(-tb_slab)) * inv2
+    rel = tau_int[None, :] - tb_slab
+    tau_loc = torch.zeros_like(scale)
+    contribs, hits, s_hits = [], [], []
+    for j, (s_cur, ds, _, _) in enumerate(subs):
+        dtau = dtau_sub[:, j]
+        contrib = scale * torch.exp(-tau_loc) * ds * sw._segment_factor(dtau)
+        contribs.append(torch.where(live & (cell_sub[:, j] >= 0), contrib,
+                                    torch.zeros_like(contrib)))
+        rem = rel - tau_loc
+        hits.append(live & (rem >= 0.0) & (rem < dtau))
+        s_hits.append(s_cur + rem / torch.clamp_min(dtau, 1e-37) * ds)
+        tau_loc = tau_loc + dtau
+    hit = torch.stack(hits, dim=1).reshape(-1, B)
+    first = torch.argmax(hit.to(torch.int8), dim=0)[None, :]
+    s_int = torch.stack(s_hits, dim=1).reshape(-1, B).gather(0, first)[0]
+    # the f32 contributions summed in f64, as the kernel sums them: a leaf
+    # gathers some 10^5 of them per event, too many for an f32 sum
+    rf = torch.zeros(tabs.nd.shape[0], dtype=torch.float64, device=pos.device)
+    rf.index_add_(0, torch.clamp_min(cell_sub.to(torch.int64), 0).reshape(-1),
+                  torch.stack(contribs, dim=1).reshape(-1).to(torch.float64))
+    return rf.to(torch.float32)[None, :], s_int, hit.any(dim=0)
+
+
+# ----------------------------------------------------------- CUDA launches
+
+def _geometry_args(tabs: MLTables):
+    return (*tabs.n, tabs.n_steps, *tabs.lo, *tabs.h)
+
+
+def _dtau_cuda(tabs, pos, dirn, group, smin, smax, sig, want_sub):
+    B, C = pos.shape[0], sig.shape[0]
+    pos, dirn = pos.contiguous(), dirn.contiguous()
+    dev = pos.device
+    shape = (tabs.n_steps, 3, B) if want_sub else (tabs.n_steps, B)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    cells = (torch.empty(shape, dtype=torch.int32, device=dev) if want_sub
+             else out)
+    nx, ny, nz, n_steps, *geo = _geometry_args(tabs)
+    kb.launch("mlsweep_dtau", *(t.data_ptr() for t in (
+                  pos, dirn, group, smin, smax, sig, tabs.nd, tabs.leafmap,
+                  tabs.step_tlev, tabs.step_gs, out, cells)),
+              B, C, nx, ny, nz, n_steps, int(want_sub), *geo,
+              kb.stream_of(pos))
+    return (out, cells) if want_sub else out
+
+
+def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
+                  lum_pre, tau_int, tb_slab, inv2):
+    B = pos.shape[0]
+    dev = pos.device
+    args = [t.contiguous() for t in (pos, dirn, dtau_sub, cell_sub, lum_pre,
+                                     tau_int, tb_slab)]
+    # f64 accumulator, rounded to f32 once (see csrc/mlsweep_deposit.cu)
+    rf = torch.zeros(tabs.nd.shape[0], dtype=torch.float64, device=dev)
+    # (step << 32 | bits of s_int) of the first hit, all ones for none
+    first = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    nx, ny, nz, n_steps, *geo = _geometry_args(tabs)
+    pos, dirn, dtau_sub, cell_sub, lum_pre, tau_int, tb_slab = args
+    kb.launch("mlsweep_deposit", *(t.data_ptr() for t in (
+                  pos, dirn, group, smin, smax, dtau_sub, cell_sub, lum_pre,
+                  tau_int, tb_slab, tabs.step_tlev, tabs.step_gs, rf, first)),
+              B, nx, ny, nz, n_steps, *geo, float(inv2), kb.stream_of(pos))
+    # the low word of each little-endian int64 holds the f32 bits of s_int
+    s_int = first.view(torch.int32).reshape(B, 2)[:, 0].view(torch.float32)
+    return rf.to(torch.float32)[None, :], s_int, first != -1
+
+
+# ---------------------------------------------------------- public wrappers
+
+def sweep_dtau(tabs: MLTables, pos, dirn, sigma, active,
+               axis_hint: int | None = None, want_sub: bool = False):
+    """Per-plan-step optical depth (n_steps, B) f32, or with want_sub
+    (dtau_sub (n_steps, 3, B) f32, cell_sub (n_steps, 3, B) int32): each
+    sub-step's optical depth and leaf id (-1 for none). Steps are spatially
+    ordered along the major axis, so `sweep.slab_prefix` orders them along
+    the ray. The reference's want_sub record packs a (row*512 + col*2 +
+    leaf) code for its one-hot MXU deposit instead of the cell id
+    (`mlsweep.py:681-687`). axis_hint: the slab axis shared by all lanes
+    (peel-off toward one observer)."""
+    group, smin, smax, sig = sw._prep(tabs, pos, dirn, sigma, active)
+    sw._check(tabs, pos, dirn, sig)
+    fn = sw._dispatch(pos, _dtau_plain, _dtau_cuda)
+    return fn(tabs, pos, dirn, sw._hinted(group, axis_hint), smin, smax, sig,
+              want_sub)
+
+
+def sweep_dtau_plain(tabs: MLTables, pos, dirn, sigma, active,
+                     axis_hint: int | None = None, want_sub: bool = False):
+    """`sweep_dtau` through the plain PyTorch version on any device."""
+    group, smin, smax, sig = sw._prep(tabs, pos, dirn, sigma, active)
+    return _dtau_plain(tabs, pos, dirn, sw._hinted(group, axis_hint), smin,
+                       smax, sig, want_sub)
+
+
+def _deposit_args(tabs, pos, dirn, active, dtau_sub, cell_sub, lum_pre,
+                  tau_int, tb_slab, n_groups):
+    if n_groups != 1:
+        raise NotImplementedError("multi-bin radiation field not ported yet "
+                                  "(the tree deposit takes one lane group)")
+    B, NS = pos.shape[0], tabs.n_steps
+    sw._check_inputs(pos, dirn, [(dtau_sub, (NS, 3, B), "dtau_sub"),
+                                 (lum_pre, (B,), "lum_pre"),
+                                 (tau_int, (B,), "tau_int"),
+                                 (tb_slab, (NS, B), "tb_slab")])
+    if cell_sub.shape != (NS, 3, B) or cell_sub.dtype != torch.int32:
+        raise ValueError(f"cell_sub {tuple(cell_sub.shape)} {cell_sub.dtype} "
+                         f"must be ({NS}, 3, {B}) int32")
+    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+    return group, smin, smax
+
+
+def _interaction_cells(tabs, pos, dirn, s_int, found):
+    s_int = torch.where(found, torch.clamp_min(s_int, 0.0),
+                        torch.zeros_like(s_int))
+    icell = locate_cells(tabs, pos + s_int[:, None] * dirn)
+    return s_int, torch.where(found, icell, torch.full_like(icell, -1))
+
+
+def _sweep_deposit(plain: bool, tabs, pos, dirn, active, dtau_sub, cell_sub,
+                   lum_pre, tau_int, tb_slab, inv2, n_groups):
+    group, smin, smax = _deposit_args(tabs, pos, dirn, active, dtau_sub,
+                                      cell_sub, lum_pre, tau_int, tb_slab,
+                                      n_groups)
+    fn = _deposit_plain if plain else sw._dispatch(pos, _deposit_plain,
+                                                   _deposit_cuda)
+    rf, s_int, found = fn(tabs, pos, dirn, group, smin, smax, dtau_sub,
+                          cell_sub, lum_pre, tau_int, tb_slab, inv2)
+    s_int, icell = _interaction_cells(tabs, pos, dirn, s_int, found)
+    return rf, s_int, icell, found
+
+
+def sweep_deposit(tabs: MLTables, pos, dirn, active, dtau_sub, cell_sub,
+                  lum_pre, tau_int, tb_slab, inv2: float, n_groups: int = 1):
+    """Pass 2: RF deposits per leaf and the interaction point, from pass 1's
+    record (no density or leaf-map access in the march).
+
+    lum_pre (B,): masked luminosity pre-scaled by 1/sqrt(rf_scale); inv2: the
+    second 1/sqrt(rf_scale), applied per step as scale = lum_pre *
+    e^-tb * inv2; tau_int (B,): the sampled interaction optical depth;
+    tb_slab (n_steps, B): optical depth before each step in ray order.
+    Returns (rf_delta (1, ncells), s_int (B,), icell (B,) int64 or -1,
+    found (B,) bool): the reference's return after its `finalize_rf`
+    (plane space -> cells, `mlsweep.py:1127-1135`), which the port does not
+    need since deposits land per leaf. icell
+    comes from `locate_cells` at the interaction point, as in the
+    reference (`mlsweep.py:1014-1017`)."""
+    return _sweep_deposit(False, tabs, pos, dirn, active, dtau_sub, cell_sub,
+                          lum_pre, tau_int, tb_slab, inv2, n_groups)
+
+
+def sweep_deposit_plain(tabs: MLTables, pos, dirn, active, dtau_sub,
+                        cell_sub, lum_pre, tau_int, tb_slab, inv2: float,
+                        n_groups: int = 1):
+    """`sweep_deposit` through the plain PyTorch version on any device."""
+    return _sweep_deposit(True, tabs, pos, dirn, active, dtau_sub, cell_sub,
+                          lum_pre, tau_int, tb_slab, inv2, n_groups)
+
+
+def resolve_interaction(tabs: MLTables, pos, dirn, active, dtau_sub, tb_slab,
+                        tau_int):
+    """Exact interaction point from the per-sub-step record in plain tensor
+    ops (`mlsweep.py:1021-1103`): the plan step where the ray-ordered prefix
+    crosses tau_int, then that step's <= 3 sub-segments re-derived at its
+    granularity. Returns (s_int, icell int64 or -1, found); the cell comes
+    from `locate_cells`, as the reference's caller takes it
+    (`lifecycle.py:896-908`)."""
+    B = pos.shape[0]
+    dtau_step = torch.sum(dtau_sub, dim=1)
+    rel = tau_int[None, :] - tb_slab
+    hit = (rel >= 0.0) & (rel < dtau_step) & (dtau_step > 0)
+    found = hit.any(dim=0) & active
+    # the hit step is unique per lane: argmax and gathers where the TPU
+    # used dense takes
+    t_hit = torch.argmax(hit.to(torch.int8), dim=0)
+    tlev = tabs.step_tlev.to(torch.int64)[t_hit]
+    gs = tabs.step_gs.to(torch.int64)[t_hit]
+    rel_t = rel.gather(0, t_hit[None, :])[0]
+    d_t = dtau_sub.gather(0, t_hit[None, None, :].expand(1, 3, B))[0]
+    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+    g = _scaled(sw._lane_geometry(tabs, pos, dirn, group), gs)
+    steps, _ = sw._substeps(g, tlev, smin, smax)
+    cum = torch.zeros_like(rel_t)
+    s_int = torch.zeros_like(rel_t)
+    got = torch.zeros((B,), dtype=torch.bool, device=pos.device)
+    for j, (s_cur, ds, _, _) in enumerate(steps):
+        dj = d_t[j]
+        here = ~got & (rel_t >= cum) & (rel_t < cum + dj)
+        frac = (rel_t - cum) / torch.clamp_min(dj, 1e-37)
+        s_int = torch.where(here, s_cur + frac * ds, s_int)
+        got = got | here
+        cum = cum + dj
+    found = found & got
+    s_int, icell = _interaction_cells(tabs, pos, dirn, s_int, found)
+    return s_int, icell, found

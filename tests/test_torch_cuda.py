@@ -10,17 +10,31 @@ Small shapes (a 16x12x20 grid, a few thousand lanes). Bounds as in
 chip_smoke.py: tau within 1e-5 relative, interaction points on the same
 cells, RF within 1e-4 of its maximum, scatter sums within 1e-5 of the
 largest bin; the XL pass 1's summed form within 1e-6 of its sub-step sum.
+
+The tree kernels (4-5) run on the density octree of tests/test_mlsweep.py
+(max_level 4) and a density bintree (anisotropic leaves): pass 1 equal to
+its plain version bit for bit (leaf ids and tau, with and without the
+record and the axis hint), pass 2's found and s_int equal and its RF within
+1e-5 of its maximum (float atomics sum in another order). A tiny octree
+simulation on the card launches kernels 4, 5 and 3 and no uniform-grid
+sweep.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from skirt9_tpu_torch.grids.bintree import build_bintree
 from skirt9_tpu_torch.grids.cartesian import make_cartesian
+from skirt9_tpu_torch.grids.octree import build_octree
 from skirt9_tpu_torch.instruments import distant as dinst
 from skirt9_tpu_torch.kernels import build as kb
 from skirt9_tpu_torch.media import system as msys
 from skirt9_tpu_torch.ops import scatteradd as sca
+from skirt9_tpu_torch.simulation import Simulation
+from skirt9_tpu_torch.sources.base import PointSource
+from skirt9_tpu_torch.transport import lifecycle as lc
+from skirt9_tpu_torch.transport import mlsweep as ml
 from skirt9_tpu_torch.transport import sweep as sw
 from skirt9_tpu_torch.transport import sweepxl as xl
 
@@ -171,3 +185,105 @@ def test_detect_on_cuda_matches_cpu(dev):
     for key in ("sed", "stats", "frame"):
         c, g = accs["cpu"][key], accs[str(dev)][key]
         assert float((c - g).abs().max()) <= 1e-5 * float(c.abs().max())
+
+
+def _dens(p):
+    r = np.linalg.norm(p, axis=-1)
+    return np.where(r < PC, (PC / np.maximum(r, 0.1 * PC)) ** 2, 0.0)
+
+
+def _tree(kind):
+    ext = ((-1.2 * PC, 1.2 * PC),) * 3
+    if kind == "octree":
+        return build_octree(ext, _dens, max_level=4, min_level=1,
+                            max_fraction=2e-2)
+    return build_bintree(ext, _dens, max_level=10, min_level=3,
+                         max_fraction=2e-2)
+
+
+def _tree_medium(grid, C, rs):
+    nd = _dens(grid.cell_centers().double().numpy()) / (1e-24 * PC)
+    nd = np.stack([nd * rs.uniform(0.5, 1.5, grid.ncells) for _ in range(C)],
+                  axis=1)
+    return msys.make_medium(grid, nd.astype(np.float32),
+                            np.array([0.4e-6, 0.7e-6]),
+                            sigma_ext=np.full((C, 2), 1e-24),
+                            albedo=np.full((C, 2), 0.5),
+                            g=np.full((C, 2), 0.3))
+
+
+def _tree_inputs(dev, kind, C, B, seed):
+    rs = np.random.default_rng(seed)
+    grid = _tree(kind)
+    tabs = ml.build_tables(grid.to(dev), _tree_medium(grid, C, rs).to(dev))
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos = t32(rs.uniform(-1.1 * PC, 1.1 * PC, (B, 3)))
+    d = rs.normal(size=(B, 3))
+    d = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    sig = t32(1e-24 * rs.uniform(0.5, 1.5, (C, B)))
+    active = grid.to(dev).locate(pos) >= 0
+    return tabs, pos, d, sig, active, rs
+
+
+@pytest.mark.parametrize("kind", ["octree", "bintree"])
+@pytest.mark.parametrize("C,hint", [(1, None), (2, None), (1, 2)])
+def test_mlsweep_dtau_kernel(dev, kind, C, hint):
+    tabs, pos, d, sig, active, _ = _tree_inputs(dev, kind, C, 3000, seed=C)
+    args = (tabs, pos, d, sig, active, hint)
+    kb.reset_launches()
+    sub, cells = ml.sweep_dtau(*args, want_sub=True)
+    summed = ml.sweep_dtau(*args)
+    assert kb.LAUNCHES["mlsweep_dtau"] == 2
+    assert sum(kb.LAUNCHES.values()) == 2
+    sub_p, cells_p = ml.sweep_dtau_plain(*args, want_sub=True)
+    assert sub.shape == (tabs.n_steps, 3, 3000) and cells.dtype == torch.int32
+    assert int((sub_p.sum(dim=(0, 1)) > 0).sum()) > 1000
+    assert torch.equal(cells, cells_p) and torch.equal(sub, sub_p)
+    assert torch.equal(summed, ml.sweep_dtau_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["octree", "bintree"])
+def test_mlsweep_deposit_kernel(dev, kind):
+    B = 4096
+    tabs, pos, d, sig, active, rs = _tree_inputs(dev, kind, 1, B, seed=7)
+    sub, cells = ml.sweep_dtau_plain(tabs, pos, d, sig, active, want_sub=True)
+    grp = sw.dominant_axis(tabs, d)
+    tb, tot = sw.slab_prefix(sub.sum(dim=1),
+                             d.gather(1, grp[:, None])[:, 0] > 0)
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dev) * tot
+    args = (tabs, pos, d, active, sub, cells, lum, tau_int, tb, 0.7)
+    kb.reset_launches()
+    rf_k, s_k, c_k, f_k = ml.sweep_deposit(*args)
+    assert kb.LAUNCHES["mlsweep_deposit"] == 1
+    rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(*args)
+    assert int(f_p.sum()) > B // 4
+    assert torch.equal(f_k, f_p) and torch.equal(c_k, c_p)
+    assert torch.equal(s_k, s_p)
+    assert rf_k.shape == rf_p.shape == (1, tabs.nd.shape[0])
+    assert float((rf_k - rf_p).abs().max()) <= 1e-5 * float(rf_p.abs().max())
+
+
+def test_tree_simulation_launches(dev):
+    grid = _tree("octree")
+    med = _tree_medium(grid, 1, np.random.default_rng(0))
+    sim = Simulation(
+        grid=grid, medium=med,
+        sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
+        instruments=[dinst.DistantInstrumentCfg(
+            name="i", wave_borders=(0.5e-6, 0.6e-6), distance=100 * PC,
+            npx=16, npy=16, fovx=4 * PC, fovy=4 * PC)],
+        options=lc.TransportOptions(max_steps=grid.max_steps(), max_events=4),
+        rf_borders=np.array([0.5e-6, 0.6e-6]), num_packets=4096,
+        batch_size=2048, seed=1, device=dev)
+    assert isinstance(sim._sweep_tabs, ml.MLTables)
+    kb.reset_launches()
+    rf, accs = sim.run_primary(verbose=False)
+    n = kb.LAUNCHES
+    assert n["mlsweep_dtau"] > 0 and n["mlsweep_deposit"] > 0
+    assert n["scatter_add"] > 0
+    assert n["sweep_dtau"] == n["sweep_deposit"] == n["sweepxl_dtau"] == 0
+    assert bool(torch.isfinite(rf).all()) and float(rf.sum()) > 0
+    assert float(accs[0]["sed"].sum()) > 0

@@ -14,8 +14,24 @@ resident sweep. At 80^3 the port picks the XL contracts by itself, and its
 run matches the same seed on the resident sweep, at the CPU-vs-GPU
 draw-for-draw bounds of chip_smoke.py (SEDs 1e-4, frame 1e-3 of its
 maximum, RF total 1e-4).
+
+On the density octree of `tests/test_mlsweep.py` (max_level 4) the port's
+multi-level sweep runs against the reference's scan march (the reference
+takes its tree sweep only on a TPU) at the reference's own sweep-against-march
+bounds (`tests/test_mlsweep.py:182-187`: SEDs rtol 3e-3, RF rtol 5e-3 with
+atol 1e-5 of its total) as the outer limit. It comes much closer (SEDs within
+1.2e-6, the frame within 5e-12 of its brightest pixel, the RF per cell within
+2.6e-7 of its total), so the test holds it to a small multiple of that: SEDs
+1e-4, the frame 1e-5 of its brightest pixel, the RF per cell rtol 1e-4 with
+atol 1e-6 of its total.
+
+The port imports neither jax nor any module of the JAX package: a
+subprocess runs a uniform-grid and an octree simulation and then finds no
+such module loaded, and an `ast` scan of the package and chip_smoke.py finds
+no such import.
 """
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -26,6 +42,7 @@ import pytest
 import torch
 
 from skirt9_tpu.grids.cartesian import make_cartesian
+from skirt9_tpu.grids.octree import build_octree as ref_build_octree
 from skirt9_tpu.instruments import distant as ref_dinst
 from skirt9_tpu.media import system as ref_msys
 from skirt9_tpu.simulation import Simulation as RefSimulation
@@ -39,6 +56,7 @@ from skirt9_tpu_torch.media import system as msys
 from skirt9_tpu_torch.simulation import Simulation
 from skirt9_tpu_torch.sources.base import PointSource
 from skirt9_tpu_torch.transport import lifecycle as lc
+from skirt9_tpu_torch.transport import mlsweep as ml
 from skirt9_tpu_torch.transport import sweep as sw
 from skirt9_tpu_torch.transport import sweepxl as xl
 
@@ -216,32 +234,98 @@ def test_unported_options_raise(config1):
             dataclasses.replace(config1[1], options=bridge.options(bad))
 
 
+def _reference_octree():
+    """The density octree simulation of `tests/test_mlsweep.py:153-171`,
+    with 2,048 packets and a 16x16 frame."""
+    sigma = 1e-24
+
+    def dens(p):
+        r = np.linalg.norm(p, axis=-1)
+        return np.where(r < PC, (PC / np.maximum(r, 0.1 * PC)) ** 2, 0.0)
+
+    grid = ref_build_octree(((-1.2 * PC, 1.2 * PC),) * 3, dens, max_level=4,
+                            min_level=1, max_fraction=2e-2)
+    nd = dens(np.asarray(grid.cell_centers(), np.float64)) / (sigma * PC)
+    med = ref_msys.make_medium(grid, nd.astype(np.float32),
+                               np.array([0.4e-6, 0.7e-6]),
+                               sigma_ext=np.full((1, 2), sigma),
+                               albedo=np.full((1, 2), 0.5),
+                               g=np.full((1, 2), 0.3))
+    inst = ref_dinst.DistantInstrumentCfg(
+        name="i", wave_borders=(0.5e-6, 0.6e-6), distance=100 * PC, npx=16,
+        npy=16, fovx=4 * PC, fovy=4 * PC)
+    return RefSimulation(
+        grid=grid, medium=med,
+        sources=[RefPointSource(luminosity=1.0, lam0=0.55e-6)],
+        instruments=[inst],
+        options=ref_lc.TransportOptions(max_steps=grid.max_steps(),
+                                        max_events=4),
+        rf_borders=np.array([0.5e-6, 0.6e-6]), num_packets=2048,
+        batch_size=1024, seed=4)
+
+
+def test_octree_matches_reference_scan_march():
+    ref_sim = _reference_octree()
+    rf_r, accs_r = ref_sim.run_primary(verbose=False)
+    sim = bridge.simulation(ref_sim, device="cpu")
+    assert isinstance(sim._sweep_tabs, ml.MLTables)
+    assert sim.grid.leafmap is not None
+    kb.reset_launches()
+    rf, accs = sim.run_primary(verbose=False)
+    assert all(v == 0 for v in kb.LAUNCHES.values())  # CPU: plain versions
+    sed_r = ref_dinst.calibrate_sed(ref_sim.instruments[0],
+                                    {k: np.asarray(v)
+                                     for k, v in accs_r[0].items()})
+    sed = dinst.calibrate_sed(sim.instruments[0], accs[0])
+    for kind in ("transparent", "primarydirect", "primaryscattered",
+                 "total"):
+        assert sed_r[kind][0] > 0
+        assert sed[kind][0] == pytest.approx(sed_r[kind][0], rel=1e-4), kind
+    fr_r = np.asarray(accs_r[0]["frame"], np.float64)
+    fr = accs[0]["frame"].numpy().astype(np.float64)
+    assert np.abs(fr - fr_r).max() <= 1e-5 * np.abs(fr_r).max()
+    rf_r = np.asarray(rf_r, np.float64)
+    rf = rf.numpy().astype(np.float64)
+    assert rf.shape == rf_r.shape == (ref_sim.grid.ncells, 1)
+    np.testing.assert_allclose(rf, rf_r, rtol=1e-4, atol=1e-6 * rf_r.sum())
+
+
 _NO_JAX = """
 import sys
 import numpy as np
 from skirt9_tpu_torch.grids.cartesian import make_cartesian
+from skirt9_tpu_torch.grids.octree import build_octree
 from skirt9_tpu_torch.instruments.distant import DistantInstrumentCfg
 from skirt9_tpu_torch.media import system as msys
 from skirt9_tpu_torch.simulation import Simulation
 from skirt9_tpu_torch.sources.base import PointSource
 from skirt9_tpu_torch.transport.lifecycle import TransportOptions
+from skirt9_tpu_torch.transport.mlsweep import MLTables
 PC = 3.0857e16
-grid = make_cartesian(((-1.2 * PC, 1.2 * PC),) * 3, (6,) * 3)
-nd = msys.uniform_density_sphere(grid, 1.0, 1e-24, PC)
-med = msys.make_medium(grid, nd, np.array([0.4e-6, 0.7e-6]),
-                       sigma_ext=np.full((1, 2), 1e-24),
-                       albedo=np.full((1, 2), 0.6), g=np.full((1, 2), 0.5))
+ext = ((-1.2 * PC, 1.2 * PC),) * 3
 inst = DistantInstrumentCfg(name="i0", wave_borders=(0.5e-6, 0.6e-6),
                             distance=100 * PC, npx=8, npy=8, fovx=4 * PC,
                             fovy=4 * PC)
-sim = Simulation(grid=grid, medium=med, sources=[PointSource()],
-                 instruments=[inst],
-                 options=TransportOptions(max_steps=grid.max_steps(),
-                                          max_events=4, store_rf=False),
-                 num_packets=256, batch_size=128, device="cpu")
-rf, accs = sim.run_primary(verbose=False)
-assert float(accs[0]["sed"].sum()) > 0
+octree = build_octree(ext, lambda p: np.exp(-np.sum((p / PC) ** 2, axis=-1)),
+                      max_level=3, min_level=1, max_fraction=0.05)
+for grid in (make_cartesian(ext, (6,) * 3), octree):
+    nd = msys.uniform_density_sphere(grid, 1.0, 1e-24, PC)
+    med = msys.make_medium(grid, nd, np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), 1e-24),
+                           albedo=np.full((1, 2), 0.6), g=np.full((1, 2), 0.5))
+    sim = Simulation(grid=grid, medium=med, sources=[PointSource()],
+                     instruments=[inst],
+                     options=TransportOptions(max_steps=grid.max_steps(),
+                                              max_events=4),
+                     rf_borders=np.array([0.5e-6, 0.6e-6]),
+                     num_packets=256, batch_size=128, device="cpu")
+    rf, accs = sim.run_primary(verbose=False)
+    assert float(accs[0]["sed"].sum()) > 0 and float(rf.sum()) > 0
+assert isinstance(sim._sweep_tabs, MLTables)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = sorted(m for m in sys.modules
+             if m == "skirt9_tpu" or m.startswith("skirt9_tpu."))
+assert not ref, ref
 print("ok")
 """
 
@@ -254,3 +338,25 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def _reference_imports(path: str) -> list[str]:
+    """Modules of jax or the JAX package that a file imports, statically."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return [n for n in names if n.split(".")[0] in ("jax", "skirt9_tpu")]
+
+
+def test_port_sources_import_no_reference():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "skirt9_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = {os.path.relpath(f, REPO): _reference_imports(f) for f in files}
+    assert not {f: n for f, n in bad.items() if n}
