@@ -9,8 +9,11 @@ port's Python API on two paths: the 32^3 grid of bench.py config 1 (resident
 sweep, kernels 1-3) and the 256^3 grid of bench.py `bench_config1x256`
 (large-grid XL sweep, kernels 6-7 and 3); then bench.py's clumpy-ISM
 site-list octrees `bench_config3ism` and `bench_config3ismxl` (multi-level
-tree sweep, kernels 4-5 and 3). Each hand-written CUDA kernel is checked
-against its plain PyTorch version. Phases, one JSON line each:
+tree sweep, kernels 4-5 and 3); then config 2 (bench2.ski: panchromatic
+dust emission, kernels 1-3 with a 25-bin stratified RF); and the gather and
+row-lookup probes (kernels 8-9) through their own entry points. Each
+hand-written CUDA kernel is checked against its plain PyTorch version.
+Phases, one JSON line each:
 
   env               torch / CUDA / nvcc versions, the card, its power limit
   build             nvcc build of skirt9_tpu_torch/csrc/*.cu, one process per
@@ -69,6 +72,26 @@ against its plain PyTorch version. Phases, one JSON line each:
                     launches per event, busy and idle shares, top kernels
   rf_ml             full_width_ml with a one-bin RF: kernel 5 launched, the
                     RF finite and positive, packets/s against full_width_ml
+  kernels_probe     kernels 8-9 through their entry points
+                    (skirt9_tpu_torch/tools/gather_probe.py, sublane_gather.py)
+                    at the original probes' shapes, each variant against its
+                    plain version (gathers bit-exact, sums 1e-6 relative),
+                    timed with the plain and library times and kernel 3 at
+                    the probe's scatter shape
+  kernels_b2        kernel 2 with config 2's 32 lane groups and kernel 3 on its
+                    163,840-bin frame, on config 2's first event, against
+                    their plain versions (RF 1e-4 of its maximum, sums 1e-5)
+  draw_for_draw_b2  config 2 at 8^3 (8,192 packets, 8 events, one
+                    self-absorption iteration), CPU vs GPU: SEDs and RF
+                    within 1e-4 of their maxima, L_dust 1e-4
+  full_width_b2     bench2.ski (bench.py:79-105) built through the port's API
+                    at full width, 2^20 packets in batches of 2^17, timed after
+                    a warm-up: packets/s as bench.py counts them, seconds and
+                    events per segment; bench2's golden gates
+                    (tests/test_reference_parity.py:72-141) and L_dust =
+                    L_abs_primary within 1e-4
+  breakdown_b2      config 2 with one batch per segment under torch.profiler:
+                    launches per event, busy and idle shares, top kernels
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -82,8 +105,10 @@ does a machine without CUDA.
 
 from __future__ import annotations
 
+import gzip
 import json
 import math
+import os
 import platform
 import subprocess
 import sys
@@ -94,6 +119,8 @@ import numpy as np
 
 PC = 3.0857e16
 B_FULL = 1 << 17
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "tests", "golden")
 B_ML = 1 << 16            # bench_config3ism's batch
 
 # the H100 SXM's published peaks (NVIDIA's datasheet, at 700 W): HBM
@@ -157,6 +184,58 @@ def config1(device, num_packets=1 << 20, batch_size=B_FULL, n=32,
                       device=device)
 
 
+def config2(device, num_packets=1 << 20, batch_size=B_FULL, n=32, n_rf=25,
+            max_events=24, iterate_secondary=False, max_iterations=10):
+    """bench2.ski (tests/golden/bench2.ski, run by bench.py:79-105) through
+    the port's API, with the arrays `load_ski` builds from it: a 5778 K
+    blackbody point source of 1e5 Lsun clipped to 0.09-100 micron
+    (wavelength bias 0.5), the MRN mean dust mix of mrn_mean.txt in a shell
+    (1e-6 to 1 pc, flat profile) normalised to tau = 2 along z at 0.55
+    micron, a uniform n^3 grid over +-1.2 pc, an n_rf-bin log RF grid over
+    0.09-100 micron, a 40-bin log emission grid over 1-2000 micron, and one
+    distant instrument at 100 pc: a 40-bin log SED over 0.09-1000 micron
+    with statistics and a 64x64 frame of 4 pc. Equilibrium emission over
+    all cells; by default no self-absorption iterations, as the ski file
+    says. n, n_rf, max_events and the iteration options cut it down for
+    small runs."""
+    from skirt9_tpu_torch.grids.cartesian import make_cartesian
+    from skirt9_tpu_torch.geometries.analytic import ShellGeometry
+    from skirt9_tpu_torch.instruments.distant import DistantInstrumentCfg
+    from skirt9_tpu_torch.media import geometric as gm
+    from skirt9_tpu_torch.media import mixes as mx
+    from skirt9_tpu_torch.simulation import Simulation
+    from skirt9_tpu_torch.sources.base import PointSource
+    from skirt9_tpu_torch.spectral import seds
+    from skirt9_tpu_torch.spectral import wavelengths as wl
+    from skirt9_tpu_torch.transport.lifecycle import TransportOptions
+    from skirt9_tpu_torch.utils import constants as c
+
+    um, pc = 1e-6, c.PARSEC
+    src_range = (0.09 * um, 100 * um)
+    sed = seds.clipped(seds.blackbody(5778.0), *src_range)
+    source = PointSource(position=(0.0, 0.0, 0.0),
+                         luminosity=1e5 * c.SOLAR_LUMINOSITY, sed=sed,
+                         wavelength_bias=0.5)
+    grid = make_cartesian(((-1.2 * pc, 1.2 * pc),) * 3, (n,) * 3)
+    medium = gm.build_medium(grid, [(
+        ShellGeometry(rmin=1e-6 * pc, rmax=1 * pc, p=0.0),
+        mx.from_file(os.path.join(GOLDEN, "mrn_mean.txt")),
+        gm.OpticalDepthNormalization(tau=2.0, lam=0.55 * um, axis="z"))])
+    inst = DistantInstrumentCfg(
+        name="i0", wave_borders=tuple(wl.log_borders_skirt(0.09 * um,
+                                                           1000 * um, 40)),
+        distance=100 * pc, npx=64, npy=64, fovx=4 * pc, fovy=4 * pc)
+    opts = TransportOptions(max_steps=min(grid.max_steps(), 256),
+                            max_events=max_events, store_rf=True)
+    return Simulation(
+        grid=grid, medium=medium, sources=[source], instruments=[inst],
+        options=opts, rf_borders=wl.log_borders_skirt(*src_range, n_rf),
+        ems_borders=wl.log_borders_skirt(1 * um, 2000 * um, 40),
+        num_packets=num_packets, batch_size=batch_size, seed=0,
+        iterate_secondary=iterate_secondary, max_iterations=max_iterations,
+        device=device)
+
+
 def drive(must: tuple, must_not: tuple, fn):
     """Run one path with the launch counts set to 0 just before it and read
     just after; require every kernel in `must` launched and none in
@@ -201,6 +280,28 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> dict:
+    """Device time per call of fn() from torch.profiler over reps calls
+    after three warm-up calls: of the port's own kernels ("ours", named
+    skirt9::) and of every kernel the call launches ("all"). Beside the
+    CUDA-event time of `cuda_ms`, which for a short kernel measures the
+    host's launch rate, this is the time the card spent."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = lambda es: sum(e.self_device_time_total for e in es) / 1e3 / reps
+    return {"ours": total([e for e in ev if "skirt9::" in e.key]),
+            "all": total(ev)}
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -290,7 +391,8 @@ def phase_kernels(torch) -> dict:
     tab_bytes = tabs.nd.numel() * 4
     out["sweep_dtau"] = dict(
         max_abs_err=err1, max_rel_tau_err=rel1, ms=ms1, plain_ms=pms1,
-        library_ms=None, active_pairs=n_act,
+        library_ms=None, active_pairs=n_act, device_ms=device_ms(
+            lambda: sw._dtau_cuda(tabs, pos, dirn, g, smin, smax, sg))["ours"],
         **bound(lane_bytes(B, 1) + tab_bytes + tabs.nmax * B * 4,
                 n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)))
 
@@ -322,6 +424,7 @@ def phase_kernels(torch) -> dict:
     out["sweep_deposit"] = dict(
         max_abs_err=rf_err, rf_max=rf_max, found_agreement=agree,
         s_int_err=ds_err, ms=ms2, plain_ms=pms2, library_ms=None,
+        device_ms=device_ms(lambda: sw._deposit_cuda(*dep_args))["ours"],
         **bound(lane_bytes(B, 1) + tab_bytes + 2 * tabs.nmax * B * 4
                 + rf_k.numel() * 4 + B * 12,
                 n_act * (OPS_SLAB + 3 * (OPS_SUB + 2 + OPS_DEP))))
@@ -343,11 +446,17 @@ def phase_kernels(torch) -> dict:
         acc, idx64 = torch.zeros(size, device=dev), idx.long()
         times[size] = (cuda_ms(lambda: sca.scatter_add(idx, val, size)),
                        cuda_ms(lambda: sca.scatter_add_plain(idx, val, size)),
-                       cuda_ms(lambda: acc.index_add_(0, idx64, val)))
+                       cuda_ms(lambda: acc.index_add_(0, idx64, val)),
+                       device_ms(lambda: sca.scatter_add(idx, val, size)),
+                       device_ms(lambda: acc.index_add_(0, idx64, val)))
     out["scatter_add"] = dict(
         max_abs_err=err3, ms=times[4096][0], plain_ms=times[4096][1],
         library_ms=times[4096][2], ms_size1=times[1][0],
         plain_ms_size1=times[1][1], library_ms_size1=times[1][2],
+        device_ms=times[4096][3]["ours"],
+        library_device_ms=times[4096][4]["all"],
+        device_ms_size1=times[1][3]["ours"],
+        library_device_ms_size1=times[1][4]["all"],
         **bound(B * 8 + 4096 * 4, B))
     emit({"phase": "kernels", "batch": B, "grid": list(tabs.n), **out})
     return out
@@ -434,18 +543,21 @@ def phase_kernels_xl(torch) -> dict:
     ms1_sorted = cuda_ms(lambda: sw._dtau_cuda(*ev))
     ms1_unsorted = cuda_ms(lambda: sw._dtau_cuda(*ev_u))
     ms7 = cuda_ms(lambda: xl._deposit_cuda(*dep))
+    dms6 = device_ms(lambda: xl._dtau_cuda(*ev, True))["ours"]
+    dms7 = device_ms(lambda: xl._deposit_cuda(*dep))["ours"]
     n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
     rec = tabs.nmax * B * 4
     out["sweepxl_dtau"] = dict(
         max_abs_err=err6, max_rel_tau_err=rel6, summed_err=sum_err, ms=ms6,
-        plain_ms=pms6, library_ms=None, ms_summed=ms6_sum, ms_peel_z=ms6_peel,
+        device_ms=dms6, plain_ms=pms6, library_ms=None, ms_summed=ms6_sum,
+        ms_peel_z=ms6_peel,
         ms_unsorted=ms6_unsorted, kernel1_ms_sorted=ms1_sorted,
         kernel1_ms_unsorted=ms1_unsorted, active_pairs=n_act,
         **bound(lane_bytes(B, 1) + tabs.nd.numel() * 4 + 3 * rec,
                 n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)))
     out["sweepxl_deposit"] = dict(
-        max_abs_err=rf_err, rf_max=rf_max, ms=ms7, plain_ms=pms7,
-        library_ms=None,
+        max_abs_err=rf_err, rf_max=rf_max, ms=ms7, device_ms=dms7,
+        plain_ms=pms7, library_ms=None,
         **bound(lane_bytes(B, 0) + 4 * rec + tabs.nd.shape[0] * 4,
                 n_act * (OPS_SLAB + 3 * (OPS_SUB + OPS_DEP))))
     emit({"phase": "kernels_xl", "batch": B, "grid": list(tabs.n), **out})
@@ -717,6 +829,7 @@ def _dtau_ml(torch, sim, rs):
     pms = cuda_ms(lambda: ml._dtau_plain(*ev, True), reps=3)
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: ml._dtau_cuda(*ev, True))
+    dms = device_ms(lambda: ml._dtau_cuda(*ev, True))["ours"]
     ms_sum = cuda_ms(lambda: ml._dtau_cuda(*ev, False))
     ms_peel = cuda_ms(lambda: ml._dtau_cuda(*pl, False))
     # the rate of PyTorch's own gather on the leaf map (L2-resident on a
@@ -730,7 +843,7 @@ def _dtau_ml(torch, sim, rs):
     rec = tabs.n_steps * 3 * B * 4
     entry = dict(
         max_abs_err=err, bit_identical=identical, max_rel_tau_err=rel, ms=ms,
-        plain_ms=pms, library_ms=None, ms_summed=ms_sum, ms_peel_z=ms_peel,
+        device_ms=dms, plain_ms=pms, library_ms=None, ms_summed=ms_sum, ms_peel_z=ms_peel,
         live_pairs=n_live, fine_grid=list(tabs.n), n_steps=tabs.n_steps,
         leaves=tabs.nd.shape[0], torch_gather_per_s=gathers_per_s,
         gather_bound_ms=2 * 3 * n_live / gathers_per_s * 1e3,
@@ -792,6 +905,7 @@ def phase_kernels_ml(torch) -> dict:
            0.5)
     torch.cuda.empty_cache()
     ms5 = cuda_ms(lambda: ml._deposit_cuda(*dep))
+    dms5 = device_ms(lambda: ml._deposit_cuda(*dep))["ours"]
     # pass 2 as the path calls it: kernel 5 with the interaction cell, or
     # without an RF the reference's resolve_interaction in torch ops
     act_int = active & (tot > 1e-6)
@@ -807,7 +921,7 @@ def phase_kernels_ml(torch) -> dict:
     out = {"mlsweep_dtau": k4}
     out["mlsweep_deposit"] = dict(
         max_abs_err=rf_err, rf_max=rf_max, s_int_err=s_err, ms=ms5,
-        plain_ms=pms5, library_ms=None, ms_pass2_rf=ms_pass2_rf,
+        device_ms=dms5, plain_ms=pms5, library_ms=None, ms_pass2_rf=ms_pass2_rf,
         ms_resolve_interaction=ms_resolve,
         **bound(lane_bytes(B, 0) + 8 * B + 2 * rec + rec // 3
                 + 2 * tabs.n_steps * 4 + tabs.nd.shape[0] * 4 + 8 * B,
@@ -960,6 +1074,363 @@ def phase_breakdown_ml(torch, sim) -> None:
                   for e in top]})
 
 
+# ------------------------------------------------------- config 2, probes
+
+PROBE = ("probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
+         "row_lookup_gather", "row_lookup_select")
+
+
+def phase_kernels_probe(torch) -> dict:
+    """Kernels 8-9 through their entry points (the tools' `run`, at the
+    original scripts' shapes), then each variant once more against its
+    plain version (gathers bit-exact, sums within 1e-6 relative) with its
+    bound; kernel 3 at the probe's scatter shape beside kernel 8's."""
+    from skirt9_tpu_torch.ops import scatteradd as sca
+    from skirt9_tpu_torch.tools import gather_probe as gp
+    from skirt9_tpu_torch.tools import sublane_gather as sg
+    (r8, r9), launches = drive(PROBE, RESIDENT + XL + ML, lambda: (
+        gp.run("cuda"), sg.run("cuda")))
+    dev = torch.device("cuda")
+    nd, idx, vals = gp.inputs(dev)
+    tab, ix = sg.inputs(dev)
+    g_ref = gp.gather_plain(nd, idx)
+    s_ref = gp.scatter_plain(idx, vals, gp.N)
+    l_ref = sg.lookup_plain(tab, ix)
+    checks = {
+        "probe_gather_smem": (gp.gather(nd, idx), g_ref, True),
+        "probe_take_smem": (gp.take(nd, idx), g_ref, True),
+        "probe_gather_l2": (gp.gather(nd, idx, staged=False), g_ref, True),
+        "probe_scatter_smem": (gp.scatter(idx, vals, gp.N), s_ref, False),
+        "scatter_add_probe_shape": (sca.scatter_add(idx, vals, gp.N), s_ref,
+                                    False),
+        "row_lookup_gather": (sg.lookup(tab, ix), l_ref, False),
+        "row_lookup_select": (sg.lookup(tab, ix, select=True), l_ref, False)}
+    torch.cuda.synchronize()
+    err = {}
+    for name, (got, ref, exact) in checks.items():
+        err[name] = float((got - ref).abs().max())
+        if exact:
+            require(bool(torch.equal(got, ref)), f"{name} bit-exact")
+        else:
+            require(err[name] <= 1e-6 * float(ref.abs().max()),
+                    f"{name} error {err[name]} <= 1e-6 relative")
+    dev_t = {name: device_ms(fn) for name, fn in {
+        "probe_gather_smem": lambda: gp.gather(nd, idx),
+        "probe_gather_l2": lambda: gp.gather(nd, idx, staged=False),
+        "probe_scatter_smem": lambda: gp.scatter(idx, vals, gp.N),
+        "scatter_add": lambda: sca.scatter_add(idx, vals, gp.N),
+        "row_lookup_gather": lambda: sg.lookup(tab, ix),
+        "row_lookup_select": lambda: sg.lookup(tab, ix, select=True),
+        "gather_library": lambda: gp.gather_plain(nd, idx),
+        "scatter_library": lambda: gp.scatter_plain(idx, vals, gp.N),
+        "lookup_library": lambda: sg.lookup_library(tab, ix)}.items()}
+    B, N = gp.B, gp.N
+    io8 = N * 4 + B * 8                   # table or histogram, idx, out/vals
+    R, S, W, IT = sg.R, sg.S, sg.W, sg.ITERS
+    io9 = R * W * 4 + 2 * S * W * 4
+    out = {
+        "probe_gather_smem": dict(
+            ms=r8["gather_smem"]["ms"], ms_take=r8["take_smem"]["ms"],
+            plain_ms=r8["gather_plain_ms"], library_ms=r8["gather_plain_ms"],
+            max_abs_err=max(err["probe_gather_smem"], err["probe_take_smem"]),
+            **bound(io8, 0)),
+        "probe_gather_l2": dict(
+            ms=r8["gather_l2"]["ms"], plain_ms=r8["gather_plain_ms"],
+            library_ms=r8["gather_plain_ms"],
+            max_abs_err=err["probe_gather_l2"], **bound(io8, 0)),
+        "probe_scatter_smem": dict(
+            ms=r8["scatter_smem"]["ms"], plain_ms=r8["scatter_plain_ms"],
+            library_ms=r8["scatter_plain_ms"],
+            max_abs_err=err["probe_scatter_smem"],
+            kernel3_ms=r8["scatter_kernel3"]["ms"],
+            kernel3_max_abs_err=err["scatter_add_probe_shape"],
+            **bound(io8, B)),
+        "row_lookup_gather": dict(
+            ms=r9["gather"]["ms"], plain_ms=r9["gather"]["plain_ms"],
+            library_ms=r9["library_ms"], max_abs_err=err["row_lookup_gather"],
+            **bound(io9, S * W * IT)),
+        # a compare and an add per (lookup, row)
+        "row_lookup_select": dict(
+            ms=r9["select"]["ms"], plain_ms=r9["select"]["plain_ms"],
+            library_ms=r9["library_ms"], max_abs_err=err["row_lookup_select"],
+            **bound(io9, 2 * S * W * IT * R))}
+    lib = {"probe_gather_smem": "gather_library",
+           "probe_gather_l2": "gather_library",
+           "probe_scatter_smem": "scatter_library",
+           "row_lookup_gather": "lookup_library",
+           "row_lookup_select": "lookup_library"}
+    for name in PROBE:
+        out[name].update(launches=launches[name],
+                         device_ms=dev_t[name]["ours"],
+                         device_ms_call=dev_t[name]["all"],
+                         library_device_ms=dev_t[lib[name]]["all"])
+    out["probe_scatter_smem"]["kernel3_device_ms"] = dev_t["scatter_add"][
+        "ours"]
+    emit({"phase": "kernels_probe", "table": N, "indices": B,
+          "row_table": [R, W], "index_rows": S, "iters": IT, **out})
+    return out
+
+
+def first_event_b2(torch, sim):
+    """Config 2's first event as the path sees it: the first stratified
+    batch of the primary source launched, its cross sections, the lane
+    set-up of the sweep and the pass-1 optical depths."""
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.sources import base as src
+    from skirt9_tpu_torch.transport import sweep as sw
+    strata = sim._strata_for(sim.sources[0], sim.options)
+    B, stabs, opts, lanes = sim._stratify(strata, sim._src_tabs[0],
+                                          sim.options, sim.num_packets)
+    pkt = src.launch_batch(sim.sources[0], stabs, sim.grid,
+                           rng.seed_key(sim.seed, sim.device), lanes,
+                           sim.num_packets)
+    sig = msys.optics_at(sim.medium, pkt.lam).sigma_ext.T.contiguous()
+    tabs = sim._sweep_tabs
+    g, smin, smax, sg_ = sw._prep(tabs, pkt.pos, pkt.dir, sig, pkt.alive)
+    dtau = sw._dtau_plain(tabs, pkt.pos, pkt.dir, g, smin, smax, sg_)
+    return pkt, opts, (g, smin, smax, sg_), dtau
+
+
+def phase_kernels_b2(torch) -> dict:
+    """Kernel 2 with config 2's 32 lane groups and kernel 3 on its
+    163,840-bin frame, each against its plain version on config 2's first
+    event, timed, with their bounds."""
+    from skirt9_tpu_torch.instruments import distant as dinst
+    from skirt9_tpu_torch.ops import scatteradd as sca
+    from skirt9_tpu_torch.transport import sweep as sw
+    sim = config2("cuda")
+    tabs = sim._sweep_tabs
+    pkt, opts, (g, smin, smax, sg_), dtau = first_event_b2(torch, sim)
+    B, n_groups = pkt.lam.shape[0], opts.rf_strata
+    require(n_groups == 32 and B == B_FULL,
+            f"config 2 runs 32 lane groups of a 2^17 batch ({n_groups}, {B})")
+    rs = np.random.default_rng(6)
+    grp = sw.dominant_axis(tabs, pkt.dir)
+    tb, tot = sw.slab_prefix(dtau, pkt.dir.gather(1, grp[:, None])[:, 0] > 0)
+    inv_sqrt = 1.0 / math.sqrt(sim.rf_scale)
+    rfb = sim._rf_borders_dev
+    in_rf = (pkt.lam >= rfb[0]) & (pkt.lam < rfb[-1])
+    scale = ((pkt.lum * (pkt.alive & in_rf)) * inv_sqrt)[None, :] \
+        * torch.exp(-tb) * inv_sqrt
+    u = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                     device=sim.device)
+    rel = (u * tot)[None, :] - tb
+    dep = (tabs, pkt.pos, pkt.dir, g, smin, smax, sg_, scale, rel, n_groups)
+    rf_k, s_k, c_k, f_k = sw._deposit_cuda(*dep)
+    rf_p, s_p, c_p, f_p = sw._deposit_plain(*dep)
+    torch.cuda.synchronize()
+    require(rf_k.shape == (32, tabs.nd.shape[0]), "kernel 2 gives 32 RF rows")
+    agree = float((f_k == f_p).float().mean())
+    both = f_k & f_p
+    require(int(f_p.sum()) > B // 2, "config-2 rays interact")
+    require(agree >= 0.999, f"kernel 2 (32 groups) found agreement {agree}")
+    require(bool(torch.equal(c_k[both], c_p[both])),
+            "kernel 2 (32 groups) icell identical where both found")
+    s_err = float((s_k[both] - s_p[both]).abs().max())
+    require(s_err <= 1e-5 * float(tabs.h[0]), f"kernel 2 s_int error {s_err}")
+    rf_err = float((rf_k - rf_p).abs().max())
+    rf_max = float(rf_p.abs().max())
+    rows_lit = int((rf_p.abs().sum(dim=1) > 0).sum())
+    require(rf_max > 0 and rf_err <= 1e-4 * rf_max,
+            f"kernel 2 (32 groups) rf error {rf_err} <= 1e-4 * {rf_max}")
+    require(rows_lit >= 25, f"kernel 2 fills the 25 RF bins' rows ({rows_lit})")
+    ms2 = cuda_ms(lambda: sw._deposit_cuda(*dep))
+    pms2 = cuda_ms(lambda: sw._deposit_plain(*dep), reps=3)
+    n_act = active_slabs(tabs, pkt.pos, pkt.dir, g, smin, smax)
+    out = {"sweep_deposit": dict(
+        max_abs_err=rf_err, rf_max=rf_max, found_agreement=agree,
+        s_int_err=s_err, rf_rows_lit=rows_lit, ms=ms2, plain_ms=pms2,
+        library_ms=None, n_groups=n_groups,
+        **bound(lane_bytes(B, 1) + tabs.nd.numel() * 4 + 2 * tabs.nmax * B * 4
+                + rf_k.numel() * 4 + B * 12,
+                n_act * (OPS_SLAB + 3 * (OPS_SUB + 2 + OPS_DEP))))}
+
+    # kernel 3: the frame bins of the first scattering peel-off, formed as
+    # detect forms them from the interaction points found above
+    cfg, itab = sim.instruments[0], sim._inst_tabs[0]
+    nb = cfg.nbins
+    ipos = pkt.pos + s_p[:, None] * pkt.dir
+    b = torch.searchsorted(itab["wave_borders"], pkt.lam, right=True) - 1
+    ok = f_p & (b >= 0) & (b < nb)
+    xp = torch.sum(ipos * itab["ex"], dim=-1) - cfg.centerx
+    yp = torch.sum(ipos * itab["ey"], dim=-1) - cfg.centery
+    ix = torch.floor((xp / cfg.fovx + 0.5) * cfg.npx).clamp(0, cfg.npx - 1)
+    iy = torch.floor((yp / cfg.fovy + 0.5) * cfg.npy).clamp(0, cfg.npy - 1)
+    size = nb * cfg.npy * cfg.npx
+    flat = ((b.clamp(0, nb - 1) * cfg.npy + iy.long()) * cfg.npx
+            + ix.long()).to(torch.int32)
+    val = torch.where(ok, pkt.lum, torch.zeros_like(pkt.lum))
+    k_ = sca.scatter_add(flat, val, size)
+    p_ = sca.scatter_add_plain(flat, val, size)
+    torch.cuda.synchronize()
+    e3 = float((k_ - p_).abs().max())
+    require(size == 163840 and e3 <= 1e-5 * float(p_.abs().max()),
+            f"kernel 3 at {size} bins error {e3} <= 1e-5 relative")
+    acc, f64 = torch.zeros(size, device=sim.device), flat.long()
+    out["scatter_add"] = dict(
+        max_abs_err=e3, bins=size, distinct_bins=int(torch.unique(flat).numel()),
+        ms=cuda_ms(lambda: sca.scatter_add(flat, val, size)),
+        plain_ms=cuda_ms(lambda: sca.scatter_add_plain(flat, val, size)),
+        library_ms=cuda_ms(lambda: acc.index_add_(0, f64, val)),
+        device_ms=device_ms(lambda: sca.scatter_add(flat, val, size))["ours"],
+        library_device_ms=device_ms(
+            lambda: acc.index_add_(0, f64, val))["all"],
+        **bound(B * 8 + size * 4, B))
+    out["sweep_deposit"]["device_ms"] = device_ms(
+        lambda: sw._deposit_cuda(*dep))["ours"]
+    emit({"phase": "kernels_b2", "batch": B, "grid": list(tabs.n), **out})
+    return out
+
+
+def phase_draw_for_draw_b2(torch) -> None:
+    """A small config 2 (8^3, 8,192 packets, 8 events, one self-absorption
+    iteration) through run_with_dust_emission on the CPU (plain versions)
+    and on the GPU (kernels), the same seed: each SED kind within 1e-4 of
+    its largest bin, the RF within 1e-4 of its maximum, L_dust 1e-4."""
+    runs = {}
+    for device in ("cpu", "cuda"):
+        sim = config2(device, num_packets=8192, batch_size=4096, n=8,
+                      max_events=8, iterate_secondary=True, max_iterations=1)
+        rf, accs, info = sim.run_with_dust_emission(verbose=False)
+        runs[device] = (sim, rf, accs, info)
+    (sc, rfc, ac, ic), (sg, rfg, ag, ig) = runs["cpu"], runs["cuda"]
+    worst = 0.0
+    sed_c, sed_g = ac[0]["sed"].double(), ag[0]["sed"].double().cpu()
+    for k in range(sed_c.shape[0]):
+        m = float(sed_c[k].abs().max())
+        require(m > 0, f"SED kind {k} lit")
+        worst = max(worst, float((sed_g[k] - sed_c[k]).abs().max()) / m)
+    require(worst <= 1e-4, f"draw-for-draw (config 2) SEDs {worst} <= 1e-4")
+    rf_err = float((rfg.double().cpu() - rfc.double()).abs().max()
+                   / rfc.double().abs().max())
+    require(rf_err <= 1e-4, f"draw-for-draw (config 2) RF {rf_err} <= 1e-4")
+    e_l = abs(ig["L_dust"] / ic["L_dust"] - 1.0)
+    require(ic["iterations"] == ig["iterations"] == 1 and e_l <= 1e-4,
+            f"draw-for-draw (config 2) L_dust {e_l} <= 1e-4")
+    emit({"phase": "draw_for_draw_b2", "grid": [8] * 3, "packets": 8192,
+          "batch": sc.batch_size, "rf_bins": rfc.shape[1],
+          "sed_err_of_max": worst, "rf_err_of_max": rf_err,
+          "L_dust_rel_err": e_l, "iterations": ic["iterations"]})
+
+
+def _golden_gates(sim, rf, accs, tmp) -> dict:
+    """bench2's golden thresholds (tests/test_reference_parity.py:72-141)
+    against tests/golden/bench2_*: SED column medians, the integrated
+    total, the RF per-bin medians and log correlation, the dust
+    temperature median."""
+    paths = sim.write_outputs(accs, "b2", tmp)
+    ours = np.loadtxt(paths[0])
+    ref = np.loadtxt(os.path.join(GOLDEN, "bench2_i0_sed.dat"))
+    require(ours.shape[0] == ref.shape[0], "40 SED rows")
+    require(bool(np.allclose(ours[:, 0], ref[:, 0], rtol=1e-3)),
+            "SED wavelengths")
+    res = {}
+    for col, name, tol in ((2, "transparent", 0.05), (3, "primarydirect", 0.1),
+                           (4, "primaryscattered", 0.25),
+                           (5, "secondarydirect", 0.25)):
+        hi = ref[:, col] > 0.05 * ref[:, col].max()
+        med = float(np.median(ours[hi, col] / ref[hi, col]))
+        require(abs(med - 1.0) < tol, f"bench2 {name} median ratio {med}")
+        res[f"{name}_median_ratio"] = med
+    lam = ref[:, 0]
+    tot = float(np.trapezoid(ours[:, 1], lam) / np.trapezoid(ref[:, 1], lam))
+    require(abs(tot - 1.0) < 0.1, f"bench2 integrated total ratio {tot}")
+    res["total_ratio"] = tot
+    with gzip.open(os.path.join(GOLDEN, "bench2_rf_J.dat.gz"), "rt") as f:
+        refJ = np.loadtxt(f)[:, 1:]
+    rb = np.asarray(sim.rf_borders, np.float64)
+    dlam = np.diff(rb)
+    vols = sim.grid.volumes()
+    oursJ = (rf.double().cpu().numpy() * sim.rf_scale
+             / (4 * np.pi * vols[:, None] * dlam[None, :])) * 1e-6
+    tr, to = refJ.sum(axis=0), oursJ.sum(axis=0)
+    hi = tr > 0.02 * tr.max()
+    med = float(np.median(to[hi] / tr[hi]))
+    require(abs(med - 1.0) < 0.1, f"bench2 RF per-bin median ratio {med}")
+    bol_r = (refJ * dlam[None, :] * 1e6).sum(axis=1)
+    bol_o = (oursJ * dlam[None, :] * 1e6).sum(axis=1)
+    sel = bol_r > np.percentile(bol_r, 50)
+    cc = float(np.corrcoef(np.log(bol_r[sel]),
+                           np.log(np.maximum(bol_o[sel], 1e-300)))[0, 1])
+    require(cc > 0.93, f"bench2 RF log correlation {cc} > 0.93")
+    T_ref = np.loadtxt(os.path.join(GOLDEN, "bench2_T_dust_T.dat"))[:, 1]
+    T = sim.dust_temperature(rf)[:, 0]
+    t_med = float(np.median(T[T_ref > 1.0] / T_ref[T_ref > 1.0]))
+    require(abs(t_med - 1.0) < 0.05, f"bench2 dust temperature median {t_med}")
+    res.update(rf_median_ratio=med, rf_log_correlation=cc,
+               T_median_ratio=t_med)
+    return res
+
+
+def phase_full_width_b2(torch, smi: str):
+    """Config 2 at bench.py's full width (2^20 packets in batches of 2^17,
+    24 events, seed 0), a warm-up run and a timed run on the same object:
+    kernels 1-3 launched, no tree or XL kernel; bench2's golden gates and
+    L_dust = L_abs_primary within 1e-4 (no iterations)."""
+    sim = config2("cuda")
+    sim.run_with_dust_emission(verbose=False)            # warm-up
+    t0 = time.perf_counter()
+    (rf, accs, info), launches = drive(
+        RESIDENT + ("scatter_add",), XL + ML,
+        lambda: sim.run_with_dust_emission(verbose=False))
+    dt = time.perf_counter() - t0
+    stats = dict(sim.last_stats)
+    n_pk = sim.num_packets
+    packets = n_pk * (1 + info["iterations"] + (1 if info["L_dust"] > 0 else 0))
+    e_l = abs(info["L_dust"] / info["L_abs_primary"] - 1.0)
+    require(not sim.iterate_secondary and info["iterations"] == 0
+            and e_l < 1e-4, f"L_dust / L_abs_primary - 1 = {e_l} (< 1e-4)")
+    require(bool(torch.isfinite(rf).all()) and float(rf.min()) >= 0,
+            "RF finite and non-negative")
+    with tempfile.TemporaryDirectory() as tmp:
+        gates = _golden_gates(sim, rf, accs, tmp)
+    events = sum(seg[3] for seg in stats["segments"])
+    res = {"phase": "full_width_b2", "grid": list(sim.grid.shape),
+           "packets": n_pk, "batch": sim.batch_size, "rf_bins": rf.shape[1],
+           "packets_per_s": packets / dt, "seconds": dt,
+           "iterations": info["iterations"], "L_dust": info["L_dust"],
+           "L_abs_primary": info["L_abs_primary"],
+           "L_dust_rel_err": e_l,
+           "segments": [{"name": n, "packets": p, "seconds": t, "events": e}
+                        for n, p, t, e in stats["segments"]],
+           "events": events, "launches": launches,
+           "kernel_launches_per_event": sum(launches.values()) / events,
+           **gates, "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi}
+    emit(res)
+    return sim, launches
+
+
+def phase_breakdown_b2(torch) -> None:
+    """Config 2 with one batch per segment (2^17 packets) under
+    torch.profiler: device launches per event, busy and idle shares, the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    sim = config2("cuda", num_packets=B_FULL)
+    sim.run_with_dust_emission(verbose=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_with_dust_emission(verbose=False)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    n = sum(e.count for e in kernels)
+    events = sum(seg[3] for seg in sim.last_stats["segments"])
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    emit({"phase": "breakdown_b2", "packets": sim.num_packets,
+          "profiled_wall_s": wall, "device_busy_s": busy,
+          "idle_share": 1.0 - busy / wall, "device_launches": n,
+          "events": events, "launches_per_event": n / events,
+          "segments": sim.last_stats["segments"],
+          "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                  for e in top]})
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -972,6 +1443,9 @@ def main() -> int:
     phase_build()
     kern = phase_kernels(torch)
     kern.update(phase_kernels_xl(torch))
+    torch.cuda.empty_cache()
+    kern.update(phase_kernels_probe(torch))
+    kern_b2 = phase_kernels_b2(torch)
     torch.cuda.empty_cache()
     phase_draw_for_draw(torch)
     phase_draw_for_draw(torch, "draw_for_draw_xl", n=80, tables="XLTables")
@@ -998,6 +1472,11 @@ def main() -> int:
           sim.last_rate, "packets_per_s": rate_ml,
           "ratio": sim.last_rate / rate_ml})
     del sim
+    torch.cuda.empty_cache()
+    phase_draw_for_draw_b2(torch)
+    sim, launches_b2 = phase_full_width_b2(torch, smi)
+    del sim
+    phase_breakdown_b2(torch)
     rows = []
     for name, src, ref, path, counts in (
             ("sweep_dtau", "sweep_dtau.cu", "skirt9_tpu/transport/sweep.py:238",
@@ -1018,12 +1497,44 @@ def main() -> int:
              "skirt9_tpu/transport/mlsweep.py:719", "rf_ml",
              launches_rf_ml)):
         k = kern[name]
+        row = {"name": name, "route": "cuda",
+               "source": f"skirt9_tpu_torch/csrc/{src}", "replaces": ref,
+               "path": path, "launches": counts[name],
+               **{key: k[key] for key in (
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")}}
+        for key in ("device_ms", "library_device_ms"):
+            if key in k:
+                row[key] = k[key]
+        if name in RESIDENT + ("scatter_add",):
+            # the config-2 path (full_width_b2) and, for kernels 2-3, their
+            # config-2 shapes (kernels_b2)
+            row["launches_config2"] = launches_b2[name]
+            if name in kern_b2:
+                row["config2"] = {key: kern_b2[name][key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "device_ms") if key in kern_b2[name]}
+        rows.append(row)
+    for name, src, ref in (
+            ("probe_gather_smem", "probe_gather.cu",
+             "tools/_pallas_probe.py:12 (gather_kernel) and :34 "
+             "(take_kernel)"),
+            ("probe_gather_l2", "probe_gather.cu",
+             "tools/_pallas_probe.py:12 (gather_kernel)"),
+            ("probe_scatter_smem", "probe_gather.cu",
+             "tools/_pallas_probe.py:56 (scat_kernel)"),
+            ("row_lookup_gather", "row_lookup.cu",
+             "tools/bench_sublane_gather.py:26 (kern_gather)"),
+            ("row_lookup_select", "row_lookup.cu",
+             "tools/bench_sublane_gather.py:38 (kern_select)")):
+        k = kern[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"skirt9_tpu_torch/csrc/{src}", "replaces": ref,
-                     "path": path, "launches": counts[name],
+                     "path": "kernels_probe (the tool's entry point)",
                      **{key: k[key] for key in (
-                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms")}})
+                         "launches", "max_abs_err", "ms", "plain_ms",
+                         "bound_ms", "bound_by", "library_ms", "device_ms",
+                         "library_device_ms")}})
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,7 @@ from .grids.octree import OctreeGrid
 from .instruments.distant import DistantInstrumentCfg
 from .media.system import MediumTables
 from .simulation import Simulation
-from .sources.base import PointSource
+from .sources.base import PointSource, TabulatedSED
 from .transport.lifecycle import TransportOptions
 
 
@@ -79,9 +79,18 @@ def _same_fields(cls, ref_obj):
                   for f in dataclasses.fields(cls)})
 
 
+def sed(ref_sed) -> TabulatedSED | None:
+    if ref_sed is None:
+        return None
+    _kind(ref_sed, "TabulatedSED")
+    return TabulatedSED(lam=np.asarray(ref_sed.lam, np.float64),
+                        s=np.asarray(ref_sed.s, np.float64))
+
+
 def source(ref_src) -> PointSource:
     _kind(ref_src, "PointSource")
-    return _same_fields(PointSource, ref_src)
+    return dataclasses.replace(_same_fields(PointSource, ref_src),
+                               sed=sed(ref_src.sed))
 
 
 def instrument(ref_cfg) -> DistantInstrumentCfg:
@@ -99,7 +108,14 @@ def options(ref_opts) -> TransportOptions:
 _INACTIVE = {"mueller": None, "spheroidal": None, "refill_events": 0,
              "mesh": None, "dd": False, "xray_tabs": None, "phase_tabs": None,
              "dynamic_recipes": [], "gas_emitters": [], "custom_state": {},
-             "checkpoint_path": None}
+             "grain_tables": None}
+
+# the reference's dust-emission fields, carried over as they are
+_EMISSION = ("ems_borders", "spatial_bias", "iterate_secondary",
+             "include_primary", "min_iterations", "max_iterations",
+             "max_fraction_of_primary", "max_fraction_of_previous",
+             "secondary_packets_multiplier", "dust_emission_type",
+             "cell_library", "cmb_temperature", "checkpoint_path")
 
 
 def simulation(ref_sim, device) -> Simulation:
@@ -118,4 +134,5 @@ def simulation(ref_sim, device) -> Simulation:
         rf_borders=None if rfb is None else np.asarray(rfb, np.float64),
         num_packets=int(ref_sim.num_packets),
         batch_size=int(ref_sim.batch_size), seed=int(ref_sim.seed),
-        source_bias=float(ref_sim.source_bias), device=device)
+        source_bias=float(ref_sim.source_bias), device=device,
+        **{k: getattr(ref_sim, k) for k in _EMISSION})

@@ -80,6 +80,19 @@ class UniformCartesianGrid(NamedTuple):
         g = torch.stack(torch.meshgrid(cx, cy, cz, indexing="ij"), dim=-1)
         return g.reshape(-1, 3)
 
+    def volumes(self) -> np.ndarray:
+        """Cell volumes (ncells,) [m^3], host f64."""
+        h = self.h.cpu().numpy().astype(np.float64)
+        return np.full(self.ncells, h[0] * h[1] * h[2])
+
+    def cell_bounds(self):
+        """Per-cell box corners (lo, hi), (ncells, 3) host f64 each."""
+        lo = self.lo.cpu().numpy().astype(np.float64)
+        h = self.h.cpu().numpy().astype(np.float64)
+        axes = [lo[a] + np.arange(n) * h[a] for a, n in enumerate(self.shape)]
+        clo = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+        return clo, clo + h
+
     def diagonal(self) -> float:
         lo = self.lo.cpu().numpy().astype(np.float64)
         hi = self.hi.cpu().numpy().astype(np.float64)

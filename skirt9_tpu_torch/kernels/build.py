@@ -37,7 +37,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # one entry point and counter each, even where two share source through
 # csrc/sweep_common.cuh, so a run shows which contract its path went through
 KERNELS = ("sweep_dtau", "sweep_deposit", "scatter_add", "sweepxl_dtau",
-           "sweepxl_deposit", "mlsweep_dtau", "mlsweep_deposit")
+           "sweepxl_deposit", "mlsweep_dtau", "mlsweep_deposit",
+           # the gather and row-lookup probes (tools/), one counter per
+           # variant of their shared entry points
+           "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
+           "row_lookup_gather", "row_lookup_select")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -67,6 +71,12 @@ _SIGNATURES = {
     # step_gs, rf, first_hit, B, nx, ny, nz, n_steps, lox, loy, loz, hx, hy,
     # hz, inv2, stream
     "mlsweep_deposit_launch": [_P] * 14 + [_I] * 5 + [_F] * 7 + [_P],
+    # nd, idx, out, n, B, staged, stream
+    "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
+    # idx, val, out, n, B, stream
+    "probe_scatter_launch": [_P] * 3 + [_I] * 2 + [_P],
+    # tab, idx, out, R, W, S, iters, select, stream
+    "row_lookup_launch": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lib = None
@@ -160,14 +170,15 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, count_as: str | None = None) -> None:
     """Call `<name>_launch` of the library on the given arguments, count the
-    launch, and raise if CUDA refused it (cudaGetLastError != 0)."""
+    launch (under `count_as` where one entry point serves several kernel
+    variants), and raise if CUDA refused it (a nonzero cudaError)."""
     err = getattr(library(), f"{name}_launch")(*args)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"CUDA kernel {count_as or name} failed to "
+                           f"launch: cudaError {err}")
+    LAUNCHES[count_as or name] += 1
 
 
 def stream_of(t) -> int:

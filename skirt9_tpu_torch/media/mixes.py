@@ -1,0 +1,85 @@
+"""Material mixes: optical-property tables on a wavelength grid.
+
+A copy of the part of `skirt9_tpu/media/mixes.py` (host numpy, no jax) that
+config 2 reaches: `MixTables`, `tabulated`, `from_file` (the
+MeanFileDustMix text format of `tests/golden/mrn_mean.txt`) and `stack`.
+The reference's analytic benchmark mixes and resource-pack readers are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class MixTables:
+    """Optical properties of one medium component on a wavelength table."""
+
+    lam: np.ndarray        # (T,) [m]
+    sigma_ext: np.ndarray  # (T,) extinction cross section per entity [m^2]
+    albedo: np.ndarray     # (T,)
+    g: np.ndarray          # (T,) HG asymmetry
+    mu: float = 0.0        # mass per entity [kg] (for mass normalizations)
+
+    @property
+    def sigma_abs(self) -> np.ndarray:
+        return self.sigma_ext * (1.0 - self.albedo)
+
+    @property
+    def sigma_sca(self) -> np.ndarray:
+        return self.sigma_ext * self.albedo
+
+    def kappa_ext(self) -> np.ndarray:
+        """Mass extinction coefficient [m^2/kg]."""
+        return self.sigma_ext / self.mu if self.mu > 0 else self.sigma_ext
+
+    def at(self, lam0: float) -> tuple[float, float, float]:
+        """(sigma_ext, albedo, g) interpolated at one wavelength."""
+        se = np.exp(np.interp(np.log(lam0), np.log(self.lam),
+                              np.log(np.maximum(self.sigma_ext, 1e-300))))
+        al = np.interp(lam0, self.lam, self.albedo)
+        gg = np.interp(lam0, self.lam, self.g)
+        return float(se), float(al), float(gg)
+
+
+def tabulated(lam, sigma_ext, albedo, g, mu: float = 0.0) -> MixTables:
+    """(ref: TabulatedDustMix / MeanListDustMix)"""
+    return MixTables(lam=np.asarray(lam, np.float64),
+                     sigma_ext=np.asarray(sigma_ext, np.float64),
+                     albedo=np.asarray(albedo, np.float64),
+                     g=np.asarray(g, np.float64), mu=mu)
+
+
+def from_file(path: str) -> MixTables:
+    """MeanFileDustMix text format: four columns — wavelength [micron],
+    extinction mass coefficient kappa_ext [m2/kg], albedo, asymmetry g —
+    using the reference's fixed arbitrary dust mass per hydrogen atom
+    mu = 1.5e-29 kg/H to set the cross-section scale
+    (ref: MeanFileDustMix.hpp:18-36)."""
+    d = np.loadtxt(path)
+    mu = 1.5e-29
+    lam = d[:, 0] * 1e-6
+    if lam[0] > lam[-1]:  # decreasing order is allowed
+        d = d[::-1]
+        lam = lam[::-1]
+    return tabulated(lam, d[:, 1] * mu, d[:, 2], d[:, 3], mu=mu)
+
+
+def stack(mixes: list[MixTables], lam_grid: np.ndarray | None = None):
+    """Resample several mixes onto a common wavelength table; returns
+    (lam, sigma_ext (H,T), albedo (H,T), g (H,T)) ready for make_medium."""
+    if lam_grid is None:
+        lo = max(m.lam[0] for m in mixes)
+        hi = min(m.lam[-1] for m in mixes)
+        lam_grid = np.geomspace(lo, hi, 200)
+    se, al, gg = [], [], []
+    for m in mixes:
+        logs = np.interp(np.log(lam_grid), np.log(m.lam),
+                         np.log(np.maximum(m.sigma_ext, 1e-300)))
+        se.append(np.exp(logs))
+        al.append(np.interp(lam_grid, m.lam, m.albedo))
+        gg.append(np.interp(lam_grid, m.lam, m.g))
+    return lam_grid, np.array(se), np.array(al), np.array(gg)

@@ -127,6 +127,14 @@ def uniform2(keys: torch.Tensor, tag: int):
     return _bits_to_unit(_draw(pk, 0)), _bits_to_unit(_draw(pk, 1))
 
 
+def uniform_vec(keys: torch.Tensor, tag: int, n: int) -> torch.Tensor:
+    """`jax.random.uniform(k, (n,))` under each purpose key: (B, n) in
+    [0, 1), exact zeros kept (no smallest-normal floor)."""
+    pk = purpose_key(keys, tag)
+    bits = torch.stack([_draw(pk, i) for i in range(n)], dim=-1)
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
 def expon(keys: torch.Tensor, tag: int) -> torch.Tensor:
     """Exponential with unit scale: tau = -ln(1-u)."""
     return -torch.log1p(-uniform(keys, tag))

@@ -1,25 +1,70 @@
-"""Batched table lookups: searchsorted and interpolation on tensors.
+"""Table lookups and cdf sampling: host cdf builds, batched inversion.
 
-Port of the device half of `skirt9_tpu/ops/sampling.py`. The reference's
-dense compare-reduce lookups are TPU gather workarounds; here they are
-`torch.searchsorted` and plain indexing.
+Port of `skirt9_tpu/ops/sampling.py`. The cdf builds run once at set-up in
+float64 numpy, as in the reference; the lookups and inversions run on
+tensors. The reference's dense compare-reduce lookups are TPU gather
+workarounds; here they are `torch.searchsorted` and plain indexing, which
+give the same indices and values.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _TINY = torch.finfo(torch.float32).tiny
 
+
+# ---------------------------------------------------------------- host (setup)
+
+def cdf_linlin(xv, pv) -> tuple[np.ndarray, float]:
+    """Normalised cdf of a piecewise-linear density p(x) on grid xv, and
+    its normalisation integral."""
+    xv = np.asarray(xv, dtype=np.float64)
+    pv = np.asarray(pv, dtype=np.float64)
+    seg = 0.5 * (pv[1:] + pv[:-1]) * np.diff(xv)
+    cdf = np.concatenate([[0.0], np.cumsum(seg)])
+    total = cdf[-1]
+    if total <= 0:
+        raise ValueError("cannot build cdf of non-positive density")
+    return cdf / total, total
+
+
+def cdf_loglog(xv, pv) -> tuple[np.ndarray, float]:
+    """cdf of a density that is a power law between grid points, and its
+    normalisation integral."""
+    xv = np.asarray(xv, dtype=np.float64)
+    pv = np.asarray(pv, dtype=np.float64).copy()
+    pv = np.maximum(pv, np.finfo(np.float64).tiny)
+    alpha = np.log(pv[1:] / pv[:-1]) / np.log(xv[1:] / xv[:-1])
+    # integral of p0*(x/x0)^alpha dx over [x0,x1]
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        seg = np.where(
+            np.abs(alpha + 1.0) > 1e-6,
+            pv[:-1] * xv[:-1] / (alpha + 1.0)
+            * ((xv[1:] / xv[:-1]) ** (alpha + 1.0) - 1.0),
+            pv[:-1] * xv[:-1] * np.log(xv[1:] / xv[:-1]),
+        )
+    cdf = np.concatenate([[0.0], np.cumsum(seg)])
+    total = cdf[-1]
+    return cdf / total, total
+
+
+# ---------------------------------------------------- tensors (hot path)
 
 def searchsorted_right(tab: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Number of table entries <= x (searchsorted side='right'), int64."""
     return torch.searchsorted(tab, x.contiguous(), right=True)
 
 
+def locate_clip(xv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Index i with xv[i] <= x < xv[i+1], clipped to [0, N-2]."""
+    return torch.clamp(searchsorted_right(xv, x) - 1, 0, xv.shape[0] - 2)
+
+
 def interp_linlin(x: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor):
     """Batched linear interpolation with edge clamping."""
-    i = torch.clamp(searchsorted_right(xv, x) - 1, 0, xv.shape[0] - 2)
+    i = locate_clip(xv, x)
     x0, x1 = xv[i], xv[i + 1]
     y0, y1 = yv[i], yv[i + 1]
     t = torch.clamp((x - x0) / torch.clamp_min(x1 - x0, _TINY), 0.0, 1.0)
@@ -32,3 +77,26 @@ def interp_loglog(x: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor):
     out = torch.exp(interp_linlin(torch.log(x), torch.log(xv),
                                   torch.log(torch.clamp_min(yv, _TINY))))
     return torch.where(out < 1e-35, torch.zeros_like(out), out)
+
+
+def _cdf_frac(u, cdf, i):
+    c0, c1 = cdf[i], cdf[i + 1]
+    return torch.where(c1 > c0, (u - c0) / torch.clamp_min(c1 - c0, 1e-30),
+                       torch.zeros_like(u))
+
+
+def sample_cdf_linlin(u: torch.Tensor, xv: torch.Tensor,
+                      cdf: torch.Tensor) -> torch.Tensor:
+    """Invert a tabulated cdf, linear in x within bins; u in (0, 1)."""
+    i = locate_clip(cdf, u)
+    x0 = xv[i]
+    return x0 + _cdf_frac(u, cdf, i) * (xv[i + 1] - x0)
+
+
+def sample_cdf_loglog(u: torch.Tensor, xv: torch.Tensor,
+                      cdf: torch.Tensor) -> torch.Tensor:
+    """Invert a tabulated cdf, linear in log x within bins."""
+    i = locate_clip(cdf, u)
+    lx0 = torch.log(xv[i])
+    lx1 = torch.log(xv[i + 1])
+    return torch.exp(lx0 + _cdf_frac(u, cdf, i) * (lx1 - lx0))

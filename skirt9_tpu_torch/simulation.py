@@ -1,14 +1,23 @@
 """Monte Carlo simulation orchestrator on PyTorch tensors.
 
-Port of `skirt9_tpu/simulation.py` for primary emission on one device, on
-uniform Cartesian grids, octrees and bintrees:
-`run_primary` launches each source's history range in batches through
-`transport.lifecycle.life_cycle` and accumulates the radiation field and
-instrument records on the device; `write_outputs` calibrates and writes the
-SED text files and frame FITS cubes in the reference's format.
+Port of `skirt9_tpu/simulation.py` on one device, on uniform Cartesian
+grids, octrees and bintrees: `run_primary` launches each source's history
+range in batches through `transport.lifecycle.life_cycle` and accumulates
+the radiation field and instrument records on the device;
+`run_with_dust_emission` adds equilibrium dust emission (the optional
+self-absorption iterations, then a secondary segment with peel-off);
+`write_outputs` calibrates and writes the SED text files and frame FITS
+cubes in the reference's format.
 
-The device is explicit (`Simulation(..., device="cuda")`): all tables move
-there once, in `__post_init__`, and nothing falls back to the CPU.
+A multi-bin radiation field (RF) is filled from bin-pure lane groups: a
+source with an SED launches stratified over the RF bins it covers
+(`_strata_for`), a monochromatic one deposits into its own bin
+(`_mono_rf_bin`), as in the reference. This runs on the resident sweep of
+uniform grids; trees and large (XL) grids take a one-bin RF only.
+
+The device defaults to CUDA (`Simulation(..., device="cpu")` asks for the
+CPU): all tables move there once, in `__post_init__`, and nothing falls
+back to the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 
 from . import device as dv
+from .emission import equilibrium as eq
 from .grids.bintree import BinTreeGrid
 from .grids.cartesian import UniformCartesianGrid
 from .grids.octree import OctreeGrid
@@ -28,6 +38,7 @@ from .instruments import distant as dinst
 from .media import system as msys
 from .ops import rng
 from .sources import base as src
+from .sources import secondary as sec
 from .transport import lifecycle as lc
 from .transport import mlsweep as ml
 from .transport import sweep as sw
@@ -54,7 +65,21 @@ class Simulation:
     batch_size: int = 16_384
     seed: int = 0
     source_bias: float = 0.5
-    device: object = dataclasses.field(kw_only=True)
+    # dust emission (the reference's fields, `skirt9_tpu/simulation.py:75-158`)
+    ems_borders: np.ndarray | None = None
+    spatial_bias: float = 0.5
+    iterate_secondary: bool = False
+    include_primary: bool = False
+    min_iterations: int = 1
+    max_iterations: int = 10
+    max_fraction_of_primary: float = 0.01
+    max_fraction_of_previous: float = 0.03
+    secondary_packets_multiplier: float = 1.0
+    dust_emission_type: str = "Equilibrium"
+    cell_library: object = None
+    cmb_temperature: float = 0.0
+    checkpoint_path: str | None = None
+    device: object = dataclasses.field(default="cuda", kw_only=True)
 
     def __post_init__(self):
         self.device = dv.resolve(self.device)
@@ -63,10 +88,12 @@ class Simulation:
             raise NotImplementedError(
                 f"grid {type(self.grid).__name__} not ported yet (uniform "
                 "Cartesian grids, octrees and bintrees only)")
-        if self.rf_borders is not None and self.options.store_rf \
-                and len(self.rf_borders) != 2:
-            raise NotImplementedError("multi-bin radiation field not ported "
-                                      "yet (one RF bin only)")
+        if self.dust_emission_type != "Equilibrium":
+            raise NotImplementedError(f"{self.dust_emission_type} dust "
+                                      "emission not ported yet (Equilibrium)")
+        if self.cell_library is not None:
+            raise NotImplementedError("spatial cell libraries not ported yet "
+                                      "(all cells)")
         # statistics power sums normalised by the mean packet contribution
         # so that they stay inside f32
         L_tot = sum(float(getattr(s, "luminosity", 1.0)) for s in self.sources)
@@ -83,11 +110,19 @@ class Simulation:
             torch.tensor(np.asarray(self.rf_borders, np.float32), device=dev)
             if self.rf_borders is not None else None)
         self._sweep_tabs = self._engine_tables()
+        if (self.rf_borders is not None and self.options.store_rf
+                and len(self.rf_borders) > 2
+                and not isinstance(self._sweep_tabs, sw.SweepTables)):
+            raise NotImplementedError(
+                "multi-bin radiation field on trees and large (XL) grids not "
+                "ported yet (the resident sweep of uniform grids only)")
         # RF accumulator unit [W m]: keeps f32 in range for luminous sources
         self.rf_scale = max(L_tot / max(self.num_packets, 1)
                             * self.grid.diagonal(), 1e-300)
         self.options = dataclasses.replace(self.options, rf_scale=self.rf_scale)
         self.last_stats: dict = {}
+        self._etabs_cache = None
+        self._bounds_dev = None
 
     # -------------------------------------------------------------- internals
 
@@ -143,13 +178,114 @@ class Simulation:
         return torch.zeros((self.grid.ncells, len(self.rf_borders) - 1),
                            dtype=torch.float32, device=self.device)
 
+    def _strata_for(self, source, opts):
+        """Wavelength strata of a bin-pure launch, or None: (borders, bin
+        map) over the source's SED support (or a secondary source's
+        `lam_range`), one stratum per RF bin it covers plus edge strata
+        outside the RF grid (bin -1), padded to a power of two by splitting
+        the widest in-grid strata (`skirt9_tpu/simulation.py:396-465`)."""
+        if self.rf_borders is None or not opts.store_rf:
+            return None
+        R = len(self.rf_borders) - 1
+        if R <= 1:
+            return None
+        sed = getattr(source, "sed", None)
+        if sed is not None:
+            lmin, lmax = float(np.asarray(sed.lam)[0]), float(
+                np.asarray(sed.lam)[-1])
+        elif getattr(source, "lam_range", None) is not None:
+            lmin, lmax = source.lam_range
+        else:
+            return None
+        rb = np.asarray(self.rf_borders, np.float64)
+        borders = [lmin]
+        bin_map = []
+        if lmin < rb[0]:
+            borders.append(min(rb[0], lmax))
+            bin_map.append(-1)
+        for b in range(R):
+            hi = min(rb[b + 1], lmax)
+            if hi > borders[-1]:
+                borders.append(hi)
+                bin_map.append(b)
+        if lmax > borders[-1]:
+            borders.append(lmax)
+            bin_map.append(-1)
+        if not opts.peel_off:
+            # RF-only segments: packets outside the RF grid deposit nothing
+            # and reach no instrument, so the edge strata are dropped
+            while bin_map and bin_map[0] == -1:
+                bin_map.pop(0)
+                borders.pop(0)
+            while bin_map and bin_map[-1] == -1:
+                bin_map.pop()
+                borders.pop()
+        if not 1 <= len(bin_map) <= 128:
+            return None
+        borders = np.asarray(borders, np.float64)
+        target = 1
+        while target < len(bin_map):
+            target *= 2
+        while len(bin_map) < target:
+            widths = np.where(np.asarray(bin_map) >= 0,
+                              np.log(borders[1:] / borders[:-1]), -1.0)
+            i = int(np.argmax(widths))
+            borders = np.insert(borders, i + 1,
+                                np.sqrt(borders[i] * borders[i + 1]))
+            bin_map.insert(i + 1, bin_map[i])
+        return borders, tuple(bin_map)
+
+    def _mono_rf_bin(self, source, opts) -> int:
+        """RF bin of a monochromatic source in a multi-bin RF, else -1."""
+        if self.rf_borders is None or not opts.store_rf:
+            return -1
+        R = len(self.rf_borders) - 1
+        lam0 = getattr(source, "lam0", None)
+        if R <= 1 or getattr(source, "sed", None) is not None or lam0 is None:
+            return -1
+        b = int(np.searchsorted(np.asarray(self.rf_borders), lam0,
+                                side="right")) - 1
+        return min(max(b, 0), R - 1)
+
+    def _stratify(self, strata, stabs, opts, n_packets: int):
+        """The reference's bin-pure batch layout (`skirt9_tpu/simulation.py:
+        601-641`): the batch rounded to 1024-lane blocks per stratum, the
+        strata and their valid-lane corrections in the source tables, and a
+        history permutation that interleaves histories across strata, so a
+        partial batch samples every stratum. Returns (B, stabs, opts,
+        history permutation)."""
+        borders, bin_map = strata
+        R_g = len(bin_map)
+        opts = dataclasses.replace(opts, rf_strata=R_g, rf_bin_map=bin_map)
+        B = max(1, round(self.batch_size / (1024 * R_g))) * 1024 * R_g
+        lanes = np.arange(B, dtype=np.int64)
+        s_np = (lanes * R_g) // B
+        hist_perm = (lanes - s_np * (B // R_g)) * R_g + s_np
+        n_valid = np.zeros(R_g, np.int64)
+        for b in range(-(-n_packets // B)):
+            valid = (b * B + hist_perm) < n_packets
+            n_valid += np.bincount(s_np[valid], minlength=R_g)
+        corr = np.where(n_valid > 0,
+                        (n_packets / R_g) / np.maximum(n_valid, 1), 0.0)
+        f32 = lambda a: torch.tensor(np.asarray(a, np.float32),
+                                     device=self.device)
+        stabs = dict(stabs, strata=f32(borders), strata_w=f32(corr))
+        return B, stabs, opts, torch.tensor(hist_perm, device=self.device)
+
     def _run_segment(self, source, stabs, opts, n_packets, seed_key, rf, accs,
                      hist_base=0):
         """Loop a source's history range through the life cycle, batch by
         batch; lanes past the range carry no weight."""
         B = self.batch_size
-        hist_end = hist_base + n_packets
         lanes = torch.arange(B, dtype=torch.int64, device=self.device)
+        strata = self._strata_for(source, opts)
+        if strata is not None:
+            B, stabs, opts, lanes = self._stratify(strata, stabs, opts,
+                                                   n_packets)
+        elif self._mono_rf_bin(source, opts) >= 0:
+            opts = dataclasses.replace(
+                opts, rf_mono_bin=self._mono_rf_bin(source, opts))
+        hist_end = hist_base + n_packets
         for b in range(-(-n_packets // B)):
             history = hist_base + b * B + lanes
             pkt = src.launch_batch(source, stabs, self.grid, seed_key, history,
@@ -162,9 +298,12 @@ class Simulation:
         return rf, accs
 
     def _block(self, rf, accs, phase: str):
+        self._sync()
+        check_finite({"rf": rf, "accs": accs}, phase, _log())
+
+    def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        check_finite({"rf": rf, "accs": accs}, phase, _log())
 
     # ------------------------------------------------------------------- runs
 
@@ -197,6 +336,185 @@ class Simulation:
         self.last_rate = launched / dt
         self.last_stats["seconds"] = dt
         return rf, accs
+
+    def run_with_dust_emission(self, verbose: bool = True):
+        """Primary emission, the self-absorption iterations when
+        `iterate_secondary` is set (segments that store the RF, no
+        peel-off), then a secondary segment with peel-off from the total
+        field (`skirt9_tpu/simulation.py:984-1086`). Resumes from
+        `checkpoint_path` when one is there.
+
+        Returns (rf_total, accs, info) with info {"iterations", "L_dust",
+        "L_abs_primary"}; `last_stats["segments"]` holds each segment's
+        name, packets, seconds and events."""
+        if self.ems_borders is None:
+            raise ValueError("set ems_borders for dust emission")
+        if self.iterate_secondary and self.include_primary:
+            return self.run_merged_iterations(verbose=verbose)
+        t_all = time.perf_counter()
+        resume = self._load_checkpoint()
+        med = self.medium
+        etabs = self._emission_tables()
+        if resume is None:
+            rf_prim, accs = self.run_primary(verbose=verbose)
+            segments = [("primary", self.num_packets, self.last_stats["seconds"],
+                         self.last_stats.get("events", 0))]
+            L_prim_abs = eq.total_absorbed_device(med, etabs, rf_prim,
+                                                  self.rf_scale)
+            rf_total = rf_prim
+            L_abs_prev = 0.0
+            iterations = 0
+            self._save_checkpoint(rf_prim, rf_total, accs, 0.0, L_prim_abs, 0)
+        else:
+            rf_prim, rf_total, accs, L_abs_prev, L_prim_abs, iterations = resume
+            segments = []
+            if verbose:
+                _log().info(f"resumed from checkpoint: {iterations} "
+                            "iterations already done")
+        n2 = int(self.num_packets * self.secondary_packets_multiplier)
+        opts2 = dataclasses.replace(self.options, primary=False)
+        opts2_nopeel = dataclasses.replace(opts2, peel_off=False)
+        seed_key = rng.seed_key(self.seed + 1, self.device)
+
+        def segment(name, src2, opts, key, rf, accs):
+            events0 = self.last_stats.get("events", 0)
+            t0 = time.perf_counter()
+            rf, accs = self._run_segment(src2, src2.tables(), opts, n2, key,
+                                         rf, accs)
+            self._sync()
+            segments.append((name, n2, time.perf_counter() - t0,
+                             self.last_stats.get("events", 0) - events0))
+            return rf, accs
+
+        # self-absorption iterations (no peel-off)
+        for it in range(iterations, self.max_iterations
+                        if self.iterate_secondary else 0):
+            src2 = self._make_secondary(etabs, rf_total)
+            if src2.luminosity <= 0:
+                break
+            rf_seco, _ = segment(f"secondary iteration {it + 1}", src2,
+                                 opts2_nopeel, rng.fold_in(seed_key, it),
+                                 self._init_rf(), [])
+            rf_total = rf_prim + rf_seco
+            L_abs = eq.total_absorbed_device(med, etabs, rf_seco,
+                                             self.rf_scale)
+            iterations += 1
+            self._save_checkpoint(rf_prim, rf_total, accs, L_abs, L_prim_abs,
+                                  iterations)
+            if verbose:
+                _log().info(f"dust self-absorption iter {it + 1}: "
+                            f"L_abs(seco)={L_abs:.4e} W "
+                            f"(prim {L_prim_abs:.4e} W)")
+            # convergence: secondary absorption small against the primary,
+            # or stable against the previous iteration
+            if it + 1 >= self.min_iterations:
+                if L_abs <= self.max_fraction_of_primary * L_prim_abs:
+                    break
+                if L_abs_prev > 0 and abs(L_abs - L_abs_prev) <= \
+                        self.max_fraction_of_previous * L_abs_prev:
+                    break
+            L_abs_prev = L_abs
+
+        # final secondary segment with peel-off
+        src2 = self._make_secondary(etabs, rf_total)
+        info = {"iterations": iterations, "L_dust": src2.luminosity,
+                "L_abs_primary": L_prim_abs}
+        if src2.luminosity > 0:
+            _, accs = segment("secondary", src2,
+                              dataclasses.replace(opts2, store_rf=False),
+                              rng.fold_in(seed_key, 777), None, accs)
+        self._block(rf_total, accs, phase="dust emission")
+        self._clear_checkpoint()
+        self.last_stats["segments"] = segments
+        if verbose:
+            _log().success(f"dust emission done in "
+                           f"{time.perf_counter() - t_all:.1f} s "
+                           f"({iterations} iterations, "
+                           f"L_dust={src2.luminosity:.4e} W)")
+        return rf_total, accs, info
+
+    def run_merged_iterations(self, verbose: bool = True):
+        raise NotImplementedError(
+            "merged primary and secondary iterations (include_primary) not "
+            "ported yet")
+
+    def _emission_tables(self):
+        """Equilibrium emission tables, built once: they depend on the
+        medium and the wavelength grids only."""
+        if self._etabs_cache is None:
+            self._etabs_cache = eq.build_emission_tables(
+                self.medium, np.asarray(self.rf_borders),
+                np.asarray(self.ems_borders))
+        return self._etabs_cache
+
+    def _make_secondary(self, etabs, rf) -> sec.DustSecondarySource:
+        """The dust secondary source of the field rf: the emission state on
+        the device (all cells, Equilibrium), the launch cdf on the host."""
+        p_cmb = (eq.cmb_heating_power(etabs, self.cmb_temperature)
+                 if self.cmb_temperature > 0 else None)
+        L_cell, _, eps = eq.emission_state_device(
+            self.medium, etabs, rf, self.grid.volumes(), self.rf_scale,
+            p_cmb=p_cmb)
+        if self._bounds_dev is None:
+            self._bounds_dev = tuple(
+                torch.tensor(a.astype(np.float32), device=self.device)
+                for a in sec.cell_bounds(self.grid))
+        return sec.prepare_device(self.grid, L_cell, eps,
+                                  np.asarray(self.ems_borders),
+                                  self.spatial_bias,
+                                  bounds_dev=self._bounds_dev)
+
+    def dust_temperature(self, rf) -> np.ndarray:
+        """Indicative equilibrium dust temperature per cell (ncells, H) [K],
+        host f64."""
+        etabs = eq.build_emission_tables(
+            self.medium, np.asarray(self.rf_borders),
+            np.asarray(self.ems_borders if self.ems_borders is not None
+                       else self.rf_borders))
+        p_abs = eq.absorbed_power(self.medium, etabs, rf, self.grid.volumes(),
+                                  self.rf_scale)
+        return eq.equilibrium_temperature(etabs, p_abs)
+
+    # ------------------------------------------------------- checkpointing
+
+    def _acc_leaves(self, accs):
+        return [(i, k, acc[k]) for i, acc in enumerate(accs)
+                for k in sorted(acc)]
+
+    def _save_checkpoint(self, rf_prim, rf_total, accs, L_abs_prev,
+                         L_prim_abs, iterations):
+        """Persist the state between emission segments (.npz, atomic
+        swap)."""
+        if not self.checkpoint_path:
+            return
+        host = lambda t: t.detach().cpu().numpy()
+        payload = {f"acc{i}_{k}": host(t) for i, k, t in self._acc_leaves(accs)}
+        tmp = self.checkpoint_path + ".tmp.npz"
+        np.savez(tmp, rf_prim=host(rf_prim), rf_total=host(rf_total),
+                 L_abs_prev=float(L_abs_prev), L_prim_abs=float(L_prim_abs),
+                 it=int(iterations), seed=int(self.seed), **payload)
+        os.replace(tmp, self.checkpoint_path)
+
+    def _load_checkpoint(self):
+        p = self.checkpoint_path
+        if not p or not os.path.exists(p):
+            return None
+        d = np.load(p, allow_pickle=False)
+        if int(d["seed"]) != int(self.seed):
+            _log().warning("checkpoint seed differs from the run seed; "
+                           "ignoring the checkpoint")
+            return None
+        dev = lambda a: torch.tensor(np.asarray(a), device=self.device)
+        accs = [dinst.init_accumulators(c, self.device)
+                for c in self.instruments]
+        for i, k, t in self._acc_leaves(accs):
+            t.copy_(dev(d[f"acc{i}_{k}"]))
+        return (dev(d["rf_prim"]), dev(d["rf_total"]), accs,
+                float(d["L_abs_prev"]), float(d["L_prim_abs"]), int(d["it"]))
+
+    def _clear_checkpoint(self):
+        if self.checkpoint_path and os.path.exists(self.checkpoint_path):
+            os.remove(self.checkpoint_path)
 
     # ----------------------------------------------------------------- output
 

@@ -25,6 +25,12 @@ sub-step of the multi-granularity plan, in launch order (no lane sort), and
 the major axis. Pass 2 is `mlsweep.sweep_deposit` when an RF is stored,
 else `mlsweep.resolve_interaction`, whose cell comes from the fine leaf map.
 
+A multi-bin radiation field runs on the resident sweep only: the batch
+comes in bin-pure lane groups (a stratified launch, `rf_strata` groups with
+their `rf_bin_map`, or one group for a monochromatic source's
+`rf_mono_bin`), pass 2 deposits each group into its own row, and the rows
+add into their bins.
+
 The event loop exits early once no lane is alive; that test is one host
 sync per event. There is no scan-march fallback: every option outside this
 path raises NotImplementedError and names itself.
@@ -96,8 +102,6 @@ _NOT_PORTED = (
     ("kinematics", lambda o: o.kinematics),
     ("emission_doppler", lambda o: o.emission_doppler),
     ("explicit_absorption", lambda o: o.explicit_absorption),
-    ("rf_strata (multi-bin radiation field)", lambda o: o.rf_strata > 0),
-    ("rf_mono_bin (multi-bin radiation field)", lambda o: o.rf_mono_bin >= 0),
 )
 
 
@@ -154,6 +158,51 @@ def survives_cutoff(opts: TransportOptions, lum_new, nscat_new, lum0):
         (nscat_new < opts.min_scatt_events)
 
 
+# ------------------------------------------------- wavelength-binned RF
+
+def _rf_groups(opts: TransportOptions, rf, B: int, tree_or_xl: bool) -> int:
+    """Bin-pure lane groups of the pass-2 deposits (the reference's choice,
+    `skirt9_tpu/transport/lifecycle.py:515-524,573`): one for a one-bin RF
+    or a monochromatic source in a multi-bin one (`rf_mono_bin`), else the
+    `rf_strata` groups of a stratified launch. A layout the reference sends
+    to its scan march raises, as do multi-bin RFs on trees and large
+    grids."""
+    if rf is None or rf.shape[1] == 1:
+        return 1
+    if tree_or_xl:
+        raise NotImplementedError(
+            "multi-bin radiation field on trees and large (XL) grids not "
+            "ported yet (the resident sweep of uniform grids only)")
+    if opts.rf_strata > 0:
+        if B % (128 * opts.rf_strata):
+            raise NotImplementedError(
+                f"batch {B} not divisible into {opts.rf_strata} groups of "
+                "128-lane blocks (the reference's scan march; not ported)")
+        return opts.rf_strata
+    if opts.rf_mono_bin < 0:
+        raise NotImplementedError(
+            "multi-bin radiation field without a bin-pure lane layout (the "
+            "reference's scan march; not ported)")
+    return 1
+
+
+def _add_rf(rf, rf_delta, opts: TransportOptions, n_groups: int) -> None:
+    """Add pass 2's (n_groups, ncells) deposits into the (ncells, nbins) RF
+    in place: group g holds bin rf_bin_map[g] (-1: outside the RF grid,
+    dropped); several strata may share a bin."""
+    if rf.shape[1] == 1:
+        rf[:, 0] += rf_delta[0]
+    elif n_groups == 1:
+        rf[:, opts.rf_mono_bin] += rf_delta[0]
+    else:
+        bins = torch.tensor(opts.rf_bin_map, device=rf.device)
+        keep = bins >= 0
+        per_bin = torch.zeros((rf.shape[1], rf.shape[0]), dtype=rf.dtype,
+                              device=rf.device)
+        per_bin.index_add_(0, bins[keep], rf_delta[keep])
+        rf += per_bin.T
+
+
 # ------------------------------------------------------------------- peel-off
 
 def _observer_groups(inst_cfgs) -> list[list[int]]:
@@ -205,7 +254,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                stats: dict | None = None):
     """Run the complete life cycle of one launched packet batch.
 
-    rf: (ncells, 1) radiation-field accumulator or None; accs: one dict of
+    rf: (ncells, nbins) radiation-field accumulator or None; accs: one dict of
     accumulators per instrument. Both are updated in place and returned.
     stats, when given, accumulates "events" (event iterations run) and
     "sync_s" (host seconds spent waiting in the early-exit test).
@@ -239,11 +288,9 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                  else dinst.KIND_SECONDARY_SCATTERED)
 
     use_rf = opts.store_rf and rf is not None and rf_borders is not None
+    n_groups = _rf_groups(opts, rf if use_rf else None, pkt.lam.shape[0],
+                          is_xl or is_ml)
     if use_rf:
-        # one bin, so one lane group: the XL sort key needs no group term
-        if rf_borders.shape[0] != 2 or rf.shape[1] != 1:
-            raise NotImplementedError("multi-bin radiation field not ported "
-                                      "yet (one RF bin only)")
         rf_in_range = (pkt.lam >= rf_borders[0]) & (pkt.lam < rf_borders[-1])
     do_peel = bool(inst_cfgs) and opts.peel_off
 
@@ -328,9 +375,9 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             rel_slab = tau_int[None, :] - tb_slab
             rf_delta, s_int, icell, found = sw.sweep_deposit(
                 sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active, scale_slab,
-                rel_slab)
+                rel_slab, n_groups=n_groups)
             if use_rf:
-                rf[:, 0] += rf_delta[0]
+                _add_rf(rf, rf_delta, opts, n_groups)
         ipos = pkt.pos + s_int[:, None] * pkt.dir
         active_int = active_int & found
 

@@ -18,6 +18,12 @@ record and the axis hint), pass 2's found and s_int equal and its RF within
 1e-5 of its maximum (float atomics sum in another order). A tiny octree
 simulation on the card launches kernels 4, 5 and 3 and no uniform-grid
 sweep.
+
+Kernel 2 also runs with config 2's 32 lane groups and kernel 3 on its
+163,840-bin frame; a small config 2 with dust emission launches kernels
+1-3 on the card and matches the same seed on the CPU within 1e-4 (SEDs and
+RF, of their maxima). The probe kernels (8-9) are held against their plain
+versions: gathers bit for bit, sums within 1e-6 relative.
 """
 
 import numpy as np
@@ -83,7 +89,7 @@ def test_sweep_dtau_kernel(dev, C, hint):
     assert float(rel.max()) <= 1e-5
 
 
-@pytest.mark.parametrize("C,n_groups", [(1, 1), (2, 4)])
+@pytest.mark.parametrize("C,n_groups", [(1, 1), (2, 4), (1, 32)])
 def test_sweep_deposit_kernel(dev, C, n_groups):
     B = 4096
     tabs, pos, d, sig, active, rs = _inputs(dev, C, B, seed=10 + C)
@@ -150,7 +156,7 @@ def test_sweepxl_deposit_kernel(dev, C, n_groups):
     assert float((rf_k - rf_p).abs().max()) <= 1e-4 * float(rf_p.abs().max())
 
 
-@pytest.mark.parametrize("size", [1, 5, 4096, 50000])
+@pytest.mark.parametrize("size", [1, 5, 4096, 50000, 163840])
 def test_scatter_add_kernel(dev, size):
     rs = np.random.default_rng(size)
     n = 100003   # not a multiple of the block size: a ragged last warp
@@ -287,3 +293,61 @@ def test_tree_simulation_launches(dev):
     assert n["sweep_dtau"] == n["sweep_deposit"] == n["sweepxl_dtau"] == 0
     assert bool(torch.isfinite(rf).all()) and float(rf.sum()) > 0
     assert float(accs[0]["sed"].sum()) > 0
+
+
+def test_config2_on_cuda_matches_cpu(dev):
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    out = {}
+    for d in ("cpu", dev):
+        sim = chip_smoke.config2(d, num_packets=4096, batch_size=4096, n=8,
+                                 n_rf=8, max_events=4, iterate_secondary=True,
+                                 max_iterations=1)
+        kb.reset_launches()
+        out[str(d)] = sim.run_with_dust_emission(verbose=False)
+        launches = dict(kb.LAUNCHES)
+    assert launches["sweep_dtau"] > 0 and launches["sweep_deposit"] > 0
+    assert launches["scatter_add"] > 0 and launches["sweepxl_dtau"] == 0
+    (rf_c, acc_c, info_c), (rf_g, acc_g, info_g) = out["cpu"], out[str(dev)]
+    assert info_c["iterations"] == info_g["iterations"] == 1
+    assert float((rf_g.cpu() - rf_c).abs().max()) <= 1e-4 * float(rf_c.max())
+    sc, sg_ = acc_c[0]["sed"], acc_g[0]["sed"].cpu()
+    for k in range(sc.shape[0]):
+        assert float((sg_[k] - sc[k]).abs().max()) <= 1e-4 * float(
+            sc[k].abs().max())
+
+
+@pytest.mark.parametrize("variant", ["gather", "take", "gather_l2", "scatter"])
+def test_gather_probe_kernels(dev, variant):
+    from skirt9_tpu_torch.tools import gather_probe as gp
+    nd, idx, vals = gp.inputs(dev)
+    fn = {"gather": lambda: gp.gather(nd, idx),
+          "take": lambda: gp.take(nd, idx),
+          "gather_l2": lambda: gp.gather(nd, idx, staged=False),
+          "scatter": lambda: gp.scatter(idx, vals * 0.5, gp.N)}[variant]
+    counter = {"gather": "probe_gather_smem", "take": "probe_gather_smem",
+               "gather_l2": "probe_gather_l2",
+               "scatter": "probe_scatter_smem"}[variant]
+    kb.reset_launches()
+    got = fn()
+    assert kb.LAUNCHES[counter] == 1
+    if variant == "scatter":
+        ref = gp.scatter_plain(idx, vals * 0.5, gp.N)
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.max())
+    else:
+        assert torch.equal(got, gp.gather_plain(nd, idx))
+
+
+@pytest.mark.parametrize("select", [False, True])
+def test_row_lookup_kernels(dev, select):
+    from skirt9_tpu_torch.tools import sublane_gather as sg
+    tab, idx = sg.inputs(dev)
+    kb.reset_launches()
+    got = sg.lookup(tab, idx, select=select)
+    assert kb.LAUNCHES["row_lookup_select" if select
+                       else "row_lookup_gather"] == 1
+    ref = sg.lookup_plain(tab, idx)
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())

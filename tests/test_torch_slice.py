@@ -26,9 +26,11 @@ atol 1e-5 of its total) as the outer limit. It comes much closer (SEDs within
 atol 1e-6 of its total.
 
 The port imports neither jax nor any module of the JAX package: a
-subprocess runs a uniform-grid and an octree simulation and then finds no
-such module loaded, and an `ast` scan of the package and chip_smoke.py finds
-no such import.
+subprocess runs a uniform-grid and an octree simulation, a small config 2
+with dust emission (`chip_smoke.config2`) and the gather and
+row-lookup probes, and then finds no such module loaded and no kernel
+launched; an `ast` scan of the package and chip_smoke.py finds no such
+import.
 """
 
 import ast
@@ -220,9 +222,12 @@ def test_cuda_device_raises_without_cuda(config1):
         bridge.simulation(config1[0], device="cuda")
 
 
-def test_device_must_be_named(config1):
+def test_device_must_be_named(config1, monkeypatch):
+    """Only a named CPU runs on the CPU: an unnamed device means the card,
+    which raises where there is none instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sim = config1[1]
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         dataclasses.replace(sim, device=None)
 
 
@@ -322,6 +327,22 @@ for grid in (make_cartesian(ext, (6,) * 3), octree):
     rf, accs = sim.run_primary(verbose=False)
     assert float(accs[0]["sed"].sum()) > 0 and float(rf.sum()) > 0
 assert isinstance(sim._sweep_tabs, MLTables)
+# config 2 (dust emission, a stratified 4-bin RF, one self-absorption
+# iteration) through chip_smoke.config2, and the probes
+import chip_smoke
+from skirt9_tpu_torch.kernels import build as kb
+from skirt9_tpu_torch.tools import gather_probe, sublane_gather
+sim = chip_smoke.config2("cpu", num_packets=512, batch_size=128, n=4, n_rf=4,
+                         max_events=2, iterate_secondary=True,
+                         max_iterations=1)
+rf, accs, info = sim.run_with_dust_emission(verbose=False)
+assert rf.shape == (64, 4) and float(rf.sum()) > 0 and info["L_dust"] > 0
+assert float(accs[0]["sed"][3].sum()) > 0     # secondary direct flux
+nd, idx, vals = gather_probe.inputs("cpu", n=64, b=256)
+assert float(gather_probe.scatter(idx, vals, 64).sum()) == 256.0
+tab, ix = sublane_gather.inputs("cpu", r=8, s=2)
+assert sublane_gather.lookup(tab, ix, iters=3, select=True).shape == (2, 128)
+assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}, kb.LAUNCHES
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = sorted(m for m in sys.modules
              if m == "skirt9_tpu" or m.startswith("skirt9_tpu."))
