@@ -6,20 +6,29 @@ Run from the repository root:  python3 chip_smoke.py
 Drives config 1 of bench.py (point source, uniform dust sphere, forced
 scattering, HG peel-off to one SED + 64x64 frame instrument) through the
 port's Python API on two paths: the 32^3 grid of bench.py config 1 (resident
-sweep, kernels 1-3) and the 256^3 grid of bench.py `bench_config1x256`
-(large-grid XL sweep, kernels 6-7 and 3); then bench.py's clumpy-ISM
-site-list octrees `bench_config3ism` and `bench_config3ismxl` (multi-level
-tree sweep, kernels 4-5 and 3); then config 2 (bench2.ski: panchromatic
-dust emission, kernels 1-3 with a 25-bin stratified RF); and the gather and
-row-lookup probes (kernels 8-9) through their own entry points. Each
-hand-written CUDA kernel is checked against its plain PyTorch version.
+sweep, kernels 1-2) and the 256^3 grid of bench.py `bench_config1x256`
+(large-grid XL sweep, kernels 6-7); then bench.py's clumpy-ISM site-list
+octrees `bench_config3ism` and `bench_config3ismxl` (multi-level tree sweep,
+kernels 4-5); then config 2 (bench2.ski: panchromatic dust emission,
+kernels 1-2 with a 25-bin stratified RF); and the gather and row-lookup
+probes (kernels 8-9, and kernel 3) through their own entry points. Every
+path detects through the fused detect kernel (csrc/detect.cu), which took
+kernel 3's place there. Each hand-written CUDA kernel is checked against
+its plain PyTorch version.
 Phases, one JSON line each:
 
   env               torch / CUDA / nvcc versions, the card, its power limit
   build             nvcc build of skirt9_tpu_torch/csrc/*.cu, one process per
                     source, all started together (cached by hash)
-  kernels           kernels 1-3 vs their plain versions at config-1 shapes
-                    (B = 131072, 32^3, C = 1; scatter sizes 1 and 4096), timed
+  kernels           at config-1 shapes (B = 131072, 32^3, C = 1), against
+                    their plain versions, timed: kernel 1 in its three modes
+                    (sweep_dtau bit-identical; sweep_tau_total and
+                    sweep_dtau_prefix within 1e-6 of each lane's tau; the
+                    lane range it forms equal to _lane_range bit for bit),
+                    kernel 2, kernel 3 (sizes 1 and 4096), and detect (one
+                    bin, 64x64 frame) within 1e-5 of each accumulator's
+                    maximum against the plain detect and the seven-call
+                    form through kernel 3
   kernels_xl        kernels 6-7 vs their plain versions at 256^3, B = 131072,
                     C = 1, lanes sorted as the path sorts them: tau within
                     1e-5 relative, the summed form within 1e-6 of the
@@ -31,14 +40,20 @@ Phases, one JSON line each:
                     1e-4
   draw_for_draw_xl  the same at 80^3, where the port picks the XL contracts
   full_width        config 1 at 2^20 packets in batches of 2^17, timed after a
-                    warm-up: kernels 1-3 launched and 6-7 not, accumulators
+                    warm-up: kernel 1's total and prefix modes, kernel 2 and
+                    detect launched; kernel 1's reference mode, kernel 3 and
+                    kernels 6-7 not; accumulators
                     finite, the transparent SED analytic within 1e-5,
                     direct/transparent = exp(-tau) within 1e-3, SED relative
                     error R < 0.01
-  breakdown         host-sync and RNG shares of the timed run
+  breakdown         host-sync and RNG shares of the timed run; one batch
+                    under torch.profiler at event caps 24 and 2: device
+                    launches, kernel launches, stream syncs and host-to-
+                    device copies per event of the loop, busy and idle
+                    shares
   full_width_xl     bench_config1x256 (256^3, 2^17 packets in one batch, 24
                     events, no RF), timed after a warm-up: the XL tables,
-                    kernels 6 and 3 launched and 1-2 not, the same gates
+                    kernel 6 and detect launched and 1-3 not, the same gates
   rf_xl             the same with a one-bin RF: kernel 7 launched, the RF
                     finite and positive, its total within 1e-4 of the same
                     seed's run on the resident sweep (kernels 1-2)
@@ -60,7 +75,7 @@ Phases, one JSON line each:
   full_width_ml     bench_config3ism (bench.py:317-367: 46 x 26 sites,
                     max_level 7, about 5,000 leaves, 2^17 packets in batches
                     of 2^16, 16 events, no RF), timed after a warm-up:
-                    kernels 4 and 3 launched, no uniform-grid sweep; the
+                    kernel 4 and detect launched, no uniform-grid sweep; the
                     transparent SED analytic within 1e-5, direct/transparent
                     = exp(-0.5) within 1e-3, R < 0.01
   full_width_ml_large  bench_config3ismxl's tree (bench.py:370-420: 400 x 96
@@ -69,7 +84,8 @@ Phases, one JSON line each:
                     this tree to its XL fine raster, the port's rule to
                     kernels 4-5
   breakdown_ml      one more full_width_ml run under torch.profiler: device
-                    launches per event, busy and idle shares, top kernels
+                    launches, stream syncs and host-to-device copies per
+                    event, busy and idle shares, top kernels
   rf_ml             full_width_ml with a one-bin RF: kernel 5 launched, the
                     RF finite and positive, packets/s against full_width_ml
   kernels_probe     kernels 8-9 through their entry points
@@ -78,9 +94,10 @@ Phases, one JSON line each:
                     plain version (gathers bit-exact, sums 1e-6 relative),
                     timed with the plain and library times and kernel 3 at
                     the probe's scatter shape
-  kernels_b2        kernel 2 with config 2's 32 lane groups and kernel 3 on its
-                    163,840-bin frame, on config 2's first event, against
-                    their plain versions (RF 1e-4 of its maximum, sums 1e-5)
+  kernels_b2        kernel 2 with config 2's 32 lane groups, kernel 3 on its
+                    163,840-bin frame and detect (40 bins, 40x64x64 frame),
+                    on config 2's first event, against their plain versions
+                    (RF 1e-4 of its maximum, sums 1e-5)
   draw_for_draw_b2  config 2 at 8^3 (8,192 packets, 8 events, one
                     self-absorption iteration), CPU vs GPU: SEDs and RF
                     within 1e-4 of their maxima, L_dust 1e-4
@@ -90,8 +107,8 @@ Phases, one JSON line each:
                     events per segment; bench2's golden gates
                     (tests/test_reference_parity.py:72-141) and L_dust =
                     L_abs_primary within 1e-4
-  breakdown_b2      config 2 with one batch per segment under torch.profiler:
-                    launches per event, busy and idle shares, top kernels
+  breakdown_b2      config 2 with one batch per segment under torch.profiler,
+                    as breakdown
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -130,8 +147,11 @@ F32_OPS_PER_S = 67e12
 # f32 operations per active (slab or plan step, lane) thread, counted in
 # csrc/sweep_common.cuh: entering the slab (29), one sub-step of the minor
 # DDA (14), the opacity of C components (2C), a deposit's contribution with
-# its segment factor and the interaction test (12)
+# its segment factor and the interaction test (12); per lane, the set-up
+# inside kernel 1 (csrc/sweep_dtau.cu lane_range and slab_range, 80), and
+# per lane the detect kernel's bin search, powers and projection (40)
 OPS_SLAB, OPS_SUB, OPS_DEP = 29, 14, 12
+OPS_LANE, OPS_DETECT = 80, 40
 
 
 def emit(obj) -> None:
@@ -285,9 +305,10 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def device_ms(fn, reps: int = 20) -> dict:
     """Device time per call of fn() from torch.profiler over reps calls
     after three warm-up calls: of the port's own kernels ("ours", named
-    skirt9::) and of every kernel the call launches ("all"). Beside the
-    CUDA-event time of `cuda_ms`, which for a short kernel measures the
-    host's launch rate, this is the time the card spent."""
+    skirt9::) and of every kernel the call launches ("all"), and the device
+    launches per call ("launches"). Beside the CUDA-event time of
+    `cuda_ms`, which for a short kernel measures the host's launch rate,
+    this is the time the card spent."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -301,7 +322,7 @@ def device_ms(fn, reps: int = 20) -> dict:
           if e.device_type == torch.autograd.DeviceType.CUDA]
     total = lambda es: sum(e.self_device_time_total for e in es) / 1e3 / reps
     return {"ours": total([e for e in ev if "skirt9::" in e.key]),
-            "all": total(ev)}
+            "all": total(ev), "launches": sum(e.count for e in ev) / reps}
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -318,6 +339,89 @@ def bound(nbytes: float, ops: float) -> dict:
 def lane_bytes(B: int, C: int) -> int:
     """Per-lane inputs of a sweep kernel: pos, dir, axis, smin, smax, sig."""
     return B * (12 + 12 + 4 + 4 + 4 + 4 * C)
+
+
+def ray_bytes(B: int, C: int) -> int:
+    """Per-lane inputs of kernel 1, which forms the lane set-up itself: pos,
+    dir, active (one byte), sig."""
+    return B * (12 + 12 + 1 + 4 * C)
+
+
+def scatter_f64(idx, val, size: int):
+    """The plain scatter-add summed in float64, rounded once to float32:
+    the exact sums of the plain detect's float32 terms."""
+    import torch
+    out = torch.zeros(size, dtype=torch.float64, device=val.device)
+    return out.index_add_(0, idx.reshape(-1).long(),
+                          val.reshape(-1).double()).float()
+
+
+def check_detect(torch, cfg, tabs, lam, pos, contrib, active, kind) -> dict:
+    """The detect kernel and the seven-call form (kernel 3 seven times)
+    against the exact sums of the plain detect's terms (scatter_f64), on
+    the same CUDA tensors, from zeroed accumulators: every accumulator
+    within 1e-5 of its maximum, one kernel launch per call. The plain
+    detect's own float32 index_add_ is reported beside them: with 131,072
+    lanes in one bin its sequential atomics stray ~5e-5. Then each form's
+    time per call, device time and device launches per call, and the
+    kernel's bound (inputs read once, each accumulator entry that this
+    call's lanes reach read and written once)."""
+    from skirt9_tpu_torch.instruments import distant as dinst
+    from skirt9_tpu_torch.kernels import build as kb
+    from skirt9_tpu_torch.ops import scatteradd as sca
+    dev = lam.device
+    args = (lam, pos, contrib, kind, active)
+    forms = {
+        "kernel": lambda acc: dinst.detect(cfg, tabs, acc, *args),
+        "plain": lambda acc: dinst.detect_plain(cfg, tabs, acc, *args),
+        "seven": lambda acc: dinst.detect_plain(cfg, tabs, acc, *args,
+                                                scatter=sca.scatter_add)}
+    accs = {}
+    for name, fn in forms.items():
+        kb.reset_launches()
+        accs[name] = fn(dinst.init_accumulators(cfg, dev))
+        if name == "kernel":
+            require(kb.LAUNCHES["detect"] == 1
+                    and sum(kb.LAUNCHES.values()) == 1,
+                    "detect: one kernel launch per call")
+    exact = dinst.detect_plain(cfg, tabs, dinst.init_accumulators(cfg, dev),
+                               *args, scatter=scatter_f64)
+    torch.cuda.synchronize()
+    err, rel = {}, {}
+    for key, ref in exact.items():
+        m = float(ref.abs().max())
+        require(m > 0, f"detect test lanes light the {key}")
+        for name in forms:
+            e = float((accs[name][key] - ref).abs().max())
+            err[f"{name}_{key}"] = e
+            rel[f"{name}_{key}"] = e / m
+            if name != "plain":
+                require(e <= 1e-5 * m,
+                        f"detect ({name}) {key} error {e} <= 1e-5 * {m}")
+    acc = dinst.init_accumulators(cfg, dev)
+    ms = {name: cuda_ms(lambda: fn(acc)) for name, fn in forms.items()}
+    dev_t = {name: device_ms(lambda: fn(acc)) for name, fn in forms.items()}
+    B, nb = lam.shape[0], cfg.nbins
+    # the accumulator entries this call's lanes reach: the nonzero exact sums
+    touched = sum(int((ref != 0).sum()) for ref in exact.values())
+    # max_abs_err: of the SED and the frame against their exact sums; the
+    # statistics rows, sums of powers up to c^4, in err_of_max
+    return dict(
+        max_abs_err=max(err["kernel_sed"], err.get("kernel_frame", 0.0)),
+        max_err_of_max=max(v for k, v in rel.items()
+                           if k.startswith("kernel")),
+        err_of_max=rel, bins=nb, touched_entries=touched,
+        frame_bins=nb * cfg.npy * cfg.npx if cfg.has_frame else 0,
+        lit_lanes=int((active & (contrib > 0)).sum()),
+        ms=ms["kernel"], plain_ms=ms["plain"], seven_call_ms=ms["seven"],
+        library_ms=None, device_ms=dev_t["kernel"]["all"],
+        device_launches=dev_t["kernel"]["launches"],
+        plain_device_ms=dev_t["plain"]["all"],
+        plain_device_launches=dev_t["plain"]["launches"],
+        seven_call_device_ms=dev_t["seven"]["all"],
+        seven_call_device_launches=dev_t["seven"]["launches"],
+        **bound(B * (4 + 12 + 4 + 1) + (nb + 1) * 4 + 2 * 4 * touched,
+                B * OPS_DETECT))
 
 
 def active_slabs(tabs, pos, dirn, g, smin, smax) -> int:
@@ -365,41 +469,71 @@ def phase_kernels(torch) -> dict:
     pos, dirn, sig, active = sphere_rays(torch, sim, rs, B)
     out = {}
 
-    # kernel 1: event march (own dominant axes) and peel-off march (+z hint)
-    g, smin, smax, sg = sw._prep(tabs, pos, dirn, sig, active)
-    a_k = sw._dtau_cuda(tabs, pos, dirn, g, smin, smax, sg)
-    a_p = sw._dtau_plain(tabs, pos, dirn, g, smin, smax, sg)
+    # kernel 1 in its three output modes, the lane set-up inside: the event
+    # march (own dominant axes) and the peel-off march (+z, axis hint 2)
     kz = torch.zeros_like(dirn)
     kz[:, 2] = 1.0
-    gz, sminz, smaxz, _ = sw._prep(tabs, pos, kz, sig, active)
-    gz = torch.full_like(gz, 2)
-    z_k = sw._dtau_cuda(tabs, pos, kz, gz, sminz, smaxz, sg)
-    z_p = sw._dtau_plain(tabs, pos, kz, gz, sminz, smaxz, sg)
-    torch.cuda.synchronize()
-    rel1 = 0.0
-    for k_, p_ in ((a_k, a_p), (z_k, z_p)):
-        tk, tp = k_.sum(0), p_.sum(0)
-        require(bool((tp > 0).sum() > B // 2), "kernel 1 test rays see dust")
-        rel1 = max(rel1, float(((tk - tp).abs()
-                                / tp.clamp_min(1e-30))[tp > 0].max()))
-    err1 = max(float((a_k - a_p).abs().max()), float((z_k - z_p).abs().max()))
-    require(rel1 <= 1e-5, f"kernel 1 max relative tau error {rel1} <= 1e-5")
-    ms1 = cuda_ms(lambda: sw._dtau_cuda(tabs, pos, dirn, g, smin, smax, sg))
-    pms1 = cuda_ms(lambda: sw._dtau_plain(tabs, pos, dirn, g, smin, smax, sg),
-                   reps=5)
+    err1 = rel_tot = rel_pre = abs_tot = abs_pre = 0.0
+    for d_, hint in ((dirn, None), (kz, 2)):
+        args = (tabs, pos, d_, sig, active, hint)
+        a_k, a_p = sw.sweep_dtau(*args), sw.sweep_dtau_plain(*args)
+        t_k, t_p = sw.sweep_tau_total(*args), sw.sweep_tau_total_plain(*args)
+        tb_k, tot_k, lane_k = sw.sweep_dtau_prefix(*args)
+        tb_p, _, lane_p = sw.sweep_dtau_prefix_plain(*args)
+        torch.cuda.synchronize()
+        require(bool((t_p > 0).sum() > B // 2), "kernel 1 test rays see dust")
+        err1 = max(err1, float((a_k - a_p).abs().max()))
+        require(bool(torch.equal(a_k, a_p)),
+                f"kernel 1 (sweep_dtau) bit-identical to its plain version "
+                f"(hint {hint}: max error {err1})")
+        scale = t_p.clamp_min(1e-30)
+        rel_tot = max(rel_tot, float(((t_k - t_p).abs() / scale).max()),
+                      float(((tot_k - t_p).abs() / scale).max()))
+        rel_pre = max(rel_pre,
+                      float(((tb_k - tb_p).abs() / scale[None, :]).max()))
+        abs_tot = max(abs_tot, float((t_k - t_p).abs().max()))
+        abs_pre = max(abs_pre, float((tb_k - tb_p).abs().max()))
+        for a, b, name in zip(lane_k, lane_p, ("axis", "smin", "smax")):
+            require(bool(torch.equal(a, b)),
+                    f"kernel 1 lane {name} bit-identical to _lane_range")
+    require(rel_tot <= 1e-6,
+            f"kernel 1 totals within 1e-6 of each lane's tau ({rel_tot})")
+    require(rel_pre <= 1e-6,
+            f"kernel 1 prefix within 1e-6 of each lane's tau ({rel_pre})")
+    g, smin, smax, sg = sw._prep(tabs, pos, dirn, sig, active)
+    a_p = sw._dtau_plain(tabs, pos, dirn, g, smin, smax, sg)
     n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
     tab_bytes = tabs.nd.numel() * 4
-    out["sweep_dtau"] = dict(
-        max_abs_err=err1, max_rel_tau_err=rel1, ms=ms1, plain_ms=pms1,
-        library_ms=None, active_pairs=n_act, device_ms=device_ms(
-            lambda: sw._dtau_cuda(tabs, pos, dirn, g, smin, smax, sg))["ours"],
-        **bound(lane_bytes(B, 1) + tab_bytes + tabs.nmax * B * 4,
-                n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)))
+    ev = (tabs, pos, dirn, sig, active)
+    march_ops = B * OPS_LANE + n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)
+    dmaj = dirn.gather(1, g.long()[:, None])[:, 0] > 0
+    modes = {
+        # mode: kernel, plain version, the unfused form on this kernel,
+        # output bytes, extra operations, errors (absolute, of the lane's tau)
+        "sweep_dtau": (sw.sweep_dtau, sw.sweep_dtau_plain, None,
+                       tabs.nmax * B * 4, 0, err1, 0.0),
+        "sweep_tau_total": (sw.sweep_tau_total, sw.sweep_tau_total_plain,
+                            lambda: sw.sweep_dtau(*ev).sum(0), B * 4, n_act,
+                            abs_tot, rel_tot),
+        "sweep_dtau_prefix": (
+            sw.sweep_dtau_prefix, sw.sweep_dtau_prefix_plain,
+            lambda: sw.slab_prefix(sw.sweep_dtau(*ev), dmaj),
+            tabs.nmax * B * 4 + 4 * B * 4, 2 * n_act, abs_pre, rel_pre)}
+    for name, (fn, plain, unfused, out_bytes, ops, e_abs, e_rel) \
+            in modes.items():
+        out[name] = dict(
+            max_abs_err=e_abs, max_err_of_tau=e_rel,
+            ms=cuda_ms(lambda: fn(*ev)), plain_ms=cuda_ms(lambda: plain(*ev),
+                                                         reps=5),
+            library_ms=None, active_pairs=n_act,
+            device_ms=device_ms(lambda: fn(*ev))["ours"],
+            **bound(ray_bytes(B, 1) + tab_bytes + out_bytes, march_ops + ops))
+        if unfused is not None:
+            out[name]["unfused_ms"] = cuda_ms(unfused)
+            out[name]["unfused_device_ms"] = device_ms(unfused)["all"]
 
     # kernel 2: deposits with nonzero scale, interaction at a random depth
-    grp = sw.dominant_axis(tabs, dirn)
-    dmaj = dirn.gather(1, grp[:, None])[:, 0]
-    tb, tot = sw.slab_prefix(a_p, dmaj > 0)
+    tb, tot = sw.slab_prefix(a_p, dmaj)
     lum = t32(rs.uniform(0.5, 2.0, B))
     scale = lum[None, :] * torch.exp(-tb)
     rel = (t32(rs.uniform(size=B)) * tot)[None, :] - tb
@@ -458,6 +592,13 @@ def phase_kernels(torch) -> dict:
         device_ms_size1=times[1][3]["ours"],
         library_device_ms_size1=times[1][4]["all"],
         **bound(B * 8 + 4096 * 4, B))
+
+    # the detect kernel at config 1's shapes (one SED bin, statistics, a
+    # 64x64 frame): scattered peel-off from the test rays' positions
+    lam = torch.full((B,), 0.55e-6, dtype=torch.float32, device=dev)
+    contrib = t32(rs.uniform(0.0, 1e-3, B) * (rs.uniform(size=B) > 0.1))
+    out["detect"] = check_detect(torch, sim.instruments[0], sim._inst_tabs[0],
+                                 lam, pos, contrib, active, 2)
     emit({"phase": "kernels", "batch": B, "grid": list(tabs.n), **out})
     return out
 
@@ -540,8 +681,9 @@ def phase_kernels_xl(torch) -> dict:
     gu, sminu, smaxu, _ = sw._prep(tabs, pos_u, dir_u, sig, act_u)
     ev_u = (tabs, pos_u, dir_u, gu, sminu, smaxu, sg)
     ms6_unsorted = cuda_ms(lambda: xl._dtau_cuda(*ev_u, True))
-    ms1_sorted = cuda_ms(lambda: sw._dtau_cuda(*ev))
-    ms1_unsorted = cuda_ms(lambda: sw._dtau_cuda(*ev_u))
+    ms1_sorted = cuda_ms(lambda: sw.sweep_dtau(tabs, pos, dirn, sig, active))
+    ms1_unsorted = cuda_ms(lambda: sw.sweep_dtau(tabs, pos_u, dir_u, sig,
+                                                 act_u))
     ms7 = cuda_ms(lambda: xl._deposit_cuda(*dep))
     dms6 = device_ms(lambda: xl._dtau_cuda(*ev, True))["ours"]
     dms7 = device_ms(lambda: xl._deposit_cuda(*dep))["ours"]
@@ -607,12 +749,16 @@ def phase_draw_for_draw(torch, phase="draw_for_draw", n=32,
           **res})
 
 
-RESIDENT = ("sweep_dtau", "sweep_deposit")
+# the resident sweep's path: kernel 1 as the tracer's total and pass 1's
+# prefix (its reference contract, mode sweep_dtau, on no path), kernel 2
+RESIDENT = ("sweep_tau_total", "sweep_dtau_prefix", "sweep_deposit")
 XL = ("sweepxl_dtau", "sweepxl_deposit")
+# every path detects through the fused kernel, never through kernel 3
+DETECT, NOT_PATH = ("detect",), ("sweep_dtau", "scatter_add")
 
 
 def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
-                     must=RESIDENT + ("scatter_add",), must_not=XL, **kw):
+                     must=RESIDENT + DETECT, must_not=XL + NOT_PATH, **kw):
     """A config-1 path at full width, timed after one warm-up run, with the
     correctness gates. kw: config1's arguments (grid size, packets)."""
     from skirt9_tpu_torch.utils.fits import read_fits
@@ -659,10 +805,32 @@ def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
     return sim, stats, launches
 
 
+def host_per_event(torch, build, run) -> dict:
+    """One batch of a configuration profiled twice, with the event cap at 24
+    and at 2 (event_profile.per_event): device operations, kernel launches,
+    stream syncs and copies per event of the loop, and the longer run's
+    device busy and idle shares."""
+    from skirt9_tpu_torch.tools import event_profile as ep
+    prof, events = {}, {}
+    for cap in (24, 2):
+        sim = build(cap)
+        run(sim)                                 # warm-up
+        prof[cap] = ep.profile_run(torch, lambda: run(sim))
+        events[cap] = ep._events(sim)
+    long = prof[24]
+    return {"profiled_wall_s": long["wall_s"], "device_busy_s": long["busy_s"],
+            "idle_share": long["idle_share"],
+            "device_launches": long["device_ops"], "events": events[24],
+            "launches_per_event": long["device_ops"] / events[24],
+            "per_event": ep.per_event(long, prof[2], events[24], events[2]),
+            "stream_syncs": long["stream_syncs"],
+            "h2d_copies": long["h2d_copies"], "top": long["top"]}
+
+
 def phase_breakdown(torch, sim, stats) -> None:
     """Shares of the timed run spent blocked in the early-exit host sync and
     in threefry RNG (measured alone at the same width, times the draws the
-    run made)."""
+    run made); then one batch under torch.profiler (host_per_event)."""
     from skirt9_tpu_torch.ops import rng
     from skirt9_tpu_torch.transport import lifecycle as lc
     dev = torch.device("cuda")
@@ -679,11 +847,15 @@ def phase_breakdown(torch, sim, stats) -> None:
         rng.LAUNCH_DIRECTION))
     batches = -(-sim.num_packets // B)
     rng_s = (stats["events"] * ev_ms + batches * launch_ms) / 1e3
+    prof = host_per_event(
+        torch, lambda cap: config1("cuda", num_packets=B, max_events=cap),
+        lambda s: s.run_primary(verbose=False))
     emit({"phase": "breakdown", "seconds": stats["seconds"],
           "events": stats["events"], "sync_wait_s": stats["sync_s"],
           "sync_share": stats["sync_s"] / stats["seconds"],
           "rng_ms_per_event": ev_ms, "rng_ms_per_launch": launch_ms,
-          "rng_s": rng_s, "rng_share": rng_s / stats["seconds"]})
+          "rng_s": rng_s, "rng_share": rng_s / stats["seconds"],
+          "profiled_batch": B, **prof})
 
 
 def phase_rf_xl(torch) -> dict:
@@ -693,7 +865,7 @@ def phase_rf_xl(torch) -> dict:
     kw = dict(num_packets=B_FULL, n=256, store_rf=True)
     sim = config1("cuda", **kw)
     require(type(sim._sweep_tabs).__name__ == "XLTables", "256^3 builds XL")
-    (rf, accs), launches = drive(XL + ("scatter_add",), RESIDENT,
+    (rf, accs), launches = drive(XL + DETECT, RESIDENT + NOT_PATH,
                                  lambda: sim.run_primary(verbose=False))
     stats = dict(sim.last_stats)
     require(bool(torch.isfinite(rf).all()) and float(rf.min()) >= 0
@@ -1007,9 +1179,10 @@ def phase_full_width_ml(torch, smi: str, phase="full_width_ml",
     tabs = sim._sweep_tabs
     require(type(tabs).__name__ == "MLTables", f"{name} builds MLTables")
     sim.run_primary(verbose=False)          # warm-up
-    must = ("mlsweep_dtau", "scatter_add") + (("mlsweep_deposit",)
-                                              if store_rf else ())
-    must_not = RESIDENT + XL + (() if store_rf else ("mlsweep_deposit",))
+    must = ("mlsweep_dtau",) + DETECT + (("mlsweep_deposit",)
+                                         if store_rf else ())
+    must_not = RESIDENT + XL + NOT_PATH + (() if store_rf
+                                           else ("mlsweep_deposit",))
     (rf, accs), launches = drive(must, must_not,
                                  lambda: sim.run_primary(verbose=False))
     stats = dict(sim.last_stats)
@@ -1050,28 +1223,19 @@ def phase_full_width_ml(torch, smi: str, phase="full_width_ml",
 
 def phase_breakdown_ml(torch, sim) -> None:
     """One more run of a tree path under torch.profiler: device kernels,
-    their launches per event, the device's busy and idle shares of the
-    wall, and the kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run_primary(verbose=False)
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    n = sum(e.count for e in kernels)
+    their launches per event, stream syncs and host-to-device copies, the
+    device's busy and idle shares of the wall, and the kernels that take the
+    most device time."""
+    from skirt9_tpu_torch.tools import event_profile as ep
+    prof = ep.profile_run(torch, lambda: sim.run_primary(verbose=False))
     events = sim.last_stats["events"]
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
-    emit({"phase": "breakdown_ml", "profiled_wall_s": wall,
-          "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-          "device_launches": n, "events": events,
-          "launches_per_event": n / events,
-          "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                  for e in top]})
+    emit({"phase": "breakdown_ml", "profiled_wall_s": prof["wall_s"],
+          "device_busy_s": prof["busy_s"], "idle_share": prof["idle_share"],
+          "device_launches": prof["device_ops"], "events": events,
+          "launches_per_event": prof["device_ops"] / events,
+          "stream_syncs_per_event": prof["stream_syncs"] / events,
+          "h2d_copies_per_event": prof["h2d_copies"] / events,
+          "top": prof["top"]})
 
 
 # ------------------------------------------------------- config 2, probes
@@ -1088,8 +1252,9 @@ def phase_kernels_probe(torch) -> dict:
     from skirt9_tpu_torch.ops import scatteradd as sca
     from skirt9_tpu_torch.tools import gather_probe as gp
     from skirt9_tpu_torch.tools import sublane_gather as sg
-    (r8, r9), launches = drive(PROBE, RESIDENT + XL + ML, lambda: (
-        gp.run("cuda"), sg.run("cuda")))
+    (r8, r9), launches = drive(PROBE + ("scatter_add",),
+                               RESIDENT + XL + ML + DETECT, lambda: (
+                                   gp.run("cuda"), sg.run("cuda")))
     dev = torch.device("cuda")
     nd, idx, vals = gp.inputs(dev)
     tab, ix = sg.inputs(dev)
@@ -1166,6 +1331,8 @@ def phase_kernels_probe(torch) -> dict:
                          library_device_ms=dev_t[lib[name]]["all"])
     out["probe_scatter_smem"]["kernel3_device_ms"] = dev_t["scatter_add"][
         "ours"]
+    # kernel 3 runs on no simulation path now, but in the probe's comparison
+    out["probe_scatter_smem"]["kernel3_launches"] = launches["scatter_add"]
     emit({"phase": "kernels_probe", "table": N, "indices": B,
           "row_table": [R, W], "index_rows": S, "iters": IT, **out})
     return out
@@ -1279,6 +1446,12 @@ def phase_kernels_b2(torch) -> dict:
         **bound(B * 8 + size * 4, B))
     out["sweep_deposit"]["device_ms"] = device_ms(
         lambda: sw._deposit_cuda(*dep))["ours"]
+    # the detect kernel at config 2's shapes (40 SED bins, statistics, a
+    # 40 x 64 x 64 frame): the first scattering peel-off, as above
+    contrib = torch.tensor(rs.uniform(0.0, 1e-3, B), dtype=torch.float32,
+                           device=sim.device)
+    out["detect"] = check_detect(torch, cfg, itab, pkt.lam, ipos, contrib,
+                                 f_p, 2)
     emit({"phase": "kernels_b2", "batch": B, "grid": list(tabs.n), **out})
     return out
 
@@ -1366,13 +1539,14 @@ def _golden_gates(sim, rf, accs, tmp) -> dict:
 def phase_full_width_b2(torch, smi: str):
     """Config 2 at bench.py's full width (2^20 packets in batches of 2^17,
     24 events, seed 0), a warm-up run and a timed run on the same object:
-    kernels 1-3 launched, no tree or XL kernel; bench2's golden gates and
-    L_dust = L_abs_primary within 1e-4 (no iterations)."""
+    kernels 1-2 and detect launched, no tree or XL kernel and not kernel
+    3; bench2's golden gates and L_dust = L_abs_primary within 1e-4 (no
+    iterations)."""
     sim = config2("cuda")
     sim.run_with_dust_emission(verbose=False)            # warm-up
     t0 = time.perf_counter()
     (rf, accs, info), launches = drive(
-        RESIDENT + ("scatter_add",), XL + ML,
+        RESIDENT + DETECT, XL + ML + NOT_PATH,
         lambda: sim.run_with_dust_emission(verbose=False))
     dt = time.perf_counter() - t0
     stats = dict(sim.last_stats)
@@ -1404,31 +1578,13 @@ def phase_full_width_b2(torch, smi: str):
 
 def phase_breakdown_b2(torch) -> None:
     """Config 2 with one batch per segment (2^17 packets) under
-    torch.profiler: device launches per event, busy and idle shares, the
-    kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-    sim = config2("cuda", num_packets=B_FULL)
-    sim.run_with_dust_emission(verbose=False)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run_with_dust_emission(verbose=False)
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    n = sum(e.count for e in kernels)
-    events = sum(seg[3] for seg in sim.last_stats["segments"])
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
-    emit({"phase": "breakdown_b2", "packets": sim.num_packets,
-          "profiled_wall_s": wall, "device_busy_s": busy,
-          "idle_share": 1.0 - busy / wall, "device_launches": n,
-          "events": events, "launches_per_event": n / events,
-          "segments": sim.last_stats["segments"],
-          "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                  for e in top]})
+    torch.profiler (host_per_event): launches, stream syncs and copies per
+    event, busy and idle shares, the kernels that take the most device
+    time."""
+    prof = host_per_event(
+        torch, lambda cap: config2("cuda", num_packets=B_FULL, max_events=cap),
+        lambda s: s.run_with_dust_emission(verbose=False))
+    emit({"phase": "breakdown_b2", "packets": B_FULL, **prof})
 
 
 def main() -> int:
@@ -1453,9 +1609,8 @@ def main() -> int:
     phase_breakdown(torch, sim, stats)
     del sim
     _, _, launches_xl = phase_full_width(
-        torch, smi, "full_width_xl", "XLTables",
-        ("sweepxl_dtau", "scatter_add"), RESIDENT + ("sweepxl_deposit",),
-        num_packets=B_FULL, n=256)
+        torch, smi, "full_width_xl", "XLTables", ("sweepxl_dtau",) + DETECT,
+        RESIDENT + NOT_PATH + ("sweepxl_deposit",), num_packets=B_FULL, n=256)
     launches_rf = phase_rf_xl(torch)
     torch.cuda.empty_cache()
     kern.update(phase_kernels_ml(torch))
@@ -1478,13 +1633,21 @@ def main() -> int:
     del sim
     phase_breakdown_b2(torch)
     rows = []
+    k1 = "skirt9_tpu/transport/sweep.py:238"
+    k1_modes = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix")
+    probe_k3 = {"scatter_add": kern["probe_scatter_smem"]["kernel3_launches"]}
     for name, src, ref, path, counts in (
-            ("sweep_dtau", "sweep_dtau.cu", "skirt9_tpu/transport/sweep.py:238",
-             "full_width", launches),
+            ("sweep_dtau", "sweep_dtau.cu", k1, "full_width", launches),
+            ("sweep_tau_total", "sweep_dtau.cu", k1, "full_width", launches),
+            ("sweep_dtau_prefix", "sweep_dtau.cu", k1, "full_width",
+             launches),
             ("sweep_deposit", "sweep_deposit.cu",
              "skirt9_tpu/transport/sweep.py:275", "full_width", launches),
-            ("scatter_add", "scatter_add.cu", "skirt9_tpu/ops/scatteradd.py:32",
+            ("detect", "detect.cu", "skirt9_tpu/ops/scatteradd.py:32 (its "
+             "seven calls per skirt9_tpu/instruments/distant.py:157 detect)",
              "full_width", launches),
+            ("scatter_add", "scatter_add.cu", "skirt9_tpu/ops/scatteradd.py:32",
+             "kernels_probe (the gather probe's entry point)", probe_k3),
             ("sweepxl_dtau", "sweepxl_dtau.cu",
              "skirt9_tpu/transport/sweepxl.py:392", "full_width_xl",
              launches_xl),
@@ -1503,17 +1666,27 @@ def main() -> int:
                **{key: k[key] for key in (
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms")}}
-        for key in ("device_ms", "library_device_ms"):
+        for key in ("device_ms", "library_device_ms", "unfused_ms",
+                    "unfused_device_ms", "seven_call_ms",
+                    "seven_call_device_ms", "seven_call_device_launches"):
             if key in k:
                 row[key] = k[key]
-        if name in RESIDENT + ("scatter_add",):
-            # the config-2 path (full_width_b2) and, for kernels 2-3, their
-            # config-2 shapes (kernels_b2)
-            row["launches_config2"] = launches_b2[name]
+        if name == "sweep_dtau":
+            # one CUDA kernel in three output modes: its launches on the
+            # path are those of the two modes the path takes
+            row["launches"] = sum(counts[m] for m in k1_modes)
+            row["launches_by_mode"] = {m: counts[m] for m in k1_modes}
+        if name in k1_modes + RESIDENT + DETECT + ("scatter_add",):
+            # the config-2 path (full_width_b2) and, for kernels 2, 3 and
+            # detect, their config-2 shapes (kernels_b2)
+            row["launches_config2"] = (sum(launches_b2[m] for m in k1_modes)
+                                       if name == "sweep_dtau"
+                                       else launches_b2[name])
             if name in kern_b2:
                 row["config2"] = {key: kern_b2[name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "device_ms") if key in kern_b2[name]}
+                    "library_ms", "device_ms", "seven_call_ms",
+                    "seven_call_device_ms") if key in kern_b2[name]}
         rows.append(row)
     for name, src, ref in (
             ("probe_gather_smem", "probe_gather.cu",

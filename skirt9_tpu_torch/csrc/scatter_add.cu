@@ -16,24 +16,11 @@
 // skipping empty bins; larger tables take global atomics directly. Zero
 // values issue no atomic. Float atomics make the sums order-dependent from
 // run to run (not bit-reproducible, unlike the CPU's index_add_).
-#include <cuda_runtime.h>
+#include "scatter_common.cuh"
 
 namespace skirt9 {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemBins = 48 * 1024 / 4;
-
-// Add one element per thread into `dst`; all 32 lanes of the warp must call.
-__device__ __forceinline__ void warp_scatter(float* dst, int b, float v,
-                                             bool valid) {
-  const unsigned same = __match_any_sync(kFull, valid ? b : -1);
-  if (same == kFull) {
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-    if ((threadIdx.x & 31) == 0 && valid && v != 0.0f) atomicAdd(dst + b, v);
-  } else if (valid && v != 0.0f) {
-    atomicAdd(dst + b, v);
-  }
-}
 
 __global__ void scatter_add_smem(const int* __restrict__ idx,
                                  const float* __restrict__ val,

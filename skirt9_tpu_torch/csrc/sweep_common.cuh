@@ -53,15 +53,11 @@ __device__ __forceinline__ int sel3i(int a, int x0, int x1, int x2) {
   return a == 0 ? x0 : (a == 1 ? x1 : x2);
 }
 
-// pos, dir: (B, 3); axis, smin, smax: (B,); sig: (C, B)
-__device__ inline Lane load_lane(const GridGeom& g, const float* pos,
-                                 const float* dir, const int* axis,
-                                 const float* smin, const float* smax,
-                                 const float* sig, int C, int B, int lane) {
+// The geometry of a ray (px, py, pz) + s (dx, dy, dz) marching the slabs of
+// axis a; the caller sets smin, smax and sig.
+__device__ inline Lane make_lane(const GridGeom& g, int a, float px, float py,
+                                 float pz, float dx, float dy, float dz) {
   Lane L;
-  const int a = axis[lane];
-  const float px = pos[3 * lane], py = pos[3 * lane + 1], pz = pos[3 * lane + 2];
-  const float dx = dir[3 * lane], dy = dir[3 * lane + 1], dz = dir[3 * lane + 2];
   L.pa = sel3(a, px, py, pz);
   L.da = sel3(a, dx, dy, dz);
   L.loa = sel3(a, g.lo[0], g.lo[1], g.lo[2]);
@@ -84,6 +80,17 @@ __device__ inline Lane load_lane(const GridGeom& g, const float* pos,
   L.tiny_u = fabsf(L.du) < 1e-30f;
   L.tiny_v = fabsf(L.dv) < 1e-30f;
   L.inv_da = 1.0f / (L.tiny_a ? 1.0f : L.da);
+  return L;
+}
+
+// pos, dir: (B, 3); axis, smin, smax: (B,); sig: (C, B)
+__device__ inline Lane load_lane(const GridGeom& g, const float* pos,
+                                 const float* dir, const int* axis,
+                                 const float* smin, const float* smax,
+                                 const float* sig, int C, int B, int lane) {
+  Lane L = make_lane(g, axis[lane], pos[3 * lane], pos[3 * lane + 1],
+                     pos[3 * lane + 2], dir[3 * lane], dir[3 * lane + 1],
+                     dir[3 * lane + 2]);
   L.smin = smin[lane];
   L.smax = smax[lane];
 #pragma unroll

@@ -1,10 +1,13 @@
 """Distant instruments: parallel-projection observers with SED and frames.
 
 Port of `skirt9_tpu/instruments/distant.py` for SED, Monte Carlo statistics
-(power sums of w^k, k = 0..4) and frame instruments. Detection scatters the
-batch's contributions into the accumulators through `ops.scatteradd`
-(a CUDA kernel on the GPU); accumulators are updated in place.
-Calibration runs once on the host, in float64.
+(power sums of w^k, k = 0..4) and frame instruments. On the GPU `detect` is
+one launch of the CUDA kernel in `csrc/detect.cu` (bin search, statistics
+powers, frame projection and every sum, in place); its plain version,
+`detect_plain`, forms the bins in PyTorch ops and scatters through
+`ops.scatteradd` (the reference's seven scatter-adds per detection).
+Accumulators are updated in place. Calibration runs once on the host, in
+float64.
 
 Bands, polarization, time axes, scattering levels, apertures and redshift
 are not ported yet and raise NotImplementedError.
@@ -17,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import build as kb
 from ..ops import sampling
 from ..ops import scatteradd as sca
 
@@ -101,11 +105,30 @@ def check_supported(cfg: DistantInstrumentCfg) -> None:
 
 
 def device_tables(cfg: DistantInstrumentCfg, device) -> dict:
+    """Device copies of (kobs, ex, ey, wave_borders); under "scalars" the
+    detect kernel's host arguments: 1/stats_scale, ex, ey, the frame centre
+    and 1/fovx, 1/fovy as PyTorch forms them on the card (the float
+    reciprocal of the float field of view); on the GPU, under "scratch",
+    the kernel's per-call sums, flags, touched-entry list and counters,
+    and under "epoch" the last call's number, which marks the flags (the
+    sums and counters are zeroed here and left zeroed by every launch, so
+    one stream at a time detects through one set of tables)."""
     check_supported(cfg)
     kobs, ex, ey = cfg.frame_axes()
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    return {"kobs": f32(kobs), "ex": f32(ex), "ey": f32(ey),
-            "wave_borders": f32(cfg.wave_borders)}
+    inv = lambda v: float(np.float32(1.0) / np.float32(v)) if v else 0.0
+    scalars = (1.0 / cfg.stats_scale, *map(float, ex), *map(float, ey),
+               cfg.centerx, cfg.centery, inv(cfg.fovx), inv(cfg.fovy))
+    tabs = {"kobs": f32(kobs), "ex": f32(ex), "ey": f32(ey),
+            "wave_borders": f32(cfg.wave_borders), "scalars": scalars}
+    if torch.device(device).type == "cuda":
+        n = 6 * cfg.nbins + (cfg.nbins * cfg.npy * cfg.npx
+                             if cfg.has_frame else 0)
+        zeros = lambda k, dtype: torch.zeros(k, dtype=dtype, device=device)
+        tabs["scratch"] = (zeros(n, torch.float32), zeros(n, torch.int32),
+                           zeros(n, torch.int32), zeros(2, torch.int32))
+        tabs["epoch"] = 0
+    return tabs
 
 
 def init_accumulators(cfg: DistantInstrumentCfg, device) -> dict:
@@ -123,33 +146,98 @@ def init_accumulators(cfg: DistantInstrumentCfg, device) -> dict:
 def detect(cfg: DistantInstrumentCfg, tables: dict, acc: dict,
            lam: torch.Tensor, pos: torch.Tensor, contrib: torch.Tensor,
            kind: int, active: torch.Tensor) -> dict:
-    """Record a batch of peel-off contributions [W/sr] into acc (in place)."""
+    """Record a batch of peel-off contributions [W/sr] into acc (in place):
+    one kernel launch on the GPU, `detect_plain` on the CPU."""
+    if lam.device.type == "cpu":
+        return detect_plain(cfg, tables, acc, lam, pos, contrib, kind, active)
+    if lam.device.type != "cuda":
+        raise ValueError(f"no detect kernel for device {lam.device}")
+    _detect_cuda(cfg, tables, acc, lam, pos, contrib, kind, active)
+    return acc
+
+
+def _detect_cuda(cfg, tables, acc, lam, pos, contrib, kind, active):
+    B, nb, dev = lam.shape[0], cfg.nbins, lam.device
+    lam, contrib = lam.contiguous(), contrib.contiguous()
+    pos, active = pos.contiguous(), active.to(torch.bool).contiguous()
+    shaped = [(lam, (B,), "lam"), (pos, (B, 3), "pos"),
+              (contrib, (B,), "contrib"), (active, (B,), None),
+              (tables["wave_borders"], (nb + 1,), "wave_borders"),
+              (acc["sed"], (NUM_KINDS, nb), "sed")]
+    if cfg.record_statistics:
+        shaped.append((acc["stats"], (5, nb), "stats"))
+    if cfg.has_frame:
+        shaped.append((acc["frame"], (NUM_KINDS, nb, cfg.npy, cfg.npx),
+                       "frame"))
+    for t, shape, name in shaped:
+        # inputs were made contiguous above; the accumulators and borders
+        # are written or read in place through raw pointers
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name or 'active'} {tuple(t.shape)} must be "
+                             f"{shape} on {dev}")
+        if name is not None and (t.dtype != torch.float32
+                                 or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32")
+    if not 0 <= kind < NUM_KINDS:
+        raise ValueError(f"kind {kind} out of range")
+    stats = acc["stats"] if cfg.record_statistics else None
+    frame = acc["frame"][kind] if cfg.has_frame else None
+    scratch = tables.get("scratch")
+    size = 6 * nb + (0 if frame is None else frame.numel())
+    if (scratch is None or any(t.device != dev for t in scratch)
+            or scratch[0].numel() != size):
+        raise ValueError(f"detect needs the tables' scratch of {size} "
+                         f"entries on {dev}: device_tables(cfg, {dev})")
+    # the call's epoch, 1 .. 2^31 - 1, which no flag holds: flags hold
+    # earlier epochs, or 0 after a zeroing when the epochs wrap
+    epoch = tables["epoch"] % 0x7FFFFFFF + 1
+    if epoch == 1 and tables["epoch"]:
+        scratch[1].zero_()
+    tables["epoch"] = epoch
+    ptr = lambda t: None if t is None else t.data_ptr()
+    kb.launch("detect", *(ptr(t) for t in (
+                  lam, pos, contrib, active, tables["wave_borders"],
+                  acc["sed"][kind], stats, frame, *scratch)),
+              B, nb, cfg.npx, cfg.npy, epoch, *tables["scalars"],
+              kb.stream_of(lam))
+
+
+def detect_plain(cfg: DistantInstrumentCfg, tables: dict, acc: dict,
+                 lam: torch.Tensor, pos: torch.Tensor, contrib: torch.Tensor,
+                 kind: int, active: torch.Tensor,
+                 scatter=sca.scatter_add_plain) -> dict:
+    """`detect` in PyTorch ops on any device, summing through `scatter`
+    (`ops.scatteradd.scatter_add` gives the reference's seven scatter-add
+    calls through TPU kernel 3's counterpart)."""
     nb = cfg.nbins
     b = sampling.searchsorted_right(tables["wave_borders"], lam) - 1
     ok = active & (b >= 0) & (b < nb) & (contrib > 0)
     bq = torch.clamp(b, 0, nb - 1)
     c = torch.where(ok, contrib, torch.zeros_like(contrib))
-    acc["sed"][kind] += sca.scatter_add(bq, c, nb)
+    acc["sed"][kind] += scatter(bq, c, nb)
     if cfg.record_statistics:
         # power sums of individual contributions, kinds merged; normalised by
         # stats_scale so that c^4 stays inside f32
         cn = c * (1.0 / cfg.stats_scale)
         cn2 = cn * cn
         powers = [ok.to(torch.float32), cn, cn2, cn * cn2, cn2 * cn2]
-        acc["stats"] += torch.stack([sca.scatter_add(bq, p, nb)
-                                     for p in powers])
+        acc["stats"] += torch.stack([scatter(bq, p, nb) for p in powers])
     if cfg.has_frame:
-        xp = torch.sum(pos * tables["ex"], dim=-1) - cfg.centerx
-        yp = torch.sum(pos * tables["ey"], dim=-1) - cfg.centery
+        # the dot products in the order of the CPU's three-term sum, which
+        # the detect kernel follows (PyTorch's CUDA sum adds in another one)
+        ex, ey = tables["ex"], tables["ey"]
+        xp = (pos[:, 0] * ex[0] + pos[:, 1] * ex[1]) + pos[:, 2] * ex[2] \
+            - cfg.centerx
+        yp = (pos[:, 0] * ey[0] + pos[:, 1] * ey[1]) + pos[:, 2] * ey[2] \
+            - cfg.centery
         ix = torch.floor((xp / cfg.fovx + 0.5) * cfg.npx)
         iy = torch.floor((yp / cfg.fovy + 0.5) * cfg.npy)
         okf = ok & (ix >= 0) & (ix < cfg.npx) & (iy >= 0) & (iy < cfg.npy)
         ixc = torch.clamp(ix, 0, cfg.npx - 1).to(torch.int64)
         iyc = torch.clamp(iy, 0, cfg.npy - 1).to(torch.int64)
         flat = (bq * cfg.npy + iyc) * cfg.npx + ixc
-        fr = sca.scatter_add(flat, torch.where(okf, contrib,
-                                               torch.zeros_like(contrib)),
-                             nb * cfg.npy * cfg.npx)
+        fr = scatter(flat, torch.where(okf, contrib, torch.zeros_like(contrib)),
+                     nb * cfg.npy * cfg.npx)
         acc["frame"][kind] += fr.reshape(nb, cfg.npy, cfg.npx)
     return acc
 

@@ -34,9 +34,11 @@ _LIB_NAME = "libskirt9_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# one entry point and counter each, even where two share source through
-# csrc/sweep_common.cuh, so a run shows which contract its path went through
-KERNELS = ("sweep_dtau", "sweep_deposit", "scatter_add", "sweepxl_dtau",
+# one counter per contract, even where two share source through
+# csrc/sweep_common.cuh or one entry point serves several (kernel 1's three
+# output modes), so a run shows which contract its path went through
+KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
+           "sweep_deposit", "scatter_add", "detect", "sweepxl_dtau",
            "sweepxl_deposit", "mlsweep_dtau", "mlsweep_deposit",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
@@ -48,15 +50,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # pos, dir, axis, smin, smax, sig, nd, out, B, C, nx, ny, nz, nmax,
-    # lox, loy, loz, hx, hy, hz, stream
-    "sweep_dtau_launch": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
+    # pos, dir, active, sig, nd, out, total, axis, smin, smax, B, C, nx, ny,
+    # nz, nmax, hint, mode, lox, loy, loz, hx, hy, hz, 1/hx, 1/hy, 1/hz,
+    # stream
+    "sweep_dtau_launch": [_P] * 10 + [_I] * 8 + [_F] * 9 + [_P],
     # pos, dir, axis, smin, smax, sig, scale, rel, nd, rf, s_int, icell,
     # found, B, C, nx, ny, nz, nmax, n_groups, lox, loy, loz, hx, hy, hz,
     # stream
     "sweep_deposit_launch": [_P] * 13 + [_I] * 7 + [_F] * 6 + [_P],
     # idx, val, out, n, size, stream
     "scatter_add_launch": [_P] * 3 + [_I] * 2 + [_P],
+    # lam, pos, contrib, active, borders, sed row, stats, frame cube,
+    # scratch sums, flags, list, counts, B, nb, npx, npy, epoch,
+    # 1/stats_scale, ex (3), ey (3), centerx, centery, 1/fovx, 1/fovy, stream
+    "detect_launch": [_P] * 12 + [_I] * 5 + [_F] * 11 + [_P],
     # pos, dir, axis, smin, smax, sig, nd, out, B, C, nx, ny, nz, nmax,
     # want_sub, lox, loy, loz, hx, hy, hz, stream
     "sweepxl_dtau_launch": [_P] * 8 + [_I] * 7 + [_F] * 6 + [_P],

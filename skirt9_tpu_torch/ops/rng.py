@@ -115,9 +115,12 @@ def uniform(keys: torch.Tensor, tag: int) -> torch.Tensor:
 
 def uniforms(keys: torch.Tensor, tags) -> torch.Tensor:
     """`uniform(keys, tag)` for several tags at once: (len(tags), B), in one
-    pass of hashes instead of one per tag (same bits)."""
-    t = torch.tensor(list(tags), dtype=torch.int64, device=keys.device)
-    pk = fold_in(keys.unsqueeze(0), t.unsqueeze(1))
+    pass of hashes instead of one per tag (same bits). tags: ints, or an
+    int64 tensor of them on the keys' device, which a caller that draws
+    many times builds once so that drawing copies nothing from the host."""
+    if not torch.is_tensor(tags):
+        tags = torch.tensor(list(tags), dtype=torch.int64, device=keys.device)
+    pk = fold_in(keys.unsqueeze(0), tags.unsqueeze(1))
     return _bits_to_unit(_draw(pk, 0))
 
 

@@ -3,12 +3,17 @@
 Port of `skirt9_tpu/transport/lifecycle.py` for its slab-sweep paths: the
 emission peel-off, then up to max_events forced-scattering events, each
 
-  1. pass 1 `sweep_dtau` and the ray-ordered slab prefix,
+  1. pass 1: optical depth per slab and its ray-ordered prefix,
   2. biased interaction optical depth (composite uniform/exponential),
   3. pass 2 `sweep_deposit`: RF deposits and the interaction point,
-  4. HG peel-off toward every distant instrument (`sweep_dtau` along the
-     observer direction, then `instruments.distant.detect`),
+  4. HG peel-off toward every distant instrument (the optical depth along
+     the observer direction, then `instruments.distant.detect`),
   5. HG scattering, albedo weighting and the weight-cutoff test.
+
+On the resident sweep, pass 1 is one `sweep_dtau_prefix` launch (the slab
+prefix and the lane range come out of the kernel; pass 2 takes the range),
+the peel-off tracer one `sweep_tau_total` launch, and no tensor is copied
+from the host inside the event loop.
 
 With `sweepxl.XLTables` (large uniform grids) the event runs the XL
 contracts instead: lanes sorted by (axis, major sign, entry slab), pass 1
@@ -31,9 +36,10 @@ their `rf_bin_map`, or one group for a monochromatic source's
 `rf_mono_bin`), pass 2 deposits each group into its own row, and the rows
 add into their bins.
 
-The event loop exits early once no lane is alive; that test is one host
-sync per event. There is no scan-march fallback: every option outside this
-path raises NotImplementedError and names itself.
+The event loop exits early once no lane is alive; that test is the one
+host sync per event on the resident sweep. There is no scan-march
+fallback: every option outside this path raises NotImplementedError and
+names itself.
 """
 
 from __future__ import annotations
@@ -186,20 +192,28 @@ def _rf_groups(opts: TransportOptions, rf, B: int, tree_or_xl: bool) -> int:
     return 1
 
 
-def _add_rf(rf, rf_delta, opts: TransportOptions, n_groups: int) -> None:
+def _kept_groups(rf_bin_map, device) -> tuple:
+    """(groups, their bins) for the groups inside the RF grid, as int64
+    tensors on the device (built once per life cycle)."""
+    keep = [g for g, b in enumerate(rf_bin_map) if b >= 0]
+    as_t = lambda a: torch.tensor(a, dtype=torch.int64, device=device)
+    return as_t(keep), as_t([rf_bin_map[g] for g in keep])
+
+
+def _add_rf(rf, rf_delta, opts: TransportOptions, n_groups: int,
+            kept: tuple | None) -> None:
     """Add pass 2's (n_groups, ncells) deposits into the (ncells, nbins) RF
     in place: group g holds bin rf_bin_map[g] (-1: outside the RF grid,
-    dropped); several strata may share a bin."""
+    dropped; kept = `_kept_groups`); several strata may share a bin."""
     if rf.shape[1] == 1:
         rf[:, 0] += rf_delta[0]
     elif n_groups == 1:
         rf[:, opts.rf_mono_bin] += rf_delta[0]
     else:
-        bins = torch.tensor(opts.rf_bin_map, device=rf.device)
-        keep = bins >= 0
+        groups, bins = kept
         per_bin = torch.zeros((rf.shape[1], rf.shape[0]), dtype=rf.dtype,
                               device=rf.device)
-        per_bin.index_add_(0, bins[keep], rf_delta[keep])
+        per_bin.index_add_(0, bins, rf_delta.index_select(0, groups))
         rf += per_bin.T
 
 
@@ -279,8 +293,8 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
         if is_ml:
             return torch.sum(ml.sweep_dtau(sweep_tabs, pos, kdir, sigma_lanes,
                                            mask, axis_hint=hint), dim=0)
-        return torch.sum(sw.sweep_dtau(sweep_tabs, pos, kdir, sigma_lanes,
-                                       mask, axis_hint=hint), dim=0)
+        return sw.sweep_tau_total(sweep_tabs, pos, kdir, sigma_lanes, mask,
+                                  axis_hint=hint)
 
     kind_direct = (dinst.KIND_PRIMARY_DIRECT if opts.primary
                    else dinst.KIND_SECONDARY_DIRECT)
@@ -290,8 +304,13 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     use_rf = opts.store_rf and rf is not None and rf_borders is not None
     n_groups = _rf_groups(opts, rf if use_rf else None, pkt.lam.shape[0],
                           is_xl or is_ml)
+    # the small tensors the event loop needs, built here so that the loop
+    # copies nothing from the host
+    kept = None
     if use_rf:
         rf_in_range = (pkt.lam >= rf_borders[0]) & (pkt.lam < rf_borders[-1])
+        if rf.shape[1] > 1 and n_groups > 1:
+            kept = _kept_groups(opts.rf_bin_map, rf.device)
     do_peel = bool(inst_cfgs) and opts.peel_off
 
     # ---- emission peel-off
@@ -303,6 +322,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     tags = _path_tags(opts) + (_TAG_SCATTER_CT, _TAG_SCATTER_PHI)
     if med.ncomp > 1:
         tags = tags + (_TAG_SCATTER_COMP,)
+    tag_t = torch.tensor(tags, dtype=torch.int64, device=pkt.lam.device)
     inv_sqrt = 1.0 / float(np.sqrt(opts.rf_scale))
 
     for _ in range(opts.max_events):
@@ -315,11 +335,12 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
         if stats is not None:
             stats["events"] = stats.get("events", 0) + 1
         keys = rng.event_keys(pkt.hkey, pkt.nscat)
-        u = dict(zip(tags, rng.uniforms(keys, tags)))
+        u = dict(zip(tags, rng.uniforms(keys, tag_t)))
         active = pkt.alive
 
         # pass 1: optical depth per slab and along the whole path
-        grp = sw.dominant_axis(sweep_tabs, pkt.dir)
+        if is_xl or is_ml:
+            grp = sw.dominant_axis(sweep_tabs, pkt.dir)
         if is_xl:
             perm = xl.lane_order(sweep_tabs, pkt.pos, pkt.dir, grp)
             p_pos, p_dir, p_act, grp = (pkt.pos[perm], pkt.dir[perm],
@@ -336,11 +357,12 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                                                want_sub=True)
             dtau_slab = torch.sum(dtau_sub, dim=1)
         else:
-            p_dir = pkt.dir
-            dtau_slab = sw.sweep_dtau(sweep_tabs, pkt.pos, pkt.dir,
-                                      sigma_lanes, active)
-        dmaj = p_dir.gather(1, grp[:, None])[:, 0]
-        tb_slab, tau_path = sw.slab_prefix(dtau_slab, dmaj > 0)
+            # the prefix and the lane range come out of the kernel
+            tb_slab, tau_path, lane = sw.sweep_dtau_prefix(
+                sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active)
+        if is_xl or is_ml:
+            dmaj = p_dir.gather(1, grp[:, None])[:, 0]
+            tb_slab, tau_path = sw.slab_prefix(dtau_slab, dmaj > 0)
         if is_xl:
             tau_path = _unsort(tau_path, perm)
         tau_int, w_bias, tau_ok = sample_interaction_tau(opts, u, tau_path)
@@ -375,9 +397,9 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             rel_slab = tau_int[None, :] - tb_slab
             rf_delta, s_int, icell, found = sw.sweep_deposit(
                 sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active, scale_slab,
-                rel_slab, n_groups=n_groups)
+                rel_slab, n_groups=n_groups, lane=lane)
             if use_rf:
-                _add_rf(rf, rf_delta, opts, n_groups)
+                _add_rf(rf, rf_delta, opts, n_groups, kept)
         ipos = pkt.pos + s_int[:, None] * pkt.dir
         active_int = active_int & found
 

@@ -72,6 +72,7 @@ class MLTables(NamedTuple):
     n_steps: int              # march steps of the plan
     step_tlev: torch.Tensor   # (n_steps,) int32 slab index at granularity gs
     step_gs: torch.Tensor     # (n_steps,) int32 granularity shift
+    axes: tuple               # sweep.grid_axes of the fine grid
 
     @property
     def ncomp(self) -> int:
@@ -212,12 +213,14 @@ def build_tables(grid, med) -> MLTables:
     dev = med.nd.device
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
     hf = meta["box"] / np.asarray(nf, np.float64)
+    n = tuple(int(v) for v in nf)
+    lo = tuple(float(v) for v in meta["lo0"])
+    h = tuple(float(v) for v in hf)
     return MLTables(nd=med.nd.contiguous(), leafmap=i32(leafmap.reshape(-1)),
-                    n=tuple(int(v) for v in nf),
-                    lo=tuple(float(v) for v in meta["lo0"]),
-                    h=tuple(float(v) for v in hf), nmax=nmax,
+                    n=n, lo=lo, h=h, nmax=nmax,
                     levels=meta["levels"], n_steps=len(tlev),
-                    step_tlev=i32(tlev), step_gs=i32(gs))
+                    step_tlev=i32(tlev), step_gs=i32(gs),
+                    axes=sw.grid_axes(lo, n, h, dev))
 
 
 def locate_cells(tabs: MLTables, pos) -> torch.Tensor:

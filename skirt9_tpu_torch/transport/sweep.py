@@ -7,12 +7,20 @@ axes (`_slab_entry`, `_minor_idx`, `_minor_crossing` of the reference, with
 the same constants: the 1e-4*span nudge, _BIG = 3e37 and the 1e-30
 tiny-direction guards, which the <= 3-cell bound depends on).
 
-Two functions with the reference's contracts, each a CUDA kernel on the GPU
+The reference's two contracts, each a CUDA kernel on the GPU
 (`csrc/sweep_dtau.cu`, `csrc/sweep_deposit.cu`) beside its plain PyTorch
 version:
   pass 1 `sweep_dtau`    -> (nmax, B) optical depth per slab;
   pass 2 `sweep_deposit` -> RF deposits (n_groups, ncells) plus the exact
                             interaction point (s_int, icell, found).
+Pass 1's kernel takes the lane set-up (`_lane_range`) inside and has two
+more output modes, which the event loop uses:
+  `sweep_tau_total`   -> (B,) total optical depth (the peel-off tracer);
+  `sweep_dtau_prefix` -> `slab_prefix` of pass 1 plus the lane range, which
+                         pass 2 then takes as `lane=` instead of its own.
+The grid's constants reach the kernels as scalars and the plain versions
+through tensors built with the tables (`grid_axes`), so the event loop
+copies nothing from the host.
 
 The density is read from the flat (ncells, C) table, cell =
 (ix*ny + iy)*nz + iz; the reference's transposed slab layouts and its
@@ -21,6 +29,7 @@ select-loop lookup are TPU workarounds and are not carried over.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +49,7 @@ class SweepTables(NamedTuple):
     lo: tuple          # box minimum per axis
     h: tuple           # cell size per axis
     nmax: int          # max(nx, ny, nz): slabs per lane in the output
+    axes: tuple        # `grid_axes`: (lo, hi, 1/h) as (3,) f32 tensors
 
     @property
     def ncomp(self) -> int:
@@ -69,28 +79,37 @@ def supports_sweep(grid, med) -> bool:
 
 
 def build_tables(grid, med) -> SweepTables:
-    lo = grid.lo.cpu().numpy().astype(np.float64)
-    h = grid.h.cpu().numpy().astype(np.float64)
-    return SweepTables(nd=med.nd.contiguous(), n=grid.shape,
-                       lo=tuple(float(v) for v in lo),
-                       h=tuple(float(v) for v in h), nmax=max(grid.shape))
+    lo = tuple(float(v) for v in grid.lo.cpu().numpy().astype(np.float64))
+    h = tuple(float(v) for v in grid.h.cpu().numpy().astype(np.float64))
+    return SweepTables(nd=med.nd.contiguous(), n=grid.shape, lo=lo, h=h,
+                       nmax=max(grid.shape),
+                       axes=grid_axes(lo, grid.shape, h, med.nd.device))
+
+
+def grid_axes(lo: tuple, n: tuple, h: tuple, device) -> tuple:
+    """(lo, hi, 1/h) per axis as (3,) f32 tensors on the device, hi = lo +
+    n*h in f32: the grid constants of `dominant_axis` and `_lane_range`,
+    built once with the tables so that the event loop copies nothing from
+    the host."""
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
+    hi_t = lo_t + (torch.tensor(n, dtype=torch.float32, device=device)
+                   * torch.tensor(h, dtype=torch.float32, device=device))
+    inv_h = torch.tensor([1.0 / v for v in h], dtype=torch.float32,
+                         device=device)
+    return lo_t, hi_t, inv_h
 
 
 def dominant_axis(tabs: SweepTables, dirn: torch.Tensor) -> torch.Tensor:
     """Slab axis per lane: the highest CELL-crossing rate |dir_i|/h_i (a plain
     argmax|dir| breaks the 3-substep bound for anisotropic cells)."""
-    inv_h = torch.tensor([1.0 / v for v in tabs.h], dtype=torch.float32,
-                         device=dirn.device)
+    inv_h = tabs.axes[2]
     return torch.argmax(torch.abs(dirn) * inv_h, dim=-1)
 
 
 def _lane_range(tabs, pos, dirn, active):
     """Per-lane dominant axis (int32) and in-grid path range [smin, smax],
     with smax = smin for inactive lanes."""
-    dev = pos.device
-    lo = torch.tensor(tabs.lo, dtype=torch.float32, device=dev)
-    hi = lo + (torch.tensor(tabs.n, dtype=torch.float32, device=dev)
-               * torch.tensor(tabs.h, dtype=torch.float32, device=dev))
+    lo, hi, _ = tabs.axes
     group = dominant_axis(tabs, dirn).to(torch.int32)
     tiny = torch.abs(dirn) < 1e-30
     inv = 1.0 / torch.where(tiny, torch.full_like(dirn, 1e-30), dirn)
@@ -107,12 +126,17 @@ def _lane_range(tabs, pos, dirn, active):
     return group, smin.contiguous(), smax.contiguous()
 
 
+def _sigma(sigma):
+    """The (C, B) contiguous f32 cross sections."""
+    if sigma.dim() == 1:
+        sigma = sigma[None, :]
+    return sigma.to(torch.float32).contiguous()
+
+
 def _prep(tabs: SweepTables, pos, dirn, sigma, active):
     """`_lane_range` plus the (C, B) contiguous f32 cross sections."""
     group, smin, smax = _lane_range(tabs, pos, dirn, active)
-    if sigma.dim() == 1:
-        sigma = sigma[None, :]
-    return group, smin, smax, sigma.to(torch.float32).contiguous()
+    return group, smin, smax, _sigma(sigma)
 
 
 def _check_inputs(pos, dirn, shaped):
@@ -144,6 +168,22 @@ def _check(tabs: SweepTables, pos, dirn, sig, *slab_tables):
     _check_inputs(pos, dirn, [(sig, sig.shape, "sigma"),
                               (tabs.nd, tabs.nd.shape, "density table")]
                   + [(t, (tabs.nmax, B), "slab table") for t in slab_tables])
+
+
+def _check_lane(pos, active, lane=None):
+    """Raise unless active is (B,) on the rays' device and the lane range,
+    where given, is (group int32, smin f32, smax f32), each (B,)."""
+    B = pos.shape[0]
+    named = [(active, None, "active")]
+    if lane is not None:
+        named += list(zip(lane, (torch.int32, torch.float32, torch.float32),
+                          ("lane group", "lane smin", "lane smax")))
+    for t, dtype, name in named:
+        if tuple(t.shape) != (B,) or t.device != pos.device:
+            raise ValueError(f"{name} {tuple(t.shape)} must be ({B},) on "
+                             f"{pos.device}")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
 
 
 # ------------------------------------------------------- plain PyTorch march
@@ -317,15 +357,37 @@ def _geometry_args(tabs: SweepTables):
     return (*tabs.n, tabs.nmax, *tabs.lo, *tabs.h)
 
 
-def _dtau_cuda(tabs, pos, dirn, group, smin, smax, sig):
+# pass 1's output modes (csrc/sweep_dtau.cu), each counted under its name
+_MODES = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix")
+
+
+def _dtau_cuda(tabs, pos, dirn, sig, active, hint, mode: str):
+    """One launch of pass 1 in the given mode, the lane set-up inside:
+    sweep_dtau -> (nmax, B) tau; sweep_tau_total -> (B,) total;
+    sweep_dtau_prefix -> ((nmax, B) prefix, total, (group, smin, smax))."""
     B, C = pos.shape[0], sig.shape[0]
+    dev = pos.device
     pos, dirn = pos.contiguous(), dirn.contiguous()
-    out = torch.empty((tabs.nmax, B), dtype=torch.float32, device=pos.device)
+    act = active.to(torch.bool).contiguous()
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    out = None if mode == "sweep_tau_total" else f32(tabs.nmax, B)
+    total = None if mode == "sweep_dtau" else f32(B)
+    lane = None
+    if mode == "sweep_dtau_prefix":
+        lane = (torch.empty(B, dtype=torch.int32, device=dev), f32(B), f32(B))
+    ptr = lambda t: None if t is None else t.data_ptr()
     nx, ny, nz, nmax, *geo = _geometry_args(tabs)
-    kb.launch("sweep_dtau", *(t.data_ptr() for t in (
-                  pos, dirn, group, smin, smax, sig, tabs.nd, out)),
-              B, C, nx, ny, nz, nmax, *geo, kb.stream_of(pos))
-    return out
+    kb.launch("sweep_dtau", *(ptr(t) for t in (
+                  pos, dirn, act, sig, tabs.nd, out, total,
+                  *(lane or (None,) * 3))),
+              B, C, nx, ny, nz, nmax, -1 if hint is None else int(hint),
+              _MODES.index(mode), *geo, *(1.0 / v for v in tabs.h),
+              kb.stream_of(pos), count_as=mode)
+    if mode == "sweep_dtau":
+        return out
+    if mode == "sweep_tau_total":
+        return total
+    return out, total, lane
 
 
 def _deposit_cuda(tabs, pos, dirn, group, smin, smax, sig, scale, rel,
@@ -362,14 +424,22 @@ def _hinted(group, axis_hint):
     return group if axis_hint is None else torch.full_like(group, int(axis_hint))
 
 
+def _pass1(tabs, pos, dirn, sigma, active, axis_hint, mode, plain):
+    """Check the inputs, then the plain version on the CPU or the kernel in
+    the given mode on the GPU."""
+    sig = _sigma(sigma)
+    _check(tabs, pos, dirn, sig)
+    _check_lane(pos, active)
+    fn = _dispatch(pos, plain, functools.partial(_dtau_cuda, mode=mode))
+    return fn(tabs, pos, dirn, sig, active, axis_hint)
+
+
 def sweep_dtau(tabs: SweepTables, pos, dirn, sigma, active,
                axis_hint: int | None = None) -> torch.Tensor:
     """Per-slab optical depth (nmax, B) f32. axis_hint: the dominant axis
     shared by all lanes (peel-off toward one observer)."""
-    group, smin, smax, sig = _prep(tabs, pos, dirn, sigma, active)
-    _check(tabs, pos, dirn, sig)
-    fn = _dispatch(pos, _dtau_plain, _dtau_cuda)
-    return fn(tabs, pos, dirn, _hinted(group, axis_hint), smin, smax, sig)
+    return _pass1(tabs, pos, dirn, sigma, active, axis_hint, "sweep_dtau",
+                  sweep_dtau_plain)
 
 
 def sweep_dtau_plain(tabs: SweepTables, pos, dirn, sigma, active,
@@ -380,19 +450,60 @@ def sweep_dtau_plain(tabs: SweepTables, pos, dirn, sigma, active,
                        sig)
 
 
+def sweep_tau_total(tabs: SweepTables, pos, dirn, sigma, active,
+                    axis_hint: int | None = None) -> torch.Tensor:
+    """Optical depth of each lane's whole in-grid path (B,), summed in slab
+    order: `sweep_dtau(...).sum(0)` without the (nmax, B) tensor."""
+    return _pass1(tabs, pos, dirn, sigma, active, axis_hint,
+                  "sweep_tau_total", sweep_tau_total_plain)
+
+
+def sweep_tau_total_plain(tabs: SweepTables, pos, dirn, sigma, active,
+                          axis_hint: int | None = None) -> torch.Tensor:
+    """`sweep_tau_total` through the plain PyTorch version on any device."""
+    return torch.sum(sweep_dtau_plain(tabs, pos, dirn, sigma, active,
+                                      axis_hint), dim=0)
+
+
+def sweep_dtau_prefix(tabs: SweepTables, pos, dirn, sigma, active,
+                      axis_hint: int | None = None):
+    """Pass 1 for pass 2: `slab_prefix` of `sweep_dtau` in the lane's own
+    slab axis, and that lane range.
+    Returns (tau before each slab in ray order (nmax, B), total (B,),
+    lane = (group (B,) int32, smin, smax)), lane for `sweep_deposit`."""
+    return _pass1(tabs, pos, dirn, sigma, active, axis_hint,
+                  "sweep_dtau_prefix", sweep_dtau_prefix_plain)
+
+
+def sweep_dtau_prefix_plain(tabs: SweepTables, pos, dirn, sigma, active,
+                            axis_hint: int | None = None):
+    """`sweep_dtau_prefix` through the plain PyTorch version on any device."""
+    group, smin, smax, sig = _prep(tabs, pos, dirn, sigma, active)
+    group = _hinted(group, axis_hint)
+    dtau = _dtau_plain(tabs, pos, dirn, group, smin, smax, sig)
+    dmaj = dirn.gather(1, group.to(torch.int64)[:, None])[:, 0]
+    tb, total = slab_prefix(dtau, dmaj > 0)
+    return tb, total, (group, smin, smax)
+
+
 def sweep_deposit(tabs: SweepTables, pos, dirn, sigma, active, scale_slab,
-                  rel_slab, n_groups: int = 1):
+                  rel_slab, n_groups: int = 1, lane=None):
     """Pass 2: RF deposits + interaction resolution.
 
     scale_slab: (nmax, B) L*exp(-tau before the slab); rel_slab: (nmax, B)
     tau_int - tau before the slab (both in ray order). Lanes form n_groups
-    contiguous groups, each depositing into its own RF row.
+    contiguous groups, each depositing into its own RF row. lane: pass 1's
+    (group, smin, smax) from `sweep_dtau_prefix`, which saves the set-up.
     Returns (rf (n_groups, ncells), s_int (B,), icell (B,) int64 or -1,
     found (B,) bool)."""
     if pos.shape[0] % n_groups:
         raise ValueError(f"batch {pos.shape[0]} not divisible into "
                          f"{n_groups} groups")
-    group, smin, smax, sig = _prep(tabs, pos, dirn, sigma, active)
+    if lane is None:
+        group, smin, smax, sig = _prep(tabs, pos, dirn, sigma, active)
+    else:
+        _check_lane(pos, active, lane)
+        (group, smin, smax), sig = lane, _sigma(sigma)
     _check(tabs, pos, dirn, sig, scale_slab, rel_slab)
     fn = _dispatch(pos, _deposit_plain, _deposit_cuda)
     return fn(tabs, pos, dirn, group, smin, smax, sig, scale_slab, rel_slab,

@@ -41,6 +41,7 @@ class XLTables(NamedTuple):
     lo: tuple          # box minimum per axis
     h: tuple           # cell size per axis
     nmax: int          # max(nx, ny, nz): slabs per lane in the records
+    axes: tuple        # sweep.grid_axes: (lo, hi, 1/h) as (3,) f32 tensors
     cellmap: torch.Tensor | None = None   # tree-raster voxel -> cell (unused)
 
     @property
@@ -71,7 +72,8 @@ def build_tree_tables(grid, med) -> XLTables:
 
 def build_tables(grid, med) -> XLTables:
     st = sw.build_tables(grid, med)
-    return XLTables(nd=st.nd, n=st.n, lo=st.lo, h=st.h, nmax=st.nmax)
+    return XLTables(nd=st.nd, n=st.n, lo=st.lo, h=st.h, nmax=st.nmax,
+                    axes=st.axes)
 
 
 def lane_order(tabs: XLTables, pos, dirn, group):

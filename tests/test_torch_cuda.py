@@ -19,6 +19,15 @@ record and the axis hint), pass 2's found and s_int equal and its RF within
 simulation on the card launches kernels 4, 5 and 3 and no uniform-grid
 sweep.
 
+Kernel 1's three output modes: `sweep_dtau` bit for bit against its plain
+version, `sweep_tau_total` and `sweep_dtau_prefix` within 1e-6 of each
+lane's total tau, and the lane range the kernel forms equal to
+`sweep._lane_range` bit for bit, also on axis-parallel rays and rays that
+start on cell faces or outside an off-centre grid. The fused `detect`
+kernel: one launch per call, every accumulator within 1e-5 of its maximum
+of the plain `detect`'s terms summed exactly (in float64) on the same CUDA
+tensors, added in place.
+
 Kernel 2 also runs with config 2's 32 lane groups and kernel 3 on its
 163,840-bin frame; a small config 2 with dust emission launches kernels
 1-3 on the card and matches the same seed on the CPU within 1e-4 (SEDs and
@@ -89,6 +98,159 @@ def test_sweep_dtau_kernel(dev, C, hint):
     assert float(rel.max()) <= 1e-5
 
 
+@pytest.mark.parametrize("C,hint", [(1, None), (2, None), (3, 2)])
+def test_sweep_fused_modes_kernel(dev, C, hint):
+    tabs, pos, d, sig, active, _ = _inputs(dev, C, 3000, seed=40 + C)
+    args = (tabs, pos, d, sig, active, hint)
+    kb.reset_launches()
+    tau = sw.sweep_dtau(*args)
+    tot = sw.sweep_tau_total(*args)
+    tb, tot_c, lane = sw.sweep_dtau_prefix(*args)
+    assert (kb.LAUNCHES["sweep_dtau"], kb.LAUNCHES["sweep_tau_total"],
+            kb.LAUNCHES["sweep_dtau_prefix"]) == (1, 1, 1)
+    assert sum(kb.LAUNCHES.values()) == 3
+    assert torch.equal(tau, sw.sweep_dtau_plain(*args))
+    tot_p = sw.sweep_tau_total_plain(*args)
+    assert int((tot_p > 0).sum()) > 1000
+    assert bool(((tot - tot_p).abs() <= 1e-6 * tot_p).all())
+    assert torch.equal(tot, tot_c)
+    tb_p, _, lane_p = sw.sweep_dtau_prefix_plain(*args)
+    assert bool(((tb - tb_p).abs() <= 1e-6 * tot_p[None, :]).all())
+    for a, b in zip(lane, lane_p):
+        assert torch.equal(a, b)
+
+
+def test_lane_range_kernel(dev):
+    rs = np.random.default_rng(8)
+    shape = (9, 5, 13)
+    ext = ((0.3 * PC, 2.1 * PC), (-3 * PC, -0.5 * PC), (-1 * PC, 1.7 * PC))
+    grid = make_cartesian(ext, shape)
+    nd = rs.uniform(0.5, 1.5, grid.ncells) / (1e-24 * PC)
+    med = msys.make_medium(grid, nd, np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), 1e-24),
+                           albedo=np.full((1, 2), 0.6), g=np.full((1, 2), 0.5))
+    tabs = sw.build_tables(grid.to(dev), med.to(dev))
+    B, k = 4096, 1024
+    lo, hi = np.array([e[0] for e in ext]), np.array([e[1] for e in ext])
+    pos = rs.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo), (B, 3))
+    d = rs.normal(size=(B, 3))
+    # axis-parallel rays, rays in a coordinate plane, starts on cell faces
+    d[:k] = 0.0
+    d[np.arange(k), rs.integers(0, 3, k)] = rs.choice([-1.0, 1.0], k)
+    d[k:2 * k, 1] = 0.0
+    h = (hi - lo) / np.array(shape)
+    pos[2 * k:3 * k] = lo + h * rs.integers(0, np.array(shape) + 1, (k, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos, d = t32(pos), t32(d)
+    sig = torch.full((1, B), 1e-24, device=dev)
+    active = torch.tensor(rs.uniform(size=B) > 0.1, device=dev)
+    _, _, lane = sw.sweep_dtau_prefix(tabs, pos, d, sig, active)
+    for a, b in zip(lane, sw._lane_range(tabs, pos, d, active)):
+        assert torch.equal(a, b)
+    assert int((lane[2] > lane[1]).sum()) > B // 4
+    tau = sw.sweep_dtau(tabs, pos, d, sig, active)
+    assert int((tau.sum(0) > 0).sum()) > B // 4
+    assert torch.equal(tau, sw.sweep_dtau_plain(tabs, pos, d, sig, active))
+
+
+@pytest.mark.parametrize("nb,npix", [(1, 64), (40, 64), (40, 0)])
+def test_detect_kernel(dev, nb, npix):
+    rs = np.random.default_rng(nb + npix)
+    borders = ((0.5e-6, 0.6e-6) if nb == 1
+               else tuple(np.geomspace(0.09e-6, 1000e-6, nb + 1)))
+    cfg = dinst.DistantInstrumentCfg(
+        name="i", wave_borders=borders, inclination=0.4, azimuth=0.9,
+        distance=100 * PC, npx=npix, npy=npix, fovx=4 * PC, fovy=4 * PC,
+        stats_scale=1e-3)
+    B = 20000
+    lam = (np.full(B, 0.55e-6) if nb == 1 else
+           np.exp(rs.uniform(np.log(0.05e-6), np.log(2000e-6), B)))
+    pos = rs.uniform(-2.5 * PC, 2.5 * PC, (B, 3))
+    pos[64:320] = pos[64]                      # whole warps on one pixel
+    contrib = rs.uniform(0, 1e-3, B) * (rs.uniform(size=B) > 0.1)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    ins = (t32(lam), t32(pos), t32(contrib))
+    active = torch.tensor(rs.uniform(size=B) > 0.1, device=dev)
+    tabs = dinst.device_tables(cfg, dev)
+    acc_k = dinst.init_accumulators(cfg, dev)
+    acc_p = dinst.init_accumulators(cfg, dev)
+
+    def scatter_f64(idx, val, size):
+        out = torch.zeros(size, dtype=torch.float64, device=val.device)
+        return out.index_add_(0, idx.long(), val.double()).float()
+
+    for kind in range(dinst.NUM_KINDS):
+        kb.reset_launches()
+        dinst.detect(cfg, tabs, acc_k, *ins, kind, active)
+        assert kb.LAUNCHES["detect"] == 1 and sum(kb.LAUNCHES.values()) == 1
+        dinst.detect_plain(cfg, tabs, acc_p, *ins, kind, active,
+                           scatter=scatter_f64)
+    for key in acc_p:
+        ref = acc_p[key]
+        assert float(ref.abs().max()) > 0
+        err = float((acc_k[key] - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (key, err)
+    # each launch leaves its per-call sums and counters zeroed, and its
+    # flags at most its own epoch
+    sums, flags, _, counts = tabs["scratch"]
+    assert float(sums.abs().max()) == 0 and int(counts.abs().max()) == 0
+    assert 0 <= int(flags.min()) and int(flags.max()) <= tabs["epoch"]
+
+
+def test_detect_kernel_subnormal_sums(dev):
+    """Sums that global float atomics flush to zero: a quarter of the lanes
+    add subnormal frame contributions (1e-40) and a quarter statistics
+    powers cn^4 = 1e-44, in blocks before the ones that add normal values
+    to the same pixel and bins. Each touched entry must still reach its
+    accumulator once per call, unlost, also across the wrap of the calls'
+    epochs: the frame pixel of calls 1-2 rests while calls 3-4 reach the
+    epoch's maximum and wrap, and is hit again by call 5, whose epoch
+    equals call 2's."""
+    B, calls = 1 << 17, 5
+    cfg = dinst.DistantInstrumentCfg(
+        name="i", wave_borders=(0.5e-6, 0.6e-6, 0.7e-6), distance=100 * PC,
+        npx=16, npy=16, fovx=4 * PC, fovy=4 * PC, stats_scale=1.0)
+    rs = np.random.default_rng(5)
+    lam = np.full(B, 0.65e-6)
+    lam[B // 2:] = rs.choice([0.55e-6, 0.65e-6], B // 2)
+    contrib = np.concatenate([np.full(B // 4, 1e-40), np.full(B // 4, 1e-11),
+                              rs.uniform(0.5, 1.0, B // 2)])
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    ins = [(t32(lam), t32(np.full((B, 3), x * PC)), t32(contrib))
+           for x in (0.3, -0.5)]                  # two pixels
+    assert 0 < float(ins[0][2][0]) < 1.2e-38       # a subnormal f32
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    tabs = dinst.device_tables(cfg, dev)
+    acc_k = dinst.init_accumulators(cfg, dev)
+    kb.reset_launches()
+    for i in range(calls):
+        if i == 2:
+            tabs["epoch"] = 0x7FFFFFFF - 1     # the fourth call wraps to 1
+        dinst.detect(cfg, tabs, acc_k, *ins[2 <= i <= 3],
+                     dinst.KIND_PRIMARY_DIRECT, active)
+    assert kb.LAUNCHES["detect"] == calls
+
+    def scatter_f64(idx, val, size):
+        out = torch.zeros(size, dtype=torch.float64, device=val.device)
+        return out.index_add_(0, idx.long(), val.double()).float()
+
+    acc_p = [dinst.detect_plain(cfg, tabs, dinst.init_accumulators(cfg, dev),
+                                *x, dinst.KIND_PRIMARY_DIRECT, active,
+                                scatter=scatter_f64) for x in ins]
+    for key in acc_p[0]:
+        ref = acc_p[0][key] * 3 + acc_p[1][key] * 2
+        err = (acc_k[key] - ref).abs()
+        assert float(err.max()) <= 1e-5 * float(ref.abs().max()), key
+        # every row of the statistics, bin for bin, within 1e-5 of itself
+        if key == "stats":
+            assert bool((err[:4] <= 1e-5 * ref[:4].abs()).all())
+    assert tabs["epoch"] == 2
+    sums, flags, _, counts = tabs["scratch"]
+    assert float(sums.abs().max()) == 0 and int(counts.abs().max()) == 0
+    assert 0 <= int(flags.min()) and int(flags.max()) <= 2
+
+
 @pytest.mark.parametrize("C,n_groups", [(1, 1), (2, 4), (1, 32)])
 def test_sweep_deposit_kernel(dev, C, n_groups):
     B = 4096
@@ -105,6 +267,12 @@ def test_sweep_deposit_kernel(dev, C, n_groups):
     rf_k, s_k, c_k, f_k = sw.sweep_deposit(*args)
     assert kb.LAUNCHES["sweep_deposit"] == 1
     rf_p, s_p, c_p, f_p = sw.sweep_deposit_plain(*args)
+    # pass 1's lane range in place of pass 2's own set-up: the same result
+    lane = sw.sweep_dtau_prefix(tabs, pos, d, sig, active)[2]
+    rf_l, s_l, c_l, f_l = sw.sweep_deposit(*args, lane=lane)
+    assert torch.equal(s_l, s_k) and torch.equal(c_l, c_k)
+    assert torch.equal(f_l, f_k)
+    assert float((rf_l - rf_k).abs().max()) <= 1e-5 * float(rf_k.abs().max())
     assert float((f_k == f_p).float().mean()) >= 0.999
     both = f_k & f_p
     assert torch.equal(c_k[both], c_p[both])
@@ -114,7 +282,7 @@ def test_sweep_deposit_kernel(dev, C, n_groups):
 
 def _xl_tables(tabs):
     return xl.XLTables(nd=tabs.nd, n=tabs.n, lo=tabs.lo, h=tabs.h,
-                       nmax=tabs.nmax)
+                       nmax=tabs.nmax, axes=tabs.axes)
 
 
 @pytest.mark.parametrize("C,hint", [(1, None), (2, None), (3, 2)])
@@ -185,8 +353,10 @@ def test_detect_on_cuda_matches_cpu(dev):
         acc = dinst.init_accumulators(cfg, where)
         tabs = dinst.device_tables(cfg, where)
         t = lambda a: torch.from_numpy(a).to(where)
+        kb.reset_launches()
         dinst.detect(cfg, tabs, acc, t(lam), t(pos), t(contrib),
                      dinst.KIND_PRIMARY_SCATTERED, t(active))
+        assert kb.LAUNCHES["detect"] == (where != "cpu")
         accs[str(where)] = {k: v.cpu() for k, v in acc.items()}
     for key in ("sed", "stats", "frame"):
         c, g = accs["cpu"][key], accs[str(dev)][key]
@@ -289,7 +459,7 @@ def test_tree_simulation_launches(dev):
     rf, accs = sim.run_primary(verbose=False)
     n = kb.LAUNCHES
     assert n["mlsweep_dtau"] > 0 and n["mlsweep_deposit"] > 0
-    assert n["scatter_add"] > 0
+    assert n["detect"] > 0 and n["scatter_add"] == 0
     assert n["sweep_dtau"] == n["sweep_deposit"] == n["sweepxl_dtau"] == 0
     assert bool(torch.isfinite(rf).all()) and float(rf.sum()) > 0
     assert float(accs[0]["sed"].sum()) > 0
@@ -309,8 +479,10 @@ def test_config2_on_cuda_matches_cpu(dev):
         kb.reset_launches()
         out[str(d)] = sim.run_with_dust_emission(verbose=False)
         launches = dict(kb.LAUNCHES)
-    assert launches["sweep_dtau"] > 0 and launches["sweep_deposit"] > 0
-    assert launches["scatter_add"] > 0 and launches["sweepxl_dtau"] == 0
+    assert launches["sweep_dtau_prefix"] > 0 and launches["sweep_deposit"] > 0
+    assert launches["sweep_tau_total"] > 0 and launches["detect"] > 0
+    assert launches["sweep_dtau"] == launches["scatter_add"] == 0
+    assert launches["sweepxl_dtau"] == 0
     (rf_c, acc_c, info_c), (rf_g, acc_g, info_g) = out["cpu"], out[str(dev)]
     assert info_c["iterations"] == info_g["iterations"] == 1
     assert float((rf_g.cpu() - rf_c).abs().max()) <= 1e-4 * float(rf_c.max())
