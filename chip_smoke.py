@@ -25,7 +25,10 @@ Phases, one JSON line each:
                     (sweep_dtau bit-identical; sweep_tau_total and
                     sweep_dtau_prefix within 1e-6 of each lane's tau; the
                     lane range it forms equal to _lane_range bit for bit),
-                    kernel 2, kernel 3 (sizes 1 and 4096), and detect (one
+                    kernel 2 in its two modes (sweep_deposit on scale and
+                    rel tables, sweep_deposit_prefix forming them from the
+                    prefix: the same interactions bit for bit), kernel 3
+                    (sizes 1 and 4096), and detect (one
                     bin, 64x64 frame) within 1e-5 of each accumulator's
                     maximum against the plain detect and the seven-call
                     form through kernel 3
@@ -40,9 +43,10 @@ Phases, one JSON line each:
                     1e-4
   draw_for_draw_xl  the same at 80^3, where the port picks the XL contracts
   full_width        config 1 at 2^20 packets in batches of 2^17, timed after a
-                    warm-up: kernel 1's total and prefix modes, kernel 2 and
-                    detect launched; kernel 1's reference mode, kernel 3 and
-                    kernels 6-7 not; accumulators
+                    warm-up: kernel 1's total and prefix modes, kernel 2's
+                    prefix mode and detect launched; kernels 1 and 2 in
+                    their reference modes, kernel 3 and kernels 6-7 not;
+                    accumulators
                     finite, the transparent SED analytic within 1e-5,
                     direct/transparent = exp(-tau) within 1e-3, SED relative
                     error R < 0.01
@@ -64,10 +68,11 @@ Phases, one JSON line each:
                     its leaf map beyond L2), with want_sub, summed and with
                     the +z peel-off hint, tau within 1e-5 relative
                     (bit-identical expected) and leaf ids identical; kernel
-                    5 on config3ism's tree, its RF within 1e-5 of its
-                    maximum, s_int, found and the interaction cells equal;
-                    timed, with resolve_interaction (the no-RF pass 2)
-                    beside kernel 5
+                    5 on both trees (config3ism's in its shared-memory leaf
+                    table, config3ismxl's on its global path), its RF within
+                    1e-5 of its maximum, s_int, found and the interaction
+                    cells equal; timed, with resolve_interaction (the no-RF
+                    pass 2) beside kernel 5
   draw_for_draw_ml  the density octree of tests/test_mlsweep.py (max_level
                     4) with a one-bin RF, 16,384 packets, CPU vs GPU: SEDs
                     within 1e-4, frame 1e-3 of its brightest pixel, RF total
@@ -94,7 +99,9 @@ Phases, one JSON line each:
                     plain version (gathers bit-exact, sums 1e-6 relative),
                     timed with the plain and library times and kernel 3 at
                     the probe's scatter shape
-  kernels_b2        kernel 2 with config 2's 32 lane groups, kernel 3 on its
+  kernels_b2        kernel 2 in both modes with config 2's 32 lane groups
+                    (the prefix mode folding them into the 25 bins by the
+                    launch's bin map), kernel 3 on its
                     163,840-bin frame and detect (40 bins, 40x64x64 frame),
                     on config 2's first event, against their plain versions
                     (RF 1e-4 of its maximum, sums 1e-5)
@@ -172,7 +179,7 @@ def nvidia_smi_line() -> str:
 
 
 def config1(device, num_packets=1 << 20, batch_size=B_FULL, n=32,
-            store_rf=False, npix=64, max_events=24):
+            store_rf=False, npix=64):
     """Config 1 of bench.py (bench.py:39-76) through the port's API."""
     from skirt9_tpu_torch.grids.cartesian import make_cartesian
     from skirt9_tpu_torch.instruments.distant import DistantInstrumentCfg
@@ -193,7 +200,7 @@ def config1(device, num_packets=1 << 20, batch_size=B_FULL, n=32,
     inst = DistantInstrumentCfg(name="i0", wave_borders=(0.5e-6, 0.6e-6),
                                 distance=100 * PC, npx=npix, npy=npix,
                                 fovx=4 * PC, fovy=4 * PC)
-    opts = TransportOptions(max_steps=grid.max_steps(), max_events=max_events,
+    opts = TransportOptions(max_steps=grid.max_steps(), max_events=24,
                             store_rf=store_rf)
     return Simulation(grid=grid, medium=med,
                       sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
@@ -424,6 +431,54 @@ def check_detect(torch, cfg, tabs, lam, pos, contrib, active, kind) -> dict:
                 B * OPS_DETECT))
 
 
+INV_SQRT = 0.7   # the tests' 1/sqrt(rf_scale): any value that rounds
+
+
+def check_deposit(torch, name, kern, plain, args, h) -> dict:
+    """Kernel 2 in one mode against its plain version on the same CUDA
+    tensors: found agreement >= 0.999, icell identical where both found,
+    s_int within 1e-5 h, RF within 1e-4 of its maximum; then its time per
+    call, device time and the plain version's time."""
+    rf_k, s_k, c_k, f_k = kern(*args)
+    rf_p, s_p, c_p, f_p = plain(*args)
+    torch.cuda.synchronize()
+    B = s_k.shape[0]
+    agree = float((f_k == f_p).float().mean())
+    both = f_k & f_p
+    require(int(f_p.sum()) > B // 2, f"{name} test rays interact")
+    require(agree >= 0.999, f"{name} found agreement {agree} >= 0.999")
+    require(bool(torch.equal(c_k[both], c_p[both])),
+            f"{name} icell identical where both found")
+    ds_err = float((s_k[both] - s_p[both]).abs().max())
+    require(ds_err <= 1e-5 * h, f"{name} s_int error {ds_err} <= 1e-5 h")
+    rf_err = float((rf_k - rf_p).abs().max())
+    rf_max = float(rf_p.abs().max())
+    require(rf_max > 0 and rf_err <= 1e-4 * rf_max,
+            f"{name} rf error {rf_err} <= 1e-4 * {rf_max}")
+    rows_lit = int((rf_p.abs().sum(dim=1) > 0).sum())
+    return dict(max_abs_err=rf_err, rf_max=rf_max, found_agreement=agree,
+                s_int_err=ds_err, rows=rf_k.shape[0], rf_rows_lit=rows_lit,
+                outputs=(rf_k, s_k, c_k, f_k),
+                ms=cuda_ms(lambda: kern(*args)),
+                plain_ms=cuda_ms(lambda: plain(*args), reps=3),
+                library_ms=None,
+                device_ms=device_ms(lambda: kern(*args))["ours"])
+
+
+def deposit_bound(name, tabs, B, n_act, rows) -> dict:
+    """Kernel 2's bound from this run's inputs: the lane inputs, the
+    density table, the per-(slab, lane) inputs at the crossed pairs only
+    (scale and rel, or the prefix tb), lum and tau_int in the prefix mode,
+    the RF rows and the per-lane outputs; the operations of the crossed
+    pairs."""
+    per_pair = 8 if name == "sweep_deposit" else 4
+    per_lane = 0 if name == "sweep_deposit" else 8
+    return bound(lane_bytes(B, tabs.ncomp) + tabs.nd.numel() * 4
+                 + n_act * per_pair + B * per_lane
+                 + rows * tabs.nd.shape[0] * 4 + B * 12,
+                 n_act * (OPS_SLAB + 3 * (OPS_SUB + 2 * tabs.ncomp + OPS_DEP)))
+
+
 def active_slabs(tabs, pos, dirn, g, smin, smax) -> int:
     """(slab, lane) pairs whose slab the ray crosses (uniform grids)."""
     from skirt9_tpu_torch.transport import sweep as sw
@@ -532,36 +587,38 @@ def phase_kernels(torch) -> dict:
             out[name]["unfused_ms"] = cuda_ms(unfused)
             out[name]["unfused_device_ms"] = device_ms(unfused)["all"]
 
-    # kernel 2: deposits with nonzero scale, interaction at a random depth
+    # kernel 2 in both modes: deposits with nonzero scale, interaction at a
+    # random depth; the reference contract on the tables the prefix mode
+    # forms inside
     tb, tot = sw.slab_prefix(a_p, dmaj)
     lum = t32(rs.uniform(0.5, 2.0, B))
-    scale = lum[None, :] * torch.exp(-tb)
-    rel = (t32(rs.uniform(size=B)) * tot)[None, :] - tb
-    dep_args = (tabs, pos, dirn, g, smin, smax, sg, scale, rel, 1)
-    rf_k, s_k, c_k, f_k = sw._deposit_cuda(*dep_args)
-    rf_p, s_p, c_p, f_p = sw._deposit_plain(*dep_args)
-    torch.cuda.synchronize()
-    agree = float((f_k == f_p).float().mean())
-    both = f_k & f_p
-    require(int(f_p.sum()) > B // 2, "kernel 2 test rays interact")
-    require(agree >= 0.999, f"kernel 2 found agreement {agree} >= 0.999")
-    require(bool(torch.equal(c_k[both], c_p[both])),
-            "kernel 2 icell identical where both found")
-    ds_err = float((s_k[both] - s_p[both]).abs().max())
-    require(ds_err <= 1e-5 * h, f"kernel 2 s_int error {ds_err} <= 1e-5 h")
-    rf_err = float((rf_k - rf_p).abs().max())
-    rf_max = float(rf_p.abs().max())
-    require(rf_max > 0 and rf_err <= 1e-4 * rf_max,
-            f"kernel 2 rf error {rf_err} <= 1e-4 * {rf_max}")
-    ms2 = cuda_ms(lambda: sw._deposit_cuda(*dep_args))
-    pms2 = cuda_ms(lambda: sw._deposit_plain(*dep_args), reps=5)
-    out["sweep_deposit"] = dict(
-        max_abs_err=rf_err, rf_max=rf_max, found_agreement=agree,
-        s_int_err=ds_err, ms=ms2, plain_ms=pms2, library_ms=None,
-        device_ms=device_ms(lambda: sw._deposit_cuda(*dep_args))["ours"],
-        **bound(lane_bytes(B, 1) + tab_bytes + 2 * tabs.nmax * B * 4
-                + rf_k.numel() * 4 + B * 12,
-                n_act * (OPS_SLAB + 3 * (OPS_SUB + 2 + OPS_DEP))))
+    tau_int = t32(rs.uniform(size=B)) * tot
+    scale = (lum[None, :] * torch.exp(-tb)) * INV_SQRT
+    rel = tau_int[None, :] - tb
+    dep = {"sweep_deposit": (sw._deposit_cuda, sw._deposit_plain, (
+               tabs, pos, dirn, g, smin, smax, sg, scale, rel, 1)),
+           "sweep_deposit_prefix": (
+               sw._deposit_prefix_cuda, sw._deposit_prefix_plain, (
+                   tabs, pos, dirn, g, smin, smax, sg, lum, tau_int, tb,
+                   INV_SQRT, 1, None, 1))}
+    n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
+    for name, (kern, plain, args) in dep.items():
+        res = check_deposit(torch, name, kern, plain, args, h)
+        # scale and rel formed inside equal the torch tensors: the same
+        # interaction points as the reference contract fed those tensors
+        if name == "sweep_deposit_prefix":
+            require(all(bool(torch.equal(a, b)) for a, b in zip(
+                res.pop("outputs")[1:], out["sweep_deposit"]["outputs"][1:])),
+                "kernel 2's modes find the same interactions bit for bit")
+        out[name] = res
+        out[name].update(deposit_bound(name, tabs, B, n_act, res["rows"]))
+    for name in dep:
+        out[name].pop("outputs", None)
+    # the full_width path stores no RF: every lane's scale is zero there
+    no_rf = list(dep["sweep_deposit_prefix"][2])
+    no_rf[7] = torch.zeros_like(lum)
+    out["sweep_deposit_prefix"]["device_ms_no_rf"] = device_ms(
+        lambda: sw._deposit_prefix_cuda(*no_rf))["ours"]
 
     # kernel 3: the SED / statistics bin (size 1) and the frame (size 4096)
     err3, times = 0.0, {}
@@ -750,11 +807,14 @@ def phase_draw_for_draw(torch, phase="draw_for_draw", n=32,
 
 
 # the resident sweep's path: kernel 1 as the tracer's total and pass 1's
-# prefix (its reference contract, mode sweep_dtau, on no path), kernel 2
-RESIDENT = ("sweep_tau_total", "sweep_dtau_prefix", "sweep_deposit")
+# prefix, kernel 2 from that prefix (the reference contracts, modes
+# sweep_dtau and sweep_deposit, on no path)
+RESIDENT = ("sweep_tau_total", "sweep_dtau_prefix", "sweep_deposit_prefix")
 XL = ("sweepxl_dtau", "sweepxl_deposit")
-# every path detects through the fused kernel, never through kernel 3
-DETECT, NOT_PATH = ("detect",), ("sweep_dtau", "scatter_add")
+# every path detects through the fused kernel, never through kernel 3, and
+# takes kernels 1 and 2 in their fused modes, never in the reference's
+DETECT = ("detect",)
+NOT_PATH = ("sweep_dtau", "sweep_deposit", "scatter_add")
 
 
 def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
@@ -805,26 +865,22 @@ def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
     return sim, stats, launches
 
 
-def host_per_event(torch, build, run) -> dict:
-    """One batch of a configuration profiled twice, with the event cap at 24
-    and at 2 (event_profile.per_event): device operations, kernel launches,
-    stream syncs and copies per event of the loop, and the longer run's
-    device busy and idle shares."""
+def host_per_event(torch, sim, run) -> dict:
+    """One batch of a configuration profiled after a warm-up
+    (event_profile.profile_run): device operations, kernel launches, stream
+    syncs and copies per event of the loop and of the whole run, and the
+    device's busy and idle shares."""
     from skirt9_tpu_torch.tools import event_profile as ep
-    prof, events = {}, {}
-    for cap in (24, 2):
-        sim = build(cap)
-        run(sim)                                 # warm-up
-        prof[cap] = ep.profile_run(torch, lambda: run(sim))
-        events[cap] = ep._events(sim)
-    long = prof[24]
-    return {"profiled_wall_s": long["wall_s"], "device_busy_s": long["busy_s"],
-            "idle_share": long["idle_share"],
-            "device_launches": long["device_ops"], "events": events[24],
-            "launches_per_event": long["device_ops"] / events[24],
-            "per_event": ep.per_event(long, prof[2], events[24], events[2]),
-            "stream_syncs": long["stream_syncs"],
-            "h2d_copies": long["h2d_copies"], "top": long["top"]}
+    run(sim)                                     # warm-up
+    prof = ep.profile_run(torch, lambda: run(sim))
+    events = ep._events(sim)
+    require(prof["loop_ranges"] > 0 and prof["loop"]["h2d_copies"] == 0,
+            f"no host-to-device copy in the event loop: {prof['loop']}")
+    return {"profiled_wall_s": prof["wall_s"], "device_busy_s": prof["busy_s"],
+            "idle_share": prof["idle_share"], "events": events,
+            "device_launches": prof["whole"]["device_ops"],
+            "per_event": ep.per_event(prof, events),
+            "unattributed": prof["unattributed"], "top": prof["top"]}
 
 
 def phase_breakdown(torch, sim, stats) -> None:
@@ -848,7 +904,7 @@ def phase_breakdown(torch, sim, stats) -> None:
     batches = -(-sim.num_packets // B)
     rng_s = (stats["events"] * ev_ms + batches * launch_ms) / 1e3
     prof = host_per_event(
-        torch, lambda cap: config1("cuda", num_packets=B, max_events=cap),
+        torch, config1("cuda", num_packets=B),
         lambda s: s.run_primary(verbose=False))
     emit({"phase": "breakdown", "seconds": stats["seconds"],
           "events": stats["events"], "sync_wait_s": stats["sync_s"],
@@ -1025,27 +1081,22 @@ def _dtau_ml(torch, sim, rs):
     return entry, rays, lanes, (sub_k, cell_k), (sub_p, cell_p)
 
 
-def phase_kernels_ml(torch) -> dict:
-    """Kernels 4 and 5 against their plain versions at B = 65536 through
-    their public wrappers: kernel 4 on bench_config3ism's tree (the
-    full_width_ml path) and on bench_config3ismxl's (full_width_ml_large:
-    a 256^3 raster whose leaf map exceeds L2), kernel 5 on config3ism's
-    (rf_ml); then timings, with resolve_interaction (pass 2 of the path
-    without an RF) beside kernel 5."""
+def _deposit_ml(torch, sim, rs, k4, rays, lanes, rec_k, rec_p) -> dict:
+    """Kernel 5 against its plain version on one tree at B = 65536 through
+    the public wrappers, on kernel 4's record and pass 1's lane range:
+    RF within 1e-5 of its maximum, s_int within 1e-5 h, found and the
+    interaction cells equal. Then its timings on the launch alone, pass 2
+    as the path calls it (with the cell lookup) and, for the path without
+    an RF, resolve_interaction in torch ops; and its bound, counting the
+    record at the live (step, lane) pairs it reads."""
     from skirt9_tpu_torch.transport import mlsweep as ml
     from skirt9_tpu_torch.transport import sweep as sw
-    sim_l, _, _ = config3ism("cuda", "config3ismxl")
-    large = _dtau_ml(torch, sim_l, np.random.default_rng(5))[0]
-    del sim_l
-    torch.cuda.empty_cache()
-    sim, _, _ = config3ism("cuda")
     tabs = sim._sweep_tabs
-    rs = np.random.default_rng(4)
-    k4, (pos, dirn, _, active), (g, smin, smax, _), (sub_k, cell_k), \
-        (sub_p, cell_p) = _dtau_ml(torch, sim, rs)
     B = B_ML
-
-    # kernel 5: deposits and the interaction at a random depth
+    pos, dirn, _, active = rays
+    g, smin, smax, _ = lanes
+    lane = (g, smin, smax)
+    (sub_k, cell_k), (sub_p, cell_p) = rec_k, rec_p
     dmaj = dirn.gather(1, g.long()[:, None])[:, 0]
     tb, tot = sw.slab_prefix(sub_p.sum(dim=1), dmaj > 0)
     lum = torch.tensor(rs.uniform(0.5, 2.0, B), dtype=torch.float32,
@@ -1053,20 +1104,23 @@ def phase_kernels_ml(torch) -> dict:
     tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
                            device=dirn.device) * tot
     rf_k, s_k, c_k, f_k = ml.sweep_deposit(tabs, pos, dirn, active, sub_p,
-                                           cell_p, lum, tau_int, tb, 0.5)
+                                           cell_p, lum, tau_int, tb, 0.5,
+                                           lane=lane)
     rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(tabs, pos, dirn, active,
                                                  sub_p, cell_p, lum, tau_int,
                                                  tb, 0.5)
     torch.cuda.synchronize()
-    require(int(f_p.sum()) > B // 2, "kernel 5 test rays interact")
-    require(bool(torch.equal(f_k, f_p)), "kernel 5 found identical")
+    ncells = tabs.nd.shape[0]
+    what = f"kernel 5 ({ncells} leaves)"
+    require(int(f_p.sum()) > B // 2, f"{what} test rays interact")
+    require(bool(torch.equal(f_k, f_p)), f"{what} found identical")
     s_err = float((s_k[f_k] - s_p[f_p]).abs().max())
-    require(s_err <= 1e-5 * tabs.h[0], f"kernel 5 s_int error {s_err}")
-    require(bool(torch.equal(c_k, c_p)), "kernel 5 interaction cells equal")
+    require(s_err <= 1e-5 * tabs.h[0], f"{what} s_int error {s_err}")
+    require(bool(torch.equal(c_k, c_p)), f"{what} interaction cells equal")
     rf_err = float((rf_k - rf_p).abs().max())
     rf_max = float(rf_p.abs().max())
     require(rf_max > 0 and rf_err <= 1e-5 * rf_max,
-            f"kernel 5 rf error {rf_err} <= 1e-5 * {rf_max}")
+            f"{what} rf error {rf_err} <= 1e-5 * {rf_max}")
 
     # timings on the launch alone: plain version first, then free its tensors
     dep = (tabs, pos, dirn, g, smin, smax, sub_p, cell_p, lum, tau_int, tb,
@@ -1078,27 +1132,54 @@ def phase_kernels_ml(torch) -> dict:
     torch.cuda.empty_cache()
     ms5 = cuda_ms(lambda: ml._deposit_cuda(*dep))
     dms5 = device_ms(lambda: ml._deposit_cuda(*dep))["ours"]
-    # pass 2 as the path calls it: kernel 5 with the interaction cell, or
-    # without an RF the reference's resolve_interaction in torch ops
     act_int = active & (tot > 1e-6)
     ms_pass2_rf = cuda_ms(lambda: ml.sweep_deposit(
-        tabs, pos, dirn, active, sub_k, cell_k, lum, tau_int, tb, 0.5))
+        tabs, pos, dirn, active, sub_k, cell_k, lum, tau_int, tb, 0.5,
+        lane=lane))
     ms_resolve = cuda_ms(lambda: ml.resolve_interaction(
         tabs, pos, dirn, act_int, sub_k, tb, tau_int))
-
-    rec = tabs.n_steps * 3 * B * 4
     n_live = k4["live_pairs"]
+    rec = tabs.n_steps * 3 * B * 4
+    return dict(
+        max_abs_err=rf_err, rf_max=rf_max, s_int_err=s_err, ms=ms5,
+        device_ms=dms5, plain_ms=pms5, library_ms=None,
+        ms_pass2_rf=ms_pass2_rf, ms_resolve_interaction=ms_resolve,
+        leaves=ncells, shared_table=ncells <= ml.SHARED_LEAVES,
+        live_pairs=n_live, live_share=n_live / (tabs.n_steps * B),
+        # the whole record read, as the one-thread-per-pair design read it
+        bound_full_record_ms=bound(
+            lane_bytes(B, 0) + 8 * B + 2 * rec + rec // 3
+            + 2 * tabs.n_steps * 4 + ncells * 4 + 8 * B, 0)["bound_ms"],
+        **bound(lane_bytes(B, 0) + 8 * B + n_live * (3 * 4 + 3 * 4 + 4)
+                + 2 * tabs.n_steps * 4 + ncells * 4 + 8 * B,
+                n_live * (OPS_SLAB + 3 + 3 * (OPS_SUB + OPS_DEP))))
+
+
+def phase_kernels_ml(torch) -> dict:
+    """Kernels 4 and 5 against their plain versions at B = 65536 through
+    their public wrappers: kernel 4 on bench_config3ism's tree (the
+    full_width_ml path) and on bench_config3ismxl's (full_width_ml_large:
+    a 256^3 raster whose leaf map exceeds L2), kernel 5 on both (rf_ml;
+    the large tree's 138,447 leaves take the kernel's global path, the
+    small tree's 5,230 its shared-memory table); then timings, with
+    resolve_interaction (pass 2 of the path without an RF) beside kernel
+    5."""
+    sim_l, _, _ = config3ism("cuda", "config3ismxl")
+    rs = np.random.default_rng(5)
+    large, rays, lanes, rec_k, rec_p = _dtau_ml(torch, sim_l, rs)
+    large5 = _deposit_ml(torch, sim_l, rs, large, rays, lanes, rec_k, rec_p)
+    del sim_l, rays, lanes, rec_k, rec_p
+    torch.cuda.empty_cache()
+    sim, _, _ = config3ism("cuda")
+    rs = np.random.default_rng(4)
+    k4, rays, lanes, rec_k, rec_p = _dtau_ml(torch, sim, rs)
+    k5 = _deposit_ml(torch, sim, rs, k4, rays, lanes, rec_k, rec_p)
     k4["large_tree"] = large
     k4["max_abs_err"] = max(k4["max_abs_err"], large["max_abs_err"])
-    out = {"mlsweep_dtau": k4}
-    out["mlsweep_deposit"] = dict(
-        max_abs_err=rf_err, rf_max=rf_max, s_int_err=s_err, ms=ms5,
-        device_ms=dms5, plain_ms=pms5, library_ms=None, ms_pass2_rf=ms_pass2_rf,
-        ms_resolve_interaction=ms_resolve,
-        **bound(lane_bytes(B, 0) + 8 * B + 2 * rec + rec // 3
-                + 2 * tabs.n_steps * 4 + tabs.nd.shape[0] * 4 + 8 * B,
-                n_live * (OPS_SLAB + 3 + 3 * (OPS_SUB + OPS_DEP))))
-    emit({"phase": "kernels_ml", "batch": B, **out})
+    k5["large_tree"] = large5
+    k5["max_abs_err"] = max(k5["max_abs_err"], large5["max_abs_err"])
+    out = {"mlsweep_dtau": k4, "mlsweep_deposit": k5}
+    emit({"phase": "kernels_ml", "batch": B_ML, **out})
     return out
 
 
@@ -1229,13 +1310,13 @@ def phase_breakdown_ml(torch, sim) -> None:
     from skirt9_tpu_torch.tools import event_profile as ep
     prof = ep.profile_run(torch, lambda: sim.run_primary(verbose=False))
     events = sim.last_stats["events"]
+    require(prof["loop_ranges"] > 0 and prof["loop"]["h2d_copies"] == 0,
+            f"no host-to-device copy in the event loop: {prof['loop']}")
     emit({"phase": "breakdown_ml", "profiled_wall_s": prof["wall_s"],
           "device_busy_s": prof["busy_s"], "idle_share": prof["idle_share"],
-          "device_launches": prof["device_ops"], "events": events,
-          "launches_per_event": prof["device_ops"] / events,
-          "stream_syncs_per_event": prof["stream_syncs"] / events,
-          "h2d_copies_per_event": prof["h2d_copies"] / events,
-          "top": prof["top"]})
+          "device_launches": prof["whole"]["device_ops"], "events": events,
+          "per_event": ep.per_event(prof, events),
+          "unattributed": prof["unattributed"], "top": prof["top"]})
 
 
 # ------------------------------------------------------- config 2, probes
@@ -1378,40 +1459,35 @@ def phase_kernels_b2(torch) -> dict:
     inv_sqrt = 1.0 / math.sqrt(sim.rf_scale)
     rfb = sim._rf_borders_dev
     in_rf = (pkt.lam >= rfb[0]) & (pkt.lam < rfb[-1])
-    scale = ((pkt.lum * (pkt.alive & in_rf)) * inv_sqrt)[None, :] \
-        * torch.exp(-tb) * inv_sqrt
+    lum_half = (pkt.lum * (pkt.alive & in_rf)) * inv_sqrt
     u = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
                      device=sim.device)
-    rel = (u * tot)[None, :] - tb
-    dep = (tabs, pkt.pos, pkt.dir, g, smin, smax, sg_, scale, rel, n_groups)
-    rf_k, s_k, c_k, f_k = sw._deposit_cuda(*dep)
-    rf_p, s_p, c_p, f_p = sw._deposit_plain(*dep)
-    torch.cuda.synchronize()
-    require(rf_k.shape == (32, tabs.nd.shape[0]), "kernel 2 gives 32 RF rows")
-    agree = float((f_k == f_p).float().mean())
-    both = f_k & f_p
-    require(int(f_p.sum()) > B // 2, "config-2 rays interact")
-    require(agree >= 0.999, f"kernel 2 (32 groups) found agreement {agree}")
-    require(bool(torch.equal(c_k[both], c_p[both])),
-            "kernel 2 (32 groups) icell identical where both found")
-    s_err = float((s_k[both] - s_p[both]).abs().max())
-    require(s_err <= 1e-5 * float(tabs.h[0]), f"kernel 2 s_int error {s_err}")
-    rf_err = float((rf_k - rf_p).abs().max())
-    rf_max = float(rf_p.abs().max())
-    rows_lit = int((rf_p.abs().sum(dim=1) > 0).sum())
-    require(rf_max > 0 and rf_err <= 1e-4 * rf_max,
-            f"kernel 2 (32 groups) rf error {rf_err} <= 1e-4 * {rf_max}")
-    require(rows_lit >= 25, f"kernel 2 fills the 25 RF bins' rows ({rows_lit})")
-    ms2 = cuda_ms(lambda: sw._deposit_cuda(*dep))
-    pms2 = cuda_ms(lambda: sw._deposit_plain(*dep), reps=3)
+    tau_int = u * tot
+    scale = (lum_half[None, :] * torch.exp(-tb)) * inv_sqrt
+    rel = tau_int[None, :] - tb
+    nbins = len(sim.rf_borders) - 1
+    bin_map = torch.tensor(opts.rf_bin_map, dtype=torch.int32,
+                           device=sim.device)
+    dep = {"sweep_deposit": (sw._deposit_cuda, sw._deposit_plain, (
+               tabs, pkt.pos, pkt.dir, g, smin, smax, sg_, scale, rel,
+               n_groups)),
+           "sweep_deposit_prefix": (
+               sw._deposit_prefix_cuda, sw._deposit_prefix_plain, (
+                   tabs, pkt.pos, pkt.dir, g, smin, smax, sg_, lum_half,
+                   tau_int, tb, inv_sqrt, n_groups, bin_map, nbins))}
     n_act = active_slabs(tabs, pkt.pos, pkt.dir, g, smin, smax)
-    out = {"sweep_deposit": dict(
-        max_abs_err=rf_err, rf_max=rf_max, found_agreement=agree,
-        s_int_err=s_err, rf_rows_lit=rows_lit, ms=ms2, plain_ms=pms2,
-        library_ms=None, n_groups=n_groups,
-        **bound(lane_bytes(B, 1) + tabs.nd.numel() * 4 + 2 * tabs.nmax * B * 4
-                + rf_k.numel() * 4 + B * 12,
-                n_act * (OPS_SLAB + 3 * (OPS_SUB + 2 + OPS_DEP))))}
+    out = {}
+    for name, (kern, plain, args) in dep.items():
+        res = check_deposit(torch, f"{name} (config 2)", kern, plain, args,
+                            float(tabs.h[0]))
+        rf_k = res.pop("outputs")[0]
+        rows = nbins if name == "sweep_deposit_prefix" else n_groups
+        require(rf_k.shape == (rows, tabs.nd.shape[0])
+                and res["rf_rows_lit"] >= 25,
+                f"{name} fills the 25 RF bins' rows ({res['rf_rows_lit']})")
+        out[name] = dict(res, n_groups=n_groups,
+                         **deposit_bound(name, tabs, B, n_act, rows))
+    _, s_p, _, f_p = sw._deposit_plain(*dep["sweep_deposit"][2])
 
     # kernel 3: the frame bins of the first scattering peel-off, formed as
     # detect forms them from the interaction points found above
@@ -1444,8 +1520,6 @@ def phase_kernels_b2(torch) -> dict:
         library_device_ms=device_ms(
             lambda: acc.index_add_(0, f64, val))["all"],
         **bound(B * 8 + size * 4, B))
-    out["sweep_deposit"]["device_ms"] = device_ms(
-        lambda: sw._deposit_cuda(*dep))["ours"]
     # the detect kernel at config 2's shapes (40 SED bins, statistics, a
     # 40 x 64 x 64 frame): the first scattering peel-off, as above
     contrib = torch.tensor(rs.uniform(0.0, 1e-3, B), dtype=torch.float32,
@@ -1582,7 +1656,7 @@ def phase_breakdown_b2(torch) -> None:
     event, busy and idle shares, the kernels that take the most device
     time."""
     prof = host_per_event(
-        torch, lambda cap: config2("cuda", num_packets=B_FULL, max_events=cap),
+        torch, config2("cuda", num_packets=B_FULL),
         lambda s: s.run_with_dust_emission(verbose=False))
     emit({"phase": "breakdown_b2", "packets": B_FULL, **prof})
 
@@ -1643,6 +1717,8 @@ def main() -> int:
              launches),
             ("sweep_deposit", "sweep_deposit.cu",
              "skirt9_tpu/transport/sweep.py:275", "full_width", launches),
+            ("sweep_deposit_prefix", "sweep_deposit.cu",
+             "skirt9_tpu/transport/sweep.py:275", "full_width", launches),
             ("detect", "detect.cu", "skirt9_tpu/ops/scatteradd.py:32 (its "
              "seven calls per skirt9_tpu/instruments/distant.py:157 detect)",
              "full_width", launches),
@@ -1668,7 +1744,8 @@ def main() -> int:
                    "library_ms")}}
         for key in ("device_ms", "library_device_ms", "unfused_ms",
                     "unfused_device_ms", "seven_call_ms",
-                    "seven_call_device_ms", "seven_call_device_launches"):
+                    "seven_call_device_ms", "seven_call_device_launches",
+                    "bound_full_record_ms", "device_ms_no_rf"):
             if key in k:
                 row[key] = k[key]
         if name == "sweep_dtau":
@@ -1676,7 +1753,12 @@ def main() -> int:
             # path are those of the two modes the path takes
             row["launches"] = sum(counts[m] for m in k1_modes)
             row["launches_by_mode"] = {m: counts[m] for m in k1_modes}
-        if name in k1_modes + RESIDENT + DETECT + ("scatter_add",):
+        if name == "mlsweep_deposit":
+            row["large_tree"] = {key: k["large_tree"][key] for key in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "leaves", "shared_table")}
+        if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",
+                                                   "scatter_add"):
             # the config-2 path (full_width_b2) and, for kernels 2, 3 and
             # detect, their config-2 shapes (kernels_b2)
             row["launches_config2"] = (sum(launches_b2[m] for m in k1_modes)

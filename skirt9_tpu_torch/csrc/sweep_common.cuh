@@ -1,6 +1,7 @@
 // Shared per-lane geometry and per-slab sub-DDA of the slab-sweep kernels
 // (sweep_dtau.cu, sweep_deposit.cu, sweepxl_dtau.cu, sweepxl_deposit.cu,
-// mlsweep_dtau.cu, mlsweep_deposit.cu).
+// mlsweep_dtau.cu, mlsweep_deposit.cu), and the lane tile of the two
+// deposit kernels (sweep_deposit.cu, mlsweep_deposit.cu).
 //
 // A lane marches the slabs of its dominant axis a; inside slab t the ray
 // crosses at most 3 cells, enumerated by a bounded sub-DDA over the two minor
@@ -51,6 +52,20 @@ __device__ __forceinline__ float sel3(int a, float x0, float x1, float x2) {
 
 __device__ __forceinline__ int sel3i(int a, int x0, int x1, int x2) {
   return a == 0 ? x0 : (a == 1 ? x1 : x2);
+}
+
+// The lane at granularity 2^gs, as make_lane builds it on coarsen(g, gs):
+// cell sizes x 2^gs (exact), counts >> gs. The strides stay the fine
+// grid's; the tree kernels take cells from the leaf map, not from them.
+__device__ __forceinline__ Lane coarsen_lane(Lane L, int gs) {
+  const float s = (float)(1 << gs);
+  L.ha = L.ha * s;
+  L.hu = L.hu * s;
+  L.hv = L.hv * s;
+  L.na >>= gs;
+  L.nu >>= gs;
+  L.nv >>= gs;
+  return L;
 }
 
 // The geometry of a ray (px, py, pz) + s (dx, dy, dz) marching the slabs of
@@ -161,12 +176,145 @@ __device__ __forceinline__ float opacity(const Lane& L, const float* nd,
   return k;
 }
 
+// Slabs [t0, t1] the ray can cross inside [smin, smax): the slabs of its
+// entry and exit points with one slab of margin each side; none for an
+// inactive lane, all of the axis where the estimate is not finite.
+__device__ inline void slab_range(const Lane& L, int& t0, int& t1) {
+  t0 = 0;
+  t1 = L.na - 1;
+  if (!(L.smin < L.smax)) {
+    t1 = -1;
+    return;
+  }
+  if (L.tiny_a) return;
+  const float f0 = (L.pa + L.smin * L.da - L.loa) / L.ha;
+  const float f1 = (L.pa + L.smax * L.da - L.loa) / L.ha;
+  if (!isfinite(f0) || !isfinite(f1)) return;
+  t0 = (int)fminf(fmaxf(floorf(fminf(f0, f1)) - 1.0f, 0.0f), (float)L.na);
+  t1 = (int)fmaxf(fminf(floorf(fmaxf(f0, f1)) + 1.0f, (float)(L.na - 1)),
+                  -1.0f);
+}
+
 // (1 - e^-dtau) / dtau: the exact integral of e^-tau over a segment per unit
 // dtau; below dtau = 1e-3 the series form avoids the cancellation in
 // 1 - e^-dtau.
 __device__ __forceinline__ float segment_factor(float dtau) {
   return dtau < 1e-3f ? 1.0f - 0.5f * dtau
                       : (1.0f - expf(-fminf(dtau, 80.0f))) / fmaxf(dtau, 1e-37f);
+}
+
+// ------------------------------------------------ the deposit kernels' tile
+//
+// A block of kTile x kWarps threads takes a tile of kTile lanes. Lane l of
+// the tile covers the steps [range[l][0], range[l][1]] (slabs, or plan
+// steps on trees; none where the end lies before the start). The tile's
+// (step, lane) items are listed step-major: the items of step base + i are
+// the lanes set in mask[i], in lane order, and start[i] items come before
+// them. Consecutive threads then take consecutive lanes of one step, so
+// their per-(step, lane) reads coalesce, and steps a lane does not cover
+// cost nothing.
+
+constexpr int kTile = 32;   // lanes per tile: one warp's width
+constexpr int kWarps = 8;   // warps per block
+constexpr unsigned kFull = 0xffffffffu;
+
+struct TileSteps {
+  unsigned* mask;  // [steps] lanes covering step base + i
+  int* start;      // [steps + 1] items before step base + i
+  int base, n, items;
+};
+
+// Build the tile's item list; every thread of the block calls, after warp
+// 0 has written range[x] for its lane x. hdr: two ints of shared memory.
+__device__ inline TileSteps tile_steps(const int (*range)[2], unsigned* mask,
+                                       int* start, int* hdr) {
+  const int x = threadIdx.x, y = threadIdx.y;
+  __syncthreads();
+  if (y == 0) {
+    const bool any = range[x][0] <= range[x][1];
+    const int lo = __reduce_min_sync(kFull, any ? range[x][0] : 0x7fffffff);
+    const int hi = __reduce_max_sync(kFull, any ? range[x][1] : -1);
+    if (x == 0) {
+      hdr[0] = lo;
+      hdr[1] = hi >= lo ? hi - lo + 1 : 0;
+    }
+  }
+  __syncthreads();
+  TileSteps T{mask, start, hdr[0], hdr[1], 0};
+  for (int i = y; i < T.n; i += kWarps) {
+    const int s = T.base + i;
+    const unsigned m =
+        __ballot_sync(kFull, range[x][0] <= s && s <= range[x][1]);
+    if (x == 0) mask[i] = m;
+  }
+  __syncthreads();
+  if (y == 0) {
+    // start = exclusive prefix sum of the masks' counts, 32 steps at a time
+    int carry = 0;
+    for (int c = 0; c < T.n; c += kTile) {
+      const int i = c + x;
+      int v = i < T.n ? __popc(mask[i]) : 0;
+      for (int off = 1; off < kTile; off <<= 1) {
+        const int u = __shfl_up_sync(kFull, v, off);
+        if (x >= off) v += u;
+      }
+      if (i < T.n) start[i + 1] = carry + v;
+      carry += __shfl_sync(kFull, v, kTile - 1);
+    }
+    if (x == 0) start[0] = 0;
+  }
+  __syncthreads();
+  T.items = start[T.n];
+  return T;
+}
+
+// Position of the k-th set bit (from 0) of m, which has more than k.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
+  int p = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc((m >> p) & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      p += w;
+    }
+  }
+  return p;
+}
+
+// Item w < T.items of the tile: its step index i (step T.base + i) and its
+// lane l in the tile.
+__device__ inline void tile_item(const TileSteps& T, int w, int& i, int& l) {
+  int lo = 0, hi = T.n;  // start[lo] <= w < start[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (T.start[mid] <= w) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  i = lo;
+  l = nth_set_bit(T.mask[lo], w - T.start[lo]);
+}
+
+// Sum v over the warp's lanes with an equal key >= 0, in lane order, and
+// hand each group's sum to add(key, sum) once, from the group's first lane.
+// All 32 lanes of the warp call (key -1: nothing to add); scratch holds 32
+// values for this warp.
+template <typename T, typename Add>
+__device__ inline void warp_add(int key, T v, T* scratch, Add add) {
+  if (__ballot_sync(kFull, key >= 0) == 0) return;
+  const unsigned peers = __match_any_sync(kFull, key);
+  const int x = threadIdx.x;
+  scratch[x] = v;
+  __syncwarp();
+  if (key >= 0 && x == __ffs(peers) - 1) {
+    T sum = 0;
+    for (unsigned m = peers; m != 0; m &= m - 1) sum += scratch[__ffs(m) - 1];
+    add(key, sum);
+  }
+  __syncwarp();
 }
 
 }  // namespace skirt9

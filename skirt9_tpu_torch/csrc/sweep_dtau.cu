@@ -31,7 +31,6 @@
 
 namespace skirt9 {
 
-constexpr int kTile = 32;        // lanes per block
 constexpr int kSlabThreads = 8;  // threads per block: kTile * kSlabThreads
 
 enum : int { kModeDtau = 0, kModeTotal = 1, kModePrefix = 2 };
@@ -75,25 +74,6 @@ __device__ inline void lane_range(const GridGeom& g, const float inv_h[3],
   }
   smin = fmaxf(enter_max, 0.0f);
   smax = (active && inbox && leave_min > smin) ? leave_min : smin;
-}
-
-// Slabs [t0, t1] the ray can cross inside [smin, smax): the slabs of its
-// entry and exit points with one slab of margin each side; none for an
-// inactive lane, all of the axis where the estimate is not finite.
-__device__ inline void slab_range(const Lane& L, int& t0, int& t1) {
-  t0 = 0;
-  t1 = L.na - 1;
-  if (!(L.smin < L.smax)) {
-    t1 = -1;
-    return;
-  }
-  if (L.tiny_a) return;
-  const float f0 = (L.pa + L.smin * L.da - L.loa) / L.ha;
-  const float f1 = (L.pa + L.smax * L.da - L.loa) / L.ha;
-  if (!isfinite(f0) || !isfinite(f1)) return;
-  t0 = (int)fminf(fmaxf(floorf(fminf(f0, f1)) - 1.0f, 0.0f), (float)L.na);
-  t1 = (int)fmaxf(fminf(floorf(fmaxf(f0, f1)) + 1.0f, (float)(L.na - 1)),
-                  -1.0f);
 }
 
 // pos, dir: (B, 3); active: (B,) bytes; sig: (C, B); nd: (ncells, C).

@@ -36,10 +36,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # one counter per contract, even where two share source through
 # csrc/sweep_common.cuh or one entry point serves several (kernel 1's three
-# output modes), so a run shows which contract its path went through
+# output modes, kernel 2's two input modes), so a run shows which
+# contract its path went through
 KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
-           "sweep_deposit", "scatter_add", "detect", "sweepxl_dtau",
-           "sweepxl_deposit", "mlsweep_dtau", "mlsweep_deposit",
+           "sweep_deposit", "sweep_deposit_prefix", "scatter_add", "detect",
+           "sweepxl_dtau", "sweepxl_deposit", "mlsweep_dtau",
+           "mlsweep_deposit",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -54,10 +56,10 @@ _SIGNATURES = {
     # nz, nmax, hint, mode, lox, loy, loz, hx, hy, hz, 1/hx, 1/hy, 1/hz,
     # stream
     "sweep_dtau_launch": [_P] * 10 + [_I] * 8 + [_F] * 9 + [_P],
-    # pos, dir, axis, smin, smax, sig, scale, rel, nd, rf, s_int, icell,
-    # found, B, C, nx, ny, nz, nmax, n_groups, lox, loy, loz, hx, hy, hz,
-    # stream
-    "sweep_deposit_launch": [_P] * 13 + [_I] * 7 + [_F] * 6 + [_P],
+    # pos, dir, axis, smin, smax, sig, scale or tb, rel, lum, tau_int,
+    # bin_map, nd, rf, s_int, icell, found, B, C, nx, ny, nz, nmax,
+    # n_groups, rows, mode, lox, loy, loz, hx, hy, hz, inv_sqrt, stream
+    "sweep_deposit_launch": [_P] * 16 + [_I] * 9 + [_F] * 7 + [_P],
     # idx, val, out, n, size, stream
     "scatter_add_launch": [_P] * 3 + [_I] * 2 + [_P],
     # lam, pos, contrib, active, borders, sed row, stats, frame cube,
@@ -75,9 +77,9 @@ _SIGNATURES = {
     # stream
     "mlsweep_dtau_launch": [_P] * 12 + [_I] * 7 + [_F] * 6 + [_P],
     # pos, dir, axis, smin, smax, dsub, csub, lum, tau_int, tb, step_tlev,
-    # step_gs, rf, first_hit, B, nx, ny, nz, n_steps, lox, loy, loz, hx, hy,
-    # hz, inv2, stream
-    "mlsweep_deposit_launch": [_P] * 14 + [_I] * 5 + [_F] * 7 + [_P],
+    # step_gs, rf, first_hit, B, nx, ny, nz, n_steps, ncells, shared, lox,
+    # loy, loz, hx, hy, hz, inv2, stream
+    "mlsweep_deposit_launch": [_P] * 14 + [_I] * 7 + [_F] * 7 + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

@@ -2,26 +2,36 @@
 
 `profile_run` runs a callable once under torch.profiler (CPU and CUDA
 activity) and counts what the host asked of the card: device operations
-(kernels, copies, sets), runtime kernel launches, `cudaStreamSynchronize`
-calls and host-to-device and device-to-host copies, with the device's busy
-and idle shares of the wall. `per_event` takes two runs of one
-configuration that differ only in their event cap and divides the
-differences by the difference in events: what each event of the loop costs,
-without the per-batch set-up (launch, emission peel-off) that both runs pay.
+(kernels, copies, sets), runtime kernel launches,
+`cudaStreamSynchronize` calls and host-to-device and device-to-host copies,
+with the device's busy and idle shares of the wall. It counts them for the
+whole run and, apart, for the work the host issued inside the event loop's
+profiler range (`lifecycle.EVENT_LOOP_RANGE`): a device operation belongs to
+the loop when the runtime call that issued it started inside the range. So
+the loop's counts leave out the batch's set-up (launch, emission peel-off)
+without differencing two runs.
 
 As a script it measures the configurations of a checkout's `chip_smoke.py`
-(config 1 and config 2 at full width) through that checkout's own package,
-so that two trees can be compared inside one call on one card:
+through that checkout's own package, so that two trees can be compared
+inside one call on one card: config 1 and config 2 at full width (the
+resident loop), `config3ism` and `config3ism_rf` (bench_config3ism without
+and with a one-bin RF: the tree loop with pass 2 in torch ops or in its
+kernel) and `config1x256` (bench_config1x256: the XL loop):
 
     python3 skirt9_tpu_torch/tools/event_profile.py --root DIR [--root DIR2 ...]
+        [--config NAME ...]
 
 It prints one JSON line per (tree, configuration): packets/s of a timed run
-after a warm-up, and the profiler's counts per event. It needs a CUDA device.
+after a warm-up, and the profiler's counts of one batch with the
+configuration's own event cap, per event of the loop and of the whole run.
+A tree from before the loop had its range counts nothing in the loop; its
+whole-run counts compare. It needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import sys
@@ -30,14 +40,22 @@ import time
 # the runtime calls that launch a kernel
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
+# lifecycle.EVENT_LOOP_RANGE, kept here so that the script reads older trees
+_LOOP_RANGE = "life_cycle.events"
+_COUNTS = ("device_ops", "kernel_launches", "stream_syncs", "h2d_copies",
+           "d2h_copies")
 
 
 def profile_run(torch, run) -> dict:
     """run() once under torch.profiler, after a device sync: its wall
-    seconds, the device's busy seconds and idle share, and the counts of
-    device operations, kernel launches, stream syncs and copies by
-    direction; the ten device kernels that take the most time."""
+    seconds, the device's busy seconds and idle share, the counts of device
+    operations, kernel launches, stream syncs and copies by direction for
+    the whole run (`whole`) and inside the event loop's range (`loop`,
+    with `loop_ranges` ranges), the device operations whose runtime call
+    the profile lacks (`unattributed`), and the ten device kernels that
+    take the most time."""
     from torch.profiler import ProfilerActivity, profile
+    cpu = torch.autograd.DeviceType.CPU
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -45,35 +63,55 @@ def profile_run(torch, run) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ev = prof.key_averages()
-    on_dev = [e for e in ev
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    count = lambda pred: sum(e.count for e in ev if pred(e.key))
-    busy = sum(e.self_device_time_total for e in on_dev) / 1e6
-    top = sorted(on_dev, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
+    events = list(prof.events())
+    ranges = [(e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == cpu and e.name == _LOOP_RANGE]
+    in_loop = lambda t: any(a <= t <= b for a, b in ranges)
+    # CPU-side runtime and driver calls, by the correlation id that their
+    # device operations carry
+    runtime = {e.id: e for e in events if e.device_type == cpu
+               and e.name.startswith("cu") and "::" not in e.name
+               and "(" not in e.name}
+    device = [e for e in events if e.device_type != cpu
+              and e.name != _LOOP_RANGE
+              and not getattr(e, "is_user_annotation", False)]
+    whole = dict.fromkeys(_COUNTS, 0)
+    loop = dict.fromkeys(_COUNTS, 0)
+    unattributed = 0
+    for e in device:
+        call = runtime.get(e.id)
+        unattributed += call is None
+        for counts, on in ((whole, True),
+                           (loop, call and in_loop(call.time_range.start))):
+            if on:
+                counts["device_ops"] += 1
+                counts["h2d_copies"] += e.name.startswith("Memcpy HtoD")
+                counts["d2h_copies"] += e.name.startswith("Memcpy DtoH")
+    for e in runtime.values():
+        key = ("kernel_launches" if e.name in _LAUNCH_CALLS else
+               "stream_syncs" if e.name == "cudaStreamSynchronize" else None)
+        if key:
+            whole[key] += 1
+            loop[key] += in_loop(e.time_range.start)
+    busy_by = collections.defaultdict(lambda: [0.0, 0])
+    for e in device:
+        busy_by[e.name][0] += e.time_range.end - e.time_range.start
+        busy_by[e.name][1] += 1
+    busy = sum(t for t, _ in busy_by.values()) / 1e6
+    top = sorted(busy_by.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall,
-            "device_ops": sum(e.count for e in on_dev),
-            "kernel_launches": count(lambda k: k in _LAUNCH_CALLS),
-            "stream_syncs": count(lambda k: k == "cudaStreamSynchronize"),
-            "h2d_copies": count(lambda k: k.startswith("Memcpy HtoD")),
-            "d2h_copies": count(lambda k: k.startswith("Memcpy DtoH")),
-            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                    for e in top]}
+            "whole": whole, "loop": loop, "loop_ranges": len(ranges),
+            "unattributed": unattributed,
+            "top": [[k[:70], t / 1e3, n] for k, (t, n) in top]}
 
 
-_COUNTS = ("device_ops", "kernel_launches", "stream_syncs", "h2d_copies",
-           "d2h_copies")
-
-
-def per_event(long: dict, short: dict, events_long: int,
-              events_short: int) -> dict:
-    """Counts per event of the loop: the differences of two profiled runs
-    that differ only in their event cap, over the difference in events."""
-    d = events_long - events_short
-    if d <= 0:
-        raise ValueError(f"the runs differ by {d} events")
-    return {k: (long[k] - short[k]) / d for k in _COUNTS}
+def per_event(prof: dict, events: int) -> dict:
+    """The counts of a profiled run per event: the loop's, and the whole
+    run's (set-up included; the only ones of a tree without the range)."""
+    if events <= 0:
+        raise ValueError(f"the run made {events} events")
+    return {part: {k: prof[part][k] / events for k in _COUNTS}
+            for part in ("loop", "whole")}
 
 
 def _events(sim) -> int:
@@ -83,18 +121,32 @@ def _events(sim) -> int:
     return st["events"]
 
 
-def measure(torch, smoke, config: str, batch: int) -> dict:
-    """Packets/s of config 1 or 2 at full width (timed after a warm-up), and
-    one batch per segment profiled with the event cap at 24 and at 2."""
-    build = smoke.config1 if config == "config1" else smoke.config2
-    dust = config == "config2"
+# configuration -> (how a checkout's chip_smoke builds it, its batch, whether
+# it runs dust emission)
+CONFIGS = {
+    "config1": (lambda cs, dev, **kw: cs.config1(dev, **kw), "B_FULL", False),
+    "config2": (lambda cs, dev, **kw: cs.config2(dev, **kw), "B_FULL", True),
+    "config3ism": (lambda cs, dev, **kw: cs.config3ism(dev, **kw)[0], "B_ML",
+                   False),
+    "config3ism_rf": (lambda cs, dev, **kw: cs.config3ism(
+        dev, store_rf=True, **kw)[0], "B_ML", False),
+    "config1x256": (lambda cs, dev, **kw: cs.config1(
+        dev, n=256, **{"num_packets": cs.B_FULL, **kw}), "B_FULL", False),
+}
+
+
+def measure(torch, smoke, config: str) -> dict:
+    """Packets/s of a configuration at full width (timed after a warm-up),
+    and one batch profiled with the configuration's event cap."""
+    build, batch_name, dust = CONFIGS[config]
+    batch = getattr(smoke, batch_name)
 
     def run(sim):
         if dust:
             return sim.run_with_dust_emission(verbose=False)
         return sim.run_primary(verbose=False)
 
-    sim = build("cuda")
+    sim = build(smoke, "cuda")
     run(sim)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -106,17 +158,13 @@ def measure(torch, smoke, config: str, batch: int) -> dict:
         info = out[2]
         packets *= 1 + info["iterations"] + (1 if info["L_dust"] > 0 else 0)
     res = {"config": config, "packets_per_s": packets / dt, "seconds": dt,
-           "events": _events(sim)}
-    prof, events = {}, {}
-    for cap in (24, 2):
-        small = build("cuda", num_packets=batch, max_events=cap)
-        run(small)
-        prof[cap] = profile_run(torch, lambda: run(small))
-        events[cap] = _events(small)
-    long = prof[24]
-    res.update(profiled=long, profiled_events=events[24],
-               device_ops_per_event=long["device_ops"] / events[24],
-               per_event=per_event(long, prof[2], events[24], events[2]))
+           "events": _events(sim), "engine": type(sim._sweep_tabs).__name__}
+    small = build(smoke, "cuda", num_packets=batch, batch_size=batch)
+    run(small)
+    prof = profile_run(torch, lambda: run(small))
+    events = _events(small)
+    res.update(profiled=prof, profiled_events=events,
+               per_event=per_event(prof, events))
     return res
 
 
@@ -124,8 +172,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", action="append", required=True,
                     help="checkout whose chip_smoke.py and package to run")
-    ap.add_argument("--config", action="append",
-                    choices=("config1", "config2"))
+    ap.add_argument("--config", action="append", choices=tuple(CONFIGS))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -139,8 +186,8 @@ def main(argv=None) -> int:
             del sys.modules[name]
         sys.path.insert(0, root)
         import chip_smoke
-        for config in args.config or ("config1", "config2"):
-            res = measure(torch, chip_smoke, config, chip_smoke.B_FULL)
+        for config in args.config or tuple(CONFIGS):
+            res = measure(torch, chip_smoke, config)
             print(json.dumps({"root": root, **res}), flush=True)
         sys.path.remove(root)
         torch.cuda.empty_cache()

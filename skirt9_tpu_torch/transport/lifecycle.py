@@ -11,9 +11,11 @@ emission peel-off, then up to max_events forced-scattering events, each
   5. HG scattering, albedo weighting and the weight-cutoff test.
 
 On the resident sweep, pass 1 is one `sweep_dtau_prefix` launch (the slab
-prefix and the lane range come out of the kernel; pass 2 takes the range),
-the peel-off tracer one `sweep_tau_total` launch, and no tensor is copied
-from the host inside the event loop.
+prefix and the lane range come out of the kernel), pass 2 one
+`sweep_deposit_prefix` launch (it takes the prefix, the range, the
+luminosity and the interaction depth, and folds the RF rows into their
+bins), the peel-off tracer one `sweep_tau_total` launch. No event loop
+copies a tensor from the host.
 
 With `sweepxl.XLTables` (large uniform grids) the event runs the XL
 contracts instead: lanes sorted by (axis, major sign, entry slab), pass 1
@@ -33,8 +35,7 @@ else `mlsweep.resolve_interaction`, whose cell comes from the fine leaf map.
 A multi-bin radiation field runs on the resident sweep only: the batch
 comes in bin-pure lane groups (a stratified launch, `rf_strata` groups with
 their `rf_bin_map`, or one group for a monochromatic source's
-`rf_mono_bin`), pass 2 deposits each group into its own row, and the rows
-add into their bins.
+`rf_mono_bin`), and pass 2 deposits each group into the row of its bin.
 
 The event loop exits early once no lane is alive; that test is the one
 host sync per event on the resident sweep. There is no scan-march
@@ -50,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..instruments import distant as dinst
 from ..media import system as msys
@@ -58,6 +60,9 @@ from ..ops import rng
 from . import mlsweep as ml
 from . import sweep as sw
 from . import sweepxl as xl
+
+# the name of the profiler range around the event loop
+EVENT_LOOP_RANGE = "life_cycle.events"
 
 _TAG_PATH_CHOICE = 21
 _TAG_PATH_TAU_UNI = 22
@@ -192,29 +197,29 @@ def _rf_groups(opts: TransportOptions, rf, B: int, tree_or_xl: bool) -> int:
     return 1
 
 
-def _kept_groups(rf_bin_map, device) -> tuple:
-    """(groups, their bins) for the groups inside the RF grid, as int64
-    tensors on the device (built once per life cycle)."""
-    keep = [g for g, b in enumerate(rf_bin_map) if b >= 0]
-    as_t = lambda a: torch.tensor(a, dtype=torch.int64, device=device)
-    return as_t(keep), as_t([rf_bin_map[g] for g in keep])
+def _bin_map(opts: TransportOptions, rf, n_groups: int, device):
+    """The (n_groups,) int32 group -> RF bin map of a stratified launch on
+    the device, built once per life cycle (-1: outside the RF grid), or
+    None where the deposits need no folding."""
+    if rf is None or rf.shape[1] == 1 or n_groups == 1:
+        return None
+    bins = tuple(opts.rf_bin_map)
+    if len(bins) != n_groups or not all(-1 <= b < rf.shape[1] for b in bins):
+        raise ValueError(f"rf_bin_map {bins} must map {n_groups} groups to "
+                         f"bins of [-1, {rf.shape[1]})")
+    return torch.tensor(bins, dtype=torch.int32, device=device)
 
 
-def _add_rf(rf, rf_delta, opts: TransportOptions, n_groups: int,
-            kept: tuple | None) -> None:
-    """Add pass 2's (n_groups, ncells) deposits into the (ncells, nbins) RF
-    in place: group g holds bin rf_bin_map[g] (-1: outside the RF grid,
-    dropped; kept = `_kept_groups`); several strata may share a bin."""
+def _add_rf(rf, rf_delta, opts: TransportOptions, n_groups: int) -> None:
+    """Add pass 2's deposits into the (ncells, nbins) RF in place: one row
+    for a one-bin RF or a monochromatic source's bin (`rf_mono_bin`), else
+    (nbins, ncells) rows already folded by the bin map."""
     if rf.shape[1] == 1:
         rf[:, 0] += rf_delta[0]
     elif n_groups == 1:
         rf[:, opts.rf_mono_bin] += rf_delta[0]
     else:
-        groups, bins = kept
-        per_bin = torch.zeros((rf.shape[1], rf.shape[0]), dtype=rf.dtype,
-                              device=rf.device)
-        per_bin.index_add_(0, bins, rf_delta.index_select(0, groups))
-        rf += per_bin.T
+        rf += rf_delta.T
 
 
 # ------------------------------------------------------------------- peel-off
@@ -306,11 +311,10 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                           is_xl or is_ml)
     # the small tensors the event loop needs, built here so that the loop
     # copies nothing from the host
-    kept = None
+    bin_map = None
     if use_rf:
         rf_in_range = (pkt.lam >= rf_borders[0]) & (pkt.lam < rf_borders[-1])
-        if rf.shape[1] > 1 and n_groups > 1:
-            kept = _kept_groups(opts.rf_bin_map, rf.device)
+        bin_map = _bin_map(opts, rf, n_groups, rf.device)
     do_peel = bool(inst_cfgs) and opts.peel_off
 
     # ---- emission peel-off
@@ -325,119 +329,130 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     tag_t = torch.tensor(tags, dtype=torch.int64, device=pkt.lam.device)
     inv_sqrt = 1.0 / float(np.sqrt(opts.rf_scale))
 
-    for _ in range(opts.max_events):
-        t0 = time.perf_counter()
-        any_alive = bool(pkt.alive.any())
-        if stats is not None:
-            stats["sync_s"] = stats.get("sync_s", 0.0) + time.perf_counter() - t0
-        if not any_alive:
-            break
-        if stats is not None:
-            stats["events"] = stats.get("events", 0) + 1
-        keys = rng.event_keys(pkt.hkey, pkt.nscat)
-        u = dict(zip(tags, rng.uniforms(keys, tag_t)))
-        active = pkt.alive
+    # one profiler range around the loop, so that a profile can tell the
+    # loop's device work from the batch's set-up (tools/event_profile.py)
+    with record_function(EVENT_LOOP_RANGE):
+        for _ in range(opts.max_events):
+            t0 = time.perf_counter()
+            any_alive = bool(pkt.alive.any())
+            if stats is not None:
+                stats["sync_s"] = (stats.get("sync_s", 0.0)
+                                   + time.perf_counter() - t0)
+            if not any_alive:
+                break
+            if stats is not None:
+                stats["events"] = stats.get("events", 0) + 1
+            keys = rng.event_keys(pkt.hkey, pkt.nscat)
+            u = dict(zip(tags, rng.uniforms(keys, tag_t)))
+            active = pkt.alive
 
-        # pass 1: optical depth per slab and along the whole path
-        if is_xl or is_ml:
-            grp = sw.dominant_axis(sweep_tabs, pkt.dir)
-        if is_xl:
-            perm = xl.lane_order(sweep_tabs, pkt.pos, pkt.dir, grp)
-            p_pos, p_dir, p_act, grp = (pkt.pos[perm], pkt.dir[perm],
-                                        active[perm], grp[perm])
-            dtau_sub = xl.sweep_dtau(sweep_tabs, p_pos, p_dir,
-                                     sigma_lanes[:, perm], p_act,
-                                     want_sub=True)
-            dtau_slab = torch.sum(dtau_sub, dim=1)
-        elif is_ml:
-            # per plan step; the record feeds pass 2 without the density
-            p_dir = pkt.dir
-            dtau_sub, cell_sub = ml.sweep_dtau(sweep_tabs, pkt.pos, pkt.dir,
-                                               sigma_lanes, active,
-                                               want_sub=True)
-            dtau_slab = torch.sum(dtau_sub, dim=1)
-        else:
-            # the prefix and the lane range come out of the kernel
-            tb_slab, tau_path, lane = sw.sweep_dtau_prefix(
-                sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active)
-        if is_xl or is_ml:
-            dmaj = p_dir.gather(1, grp[:, None])[:, 0]
-            tb_slab, tau_path = sw.slab_prefix(dtau_slab, dmaj > 0)
-        if is_xl:
-            tau_path = _unsort(tau_path, perm)
-        tau_int, w_bias, tau_ok = sample_interaction_tau(opts, u, tau_path)
-        active_int = active & tau_ok
-
-        # pass 2: RF deposits and the exact interaction point
-        rf_mask = (active & rf_in_range) if use_rf else torch.zeros_like(active)
-        lum_half = (pkt.lum * rf_mask) * inv_sqrt
-        if is_xl:
-            if use_rf:
-                scale_slab = (lum_half[perm][None, :]
-                              * torch.exp(-tb_slab)) * inv_sqrt
-                rf[:, 0] += xl.sweep_deposit(sweep_tabs, p_pos, p_dir, p_act,
-                                             dtau_sub, scale_slab)[0]
-            s_int, icell, found = (_unsort(x, perm) for x in
-                                   xl.resolve_interaction(
-                                       sweep_tabs, p_pos, p_dir,
-                                       active_int[perm], dtau_sub, tb_slab,
-                                       tau_int[perm]))
-        elif is_ml:
-            if use_rf:
-                rf_delta, s_int, icell, found = ml.sweep_deposit(
-                    sweep_tabs, pkt.pos, pkt.dir, active, dtau_sub, cell_sub,
-                    lum_half, tau_int, tb_slab, inv_sqrt)
-                rf[:, 0] += rf_delta[0]
+            # pass 1: optical depth per slab and along the whole path
+            if is_xl:
+                grp = sw.dominant_axis(sweep_tabs, pkt.dir)
+                perm = xl.lane_order(sweep_tabs, pkt.pos, pkt.dir, grp)
+                p_pos, p_dir, p_act, grp = (pkt.pos[perm], pkt.dir[perm],
+                                            active[perm], grp[perm])
+                dtau_sub = xl.sweep_dtau(sweep_tabs, p_pos, p_dir,
+                                         sigma_lanes[:, perm], p_act,
+                                         want_sub=True)
+                dtau_slab = torch.sum(dtau_sub, dim=1)
+            elif is_ml:
+                # per plan step; the record feeds pass 2 without the density,
+                # the lane range both passes
+                p_dir = pkt.dir
+                lane = sw._lane_range(sweep_tabs, pkt.pos, pkt.dir, active)
+                grp = lane[0].to(torch.int64)
+                dtau_sub, cell_sub = ml.sweep_dtau(
+                    sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active,
+                    want_sub=True, lane=lane)
+                dtau_slab = torch.sum(dtau_sub, dim=1)
             else:
-                s_int, icell, found = ml.resolve_interaction(
-                    sweep_tabs, pkt.pos, pkt.dir, active_int, dtau_sub,
-                    tb_slab, tau_int)
-        else:
-            scale_slab = (lum_half[None, :] * torch.exp(-tb_slab)) * inv_sqrt
-            rel_slab = tau_int[None, :] - tb_slab
-            rf_delta, s_int, icell, found = sw.sweep_deposit(
-                sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active, scale_slab,
-                rel_slab, n_groups=n_groups, lane=lane)
-            if use_rf:
-                _add_rf(rf, rf_delta, opts, n_groups, kept)
-        ipos = pkt.pos + s_int[:, None] * pkt.dir
-        active_int = active_int & found
+                # the prefix and the lane range come out of the kernel
+                tb_slab, tau_path, lane = sw.sweep_dtau_prefix(
+                    sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active)
+            if is_xl or is_ml:
+                dmaj = p_dir.gather(1, grp[:, None])[:, 0]
+                tb_slab, tau_path = sw.slab_prefix(dtau_slab, dmaj > 0)
+            if is_xl:
+                tau_path = _unsort(tau_path, perm)
+            tau_int, w_bias, tau_ok = sample_interaction_tau(opts, u, tau_path)
+            active_int = active & tau_ok
 
-        lum_at = pkt.lum * w_bias
-        albedo = msys.albedo_for_scattering(med, opt, icell)
-        pkt = pkt._replace(
-            pos=torch.where(active_int[:, None], ipos, pkt.pos),
-            cell=torch.where(active_int, icell, pkt.cell),
-            lum=torch.where(active_int, lum_at, pkt.lum))
-        if med.ncomp > 1:
-            h = msys.select_component(med, opt, icell, u[_TAG_SCATTER_COMP])
-        else:
-            h = torch.zeros_like(icell)
+            # pass 2: RF deposits and the exact interaction point
+            rf_mask = ((active & rf_in_range) if use_rf
+                       else torch.zeros_like(active))
+            lum_half = (pkt.lum * rf_mask) * inv_sqrt
+            if is_xl:
+                if use_rf:
+                    scale_slab = (lum_half[perm][None, :]
+                                  * torch.exp(-tb_slab)) * inv_sqrt
+                    rf[:, 0] += xl.sweep_deposit(
+                        sweep_tabs, p_pos, p_dir, p_act, dtau_sub,
+                        scale_slab)[0]
+                s_int, icell, found = (_unsort(x, perm) for x in
+                                       xl.resolve_interaction(
+                                           sweep_tabs, p_pos, p_dir,
+                                           active_int[perm], dtau_sub, tb_slab,
+                                           tau_int[perm]))
+            elif is_ml:
+                if use_rf:
+                    rf_delta, s_int, icell, found = ml.sweep_deposit(
+                        sweep_tabs, pkt.pos, pkt.dir, active, dtau_sub,
+                        cell_sub, lum_half, tau_int, tb_slab, inv_sqrt,
+                        lane=lane)
+                    rf[:, 0] += rf_delta[0]
+                else:
+                    s_int, icell, found = ml.resolve_interaction(
+                        sweep_tabs, pkt.pos, pkt.dir, active_int, dtau_sub,
+                        tb_slab, tau_int)
+            else:
+                # scale and rel per slab are formed inside from the prefix
+                rf_delta, s_int, icell, found = sw.sweep_deposit_prefix(
+                    sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active,
+                    lum_half, tau_int, tb_slab, inv_sqrt, lane,
+                    n_groups=n_groups,
+                    bin_map=bin_map, nbins=rf.shape[1] if use_rf else 0)
+                if use_rf:
+                    _add_rf(rf, rf_delta, opts, n_groups)
+            ipos = pkt.pos + s_int[:, None] * pkt.dir
+            active_int = active_int & found
 
-        # scattering peel-off
-        if do_peel:
-            w_comp = msys.scattering_weights(med, opt, icell)
-            lum_alb = pkt.lum * albedo
+            lum_at = pkt.lum * w_bias
+            albedo = msys.albedo_for_scattering(med, opt, icell)
+            pkt = pkt._replace(
+                pos=torch.where(active_int[:, None], ipos, pkt.pos),
+                cell=torch.where(active_int, icell, pkt.cell),
+                lum=torch.where(active_int, lum_at, pkt.lum))
+            if med.ncomp > 1:
+                h = msys.select_component(med, opt, icell,
+                                          u[_TAG_SCATTER_COMP])
+            else:
+                h = torch.zeros_like(icell)
 
-            def per_sr(kobs):
-                ct = torch.sum(pkt.dir * kobs, dim=-1)
-                ph = torch.sum(w_comp * phs.hg_phase(opt.g, ct[:, None]),
-                               dim=-1)
-                return lum_alb * ph
+            # scattering peel-off
+            if do_peel:
+                w_comp = msys.scattering_weights(med, opt, icell)
+                lum_alb = pkt.lum * albedo
 
-            peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos, per_sr,
-                     kind_scat, active_int, tracer)
+                def per_sr(kobs):
+                    ct = torch.sum(pkt.dir * kobs, dim=-1)
+                    ph = torch.sum(w_comp * phs.hg_phase(opt.g, ct[:, None]),
+                                   dim=-1)
+                    return lum_alb * ph
 
-        # the scattering event proper
-        g_sel = opt.g.gather(1, h[:, None])[:, 0]
-        newdir = hg_scatter_direction(u[_TAG_SCATTER_CT], u[_TAG_SCATTER_PHI],
-                                      g_sel, pkt.dir)
-        lum_new = pkt.lum * albedo
-        nscat_new = pkt.nscat + 1
-        survive = survives_cutoff(opts, lum_new, nscat_new, pkt.lum0)
-        pkt = pkt._replace(
-            dir=torch.where(active_int[:, None], newdir, pkt.dir),
-            lum=torch.where(active_int, lum_new, pkt.lum),
-            nscat=torch.where(active_int, nscat_new, pkt.nscat),
-            alive=active_int & survive & (lum_new > 0))
+                peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos, per_sr,
+                         kind_scat, active_int, tracer)
+
+            # the scattering event proper
+            g_sel = opt.g.gather(1, h[:, None])[:, 0]
+            newdir = hg_scatter_direction(u[_TAG_SCATTER_CT],
+                                          u[_TAG_SCATTER_PHI], g_sel, pkt.dir)
+            lum_new = pkt.lum * albedo
+            nscat_new = pkt.nscat + 1
+            survive = survives_cutoff(opts, lum_new, nscat_new, pkt.lum0)
+            pkt = pkt._replace(
+                dir=torch.where(active_int[:, None], newdir, pkt.dir),
+                lum=torch.where(active_int, lum_new, pkt.lum),
+                nscat=torch.where(active_int, nscat_new, pkt.nscat),
+                alive=active_int & survive & (lum_new > 0))
     return rf, accs

@@ -42,6 +42,10 @@ from ..kernels import build as kb
 from . import sweep as sw
 
 NF_MAX = 256           # fine raster cells per axis the engine takes
+# leaves up to which pass 2's kernel sums each block's deposits in a private
+# shared-memory table (12 bytes a leaf: 96 KB leaves room for two blocks
+# per SM), beyond which it adds them straight into the RF
+SHARED_LEAVES = 8192
 
 
 class _LevelAxis(NamedTuple):
@@ -73,6 +77,7 @@ class MLTables(NamedTuple):
     step_tlev: torch.Tensor   # (n_steps,) int32 slab index at granularity gs
     step_gs: torch.Tensor     # (n_steps,) int32 granularity shift
     axes: tuple               # sweep.grid_axes of the fine grid
+    geom: dict                # sweep.axis_tables of the fine grid
 
     @property
     def ncomp(self) -> int:
@@ -220,16 +225,14 @@ def build_tables(grid, med) -> MLTables:
                     n=n, lo=lo, h=h, nmax=nmax,
                     levels=meta["levels"], n_steps=len(tlev),
                     step_tlev=i32(tlev), step_gs=i32(gs),
-                    axes=sw.grid_axes(lo, n, h, dev))
+                    axes=sw.grid_axes(lo, n, h, dev),
+                    geom=sw.axis_tables(lo, n, h, dev))
 
 
 def locate_cells(tabs: MLTables, pos) -> torch.Tensor:
     """Fine-raster locate (`mlsweep.py:1106-1116`): position -> leaf id
     (int64), -1 outside."""
-    dev = pos.device
-    lo = torch.tensor(tabs.lo, dtype=torch.float32, device=dev)
-    h = torch.tensor(tabs.h, dtype=torch.float32, device=dev)
-    nf = torch.tensor(tabs.n, dtype=torch.int64, device=dev)
+    lo, h, nf = tabs.geom["lo"], tabs.geom["h"], tabs.geom["n"]
     ijk = torch.floor((pos - lo) / h).to(torch.int64)
     inside = torch.all((ijk >= 0) & (ijk < nf), dim=-1)
     ijk = torch.minimum(torch.clamp_min(ijk, 0), nf - 1)
@@ -367,18 +370,18 @@ def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
                   lum_pre, tau_int, tb_slab, inv2):
     B = pos.shape[0]
     dev = pos.device
-    args = [t.contiguous() for t in (pos, dirn, dtau_sub, cell_sub, lum_pre,
-                                     tau_int, tb_slab)]
+    ncells = tabs.nd.shape[0]
+    args = [t.contiguous() for t in (pos, dirn, group, smin, smax, dtau_sub,
+                                     cell_sub, lum_pre, tau_int, tb_slab)]
     # f64 accumulator, rounded to f32 once (see csrc/mlsweep_deposit.cu)
-    rf = torch.zeros(tabs.nd.shape[0], dtype=torch.float64, device=dev)
+    rf = torch.zeros(ncells, dtype=torch.float64, device=dev)
     # (step << 32 | bits of s_int) of the first hit, all ones for none
-    first = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    first = torch.empty((B,), dtype=torch.int64, device=dev)
     nx, ny, nz, n_steps, *geo = _geometry_args(tabs)
-    pos, dirn, dtau_sub, cell_sub, lum_pre, tau_int, tb_slab = args
     kb.launch("mlsweep_deposit", *(t.data_ptr() for t in (
-                  pos, dirn, group, smin, smax, dtau_sub, cell_sub, lum_pre,
-                  tau_int, tb_slab, tabs.step_tlev, tabs.step_gs, rf, first)),
-              B, nx, ny, nz, n_steps, *geo, float(inv2), kb.stream_of(pos))
+                  *args, tabs.step_tlev, tabs.step_gs, rf, first)),
+              B, nx, ny, nz, n_steps, ncells, int(ncells <= SHARED_LEAVES),
+              *geo, float(inv2), kb.stream_of(pos))
     # the low word of each little-endian int64 holds the f32 bits of s_int
     s_int = first.view(torch.int32).reshape(B, 2)[:, 0].view(torch.float32)
     return rf.to(torch.float32)[None, :], s_int, first != -1
@@ -387,7 +390,8 @@ def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
 # ---------------------------------------------------------- public wrappers
 
 def sweep_dtau(tabs: MLTables, pos, dirn, sigma, active,
-               axis_hint: int | None = None, want_sub: bool = False):
+               axis_hint: int | None = None, want_sub: bool = False,
+               lane=None):
     """Per-plan-step optical depth (n_steps, B) f32, or with want_sub
     (dtau_sub (n_steps, 3, B) f32, cell_sub (n_steps, 3, B) int32): each
     sub-step's optical depth and leaf id (-1 for none). Steps are spatially
@@ -395,8 +399,9 @@ def sweep_dtau(tabs: MLTables, pos, dirn, sigma, active,
     the ray. The reference's want_sub record packs a (row*512 + col*2 +
     leaf) code for its one-hot MXU deposit instead of the cell id
     (`mlsweep.py:681-687`). axis_hint: the slab axis shared by all lanes
-    (peel-off toward one observer)."""
-    group, smin, smax, sig = sw._prep(tabs, pos, dirn, sigma, active)
+    (peel-off toward one observer). lane: the lanes' (group, smin, smax)
+    from `sweep._lane_range`, where the caller has it already."""
+    group, smin, smax, sig = sw._prep(tabs, pos, dirn, sigma, active, lane)
     sw._check(tabs, pos, dirn, sig)
     fn = sw._dispatch(pos, _dtau_plain, _dtau_cuda)
     return fn(tabs, pos, dirn, sw._hinted(group, axis_hint), smin, smax, sig,
@@ -412,7 +417,7 @@ def sweep_dtau_plain(tabs: MLTables, pos, dirn, sigma, active,
 
 
 def _deposit_args(tabs, pos, dirn, active, dtau_sub, cell_sub, lum_pre,
-                  tau_int, tb_slab, n_groups):
+                  tau_int, tb_slab, n_groups, lane):
     if n_groups != 1:
         raise NotImplementedError("multi-bin radiation field not ported yet "
                                   "(the tree deposit takes one lane group)")
@@ -424,8 +429,7 @@ def _deposit_args(tabs, pos, dirn, active, dtau_sub, cell_sub, lum_pre,
     if cell_sub.shape != (NS, 3, B) or cell_sub.dtype != torch.int32:
         raise ValueError(f"cell_sub {tuple(cell_sub.shape)} {cell_sub.dtype} "
                          f"must be ({NS}, 3, {B}) int32")
-    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
-    return group, smin, smax
+    return sw._lanes(tabs, pos, dirn, active, lane)
 
 
 def _interaction_cells(tabs, pos, dirn, s_int, found):
@@ -436,10 +440,10 @@ def _interaction_cells(tabs, pos, dirn, s_int, found):
 
 
 def _sweep_deposit(plain: bool, tabs, pos, dirn, active, dtau_sub, cell_sub,
-                   lum_pre, tau_int, tb_slab, inv2, n_groups):
+                   lum_pre, tau_int, tb_slab, inv2, n_groups, lane):
     group, smin, smax = _deposit_args(tabs, pos, dirn, active, dtau_sub,
                                       cell_sub, lum_pre, tau_int, tb_slab,
-                                      n_groups)
+                                      n_groups, lane)
     fn = _deposit_plain if plain else sw._dispatch(pos, _deposit_plain,
                                                    _deposit_cuda)
     rf, s_int, found = fn(tabs, pos, dirn, group, smin, smax, dtau_sub,
@@ -449,7 +453,8 @@ def _sweep_deposit(plain: bool, tabs, pos, dirn, active, dtau_sub, cell_sub,
 
 
 def sweep_deposit(tabs: MLTables, pos, dirn, active, dtau_sub, cell_sub,
-                  lum_pre, tau_int, tb_slab, inv2: float, n_groups: int = 1):
+                  lum_pre, tau_int, tb_slab, inv2: float, n_groups: int = 1,
+                  lane=None):
     """Pass 2: RF deposits per leaf and the interaction point, from pass 1's
     record (no density or leaf-map access in the march).
 
@@ -462,17 +467,18 @@ def sweep_deposit(tabs: MLTables, pos, dirn, active, dtau_sub, cell_sub,
     (plane space -> cells, `mlsweep.py:1127-1135`), which the port does not
     need since deposits land per leaf. icell
     comes from `locate_cells` at the interaction point, as in the
-    reference (`mlsweep.py:1014-1017`)."""
+    reference (`mlsweep.py:1014-1017`). lane: pass 1's (group, smin, smax)
+    (`sweep._lane_range`), where the caller has it already."""
     return _sweep_deposit(False, tabs, pos, dirn, active, dtau_sub, cell_sub,
-                          lum_pre, tau_int, tb_slab, inv2, n_groups)
+                          lum_pre, tau_int, tb_slab, inv2, n_groups, lane)
 
 
 def sweep_deposit_plain(tabs: MLTables, pos, dirn, active, dtau_sub,
                         cell_sub, lum_pre, tau_int, tb_slab, inv2: float,
-                        n_groups: int = 1):
+                        n_groups: int = 1, lane=None):
     """`sweep_deposit` through the plain PyTorch version on any device."""
     return _sweep_deposit(True, tabs, pos, dirn, active, dtau_sub, cell_sub,
-                          lum_pre, tau_int, tb_slab, inv2, n_groups)
+                          lum_pre, tau_int, tb_slab, inv2, n_groups, lane)
 
 
 def resolve_interaction(tabs: MLTables, pos, dirn, active, dtau_sub, tb_slab,

@@ -13,14 +13,17 @@ version:
   pass 1 `sweep_dtau`    -> (nmax, B) optical depth per slab;
   pass 2 `sweep_deposit` -> RF deposits (n_groups, ncells) plus the exact
                             interaction point (s_int, icell, found).
-Pass 1's kernel takes the lane set-up (`_lane_range`) inside and has two
-more output modes, which the event loop uses:
-  `sweep_tau_total`   -> (B,) total optical depth (the peel-off tracer);
-  `sweep_dtau_prefix` -> `slab_prefix` of pass 1 plus the lane range, which
-                         pass 2 then takes as `lane=` instead of its own.
+Each kernel has a second mode, which the event loop uses:
+  `sweep_tau_total`      -> (B,) total optical depth (the peel-off tracer);
+  `sweep_dtau_prefix`    -> `slab_prefix` of pass 1 plus the lane range
+                            (pass 1 takes the lane set-up, `_lane_range`,
+                            inside);
+  `sweep_deposit_prefix` -> pass 2 from that prefix, the lane range and the
+                            per-lane luminosity and interaction depth, with
+                            the RF rows folded into bins by a bin map.
 The grid's constants reach the kernels as scalars and the plain versions
-through tensors built with the tables (`grid_axes`), so the event loop
-copies nothing from the host.
+through tensors built with the tables (`grid_axes`, `axis_tables`), so the
+event loops copy nothing from the host.
 
 The density is read from the flat (ncells, C) table, cell =
 (ix*ny + iy)*nz + iz; the reference's transposed slab layouts and its
@@ -50,6 +53,7 @@ class SweepTables(NamedTuple):
     h: tuple           # cell size per axis
     nmax: int          # max(nx, ny, nz): slabs per lane in the output
     axes: tuple        # `grid_axes`: (lo, hi, 1/h) as (3,) f32 tensors
+    geom: dict         # `axis_tables`: per-axis tables of `_lane_geometry`
 
     @property
     def ncomp(self) -> int:
@@ -81,9 +85,11 @@ def supports_sweep(grid, med) -> bool:
 def build_tables(grid, med) -> SweepTables:
     lo = tuple(float(v) for v in grid.lo.cpu().numpy().astype(np.float64))
     h = tuple(float(v) for v in grid.h.cpu().numpy().astype(np.float64))
+    dev = med.nd.device
     return SweepTables(nd=med.nd.contiguous(), n=grid.shape, lo=lo, h=h,
                        nmax=max(grid.shape),
-                       axes=grid_axes(lo, grid.shape, h, med.nd.device))
+                       axes=grid_axes(lo, grid.shape, h, dev),
+                       geom=axis_tables(lo, grid.shape, h, dev))
 
 
 def grid_axes(lo: tuple, n: tuple, h: tuple, device) -> tuple:
@@ -97,6 +103,21 @@ def grid_axes(lo: tuple, n: tuple, h: tuple, device) -> tuple:
     inv_h = torch.tensor([1.0 / v for v in h], dtype=torch.float32,
                          device=device)
     return lo_t, hi_t, inv_h
+
+
+def axis_tables(lo: tuple, n: tuple, h: tuple, device) -> dict:
+    """Per-axis tables that `_lane_geometry`, `mlsweep.locate_cells` and
+    `sweepxl.lane_order` index by a lane's axis, as tensors on the device,
+    built once with the tables so that the event loops copy nothing from
+    the host: the cell counts n (int64), lo and h (f32), the minor axes ua,
+    va of each slab axis, and the flat-cell strides of (slab, u, v)."""
+    nx, ny, nz = n
+    i64 = lambda a: torch.tensor(a, dtype=torch.int64, device=device)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return dict(n=i64(n), lo=f32(lo), h=f32(h), ua=i64([1, 0, 0]),
+                va=i64([2, 2, 1]), t_stride=i64([ny * nz, nz, 1]),
+                u_stride=i64([nz, ny * nz, ny * nz]),
+                v_stride=i64([1, 1, nz]))
 
 
 def dominant_axis(tabs: SweepTables, dirn: torch.Tensor) -> torch.Tensor:
@@ -133,10 +154,18 @@ def _sigma(sigma):
     return sigma.to(torch.float32).contiguous()
 
 
-def _prep(tabs: SweepTables, pos, dirn, sigma, active):
-    """`_lane_range` plus the (C, B) contiguous f32 cross sections."""
-    group, smin, smax = _lane_range(tabs, pos, dirn, active)
-    return group, smin, smax, _sigma(sigma)
+def _lanes(tabs, pos, dirn, active, lane=None):
+    """Pass 1's lane range (group, smin, smax) where the caller has it,
+    checked, else `_lane_range`."""
+    if lane is None:
+        return _lane_range(tabs, pos, dirn, active)
+    _check_lane(pos, active, lane)
+    return lane
+
+
+def _prep(tabs: SweepTables, pos, dirn, sigma, active, lane=None):
+    """`_lanes` plus the (C, B) contiguous f32 cross sections."""
+    return (*_lanes(tabs, pos, dirn, active, lane), _sigma(sigma))
 
 
 def _check_inputs(pos, dirn, shaped):
@@ -193,24 +222,19 @@ def _lane_geometry(tabs, pos, dirn, group):
     (the reference's `_axis_geometry`): minor axes (u, v) = (y, z), (x, z),
     (x, y) for axis 0, 1, 2, and the flat-cell strides of (slab, u, v).
     Returns a dict of (B,) tensors."""
-    dev = pos.device
     a = group.to(torch.int64)
-    n_t = torch.tensor(tabs.n, dtype=torch.int64, device=dev)
-    lo_t = torch.tensor(tabs.lo, dtype=torch.float32, device=dev)
-    h_t = torch.tensor(tabs.h, dtype=torch.float32, device=dev)
-    ua = torch.tensor([1, 0, 0], device=dev)[a]
-    va = torch.tensor([2, 2, 1], device=dev)[a]
+    k = tabs.geom
+    n_t, lo_t, h_t = k["n"], k["lo"], k["h"]
+    ua, va = k["ua"][a], k["va"][a]
     sel = lambda x, ax: x.gather(1, ax[:, None])[:, 0]
-    nx, ny, nz = tabs.n
     return dict(
         pa=sel(pos, a), da=sel(dirn, a), loa=lo_t[a], ha=h_t[a], na=n_t[a],
         pu=sel(pos, ua), du=sel(dirn, ua), lou=lo_t[ua], hu=h_t[ua],
         nu=n_t[ua],
         pv=sel(pos, va), dv=sel(dirn, va), lov=lo_t[va], hv=h_t[va],
         nv=n_t[va],
-        t_stride=torch.tensor([ny * nz, nz, 1], device=dev)[a],
-        u_stride=torch.tensor([nz, ny * nz, ny * nz], device=dev)[a],
-        v_stride=torch.tensor([1, 1, nz], device=dev)[a])
+        t_stride=k["t_stride"][a], u_stride=k["u_stride"][a],
+        v_stride=k["v_stride"][a])
 
 
 def _substeps(g, t, smin, smax):
@@ -340,6 +364,25 @@ def _deposit_plain(tabs, pos, dirn, group, smin, smax, sig, scale, rel,
     return rf, s_int, icell, found
 
 
+def _deposit_prefix_plain(tabs, pos, dirn, group, smin, smax, sig, lum_half,
+                          tau_int, tb_slab, inv_sqrt, n_groups, bin_map, rows):
+    """`_deposit_plain` with scale and rel formed as the event loop forms
+    them, the rows then folded into bins: row g adds into bin_map[g] of a
+    (rows, ncells) table that starts at zero (an entry outside [0, rows):
+    dropped)."""
+    scale = (lum_half[None, :] * torch.exp(-tb_slab)) * inv_sqrt
+    rel = tau_int[None, :] - tb_slab
+    rf, s_int, icell, found = _deposit_plain(tabs, pos, dirn, group, smin,
+                                             smax, sig, scale, rel, n_groups)
+    if bin_map is None:
+        return rf, s_int, icell, found
+    keep = ((bin_map >= 0) & (bin_map < rows)).to(rf.dtype)[:, None]
+    binned = torch.zeros((rows, rf.shape[1]), dtype=rf.dtype, device=rf.device)
+    binned.index_add_(0, bin_map.clamp(0, rows - 1).to(torch.int64),
+                      rf * keep)
+    return binned, s_int, icell, found
+
+
 def _deposit_sum(cells, contribs, ncells: int, n_groups: int):
     """Sum (..., B) per-segment contributions into (n_groups, ncells) RF rows;
     lane b deposits into row b // (B / n_groups)."""
@@ -390,24 +433,44 @@ def _dtau_cuda(tabs, pos, dirn, sig, active, hint, mode: str):
     return out, total, lane
 
 
-def _deposit_cuda(tabs, pos, dirn, group, smin, smax, sig, scale, rel,
-                  n_groups):
+# pass 2's input modes (csrc/sweep_deposit.cu), each counted under its name
+_DEPOSIT_MODES = ("sweep_deposit", "sweep_deposit_prefix")
+
+
+def _deposit_launch(tabs, pos, dirn, group, smin, smax, sig, slab_a, slab_b,
+                    lum, tau_int, inv_sqrt, bin_map, n_groups, rows, mode):
     B, C = pos.shape[0], sig.shape[0]
     dev = pos.device
-    pos, dirn = pos.contiguous(), dirn.contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    rel = rel.to(torch.float32).contiguous()
-    rf = torch.zeros((n_groups, tabs.nd.shape[0]), dtype=torch.float32,
+    rf = torch.zeros((rows, tabs.nd.shape[0]), dtype=torch.float32,
                      device=dev)
     s_int = torch.empty(B, dtype=torch.float32, device=dev)
     icell = torch.empty(B, dtype=torch.int32, device=dev)
     found = torch.empty(B, dtype=torch.int32, device=dev)
+    # held here, so that no contiguous copy is freed before the launch
+    args = [None if t is None else t.contiguous() for t in (
+        pos, dirn, group, smin, smax, sig, slab_a, slab_b, lum, tau_int,
+        bin_map, tabs.nd, rf, s_int, icell, found)]
     nx, ny, nz, nmax, *geo = _geometry_args(tabs)
-    kb.launch("sweep_deposit", *(t.data_ptr() for t in (
-                  pos, dirn, group, smin, smax, sig, scale, rel, tabs.nd, rf,
-                  s_int, icell, found)),
-              B, C, nx, ny, nz, nmax, n_groups, *geo, kb.stream_of(pos))
+    kb.launch("sweep_deposit", *(None if t is None else t.data_ptr()
+                                 for t in args),
+              B, C, nx, ny, nz, nmax, n_groups, rows,
+              _DEPOSIT_MODES.index(mode), *geo, float(inv_sqrt),
+              kb.stream_of(pos), count_as=mode)
     return rf, s_int, icell.to(torch.int64), found != 0
+
+
+def _deposit_cuda(tabs, pos, dirn, group, smin, smax, sig, scale, rel,
+                  n_groups):
+    return _deposit_launch(tabs, pos, dirn, group, smin, smax, sig, scale,
+                           rel, None, None, 1.0, None, n_groups, n_groups,
+                           "sweep_deposit")
+
+
+def _deposit_prefix_cuda(tabs, pos, dirn, group, smin, smax, sig, lum_half,
+                         tau_int, tb_slab, inv_sqrt, n_groups, bin_map, rows):
+    return _deposit_launch(tabs, pos, dirn, group, smin, smax, sig, tb_slab,
+                           None, lum_half, tau_int, inv_sqrt, bin_map,
+                           n_groups, rows, "sweep_deposit_prefix")
 
 
 # ---------------------------------------------------------- public wrappers
@@ -499,11 +562,7 @@ def sweep_deposit(tabs: SweepTables, pos, dirn, sigma, active, scale_slab,
     if pos.shape[0] % n_groups:
         raise ValueError(f"batch {pos.shape[0]} not divisible into "
                          f"{n_groups} groups")
-    if lane is None:
-        group, smin, smax, sig = _prep(tabs, pos, dirn, sigma, active)
-    else:
-        _check_lane(pos, active, lane)
-        (group, smin, smax), sig = lane, _sigma(sigma)
+    group, smin, smax, sig = _prep(tabs, pos, dirn, sigma, active, lane)
     _check(tabs, pos, dirn, sig, scale_slab, rel_slab)
     fn = _dispatch(pos, _deposit_plain, _deposit_cuda)
     return fn(tabs, pos, dirn, group, smin, smax, sig, scale_slab, rel_slab,
@@ -516,6 +575,58 @@ def sweep_deposit_plain(tabs: SweepTables, pos, dirn, sigma, active,
     group, smin, smax, sig = _prep(tabs, pos, dirn, sigma, active)
     return _deposit_plain(tabs, pos, dirn, group, smin, smax, sig, scale_slab,
                           rel_slab, n_groups)
+
+
+def _prefix_args(tabs, pos, dirn, sigma, active, lum_half, tau_int, tb_slab,
+                 inv_sqrt, lane, n_groups, bin_map, nbins):
+    B = pos.shape[0]
+    if B % n_groups:
+        raise ValueError(f"batch {B} not divisible into {n_groups} groups")
+    _check_lane(pos, active, lane)
+    sig = _sigma(sigma)
+    _check(tabs, pos, dirn, sig, tb_slab)
+    _check_inputs(pos, dirn, [(lum_half, (B,), "lum_half"),
+                              (tau_int, (B,), "tau_int")])
+    rows = n_groups
+    if bin_map is not None:
+        if (bin_map.shape != (n_groups,) or bin_map.dtype != torch.int32
+                or bin_map.device != pos.device or nbins < 1):
+            raise ValueError(f"bin_map {tuple(bin_map.shape)} "
+                             f"{bin_map.dtype} must be ({n_groups},) int32 "
+                             f"on {pos.device}, with nbins >= 1")
+        rows = nbins
+    return (tabs, pos, dirn, *lane, sig, lum_half, tau_int, tb_slab,
+            float(inv_sqrt), n_groups, bin_map, rows)
+
+
+def sweep_deposit_prefix(tabs: SweepTables, pos, dirn, sigma, active,
+                         lum_half, tau_int, tb_slab, inv_sqrt: float, lane,
+                         n_groups: int = 1, bin_map=None, nbins: int = 0):
+    """Pass 2 from pass 1's prefix: `sweep_deposit` with scale_slab =
+    (lum_half * e^-tb_slab) * inv_sqrt and rel_slab = tau_int - tb_slab
+    formed per (slab, lane) inside (the event loop's operations, in its
+    order), so that neither (nmax, B) table is written.
+
+    lum_half, tau_int: (B,) f32; tb_slab: (nmax, B) and lane = (group,
+    smin, smax) from `sweep_dtau_prefix`. bin_map: (n_groups,) int32 or
+    None: group g's deposits add into row bin_map[g] of nbins rows (an
+    entry outside [0, nbins), -1 among them: dropped), summed from zero in
+    this call. Returns (rf (n_groups or
+    nbins, ncells), s_int, icell int64 or -1, found bool)."""
+    args = _prefix_args(tabs, pos, dirn, sigma, active, lum_half, tau_int,
+                        tb_slab, inv_sqrt, lane, n_groups, bin_map, nbins)
+    return _dispatch(pos, _deposit_prefix_plain, _deposit_prefix_cuda)(*args)
+
+
+def sweep_deposit_prefix_plain(tabs: SweepTables, pos, dirn, sigma, active,
+                               lum_half, tau_int, tb_slab, inv_sqrt: float,
+                               lane, n_groups: int = 1, bin_map=None,
+                               nbins: int = 0):
+    """`sweep_deposit_prefix` through the plain PyTorch version on any
+    device."""
+    return _deposit_prefix_plain(*_prefix_args(
+        tabs, pos, dirn, sigma, active, lum_half, tau_int, tb_slab, inv_sqrt,
+        lane, n_groups, bin_map, nbins))
 
 
 def slab_prefix(dtau_slab: torch.Tensor, d_major_pos: torch.Tensor):

@@ -42,6 +42,7 @@ class XLTables(NamedTuple):
     h: tuple           # cell size per axis
     nmax: int          # max(nx, ny, nz): slabs per lane in the records
     axes: tuple        # sweep.grid_axes: (lo, hi, 1/h) as (3,) f32 tensors
+    geom: dict         # sweep.axis_tables: the per-axis tables
     cellmap: torch.Tensor | None = None   # tree-raster voxel -> cell (unused)
 
     @property
@@ -73,7 +74,7 @@ def build_tree_tables(grid, med) -> XLTables:
 def build_tables(grid, med) -> XLTables:
     st = sw.build_tables(grid, med)
     return XLTables(nd=st.nd, n=st.n, lo=st.lo, h=st.h, nmax=st.nmax,
-                    axes=st.axes)
+                    axes=st.axes, geom=st.geom)
 
 
 def lane_order(tabs: XLTables, pos, dirn, group):
@@ -81,9 +82,7 @@ def lane_order(tabs: XLTables, pos, dirn, group):
     direction, entry slab), the key of `skirt9_tpu/transport/lifecycle.py:
     817-836`. Sorted lanes put neighbouring threads of the kernels on the
     same slab layout and on nearby cells."""
-    dev = pos.device
-    lo = torch.tensor(tabs.lo, dtype=torch.float32, device=dev)[group]
-    h = torch.tensor(tabs.h, dtype=torch.float32, device=dev)[group]
+    lo, h = tabs.geom["lo"][group], tabs.geom["h"][group]
     pa = pos.gather(1, group[:, None])[:, 0]
     da = dirn.gather(1, group[:, None])[:, 0]
     t_ent = torch.clamp(((pa - lo) / h).to(torch.int32), 0, tabs.nmax - 1)

@@ -280,9 +280,95 @@ def test_sweep_deposit_kernel(dev, C, n_groups):
     assert float((rf_k - rf_p).abs().max()) <= 1e-4 * float(rf_p.abs().max())
 
 
+@pytest.mark.parametrize("C,n_groups,bins", [(1, 1, None), (2, 4, None),
+                                              (1, 32, 25)])
+def test_sweep_deposit_prefix_kernel(dev, C, n_groups, bins):
+    """Pass 2 from pass 1's prefix against its plain version on the card;
+    with 32 groups folded into 25 bins by a map that drops one group and
+    lets others share a bin."""
+    B = 4096
+    tabs, pos, d, sig, active, rs = _inputs(dev, C, B, seed=30 + C)
+    tb, tot, lane = sw.sweep_dtau_prefix(tabs, pos, d, sig, active)
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dev) * tot
+    bin_map, nbins = None, 0
+    if bins is not None:
+        m = rs.integers(0, bins, n_groups)
+        m[:bins] = np.arange(bins)
+        m[-1] = -1
+        bin_map = torch.tensor(m, dtype=torch.int32, device=dev)
+        nbins = bins
+    args = (tabs, pos, d, sig, active, lum, tau_int, tb, 0.7, lane, n_groups,
+            bin_map, nbins)
+    kb.reset_launches()
+    rf_k, s_k, c_k, f_k = sw.sweep_deposit_prefix(*args)
+    assert kb.LAUNCHES["sweep_deposit_prefix"] == 1
+    assert sum(kb.LAUNCHES.values()) == 1
+    rf_p, s_p, c_p, f_p = sw.sweep_deposit_prefix_plain(*args)
+    assert rf_k.shape == rf_p.shape == (nbins or n_groups, tabs.nd.shape[0])
+    assert int(f_p.sum()) > B // 4
+    assert float((f_k == f_p).float().mean()) >= 0.999
+    both = f_k & f_p
+    assert torch.equal(c_k[both], c_p[both])
+    assert float((s_k[both] - s_p[both]).abs().max()) <= 1e-5 * tabs.h[0]
+    assert float((rf_k - rf_p).abs().max()) <= 1e-4 * float(rf_p.abs().max())
+    if bins is not None:
+        assert int((rf_p.abs().sum(dim=1) > 0).sum()) == bins
+
+
+def test_sweep_deposit_prefix_kernel_drops_bins_out_of_range(dev):
+    """A bin map entry outside [0, nbins) drops its group's deposits on the
+    card as -1 does, and writes nothing past the RF's rows."""
+    B, n_groups, nbins = 4096, 8, 3
+    tabs, pos, d, sig, active, rs = _inputs(dev, 1, B, seed=36)
+    tb, tot, lane = sw.sweep_dtau_prefix(tabs, pos, d, sig, active)
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dev) * tot
+    bins = torch.tensor([0, 1, 2, 3, 1 << 20, -7, 2, 0], dtype=torch.int32,
+                        device=dev)
+    dropped = torch.where((bins >= 0) & (bins < nbins), bins, -1)
+    args = (tabs, pos, d, sig, active, lum, tau_int, tb, 0.7, lane, n_groups)
+    rf_k, s_k, c_k, f_k = sw.sweep_deposit_prefix(*args, bins, nbins)
+    rf_m = sw.sweep_deposit_prefix(*args, dropped, nbins)[0]
+    rf_p = sw.sweep_deposit_prefix_plain(*args, bins, nbins)[0]
+    assert rf_k.shape == (nbins, tabs.nd.shape[0])
+    assert int((rf_p.abs().sum(dim=1) > 0).sum()) == nbins
+    assert float((rf_k - rf_p).abs().max()) <= 1e-4 * float(rf_p.abs().max())
+    assert float((rf_m - rf_p).abs().max()) <= 1e-4 * float(rf_p.abs().max())
+
+
+def test_sweep_deposit_prefix_forms_scale_and_rel(dev):
+    """scale and rel formed inside the kernel equal the event loop's torch
+    expressions bit for bit: with one row per lane every RF entry takes one
+    contribution, so the RF is the contributions themselves, and they and
+    the interaction points equal those of the reference-contract mode fed
+    the torch tensors."""
+    B = 512
+    tabs, pos, d, sig, active, rs = _inputs(dev, 2, B, seed=40)
+    tb, tot, lane = sw.sweep_dtau_prefix(tabs, pos, d, sig, active)
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dev) * tot
+    inv_sqrt = 1.0 / float(np.sqrt(37.0))
+    got = sw.sweep_deposit_prefix(tabs, pos, d, sig, active, lum * inv_sqrt,
+                                  tau_int, tb, inv_sqrt, lane, n_groups=B)
+    scale = ((lum * inv_sqrt)[None, :] * torch.exp(-tb)) * inv_sqrt
+    rel = tau_int[None, :] - tb
+    want = sw.sweep_deposit(tabs, pos, d, sig, active, scale, rel,
+                            n_groups=B, lane=lane)
+    assert int(want[3].sum()) > B // 4 and float(want[0].max()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def _xl_tables(tabs):
     return xl.XLTables(nd=tabs.nd, n=tabs.n, lo=tabs.lo, h=tabs.h,
-                       nmax=tabs.nmax, axes=tabs.axes)
+                       nmax=tabs.nmax, axes=tabs.axes, geom=tabs.geom)
 
 
 @pytest.mark.parametrize("C,hint", [(1, None), (2, None), (3, 2)])
@@ -442,6 +528,71 @@ def test_mlsweep_deposit_kernel(dev, kind):
     assert float((rf_k - rf_p).abs().max()) <= 1e-5 * float(rf_p.abs().max())
 
 
+@pytest.mark.parametrize("kind", ["octree", "bintree"])
+def test_mlsweep_deposit_kernel_global(dev, kind, monkeypatch):
+    """Pass 2 on trees whose leaves do not fit the block-private table: the
+    kernel's global-atomic path (forced here by a zero leaf budget), with
+    pass 1's lane range passed in."""
+    monkeypatch.setattr(ml, "SHARED_LEAVES", 0)
+    B = 4096
+    tabs, pos, d, sig, active, rs = _tree_inputs(dev, kind, 1, B, seed=8)
+    lane = sw._lane_range(tabs, pos, d, active)
+    sub, cells = ml.sweep_dtau(tabs, pos, d, sig, active, want_sub=True,
+                               lane=lane)
+    tb, tot = sw.slab_prefix(sub.sum(dim=1), d.gather(
+        1, lane[0].long()[:, None])[:, 0] > 0)
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dev) * tot
+    args = (tabs, pos, d, active, sub, cells, lum, tau_int, tb, 0.7)
+    kb.reset_launches()
+    rf_k, s_k, c_k, f_k = ml.sweep_deposit(*args, lane=lane)
+    assert kb.LAUNCHES["mlsweep_deposit"] == 1
+    rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(*args)
+    assert int(f_p.sum()) > B // 4
+    assert torch.equal(f_k, f_p) and torch.equal(c_k, c_p)
+    assert torch.equal(s_k, s_p)
+    assert float((rf_k - rf_p).abs().max()) <= 1e-5 * float(rf_p.abs().max())
+
+
+@pytest.mark.parametrize("engine", ["tree", "tree_no_rf", "xl"])
+def test_event_loop_copies_nothing_from_host(dev, engine):
+    """Three profiled events of the tree loop (with an RF: pass 2 in kernel
+    5; without: `resolve_interaction`) and of the XL loop: no host-to-device
+    copy issued inside the loop's profiler range, and every device
+    operation traced to the runtime call that issued it."""
+    from skirt9_tpu_torch.tools import event_profile as ep
+    if engine != "xl":
+        grid = _tree("octree")
+        med = _tree_medium(grid, 1, np.random.default_rng(0))
+    else:
+        grid = make_cartesian(((-1.2 * PC, 1.2 * PC),) * 3, (80, 80, 80))
+        med = msys.make_medium(
+            grid, msys.uniform_density_sphere(grid, 1.0, 1e-24, PC),
+            np.array([0.4e-6, 0.7e-6]), sigma_ext=np.full((1, 2), 1e-24),
+            albedo=np.full((1, 2), 0.6), g=np.full((1, 2), 0.5))
+    sim = Simulation(
+        grid=grid, medium=med,
+        sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
+        instruments=[dinst.DistantInstrumentCfg(
+            name="i", wave_borders=(0.5e-6, 0.6e-6), distance=100 * PC,
+            npx=16, npy=16, fovx=4 * PC, fovy=4 * PC)],
+        options=lc.TransportOptions(max_steps=grid.max_steps(),
+                                    max_events=3),
+        rf_borders=(None if engine == "tree_no_rf"
+                    else np.array([0.5e-6, 0.6e-6])),
+        num_packets=4096, batch_size=4096, seed=1, device=dev)
+    assert isinstance(sim._sweep_tabs, xl.XLTables if engine == "xl"
+                      else ml.MLTables)
+    sim.run_primary(verbose=False)
+    prof = ep.profile_run(torch, lambda: sim.run_primary(verbose=False))
+    assert ep._events(sim) > 0 and prof["loop_ranges"] == 1
+    assert prof["unattributed"] == 0, prof
+    assert prof["loop"]["device_ops"] > 0 and prof["loop"]["d2h_copies"] > 0
+    assert prof["loop"]["h2d_copies"] == 0, prof["loop"]
+
+
 def test_tree_simulation_launches(dev):
     grid = _tree("octree")
     med = _tree_medium(grid, 1, np.random.default_rng(0))
@@ -479,7 +630,9 @@ def test_config2_on_cuda_matches_cpu(dev):
         kb.reset_launches()
         out[str(d)] = sim.run_with_dust_emission(verbose=False)
         launches = dict(kb.LAUNCHES)
-    assert launches["sweep_dtau_prefix"] > 0 and launches["sweep_deposit"] > 0
+    assert launches["sweep_dtau_prefix"] > 0
+    assert launches["sweep_deposit_prefix"] > 0
+    assert launches["sweep_deposit"] == 0
     assert launches["sweep_tau_total"] > 0 and launches["detect"] > 0
     assert launches["sweep_dtau"] == launches["scatter_add"] == 0
     assert launches["sweepxl_dtau"] == 0
