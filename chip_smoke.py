@@ -33,10 +33,15 @@ Phases, one JSON line each:
                     maximum against the plain detect and the seven-call
                     form through kernel 3
   kernels_xl        kernels 6-7 vs their plain versions at 256^3, B = 131072,
-                    C = 1, lanes sorted as the path sorts them: tau within
-                    1e-5 relative, the summed form within 1e-6 of the
-                    sub-step sum, RF within 1e-4 of its maximum; timed, with
-                    kernel 6 on unsorted lanes and kernel 1 on the same rays
+                    C = 1, lanes sorted as the path sorts them: kernel 6's
+                    record and summed form bit-identical, its total (the +z
+                    peel-off) and prefix within 1e-6 of each lane's tau,
+                    the lane range it forms equal to _lane_range bit for
+                    bit; kernel 7's RF within 1e-4 of its maximum; each
+                    mode timed, kernel 6 also on unsorted lanes, kernel 1
+                    on the same rays, and the kernel-6 variants of
+                    perf/kernel6_variants.py (other run lengths, the lane-block
+                    and lane-tile designs, the first design's split)
   draw_for_draw     16,384 packets on the CPU (plain versions) and on the GPU
                     (kernels), same seed: SEDs within 1e-4, frame within 1e-3
                     of its brightest pixel; again with a one-bin RF, totals
@@ -57,8 +62,11 @@ Phases, one JSON line each:
                     shares
   full_width_xl     bench_config1x256 (256^3, 2^17 packets in one batch, 24
                     events, no RF), timed after a warm-up: the XL tables,
-                    kernel 6 and detect launched and 1-3 not, the same gates
-  rf_xl             the same with a one-bin RF: kernel 7 launched, the RF
+                    kernel 6's prefix and total modes and detect launched,
+                    its reference modes, kernels 1-3 and 7 not, the same
+                    gates
+  rf_xl             the same with a one-bin RF: kernel 7 launched on pass
+                    1's prefix and lane range, the RF
                     finite and positive, its total within 1e-4 of the same
                     seed's run on the resident sweep (kernels 1-2)
   kernels_ml        kernels 4-5 (the multi-level tree sweep) vs their plain
@@ -661,9 +669,15 @@ def phase_kernels(torch) -> dict:
 
 
 def phase_kernels_xl(torch) -> dict:
-    """Kernels 6 and 7 against their plain versions at bench_config1x256's
-    shapes, on lanes sorted as the path sorts them; then timings, with
-    kernel 6 on unsorted lanes and kernel 1 on the same rays."""
+    """Kernel 6 in its four modes and kernel 7 against their plain versions
+    at bench_config1x256's shapes, on lanes sorted as the path sorts them
+    (the peel-off toward +z in entry-slab order): the record and the summed
+    form bit for bit, the total and the prefix within 1e-6 of each lane's
+    tau, the lane range equal to `_lane_range` bit for bit; then timings,
+    with kernel 6 on unsorted lanes, kernel 1 on the same rays, and the
+    kernel-6 variants of perf/kernel6_variants.py (other run lengths, the
+    lane-block and lane-tile designs, and the first design's split)."""
+    from perf import kernel6_variants as k6v
     from skirt9_tpu_torch.transport import sweep as sw
     from skirt9_tpu_torch.transport import sweepxl as xl
     sim = config1("cuda", num_packets=B_FULL, n=256)
@@ -674,48 +688,68 @@ def phase_kernels_xl(torch) -> dict:
     pos_u, dir_u, sig, act_u = sphere_rays(torch, sim, rs, B)
     perm = xl.lane_order(tabs, pos_u, dir_u, sw.dominant_axis(tabs, dir_u))
     pos, dirn, active = pos_u[perm], dir_u[perm], act_u[perm]
-    g, smin, smax, sg = sw._prep(tabs, pos, dirn, sig, active)
     # peel-off toward +z: entry-slab order, one shared slab axis
     prm_z = xl.entry_order(tabs, pos_u, 2)
-    pz = pos_u[prm_z]
     kz = torch.zeros_like(dirn)
     kz[:, 2] = 1.0
-    gz, sminz, smaxz, _ = sw._prep(tabs, pz, kz, sig, act_u[prm_z])
-    gz = torch.full_like(gz, 2)
-    ev = (tabs, pos, dirn, g, smin, smax, sg)
-    pl = (tabs, pz, kz, gz, sminz, smaxz, sg)
+    ev = (tabs, pos, dirn, sig, active, None)
+    pl = (tabs, pos_u[prm_z], kz, sig, act_u[prm_z], 2)
+    ev_u = (tabs, pos_u, dir_u, sig, act_u, None)
     out = {}
 
-    # kernel 6: the event record, the peel-off sums, the summed form
-    sub_k = xl._dtau_cuda(*ev, True)
-    sub_p = xl._dtau_plain(*ev, True)
-    z_k = xl._dtau_cuda(*pl, False)
-    z_p = xl._dtau_plain(*pl, False)
-    sum_k = xl._dtau_cuda(*ev, False)
+    # kernel 6: the record and summed forms bit for bit, the total and the
+    # prefix within 1e-6 of each lane's tau, the lane range bit for bit
+    rec_p, tb_p, tot_p, lane_p = xl.sweep_dtau_prefix_plain(*ev)
+    sub_k = xl.sweep_dtau(*ev, want_sub=True)
     torch.cuda.synchronize()
-    rel6 = 0.0
-    for tk, tp in ((sub_k.sum(dim=(0, 1)), sub_p.sum(dim=(0, 1))),
-                   (z_k.sum(0), z_p.sum(0))):
-        require(bool((tp > 0).sum() > B // 2), "kernel 6 test rays see dust")
-        rel6 = max(rel6, float(((tk - tp).abs()
-                                / tp.clamp_min(1e-30))[tp > 0].max()))
-    require(rel6 <= 1e-5, f"kernel 6 max relative tau error {rel6} <= 1e-5")
-    sum_err = float((sum_k - sub_k.sum(dim=1)).abs().max())
-    sum_max = float(sum_k.abs().max())
-    require(sum_err <= 1e-6 * sum_max,
-            f"kernel 6 summed form {sum_err} <= 1e-6 * {sum_max}")
-    err6 = max(float((sub_k - sub_p).abs().max()),
-               float((z_k - z_p).abs().max()))
-    del z_k, z_p, sum_k
+    require(bool((tot_p > 0).sum() > B // 2), "kernel 6 test rays see dust")
+    err6 = float((sub_k - rec_p).abs().max())
+    require(bool(torch.equal(sub_k, rec_p)),
+            f"kernel 6 record bit-identical ({err6})")
+    del sub_k
+    err_sum = 0.0
+    for args in (ev, pl):
+        sum_k, sum_p = xl.sweep_dtau(*args), xl.sweep_dtau_plain(*args)
+        torch.cuda.synchronize()
+        err_sum = max(err_sum, float((sum_k - sum_p).abs().max()))
+        require(bool(torch.equal(sum_k, sum_p)),
+                f"kernel 6 summed form bit-identical ({err_sum})")
+    del sum_k, sum_p
+    rel = lambda a, b, tau: float(((a - b).abs() / tau.clamp_min(1e-30)).max())
+    tot_z_p = xl.sweep_tau_total_plain(*pl)
+    tot_z = xl.sweep_tau_total(*pl)
+    tot_e = xl.sweep_tau_total(*ev)
+    rec_k, tb_k, tot_k, lane_k = xl.sweep_dtau_prefix(*ev)
+    torch.cuda.synchronize()
+    require(bool((tot_z_p > 0).sum() > B // 2), "peel-off rays see dust")
+    rel_tot = max(rel(tot_z, tot_z_p, tot_z_p), rel(tot_e, tot_p, tot_p),
+                  rel(tot_k, tot_p, tot_p))
+    rel_pre = rel(tb_k, tb_p, tot_p[None, :])
+    up = dirn.gather(1, lane_p[0].long()[:, None])[:, 0] > 0
+    lane_err = ((tb_k - tb_p).abs() / tot_p.clamp_min(1e-30)).amax(0)
+    require(rel_tot <= 1e-6,
+            f"kernel 6 totals within 1e-6 of each lane's tau ({rel_tot})")
+    require(rel_pre <= 1e-6,
+            f"kernel 6 prefix within 1e-6 of each lane's tau ({rel_pre}; "
+            f"along the slabs {float(lane_err[up].max())}, against them "
+            f"{float(lane_err[~up].max())})")
+    require(bool(torch.equal(rec_k, rec_p)), "kernel 6 prefix mode's record")
+    for a, b, name in zip(lane_k, lane_p, ("axis", "smin", "smax")):
+        require(bool(torch.equal(a, b)),
+                f"kernel 6 lane {name} bit-identical to _lane_range")
+    abs_tot = max(float((tot_z - tot_z_p).abs().max()),
+                  float((tot_k - tot_p).abs().max()))
+    abs_pre = float((tb_k - tb_p).abs().max())
+    g, smin, smax = lane_p
+    del rec_k, tb_k, rec_p
 
     # kernel 7: deposits from the record with a nonzero scale
-    tb, _ = sw.slab_prefix(sub_p.sum(dim=1),
-                           dirn.gather(1, g.long()[:, None])[:, 0] > 0)
+    sub = xl.sweep_dtau(*ev, want_sub=True)
     lum = torch.tensor(rs.uniform(0.5, 2.0, B), dtype=torch.float32,
                        device=dirn.device)
-    scale = lum[None, :] * torch.exp(-tb)
-    del tb
-    dep = (tabs, pos, dirn, g, smin, smax, sub_p, scale, 1)
+    scale = lum[None, :] * torch.exp(-tb_p)
+    del tb_p
+    dep = (tabs, pos, dirn, g, smin, smax, sub, scale, 1)
     rf_k = xl._deposit_cuda(*dep)
     rf_p = xl._deposit_plain(*dep)
     torch.cuda.synchronize()
@@ -724,36 +758,63 @@ def phase_kernels_xl(torch) -> dict:
     require(rf_max > 0 and rf_err <= 1e-4 * rf_max,
             f"kernel 7 rf error {rf_err} <= 1e-4 * {rf_max}")
     del rf_k, rf_p
-
-    # timings: plain versions first, then free their tensors
-    pms6 = cuda_ms(lambda: xl._dtau_plain(*ev, True), reps=3)
-    pms7 = cuda_ms(lambda: xl._deposit_plain(*dep), reps=3)
-    del sub_p
-    sub = sub_k
-    dep = (tabs, pos, dirn, g, smin, smax, sub, scale, 1)
     torch.cuda.empty_cache()
-    ms6 = cuda_ms(lambda: xl._dtau_cuda(*ev, True))
-    ms6_sum = cuda_ms(lambda: xl._dtau_cuda(*ev, False))
-    ms6_peel = cuda_ms(lambda: xl._dtau_cuda(*pl, False))
-    gu, sminu, smaxu, _ = sw._prep(tabs, pos_u, dir_u, sig, act_u)
-    ev_u = (tabs, pos_u, dir_u, gu, sminu, smaxu, sg)
-    ms6_unsorted = cuda_ms(lambda: xl._dtau_cuda(*ev_u, True))
-    ms1_sorted = cuda_ms(lambda: sw.sweep_dtau(tabs, pos, dirn, sig, active))
-    ms1_unsorted = cuda_ms(lambda: sw.sweep_dtau(tabs, pos_u, dir_u, sig,
-                                                 act_u))
-    ms7 = cuda_ms(lambda: xl._deposit_cuda(*dep))
-    dms6 = device_ms(lambda: xl._dtau_cuda(*ev, True))["ours"]
-    dms7 = device_ms(lambda: xl._deposit_cuda(*dep))["ours"]
+
+    # timings of kernel 6's modes: the event rays (record, summed, prefix),
+    # the +z peel-off rays (summed, total)
     n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
+    gz, sminz, smaxz, _ = sw._prep(tabs, pl[1], kz, sig, pl[4])
+    n_act_z = active_slabs(tabs, pl[1], kz, torch.full_like(gz, 2), sminz,
+                           smaxz)
     rec = tabs.nmax * B * 4
-    out["sweepxl_dtau"] = dict(
-        max_abs_err=err6, max_rel_tau_err=rel6, summed_err=sum_err, ms=ms6,
-        device_ms=dms6, plain_ms=pms6, library_ms=None, ms_summed=ms6_sum,
-        ms_peel_z=ms6_peel,
-        ms_unsorted=ms6_unsorted, kernel1_ms_sorted=ms1_sorted,
-        kernel1_ms_unsorted=ms1_unsorted, active_pairs=n_act,
-        **bound(lane_bytes(B, 1) + tabs.nd.numel() * 4 + 3 * rec,
-                n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)))
+    base = ray_bytes(B, 1) + tabs.nd.numel() * 4
+    march = lambda n: B * OPS_LANE + n * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)
+    dmaj = dirn.gather(1, g.long()[:, None])[:, 0] > 0
+    modes = {
+        # name: (kernel, plain version, the unfused form it replaces on the
+        # path, rays, output bytes, operations, errors: absolute, of tau)
+        "sweepxl_dtau": (
+            lambda *a: xl.sweep_dtau(*a, want_sub=True),
+            lambda *a: xl.sweep_dtau_plain(*a, want_sub=True), None, ev,
+            3 * rec, march(n_act), err6, 0.0),
+        "sweepxl_dtau_summed": (
+            xl.sweep_dtau, xl.sweep_dtau_plain, None, pl, rec,
+            march(n_act_z), err_sum, 0.0),
+        "sweepxl_tau_total": (
+            xl.sweep_tau_total, xl.sweep_tau_total_plain,
+            lambda *a: xl.sweep_dtau(*a).sum(0), pl, B * 4,
+            march(n_act_z) + n_act_z, abs_tot, rel_tot),
+        "sweepxl_dtau_prefix": (
+            xl.sweep_dtau_prefix, xl.sweep_dtau_prefix_plain,
+            lambda *a: sw.slab_prefix(
+                xl.sweep_dtau(*a, want_sub=True).sum(dim=1), dmaj),
+            ev, 4 * rec + 4 * B * 4, march(n_act) + 2 * n_act, abs_pre,
+            rel_pre)}
+    for name, (fn, plain, unfused, args, out_bytes, ops, e_abs, e_rel) \
+            in modes.items():
+        out[name] = dict(
+            max_abs_err=e_abs, max_err_of_tau=e_rel,
+            ms=cuda_ms(lambda: fn(*args)),
+            device_ms=device_ms(lambda: fn(*args))["ours"],
+            plain_ms=cuda_ms(lambda: plain(*args), reps=3), library_ms=None,
+            active_pairs=n_act_z if args is pl else n_act,
+            **bound(base + out_bytes, ops))
+        if unfused is not None:
+            out[name]["unfused_ms"] = cuda_ms(lambda: unfused(*args))
+            out[name]["unfused_device_ms"] = device_ms(
+                lambda: unfused(*args))["all"]
+        torch.cuda.empty_cache()
+    k6 = out["sweepxl_dtau"]
+    k6["ms_unsorted"] = cuda_ms(lambda: xl.sweep_dtau(*ev_u, want_sub=True))
+    k6["prefix_ms_unsorted"] = cuda_ms(lambda: xl.sweep_dtau_prefix(*ev_u))
+    k6["kernel1_ms_sorted"] = cuda_ms(lambda: sw.sweep_dtau(*ev))
+    k6["kernel1_ms_unsorted"] = cuda_ms(lambda: sw.sweep_dtau(*ev_u))
+    k6["variants"] = k6v.measure(torch, tabs, ev[1:5], ev_u[1:5], cuda_ms,
+                                 device_ms)
+    torch.cuda.empty_cache()
+    ms7 = cuda_ms(lambda: xl._deposit_cuda(*dep))
+    dms7 = device_ms(lambda: xl._deposit_cuda(*dep))["ours"]
+    pms7 = cuda_ms(lambda: xl._deposit_plain(*dep), reps=3)
     out["sweepxl_deposit"] = dict(
         max_abs_err=rf_err, rf_max=rf_max, ms=ms7, device_ms=dms7,
         plain_ms=pms7, library_ms=None,
@@ -808,13 +869,16 @@ def phase_draw_for_draw(torch, phase="draw_for_draw", n=32,
 
 # the resident sweep's path: kernel 1 as the tracer's total and pass 1's
 # prefix, kernel 2 from that prefix (the reference contracts, modes
-# sweep_dtau and sweep_deposit, on no path)
+# sweep_dtau and sweep_deposit, on no path); the XL path likewise with
+# kernel 6 (its reference modes, counted as sweepxl_dtau, on no path) and,
+# with an RF, kernel 7
 RESIDENT = ("sweep_tau_total", "sweep_dtau_prefix", "sweep_deposit_prefix")
-XL = ("sweepxl_dtau", "sweepxl_deposit")
+XL_PASS1 = ("sweepxl_tau_total", "sweepxl_dtau_prefix")
+XL = XL_PASS1 + ("sweepxl_deposit",)
 # every path detects through the fused kernel, never through kernel 3, and
-# takes kernels 1 and 2 in their fused modes, never in the reference's
+# takes kernels 1, 2 and 6 in their fused modes, never in the reference's
 DETECT = ("detect",)
-NOT_PATH = ("sweep_dtau", "sweep_deposit", "scatter_add")
+NOT_PATH = ("sweep_dtau", "sweep_deposit", "sweepxl_dtau", "scatter_add")
 
 
 def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
@@ -1683,7 +1747,7 @@ def main() -> int:
     phase_breakdown(torch, sim, stats)
     del sim
     _, _, launches_xl = phase_full_width(
-        torch, smi, "full_width_xl", "XLTables", ("sweepxl_dtau",) + DETECT,
+        torch, smi, "full_width_xl", "XLTables", XL_PASS1 + DETECT,
         RESIDENT + NOT_PATH + ("sweepxl_deposit",), num_packets=B_FULL, n=256)
     launches_rf = phase_rf_xl(torch)
     torch.cuda.empty_cache()
@@ -1708,6 +1772,7 @@ def main() -> int:
     phase_breakdown_b2(torch)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
+    k6 = "skirt9_tpu/transport/sweepxl.py:392"
     k1_modes = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix")
     probe_k3 = {"scatter_add": kern["probe_scatter_smem"]["kernel3_launches"]}
     for name, src, ref, path, counts in (
@@ -1724,8 +1789,13 @@ def main() -> int:
              "full_width", launches),
             ("scatter_add", "scatter_add.cu", "skirt9_tpu/ops/scatteradd.py:32",
              "kernels_probe (the gather probe's entry point)", probe_k3),
-            ("sweepxl_dtau", "sweepxl_dtau.cu",
-             "skirt9_tpu/transport/sweepxl.py:392", "full_width_xl",
+            ("sweepxl_dtau", "sweepxl_dtau.cu", k6, "full_width_xl",
+             launches_xl),
+            ("sweepxl_dtau_summed", "sweepxl_dtau.cu", k6, "full_width_xl",
+             launches_xl),
+            ("sweepxl_tau_total", "sweepxl_dtau.cu", k6, "full_width_xl",
+             launches_xl),
+            ("sweepxl_dtau_prefix", "sweepxl_dtau.cu", k6, "full_width_xl",
              launches_xl),
             ("sweepxl_deposit", "sweepxl_deposit.cu",
              "skirt9_tpu/transport/sweepxl.py:493", "rf_xl", launches_rf),
@@ -1736,16 +1806,20 @@ def main() -> int:
              "skirt9_tpu/transport/mlsweep.py:719", "rf_ml",
              launches_rf_ml)):
         k = kern[name]
+        # kernel 6's summed form counts under its record form's name
+        counter = "sweepxl_dtau" if name == "sweepxl_dtau_summed" else name
         row = {"name": name, "route": "cuda",
                "source": f"skirt9_tpu_torch/csrc/{src}", "replaces": ref,
-               "path": path, "launches": counts[name],
+               "path": path, "launches": counts[counter],
                **{key: k[key] for key in (
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms")}}
         for key in ("device_ms", "library_device_ms", "unfused_ms",
                     "unfused_device_ms", "seven_call_ms",
                     "seven_call_device_ms", "seven_call_device_launches",
-                    "bound_full_record_ms", "device_ms_no_rf"):
+                    "bound_full_record_ms", "device_ms_no_rf",
+                    "max_err_of_tau", "ms_unsorted", "prefix_ms_unsorted",
+                    "kernel1_ms_sorted", "kernel1_ms_unsorted", "variants"):
             if key in k:
                 row[key] = k[key]
         if name == "sweep_dtau":

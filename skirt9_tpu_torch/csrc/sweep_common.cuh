@@ -113,6 +113,48 @@ __device__ inline Lane load_lane(const GridGeom& g, const float* pos,
   return L;
 }
 
+// The lane's slab axis (argmax |d_i| / h_i, first maximum on ties, unless
+// hint >= 0 names it) and in-grid path range [smin, smax], smax = smin for an
+// inactive lane: sweep.py `dominant_axis` and `_lane_range`, operation for
+// operation. Kernels 1 and 6 form their lanes with it.
+__device__ inline void lane_range(const GridGeom& g, const float inv_h[3],
+                                  const float p[3], const float d[3],
+                                  bool active, int hint, int& a, float& smin,
+                                  float& smax) {
+  a = 0;
+  if (hint >= 0) {
+    a = hint;
+  } else {
+    float best = fabsf(d[0]) * inv_h[0];
+    for (int i = 1; i < 3; ++i) {
+      const float r = fabsf(d[i]) * inv_h[i];
+      if (r > best) {
+        best = r;
+        a = i;
+      }
+    }
+  }
+  const int n[3] = {g.nx, g.ny, g.nz};
+  float enter_max = 0.0f, leave_min = 0.0f;
+  bool inbox = true;
+  for (int i = 0; i < 3; ++i) {
+    const bool tiny = fabsf(d[i]) < 1e-30f;
+    const float inv = 1.0f / (tiny ? 1e-30f : d[i]);
+    const float hi = g.lo[i] + (float)n[i] * g.h[i];
+    const float t1 = (g.lo[i] - p[i]) * inv;
+    const float t2 = (hi - p[i]) * inv;
+    const float enter = tiny ? -kBig : fminf(t1, t2);
+    const float leave = tiny ? kBig : fmaxf(t1, t2);
+    enter_max = i == 0 ? enter : fmaxf(enter_max, enter);
+    leave_min = i == 0 ? leave : fminf(leave_min, leave);
+    // a tiny direction component gives no bound on s: the ray meets the
+    // box only if its position lies within that dimension's range
+    if (tiny && (p[i] < g.lo[i] || p[i] >= hi)) inbox = false;
+  }
+  smin = fmaxf(enter_max, 0.0f);
+  smax = (active && inbox && leave_min > smin) ? leave_min : smin;
+}
+
 // One slab's sub-DDA state.
 struct Slab {
   float s_in, s_out, s_cur;

@@ -35,47 +35,6 @@ constexpr int kSlabThreads = 8;  // threads per block: kTile * kSlabThreads
 
 enum : int { kModeDtau = 0, kModeTotal = 1, kModePrefix = 2 };
 
-// The lane's slab axis (argmax |d_i| / h_i, first maximum on ties, unless
-// hint >= 0 names it) and in-grid path range [smin, smax], smax = smin for an
-// inactive lane: sweep.py `dominant_axis` and `_lane_range`.
-__device__ inline void lane_range(const GridGeom& g, const float inv_h[3],
-                                  const float p[3], const float d[3],
-                                  bool active, int hint, int& a, float& smin,
-                                  float& smax) {
-  a = 0;
-  if (hint >= 0) {
-    a = hint;
-  } else {
-    float best = fabsf(d[0]) * inv_h[0];
-    for (int i = 1; i < 3; ++i) {
-      const float r = fabsf(d[i]) * inv_h[i];
-      if (r > best) {
-        best = r;
-        a = i;
-      }
-    }
-  }
-  const int n[3] = {g.nx, g.ny, g.nz};
-  float enter_max = 0.0f, leave_min = 0.0f;
-  bool inbox = true;
-  for (int i = 0; i < 3; ++i) {
-    const bool tiny = fabsf(d[i]) < 1e-30f;
-    const float inv = 1.0f / (tiny ? 1e-30f : d[i]);
-    const float hi = g.lo[i] + (float)n[i] * g.h[i];
-    const float t1 = (g.lo[i] - p[i]) * inv;
-    const float t2 = (hi - p[i]) * inv;
-    const float enter = tiny ? -kBig : fminf(t1, t2);
-    const float leave = tiny ? kBig : fmaxf(t1, t2);
-    enter_max = i == 0 ? enter : fmaxf(enter_max, enter);
-    leave_min = i == 0 ? leave : fminf(leave_min, leave);
-    // a tiny direction component gives no bound on s: the ray meets the
-    // box only if its position lies within that dimension's range
-    if (tiny && (p[i] < g.lo[i] || p[i] >= hi)) inbox = false;
-  }
-  smin = fmaxf(enter_max, 0.0f);
-  smax = (active && inbox && leave_min > smin) ? leave_min : smin;
-}
-
 // pos, dir: (B, 3); active: (B,) bytes; sig: (C, B); nd: (ncells, C).
 // Mode 0: out (nmax, B) tau. Mode 1: total (B,). Mode 2: out (nmax, B)
 // prefix, total, axis, smin_out, smax_out (B,).

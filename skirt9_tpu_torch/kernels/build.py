@@ -36,11 +36,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # one counter per contract, even where two share source through
 # csrc/sweep_common.cuh or one entry point serves several (kernel 1's three
-# output modes, kernel 2's two input modes), so a run shows which
+# output modes, kernel 6's summed and want_sub modes under one and its total
+# and prefix modes, kernel 2's two input modes), so a run shows which
 # contract its path went through
 KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            "sweep_deposit", "sweep_deposit_prefix", "scatter_add", "detect",
-           "sweepxl_dtau", "sweepxl_deposit", "mlsweep_dtau",
+           "sweepxl_dtau", "sweepxl_tau_total", "sweepxl_dtau_prefix",
+           "sweepxl_deposit", "mlsweep_dtau",
            "mlsweep_deposit",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
@@ -66,9 +68,10 @@ _SIGNATURES = {
     # scratch sums, flags, list, counts, B, nb, npx, npy, epoch,
     # 1/stats_scale, ex (3), ey (3), centerx, centery, 1/fovx, 1/fovy, stream
     "detect_launch": [_P] * 12 + [_I] * 5 + [_F] * 11 + [_P],
-    # pos, dir, axis, smin, smax, sig, nd, out, B, C, nx, ny, nz, nmax,
-    # want_sub, lox, loy, loz, hx, hy, hz, stream
-    "sweepxl_dtau_launch": [_P] * 8 + [_I] * 7 + [_F] * 6 + [_P],
+    # pos, dir, active, sig, nd, out, prefix, total, runsum, axis, smin,
+    # smax, B, C, nx, ny, nz, nmax, hint, mode, run, lox, loy, loz, hx, hy,
+    # hz, 1/hx, 1/hy, 1/hz, stream
+    "sweepxl_dtau_launch": [_P] * 12 + [_I] * 9 + [_F] * 9 + [_P],
     # pos, dir, axis, smin, smax, dsub, scale, rf, B, nx, ny, nz, nmax,
     # n_groups, lox, loy, loz, hx, hy, hz, stream
     "sweepxl_deposit_launch": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],

@@ -19,9 +19,11 @@ copies a tensor from the host.
 
 With `sweepxl.XLTables` (large uniform grids) the event runs the XL
 contracts instead: lanes sorted by (axis, major sign, entry slab), pass 1
-records the optical depth per sub-step, `resolve_interaction` finds the
-interaction point from that record, and `sweepxl.sweep_deposit` deposits
-from it when an RF is stored. Everything between pass 1 and the
+is one `sweepxl.sweep_dtau_prefix` launch (the optical depth per sub-step,
+its slab prefix and the lane range), `resolve_interaction` finds the
+interaction point from that record and prefix, and `sweepxl.sweep_deposit`
+deposits from it when an RF is stored; the tracer is one
+`sweepxl.sweep_tau_total` launch. Everything between pass 1 and the
 interaction search stays in sorted lane order; only per-lane results go
 back to launch order.
 
@@ -291,9 +293,9 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                              / h_cells))
         if is_xl:
             prm = xl.entry_order(sweep_tabs, pos, hint)
-            tau = torch.sum(xl.sweep_dtau(
-                sweep_tabs, pos[prm], kdir[prm], sigma_lanes[:, prm],
-                mask[prm], axis_hint=hint), dim=0)
+            tau = xl.sweep_tau_total(sweep_tabs, pos[prm], kdir[prm],
+                                     sigma_lanes[:, prm], mask[prm],
+                                     axis_hint=hint)
             return _unsort(tau, prm)
         if is_ml:
             return torch.sum(ml.sweep_dtau(sweep_tabs, pos, kdir, sigma_lanes,
@@ -348,33 +350,28 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
 
             # pass 1: optical depth per slab and along the whole path
             if is_xl:
-                grp = sw.dominant_axis(sweep_tabs, pkt.dir)
-                perm = xl.lane_order(sweep_tabs, pkt.pos, pkt.dir, grp)
-                p_pos, p_dir, p_act, grp = (pkt.pos[perm], pkt.dir[perm],
-                                            active[perm], grp[perm])
-                dtau_sub = xl.sweep_dtau(sweep_tabs, p_pos, p_dir,
-                                         sigma_lanes[:, perm], p_act,
-                                         want_sub=True)
-                dtau_slab = torch.sum(dtau_sub, dim=1)
+                # the record, its prefix and the lane range come out of the
+                # kernel, in sorted lane order
+                perm = xl.lane_order(sweep_tabs, pkt.pos, pkt.dir,
+                                     sw.dominant_axis(sweep_tabs, pkt.dir))
+                p_pos, p_dir, p_act = pkt.pos[perm], pkt.dir[perm], active[perm]
+                dtau_sub, tb_slab, tau_path, lane = xl.sweep_dtau_prefix(
+                    sweep_tabs, p_pos, p_dir, sigma_lanes[:, perm], p_act)
+                tau_path = _unsort(tau_path, perm)
             elif is_ml:
                 # per plan step; the record feeds pass 2 without the density,
                 # the lane range both passes
-                p_dir = pkt.dir
                 lane = sw._lane_range(sweep_tabs, pkt.pos, pkt.dir, active)
-                grp = lane[0].to(torch.int64)
                 dtau_sub, cell_sub = ml.sweep_dtau(
                     sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active,
                     want_sub=True, lane=lane)
-                dtau_slab = torch.sum(dtau_sub, dim=1)
+                dmaj = pkt.dir.gather(1, lane[0].to(torch.int64)[:, None])
+                tb_slab, tau_path = sw.slab_prefix(
+                    torch.sum(dtau_sub, dim=1), dmaj[:, 0] > 0)
             else:
                 # the prefix and the lane range come out of the kernel
                 tb_slab, tau_path, lane = sw.sweep_dtau_prefix(
                     sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active)
-            if is_xl or is_ml:
-                dmaj = p_dir.gather(1, grp[:, None])[:, 0]
-                tb_slab, tau_path = sw.slab_prefix(dtau_slab, dmaj > 0)
-            if is_xl:
-                tau_path = _unsort(tau_path, perm)
             tau_int, w_bias, tau_ok = sample_interaction_tau(opts, u, tau_path)
             active_int = active & tau_ok
 
@@ -388,12 +385,12 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                                   * torch.exp(-tb_slab)) * inv_sqrt
                     rf[:, 0] += xl.sweep_deposit(
                         sweep_tabs, p_pos, p_dir, p_act, dtau_sub,
-                        scale_slab)[0]
+                        scale_slab, lane=lane)[0]
                 s_int, icell, found = (_unsort(x, perm) for x in
                                        xl.resolve_interaction(
                                            sweep_tabs, p_pos, p_dir,
                                            active_int[perm], dtau_sub, tb_slab,
-                                           tau_int[perm]))
+                                           tau_int[perm], lane=lane))
             elif is_ml:
                 if use_rf:
                     rf_delta, s_int, icell, found = ml.sweep_deposit(

@@ -13,8 +13,17 @@ differs is the contract:
   pass 2 `sweep_deposit`              -> RF deposits (n_groups, ncells) from
          the record and the per-slab scale.
 
-Both passes are CUDA kernels on the GPU (`csrc/sweepxl_dtau.cu`,
-`csrc/sweepxl_deposit.cu`) beside their plain PyTorch versions. The tables
+Pass 1 has two more modes, which the event loop uses, as the resident
+sweep's pass 1 has:
+  `sweep_tau_total`   -> (B,) total optical depth (the peel-off tracer);
+  `sweep_dtau_prefix` -> the record, its `slab_prefix` and total, and the
+                         lane range that the kernel formed, which
+                         `resolve_interaction` and `sweep_deposit` take.
+
+Both passes are CUDA kernels on the GPU (`csrc/sweepxl_dtau.cu`, which
+forms the lane range itself and, for the total and the prefix, adds a
+per-lane pass over its run sums, and `csrc/sweepxl_deposit.cu`) beside
+their plain PyTorch versions. The tables
 are the flat (ncells, C) f32 density of `sweep.SweepTables`, shared and not
 copied: the reference's streamed (C, nmax, 3, U, V) planes, their bf16 hi/lo
 or int8 splits and the one-hot matmul lookups are MXU and VMEM workarounds
@@ -24,6 +33,7 @@ the tree slice and raise.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -106,6 +116,28 @@ def _dtau_plain(tabs, pos, dirn, group, smin, smax, sig, want_sub):
     return torch.stack([dtau for _, _, dtau, _ in steps], dim=1)
 
 
+def _pass1_plain(tabs, pos, dirn, sig, active, axis_hint, want_sub):
+    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+    return _dtau_plain(tabs, pos, dirn, sw._hinted(group, axis_hint), smin,
+                       smax, sig, want_sub)
+
+
+def _total_plain(tabs, pos, dirn, sig, active, axis_hint):
+    return torch.sum(_pass1_plain(tabs, pos, dirn, sig, active, axis_hint,
+                                  False), dim=0)
+
+
+def _prefix_plain(tabs, pos, dirn, sig, active, axis_hint):
+    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+    group = sw._hinted(group, axis_hint)
+    rec = _dtau_plain(tabs, pos, dirn, group, smin, smax, sig, True)
+    # the summed form of the same march: (d0 + d1) + d2 per slab
+    dtau = (rec[:, 0] + rec[:, 1]) + rec[:, 2]
+    dmaj = dirn.gather(1, group.to(torch.int64)[:, None])[:, 0]
+    tb, total = sw.slab_prefix(dtau, dmaj > 0)
+    return rec, tb, total, (group, smin, smax)
+
+
 def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
                    n_groups):
     steps, _ = sw._slab_cells(tabs, pos, dirn, group, smin, smax)
@@ -124,15 +156,48 @@ def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
 
 # ----------------------------------------------------------- CUDA launches
 
-def _dtau_cuda(tabs, pos, dirn, group, smin, smax, sig, want_sub):
+# pass 1's output modes (csrc/sweepxl_dtau.cu) and the counter of each: the
+# reference's two contracts under one name
+_MODES = ("summed", "want_sub", "total", "prefix")
+_COUNTERS = ("sweepxl_dtau", "sweepxl_dtau", "sweepxl_tau_total",
+             "sweepxl_dtau_prefix")
+# pass 1's slabs per thread (perf/kernel6_variants.py times others)
+RUN = 16
+
+
+def _dtau_cuda(tabs, pos, dirn, sig, active, hint, mode: str):
+    """One launch of pass 1 in the given mode, the lane set-up inside:
+    summed -> (nmax, B); want_sub -> (nmax, 3, B); total -> (B,); prefix ->
+    (record (nmax, 3, B), prefix (nmax, B), total, (group, smin, smax))."""
     B, C = pos.shape[0], sig.shape[0]
+    dev = pos.device
     pos, dirn = pos.contiguous(), dirn.contiguous()
-    shape = (tabs.nmax, 3, B) if want_sub else (tabs.nmax, B)
-    out = torch.empty(shape, dtype=torch.float32, device=pos.device)
+    act = active.to(torch.bool).contiguous()
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    out = total = runsum = prefix = lane = None
+    if mode == "summed":
+        out = f32(tabs.nmax, B)
+    elif mode != "total":
+        out = f32(tabs.nmax, 3, B)
+    if mode in ("total", "prefix"):
+        total = f32(B)
+        runsum = f32(-(-tabs.nmax // RUN), B)
+    if mode == "prefix":
+        prefix = f32(tabs.nmax, B)
+        lane = (torch.empty(B, dtype=torch.int32, device=dev), f32(B), f32(B))
+    ptr = lambda t: None if t is None else t.data_ptr()
     nx, ny, nz, nmax, *geo = sw._geometry_args(tabs)
-    kb.launch("sweepxl_dtau", *(t.data_ptr() for t in (
-                  pos, dirn, group, smin, smax, sig, tabs.nd, out)),
-              B, C, nx, ny, nz, nmax, int(want_sub), *geo, kb.stream_of(pos))
+    k = _MODES.index(mode)
+    kb.launch("sweepxl_dtau", *(ptr(t) for t in (
+                  pos, dirn, act, sig, tabs.nd, out, prefix, total, runsum,
+                  *(lane or (None,) * 3))),
+              B, C, nx, ny, nz, nmax, -1 if hint is None else int(hint), k,
+              RUN, *geo, *(1.0 / v for v in tabs.h), kb.stream_of(pos),
+              count_as=_COUNTERS[k])
+    if mode == "total":
+        return total
+    if mode == "prefix":
+        return out, prefix, total, lane
     return out
 
 
@@ -152,6 +217,16 @@ def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
 
 # ---------------------------------------------------------- public wrappers
 
+def _pass1(tabs, pos, dirn, sigma, active, axis_hint, mode, plain):
+    """Check the inputs, then the plain version on the CPU or the kernel in
+    the given mode on the GPU."""
+    sig = sw._sigma(sigma)
+    sw._check(tabs, pos, dirn, sig)
+    sw._check_lane(pos, active)
+    fn = sw._dispatch(pos, plain, functools.partial(_dtau_cuda, mode=mode))
+    return fn(tabs, pos, dirn, sig, active, axis_hint)
+
+
 def sweep_dtau(tabs: XLTables, pos, dirn, sigma, active,
                axis_hint: int | None = None, want_sub: bool = False):
     """Optical depth per slab (nmax, B), or per sub-step (nmax, 3, B) when
@@ -160,44 +235,77 @@ def sweep_dtau(tabs: XLTables, pos, dirn, sigma, active,
     observer). Lanes should arrive sorted by `lane_order` or `entry_order`:
     that keeps neighbouring threads on neighbouring cells; any order gives
     the same result."""
-    group, smin, smax, sig = sw._prep(tabs, pos, dirn, sigma, active)
-    sw._check(tabs, pos, dirn, sig)
-    fn = sw._dispatch(pos, _dtau_plain, _dtau_cuda)
-    return fn(tabs, pos, dirn, sw._hinted(group, axis_hint), smin, smax, sig,
-              want_sub)
+    plain = functools.partial(_pass1_plain, want_sub=want_sub)
+    return _pass1(tabs, pos, dirn, sigma, active, axis_hint,
+                  "want_sub" if want_sub else "summed", plain)
 
 
 def sweep_dtau_plain(tabs: XLTables, pos, dirn, sigma, active,
                      axis_hint: int | None = None, want_sub: bool = False):
     """`sweep_dtau` through the plain PyTorch version on any device."""
-    group, smin, smax, sig = sw._prep(tabs, pos, dirn, sigma, active)
-    return _dtau_plain(tabs, pos, dirn, sw._hinted(group, axis_hint), smin,
-                       smax, sig, want_sub)
+    return _pass1_plain(tabs, pos, dirn, sw._sigma(sigma), active, axis_hint,
+                        want_sub)
 
 
-def _deposit_args(tabs, pos, dirn, active, dtau_sub, scale_slab, n_groups):
+def sweep_tau_total(tabs: XLTables, pos, dirn, sigma, active,
+                    axis_hint: int | None = None) -> torch.Tensor:
+    """Optical depth of each lane's whole in-grid path (B,):
+    `sweep_dtau(...).sum(0)` without the (nmax, B) tensor."""
+    return _pass1(tabs, pos, dirn, sigma, active, axis_hint, "total",
+                  _total_plain)
+
+
+def sweep_tau_total_plain(tabs: XLTables, pos, dirn, sigma, active,
+                          axis_hint: int | None = None) -> torch.Tensor:
+    """`sweep_tau_total` through the plain PyTorch version on any device."""
+    return _total_plain(tabs, pos, dirn, sw._sigma(sigma), active, axis_hint)
+
+
+def sweep_dtau_prefix(tabs: XLTables, pos, dirn, sigma, active,
+                      axis_hint: int | None = None):
+    """Pass 1 for the interaction search and pass 2: the record of
+    `sweep_dtau(want_sub=True)`, `sweep.slab_prefix` of its slab sums in the
+    lane's own slab axis, and the lane range.
+    Returns (record (nmax, 3, B), tau before each slab in ray order
+    (nmax, B), total (B,), lane = (group (B,) int32, smin, smax)), lane for
+    `resolve_interaction` and `sweep_deposit`."""
+    return _pass1(tabs, pos, dirn, sigma, active, axis_hint, "prefix",
+                  _prefix_plain)
+
+
+def sweep_dtau_prefix_plain(tabs: XLTables, pos, dirn, sigma, active,
+                            axis_hint: int | None = None):
+    """`sweep_dtau_prefix` through the plain PyTorch version on any
+    device."""
+    return _prefix_plain(tabs, pos, dirn, sw._sigma(sigma), active,
+                         axis_hint)
+
+
+def _deposit_args(tabs, pos, dirn, active, dtau_sub, scale_slab, n_groups,
+                  lane=None):
     B = pos.shape[0]
     if B % n_groups:
         raise ValueError(f"batch {B} not divisible into {n_groups} groups")
     sw._check_inputs(pos, dirn, [
         (dtau_sub, (tabs.nmax, 3, B), "dtau_sub"),
         (scale_slab, (tabs.nmax, B), "scale_slab")])
-    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+    group, smin, smax = sw._lanes(tabs, pos, dirn, active, lane)
     return (tabs, pos, dirn, group, smin, smax, dtau_sub, scale_slab,
             n_groups)
 
 
 def sweep_deposit(tabs: XLTables, pos, dirn, active, dtau_sub, scale_slab,
-                  n_groups: int = 1) -> torch.Tensor:
+                  n_groups: int = 1, lane=None) -> torch.Tensor:
     """RF deposits from the recorded per-sub-step optical depths, with no
     density access: scale_slab[t] * e^-tau_loc * ds * (1 - e^-dtau) / dtau
     per sub-step, into row lane // (B / n_groups).
 
     dtau_sub: (nmax, 3, B) from `sweep_dtau(want_sub=True)`; scale_slab:
-    (nmax, B) L * e^-(tau before the slab) in geometric slab order. Returns
-    (n_groups, ncells)."""
+    (nmax, B) L * e^-(tau before the slab) in geometric slab order. lane:
+    pass 1's (group, smin, smax) from `sweep_dtau_prefix`, which saves the
+    set-up. Returns (n_groups, ncells)."""
     args = _deposit_args(tabs, pos, dirn, active, dtau_sub, scale_slab,
-                         n_groups)
+                         n_groups, lane)
     return sw._dispatch(pos, _deposit_plain, _deposit_cuda)(*args)
 
 
@@ -209,25 +317,34 @@ def sweep_deposit_plain(tabs: XLTables, pos, dirn, active, dtau_sub,
 
 
 def resolve_interaction(tabs: XLTables, pos, dirn, active, dtau_sub, tb_slab,
-                        tau_int):
+                        tau_int, lane=None):
     """Exact interaction point and cell from the per-sub-step record: find
     the slab where the ray-ordered prefix crosses tau_int, then re-derive that
     one slab's <= 3 sub-segments per lane (no density access).
 
     tb_slab: (nmax, B) optical depth before each slab in ray order
-    (`sweep.slab_prefix`). Returns (s_int, icell int64 or -1, found)."""
+    (`sweep.slab_prefix`). lane: pass 1's (group, smin, smax) from
+    `sweep_dtau_prefix`, which saves the set-up. Returns (s_int, icell int64
+    or -1, found)."""
     B = pos.shape[0]
-    dtau_slab = torch.sum(dtau_sub, dim=1)
+    group, smin, smax = sw._lanes(tabs, pos, dirn, active, lane)
+    g = sw._lane_geometry(tabs, pos, dirn, group)
+    # the slab holds tau_int when its prefix is <= tau_int and the next
+    # slab's along the ray is above it (the ray's last slab has no bound):
+    # the prefix alone, without summing the record over its sub-steps
+    # (the reference tests tau_int - tb < the slab's sum instead)
     rel = tau_int[None, :] - tb_slab
-    hit = (rel >= 0.0) & (rel < dtau_slab) & (dtau_slab > 0)
+    end = torch.full_like(tb_slab[:1], float("inf"))
+    tb_next = torch.where((g["da"] > 0)[None, :],
+                          torch.cat([tb_slab[1:], end]),
+                          torch.cat([end, tb_slab[:-1]]))
+    hit = (rel >= 0.0) & (tau_int[None, :] < tb_next)
     found = hit.any(dim=0) & active
-    # the hit slab is unique per lane (tau grows along the ray): one gather
-    # per table where the TPU used masked reductions
+    # the hit slab is unique per lane (the prefix grows along the ray): one
+    # gather per table where the TPU used masked reductions
     t_hit = torch.argmax(hit.to(torch.int8), dim=0)
     rel_t = rel.gather(0, t_hit[None, :])[0]
     d_t = dtau_sub.gather(0, t_hit[None, None, :].expand(1, 3, B))[0]
-    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
-    g = sw._lane_geometry(tabs, pos, dirn, group)
     # the sub-DDA always walks in +s, so sub-steps are already in ray order
     steps, _ = sw._substeps(g, t_hit, smin, smax)
     cum = torch.zeros_like(rel_t)

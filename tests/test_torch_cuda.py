@@ -28,11 +28,20 @@ kernel: one launch per call, every accumulator within 1e-5 of its maximum
 of the plain `detect`'s terms summed exactly (in float64) on the same CUDA
 tensors, added in place.
 
+Kernel 6's four modes (the summed form and the record bit for bit, the
+total and the prefix within 1e-6 of each lane's tau, the lane range it forms
+equal to `_lane_range`) at 80^3 and at 97x80x64 (nmax off the run length),
+with inactive lanes, lanes outside the box and tiny direction components;
+the XL event loop launches the prefix mode once per event and the total
+once per peel-off, and calls no `slab_prefix`, `_lane_range` or
+`torch.sum` over a record.
+
 Kernel 2 also runs with config 2's 32 lane groups and kernel 3 on its
 163,840-bin frame; a small config 2 with dust emission launches kernels
 1-3 on the card and matches the same seed on the CPU within 1e-4 (SEDs and
 RF, of their maxima). The probe kernels (8-9) are held against their plain
-versions: gathers bit for bit, sums within 1e-6 relative.
+versions: gathers bit for bit, sums within 1e-6 relative; the row-lookup
+select loop bit for bit, also off its block grid.
 """
 
 import numpy as np
@@ -389,6 +398,129 @@ def test_sweepxl_dtau_kernel(dev, C, hint):
     assert float((summed - k.sum(dim=1)).abs().max()) <= 1e-6 * scale
 
 
+def _xl_inputs(dev, shape, C, B, seed, edge):
+    """XL tables on an off-centre grid of the given shape and rays; with
+    edge, an eighth of the rays start outside the box, an eighth have a
+    direction component below 1e-30, an eighth run along -z, and a fifth
+    of the lanes are inactive."""
+    rs = np.random.default_rng(seed)
+    grid = make_cartesian(((-1.1 * PC, 1.3 * PC), (-1.2 * PC, 1.2 * PC),
+                           (-1.3 * PC, 1.0 * PC)), shape)
+    nd1 = msys.uniform_density_sphere(grid, 1.0, 1e-24, PC)
+    nd = np.stack([nd1 * rs.uniform(0.5, 1.5, nd1.shape) for _ in range(C)],
+                  axis=1)
+    med = msys.make_medium(grid, nd, np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((C, 2), 1e-24),
+                           albedo=np.full((C, 2), 0.6), g=np.full((C, 2), 0.5))
+    tabs = _xl_tables(sw.build_tables(grid.to(dev), med.to(dev)))
+    pos = rs.uniform(-1.0 * PC, 1.0 * PC, (B, 3))
+    d = rs.normal(size=(B, 3))
+    if edge:
+        k = B // 8
+        pos[:k] = rs.uniform(-2 * PC, 2 * PC, (k, 3))
+        d[k:2 * k][np.arange(k), rs.integers(0, 3, k)] = 1e-35
+        d[2 * k:3 * k] = [0.0, 0.0, -1.0]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos, d = t32(pos), t32(d)
+    sig = t32(1e-24 * rs.uniform(0.5, 1.5, (C, B)))
+    active = torch.tensor(rs.uniform(size=B) > (0.2 if edge else 0.0),
+                          device=dev)
+    return tabs, pos, d, sig, active
+
+
+@pytest.mark.parametrize("shape,C,hint,edge", [
+    ((80, 80, 80), 1, None, False), ((80, 80, 80), 2, 1, False),
+    ((97, 80, 64), 1, None, False), ((97, 80, 64), 3, None, True),
+    ((80, 80, 80), 1, 2, True)],
+    ids=["80^3", "80^3-C2-hint", "97x80x64", "97x80x64-C3-edge",
+         "80^3-hint-edge"])
+def test_sweepxl_modes_kernel(dev, shape, C, hint, edge):
+    """Kernel 6's four modes against their plain versions: the record and
+    the summed form bit for bit, the total and the prefix within 1e-6 of
+    each lane's tau, the lane range equal to `_lane_range`; one launch per
+    call, each counted under its mode's name."""
+    tabs, pos, d, sig, active = _xl_inputs(dev, shape, C, 4096, 60 + C, edge)
+    args = (tabs, pos, d, sig, active, hint)
+    kb.reset_launches()
+    summed = xl.sweep_dtau(*args)
+    sub = xl.sweep_dtau(*args, want_sub=True)
+    tot = xl.sweep_tau_total(*args)
+    rec, tb, tot_c, lane = xl.sweep_dtau_prefix(*args)
+    assert (kb.LAUNCHES["sweepxl_dtau"], kb.LAUNCHES["sweepxl_tau_total"],
+            kb.LAUNCHES["sweepxl_dtau_prefix"]) == (2, 1, 1)
+    assert sum(kb.LAUNCHES.values()) == 4
+    assert torch.equal(summed, xl.sweep_dtau_plain(*args))
+    p_sub = xl.sweep_dtau_plain(*args, want_sub=True)
+    assert torch.equal(sub, p_sub) and torch.equal(rec, p_sub)
+    tot_p = xl.sweep_tau_total_plain(*args)
+    assert int((tot_p > 0).sum()) > 1000
+    for t in (tot, tot_c):
+        assert bool(((t - tot_p).abs() <= 1e-6 * tot_p).all())
+    _, tb_p, tot_pp, lane_p = xl.sweep_dtau_prefix_plain(*args)
+    assert torch.equal(tot_pp, tot_p)
+    assert bool(((tb - tb_p).abs() <= 1e-6 * tot_p[None, :]).all())
+    for a, b in zip(lane, lane_p):
+        assert torch.equal(a, b)
+    if edge:
+        assert int((lane[2] == lane[1]).sum()) > 4096 // 5
+
+
+@pytest.mark.parametrize("store_rf", [False, True], ids=["no_rf", "rf"])
+def test_xl_loop_launches(dev, store_rf, monkeypatch):
+    """The XL event loop: one `sweepxl_dtau_prefix` launch per event, one
+    `sweepxl_tau_total` per peel-off, kernel 7 per event with an RF, no
+    other pass-1 form; no `slab_prefix`, no `_lane_range` and no
+    `torch.sum` over a record."""
+    grid = make_cartesian(((-1.2 * PC, 1.2 * PC),) * 3, (80, 80, 80))
+    med = msys.make_medium(
+        grid, msys.uniform_density_sphere(grid, 1.0, 1e-24, PC),
+        np.array([0.4e-6, 0.7e-6]), sigma_ext=np.full((1, 2), 1e-24),
+        albedo=np.full((1, 2), 0.6), g=np.full((1, 2), 0.5))
+    sim = Simulation(
+        grid=grid, medium=med,
+        sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
+        instruments=[dinst.DistantInstrumentCfg(
+            name="i", wave_borders=(0.5e-6, 0.6e-6), distance=100 * PC,
+            npx=16, npy=16, fovx=4 * PC, fovy=4 * PC)],
+        options=lc.TransportOptions(max_steps=grid.max_steps(),
+                                    max_events=4),
+        rf_borders=np.array([0.5e-6, 0.6e-6]) if store_rf else None,
+        num_packets=8192, batch_size=4096, seed=1, device=dev)
+    assert isinstance(sim._sweep_tabs, xl.XLTables)
+    nmax = sim._sweep_tabs.nmax
+
+    def refuse(*a, **k):
+        raise AssertionError("not on the XL loop")
+
+    torch_sum = torch.sum
+
+    def guarded_sum(x, *a, **k):
+        if x.dim() == 3 and x.shape[:2] == (nmax, 3):
+            raise AssertionError("torch.sum over the record")
+        return torch_sum(x, *a, **k)
+
+    monkeypatch.setattr(sw, "slab_prefix", refuse)
+    monkeypatch.setattr(sw, "_lane_range", refuse)
+    monkeypatch.setattr(torch, "sum", guarded_sum)
+    kb.reset_launches()
+    rf, accs = sim.run_primary(verbose=False)
+    n = dict(kb.LAUNCHES)
+    events = sim.last_stats["events"]
+    assert events > 2
+    assert n["sweepxl_dtau_prefix"] == events
+    # the emission peel-off of each of the 2 batches, then one per event
+    assert n["sweepxl_tau_total"] == 2 + events
+    assert n["sweepxl_deposit"] == (events if store_rf else 0)
+    assert n["sweepxl_dtau"] == 0 and n["detect"] > 0
+    for name in ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
+                 "sweep_deposit", "sweep_deposit_prefix", "scatter_add"):
+        assert n[name] == 0, name
+    assert float(accs[0]["sed"].sum()) > 0
+    if store_rf:
+        assert bool(torch.isfinite(rf).all()) and float(rf.sum()) > 0
+
+
 @pytest.mark.parametrize("C,n_groups", [(1, 1), (2, 4)])
 def test_sweepxl_deposit_kernel(dev, C, n_groups):
     B = 4096
@@ -664,6 +796,22 @@ def test_gather_probe_kernels(dev, variant):
         assert float((got - ref).abs().max()) <= 1e-6 * float(ref.max())
     else:
         assert torch.equal(got, gp.gather_plain(nd, idx))
+
+
+@pytest.mark.parametrize("R,S,W,iters", [(512, 64, 128, 256),
+                                         (500, 37, 100, 300)],
+                         ids=["probe", "off-grid"])
+def test_row_lookup_select_exact(dev, R, S, W, iters):
+    """The select loop equal to `lookup_plain` bit for bit, at the probe's
+    shapes and at shapes off the kernel's block grid, from start rows below
+    0 and past R."""
+    from skirt9_tpu_torch.tools import sublane_gather as sg
+    tab, idx = sg.inputs(dev, R, S, W)
+    idx = idx * 3 - 700
+    kb.reset_launches()
+    got = sg.lookup(tab, idx, iters, select=True)
+    assert kb.LAUNCHES["row_lookup_select"] == 1
+    assert torch.equal(got, sg.lookup_plain(tab, idx, iters))
 
 
 @pytest.mark.parametrize("select", [False, True])

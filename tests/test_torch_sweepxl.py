@@ -16,7 +16,11 @@ Bounds, and why:
   tau > 0.01, 2e-4 of the largest tau on every lane; its density planes are
   int8 (|err| <= 3.1e-5 of a row's maximum, x1.5 density contrast here) on
   top of the nudge above.
-- the port's XL pass 1 against its resident pass 1: identical (one march).
+- the port's XL pass 1 against its resident pass 1: identical (one march);
+  its total and prefix modes against the plain march followed by
+  `torch.sum` and `sweep.slab_prefix`: identical, and against the
+  reference's record summed and run through its own `slab_prefix`: the XL
+  bounds above, the prefix relative to its lane's tau.
 - RF deposits: 1e-5 of the maximum (the same f32 terms summed in another
   order); interaction: `found` equal on >= 99.9% of lanes, `icell` equal
   where both found, `s_int` within 1e-5 of a cell size.
@@ -115,6 +119,54 @@ def test_dtau_matches_reference(C, hint):
     assert all(v == 0 for v in kb.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("C,hint", [(1, None), (2, None), (1, 2), (2, 0)],
+                         ids=["C1", "C2", "C1-hint", "C2-hint"])
+def test_total_and_prefix_match_reference(C, hint):
+    """`sweep_tau_total` and `sweep_dtau_prefix` against the reference's
+    interpret-mode record summed over its sub-steps and its own
+    `slab_prefix` (the bounds of `test_dtau_matches_reference`: 2e-4
+    relative on lanes with tau > 0.01, the prefix relative to its lane's
+    tau), and against the port's plain march followed by `torch.sum` and
+    `sweep.slab_prefix` exactly; the lane range is `_lane_range`'s."""
+    rgrid, rmed, tabs, pos, d = _setup(C, 1024, seed=70 + C, hint=hint)
+    _, sig, act = _ref_march_tau(rgrid, rmed, pos, d)
+    args = _port(pos, d, sig, act)
+    kb.reset_launches()
+    tot = xl.sweep_tau_total(tabs, *args, axis_hint=hint)
+    rec, tb, tot_c, lane = xl.sweep_dtau_prefix(tabs, *args, axis_hint=hint)
+    assert all(v == 0 for v in kb.LAUNCHES.values())
+    assert tot.shape == tot_c.shape == (1024,)
+    assert rec.shape == (N, 3, 1024) and tb.shape == (N, 1024)
+    # the reference
+    ref_sub = np.asarray(ref_xl.sweep_dtau(
+        ref_xl.build_tables(rgrid, rmed), jnp.asarray(pos), jnp.asarray(d),
+        jnp.asarray(sig), jnp.asarray(act), axis_hint=hint, want_sub=True))
+    grp = (np.asarray(ref_sw.dominant_axis(rgrid, jnp.asarray(d)))
+           if hint is None else np.full(1024, hint))
+    up = d[np.arange(1024), grp] > 0
+    tb_r, tot_r = (np.asarray(x, np.float64) for x in ref_sw.slab_prefix(
+        jnp.asarray(ref_sub.sum(axis=1)), jnp.asarray(up)))
+    for t in (tot, tot_c):
+        _assert_tau_close(t.double().numpy(), tot_r, 2e-4,
+                          2e-4 * tot_r.max(), "total vs reference")
+    m = tot_r > 0.01
+    err = np.abs(tb.double().numpy() - tb_r)
+    assert (err[:, m] / tot_r[m]).max() <= 2e-4
+    assert err.max() <= 2e-4 * tot_r.max()
+    # the port's plain march, then torch.sum and slab_prefix, exactly
+    summed = xl.sweep_dtau_plain(tabs, *args, axis_hint=hint)
+    assert torch.equal(tot, torch.sum(summed, dim=0))
+    assert torch.equal(rec, xl.sweep_dtau_plain(tabs, *args, axis_hint=hint,
+                                                want_sub=True))
+    g, smin, smax = sw._lane_range(tabs, args[0], args[1], args[3])
+    g = sw._hinted(g, hint)
+    tb_p, tot_p = sw.slab_prefix(
+        summed, args[1].gather(1, g.long()[:, None])[:, 0] > 0)
+    assert torch.equal(tb, tb_p) and torch.equal(tot_c, tot_p)
+    for a, b in zip(lane, (g, smin, smax)):
+        assert torch.equal(a, b)
+
+
 def _record(C, B, seed):
     """Inputs of the deposit and the interaction search: the port's pass-1
     record, the ray-ordered prefix and a sampled tau_int, as numpy."""
@@ -165,6 +217,27 @@ def test_resolve_interaction_matches_reference():
     both = f & f_r
     assert np.array_equal(ic[both], ic_r[both])
     assert np.abs(s[both] - s_r[both]).max() <= 1e-5 * tabs.h[0]
+
+
+@pytest.mark.parametrize("what", ["resolve_interaction", "sweep_deposit"])
+def test_pass1_lane_changes_nothing(what):
+    """Pass 2 and the interaction search given pass 1's lane range (from
+    `sweep_dtau_prefix`) give what they give when they form it themselves."""
+    B = 1024
+    _, tabs, pos, d, act, sub, scale, tb, tau_int = _record(1, B, seed=55)
+    tpos, td, tact = _port(pos, d, act)
+    _, _, _, lane = xl.sweep_dtau_prefix(
+        tabs, tpos, td, torch.full((1, B), SIGMA), tact)
+    if what == "resolve_interaction":
+        call = lambda **kw: xl.resolve_interaction(
+            tabs, tpos, td, tact, *_port(sub, tb, tau_int), **kw)
+    else:
+        call = lambda **kw: (xl.sweep_deposit(
+            tabs, tpos, td, tact, *_port(sub, scale), **kw),)
+    got, want = call(lane=lane), call()
+    assert int(torch.count_nonzero(want[0])) > B // 4
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 class _Medium:
