@@ -37,11 +37,17 @@ Phases, one JSON line each:
                     record and summed form bit-identical, its total (the +z
                     peel-off) and prefix within 1e-6 of each lane's tau,
                     the lane range it forms equal to _lane_range bit for
-                    bit; kernel 7's RF within 1e-4 of its maximum; each
-                    mode timed, kernel 6 also on unsorted lanes, kernel 1
-                    on the same rays, and the kernel-6 variants of
-                    perf/kernel6_variants.py (other run lengths, the lane-block
-                    and lane-tile designs, the first design's split)
+                    bit; kernel 7's table mode, its RF within 1e-4 of its
+                    maximum, and its prefix mode on kernel 6's prefix with
+                    an RF, with lum_half = 0 and without an RF: s_int,
+                    icell and found identical, the RF within 1e-4 of its
+                    maximum; each mode timed, kernel 7's prefix mode beside
+                    the parent's unfused form (scale_slab, the table mode,
+                    resolve_interaction), kernel 6 also on unsorted lanes,
+                    kernel 1 on the same rays, and the variants of
+                    perf/kernel6_variants.py and perf/kernel7_variants.py
+                    (other run lengths, other designs, the first designs,
+                    splits)
   draw_for_draw     16,384 packets on the CPU (plain versions) and on the GPU
                     (kernels), same seed: SEDs within 1e-4, frame within 1e-3
                     of its brightest pixel; again with a one-bin RF, totals
@@ -62,11 +68,12 @@ Phases, one JSON line each:
                     shares
   full_width_xl     bench_config1x256 (256^3, 2^17 packets in one batch, 24
                     events, no RF), timed after a warm-up: the XL tables,
-                    kernel 6's prefix and total modes and detect launched,
-                    its reference modes, kernels 1-3 and 7 not, the same
-                    gates
-  rf_xl             the same with a one-bin RF: kernel 7 launched on pass
-                    1's prefix and lane range, the RF
+                    kernel 6's prefix and total modes, kernel 7's prefix
+                    mode and detect launched, their reference modes and
+                    kernels 1-5 not, the same gates
+  rf_xl             the same with a one-bin RF: kernel 7's prefix mode
+                    launched on pass 1's record, prefix and lane range, the
+                    RF
                     finite and positive, its total within 1e-4 of the same
                     seed's run on the resident sweep (kernels 1-2)
   kernels_ml        kernels 4-5 (the multi-level tree sweep) vs their plain
@@ -75,12 +82,19 @@ Phases, one JSON line each:
                     (a 128^3 fine raster) and on bench_config3ismxl's (256^3,
                     its leaf map beyond L2), with want_sub, summed and with
                     the +z peel-off hint, tau within 1e-5 relative
-                    (bit-identical expected) and leaf ids identical; kernel
+                    (bit-identical expected) and leaf ids identical, its
+                    total (the +z peel-off and the event rays) and prefix
+                    modes within 1e-6 of each lane's tau, their record,
+                    leaf ids, step sums and lane range bit for bit; kernel
                     5 on both trees (config3ism's in its shared-memory leaf
                     table, config3ismxl's on its global path), its RF within
                     1e-5 of its maximum, s_int, found and the interaction
-                    cells equal; timed, with resolve_interaction (the no-RF
-                    pass 2) beside kernel 5
+                    cells equal; timed, kernel 4's modes beside the unfused
+                    forms the parent's loop ran and the variants of
+                    perf/kernel4_variants.py (run lengths, the first
+                    design, a split), resolve_interaction (the no-RF pass
+                    2) as the parent called it and with pass 1's lane range
+                    and step sums beside kernel 5
   draw_for_draw_ml  the density octree of tests/test_mlsweep.py (max_level
                     4) with a one-bin RF, 16,384 packets, CPU vs GPU: SEDs
                     within 1e-4, frame 1e-3 of its brightest pixel, RF total
@@ -88,7 +102,8 @@ Phases, one JSON line each:
   full_width_ml     bench_config3ism (bench.py:317-367: 46 x 26 sites,
                     max_level 7, about 5,000 leaves, 2^17 packets in batches
                     of 2^16, 16 events, no RF), timed after a warm-up:
-                    kernel 4 and detect launched, no uniform-grid sweep; the
+                    kernel 4's total and prefix modes and detect launched,
+                    its reference modes and no uniform-grid sweep; the
                     transparent SED analytic within 1e-5, direct/transparent
                     = exp(-0.5) within 1e-3, R < 0.01
   full_width_ml_large  bench_config3ismxl's tree (bench.py:370-420: 400 x 96
@@ -99,8 +114,9 @@ Phases, one JSON line each:
   breakdown_ml      one more full_width_ml run under torch.profiler: device
                     launches, stream syncs and host-to-device copies per
                     event, busy and idle shares, top kernels
-  rf_ml             full_width_ml with a one-bin RF: kernel 5 launched, the
-                    RF finite and positive, packets/s against full_width_ml
+  rf_ml             full_width_ml with a one-bin RF: kernel 5 launched too,
+                    the RF finite and positive, packets/s against
+                    full_width_ml
   kernels_probe     kernels 8-9 through their entry points
                     (skirt9_tpu_torch/tools/gather_probe.py, sublane_gather.py)
                     at the original probes' shapes, each variant against its
@@ -678,6 +694,7 @@ def phase_kernels_xl(torch) -> dict:
     kernel-6 variants of perf/kernel6_variants.py (other run lengths, the
     lane-block and lane-tile designs, and the first design's split)."""
     from perf import kernel6_variants as k6v
+    from perf import kernel7_variants as k7v
     from skirt9_tpu_torch.transport import sweep as sw
     from skirt9_tpu_torch.transport import sweepxl as xl
     sim = config1("cuda", num_packets=B_FULL, n=256)
@@ -748,7 +765,6 @@ def phase_kernels_xl(torch) -> dict:
     lum = torch.tensor(rs.uniform(0.5, 2.0, B), dtype=torch.float32,
                        device=dirn.device)
     scale = lum[None, :] * torch.exp(-tb_p)
-    del tb_p
     dep = (tabs, pos, dirn, g, smin, smax, sub, scale, 1)
     rf_k = xl._deposit_cuda(*dep)
     rf_p = xl._deposit_plain(*dep)
@@ -758,6 +774,37 @@ def phase_kernels_xl(torch) -> dict:
     require(rf_max > 0 and rf_err <= 1e-4 * rf_max,
             f"kernel 7 rf error {rf_err} <= 1e-4 * {rf_max}")
     del rf_k, rf_p
+
+    # kernel 7's prefix mode on pass 1's record, prefix and lane range, as
+    # the event loop calls it: with an RF, with lum_half = 0 and without an
+    # RF; tau_int sampled up to 1.1 tau, a sixteenth of it 0
+    u = rs.uniform(0.0, 1.1, B)
+    u[:B // 16] = 0.0
+    tau_int = torch.tensor(u, dtype=torch.float32, device=dirn.device) * tot_p
+    act_int = active & (tot_p > 1e-6)
+    lum_h = lum * active
+    pre = lambda lm: (tabs, pos, dirn, act_int, sub, lm, tau_int, tb_p,
+                      INV_SQRT, lane_p)
+    pre_err = 0.0
+    for what, lm in (("an RF", lum_h), ("lum_half = 0", torch.zeros_like(lum)),
+                     ("no RF", None)):
+        rf_k, *hit_k = xl.sweep_deposit_prefix(*pre(lm))
+        rf_p, *hit_p = xl.sweep_deposit_prefix_plain(*pre(lm))
+        torch.cuda.synchronize()
+        require(int(hit_p[2].sum()) > B // 2, "kernel 7 test rays interact")
+        for a, b, name in zip(hit_k, hit_p, ("s_int", "icell", "found")):
+            require(bool(torch.equal(a, b)),
+                    f"kernel 7 prefix mode's {name} identical ({what})")
+        if lm is None:
+            require(rf_k is None and rf_p is None, "no RF without lum_half")
+            continue
+        e = float((rf_k - rf_p).abs().max())
+        m = float(rf_p.abs().max())
+        require(e <= 1e-4 * m if lm is lum_h else (m == 0 and e == 0),
+                f"kernel 7 prefix mode's rf error {e} <= 1e-4 * {m} ({what})")
+        if lm is lum_h:
+            pre_err, pre_max = e, m
+    del rf_k, rf_p, hit_k, hit_p
     torch.cuda.empty_cache()
 
     # timings of kernel 6's modes: the event rays (record, summed, prefix),
@@ -815,11 +862,46 @@ def phase_kernels_xl(torch) -> dict:
     ms7 = cuda_ms(lambda: xl._deposit_cuda(*dep))
     dms7 = device_ms(lambda: xl._deposit_cuda(*dep))["ours"]
     pms7 = cuda_ms(lambda: xl._deposit_plain(*dep), reps=3)
+    ncells = tabs.nd.shape[0]
     out["sweepxl_deposit"] = dict(
         max_abs_err=rf_err, rf_max=rf_max, ms=ms7, device_ms=dms7,
         plain_ms=pms7, library_ms=None,
-        **bound(lane_bytes(B, 0) + 4 * rec + tabs.nd.shape[0] * 4,
+        **bound(lane_bytes(B, 0) + 4 * rec + ncells * 4,
                 n_act * (OPS_SLAB + 3 * (OPS_SUB + OPS_DEP))))
+    # the prefix mode against the parent's unfused form on the same inputs:
+    # scale_slab, kernel 7's table mode and resolve_interaction
+    kern = lambda lm: xl.sweep_deposit_prefix(*pre(lm))
+    resolve = lambda: xl.resolve_interaction(tabs, pos, dirn, act_int, sub,
+                                             tb_p, tau_int, lane=lane_p)
+    unfused = lambda: (xl.sweep_deposit(
+        tabs, pos, dirn, active, sub,
+        (lum_h[None, :] * torch.exp(-tb_p)) * INV_SQRT, lane=lane_p),
+        resolve())
+    # bytes: the lane inputs, lum, tau_int and the mask, the prefix, the
+    # record at the crossed pairs and at the hit slab, the RF and the
+    # per-lane outputs; operations: the crossed pairs' deposits, pass B's
+    # slab, the hit test per (slab, lane)
+    in_b = lane_bytes(B, 0) + 9 * B + tabs.nmax * B * 4 + 12 * B + 13 * B
+    ops_b = B * (OPS_SLAB + 3 * OPS_SUB + 12) + 3 * tabs.nmax * B
+    d_rf, d_res = device_ms(lambda: kern(lum_h)), device_ms(resolve)
+    out["sweepxl_deposit_prefix"] = dict(
+        max_abs_err=pre_err, rf_max=pre_max,
+        ms=cuda_ms(lambda: kern(lum_h)), device_ms=d_rf["ours"],
+        device_ms_all=d_rf["all"], ms_no_rf=cuda_ms(lambda: kern(None)),
+        device_ms_no_rf=device_ms(lambda: kern(None))["ours"],
+        plain_ms=cuda_ms(lambda: xl.sweep_deposit_prefix_plain(
+            *pre(lum_h)), reps=3),
+        library_ms=None, unfused_ms=cuda_ms(unfused),
+        unfused_device_ms=device_ms(unfused)["all"],
+        unfused_no_rf_ms=cuda_ms(resolve),
+        resolve_interaction_device_ms=d_res["all"],
+        resolve_interaction_launches=d_res["launches"],
+        bound_no_rf_ms=bound(in_b, ops_b)["bound_ms"],
+        **bound(in_b + n_act * 12 + ncells * 4,
+                ops_b + n_act * (OPS_SLAB + 3 * (OPS_SUB + OPS_DEP))))
+    out["sweepxl_deposit"]["variants"] = k7v.measure(
+        torch, tabs, (pos, dirn, lane_p, act_int, sub, lum_h, tau_int, tb_p,
+                      INV_SQRT, scale), cuda_ms, device_ms)
     emit({"phase": "kernels_xl", "batch": B, "grid": list(tabs.n), **out})
     return out
 
@@ -870,19 +952,25 @@ def phase_draw_for_draw(torch, phase="draw_for_draw", n=32,
 # the resident sweep's path: kernel 1 as the tracer's total and pass 1's
 # prefix, kernel 2 from that prefix (the reference contracts, modes
 # sweep_dtau and sweep_deposit, on no path); the XL path likewise with
-# kernel 6 (its reference modes, counted as sweepxl_dtau, on no path) and,
-# with an RF, kernel 7
+# kernel 6 and kernel 7 from its prefix, with or without an RF (their
+# reference modes, counted as sweepxl_dtau and sweepxl_deposit, on no path)
 RESIDENT = ("sweep_tau_total", "sweep_dtau_prefix", "sweep_deposit_prefix")
-XL_PASS1 = ("sweepxl_tau_total", "sweepxl_dtau_prefix")
-XL = XL_PASS1 + ("sweepxl_deposit",)
+XL = ("sweepxl_tau_total", "sweepxl_dtau_prefix", "sweepxl_deposit_prefix")
+# the tree path: kernel 4 as the tracer's total and pass 1's prefix (its
+# reference modes, counted as mlsweep_dtau, on no path), kernel 5 with an RF
+ML_PASS1 = ("mlsweep_tau_total", "mlsweep_dtau_prefix")
+ML = ML_PASS1 + ("mlsweep_deposit",)
 # every path detects through the fused kernel, never through kernel 3, and
-# takes kernels 1, 2 and 6 in their fused modes, never in the reference's
+# takes kernels 1, 2, 4, 6 and 7 in their fused modes, never in the
+# reference's
 DETECT = ("detect",)
-NOT_PATH = ("sweep_dtau", "sweep_deposit", "sweepxl_dtau", "scatter_add")
+NOT_PATH = ("sweep_dtau", "sweep_deposit", "sweepxl_dtau", "sweepxl_deposit",
+            "mlsweep_dtau", "scatter_add")
 
 
 def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
-                     must=RESIDENT + DETECT, must_not=XL + NOT_PATH, **kw):
+                     must=RESIDENT + DETECT, must_not=XL + ML + NOT_PATH,
+                     **kw):
     """A config-1 path at full width, timed after one warm-up run, with the
     correctness gates. kw: config1's arguments (grid size, packets)."""
     from skirt9_tpu_torch.utils.fits import read_fits
@@ -985,7 +1073,7 @@ def phase_rf_xl(torch) -> dict:
     kw = dict(num_packets=B_FULL, n=256, store_rf=True)
     sim = config1("cuda", **kw)
     require(type(sim._sweep_tabs).__name__ == "XLTables", "256^3 builds XL")
-    (rf, accs), launches = drive(XL + DETECT, RESIDENT + NOT_PATH,
+    (rf, accs), launches = drive(XL + DETECT, RESIDENT + ML + NOT_PATH,
                                  lambda: sim.run_primary(verbose=False))
     stats = dict(sim.last_stats)
     require(bool(torch.isfinite(rf).all()) and float(rf.min()) >= 0
@@ -1008,7 +1096,6 @@ def phase_rf_xl(torch) -> dict:
 
 # ------------------------------------------------------------ tree grids
 
-ML = ("mlsweep_dtau", "mlsweep_deposit")
 # bench_config3ism (bench.py:336-342) and bench_config3ismxl (:390-396):
 # clumps, sites per clump, clump scale [pc], max_level
 ISM = {"config3ism": (46, 26, 0.04, 7), "config3ismxl": (400, 96, 0.03, 8)}
@@ -1077,9 +1164,15 @@ def _dtau_ml(torch, sim, rs):
     through the public wrappers (`mlsweep.sweep_dtau`, `sweep_dtau_plain`):
     the event record (want_sub: tau and leaf ids), the summed form, and the
     +z peel-off march with its axis hint; tau within 1e-5 relative and the
-    leaf ids identical. Then its timings on the launch alone (the lane
-    set-up done once) and its bound. Returns (entry, rays, lane set-up,
-    the kernel's and the plain version's record)."""
+    leaf ids identical; then its total mode (the tracer's) and prefix mode
+    (the loop's pass 1): the totals and the prefix within 1e-6 of each
+    lane's tau, the record, leaf ids, step sums and lane range bit for bit.
+    Then the timings of each mode (the lane set-up inside) beside the
+    unfused forms that the parent's loop ran, the variants of
+    perf/kernel4_variants.py, and the bounds. Returns (the record mode's
+    entry, the total and prefix modes' entries, rays, lane set-up, the
+    kernel's and the plain version's record)."""
+    from perf import kernel4_variants as k4v
     from skirt9_tpu_torch.transport import mlsweep as ml
     from skirt9_tpu_torch.transport import sweep as sw
     tabs = sim._sweep_tabs
@@ -1113,17 +1206,55 @@ def _dtau_ml(torch, sim, rs):
                     ((sub_k, sub_p), (sum_k, sum_p), (z_k, z_p)))
     del sum_k, sum_p, z_k, z_p
 
+    # modes 2 and 3: the total (the +z peel-off, as the tracer runs it, and
+    # the event rays) and the prefix within 1e-6 of each lane's tau, the
+    # record, leaf ids and step sums bit for bit, the lane range equal to
+    # _lane_range
+    ev = (tabs, pos, dirn, sig, active)
+    pl = (tabs, pos, kz, sig, active, 2)
+    rel_tau = lambda a, b, tau: float(((a - b).abs()
+                                       / tau.clamp_min(1e-30)).max())
+    tot_z_p = ml.sweep_tau_total_plain(*pl)
+    tot_p = ml.sweep_tau_total_plain(*ev)
+    tot_z, tot_e = ml.sweep_tau_total(*pl), ml.sweep_tau_total(*ev)
+    pre_k = ml.sweep_dtau_prefix(*ev)
+    pre_p = ml.sweep_dtau_prefix_plain(*ev)
+    rec_n = ml.sweep_dtau_prefix(*ev, leaf_ids=False)
+    torch.cuda.synchronize()
+    require(bool((tot_z_p > 0).sum() > B // 2), "peel-off rays see dust")
+    rel_tot = max(rel_tau(tot_z, tot_z_p, tot_z_p),
+                  rel_tau(tot_e, tot_p, tot_p),
+                  rel_tau(pre_k[4], tot_p, tot_p))
+    rel_pre = rel_tau(pre_k[3], pre_p[3], tot_p[None, :])
+    what = f"({tabs.n[0]}^3 raster)"
+    require(rel_tot <= 1e-6,
+            f"kernel 4 totals within 1e-6 of each lane's tau {what}: "
+            f"{rel_tot}")
+    require(rel_pre <= 1e-6,
+            f"kernel 4 prefix within 1e-6 of each lane's tau {what}: "
+            f"{rel_pre}")
+    for a, b, name in ((pre_k[0], pre_p[0], "record"),
+                       (pre_k[1], pre_p[1], "leaf ids"),
+                       (pre_k[2], pre_p[2], "step sums"),
+                       (rec_n[0], pre_p[0], "record without leaf ids"),
+                       *zip(pre_k[5], pre_p[5], ("axis", "smin", "smax"))):
+        require(bool(torch.equal(a, b)),
+                f"kernel 4 prefix mode's {name} bit-identical {what}")
+    require(rec_n[1] is None, "kernel 4 prefix mode without leaf ids")
+    abs_tot = max(float((tot_z - tot_z_p).abs().max()),
+                  float((pre_k[4] - tot_p).abs().max()))
+    abs_pre = float((pre_k[3] - pre_p[3]).abs().max())
+    del pre_k, pre_p, rec_n
+
     lanes = sw._prep(tabs, pos, dirn, sig, active)
     g, smin, smax, sg = lanes
-    gz, sminz, smaxz, _ = sw._prep(tabs, pos, kz, sig, active)
-    ev = (tabs, pos, dirn, g, smin, smax, sg)
-    pl = (tabs, pos, kz, torch.full_like(gz, 2), sminz, smaxz, sg)
-    pms = cuda_ms(lambda: ml._dtau_plain(*ev, True), reps=3)
+    pms = cuda_ms(lambda: ml.sweep_dtau_plain(*ev, want_sub=True), reps=3)
     torch.cuda.empty_cache()
-    ms = cuda_ms(lambda: ml._dtau_cuda(*ev, True))
-    dms = device_ms(lambda: ml._dtau_cuda(*ev, True))["ours"]
-    ms_sum = cuda_ms(lambda: ml._dtau_cuda(*ev, False))
-    ms_peel = cuda_ms(lambda: ml._dtau_cuda(*pl, False))
+    rec_mode = lambda: ml.sweep_dtau(*ev, want_sub=True)
+    ms = cuda_ms(rec_mode)
+    dms = device_ms(rec_mode)["ours"]
+    ms_sum = cuda_ms(lambda: ml.sweep_dtau(*ev))
+    ms_peel = cuda_ms(lambda: ml.sweep_dtau(*pl))
     # the rate of PyTorch's own gather on the leaf map (L2-resident on a
     # 128^3 raster, not on a 256^3 one)
     flat = torch.randint(0, tabs.leafmap.numel(), (1 << 24,),
@@ -1132,17 +1263,65 @@ def _dtau_ml(torch, sim, rs):
     gathers_per_s = flat.numel() / (gather_ms * 1e-3)
     del flat
     n_live = int(ml._plan_substeps(tabs, pos, dirn, g, smin, smax)[3].sum())
-    rec = tabs.n_steps * 3 * B * 4
+    gz, sminz, smaxz = sw._lane_range(tabs, pos, kz, active)
+    n_live_z = int(ml._plan_substeps(tabs, pos, kz, torch.full_like(gz, 2),
+                                     sminz, smaxz)[3].sum())
+    NS = tabs.n_steps
+    rec = NS * 3 * B * 4
+    # inputs read once: the rays, the density, the leaf map, the plan
+    base = (ray_bytes(B, 1) + tabs.nd.numel() * 4 + tabs.leafmap.numel() * 4
+            + 2 * NS * 4)
+    march = lambda n: B * OPS_LANE + n * (OPS_SLAB + 3 * (OPS_SUB + 2 + 1))
     entry = dict(
         max_abs_err=err, bit_identical=identical, max_rel_tau_err=rel, ms=ms,
-        device_ms=dms, plain_ms=pms, library_ms=None, ms_summed=ms_sum, ms_peel_z=ms_peel,
-        live_pairs=n_live, fine_grid=list(tabs.n), n_steps=tabs.n_steps,
-        leaves=tabs.nd.shape[0], torch_gather_per_s=gathers_per_s,
+        device_ms=dms, plain_ms=pms, library_ms=None, ms_summed=ms_sum,
+        ms_peel_z=ms_peel, live_pairs=n_live, fine_grid=list(tabs.n),
+        n_steps=NS, leaves=tabs.nd.shape[0], torch_gather_per_s=gathers_per_s,
         gather_bound_ms=2 * 3 * n_live / gathers_per_s * 1e3,
-        **bound(lane_bytes(B, 1) + tabs.nd.numel() * 4
-                + tabs.leafmap.numel() * 4 + 2 * tabs.n_steps * 4 + 2 * rec,
-                n_live * (OPS_SLAB + 3 * (OPS_SUB + 2 + 1))))
-    return entry, rays, lanes, (sub_k, cell_k), (sub_p, cell_p)
+        **bound(base + 2 * rec, march(n_live)))
+    # the parent's tree loop formed the lane range, the sums and the prefix
+    # in torch around the record mode (the kernel forms the same lane range
+    # again, bit for bit)
+    dmaj = dirn.gather(1, g.long()[:, None])[:, 0] > 0
+
+    def unfused_prefix():
+        sw._lane_range(tabs, pos, dirn, active)
+        r, c = ml.sweep_dtau(*ev, want_sub=True)
+        return r, c, sw.slab_prefix(torch.sum(r, dim=1), dmaj)
+
+    def unfused_total():
+        sw._lane_range(tabs, pos, kz, active)
+        return torch.sum(ml.sweep_dtau(*pl), dim=0)
+
+    modes = {
+        "mlsweep_tau_total": (
+            lambda: ml.sweep_tau_total(*pl),
+            lambda: ml.sweep_tau_total_plain(*pl), unfused_total,
+            B * 4, march(n_live_z), abs_tot, rel_tot, n_live_z),
+        "mlsweep_dtau_prefix": (
+            lambda: ml.sweep_dtau_prefix(*ev),
+            lambda: ml.sweep_dtau_prefix_plain(*ev), unfused_prefix,
+            2 * rec + 2 * NS * B * 4 + 4 * B * 4, march(n_live) + 2 * NS * B,
+            abs_pre, rel_pre, n_live)}
+    more = {}
+    for name, (fn, plain, unfused, out_b, ops, e_abs, e_rel, live) \
+            in modes.items():
+        more[name] = dict(
+            max_abs_err=e_abs, max_err_of_tau=e_rel, ms=cuda_ms(fn),
+            device_ms=device_ms(fn)["ours"],
+            plain_ms=cuda_ms(plain, reps=3), library_ms=None,
+            unfused_ms=cuda_ms(unfused),
+            unfused_device_ms=device_ms(unfused)["all"], live_pairs=live,
+            **bound(base + out_b, ops))
+        torch.cuda.empty_cache()
+    no_ids = lambda: ml.sweep_dtau_prefix(*ev, leaf_ids=False)
+    more["mlsweep_dtau_prefix"].update(
+        ms_no_leaf_ids=cuda_ms(no_ids),
+        device_ms_no_leaf_ids=device_ms(no_ids)["ours"],
+        bound_no_leaf_ids_ms=bound(base + rec + 2 * NS * B * 4 + 16 * B,
+                                   march(n_live) + 2 * NS * B)["bound_ms"])
+    entry["variants"] = k4v.measure(torch, tabs, rays, cuda_ms, device_ms)
+    return entry, more, rays, lanes, (sub_k, cell_k), (sub_p, cell_p)
 
 
 def _deposit_ml(torch, sim, rs, k4, rays, lanes, rec_k, rec_p) -> dict:
@@ -1200,14 +1379,30 @@ def _deposit_ml(torch, sim, rs, k4, rays, lanes, rec_k, rec_p) -> dict:
     ms_pass2_rf = cuda_ms(lambda: ml.sweep_deposit(
         tabs, pos, dirn, active, sub_k, cell_k, lum, tau_int, tb, 0.5,
         lane=lane))
-    ms_resolve = cuda_ms(lambda: ml.resolve_interaction(
-        tabs, pos, dirn, act_int, sub_k, tb, tau_int))
+    # the no-RF pass 2 as the parent's loop called it, and with pass 1's
+    # lane range and step sums
+    resolve = lambda: ml.resolve_interaction(tabs, pos, dirn, act_int, sub_k,
+                                             tb, tau_int)
+    step_sums = torch.sum(sub_k, dim=1)
+    resolve_lane = lambda: ml.resolve_interaction(
+        tabs, pos, dirn, act_int, sub_k, tb, tau_int, lane=lane,
+        dtau_step=step_sums)
+    for a, b in zip(resolve(), resolve_lane()):
+        require(bool(torch.equal(a, b)),
+                "resolve_interaction with pass 1's lane and step sums")
+    ms_resolve = cuda_ms(resolve)
+    d_res, d_lane = device_ms(resolve), device_ms(resolve_lane)
     n_live = k4["live_pairs"]
     rec = tabs.n_steps * 3 * B * 4
     return dict(
         max_abs_err=rf_err, rf_max=rf_max, s_int_err=s_err, ms=ms5,
         device_ms=dms5, plain_ms=pms5, library_ms=None,
         ms_pass2_rf=ms_pass2_rf, ms_resolve_interaction=ms_resolve,
+        resolve_interaction_device_ms=d_res["all"],
+        resolve_interaction_launches=d_res["launches"],
+        resolve_interaction_lane_ms=cuda_ms(resolve_lane),
+        resolve_interaction_lane_device_ms=d_lane["all"],
+        resolve_interaction_lane_launches=d_lane["launches"],
         leaves=ncells, shared_table=ncells <= ml.SHARED_LEAVES,
         live_pairs=n_live, live_share=n_live / (tabs.n_steps * B),
         # the whole record read, as the one-thread-per-pair design read it
@@ -1230,19 +1425,20 @@ def phase_kernels_ml(torch) -> dict:
     5."""
     sim_l, _, _ = config3ism("cuda", "config3ismxl")
     rs = np.random.default_rng(5)
-    large, rays, lanes, rec_k, rec_p = _dtau_ml(torch, sim_l, rs)
+    large, large_more, rays, lanes, rec_k, rec_p = _dtau_ml(torch, sim_l, rs)
     large5 = _deposit_ml(torch, sim_l, rs, large, rays, lanes, rec_k, rec_p)
     del sim_l, rays, lanes, rec_k, rec_p
     torch.cuda.empty_cache()
     sim, _, _ = config3ism("cuda")
     rs = np.random.default_rng(4)
-    k4, rays, lanes, rec_k, rec_p = _dtau_ml(torch, sim, rs)
+    k4, more, rays, lanes, rec_k, rec_p = _dtau_ml(torch, sim, rs)
     k5 = _deposit_ml(torch, sim, rs, k4, rays, lanes, rec_k, rec_p)
-    k4["large_tree"] = large
-    k4["max_abs_err"] = max(k4["max_abs_err"], large["max_abs_err"])
-    k5["large_tree"] = large5
-    k5["max_abs_err"] = max(k5["max_abs_err"], large5["max_abs_err"])
-    out = {"mlsweep_dtau": k4, "mlsweep_deposit": k5}
+    out = {"mlsweep_dtau": k4, "mlsweep_deposit": k5, **more}
+    for name, big in (("mlsweep_dtau", large), ("mlsweep_deposit", large5),
+                      *large_more.items()):
+        out[name]["large_tree"] = big
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       big["max_abs_err"])
     emit({"phase": "kernels_ml", "batch": B_ML, **out})
     return out
 
@@ -1324,8 +1520,7 @@ def phase_full_width_ml(torch, smi: str, phase="full_width_ml",
     tabs = sim._sweep_tabs
     require(type(tabs).__name__ == "MLTables", f"{name} builds MLTables")
     sim.run_primary(verbose=False)          # warm-up
-    must = ("mlsweep_dtau",) + DETECT + (("mlsweep_deposit",)
-                                         if store_rf else ())
+    must = ML_PASS1 + DETECT + (("mlsweep_deposit",) if store_rf else ())
     must_not = RESIDENT + XL + NOT_PATH + (() if store_rf
                                            else ("mlsweep_deposit",))
     (rf, accs), launches = drive(must, must_not,
@@ -1747,8 +1942,8 @@ def main() -> int:
     phase_breakdown(torch, sim, stats)
     del sim
     _, _, launches_xl = phase_full_width(
-        torch, smi, "full_width_xl", "XLTables", XL_PASS1 + DETECT,
-        RESIDENT + NOT_PATH + ("sweepxl_deposit",), num_packets=B_FULL, n=256)
+        torch, smi, "full_width_xl", "XLTables", XL + DETECT,
+        RESIDENT + ML + NOT_PATH, num_packets=B_FULL, n=256)
     launches_rf = phase_rf_xl(torch)
     torch.cuda.empty_cache()
     kern.update(phase_kernels_ml(torch))
@@ -1773,6 +1968,8 @@ def main() -> int:
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
+    k7 = "skirt9_tpu/transport/sweepxl.py:493"
+    k4 = "skirt9_tpu/transport/mlsweep.py:635"
     k1_modes = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix")
     probe_k3 = {"scatter_add": kern["probe_scatter_smem"]["kernel3_launches"]}
     for name, src, ref, path, counts in (
@@ -1797,10 +1994,15 @@ def main() -> int:
              launches_xl),
             ("sweepxl_dtau_prefix", "sweepxl_dtau.cu", k6, "full_width_xl",
              launches_xl),
-            ("sweepxl_deposit", "sweepxl_deposit.cu",
-             "skirt9_tpu/transport/sweepxl.py:493", "rf_xl", launches_rf),
-            ("mlsweep_dtau", "mlsweep_dtau.cu",
-             "skirt9_tpu/transport/mlsweep.py:635", "full_width_ml",
+            ("sweepxl_deposit", "sweepxl_deposit.cu", k7, "rf_xl",
+             launches_rf),
+            ("sweepxl_deposit_prefix", "sweepxl_deposit.cu", k7, "rf_xl",
+             launches_rf),
+            ("mlsweep_dtau", "mlsweep_dtau.cu", k4, "full_width_ml",
+             launches_ml),
+            ("mlsweep_tau_total", "mlsweep_dtau.cu", k4, "full_width_ml",
+             launches_ml),
+            ("mlsweep_dtau_prefix", "mlsweep_dtau.cu", k4, "full_width_ml",
              launches_ml),
             ("mlsweep_deposit", "mlsweep_deposit.cu",
              "skirt9_tpu/transport/mlsweep.py:719", "rf_ml",
@@ -1819,7 +2021,12 @@ def main() -> int:
                     "seven_call_device_ms", "seven_call_device_launches",
                     "bound_full_record_ms", "device_ms_no_rf",
                     "max_err_of_tau", "ms_unsorted", "prefix_ms_unsorted",
-                    "kernel1_ms_sorted", "kernel1_ms_unsorted", "variants"):
+                    "kernel1_ms_sorted", "kernel1_ms_unsorted", "variants",
+                    "device_ms_all", "ms_no_rf", "bound_no_rf_ms",
+                    "unfused_no_rf_ms", "resolve_interaction_device_ms",
+                    "resolve_interaction_launches", "ms_no_leaf_ids",
+                    "device_ms_no_leaf_ids", "bound_no_leaf_ids_ms",
+                    "resolve_interaction_lane_device_ms"):
             if key in k:
                 row[key] = k[key]
         if name == "sweep_dtau":
@@ -1827,10 +2034,16 @@ def main() -> int:
             # path are those of the two modes the path takes
             row["launches"] = sum(counts[m] for m in k1_modes)
             row["launches_by_mode"] = {m: counts[m] for m in k1_modes}
-        if name == "mlsweep_deposit":
-            row["large_tree"] = {key: k["large_tree"][key] for key in (
-                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by", "leaves", "shared_table")}
+        if name.startswith("sweepxl_deposit"):
+            # launched on the XL path without an RF too
+            row["launches_full_width_xl"] = launches_xl[name]
+        if "large_tree" in k:
+            row["large_tree"] = {key: v for key, v in k["large_tree"].items()
+                                 if key in (
+                "max_abs_err", "max_err_of_tau", "ms", "device_ms",
+                "plain_ms", "unfused_device_ms", "bound_ms", "bound_by",
+                "leaves", "shared_table", "resolve_interaction_device_ms",
+                "resolve_interaction_lane_device_ms", "variants")}
         if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",
                                                    "scatter_add"):
             # the config-2 path (full_width_b2) and, for kernels 2, 3 and

@@ -60,27 +60,36 @@ OLD = ("full", "lane_once", "no_gathers", "lane_stores", "stores_only")
 OLD_RUN = 8      # lane_once: slabs per thread
 
 
-def build() -> ctypes.CDLL:
-    """Compile the variants (or find them built) and load them."""
+def build_library(source: str, entries: dict) -> ctypes.CDLL:
+    """Compile one variant source with the package's nvcc flags and its
+    csrc/ on the include path into build/perf/<hash>/ (or find it built
+    there), load it and bind `entries` (name -> argtypes)."""
     flags = [*kb.NVCC_FLAGS, "-I", CSRC]
     h = hashlib.sha256(" ".join(flags).encode())
-    for p in (SOURCE, os.path.join(CSRC, "sweep_common.cuh")):
+    for p in [source, *(os.path.join(CSRC, n)
+                        for n in sorted(os.listdir(CSRC)))]:
         with open(p, "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(ROOT, "build", "perf", h.hexdigest()[:16])
-    path = os.path.join(out_dir, "kernel6_variants.so")
+    name = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(out_dir, name + ".so")
     if not os.path.exists(path):
         os.makedirs(out_dir, exist_ok=True)
         res = subprocess.run([kb._nvcc(), *flags, "-shared", "-o", path,
-                              SOURCE], capture_output=True, text=True)
+                              source], capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{res.stderr}")
     lib = ctypes.CDLL(path)
-    for entry, argtypes in ENTRIES.items():
+    for entry, argtypes in entries.items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile the variants (or find them built) and load them."""
+    return build_library(SOURCE, ENTRIES)
 
 
 def _call(fn, *args) -> None:

@@ -1,6 +1,7 @@
 // Shared per-lane geometry and per-slab sub-DDA of the slab-sweep kernels
 // (sweep_dtau.cu, sweep_deposit.cu, sweepxl_dtau.cu, sweepxl_deposit.cu,
-// mlsweep_dtau.cu, mlsweep_deposit.cu), and the lane tile of the two
+// mlsweep_dtau.cu, mlsweep_deposit.cu), the per-lane pass of the prefix
+// modes (sweepxl_dtau.cu, mlsweep_dtau.cu), and the lane tile of the two
 // deposit kernels (sweep_deposit.cu, mlsweep_deposit.cu).
 //
 // A lane marches the slabs of its dominant axis a; inside slab t the ray
@@ -153,6 +154,52 @@ __device__ inline void lane_range(const GridGeom& g, const float inv_h[3],
   }
   smin = fmaxf(enter_max, 0.0f);
   smax = (active && inbox && leave_min > smin) ? leave_min : smin;
+}
+
+// The lane of ray `lane` with its axis and range formed here (lane_range):
+// pos, dir (B, 3), active (B,) bytes, sig (C, B). Kernels 4 and 6 form
+// their lanes with it; a is the lane's slab axis.
+__device__ inline Lane form_lane(const GridGeom& g, const float inv_h[3],
+                                 const float* pos, const float* dir,
+                                 const unsigned char* active,
+                                 const float* sig, int hint, int C, int B,
+                                 int lane, int& a) {
+  const float p[3] = {pos[3 * lane], pos[3 * lane + 1], pos[3 * lane + 2]};
+  const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
+  float smin, smax;
+  lane_range(g, inv_h, p, d, active[lane] != 0, hint, a, smin, smax);
+  Lane L = make_lane(g, a, p[0], p[1], p[2], d[0], d[1], d[2]);
+  L.smin = smin;
+  L.smax = smax;
+#pragma unroll
+  for (int c = 0; c < kMaxComp; ++c)
+    L.sig[c] = c < C ? sig[c * B + lane] : 0.0f;
+  return L;
+}
+
+// The per-lane pass of the prefix modes (kernels 4 and 6): the lane's total
+// optical depth, its run sums runsum[q * B + lane] (q < runs, in slab
+// order) added in ray order; then, where prefix is given, the optical
+// depth before each of its n slabs or plan steps in ray order from their
+// sums, as sweep.py `slab_prefix` forms it: a running sum in slab order
+// along the ray, total - sum - dtau against it. sums may be prefix itself
+// (the prefix is then formed in place).
+__device__ inline void scan_lane(const float* runsum, int runs,
+                                 const float* sums, float* prefix,
+                                 float* total, int n, int B, int lane,
+                                 bool up) {
+  float tot = 0.0f;
+  for (int q = 0; q < runs; ++q)
+    tot = tot + runsum[(size_t)(up ? q : runs - 1 - q) * B + lane];
+  total[lane] = tot;
+  if (prefix == nullptr) return;
+  float sum = 0.0f;
+#pragma unroll 8
+  for (int t = 0; t < n; ++t) {
+    const float dt = sums[(size_t)t * B + lane];
+    prefix[(size_t)t * B + lane] = up ? sum : (tot - sum) - dt;
+    sum = sum + dt;
+  }
 }
 
 // One slab's sub-DDA state.

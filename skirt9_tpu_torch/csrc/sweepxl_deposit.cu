@@ -1,83 +1,241 @@
 // Pass 2 of the large-grid (XL) sweep: radiation-field deposits from the
-// recorded per-sub-step optical depths, with no density access.
+// recorded per-sub-step optical depths, with no density access, in two
+// input modes; the second also finds the interaction point.
 //
 // Replaces the Pallas TPU kernel skirt9_tpu/transport/sweepxl.py
 // `_xl_deposit_kernel` (wrapper `sweep_deposit`). Contract: for every
 // sub-step j of slab t of the ray of `lane`, with dtau = dsub[(t * 3 + j) * B
 // + lane] and tau_loc the sum of the slab's earlier sub-steps, add
-// scale[t * B + lane] * e^-tau_loc * ds * (1 - e^-dtau) / dtau into
-// rf[group * ncells + cell], group = lane / (B / n_groups). The interaction
-// point is resolved outside the kernel (sweepxl.resolve_interaction).
+// scale[t] * e^-tau_loc * ds * (1 - e^-dtau) / dtau into rf[row, cell]. The
+// modes:
+//   0 (`sweepxl_deposit`, the TPU kernel's contract) reads scale as an
+//     (nmax, B) table, row = the lane's group, lane / (B / n_groups); the
+//     interaction point is found outside (sweepxl.resolve_interaction);
+//   1 (`sweepxl_deposit_prefix`, the event loop's) takes pass 1's prefix
+//     tb (nmax, B) and per-lane lum, tau_int and the interaction mask:
+//     scale = (lum * e^-tb) * inv_sqrt, the loop's own f32 operations in
+//     its order (the build's -fmad=false keeps them apart), into one row,
+//     and no deposits at all where rf is null (no RF stored). It also finds
+//     the interaction point as sweepxl.py `resolve_interaction` does, bit
+//     for bit: the hit slab is the lowest t with tau_int - tb[t] >= 0 and
+//     tau_int < tb of the next slab along the ray (+inf past the ray's last
+//     geometric slab), tested on every slab t < nmax; within it the first
+//     sub-step j with cum_j <= rel < cum_j + dtau_j gives s_int = s_cur +
+//     ((rel - cum_j) / max(dtau_j, 1e-37)) * ds and the cell. s_int, icell
+//     (-1 where not found) and found are per lane.
+// Both take pass 1's lane range (axis, smin, smax). rf starts at zero: the
+// caller adds the call's rows into its run-long accumulator once.
 //
-// What bounds it on the H100: float atomics into the RF table (67 MB at
-// 256^3), contended where many lanes cross one cell (every packet starts at
-// the source in the first event), plus the re-derived sub-DDA arithmetic.
-// The record read is nmax * 4 * B * 4 bytes (537 MB at 256^3, B = 131072),
-// read once and coalesced. Design: one thread per (slab, lane), index
-// t * B + lane as in pass 1; each thread re-derives its <= 3 cells from
-// pos/dir (sweep_common.cuh) and atomicAdds each nonzero contribution
-// straight into the flat RF. A zero scale (no RF stored for the lane, or an
-// inactive lane) returns before any work. The TPU kernel's (group, slab,
-// axis, U, V) plane accumulator, its decode and the one-hot matmul pair are
-// replaced by these atomics; float atomics make the RF sums order-dependent
-// from run to run. Offsets are 64-bit: n_groups * ncells passes 2^31 at
-// 512^3 with 16 groups, and nmax * 3 * B at 512 slabs with B >= 2^21.
+// What bounds it on the H100: the (nmax, B) input (134 MB at 256^3, B =
+// 131072) and the record of the lanes that deposit (403 MB), read once and
+// coalesced, and float atomics into the 67 MB RF, contended where many
+// lanes cross one cell (every packet starts at the source in the first
+// event); the RF and the record outgrow the 50 MB L2. Design: pass A runs
+// one thread per (run of `run` consecutive slabs, lane), the run the slow
+// index, as kernel 6's pass A does (sweepxl_dtau.cu): a warp covers 32
+// consecutive lanes of one run, every row it reads is one 128-byte load,
+// and a thread loads its lane once per run. In mode 1 it first tests its
+// slabs in geometric order (each slab's tb read once, the neighbour's
+// carried in a register, the first hit ending the loop) and writes the
+// run's first hit slab to a (runs, B) scratch; then, for a lane with a
+// nonzero lum only (none when no RF is stored), it reads the record and
+// runs the sub-DDA on the slabs its ray can cross, one float atomic per
+// nonzero contribution. Pass B (mode 1), one thread per lane in the same
+// launch, takes the lowest hit slab over the runs, re-derives that slab's
+// <= 3 sub-steps, reads its three record entries and stores s_int, icell
+// and found. The TPU kernel's (group, slab, axis, U, V) plane accumulator,
+// its decode and the one-hot matmul pair are replaced by the atomics;
+// float atomics make the RF sums order-dependent from run to run. Summing
+// the deposits per warp by cell first (as sweep_common.cuh `warp_add` does
+// for kernel 2) took 30% longer with an RF at bench_config1x256; that
+// variant is perf/kernel7_variants.cu `warp_sums_launch` (PERF.md section
+// 6). Offsets are 64-bit:
+// n_groups * ncells passes 2^31 at 512^3 with 16 groups, and nmax * 3 * B
+// at 512 slabs with B >= 2^21.
 #include "sweep_common.cuh"
 
 namespace skirt9 {
 
-__global__ void sweepxl_deposit_kernel(
+enum : int { kXlDepTables = 0, kXlDepPrefix = 1 };
+constexpr int kXlDepThreads = 256;
+constexpr int kHitChunk = 8;  // slabs of the hit search per batch of loads
+
+// Pass A. pos, dir: (B, 3); axis, smin, smax: (B,); dsub: (nmax, 3, B).
+// Mode 0: slab = scale (nmax, B), rf (n_groups, ncells). Mode 1: slab = tb
+// (nmax, B), lum (B,) or null, tau_int (B,), rf (1, ncells) or null,
+// hitrun (runs, B): the run's first hit slab, nmax for none.
+template <int kMode>
+__global__ void __launch_bounds__(kXlDepThreads) sweepxl_deposit_kernel(
     GridGeom g, const float* __restrict__ pos, const float* __restrict__ dir,
     const int* __restrict__ axis, const float* __restrict__ smin,
     const float* __restrict__ smax, const float* __restrict__ dsub,
-    const float* __restrict__ scale, float* __restrict__ rf, int B, int nmax,
-    int n_groups) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)nmax * B) return;
-  const int t = (int)(idx / B);
-  const int lane = (int)(idx - (long long)t * B);
-  const float sc = scale[idx];
-  if (sc == 0.0f) return;
+    const float* __restrict__ slab, const float* __restrict__ lum,
+    const float* __restrict__ tau_int, float inv_sqrt,
+    float* __restrict__ rf, int* __restrict__ hitrun, int B, int nmax,
+    int run, int n_groups) {
+  const long long idx = (long long)blockIdx.x * kXlDepThreads + threadIdx.x;
+  const int runs = (nmax + run - 1) / run;
+  if (idx >= (long long)runs * B) return;
+  const int q = (int)(idx / B);
+  const int lane = (int)(idx - (long long)q * B);
+  const int ra = q * run;
+  const float inf = __int_as_float(0x7f800000);
+
+  // the hit search (mode 1) on every slab of the run, in geometric order:
+  // resolve_interaction's test, tau_int - tb >= 0 and tau_int below the
+  // next slab's prefix along the ray; the first hit ends it. The prefix
+  // is read kHitChunk slabs at a time, so that as many loads are in flight
+  if (kMode == kXlDepPrefix) {
+    const float ti = tau_int[lane];
+    const bool up = dir[3 * lane + axis[lane]] > 0.0f;
+    float prev = ra > 0 ? slab[(size_t)(ra - 1) * B + lane] : inf;
+    float cur = slab[(size_t)ra * B + lane];
+    int first = nmax;
+    const int rb = min(ra + run, nmax);
+    for (int c = ra; c < rb && first == nmax; c += kHitChunk) {
+      float next[kHitChunk];  // tb of slab t + 1, +inf past the last
+#pragma unroll
+      for (int i = 0; i < kHitChunk; ++i) {
+        const int t = c + i + 1;
+        next[i] = t < nmax && t <= rb ? slab[(size_t)t * B + lane] : inf;
+      }
+#pragma unroll
+      for (int i = 0; i < kHitChunk; ++i) {
+        const int t = c + i;
+        if (t < rb && first == nmax) {
+          if (ti - cur >= 0.0f && ti < (up ? next[i] : prev)) first = t;
+          prev = cur;
+          cur = next[i];
+        }
+      }
+    }
+    hitrun[(size_t)q * B + lane] = first;
+  }
+
+  // the deposits of the lanes with a scale, on the slabs the ray can cross
+  float lm = 0.0f;
+  if (kMode == kXlDepPrefix) {
+    if (rf == nullptr) return;
+    lm = lum[lane];
+    if (lm == 0.0f) return;
+  }
   // no cross sections: C = 0 reads none
   const Lane L = load_lane(g, pos, dir, axis, smin, smax, nullptr, 0, B, lane);
-  if (t >= L.na) return;
+  int t0, t1;
+  slab_range(L, t0, t1);
+  float* rf_row = rf;
+  if (kMode == kXlDepTables)
+    rf_row += (long long)(lane / (B / n_groups)) * g.nx * g.ny * g.nz;
+  const int hi = min(ra + run - 1, t1);
+  for (int t = max(ra, t0); t <= hi; ++t) {
+    const float tb = slab[(size_t)t * B + lane];
+    const float sc = kMode == kXlDepPrefix ? (lm * expf(-tb)) * inv_sqrt : tb;
+    Slab S = enter_slab(L, t);
+    if (sc == 0.0f || !S.act) continue;
+    const float* d = dsub + (size_t)t * 3 * B + lane;
+    float tau_loc = 0.0f;
+    for (int j = 0; j < 3; ++j) {
+      float ds;
+      int cell;
+      sub_step(L, t, S, ds, cell);
+      const float dtau = d[(size_t)j * B];
+      const float contrib = sc * expf(-tau_loc) * ds * segment_factor(dtau);
+      if (contrib != 0.0f) atomicAdd(rf_row + cell, contrib);
+      tau_loc = tau_loc + dtau;
+    }
+  }
+}
+
+// Pass B (mode 1), one thread per lane: the lowest hit slab over the runs
+// (slab 0 where none, as argmax finds it), that slab's sub-steps and the
+// lane's interaction. active: (B,) bytes, the lanes that may interact;
+// icell: int64; found: bytes.
+__global__ void __launch_bounds__(kXlDepThreads) sweepxl_resolve_kernel(
+    GridGeom g, const float* __restrict__ pos, const float* __restrict__ dir,
+    const int* __restrict__ axis, const float* __restrict__ smin,
+    const float* __restrict__ smax, const float* __restrict__ dsub,
+    const float* __restrict__ tb, const float* __restrict__ tau_int,
+    const unsigned char* __restrict__ active,
+    const int* __restrict__ hitrun, int runs, float* __restrict__ s_int,
+    long long* __restrict__ icell, unsigned char* __restrict__ found, int B,
+    int nmax) {
+  const int lane = blockIdx.x * kXlDepThreads + threadIdx.x;
+  if (lane >= B) return;
+  int th = nmax;
+  for (int q = 0; q < runs; ++q) th = min(th, hitrun[(size_t)q * B + lane]);
+  const bool any = th < nmax;
+  const int t = any ? th : 0;
+  const Lane L = load_lane(g, pos, dir, axis, smin, smax, nullptr, 0, B, lane);
+  const float rel = tau_int[lane] - tb[(size_t)t * B + lane];
+  const float* d = dsub + (size_t)t * 3 * B + lane;
   Slab S = enter_slab(L, t);
-  if (!S.act) return;
-  const long long ncells = (long long)g.nx * g.ny * g.nz;
-  float* rf_row = rf + (long long)(lane / (B / n_groups)) * ncells;
-  const float* d = dsub + (long long)t * 3 * B + lane;
-  float tau_loc = 0.0f;
+  float cum = 0.0f, s = 0.0f;
+  int c = -1;
+  bool got = false;
   for (int j = 0; j < 3; ++j) {
+    const float s_cur = S.s_cur;
     float ds;
     int cell;
     sub_step(L, t, S, ds, cell);
-    const float dtau = d[(long long)j * B];
-    const float contrib = sc * expf(-tau_loc) * ds * segment_factor(dtau);
-    if (contrib != 0.0f) atomicAdd(rf_row + cell, contrib);
-    tau_loc = tau_loc + dtau;
+    const float dj = d[(size_t)j * B];
+    if (!got && rel >= cum && rel < cum + dj) {
+      s = s_cur + ((rel - cum) / fmaxf(dj, 1e-37f)) * ds;
+      c = cell;
+      got = true;
+    }
+    cum = cum + dj;
   }
+  const bool f = any && active[lane] != 0 && got;
+  s_int[lane] = s;
+  icell[lane] = f ? c : -1;
+  found[lane] = f ? 1 : 0;
 }
 
 }  // namespace skirt9
 
-extern "C" int sweepxl_deposit_launch(const void* pos, const void* dir,
-                                      const void* axis, const void* smin,
-                                      const void* smax, const void* dsub,
-                                      const void* scale, void* rf, int B,
-                                      int nx, int ny, int nz, int nmax,
-                                      int n_groups, float lox, float loy,
-                                      float loz, float hx, float hy, float hz,
-                                      void* stream) {
-  if (B <= 0 || n_groups < 1 || B % n_groups != 0)
+// Both passes on one stream.
+extern "C" int sweepxl_deposit_launch(
+    const void* pos, const void* dir, const void* axis, const void* smin,
+    const void* smax, const void* dsub, const void* slab, const void* lum,
+    const void* tau_int, const void* active, void* rf, void* hitrun,
+    void* s_int, void* icell, void* found, int B, int nx, int ny, int nz,
+    int nmax, int n_groups, int run, int mode, float lox, float loy,
+    float loz, float hx, float hy, float hz, float inv_sqrt, void* stream) {
+  using namespace skirt9;
+  const bool tables = mode == kXlDepTables && rf != nullptr && n_groups >= 1 &&
+                      B % n_groups == 0;
+  const bool prefix = mode == kXlDepPrefix && tau_int != nullptr &&
+                      active != nullptr && hitrun != nullptr &&
+                      s_int != nullptr && icell != nullptr &&
+                      found != nullptr && (rf == nullptr) == (lum == nullptr);
+  if (B <= 0 || nmax < 1 || run < 1 || slab == nullptr || (!tables && !prefix))
     return (int)cudaErrorInvalidValue;
-  skirt9::GridGeom g{nx, ny, nz, {lox, loy, loz}, {hx, hy, hz}};
-  const long long total = (long long)nmax * B;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  skirt9::sweepxl_deposit_kernel<<<blocks, threads, 0,
-                                   (cudaStream_t)stream>>>(
+  GridGeom g{nx, ny, nz, {lox, loy, loz}, {hx, hy, hz}};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int runs = (nmax + run - 1) / run;
+  const long long threads = (long long)runs * B;
+  const unsigned blocks =
+      (unsigned)((threads + kXlDepThreads - 1) / kXlDepThreads);
+  const auto pass_a = [&](auto kernel) {
+    kernel<<<blocks, kXlDepThreads, 0, s>>>(
+        g, (const float*)pos, (const float*)dir, (const int*)axis,
+        (const float*)smin, (const float*)smax, (const float*)dsub,
+        (const float*)slab, (const float*)lum, (const float*)tau_int,
+        inv_sqrt, (float*)rf, (int*)hitrun, B, nmax, run, n_groups);
+  };
+  if (tables) {
+    pass_a(sweepxl_deposit_kernel<kXlDepTables>);
+    return (int)cudaGetLastError();
+  }
+  pass_a(sweepxl_deposit_kernel<kXlDepPrefix>);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sweepxl_resolve_kernel<<<(unsigned)((B + kXlDepThreads - 1) / kXlDepThreads),
+                           kXlDepThreads, 0, s>>>(
       g, (const float*)pos, (const float*)dir, (const int*)axis,
       (const float*)smin, (const float*)smax, (const float*)dsub,
-      (const float*)scale, (float*)rf, B, nmax, n_groups);
+      (const float*)slab, (const float*)tau_int,
+      (const unsigned char*)active, (const int*)hitrun, runs, (float*)s_int,
+      (long long*)icell, (unsigned char*)found, B, nmax);
   return (int)cudaGetLastError();
 }

@@ -55,24 +55,6 @@ namespace skirt9 {
 enum : int { kXlSummed = 0, kXlSub = 1, kXlTotal = 2, kXlPrefix = 3 };
 constexpr int kXlThreads = 256;
 
-// The lane of ray `lane`: its axis, range, geometry and cross sections.
-__device__ inline Lane xl_lane(const GridGeom& g, const float inv_h[3],
-                               const float* pos, const float* dir,
-                               const unsigned char* active, const float* sig,
-                               int hint, int C, int B, int lane, int& a) {
-  const float p[3] = {pos[3 * lane], pos[3 * lane + 1], pos[3 * lane + 2]};
-  const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
-  float smin, smax;
-  lane_range(g, inv_h, p, d, active[lane] != 0, hint, a, smin, smax);
-  Lane L = make_lane(g, a, p[0], p[1], p[2], d[0], d[1], d[2]);
-  L.smin = smin;
-  L.smax = smax;
-#pragma unroll
-  for (int c = 0; c < kMaxComp; ++c)
-    L.sig[c] = c < C ? sig[c * B + lane] : 0.0f;
-  return L;
-}
-
 // Pass A. pos, dir: (B, 3); active: (B,) bytes; sig: (C, B); nd: (ncells,
 // C). Mode 0: out (nmax, B). Mode 1: out (nmax, 3, B). Modes 2-3: runsum
 // (runs, B). Mode 3: out (nmax, 3, B), prefix (nmax, B) slab sums, axis,
@@ -97,7 +79,8 @@ __global__ void __launch_bounds__(kXlThreads)
   const int lane = (int)(idx - (long long)q * B);
   const float inv_h[3] = {ihx, ihy, ihz};
   int a;
-  const Lane L = xl_lane(g, inv_h, pos, dir, active, sig, hint, C, B, lane, a);
+  const Lane L = form_lane(g, inv_h, pos, dir, active, sig, hint, C, B, lane,
+                           a);
   int t0, t1;
   slab_range(L, t0, t1);
   if (mode == kXlPrefix && q == 0) {
@@ -149,8 +132,8 @@ __global__ void __launch_bounds__(kXlThreads)
                         const float* __restrict__ dir,
                         const unsigned char* __restrict__ active,
                         const float* __restrict__ runsum, int hint, int mode,
-                        int runs, float* __restrict__ prefix,
-                        float* __restrict__ total, int B, int nmax) {
+                        int runs, float* prefix, float* __restrict__ total,
+                        int B, int nmax) {
   const int lane = blockIdx.x * kXlThreads + threadIdx.x;
   if (lane >= B) return;
   // the lane's slab axis and the sign of its major direction component, as
@@ -161,20 +144,9 @@ __global__ void __launch_bounds__(kXlThreads)
   int a;
   float smin, smax;
   lane_range(g, inv_h, p, d, active[lane] != 0, hint, a, smin, smax);
-  const bool up = d[a] > 0.0f;
-  float tot = 0.0f;
-  for (int q = 0; q < runs; ++q)
-    tot = tot + runsum[(size_t)(up ? q : runs - 1 - q) * B + lane];
-  total[lane] = tot;
-  if (mode != kXlPrefix) return;
-  float sum = 0.0f;
-#pragma unroll 8
-  for (int t = 0; t < nmax; ++t) {
-    float* at = prefix + (size_t)t * B + lane;
-    const float dt = *at;
-    *at = up ? sum : (tot - sum) - dt;
-    sum = sum + dt;
-  }
+  // sweep_common.cuh scan_lane, the prefix in place of the slab sums
+  float* pre = mode == kXlPrefix ? prefix : nullptr;
+  scan_lane(runsum, runs, pre, pre, total, nmax, B, lane, d[a] > 0.0f);
 }
 
 }  // namespace skirt9

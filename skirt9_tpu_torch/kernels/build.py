@@ -36,14 +36,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # one counter per contract, even where two share source through
 # csrc/sweep_common.cuh or one entry point serves several (kernel 1's three
-# output modes, kernel 6's summed and want_sub modes under one and its total
-# and prefix modes, kernel 2's two input modes), so a run shows which
-# contract its path went through
+# output modes, kernels 4 and 6's summed and want_sub modes under one and
+# their total and prefix modes, kernels 2 and 7's two input modes), so a run
+# shows which contract its path went through
 KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            "sweep_deposit", "sweep_deposit_prefix", "scatter_add", "detect",
            "sweepxl_dtau", "sweepxl_tau_total", "sweepxl_dtau_prefix",
-           "sweepxl_deposit", "mlsweep_dtau",
-           "mlsweep_deposit",
+           "sweepxl_deposit", "sweepxl_deposit_prefix", "mlsweep_dtau",
+           "mlsweep_tau_total", "mlsweep_dtau_prefix", "mlsweep_deposit",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -72,13 +72,15 @@ _SIGNATURES = {
     # smax, B, C, nx, ny, nz, nmax, hint, mode, run, lox, loy, loz, hx, hy,
     # hz, 1/hx, 1/hy, 1/hz, stream
     "sweepxl_dtau_launch": [_P] * 12 + [_I] * 9 + [_F] * 9 + [_P],
-    # pos, dir, axis, smin, smax, dsub, scale, rf, B, nx, ny, nz, nmax,
-    # n_groups, lox, loy, loz, hx, hy, hz, stream
-    "sweepxl_deposit_launch": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
-    # pos, dir, axis, smin, smax, sig, nd, leafmap, step_tlev, step_gs, out,
-    # cells, B, C, nx, ny, nz, n_steps, want_sub, lox, loy, loz, hx, hy, hz,
-    # stream
-    "mlsweep_dtau_launch": [_P] * 12 + [_I] * 7 + [_F] * 6 + [_P],
+    # pos, dir, axis, smin, smax, dsub, scale or tb, lum, tau_int, active,
+    # rf, hitrun, s_int, icell, found, B, nx, ny, nz, nmax, n_groups, run,
+    # mode, lox, loy, loz, hx, hy, hz, inv_sqrt, stream
+    "sweepxl_deposit_launch": [_P] * 15 + [_I] * 8 + [_F] * 7 + [_P],
+    # pos, dir, active, sig, lane axis, smin, smax (or null), nd, leafmap,
+    # step_tlev, step_gs, out, cells, steps, prefix, total, runsum, axis,
+    # smin, smax, B, C, nx, ny, nz, n_steps, hint, mode, run, lox, loy, loz,
+    # hx, hy, hz, 1/hx, 1/hy, 1/hz, stream
+    "mlsweep_dtau_launch": [_P] * 17 + [_I] * 9 + [_F] * 9 + [_P],
     # pos, dir, axis, smin, smax, dsub, csub, lum, tau_int, tb, step_tlev,
     # step_gs, rf, first_hit, B, nx, ny, nz, n_steps, ncells, shared, lox,
     # loy, loz, hx, hy, hz, inv2, stream

@@ -136,8 +136,7 @@ def main(argv=None) -> int:
     rs = np.random.default_rng(4)
     pos, dirn, sig, active = cs.box_rays(torch, sim, rs, B)
     g, smin, smax = sw._lane_range(tabs, pos, dirn, active)
-    sub, cells = ml.sweep_dtau(tabs, pos, dirn, sig, active, want_sub=True,
-                               lane=(g, smin, smax))
+    sub, cells = ml.sweep_dtau(tabs, pos, dirn, sig, active, want_sub=True)
     tb, tot = sw.slab_prefix(sub.sum(dim=1), dirn.gather(
         1, g.long()[:, None])[:, 0] > 0)
     lum = torch.tensor(rs.uniform(0.5, 2.0, B), dtype=torch.float32,

@@ -20,19 +20,22 @@ copies a tensor from the host.
 With `sweepxl.XLTables` (large uniform grids) the event runs the XL
 contracts instead: lanes sorted by (axis, major sign, entry slab), pass 1
 is one `sweepxl.sweep_dtau_prefix` launch (the optical depth per sub-step,
-its slab prefix and the lane range), `resolve_interaction` finds the
-interaction point from that record and prefix, and `sweepxl.sweep_deposit`
-deposits from it when an RF is stored; the tracer is one
-`sweepxl.sweep_tau_total` launch. Everything between pass 1 and the
-interaction search stays in sorted lane order; only per-lane results go
-back to launch order.
+its slab prefix and the lane range), pass 2 one
+`sweepxl.sweep_deposit_prefix` launch, with or without an RF (the deposits
+from that record and prefix where an RF is stored, and the interaction
+point); the tracer is one `sweepxl.sweep_tau_total` launch. Everything
+between pass 1 and pass 2 stays in sorted lane order; only per-lane results
+go back to launch order.
 
 With `mlsweep.MLTables` (octrees and bintrees) the event follows the
-reference's tree branch: pass 1 records the optical depth and leaf id per
-sub-step of the multi-granularity plan, in launch order (no lane sort), and
-`slab_prefix` runs over the plan's steps, which lie in spatial order along
-the major axis. Pass 2 is `mlsweep.sweep_deposit` when an RF is stored,
-else `mlsweep.resolve_interaction`, whose cell comes from the fine leaf map.
+reference's tree branch: pass 1 is one `mlsweep.sweep_dtau_prefix` launch
+(the optical depth per sub-step of the multi-granularity plan, with the
+leaf ids where an RF is stored, the step sums, their slab prefix, which
+follows the plan's steps in spatial order along the major axis, and the
+lane range), in launch order (no lane sort). Pass 2 is
+`mlsweep.sweep_deposit` when an RF is stored, else
+`mlsweep.resolve_interaction`, whose cell comes from the fine leaf map; the
+tracer is one `mlsweep.sweep_tau_total` launch.
 
 A multi-bin radiation field runs on the resident sweep only: the batch
 comes in bin-pure lane groups (a stratified launch, `rf_strata` groups with
@@ -298,8 +301,8 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                                      axis_hint=hint)
             return _unsort(tau, prm)
         if is_ml:
-            return torch.sum(ml.sweep_dtau(sweep_tabs, pos, kdir, sigma_lanes,
-                                           mask, axis_hint=hint), dim=0)
+            return ml.sweep_tau_total(sweep_tabs, pos, kdir, sigma_lanes,
+                                      mask, axis_hint=hint)
         return sw.sweep_tau_total(sweep_tabs, pos, kdir, sigma_lanes, mask,
                                   axis_hint=hint)
 
@@ -359,15 +362,13 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                     sweep_tabs, p_pos, p_dir, sigma_lanes[:, perm], p_act)
                 tau_path = _unsort(tau_path, perm)
             elif is_ml:
-                # per plan step; the record feeds pass 2 without the density,
-                # the lane range both passes
-                lane = sw._lane_range(sweep_tabs, pkt.pos, pkt.dir, active)
-                dtau_sub, cell_sub = ml.sweep_dtau(
+                # per plan step; the record feeds pass 2 without the density
+                # (the leaf ids only the deposits read), the lane range and
+                # the step sums both passes
+                (dtau_sub, cell_sub, dtau_step, tb_slab, tau_path,
+                 lane) = ml.sweep_dtau_prefix(
                     sweep_tabs, pkt.pos, pkt.dir, sigma_lanes, active,
-                    want_sub=True, lane=lane)
-                dmaj = pkt.dir.gather(1, lane[0].to(torch.int64)[:, None])
-                tb_slab, tau_path = sw.slab_prefix(
-                    torch.sum(dtau_sub, dim=1), dmaj[:, 0] > 0)
+                    leaf_ids=use_rf)
             else:
                 # the prefix and the lane range come out of the kernel
                 tb_slab, tau_path, lane = sw.sweep_dtau_prefix(
@@ -380,17 +381,14 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                        else torch.zeros_like(active))
             lum_half = (pkt.lum * rf_mask) * inv_sqrt
             if is_xl:
+                # the scale per slab is formed inside from the prefix
+                rf_delta, *res = xl.sweep_deposit_prefix(
+                    sweep_tabs, p_pos, p_dir, active_int[perm], dtau_sub,
+                    lum_half[perm] if use_rf else None, tau_int[perm],
+                    tb_slab, inv_sqrt, lane)
                 if use_rf:
-                    scale_slab = (lum_half[perm][None, :]
-                                  * torch.exp(-tb_slab)) * inv_sqrt
-                    rf[:, 0] += xl.sweep_deposit(
-                        sweep_tabs, p_pos, p_dir, p_act, dtau_sub,
-                        scale_slab, lane=lane)[0]
-                s_int, icell, found = (_unsort(x, perm) for x in
-                                       xl.resolve_interaction(
-                                           sweep_tabs, p_pos, p_dir,
-                                           active_int[perm], dtau_sub, tb_slab,
-                                           tau_int[perm], lane=lane))
+                    rf[:, 0] += rf_delta[0]
+                s_int, icell, found = (_unsort(x, perm) for x in res)
             elif is_ml:
                 if use_rf:
                     rf_delta, s_int, icell, found = ml.sweep_deposit(
@@ -401,7 +399,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                 else:
                     s_int, icell, found = ml.resolve_interaction(
                         sweep_tabs, pkt.pos, pkt.dir, active_int, dtau_sub,
-                        tb_slab, tau_int)
+                        tb_slab, tau_int, lane=lane, dtau_step=dtau_step)
             else:
                 # scale and rel per slab are formed inside from the prefix
                 rf_delta, s_int, icell, found = sw.sweep_deposit_prefix(

@@ -18,8 +18,18 @@ sub-segment's cell exactly, with one lookup.
   `resolve_interaction`       -> the interaction point alone, in plain tensor
          ops, for segments that store no RF.
 
-Both passes are CUDA kernels on the GPU (`csrc/mlsweep_dtau.cu`,
-`csrc/mlsweep_deposit.cu`) beside their plain PyTorch versions. What the
+Pass 1 has two more modes, which the event loop uses, as the XL sweep's
+pass 1 has:
+  `sweep_tau_total`   -> (B,) total optical depth (the peel-off tracer);
+  `sweep_dtau_prefix` -> the record (with its leaf ids where asked), the
+                         step sums, their `slab_prefix` and total, and the
+                         lane range that the kernel formed, which
+                         `sweep_deposit` and `resolve_interaction` take.
+
+Both passes are CUDA kernels on the GPU (`csrc/mlsweep_dtau.cu`, which
+forms the lane range itself and, for the total and the prefix, adds a
+per-lane pass over its run sums, and `csrc/mlsweep_deposit.cu`) beside
+their plain PyTorch versions. What the
 reference needs for the TPU and the port does not: the per-level density
 planes with the -1 non-leaf flag, the select loop over (level, layout,
 row), the level clustering and merging that keep encoding rows and VMEM
@@ -31,6 +41,7 @@ only set the plan.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -312,6 +323,29 @@ def _dtau_plain(tabs, pos, dirn, group, smin, smax, sig, want_sub):
     return steps[0][0] + steps[1][0] + steps[2][0]
 
 
+def _pass1_plain(tabs, pos, dirn, sig, active, axis_hint, want_sub):
+    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+    return _dtau_plain(tabs, pos, dirn, sw._hinted(group, axis_hint), smin,
+                       smax, sig, want_sub)
+
+
+def _total_plain(tabs, pos, dirn, sig, active, axis_hint):
+    return torch.sum(_pass1_plain(tabs, pos, dirn, sig, active, axis_hint,
+                                  False), dim=0)
+
+
+def _prefix_plain(tabs, pos, dirn, sig, active, axis_hint, leaf_ids):
+    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+    group = sw._hinted(group, axis_hint)
+    rec, cells = _dtau_plain(tabs, pos, dirn, group, smin, smax, sig, True)
+    # the summed form of the same march: (d0 + d1) + d2 per step
+    dtau = (rec[:, 0] + rec[:, 1]) + rec[:, 2]
+    dmaj = dirn.gather(1, group.to(torch.int64)[:, None])[:, 0]
+    tb, total = sw.slab_prefix(dtau, dmaj > 0)
+    return (rec, cells if leaf_ids else None, dtau, tb, total,
+            (group, smin, smax))
+
+
 def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
                    lum_pre, tau_int, tb_slab, inv2):
     """RF deposits into (1, ncells), the kernel's f32 contributions summed
@@ -349,21 +383,67 @@ def _geometry_args(tabs: MLTables):
     return (*tabs.n, tabs.n_steps, *tabs.lo, *tabs.h)
 
 
-def _dtau_cuda(tabs, pos, dirn, group, smin, smax, sig, want_sub):
+# pass 1's output modes (csrc/mlsweep_dtau.cu) and the counter of each: the
+# reference's two contracts under one name
+_MODES = ("summed", "want_sub", "total", "prefix")
+_COUNTERS = ("mlsweep_dtau", "mlsweep_dtau", "mlsweep_tau_total",
+             "mlsweep_dtau_prefix")
+# pass 1's plan steps per thread (perf/kernel4_variants.py times others)
+RUN = 16
+
+
+def _dtau_cuda(tabs, pos, dirn, sig, active, hint, mode: str,
+               leaf_ids: bool = True):
+    """One launch of pass 1 in the given mode, the lane set-up inside:
+    summed -> (n_steps, B); want_sub -> (record (n_steps, 3, B), leaf ids);
+    total -> (B,); prefix -> (record, leaf ids or None, step sums (n_steps,
+    B), prefix (n_steps, B), total, (group, smin, smax))."""
     B, C = pos.shape[0], sig.shape[0]
-    pos, dirn = pos.contiguous(), dirn.contiguous()
+    NS = tabs.n_steps
     dev = pos.device
-    shape = (tabs.n_steps, 3, B) if want_sub else (tabs.n_steps, B)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    cells = (torch.empty(shape, dtype=torch.int32, device=dev) if want_sub
-             else out)
+    pos, dirn = pos.contiguous(), dirn.contiguous()
+    act = active.to(torch.bool).contiguous()
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    out = cells = steps = prefix = total = runsum = lane_out = None
+    if mode == "summed":
+        out = f32(NS, B)
+    elif mode != "total":
+        out = f32(NS, 3, B)
+        if mode == "want_sub" or leaf_ids:
+            cells = torch.empty((NS, 3, B), dtype=torch.int32, device=dev)
+    if mode in ("total", "prefix"):
+        total = f32(B)
+        runsum = f32(-(-NS // RUN), B)
+    if mode == "prefix":
+        steps, prefix = f32(NS, B), f32(NS, B)
+        lane_out = (torch.empty(B, dtype=torch.int32, device=dev), f32(B),
+                    f32(B))
+    ptr = lambda t: None if t is None else t.data_ptr()
     nx, ny, nz, n_steps, *geo = _geometry_args(tabs)
-    kb.launch("mlsweep_dtau", *(t.data_ptr() for t in (
-                  pos, dirn, group, smin, smax, sig, tabs.nd, tabs.leafmap,
-                  tabs.step_tlev, tabs.step_gs, out, cells)),
-              B, C, nx, ny, nz, n_steps, int(want_sub), *geo,
-              kb.stream_of(pos))
-    return (out, cells) if want_sub else out
+    k = _MODES.index(mode)
+    kb.launch("mlsweep_dtau", *(ptr(t) for t in (
+                  pos, dirn, act, sig, tabs.nd, tabs.leafmap, tabs.step_tlev, tabs.step_gs, out, cells,
+                  steps, prefix, total, runsum, *(lane_out or (None,) * 3))),
+              B, C, nx, ny, nz, n_steps, -1 if hint is None else int(hint),
+              k, RUN, *geo, *(1.0 / v for v in tabs.h), kb.stream_of(pos),
+              count_as=_COUNTERS[k])
+    if mode == "summed":
+        return out
+    if mode == "want_sub":
+        return out, cells
+    if mode == "total":
+        return total
+    return out, cells, steps, prefix, total, lane_out
+
+
+def _sub_cuda(tabs, pos, dirn, sig, active, hint, want_sub):
+    return _dtau_cuda(tabs, pos, dirn, sig, active, hint,
+                      "want_sub" if want_sub else "summed")
+
+
+def _prefix_cuda(tabs, pos, dirn, sig, active, hint, leaf_ids):
+    return _dtau_cuda(tabs, pos, dirn, sig, active, hint, "prefix",
+                      leaf_ids=leaf_ids)
 
 
 def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
@@ -389,9 +469,16 @@ def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
 
 # ---------------------------------------------------------- public wrappers
 
+def _checked(tabs, pos, dirn, sigma, active):
+    """The (C, B) cross sections, after checking pass 1's inputs."""
+    sig = sw._sigma(sigma)
+    sw._check(tabs, pos, dirn, sig)
+    sw._check_lane(pos, active)
+    return sig
+
+
 def sweep_dtau(tabs: MLTables, pos, dirn, sigma, active,
-               axis_hint: int | None = None, want_sub: bool = False,
-               lane=None):
+               axis_hint: int | None = None, want_sub: bool = False):
     """Per-plan-step optical depth (n_steps, B) f32, or with want_sub
     (dtau_sub (n_steps, 3, B) f32, cell_sub (n_steps, 3, B) int32): each
     sub-step's optical depth and leaf id (-1 for none). Steps are spatially
@@ -399,21 +486,58 @@ def sweep_dtau(tabs: MLTables, pos, dirn, sigma, active,
     the ray. The reference's want_sub record packs a (row*512 + col*2 +
     leaf) code for its one-hot MXU deposit instead of the cell id
     (`mlsweep.py:681-687`). axis_hint: the slab axis shared by all lanes
-    (peel-off toward one observer). lane: the lanes' (group, smin, smax)
-    from `sweep._lane_range`, where the caller has it already."""
-    group, smin, smax, sig = sw._prep(tabs, pos, dirn, sigma, active, lane)
-    sw._check(tabs, pos, dirn, sig)
-    fn = sw._dispatch(pos, _dtau_plain, _dtau_cuda)
-    return fn(tabs, pos, dirn, sw._hinted(group, axis_hint), smin, smax, sig,
-              want_sub)
+    (peel-off toward one observer). The kernel forms each lane's range
+    (`sweep._lane_range`) itself."""
+    sig = _checked(tabs, pos, dirn, sigma, active)
+    fn = sw._dispatch(pos, _pass1_plain, _sub_cuda)
+    return fn(tabs, pos, dirn, sig, active, axis_hint, want_sub)
 
 
 def sweep_dtau_plain(tabs: MLTables, pos, dirn, sigma, active,
                      axis_hint: int | None = None, want_sub: bool = False):
     """`sweep_dtau` through the plain PyTorch version on any device."""
-    group, smin, smax, sig = sw._prep(tabs, pos, dirn, sigma, active)
-    return _dtau_plain(tabs, pos, dirn, sw._hinted(group, axis_hint), smin,
-                       smax, sig, want_sub)
+    return _pass1_plain(tabs, pos, dirn, sw._sigma(sigma), active, axis_hint,
+                        want_sub)
+
+
+def sweep_tau_total(tabs: MLTables, pos, dirn, sigma, active,
+                    axis_hint: int | None = None) -> torch.Tensor:
+    """Optical depth of each lane's whole in-grid path (B,):
+    `sweep_dtau(...).sum(0)` without the (n_steps, B) tensor."""
+    sig = _checked(tabs, pos, dirn, sigma, active)
+    fn = sw._dispatch(pos, _total_plain,
+                      functools.partial(_dtau_cuda, mode="total"))
+    return fn(tabs, pos, dirn, sig, active, axis_hint)
+
+
+def sweep_tau_total_plain(tabs: MLTables, pos, dirn, sigma, active,
+                          axis_hint: int | None = None) -> torch.Tensor:
+    """`sweep_tau_total` through the plain PyTorch version on any device."""
+    return _total_plain(tabs, pos, dirn, sw._sigma(sigma), active, axis_hint)
+
+
+def sweep_dtau_prefix(tabs: MLTables, pos, dirn, sigma, active,
+                      axis_hint: int | None = None, leaf_ids: bool = True):
+    """Pass 1 for pass 2 and the interaction search: the record of
+    `sweep_dtau(want_sub=True)`, its step sums (d0 + d1) + d2,
+    `sweep.slab_prefix` of those in the lane's own slab axis, and the lane
+    range. Returns (dtau_sub (n_steps, 3, B), cell_sub (n_steps, 3, B)
+    int32 or None without leaf_ids, step sums (n_steps, B), tau before each
+    step in ray order (n_steps, B), total (B,), lane = (group (B,) int32,
+    smin, smax)); lane and the step sums for `sweep_deposit` and
+    `resolve_interaction`."""
+    sig = _checked(tabs, pos, dirn, sigma, active)
+    fn = sw._dispatch(pos, _prefix_plain, _prefix_cuda)
+    return fn(tabs, pos, dirn, sig, active, axis_hint, leaf_ids)
+
+
+def sweep_dtau_prefix_plain(tabs: MLTables, pos, dirn, sigma, active,
+                            axis_hint: int | None = None,
+                            leaf_ids: bool = True):
+    """`sweep_dtau_prefix` through the plain PyTorch version on any
+    device."""
+    return _prefix_plain(tabs, pos, dirn, sw._sigma(sigma), active,
+                         axis_hint, leaf_ids)
 
 
 def _deposit_args(tabs, pos, dirn, active, dtau_sub, cell_sub, lum_pre,
@@ -482,15 +606,23 @@ def sweep_deposit_plain(tabs: MLTables, pos, dirn, active, dtau_sub,
 
 
 def resolve_interaction(tabs: MLTables, pos, dirn, active, dtau_sub, tb_slab,
-                        tau_int):
+                        tau_int, lane=None, dtau_step=None):
     """Exact interaction point from the per-sub-step record in plain tensor
     ops (`mlsweep.py:1021-1103`): the plan step where the ray-ordered prefix
     crosses tau_int, then that step's <= 3 sub-segments re-derived at its
-    granularity. Returns (s_int, icell int64 or -1, found); the cell comes
-    from `locate_cells`, as the reference's caller takes it
+    granularity. lane: pass 1's (group, smin, smax) and dtau_step: its step
+    sums (n_steps, B), from `sweep_dtau_prefix`, where the caller has them
+    (each otherwise formed here: `sweep._lane_range`, the record summed
+    over its sub-steps). Returns (s_int, icell int64 or -1, found); the
+    cell comes from `locate_cells`, as the reference's caller takes it
     (`lifecycle.py:896-908`)."""
     B = pos.shape[0]
-    dtau_step = torch.sum(dtau_sub, dim=1)
+    group, smin, smax = sw._lanes(tabs, pos, dirn, active, lane)
+    if dtau_step is None:
+        dtau_step = torch.sum(dtau_sub, dim=1)
+    else:
+        sw._check_inputs(pos, dirn, [(dtau_step, (tabs.n_steps, B),
+                                      "dtau_step")])
     rel = tau_int[None, :] - tb_slab
     hit = (rel >= 0.0) & (rel < dtau_step) & (dtau_step > 0)
     found = hit.any(dim=0) & active
@@ -501,7 +633,6 @@ def resolve_interaction(tabs: MLTables, pos, dirn, active, dtau_sub, tb_slab,
     gs = tabs.step_gs.to(torch.int64)[t_hit]
     rel_t = rel.gather(0, t_hit[None, :])[0]
     d_t = dtau_sub.gather(0, t_hit[None, None, :].expand(1, 3, B))[0]
-    group, smin, smax = sw._lane_range(tabs, pos, dirn, active)
     g = _scaled(sw._lane_geometry(tabs, pos, dirn, group), gs)
     steps, _ = sw._substeps(g, tlev, smin, smax)
     cum = torch.zeros_like(rel_t)

@@ -13,17 +13,23 @@ differs is the contract:
   pass 2 `sweep_deposit`              -> RF deposits (n_groups, ncells) from
          the record and the per-slab scale.
 
-Pass 1 has two more modes, which the event loop uses, as the resident
-sweep's pass 1 has:
-  `sweep_tau_total`   -> (B,) total optical depth (the peel-off tracer);
-  `sweep_dtau_prefix` -> the record, its `slab_prefix` and total, and the
-                         lane range that the kernel formed, which
-                         `resolve_interaction` and `sweep_deposit` take.
+Each pass has more modes, which the event loop uses, as the resident
+sweep's passes have:
+  `sweep_tau_total`      -> (B,) total optical depth (the peel-off tracer);
+  `sweep_dtau_prefix`    -> the record, its `slab_prefix` and total, and
+                            the lane range that the kernel formed;
+  `sweep_deposit_prefix` -> pass 2 from that record, prefix and lane range
+                            with the interaction search inside: the RF
+                            deposits of `sweep_deposit` on the scale the
+                            loop forms from the prefix, where an RF is
+                            stored, and the interaction point of
+                            `resolve_interaction`, bit for bit.
 
 Both passes are CUDA kernels on the GPU (`csrc/sweepxl_dtau.cu`, which
 forms the lane range itself and, for the total and the prefix, adds a
-per-lane pass over its run sums, and `csrc/sweepxl_deposit.cu`) beside
-their plain PyTorch versions. The tables
+per-lane pass over its run sums, and `csrc/sweepxl_deposit.cu`, which in
+its prefix mode adds a per-lane pass for the interaction) beside their
+plain PyTorch versions. The tables
 are the flat (ncells, C) f32 density of `sweep.SweepTables`, shared and not
 copied: the reference's streamed (C, nmax, 3, U, V) planes, their bf16 hi/lo
 or int8 splits and the one-hot matmul lookups are MXU and VMEM workarounds
@@ -154,6 +160,62 @@ def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
                           n_groups)
 
 
+def _resolve_plain(tabs, pos, dirn, group, smin, smax, active, dtau_sub,
+                   tb_slab, tau_int):
+    """The interaction point from the record and the prefix: the slab where
+    the ray-ordered prefix crosses tau_int, then that one slab's <= 3
+    sub-segments re-derived per lane."""
+    B = pos.shape[0]
+    g = sw._lane_geometry(tabs, pos, dirn, group)
+    # the slab holds tau_int when its prefix is <= tau_int and the next
+    # slab's along the ray is above it (the ray's last slab has no bound):
+    # the prefix alone, without summing the record over its sub-steps
+    # (the reference tests tau_int - tb < the slab's sum instead)
+    rel = tau_int[None, :] - tb_slab
+    end = torch.full_like(tb_slab[:1], float("inf"))
+    tb_next = torch.where((g["da"] > 0)[None, :],
+                          torch.cat([tb_slab[1:], end]),
+                          torch.cat([end, tb_slab[:-1]]))
+    hit = (rel >= 0.0) & (tau_int[None, :] < tb_next)
+    found = hit.any(dim=0) & active
+    # the hit slab is unique per lane (the prefix grows along the ray): one
+    # gather per table where the TPU used masked reductions
+    t_hit = torch.argmax(hit.to(torch.int8), dim=0)
+    rel_t = rel.gather(0, t_hit[None, :])[0]
+    d_t = dtau_sub.gather(0, t_hit[None, None, :].expand(1, 3, B))[0]
+    # the sub-DDA always walks in +s, so sub-steps are already in ray order
+    steps, _ = sw._substeps(g, t_hit, smin, smax)
+    cum = torch.zeros_like(rel_t)
+    s_int = torch.zeros_like(rel_t)
+    icell = torch.full((B,), -1, dtype=torch.int64, device=pos.device)
+    got = torch.zeros((B,), dtype=torch.bool, device=pos.device)
+    for j, (s_cur, ds, iu, iv) in enumerate(steps):
+        dj = d_t[j]
+        here = ~got & (rel_t >= cum) & (rel_t < cum + dj)
+        frac = (rel_t - cum) / torch.clamp_min(dj, 1e-37)
+        s_int = torch.where(here, s_cur + frac * ds, s_int)
+        cell = (t_hit * g["t_stride"] + iu * g["u_stride"]
+                + iv * g["v_stride"])
+        icell = torch.where(here, cell, icell)
+        got = got | here
+        cum = cum + dj
+    found = found & got
+    return s_int, torch.where(found, icell, torch.full_like(icell, -1)), found
+
+
+def _deposit_prefix_plain(tabs, pos, dirn, group, smin, smax, active,
+                          dtau_sub, lum_half, tau_int, tb_slab, inv_sqrt):
+    """`_deposit_plain` on the scale the event loop forms from the prefix
+    (none where lum_half is None), then `_resolve_plain`."""
+    rf = None
+    if lum_half is not None:
+        scale = (lum_half[None, :] * torch.exp(-tb_slab)) * inv_sqrt
+        rf = _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub,
+                            scale, 1)
+    return (rf, *_resolve_plain(tabs, pos, dirn, group, smin, smax, active,
+                                dtau_sub, tb_slab, tau_int))
+
+
 # ----------------------------------------------------------- CUDA launches
 
 # pass 1's output modes (csrc/sweepxl_dtau.cu) and the counter of each: the
@@ -163,6 +225,8 @@ _COUNTERS = ("sweepxl_dtau", "sweepxl_dtau", "sweepxl_tau_total",
              "sweepxl_dtau_prefix")
 # pass 1's slabs per thread (perf/kernel6_variants.py times others)
 RUN = 16
+# pass 2's slabs per thread (perf/kernel7_variants.py times others)
+DEPOSIT_RUN = 16
 
 
 def _dtau_cuda(tabs, pos, dirn, sig, active, hint, mode: str):
@@ -201,18 +265,55 @@ def _dtau_cuda(tabs, pos, dirn, sig, active, hint, mode: str):
     return out
 
 
+# pass 2's input modes (csrc/sweepxl_deposit.cu), each counted under its name
+_DEPOSIT_MODES = ("sweepxl_deposit", "sweepxl_deposit_prefix")
+
+
+def _deposit_launch(tabs, pos, dirn, group, smin, smax, dtau_sub, slab, lum,
+                    tau_int, active, inv_sqrt, n_groups, mode):
+    """One launch of pass 2: sweepxl_deposit -> rf (n_groups, ncells);
+    sweepxl_deposit_prefix -> (rf (1, ncells) or None without lum, s_int,
+    icell int64, found bool)."""
+    B = pos.shape[0]
+    dev = pos.device
+    prefix = mode == "sweepxl_deposit_prefix"
+    rf = None
+    if not prefix or lum is not None:
+        rf = torch.zeros((n_groups, tabs.nd.shape[0]), dtype=torch.float32,
+                         device=dev)
+    out = hitrun = None
+    if prefix:
+        out = (torch.empty(B, dtype=torch.float32, device=dev),
+               torch.empty(B, dtype=torch.int64, device=dev),
+               torch.empty(B, dtype=torch.bool, device=dev))
+        hitrun = torch.empty((-(-tabs.nmax // DEPOSIT_RUN), B),
+                             dtype=torch.int32, device=dev)
+        active = active.to(torch.bool)
+    # held here, so that no contiguous copy is freed before the launch
+    args = [None if t is None else t.contiguous() for t in (
+        pos, dirn, group, smin, smax, dtau_sub, slab, lum, tau_int, active,
+        rf, hitrun, *(out or (None,) * 3))]
+    nx, ny, nz, nmax, *geo = sw._geometry_args(tabs)
+    kb.launch("sweepxl_deposit", *(None if t is None else t.data_ptr()
+                                   for t in args),
+              B, nx, ny, nz, nmax, n_groups, DEPOSIT_RUN,
+              _DEPOSIT_MODES.index(mode), *geo, float(inv_sqrt),
+              kb.stream_of(pos), count_as=mode)
+    return (rf, *out) if prefix else rf
+
+
 def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
                   n_groups):
-    B = pos.shape[0]
-    pos, dirn = pos.contiguous(), dirn.contiguous()
-    dtau_sub, scale = dtau_sub.contiguous(), scale.contiguous()
-    rf = torch.zeros((n_groups, tabs.nd.shape[0]), dtype=torch.float32,
-                     device=pos.device)
-    nx, ny, nz, nmax, *geo = sw._geometry_args(tabs)
-    kb.launch("sweepxl_deposit", *(t.data_ptr() for t in (
-                  pos, dirn, group, smin, smax, dtau_sub, scale, rf)),
-              B, nx, ny, nz, nmax, n_groups, *geo, kb.stream_of(pos))
-    return rf
+    return _deposit_launch(tabs, pos, dirn, group, smin, smax, dtau_sub,
+                           scale, None, None, None, 1.0, n_groups,
+                           "sweepxl_deposit")
+
+
+def _deposit_prefix_cuda(tabs, pos, dirn, group, smin, smax, active,
+                         dtau_sub, lum_half, tau_int, tb_slab, inv_sqrt):
+    return _deposit_launch(tabs, pos, dirn, group, smin, smax, dtau_sub,
+                           tb_slab, lum_half, tau_int, active, inv_sqrt, 1,
+                           "sweepxl_deposit_prefix")
 
 
 # ---------------------------------------------------------- public wrappers
@@ -320,46 +421,55 @@ def resolve_interaction(tabs: XLTables, pos, dirn, active, dtau_sub, tb_slab,
                         tau_int, lane=None):
     """Exact interaction point and cell from the per-sub-step record: find
     the slab where the ray-ordered prefix crosses tau_int, then re-derive that
-    one slab's <= 3 sub-segments per lane (no density access).
+    one slab's <= 3 sub-segments per lane (no density access), in plain
+    tensor ops on any device (`sweep_deposit_prefix` does the same inside
+    its kernel).
 
     tb_slab: (nmax, B) optical depth before each slab in ray order
     (`sweep.slab_prefix`). lane: pass 1's (group, smin, smax) from
     `sweep_dtau_prefix`, which saves the set-up. Returns (s_int, icell int64
     or -1, found)."""
-    B = pos.shape[0]
     group, smin, smax = sw._lanes(tabs, pos, dirn, active, lane)
-    g = sw._lane_geometry(tabs, pos, dirn, group)
-    # the slab holds tau_int when its prefix is <= tau_int and the next
-    # slab's along the ray is above it (the ray's last slab has no bound):
-    # the prefix alone, without summing the record over its sub-steps
-    # (the reference tests tau_int - tb < the slab's sum instead)
-    rel = tau_int[None, :] - tb_slab
-    end = torch.full_like(tb_slab[:1], float("inf"))
-    tb_next = torch.where((g["da"] > 0)[None, :],
-                          torch.cat([tb_slab[1:], end]),
-                          torch.cat([end, tb_slab[:-1]]))
-    hit = (rel >= 0.0) & (tau_int[None, :] < tb_next)
-    found = hit.any(dim=0) & active
-    # the hit slab is unique per lane (the prefix grows along the ray): one
-    # gather per table where the TPU used masked reductions
-    t_hit = torch.argmax(hit.to(torch.int8), dim=0)
-    rel_t = rel.gather(0, t_hit[None, :])[0]
-    d_t = dtau_sub.gather(0, t_hit[None, None, :].expand(1, 3, B))[0]
-    # the sub-DDA always walks in +s, so sub-steps are already in ray order
-    steps, _ = sw._substeps(g, t_hit, smin, smax)
-    cum = torch.zeros_like(rel_t)
-    s_int = torch.zeros_like(rel_t)
-    icell = torch.full((B,), -1, dtype=torch.int64, device=pos.device)
-    got = torch.zeros((B,), dtype=torch.bool, device=pos.device)
-    for j, (s_cur, ds, iu, iv) in enumerate(steps):
-        dj = d_t[j]
-        here = ~got & (rel_t >= cum) & (rel_t < cum + dj)
-        frac = (rel_t - cum) / torch.clamp_min(dj, 1e-37)
-        s_int = torch.where(here, s_cur + frac * ds, s_int)
-        cell = (t_hit * g["t_stride"] + iu * g["u_stride"]
-                + iv * g["v_stride"])
-        icell = torch.where(here, cell, icell)
-        got = got | here
-        cum = cum + dj
-    found = found & got
-    return s_int, torch.where(found, icell, torch.full_like(icell, -1)), found
+    return _resolve_plain(tabs, pos, dirn, group, smin, smax, active,
+                          dtau_sub, tb_slab, tau_int)
+
+
+def _prefix_args(tabs, pos, dirn, active, dtau_sub, lum_half, tau_int,
+                 tb_slab, inv_sqrt, lane):
+    B = pos.shape[0]
+    sw._check_lane(pos, active, lane)
+    sw._check_inputs(pos, dirn, [
+        (dtau_sub, (tabs.nmax, 3, B), "dtau_sub"),
+        (tb_slab, (tabs.nmax, B), "tb_slab"), (tau_int, (B,), "tau_int")]
+        + ([] if lum_half is None else [(lum_half, (B,), "lum_half")]))
+    return (tabs, pos, dirn, *lane, active, dtau_sub, lum_half, tau_int,
+            tb_slab, float(inv_sqrt))
+
+
+def sweep_deposit_prefix(tabs: XLTables, pos, dirn, active, dtau_sub,
+                         lum_half, tau_int, tb_slab, inv_sqrt: float, lane):
+    """Pass 2 from pass 1's record, prefix and lane range, with the
+    interaction search inside: `sweep_deposit` on scale_slab = (lum_half *
+    e^-tb_slab) * inv_sqrt, formed per (slab, lane) inside (the event loop's
+    operations, in its order), and `resolve_interaction`, in one launch.
+
+    dtau_sub (nmax, 3, B), tb_slab (nmax, B) and lane = (group, smin, smax)
+    from `sweep_dtau_prefix`; active: (B,) the lanes that may interact;
+    lum_half, tau_int: (B,) f32, lum_half None where no RF is stored.
+    Returns (rf (1, ncells) summed from zero in this call, or None without
+    lum_half; s_int, icell int64 or -1, found bool), the interaction equal
+    to `resolve_interaction`'s bit for bit."""
+    args = _prefix_args(tabs, pos, dirn, active, dtau_sub, lum_half, tau_int,
+                        tb_slab, inv_sqrt, lane)
+    return sw._dispatch(pos, _deposit_prefix_plain,
+                        _deposit_prefix_cuda)(*args)
+
+
+def sweep_deposit_prefix_plain(tabs: XLTables, pos, dirn, active, dtau_sub,
+                               lum_half, tau_int, tb_slab, inv_sqrt: float,
+                               lane):
+    """`sweep_deposit_prefix` through the plain PyTorch version on any
+    device."""
+    return _deposit_prefix_plain(*_prefix_args(
+        tabs, pos, dirn, active, dtau_sub, lum_half, tau_int, tb_slab,
+        inv_sqrt, lane))

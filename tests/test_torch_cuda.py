@@ -16,8 +16,12 @@ The tree kernels (4-5) run on the density octree of tests/test_mlsweep.py
 its plain version bit for bit (leaf ids and tau, with and without the
 record and the axis hint), pass 2's found and s_int equal and its RF within
 1e-5 of its maximum (float atomics sum in another order). A tiny octree
-simulation on the card launches kernels 4, 5 and 3 and no uniform-grid
-sweep.
+simulation on the card launches kernels 4, 5 and detect and no
+uniform-grid sweep. Kernel 4's total and prefix modes: the total and the
+prefix within 1e-6 of each lane's tau, the record, leaf ids, step sums and
+lane range bit for bit; the tree event loop launches the prefix mode once
+per event and the total once per peel-off, and calls no `slab_prefix`,
+`_lane_range` or `torch.sum` over a record.
 
 Kernel 1's three output modes: `sweep_dtau` bit for bit against its plain
 version, `sweep_tau_total` and `sweep_dtau_prefix` within 1e-6 of each
@@ -34,7 +38,12 @@ equal to `_lane_range`) at 80^3 and at 97x80x64 (nmax off the run length),
 with inactive lanes, lanes outside the box and tiny direction components;
 the XL event loop launches the prefix mode once per event and the total
 once per peel-off, and calls no `slab_prefix`, `_lane_range` or
-`torch.sum` over a record.
+`torch.sum` over a record. Kernel 7's prefix mode (pass 2 from the prefix
+with the interaction search inside) at 80^3, 97x80x64 and 256^3: s_int,
+icell and found bit for bit, the RF within 1e-4 of its maximum, with an RF,
+with a zero luminosity and without an RF; the XL loop launches it once per
+event with or without an RF and calls neither `resolve_interaction` nor
+`sweep_deposit`.
 
 Kernel 2 also runs with config 2's 32 lane groups and kernel 3 on its
 163,840-bin frame; a small config 2 with dust emission launches kernels
@@ -469,9 +478,10 @@ def test_sweepxl_modes_kernel(dev, shape, C, hint, edge):
 @pytest.mark.parametrize("store_rf", [False, True], ids=["no_rf", "rf"])
 def test_xl_loop_launches(dev, store_rf, monkeypatch):
     """The XL event loop: one `sweepxl_dtau_prefix` launch per event, one
-    `sweepxl_tau_total` per peel-off, kernel 7 per event with an RF, no
-    other pass-1 form; no `slab_prefix`, no `_lane_range` and no
-    `torch.sum` over a record."""
+    `sweepxl_tau_total` per peel-off, one `sweepxl_deposit_prefix` per
+    event with or without an RF, no other pass-1 or pass-2 form; no
+    `slab_prefix`, no `_lane_range`, no `torch.sum` over a record and no
+    `resolve_interaction` or `sweep_deposit` call."""
     grid = make_cartesian(((-1.2 * PC, 1.2 * PC),) * 3, (80, 80, 80))
     med = msys.make_medium(
         grid, msys.uniform_density_sphere(grid, 1.0, 1e-24, PC),
@@ -502,6 +512,8 @@ def test_xl_loop_launches(dev, store_rf, monkeypatch):
 
     monkeypatch.setattr(sw, "slab_prefix", refuse)
     monkeypatch.setattr(sw, "_lane_range", refuse)
+    monkeypatch.setattr(xl, "resolve_interaction", refuse)
+    monkeypatch.setattr(xl, "sweep_deposit", refuse)
     monkeypatch.setattr(torch, "sum", guarded_sum)
     kb.reset_launches()
     rf, accs = sim.run_primary(verbose=False)
@@ -511,8 +523,9 @@ def test_xl_loop_launches(dev, store_rf, monkeypatch):
     assert n["sweepxl_dtau_prefix"] == events
     # the emission peel-off of each of the 2 batches, then one per event
     assert n["sweepxl_tau_total"] == 2 + events
-    assert n["sweepxl_deposit"] == (events if store_rf else 0)
-    assert n["sweepxl_dtau"] == 0 and n["detect"] > 0
+    assert n["sweepxl_deposit_prefix"] == events
+    assert n["sweepxl_deposit"] == n["sweepxl_dtau"] == 0
+    assert n["detect"] > 0
     for name in ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
                  "sweep_deposit", "sweep_deposit_prefix", "scatter_add"):
         assert n[name] == 0, name
@@ -540,6 +553,128 @@ def test_sweepxl_deposit_kernel(dev, C, n_groups):
     assert rf_k.shape == rf_p.shape == (n_groups, tabs.nd.shape[0])
     assert float(rf_p.min()) >= 0 and float(rf_p.max()) > 0
     assert float((rf_k - rf_p).abs().max()) <= 1e-4 * float(rf_p.abs().max())
+
+
+@pytest.mark.parametrize("shape,C,edge", [
+    ((80, 80, 80), 1, False), ((97, 80, 64), 3, True), ((256,) * 3, 1, False)],
+    ids=["80^3", "97x80x64-C3-edge", "256^3"])
+def test_sweepxl_deposit_prefix_kernel(dev, shape, C, edge):
+    """Kernel 7's prefix mode against its plain version on pass 1's record,
+    prefix and lane range: s_int, icell and found bit for bit, the RF
+    within 1e-4 of its maximum; with an RF, with lum_half = 0 (no deposit)
+    and without an RF; tau_int 0 on some lanes and past the total on
+    others, lanes that may not interact; one launch per call."""
+    B = 4096
+    tabs, pos, d, sig, active = _xl_inputs(dev, shape, C, B, 80 + C, edge)
+    perm = xl.lane_order(tabs, pos, d, sw.dominant_axis(tabs, d))
+    pos, d, sig, active = pos[perm], d[perm], sig[:, perm], active[perm]
+    rec, tb, tot, lane = xl.sweep_dtau_prefix(tabs, pos, d, sig, active)
+    rs = np.random.default_rng(7)
+    u = rs.uniform(0.0, 1.2, B)
+    u[:B // 8] = 0.0
+    tau_int = torch.tensor(u, dtype=torch.float32, device=dev) * tot
+    act_int = active & torch.tensor(rs.uniform(size=B) > 0.1, device=dev)
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    for lm in (lum, torch.zeros_like(lum), None):
+        args = (tabs, pos, d, act_int, rec, lm, tau_int, tb, 0.7, lane)
+        kb.reset_launches()
+        rf_k, *hit_k = xl.sweep_deposit_prefix(*args)
+        assert kb.LAUNCHES["sweepxl_deposit_prefix"] == 1
+        assert sum(kb.LAUNCHES.values()) == 1
+        rf_p, *hit_p = xl.sweep_deposit_prefix_plain(*args)
+        assert int(hit_p[2].sum()) > B // 4
+        for a, b in zip(hit_k, hit_p):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        if lm is None:
+            assert rf_k is None and rf_p is None
+        elif lm is lum:
+            assert rf_k.shape == rf_p.shape == (1, tabs.nd.shape[0])
+            m = float(rf_p.abs().max())
+            assert m > 0
+            assert float((rf_k - rf_p).abs().max()) <= 1e-4 * m
+        else:
+            assert float(rf_k.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["octree", "bintree"])
+@pytest.mark.parametrize("C,hint", [(1, None), (2, None), (1, 2)])
+def test_mlsweep_modes_kernel(dev, kind, C, hint):
+    """Kernel 4's total and prefix modes against their plain versions: the
+    total and the prefix within 1e-6 of each lane's tau, the record, leaf
+    ids, step sums and lane range bit for bit, no leaf ids where none are
+    asked for; one launch per call, each counted under its mode's name."""
+    tabs, pos, d, sig, active, _ = _tree_inputs(dev, kind, C, 3000,
+                                                seed=40 + C)
+    args = (tabs, pos, d, sig, active, hint)
+    kb.reset_launches()
+    tot = ml.sweep_tau_total(*args)
+    rec, cells, steps, tb, tot_c, lane = ml.sweep_dtau_prefix(*args)
+    rec_n, cells_n, *_ = ml.sweep_dtau_prefix(*args, leaf_ids=False)
+    assert (kb.LAUNCHES["mlsweep_tau_total"],
+            kb.LAUNCHES["mlsweep_dtau_prefix"]) == (1, 2)
+    assert sum(kb.LAUNCHES.values()) == 3
+    tot_p = ml.sweep_tau_total_plain(*args)
+    assert int((tot_p > 0).sum()) > 1000
+    for t in (tot, tot_c):
+        assert bool(((t - tot_p).abs() <= 1e-6 * tot_p).all())
+    rec_p, cells_p, steps_p, tb_p, _, lane_p = ml.sweep_dtau_prefix_plain(
+        *args)
+    assert torch.equal(rec, rec_p) and torch.equal(cells, cells_p)
+    assert torch.equal(steps, steps_p) and torch.equal(rec_n, rec_p)
+    assert cells_n is None
+    assert bool(((tb - tb_p).abs() <= 1e-6 * tot_p[None, :]).all())
+    for a, b in zip(lane, lane_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("store_rf", [False, True], ids=["no_rf", "rf"])
+def test_tree_loop_launches(dev, store_rf, monkeypatch):
+    """The tree event loop: one `mlsweep_dtau_prefix` launch per event, one
+    `mlsweep_tau_total` per peel-off, kernel 5 per event with an RF, no
+    reference-mode pass 1; no `slab_prefix`, no `_lane_range` and no
+    `torch.sum` over a record."""
+    grid = _tree("octree")
+    med = _tree_medium(grid, 1, np.random.default_rng(0))
+    sim = Simulation(
+        grid=grid, medium=med,
+        sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
+        instruments=[dinst.DistantInstrumentCfg(
+            name="i", wave_borders=(0.5e-6, 0.6e-6), distance=100 * PC,
+            npx=16, npy=16, fovx=4 * PC, fovy=4 * PC)],
+        options=lc.TransportOptions(max_steps=grid.max_steps(),
+                                    max_events=4),
+        rf_borders=np.array([0.5e-6, 0.6e-6]) if store_rf else None,
+        num_packets=8192, batch_size=4096, seed=1, device=dev)
+    assert isinstance(sim._sweep_tabs, ml.MLTables)
+    n_steps = sim._sweep_tabs.n_steps
+
+    def refuse(*a, **k):
+        raise AssertionError("not on the tree loop")
+
+    torch_sum = torch.sum
+
+    def guarded_sum(x, *a, **k):
+        if x.dim() == 3 and x.shape[:2] == (n_steps, 3):
+            raise AssertionError("torch.sum over the record")
+        return torch_sum(x, *a, **k)
+
+    monkeypatch.setattr(sw, "slab_prefix", refuse)
+    monkeypatch.setattr(sw, "_lane_range", refuse)
+    monkeypatch.setattr(torch, "sum", guarded_sum)
+    kb.reset_launches()
+    rf, accs = sim.run_primary(verbose=False)
+    n = dict(kb.LAUNCHES)
+    events = sim.last_stats["events"]
+    assert events > 2
+    assert n["mlsweep_dtau_prefix"] == events
+    # the emission peel-off of each of the 2 batches, then one per event
+    assert n["mlsweep_tau_total"] == 2 + events
+    assert n["mlsweep_deposit"] == (events if store_rf else 0)
+    assert n["mlsweep_dtau"] == 0 and n["detect"] > 0
+    assert float(accs[0]["sed"].sum()) > 0
+    if store_rf:
+        assert bool(torch.isfinite(rf).all()) and float(rf.sum()) > 0
 
 
 @pytest.mark.parametrize("size", [1, 5, 4096, 50000, 163840])
@@ -669,8 +804,7 @@ def test_mlsweep_deposit_kernel_global(dev, kind, monkeypatch):
     B = 4096
     tabs, pos, d, sig, active, rs = _tree_inputs(dev, kind, 1, B, seed=8)
     lane = sw._lane_range(tabs, pos, d, active)
-    sub, cells = ml.sweep_dtau(tabs, pos, d, sig, active, want_sub=True,
-                               lane=lane)
+    sub, cells = ml.sweep_dtau(tabs, pos, d, sig, active, want_sub=True)
     tb, tot = sw.slab_prefix(sub.sum(dim=1), d.gather(
         1, lane[0].long()[:, None])[:, 0] > 0)
     lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
@@ -741,7 +875,8 @@ def test_tree_simulation_launches(dev):
     kb.reset_launches()
     rf, accs = sim.run_primary(verbose=False)
     n = kb.LAUNCHES
-    assert n["mlsweep_dtau"] > 0 and n["mlsweep_deposit"] > 0
+    assert n["mlsweep_dtau_prefix"] > 0 and n["mlsweep_tau_total"] > 0
+    assert n["mlsweep_deposit"] > 0 and n["mlsweep_dtau"] == 0
     assert n["detect"] > 0 and n["scatter_add"] == 0
     assert n["sweep_dtau"] == n["sweep_deposit"] == n["sweepxl_dtau"] == 0
     assert bool(torch.isfinite(rf).all()) and float(rf.sum()) > 0

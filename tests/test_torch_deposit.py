@@ -235,8 +235,7 @@ def test_tree_deposit_with_lane_range_matches_scan_march(kind):
     tsig = torch.from_numpy(np.array(np.asarray(opt.sigma_ext).T))
     lane = sw._lane_range(tabs, tpos, td, tact)
     kb.reset_launches()
-    sub, cells = ml.sweep_dtau(tabs, tpos, td, tsig, tact, want_sub=True,
-                               lane=lane)
+    sub, cells = ml.sweep_dtau(tabs, tpos, td, tsig, tact, want_sub=True)
     tb, _ = sw.slab_prefix(sub.sum(dim=1), td.gather(
         1, lane[0].to(torch.int64)[:, None])[:, 0] > 0)
     args = (tabs, tpos, td, tact, sub, cells, tact.to(torch.float32), tti,

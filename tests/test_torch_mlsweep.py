@@ -20,6 +20,13 @@ Bounds, and why:
 - The reference's own tree sweep in Pallas interpret mode (one case): rtol
   2e-4, atol 1e-5, as against the march: its plan is built on merged and
   clustered levels, so its steps, and their nudges, differ.
+- Pass 1's total and prefix modes: the totals against the scan march with
+  the bounds above; the total and the prefix against the reference's
+  `slab_prefix` of the same step sums within 1e-6 of each lane's tau (one
+  f32 sum in another order); the record, leaf ids and lane range those of
+  `sweep_dtau` and `sweep._lane_range` exactly.
+- `resolve_interaction` given pass 1's lane range and step sums equals the
+  call that forms them itself, bit for bit.
 """
 
 import numpy as np
@@ -33,6 +40,7 @@ from skirt9_tpu.grids.octree import site_list_refine_fn as ref_site_list
 from skirt9_tpu.media import system as ref_msys
 from skirt9_tpu.transport import lifecycle as ref_lc
 from skirt9_tpu.transport import mlsweep as ref_ml
+from skirt9_tpu.transport import sweep as ref_sw
 from skirt9_tpu_torch import bridge
 from skirt9_tpu_torch.kernels import build as kb
 from skirt9_tpu_torch.transport import mlsweep as ml
@@ -180,6 +188,80 @@ def test_deposit_and_interaction_match_scan_march(tree, C):
     s2, ic2, f2 = ml.resolve_interaction(tabs, tpos, td, tact, sub, tb, tti)
     assert torch.equal(f2, found) and torch.equal(ic2, icell)
     assert torch.equal(s2[found], s_int[found])
+
+
+@pytest.mark.parametrize("C,hint", [(1, None), (2, None), (1, 2), (2, 0)],
+                         ids=["C1", "C2", "C1-hint2", "C2-hint0"])
+def test_total_and_prefix_match_reference(tree, C, hint):
+    """`sweep_tau_total` and `sweep_dtau_prefix` (their plain versions on
+    the CPU) against the reference's scan march (the totals, with the bounds
+    of `test_dtau_matches_scan_march`) and its `slab_prefix` of the same
+    step sums (the total and the prefix within 1e-6 of each lane's tau);
+    the record, leaf ids and step sums those of `sweep_dtau`, the lane
+    range `_lane_range`'s, bit for bit."""
+    _, grid = tree
+    B = 512
+    rmed, tabs, pos, d, opt, cell, sig = _setup(grid, C, B, 50 + C, hint)
+    active = cell >= 0
+    tau_ref = np.asarray(ref_lc.trace_tau(grid, rmed, opt, jnp.asarray(pos),
+                                          jnp.asarray(d), cell,
+                                          grid.max_steps(), active))
+    args = (*_port(pos, d, sig, np.asarray(active)), hint)
+    kb.reset_launches()
+    tot = ml.sweep_tau_total(tabs, *args)
+    rec, cells, steps, tb, tot_c, lane = ml.sweep_dtau_prefix(tabs, *args)
+    rec_n, cells_n, *_ = ml.sweep_dtau_prefix(tabs, *args, leaf_ids=False)
+    assert all(v == 0 for v in kb.LAUNCHES.values())   # CPU: plain versions
+    assert tot.shape == tot_c.shape == (B,)
+    assert rec.shape == cells.shape == (tabs.n_steps, 3, B)
+    assert steps.shape == tb.shape == (tabs.n_steps, B)
+    a = np.asarray(active)
+    assert (tau_ref[a] > 0.01).sum() > 100
+    for t in (tot, tot_c):
+        np.testing.assert_allclose(t.double().numpy()[a], tau_ref[a],
+                                   rtol=2e-4, atol=1e-5)
+    # the reference's slab_prefix of the same step sums
+    g, smin, smax = sw._lane_range(tabs, args[0], args[1], args[3])
+    g = sw._hinted(g, hint)
+    up = args[1].gather(1, g.long()[:, None])[:, 0] > 0
+    tb_r, tot_r = (torch.from_numpy(np.asarray(x)) for x in ref_sw.slab_prefix(
+        jnp.asarray(steps.numpy()), jnp.asarray(up.numpy())))
+    for t in (tot, tot_c):
+        assert bool(((t - tot_r).abs() <= 1e-6 * tot_r).all())
+    assert bool(((tb - tb_r).abs() <= 1e-6 * tot_r[None, :]).all())
+    # one march: sweep_dtau's record and leaf ids, (d0 + d1) + d2
+    rec_w, cells_w = ml.sweep_dtau(tabs, *args[:4], axis_hint=hint,
+                                   want_sub=True)
+    assert torch.equal(rec, rec_w) and torch.equal(cells, cells_w)
+    assert torch.equal(rec_n, rec_w) and cells_n is None
+    assert torch.equal(steps, (rec[:, 0] + rec[:, 1]) + rec[:, 2])
+    for x, y in zip(lane, (g, smin, smax)):
+        assert torch.equal(x, y)
+
+
+def test_resolve_interaction_takes_pass1(tree):
+    """`resolve_interaction` given pass 1's lane range and step sums (from
+    `sweep_dtau_prefix`) equals the call that forms them itself, bit for
+    bit, also on lanes that may not interact, with tau_int = 0 and tau_int
+    past the lane's total."""
+    _, grid = tree
+    B = 512
+    rmed, tabs, pos, d, opt, cell, sig = _setup(grid, 1, B, 60)
+    tpos, td, tsig, tact = _port(pos, d, sig, np.asarray(cell >= 0))
+    rec, _, steps, tb, tot, lane = ml.sweep_dtau_prefix(tabs, tpos, td, tsig,
+                                                        tact)
+    rs = np.random.default_rng(61)
+    u = rs.uniform(0.0, 1.3, B)
+    u[:B // 8] = 0.0
+    tau_int = torch.from_numpy(u.astype(np.float32)) * tot
+    act_int = tact & torch.from_numpy(rs.uniform(size=B) > 0.15) & (tot > 1e-6)
+    got = ml.resolve_interaction(tabs, tpos, td, act_int, rec, tb, tau_int,
+                                 lane=lane, dtau_step=steps)
+    want = ml.resolve_interaction(tabs, tpos, td, act_int, rec, tb, tau_int)
+    assert int(want[2].sum()) > B // 4
+    assert int((tact & ~act_int).sum()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_leafmap_matches_reference(tree):

@@ -24,6 +24,10 @@ Bounds, and why:
 - RF deposits: 1e-5 of the maximum (the same f32 terms summed in another
   order); interaction: `found` equal on >= 99.9% of lanes, `icell` equal
   where both found, `s_int` within 1e-5 of a cell size.
+- pass 2 from the prefix (`sweep_deposit_prefix`) against the calls it
+  replaces in the event loop (the scale formed from the prefix,
+  `sweep_deposit_plain`, `resolve_interaction`): identical; against the
+  reference: the deposit and interaction bounds above.
 """
 
 import numpy as np
@@ -238,6 +242,98 @@ def test_pass1_lane_changes_nothing(what):
     assert int(torch.count_nonzero(want[0])) > B // 4
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _prefix_inputs(C, B, seed, store_rf):
+    """Pass 1's record, prefix and lane range on the port's plain version,
+    and pass 2's per-lane inputs: tau_int up to 1.3 tau (0 on an eighth of
+    the lanes, past the total on others), an interaction mask that drops
+    some in-grid lanes, and lum_half (None without an RF)."""
+    rgrid, rmed, tabs, pos, d = _setup(C, B, seed)
+    rs = np.random.default_rng(seed + 1)
+    _, sig, act = _ref_march_tau(rgrid, rmed, pos, d)
+    tpos, td, tsig, tact = _port(pos, d, sig, act)
+    rec, tb, tot, lane = xl.sweep_dtau_prefix(tabs, tpos, td, tsig, tact)
+    u = rs.uniform(0.0, 1.3, B)
+    u[:B // 8] = 0.0
+    tau_int = torch.from_numpy(u.astype(np.float32)) * tot
+    act_int = tact & torch.from_numpy(rs.uniform(size=B) > 0.15) & (tot > 1e-6)
+    lum = None
+    if store_rf:
+        lum = torch.from_numpy(rs.uniform(0.5, 2.0, B).astype(np.float32))
+        lum = lum * tact
+    return (rgrid, rmed, tabs, pos, d, act, (tpos, td, tact),
+            (rec, tb, tot, lane), lum, tau_int, act_int)
+
+
+@pytest.mark.parametrize("store_rf", [True, False], ids=["rf", "no_rf"])
+@pytest.mark.parametrize("C", [1, 2])
+def test_deposit_prefix_is_the_old_composition(C, store_rf):
+    """`sweep_deposit_prefix` (its plain version on the CPU) equals the
+    calls it replaces in the XL event loop bit for bit: scale_slab =
+    (lum_half * e^-tb) * inv_sqrt, `sweep_deposit_plain` on it and
+    `resolve_interaction` with pass 1's lane range; on up- and down-going
+    lanes, lanes that may not interact, tau_int = 0 and tau_int past the
+    lane's total."""
+    B = 1024
+    (_, _, tabs, _, _, _, (tpos, td, tact), (rec, tb, tot, lane), lum,
+     tau_int, act_int) = _prefix_inputs(C, B, 90 + C, store_rf)
+    args = (tabs, tpos, td, act_int, rec, lum, tau_int, tb, 0.7, lane)
+    kb.reset_launches()
+    rf, *hit = xl.sweep_deposit_prefix(*args)
+    assert sum(kb.LAUNCHES.values()) == 0
+    rf_p, *hit_p = xl.sweep_deposit_prefix_plain(*args)
+    want = xl.resolve_interaction(tabs, tpos, td, act_int, rec, tb, tau_int,
+                                  lane=lane)
+    for a, b, c in zip(hit, hit_p, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    s_int, icell, found = hit
+    assert icell.dtype == torch.int64 and found.dtype == torch.bool
+    # the cases the search must get right are all there
+    up = td.gather(1, lane[0].long()[:, None])[:, 0] > 0
+    assert int((up & found).sum()) > B // 8
+    assert int((~up & found).sum()) > B // 8
+    assert int((found & (tau_int == 0)).sum()) > 0
+    assert int((tact & ~act_int).sum()) > 0
+    assert int((act_int & ~found & (tau_int > tot)).sum()) > 0
+    assert bool((icell[~found] == -1).all())
+    if store_rf:
+        scale = (lum[None, :] * torch.exp(-tb)) * 0.7
+        rf_old = xl.sweep_deposit_plain(tabs, tpos, td, tact, rec, scale)
+        assert float(rf_old.max()) > 0
+        assert torch.equal(rf, rf_old) and torch.equal(rf_p, rf_old)
+    else:
+        assert rf is None and rf_p is None
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_deposit_prefix_matches_reference(C):
+    """`sweep_deposit_prefix` against the reference's interpret-mode
+    `sweep_deposit` on the same scale (RF within 1e-5 of its maximum, as
+    `test_deposit_matches_reference`) and its `resolve_interaction` (as
+    `test_resolve_interaction_matches_reference`)."""
+    B = 1024
+    (rgrid, rmed, tabs, pos, d, act, (tpos, td, tact), (rec, tb, _, lane),
+     lum, tau_int, _) = _prefix_inputs(C, B, 96 + C, True)
+    rf, s, ic, f = xl.sweep_deposit_prefix(tabs, tpos, td, tact, rec, lum,
+                                           tau_int, tb, 0.7, lane)
+    rtabs = ref_xl.build_tables(rgrid, rmed)
+    scale = ((lum[None, :] * torch.exp(-tb)) * 0.7).numpy()
+    rf_r = np.asarray(ref_xl.sweep_deposit(
+        rtabs, jnp.asarray(pos), jnp.asarray(d), jnp.asarray(act),
+        jnp.asarray(rec.numpy()), jnp.asarray(scale), n_groups=1))
+    assert rf.shape == rf_r.shape == (1, N ** 3) and rf_r.max() > 0
+    assert np.abs(rf.numpy() - rf_r).max() <= 1e-5 * np.abs(rf_r).max()
+    s_r, ic_r, f_r = (np.asarray(x) for x in ref_xl.resolve_interaction(
+        rtabs, jnp.asarray(pos), jnp.asarray(d), jnp.asarray(act),
+        jnp.asarray(rec.numpy()), jnp.asarray(tb.numpy()),
+        jnp.asarray(tau_int.numpy())))
+    f, ic, s = f.numpy(), ic.numpy(), s.numpy()
+    assert f.sum() > B // 4
+    assert (f == f_r).mean() >= 0.999
+    both = f & f_r
+    assert np.array_equal(ic[both], ic_r[both])
+    assert np.abs(s[both] - s_r[both]).max() <= 1e-5 * tabs.h[0]
 
 
 class _Medium:
