@@ -120,9 +120,14 @@ Phases, one JSON line each:
   kernels_probe     kernels 8-9 through their entry points
                     (skirt9_tpu_torch/tools/gather_probe.py, sublane_gather.py)
                     at the original probes' shapes, each variant against its
-                    plain version (gathers bit-exact, sums 1e-6 relative),
-                    timed with the plain and library times and kernel 3 at
-                    the probe's scatter shape
+                    plain version (gathers and the row lookups bit-exact,
+                    sums 1e-6 relative), timed with the plain and library
+                    times and kernel 3 at the probe's scatter shape; the
+                    parent's designs and the variants of
+                    perf/kernel8_variants.py and perf/kernel9_variants.py
+                    timed in turns with the package's kernels, the launch
+                    floor, the rates of distributed shared memory and the
+                    host cost of a per-call launch set-up
   kernels_b2        kernel 2 in both modes with config 2's 32 lane groups
                     (the prefix mode folding them into the 25 bins by the
                     launch's bin map), kernel 3 on its
@@ -1587,8 +1592,16 @@ PROBE = ("probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
 def phase_kernels_probe(torch) -> dict:
     """Kernels 8-9 through their entry points (the tools' `run`, at the
     original scripts' shapes), then each variant once more against its
-    plain version (gathers bit-exact, sums within 1e-6 relative) with its
-    bound; kernel 3 at the probe's scatter shape beside kernel 8's."""
+    plain version (gathers and the row lookups bit-exact, sums within 1e-6
+    relative) with its bound; kernel 3 at the probe's scatter shape beside
+    kernel 8's. Then the parent's designs and the variants of
+    perf/kernel8_variants.py and perf/kernel9_variants.py in turns with the
+    package's kernels, the launch floor (an empty kernel, plainly and as a
+    cluster of one), gather and scatter-add rates through block-local and
+    distributed shared memory and L2, and the host cost of the parent's
+    per-call launch set-up."""
+    from perf import kernel8_variants as k8v
+    from perf import kernel9_variants as k9v
     from skirt9_tpu_torch.ops import scatteradd as sca
     from skirt9_tpu_torch.tools import gather_probe as gp
     from skirt9_tpu_torch.tools import sublane_gather as sg
@@ -1608,7 +1621,7 @@ def phase_kernels_probe(torch) -> dict:
         "probe_scatter_smem": (gp.scatter(idx, vals, gp.N), s_ref, False),
         "scatter_add_probe_shape": (sca.scatter_add(idx, vals, gp.N), s_ref,
                                     False),
-        "row_lookup_gather": (sg.lookup(tab, ix), l_ref, False),
+        "row_lookup_gather": (sg.lookup(tab, ix), l_ref, True),
         "row_lookup_select": (sg.lookup(tab, ix, select=True), l_ref, False)}
     torch.cuda.synchronize()
     err = {}
@@ -1673,8 +1686,17 @@ def phase_kernels_probe(torch) -> dict:
         "ours"]
     # kernel 3 runs on no simulation path now, but in the probe's comparison
     out["probe_scatter_smem"]["kernel3_launches"] = launches["scatter_add"]
+    k8 = k8v.measure(torch, cuda_ms, device_ms)
+    out["row_lookup_gather"]["variants"] = k9v.measure(torch, tab, ix, IT,
+                                                       cuda_ms, device_ms)
+    out["probe_gather_smem"]["variants"] = k8["gather"]
+    out["probe_scatter_smem"]["variants"] = k8["scatter"]
+    for name in PROBE[:4]:
+        out[name]["floor_ms"] = k8["floor"]["empty"]["device_ms"]
     emit({"phase": "kernels_probe", "table": N, "indices": B,
-          "row_table": [R, W], "index_rows": S, "iters": IT, **out})
+          "row_table": [R, W], "index_rows": S, "iters": IT,
+          "floor": k8["floor"], "rates": k8["rates"],
+          "rate_rounds": k8v.ROUNDS, "host": k8["host"], **out})
     return out
 
 
@@ -2076,7 +2098,7 @@ def main() -> int:
                      **{key: k[key] for key in (
                          "launches", "max_abs_err", "ms", "plain_ms",
                          "bound_ms", "bound_by", "library_ms", "device_ms",
-                         "library_device_ms")}})
+                         "library_device_ms", "floor_ms", "variants") if key in k}})
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

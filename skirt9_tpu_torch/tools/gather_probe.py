@@ -7,13 +7,15 @@ the values into a 32,768-bin accumulator, each through its CUDA kernel
 (`csrc/probe_gather.cu`), checks the result against the plain PyTorch
 version, and prints one line per probe with its time:
 
-  shared-memory gather   the table staged in each block's shared memory;
-                         the `gather_kernel` and `take_kernel` contracts
+  shared-memory gather   the whole table staged in each block's shared
+                         memory, one block per SM; the
+                         `gather_kernel` and `take_kernel` contracts
                          (`nd[idx]`, `jnp.take(nd, idx, axis=0)`) are one
                          function and go through the same kernel
   L2 gather              the table read through L2 (`__ldg`), no staging
-  shared-memory scatter  `scat_kernel`'s `.at[idx].add` into a shared
-                         accumulator, flushed once per block
+  scatter                `scat_kernel`'s `.at[idx].add`: at four indices
+                         per bin a private accumulator buys nothing, so one
+                         global atomic per index
   kernel 3 scatter       `ops.scatteradd.scatter_add` at the same shape
   torch gather           `nd[idx]`, the baseline of the original's last line
 
@@ -52,6 +54,13 @@ def _check(nd, idx):
         raise ValueError("nd must be 1-D f32 and idx 1-D int32, on one device")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting on 16 bytes: the kernels load the table,
+    the indices and the values 16 bytes at a time."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def gather_plain(nd: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out = nd[idx]."""
     return nd[idx.long()]
@@ -66,15 +75,14 @@ def scatter_plain(idx: torch.Tensor, vals: torch.Tensor, n: int):
 def gather(nd: torch.Tensor, idx: torch.Tensor,
            staged: bool = True) -> torch.Tensor:
     """out = nd[idx]: the plain version on the CPU; on the card the kernel
-    with the table in shared memory (staged) or read through L2."""
+    with the table staged in each block's shared memory (staged) or read
+    through L2."""
     _check(nd, idx)
     if nd.device.type == "cpu":
         return gather_plain(nd, idx)
     if nd.device.type != "cuda":
         raise ValueError(f"no gather probe kernel for device {nd.device}")
-    nd, idx = nd.contiguous(), idx.contiguous()
-    if nd.data_ptr() % 16:
-        nd = nd.clone()          # the staging copy loads 16 bytes at a time
+    nd, idx = _aligned(nd), _aligned(idx)
     out = torch.empty(idx.shape[0], dtype=torch.float32, device=nd.device)
     kb.launch("probe_gather", nd.data_ptr(), idx.data_ptr(), out.data_ptr(),
               nd.shape[0], idx.shape[0], int(staged), kb.stream_of(nd),
@@ -90,7 +98,7 @@ def take(nd: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def scatter(idx: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
     """A fresh (n,) accumulator with vals added at idx: the plain version on
-    the CPU; on the card the shared-memory accumulator kernel."""
+    the CPU; on the card one global float atomic per index."""
     if idx.shape != vals.shape or idx.dim() != 1 \
             or idx.dtype != torch.int32 or vals.dtype != torch.float32 \
             or idx.device != vals.device:
@@ -100,7 +108,7 @@ def scatter(idx: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
         return scatter_plain(idx, vals, n)
     if vals.device.type != "cuda":
         raise ValueError(f"no scatter probe kernel for device {vals.device}")
-    idx, vals = idx.contiguous(), vals.contiguous()
+    idx, vals = _aligned(idx), _aligned(vals)
     out = torch.zeros(n, dtype=torch.float32, device=vals.device)
     kb.launch("probe_scatter", idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
               n, idx.shape[0], kb.stream_of(vals),
@@ -156,7 +164,7 @@ def run(device=None, reps: int = 20, verbose: bool = True) -> dict:
         for name, what in (("gather_smem", "shared-memory gather (gather_kernel)"),
                            ("take_smem", "shared-memory gather (take_kernel)"),
                            ("gather_l2", "L2 gather (__ldg)"),
-                           ("scatter_smem", "shared-memory scatter-add"),
+                           ("scatter_smem", "scatter-add (global atomics)"),
                            ("scatter_kernel3", "kernel 3 scatter-add")):
             r = res[name]
             print(f"{what}: correct={r['ok']} max_abs_err={r['max_abs_err']:.3g}"

@@ -49,8 +49,11 @@ Kernel 2 also runs with config 2's 32 lane groups and kernel 3 on its
 163,840-bin frame; a small config 2 with dust emission launches kernels
 1-3 on the card and matches the same seed on the CPU within 1e-4 (SEDs and
 RF, of their maxima). The probe kernels (8-9) are held against their plain
-versions: gathers bit for bit, sums within 1e-6 relative; the row-lookup
-select loop bit for bit, also off its block grid.
+versions: gathers bit for bit, sums within 1e-6 relative, also at table
+sizes that are no multiple of the 16-byte staging loads, and against a
+hand-built reference for indices outside the table (gather 0, scatter
+nothing); the row-lookup select loop and row gather bit for bit, also off
+their block grids.
 """
 
 import numpy as np
@@ -947,6 +950,79 @@ def test_row_lookup_select_exact(dev, R, S, W, iters):
     got = sg.lookup(tab, idx, iters, select=True)
     assert kb.LAUNCHES["row_lookup_select"] == 1
     assert torch.equal(got, sg.lookup_plain(tab, idx, iters))
+
+
+@pytest.mark.parametrize("R,S,W,iters", [(512, 64, 128, 256),
+                                         (500, 37, 100, 300)],
+                         ids=["probe", "off-grid"])
+def test_row_lookup_gather_exact(dev, R, S, W, iters):
+    """The row gather equal to `lookup_plain` bit for bit, at the probe's
+    shapes and off its block grid, from start rows below 0 and past R."""
+    from skirt9_tpu_torch.tools import sublane_gather as sg
+    tab, idx = sg.inputs(dev, R, S, W)
+    idx = idx * 3 - 700
+    kb.reset_launches()
+    got = sg.lookup(tab, idx, iters)
+    assert kb.LAUNCHES["row_lookup_gather"] == 1
+    assert kb.LAUNCHES["row_lookup_select"] == 0
+    assert torch.equal(got, sg.lookup_plain(tab, idx, iters))
+
+
+@pytest.mark.parametrize("n", [4099, 37])
+@pytest.mark.parametrize("variant", ["gather", "take", "gather_l2", "scatter"])
+def test_gather_probe_kernels_ragged(dev, n, variant):
+    """Kernel 8 at table sizes that are no multiple of 16 bytes (the
+    staging loads' ragged tail), and a B off the 16-byte index loads, against the plain
+    versions; one launch on the variant's counter. At 37 bins each bin sums
+    ~540 values, in an order the atomics pick, so the scatter and its plain
+    version are each held to the f32 summation bound of the exact (f64)
+    sum: m * 2^-24 * sum for a bin of m non-negative values."""
+    from skirt9_tpu_torch.tools import gather_probe as gp
+    nd, idx, _ = gp.inputs(dev, n=n, b=20001)
+    vals = torch.tensor(np.random.default_rng(3).uniform(0, 1, 20001)
+                        .astype(np.float32), device=dev)
+    fn = {"gather": lambda: gp.gather(nd, idx),
+          "take": lambda: gp.take(nd, idx),
+          "gather_l2": lambda: gp.gather(nd, idx, staged=False),
+          "scatter": lambda: gp.scatter(idx, vals, n)}[variant]
+    counter = {"gather": "probe_gather_smem", "take": "probe_gather_smem",
+               "gather_l2": "probe_gather_l2",
+               "scatter": "probe_scatter_smem"}[variant]
+    kb.reset_launches()
+    got = fn()
+    assert kb.LAUNCHES == {k: int(k == counter) for k in kb.LAUNCHES}
+    if variant == "scatter":
+        exact = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+            0, idx.long(), vals.double())
+        bound = torch.bincount(idx.long(), minlength=n) * 2.0**-24 * exact
+        for out in (got, gp.scatter_plain(idx, vals, n)):
+            assert bool(((out.double() - exact).abs() <= bound).all())
+    else:
+        assert torch.equal(got, gp.gather_plain(nd, idx))
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_gather_probe_out_of_range(dev, staged):
+    """Kernel 8's own rule for indices outside [0, n): a gather reads 0 and
+    a scatter adds nothing (the plain versions wrap or raise there, so the
+    reference is built by hand)."""
+    from skirt9_tpu_torch.tools import gather_probe as gp
+    n = 4099
+    nd, idx, _ = gp.inputs(dev, n=n, b=5003)
+    idx[::7] = -1
+    idx[1::11] = n
+    idx[2::13] = -(1 << 30)
+    idx[3::17] = 1 << 30
+    vals = torch.tensor(np.random.default_rng(4).uniform(0, 1, 5003)
+                        .astype(np.float32), device=dev)
+    ok = (idx >= 0) & (idx < n)
+    want = torch.zeros(5003, device=dev)
+    want[ok] = nd[idx[ok].long()]
+    assert torch.equal(gp.gather(nd, idx, staged=staged), want)
+    hist = torch.zeros(n, device=dev).index_add_(0, idx[ok].long(),
+                                                 vals[ok])
+    got = gp.scatter(idx, vals, n)
+    assert float((got - hist).abs().max()) <= 1e-6 * float(hist.max())
 
 
 @pytest.mark.parametrize("select", [False, True])

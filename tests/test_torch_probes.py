@@ -13,6 +13,12 @@ kernels' own semantics, on inputs from numpy seeds:
   the gathers are bit-exact and the scatter-add within 1e-6 relative.
 On the CPU every wrapper takes its plain version and launches nothing; the
 entry points run at the original shapes with `--device cpu`.
+
+The kernels' own rules are held here too: the row lookup's floor-mod start
+rows (below 0 and at or past R) against a numpy reference, the plain
+gather and scatter at a table size that is no multiple of the kernels'
+pieces (4,099 entries), the wrappers' 16-byte alignment of what the kernels
+load four at a time, and a refused launch raising.
 """
 
 import importlib.util
@@ -123,3 +129,78 @@ def test_wrappers_reject_what_kernels_do_not_take(bad):
             sg.lookup(tab.double(), ix)
         else:
             sg.lookup(tab, ix[:, :64])
+
+
+@pytest.mark.parametrize("R,S,W,iters", [(16, 8, 128, 40), (500, 5, 37, 300)],
+                         ids=["small", "off-grid"])
+def test_lookup_plain_floor_mod_start_rows(R, S, W, iters):
+    """Start rows below 0 and at or past R wrap by floor-mod, and the chain
+    adds in step order from 0: numpy's f32 adds in the same order give the
+    same bits; the one-gather library form agrees within 1e-6 relative."""
+    tab, idx = sg.inputs("cpu", R, S, W)
+    idx = idx * 5 - 2 * R
+    ix = idx.numpy().astype(np.int64)
+    assert (ix < 0).any() and (ix >= R).any()
+    t = tab.numpy()
+    ref = np.zeros((S, W), np.float32)
+    for i in range(iters):
+        ref = ref + np.take_along_axis(t, np.mod(ix + i, R), axis=0)
+    got = sg.lookup_plain(tab, idx, iters).numpy()
+    assert np.array_equal(got, ref)
+    assert np.array_equal(sg.lookup(tab, idx, iters).numpy(), ref)
+    lib = sg.lookup_library(tab, idx, iters).numpy()
+    assert np.abs(lib - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("contract", ["gather_kernel", "take_kernel"])
+def test_gather_plain_ragged_vs_kernel_bodies(contract):
+    """At 4,099 entries, no multiple of the 16-byte staging loads."""
+    nd, idx, _ = gp.inputs("cpu", n=4099, b=20001)
+    jnd, jidx = jnp.asarray(nd.numpy()), jnp.asarray(idx.numpy())
+    ref = jnd[jidx] if contract == "gather_kernel" else jnp.take(jnd, jidx,
+                                                                  axis=0)
+    fn = gp.gather if contract == "gather_kernel" else gp.take
+    for out in (fn(nd, idx), gp.gather(nd, idx, staged=False),
+                gp.gather_plain(nd, idx)):
+        assert np.array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_scatter_plain_ragged_vs_kernel_body():
+    _, idx, _ = gp.inputs("cpu", n=4099, b=20001)
+    vals = torch.tensor(np.random.default_rng(2).uniform(0, 1, 20001)
+                        .astype(np.float32))
+    ref = np.asarray(jnp.zeros(4099, jnp.float32).at[
+        jnp.asarray(idx.numpy())].add(jnp.asarray(vals.numpy())))
+    for out in (gp.scatter(idx, vals, 4099),
+                gp.scatter_plain(idx, vals, 4099)):
+        assert np.abs(out.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_wrappers_align_what_kernels_load_in_16_bytes(offset):
+    """The table, the indices and the values reach the kernels contiguous
+    and on 16 bytes (a view that starts elsewhere is copied), with their
+    values unchanged."""
+    base = torch.arange(64, dtype=torch.float32)
+    view = base[offset:offset + 40]
+    got = gp._aligned(view)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    assert torch.equal(got, view)
+    assert (got.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)
+    strided = base[::2]
+    assert torch.equal(gp._aligned(strided), strided)
+    assert gp._aligned(strided).is_contiguous()
+
+
+def test_refused_launch_raises(monkeypatch):
+    """A nonzero cudaError from a C entry (a launch the card refuses, say)
+    raises, and the launch is not counted."""
+    class Refusing:
+        def probe_gather_launch(self, *args):
+            return 801                  # cudaErrorNotSupported
+    monkeypatch.setattr(kb, "_lib", Refusing())
+    kb.reset_launches()
+    with pytest.raises(RuntimeError, match="probe_gather_smem"):
+        kb.launch("probe_gather", 0, 0, 0, 4, 4, 1, 0,
+                  count_as="probe_gather_smem")
+    assert kb.LAUNCHES["probe_gather_smem"] == 0

@@ -28,9 +28,9 @@ atol 1e-6 of its total.
 The port imports neither jax nor any module of the JAX package: a
 subprocess runs a uniform-grid and an octree simulation, a small config 2
 with dust emission (`chip_smoke.config2`) and the gather and
-row-lookup probes, and then finds no such module loaded and no kernel
-launched; an `ast` scan of the package and chip_smoke.py finds no such
-import.
+row-lookup probes, imports the variant scripts of kernels 8-9 (`perf/`),
+and then finds no such module loaded and no kernel launched; an `ast` scan
+of the package, chip_smoke.py and `perf/*.py` finds no such import.
 """
 
 import ast
@@ -332,6 +332,7 @@ assert isinstance(sim._sweep_tabs, MLTables)
 import chip_smoke
 from skirt9_tpu_torch.kernels import build as kb
 from skirt9_tpu_torch.tools import gather_probe, sublane_gather
+from perf import kernel8_variants, kernel9_variants
 sim = chip_smoke.config2("cpu", num_packets=512, batch_size=128, n=4, n_rf=4,
                          max_events=2, iterate_secondary=True,
                          max_iterations=1)
@@ -376,6 +377,9 @@ def _reference_imports(path: str) -> list[str]:
 
 def test_port_sources_import_no_reference():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "perf", n)
+              for n in os.listdir(os.path.join(REPO, "perf"))
+              if n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "skirt9_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
