@@ -11,7 +11,9 @@ sweep, kernels 1-2) and the 256^3 grid of bench.py `bench_config1x256`
 octrees `bench_config3ism` and `bench_config3ismxl` (multi-level tree sweep,
 kernels 4-5); then config 2 (bench2.ski: panchromatic dust emission,
 kernels 1-2 with a 25-bin stratified RF); and the gather and row-lookup
-probes (kernels 8-9, and kernel 3) through their own entry points. Every
+probes (kernels 8-9, and kernel 3) through their own entry points; then
+config 1h (bench1h.ski, lane refill) and the CLI on bench1.ski and
+bench2.ski, through the port's own ski loader. Every
 path detects through the fused detect kernel (csrc/detect.cu), which took
 kernel 3's place there. Each hand-written CUDA kernel is checked against
 its plain PyTorch version.
@@ -145,6 +147,26 @@ Phases, one JSON line each:
                     L_abs_primary within 1e-4
   breakdown_b2      config 2 with one batch per segment under torch.profiler,
                     as breakdown
+  refill_b1h        config 1h (bench.py:108-126): tests/golden/bench1h.ski
+                    through the port's load_ski, 2^19 packets in batches of
+                    2^17, in lane-refill generations of 16 events, timed
+                    after a warm-up: kernels 1-2 and detect launched, no
+                    lane abandoned at the generation cap, bench1h's golden
+                    gates (tests/test_reference_parity.py:149-178);
+                    packets/s, generations, events and host syncs per
+                    generation; kernel 1's total and prefix modes, kernel
+                    2's prefix mode and detect on a refilled batch (dead,
+                    fresh and old lanes side by side) against their plain
+                    versions; one batch profiled as breakdown (idle share)
+  cli               the port's CLI (skirt9_tpu_torch.__main__.main) on
+                    bench1.ski and bench2.ski at their 10^6 packets, -b
+                    131072, into a temporary directory: kernels 1-2 and
+                    detect launched; wall time each; the gates read back
+                    from the written files (bench1's SED against
+                    tests/test_reference_parity.py:26-49, bench2's SED, RF
+                    and dust temperature probe files against its golden
+                    gates), the probe files one row per cell, equal to the
+                    run's RF and dust temperature
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -1843,12 +1865,24 @@ def phase_draw_for_draw_b2(torch) -> None:
 
 
 def _golden_gates(sim, rf, accs, tmp) -> dict:
+    """bench2's golden gates (`bench2_gates`) on a run's written SED file,
+    its radiation field as mean intensity per cell and bin [W/m2/m/sr] and
+    its dust temperature."""
+    paths = sim.write_outputs(accs, "b2", tmp)
+    dlam = np.diff(np.asarray(sim.rf_borders, np.float64))
+    J = (rf.double().cpu().numpy() * sim.rf_scale
+         / (4 * np.pi * sim.grid.volumes()[:, None] * dlam[None, :]))
+    return bench2_gates(np.loadtxt(paths[0]), J, dlam,
+                        sim.dust_temperature(rf)[:, 0])
+
+
+def bench2_gates(ours, J, dlam, T) -> dict:
     """bench2's golden thresholds (tests/test_reference_parity.py:72-141)
     against tests/golden/bench2_*: SED column medians, the integrated
     total, the RF per-bin medians and log correlation, the dust
-    temperature median."""
-    paths = sim.write_outputs(accs, "b2", tmp)
-    ours = np.loadtxt(paths[0])
+    temperature median. ours: the SED file's columns; J: (ncells, nbins)
+    mean intensity [W/m2/m/sr]; dlam: the RF bin widths [m]; T: (ncells,)
+    dust temperature [K]."""
     ref = np.loadtxt(os.path.join(GOLDEN, "bench2_i0_sed.dat"))
     require(ours.shape[0] == ref.shape[0], "40 SED rows")
     require(bool(np.allclose(ours[:, 0], ref[:, 0], rtol=1e-3)),
@@ -1867,11 +1901,7 @@ def _golden_gates(sim, rf, accs, tmp) -> dict:
     res["total_ratio"] = tot
     with gzip.open(os.path.join(GOLDEN, "bench2_rf_J.dat.gz"), "rt") as f:
         refJ = np.loadtxt(f)[:, 1:]
-    rb = np.asarray(sim.rf_borders, np.float64)
-    dlam = np.diff(rb)
-    vols = sim.grid.volumes()
-    oursJ = (rf.double().cpu().numpy() * sim.rf_scale
-             / (4 * np.pi * vols[:, None] * dlam[None, :])) * 1e-6
+    oursJ = J * 1e-6                      # per micron, as the golden
     tr, to = refJ.sum(axis=0), oursJ.sum(axis=0)
     hi = tr > 0.02 * tr.max()
     med = float(np.median(to[hi] / tr[hi]))
@@ -1883,7 +1913,6 @@ def _golden_gates(sim, rf, accs, tmp) -> dict:
                            np.log(np.maximum(bol_o[sel], 1e-300)))[0, 1])
     require(cc > 0.93, f"bench2 RF log correlation {cc} > 0.93")
     T_ref = np.loadtxt(os.path.join(GOLDEN, "bench2_T_dust_T.dat"))[:, 1]
-    T = sim.dust_temperature(rf)[:, 0]
     t_med = float(np.median(T[T_ref > 1.0] / T_ref[T_ref > 1.0]))
     require(abs(t_med - 1.0) < 0.05, f"bench2 dust temperature median {t_med}")
     res.update(rf_median_ratio=med, rf_log_correlation=cc,
@@ -1942,6 +1971,258 @@ def phase_breakdown_b2(torch) -> None:
     emit({"phase": "breakdown_b2", "packets": B_FULL, **prof})
 
 
+def config1h(device, num_packets=1 << 19, batch_size=B_FULL):
+    """bench.py's config 1h (bench.py:108-126): tests/golden/bench1h.ski
+    (radial tau 10, albedo 0.9) through the port's `load_ski`, 16 events
+    per batch, run in lane-refill generations of 16 events."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    sim = load_ski(os.path.join(GOLDEN, "bench1h.ski"),
+                   num_packets=num_packets, batch_size=batch_size,
+                   max_events=16, device=device)
+    sim.refill_events = 16
+    return sim
+
+
+def golden_sed_gates(name, sed_um, gates) -> dict:
+    """A one-bin SED [W/m2/micron] (transparent, primarydirect,
+    primaryscattered) against tests/golden/<name>_i0_sed.dat: each entry of
+    gates (kind, column, relative bound) as pytest.approx holds it."""
+    golden = np.loadtxt(os.path.join(GOLDEN, f"{name}_i0_sed.dat"))
+    res = {}
+    for kind, col, tol in gates:
+        ratio = sed_um[kind] / golden[col]
+        require(abs(ratio - 1.0) <= tol,
+                f"{name} {kind} {sed_um[kind]} vs golden {golden[col]} "
+                f"within {tol}")
+        res[f"{kind}_ratio"] = ratio
+    return res
+
+
+def bench1h_gates(sed) -> dict:
+    """test_bench1h_high_tau_parity's gates
+    (tests/test_reference_parity.py:149-178) on a calibrated SED."""
+    sed_um = {k: float(sed[k][0]) * 1e-6 for k in (
+        "transparent", "primarydirect", "primaryscattered")}
+    res = golden_sed_gates("bench1h", sed_um, (
+        ("transparent", 2, 2e-3), ("primarydirect", 3, 0.3),
+        ("primaryscattered", 4, 0.1)))
+    golden = np.loadtxt(os.path.join(GOLDEN, "bench1h_i0_sed.dat"))
+    lr = math.log(sed_um["primarydirect"] / sed_um["transparent"])
+    lr_g = math.log(golden[3] / golden[2])
+    require(abs(lr / lr_g - 1.0) <= 0.02,
+            f"bench1h log(direct/transparent) {lr} vs {lr_g} within 2%")
+    res["log_direct_over_transparent"] = lr
+    return res
+
+
+def refilled_batch(torch, sim):
+    """The packet batch that the refill path hands to life_cycle in the
+    first generation with holes: dead lanes (histories used up) beside
+    lanes launched in that generation (its emit mask) and lanes of earlier
+    generations. The run stops there. Returns (pkt, emit mask)."""
+    from skirt9_tpu_torch.transport import lifecycle as lc
+    real, seen = lc.life_cycle, []
+
+    class Found(Exception):
+        pass
+
+    def spy(*args, **kw):
+        pkt, fresh = args[5], kw["emit_mask"]
+        if not bool(pkt.alive.all()) and bool((fresh & pkt.alive).any()) \
+                and bool((pkt.alive & ~fresh).any()):
+            seen.append((pkt, fresh))
+            raise Found
+        return real(*args, **kw)
+
+    lc.life_cycle = spy
+    try:
+        sim.run_primary(verbose=False)
+    except Found:
+        pass
+    finally:
+        lc.life_cycle = real
+    require(len(seen) == 1, "a refill generation with dead, fresh and old "
+            "lanes")
+    return seen[0]
+
+
+def check_refilled_batch(torch, sim) -> dict:
+    """Kernels 1, 2 and detect on a refilled batch (`refilled_batch`)
+    against their plain versions on the same CUDA tensors: kernel 1's total
+    (the +z peel-off) and prefix modes within 1e-6 of each lane's tau and
+    the lane range bit for bit, kernel 2's prefix mode as `check_deposit`
+    holds it (with an RF, so that the deposits run), and detect on the
+    emission peel-off of the fresh lanes as `check_detect` holds it."""
+    from skirt9_tpu_torch.instruments import distant as dinst
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.transport import sweep as sw
+    pkt, fresh = refilled_batch(torch, sim)
+    tabs = sim._sweep_tabs
+    B = pkt.lam.shape[0]
+    sig = msys.optics_at(sim.medium, pkt.lam).sigma_ext.T.contiguous()
+    active = pkt.alive
+    res = {"lanes": B, "dead": int((~active).sum()),
+           "fresh": int((fresh & active).sum()),
+           "old": int((active & ~fresh).sum())}
+    kz = torch.zeros_like(pkt.dir)
+    kz[:, 2] = 1.0
+    rel_tot = rel_pre = 0.0
+    for d_, hint in ((pkt.dir, None), (kz, 2)):
+        args = (tabs, pkt.pos, d_, sig, active, hint)
+        t_k, t_p = sw.sweep_tau_total(*args), sw.sweep_tau_total_plain(*args)
+        tb_k, tot_k, lane_k = sw.sweep_dtau_prefix(*args)
+        tb_p, _, lane_p = sw.sweep_dtau_prefix_plain(*args)
+        torch.cuda.synchronize()
+        scale = t_p.clamp_min(1e-30)
+        rel_tot = max(rel_tot, float(((t_k - t_p).abs() / scale).max()),
+                      float(((tot_k - t_p).abs() / scale).max()))
+        rel_pre = max(rel_pre,
+                      float(((tb_k - tb_p).abs() / scale[None, :]).max()))
+        for a, b, name in zip(lane_k, lane_p, ("axis", "smin", "smax")):
+            require(bool(torch.equal(a, b)),
+                    f"refilled batch: kernel 1 lane {name} bit-identical")
+        require(bool(torch.equal(t_p[~active], torch.zeros_like(
+            t_p[~active]))), "refilled batch: dead lanes see no dust")
+    require(rel_tot <= 1e-6 and rel_pre <= 1e-6,
+            f"refilled batch: kernel 1 totals {rel_tot} and prefix "
+            f"{rel_pre} within 1e-6 of each lane's tau")
+    res.update(kernel1_err_of_tau=max(rel_tot, rel_pre))
+    tb, tot, lane = sw.sweep_dtau_prefix(tabs, pkt.pos, pkt.dir, sig, active)
+    rs = np.random.default_rng(11)
+    tau_int = torch.tensor(rs.uniform(size=B).astype(np.float32),
+                           device=tot.device) * tot
+    # the event loop's RF scaling (the sim's rf_scale), as if it stored one
+    inv_sqrt = 1.0 / math.sqrt(sim.rf_scale)
+    lum_half = (pkt.lum * active) * inv_sqrt
+    dep = check_deposit(
+        torch, "refilled sweep_deposit_prefix",
+        lambda *a: sw.sweep_deposit_prefix(*a, nbins=1),
+        lambda *a: sw.sweep_deposit_prefix_plain(*a, nbins=1),
+        (tabs, pkt.pos, pkt.dir, sig, active, lum_half, tau_int, tb,
+         inv_sqrt, lane), float(tabs.h[0]))
+    res["kernel2"] = {k: dep[k] for k in ("max_abs_err", "rf_max",
+                                          "found_agreement", "s_int_err")}
+    cfg = sim.instruments[0]
+    det = check_detect(torch, cfg, sim._inst_tabs[0], pkt.lam, pkt.pos,
+                       pkt.lum / (4 * math.pi), fresh & active,
+                       dinst.KIND_TRANSPARENT)
+    res["detect"] = {k: det[k] for k in ("max_abs_err", "max_err_of_max",
+                                         "lit_lanes")}
+    return res
+
+
+def phase_refill_b1h(torch, smi: str) -> dict:
+    """Config 1h (bench1h.ski at bench.py's size: 2^19 packets in batches
+    of 2^17, refill generations of 16 events), timed after a warm-up:
+    kernels 1-2 and detect launched, no tree or XL kernel; no lane
+    abandoned at the generation cap; bench1h's golden gates; kernels 1, 2
+    and detect on a refilled batch against their plain versions; one
+    batch of 2^17 packets (all its generations) profiled (host_per_event)."""
+    sim = config1h("cuda")
+    require(type(sim._sweep_tabs).__name__ == "SweepTables",
+            "bench1h builds SweepTables")
+    sim.run_primary(verbose=False)                       # warm-up
+    (_, accs), launches = drive(RESIDENT + DETECT, XL + ML + NOT_PATH,
+                                lambda: sim.run_primary(verbose=False))
+    st = dict(sim.last_stats)
+    require(st["abandoned"] == 0, f"refill: {st['abandoned']} lanes "
+            "abandoned at the generation cap")
+    gates = bench1h_gates(_sed(sim, accs))
+    kernels = check_refilled_batch(torch, config1h("cuda"))
+    prof = host_per_event(torch, config1h("cuda", num_packets=B_FULL),
+                          lambda s: s.run_primary(verbose=False))
+    res = {"phase": "refill_b1h", "grid": list(sim.grid.shape),
+           "packets": sim.num_packets, "batch": sim.batch_size,
+           "refill_events": sim.refill_events,
+           "packets_per_s": sim.last_rate, "seconds": st["seconds"],
+           "generations": st["generations"], "events": st["events"],
+           "events_per_generation": st["events"] / st["generations"],
+           "syncs": st["syncs"],
+           "syncs_per_generation": st["syncs"] / st["generations"],
+           "sync_wait_s": st["sync_s"], "abandoned": st["abandoned"],
+           "launches": launches, **gates, "refilled_batch": kernels,
+           "profiled_batch": B_FULL, "profile": prof,
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit(res)
+    return launches
+
+
+def phase_cli(torch, smi: str) -> dict:
+    """`skirt9_tpu_torch.__main__.main` on bench1.ski and bench2.ski at
+    their own 10^6 packets in batches of 131,072, into a temporary
+    directory, each driven with the launch counts set to 0: kernels 1-2
+    and detect launched. The gates read the written files: bench1's SED
+    against test_bench1_parity_with_reference's thresholds, bench2's SED,
+    RF and temperature probe files against bench2_gates; the probe files
+    hold one row per cell and equal the run's RF and dust temperature."""
+    from skirt9_tpu_torch import __main__ as cli
+    from skirt9_tpu_torch.probes import probes
+    from skirt9_tpu_torch.utils.fits import read_fits
+    real, runs = probes.run_probe_system, {}
+
+    def spy(sim, when, prefix, outdir=".", rf=None):
+        if when == "Run":
+            runs[prefix] = (sim, rf)
+        return real(sim, when, prefix, outdir, rf=rf)
+
+    res = {"phase": "cli", "batch": 131072}
+    launches = {}
+    probes.run_probe_system = spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name in ("bench1", "bench2"):
+                t0 = time.perf_counter()
+                rc, launches[name] = drive(
+                    RESIDENT + DETECT, XL + ML + NOT_PATH,
+                    lambda: cli.main([os.path.join(GOLDEN, f"{name}.ski"),
+                                      "-b", "131072", "-o", tmp]))
+                require(rc == 0, f"CLI on {name}.ski exit code {rc}")
+                res[f"{name}_wall_s"] = time.perf_counter() - t0
+                sim = runs[name][0]
+                res[f"{name}_packets"] = sim.num_packets
+                res[f"{name}_run_s"] = sim.last_stats["seconds"]
+                ours = np.loadtxt(os.path.join(tmp, f"{name}_i0_sed.dat"))
+                cube, _ = read_fits(os.path.join(tmp,
+                                                 f"{name}_i0_total.fits"))
+                require(bool(np.isfinite(ours).all()
+                             and np.isfinite(cube).all())
+                        and cube.max() > 0, f"{name} outputs finite, lit")
+            require(runs["bench1"][0].num_packets == 10 ** 6
+                    and runs["bench2"][0].num_packets == 10 ** 6,
+                    "10^6 packets each, as the ski files say")
+            b1 = np.loadtxt(os.path.join(tmp, "bench1_i0_sed.dat"))
+            res["bench1"] = golden_sed_gates(
+                "bench1", {"transparent": b1[2], "primarydirect": b1[3],
+                           "primaryscattered": b1[4]},
+                (("transparent", 2, 2e-3), ("primarydirect", 3, 0.02),
+                 ("primaryscattered", 4, 0.05)))
+            sim, rf = runs["bench2"]
+            J = np.loadtxt(os.path.join(tmp, "bench2_rf_radiationfield.dat"))
+            T = np.loadtxt(os.path.join(tmp, "bench2_T_temperature.dat"))
+            n = sim.grid.ncells
+            require(J.shape == (n, 3 + rf.shape[1]) and T.shape == (n, 4),
+                    "bench2 probe files: one row per cell")
+            dlam = np.diff(np.asarray(sim.rf_borders, np.float64))
+            J_run = (rf.double().cpu().numpy() * sim.rf_scale
+                     / (4 * np.pi * sim.grid.volumes()[:, None]
+                        * dlam[None, :]))
+            require(bool(np.array_equal(J[:, 3:], J_run)),
+                    "the RF probe file holds the run's RF")
+            require(bool(np.array_equal(T[:, 3],
+                                        sim.dust_temperature(rf)[:, 0])),
+                    "the temperature probe file holds the run's dust "
+                    "temperature")
+            res["bench2"] = bench2_gates(
+                np.loadtxt(os.path.join(tmp, "bench2_i0_sed.dat")),
+                J[:, 3:], dlam, T[:, 3])
+    finally:
+        probes.run_probe_system = real
+    res.update(launches=launches, device=torch.cuda.get_device_name(0),
+               nvidia_smi=smi)
+    emit(res)
+    return launches
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -1987,6 +2268,10 @@ def main() -> int:
     sim, launches_b2 = phase_full_width_b2(torch, smi)
     del sim
     phase_breakdown_b2(torch)
+    torch.cuda.empty_cache()
+    launches_1h = phase_refill_b1h(torch, smi)
+    torch.cuda.empty_cache()
+    phase_cli(torch, smi)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -2078,6 +2363,11 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "device_ms", "seven_call_ms",
                     "seven_call_device_ms") if key in kern_b2[name]}
+        if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",):
+            # config 1h's refill path (refill_b1h)
+            row["launches_config1h"] = (sum(launches_1h[m] for m in k1_modes)
+                                        if name == "sweep_dtau"
+                                        else launches_1h[name])
         rows.append(row)
     for name, src, ref in (
             ("probe_gather_smem", "probe_gather.cu",

@@ -13,15 +13,19 @@ scattering, HG phase function, peel-off to distant SED/frame instruments and
 a stored radiation field; and on uniform grids of the resident sweep,
 equilibrium dust emission (`Simulation.run_with_dust_emission`: a multi-bin
 radiation field filled from stratified bin-pure lane groups, optional
-self-absorption iterations, a secondary launch with peel-off). The gather
-and row-lookup probes of `tools/` have entry points in
-`skirt9_tpu_torch/tools/`. Everything else raises NotImplementedError
-naming itself.
+self-absorption iterations, a secondary launch with peel-off); lane refill
+on every engine (`Simulation.refill_events`); the port's own ski loader
+(`config/ski.py`: the item types of the golden bench1, bench1h and bench2)
+and CLI (`python -m skirt9_tpu_torch model.ski`), with the temperature and
+radiation-field probes. The gather and row-lookup probes of `tools/` have
+entry points in `skirt9_tpu_torch/tools/`. Everything else raises
+NotImplementedError naming itself.
 
 Rules of the package:
   * it imports neither jax nor any module of skirt9_tpu, not even a jax-free
     one: it keeps its own copies of the host modules it needs (`utils/fits`,
-    `utils/constants`, `utils/unitsystem`, `utils/log`);
+    `utils/constants`, `utils/unitsystem`, `utils/log`, `utils/units`,
+    `utils/filepaths`, `utils/cosmology`);
   * entry points run on the card unless the caller asks for the CPU
     (`Simulation(..., device="cpu")`, `--device cpu`); without a GPU the
     default raises, it never falls back to the CPU;

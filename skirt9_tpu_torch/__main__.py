@@ -1,0 +1,108 @@
+"""Command-line entry point: run a ski file.
+
+Port of `skirt9_tpu/__main__.py` (ref: SKIRT/main/SkirtMain.cpp:15,
+SkirtCommandLineHandler.cpp:31 flags). Usage:
+
+    python -m skirt9_tpu_torch model.ski [more.ski ...] [-o outdir] [-s seed]
+        [-p packets] [-b batch] [-e] [--device cuda|cpu]
+
+The run is on the card unless `--device cpu` asks for the CPU; without a GPU
+the default exits with an error. Accepted for compatibility but inert: -t,
+-m, -v. Not ported (the command exits non-zero and names them): -d other
+than 1 and --dd (several devices), --export-schema and the no-argument ski
+wizard.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="skirt9_tpu_torch",
+        description="Monte Carlo radiative transfer on PyTorch/CUDA (the "
+                    "port of skirt9_tpu)")
+    ap.add_argument("skifiles", nargs="*", help=".ski parameter files")
+    ap.add_argument("-o", "--outdir", default=".", help="output directory")
+    ap.add_argument("-s", "--seed", type=int, default=0, help="RNG seed")
+    ap.add_argument("-p", "--packets", type=int, default=None,
+                    help="override number of photon packets")
+    ap.add_argument("-b", "--batch", type=int, default=16384,
+                    help="packet batch size")
+    ap.add_argument("-e", "--emulate", action="store_true",
+                    help="setup only, zero packets (ref: emulation mode)")
+    ap.add_argument("-t", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("-m", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("-v", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("-d", "--devices", type=int, default=1,
+                    help="devices (only 1 is ported)")
+    ap.add_argument("--export-schema", metavar="FILE", default=None,
+                    help="not ported")
+    ap.add_argument("--dd", action="store_true", help="not ported")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda; cpu asks "
+                    "for the CPU)")
+    args = ap.parse_args(argv)
+
+    missing = []
+    if args.export_schema:
+        missing.append("--export-schema (the SMILE schema export)")
+    if args.devices != 1 or args.dd:
+        missing.append("-d/--dd (packet data parallelism and domain "
+                       "decomposition over several devices)")
+    if not args.skifiles:
+        missing.append("the no-argument ski wizard")
+    if missing:
+        print(f"skirt9_tpu_torch: not ported yet: {'; '.join(missing)}",
+              file=sys.stderr)
+        return 2
+
+    from . import device as dv
+    from .config.ski import load_ski
+    from .probes.probes import run_probe_system
+    from .utils import log as logmod
+
+    try:
+        device = dv.resolve(args.device)
+    except RuntimeError as err:
+        print(f"skirt9_tpu_torch: {err}", file=sys.stderr)
+        return 2
+    os.makedirs(args.outdir, exist_ok=True)
+    for ski in args.skifiles:
+        prefix = os.path.splitext(os.path.basename(ski))[0]
+        # file log next to the outputs (ref: FileLog; <prefix>_log.txt)
+        log = logmod.configure(prefix, args.outdir)
+        t0 = time.perf_counter()
+        log.info(f"Constructing a simulation from ski file {ski}...")
+        with log.timed("setup"):
+            sim = load_ski(ski, num_packets=args.packets,
+                           batch_size=args.batch, seed=args.seed,
+                           device=device)
+        if args.emulate:
+            log.success(f"emulation: setup OK, {sim.grid.ncells} cells, "
+                        f"{len(sim.sources)} sources, "
+                        f"{len(sim.instruments)} instruments")
+            continue
+        probe_paths = run_probe_system(sim, "Setup", prefix, args.outdir)
+        with log.timed(f"simulation {prefix}"):
+            if sim.ems_borders is not None:
+                rf, accs, _ = sim.run_with_dust_emission()
+            else:
+                rf, accs = sim.run_primary()
+        with log.timed("final output"):
+            paths = sim.write_outputs(accs, prefix, args.outdir)
+            paths += run_probe_system(sim, "Run", prefix, args.outdir, rf=rf)
+            paths += probe_paths
+        log.success(f"finished {ski} in {time.perf_counter() - t0:.1f} s")
+        for p in paths:
+            log.info(f"  wrote {p}")
+        log.memory()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -105,10 +105,9 @@ def options(ref_opts) -> TransportOptions:
 
 # reference Simulation fields the port does not run yet, with their
 # inactive values
-_INACTIVE = {"mueller": None, "spheroidal": None, "refill_events": 0,
-             "mesh": None, "dd": False, "xray_tabs": None, "phase_tabs": None,
-             "dynamic_recipes": [], "gas_emitters": [], "custom_state": {},
-             "grain_tables": None}
+_INACTIVE = {"mueller": None, "spheroidal": None, "mesh": None, "dd": False,
+             "xray_tabs": None, "phase_tabs": None, "dynamic_recipes": [],
+             "gas_emitters": [], "custom_state": {}, "grain_tables": None}
 
 # the reference's dust-emission fields, carried over as they are
 _EMISSION = ("ems_borders", "spatial_bias", "iterate_secondary",
@@ -134,5 +133,6 @@ def simulation(ref_sim, device) -> Simulation:
         rf_borders=None if rfb is None else np.asarray(rfb, np.float64),
         num_packets=int(ref_sim.num_packets),
         batch_size=int(ref_sim.batch_size), seed=int(ref_sim.seed),
-        source_bias=float(ref_sim.source_bias), device=device,
+        source_bias=float(ref_sim.source_bias),
+        refill_events=int(ref_sim.refill_events), device=device,
         **{k: getattr(ref_sim, k) for k in _EMISSION})

@@ -80,6 +80,22 @@ class UniformCartesianGrid(NamedTuple):
         g = torch.stack(torch.meshgrid(cx, cy, cz, indexing="ij"), dim=-1)
         return g.reshape(-1, 3)
 
+    @property
+    def xb(self) -> torch.Tensor:
+        """(nx + 1,) cell borders along x [m], f32."""
+        return self.lo[0] + torch.arange(self.nx + 1,
+                                         device=self.lo.device) * self.h[0]
+
+    @property
+    def yb(self) -> torch.Tensor:
+        return self.lo[1] + torch.arange(self.ny + 1,
+                                         device=self.lo.device) * self.h[1]
+
+    @property
+    def zb(self) -> torch.Tensor:
+        return self.lo[2] + torch.arange(self.nz + 1,
+                                         device=self.lo.device) * self.h[2]
+
     def volumes(self) -> np.ndarray:
         """Cell volumes (ncells,) [m^3], host f64."""
         h = self.h.cpu().numpy().astype(np.float64)

@@ -1,8 +1,10 @@
 """Material mixes: optical-property tables on a wavelength grid.
 
 A copy of the part of `skirt9_tpu/media/mixes.py` (host numpy, no jax) that
-config 2 reaches: `MixTables`, `tabulated`, `from_file` (the
-MeanFileDustMix text format of `tests/golden/mrn_mean.txt`) and `stack`.
+the golden ski files bench1, bench1h and bench2 reach: `MixTables`,
+`tabulated`, `trivial_gas` (TrivialGasMix, which the reference's loader
+builds inline), `from_file` (the MeanFileDustMix text format of
+`tests/golden/mrn_mean.txt`) and `stack`.
 The reference's analytic benchmark mixes and resource-pack readers are not
 ported yet.
 """
@@ -51,6 +53,14 @@ def tabulated(lam, sigma_ext, albedo, g, mu: float = 0.0) -> MixTables:
                      sigma_ext=np.asarray(sigma_ext, np.float64),
                      albedo=np.asarray(albedo, np.float64),
                      g=np.asarray(g, np.float64), mu=mu)
+
+
+def trivial_gas(sigma_abs: float, sigma_sca: float, g: float) -> MixTables:
+    """Constant cross sections and asymmetry over 1e-8 to 1e-3 m
+    (ref: TrivialGasMix; `skirt9_tpu/config/ski.py:937-945`)."""
+    sext = sigma_abs + sigma_sca
+    return tabulated(np.array([1e-8, 1e-3]), [sext, sext],
+                     [sigma_sca / sext, sigma_sca / sext], [g, g])
 
 
 def from_file(path: str) -> MixTables:

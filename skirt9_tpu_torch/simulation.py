@@ -7,7 +7,14 @@ the radiation field and instrument records on the device;
 `run_with_dust_emission` adds equilibrium dust emission (the optional
 self-absorption iterations, then a secondary segment with peel-off);
 `write_outputs` calibrates and writes the SED text files and frame FITS
-cubes in the reference's format.
+cubes in the reference's format, in the ski file's unit system where the
+loader set one.
+
+With `refill_events` > 0 a segment runs in lane-refill generations
+(`_run_segment_refilled`): each runs that many events on the resident
+batch, then the dead lanes take the next histories, so no packet's life is
+cut at an event cap. Segments with bin-pure strata do not refill, as in
+the reference.
 
 A multi-bin radiation field (RF) is filled from bin-pure lane groups: a
 source with an SED launches stratified over the RF bins it covers
@@ -65,6 +72,9 @@ class Simulation:
     batch_size: int = 16_384
     seed: int = 0
     source_bias: float = 0.5
+    # lane refill: > 0 runs each segment in generations of this many events,
+    # relaunching dead lanes with the next histories (no lifetime cap)
+    refill_events: int = 0
     # dust emission (the reference's fields, `skirt9_tpu/simulation.py:75-158`)
     ems_borders: np.ndarray | None = None
     spatial_bias: float = 0.5
@@ -79,6 +89,11 @@ class Simulation:
     cell_library: object = None
     cmb_temperature: float = 0.0
     checkpoint_path: str | None = None
+    # set by the ski loader: the output unit system (default SI when None),
+    # the cosmology and the probes (`probes.probes.ProbeSpec`)
+    units: UnitSystem | None = None
+    cosmology: object = None
+    probes: list = dataclasses.field(default_factory=list)
     device: object = dataclasses.field(default="cuda", kw_only=True)
 
     def __post_init__(self):
@@ -285,6 +300,9 @@ class Simulation:
         elif self._mono_rf_bin(source, opts) >= 0:
             opts = dataclasses.replace(
                 opts, rf_mono_bin=self._mono_rf_bin(source, opts))
+        if self.refill_events > 0 and strata is None:
+            return self._run_segment_refilled(source, stabs, opts, n_packets,
+                                              seed_key, rf, accs, hist_base)
         hist_end = hist_base + n_packets
         for b in range(-(-n_packets // B)):
             history = hist_base + b * B + lanes
@@ -295,6 +313,60 @@ class Simulation:
                                      pkt, rf, accs, self._sweep_tabs,
                                      stats=self.last_stats)
             _log().progress(min((b + 1) * B, n_packets), n_packets)
+        return rf, accs
+
+    def _run_segment_refilled(self, source, stabs, opts, n_packets, seed_key,
+                              rf, accs, hist_base):
+        """Generation loop with in-place lane refill (the reference's
+        `_run_segment_refilled`, `skirt9_tpu/simulation.py:685-846`, on one
+        device). Each generation runs up to refill_events events on the
+        resident batch, after its dead lanes took the next histories in lane
+        order. Per-lane RNG event counters keep every packet's draws those
+        of an unrefilled run, and the emission peel-off fires for the
+        freshly launched lanes only. The refill runs on the device; the
+        loop runs on the host, with one sync per generation (the count of
+        alive lanes, from which the next history and the loop condition
+        follow) beside the event loop's own."""
+        B = self.batch_size
+        K = self.refill_events
+        hist_end = hist_base + n_packets
+        # lanes die by the weight cutoff; allow generous but finite
+        # lifetimes (a pure scatterer would otherwise spin forever)
+        max_gens = (n_packets // B + 2) * (
+            max(4 * self.options.max_events, 64) // K + 2)
+        opts_k = dataclasses.replace(opts, max_events=K)
+        launch = lambda history: src.launch_batch(
+            source, stabs, self.grid, seed_key, history, n_packets,
+            hist_end=hist_end)
+        # every lane starts dead at the sentinel history, with weight 0
+        pkt = launch(torch.full((B,), hist_end, dtype=torch.int64,
+                                device=self.device))
+        stats = self.last_stats
+        next_hist, n_alive, gens = hist_base, 0, 0
+        while (next_hist < hist_end or n_alive > 0) and gens < max_gens:
+            dead = ~pkt.alive
+            new_hist = next_hist + torch.cumsum(dead, 0) - 1
+            refill = dead & (new_hist < hist_end)
+            fresh = launch(torch.where(refill, new_hist, hist_end))
+            pkt = type(pkt)(*(
+                torch.where(refill.view((B,) + (1,) * (a.dim() - 1)), a, b)
+                for a, b in zip(fresh, pkt)))
+            rf, accs, pkt = lc.life_cycle(
+                self.medium, opts_k, self.instruments, self._inst_tabs,
+                self._rf_borders_dev, pkt, rf, accs, self._sweep_tabs,
+                stats=stats, emit_mask=refill, return_state=True)
+            next_hist += min(B - n_alive, hist_end - next_hist)
+            n_alive = int(pkt.alive.sum())
+            stats["syncs"] = stats.get("syncs", 0) + 1
+            gens += 1
+            _log().progress(next_hist - hist_base, n_packets)
+        stats["generations"] = stats.get("generations", 0) + gens
+        left = n_alive + (hist_end - next_hist)
+        stats["abandoned"] = stats.get("abandoned", 0) + left
+        if left:
+            _log().warning(f"refill generation cap reached ({max_gens}); "
+                           f"{n_alive} lanes abandoned, {hist_end - next_hist}"
+                           " histories not launched")
         return rf, accs
 
     def _block(self, rf, accs, phase: str):
@@ -522,7 +594,7 @@ class Simulation:
         """Calibrate and write instrument outputs: `<prefix>_<name>_sed.dat`
         and, for frame instruments, `<prefix>_<name>_total.fits`."""
         paths = []
-        us = UnitSystem()
+        us = self.units or UnitSystem()
         names = [("total", "total flux"),
                  ("transparent", "transparent flux"),
                  ("primarydirect", "direct primary flux"),

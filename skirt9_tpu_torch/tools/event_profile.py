@@ -16,7 +16,10 @@ through that checkout's own package, so that two trees can be compared
 inside one call on one card: config 1 and config 2 at full width (the
 resident loop), `config3ism` and `config3ism_rf` (bench_config3ism without
 and with a one-bin RF: the tree loop with pass 2 in torch ops or in its
-kernel) and `config1x256` (bench_config1x256: the XL loop):
+kernel), `config1x256` (bench_config1x256: the XL loop) and `config1h`
+(bench1h.ski through the ski loader: the resident loop in lane-refill
+generations; a checkout from before the loader has no such
+configuration):
 
     python3 skirt9_tpu_torch/tools/event_profile.py --root DIR [--root DIR2 ...]
         [--config NAME ...]
@@ -132,6 +135,8 @@ CONFIGS = {
         dev, store_rf=True, **kw)[0], "B_ML", False),
     "config1x256": (lambda cs, dev, **kw: cs.config1(
         dev, n=256, **{"num_packets": cs.B_FULL, **kw}), "B_FULL", False),
+    "config1h": (lambda cs, dev, **kw: cs.config1h(dev, **kw), "B_FULL",
+                 False),
 }
 
 

@@ -275,13 +275,18 @@ def _unsort(x, perm):
 
 def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                inst_tabs, rf_borders, pkt, rf, accs, sweep_tabs,
-               stats: dict | None = None):
+               stats: dict | None = None, emit_mask=None,
+               return_state: bool = False):
     """Run the complete life cycle of one launched packet batch.
 
     rf: (ncells, nbins) radiation-field accumulator or None; accs: one dict of
-    accumulators per instrument. Both are updated in place and returned.
-    stats, when given, accumulates "events" (event iterations run) and
-    "sync_s" (host seconds spent waiting in the early-exit test).
+    accumulators per instrument. Both are updated in place and returned,
+    with the final packet state as a third value when return_state is set
+    (lane-refill generations). emit_mask: the lanes whose emission peel-off
+    is recorded (default: every alive lane); under lane refill only the
+    freshly launched lanes emit, survivors already did in an earlier call.
+    stats, when given, accumulates "events" (event iterations run), "syncs"
+    (early-exit tests) and "sync_s" (host seconds spent waiting in them).
     """
     check_supported(opts)
     opt = msys.optics_at(med, pkt.lam)
@@ -324,8 +329,9 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
 
     # ---- emission peel-off
     if do_peel:
+        emit = pkt.alive if emit_mask is None else emit_mask & pkt.alive
         peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos,
-                 lambda kobs: pkt.lum * _ISO, kind_direct, pkt.alive, tracer,
+                 lambda kobs: pkt.lum * _ISO, kind_direct, emit, tracer,
                  transparent_too=True)
 
     tags = _path_tags(opts) + (_TAG_SCATTER_CT, _TAG_SCATTER_PHI)
@@ -343,6 +349,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             if stats is not None:
                 stats["sync_s"] = (stats.get("sync_s", 0.0)
                                    + time.perf_counter() - t0)
+                stats["syncs"] = stats.get("syncs", 0) + 1
             if not any_alive:
                 break
             if stats is not None:
@@ -450,4 +457,6 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                 lum=torch.where(active_int, lum_new, pkt.lum),
                 nscat=torch.where(active_int, nscat_new, pkt.nscat),
                 alive=active_int & survive & (lum_new > 0))
+    if return_state:
+        return rf, accs, pkt
     return rf, accs

@@ -54,6 +54,14 @@ sizes that are no multiple of the 16-byte staging loads, and against a
 hand-built reference for indices outside the table (gather 0, scatter
 nothing); the row-lookup select loop and row gather bit for bit, also off
 their block grids.
+
+Lane refill: bench1h through the port's `load_ski` (8,192 packets in
+batches of 2,048, generations of 16 events) on the card launches kernels 1,
+2 and detect and matches the same seed on the CPU, each SED kind within
+2e-5 relative and the frame within 1e-3 of its brightest pixel; on a
+refilled batch (dead, fresh and old lanes side by side) kernels 1, 2 and
+detect hold their plain versions as chip_smoke.py's
+`check_refilled_batch` does.
 """
 
 import numpy as np
@@ -913,6 +921,51 @@ def test_config2_on_cuda_matches_cpu(dev):
     for k in range(sc.shape[0]):
         assert float((sg_[k] - sc[k]).abs().max()) <= 1e-4 * float(
             sc[k].abs().max())
+
+
+def _chip_smoke():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_refill_bench1h_on_cuda_matches_cpu(dev):
+    cs = _chip_smoke()
+    out = {}
+    for d in ("cpu", dev):
+        sim = cs.config1h(d, num_packets=8192, batch_size=2048)
+        kb.reset_launches()
+        _, accs = sim.run_primary(verbose=False)
+        out[str(d)] = (sim, accs)
+        launches = dict(kb.LAUNCHES)
+        assert sim.last_stats["abandoned"] == 0
+        assert sim.last_stats["generations"] > 8192 // 2048
+    for name in ("sweep_tau_total", "sweep_dtau_prefix",
+                 "sweep_deposit_prefix", "detect"):
+        assert launches[name] > 0, name
+    assert launches["sweep_dtau"] == launches["sweep_deposit"] == 0
+    assert launches["scatter_add"] == launches["sweepxl_dtau"] == 0
+    (sc, ac), (sg, ag) = out["cpu"], out[str(dev)]
+    sed_c = dinst.calibrate_sed(sc.instruments[0], ac[0])
+    sed_g = dinst.calibrate_sed(sg.instruments[0], ag[0])
+    for kind in ("transparent", "primarydirect", "primaryscattered",
+                 "total"):
+        assert sed_c[kind][0] > 0
+        assert abs(sed_g[kind][0] / sed_c[kind][0] - 1.0) <= 2e-5, kind
+    fc, fg = ac[0]["frame"].double(), ag[0]["frame"].double().cpu()
+    assert float((fg - fc).abs().max()) <= 1e-3 * float(fc.abs().max())
+
+
+def test_kernels_on_a_refilled_batch(dev):
+    cs = _chip_smoke()
+    res = cs.check_refilled_batch(torch, cs.config1h(dev, num_packets=8192,
+                                                     batch_size=2048))
+    assert res["dead"] > 0 and res["fresh"] > 0 and res["old"] > 0
+    assert res["kernel1_err_of_tau"] <= 1e-6
+    assert res["kernel2"]["found_agreement"] >= 0.999
 
 
 @pytest.mark.parametrize("variant", ["gather", "take", "gather_l2", "scatter"])

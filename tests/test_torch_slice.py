@@ -27,10 +27,12 @@ atol 1e-6 of its total.
 
 The port imports neither jax nor any module of the JAX package: a
 subprocess runs a uniform-grid and an octree simulation, a small config 2
-with dust emission (`chip_smoke.config2`) and the gather and
-row-lookup probes, imports the variant scripts of kernels 8-9 (`perf/`),
-and then finds no such module loaded and no kernel launched; an `ast` scan
-of the package, chip_smoke.py and `perf/*.py` finds no such import.
+with dust emission (`chip_smoke.config2`), the gather and row-lookup
+probes and the CLI (bench1.ski, and bench2.ski's set-up), imports the
+variant scripts of kernels 8-9 (`perf/`), and then finds no such module
+loaded and no kernel launched; an `ast` scan of the package (the loader,
+probes, CLI and unit copies among it), chip_smoke.py and `perf/*.py` finds
+no such import.
 """
 
 import ast
@@ -343,6 +345,17 @@ nd, idx, vals = gather_probe.inputs("cpu", n=64, b=256)
 assert float(gather_probe.scatter(idx, vals, 64).sum()) == 256.0
 tab, ix = sublane_gather.inputs("cpu", r=8, s=2)
 assert sublane_gather.lookup(tab, ix, iters=3, select=True).shape == (2, 128)
+# the CLI: bench1 through the ski loader, bench2's set-up with its probes
+import os, tempfile
+from skirt9_tpu_torch.__main__ import main
+with tempfile.TemporaryDirectory() as tmp:
+    assert main(["tests/golden/bench1.ski", "--device", "cpu", "-p", "256",
+                 "-b", "128", "-o", tmp]) == 0
+    assert main(["tests/golden/bench2.ski", "--device", "cpu", "-e",
+                 "-o", tmp]) == 0
+    assert sorted(os.listdir(tmp)) == ["bench1_i0_sed.dat",
+                                       "bench1_i0_total.fits",
+                                       "bench1_log.txt", "bench2_log.txt"]
 assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}, kb.LAUNCHES
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = sorted(m for m in sys.modules
@@ -384,4 +397,7 @@ def test_port_sources_import_no_reference():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     bad = {os.path.relpath(f, REPO): _reference_imports(f) for f in files}
+    assert {os.path.join("skirt9_tpu_torch", *m.split("/")) for m in (
+        "__main__.py", "config/ski.py", "probes/probes.py", "utils/units.py",
+        "utils/filepaths.py", "utils/cosmology.py")} <= set(bad)
     assert not {f: n for f, n in bad.items() if n}
