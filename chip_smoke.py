@@ -12,8 +12,10 @@ octrees `bench_config3ism` and `bench_config3ismxl` (multi-level tree sweep,
 kernels 4-5); then config 2 (bench2.ski: panchromatic dust emission,
 kernels 1-2 with a 25-bin stratified RF); and the gather and row-lookup
 probes (kernels 8-9, and kernel 3) through their own entry points; then
-config 1h (bench1h.ski, lane refill) and the CLI on bench1.ski and
-bench2.ski, through the port's own ski loader. Every
+config 3 (bench3.ski through the port's own ski loader: a density octree,
+a 25-bin RF in lane groups and dust self-absorption iterations, kernels
+4-5), config 1h (bench1h.ski, lane refill) and the CLI on bench1.ski,
+bench2.ski and bench3.ski. Every
 path detects through the fused detect kernel (csrc/detect.cu), which took
 kernel 3's place there. Each hand-written CUDA kernel is checked against
 its plain PyTorch version.
@@ -147,6 +149,28 @@ Phases, one JSON line each:
                     L_abs_primary within 1e-4
   breakdown_b2      config 2 with one batch per segment under torch.profiler,
                     as breakdown
+  kernels_b3        kernel 5's grouped mode on config 3's first event (the
+                    full bench3 tree, 55,574 leaves, its global path; 32
+                    lane groups of a 2^16 batch folded into the 25 RF rows
+                    by the launch's bin map) against its plain version: RF
+                    within 1e-6 of its maximum, s_int, icell and found
+                    equal; timed by CUDA events and device time, with its
+                    bound and the plain version's time
+  draw_for_draw_b3  the reduced config 3 (bench3.ski at maxLevel 4, 8,192
+                    packets, 4 events, at most 2 iterations), CPU vs GPU:
+                    iterations equal, SEDs and RF within 2e-5 of their
+                    maxima, frame 1e-3 of its brightest pixel, L_dust 1e-4;
+                    kernels 4-5 and detect launched, no other sweep
+  full_width_b3     bench3.ski (bench.py:130-149) through the port's
+                    load_ski at bench_config3's 2^18 packets in batches of
+                    2^16, 24 events, timed after a warm-up: packets/s as
+                    bench.py counts them, seconds and events per segment,
+                    iterations, L_dust against L_abs_primary; kernels 4-5
+                    and detect launched, kernels 1, 2, 6 and 7 not; every
+                    gate of test_bench3_* (tests/test_reference_parity.py:
+                    185-269)
+  breakdown_b3      config 3 with one batch per segment under
+                    torch.profiler, as breakdown
   refill_b1h        config 1h (bench.py:108-126): tests/golden/bench1h.ski
                     through the port's load_ski, 2^19 packets in batches of
                     2^17, in lane-refill generations of 16 events, timed
@@ -159,14 +183,17 @@ Phases, one JSON line each:
                     fresh and old lanes side by side) against their plain
                     versions; one batch profiled as breakdown (idle share)
   cli               the port's CLI (skirt9_tpu_torch.__main__.main) on
-                    bench1.ski and bench2.ski at their 10^6 packets, -b
-                    131072, into a temporary directory: kernels 1-2 and
-                    detect launched; wall time each; the gates read back
-                    from the written files (bench1's SED against
-                    tests/test_reference_parity.py:26-49, bench2's SED, RF
-                    and dust temperature probe files against its golden
-                    gates), the probe files one row per cell, equal to the
-                    run's RF and dust temperature
+                    bench1.ski and bench2.ski at their 10^6 packets and
+                    bench3.ski at 2^18 (-p), -b 131072, into a temporary
+                    directory: kernels 1-2 and detect launched (kernels 4-5
+                    for bench3); wall time each; the gates read back from
+                    the written files (bench1's SED against
+                    tests/test_reference_parity.py:26-49, bench2's and
+                    bench3's SED, RF and dust temperature probe files
+                    against their golden gates), the probe files one row
+                    per cell, equal to the run's RF and dust temperature,
+                    and bench3's cell-properties file its volumes and
+                    densities
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -197,6 +224,7 @@ B_FULL = 1 << 17
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 B_ML = 1 << 16            # bench_config3ism's batch
+B_B3 = 1 << 16            # bench_config3's batch (bench.py:130-149)
 
 # the H100 SXM's published peaks (NVIDIA's datasheet, at 700 W): HBM
 # bytes/s and f32 operations/s outside the tensor cores
@@ -1983,6 +2011,40 @@ def config1h(device, num_packets=1 << 19, batch_size=B_FULL):
     return sim
 
 
+def edited_ski(name: str, directory, edits: dict, out: str = "small") -> str:
+    """tests/golden/<name>.ski with each `old` replaced by `new`, written
+    into directory beside a copy of the dust mix file it reads."""
+    import shutil
+    with open(os.path.join(GOLDEN, f"{name}.ski")) as f:
+        text = f.read()
+    for old, new in edits.items():
+        require(old in text, f"{old!r} in {name}.ski")
+        text = text.replace(old, new)
+    path = os.path.join(str(directory), f"{out}.ski")
+    with open(path, "w") as f:
+        f.write(text)
+    shutil.copy(os.path.join(GOLDEN, "mrn_mean.txt"), str(directory))
+    return path
+
+
+# the reduced bench3: levels 2-4 (2,122 leaves on a 16^3 fine raster)
+B3_SMALL = {'maxLevel="7"': 'maxLevel="4"'}
+
+
+def config3(device, num_packets=1 << 18, batch_size=B_B3, max_events=24,
+            path=None):
+    """bench.py's config 3 (bench.py:130-149): tests/golden/bench3.ski
+    through the port's `load_ski` (a tau_V = 10 r^-2 MRN shell on a
+    density octree of levels 2-7, 55,574 leaves on a 128^3 fine raster; a
+    25-bin RF in 32 lane groups, a 40-bin emission grid, self-absorption
+    iterations), at bench_config3's 2^18 packets in batches of 2^16 and 24
+    events. path: another ski file (the reduced one of `edited_ski`)."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    return load_ski(path or os.path.join(GOLDEN, "bench3.ski"),
+                    num_packets=num_packets, batch_size=batch_size,
+                    max_events=max_events, device=device)
+
+
 def golden_sed_gates(name, sed_um, gates) -> dict:
     """A one-bin SED [W/m2/micron] (transparent, primarydirect,
     primaryscattered) against tests/golden/<name>_i0_sed.dat: each entry of
@@ -2147,14 +2209,23 @@ def phase_refill_b1h(torch, smi: str) -> dict:
     return launches
 
 
+# the CLI's packets for bench3.ski: bench_config3's 2^18 (the ski file says
+# 10^6), so that the call stays well inside its time limit
+CLI_B3_PACKETS = 1 << 18
+
+
 def phase_cli(torch, smi: str) -> dict:
     """`skirt9_tpu_torch.__main__.main` on bench1.ski and bench2.ski at
-    their own 10^6 packets in batches of 131,072, into a temporary
-    directory, each driven with the launch counts set to 0: kernels 1-2
-    and detect launched. The gates read the written files: bench1's SED
-    against test_bench1_parity_with_reference's thresholds, bench2's SED,
-    RF and temperature probe files against bench2_gates; the probe files
-    hold one row per cell and equal the run's RF and dust temperature."""
+    their own 10^6 packets and on bench3.ski at 2^18 packets
+    (`CLI_B3_PACKETS`), in batches of 131,072, into a temporary directory,
+    each driven with the launch counts set to 0: kernels 1-2 and detect
+    launched for bench1 and bench2, kernels 4-5 and detect for bench3. The
+    gates read the written files: bench1's SED against
+    test_bench1_parity_with_reference's thresholds, bench2's SED, RF and
+    temperature probe files against bench2_gates, bench3's against
+    bench3_gates; the probe files hold one row per cell and equal the run's
+    RF and dust temperature (and bench3's cell properties its volumes and
+    densities)."""
     from skirt9_tpu_torch import __main__ as cli
     from skirt9_tpu_torch.probes import probes
     from skirt9_tpu_torch.utils.fits import read_fits
@@ -2165,17 +2236,23 @@ def phase_cli(torch, smi: str) -> dict:
             runs[prefix] = (sim, rf)
         return real(sim, when, prefix, outdir, rf=rf)
 
-    res = {"phase": "cli", "batch": 131072}
+    res = {"phase": "cli", "batch": 131072,
+           "bench3_packets_flag": CLI_B3_PACKETS}
     launches = {}
     probes.run_probe_system = spy
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            for name in ("bench1", "bench2"):
+            for name, must, extra in (
+                    ("bench1", RESIDENT + DETECT, []),
+                    ("bench2", RESIDENT + DETECT, []),
+                    ("bench3", ML + DETECT, ["-p", str(CLI_B3_PACKETS)])):
+                must_not = tuple(k for k in RESIDENT + XL + ML + NOT_PATH
+                                 if k not in must)
                 t0 = time.perf_counter()
                 rc, launches[name] = drive(
-                    RESIDENT + DETECT, XL + ML + NOT_PATH,
+                    must, must_not,
                     lambda: cli.main([os.path.join(GOLDEN, f"{name}.ski"),
-                                      "-b", "131072", "-o", tmp]))
+                                      "-b", "131072", "-o", tmp, *extra]))
                 require(rc == 0, f"CLI on {name}.ski exit code {rc}")
                 res[f"{name}_wall_s"] = time.perf_counter() - t0
                 sim = runs[name][0]
@@ -2188,39 +2265,322 @@ def phase_cli(torch, smi: str) -> dict:
                              and np.isfinite(cube).all())
                         and cube.max() > 0, f"{name} outputs finite, lit")
             require(runs["bench1"][0].num_packets == 10 ** 6
-                    and runs["bench2"][0].num_packets == 10 ** 6,
-                    "10^6 packets each, as the ski files say")
+                    and runs["bench2"][0].num_packets == 10 ** 6
+                    and runs["bench3"][0].num_packets == CLI_B3_PACKETS,
+                    "10^6 packets each for bench1 and bench2, as the ski "
+                    "files say, and the flag's for bench3")
             b1 = np.loadtxt(os.path.join(tmp, "bench1_i0_sed.dat"))
             res["bench1"] = golden_sed_gates(
                 "bench1", {"transparent": b1[2], "primarydirect": b1[3],
                            "primaryscattered": b1[4]},
                 (("transparent", 2, 2e-3), ("primarydirect", 3, 0.02),
                  ("primaryscattered", 4, 0.05)))
-            sim, rf = runs["bench2"]
-            J = np.loadtxt(os.path.join(tmp, "bench2_rf_radiationfield.dat"))
-            T = np.loadtxt(os.path.join(tmp, "bench2_T_temperature.dat"))
-            n = sim.grid.ncells
-            require(J.shape == (n, 3 + rf.shape[1]) and T.shape == (n, 4),
-                    "bench2 probe files: one row per cell")
-            dlam = np.diff(np.asarray(sim.rf_borders, np.float64))
-            J_run = (rf.double().cpu().numpy() * sim.rf_scale
-                     / (4 * np.pi * sim.grid.volumes()[:, None]
-                        * dlam[None, :]))
-            require(bool(np.array_equal(J[:, 3:], J_run)),
-                    "the RF probe file holds the run's RF")
-            require(bool(np.array_equal(T[:, 3],
-                                        sim.dust_temperature(rf)[:, 0])),
-                    "the temperature probe file holds the run's dust "
-                    "temperature")
-            res["bench2"] = bench2_gates(
-                np.loadtxt(os.path.join(tmp, "bench2_i0_sed.dat")),
-                J[:, 3:], dlam, T[:, 3])
+            for name, rf_file, T_file in (
+                    ("bench2", "bench2_rf_radiationfield.dat",
+                     "bench2_T_temperature.dat"),
+                    ("bench3", "bench3_rf_radiationfield.dat",
+                     "bench3_T_temperature.dat")):
+                sim, rf = runs[name]
+                J = np.loadtxt(os.path.join(tmp, rf_file))
+                T = np.loadtxt(os.path.join(tmp, T_file))
+                n = sim.grid.ncells
+                require(J.shape == (n, 3 + rf.shape[1]) and T.shape == (n, 4),
+                        f"{name} probe files: one row per cell")
+                require(bool(np.array_equal(J[:, 3:],
+                                            mean_intensity(sim, rf))),
+                        f"the {name} RF probe file holds the run's RF")
+                require(bool(np.array_equal(T[:, 3],
+                                            sim.dust_temperature(rf)[:, 0])),
+                        f"the {name} temperature probe file holds the run's "
+                        "dust temperature")
+                sed = np.loadtxt(os.path.join(tmp, f"{name}_i0_sed.dat"))
+                if name == "bench2":
+                    dlam = np.diff(np.asarray(sim.rf_borders, np.float64))
+                    res[name] = bench2_gates(sed, J[:, 3:], dlam, T[:, 3])
+                else:
+                    res[name] = bench3_gates(sim, sed, J[:, 3:], T[:, 3])
+            sim = runs["bench3"][0]
+            cells = np.loadtxt(os.path.join(tmp, "bench3_cells_cellprops.dat"))
+            require(cells.shape == (sim.grid.ncells, 5)
+                    and bool(np.array_equal(cells[:, 3], sim.grid.volumes()))
+                    and bool(np.array_equal(
+                        cells[:, 4], sim.medium.nd[:, 0].double().cpu()
+                        .numpy())),
+                    "bench3's cell-properties file holds the leaves' "
+                    "volumes and densities")
     finally:
         probes.run_probe_system = real
     res.update(launches=launches, device=torch.cuda.get_device_name(0),
                nvidia_smi=smi)
     emit(res)
     return launches
+
+
+# ------------------------------------------------------------- config 3
+
+ML_NOT_PATH = RESIDENT + XL + NOT_PATH
+
+
+def first_event_b3(torch, sim):
+    """Config 3's first event as the tree path sees it: the first stratified
+    batch of the primary source launched, and kernel 4's pass 1 on it (the
+    record with leaf ids, step sums, prefix, total and lane range)."""
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.sources import base as src
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    strata = sim._strata_for(sim.sources[0], sim.options)
+    B, stabs, opts, lanes = sim._stratify(strata, sim._src_tabs[0],
+                                          sim.options, sim.num_packets)
+    pkt = src.launch_batch(sim.sources[0], stabs, sim.grid,
+                           rng.seed_key(sim.seed, sim.device), lanes,
+                           sim.num_packets)
+    sig = msys.optics_at(sim.medium, pkt.lam).sigma_ext.T.contiguous()
+    return pkt, opts, ml.sweep_dtau_prefix(sim._sweep_tabs, pkt.pos, pkt.dir,
+                                           sig, pkt.alive)
+
+
+def phase_kernels_b3(torch) -> dict:
+    """Kernel 5's grouped mode on config 3's first event (the full bench3
+    tree, 55,574 leaves: the global path; 32 lane groups folded into the 25
+    RF rows by the launch's bin map) against its plain version: the RF
+    within 1e-6 of its maximum, s_int, icell and found equal. Timed by CUDA
+    events and by device time, beside the plain version; its bound counts
+    the lane inputs, the record at the (plan step, lane) pairs the rays
+    cross, the plan, the bin map, the RF rows written and the first hits."""
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    sim = config3("cuda")
+    tabs = sim._sweep_tabs
+    pkt, opts, (rec, cells, _, tb, tot, lane) = first_event_b3(torch, sim)
+    B, n_groups = pkt.lam.shape[0], opts.rf_strata
+    nbins = len(sim.rf_borders) - 1
+    require(n_groups == 32 and B == B_B3 and nbins == 25,
+            f"config 3 runs 32 lane groups of a 2^16 batch into 25 bins "
+            f"({n_groups}, {B}, {nbins})")
+    ncells = tabs.nd.shape[0]
+    require(ncells > ml.SHARED_LEAVES, "bench3's tree takes the global path")
+    rs = np.random.default_rng(8)
+    inv_sqrt = 1.0 / math.sqrt(sim.rf_scale)
+    rfb = sim._rf_borders_dev
+    in_rf = (pkt.lam >= rfb[0]) & (pkt.lam < rfb[-1])
+    lum_half = (pkt.lum * (pkt.alive & in_rf)) * inv_sqrt
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=sim.device) * tot
+    bin_map = torch.tensor(opts.rf_bin_map, dtype=torch.int32,
+                           device=sim.device)
+    args = (tabs, pkt.pos, pkt.dir, pkt.alive, rec, cells, lum_half, tau_int,
+            tb, inv_sqrt)
+    kw = dict(n_groups=n_groups, lane=lane, bin_map=bin_map, nbins=nbins)
+    rf_k, s_k, c_k, f_k = ml.sweep_deposit(*args, **kw)
+    rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(*args, **kw)
+    torch.cuda.synchronize()
+    what = f"kernel 5, 32 groups ({ncells} leaves)"
+    require(int(f_p.sum()) > B // 2, f"{what} test rays interact")
+    require(bool(torch.equal(f_k, f_p)), f"{what} found identical")
+    require(bool(torch.equal(s_k[f_k], s_p[f_p])), f"{what} s_int identical")
+    require(bool(torch.equal(c_k, c_p)), f"{what} interaction cells equal")
+    require(rf_k.shape == rf_p.shape == (nbins, ncells), f"{what} RF rows")
+    rf_err = float((rf_k - rf_p).abs().max())
+    rf_max = float(rf_p.abs().max())
+    require(rf_max > 0 and rf_err <= 1e-6 * rf_max,
+            f"{what} rf error {rf_err} <= 1e-6 * {rf_max}")
+    rows_lit = int((rf_p.abs().sum(dim=1) > 0).sum())
+    require(rows_lit == nbins, f"{what} fills the 25 bins' rows ({rows_lit})")
+    g, smin, smax = lane
+    dep = (tabs, pkt.pos, pkt.dir, g, smin, smax, rec, cells, lum_half,
+           tau_int, tb, inv_sqrt, n_groups, bin_map, nbins)
+    del rf_p
+    plain_ms = cuda_ms(lambda: ml._deposit_plain(*dep), reps=3)
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: ml._deposit_cuda(*dep))
+    dev_ms = device_ms(lambda: ml._deposit_cuda(*dep))["ours"]
+    n_live = int(ml._plan_substeps(tabs, pkt.pos, pkt.dir, g, smin,
+                                   smax)[3].sum())
+    res = dict(max_abs_err=rf_err, rf_max=rf_max, err_of_max=rf_err / rf_max,
+               n_groups=n_groups, rows=nbins, rows_lit=rows_lit,
+               leaves=ncells, shared_table=False, live_pairs=n_live,
+               live_share=n_live / (tabs.n_steps * B), ms=ms,
+               device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+               **bound(lane_bytes(B, 0) + 8 * B
+                       + n_live * (3 * 4 + 3 * 4 + 4)
+                       + 2 * tabs.n_steps * 4 + n_groups * 4
+                       + nbins * ncells * 4 + 8 * B,
+                       n_live * (OPS_SLAB + 3 + 3 * (OPS_SUB + OPS_DEP))))
+    emit({"phase": "kernels_b3", "batch": B, "fine_grid": list(tabs.n),
+          "n_steps": tabs.n_steps, "mlsweep_deposit": res})
+    return res
+
+
+def phase_draw_for_draw_b3(torch) -> dict:
+    """The reduced config 3 (bench3.ski at maxLevel 4: 2,122 leaves; 8,192
+    packets in batches of 4,096, which the 32 lane groups round to one
+    batch of 32,768 lanes a segment; 4 events; at most 2 self-absorption
+    iterations) through run_with_dust_emission on the CPU (plain versions)
+    and on the GPU (kernels 4, 5 and detect launched, no other sweep), the
+    same seed: iterations equal, each SED kind and the RF within 2e-5 of
+    their maxima, the frame within 1e-3 of its brightest pixel, L_dust
+    within 1e-4."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = edited_ski("bench3", tmp, B3_SMALL)
+        for device in ("cpu", "cuda"):
+            sim = config3(device, num_packets=8192, batch_size=4096,
+                          max_events=4, path=path)
+            sim.max_iterations = 2
+            run = lambda: sim.run_with_dust_emission(verbose=False)
+            if device == "cuda":
+                out, launches = drive(ML + DETECT, ML_NOT_PATH, run)
+            else:
+                out = run()
+            runs[device] = (sim, *out)
+    (sc, rfc, ac, ic), (sg, rfg, ag, ig) = runs["cpu"], runs["cuda"]
+    require(ic["iterations"] == ig["iterations"] >= 1,
+            f"draw-for-draw (config 3) iterations {ic['iterations']}, "
+            f"{ig['iterations']}")
+    worst = 0.0
+    sed_c, sed_g = ac[0]["sed"].double(), ag[0]["sed"].double().cpu()
+    for k in range(sed_c.shape[0]):
+        m = float(sed_c[k].abs().max())
+        require(m > 0, f"SED kind {k} lit")
+        worst = max(worst, float((sed_g[k] - sed_c[k]).abs().max()) / m)
+    require(worst <= 2e-5, f"draw-for-draw (config 3) SEDs {worst} <= 2e-5")
+    rf_err = float((rfg.double().cpu() - rfc.double()).abs().max()
+                   / rfc.double().abs().max())
+    require(rf_err <= 2e-5, f"draw-for-draw (config 3) RF {rf_err} <= 2e-5")
+    fc = ac[0]["frame"].double()
+    fg = ag[0]["frame"].double().cpu()
+    fe = float((fg - fc).abs().max() / fc.abs().max())
+    require(fe <= 1e-3, f"draw-for-draw (config 3) frame {fe} <= 1e-3")
+    e_l = abs(ig["L_dust"] / ic["L_dust"] - 1.0)
+    require(e_l <= 1e-4, f"draw-for-draw (config 3) L_dust {e_l} <= 1e-4")
+    res = {"phase": "draw_for_draw_b3", "leaves": sc.grid.ncells,
+           "packets": 8192, "lanes": 32768, "rf_bins": rfc.shape[1],
+           "iterations": ic["iterations"], "sed_err_of_max": worst,
+           "rf_err_of_max": rf_err, "frame_err": fe, "L_dust_rel_err": e_l,
+           "segments": [s[0] for s in sg.last_stats["segments"]],
+           "launches": launches}
+    emit(res)
+    return res
+
+
+def bench3_gates(sim, sed, J, T) -> dict:
+    """bench3's golden thresholds (tests/test_reference_parity.py:185-269)
+    against tests/golden/bench3_*: the SED column medians and the
+    integrated total; the dust temperature at the reference octree's cell
+    centres, median and mass-weighted mean; the radiation field's volume
+    integral per bin. sed: the SED file's columns; J: (ncells, nbins) mean
+    intensity [W/m2/m/sr]; T: (ncells,) dust temperature [K]."""
+    import torch
+    ref = np.loadtxt(os.path.join(GOLDEN, "bench3_i0_sed.dat"))
+    require(sed.shape[0] == ref.shape[0], "40 SED rows")
+    require(bool(np.allclose(sed[:, 0], ref[:, 0], rtol=1e-3)),
+            "SED wavelengths")
+    res = {}
+    for col, name, tol in ((2, "transparent", 0.05), (3, "primarydirect", 0.2),
+                           (4, "primaryscattered", 0.25),
+                           (5, "secondarydirect", 0.25)):
+        hi = ref[:, col] > 0.05 * ref[:, col].max()
+        med = float(np.median(sed[hi, col] / ref[hi, col]))
+        require(abs(med - 1.0) < tol, f"bench3 {name} median ratio {med}")
+        res[f"{name}_median_ratio"] = med
+    lam = ref[:, 0]
+    tot = float(np.trapezoid(sed[:, 1], lam) / np.trapezoid(ref[:, 1], lam))
+    require(abs(tot - 1.0) < 0.15, f"bench3 integrated total ratio {tot}")
+    res["total_ratio"] = tot
+    with gzip.open(os.path.join(GOLDEN, "bench3_cellprops.dat.gz"),
+                   "rt") as f:
+        props = np.loadtxt(f)
+    T_ref = np.loadtxt(os.path.join(GOLDEN, "bench3_T_dust_T.dat"))[:, 1]
+    rho = props[:, 6]                      # dust mass density
+    idx = sim.grid.locate(torch.tensor((props[:, 1:4] * PC).astype(
+        np.float32), device=sim.device)).cpu().numpy()
+    ok = (idx >= 0) & (rho > 0) & (T_ref > 1.0)
+    T_at = T[idx[ok]]
+    med = float(np.median(T_at / T_ref[ok]))
+    require(abs(med - 1.0) < 0.08, f"bench3 temperature median ratio {med}")
+    w = (rho * props[:, 4])[ok]
+    mw = float(np.sum(T_at * w) / np.sum(T_ref[ok] * w))
+    require(abs(mw - 1.0) < 0.08, f"bench3 mass-weighted temperature {mw}")
+    with gzip.open(os.path.join(GOLDEN, "bench3_rf_J.dat.gz"), "rt") as f:
+        refJ = np.loadtxt(f)[:, 1:]
+    JV = (J * sim.grid.volumes()[:, None]).sum(axis=0) * 1e-6  # per micron
+    JV_ref = (refJ * (props[:, 4] * PC ** 3)[:, None]).sum(axis=0)
+    hi = JV_ref > 0.02 * JV_ref.max()
+    rf_med = float(np.median(JV[hi] / JV_ref[hi]))
+    require(abs(rf_med - 1.0) < 0.1, f"bench3 RF volume integral {rf_med}")
+    res.update(T_median_ratio=med, T_mass_weighted_ratio=mw,
+               rf_volume_integral_median_ratio=rf_med,
+               reference_cells_compared=int(ok.sum()))
+    return res
+
+
+def mean_intensity(sim, rf) -> np.ndarray:
+    """(ncells, nbins) mean intensity [W/m2/m/sr] of a run's RF."""
+    dlam = np.diff(np.asarray(sim.rf_borders, np.float64))
+    return (rf.double().cpu().numpy() * sim.rf_scale
+            / (4 * np.pi * sim.grid.volumes()[:, None] * dlam[None, :]))
+
+
+def phase_full_width_b3(torch, smi: str):
+    """Config 3 at bench_config3's width (bench.py:130-149: 2^18 packets in
+    batches of 2^16, 24 events, seed 0), a warm-up run and a timed run on
+    the same object: kernels 4, 5 and detect launched, kernels 1, 2, 6 and
+    7 not; packets/s as bench.py counts them, packets x (1 + iterations +
+    [L_dust > 0]); each segment's seconds and events; every gate of
+    test_bench3_*."""
+    sim = config3("cuda")
+    require(type(sim._sweep_tabs).__name__ == "MLTables",
+            "bench3 builds MLTables")
+    sim.run_with_dust_emission(verbose=False)            # warm-up
+    t0 = time.perf_counter()
+    (rf, accs, info), launches = drive(
+        ML + DETECT, ML_NOT_PATH,
+        lambda: sim.run_with_dust_emission(verbose=False))
+    dt = time.perf_counter() - t0
+    stats = dict(sim.last_stats)
+    n_pk = sim.num_packets
+    packets = n_pk * (1 + info["iterations"] + int(info["L_dust"] > 0))
+    require(sim.iterate_secondary and info["iterations"] >= 1,
+            f"bench3 iterates ({info['iterations']})")
+    require(bool(torch.isfinite(rf).all()) and float(rf.min()) >= 0,
+            "RF finite and non-negative")
+    from skirt9_tpu_torch.utils.fits import read_fits
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = sim.write_outputs(accs, "b3", tmp)
+        sed = np.loadtxt(paths[0])
+        cube, _ = read_fits(paths[1])
+    require(cube.shape == (40, 64, 64) and bool(np.isfinite(cube).all())
+            and cube.max() > 0, "frame FITS finite and lit")
+    gates = bench3_gates(sim, sed, mean_intensity(sim, rf),
+                         sim.dust_temperature(rf)[:, 0])
+    events = sum(seg[3] for seg in stats["segments"])
+    tabs = sim._sweep_tabs
+    res = {"phase": "full_width_b3", "leaves": sim.grid.ncells,
+           "fine_grid": list(tabs.n), "n_steps": tabs.n_steps,
+           "packets": n_pk, "batch": sim.batch_size, "rf_bins": rf.shape[1],
+           "packets_per_s": packets / dt, "seconds": dt,
+           "iterations": info["iterations"], "L_dust": info["L_dust"],
+           "L_abs_primary": info["L_abs_primary"],
+           "L_dust_over_L_abs_primary": info["L_dust"] / info["L_abs_primary"],
+           "segments": [{"name": n, "packets": p, "seconds": t, "events": e}
+                        for n, p, t, e in stats["segments"]],
+           "events": events, "launches": launches,
+           "kernel_launches_per_event": sum(launches.values()) / events,
+           **gates, "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi}
+    emit(res)
+    return sim, launches
+
+
+def phase_breakdown_b3(torch) -> None:
+    """Config 3 with one batch of 2^16 packets per segment under
+    torch.profiler (host_per_event): device operations, stream syncs and
+    host copies per event, busy and idle shares, the kernels that take the
+    most device time."""
+    prof = host_per_event(
+        torch, config3("cuda", num_packets=B_B3),
+        lambda s: s.run_with_dust_emission(verbose=False))
+    emit({"phase": "breakdown_b3", "packets": B_B3, **prof})
 
 
 def main() -> int:
@@ -2268,6 +2628,13 @@ def main() -> int:
     sim, launches_b2 = phase_full_width_b2(torch, smi)
     del sim
     phase_breakdown_b2(torch)
+    torch.cuda.empty_cache()
+    kern_b3 = phase_kernels_b3(torch)
+    torch.cuda.empty_cache()
+    phase_draw_for_draw_b3(torch)
+    sim, launches_b3 = phase_full_width_b3(torch, smi)
+    del sim
+    phase_breakdown_b3(torch)
     torch.cuda.empty_cache()
     launches_1h = phase_refill_b1h(torch, smi)
     torch.cuda.empty_cache()
@@ -2363,6 +2730,16 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "device_ms", "seven_call_ms",
                     "seven_call_device_ms") if key in kern_b2[name]}
+        if name in ("mlsweep_dtau",) + ML + DETECT:
+            # the config-3 path (full_width_b3) and, for kernel 5, its
+            # grouped mode at config 3's shapes (kernels_b3)
+            row["launches_config3"] = launches_b3[name]
+            if name == "mlsweep_deposit":
+                row["config3"] = {key: kern_b3[key] for key in (
+                    "max_abs_err", "err_of_max", "ms", "device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "n_groups", "rows", "leaves", "shared_table",
+                    "live_share")}
         if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",):
             # config 1h's refill path (refill_b1h)
             row["launches_config1h"] = (sum(launches_1h[m] for m in k1_modes)

@@ -1,6 +1,7 @@
 """Convert a reference `skirt9_tpu.simulation.Simulation` into port objects.
 
-Used by the tests to run one configuration through both packages. The
+Used by the tests to run one configuration through both packages, on
+uniform grids and on the trees the reference's loader builds. The
 reference's arrays are read with `np.asarray`, and its classes are matched
 by name, so this module never imports jax or the reference's jax modules.
 Anything the port does not run yet raises NotImplementedError.
@@ -121,6 +122,10 @@ def simulation(ref_sim, device) -> Simulation:
     """The port's Simulation of a reference Simulation, on `device`."""
     active = [k for k, v in _INACTIVE.items()
               if getattr(ref_sim, k, v) not in (v, None)]
+    if "dynamic_recipes" in active:
+        # the merged and primary iterations run without them
+        raise NotImplementedError("dynamic medium recipes (media/dynamic) "
+                                  "not ported yet")
     if active:
         raise NotImplementedError(
             f"Simulation {', '.join(active)} not ported yet")

@@ -4,10 +4,12 @@ Port of `skirt9_tpu/config/ski.py` (`load_ski`, `_load_ski` and the
 `build_*` functions) for the item types the port runs: primary emission
 of point sources with a blackbody SED (or oligochromatic, at one
 wavelength), shell geometries of trivial gas or mean-file dust mixes
-normalised by optical depth, uniform Cartesian grids (linear meshes),
-full instruments, equilibrium dust emission over all cells, and the
-temperature and radiation-field probes per cell. This is what the golden
-ski files bench1, bench1h and bench2 use. Every item type outside `ITEMS`, and every property
+normalised by optical depth, uniform Cartesian grids (linear meshes) and
+density-policy octrees and bintrees (`PolicyTreeSpatialGrid` with a
+`DensityTreePolicy`), full instruments, equilibrium dust emission over all
+cells with the iteration options, and the temperature, radiation-field and
+cell-properties probes. This is what the golden ski files bench1, bench1h,
+bench2 and bench3 use. Every item type outside `ITEMS`, and every property
 outside `PROPERTIES`, raises NotImplementedError naming itself before
 anything is built, so no element is dropped silently. The arrays are built
 with numpy and torch by the port's own constructors, bit for bit as the
@@ -27,6 +29,7 @@ import xml.etree.ElementTree as ET
 import numpy as np
 
 from ..geometries import analytic as ga
+from ..grids import bintree, octree
 from ..grids.cartesian import make_cartesian
 from ..instruments import distant as dinst
 from ..media import geometric as gm
@@ -51,8 +54,10 @@ ITEMS = frozenset((
     "DustEmissionOptions", "AllCellsLibrary", "LogWavelengthGrid",
     "GeometricMedium", "ShellGeometry", "TrivialGasMix", "MeanFileDustMix",
     "OpticalDepthMaterialNormalization", "CartesianSpatialGrid", "LinMesh",
+    "PolicyTreeSpatialGrid", "DensityTreePolicy", "IterationOptions",
     "InstrumentSystem", "FullInstrument",
-    "ProbeSystem", "TemperatureProbe", "RadiationFieldProbe", "PerCellForm"))
+    "ProbeSystem", "TemperatureProbe", "RadiationFieldProbe", "PerCellForm",
+    "SpatialCellPropertiesProbe"))
 
 # the properties (lower-case elements) that hold those items
 PROPERTIES = frozenset((
@@ -60,7 +65,8 @@ PROPERTIES = frozenset((
     "normalization", "mediumSystem", "photonPacketOptions",
     "radiationFieldOptions", "radiationFieldWLG", "dustEmissionOptions",
     "cellLibrary", "dustEmissionWLG", "media", "geometry", "materialMix",
-    "grid", "meshX", "meshY", "meshZ", "instrumentSystem",
+    "grid", "meshX", "meshY", "meshZ", "policy", "iterationOptions",
+    "instrumentSystem",
     "defaultWavelengthGrid", "instruments", "wavelengthGrid", "probeSystem",
     "probes", "form"))
 
@@ -69,7 +75,8 @@ MODES = ("ExtinctionOnly", "OligoExtinctionOnly", "DustEmission")
 
 # probe item -> (the reference's probe kind, its default hook)
 PROBES = {"TemperatureProbe": ("temperature", "Run"),
-          "RadiationFieldProbe": ("radiationfield", "Run")}
+          "RadiationFieldProbe": ("radiationfield", "Run"),
+          "SpatialCellPropertiesProbe": ("cellprops", "Setup")}
 
 
 def _q(attrs, name, qty, default=None):
@@ -175,16 +182,38 @@ def build_medium_normalization(el):
         axis={"X": "x", "Y": "y", "Z": "z"}.get(a.get("axis", "Z"), "z"))
 
 
-def build_grid(el):
-    # CartesianSpatialGrid with LinMesh meshes (32 bins where one is absent)
+def _extent(a) -> tuple:
+    return tuple((_q(a, f"min{x}", "length"), _q(a, f"max{x}", "length"))
+                 for x in "XYZ")
+
+
+def build_grid(el, geometry):
+    """A CartesianSpatialGrid with LinMesh meshes (32 bins where one is
+    absent), or a PolicyTreeSpatialGrid: an octree or a bintree refined by
+    the DensityTreePolicy on the first medium's normalised density (the
+    reference's non-nested branch, `skirt9_tpu/config/ski.py:1302-1316,
+    2005-2049`). Tree levels in the ski file count octree levels, so a
+    bintree's count three times."""
     a = el.attrib
-    ext = tuple((_q(a, f"min{x}", "length"), _q(a, f"max{x}", "length"))
-                for x in "XYZ")
+    if el.tag == "PolicyTreeSpatialGrid":
+        pol = _child(el, "policy")
+        pa = pol.attrib if pol is not None else {}
+        binary = a.get("treeType", "OctTree") == "BinTree"
+        mul = 3 if binary else 1
+        # the policy's optical-depth, dispersion, electron and gas criteria
+        # and its wavelength are read and ignored, as the reference ignores
+        # them; maxDustFraction is floored at 1e-4
+        frac = float(pa.get("maxDustFraction", 1e-6))
+        builder = bintree.build_bintree if binary else octree.build_octree
+        return builder(_extent(a), geometry.density_np,
+                       max_level=int(pa.get("maxLevel", 6)) * mul,
+                       min_level=int(pa.get("minLevel", 2)) * mul,
+                       max_fraction=max(frac or 1e-4, 1e-4))
     ns = []
     for mesh_name in ("meshX", "meshY", "meshZ"):
         m = _child(el, mesh_name)
         ns.append(32 if m is None else int(m.attrib.get("numBins", 32)))
-    return make_cartesian(ext, tuple(ns))
+    return make_cartesian(_extent(a), tuple(ns))
 
 
 def build_wavelength_grid(el) -> np.ndarray:
@@ -248,13 +277,16 @@ def load_ski(path: str, num_packets: int | None = None,
     mcs = root.find("MonteCarloSimulation")
     if mcs is None:
         raise ValueError("not a SKIRT 9 ski file (no MonteCarloSimulation)")
+    if mcs.find(".//dynamicStateOptions") is not None:
+        raise NotImplementedError("dynamic medium state recipes (media/"
+                                  "dynamic) not ported yet")
     check_items(root)
     mode = mcs.attrib.get("simulationMode", "ExtinctionOnly")
     if mode not in MODES:
         raise NotImplementedError(f"simulationMode '{mode}' not ported yet "
                                   f"({', '.join(MODES)})")
-    if mcs.attrib.get("iteratePrimaryEmission", "false") == "true":
-        raise NotImplementedError("iteratePrimaryEmission not ported yet")
+    # iteratePrimaryEmission iterates the dynamic medium recipes only: with
+    # none (they raise above) it does nothing, as in the reference
     iterate_secondary = mcs.attrib.get("iterateSecondaryEmission",
                                        "false") == "true"
     oligo = mode.startswith("Oligo")
@@ -294,7 +326,7 @@ def load_ski(path: str, num_packets: int | None = None,
         components.append((build_geometry(_child(m_el, "geometry")),
                            build_mix(_child(m_el, "materialMix"), base_dir),
                            build_medium_normalization(m_el)))
-    grid = build_grid(list(med_sys.find("grid"))[0])
+    grid = build_grid(list(med_sys.find("grid"))[0], components[0][0])
     medium = gm.build_medium(grid, components)
 
     # instruments
@@ -359,11 +391,21 @@ def load_ski(path: str, num_packets: int | None = None,
             de_opts.attrib.get("includeHeatingByCMB", "false") == "true":
         cmb_temperature = 2.725 * (1.0 + cos.redshift)
 
+    # secondary iterations; the primary-iteration attributes need dynamic
+    # recipes and do nothing without them, and
+    # secondaryIterationPacketsMultiplier keeps its default, as in the
+    # reference
+    it_el = mcs.find(".//iterationOptions/IterationOptions")
+    ia = it_el.attrib if it_el is not None else {}
+
     return Simulation(
         grid=grid, medium=medium, sources=sources, instruments=instruments,
         options=opts, rf_borders=rf_borders, ems_borders=ems_borders,
         num_packets=n_pk, batch_size=batch_size, seed=seed,
         dust_emission_type=ems_type, iterate_secondary=iterate_secondary,
+        min_iterations=int(_f(ia, "minSecondaryIterations", 1)),
+        max_iterations=int(_f(ia, "maxSecondaryIterations", 10)),
+        include_primary=ia.get("includePrimaryEmission", "false") == "true",
         cmb_temperature=cmb_temperature,
         units=unitsystem.from_ski(_child(mcs, "units")), cosmology=cos,
         probes=build_probes(mcs), device=device)

@@ -9,13 +9,22 @@
 // density nor the leaf map. With scale = (lum[lane] * e^-tb[st, lane]) * inv2
 // and tau_loc the sum of the step's earlier sub-steps, sub-step j adds the
 // f32 contribution scale * e^-tau_loc * ds * (1 - e^-dtau) / dtau into the
-// f64 rf[cell] (none for a zero contribution or cell -1; the wrapper rounds
-// the table to f32 once), and is the interaction when rem = tau_int -
+// f64 rf[row, cell] (none for a zero contribution or cell -1; the wrapper
+// rounds the table to f32 once), and is the interaction when rem = tau_int -
 // tb - tau_loc lies in [0, dtau): s = s_cur + rem / dtau * ds. The first
 // hit in (step, sub-step) order is written as first_hit[lane] = (st << 32 |
 // bits of s), all ones where there is none, which the wrapper decodes. The
 // interaction cell comes from the leaf map in the wrapper
 // (mlsweep.locate_cells), as in the reference.
+//
+// Lane groups (the reference's `sweep_deposit(n_groups=...)` followed by
+// its per-group `finalize_rf` and the fold of the groups into RF bins, as
+// kernel 2 folds them): lane l is in group g = l / (B / n_groups) and
+// deposits into row bin_map[g], or row g without a bin map, of rf (rows,
+// ncells). A row outside [0, rows), -1 among them, drops the lane's
+// deposits but not its first hit. With groups, B / n_groups is a multiple of
+// the 32-lane tile (the launcher checks it), so every tile lies in one group
+// and one row, and the warp sums by leaf stay inside that row.
 //
 // What bounds it on the H100: the record, n_steps * B * (3 + 3 + 1) * 4
 // bytes (220 MB at n_steps = 120, B = 65536), of which the lanes need only
@@ -32,16 +41,20 @@
 // The first hit per lane is a shared-memory 64-bit atomicMin, so it is the
 // serial order's whatever the thread order. Deposits are summed per warp by
 // leaf (__match_any_sync; the group's first lane adds its peers' values in
-// lane order from shared memory). Where the leaf table fits (12 bytes a
-// leaf: bench_config3ism's 5,230 leaves take 63 KB), each block keeps a
-// private f64 table in shared memory and lists each leaf the first time it
-// adds to it (the sum was 0: contributions are positive and f64 does not
-// flush them); the blocks are persistent, one per free slot of each SM, so
-// each walks many tiles, and flushes only its listed leaves into rf with
-// global f64 atomics, once. Larger trees (bench_config3ismxl's 138,447
-// leaves) add the warp sums straight into rf. Atomics make the f64 sums
+// lane order from shared memory). Where the launch has one lane group and
+// the leaf table fits (12 bytes a leaf: bench_config3ism's 5,230 leaves
+// take 63 KB), each block keeps a private f64 table in shared memory and
+// lists each leaf the first time it adds to it (the sum was 0:
+// contributions are positive and f64 does not flush them); the blocks are
+// persistent, one per free slot of each SM, so each walks many tiles, and
+// flushes only its listed leaves into its row of rf with global f64
+// atomics, once. Larger trees (bench_config3ismxl's 138,447 leaves,
+// bench3's ~31k) and launches with lane groups add the warp sums straight
+// into rf: a block's tiles belong to different rows there, and bench3's 25
+// rows of 31k leaves (6 MB of f64) are far beyond one block's shared
+// memory, so no per-row table would fit. Atomics make the f64 sums
 // order-dependent from run to run, far below the f32 result's rounding.
-// Offsets into the record are 64-bit.
+// Offsets into the record and the RF are 64-bit.
 #include "sweep_common.cuh"
 
 namespace skirt9 {
@@ -72,8 +85,9 @@ __global__ void __launch_bounds__(kTile* kWarps) mlsweep_deposit_kernel(
     const int* __restrict__ csub, const float* __restrict__ lum,
     const float* __restrict__ tau_int, const float* __restrict__ tb,
     const int* __restrict__ step_tlev, const int* __restrict__ step_gs,
-    double* __restrict__ rf, unsigned long long* __restrict__ first_hit,
-    int B, int n_steps, int ncells, float inv2) {
+    const int* __restrict__ bin_map, double* __restrict__ rf,
+    unsigned long long* __restrict__ first_hit, int B, int n_steps,
+    int ncells, int n_groups, int rows, float inv2) {
   extern __shared__ double dyn[];
   double* table = dyn;
   int* list = (int*)(dyn + (kShared ? ncells : 0));
@@ -93,21 +107,29 @@ __global__ void __launch_bounds__(kTile* kWarps) mlsweep_deposit_kernel(
     for (int k = tid; k < ncells; k += kTile * kWarps) table[k] = 0.0;
     if (tid == 0) listed = 0;
   }
-  double* rf_add = rf;
   int* listed_p = &listed;
-  const auto add = [=](int key, double v) {
-    if (!kShared) {
-      atomicAdd(rf_add + key, v);
-    } else if (atomicAdd(table + key, v) == 0.0) {
-      list[atomicAdd(listed_p, 1)] = key;
-    }
-  };
+  // the row of every lane of a one-group launch (the shared table's flush)
+  int row = bin_map != nullptr ? bin_map[0] : 0;
 
   const int tiles = (B + kTile - 1) / kTile;
+  const int per_group = B / n_groups;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int first = tile * kTile;
     const int lane = first + x;
     const bool valid = lane < B;
+    // the tile's lane group and RF row; a row outside [0, rows) drops the
+    // tile's deposits
+    const int grp = first / per_group;
+    row = bin_map != nullptr ? bin_map[grp] : grp;
+    const bool keep = row >= 0 && row < rows;
+    double* rf_row = rf + (keep ? (long long)row * ncells : 0);
+    const auto add = [=](int key, double v) {
+      if (!kShared) {
+        atomicAdd(rf_row + key, v);
+      } else if (atomicAdd(table + key, v) == 0.0) {
+        list[atomicAdd(listed_p, 1)] = key;
+      }
+    };
     __syncthreads();  // the previous tile's lanes and hits are read
     if (y == 0) {
       int s0 = 0, s1 = -1;
@@ -162,7 +184,7 @@ __global__ void __launch_bounds__(kTile* kWarps) mlsweep_deposit_kernel(
             sub_step(L, tlev, S, ds, coarse_cell);
             const float dtau = dsub[o + (long long)j * B];
             const int cell = csub[o + (long long)j * B];
-            if (sc != 0.0f && cell >= 0) {
+            if (keep && sc != 0.0f && cell >= 0) {
               const float contrib =
                   sc * expf(-tau_loc) * ds * segment_factor(dtau);
               if (contrib != 0.0f) {
@@ -188,12 +210,13 @@ __global__ void __launch_bounds__(kTile* kWarps) mlsweep_deposit_kernel(
     if (y == 0 && valid) first_hit[lane] = hit[x];
   }
 
-  if (kShared) {
-    // the block's listed leaves into rf, once each
+  if (kShared && row >= 0 && row < rows) {
+    // the block's listed leaves into the launch's one row of rf, once each
     __syncthreads();
+    double* rf_row = rf + (long long)row * ncells;
     for (int k = tid; k < listed; k += kTile * kWarps) {
       const int c = list[k];
-      atomicAdd(rf + c, table[c]);
+      atomicAdd(rf_row + c, table[c]);
     }
   }
 }
@@ -204,11 +227,17 @@ extern "C" int mlsweep_deposit_launch(
     const void* pos, const void* dir, const void* axis, const void* smin,
     const void* smax, const void* dsub, const void* csub, const void* lum,
     const void* tau_int, const void* tb, const void* step_tlev,
-    const void* step_gs, void* rf, void* first_hit, int B, int nx, int ny,
-    int nz, int n_steps, int ncells, int shared, float lox, float loy,
-    float loz, float hx, float hy, float hz, float inv2, void* stream) {
+    const void* step_gs, const void* bin_map, void* rf, void* first_hit,
+    int B, int nx, int ny, int nz, int n_steps, int ncells, int n_groups,
+    int rows, int shared, float lox, float loy, float loz, float hx, float hy,
+    float hz, float inv2, void* stream) {
   using namespace skirt9;
-  if (B <= 0 || n_steps <= 0 || ncells <= 0) return (int)cudaErrorInvalidValue;
+  // with lane groups every 32-lane tile in one group; the shared table for
+  // one group only
+  if (B <= 0 || n_steps <= 0 || ncells <= 0 || n_groups < 1 || rows < 1 ||
+      (n_groups > 1 && B % (kTile * n_groups) != 0) ||
+      (shared && n_groups != 1))
+    return (int)cudaErrorInvalidValue;
   GridGeom g{nx, ny, nz, {lox, loy, loz}, {hx, hy, hz}};
   const size_t smem = (shared ? (size_t)ncells * 12 : 0) +
                       (size_t)(2 * n_steps + 1) * sizeof(int);
@@ -233,7 +262,8 @@ extern "C" int mlsweep_deposit_launch(
         (const float*)smin, (const float*)smax, (const float*)dsub,
         (const int*)csub, (const float*)lum, (const float*)tau_int,
         (const float*)tb, (const int*)step_tlev, (const int*)step_gs,
-        (double*)rf, (unsigned long long*)first_hit, B, n_steps, ncells, inv2);
+        (const int*)bin_map, (double*)rf, (unsigned long long*)first_hit, B,
+        n_steps, ncells, n_groups, rows, inv2);
     return (int)cudaGetLastError();
   };
   return shared ? launch(mlsweep_deposit_kernel<true>)

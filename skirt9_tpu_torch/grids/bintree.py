@@ -56,6 +56,7 @@ class BinTreeGrid(NamedTuple):
     volumes = ot.volumes
     diagonal = ot.diagonal
     cell_centers = ot.cell_centers
+    cell_bounds = ot.cell_bounds
     to = ot.to_device
 
     def max_steps(self) -> int:

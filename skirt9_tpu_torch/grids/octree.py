@@ -66,10 +66,11 @@ def volumes(grid) -> np.ndarray:
 
 
 def diagonal(grid) -> float:
-    """Length of the root box's diagonal [m] (the reference's
-    `Simulation._grid_diagonal`)."""
-    lo = grid.box_lo.cpu().numpy().astype(np.float64)
-    hi = grid.box_hi.cpu().numpy().astype(np.float64)
+    """Length of the root box's diagonal [m], in f32 from the f32 corners
+    as the reference's `Simulation._grid_diagonal` takes it for trees
+    (`skirt9_tpu/simulation.py:370-374`), so that rf_scale, and with it
+    every stored RF, is the reference's."""
+    lo, hi = grid.box_lo.cpu().numpy(), grid.box_hi.cpu().numpy()
     return float(np.linalg.norm(hi - lo))
 
 
@@ -82,6 +83,12 @@ def to_device(grid, device):
 
 def cell_centers(grid) -> torch.Tensor:
     return 0.5 * (grid.cell_lo + grid.cell_hi)
+
+
+def cell_bounds(grid):
+    """The leaves' boxes (cell_lo, cell_hi), (ncells, 3) f32 each on the
+    host (`octree.py:127`, `bintree.py:107`)."""
+    return grid.cell_lo.cpu().numpy(), grid.cell_hi.cpu().numpy()
 
 
 def host_fields(node_child, nodes_lo, nodes_hi, lo0, hi0, levels) -> dict:
@@ -156,6 +163,7 @@ class OctreeGrid(NamedTuple):
     volumes = volumes
     diagonal = diagonal
     cell_centers = cell_centers
+    cell_bounds = cell_bounds
     to = to_device
 
     def max_steps(self) -> int:

@@ -82,9 +82,9 @@ _SIGNATURES = {
     # hx, hy, hz, 1/hx, 1/hy, 1/hz, stream
     "mlsweep_dtau_launch": [_P] * 17 + [_I] * 9 + [_F] * 9 + [_P],
     # pos, dir, axis, smin, smax, dsub, csub, lum, tau_int, tb, step_tlev,
-    # step_gs, rf, first_hit, B, nx, ny, nz, n_steps, ncells, shared, lox,
-    # loy, loz, hx, hy, hz, inv2, stream
-    "mlsweep_deposit_launch": [_P] * 14 + [_I] * 7 + [_F] * 7 + [_P],
+    # step_gs, bin_map, rf, first_hit, B, nx, ny, nz, n_steps, ncells,
+    # n_groups, rows, shared, lox, loy, loz, hx, hy, hz, inv2, stream
+    "mlsweep_deposit_launch": [_P] * 15 + [_I] * 9 + [_F] * 7 + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

@@ -1,8 +1,9 @@
 """Probes: outputs of internal simulation state.
 
-Port of the part of `skirt9_tpu/probes/probes.py` that bench2's probes
-reach: the per-cell and planar-cut forms, `temperature_probe` and
-`radiation_field_probe`, `ProbeSpec` and `run_probe_system`. A probe is a
+Port of the part of `skirt9_tpu/probes/probes.py` that bench2's and
+bench3's probes reach: the per-cell and planar-cut forms (on uniform grids
+and trees), `temperature_probe`, `radiation_field_probe`, the cell
+properties (`cellprops`), `ProbeSpec` and `run_probe_system`. A probe is a
 function of the simulation state that writes text or FITS files through a
 form. Any other probe kind raises NotImplementedError naming itself.
 """
@@ -18,6 +19,11 @@ from ..utils import fits as fitsio
 
 
 # -------------------------------------------------------------------- forms
+
+def _device(grid):
+    """The device of a grid's tables: a uniform grid's or a tree's."""
+    return grid.cell_lo.device if hasattr(grid, "cell_lo") else grid.lo.device
+
 
 def per_cell_form(path: str, grid, quantities: dict[str, np.ndarray],
                   unit_note: str = "") -> str:
@@ -40,9 +46,14 @@ def per_cell_form(path: str, grid, quantities: dict[str, np.ndarray],
 def planar_cut_form(path: str, grid, values_fn, axis: str = "z",
                     offset: float = 0.0, npix: int = 256) -> str:
     """FITS image of a scalar field on a planar cut through the domain
-    (ref: DefaultCutsForm / PlanarCutsForm): values_fn(pos (N, 3)) -> (N,)."""
-    lo = [float(grid.xb[0]), float(grid.yb[0]), float(grid.zb[0])]
-    hi = [float(grid.xb[-1]), float(grid.yb[-1]), float(grid.zb[-1])]
+    (ref: DefaultCutsForm / PlanarCutsForm): values_fn(pos (N, 3)) -> (N,).
+    The cut spans the grid's borders, or a tree's root box."""
+    if hasattr(grid, "xb"):
+        lo = [float(grid.xb[0]), float(grid.yb[0]), float(grid.zb[0])]
+        hi = [float(grid.xb[-1]), float(grid.yb[-1]), float(grid.zb[-1])]
+    else:
+        lo = grid.box_lo.cpu().numpy().astype(np.float64)
+        hi = grid.box_hi.cpu().numpy().astype(np.float64)
     ax = {"x": 0, "y": 1, "z": 2}[axis]
     a1, a2 = [i for i in range(3) if i != ax]
     u = np.linspace(lo[a1], hi[a1], npix)
@@ -52,7 +63,7 @@ def planar_cut_form(path: str, grid, values_fn, axis: str = "z",
     pos[:, a1] = U.ravel()
     pos[:, a2] = V.ravel()
     pos[:, ax] = offset
-    pos_t = torch.tensor(pos.astype(np.float32), device=grid.lo.device)
+    pos_t = torch.tensor(pos.astype(np.float32), device=_device(grid))
     vals = values_fn(pos_t).cpu().numpy().astype(np.float64)
     fitsio.write_fits(path, vals.reshape(npix, npix).astype(np.float32),
                       {"CUTAXIS": axis, "CUTOFFS": offset})
@@ -62,7 +73,7 @@ def planar_cut_form(path: str, grid, values_fn, axis: str = "z",
 def cell_scalar_fn(grid, per_cell: np.ndarray):
     """Lift a per-cell array to a position-valued function for cuts."""
     vals = torch.tensor(np.asarray(per_cell, np.float32),
-                        device=grid.lo.device)
+                        device=_device(grid))
 
     def fn(pos):
         c = grid.locate(pos)
@@ -99,8 +110,23 @@ def radiation_field_probe(sim, rf, prefix: str, outdir: str = "."):
                           sim.grid, q, "mean intensity [W/m2/m/sr]")]
 
 
+def cell_properties_probe(sim, rf, prefix: str, outdir: str = "."):
+    """Volume and number density of every component per cell
+    (ref: SpatialCellPropertiesProbe; reference `probes.py:838-846`)."""
+    nd = sim.medium.nd.cpu().numpy().astype(np.float64)
+    q = {"volume": np.asarray(sim.grid.volumes(), np.float64)}
+    for h in range(nd.shape[1]):
+        q[f"nd_{h}"] = nd[:, h]
+    return [per_cell_form(os.path.join(outdir, f"{prefix}_cellprops.dat"),
+                          sim.grid, q,
+                          "cell volume [m3], number densities [1/m3]")]
+
+
 _KINDS = {"temperature": temperature_probe,
-          "radiationfield": radiation_field_probe}
+          "radiationfield": radiation_field_probe,
+          "cellprops": cell_properties_probe}
+# the kinds that read the radiation field, and write nothing without one
+_NEEDS_RF = ("temperature", "radiationfield")
 
 
 class ProbeSpec:
@@ -116,9 +142,9 @@ class ProbeSpec:
         self.when = when  # "Setup" | "Run"
 
     def run(self, sim, prefix: str, outdir: str, rf=None):
-        """Both kinds read the radiation field: without one they write
-        nothing."""
-        if rf is None:
+        """The temperature and radiation-field probes read the radiation
+        field: without one they write nothing."""
+        if rf is None and self.kind in _NEEDS_RF:
             return []
         return _KINDS[self.kind](sim, rf, f"{prefix}_{self.name}", outdir)
 

@@ -5,7 +5,9 @@ grids, octrees and bintrees: `run_primary` launches each source's history
 range in batches through `transport.lifecycle.life_cycle` and accumulates
 the radiation field and instrument records on the device;
 `run_with_dust_emission` adds equilibrium dust emission (the optional
-self-absorption iterations, then a secondary segment with peel-off);
+self-absorption iterations, then a secondary segment with peel-off), and
+`run_merged_iterations` its merged form (each iteration relaunches the
+primary packets beside the secondary ones, `include_primary`);
 `write_outputs` calibrates and writes the SED text files and frame FITS
 cubes in the reference's format, in the ski file's unit system where the
 loader set one.
@@ -20,7 +22,8 @@ A multi-bin radiation field (RF) is filled from bin-pure lane groups: a
 source with an SED launches stratified over the RF bins it covers
 (`_strata_for`), a monochromatic one deposits into its own bin
 (`_mono_rf_bin`), as in the reference. This runs on the resident sweep of
-uniform grids; trees and large (XL) grids take a one-bin RF only.
+uniform grids and on trees (the multi-level sweep); large (XL) grids take
+a one-bin RF only.
 
 The device defaults to CUDA (`Simulation(..., device="cpu")` asks for the
 CPU): all tables move there once, in `__post_init__`, and nothing falls
@@ -127,10 +130,10 @@ class Simulation:
         self._sweep_tabs = self._engine_tables()
         if (self.rf_borders is not None and self.options.store_rf
                 and len(self.rf_borders) > 2
-                and not isinstance(self._sweep_tabs, sw.SweepTables)):
+                and isinstance(self._sweep_tabs, xl.XLTables)):
             raise NotImplementedError(
-                "multi-bin radiation field on trees and large (XL) grids not "
-                "ported yet (the resident sweep of uniform grids only)")
+                "multi-bin radiation field on large (XL) grids not ported "
+                "yet (the resident sweep of uniform grids and trees only)")
         # RF accumulator unit [W m]: keeps f32 in range for luminous sources
         self.rf_scale = max(L_tot / max(self.num_packets, 1)
                             * self.grid.diagonal(), 1e-300)
@@ -379,33 +382,38 @@ class Simulation:
 
     # ------------------------------------------------------------------- runs
 
-    def run_primary(self, verbose: bool = True):
-        """Primary-emission segment. Returns (rf, accs): the radiation field
-        (ncells, nbins) path-length sums in units of rf_scale [W m], or None,
-        and the instrument accumulators."""
+    def _primary(self, opts, seed_key, accs):
+        """Every source's history range through the life cycle with opts
+        (the primary segment): (rf, accs)."""
         rf = self._init_rf()
-        accs = [dinst.init_accumulators(c, self.device)
-                for c in self.instruments]
-        seed_key = rng.seed_key(self.seed, self.device)
-        counts = self._source_allocation(self.num_packets)
-        self.last_stats = {}
-        t0 = time.perf_counter()
-        launched = hist_base = 0
-        for si, n_src in enumerate(counts):
+        hist_base = 0
+        for si, n_src in enumerate(self._source_allocation(self.num_packets)):
             n_src = int(n_src)
             if n_src == 0:
                 continue
             rf, accs = self._run_segment(
-                self.sources[si], self._src_tabs[si], self.options, n_src,
-                seed_key, rf, accs, hist_base=hist_base)
-            launched += n_src
+                self.sources[si], self._src_tabs[si], opts, n_src, seed_key,
+                rf, accs, hist_base=hist_base)
             hist_base += n_src
+        return rf, accs
+
+    def run_primary(self, verbose: bool = True):
+        """Primary-emission segment. Returns (rf, accs): the radiation field
+        (ncells, nbins) path-length sums in units of rf_scale [W m], or None,
+        and the instrument accumulators."""
+        accs = [dinst.init_accumulators(c, self.device)
+                for c in self.instruments]
+        self.last_stats = {}
+        t0 = time.perf_counter()
+        rf, accs = self._primary(self.options,
+                                 rng.seed_key(self.seed, self.device), accs)
         self._block(rf, accs, phase="primary emission")
         dt = time.perf_counter() - t0
         if verbose:
-            _log().success(f"primary emission: {launched:,} packets in "
-                           f"{dt:.2f} s ({launched / dt:,.0f} packets/s)")
-        self.last_rate = launched / dt
+            _log().success(f"primary emission: {self.num_packets:,} packets "
+                           f"in {dt:.2f} s ({self.num_packets / dt:,.0f} "
+                           "packets/s)")
+        self.last_rate = self.num_packets / dt
         self.last_stats["seconds"] = dt
         return rf, accs
 
@@ -506,9 +514,102 @@ class Simulation:
         return rf_total, accs, info
 
     def run_merged_iterations(self, verbose: bool = True):
-        raise NotImplementedError(
-            "merged primary and secondary iterations (include_primary) not "
-            "ported yet")
+        """Merged primary and secondary emission iterations
+        (`include_primary` with `iterate_secondary`; the reference's
+        `skirt9_tpu/simulation.py:1088-1211` without dynamic medium
+        recipes): each iteration relaunches the primary packets without
+        peel-off, then a secondary segment from the total field, until the
+        dust-absorption test holds (after `min_iterations`) or
+        `max_iterations` pass; then the final primary and secondary
+        segments with peel-off.
+
+        Returns (rf_total, accs, info) as `run_with_dust_emission` does,
+        with each segment in `last_stats["segments"]`."""
+        if self.ems_borders is None:
+            raise ValueError("set ems_borders for dust emission")
+        t_all = time.perf_counter()
+        etabs = self._emission_tables()
+        n2 = int(self.num_packets * self.secondary_packets_multiplier)
+        opts_nopeel = dataclasses.replace(self.options, peel_off=False)
+        opts2_nopeel = dataclasses.replace(opts_nopeel, primary=False)
+        seed_key = rng.seed_key(self.seed + 1, self.device)
+        segments = []
+        self.last_stats = {}
+
+        def timed(name, n, fn):
+            events0 = self.last_stats.get("events", 0)
+            t0 = time.perf_counter()
+            out = fn()
+            self._sync()
+            segments.append((name, n, time.perf_counter() - t0,
+                             self.last_stats.get("events", 0) - events0))
+            return out
+
+        rf_seco = self._init_rf()
+        L_abs_prev, L_prim_abs, it = 0.0, 1.0, 0
+        while True:
+            it += 1
+            rf_prim, _ = timed(f"merged primary {it}", self.num_packets,
+                               lambda: self._primary(
+                                   opts_nopeel,
+                                   rng.fold_in(seed_key, 1000 + it), []))
+            rf_total = rf_prim + rf_seco
+            L_prim_abs = eq.total_absorbed_device(self.medium, etabs,
+                                                  rf_prim, self.rf_scale)
+            src2 = self._make_secondary(etabs, rf_total)
+            if src2.luminosity <= 0:
+                if verbose:
+                    _log().warning("merged iterations: secondary luminosity "
+                                   "is zero")
+                break
+            rf_seco, _ = timed(
+                f"merged secondary {it}", n2,
+                lambda: self._run_segment(
+                    src2, src2.tables(), opts2_nopeel, n2,
+                    rng.fold_in(seed_key, 2000 + it), self._init_rf(), []))
+            L_abs = eq.total_absorbed_device(self.medium, etabs, rf_seco,
+                                             self.rf_scale)
+            if verbose:
+                _log().info(f"merged iteration {it}: "
+                            f"L_abs(seco)={L_abs:.4e} W "
+                            f"(prim {L_prim_abs:.4e} W)")
+            converged = (L_abs <= self.max_fraction_of_primary * L_prim_abs
+                         or (L_abs_prev > 0
+                             and abs(L_abs - L_abs_prev)
+                             <= self.max_fraction_of_previous * L_abs_prev))
+            L_abs_prev = L_abs
+            if converged and it >= self.min_iterations:
+                if verbose:
+                    _log().success(f"merged iterations converged after {it}")
+                break
+            if not converged and it >= self.max_iterations:
+                _log().warning(f"merged iterations NOT converged after {it}")
+                break
+
+        # final segments with peel-off: the primary one as run_primary's
+        accs = [dinst.init_accumulators(c, self.device)
+                for c in self.instruments]
+        rf_prim, accs = timed(
+            "primary", self.num_packets, lambda: self._primary(
+                self.options, rng.seed_key(self.seed, self.device), accs))
+        rf_total = rf_prim + rf_seco
+        src2 = self._make_secondary(etabs, rf_total)
+        info = {"iterations": it, "L_dust": src2.luminosity,
+                "L_abs_primary": L_prim_abs}
+        if src2.luminosity > 0:
+            opts2 = dataclasses.replace(self.options, primary=False,
+                                        store_rf=False)
+            _, accs = timed("secondary", n2, lambda: self._run_segment(
+                src2, src2.tables(), opts2, n2, rng.fold_in(seed_key, 777),
+                None, accs))
+        self._block(rf_total, accs, phase="merged emission")
+        self.last_stats["segments"] = segments
+        if verbose:
+            _log().success(f"merged emission done in "
+                           f"{time.perf_counter() - t_all:.1f} s "
+                           f"({it} iterations, "
+                           f"L_dust={src2.luminosity:.4e} W)")
+        return rf_total, accs, info
 
     def _emission_tables(self):
         """Equilibrium emission tables, built once: they depend on the

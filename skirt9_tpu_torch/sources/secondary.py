@@ -174,6 +174,7 @@ def prepare_device(grid, L_cell: torch.Tensor, eps: torch.Tensor, ems_borders,
 
 
 def cell_bounds(grid):
-    """Axis-aligned bounds (lo, hi) per cell, (ncells, 3) f64 each, for
-    position sampling."""
+    """Axis-aligned bounds (lo, hi) per cell, (ncells, 3) each, for
+    position sampling: the voxels of a uniform grid, the leaves of a
+    tree."""
     return grid.cell_bounds()

@@ -19,7 +19,9 @@ and with a one-bin RF: the tree loop with pass 2 in torch ops or in its
 kernel), `config1x256` (bench_config1x256: the XL loop) and `config1h`
 (bench1h.ski through the ski loader: the resident loop in lane-refill
 generations; a checkout from before the loader has no such
-configuration):
+configuration) and `config3` (bench3.ski through the ski loader: the tree
+loop with a 25-bin RF in 32 lane groups and dust self-absorption
+iterations; a checkout from before config 3 has none):
 
     python3 skirt9_tpu_torch/tools/event_profile.py --root DIR [--root DIR2 ...]
         [--config NAME ...]
@@ -137,6 +139,7 @@ CONFIGS = {
         dev, n=256, **{"num_packets": cs.B_FULL, **kw}), "B_FULL", False),
     "config1h": (lambda cs, dev, **kw: cs.config1h(dev, **kw), "B_FULL",
                  False),
+    "config3": (lambda cs, dev, **kw: cs.config3(dev, **kw), "B_B3", True),
 }
 
 

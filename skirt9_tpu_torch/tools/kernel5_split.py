@@ -68,13 +68,14 @@ _ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float] * 7
          + [ctypes.c_void_p])
 # text edits of the lane-tiled kernel, each taking one part out
 _TABLE = "} else if (atomicAdd(table + key, v) == 0.0) {"
-_FLUSH = "atomicAdd(rf + c, table[c]);"
+_FLUSH = "atomicAdd(rf_row + c, table[c]);"
 _GROUP = "warp_add(key[j], val[j], scratch[y], add);"
 _ITEMS = "if (w < T.items) {"
 TILE_VARIANTS = {
     "tile_full": [],
     "tile_no_table_atomics": [(_TABLE, "} else if (v < 0.0) {")],
-    "tile_no_flush": [(_FLUSH, "if (table[c] < 0.0) rf[c] = table[c];")],
+    "tile_no_flush": [(_FLUSH,
+                       "if (table[c] < 0.0) rf_row[c] = table[c];")],
     "tile_no_grouping": [(_GROUP, "if (key[j] >= 0) add(key[j], val[j]);")],
     "tile_setup_only": [(_ITEMS, "if (w < 0) {")],
 }
@@ -157,17 +158,19 @@ def main(argv=None) -> int:
     nx, ny, nz, n_steps, *geo = ml._geometry_args(tabs)
     stream = kb.stream_of(pos)
     ptrs = [t.data_ptr() for t in (pos, dirn, g, smin, smax, sub, cells, lum,
-                                   tau_int, tb, tabs.step_tlev, tabs.step_gs,
-                                   rf, first)]
+                                   tau_int, tb, tabs.step_tlev, tabs.step_gs)]
+    old_ptrs = ptrs + [rf.data_ptr(), first.data_ptr()]
+    # one lane group, no bin map
+    ptrs = ptrs + [None, rf.data_ptr(), first.data_ptr()]
     shared = int(ncells <= ml.SHARED_LEAVES)
     runs = [(str(kb._CSRC / "mlsweep_deposit.cu"), TILE_VARIANTS,
              kb._SIGNATURES["mlsweep_deposit_launch"],
              lambda fn, sh=shared: fn(*ptrs, B, nx, ny, nz, n_steps, ncells,
-                                      sh, *geo, 0.5, stream))]
+                                      1, 1, sh, *geo, 0.5, stream))]
     if args.source:
         runs.append((args.source, VARIANTS, _ARGS,
-                     lambda fn: fn(*ptrs, B, nx, ny, nz, n_steps, *geo, 0.5,
-                                   stream)))
+                     lambda fn: fn(*old_ptrs, B, nx, ny, nz, n_steps, *geo,
+                                   0.5, stream)))
     with tempfile.TemporaryDirectory() as tmp:
         built = [(build_variants(src, variants, argtypes, tmp), call)
                  for src, variants, argtypes, call in runs]

@@ -37,10 +37,11 @@ lane range), in launch order (no lane sort). Pass 2 is
 `mlsweep.resolve_interaction`, whose cell comes from the fine leaf map; the
 tracer is one `mlsweep.sweep_tau_total` launch.
 
-A multi-bin radiation field runs on the resident sweep only: the batch
-comes in bin-pure lane groups (a stratified launch, `rf_strata` groups with
-their `rf_bin_map`, or one group for a monochromatic source's
+A multi-bin radiation field runs on the resident sweep and on trees: the
+batch comes in bin-pure lane groups (a stratified launch, `rf_strata`
+groups with their `rf_bin_map`, or one group for a monochromatic source's
 `rf_mono_bin`), and pass 2 deposits each group into the row of its bin.
+Large (XL) grids take a one-bin RF only.
 
 The event loop exits early once no lane is alive; that test is the one
 host sync per event on the resident sweep. There is no scan-march
@@ -176,19 +177,19 @@ def survives_cutoff(opts: TransportOptions, lum_new, nscat_new, lum0):
 
 # ------------------------------------------------- wavelength-binned RF
 
-def _rf_groups(opts: TransportOptions, rf, B: int, tree_or_xl: bool) -> int:
+def _rf_groups(opts: TransportOptions, rf, B: int, xl_grid: bool) -> int:
     """Bin-pure lane groups of the pass-2 deposits (the reference's choice,
     `skirt9_tpu/transport/lifecycle.py:515-524,573`): one for a one-bin RF
     or a monochromatic source in a multi-bin one (`rf_mono_bin`), else the
-    `rf_strata` groups of a stratified launch. A layout the reference sends
-    to its scan march raises, as do multi-bin RFs on trees and large
-    grids."""
+    `rf_strata` groups of a stratified launch, on the resident sweep and on
+    trees. A layout the reference sends to its scan march raises, as do
+    multi-bin RFs on large (XL) grids."""
     if rf is None or rf.shape[1] == 1:
         return 1
-    if tree_or_xl:
+    if xl_grid:
         raise NotImplementedError(
-            "multi-bin radiation field on trees and large (XL) grids not "
-            "ported yet (the resident sweep of uniform grids only)")
+            "multi-bin radiation field on large (XL) grids not ported yet "
+            "(the resident sweep of uniform grids and trees only)")
     if opts.rf_strata > 0:
         if B % (128 * opts.rf_strata):
             raise NotImplementedError(
@@ -318,7 +319,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
 
     use_rf = opts.store_rf and rf is not None and rf_borders is not None
     n_groups = _rf_groups(opts, rf if use_rf else None, pkt.lam.shape[0],
-                          is_xl or is_ml)
+                          is_xl)
     # the small tensors the event loop needs, built here so that the loop
     # copies nothing from the host
     bin_map = None
@@ -398,11 +399,13 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                 s_int, icell, found = (_unsort(x, perm) for x in res)
             elif is_ml:
                 if use_rf:
+                    # lane groups fold into their bins inside the kernel
                     rf_delta, s_int, icell, found = ml.sweep_deposit(
                         sweep_tabs, pkt.pos, pkt.dir, active, dtau_sub,
                         cell_sub, lum_half, tau_int, tb_slab, inv_sqrt,
-                        lane=lane)
-                    rf[:, 0] += rf_delta[0]
+                        n_groups=n_groups, lane=lane, bin_map=bin_map,
+                        nbins=rf.shape[1])
+                    _add_rf(rf, rf_delta, opts, n_groups)
                 else:
                     s_int, icell, found = ml.resolve_interaction(
                         sweep_tabs, pkt.pos, pkt.dir, active_int, dtau_sub,

@@ -13,8 +13,9 @@ sub-segment's cell exactly, with one lookup.
   pass 1 `sweep_dtau`         -> (n_steps, B) optical depth per plan step,
          or with want_sub per sub-step (n_steps, 3, B) with the leaf id of
          each sub-step, so that nothing after it reads the density;
-  pass 2 `sweep_deposit`      -> RF deposits (n_groups, ncells) per leaf and
-         the interaction point, from that record;
+  pass 2 `sweep_deposit`      -> RF deposits (n_groups or nbins, ncells)
+         per leaf, lane groups folded into RF bins by a bin map, and the
+         interaction point, from that record;
   `resolve_interaction`       -> the interaction point alone, in plain tensor
          ops, for segments that store no RF.
 
@@ -346,21 +347,35 @@ def _prefix_plain(tabs, pos, dirn, sig, active, axis_hint, leaf_ids):
             (group, smin, smax))
 
 
+def _deposit_rows(B: int, n_groups: int, bin_map, rows: int, device):
+    """(B,) int64 RF row of every lane: lane l is in group g = l // (B /
+    n_groups) and deposits into row bin_map[g], or g without a bin map; -1
+    where that row lies outside [0, rows) (its deposits are dropped)."""
+    grp = torch.arange(B, device=device) // (B // n_groups)
+    row = grp if bin_map is None else bin_map.to(torch.int64)[grp]
+    return torch.where((row >= 0) & (row < rows), row,
+                       torch.full_like(row, -1))
+
+
 def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
-                   lum_pre, tau_int, tb_slab, inv2):
-    """RF deposits into (1, ncells), the kernel's f32 contributions summed
-    per leaf in f64, and the first interaction in (step, sub-step) order:
-    (rf, s_int, found), s_int undefined where not found."""
+                   lum_pre, tau_int, tb_slab, inv2, n_groups=1, bin_map=None,
+                   rows=1):
+    """RF deposits into (rows, ncells), the kernel's f32 contributions summed
+    per (row, leaf) in f64, and the first interaction in (step, sub-step)
+    order: (rf, s_int, found), s_int undefined where not found. Lane l's
+    deposits go to its group's row (`_deposit_rows`)."""
     B = pos.shape[0]
     subs, _, _, live, _ = _plan_substeps(tabs, pos, dirn, group, smin, smax)
     scale = (lum_pre[None, :] * torch.exp(-tb_slab)) * inv2
     rel = tau_int[None, :] - tb_slab
     tau_loc = torch.zeros_like(scale)
+    row = _deposit_rows(B, n_groups, bin_map, rows, pos.device)
+    keep = live & (row >= 0)[None, :]
     contribs, hits, s_hits = [], [], []
     for j, (s_cur, ds, _, _) in enumerate(subs):
         dtau = dtau_sub[:, j]
         contrib = scale * torch.exp(-tau_loc) * ds * sw._segment_factor(dtau)
-        contribs.append(torch.where(live & (cell_sub[:, j] >= 0), contrib,
+        contribs.append(torch.where(keep & (cell_sub[:, j] >= 0), contrib,
                                     torch.zeros_like(contrib)))
         rem = rel - tau_loc
         hits.append(live & (rem >= 0.0) & (rem < dtau))
@@ -371,10 +386,13 @@ def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
     s_int = torch.stack(s_hits, dim=1).reshape(-1, B).gather(0, first)[0]
     # the f32 contributions summed in f64, as the kernel sums them: a leaf
     # gathers some 10^5 of them per event, too many for an f32 sum
-    rf = torch.zeros(tabs.nd.shape[0], dtype=torch.float64, device=pos.device)
-    rf.index_add_(0, torch.clamp_min(cell_sub.to(torch.int64), 0).reshape(-1),
+    ncells = tabs.nd.shape[0]
+    key = (torch.clamp_min(row, 0)[None, None, :] * ncells
+           + torch.clamp_min(cell_sub.to(torch.int64), 0))
+    rf = torch.zeros(rows * ncells, dtype=torch.float64, device=pos.device)
+    rf.index_add_(0, key.reshape(-1),
                   torch.stack(contribs, dim=1).reshape(-1).to(torch.float64))
-    return rf.to(torch.float32)[None, :], s_int, hit.any(dim=0)
+    return rf.to(torch.float32).reshape(rows, ncells), s_int, hit.any(dim=0)
 
 
 # ----------------------------------------------------------- CUDA launches
@@ -447,24 +465,29 @@ def _prefix_cuda(tabs, pos, dirn, sig, active, hint, leaf_ids):
 
 
 def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, cell_sub,
-                  lum_pre, tau_int, tb_slab, inv2):
+                  lum_pre, tau_int, tb_slab, inv2, n_groups=1, bin_map=None,
+                  rows=1):
     B = pos.shape[0]
     dev = pos.device
     ncells = tabs.nd.shape[0]
     args = [t.contiguous() for t in (pos, dirn, group, smin, smax, dtau_sub,
                                      cell_sub, lum_pre, tau_int, tb_slab)]
     # f64 accumulator, rounded to f32 once (see csrc/mlsweep_deposit.cu)
-    rf = torch.zeros(ncells, dtype=torch.float64, device=dev)
+    rf = torch.zeros((rows, ncells), dtype=torch.float64, device=dev)
     # (step << 32 | bits of s_int) of the first hit, all ones for none
     first = torch.empty((B,), dtype=torch.int64, device=dev)
     nx, ny, nz, n_steps, *geo = _geometry_args(tabs)
+    # the block-private shared-memory table serves one lane group only
+    shared = int(n_groups == 1 and ncells <= SHARED_LEAVES)
     kb.launch("mlsweep_deposit", *(t.data_ptr() for t in (
-                  *args, tabs.step_tlev, tabs.step_gs, rf, first)),
-              B, nx, ny, nz, n_steps, ncells, int(ncells <= SHARED_LEAVES),
-              *geo, float(inv2), kb.stream_of(pos))
+                  *args, tabs.step_tlev, tabs.step_gs)),
+              None if bin_map is None else bin_map.data_ptr(),
+              rf.data_ptr(), first.data_ptr(), B, nx, ny, nz, n_steps,
+              ncells, n_groups, rows, shared, *geo, float(inv2),
+              kb.stream_of(pos))
     # the low word of each little-endian int64 holds the f32 bits of s_int
     s_int = first.view(torch.int32).reshape(B, 2)[:, 0].view(torch.float32)
-    return rf.to(torch.float32)[None, :], s_int, first != -1
+    return rf.to(torch.float32), s_int, first != -1
 
 
 # ---------------------------------------------------------- public wrappers
@@ -541,10 +564,9 @@ def sweep_dtau_prefix_plain(tabs: MLTables, pos, dirn, sigma, active,
 
 
 def _deposit_args(tabs, pos, dirn, active, dtau_sub, cell_sub, lum_pre,
-                  tau_int, tb_slab, n_groups, lane):
-    if n_groups != 1:
-        raise NotImplementedError("multi-bin radiation field not ported yet "
-                                  "(the tree deposit takes one lane group)")
+                  tau_int, tb_slab, n_groups, lane, bin_map, nbins):
+    """The lane range and the RF rows of pass 2, after checking its inputs:
+    (group, smin, smax, rows)."""
     B, NS = pos.shape[0], tabs.n_steps
     sw._check_inputs(pos, dirn, [(dtau_sub, (NS, 3, B), "dtau_sub"),
                                  (lum_pre, (B,), "lum_pre"),
@@ -553,7 +575,19 @@ def _deposit_args(tabs, pos, dirn, active, dtau_sub, cell_sub, lum_pre,
     if cell_sub.shape != (NS, 3, B) or cell_sub.dtype != torch.int32:
         raise ValueError(f"cell_sub {tuple(cell_sub.shape)} {cell_sub.dtype} "
                          f"must be ({NS}, 3, {B}) int32")
-    return sw._lanes(tabs, pos, dirn, active, lane)
+    # with lane groups every 32-lane tile of the kernel in one group
+    if n_groups < 1 or (n_groups > 1 and B % (32 * n_groups)):
+        raise ValueError(f"batch {B} not divisible into {n_groups} groups of "
+                         "32-lane tiles")
+    rows = n_groups
+    if bin_map is not None:
+        if (bin_map.shape != (n_groups,) or bin_map.dtype != torch.int32
+                or bin_map.device != pos.device or nbins < 1):
+            raise ValueError(f"bin_map {tuple(bin_map.shape)} "
+                             f"{bin_map.dtype} must be ({n_groups},) int32 "
+                             f"on {pos.device}, with nbins >= 1")
+        rows = nbins
+    return (*sw._lanes(tabs, pos, dirn, active, lane), rows)
 
 
 def _interaction_cells(tabs, pos, dirn, s_int, found):
@@ -564,21 +598,23 @@ def _interaction_cells(tabs, pos, dirn, s_int, found):
 
 
 def _sweep_deposit(plain: bool, tabs, pos, dirn, active, dtau_sub, cell_sub,
-                   lum_pre, tau_int, tb_slab, inv2, n_groups, lane):
-    group, smin, smax = _deposit_args(tabs, pos, dirn, active, dtau_sub,
-                                      cell_sub, lum_pre, tau_int, tb_slab,
-                                      n_groups, lane)
+                   lum_pre, tau_int, tb_slab, inv2, n_groups, lane, bin_map,
+                   nbins):
+    group, smin, smax, rows = _deposit_args(
+        tabs, pos, dirn, active, dtau_sub, cell_sub, lum_pre, tau_int,
+        tb_slab, n_groups, lane, bin_map, nbins)
     fn = _deposit_plain if plain else sw._dispatch(pos, _deposit_plain,
                                                    _deposit_cuda)
     rf, s_int, found = fn(tabs, pos, dirn, group, smin, smax, dtau_sub,
-                          cell_sub, lum_pre, tau_int, tb_slab, inv2)
+                          cell_sub, lum_pre, tau_int, tb_slab, inv2, n_groups,
+                          bin_map, rows)
     s_int, icell = _interaction_cells(tabs, pos, dirn, s_int, found)
     return rf, s_int, icell, found
 
 
 def sweep_deposit(tabs: MLTables, pos, dirn, active, dtau_sub, cell_sub,
                   lum_pre, tau_int, tb_slab, inv2: float, n_groups: int = 1,
-                  lane=None):
+                  lane=None, bin_map=None, nbins: int = 0):
     """Pass 2: RF deposits per leaf and the interaction point, from pass 1's
     record (no density or leaf-map access in the march).
 
@@ -586,23 +622,32 @@ def sweep_deposit(tabs: MLTables, pos, dirn, active, dtau_sub, cell_sub,
     second 1/sqrt(rf_scale), applied per step as scale = lum_pre *
     e^-tb * inv2; tau_int (B,): the sampled interaction optical depth;
     tb_slab (n_steps, B): optical depth before each step in ray order.
-    Returns (rf_delta (1, ncells), s_int (B,), icell (B,) int64 or -1,
-    found (B,) bool): the reference's return after its `finalize_rf`
-    (plane space -> cells, `mlsweep.py:1127-1135`), which the port does not
-    need since deposits land per leaf. icell
-    comes from `locate_cells` at the interaction point, as in the
-    reference (`mlsweep.py:1014-1017`). lane: pass 1's (group, smin, smax)
-    (`sweep._lane_range`), where the caller has it already."""
+    n_groups: bin-pure lane groups (B a multiple of 32 n_groups where
+    there are several); lane l's
+    deposits go to row l // (B / n_groups), or with bin_map ((n_groups,)
+    int32) to row bin_map[group] of nbins rows (an entry outside [0,
+    nbins), -1 among them: dropped), summed from zero in this call.
+    Returns (rf_delta (n_groups or nbins, ncells), s_int (B,), icell (B,)
+    int64 or -1, found (B,) bool): the reference's return after its
+    `finalize_rf` per group (plane space -> cells, `mlsweep.py:1127-1135`)
+    and the fold of the groups into bins, which the port does not need
+    since deposits land per leaf and row. icell comes from `locate_cells`
+    at the interaction point, as in the reference (`mlsweep.py:1014-1017`).
+    lane: pass 1's (group, smin, smax) (`sweep._lane_range`), where the
+    caller has it already."""
     return _sweep_deposit(False, tabs, pos, dirn, active, dtau_sub, cell_sub,
-                          lum_pre, tau_int, tb_slab, inv2, n_groups, lane)
+                          lum_pre, tau_int, tb_slab, inv2, n_groups, lane,
+                          bin_map, nbins)
 
 
 def sweep_deposit_plain(tabs: MLTables, pos, dirn, active, dtau_sub,
                         cell_sub, lum_pre, tau_int, tb_slab, inv2: float,
-                        n_groups: int = 1, lane=None):
+                        n_groups: int = 1, lane=None, bin_map=None,
+                        nbins: int = 0):
     """`sweep_deposit` through the plain PyTorch version on any device."""
     return _sweep_deposit(True, tabs, pos, dirn, active, dtau_sub, cell_sub,
-                          lum_pre, tau_int, tb_slab, inv2, n_groups, lane)
+                          lum_pre, tau_int, tb_slab, inv2, n_groups, lane,
+                          bin_map, nbins)
 
 
 def resolve_interaction(tabs: MLTables, pos, dirn, active, dtau_sub, tb_slab,

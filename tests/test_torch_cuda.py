@@ -1088,3 +1088,143 @@ def test_row_lookup_kernels(dev, select):
                        else "row_lookup_gather"] == 1
     ref = sg.lookup_plain(tab, idx)
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+# ---------------------------------------------- config 3: kernel 5's groups
+
+def _grouped_check(tabs, pos, d, active, rec, cells, lum, tau_int, tb, lane,
+                   n_groups, bin_map, nbins, inv2=0.7):
+    """Kernel 5 in its grouped mode against its plain version: one launch,
+    the RF within 1e-6 of its maximum, s_int, icell and found equal."""
+    args = (tabs, pos, d, active, rec, cells, lum, tau_int, tb, inv2)
+    kw = dict(n_groups=n_groups, lane=lane, nbins=nbins, bin_map=None
+              if bin_map is None else torch.tensor(
+                  bin_map, dtype=torch.int32, device=pos.device))
+    kb.reset_launches()
+    rf_k, s_k, c_k, f_k = ml.sweep_deposit(*args, **kw)
+    assert kb.LAUNCHES["mlsweep_deposit"] == 1
+    rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(*args, **kw)
+    assert int(f_p.sum()) > pos.shape[0] // 4
+    assert torch.equal(f_k, f_p) and torch.equal(c_k, c_p)
+    assert torch.equal(s_k[f_k], s_p[f_p])
+    assert rf_k.shape == rf_p.shape
+    m = float(rf_p.abs().max())
+    assert m > 0 and float((rf_k - rf_p).abs().max()) <= 1e-6 * m
+    return rf_p
+
+
+@pytest.mark.parametrize("n_groups,bin_map,nbins", [
+    (8, (0, 1, 1, -1, 3, 3, 5, 7), 6), (8, None, 0), (1, (2,), 3),
+    (1, (-1,), 3)], ids=["8-map", "8-rows", "1-shared-row2", "1-dropped"])
+def test_mlsweep_deposit_grouped_kernel(dev, n_groups, bin_map, nbins):
+    """The small density octree (its 1-group launches on the shared-memory
+    table, its grouped ones on the global path): rows from the bin map (-1,
+    repeats and a row past nbins dropped), rows per group without one."""
+    B = 4096
+    tabs, pos, d, sig, active, rs = _tree_inputs(dev, "octree", 1, B, seed=9)
+    assert tabs.nd.shape[0] <= ml.SHARED_LEAVES
+    rec, cells, _, tb, tot, lane = ml.sweep_dtau_prefix(tabs, pos, d, sig,
+                                                        active)
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dev) * tot
+    if bin_map == (-1,):
+        kb.reset_launches()
+        rf, *_ = ml.sweep_deposit(
+            tabs, pos, d, active, rec, cells, lum, tau_int, tb, 0.7,
+            lane=lane, bin_map=torch.tensor(bin_map, dtype=torch.int32,
+                                            device=dev), nbins=nbins)
+        assert kb.LAUNCHES["mlsweep_deposit"] == 1
+        assert rf.shape == (3, tabs.nd.shape[0]) and float(rf.abs().sum()) == 0
+        return
+    rf = _grouped_check(tabs, pos, d, active, rec, cells, lum, tau_int, tb,
+                        lane, n_groups, bin_map, nbins)
+    rows = nbins if bin_map is not None else n_groups
+    assert rf.shape == (rows, tabs.nd.shape[0])
+    lit = (rf.abs().sum(dim=1) > 0).cpu().tolist()
+    used = set(range(n_groups)) if bin_map is None else {
+        r for r in bin_map if 0 <= r < rows}
+    assert [r for r in range(rows) if lit[r]] == sorted(used)
+
+
+def test_mlsweep_deposit_grouped_kernel_bench3(dev):
+    """Config 3's first event on the full bench3 tree (the global path):
+    its 32 lane groups folded into the 25 RF rows by the launch's bin
+    map."""
+    cs = _chip_smoke()
+    sim = cs.config3(dev)
+    assert sim._sweep_tabs.nd.shape[0] > ml.SHARED_LEAVES
+    pkt, opts, (rec, cells, _, tb, tot, lane) = cs.first_event_b3(torch, sim)
+    rs = np.random.default_rng(8)
+    inv = 1.0 / float(np.sqrt(sim.rf_scale))
+    rfb = sim._rf_borders_dev
+    lum = (pkt.lum * (pkt.alive & (pkt.lam >= rfb[0])
+                      & (pkt.lam < rfb[-1]))) * inv
+    tau_int = torch.tensor(rs.uniform(size=pkt.lam.shape[0]),
+                           dtype=torch.float32, device=dev) * tot
+    assert opts.rf_strata == 32 and min(opts.rf_bin_map) == 0
+    rf = _grouped_check(sim._sweep_tabs, pkt.pos, pkt.dir, pkt.alive, rec,
+                        cells, lum, tau_int, tb, lane, 32, opts.rf_bin_map,
+                        25, inv2=inv)
+    assert int((rf.abs().sum(dim=1) > 0).sum()) == 25
+    # groups 0 and 5 dropped (-1), the last group's row past the 25 rows
+    drop = list(opts.rf_bin_map)
+    drop[0] = drop[5] = -1
+    drop[-1] = 25
+    rf = _grouped_check(sim._sweep_tabs, pkt.pos, pkt.dir, pkt.alive, rec,
+                        cells, lum, tau_int, tb, lane, 32, tuple(drop), 25,
+                        inv2=inv)
+    lit = (rf.abs().sum(dim=1) > 0).cpu().tolist()
+    assert [r for r in range(25) if lit[r]] == sorted(
+        {r for r in drop if 0 <= r < 25})
+
+
+@pytest.fixture(scope="module")
+def config3_runs(dev, tmp_path_factory):
+    """The reduced config 3 (bench3.ski at maxLevel 4, 8,192 packets, 4
+    events, at most 2 iterations) on the card and on the CPU, with the
+    card's launches."""
+    cs = _chip_smoke()
+    path = cs.edited_ski("bench3", tmp_path_factory.mktemp("b3"),
+                         cs.B3_SMALL)
+    out = {}
+    for d in ("cpu", dev):
+        sim = cs.config3(d, num_packets=8192, batch_size=4096, max_events=4,
+                         path=path)
+        sim.max_iterations = 2
+        kb.reset_launches()
+        out[str(d)] = (sim, *sim.run_with_dust_emission(verbose=False))
+    return out, dict(kb.LAUNCHES)
+
+
+def test_config3_on_cuda_matches_cpu(dev, config3_runs):
+    out, _ = config3_runs
+    (_, rf_c, acc_c, info_c), (_, rf_g, acc_g, info_g) = (out["cpu"],
+                                                          out[str(dev)])
+    assert info_c["iterations"] == info_g["iterations"] >= 1
+    assert info_g["L_dust"] == pytest.approx(info_c["L_dust"], rel=1e-4)
+    assert float((rf_g.cpu() - rf_c).abs().max()) <= 2e-5 * float(rf_c.max())
+    sc, sg_ = acc_c[0]["sed"], acc_g[0]["sed"].cpu()
+    for k in range(sc.shape[0]):
+        assert float((sg_[k] - sc[k]).abs().max()) <= 2e-5 * float(
+            sc[k].abs().max())
+    fc, fg = acc_c[0]["frame"].double(), acc_g[0]["frame"].double().cpu()
+    assert float((fg - fc).abs().max()) <= 1e-3 * float(fc.abs().max())
+
+
+def test_config3_tree_rf_loop_launches(dev, config3_runs):
+    """Kernel 5 once per event of every segment that stores the RF (the
+    primary and the iterations; the final secondary segment stores none),
+    kernels 4 and detect on every segment, no resident or XL kernel."""
+    out, n = config3_runs
+    segs = out[str(dev)][0].last_stats["segments"]
+    assert [s[0] for s in segs][-1] == "secondary" and len(segs) >= 3
+    assert n["mlsweep_deposit"] == sum(s[3] for s in segs[:-1])
+    assert n["mlsweep_dtau_prefix"] == sum(s[3] for s in segs)
+    assert n["mlsweep_tau_total"] > 0 and n["detect"] > 0
+    for k in ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
+              "sweep_deposit", "sweep_deposit_prefix", "sweepxl_dtau",
+              "sweepxl_tau_total", "sweepxl_dtau_prefix", "sweepxl_deposit",
+              "sweepxl_deposit_prefix", "mlsweep_dtau", "scatter_add"):
+        assert n[k] == 0, k

@@ -16,8 +16,11 @@ All on the CPU.
 - CLI: `python -m skirt9_tpu_torch tests/golden/bench1.ski --device cpu -p
   4096 -b 2048 -s 0` writes the SED columns and the frame cube of `python -m
   skirt9_tpu` with the same flags within 1e-5 of their maxima (they agree
-  to ~3e-9); on bench2 it writes the probe files, one row per cell; what is
-  not ported exits non-zero, and so does the default device without a GPU.
+  to ~3e-9); on bench2 it writes the probe files, one row per cell; on the
+  reduced bench3.ski (maxLevel 4, one self-absorption iteration) it writes
+  the SED, the frame and the cells, rf and T probe files equal to the API
+  run's; what is not ported exits non-zero, and so does the default device
+  without a GPU.
 """
 
 import dataclasses
@@ -137,7 +140,7 @@ def _edited(tmp_path, name: str, old: str, new: str) -> str:
     # a type nobody knows
     ("ShellGeometry", "NoSuchGeometry", "NoSuchGeometry"),
     # types the reference loads but the port does not run yet
-    ("CartesianSpatialGrid", "PolicyTreeSpatialGrid", "PolicyTreeSpatialGrid"),
+    ("CartesianSpatialGrid", "Sphere1DSpatialGrid", "Sphere1DSpatialGrid"),
     ('BlackBodySED temperature="5778 K"', 'FileSED filename="sed.txt"',
      "FileSED"),
     ("TrivialGasMix", "MeanInterstellarDustMix", "MeanInterstellarDustMix"),
@@ -290,6 +293,44 @@ def test_cli_writes_probes(tmp_path):
     assert 10 < np.median(T[lit, 3]) < 200
     sed = np.loadtxt(tmp_path / "bench2_i0_sed.dat")
     assert sed.shape == (40, 9) and sed[:, 5].max() > 0   # secondary flux
+
+
+def test_cli_on_reduced_bench3(tmp_path):
+    """The CLI on the reduced bench3.ski (one self-absorption iteration at
+    most, to keep the CLI's 64 events a batch short) writes the SED, the
+    frame and the three probe files, equal to the outputs of the API run
+    at the same settings."""
+    path = chip_smoke.edited_ski("bench3", tmp_path, dict(
+        chip_smoke.B3_SMALL, **{'maxSecondaryIterations="10"':
+                                'maxSecondaryIterations="1"'}))
+    out = tmp_path / "cli"
+    assert main([path, "--device", "cpu", "-p", "8192", "-b", "4096",
+                 "-o", str(out)]) == 0
+    names = sorted(os.listdir(out))
+    assert names == ["small_T_temperature.dat", "small_T_temperature_z.fits",
+                     "small_cells_cellprops.dat", "small_i0_sed.dat",
+                     "small_i0_total.fits", "small_log.txt",
+                     "small_rf_radiationfield.dat"]
+    api = load_ski(path, num_packets=8192, batch_size=4096, device="cpu")
+    rf, accs, info = api.run_with_dust_emission(verbose=False)
+    assert info["iterations"] == 1 and info["L_dust"] > 0
+    api_dir = tmp_path / "api"
+    api_dir.mkdir()
+    api.write_outputs(accs, "small", str(api_dir))
+    probes.run_probe_system(api, "Setup", "small", str(api_dir))
+    probes.run_probe_system(api, "Run", "small", str(api_dir), rf=rf)
+    for name in names:
+        if name.endswith(".dat"):
+            assert np.array_equal(np.loadtxt(out / name),
+                                  np.loadtxt(api_dir / name)), name
+        elif name.endswith(".fits"):
+            a, _ = read_fits(str(out / name))
+            b, _ = read_fits(str(api_dir / name))
+            assert np.array_equal(a, b) and b.max() > 0, name
+    sed = np.loadtxt(out / "small_i0_sed.dat")
+    assert sed.shape == (40, 9) and sed[:, 5].max() > 0   # secondary flux
+    J = np.loadtxt(out / "small_rf_radiationfield.dat")
+    assert J.shape == (api.grid.ncells, 3 + 25) and J[:, 3:].max() > 0
 
 
 @pytest.mark.parametrize("argv,named", [

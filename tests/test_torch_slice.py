@@ -28,10 +28,13 @@ atol 1e-6 of its total.
 The port imports neither jax nor any module of the JAX package: a
 subprocess runs a uniform-grid and an octree simulation, a small config 2
 with dust emission (`chip_smoke.config2`), the gather and row-lookup
-probes and the CLI (bench1.ski, and bench2.ski's set-up), imports the
-variant scripts of kernels 8-9 (`perf/`), and then finds no such module
-loaded and no kernel launched; an `ast` scan of the package (the loader,
-probes, CLI and unit copies among it), chip_smoke.py and `perf/*.py` finds
+probes, a reduced config 3 (bench3.ski at maxLevel 4 with a 4-bin RF
+through the loader, with and without merged iterations) and the CLI
+(bench1.ski, and bench2.ski's set-up), imports the variant scripts of
+kernels 8-9 (`perf/`), and then finds no such module loaded and no kernel
+launched;
+an `ast` scan of the package (the loader, probes, CLI, unit copies, trees,
+tree sweep and event loop among it), chip_smoke.py and `perf/*.py` finds
 no such import.
 """
 
@@ -345,8 +348,22 @@ nd, idx, vals = gather_probe.inputs("cpu", n=64, b=256)
 assert float(gather_probe.scatter(idx, vals, 64).sum()) == 256.0
 tab, ix = sublane_gather.inputs("cpu", r=8, s=2)
 assert sublane_gather.lookup(tab, ix, iters=3, select=True).shape == (2, 128)
-# the CLI: bench1 through the ski loader, bench2's set-up with its probes
+# the reduced config 3 (an octree from bench3.ski through the loader, its
+# RF cut to 4 bins in lane groups, one self-absorption iteration), and its
+# merged iterations
 import os, tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    path = chip_smoke.edited_ski("bench3", tmp, dict(
+        chip_smoke.B3_SMALL, **{'numWavelengths="25"': 'numWavelengths="4"'}))
+    for merged in (False, True):
+        sim = chip_smoke.config3("cpu", num_packets=1024, batch_size=1024,
+                                 max_events=2, path=path)
+        sim.max_iterations, sim.include_primary = 1, merged
+        rf, accs, info = sim.run_with_dust_emission(verbose=False)
+        assert rf.shape == (2122, 4) and float(rf.sum()) > 0
+        assert info["iterations"] == 1 and info["L_dust"] > 0
+        assert float(accs[0]["sed"][3].sum()) > 0
+# the CLI: bench1 through the ski loader, bench2's set-up with its probes
 from skirt9_tpu_torch.__main__ import main
 with tempfile.TemporaryDirectory() as tmp:
     assert main(["tests/golden/bench1.ski", "--device", "cpu", "-p", "256",
@@ -399,5 +416,9 @@ def test_port_sources_import_no_reference():
     bad = {os.path.relpath(f, REPO): _reference_imports(f) for f in files}
     assert {os.path.join("skirt9_tpu_torch", *m.split("/")) for m in (
         "__main__.py", "config/ski.py", "probes/probes.py", "utils/units.py",
-        "utils/filepaths.py", "utils/cosmology.py")} <= set(bad)
+        "utils/filepaths.py", "utils/cosmology.py", "simulation.py",
+        "bridge.py", "grids/octree.py", "grids/bintree.py",
+        "transport/mlsweep.py", "transport/lifecycle.py",
+        "sources/secondary.py", "tools/event_profile.py",
+        "tools/kernel5_split.py")} <= set(bad)
     assert not {f: n for f, n in bad.items() if n}
