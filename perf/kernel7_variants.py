@@ -7,9 +7,11 @@ event loop sorts them):
 - the package's kernel in its prefix mode, with an RF and without, at runs
   of 4, 8, 16 and 32 slabs per thread (`sweepxl.DEPOSIT_RUN` is the one it
   ships);
-- the same kernel with the deposits summed per warp by cell before the
-  atomic (`kernel7_variants.cu` `warp_sums_launch`), in both modes;
-- the prefix mode with an RF split (`split_launch`): pass A as shipped,
+- kernel 7 in its f32 design, one float atomic per contribution
+  (`kernel7_variants.cu` `atomics_launch`; the package adds f64), and
+  with the deposits of every warp summed per warp by cell before the
+  atomic (`warp_sums_launch`), in both modes;
+- the prefix mode with an RF split (`split_launch`): pass A in the f32 design,
   without its atomics, without its record reads, the hit search and lane
   set-up alone, and pass B alone;
 - the first design of kernel 7 (`old_launch`, mode 0) beside the
@@ -44,8 +46,12 @@ from skirt9_tpu_torch.kernels import build as kb  # noqa: E402
 SOURCE = os.path.join(HERE, "kernel7_variants.cu")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = {
-    # the arguments of sweepxl_deposit_launch
-    "warp_sums_launch": kb._SIGNATURES["sweepxl_deposit_launch"],
+    # pos, dir, axis, smin, smax, dsub, scale or tb, lum, tau_int, active,
+    # rf, hitrun, s_int, icell, found, B, nx, ny, nz, nmax, n_groups, run,
+    # mode, lox, loy, loz, hx, hy, hz, inv_sqrt, stream: the package's
+    # arguments without the bin map, the cell map and the row count
+    "atomics_launch": [_P] * 15 + [_I] * 8 + [_F] * 7 + [_P],
+    "warp_sums_launch": [_P] * 15 + [_I] * 8 + [_F] * 7 + [_P],
     # pos, dir, axis, smin, smax, dsub, scale, rf, B, nx, ny, nz, nmax,
     # n_groups, lox, loy, loz, hx, hy, hz, stream
     "old_launch": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
@@ -73,13 +79,16 @@ def measure(torch, tabs, args, cuda_ms, device_ms) -> dict:
     nx, ny, nz, nmax, *geo = sw._geometry_args(tabs)
     stream = kb.stream_of(pos)
     rf = torch.zeros(tabs.nd.shape[0], dtype=torch.float32, device=dev)
+    # the package's prefix mode sums into an f64 table
+    rf64 = torch.zeros(tabs.nd.shape[0], dtype=torch.float64, device=dev)
     s_int = torch.empty(B, dtype=torch.float32, device=dev)
     icell = torch.empty(B, dtype=torch.int64, device=dev)
     found = torch.empty(B, dtype=torch.bool, device=dev)
     hitrun = torch.empty((nmax, B), dtype=torch.int32, device=dev)
     act = active.to(torch.bool)
     ref = xl._deposit_prefix_cuda(tabs, pos, dirn, g, smin, smax, act, rec,
-                                  lum, tau_int, tb, inv_sqrt)
+                                  lum, tau_int, tb, inv_sqrt, 1, None, 1,
+                                  None)
     ref_rf = float(ref[0].abs().max())
     ref0 = xl._deposit_cuda(tabs, pos, dirn, g, smin, smax, rec, scale, 1)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -87,17 +96,23 @@ def measure(torch, tabs, args, cuda_ms, device_ms) -> dict:
 
     def call(entry, run, mode, with_rf):
         slab = tb if mode == 1 else scale
+        # the package's kernel also takes a bin map, a cell map (none here)
+        # and its row count (one), and in its prefix mode an f64 RF
+        ours = entry is package
+        out = rf64 if ours and mode == 1 else rf
         k6v._call(entry, *(ptr(t) for t in (
             pos, dirn, g, smin, smax, rec, slab,
             lum if mode == 1 and with_rf else None,
             tau_int if mode == 1 else None, act if mode == 1 else None,
-            rf if with_rf else None, hitrun if mode == 1 else None,
+            *((None, None) if ours else ()),
+            out if with_rf else None, hitrun if mode == 1 else None,
             *((s_int, icell, found) if mode == 1 else (None,) * 3))),
-            B, nx, ny, nz, nmax, 1, run, mode, *geo, float(inv_sqrt),
-            stream)
+            B, nx, ny, nz, nmax, 1, *((1,) if ours else ()), run, mode,
+            *geo, float(inv_sqrt), stream)
 
-    def timed(name, fn, with_rf, want=None):
+    def timed(name, fn, with_rf, want=None, f64=False):
         rf.zero_()
+        rf64.zero_()
         fn()
         torch.cuda.synchronize()
         if want is not None:
@@ -107,7 +122,7 @@ def measure(torch, tabs, args, cuda_ms, device_ms) -> dict:
                                          "interaction differs")
         if with_rf:
             w = ref[0][0] if want is not None else ref0[0]
-            err = float((rf - w).abs().max())
+            err = float(((rf64.float() if f64 else rf) - w).abs().max())
             if err > 1e-4 * float(w.abs().max()):
                 raise AssertionError(f"kernel 7 variant {name}: RF error "
                                      f"{err}")
@@ -118,11 +133,16 @@ def measure(torch, tabs, args, cuda_ms, device_ms) -> dict:
         for with_rf in (True, False):
             timed(f"run{run}_{'rf' if with_rf else 'no_rf'}",
                   lambda run=run, w=with_rf: call(package, run, 1, w),
-                  with_rf, want=ref)
+                  with_rf, want=ref, f64=True)
+    timed("atomics_rf", lambda: call(lib.atomics_launch,
+                                     xl.DEPOSIT_RUN, 1, True), True,
+          want=ref)
+    timed("tables", lambda: call(package, xl.DEPOSIT_RUN, 0, True), True)
+    timed("atomics_tables", lambda: call(lib.atomics_launch,
+                                         xl.DEPOSIT_RUN, 0, True), True)
     timed("warp_sums_rf", lambda: call(lib.warp_sums_launch,
                                        xl.DEPOSIT_RUN, 1, True), True,
           want=ref)
-    timed("tables", lambda: call(package, xl.DEPOSIT_RUN, 0, True), True)
     timed("warp_sums_tables", lambda: call(lib.warp_sums_launch,
                                            xl.DEPOSIT_RUN, 0, True), True)
     timed("old_tables", lambda: k6v._call(

@@ -4,7 +4,10 @@ Used by the tests to run one configuration through both packages, on
 uniform grids and on the trees the reference's loader builds. The
 reference's arrays are read with `np.asarray`, and its classes are matched
 by name, so this module never imports jax or the reference's jax modules.
-Anything the port does not run yet raises NotImplementedError.
+Anything the port does not run yet raises NotImplementedError. Where the
+reference runs the large-grid (XL) engine (its `_sweep_tabs`, also a tree
+on its voxel raster), the port's Simulation gets its own XL tables of the
+same kind, the cell map equal to the reference's.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from .instruments.distant import DistantInstrumentCfg
 from .media.system import MediumTables
 from .simulation import Simulation
 from .sources.base import PointSource, TabulatedSED
+from .transport import sweepxl as xl
 from .transport.lifecycle import TransportOptions
 
 
@@ -130,7 +134,7 @@ def simulation(ref_sim, device) -> Simulation:
         raise NotImplementedError(
             f"Simulation {', '.join(active)} not ported yet")
     rfb = ref_sim.rf_borders
-    return Simulation(
+    sim = Simulation(
         grid=grid(ref_sim.grid), medium=medium(ref_sim.medium),
         sources=[source(s) for s in ref_sim.sources],
         instruments=[instrument(c) for c in ref_sim.instruments],
@@ -141,3 +145,23 @@ def simulation(ref_sim, device) -> Simulation:
         source_bias=float(ref_sim.source_bias),
         refill_events=int(ref_sim.refill_events), device=device,
         **{k: getattr(ref_sim, k) for k in _EMISSION})
+    ref_tabs = getattr(ref_sim, "_sweep_tabs", None)
+    if type(ref_tabs).__name__ == "XLTables":
+        _xl_tables(sim, ref_tabs)
+    return sim
+
+
+def _xl_tables(sim: Simulation, ref_tabs) -> None:
+    """Put the port's XL tables in place where the reference runs its XL
+    engine: on a tree's voxel raster (its cell map, checked equal to the
+    reference's, also the grid's leaf map) or on the uniform grid."""
+    if ref_tabs.cellmap is None:
+        sim._sweep_tabs = xl.build_tables(sim.grid, sim.medium)
+        return
+    tabs = xl.build_tree_tables(sim.grid, sim.medium)
+    if not np.array_equal(tabs.cellmap.cpu().numpy(),
+                          np.asarray(ref_tabs.cellmap)):
+        raise ValueError("the port's tree raster differs from the "
+                         "reference's cell map")
+    sim._sweep_tabs = tabs
+    sim.grid = sim.grid._replace(leafmap=tabs.cellmap, fine_n=tabs.n)

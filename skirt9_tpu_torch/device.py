@@ -1,7 +1,8 @@
 """Device and dtype policy of the port.
 
 All state is float32, like the reference (its f32 accumulators are kept in
-range by the `stats_scale` and `rf_scale` reparameterisations). The port runs
+range by the `stats_scale` and `rf_scale` reparameterisations); the deposit
+kernels of trees and large grids sum their RF in float64 and round it once. The port runs
 no matrix product or convolution on its hot path, so TF32 never enters a
 result.
 

@@ -73,9 +73,10 @@ _SIGNATURES = {
     # hz, 1/hx, 1/hy, 1/hz, stream
     "sweepxl_dtau_launch": [_P] * 12 + [_I] * 9 + [_F] * 9 + [_P],
     # pos, dir, axis, smin, smax, dsub, scale or tb, lum, tau_int, active,
-    # rf, hitrun, s_int, icell, found, B, nx, ny, nz, nmax, n_groups, run,
-    # mode, lox, loy, loz, hx, hy, hz, inv_sqrt, stream
-    "sweepxl_deposit_launch": [_P] * 15 + [_I] * 8 + [_F] * 7 + [_P],
+    # bin_map, cellmap, rf, hitrun, s_int, icell, found, B, nx, ny, nz,
+    # nmax, n_groups, rows, run, mode, lox, loy, loz, hx, hy, hz, inv_sqrt,
+    # stream
+    "sweepxl_deposit_launch": [_P] * 17 + [_I] * 9 + [_F] * 7 + [_P],
     # pos, dir, active, sig, lane axis, smin, smax (or null), nd, leafmap,
     # step_tlev, step_gs, out, cells, steps, prefix, total, runsum, axis,
     # smin, smax, B, C, nx, ny, nz, n_steps, hint, mode, run, lox, loy, loz,

@@ -21,9 +21,7 @@ the reference.
 A multi-bin radiation field (RF) is filled from bin-pure lane groups: a
 source with an SED launches stratified over the RF bins it covers
 (`_strata_for`), a monochromatic one deposits into its own bin
-(`_mono_rf_bin`), as in the reference. This runs on the resident sweep of
-uniform grids and on trees (the multi-level sweep); large (XL) grids take
-a one-bin RF only.
+(`_mono_rf_bin`), as in the reference, on every engine.
 
 The device defaults to CUDA (`Simulation(..., device="cpu")` asks for the
 CPU): all tables move there once, in `__post_init__`, and nothing falls
@@ -128,12 +126,6 @@ class Simulation:
             torch.tensor(np.asarray(self.rf_borders, np.float32), device=dev)
             if self.rf_borders is not None else None)
         self._sweep_tabs = self._engine_tables()
-        if (self.rf_borders is not None and self.options.store_rf
-                and len(self.rf_borders) > 2
-                and isinstance(self._sweep_tabs, xl.XLTables)):
-            raise NotImplementedError(
-                "multi-bin radiation field on large (XL) grids not ported "
-                "yet (the resident sweep of uniform grids and trees only)")
         # RF accumulator unit [W m]: keeps f32 in range for luminous sources
         self.rf_scale = max(L_tot / max(self.num_packets, 1)
                             * self.grid.diagonal(), 1e-300)
@@ -145,18 +137,29 @@ class Simulation:
     # -------------------------------------------------------------- internals
 
     def _engine_tables(self):
-        """The reference's engine choice (`skirt9_tpu/simulation.py:194-215`):
-        the resident sweep while it supports the grid, then the multi-level
-        sweep for trees, else the large-grid (XL) contracts. A tree on the
-        multi-level sweep gets its fine leaf map attached, so that launch-time
+        """The reference's engine choice (`skirt9_tpu/simulation.py:194-217`)
+        without its backend tests: the resident sweep while it supports the
+        grid, then the multi-level sweep for trees, then trees on their
+        voxel raster through the large-grid (XL) contracts, then uniform XL
+        grids. A tree gets its fine leaf map (on the voxel raster: the
+        tables' cell map, the same array) attached, so that launch-time
         `locate` is one gather (`:199-202`)."""
         if sw.supports_sweep(self.grid, self.medium):
             return sw.build_tables(self.grid, self.medium)
+        tabs = None
         if ml.supports(self.grid, self.medium, self.options):
             tabs = ml.build_tables(self.grid, self.medium)
+            leafmap = tabs.leafmap
+        elif xl.supports_tree_xl(self.grid, self.medium):
+            tabs = xl.build_tree_tables(self.grid, self.medium)
+            leafmap = tabs.cellmap
+            _log().info(
+                f"transport: {type(self.grid).__name__} ({self.grid.ncells} "
+                "leaves) on its exact "
+                f"{'x'.join(map(str, tabs.n))} voxel raster (XL sweep)")
+        if tabs is not None:
             if self.grid.leafmap is None:
-                self.grid = self.grid._replace(leafmap=tabs.leafmap,
-                                               fine_n=tabs.n)
+                self.grid = self.grid._replace(leafmap=leafmap, fine_n=tabs.n)
             return tabs
         if isinstance(self.grid, (OctreeGrid, BinTreeGrid)):
             raise NotImplementedError(
@@ -164,8 +167,9 @@ class Simulation:
                 f"({self.grid.ncells} leaves, {self.medium.ncomp} components):"
                 " the multi-level sweep takes power-of-two trees with fine "
                 f"rasters <= {ml.NF_MAX} per axis, <= 4 components and none "
-                "of kinematics, Lya, Compton, X-ray or explicit absorption; "
-                "the tree XL raster and the scan march are not ported yet")
+                "of kinematics, Lya, Compton, X-ray or explicit absorption, "
+                "the XL sweep their voxel rasters up to "
+                f"{xl.TREE_NF_MAX} per axis; the scan march is not ported yet")
         if xl.supports_xl(self.grid, self.medium):
             _log().info("transport: large-grid (XL) sweep for "
                         f"{'x'.join(map(str, self.grid.shape))}")
@@ -293,7 +297,22 @@ class Simulation:
     def _run_segment(self, source, stabs, opts, n_packets, seed_key, rf, accs,
                      hist_base=0):
         """Loop a source's history range through the life cycle, batch by
-        batch; lanes past the range carry no weight."""
+        batch; lanes past the range carry no weight. On the XL contracts
+        the segment's deposits sum in an f64 table that the RF takes once,
+        rounded, at its end: kernel 7 adds into it, and an event that
+        leaves a point source puts 10^3-10^4 deposits into each hot cell."""
+        if rf is not None and isinstance(self._sweep_tabs, xl.XLTables):
+            rf_seg, accs = self._run_batches(
+                source, stabs, opts, n_packets, seed_key,
+                torch.zeros(rf.shape, dtype=torch.float64, device=rf.device),
+                accs, hist_base)
+            rf += rf_seg.float()
+            return rf, accs
+        return self._run_batches(source, stabs, opts, n_packets, seed_key, rf,
+                                 accs, hist_base)
+
+    def _run_batches(self, source, stabs, opts, n_packets, seed_key, rf, accs,
+                     hist_base):
         B = self.batch_size
         lanes = torch.arange(B, dtype=torch.int64, device=self.device)
         strata = self._strata_for(source, opts)

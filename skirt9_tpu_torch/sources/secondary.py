@@ -104,24 +104,29 @@ class DustSecondarySource:
         return {"lam": lam, "lum": lum, "pos": pos, "dir": dirn}
 
 
-def _cell_launch_tables(L_cell, spatial_bias: float, device) -> tuple:
-    """Host f64 launch cdf over cells with the composite luminosity/uniform
-    bias, and the per-cell weight that corrects it; returns (total, dict)."""
-    L_np = np.asarray(L_cell, np.float64)
-    total = float(L_np.sum())
-    nonzero = L_np > 0
-    n_nonzero = max(int(nonzero.sum()), 1)
-    wl = np.where(nonzero, L_np / max(total, 1e-300), 0.0)
+def _cell_launch_tables(L: torch.Tensor, spatial_bias: float) -> tuple:
+    """The launch cdf over cells with the composite luminosity/uniform bias,
+    and the per-cell weight that corrects it, in f64 tensor ops on L's
+    device (the reference builds them in numpy on the host,
+    `skirt9_tpu/sources/secondary.py:194-215`; a 256^3 grid's 16.8 M cells
+    took about a second so); only the total crosses to the host. Returns
+    (total, dict of f32 tables)."""
+    L = L.to(torch.float64)
+    total = float(L.sum())
+    nonzero = L > 0
+    n_nonzero = torch.clamp_min(nonzero.sum(), 1).to(torch.float64)
+    wl = torch.where(nonzero, L / max(total, 1e-300), torch.zeros_like(L))
     xi = spatial_bias
-    w = (1 - xi) * wl + xi * nonzero / n_nonzero
+    w = (1 - xi) * wl + xi * nonzero.to(torch.float64) / n_nonzero
     wsum = w.sum()
-    if wsum <= 0:
-        w = np.full_like(w, 1.0 / len(w))
-        wsum = 1.0
-    w = w / wsum
-    weight = np.where(w > 0, wl / np.maximum(w, 1e-300), 0.0)
-    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    return total, {"lum_total": f32(total), "cell_cdf": f32(np.cumsum(w)),
+    w = torch.where(wsum > 0, w / torch.where(wsum > 0, wsum, 1.0),
+                    torch.full_like(w, 1.0 / len(w)))
+    weight = torch.where(w > 0, wl / torch.clamp_min(w, 1e-300),
+                         torch.zeros_like(w))
+    f32 = lambda t: t.to(torch.float32)
+    return total, {"lum_total": torch.tensor(total, dtype=torch.float32,
+                                             device=L.device),
+                   "cell_cdf": f32(torch.cumsum(w, 0)),
                    "cell_weight": f32(weight)}
 
 
@@ -138,7 +143,9 @@ def prepare(grid, L_cell, eps, ems_borders, spatial_bias: float = 0.5,
     and emission spectra eps (ncells, L) on ems_borders (L+1,), with the
     spectrum cdf built on the host in float64."""
     ems_borders = np.asarray(ems_borders, np.float64)
-    total, tables = _cell_launch_tables(L_cell, spatial_bias, device)
+    total, tables = _cell_launch_tables(
+        torch.tensor(np.asarray(L_cell, np.float64), device=device),
+        spatial_bias)
     wspec = np.maximum(np.asarray(eps, np.float64), 0.0) \
         * np.diff(ems_borders)[None, :]
     spec_cdf = np.cumsum(wspec, axis=1) / np.maximum(
@@ -153,16 +160,19 @@ def prepare(grid, L_cell, eps, ems_borders, spatial_bias: float = 0.5,
 def prepare_device(grid, L_cell: torch.Tensor, eps: torch.Tensor, ems_borders,
                    spatial_bias: float = 0.5,
                    bounds_dev=None) -> DustSecondarySource:
-    """`prepare` with the emission spectra kept on their device: only the
-    (ncells,) luminosities come to the host, for the exact f64 launch cdf.
-    bounds_dev: cached (cell_lo, cell_hi) tensors on that device."""
+    """`prepare` with the luminosities and the emission spectra kept on
+    their device (the reference brings the luminosities to the host for
+    the launch cdf). bounds_dev: cached (cell_lo, cell_hi) tensors on that
+    device."""
     dev = eps.device
     ems_borders = np.asarray(ems_borders, np.float64)
-    total, tables = _cell_launch_tables(
-        L_cell.detach().cpu().numpy().astype(np.float64), spatial_bias, dev)
+    total, tables = _cell_launch_tables(L_cell.detach(), spatial_bias)
     emsb = torch.tensor(ems_borders.astype(np.float32), device=dev)
     wspec = torch.clamp_min(eps, 0.0) * (emsb[1:] - emsb[:-1])[None, :]
-    spec_cdf = torch.cumsum(wspec, dim=1) / torch.clamp_min(
+    # the running sum along each cell's L bins, taken over the leading dim
+    # of the transpose: the CUDA scan along a short innermost dim took ~0.1
+    # s at 16.8 M cells, the outer-dim one runs each column in order
+    spec_cdf = torch.cumsum(wspec.T.contiguous(), dim=0).T / torch.clamp_min(
         torch.sum(wspec, dim=1, keepdim=True), 1e-30)
     if bounds_dev is None:
         lo, hi = cell_bounds(grid)

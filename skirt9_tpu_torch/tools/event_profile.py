@@ -21,7 +21,11 @@ kernel), `config1x256` (bench_config1x256: the XL loop) and `config1h`
 generations; a checkout from before the loader has no such
 configuration) and `config3` (bench3.ski through the ski loader: the tree
 loop with a 25-bin RF in 32 lane groups and dust self-absorption
-iterations; a checkout from before config 3 has none):
+iterations; a checkout from before config 3 has none), `config2x256`
+(bench2.ski at 256^3: the XL loop with the 25-bin RF in 32 lane groups)
+and `config3ismxl9` (bench_config3ismxl's recipe at max_level 9: the XL
+loop on a tree's 512^3 voxel raster); a checkout from before them has
+neither:
 
     python3 skirt9_tpu_torch/tools/event_profile.py --root DIR [--root DIR2 ...]
         [--config NAME ...]
@@ -140,6 +144,10 @@ CONFIGS = {
     "config1h": (lambda cs, dev, **kw: cs.config1h(dev, **kw), "B_FULL",
                  False),
     "config3": (lambda cs, dev, **kw: cs.config3(dev, **kw), "B_B3", True),
+    "config2x256": (lambda cs, dev, **kw: cs.config2x256(dev, **kw),
+                    "B_FULL", True),
+    "config3ismxl9": (lambda cs, dev, **kw: cs.config3ism(
+        dev, "config3ismxl9", **kw)[0], "B_ML", False),
 }
 
 

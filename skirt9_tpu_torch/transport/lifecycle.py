@@ -17,15 +17,18 @@ luminosity and the interaction depth, and folds the RF rows into their
 bins), the peel-off tracer one `sweep_tau_total` launch. No event loop
 copies a tensor from the host.
 
-With `sweepxl.XLTables` (large uniform grids) the event runs the XL
-contracts instead: lanes sorted by (axis, major sign, entry slab), pass 1
-is one `sweepxl.sweep_dtau_prefix` launch (the optical depth per sub-step,
-its slab prefix and the lane range), pass 2 one
-`sweepxl.sweep_deposit_prefix` launch, with or without an RF (the deposits
-from that record and prefix where an RF is stored, and the interaction
-point); the tracer is one `sweepxl.sweep_tau_total` launch. Everything
+With `sweepxl.XLTables` (large uniform grids, and trees on their voxel
+raster) the event runs the XL contracts instead: lanes sorted by (lane
+group, axis, major sign, entry slab), pass 1 is one
+`sweepxl.sweep_dtau_prefix` launch (the optical depth per sub-step, its
+slab prefix and the lane range), pass 2 one `sweepxl.sweep_deposit_prefix`
+launch, with or without an RF (the deposits from that record and prefix,
+added straight into the RF where one is stored: the segment's f64 table,
+`Simulation._run_segment`, and the interaction point); the tracer is one `sweepxl.sweep_tau_total` launch. Everything
 between pass 1 and pass 2 stays in sorted lane order; only per-lane results
-go back to launch order.
+go back to launch order. On a tree raster the interaction voxel maps to
+its leaf through the tables' `cellmap` (`lifecycle.py:927-933` of the
+reference), so that albedo, scattering and detection index leaves.
 
 With `mlsweep.MLTables` (octrees and bintrees) the event follows the
 reference's tree branch: pass 1 is one `mlsweep.sweep_dtau_prefix` launch
@@ -37,11 +40,10 @@ lane range), in launch order (no lane sort). Pass 2 is
 `mlsweep.resolve_interaction`, whose cell comes from the fine leaf map; the
 tracer is one `mlsweep.sweep_tau_total` launch.
 
-A multi-bin radiation field runs on the resident sweep and on trees: the
-batch comes in bin-pure lane groups (a stratified launch, `rf_strata`
-groups with their `rf_bin_map`, or one group for a monochromatic source's
-`rf_mono_bin`), and pass 2 deposits each group into the row of its bin.
-Large (XL) grids take a one-bin RF only.
+A multi-bin radiation field runs on every engine: the batch comes in
+bin-pure lane groups (a stratified launch, `rf_strata` groups with their
+`rf_bin_map`, or one group for a monochromatic source's `rf_mono_bin`),
+and pass 2 deposits each group into the row of its bin.
 
 The event loop exits early once no lane is alive; that test is the one
 host sync per event on the resident sweep. There is no scan-march
@@ -179,22 +181,20 @@ def survives_cutoff(opts: TransportOptions, lum_new, nscat_new, lum0):
 
 def _rf_groups(opts: TransportOptions, rf, B: int, xl_grid: bool) -> int:
     """Bin-pure lane groups of the pass-2 deposits (the reference's choice,
-    `skirt9_tpu/transport/lifecycle.py:515-524,573`): one for a one-bin RF
-    or a monochromatic source in a multi-bin one (`rf_mono_bin`), else the
-    `rf_strata` groups of a stratified launch, on the resident sweep and on
-    trees. A layout the reference sends to its scan march raises, as do
-    multi-bin RFs on large (XL) grids."""
+    `skirt9_tpu/transport/lifecycle.py:515-524,573-578`): one for a one-bin
+    RF or a monochromatic source in a multi-bin one (`rf_mono_bin`), else
+    the `rf_strata` groups of a stratified launch. A layout the reference
+    sends to its scan march raises: groups of 128-lane blocks, and on large
+    (XL) grids a batch of whole 8-block rows."""
     if rf is None or rf.shape[1] == 1:
         return 1
-    if xl_grid:
-        raise NotImplementedError(
-            "multi-bin radiation field on large (XL) grids not ported yet "
-            "(the resident sweep of uniform grids and trees only)")
     if opts.rf_strata > 0:
-        if B % (128 * opts.rf_strata):
+        if B % (128 * opts.rf_strata) or (xl_grid and (B // 128) % 8):
             raise NotImplementedError(
                 f"batch {B} not divisible into {opts.rf_strata} groups of "
-                "128-lane blocks (the reference's scan march; not ported)")
+                "128-lane blocks" + (" in rows of 8 blocks" if xl_grid
+                                     else "")
+                + " (the reference's scan march; not ported)")
         return opts.rf_strata
     if opts.rf_mono_bin < 0:
         raise NotImplementedError(
@@ -326,6 +326,11 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     if use_rf:
         rf_in_range = (pkt.lam >= rf_borders[0]) & (pkt.lam < rf_borders[-1])
         bin_map = _bin_map(opts, rf, n_groups, rf.device)
+        if is_xl and bin_map is None and rf.shape[1] > 1:
+            # kernel 7 adds into the RF itself: the one group of a
+            # monochromatic source maps to the source's bin
+            bin_map = torch.tensor([opts.rf_mono_bin], dtype=torch.int32,
+                                   device=rf.device)
     do_peel = bool(inst_cfgs) and opts.peel_off
 
     # ---- emission peel-off
@@ -364,7 +369,8 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                 # the record, its prefix and the lane range come out of the
                 # kernel, in sorted lane order
                 perm = xl.lane_order(sweep_tabs, pkt.pos, pkt.dir,
-                                     sw.dominant_axis(sweep_tabs, pkt.dir))
+                                     sw.dominant_axis(sweep_tabs, pkt.dir),
+                                     n_groups)
                 p_pos, p_dir, p_act = pkt.pos[perm], pkt.dir[perm], active[perm]
                 dtau_sub, tb_slab, tau_path, lane = xl.sweep_dtau_prefix(
                     sweep_tabs, p_pos, p_dir, sigma_lanes[:, perm], p_act)
@@ -389,14 +395,20 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                        else torch.zeros_like(active))
             lum_half = (pkt.lum * rf_mask) * inv_sqrt
             if is_xl:
-                # the scale per slab is formed inside from the prefix
-                rf_delta, *res = xl.sweep_deposit_prefix(
+                # the scale per slab is formed inside from the prefix; the
+                # lane groups' deposits land in their bins of the RF itself
+                _, *res = xl.sweep_deposit_prefix(
                     sweep_tabs, p_pos, p_dir, active_int[perm], dtau_sub,
                     lum_half[perm] if use_rf else None, tau_int[perm],
-                    tb_slab, inv_sqrt, lane)
-                if use_rf:
-                    rf[:, 0] += rf_delta[0]
+                    tb_slab, inv_sqrt, lane, n_groups=n_groups,
+                    bin_map=bin_map, nbins=rf.shape[1] if use_rf else 0,
+                    rf=rf if use_rf else None)
                 s_int, icell, found = (_unsort(x, perm) for x in res)
+                if sweep_tabs.cellmap is not None:
+                    # a tree raster: the interaction voxel's leaf
+                    icell = torch.where(
+                        found, sweep_tabs.cellmap[icell.clamp_min(0)].to(
+                            torch.int64), torch.full_like(icell, -1))
             elif is_ml:
                 if use_rf:
                     # lane groups fold into their bins inside the kernel

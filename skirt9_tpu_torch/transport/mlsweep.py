@@ -210,12 +210,12 @@ def supports(grid, med, options=None) -> bool:
     return (1 << int(lev.max())) <= NF_MAX
 
 
-def build_tables(grid, med) -> MLTables:
-    """The leaf map (vectorised per level), the raw level stack and the
-    plan, on the medium's device; the density is the medium's table."""
-    meta = _analyze(grid)
+def owner_map(meta) -> np.ndarray:
+    """The (nfx, nfy, nfz) int32 fine voxel -> leaf id map of an `_analyze`
+    result, vectorised per level (every leaf writes its aligned block of
+    voxels at once); -1 where no leaf lies."""
     nf, Lmax = meta["nf"], meta["Lmax"]
-    leafmap = np.full(nf, -1, np.int32)
+    owner = np.full(nf, -1, np.int32)
     for sig, (ids, cl) in meta["coords"].items():
         blocks = []
         for a in range(3):
@@ -224,7 +224,16 @@ def build_tables(grid, med) -> MLTables:
             shape = [len(ids), 1, 1, 1]
             shape[a + 1] = 1 << s
             blocks.append(idx.reshape(shape))
-        leafmap[blocks[0], blocks[1], blocks[2]] = ids[:, None, None, None]
+        owner[blocks[0], blocks[1], blocks[2]] = ids[:, None, None, None]
+    return owner
+
+
+def build_tables(grid, med) -> MLTables:
+    """The leaf map (vectorised per level), the raw level stack and the
+    plan, on the medium's device; the density is the medium's table."""
+    meta = _analyze(grid)
+    nf = meta["nf"]
+    leafmap = owner_map(meta)
     nmax = int(max(nf))
     tlev, gs = _make_plan(meta["levels"], nmax)
     dev = med.nd.device
@@ -579,15 +588,8 @@ def _deposit_args(tabs, pos, dirn, active, dtau_sub, cell_sub, lum_pre,
     if n_groups < 1 or (n_groups > 1 and B % (32 * n_groups)):
         raise ValueError(f"batch {B} not divisible into {n_groups} groups of "
                          "32-lane tiles")
-    rows = n_groups
-    if bin_map is not None:
-        if (bin_map.shape != (n_groups,) or bin_map.dtype != torch.int32
-                or bin_map.device != pos.device or nbins < 1):
-            raise ValueError(f"bin_map {tuple(bin_map.shape)} "
-                             f"{bin_map.dtype} must be ({n_groups},) int32 "
-                             f"on {pos.device}, with nbins >= 1")
-        rows = nbins
-    return (*sw._lanes(tabs, pos, dirn, active, lane), rows)
+    return (*sw._lanes(tabs, pos, dirn, active, lane),
+            sw.bin_rows(pos, n_groups, bin_map, nbins))
 
 
 def _interaction_cells(tabs, pos, dirn, s_int, found):

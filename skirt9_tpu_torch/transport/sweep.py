@@ -374,21 +374,28 @@ def _deposit_prefix_plain(tabs, pos, dirn, group, smin, smax, sig, lum_half,
     rel = tau_int[None, :] - tb_slab
     rf, s_int, icell, found = _deposit_plain(tabs, pos, dirn, group, smin,
                                              smax, sig, scale, rel, n_groups)
+    return _fold_bins(rf, bin_map, rows), s_int, icell, found
+
+
+def _fold_bins(rf, bin_map, rows: int):
+    """(n_groups, ncells) group rows folded into (rows, ncells) bins: row g
+    adds into bin_map[g] (an entry outside [0, rows): dropped); rf itself
+    without a bin map."""
     if bin_map is None:
-        return rf, s_int, icell, found
+        return rf
     keep = ((bin_map >= 0) & (bin_map < rows)).to(rf.dtype)[:, None]
     binned = torch.zeros((rows, rf.shape[1]), dtype=rf.dtype, device=rf.device)
     binned.index_add_(0, bin_map.clamp(0, rows - 1).to(torch.int64),
                       rf * keep)
-    return binned, s_int, icell, found
+    return binned
 
 
 def _deposit_sum(cells, contribs, ncells: int, n_groups: int):
-    """Sum (..., B) per-segment contributions into (n_groups, ncells) RF rows;
-    lane b deposits into row b // (B / n_groups)."""
+    """Sum (..., B) per-segment contributions into (n_groups, ncells) RF rows
+    of their dtype; lane b deposits into row b // (B / n_groups)."""
     B = cells.shape[-1]
     grp = torch.arange(B, device=cells.device) // (B // n_groups)
-    rf = torch.zeros(n_groups * ncells, dtype=torch.float32,
+    rf = torch.zeros(n_groups * ncells, dtype=contribs.dtype,
                      device=cells.device)
     rf.index_add_(0, (grp * ncells + cells).reshape(-1), contribs.reshape(-1))
     return rf.reshape(n_groups, ncells)
@@ -587,16 +594,23 @@ def _prefix_args(tabs, pos, dirn, sigma, active, lum_half, tau_int, tb_slab,
     _check(tabs, pos, dirn, sig, tb_slab)
     _check_inputs(pos, dirn, [(lum_half, (B,), "lum_half"),
                               (tau_int, (B,), "tau_int")])
-    rows = n_groups
-    if bin_map is not None:
-        if (bin_map.shape != (n_groups,) or bin_map.dtype != torch.int32
-                or bin_map.device != pos.device or nbins < 1):
-            raise ValueError(f"bin_map {tuple(bin_map.shape)} "
-                             f"{bin_map.dtype} must be ({n_groups},) int32 "
-                             f"on {pos.device}, with nbins >= 1")
-        rows = nbins
     return (tabs, pos, dirn, *lane, sig, lum_half, tau_int, tb_slab,
-            float(inv_sqrt), n_groups, bin_map, rows)
+            float(inv_sqrt), n_groups, bin_map,
+            bin_rows(pos, n_groups, bin_map, nbins))
+
+
+def bin_rows(pos, n_groups: int, bin_map, nbins: int) -> int:
+    """The RF rows pass 2 deposits into: n_groups, or nbins where a
+    (n_groups,) int32 bin map on the rays' device folds the groups into
+    bins; raises on any other bin map."""
+    if bin_map is None:
+        return n_groups
+    if (bin_map.shape != (n_groups,) or bin_map.dtype != torch.int32
+            or bin_map.device != pos.device or nbins < 1):
+        raise ValueError(f"bin_map {tuple(bin_map.shape)} {bin_map.dtype} "
+                         f"must be ({n_groups},) int32 on {pos.device}, with "
+                         "nbins >= 1")
+    return nbins
 
 
 def sweep_deposit_prefix(tabs: SweepTables, pos, dirn, sigma, active,

@@ -33,8 +33,18 @@ plain PyTorch versions. The tables
 are the flat (ncells, C) f32 density of `sweep.SweepTables`, shared and not
 copied: the reference's streamed (C, nmax, 3, U, V) planes, their bf16 hi/lo
 or int8 splits and the one-hot matmul lookups are MXU and VMEM workarounds
-and are not carried over. Tree fine rasters (`build_tree_tables`) come with
-the tree slice and raise.
+and are not carried over.
+
+The prefix mode takes bin-pure lane groups (a multi-bin RF): group g's
+deposits go to row bin_map[g], and with the caller's (ncells, nbins)
+accumulator they are added straight into it, in f64 (the event loop keeps
+one over each segment). Trees whose fine raster the
+multi-level sweep does not take (over 256 per axis, up to 512) run on their
+exact voxel raster (`build_tree_tables`, `parallel/domain.py`): the tables
+are the voxel density, and `cellmap` (voxel -> leaf) sends the deposits to
+their leaves inside the kernel, as the reference's `_rf_finalize` folds
+its voxel RF (`skirt9_tpu/simulation.py:257-274`); the event loop maps the
+interaction cell through it.
 """
 
 from __future__ import annotations
@@ -44,9 +54,19 @@ from typing import NamedTuple
 
 import torch
 
+from ..grids.bintree import BinTreeGrid
 from ..grids.cartesian import UniformCartesianGrid
+from ..grids.octree import OctreeGrid
 from ..kernels import build as kb
+from ..parallel import domain as dom
+from . import mlsweep as ml
 from . import sweep as sw
+
+# the fine raster per axis up to which trees run on their voxel raster
+TREE_NF_MAX = 512
+# the reference's ceiling on a tree raster's table bytes (its bf16 hi + lo
+# planes, C * nmax * 3 * nmax^2 * 4 bytes, `sweepxl.py:152-154`)
+TREE_TABLE_BYTES = 2_500_000_000
 
 
 class XLTables(NamedTuple):
@@ -59,11 +79,19 @@ class XLTables(NamedTuple):
     nmax: int          # max(nx, ny, nz): slabs per lane in the records
     axes: tuple        # sweep.grid_axes: (lo, hi, 1/h) as (3,) f32 tensors
     geom: dict         # sweep.axis_tables: the per-axis tables
-    cellmap: torch.Tensor | None = None   # tree-raster voxel -> cell (unused)
+    # tree rasters: (nvox,) int32 voxel -> leaf id, and the leaf count
+    cellmap: torch.Tensor | None = None
+    nleaves: int = 0
 
     @property
     def ncomp(self) -> int:
         return self.nd.shape[1]
+
+    @property
+    def rf_cells(self) -> int:
+        """Cells of the RF: the tree's leaves on a tree raster, else the
+        grid's cells."""
+        return self.nd.shape[0] if self.cellmap is None else self.nleaves
 
 
 def supports_xl(grid, med) -> bool:
@@ -78,13 +106,32 @@ def supports_xl(grid, med) -> bool:
 
 
 def supports_tree_xl(grid, med) -> bool:
-    raise NotImplementedError("tree grids on the XL engine (fine-voxel "
-                              "rasters) are not ported yet")
+    """The reference's rule (`sweepxl.py:128-166`) without its backend
+    test: a power-of-two octree or bintree that the multi-level sweep does
+    not take, with a fine raster <= 512 per axis, <= 4 components, table
+    bytes under the reference's ceiling, and not every leaf a fine voxel (a
+    uniform grid in disguise)."""
+    if not isinstance(grid, (OctreeGrid, BinTreeGrid)) or med.ncomp > 4:
+        return False
+    if ml.supports(grid, med):
+        return False
+    try:
+        nf = ml._analyze(grid)["nf"]
+    except ValueError:
+        return False
+    m = max(nf)
+    if m > TREE_NF_MAX or med.ncomp * m * 3 * m * m * 4 > TREE_TABLE_BYTES:
+        return False
+    return nf[0] * nf[1] * nf[2] != grid.ncells
 
 
 def build_tree_tables(grid, med) -> XLTables:
-    raise NotImplementedError("tree grids on the XL engine (fine-voxel "
-                              "rasters) are not ported yet")
+    """XL tables on a tree's fine voxel raster (exact: every leaf is an
+    aligned block of voxels) with the voxel -> leaf map; the medium's
+    device."""
+    vox_grid, med_vox, cellmap = dom.voxelize_for_dd(grid, med, 1)
+    return build_tables(vox_grid, med_vox)._replace(cellmap=cellmap,
+                                                    nleaves=grid.ncells)
 
 
 def build_tables(grid, med) -> XLTables:
@@ -93,16 +140,23 @@ def build_tables(grid, med) -> XLTables:
                     axes=st.axes, geom=st.geom)
 
 
-def lane_order(tabs: XLTables, pos, dirn, group):
-    """Stable permutation sorting lanes by (dominant axis, sign of the major
-    direction, entry slab), the key of `skirt9_tpu/transport/lifecycle.py:
-    817-836`. Sorted lanes put neighbouring threads of the kernels on the
-    same slab layout and on nearby cells."""
+def lane_order(tabs: XLTables, pos, dirn, group, n_groups: int = 1):
+    """Stable permutation sorting lanes by (lane group, dominant axis, sign
+    of the major direction, entry slab), the key of `skirt9_tpu/transport/
+    lifecycle.py:817-836`. Sorted lanes put neighbouring threads of the
+    kernels on the same slab layout and on nearby cells; with n_groups
+    bin-pure groups of B / n_groups consecutive lanes each group stays
+    where it was, so that a sorted lane's group is still its position //
+    (B / n_groups)."""
     lo, h = tabs.geom["lo"][group], tabs.geom["h"][group]
     pa = pos.gather(1, group[:, None])[:, 0]
     da = dirn.gather(1, group[:, None])[:, 0]
     t_ent = torch.clamp(((pa - lo) / h).to(torch.int32), 0, tabs.nmax - 1)
     key = (group * 2 + (da > 0).to(group.dtype)) * tabs.nmax + t_ent
+    if n_groups > 1:
+        B = pos.shape[0]
+        lanes = torch.arange(B, dtype=key.dtype, device=key.device)
+        key = (lanes // (B // n_groups)) * (6 * tabs.nmax) + key
     return torch.argsort(key, stable=True)
 
 
@@ -145,7 +199,12 @@ def _prefix_plain(tabs, pos, dirn, sig, active, axis_hint):
 
 
 def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
-                   n_groups):
+                   n_groups, leaves: bool = False):
+    """(n_groups, ncells) f32 deposits per voxel, or with leaves (n_groups,
+    rf_cells) per leaf through the cell map: the f32 contributions summed
+    in f64 and rounded once, so that the float atomics of kernel 7 are
+    held to exact sums (an f32 sum of the ~10^3 terms of a hot cell strays
+    ~1e-6 in any order)."""
     steps, _ = sw._slab_cells(tabs, pos, dirn, group, smin, smax)
     tau_loc = torch.zeros_like(scale)
     contribs, cells = [], []
@@ -155,9 +214,13 @@ def _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
                         * sw._segment_factor(dtau))
         cells.append(cell)
         tau_loc = tau_loc + dtau
-    return sw._deposit_sum(torch.stack(cells, dim=1),
-                          torch.stack(contribs, dim=1), tabs.nd.shape[0],
-                          n_groups)
+    cells = torch.stack(cells, dim=1)
+    contribs = torch.stack(contribs, dim=1).double()
+    if leaves:
+        return sw._deposit_sum(tabs.cellmap[cells].to(torch.int64), contribs,
+                               tabs.rf_cells, n_groups).float()
+    return sw._deposit_sum(cells, contribs, tabs.nd.shape[0],
+                           n_groups).float()
 
 
 def _resolve_plain(tabs, pos, dirn, group, smin, smax, active, dtau_sub,
@@ -204,16 +267,25 @@ def _resolve_plain(tabs, pos, dirn, group, smin, smax, active, dtau_sub,
 
 
 def _deposit_prefix_plain(tabs, pos, dirn, group, smin, smax, active,
-                          dtau_sub, lum_half, tau_int, tb_slab, inv_sqrt):
-    """`_deposit_plain` on the scale the event loop forms from the prefix
-    (none where lum_half is None), then `_resolve_plain`."""
-    rf = None
+                          dtau_sub, lum_half, tau_int, tb_slab, inv_sqrt,
+                          n_groups, bin_map, rows, rf):
+    """The reference's composition: `_deposit_plain` per lane group on the
+    scale the event loop forms from the prefix (none where lum_half is
+    None; on a tree raster per leaf, as the reference folds its voxel RF
+    into leaves, `skirt9_tpu/simulation.py:257-274`), the groups folded
+    into their rows by the bin map; added into rf ((rf_cells, rows)) where
+    given. Then `_resolve_plain`."""
+    out = None
     if lum_half is not None:
         scale = (lum_half[None, :] * torch.exp(-tb_slab)) * inv_sqrt
-        rf = _deposit_plain(tabs, pos, dirn, group, smin, smax, dtau_sub,
-                            scale, 1)
-    return (rf, *_resolve_plain(tabs, pos, dirn, group, smin, smax, active,
-                                dtau_sub, tb_slab, tau_int))
+        out = sw._fold_bins(_deposit_plain(
+            tabs, pos, dirn, group, smin, smax, dtau_sub, scale, n_groups,
+            leaves=tabs.cellmap is not None), bin_map, rows)
+        if rf is not None:
+            rf += out.T
+            out = rf.T
+    return (out, *_resolve_plain(tabs, pos, dirn, group, smin, smax, active,
+                                 dtau_sub, tb_slab, tau_int))
 
 
 # ----------------------------------------------------------- CUDA launches
@@ -270,17 +342,28 @@ _DEPOSIT_MODES = ("sweepxl_deposit", "sweepxl_deposit_prefix")
 
 
 def _deposit_launch(tabs, pos, dirn, group, smin, smax, dtau_sub, slab, lum,
-                    tau_int, active, inv_sqrt, n_groups, mode):
+                    tau_int, active, inv_sqrt, n_groups, mode, bin_map=None,
+                    rows=1, rf=None):
     """One launch of pass 2: sweepxl_deposit -> rf (n_groups, ncells);
-    sweepxl_deposit_prefix -> (rf (1, ncells) or None without lum, s_int,
-    icell int64, found bool)."""
+    sweepxl_deposit_prefix -> (rf (rows, rf_cells), a view of the caller's
+    (rf_cells, rows) table, or of a fresh one, or None without lum; s_int,
+    icell int64, found bool). The prefix mode sums in f64: into the
+    caller's table where it is f64, else into a zeroed f64 table, rounded
+    once into the caller's f32 table or returned."""
     B = pos.shape[0]
     dev = pos.device
     prefix = mode == "sweepxl_deposit_prefix"
-    rf = None
-    if not prefix or lum is not None:
+    fresh = prefix and lum is not None and (rf is None
+                                            or rf.dtype != torch.float64)
+    acc = None
+    if not prefix:
         rf = torch.zeros((n_groups, tabs.nd.shape[0]), dtype=torch.float32,
                          device=dev)
+    elif lum is None:
+        rf = None
+    elif fresh:
+        acc, rf = rf, torch.zeros((tabs.rf_cells, rows), dtype=torch.float64,
+                                  device=dev)
     out = hitrun = None
     if prefix:
         out = (torch.empty(B, dtype=torch.float32, device=dev),
@@ -289,17 +372,23 @@ def _deposit_launch(tabs, pos, dirn, group, smin, smax, dtau_sub, slab, lum,
         hitrun = torch.empty((-(-tabs.nmax // DEPOSIT_RUN), B),
                              dtype=torch.int32, device=dev)
         active = active.to(torch.bool)
-    # held here, so that no contiguous copy is freed before the launch
+    # held here, so that no contiguous copy is freed before the launch (the
+    # RF, added into in place, is contiguous: `_prefix_args` checks it)
     args = [None if t is None else t.contiguous() for t in (
         pos, dirn, group, smin, smax, dtau_sub, slab, lum, tau_int, active,
-        rf, hitrun, *(out or (None,) * 3))]
+        bin_map, tabs.cellmap if prefix else None, rf, hitrun,
+        *(out or (None,) * 3))]
     nx, ny, nz, nmax, *geo = sw._geometry_args(tabs)
     kb.launch("sweepxl_deposit", *(None if t is None else t.data_ptr()
                                    for t in args),
-              B, nx, ny, nz, nmax, n_groups, DEPOSIT_RUN,
+              B, nx, ny, nz, nmax, n_groups, rows, DEPOSIT_RUN,
               _DEPOSIT_MODES.index(mode), *geo, float(inv_sqrt),
               kb.stream_of(pos), count_as=mode)
-    return (rf, *out) if prefix else rf
+    if not prefix:
+        return rf
+    if fresh:
+        rf = rf.float() if acc is None else acc.add_(rf.float())
+    return (None if rf is None else rf.T, *out)
 
 
 def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
@@ -310,10 +399,12 @@ def _deposit_cuda(tabs, pos, dirn, group, smin, smax, dtau_sub, scale,
 
 
 def _deposit_prefix_cuda(tabs, pos, dirn, group, smin, smax, active,
-                         dtau_sub, lum_half, tau_int, tb_slab, inv_sqrt):
+                         dtau_sub, lum_half, tau_int, tb_slab, inv_sqrt,
+                         n_groups, bin_map, rows, rf):
     return _deposit_launch(tabs, pos, dirn, group, smin, smax, dtau_sub,
-                           tb_slab, lum_half, tau_int, active, inv_sqrt, 1,
-                           "sweepxl_deposit_prefix")
+                           tb_slab, lum_half, tau_int, active, inv_sqrt,
+                           n_groups, "sweepxl_deposit_prefix", bin_map, rows,
+                           rf)
 
 
 # ---------------------------------------------------------- public wrappers
@@ -435,19 +526,33 @@ def resolve_interaction(tabs: XLTables, pos, dirn, active, dtau_sub, tb_slab,
 
 
 def _prefix_args(tabs, pos, dirn, active, dtau_sub, lum_half, tau_int,
-                 tb_slab, inv_sqrt, lane):
+                 tb_slab, inv_sqrt, lane, n_groups, bin_map, nbins, rf):
     B = pos.shape[0]
+    # with lane groups every 32-lane warp of the kernel in one group
+    if n_groups < 1 or (n_groups > 1 and B % (32 * n_groups)):
+        raise ValueError(f"batch {B} not divisible into {n_groups} groups of "
+                         "32-lane tiles")
     sw._check_lane(pos, active, lane)
     sw._check_inputs(pos, dirn, [
         (dtau_sub, (tabs.nmax, 3, B), "dtau_sub"),
         (tb_slab, (tabs.nmax, B), "tb_slab"), (tau_int, (B,), "tau_int")]
         + ([] if lum_half is None else [(lum_half, (B,), "lum_half")]))
+    rows = sw.bin_rows(pos, n_groups, bin_map, nbins)
+    if rf is not None and (
+            tuple(rf.shape) != (tabs.rf_cells, rows) or rf.device != pos.device
+            or rf.dtype not in (torch.float32, torch.float64)
+            or not rf.is_contiguous()):
+        raise ValueError(f"rf {tuple(rf.shape)} {rf.dtype} must be a "
+                         f"contiguous ({tabs.rf_cells}, {rows}) f32 or f64 "
+                         f"table on {pos.device}: pass 2 adds into it")
     return (tabs, pos, dirn, *lane, active, dtau_sub, lum_half, tau_int,
-            tb_slab, float(inv_sqrt))
+            tb_slab, float(inv_sqrt), n_groups, bin_map, rows, rf)
 
 
 def sweep_deposit_prefix(tabs: XLTables, pos, dirn, active, dtau_sub,
-                         lum_half, tau_int, tb_slab, inv_sqrt: float, lane):
+                         lum_half, tau_int, tb_slab, inv_sqrt: float, lane,
+                         n_groups: int = 1, bin_map=None, nbins: int = 0,
+                         rf=None):
     """Pass 2 from pass 1's record, prefix and lane range, with the
     interaction search inside: `sweep_deposit` on scale_slab = (lum_half *
     e^-tb_slab) * inv_sqrt, formed per (slab, lane) inside (the event loop's
@@ -456,20 +561,30 @@ def sweep_deposit_prefix(tabs: XLTables, pos, dirn, active, dtau_sub,
     dtau_sub (nmax, 3, B), tb_slab (nmax, B) and lane = (group, smin, smax)
     from `sweep_dtau_prefix`; active: (B,) the lanes that may interact;
     lum_half, tau_int: (B,) f32, lum_half None where no RF is stored.
-    Returns (rf (1, ncells) summed from zero in this call, or None without
-    lum_half; s_int, icell int64 or -1, found bool), the interaction equal
-    to `resolve_interaction`'s bit for bit."""
+    n_groups: bin-pure groups of B / n_groups consecutive lanes (B a
+    multiple of 32 n_groups where there are several); group g deposits
+    into row g, or with bin_map ((n_groups,) int32) into row bin_map[g] of
+    nbins rows (an entry outside [0, nbins), -1 among them: dropped). On a
+    tree raster the deposits land on the leaves (`cellmap`). rf: the
+    caller's (rf_cells, rows) accumulator, which the deposits are added
+    into in place: f64 (the event loop's, over a segment) or f32, which
+    takes them summed in f64 and rounded once; without it they are summed
+    from zero in this call. Returns (rf (rows, rf_cells): a view of that
+    table, or None without lum_half; s_int, icell int64 (a voxel on a tree
+    raster) or -1, found bool), the interaction equal to
+    `resolve_interaction`'s bit for bit."""
     args = _prefix_args(tabs, pos, dirn, active, dtau_sub, lum_half, tau_int,
-                        tb_slab, inv_sqrt, lane)
+                        tb_slab, inv_sqrt, lane, n_groups, bin_map, nbins, rf)
     return sw._dispatch(pos, _deposit_prefix_plain,
                         _deposit_prefix_cuda)(*args)
 
 
 def sweep_deposit_prefix_plain(tabs: XLTables, pos, dirn, active, dtau_sub,
                                lum_half, tau_int, tb_slab, inv_sqrt: float,
-                               lane):
+                               lane, n_groups: int = 1, bin_map=None,
+                               nbins: int = 0, rf=None):
     """`sweep_deposit_prefix` through the plain PyTorch version on any
     device."""
     return _deposit_prefix_plain(*_prefix_args(
         tabs, pos, dirn, active, dtau_sub, lum_half, tau_int, tb_slab,
-        inv_sqrt, lane))
+        inv_sqrt, lane, n_groups, bin_map, nbins, rf))

@@ -14,9 +14,9 @@
   (they agree to 3e-7: f32 rounding).
 - A monochromatic source in a multi-bin RF deposits into its own bin
   exactly what a one-bin RF over that bin holds; checkpoints resume a run;
-  what is not ported raises (a multi-bin RF on a large XL grid, dynamic
-  medium recipes, stochastic emission, cell libraries, spheroidal
-  grains).
+  what is not ported raises (a tree whose fine raster is over 512 per
+  axis, dynamic medium recipes, stochastic emission, cell libraries,
+  spheroidal grains).
 """
 
 import dataclasses
@@ -180,18 +180,25 @@ def test_checkpoint_resume(tmp_path):
     assert not os.path.exists(path)
 
 
-@pytest.mark.parametrize("case", ["xl_multibin", "stochastic", "library",
+@pytest.mark.parametrize("case", ["tree_over_512", "stochastic", "library",
                                   "merged_dynamic", "spheroidal"])
 def test_not_ported_raises(case, tmp_path):
-    if case == "xl_multibin":
-        # 80^3 takes the large-grid (XL) contracts, which store one RF bin
-        grid = make_cartesian(((-PC, PC),) * 3, (80,) * 3)
+    if case == "tree_over_512":
+        # a level-10 octree (a 1024 fine raster): past the multi-level
+        # sweep and the XL voxel raster, which leaves the reference's scan
+        # march
+        from skirt9_tpu_torch.grids.octree import (build_octree,
+                                                   site_list_refine_fn)
+        sites = np.array([[0.1, 0.2, 0.3], [0.1005, 0.2005, 0.3005]]) * PC
+        grid = build_octree(((-PC, PC),) * 3, lambda p: np.ones(len(p)),
+                            max_level=10, min_level=1,
+                            refine_fn=site_list_refine_fn(sites, 1))
         med = msys.make_medium(grid, np.ones(grid.ncells, np.float32),
                                np.array([0.1e-6, 2e-6]),
                                sigma_ext=np.full((1, 2), 1e-30),
                                albedo=np.full((1, 2), 0.5),
                                g=np.full((1, 2), 0.0))
-        with pytest.raises(NotImplementedError, match="XL"):
+        with pytest.raises(NotImplementedError, match="scan march"):
             Simulation(grid=grid, medium=med, sources=[PointSource()],
                        instruments=[],
                        options=TransportOptions(max_steps=grid.max_steps()),

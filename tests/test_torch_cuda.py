@@ -1228,3 +1228,213 @@ def test_config3_tree_rf_loop_launches(dev, config3_runs):
               "sweepxl_tau_total", "sweepxl_dtau_prefix", "sweepxl_deposit",
               "sweepxl_deposit_prefix", "mlsweep_dtau", "scatter_add"):
         assert n[k] == 0, k
+
+
+def _xl_grouped_check(tabs, pos, d, act_int, rec, lum, tau_int, tb, lane,
+                      n_groups, bin_map, nbins, rf=None):
+    """Kernel 7's prefix mode with lane groups against its plain version:
+    the RF within 1e-6 of its maximum (both sum in f64), s_int, icell and
+    found equal; with rf, both add into copies of it."""
+    bm = None if bin_map is None else torch.tensor(bin_map, dtype=torch.int32,
+                                                   device=pos.device)
+    args = (tabs, pos, d, act_int, rec, lum, tau_int, tb, 0.7, lane)
+    kw = dict(n_groups=n_groups, bin_map=bm, nbins=nbins)
+    kb.reset_launches()
+    rf_k, *hit_k = xl.sweep_deposit_prefix(
+        *args, **kw, rf=None if rf is None else rf.clone())
+    assert kb.LAUNCHES["sweepxl_deposit_prefix"] == 1
+    assert sum(kb.LAUNCHES.values()) == 1
+    rf_p, *hit_p = xl.sweep_deposit_prefix_plain(
+        *args, **kw, rf=None if rf is None else rf.clone())
+    assert int(hit_p[2].sum()) > pos.shape[0] // 4
+    for a, b in zip(hit_k, hit_p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert rf_k.shape == rf_p.shape
+    m = float(rf_p.abs().max())
+    assert m > 0 and float((rf_k - rf_p).abs().max()) <= 1e-6 * m
+    return rf_p
+
+
+def _xl_grouped_inputs(dev, tabs, pos, d, sig, active, n_groups, seed):
+    """Pass 1 on lanes sorted as the grouped XL loop sorts them, and pass
+    2's per-lane inputs."""
+    perm = xl.lane_order(tabs, pos, d, sw.dominant_axis(tabs, d), n_groups)
+    pos, d, sig, active = pos[perm], d[perm], sig[:, perm], active[perm]
+    rec, tb, tot, lane = xl.sweep_dtau_prefix(tabs, pos, d, sig, active)
+    rs = np.random.default_rng(seed)
+    B = pos.shape[0]
+    tau_int = torch.tensor(rs.uniform(0.0, 1.1, B), dtype=torch.float32,
+                           device=dev) * tot
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    return pos, d, active & (tot > 1e-6), rec, lum, tau_int, tb, lane
+
+
+@pytest.mark.parametrize("n_groups,bin_map,nbins,acc,source", [
+    (8, (0, 1, 1, -1, 3, 3, 5, 7), 6, None, False),
+    (8, (0, 1, 1, -1, 3, 3, 5, 7), 6, torch.float64, True),
+    (8, None, 0, None, False), (4, (2, 0, 1, 1), 3, torch.float32, True),
+    (1, (2,), 3, torch.float64, False), (1, (-1,), 3, None, False)],
+    ids=["8-map", "8-map-acc64-source", "8-rows", "4-map-acc32-source",
+         "1-mono-acc64", "1-dropped"])
+def test_sweepxl_deposit_prefix_grouped_kernel(dev, n_groups, bin_map, nbins,
+                                               acc, source):
+    """Kernel 7's prefix mode with lane groups at 80^3: rows from the bin
+    map (-1, repeats and a row past nbins dropped), rows per group without
+    one, one group into a monochromatic source's bin, and added into an
+    f32 or f64 accumulator that holds earlier deposits; with source, every
+    ray starts at one point (an event leaving a point source)."""
+    B = 4096
+    tabs, pos, d, sig, active = _xl_inputs(dev, (80, 80, 80), 1, B, 5, False)
+    if source:
+        pos = torch.tensor([[0.1, -0.05, 0.2]], device=dev).expand(B, 3) * PC
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+    ins = _xl_grouped_inputs(dev, tabs, pos, d, sig, active, n_groups, 6)
+    rows = nbins if bin_map is not None else n_groups
+    rf0 = None
+    if acc is not None:
+        rf0 = torch.rand((tabs.nd.shape[0], rows), dtype=acc,
+                         device=dev) * 1e-3
+    if bin_map == (-1,):
+        rf, *_ = xl.sweep_deposit_prefix(
+            tabs, *ins[:7], 0.7, ins[7], bin_map=torch.tensor(
+                bin_map, dtype=torch.int32, device=dev), nbins=nbins)
+        assert rf.shape == (3, tabs.nd.shape[0]) and float(rf.abs().sum()) == 0
+        return
+    rf = _xl_grouped_check(tabs, *ins, n_groups, bin_map, nbins, rf=rf0)
+    assert rf.shape == (rows, tabs.nd.shape[0])
+    if acc is not None:
+        rf = rf - rf0.T
+    lit = (rf.abs().sum(dim=1) > 0).cpu().tolist()
+    used = set(range(n_groups)) if bin_map is None else {
+        r for r in bin_map if 0 <= r < rows}
+    assert [r for r in range(rows) if lit[r]] == sorted(used)
+
+
+def _deep_octree():
+    """An octree refined to level 9 around three pairs of close sites (a
+    512 fine raster, which the multi-level sweep does not take), with a
+    density."""
+    from skirt9_tpu_torch.grids.octree import site_list_refine_fn
+    rs = np.random.default_rng(3)
+    centres = rs.normal(scale=0.3 * PC, size=(3, 3))
+    sites = np.concatenate([centres, centres + 0.002 * PC])
+    grid = build_octree(((-1.2 * PC, 1.2 * PC),) * 3,
+                        lambda p: np.ones(len(p)), max_level=9, min_level=2,
+                        refine_fn=site_list_refine_fn(sites, 1))
+    return grid, _tree_medium(grid, 1, rs)
+
+
+@pytest.mark.parametrize("n_groups,bin_map,nbins,source", [
+    (1, None, 0, False), (4, (0, -1, 2, 2), 3, False),
+    (4, (0, -1, 2, 2), 3, True)], ids=["1", "4-map", "4-map-source"])
+def test_sweepxl_deposit_prefix_cellmap_kernel(dev, n_groups, bin_map,
+                                               nbins, source):
+    """Kernel 7's prefix mode on a level-9 octree's 512^3 voxel raster:
+    the deposits land on the leaves through the cell map; with source,
+    from one start point."""
+    B = 4096
+    grid, med = _deep_octree()
+    assert xl.supports_tree_xl(grid, med)
+    tabs = xl.build_tree_tables(grid.to(dev), med.to(dev))
+    assert tabs.n == (512,) * 3 and tabs.rf_cells == grid.ncells
+    rs = np.random.default_rng(8)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos = t32(rs.normal(scale=0.4 * PC, size=(B, 3)).clip(-1.1 * PC,
+                                                          1.1 * PC))
+    if source:
+        pos = t32(np.broadcast_to([0.05 * PC, 0.1 * PC, -0.02 * PC], (B, 3)))
+    d = rs.normal(size=(B, 3))
+    d = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    sig = t32(np.full((1, B), 1e-24))
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    ins = _xl_grouped_inputs(dev, tabs, pos, d, sig, active, n_groups, 9)
+    rf = _xl_grouped_check(tabs, *ins, n_groups, bin_map, nbins)
+    assert rf.shape == (nbins or n_groups, grid.ncells)
+
+
+def _small_tree_sim(device, rf_bins=None):
+    """The density octree of tests/test_mlsweep.py with a one-bin or a
+    multi-bin RF, on its voxel raster (the XL tables put in place)."""
+    grid = _tree("octree")
+    rs = np.random.default_rng(2)
+    med = _tree_medium(grid, 1, rs)
+    sim = Simulation(
+        grid=grid, medium=med,
+        sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
+        instruments=[dinst.DistantInstrumentCfg(
+            name="i", wave_borders=(0.5e-6, 0.6e-6), distance=100 * PC,
+            npx=16, npy=16, fovx=3 * PC, fovy=3 * PC)],
+        options=lc.TransportOptions(max_steps=grid.max_steps(),
+                                    max_events=6),
+        rf_borders=np.asarray(rf_bins or [0.5e-6, 0.6e-6]),
+        num_packets=8192, batch_size=4096, seed=3, device=device)
+    sim._sweep_tabs = xl.build_tree_tables(sim.grid, sim.medium)
+    return sim
+
+
+@pytest.mark.parametrize("rf_bins", [None, [0.1e-6, 0.5e-6, 0.6e-6, 2e-6]],
+                         ids=["one-bin", "mono-in-3"])
+def test_treexl_on_cuda_matches_cpu(dev, rf_bins):
+    """A tree on its voxel raster on the card: kernels 6-7 and detect
+    launched, no multi-level or resident kernel; the SED and the per-leaf
+    RF within 1e-4 of the same seed's CPU run."""
+    cpu = _small_tree_sim("cpu", rf_bins)
+    rf_c, accs_c = cpu.run_primary(verbose=False)
+    gpu = _small_tree_sim(dev, rf_bins)
+    kb.reset_launches()
+    rf_g, accs_g = gpu.run_primary(verbose=False)
+    n = dict(kb.LAUNCHES)
+    for name in ("sweepxl_dtau_prefix", "sweepxl_tau_total",
+                 "sweepxl_deposit_prefix", "detect"):
+        assert n[name] > 0, name
+    for name in ("mlsweep_dtau", "mlsweep_tau_total", "mlsweep_dtau_prefix",
+                 "mlsweep_deposit", "sweep_dtau_prefix", "sweep_tau_total",
+                 "sweep_deposit_prefix", "sweepxl_deposit", "sweepxl_dtau"):
+        assert n[name] == 0, name
+    assert rf_g.shape == rf_c.shape == (cpu.grid.ncells, len(
+        rf_bins or [0, 0]) - 1)
+    m = float(rf_c.abs().max())
+    assert m > 0 and float((rf_g.cpu() - rf_c).abs().max()) <= 1e-4 * m
+    for key in ("sed", "frame"):
+        c, g = accs_c[0][key], accs_g[0][key].cpu()
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+def test_xl_multibin_on_cuda_matches_cpu(dev):
+    """A small config 2 on XL tables (put in place on a 16^3 grid): a
+    4-bin RF in stratified lane groups and one self-absorption iteration on
+    kernels 6-7 and detect, no resident kernel; the RF and the primary SED
+    kinds within 1e-4 of the same seed's CPU run, the kinds with secondary
+    light by their sums over the bins within 1e-3 (the secondary launch's
+    cell cdf, built from the RF, differs between the devices in its last
+    bits: a packet may start in the neighbouring cell; chip_smoke.py's
+    draw_for_draw_xl_b2)."""
+    runs = {}
+    for device in ("cpu", dev):
+        sim = _chip_smoke().config2(device, num_packets=8192, batch_size=4096,
+                                    n=16, n_rf=4, max_events=6,
+                                    iterate_secondary=True, max_iterations=1)
+        sim._sweep_tabs = xl.build_tables(sim.grid, sim.medium)
+        kb.reset_launches()
+        runs[str(device)] = (*sim.run_with_dust_emission(verbose=False),
+                             dict(kb.LAUNCHES))
+    (rf_c, accs_c, info_c, _), (rf_g, accs_g, info_g, n) = runs.values()
+    for name in ("sweepxl_dtau_prefix", "sweepxl_tau_total",
+                 "sweepxl_deposit_prefix", "detect"):
+        assert n[name] > 0, name
+    for name in ("sweep_dtau_prefix", "sweep_tau_total",
+                 "sweep_deposit_prefix", "mlsweep_deposit"):
+        assert n[name] == 0, name
+    assert info_c["iterations"] == info_g["iterations"] == 1
+    m = float(rf_c.abs().max())
+    assert m > 0 and float((rf_g.cpu() - rf_c).abs().max()) <= 1e-4 * m
+    sed_c, sed_g = accs_c[0]["sed"].double(), accs_g[0]["sed"].double().cpu()
+    for k in range(sed_c.shape[0]):
+        mk = float(sed_c[k].abs().max())
+        assert mk > 0
+        if k in (dinst.KIND_PRIMARY_DIRECT, dinst.KIND_PRIMARY_SCATTERED):
+            assert float((sed_g[k] - sed_c[k]).abs().max()) <= 1e-4 * mk
+        else:
+            tot = float(sed_c[k].sum())
+            assert abs(float(sed_g[k].sum()) - tot) <= 1e-3 * tot

@@ -26,15 +26,16 @@ atol 1e-5 of its total) as the outer limit. It comes much closer (SEDs within
 atol 1e-6 of its total.
 
 The port imports neither jax nor any module of the JAX package: a
-subprocess runs a uniform-grid and an octree simulation, a small config 2
-with dust emission (`chip_smoke.config2`), the gather and row-lookup
-probes, a reduced config 3 (bench3.ski at maxLevel 4 with a 4-bin RF
+subprocess runs a uniform-grid and an octree simulation, the octree on
+its voxel raster through the XL contracts, a small config 2 with dust
+emission (`chip_smoke.config2`) on the resident sweep and on XL tables
+(a 4-bin RF in lane groups), the gather and row-lookup probes, a reduced config 3 (bench3.ski at maxLevel 4 with a 4-bin RF
 through the loader, with and without merged iterations) and the CLI
 (bench1.ski, and bench2.ski's set-up), imports the variant scripts of
 kernels 8-9 (`perf/`), and then finds no such module loaded and no kernel
 launched;
 an `ast` scan of the package (the loader, probes, CLI, unit copies, trees,
-tree sweep and event loop among it), chip_smoke.py and `perf/*.py` finds
+tree and XL sweeps, voxel rasters and event loop among it), chip_smoke.py and `perf/*.py` finds
 no such import.
 """
 
@@ -332,9 +333,21 @@ for grid in (make_cartesian(ext, (6,) * 3), octree):
     rf, accs = sim.run_primary(verbose=False)
     assert float(accs[0]["sed"].sum()) > 0 and float(rf.sum()) > 0
 assert isinstance(sim._sweep_tabs, MLTables)
+# the octree on its voxel raster (the XL contracts' tables put in place)
+from skirt9_tpu_torch.transport import sweepxl as xl
+sim._sweep_tabs = xl.build_tree_tables(sim.grid, sim.medium)
+rf, accs = sim.run_primary(verbose=False)
+assert rf.shape == (octree.ncells, 1) and float(rf.sum()) > 0
 # config 2 (dust emission, a stratified 4-bin RF, one self-absorption
-# iteration) through chip_smoke.config2, and the probes
+# iteration) through chip_smoke.config2, on the resident sweep and on XL
+# tables, and the probes
 import chip_smoke
+sim = chip_smoke.config2("cpu", num_packets=4096, batch_size=4096, n=4,
+                         n_rf=4, max_events=2, iterate_secondary=True,
+                         max_iterations=1)
+sim._sweep_tabs = xl.build_tables(sim.grid, sim.medium)
+rf, accs, info = sim.run_with_dust_emission(verbose=False)
+assert rf.shape == (64, 4) and float(rf.sum()) > 0 and info["L_dust"] > 0
 from skirt9_tpu_torch.kernels import build as kb
 from skirt9_tpu_torch.tools import gather_probe, sublane_gather
 from perf import kernel8_variants, kernel9_variants
@@ -419,6 +432,7 @@ def test_port_sources_import_no_reference():
         "utils/filepaths.py", "utils/cosmology.py", "simulation.py",
         "bridge.py", "grids/octree.py", "grids/bintree.py",
         "transport/mlsweep.py", "transport/lifecycle.py",
+        "transport/sweepxl.py", "parallel/domain.py",
         "sources/secondary.py", "tools/event_profile.py",
         "tools/kernel5_split.py")} <= set(bad)
     assert not {f: n for f, n in bad.items() if n}

@@ -6,8 +6,9 @@ arguments and seed (the density octree of `tests/test_mlsweep.py`, a density
 bintree, and the site-list octree of `bench.py`'s `bench_config3ism`, whose
 per-level site counting the port vectorises). `locate` agrees with the
 reference on 4,096 seeded points, by descent and through the fine leaf map.
-The engine rule sends trees to the multi-level sweep and raises, naming what
-is missing, for trees and options it does not take.
+The engine rule sends trees to the multi-level sweep (fine rasters up to
+256), to the XL contracts on their voxel raster (up to 512) and raises,
+naming what is missing, for trees and options neither takes.
 """
 
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from skirt9_tpu_torch.simulation import Simulation
 from skirt9_tpu_torch.sources.base import PointSource
 from skirt9_tpu_torch.transport import lifecycle as lc
 from skirt9_tpu_torch.transport import mlsweep as ml
+from skirt9_tpu_torch.transport import sweepxl as xl
 
 PC = 3.0857e16
 EXT = ((-1.2 * PC, 1.2 * PC),) * 3
@@ -161,9 +163,19 @@ def _deep_octree(max_level):
 
 
 def test_fine_raster_cap():
+    """The multi-level sweep takes a 256 fine raster, the XL contracts a
+    512 one on the tree's voxel raster (the rule alone here: its tables
+    are 2 x 537 MB), nothing a 1024 one."""
     assert isinstance(_simulation(_deep_octree(8))._sweep_tabs, ml.MLTables)
+    deep = _deep_octree(9)
+    med = msys.make_medium(deep, np.ones(deep.ncells, np.float32),
+                           np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), 1e-24),
+                           albedo=np.full((1, 2), 0.5),
+                           g=np.full((1, 2), 0.0))
+    assert not ml.supports(deep, med) and xl.supports_tree_xl(deep, med)
     with pytest.raises(NotImplementedError, match="OctreeGrid"):
-        _simulation(_deep_octree(9))
+        _simulation(_deep_octree(10))
 
 
 def test_non_power_of_two_tree_raises():
