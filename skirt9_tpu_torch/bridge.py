@@ -22,6 +22,7 @@ from .grids.cartesian import UniformCartesianGrid
 from .grids.octree import OctreeGrid
 from .instruments.distant import DistantInstrumentCfg
 from .media.system import MediumTables
+from .ops.stokes import MuellerTables
 from .simulation import Simulation
 from .sources.base import PointSource, TabulatedSED
 from .transport import sweepxl as xl
@@ -70,13 +71,21 @@ def grid(ref_grid):
 
 def medium(ref_med) -> MediumTables:
     _kind(ref_med, "MediumTables")
-    for name in ("bulk_v", "magnetic_field"):
-        arr = getattr(ref_med, name, None)
-        if arr is not None and np.any(np.asarray(arr) != 0):
-            raise NotImplementedError(f"medium {name} not ported yet")
+    arr = getattr(ref_med, "magnetic_field", None)
+    if arr is not None and np.any(np.asarray(arr) != 0):
+        raise NotImplementedError("medium magnetic_field not ported yet")
     return MediumTables(nd=_f32(ref_med.nd), lam_t=_f32(ref_med.lam_t),
                         sigma_ext=_f32(ref_med.sigma_ext),
-                        sigma_sca=_f32(ref_med.sigma_sca), g=_f32(ref_med.g))
+                        sigma_sca=_f32(ref_med.sigma_sca), g=_f32(ref_med.g),
+                        bulk_v=_f32(ref_med.bulk_v))
+
+
+def mueller(ref_tabs) -> MuellerTables | None:
+    """The reference's Mueller tables, array for array."""
+    if ref_tabs is None:
+        return None
+    _kind(ref_tabs, "MuellerTables")
+    return MuellerTables(*(_f32(t) for t in ref_tabs))
 
 
 def _same_fields(cls, ref_obj):
@@ -110,7 +119,7 @@ def options(ref_opts) -> TransportOptions:
 
 # reference Simulation fields the port does not run yet, with their
 # inactive values
-_INACTIVE = {"mueller": None, "spheroidal": None, "mesh": None, "dd": False,
+_INACTIVE = {"spheroidal": None, "mesh": None, "dd": False,
              "xray_tabs": None, "phase_tabs": None, "dynamic_recipes": [],
              "gas_emitters": [], "custom_state": {}, "grain_tables": None}
 
@@ -130,6 +139,9 @@ def simulation(ref_sim, device) -> Simulation:
         # the merged and primary iterations run without them
         raise NotImplementedError("dynamic medium recipes (media/dynamic) "
                                   "not ported yet")
+    if "spheroidal" in active:
+        raise NotImplementedError("spheroidal (aligned-grain polarized) "
+                                  "emission not ported yet")
     if active:
         raise NotImplementedError(
             f"Simulation {', '.join(active)} not ported yet")
@@ -143,7 +155,8 @@ def simulation(ref_sim, device) -> Simulation:
         num_packets=int(ref_sim.num_packets),
         batch_size=int(ref_sim.batch_size), seed=int(ref_sim.seed),
         source_bias=float(ref_sim.source_bias),
-        refill_events=int(ref_sim.refill_events), device=device,
+        refill_events=int(ref_sim.refill_events),
+        mueller=mueller(getattr(ref_sim, "mueller", None)), device=device,
         **{k: getattr(ref_sim, k) for k in _EMISSION})
     ref_tabs = getattr(ref_sim, "_sweep_tabs", None)
     if type(ref_tabs).__name__ == "XLTables":

@@ -3,13 +3,16 @@
 Port of `skirt9_tpu/config/ski.py` (`load_ski`, `_load_ski` and the
 `build_*` functions) for the item types the port runs: primary emission
 of point sources with a blackbody SED (or oligochromatic, at one
-wavelength), shell geometries of trivial gas or mean-file dust mixes
-normalised by optical depth, uniform Cartesian grids (linear meshes) and
-density-policy octrees and bintrees (`PolicyTreeSpatialGrid` with a
-`DensityTreePolicy`), full instruments, equilibrium dust emission over all
-cells with the iteration options, and the temperature, radiation-field and
+wavelength), shell and exponential-disk geometries of trivial gas,
+mean-file dust or electron mixes (with polarized Thomson scattering)
+normalised by optical depth or entity number, moving media (a vector
+field times a velocity magnitude, sampled at the cell centres), uniform
+Cartesian grids (linear meshes) and density-policy octrees and bintrees
+(`PolicyTreeSpatialGrid` with a `DensityTreePolicy`), full instruments
+(with polarization), equilibrium dust emission over all cells with the
+iteration options, and the temperature, radiation-field and
 cell-properties probes. This is what the golden ski files bench1, bench1h,
-bench2 and bench3 use. Every item type outside `ITEMS`, and every property
+bench2, bench3 and bench5 use. Every item type outside `ITEMS`, and every property
 outside `PROPERTIES`, raises NotImplementedError naming itself before
 anything is built, so no element is dropped silently. The arrays are built
 with numpy and torch by the port's own constructors, bit for bit as the
@@ -27,13 +30,16 @@ import os
 import xml.etree.ElementTree as ET
 
 import numpy as np
+import torch
 
 from ..geometries import analytic as ga
+from ..geometries import vectorfield as vf
 from ..grids import bintree, octree
 from ..grids.cartesian import make_cartesian
 from ..instruments import distant as dinst
 from ..media import geometric as gm
 from ..media import mixes as mx
+from ..ops import stokes as stk
 from ..probes.probes import ProbeSpec
 from ..simulation import Simulation
 from ..sources.base import PointSource
@@ -52,8 +58,13 @@ ITEMS = frozenset((
     "IntegratedLuminosityNormalization",
     "MediumSystem", "PhotonPacketOptions", "RadiationFieldOptions",
     "DustEmissionOptions", "AllCellsLibrary", "LogWavelengthGrid",
-    "GeometricMedium", "ShellGeometry", "TrivialGasMix", "MeanFileDustMix",
-    "OpticalDepthMaterialNormalization", "CartesianSpatialGrid", "LinMesh",
+    "GeometricMedium", "ShellGeometry", "ExpDiskGeometry", "TrivialGasMix",
+    "MeanFileDustMix", "ElectronMix", "OpticalDepthMaterialNormalization",
+    "NumberMaterialNormalization", "RadialVectorField",
+    "CylindricalVectorField", "HollowRadialVectorField",
+    "HubbleRadialVectorField", "UnidirectionalVectorField",
+    "RotateVectorFieldDecorator", "OffsetVectorFieldDecorator",
+    "CartesianSpatialGrid", "LinMesh",
     "PolicyTreeSpatialGrid", "DensityTreePolicy", "IterationOptions",
     "InstrumentSystem", "FullInstrument",
     "ProbeSystem", "TemperatureProbe", "RadiationFieldProbe", "PerCellForm",
@@ -65,7 +76,7 @@ PROPERTIES = frozenset((
     "normalization", "mediumSystem", "photonPacketOptions",
     "radiationFieldOptions", "radiationFieldWLG", "dustEmissionOptions",
     "cellLibrary", "dustEmissionWLG", "media", "geometry", "materialMix",
-    "grid", "meshX", "meshY", "meshZ", "policy", "iterationOptions",
+    "velocityDistribution", "vectorField", "grid", "meshX", "meshY", "meshZ", "policy", "iterationOptions",
     "instrumentSystem",
     "defaultWavelengthGrid", "instruments", "wavelengthGrid", "probeSystem",
     "probes", "form"))
@@ -119,7 +130,9 @@ def check_items(root) -> None:
 
 def build_geometry(el):
     a = el.attrib
-    # ShellGeometry is the one geometry of ITEMS
+    if el.tag == "ExpDiskGeometry":
+        return ga.ExpDiskGeometry(h_r=_q(a, "scaleLength", "length"),
+                                  h_z=_q(a, "scaleHeight", "length"))
     return ga.ShellGeometry(rmin=_q(a, "minRadius", "length"),
                             rmax=_q(a, "maxRadius", "length"),
                             p=_f(a, "exponent", 0.0))
@@ -159,6 +172,13 @@ def build_source(el):
 
 
 def build_mix(el, base_dir: str) -> mx.MixTables:
+    if el.tag == "ElectronMix":
+        emix = mx.electron_mix()
+        if el.attrib.get("includePolarization", "false") == "true":
+            # Thomson scattering's exact Mueller matrix rides on the mix,
+            # as in the reference (ref: ElectronMix.hpp:60)
+            object.__setattr__(emix, "_mueller", stk.electron_mueller())
+        return emix
     if el.tag == "TrivialGasMix":
         a = el.attrib
         return mx.trivial_gas(_q(a, "absorptionCrossSection", "section"),
@@ -176,10 +196,65 @@ def build_medium_normalization(el):
     if norm is None:
         raise ValueError("medium needs a normalization")
     a = norm.attrib
-    # OpticalDepthMaterialNormalization is the one normalization of ITEMS
+    if norm.tag == "NumberMaterialNormalization":
+        return gm.NumberNormalization(number=_f(a, "number"))
     return gm.OpticalDepthNormalization(
         tau=_f(a, "opticalDepth"), lam=_q(a, "wavelength", "wavelength"),
         axis={"X": "x", "Y": "y", "Z": "z"}.get(a.get("axis", "Z"), "z"))
+
+
+def build_vector_field(el):
+    """A VectorField item (`skirt9_tpu/config/ski.py:1205-1245`), evaluated
+    on the host at the cell centres during set-up."""
+    t, a = el.tag, el.attrib
+    if t == "RadialVectorField":
+        return vf.RadialVectorField(
+            unity_radius=_q(a, "unityRadius", "length", 0.0),
+            exponent=_f(a, "exponent", 1.0))
+    if t == "CylindricalVectorField":
+        return vf.CylindricalVectorField(
+            unity_radius=_q(a, "unityRadius", "length", 0.0),
+            exponent=_f(a, "exponent", 1.0))
+    if t == "HollowRadialVectorField":
+        return vf.HollowRadialVectorField(
+            zero_radius=_q(a, "zeroRadius", "length", 0.0),
+            exponent=_f(a, "exponent", 0.0))
+    if t == "HubbleRadialVectorField":
+        return vf.HubbleRadialVectorField(
+            turnover_radius=_q(a, "turnoverRadius", "length"),
+            max_radius=_q(a, "maxRadius", "length"))
+    if t == "UnidirectionalVectorField":
+        return vf.UnidirectionalVectorField(
+            direction=(_f(a, "fieldX", 0.0), _f(a, "fieldY", 0.0),
+                       _f(a, "fieldZ", 1.0)))
+    if t == "RotateVectorFieldDecorator":
+        return vf.RotateVectorFieldDecorator(
+            child=build_vector_field(_child(el, "vectorField")),
+            alpha=_q(a, "eulerAlpha", "angle", 0.0),
+            beta=_q(a, "eulerBeta", "angle", 0.0),
+            gamma=_q(a, "eulerGamma", "angle", 0.0))
+    # OffsetVectorFieldDecorator, the last vector field of ITEMS
+    return vf.OffsetVectorFieldDecorator(
+        child=build_vector_field(_child(el, "vectorField")),
+        offset=(_q(a, "offsetX", "length", 0.0),
+                _q(a, "offsetY", "length", 0.0),
+                _q(a, "offsetZ", "length", 0.0)))
+
+
+def bulk_velocities(grid, nd, velocity_fields) -> np.ndarray:
+    """Per-cell bulk velocity: the number-density-weighted average over the
+    moving components of magnitude x field at the cell centres
+    (`skirt9_tpu/config/ski.py:2093-2109`; ref: MediumSystem.cpp:109-119,
+    339). velocity_fields: [(component, field, magnitude [m/s])]."""
+    centers = grid.cell_centers().cpu().numpy().astype(np.float64)
+    nd_np = nd.cpu().numpy().astype(np.float64)
+    vsum = np.zeros((len(centers), 3))
+    nsum = np.zeros(len(centers))
+    for h, fld, vmag in velocity_fields:
+        vsum += nd_np[:, h:h + 1] * (vmag * fld.field(centers))
+        nsum += nd_np[:, h]
+    return np.where(nsum[:, None] > 0,
+                    vsum / np.maximum(nsum, 1e-300)[:, None], 0.0)
 
 
 def _extent(a) -> tuple:
@@ -322,12 +397,27 @@ def load_ski(path: str, num_packets: int | None = None,
         raise NotImplementedError("a ski file without a medium system not "
                                   "ported yet")
     components = []
+    velocity_fields = []    # (component, field, magnitude [m/s])
     for m_el in med_sys.find("media"):
+        vd_el = _child(m_el, "velocityDistribution")
+        if vd_el is not None:
+            vmag = _q(m_el.attrib, "velocityMagnitude", "velocity", 0.0)
+            if vmag != 0.0:
+                velocity_fields.append((len(components),
+                                        build_vector_field(vd_el), vmag))
         components.append((build_geometry(_child(m_el, "geometry")),
                            build_mix(_child(m_el, "materialMix"), base_dir),
                            build_medium_normalization(m_el)))
     grid = build_grid(list(med_sys.find("grid"))[0], components[0][0])
     medium = gm.build_medium(grid, components)
+    if velocity_fields:
+        medium = medium._replace(bulk_v=torch.tensor(bulk_velocities(
+            grid, medium.nd, velocity_fields).astype(np.float32)))
+    # polarization: the first mix that carries Mueller tables switches the
+    # photon cycle to Stokes-tracking scattering (`skirt9_tpu/config/ski.py:
+    # 2197-2201`)
+    mueller = next((m._mueller for _, m, _ in components
+                    if getattr(m, "_mueller", None) is not None), None)
 
     # instruments
     if oligo:
@@ -372,11 +462,20 @@ def load_ski(path: str, num_packets: int | None = None,
     # photon-cycle knobs (PhotonPacketOptions defaults)
     pp_el = mcs.find(".//photonPacketOptions/PhotonPacketOptions")
     pa = pp_el.attrib if pp_el is not None else {}
+    force_scattering = pa.get("forceScattering", "true") == "true"
+    path_length_bias = _f(pa, "pathLengthBias", 0.5)
+    kinematics = bool(velocity_fields) and not oligo
+    if kinematics and force_scattering:
+        # a moving medium invalidates the stretched path's opacities: the
+        # bias is forced off (ref: Configuration.cpp:493-497;
+        # `skirt9_tpu/config/ski.py:2264-2275`)
+        path_length_bias = 0.0
     opts = lc.TransportOptions(
         max_steps=min(grid.max_steps(), 256), max_events=max_events,
         store_rf=rf_borders is not None,
-        force_scattering=pa.get("forceScattering", "true") == "true",
-        path_length_bias=_f(pa, "pathLengthBias", 0.5),
+        force_scattering=force_scattering,
+        path_length_bias=path_length_bias,
+        kinematics=kinematics, polarization=mueller is not None,
         min_weight_reduction=_f(pa, "minWeightReduction", 1e4),
         min_scatt_events=int(_f(pa, "minScattEvents", 0)),
         explicit_absorption=pa.get("explicitAbsorption", "false") == "true")
@@ -408,4 +507,4 @@ def load_ski(path: str, num_packets: int | None = None,
         include_primary=ia.get("includePrimaryEmission", "false") == "true",
         cmb_temperature=cmb_temperature,
         units=unitsystem.from_ski(_child(mcs, "units")), cosmology=cos,
-        probes=build_probes(mcs), device=device)
+        probes=build_probes(mcs), mueller=mueller, device=device)

@@ -1,17 +1,21 @@
 // Peel-off detection into one distant instrument, in one launch: SED row,
-// Monte Carlo statistics and frame.
+// Monte Carlo statistics and frame, and in its Stokes mode the Stokes Q, U,
+// V of the SED and the frame.
 //
 // Replaces, on the simulation paths, the seven calls per detection of the
 // Pallas TPU kernel skirt9_tpu/ops/scatteradd.py `_kernel` (the SED row, the
 // five statistics rows and the frame of skirt9_tpu/instruments/distant.py
-// `detect`) with the elementwise work around them. Contract
-// (instruments/distant.py `detect_plain`), per lane: the wavelength bin
-// b = #(borders <= lam) - 1; ok = active & 0 <= b < nb & contrib > 0;
-// c = ok ? contrib : 0; sed[kind, b] += c; stats[:, b] += (ok, cn, cn^2,
-// cn cn^2, cn^2 cn^2) with cn = c * inv_scale; the position projected on the
-// frame axes gives pixel (ix, iy), and frame[kind, b, iy, ix] += contrib
-// where ok and the pixel lies inside the frame. Sums go in place into the
-// accumulators.
+// `detect`), and the six more of a polarized detection (:214-217, 240-247),
+// with the elementwise work around them. Contract (instruments/distant.py
+// `detect_plain`), per lane: the wavelength bin b = #(borders <= lam) - 1;
+// ok = active & 0 <= b < nb & contrib > 0; c = ok ? contrib : 0;
+// sed[kind, b] += c; stats[:, b] += (ok, cn, cn^2, cn cn^2, cn^2 cn^2) with
+// cn = c * inv_scale; the position projected on the frame axes gives pixel
+// (ix, iy), and frame[kind, b, iy, ix] += contrib where ok and the pixel
+// lies inside the frame. In the Stokes mode (quv, (B, 3), given) also
+// sed_quv[i, b] += quv_i c and, where frame_quv is given (not for the
+// transparent kind), frame_quv[i, b, iy, ix] += quv_i contrib where the
+// frame takes the lane. Sums go in place into the accumulators.
 //
 // What bounds it on the H100: not the card (B = 131,072 lanes read 3.7 MB,
 // about 0.001 ms of HBM time) but the host: the seven-call form took 1-2 ms
@@ -29,15 +33,20 @@
 // keep the bin they would have (the plain version's clamped bin) with zero
 // values, so that they do not split the warp's group.
 //
+// The Stokes mode is the same launch with three more rows in the table (9 nb
+// entries) and three more cubes in the scratch: a warp's group sums its
+// lanes' Stokes values beside the intensity, with the same shuffles.
+//
 // The call's sums start from zero, as the seven-call form's did, and reach
 // the run's accumulators once per bin: adding every block's or warp's part
 // straight into a run-long sum rounds the same way thousands of times when
 // the parts are equal (1.8e-5 on config 1's transparent SED). So the blocks
-// add into `scratch` (table, then frame cube), which is zero on entry, and
-// list each entry they touch, once: a flag per entry set to the call's
-// epoch decides, not the sum, since global float atomics flush a subnormal
-// addend (a cn^4 sum in a Wien-tail bin) to zero, so that a sum can stay
-// zero after an add. The last block to finish (a ticket after a memory
+// add into `scratch` (table, then frame cube, then the Stokes cubes), which
+// is zero on entry, and list each entry they touch, once: a flag per entry
+// set to the call's epoch decides, not the sum, since global float atomics
+// flush a subnormal addend (a cn^4 sum in a Wien-tail bin) to zero, so that
+// a sum can stay zero after an add, and a Stokes sum is signed and can
+// cancel to zero. The last block to finish (a ticket after a memory
 // fence) adds the listed entries into the accumulators and zeroes their
 // sums, leaving the scratch zero for the next call, whose new epoch clears
 // the flags without a write. It takes four entries per thread at a time,
@@ -72,11 +81,12 @@ struct Scratch {
   int epoch;
 };
 
-// Add v (>= 0) into sum[j] and append j to the list the first time an add
-// reaches it; all 32 lanes of the warp must call, with add = false where
-// they have nothing to add. Sums only grow, so an entry whose sum was
-// nonzero before this add is listed already, and only an add that finds it
-// zero consults the flag.
+// Add v into sum[j] and append j to the list the first time an add reaches
+// it; all 32 lanes of the warp must call, with add = false where they have
+// nothing to add. An entry whose sum was nonzero before this add was
+// reached before, so it is listed already: only an add that finds the sum
+// zero (never reached, or a signed Stokes sum that cancelled) consults the
+// flag, and the flag lists the entry once.
 __device__ __forceinline__ void add_listed(const Scratch& s, bool add, int j,
                                            float v) {
   const bool first = add && atomicAdd(s.sum + j, v) == 0.0f &&
@@ -98,27 +108,42 @@ __device__ __forceinline__ unsigned group_heads(int key) {
                                   (threadIdx.x & 31) == __ffs(same) - 1);
 }
 
-// lam, contrib: (B,); pos: (B, 3); active: (B,) bytes; borders: (nb + 1,);
-// sed: the kind's (nb,) row; stats: (5, nb) or null; frame: the kind's
-// (nb, npy, npx) cube or null; scratch: sums, flags and list of 6 nb + the
-// cube's bins each.
+// Which rows of the table a call fills: the SED row 0, the statistics rows
+// 1-5 where stats are recorded, the Stokes rows 6-8 in the Stokes mode.
+__device__ __forceinline__ bool row_on(int r, bool stats, bool quv) {
+  return r == 0 || (r < 6 ? stats : quv);
+}
+
+// lam, contrib: (B,); pos: (B, 3); active: (B,) bytes; quv: (B, 3) or null
+// (the Stokes mode); borders: (nb + 1,); sed: the kind's (nb,) row; stats:
+// (5, nb) or null; frame: the kind's (nb, npy, npx) cube or null; sed_quv:
+// (3, nb), given with quv; frame_quv: (3, nb, npy, npx) or null; scratch:
+// sums, flags and list of rows nb + the cubes' bins each, rows = 9 in the
+// Stokes mode, else 6.
 __global__ void detect_kernel(const float* __restrict__ lam,
                               const float* __restrict__ pos,
                               const float* __restrict__ contrib,
                               const unsigned char* __restrict__ active,
+                              const float* __restrict__ quv,
                               const float* __restrict__ borders, int nb,
                               float inv_scale, Frame f,
                               float* __restrict__ sed,
                               float* __restrict__ stats,
-                              float* __restrict__ frame, Scratch scr,
+                              float* __restrict__ frame,
+                              float* __restrict__ sed_quv,
+                              float* __restrict__ frame_quv, Scratch scr,
                               int B) {
   extern __shared__ float smem[];
+  const bool has_stats = stats != nullptr, has_quv = quv != nullptr;
+  const int rows = has_quv ? 9 : 6;
+  // scratch layout: the table's rows, the frame cube, the 3 Stokes cubes
+  const int cube = frame != nullptr ? nb * f.npy * f.npx : 0;
+  const int frame0 = rows * nb, quv0 = frame0 + cube;
   float* bord = smem;               // nb + 1 borders
-  float* table = smem + nb + 1;     // SED row, then the 5 statistics rows
+  float* table = smem + nb + 1;     // SED row, 5 statistics, 3 Stokes rows
   __shared__ int last, listed;
-  const int nrows = stats != nullptr ? 6 : 1;
   for (int i = threadIdx.x; i <= nb; i += blockDim.x) bord[i] = borders[i];
-  for (int i = threadIdx.x; i < nrows * nb; i += blockDim.x) table[i] = 0.0f;
+  for (int i = threadIdx.x; i < rows * nb; i += blockDim.x) table[i] = 0.0f;
   __syncthreads();
 
   const int stride = gridDim.x * blockDim.x;
@@ -146,7 +171,16 @@ __global__ void detect_kernel(const float* __restrict__ lam,
     const float c = ok ? v : 0.0f;
     const float cn = c * inv_scale;
     const float cn2 = cn * cn;
-    const float row[6] = {c, ok ? 1.0f : 0.0f, cn, cn2, cn * cn2, cn2 * cn2};
+    // the lane's Stokes values, read only in the Stokes mode
+    float q[3] = {0.0f, 0.0f, 0.0f};
+    if (has_quv && in) {
+      q[0] = quv[3 * i];
+      q[1] = quv[3 * i + 1];
+      q[2] = quv[3 * i + 2];
+    }
+    const float row[9] = {c,        ok ? 1.0f : 0.0f, cn,
+                          cn2,      cn * cn2,         cn2 * cn2,
+                          q[0] * c, q[1] * c,         q[2] * c};
 
     const int lane = threadIdx.x & 31;
     const int key = in ? min(max(b, 0), nb - 1) : -1;
@@ -155,8 +189,8 @@ __global__ void detect_kernel(const float* __restrict__ lam,
       for (; heads != 0; heads &= heads - 1) {
         const int k = __shfl_sync(kFull, key, __ffs(heads) - 1);
 #pragma unroll
-        for (int r = 0; r < 6; ++r) {
-          if (r < nrows) {
+        for (int r = 0; r < 9; ++r) {
+          if (row_on(r, has_stats, has_quv)) {
             const float s = warp_sum(key == k ? row[r] : 0.0f);
             if (lane == 0 && s != 0.0f) atomicAdd(table + r * nb + k, s);
           }
@@ -164,8 +198,9 @@ __global__ void detect_kernel(const float* __restrict__ lam,
       }
     } else if (ok) {
 #pragma unroll
-      for (int r = 0; r < 6; ++r)
-        if (r < nrows && row[r] != 0.0f) atomicAdd(table + r * nb + b, row[r]);
+      for (int r = 0; r < 9; ++r)
+        if (row_on(r, has_stats, has_quv) && row[r] != 0.0f)
+          atomicAdd(table + r * nb + b, row[r]);
     }
 
     if (frame != nullptr) {
@@ -180,23 +215,36 @@ __global__ void detect_kernel(const float* __restrict__ lam,
             iy < (float)f.npy)
           pix = (b * f.npy + (int)iy) * f.npx + (int)ix;
       }
+      const bool fq = frame_quv != nullptr;
       unsigned pheads = group_heads(pix);
       if (__popc(pheads) <= kGroups) {
         for (; pheads != 0; pheads &= pheads - 1) {
           const int k = __shfl_sync(kFull, pix, __ffs(pheads) - 1);
           const float s = warp_sum(pix == k ? c : 0.0f);
-          add_listed(scr, lane == 0, 6 * nb + k, s);
+          add_listed(scr, lane == 0, frame0 + k, s);
+          if (fq) {
+#pragma unroll
+            for (int r = 0; r < 3; ++r) {
+              const float sq = warp_sum(pix == k ? row[6 + r] : 0.0f);
+              add_listed(scr, lane == 0, quv0 + r * cube + k, sq);
+            }
+          }
         }
       } else {
-        add_listed(scr, pix >= 0, 6 * nb + pix, c);
+        add_listed(scr, pix >= 0, frame0 + pix, c);
+        if (fq) {
+#pragma unroll
+          for (int r = 0; r < 3; ++r)
+            add_listed(scr, pix >= 0, quv0 + r * cube + pix, row[6 + r]);
+        }
       }
     }
   }
   __syncthreads();
   // the block's table into the call's sums (whole warps iterate together)
-  for (int base = 0; base < nrows * nb; base += blockDim.x) {
+  for (int base = 0; base < rows * nb; base += blockDim.x) {
     const int i = base + threadIdx.x;
-    const float h = i < nrows * nb ? table[i] : 0.0f;
+    const float h = i < rows * nb ? table[i] : 0.0f;
     add_listed(scr, h != 0.0f, i, h);
   }
   __threadfence();
@@ -217,10 +265,12 @@ __global__ void detect_kernel(const float* __restrict__ lam,
     for (int u = 0; u < kPer; ++u) {
       const int k = k0 + u * blockDim.x;
       const int j = k < listed ? __ldcg(scr.list + k) : -1;
-      dst[u] = j < 0 ? nullptr
-                     : (j < nb ? sed + j
-                               : (j < 6 * nb ? stats + (j - nb)
-                                             : frame + (j - 6 * nb)));
+      dst[u] = j < 0        ? nullptr
+               : j < nb     ? sed + j
+               : j < 6 * nb ? stats + (j - nb)
+               : j < frame0 ? sed_quv + (j - 6 * nb)
+               : j < quv0   ? frame + (j - frame0)
+                            : frame_quv + (j - quv0);
       v[u] = j < 0 ? 0.0f : atomicExch(scr.sum + j, 0.0f);
     }
     // the targets are distinct, so every load may precede every store
@@ -240,20 +290,25 @@ __global__ void detect_kernel(const float* __restrict__ lam,
 
 extern "C" int detect_launch(const void* lam, const void* pos,
                              const void* contrib, const void* active,
-                             const void* borders, void* sed, void* stats,
-                             void* frame, void* sums, void* flags,
+                             const void* quv, const void* borders, void* sed,
+                             void* stats, void* frame, void* sed_quv,
+                             void* frame_quv, void* sums, void* flags,
                              void* list, void* counts, int B, int nb, int npx,
-                             int npy, int epoch, float inv_scale, float ex0, float ex1, float ex2,
-                             float ey0, float ey1, float ey2, float cx,
-                             float cy, float inv_fovx, float inv_fovy,
-                             void* stream) {
+                             int npy, int epoch, float inv_scale, float ex0,
+                             float ex1, float ex2, float ey0, float ey1,
+                             float ey2, float cx, float cy, float inv_fovx,
+                             float inv_fovy, void* stream) {
   using namespace skirt9;
+  // the Stokes mode takes the SED's Stokes rows, and the frame's cubes
+  // only with a frame
   if (B < 0 || nb < 1 || (frame != nullptr && (npx < 1 || npy < 1)) ||
       sums == nullptr || flags == nullptr || list == nullptr ||
-      counts == nullptr || epoch == 0)
+      counts == nullptr || epoch == 0 || (quv == nullptr) != (sed_quv == nullptr) ||
+      (frame_quv != nullptr && (quv == nullptr || frame == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t smem = (size_t)(nb + 1 + 6 * nb) * sizeof(float);
+  const int rows = quv != nullptr ? 9 : 6;
+  const size_t smem = (size_t)(nb + 1 + rows * nb) * sizeof(float);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -270,8 +325,9 @@ extern "C" int detect_launch(const void* lam, const void* pos,
   if (blocks > 132) blocks = 132;
   detect_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const float*)lam, (const float*)pos, (const float*)contrib,
-      (const unsigned char*)active, (const float*)borders, nb, inv_scale, f,
-      (float*)sed, (float*)stats, (float*)frame,
+      (const unsigned char*)active, (const float*)quv, (const float*)borders,
+      nb, inv_scale, f, (float*)sed, (float*)stats, (float*)frame,
+      (float*)sed_quv, (float*)frame_quv,
       Scratch{(float*)sums, (int*)flags, (int*)list, (int*)counts, epoch},
       B);
   return (int)cudaGetLastError();

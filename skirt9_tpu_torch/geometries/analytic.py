@@ -1,9 +1,9 @@
 """Analytic geometries: normalised density profiles.
 
-Port of the part of `skirt9_tpu/geometries/analytic.py` that config 2
-reaches: `Geometry`, `SphericalProfileGeometry` and `ShellGeometry`, with
-their host-side `density_np` (unit total mass) and `rmax`, which the medium
-build needs. Sampling positions from a geometry serves `GeometricSource`,
+Port of the part of `skirt9_tpu/geometries/analytic.py` that configs 2
+and 5 reach: `Geometry`, `SphericalProfileGeometry`, `ShellGeometry` and
+`ExpDiskGeometry`, with their host-side `density_np` (unit total mass) and
+the shell's `rmax`, which the medium build needs. Sampling positions from a geometry serves `GeometricSource`,
 which is not ported yet: `sample` raises NotImplementedError.
 """
 
@@ -58,3 +58,20 @@ class ShellGeometry(SphericalProfileGeometry):
             integral = 4 * np.pi * np.log(self.rmax / self.rmin)
         out = np.where((r >= self.rmin) & (r <= self.rmax), r ** -self.p, 0.0)
         return out / integral
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpDiskGeometry(Geometry):
+    """Double-exponential disk rho ~ exp(-R/hR) exp(-|z|/hz)
+    (ref: ExpDiskGeometry); the inner and outer truncations are ignored,
+    as in the reference."""
+
+    h_r: float = 1.0
+    h_z: float = 0.2
+
+    def density_np(self, pos: np.ndarray) -> np.ndarray:
+        pos = np.asarray(pos, np.float64)
+        R = np.hypot(pos[..., 0], pos[..., 1])
+        z = np.abs(pos[..., 2])
+        norm = 1.0 / (4 * np.pi * self.h_r ** 2 * self.h_z)
+        return norm * np.exp(-R / self.h_r - z / self.h_z)

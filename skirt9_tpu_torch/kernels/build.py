@@ -64,10 +64,11 @@ _SIGNATURES = {
     "sweep_deposit_launch": [_P] * 16 + [_I] * 9 + [_F] * 7 + [_P],
     # idx, val, out, n, size, stream
     "scatter_add_launch": [_P] * 3 + [_I] * 2 + [_P],
-    # lam, pos, contrib, active, borders, sed row, stats, frame cube,
-    # scratch sums, flags, list, counts, B, nb, npx, npy, epoch,
-    # 1/stats_scale, ex (3), ey (3), centerx, centery, 1/fovx, 1/fovy, stream
-    "detect_launch": [_P] * 12 + [_I] * 5 + [_F] * 11 + [_P],
+    # lam, pos, contrib, active, Stokes q/u/v (or null), borders, sed row,
+    # stats, frame cube, Stokes rows, Stokes cubes, scratch sums, flags,
+    # list, counts, B, nb, npx, npy, epoch, 1/stats_scale, ex (3), ey (3),
+    # centerx, centery, 1/fovx, 1/fovy, stream
+    "detect_launch": [_P] * 15 + [_I] * 5 + [_F] * 11 + [_P],
     # pos, dir, active, sig, nd, out, prefix, total, runsum, axis, smin,
     # smax, B, C, nx, ny, nz, nmax, hint, mode, run, lox, loy, loz, hx, hy,
     # hz, 1/hx, 1/hy, 1/hz, stream

@@ -1,10 +1,10 @@
 """Geometric media: per-cell medium state from analytic geometries.
 
 Port of the part of `skirt9_tpu/media/geometric.py` (host numpy) that
-config 2 reaches: the optical-depth normalisation, the deterministic
-midpoint cell quadrature `cell_densities`, and `build_medium` onto
-`media.system.make_medium`. The mass, number and column-density
-normalisations are not ported yet.
+configs 2 and 5 reach: the optical-depth and number normalisations, the
+deterministic midpoint cell quadrature `cell_densities`, and
+`build_medium` onto `media.system.make_medium`. The mass and
+column-density normalisations are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +39,16 @@ class OpticalDepthNormalization:
         if col <= 0:
             raise ValueError("geometry has zero column along the axis")
         return self.tau / (sigma * col)
+
+
+@dataclasses.dataclass(frozen=True)
+class NumberNormalization:
+    """Total number of entities (ref: NumberMaterialNormalization)."""
+
+    number: float
+
+    def number_factor(self, geometry, mix: mx.MixTables) -> float:
+        return self.number
 
 
 def cell_densities(grid, geometry, samples: int = 64) -> np.ndarray:

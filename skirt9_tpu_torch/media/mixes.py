@@ -1,10 +1,10 @@
 """Material mixes: optical-property tables on a wavelength grid.
 
 A copy of the part of `skirt9_tpu/media/mixes.py` (host numpy, no jax) that
-the golden ski files bench1, bench1h and bench2 reach: `MixTables`,
-`tabulated`, `trivial_gas` (TrivialGasMix, which the reference's loader
-builds inline), `from_file` (the MeanFileDustMix text format of
-`tests/golden/mrn_mean.txt`) and `stack`.
+the golden ski files bench1, bench1h, bench2, bench3 and bench5 reach:
+`MixTables`, `tabulated`, `trivial_gas` (TrivialGasMix, which the
+reference's loader builds inline), `from_file` (the MeanFileDustMix text
+format of `tests/golden/mrn_mean.txt`), `electron_mix` and `stack`.
 The reference's analytic benchmark mixes and resource-pack readers are not
 ported yet.
 """
@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from ..utils import constants as c
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +78,16 @@ def from_file(path: str) -> MixTables:
         d = d[::-1]
         lam = lam[::-1]
     return tabulated(lam, d[:, 1] * mu, d[:, 2], d[:, 3], mu=mu)
+
+
+def electron_mix(n: int = 8) -> MixTables:
+    """Free electrons: wavelength-independent Thomson scattering; the
+    dipole phase function stands as HG g = 0 unless the loader attaches
+    the Mueller tables of `ops.stokes.electron_mueller`
+    (ref: SKIRT/core/ElectronMix.hpp:56)."""
+    lam = np.geomspace(1e-11, 1e-2, n)
+    return MixTables(lam=lam, sigma_ext=np.full(n, c.SIGMA_THOMSON),
+                     albedo=np.ones(n), g=np.zeros(n), mu=c.ELECTRON_MASS)
 
 
 def stack(mixes: list[MixTables], lam_grid: np.ndarray | None = None):

@@ -3,7 +3,7 @@
 Port of `skirt9_tpu/media/system.py:30-183`. The medium is a pair of dense
 tables: nd[cell, h] number densities and (H, T) cross-section / asymmetry
 tables on a wavelength axis, gathered once per packet wavelength into
-(B, H) `Optics`.
+(B, H) `Optics`, and the per-cell bulk velocities of moving media.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ class MediumTables(NamedTuple):
     sigma_ext: torch.Tensor  # (H, T) extinction cross section [m^2]
     sigma_sca: torch.Tensor  # (H, T) scattering cross section [m^2]
     g: torch.Tensor          # (H, T) HG asymmetry parameter
+    bulk_v: torch.Tensor     # (ncells, 3) bulk velocity [m/s]
 
     @property
     def ncomp(self) -> int:
@@ -105,12 +106,15 @@ def uniform_density_sphere(grid, tau_radius: float, sigma_ext_val: float,
 
 
 def make_medium(grid, nd: np.ndarray, lam_t: np.ndarray, sigma_ext: np.ndarray,
-                albedo: np.ndarray, g: np.ndarray, **unsupported) -> MediumTables:
+                albedo: np.ndarray, g: np.ndarray,
+                bulk_v: np.ndarray | None = None,
+                **unsupported) -> MediumTables:
     """Assemble MediumTables (on the CPU) from host arrays.
 
-    nd: (ncells,) or (ncells, H); tables: (T,) or (H, T). Per-cell
-    velocities, temperatures, magnetic fields and metallicities serve
-    features that are not ported yet and raise."""
+    nd: (ncells,) or (ncells, H); tables: (T,) or (H, T); bulk_v: (ncells,
+    3) per-cell bulk velocities, zeros by default. Per-cell temperatures,
+    magnetic fields and metallicities serve features that are not ported
+    yet and raise."""
     given = [k for k, v in unsupported.items() if v is not None]
     if given:
         raise NotImplementedError(
@@ -122,5 +126,8 @@ def make_medium(grid, nd: np.ndarray, lam_t: np.ndarray, sigma_ext: np.ndarray,
     albedo = np.atleast_2d(np.asarray(albedo, np.float64))
     g = np.atleast_2d(np.asarray(g, np.float64))
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32))
+    if bulk_v is None:
+        bulk_v = np.zeros((nd.shape[0], 3), np.float32)
     return MediumTables(nd=f32(nd), lam_t=f32(lam_t), sigma_ext=f32(sigma_ext),
-                        sigma_sca=f32(sigma_ext * albedo), g=f32(g))
+                        sigma_sca=f32(sigma_ext * albedo), g=f32(g),
+                        bulk_v=f32(bulk_v))

@@ -95,6 +95,8 @@ class Simulation:
     units: UnitSystem | None = None
     cosmology: object = None
     probes: list = dataclasses.field(default_factory=list)
+    # the Mueller tables of polarized scattering (`ops.stokes`), or None
+    mueller: object = None
     device: object = dataclasses.field(default="cuda", kw_only=True)
 
     def __post_init__(self):
@@ -126,6 +128,12 @@ class Simulation:
             torch.tensor(np.asarray(self.rf_borders, np.float32), device=dev)
             if self.rf_borders is not None else None)
         self._sweep_tabs = self._engine_tables()
+        lc.check_engine(self.options, self._sweep_tabs)
+        lc.check_kinematics(self.medium, self.options,
+                            len(self.rf_borders) - 1 if self.options.store_rf
+                            and self.rf_borders is not None else 0)
+        if self.mueller is not None:
+            self.mueller = self.mueller.to(dev)
         # RF accumulator unit [W m]: keeps f32 in range for luminous sources
         self.rf_scale = max(L_tot / max(self.num_packets, 1)
                             * self.grid.diagonal(), 1e-300)
@@ -146,6 +154,11 @@ class Simulation:
         `locate` is one gather (`:199-202`)."""
         if sw.supports_sweep(self.grid, self.medium):
             return sw.build_tables(self.grid, self.medium)
+        if self.options.kinematics and isinstance(self.grid, (OctreeGrid,
+                                                              BinTreeGrid)):
+            raise NotImplementedError(
+                f"kinematics on a {type(self.grid).__name__} not ported yet "
+                "(the resident sweep)")
         tabs = None
         if ml.supports(self.grid, self.medium, self.options):
             tabs = ml.build_tables(self.grid, self.medium)
@@ -333,7 +346,8 @@ class Simulation:
             rf, accs = lc.life_cycle(self.medium, opts, self.instruments,
                                      self._inst_tabs, self._rf_borders_dev,
                                      pkt, rf, accs, self._sweep_tabs,
-                                     stats=self.last_stats)
+                                     stats=self.last_stats,
+                                     mueller=self.mueller)
             _log().progress(min((b + 1) * B, n_packets), n_packets)
         return rf, accs
 
@@ -376,7 +390,8 @@ class Simulation:
             rf, accs, pkt = lc.life_cycle(
                 self.medium, opts_k, self.instruments, self._inst_tabs,
                 self._rf_borders_dev, pkt, rf, accs, self._sweep_tabs,
-                stats=stats, emit_mask=refill, return_state=True)
+                stats=stats, emit_mask=refill, return_state=True,
+                mueller=self.mueller)
             next_hist += min(B - n_alive, hist_end - next_hist)
             n_alive = int(pkt.alive.sum())
             stats["syncs"] = stats.get("syncs", 0) + 1
@@ -712,7 +727,11 @@ class Simulation:
 
     def write_outputs(self, accs, prefix: str, outdir: str = ".") -> list[str]:
         """Calibrate and write instrument outputs: `<prefix>_<name>_sed.dat`
-        and, for frame instruments, `<prefix>_<name>_total.fits`."""
+        (with the Stokes Q, U, V columns where the instrument records
+        polarization) and, for frame instruments,
+        `<prefix>_<name>_total.fits` and, with polarization,
+        `<prefix>_<name>_stokes{Q,U,V}.fits` (the reference's writer,
+        `skirt9_tpu/simulation.py:1398-1461`)."""
         paths = []
         us = self.units or UnitSystem()
         names = [("total", "total flux"),
@@ -730,6 +749,11 @@ class Simulation:
                 cols.append(us.out_flux(np.atleast_1d(sed[key]), lam_m))
                 hdr.append(f"# column {i + 2}: {desc}; {us.flux_symbol} "
                            f"({us.flux_unit})")
+            if "Q" in sed:
+                for sk in ("Q", "U", "V"):
+                    cols.append(us.out_flux(np.atleast_1d(sed[sk]), lam_m))
+                    hdr.append(f"# column {len(cols)}: total Stokes {sk}; "
+                               f"{us.flux_symbol} ({us.flux_unit})")
             if "R" in sed:
                 cols += [np.atleast_1d(sed["R"]), np.atleast_1d(sed["VOV"])]
                 hdr.append(f"# column {len(cols) - 1}: relative error R (1)")
@@ -742,12 +766,17 @@ class Simulation:
                 np.savetxt(f, np.column_stack(cols))
             paths.append(p)
             if cfg.has_frame:
-                cube = dinst.calibrate_frame(cfg, acc)
-                p2 = os.path.join(outdir, f"{prefix}_{cfg.name}_total.fits")
-                fitsio.write_fits(p2, cube.astype(np.float32), {
-                    "BUNIT": "W/m2/m/sr",
-                    "CDELT1": cfg.fovx / cfg.npx,
-                    "CDELT2": cfg.fovy / cfg.npy,
-                })
-                paths.append(p2)
+                cubes = [("total", dinst.calibrate_frame(cfg, acc))]
+                if cfg.record_polarization and "frame_stokes" in acc:
+                    cubes += zip(("stokesQ", "stokesU", "stokesV"),
+                                 dinst.calibrate_stokes_frames(cfg, acc))
+                for name, cube in cubes:
+                    p2 = os.path.join(outdir,
+                                      f"{prefix}_{cfg.name}_{name}.fits")
+                    fitsio.write_fits(p2, cube.astype(np.float32), {
+                        "BUNIT": "W/m2/m/sr",
+                        "CDELT1": cfg.fovx / cfg.npx,
+                        "CDELT2": cfg.fovy / cfg.npy,
+                    })
+                    paths.append(p2)
         return paths

@@ -176,6 +176,13 @@ def launch_batch(source, tabs: dict, grid, seed_key: torch.Tensor,
     pos, cell, _ = grid.move_inside(f["pos"], f["dir"])
     valid = history < (n_total if hist_end is None else hist_end)
     lum = f["lum"]
+    B = history.shape[0]
+    # unpolarized, with the reference's normal (1, 0, 0) whatever the
+    # direction (`skirt9_tpu/sources/base.py:325-328`)
+    stokes = torch.zeros((B, 4), dtype=torch.float32, device=lum.device)
+    stokes[:, 0] = 1.0
+    normal = torch.zeros((B, 3), dtype=torch.float32, device=lum.device)
+    normal[:, 0] = 1.0
     return PacketBatch(
         lam=f["lam"],
         lum=torch.where(valid, lum, torch.zeros_like(lum)),
@@ -183,4 +190,4 @@ def launch_batch(source, tabs: dict, grid, seed_key: torch.Tensor,
         pos=pos, dir=f["dir"], cell=cell,
         nscat=torch.zeros_like(history),
         alive=valid & (lum > 0),
-        hkey=hkeys)
+        hkey=hkeys, stokes=stokes, normal=normal)

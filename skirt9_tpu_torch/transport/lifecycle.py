@@ -10,6 +10,19 @@ emission peel-off, then up to max_events forced-scattering events, each
      the observer direction, then `instruments.distant.detect`),
   5. HG scattering, albedo weighting and the weight-cutoff test.
 
+With Mueller tables (`life_cycle(..., mueller=)`, polarization) steps 4
+and 5 track the Stokes vector: the peel-off rotates the packet's frame into
+the scattering plane, applies the Mueller matrix and records Q, U, V in
+the instrument frame, and the scattering event samples the polarized phase
+function and carries the Stokes vector and reference normal on. With
+kinematics each interaction sees the wavelength in its cell's rest frame,
+and the scattered packet takes the Doppler shift of its new direction. Both
+ride the resident sweep only, and kinematics only where every component's
+cross sections are wavelength-independent and at most one RF bin is stored
+(the reference's `kin_ok`, `skirt9_tpu/transport/lifecycle.py:529-542`):
+the perceived-wavelength opacity then equals the launch-wavelength one, so
+the sweep's constant per-lane cross sections stay exact.
+
 On the resident sweep, pass 1 is one `sweep_dtau_prefix` launch (the slab
 prefix and the lane range come out of the kernel), pass 2 one
 `sweep_deposit_prefix` launch (it takes the prefix, the range, the
@@ -65,6 +78,7 @@ from ..instruments import distant as dinst
 from ..media import system as msys
 from ..ops import phase as phs
 from ..ops import rng
+from ..ops import stokes as stk
 from . import mlsweep as ml
 from . import sweep as sw
 from . import sweepxl as xl
@@ -80,6 +94,7 @@ _TAG_SCATTER_CT = 25
 _TAG_SCATTER_PHI = 26
 
 _ISO = 1.0 / (4.0 * math.pi)
+_INV_C = 1.0 / 2.99792458e8  # inverse speed of light [s/m]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,11 +129,9 @@ class TransportOptions:
 
 
 _NOT_PORTED = (
-    ("polarization", lambda o: o.polarization),
     ("compton", lambda o: o.compton),
     ("lya", lambda o: o.lya or o.lya_variable or o.lya_xcrit > 0),
     ("xray", lambda o: o.xray),
-    ("kinematics", lambda o: o.kinematics),
     ("emission_doppler", lambda o: o.emission_doppler),
     ("explicit_absorption", lambda o: o.explicit_absorption),
 )
@@ -130,6 +143,45 @@ def check_supported(opts: TransportOptions) -> None:
     if missing:
         raise NotImplementedError(
             f"transport options not ported yet: {', '.join(missing)}")
+
+
+def check_engine(opts: TransportOptions, sweep_tabs) -> None:
+    """Polarization and kinematics ride the resident sweep only: on the
+    tree (multi-level) and large-grid (XL) engines they raise."""
+    engine = ("tree (multi-level)" if isinstance(sweep_tabs, ml.MLTables)
+              else "large-grid (XL)" if isinstance(sweep_tabs, xl.XLTables)
+              else None)
+    on = [name for name in ("polarization", "kinematics")
+          if getattr(opts, name)]
+    if engine is not None and on:
+        raise NotImplementedError(f"{' and '.join(on)} on the {engine} "
+                                  "sweep not ported yet (the resident sweep)")
+
+
+def check_kinematics(med: msys.MediumTables, opts: TransportOptions,
+                     rf_nbins: int) -> None:
+    """The reference's `kin_ok` gate (`skirt9_tpu/transport/lifecycle.py:
+    537-542`): kinematics rides the sweep only where every component's
+    cross sections are wavelength-independent and at most one RF bin is
+    stored; otherwise the reference takes its scan march, which is not
+    ported, so this raises."""
+    if not opts.kinematics:
+        return
+    se, ss = med.sigma_ext, med.sigma_sca
+    if not bool(torch.all(se == se[:, :1]) and torch.all(ss == ss[:, :1])):
+        raise NotImplementedError(
+            "kinematics with wavelength-dependent cross sections (the "
+            "reference's scan march; not ported)")
+    if rf_nbins > 1:
+        raise NotImplementedError(
+            "kinematics with a multi-bin radiation field (the reference's "
+            "scan march; not ported)")
+
+
+def _dot3(a, b):
+    """Row-wise dot products of (B, 3) tensors, summed as (x + y) + z."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
 # --------------------------------------------------- shared event primitives
@@ -246,9 +298,13 @@ def _observer_groups(inst_cfgs) -> list[list[int]]:
 
 
 def peel_off(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr, kind: int,
-             active, tracer, transparent_too: bool = False):
+             active, tracer, transparent_too: bool = False, lam_fn=None):
     """Peel a batch of events off toward every distant instrument.
-    contrib_per_sr(kobs) -> (B,) luminosity per steradian toward kobs."""
+    contrib_per_sr(i, kobs) -> ((B,) luminosity per steradian toward
+    instrument i's direction kobs, (B, 3) Stokes Q, U, V in its frame or
+    None); lam_fn(kobs): the detection wavelengths where they are not lam
+    (a moving cell's Doppler shift). The transparent kind records no
+    Stokes, as in the reference."""
     B = lam.shape[0]
     for group in _observer_groups(inst_cfgs):
         kobs = inst_tabs[group[0]]["kobs"]
@@ -256,13 +312,75 @@ def peel_off(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr, kind: int,
                          inst_cfgs[group[0]].frame_axes()[0])
         att = torch.exp(-tau_obs)
         for i in group:
-            per_sr = contrib_per_sr(inst_tabs[i]["kobs"])
-            dinst.detect(inst_cfgs[i], inst_tabs[i], accs[i], lam, pos,
-                         per_sr * att, kind, active)
+            ko = inst_tabs[i]["kobs"]
+            per_sr, quv = contrib_per_sr(i, ko)
+            lam_i = lam if lam_fn is None else lam_fn(ko)
+            dinst.detect(inst_cfgs[i], inst_tabs[i], accs[i], lam_i, pos,
+                         per_sr * att, kind, active, stokes_quv=quv)
             if transparent_too:
-                dinst.detect(inst_cfgs[i], inst_tabs[i], accs[i], lam, pos,
+                dinst.detect(inst_cfgs[i], inst_tabs[i], accs[i], lam_i, pos,
                              per_sr, dinst.KIND_TRANSPARENT, active)
     return accs
+
+
+def _detector_normals(inst_tabs) -> list:
+    """Per instrument, the Q/U reference normal of its frame, cross(kobs,
+    north) with north its up direction e_y made perpendicular to kobs (the
+    reference's polarized peel-off, `skirt9_tpu/transport/lifecycle.py:
+    1303-1312`), on the device once per life cycle."""
+    out = []
+    for tab in inst_tabs:
+        kobs, ey = tab["kobs"], tab["ey"]
+        north = ey - torch.sum(ey * kobs) * kobs
+        north = north / torch.clamp_min(torch.linalg.vector_norm(north),
+                                        1e-30)
+        out.append(torch.cross(kobs, north, dim=-1))
+    return out
+
+
+def polarized_per_sr(pkt, mueller, h, s11n, lum_alb, kobs, n_det):
+    """The polarized scattering peel-off toward kobs (`skirt9_tpu/transport/
+    lifecycle.py:1277-1316`): rotate the packet's reference normal into the
+    scattering plane, apply the Mueller matrix, normalise, take the phase
+    from the S11 integral, and rotate the Stokes vector from the plane's
+    normal into the instrument frame's by beta. Returns (luminosity per
+    steradian, (B, 3) Q, U, V). n_det: the instrument's Q/U reference
+    normal (`_detector_normals`)."""
+    B = pkt.lam.shape[0]
+    ko = kobs.expand(B, 3)
+    ct_o = torch.sum(pkt.dir * ko, dim=-1)
+    phi_o, pn = stk.rotate_normal_into_plane(pkt.dir, pkt.normal, ko)
+    S11, S12, S33, S34 = stk.mueller_at(mueller, h, ct_o)
+    st_obs = stk.apply_mueller(stk.rotate_stokes(pkt.stokes, phi_o), S11,
+                               S12, S33, S34)
+    st_obs, I_obs = stk.normalize_stokes(st_obs)
+    phase = I_obs / torch.clamp_min(
+        2 * math.pi * s11n * torch.clamp_min(pkt.stokes[:, 0], 1e-30), 1e-30)
+    nd = n_det.expand(B, 3)
+    cosb = torch.sum(pn * nd, dim=-1)
+    sinb = torch.sum(torch.cross(pn, nd, dim=-1) * ko, dim=-1)
+    st_final = stk.rotate_stokes(st_obs, torch.atan2(sinb, cosb))
+    return lum_alb * phase, st_final[:, 1:]
+
+
+def polarized_scatter(pkt, mueller, h, u_ct, u_phi):
+    """The polarized scattering event (`skirt9_tpu/transport/lifecycle.py:
+    1346-1365`): cos(theta) from the S11 marginal, the azimuth from the
+    polarization-dependent conditional, then the new direction, reference
+    normal and normalised Stokes vector."""
+    ct = stk.sample_costheta(mueller, h, u_ct)
+    S11, S12, S33, S34 = stk.mueller_at(mueller, h, ct)
+    phi = stk.sample_azimuth(S11, S12, pkt.stokes, u_phi)
+    n_rot = (torch.cos(phi)[:, None] * pkt.normal
+             + torch.sin(phi)[:, None] * torch.cross(pkt.dir, pkt.normal,
+                                                     dim=-1))
+    m = torch.cross(n_rot, pkt.dir, dim=-1)
+    st = torch.sqrt(torch.clamp_min(1.0 - ct * ct, 0.0))
+    newdir = ct[:, None] * pkt.dir + st[:, None] * m
+    newdir = newdir / torch.linalg.vector_norm(newdir, dim=-1, keepdim=True)
+    st_new = stk.apply_mueller(stk.rotate_stokes(pkt.stokes, phi), S11, S12,
+                               S33, S34)
+    return newdir, n_rot, stk.normalize_stokes(st_new)[0]
 
 
 def _unsort(x, perm):
@@ -277,7 +395,7 @@ def _unsort(x, perm):
 def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                inst_tabs, rf_borders, pkt, rf, accs, sweep_tabs,
                stats: dict | None = None, emit_mask=None,
-               return_state: bool = False):
+               return_state: bool = False, mueller=None):
     """Run the complete life cycle of one launched packet batch.
 
     rf: (ncells, nbins) radiation-field accumulator or None; accs: one dict of
@@ -288,8 +406,15 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     freshly launched lanes emit, survivors already did in an earlier call.
     stats, when given, accumulates "events" (event iterations run), "syncs"
     (early-exit tests) and "sync_s" (host seconds spent waiting in them).
+    mueller: the `ops.stokes.MuellerTables` of polarized scattering, on the
+    batch's device; without them the scattering is not polarized, as in the
+    reference.
     """
     check_supported(opts)
+    check_engine(opts, sweep_tabs)
+    check_kinematics(med, opts, rf.shape[1] if opts.store_rf
+                     and rf is not None else 0)
+    polarized = opts.polarization and mueller is not None
     opt = msys.optics_at(med, pkt.lam)
     sigma_lanes = opt.sigma_ext.T.contiguous()   # (H, B)
     h_cells = np.asarray(sweep_tabs.h)
@@ -332,13 +457,16 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             bin_map = torch.tensor([opts.rf_mono_bin], dtype=torch.int32,
                                    device=rf.device)
     do_peel = bool(inst_cfgs) and opts.peel_off
+    if polarized:
+        s11n_h = stk.s11_norm(mueller)
+        n_dets = _detector_normals(inst_tabs)
 
     # ---- emission peel-off
     if do_peel:
         emit = pkt.alive if emit_mask is None else emit_mask & pkt.alive
         peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos,
-                 lambda kobs: pkt.lum * _ISO, kind_direct, emit, tracer,
-                 transparent_too=True)
+                 lambda i, kobs: (pkt.lum * _ISO, None), kind_direct, emit,
+                 tracer, transparent_too=True)
 
     tags = _path_tags(opts) + (_TAG_SCATTER_CT, _TAG_SCATTER_PHI)
     if med.ncomp > 1:
@@ -434,36 +562,73 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             ipos = pkt.pos + s_int[:, None] * pkt.dir
             active_int = active_int & found
 
+            if opts.kinematics:
+                # the wavelength perceived in the interaction cell's rest
+                # frame (ref: PhotonPacket::perceivedWavelength)
+                v_int = med.bulk_v[icell.clamp_min(0)]
+                lam_cell = pkt.lam / (1.0 - _dot3(pkt.dir, v_int) * _INV_C)
+                opt_int = msys.optics_at(med, lam_cell)
+            else:
+                lam_cell, opt_int = pkt.lam, opt
             lum_at = pkt.lum * w_bias
-            albedo = msys.albedo_for_scattering(med, opt, icell)
+            albedo = msys.albedo_for_scattering(med, opt_int, icell)
             pkt = pkt._replace(
                 pos=torch.where(active_int[:, None], ipos, pkt.pos),
                 cell=torch.where(active_int, icell, pkt.cell),
                 lum=torch.where(active_int, lum_at, pkt.lum))
             if med.ncomp > 1:
-                h = msys.select_component(med, opt, icell,
+                h = msys.select_component(med, opt_int, icell,
                                           u[_TAG_SCATTER_COMP])
             else:
                 h = torch.zeros_like(icell)
 
             # scattering peel-off
             if do_peel:
-                w_comp = msys.scattering_weights(med, opt, icell)
                 lum_alb = pkt.lum * albedo
+                lam_fn = None
+                if polarized:
+                    # detected at the packet's incoming lab-frame
+                    # wavelength, as the reference's polarized peel-off
+                    # does (`lifecycle.py:1323-1329`)
+                    s11n = s11n_h[h]
+                    per_sr = lambda i, kobs: polarized_per_sr(
+                        pkt, mueller, h, s11n, lum_alb, kobs, n_dets[i])
+                else:
+                    w_comp = msys.scattering_weights(med, opt_int, icell)
 
-                def per_sr(kobs):
-                    ct = torch.sum(pkt.dir * kobs, dim=-1)
-                    ph = torch.sum(w_comp * phs.hg_phase(opt.g, ct[:, None]),
-                                   dim=-1)
-                    return lum_alb * ph
+                    def per_sr(i, kobs):
+                        ct = torch.sum(pkt.dir * kobs, dim=-1)
+                        ph = torch.sum(w_comp * phs.hg_phase(
+                            opt_int.g, ct[:, None]), dim=-1)
+                        return lum_alb * ph, None
 
+                    if opts.kinematics:
+                        # Doppler-shifted toward each observer
+                        lam_fn = lambda kobs: lam_cell * (
+                            1.0 - _dot3(kobs.expand_as(v_int), v_int)
+                            * _INV_C)
                 peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos, per_sr,
-                         kind_scat, active_int, tracer)
+                         kind_scat, active_int, tracer, lam_fn=lam_fn)
 
             # the scattering event proper
-            g_sel = opt.g.gather(1, h[:, None])[:, 0]
-            newdir = hg_scatter_direction(u[_TAG_SCATTER_CT],
-                                          u[_TAG_SCATTER_PHI], g_sel, pkt.dir)
+            if polarized:
+                newdir, n_rot, st_new = polarized_scatter(
+                    pkt, mueller, h, u[_TAG_SCATTER_CT], u[_TAG_SCATTER_PHI])
+                pkt = pkt._replace(
+                    stokes=torch.where(active_int[:, None], st_new,
+                                       pkt.stokes),
+                    normal=torch.where(active_int[:, None], n_rot,
+                                       pkt.normal))
+            else:
+                g_sel = opt_int.g.gather(1, h[:, None])[:, 0]
+                newdir = hg_scatter_direction(u[_TAG_SCATTER_CT],
+                                              u[_TAG_SCATTER_PHI], g_sel,
+                                              pkt.dir)
+            if opts.kinematics:
+                # the Doppler shift of the new direction out of the cell
+                lam_new = lam_cell * (1.0 - _dot3(newdir, v_int) * _INV_C)
+                pkt = pkt._replace(lam=torch.where(active_int, lam_new,
+                                                   pkt.lam))
             lum_new = pkt.lum * albedo
             nscat_new = pkt.nscat + 1
             survive = survives_cutoff(opts, lum_new, nscat_new, pkt.lum0)

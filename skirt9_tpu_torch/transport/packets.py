@@ -1,8 +1,9 @@
 """Photon-packet batch state: a structure of tensors over the batch.
 
-Port of `skirt9_tpu/transport/packets.py` for the non-polarised slice: the
-Stokes, reference-normal, emitter-velocity and path-length fields serve
-features that the port does not run yet, so they are not carried.
+Port of `skirt9_tpu/transport/packets.py`, with the polarization state
+(the Stokes vector and the reference normal). The emitter-velocity and
+path-length fields serve features that the port does not run yet, so they
+are not carried.
 """
 
 from __future__ import annotations
@@ -24,3 +25,5 @@ class PacketBatch(NamedTuple):
     nscat: torch.Tensor  # (B,) int64 scattering events so far
     alive: torch.Tensor  # (B,) bool, still propagating
     hkey: torch.Tensor   # (B, 2) per-history base RNG key (uint32 in int64)
+    stokes: torch.Tensor  # (B, 4) Stokes (I, Q, U, V) with I normalised to 1
+    normal: torch.Tensor  # (B, 3) reference normal for the Q/U orientation

@@ -923,6 +923,103 @@ def test_config2_on_cuda_matches_cpu(dev):
             sc[k].abs().max())
 
 
+def _scatter_f64(idx, val, size):
+    out = torch.zeros(size, dtype=torch.float64, device=val.device)
+    return out.index_add_(0, idx.long(), val.double()).float()
+
+
+@pytest.mark.parametrize("B,case", [(1 << 17, "random"), (1000, "random"),
+                                    (4097, "random"), (1 << 17, "negative"),
+                                    (4097, "cancel"), (1 << 17, "pile")])
+def test_detect_stokes_kernel(dev, B, case):
+    """The Stokes mode against the plain detect's terms summed exactly, from
+    zeroed accumulators over every kind: each accumulator within 1e-5 of
+    its largest |value|, one launch per call, no frame Stokes for the
+    transparent kind. Cases: random Stokes values; Q all negative; pairs of
+    lanes with opposite Stokes on one bin and pixel, whose sums cancel to
+    zero (and must stay within 1e-6 of the SED's maximum); every lane on
+    one bin and pixel (whole warps in one group)."""
+    rs = np.random.default_rng(B + len(case))
+    nb = 40
+    cfg = dinst.DistantInstrumentCfg(
+        name="i", wave_borders=tuple(np.geomspace(0.4e-6, 0.8e-6, nb + 1)),
+        inclination=np.pi / 2, distance=100 * PC, npx=64, npy=64,
+        fovx=4 * PC, fovy=4 * PC, stats_scale=1e-3,
+        record_polarization=True)
+    lam = np.exp(rs.uniform(np.log(0.38e-6), np.log(0.82e-6), B))
+    pos = rs.uniform(-2.5 * PC, 2.5 * PC, (B, 3))
+    contrib = rs.uniform(0, 1e-3, B) * (rs.uniform(size=B) > 0.1)
+    quv = rs.uniform(-1, 1, (B, 3))
+    quv[:, 2] = 0.0
+    active = rs.uniform(size=B) > 0.1
+    if case == "negative":
+        quv[:, 0] = -np.abs(quv[:, 0])
+    if case == "cancel":
+        for a in (lam, pos, contrib, active):
+            a[1::2] = a[0::2][:B // 2]
+        quv[1::2] = -quv[0::2][:B // 2]
+    if case == "pile":
+        lam[:] = 0.55e-6
+        pos[:] = 0.1 * PC
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    ins = (t32(lam), t32(pos), t32(contrib))
+    act, q = torch.tensor(active, device=dev), t32(quv)
+    tabs = dinst.device_tables(cfg, dev)
+    acc_k = dinst.init_accumulators(cfg, dev)
+    acc_p = dinst.init_accumulators(cfg, dev)
+    for kind in range(dinst.NUM_KINDS):
+        kb.reset_launches()
+        dinst.detect(cfg, tabs, acc_k, *ins, kind, act, stokes_quv=q)
+        assert kb.LAUNCHES["detect"] == 1 and sum(kb.LAUNCHES.values()) == 1
+        dinst.detect_plain(cfg, tabs, acc_p, *ins, kind, act,
+                           scatter=_scatter_f64, stokes_quv=q)
+    scale = float(acc_p["sed"].abs().max())
+    for key in acc_p:
+        ref = acc_p[key]
+        m = float(ref.abs().max())
+        err = float((acc_k[key] - ref).abs().max())
+        if case == "cancel" and key in ("stokes", "frame_stokes"):
+            assert err <= 1e-6 * scale, (key, err)
+            continue
+        assert m > 0, key
+        assert err <= 1e-5 * m, (key, err)
+    assert float(acc_k["stokes"][2].abs().max()) == 0.0
+    # the transparent kind alone: no frame Stokes
+    acc_t = dinst.init_accumulators(cfg, dev)
+    dinst.detect(cfg, tabs, acc_t, *ins, dinst.KIND_TRANSPARENT, act,
+                 stokes_quv=q)
+    assert float(acc_t["frame_stokes"].abs().max()) == 0.0
+    assert float(acc_t["frame"].abs().max()) > 0.0
+    sums, flags, _, counts = tabs["scratch"]
+    assert float(sums.abs().max()) == 0 and int(counts.abs().max()) == 0
+
+
+def test_config5_on_cuda_matches_cpu(dev):
+    """A reduced bench5 (16^3, 8,192 packets in batches of 4,096, 8 events)
+    on the card launches kernels 1, 2 and detect and matches the same seed
+    on the CPU: the transparent and direct light within 1e-5 of each
+    accumulator's maximum, the scattered light at the bounds of
+    tests/test_torch_config5.py (the polarized azimuth's chaos)."""
+    import tempfile
+    from skirt9_tpu_torch.config.ski import load_ski
+    cs = _chip_smoke()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = cs.edited_ski("bench5", tmp, cs.B5_SMALL)
+        for d in ("cpu", dev):
+            sim = load_ski(path, num_packets=8192, batch_size=4096,
+                           max_events=8, device=d)
+            kb.reset_launches()
+            out[str(d)] = sim.run_primary(verbose=False)[1][0]
+            launches = dict(kb.LAUNCHES)
+    for name in ("sweep_tau_total", "sweep_dtau_prefix",
+                 "sweep_deposit_prefix", "detect"):
+        assert launches[name] > 0, name
+    assert launches["sweep_dtau"] == launches["sweep_deposit"] == 0
+    res = cs.b5_errors(out["cpu"], out[str(dev)])
+    assert all(v <= cs.B5_BOUNDS.get(k, 1e-5) for k, v in res.items()), res
+
+
 def _chip_smoke():
     import os
     import sys

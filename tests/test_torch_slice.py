@@ -238,11 +238,26 @@ def test_device_must_be_named(config1, monkeypatch):
 
 
 def test_unported_options_raise(config1):
-    ref_sim = config1[0]
-    for name in ("polarization", "kinematics", "explicit_absorption"):
-        bad = dataclasses.replace(ref_sim.options, **{name: True})
-        with pytest.raises(NotImplementedError, match=name):
-            dataclasses.replace(config1[1], options=bridge.options(bad))
+    ref_sim, sim = config1
+    bad = dataclasses.replace(ref_sim.options, explicit_absorption=True)
+    with pytest.raises(NotImplementedError, match="explicit_absorption"):
+        dataclasses.replace(sim, options=bridge.options(bad))
+    # polarization and kinematics run on the resident sweep only: on XL
+    # tables they raise naming themselves, and kinematics with
+    # wavelength-dependent cross sections names the reference's scan march
+    for name in ("polarization", "kinematics"):
+        opts = bridge.options(dataclasses.replace(ref_sim.options,
+                                                  **{name: True}))
+        other = dataclasses.replace(sim, options=opts)
+        other._sweep_tabs = xl.build_tables(other.grid, other.medium)
+        with pytest.raises(NotImplementedError,
+                           match=f"{name} on the large-grid"):
+            other.run_primary(verbose=False)
+    varying = sim.medium._replace(
+        sigma_ext=sim.medium.sigma_ext * torch.tensor([1.0, 2.0]))
+    with pytest.raises(NotImplementedError,
+                       match="kinematics with wavelength-dependent.*scan"):
+        dataclasses.replace(sim, medium=varying, options=opts)
 
 
 def _reference_octree():
@@ -386,6 +401,18 @@ with tempfile.TemporaryDirectory() as tmp:
     assert sorted(os.listdir(tmp)) == ["bench1_i0_sed.dat",
                                        "bench1_i0_total.fits",
                                        "bench1_log.txt", "bench2_log.txt"]
+# config 5: a reduced bench5.ski (polarized Thomson scattering in a moving
+# electron disk) through the loader, its run and the Stokes outputs
+with tempfile.TemporaryDirectory() as tmp:
+    path = chip_smoke.edited_ski("bench5", tmp, {'numBins="32"':
+                                                 'numBins="8"'})
+    from skirt9_tpu_torch.config.ski import load_ski
+    sim = load_ski(path, num_packets=256, batch_size=128, max_events=2,
+                   device="cpu")
+    assert sim.options.kinematics and sim.options.polarization
+    rf, accs = sim.run_primary(verbose=False)
+    assert float(accs[0]["stokes"].abs().sum()) > 0
+    assert len(sim.write_outputs(accs, "b5", tmp)) == 5
 assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}, kb.LAUNCHES
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = sorted(m for m in sys.modules
@@ -434,5 +461,6 @@ def test_port_sources_import_no_reference():
         "transport/mlsweep.py", "transport/lifecycle.py",
         "transport/sweepxl.py", "parallel/domain.py",
         "sources/secondary.py", "tools/event_profile.py",
-        "tools/kernel5_split.py")} <= set(bad)
+        "tools/kernel5_split.py", "ops/stokes.py",
+        "geometries/vectorfield.py")} <= set(bad)
     assert not {f: n for f, n in bad.items() if n}
