@@ -18,9 +18,11 @@ a 25-bin RF in lane groups and dust self-absorption iterations, kernels
 bench2.ski and bench3.ski; then config 2 at 256^3 (bench2.ski with its
 meshes at 256 bins: the XL contracts with the 25-bin RF in lane groups) and
 bench_config3ismxl's recipe at max_level 9 (a tree on its 512^3 voxel
-raster through the XL contracts); last config 5 (bench5.ski: polarized
-Thomson scattering in a 2000 km/s outflow, detect in its Stokes mode). Every
-path detects through the fused detect kernel (csrc/detect.cu), which took
+raster through the XL contracts); then config 5 (bench5.ski: polarized
+Thomson scattering in a 2000 km/s outflow, detect in its Stokes mode); last
+configs 6 and 7 (bench6.ski: Lyman-alpha resonant line transfer at
+line-centre optical depths up to 10^5; bench7.ski: X-ray gas with Compton
+scattering and Fe K fluorescence). Every path detects through the fused detect kernel (csrc/detect.cu), which took
 kernel 3's place there. Each hand-written CUDA kernel is checked against
 its plain PyTorch version.
 Phases, one JSON line each:
@@ -189,9 +191,11 @@ Phases, one JSON line each:
   cli               the port's CLI (skirt9_tpu_torch.__main__.main) on
                     bench1.ski and bench2.ski at their 10^6 packets and
                     bench3.ski at 2^18 (-p), -b 131072, into a temporary
-                    directory, and bench5.ski and its static copy at
-                    their 2 x 10^6: kernels 1-2 and detect launched
-                    (kernels 4-5 for bench3); wall time each; the gates
+                    directory, bench5.ski and its static copy at
+                    their 2 x 10^6, bench6.ski at its 10^5 (128 events,
+                    --max-events) and bench7.ski at its 10^6: kernels 1-2
+                    and detect launched (kernels 4-5 for bench3); wall
+                    time each; the gates
                     read back from the written files (bench5's SED and
                     Stokes cubes: bench5_gates; bench1's SED against
                     tests/test_reference_parity.py:26-49, bench2's and
@@ -199,7 +203,8 @@ Phases, one JSON line each:
                     against their golden gates), the probe files one row
                     per cell, equal to the run's RF and dust temperature,
                     and bench3's cell-properties file its volumes and
-                    densities
+                    densities; bench6's and bench7's SEDs through
+                    b67_file_gates (bench6's highest peak reported)
   kernels_xl_grouped  kernel 7's prefix mode with lane groups on config 2's
                     first event at 256^3 (B = 131,072, 32 groups folded
                     into the 25 RF rows by the launch's bin map) against
@@ -257,6 +262,32 @@ Phases, one JSON line each:
                     tests/test_frame_parity.py:99-123 at that test's width
   breakdown_b5      one batch of config 5 under torch.profiler, as
                     breakdown
+  kernels_b6        kernels 1, 2 and detect at config 6's first scattering
+                    event (B = 65,536; path depths up to ~1e5; cross
+                    sections per lane; detection wavelengths per lane,
+                    some outside the 75-bin grid) against their plain
+                    versions (check_kernels_b6): lane range, found and
+                    icell identical, tau within 1e-6 of each lane's tau,
+                    s_int within 1e-5 of a cell, detect within 1e-5 of each
+                    maximum; timed, with bounds
+  draw_for_draw_b6  the reduced configs 6 and 7 (B67_SMALL: 4,096 packets,
+  draw_for_draw_b7  12 and 16 events), CPU vs GPU: each SED row within
+                    B6_BOUNDS or B7_BOUNDS of its maximum (stated with
+                    their reasons); kernels 1-2 and detect launched
+  full_width_b6     bench6.ski (bench.py:196-212: 2^17 packets in batches of
+                    2^16, 128 events) through load_ski, timed after a
+                    one-batch warm-up: kernels 1-2 and detect launched,
+                    kernels 4-7 not; every gate of
+                    test_bench6_lya_profile_parity (tests/
+                    test_reference_parity.py:477-506) on the written SED,
+                    the highest peak's bin reported (the golden's two peaks
+                    differ by 0.5%), and every gate with it at the test's
+                    own width (B6_TEST: 20,000 packets)
+  full_width_b7     bench7.ski (bench.py:215-231: 2^18 packets in batches of
+                    2^16, 16 events), likewise, every gate of
+                    test_bench7_xray_parity (:528-566)
+  breakdown_b6      one batch of config 6 under torch.profiler, as
+                    breakdown (the Lya loop's operations per event)
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -303,7 +334,14 @@ OPS_SLAB, OPS_SUB, OPS_DEP = 29, 14, 12
 OPS_LANE, OPS_DETECT = 80, 40
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the seconds since the
+    script started (at_s)."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -2319,7 +2357,9 @@ CLI_B3_PACKETS = 1 << 18
 def phase_cli(torch, smi: str) -> dict:
     """`skirt9_tpu_torch.__main__.main` on bench1.ski and bench2.ski at
     their own 10^6 packets and on bench3.ski at 2^18 packets
-    (`CLI_B3_PACKETS`), in batches of 131,072, into a temporary directory,
+    (`CLI_B3_PACKETS`), bench5.ski and its static copy at 2 x 10^6, bench6.ski
+    at 10^5 (128 events, `--max-events`) and bench7.ski at 10^6, in batches
+    of 131,072, into a temporary directory,
     each driven with the launch counts set to 0: kernels 1-2 and detect
     launched for bench1 and bench2, kernels 4-5 and detect for bench3. The
     gates read the written files: bench1's SED against
@@ -2327,7 +2367,8 @@ def phase_cli(torch, smi: str) -> dict:
     temperature probe files against bench2_gates, bench3's against
     bench3_gates; the probe files hold one row per cell and equal the run's
     RF and dust temperature (and bench3's cell properties its volumes and
-    densities)."""
+    densities); bench6's and bench7's SED files through their golden gates
+    (b67_file_gates)."""
     from skirt9_tpu_torch import __main__ as cli
     from skirt9_tpu_torch.probes import probes
     from skirt9_tpu_torch.utils.fits import read_fits
@@ -2371,6 +2412,27 @@ def phase_cli(torch, smi: str) -> dict:
                 require(bool(np.isfinite(ours).all()
                              and np.isfinite(cube).all())
                         and cube.max() > 0, f"{name} outputs finite, lit")
+            # configs 6 and 7: SED instruments (no frame); bench6's
+            # resonant line at bench_config6's 128 events
+            for name, extra in (("bench6", ["--max-events", "128"]),
+                                ("bench7", [])):
+                t0 = time.perf_counter()
+                rc, launches[name] = drive(
+                    RESIDENT + DETECT, XL + ML + NOT_PATH,
+                    lambda: cli.main([os.path.join(GOLDEN, f"{name}.ski"),
+                                      "-b", "131072", "-o", tmp, *extra]))
+                require(rc == 0, f"CLI on {name}.ski exit code {rc}")
+                res[f"{name}_wall_s"] = time.perf_counter() - t0
+                sim = runs[name][0]
+                res[f"{name}_packets"] = sim.num_packets
+                res[f"{name}_run_s"] = sim.last_stats["seconds"]
+                res[name] = b67_file_gates(
+                    name, os.path.join(tmp, f"{name}_i0_sed.dat"),
+                    strict_peak=False)
+            require(runs["bench6"][0].num_packets == 10 ** 5
+                    and runs["bench7"][0].num_packets == 10 ** 6,
+                    "10^5 packets for bench6 and 10^6 for bench7, as the ski "
+                    "files say")
             require(runs["bench1"][0].num_packets == 10 ** 6
                     and runs["bench2"][0].num_packets == 10 ** 6
                     and runs["bench3"][0].num_packets == CLI_B3_PACKETS
@@ -3485,6 +3547,447 @@ def phase_breakdown_b5(torch) -> None:
     emit({"phase": "breakdown_b5", "packets": B_FULL, **prof})
 
 
+# ------------------------------------------------------------ configs 6, 7
+
+B_B67 = 1 << 16           # bench_config6's and bench_config7's batch
+# bounds of the CPU-vs-GPU gaps of the reduced configs 6 and 7
+# (draw_for_draw_b6/_b7), as shares of each SED row's maximum, stated
+# before their first run on the card. The transparent and direct light
+# take no discrete decision after launch: 1e-5. The Lya scattered light:
+# PyTorch's tan and atan on the card and on the CPU differ by ulps, which
+# flip a rejection test about once per 10^5 draws and move that lane for
+# the rest of its life, as between the port and the reference on the CPU
+# (tests/test_torch_config67.py: 0.13-0.21% of the detections, 3.5e-3 of
+# the scattered SED's maximum, 1.2e-3 of its sum): the same bounds as
+# there. The X-ray scattered light: its channel shares and line draws run
+# in XLA's arithmetic on both devices (ops/xlamath.py) and its angles and
+# interpolated cross sections differ only continuously: 1e-3 of the
+# maximum and of the sum, room for one flipped lane
+B6_BOUNDS = {"exact": 1e-5, "scattered_of_max": 1.5e-2, "scattered_sum": 5e-3}
+B7_BOUNDS = {"exact": 1e-5, "scattered_of_max": 1e-3, "scattered_sum": 1e-3}
+B67_SMALL = {"bench6": dict(num_packets=4096, batch_size=4096, max_events=12),
+             "bench7": dict(num_packets=4096, batch_size=4096, max_events=16)}
+
+
+def config6(device, num_packets=1 << 17, batch_size=B_B67, max_events=128):
+    """bench.py's config 6 (bench.py:196-212): tests/golden/bench6.ski
+    (Lyman-alpha line transfer: a 100 km/s Gaussian line source in a uniform
+    neutral-hydrogen sphere at 10^4 K, line-centre optical depth 10^5 from
+    the centre, Constant core skipping, 32^3, a 75-bin SED) through the
+    port's `load_ski` at 2^17 packets in batches of 2^16 and 128 events."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    return load_ski(os.path.join(GOLDEN, "bench6.ski"),
+                    num_packets=num_packets, batch_size=batch_size,
+                    max_events=max_events, device=device)
+
+
+def config7(device, num_packets=1 << 18, batch_size=B_B67, max_events=16):
+    """bench.py's config 7 (bench.py:215-231): tests/golden/bench7.ski
+    (X-ray atomic gas: a flat 0.3-10 keV source in a uniform sphere of
+    hydrogen column 2 x 10^23 cm^-2 with the golden XRay_PA/FL data, Compton
+    scattering on free electrons and Fe K fluorescence, 32^3, a 60-bin SED)
+    through the port's `load_ski` at 2^18 packets in batches of 2^16 and 16
+    events."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    return load_ski(os.path.join(GOLDEN, "bench7.ski"),
+                    num_packets=num_packets, batch_size=batch_size,
+                    max_events=max_events, device=device)
+
+
+def sed_gaps(acc_a, acc_b) -> dict:
+    """Gaps of two runs' SED rows (transparent, direct, scattered) as shares
+    of acc_a's row maxima, and of the scattered row's sum."""
+    a = acc_a["sed"].double().cpu()
+    b = acc_b["sed"].double().cpu()
+    out = {}
+    for k, name in enumerate(("transparent", "primarydirect",
+                              "primaryscattered")):
+        m = float(a[k].abs().max())
+        require(m > 0, f"SED row {name} lit")
+        out[name] = float((a[k] - b[k]).abs().max()) / m
+    out["scattered_sum"] = abs(float(b[2].sum() / a[2].sum()) - 1.0)
+    return out
+
+
+def hold_gaps(name, gaps, bounds) -> None:
+    for key, e in gaps.items():
+        bound = (bounds["scattered_sum"] if key == "scattered_sum" else
+                 bounds["scattered_of_max"] if key == "primaryscattered"
+                 else bounds["exact"])
+        require(e <= bound, f"draw-for-draw ({name}) {key} {e} <= {bound}")
+
+
+# test_bench6_lya_profile_parity's own run (tests/test_reference_parity.py:
+# 466-474): 20,000 packets in the loader's batches of 16,384, 128 events
+B6_TEST = dict(num_packets=20_000, batch_size=16_384, max_events=128)
+
+
+def bench6_gates(lam_um, total, direct, strict_peak: bool = True) -> dict:
+    """Every gate of test_bench6_lya_profile_parity (tests/
+    test_reference_parity.py:477-506) on a run's SED [micron, W/m2/micron]
+    against tests/golden/bench6_i0_sed.dat: a dark core on both sides, the
+    peaks at the same bins (one bin), the escaped energy within 5%, the
+    profile within a median 2% and at most 15% of the golden maximum over
+    its live range, and the direct light at line centre below 1e-6 of the
+    maximum. The golden's blue and red peaks (bins 30 and 44) differ by
+    0.5%, so which of the two is the highest is the noise of a run: with
+    strict_peak False the highest peak's bin is reported, not held (the
+    blue peak's bin still is); the test's own run (B6_TEST) holds it."""
+    golden = np.loadtxt(os.path.join(GOLDEN, "bench6_i0_sed.dat"))
+    ref = golden[:, 1]
+    require(lam_um.shape == ref.shape, f"bench6 SED bins {lam_um.shape}")
+    i0 = int(np.argmin(np.abs(lam_um - 0.1215670)))
+    res = {"core_of_max": float(total[i0] / total.max()),
+           "peak_bin": int(np.argmax(total)),
+           "golden_peak_bin": int(np.argmax(ref)),
+           "blue_peak_bin": int(np.argmax(total[:i0])),
+           "golden_blue_peak_bin": int(np.argmax(ref[:i0])),
+           "integral_ratio": float(np.trapezoid(total, lam_um)
+                                   / np.trapezoid(ref, lam_um)),
+           "direct_core_of_max": float(direct[i0] / total.max())}
+    m = ref > 1e-2 * ref.max()
+    rel = np.abs(total[m] - ref[m]) / ref.max()
+    res.update(profile_median=float(np.median(rel)),
+               profile_max=float(rel.max()))
+    require(res["core_of_max"] < 1e-4 and ref[i0] < 1e-4 * ref.max(),
+            f"bench6 dark core ({res['core_of_max']})")
+    require(abs(res["blue_peak_bin"] - res["golden_blue_peak_bin"]) <= 1
+            and (abs(res["peak_bin"] - res["golden_peak_bin"]) <= 1
+                 or not strict_peak),
+            f"bench6 peaks at the golden bins: {res}")
+    res["peak_held"] = abs(res["peak_bin"] - res["golden_peak_bin"]) <= 1
+    ratio = lambda a: float(a[:i0].max() / a[i0:].max())
+    res.update(blue_over_red=ratio(total), golden_blue_over_red=ratio(ref))
+    require(abs(res["integral_ratio"] - 1.0) < 0.05,
+            f"bench6 escaped energy {res['integral_ratio']} within 5%")
+    require(res["profile_median"] < 0.02 and res["profile_max"] < 0.15,
+            f"bench6 profile median {res['profile_median']} < 0.02, max "
+            f"{res['profile_max']} < 0.15")
+    require(res["direct_core_of_max"] < 1e-6,
+            f"bench6 direct light at line centre {res['direct_core_of_max']}")
+    return res
+
+
+def bench7_gates(lam_um, transp, direct, scat) -> dict:
+    """Every gate of test_bench7_xray_parity (tests/test_reference_parity.py:
+    528-566) on a run's SED [micron, W/m2/micron] against tests/golden/
+    bench7_i0_sed.dat, whose scattered light is its primary scattered plus
+    both secondary columns (the reference tags fluorescence as secondary):
+    the transparent and direct medians within 2% and 5%, the optical depth
+    at 1 keV within 5%, the scattered integral within 10%, the Fe K-alpha
+    bin 1.5 times its continuum on both sides and its excess within 30%."""
+    g = np.loadtxt(os.path.join(GOLDEN, "bench7_i0_sed.dat"))
+    lam = g[:, 0]
+    require(lam_um.shape == lam.shape
+            and np.allclose(lam_um, lam, rtol=1e-6),
+            "bench7 SED wavelengths are the golden's")
+    r_transp, r_direct = g[:, 2], g[:, 3]
+    r_scat = g[:, 4] + g[:, 5] + g[:, 6]
+    res = {}
+    hi = r_transp > 0.05 * r_transp.max()
+    res["transparent_median_ratio"] = float(np.median(transp[hi]
+                                                      / r_transp[hi]))
+    hi = r_direct > 0.05 * r_direct.max()
+    res["direct_median_ratio"] = float(np.median(direct[hi] / r_direct[hi]))
+    E = 1.23984193e-3 / lam
+    i1 = int(np.argmin(np.abs(E - 1.0)))
+    tau_o = -math.log(direct[i1] / transp[i1])
+    tau_r = -math.log(r_direct[i1] / r_transp[i1])
+    res["tau_1keV"], res["golden_tau_1keV"] = tau_o, tau_r
+    res["scattered_integral_ratio"] = float(np.trapezoid(scat, lam)
+                                            / np.trapezoid(r_scat, lam))
+    ika = int(np.argmin(np.abs(E - 6.4)))
+    cont_o = 0.5 * (scat[ika - 2] + scat[ika + 2])
+    cont_r = 0.5 * (r_scat[ika - 2] + r_scat[ika + 2])
+    res["fe_ka_over_continuum"] = float(scat[ika] / cont_o)
+    res["golden_fe_ka_over_continuum"] = float(r_scat[ika] / cont_r)
+    res["fe_ka_excess_ratio"] = float((scat[ika] - cont_o)
+                                      / (r_scat[ika] - cont_r))
+    require(abs(res["transparent_median_ratio"] - 1) < 0.02
+            and abs(res["direct_median_ratio"] - 1) < 0.05,
+            f"bench7 transparent and direct medians: {res}")
+    require(abs(tau_o / tau_r - 1) < 0.05,
+            f"bench7 tau at 1 keV {tau_o} vs {tau_r} within 5%")
+    require(abs(res["scattered_integral_ratio"] - 1) < 0.10,
+            f"bench7 scattered integral {res['scattered_integral_ratio']}")
+    require(res["fe_ka_over_continuum"] > 1.5
+            and res["golden_fe_ka_over_continuum"] > 1.5
+            and abs(res["fe_ka_excess_ratio"] - 1) < 0.30,
+            f"bench7 Fe K-alpha line: {res}")
+    return res
+
+
+def b67_file_gates(name, path, strict_peak: bool = True) -> dict:
+    """A written SED file of config 6 or 7 (the reference's columns:
+    wavelength, total, transparent, direct, scattered, the secondary kinds,
+    R, VOV) through its golden gates."""
+    cols = np.loadtxt(path)
+    nb = 75 if name == "bench6" else 60
+    require(cols.shape == (nb, 9) and bool(np.isfinite(cols).all()),
+            f"{name} SED file: {nb} rows, 9 finite columns")
+    if name == "bench6":
+        return bench6_gates(cols[:, 0], cols[:, 1], cols[:, 3], strict_peak)
+    return bench7_gates(cols[:, 0], cols[:, 2], cols[:, 3], cols[:, 4])
+
+
+def first_event_b6(torch, sim):
+    """Config 6's first scattering event as the path forms it, in the plain
+    versions: the first batch launched, its Lya cross sections at the
+    uniform gas temperature, pass 1 (prefix and lane range), the forced
+    interaction depth from the event's own uniform, pass 2 to the
+    interaction points, the Lya scattering (`lifecycle.lya_event`) and the
+    peel-off toward the instrument at the redistributed wavelengths (its
+    cross sections and contributions). Returns a dict of these tensors."""
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.ops import lya as lyo
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.sources import base as src
+    from skirt9_tpu_torch.transport import lifecycle as lc
+    from skirt9_tpu_torch.transport import sweep as sw
+    B, dev, med = sim.batch_size, sim.device, sim.medium
+    pkt = src.launch_batch(sim.sources[0], sim._src_tabs[0], sim.grid,
+                           rng.seed_key(sim.seed, dev),
+                           torch.arange(B, device=dev), sim.num_packets)
+    T0 = lc.check_wavelength_changing(med, sim.options, 0)
+    sig_of = lambda lam: (msys.optics_at(med, lam).sigma_ext.T
+                          + lyo.cross_section(lam, T0)).contiguous()
+    sig = sig_of(pkt.lam)
+    tabs = sim._sweep_tabs
+    tb, tot, lane = sw.sweep_dtau_prefix_plain(tabs, pkt.pos, pkt.dir, sig,
+                                               pkt.alive)
+    keys = rng.event_keys(pkt.hkey, pkt.nscat)
+    tags = (lc._TAG_PATH_TAU_EXP, lc._TAG_SCATTER_CT, lc._TAG_SCATTER_PHI,
+            lc._TAG_LYA_DIPOLE, lc._TAG_LYA_SKIP_R, lc._TAG_LYA_SKIP_A)
+    u = dict(zip(tags, rng.uniforms(keys, tags)))
+    tau_int = rng.expon_cutoff_from_uniform(u[lc._TAG_PATH_TAU_EXP], tot)
+    zero = torch.zeros_like(pkt.lum)
+    _, s_int, icell, found = sw.sweep_deposit_prefix_plain(
+        tabs, pkt.pos, pkt.dir, sig, pkt.alive, zero, tau_int, tb, 1.0,
+        lane)
+    found = found & pkt.alive & (tot > 1e-6)
+    at = pkt._replace(pos=pkt.pos + s_int[:, None] * pkt.dir)
+    _, _, per_sr, lam_fn = lc.lya_event(med, sim.options, keys, u, at, icell,
+                                        at.lam)
+    kobs = sim._inst_tabs[0]["kobs"]
+    lam_det = lam_fn(kobs)
+    return {"pkt": pkt, "sig": sig, "tb": tb, "tot": tot, "lane": lane,
+            "tau_int": tau_int, "s_int": s_int, "icell": icell,
+            "found": found, "ipos": at.pos, "kobs": kobs.expand(B, 3),
+            "sig_det": sig_of(lam_det), "lam_det": lam_det,
+            "contrib": per_sr(0, kobs)[0],
+            "hint": int(np.argmax(np.abs(sim.instruments[0].frame_axes()[0])
+                                  / np.asarray(tabs.h)))}
+
+
+def check_kernels_b6(torch, sim, timed: bool = True) -> dict:
+    """Kernels 1, 2 and detect at config 6's first scattering event (line-
+    centre optical depths up to 10^5 along a path, in the kernels' f32
+    prefix and interaction search; cross sections per lane; detection
+    wavelengths per lane, some outside the 75-bin grid) against their plain
+    versions on the same CUDA tensors: kernel 1's prefix mode (pass 1) with
+    its lane range bit for bit and the prefix within 1e-6 of each lane's
+    tau; its total mode (the peel-off toward the instrument at the
+    redistributed wavelengths) within 1e-6 of each lane's tau; kernel 2's
+    prefix mode without an RF (pass 2) with found and icell identical and
+    s_int within 1e-5 of a cell; detect as check_detect holds it. With
+    timed, each is timed (CUDA events, device time) beside its bound and
+    the plain version's time."""
+    from skirt9_tpu_torch.instruments import distant as dinst
+    from skirt9_tpu_torch.kernels import build as kb
+    from skirt9_tpu_torch.transport import sweep as sw
+    ev = first_event_b6(torch, sim)
+    tabs, pkt = sim._sweep_tabs, ev["pkt"]
+    B, h = pkt.lam.shape[0], float(min(tabs.h))
+    out = {}
+    pass1 = (tabs, pkt.pos, pkt.dir, ev["sig"], pkt.alive)
+    peel = (tabs, ev["ipos"], ev["kobs"], ev["sig_det"], ev["found"],
+            ev["hint"])
+    tb_k, tot_k, lane_k = sw.sweep_dtau_prefix(*pass1)
+    t_k = sw.sweep_tau_total(*peel)
+    t_p = sw.sweep_tau_total_plain(*peel)
+    torch.cuda.synchronize()
+    for a, b, name in zip(lane_k, ev["lane"], ("axis", "smin", "smax")):
+        require(bool(torch.equal(a, b)),
+                f"kernel 1 lane {name} bit-identical at Lya depths")
+    scale = ev["tot"].clamp_min(1e-30)
+    rel_pre = max(float(((tot_k - ev["tot"]).abs() / scale).max()),
+                  float(((tb_k - ev["tb"]).abs() / scale[None, :]).max()))
+    rel_tot = float(((t_k - t_p).abs() / t_p.clamp_min(1e-30)).max())
+    require(float(ev["tot"].max()) > 1e4,
+            f"config 6 paths reach Lya depths ({float(ev['tot'].max())})")
+    require(rel_pre <= 1e-6, f"kernel 1 prefix at Lya depths within 1e-6 "
+            f"of each lane's tau ({rel_pre})")
+    require(rel_tot <= 1e-6, f"kernel 1 total at Lya depths within 1e-6 "
+            f"of each lane's tau ({rel_tot})")
+    out["sweep_dtau_prefix"] = dict(max_err_of_tau=rel_pre,
+                                    max_abs_err=rel_pre * float(scale.max()),
+                                    max_tau=float(ev["tot"].max()))
+    out["sweep_tau_total"] = dict(max_err_of_tau=rel_tot,
+                                  max_abs_err=rel_tot * float(t_p.max()),
+                                  max_tau=float(t_p.max()))
+    # kernel 2's prefix mode without an RF, on pass 1's prefix and range
+    zero = torch.zeros_like(pkt.lum)
+    dep = (tabs, pkt.pos, pkt.dir, ev["sig"], pkt.alive, zero, ev["tau_int"],
+           ev["tb"], 1.0, ev["lane"])
+    _, s_k, c_k, f_k = sw.sweep_deposit_prefix(*dep)
+    _, s_p, c_p, f_p = sw.sweep_deposit_prefix_plain(*dep)
+    torch.cuda.synchronize()
+    require(int(f_p.sum()) > B // 2, "config 6's first event interacts")
+    require(bool(torch.equal(f_k, f_p)) and bool(torch.equal(c_k, c_p)),
+            "kernel 2 at Lya depths: found and icell identical")
+    ds = float((s_k - s_p)[f_p].abs().max())
+    require(ds <= 1e-5 * h, f"kernel 2 s_int {ds} within 1e-5 of a cell")
+    out["sweep_deposit_prefix"] = dict(max_abs_err=ds,
+                                       found_lanes=int(f_p.sum()))
+    # detect on the 75 bins at the redistributed wavelengths
+    borders = sim._inst_tabs[0]["wave_borders"]
+    lam = ev["lam_det"]
+    outside = ev["found"] & ((lam < borders[0]) | (lam >= borders[-1]))
+    require(int(outside.sum()) > 0 and int((ev["found"] & ~outside).sum())
+            > B // 4, "detection wavelengths inside and outside the grid")
+    if not timed:
+        cfg, tab = sim.instruments[0], sim._inst_tabs[0]
+        args = (lam, ev["ipos"], ev["contrib"], 2, ev["found"])
+        kb.reset_launches()
+        acc_k = dinst.detect(cfg, tab, dinst.init_accumulators(cfg, sim.device),
+                             *args)
+        require(kb.LAUNCHES["detect"] == 1, "detect: one kernel launch")
+        acc_p = dinst.detect_plain(cfg, tab,
+                                   dinst.init_accumulators(cfg, sim.device),
+                                   *args, scatter=scatter_f64)
+        for key in acc_p:
+            m = float(acc_p[key].abs().max())
+            require(m > 0 and float((acc_k[key] - acc_p[key]).abs().max())
+                    <= 1e-5 * m, f"detect at config 6's shapes: {key}")
+        out["detect"] = {"lanes_outside_grid": int(outside.sum())}
+        return out
+    out["detect"] = check_detect(torch, sim.instruments[0],
+                                 sim._inst_tabs[0], lam, ev["ipos"],
+                                 ev["contrib"], ev["found"], 2)
+    out["detect"]["lanes_outside_grid"] = int(outside.sum())
+    g, smin, smax, _ = sw._prep(*pass1)
+    n_act = active_slabs(tabs, pkt.pos, pkt.dir, g, smin, smax)
+    gp, smin_p, smax_p, _ = sw._prep(*peel[:5])
+    n_peel = active_slabs(tabs, ev["ipos"], ev["kobs"], gp, smin_p, smax_p)
+    tab_bytes = tabs.nd.numel() * 4
+    for name, fn, plain, args, pairs, out_bytes in (
+            ("sweep_dtau_prefix", sw.sweep_dtau_prefix,
+             sw.sweep_dtau_prefix_plain, pass1, n_act,
+             tabs.nmax * B * 4 + 4 * B * 4),
+            ("sweep_tau_total", sw.sweep_tau_total, sw.sweep_tau_total_plain,
+             peel, n_peel, B * 4),
+            ("sweep_deposit_prefix", sw.sweep_deposit_prefix,
+             sw.sweep_deposit_prefix_plain, dep, n_act, 0)):
+        dev_t = device_ms(lambda: fn(*args))
+        # device_launches below 1 a call: the profiler dropped events
+        out[name].update(
+            active_pairs=pairs, ms=cuda_ms(lambda: fn(*args)),
+            plain_ms=cuda_ms(lambda: plain(*args), reps=5), library_ms=None,
+            device_ms=dev_t["ours"], device_launches=dev_t["launches"])
+        if name == "sweep_deposit_prefix":
+            out[name].update(deposit_bound(name, tabs, B, pairs, 0))
+        else:
+            out[name].update(bound(
+                ray_bytes(B, 1) + tab_bytes + out_bytes,
+                B * OPS_LANE + pairs * (OPS_SLAB + 3 * (OPS_SUB + 2)
+                                        + (2 if name == "sweep_dtau_prefix"
+                                           else 1))))
+    return out
+
+
+def phase_kernels_b6(torch) -> dict:
+    """check_kernels_b6 on config 6's first batch (B = 2^16), timed."""
+    sim = config6("cuda")
+    out = check_kernels_b6(torch, sim)
+    emit({"phase": "kernels_b6", "batch": sim.batch_size,
+          "grid": list(sim._sweep_tabs.n), **out})
+    return out
+
+
+def phase_draw_for_draw_b67(torch, name) -> dict:
+    """The reduced config 6 or 7 (B67_SMALL: 4,096 packets, 12 or 16
+    events) on the CPU (plain versions) and on the GPU (kernels), the same
+    seed: each SED row within its B6_BOUNDS or B7_BOUNDS share of its
+    maximum; kernels 1, 2 and detect launched on the GPU and no other
+    sweep."""
+    config, bounds = ((config6, B6_BOUNDS) if name == "bench6"
+                      else (config7, B7_BOUNDS))
+    runs, launches = {}, None
+    for device in ("cpu", "cuda"):
+        sim = config(device, **B67_SMALL[name])
+        out, l_ = drive(RESIDENT + DETECT if device == "cuda" else (),
+                        XL + ML + NOT_PATH,
+                        lambda: sim.run_primary(verbose=False))
+        runs[device] = out[1][0]
+        if device == "cuda":
+            launches = l_
+    gaps = sed_gaps(runs["cpu"], runs["cuda"])
+    hold_gaps(name, gaps, bounds)
+    phase = "draw_for_draw_b6" if name == "bench6" else "draw_for_draw_b7"
+    emit({"phase": phase, **B67_SMALL[name], "gaps_of_max": gaps,
+          "bounds": bounds, "launches_gpu": launches})
+    return gaps
+
+
+def phase_full_width_b67(torch, smi: str, name):
+    """Config 6 or 7 at bench.py's width (bench_config6: 2^17 packets, 128
+    events; bench_config7: 2^18 packets, 16 events; batches of 2^16, seed
+    0): a one-batch warm-up, then the timed run on the same object, driven
+    with the launch counts set to 0: kernels 1, 2 and detect launched, no
+    tree or XL kernel and not kernel 3; packets/s beside the card's name
+    and power limit, events; every gate of the golden test on the SED file
+    the run writes (bench6_gates, bench7_gates); for bench6 the highest
+    peak's bin at this width is reported (its golden peaks differ by 0.5%)
+    and every gate is held at the test's own width (B6_TEST)."""
+    config = config6 if name == "bench6" else config7
+    sim = config("cuda")
+    require(type(sim._sweep_tabs).__name__ == "SweepTables"
+            and (sim.options.lya if name == "bench6" else sim.options.xray),
+            f"{name}: the resident sweep, its physics on")
+    n_pk = sim.num_packets
+    sim.num_packets = sim.batch_size
+    sim.run_primary(verbose=False)          # warm-up: one batch
+    sim.num_packets = n_pk
+    (rf, accs), launches = drive(RESIDENT + DETECT, XL + ML + NOT_PATH,
+                                 lambda: sim.run_primary(verbose=False))
+    stats = dict(sim.last_stats)
+    sed_file = lambda s_, a_, tmp: [p for p in s_.write_outputs(a_, name, tmp)
+                                    if p.endswith("_sed.dat")][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        gates = b67_file_gates(name, sed_file(sim, accs, tmp),
+                               strict_peak=False)
+        if name == "bench6":
+            # every gate, the highest peak's bin too, at the test's width
+            test = config6("cuda", **B6_TEST)
+            _, accs_t = test.run_primary(verbose=False)
+            gates = {"full_width": gates, "test_width": b67_file_gates(
+                name, sed_file(test, accs_t, tmp))}
+    res = {"phase": f"full_width_{'b6' if name == 'bench6' else 'b7'}",
+           "grid": list(sim.grid.shape), "packets": n_pk,
+           "batch": sim.batch_size, "max_events": sim.options.max_events,
+           "packets_per_s": sim.last_rate, "seconds": stats["seconds"],
+           "events": stats["events"], "syncs": stats["syncs"],
+           "launches": launches,
+           "kernel_launches_per_event": sum(launches.values())
+           / stats["events"], "gates": gates,
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit(res)
+    return launches
+
+
+def phase_breakdown_b6(torch) -> None:
+    """One batch of config 6 (2^16 packets, its first 16 events: every Lya
+    event issues the same operations) under torch.profiler
+    (host_per_event): device operations, stream syncs and host copies per
+    event of the Lya loop, busy and idle shares, the kernels that take the
+    most device time."""
+    prof = host_per_event(torch, config6("cuda", num_packets=B_B67,
+                                         max_events=16),
+                          lambda s: s.run_primary(verbose=False))
+    emit({"phase": "breakdown_b6", "packets": B_B67, "max_events": 16,
+          **prof})
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -3566,6 +4069,14 @@ def main() -> int:
     sim, launches_b5 = phase_full_width_b5(torch, smi)
     del sim
     phase_breakdown_b5(torch)
+    torch.cuda.empty_cache()
+    kern_b6 = phase_kernels_b6(torch)
+    torch.cuda.empty_cache()
+    phase_draw_for_draw_b67(torch, "bench6")
+    phase_draw_for_draw_b67(torch, "bench7")
+    launches_b6 = phase_full_width_b67(torch, smi, "bench6")
+    launches_b7 = phase_full_width_b67(torch, smi, "bench7")
+    phase_breakdown_b6(torch)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -3680,6 +4191,23 @@ def main() -> int:
                     "plain_ms", "plain_device_ms", "seven_call_ms",
                     "seven_call_device_ms", "bound_ms", "bound_by", "bytes",
                     "library_ms", "touched_entries", "lit_lanes")}
+        if name in k1_modes + RESIDENT + DETECT:
+            # the config-6 and config-7 paths (full_width_b6, full_width_b7)
+            # and kernels 1, 2 and detect at config 6's first event
+            # (kernels_b6)
+            for cfg_name, counts in (("config6", launches_b6),
+                                     ("config7", launches_b7)):
+                row[f"launches_{cfg_name}"] = (
+                    sum(counts[m] for m in k1_modes) if name == "sweep_dtau"
+                    else counts[name])
+            if name in kern_b6:
+                row["config6"] = {key: kern_b6[name][key] for key in (
+                    "max_abs_err", "max_err_of_tau", "max_err_of_max",
+                    "max_tau", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "active_pairs", "found_lanes",
+                    "lanes_outside_grid", "lit_lanes", "touched_entries",
+                    "device_launches")
+                    if key in kern_b6[name]}
         if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",):
             # config 1h's refill path (refill_b1h)
             row["launches_config1h"] = (sum(launches_1h[m] for m in k1_modes)

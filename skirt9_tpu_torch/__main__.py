@@ -4,10 +4,12 @@ Port of `skirt9_tpu/__main__.py` (ref: SKIRT/main/SkirtMain.cpp:15,
 SkirtCommandLineHandler.cpp:31 flags). Usage:
 
     python -m skirt9_tpu_torch model.ski [more.ski ...] [-o outdir] [-s seed]
-        [-p packets] [-b batch] [-e] [--device cuda|cpu]
+        [-p packets] [-b batch] [--max-events N] [-e] [--device cuda|cpu]
 
 The run is on the card unless `--device cpu` asks for the CPU; without a GPU
-the default exits with an error. Accepted for compatibility but inert: -t,
+the default exits with an error. `--max-events` caps each packet's
+scattering events (64 by default, the loader's default; a resonant line
+such as bench6.ski's Lyman-alpha needs 128 for its escaping light). Accepted for compatibility but inert: -t,
 -m, -v. Not ported (the command exits non-zero and names them): -d other
 than 1 and --dd (several devices), --export-schema and the no-argument ski
 wizard.
@@ -33,6 +35,8 @@ def main(argv=None) -> int:
                     help="override number of photon packets")
     ap.add_argument("-b", "--batch", type=int, default=16384,
                     help="packet batch size")
+    ap.add_argument("--max-events", type=int, default=64,
+                    help="scattering events per packet (default 64)")
     ap.add_argument("-e", "--emulate", action="store_true",
                     help="setup only, zero packets (ref: emulation mode)")
     ap.add_argument("-t", type=int, default=0, help=argparse.SUPPRESS)
@@ -81,7 +85,7 @@ def main(argv=None) -> int:
         with log.timed("setup"):
             sim = load_ski(ski, num_packets=args.packets,
                            batch_size=args.batch, seed=args.seed,
-                           device=device)
+                           max_events=args.max_events, device=device)
         if args.emulate:
             log.success(f"emulation: setup OK, {sim.grid.ncells} cells, "
                         f"{len(sim.sources)} sources, "

@@ -77,7 +77,8 @@ def medium(ref_med) -> MediumTables:
     return MediumTables(nd=_f32(ref_med.nd), lam_t=_f32(ref_med.lam_t),
                         sigma_ext=_f32(ref_med.sigma_ext),
                         sigma_sca=_f32(ref_med.sigma_sca), g=_f32(ref_med.g),
-                        bulk_v=_f32(ref_med.bulk_v))
+                        bulk_v=_f32(ref_med.bulk_v),
+                        temperature=_f32(ref_med.temperature))
 
 
 def mueller(ref_tabs) -> MuellerTables | None:
@@ -86,6 +87,14 @@ def mueller(ref_tabs) -> MuellerTables | None:
         return None
     _kind(ref_tabs, "MuellerTables")
     return MuellerTables(*(_f32(t) for t in ref_tabs))
+
+
+def xray_tables(ref_tabs) -> dict | None:
+    """The reference's X-ray channel tables, array for array (on the CPU;
+    the Simulation moves them to its device)."""
+    if ref_tabs is None:
+        return None
+    return {k: _f32(v) for k, v in ref_tabs.items()}
 
 
 def _same_fields(cls, ref_obj):
@@ -120,7 +129,7 @@ def options(ref_opts) -> TransportOptions:
 # reference Simulation fields the port does not run yet, with their
 # inactive values
 _INACTIVE = {"spheroidal": None, "mesh": None, "dd": False,
-             "xray_tabs": None, "phase_tabs": None, "dynamic_recipes": [],
+             "phase_tabs": None, "dynamic_recipes": [],
              "gas_emitters": [], "custom_state": {}, "grain_tables": None}
 
 # the reference's dust-emission fields, carried over as they are
@@ -156,7 +165,9 @@ def simulation(ref_sim, device) -> Simulation:
         batch_size=int(ref_sim.batch_size), seed=int(ref_sim.seed),
         source_bias=float(ref_sim.source_bias),
         refill_events=int(ref_sim.refill_events),
-        mueller=mueller(getattr(ref_sim, "mueller", None)), device=device,
+        mueller=mueller(getattr(ref_sim, "mueller", None)),
+        xray_tabs=xray_tables(getattr(ref_sim, "xray_tabs", None)),
+        device=device,
         **{k: getattr(ref_sim, k) for k in _EMISSION})
     ref_tabs = getattr(ref_sim, "_sweep_tabs", None)
     if type(ref_tabs).__name__ == "XLTables":

@@ -2,17 +2,20 @@
 
 Port of `skirt9_tpu/config/ski.py` (`load_ski`, `_load_ski` and the
 `build_*` functions) for the item types the port runs: primary emission
-of point sources with a blackbody SED (or oligochromatic, at one
-wavelength), shell and exponential-disk geometries of trivial gas,
-mean-file dust or electron mixes (with polarized Thomson scattering)
-normalised by optical depth or entity number, moving media (a vector
-field times a velocity magnitude, sampled at the cell centres), uniform
-Cartesian grids (linear meshes) and density-policy octrees and bintrees
-(`PolicyTreeSpatialGrid` with a `DensityTreePolicy`), full instruments
-(with polarization), equilibrium dust emission over all cells with the
-iteration options, and the temperature, radiation-field and
-cell-properties probes. This is what the golden ski files bench1, bench1h,
-bench2, bench3 and bench5 use. Every item type outside `ITEMS`, and every property
+of point sources with a blackbody, file or Gaussian Lyman-alpha SED (or
+oligochromatic, at one wavelength), shell and exponential-disk geometries
+of trivial gas, mean-file dust, electron (with polarized Thomson
+scattering), neutral-hydrogen Lyman-alpha (`LyaExtinctionOnly` with its
+`LyaOptions`) or X-ray atomic gas mixes normalised by optical depth,
+entity number or number column, moving media (a vector field times a
+velocity magnitude, sampled at the cell centres), uniform Cartesian grids
+(linear meshes) and density-policy octrees and bintrees
+(`PolicyTreeSpatialGrid` with a `DensityTreePolicy`), full and SED
+instruments (with polarization) on logarithmic or linear wavelength grids,
+equilibrium dust emission over all cells with the iteration options, and
+the temperature, radiation-field and cell-properties probes. This is what
+the golden ski files bench1, bench1h, bench2, bench3, bench5, bench6 and
+bench7 use. Every item type outside `ITEMS`, and every property
 outside `PROPERTIES`, raises NotImplementedError naming itself before
 anything is built, so no element is dropped silently. The arrays are built
 with numpy and torch by the port's own constructors, bit for bit as the
@@ -39,6 +42,7 @@ from ..grids.cartesian import make_cartesian
 from ..instruments import distant as dinst
 from ..media import geometric as gm
 from ..media import mixes as mx
+from ..media import xray as xr
 from ..ops import stokes as stk
 from ..probes.probes import ProbeSpec
 from ..simulation import Simulation
@@ -54,26 +58,29 @@ from ..utils import unitsystem
 ITEMS = frozenset((
     "MonteCarloSimulation", "Random", "SIUnits", "StellarUnits",
     "ExtragalacticUnits", "LocalUniverseCosmology", "FlatUniverseCosmology",
-    "SourceSystem", "PointSource", "BlackBodySED",
+    "SourceSystem", "PointSource", "BlackBodySED", "FileSED",
+    "LyaGaussianSED",
     "IntegratedLuminosityNormalization",
     "MediumSystem", "PhotonPacketOptions", "RadiationFieldOptions",
     "DustEmissionOptions", "AllCellsLibrary", "LogWavelengthGrid",
     "GeometricMedium", "ShellGeometry", "ExpDiskGeometry", "TrivialGasMix",
-    "MeanFileDustMix", "ElectronMix", "OpticalDepthMaterialNormalization",
-    "NumberMaterialNormalization", "RadialVectorField",
+    "MeanFileDustMix", "ElectronMix", "LyaNeutralHydrogenGasMix",
+    "XRayAtomicGasMix", "LyaOptions", "OpticalDepthMaterialNormalization",
+    "NumberMaterialNormalization", "NumberColumnMaterialNormalization",
+    "LinWavelengthGrid", "RadialVectorField",
     "CylindricalVectorField", "HollowRadialVectorField",
     "HubbleRadialVectorField", "UnidirectionalVectorField",
     "RotateVectorFieldDecorator", "OffsetVectorFieldDecorator",
     "CartesianSpatialGrid", "LinMesh",
     "PolicyTreeSpatialGrid", "DensityTreePolicy", "IterationOptions",
-    "InstrumentSystem", "FullInstrument",
+    "InstrumentSystem", "FullInstrument", "SEDInstrument",
     "ProbeSystem", "TemperatureProbe", "RadiationFieldProbe", "PerCellForm",
     "SpatialCellPropertiesProbe"))
 
 # the properties (lower-case elements) that hold those items
 PROPERTIES = frozenset((
     "random", "units", "cosmology", "sourceSystem", "sources", "sed",
-    "normalization", "mediumSystem", "photonPacketOptions",
+    "normalization", "mediumSystem", "photonPacketOptions", "lyaOptions",
     "radiationFieldOptions", "radiationFieldWLG", "dustEmissionOptions",
     "cellLibrary", "dustEmissionWLG", "media", "geometry", "materialMix",
     "velocityDistribution", "vectorField", "grid", "meshX", "meshY", "meshZ", "policy", "iterationOptions",
@@ -82,7 +89,8 @@ PROPERTIES = frozenset((
     "probes", "form"))
 
 # simulation modes of those items (the reference's `mode` branches)
-MODES = ("ExtinctionOnly", "OligoExtinctionOnly", "DustEmission")
+MODES = ("ExtinctionOnly", "OligoExtinctionOnly", "DustEmission",
+         "LyaExtinctionOnly")
 
 # probe item -> (the reference's probe kind, its default hook)
 PROBES = {"TemperatureProbe": ("temperature", "Run"),
@@ -138,9 +146,18 @@ def build_geometry(el):
                             p=_f(a, "exponent", 0.0))
 
 
-def build_sed(el):
-    # BlackBodySED is the one SED of ITEMS
-    return sedlib.blackbody(_q(el.attrib, "temperature", "temperature"))
+def build_sed(el, base_dir: str):
+    a = el.attrib
+    if el.tag == "FileSED":
+        # wavelengths in micron; the file resolves against the ski file's
+        # directory
+        fn = a["filename"]
+        if not os.path.isabs(fn):
+            fn = os.path.join(base_dir, fn)
+        return sedlib.from_file(fn, lam_unit=1e-6)
+    if el.tag == "LyaGaussianSED":
+        return sedlib.lya_gaussian(_q(a, "dispersion", "velocity", 50e3))
+    return sedlib.blackbody(_q(a, "temperature", "temperature"))
 
 
 def source_luminosity(el) -> float:
@@ -156,8 +173,9 @@ def source_luminosity(el) -> float:
     return _q(norm.attrib, "integratedLuminosity", "bolluminosity")
 
 
-def build_source(el):
-    # PointSource is the one source of ITEMS
+def build_source(el, base_dir: str):
+    # PointSource is the one source of ITEMS; its velocity and weight are
+    # read and ignored, as the reference ignores them
     a = el.attrib
     pos = (_q(a, "positionX", "length", 0.0),
            _q(a, "positionY", "length", 0.0),
@@ -167,11 +185,24 @@ def build_source(el):
     if "wavelengthBias" in a:
         kw["wavelength_bias"] = _f(a, "wavelengthBias", 0.5)
     return PointSource(position=pos, luminosity=source_luminosity(el),
-                       sed=build_sed(sed_el) if sed_el is not None else None,
+                       sed=(build_sed(sed_el, base_dir) if sed_el is not None
+                            else None),
                        **kw)
 
 
 def build_mix(el, base_dir: str) -> mx.MixTables:
+    if el.tag == "LyaNeutralHydrogenGasMix":
+        # a zero-opacity marker: the life cycle forms the Voigt opacity per
+        # wavelength and gas temperature; its polarization flag is read and
+        # ignored, as the reference ignores it
+        m_ = mx.MixTables(lam=np.array([1e-8, 1e-3]), sigma_ext=np.zeros(2),
+                          albedo=np.zeros(2), g=np.zeros(2),
+                          mu=1.67262e-27 + 9.10938e-31)  # m_p + m_e
+        object.__setattr__(m_, "_lya", {"T_default": _q(
+            el.attrib, "defaultTemperature", "temperature", 1e4)})
+        return m_
+    if el.tag == "XRayAtomicGasMix":
+        return build_xray_mix(el, base_dir)
     if el.tag == "ElectronMix":
         emix = mx.electron_mix()
         if el.attrib.get("includePolarization", "false") == "true":
@@ -191,16 +222,49 @@ def build_mix(el, base_dir: str) -> mx.MixTables:
     return mx.from_file(fn)
 
 
+def build_xray_mix(el, base_dir: str) -> mx.MixTables:
+    """The X-ray atomic gas (`skirt9_tpu/config/ski.py:982-1011`): its
+    tables on 512 wavelengths from 2e-11 to 5e-7 m, the shells and lines of
+    XRay_PA.txt and XRay_FL.txt beside the ski file where they are there
+    (else the built-in H, He and approximate Fe K data), every bound
+    electron scattering as a free one. Its temperature and H2 fraction are
+    read and ignored, as the reference ignores them."""
+    a = el.attrib
+    ab = None
+    if a.get("abundancies"):
+        ab = np.array([float(v) for v in
+                       a["abundancies"].replace(",", " ").split()])
+    lam = np.geomspace(2e-11, 5e-7, 512)
+    scatter = {"None": "None", "Free": "Free", "FreeWithPolarization": "Free",
+               "Good": "Free", "Exact": "Free"}.get(
+                   a.get("scatterBoundElectrons", "Good"), "Free")
+    shells = list(xr.BUILTIN_SHELLS) + [xr.FE_K_SHELL]
+    lines = list(xr.FE_K_LINES)
+    pa = os.path.join(base_dir, "XRay_PA.txt")
+    fl = os.path.join(base_dir, "XRay_FL.txt")
+    if os.path.exists(pa):
+        shells = xr.load_pa_file(pa)
+    if os.path.exists(fl):
+        lines = xr.load_fl_file(fl)
+    return xr.as_mix_tables(xr.build_xray_tables(
+        lam, abundances=ab, scatter=scatter, shells=shells, lines=lines))
+
+
 def build_medium_normalization(el):
     norm = _child(el, "normalization")
     if norm is None:
         raise ValueError("medium needs a normalization")
     a = norm.attrib
+    axis = {"X": "x", "Y": "y", "Z": "z"}.get(a.get("axis", "Z"), "z")
     if norm.tag == "NumberMaterialNormalization":
         return gm.NumberNormalization(number=_f(a, "number"))
+    if norm.tag == "NumberColumnMaterialNormalization":
+        return gm.NumberColumnNormalization(
+            column=U.parse("numbersurfacedensity", a["numberColumnDensity"]),
+            axis=axis)
     return gm.OpticalDepthNormalization(
         tau=_f(a, "opticalDepth"), lam=_q(a, "wavelength", "wavelength"),
-        axis={"X": "x", "Y": "y", "Z": "z"}.get(a.get("axis", "Z"), "z"))
+        axis=axis)
 
 
 def build_vector_field(el):
@@ -292,23 +356,23 @@ def build_grid(el, geometry):
 
 
 def build_wavelength_grid(el) -> np.ndarray:
-    # LogWavelengthGrid is the one wavelength grid of ITEMS
     a = el.attrib
-    return wl.log_borders_skirt(_q(a, "minWavelength", "wavelength"),
-                                _q(a, "maxWavelength", "wavelength"),
-                                int(a["numWavelengths"]))
+    borders = (wl.lin_borders_skirt if el.tag == "LinWavelengthGrid"
+               else wl.log_borders_skirt)
+    return borders(_q(a, "minWavelength", "wavelength"),
+                   _q(a, "maxWavelength", "wavelength"),
+                   int(a["numWavelengths"]))
 
 
 def build_instrument(el, default_wlg) -> dinst.DistantInstrumentCfg:
-    # FullInstrument is the one instrument of ITEMS
+    """A FullInstrument, or an SEDInstrument: a distant instrument without
+    a frame, whose components and statistics flags are read and ignored,
+    as the reference ignores them (`skirt9_tpu/config/ski.py:1560-1561`)."""
     a = el.attrib
     wlg_el = _child(el, "wavelengthGrid")
     borders = (build_wavelength_grid(wlg_el) if wlg_el is not None
                else default_wlg)
-    kw = {}
-    if a.get("recordComponents", "false") == "true":
-        kw["num_scattering_levels"] = int(a.get("numScatteringLevels", 0))
-    return dinst.DistantInstrumentCfg(
+    common = dict(
         name=a.get("instrumentName", el.tag),
         wave_borders=tuple(borders),
         inclination=_q(a, "inclination", "angle", 0.0),
@@ -316,8 +380,14 @@ def build_instrument(el, default_wlg) -> dinst.DistantInstrumentCfg:
         roll=_q(a, "roll", "angle", 0.0),
         distance=_q(a, "distance", "distance", 10 * 3.0857e16),
         record_polarization=a.get("recordPolarization", "false") == "true",
-        aperture=_q(a, "radius", "length", 0.0),
-        **kw,
+        aperture=_q(a, "radius", "length", 0.0))
+    if el.tag == "SEDInstrument":
+        return dinst.DistantInstrumentCfg(**common)
+    kw = {}
+    if a.get("recordComponents", "false") == "true":
+        kw["num_scattering_levels"] = int(a.get("numScatteringLevels", 0))
+    return dinst.DistantInstrumentCfg(
+        **common, **kw,
         npx=int(a.get("numPixelsX", 250)),
         npy=int(a.get("numPixelsY", 250)),
         fovx=_q(a, "fieldOfViewX", "length"),
@@ -369,7 +439,7 @@ def load_ski(path: str, num_packets: int | None = None,
 
     # sources
     src_sys = mcs.find("sourceSystem/SourceSystem")
-    sources = ([build_source(e) for e in src_sys.find("sources")]
+    sources = ([build_source(e, base_dir) for e in src_sys.find("sources")]
                if src_sys is not None else [])
     src_range = None
     if src_sys is not None and "minWavelength" in src_sys.attrib:
@@ -418,6 +488,35 @@ def load_ski(path: str, num_packets: int | None = None,
     # 2197-2201`)
     mueller = next((m._mueller for _, m, _ in components
                     if getattr(m, "_mueller", None) is not None), None)
+    # X-ray gas: its channel tables switch the photon cycle to the X-ray
+    # branch (`skirt9_tpu/config/ski.py:2215-2227`)
+    xray_tabs = next((xr.device_tables(m._xray, "cpu") for _, m, _ in components
+                      if getattr(m, "_xray", None) is not None), None)
+    # Lyman-alpha: the marker mix switches the photon cycle to the resonant
+    # branch, with the acceleration scheme of the medium system's
+    # LyaOptions; the cells take the mix's default gas temperature
+    # (`skirt9_tpu/config/ski.py:2229-2262`)
+    lya_cfg = next((m._lya for _, m, _ in components
+                    if getattr(m, "_lya", None) is not None), None)
+    lya = {}
+    if lya_cfg is not None:
+        if mode != "LyaExtinctionOnly":
+            raise ValueError("LyaNeutralHydrogenGasMix requires "
+                             "simulationMode='LyaExtinctionOnly'")
+        lo_el = med_sys.find("lyaOptions/LyaOptions")
+        la = lo_el.attrib if lo_el is not None else {}
+        # includeHubbleFlow is read and ignored, as the reference ignores it
+        scheme = la.get("lyaAccelerationScheme", "Variable")
+        lya = dict(lya=True,
+                   lya_strength=_f(la, "lyaAccelerationStrength", 1.0))
+        if scheme == "Constant":
+            lya["lya_xcrit"] = 3.0 * lya["lya_strength"]
+        elif scheme == "Variable":
+            lya["lya_variable"] = True
+        t = medium.temperature.numpy()
+        medium = medium._replace(temperature=torch.tensor(
+            np.where(t > 0, t, float(lya_cfg["T_default"])).astype(
+                np.float32)))
 
     # instruments
     if oligo:
@@ -465,10 +564,10 @@ def load_ski(path: str, num_packets: int | None = None,
     force_scattering = pa.get("forceScattering", "true") == "true"
     path_length_bias = _f(pa, "pathLengthBias", 0.5)
     kinematics = bool(velocity_fields) and not oligo
-    if kinematics and force_scattering:
-        # a moving medium invalidates the stretched path's opacities: the
-        # bias is forced off (ref: Configuration.cpp:493-497;
-        # `skirt9_tpu/config/ski.py:2264-2275`)
+    if (kinematics or lya) and force_scattering:
+        # a moving medium or resonant Lya scattering invalidates the
+        # stretched path's opacities: the bias is forced off (ref:
+        # Configuration.cpp:493-497; `skirt9_tpu/config/ski.py:2264-2275`)
         path_length_bias = 0.0
     opts = lc.TransportOptions(
         max_steps=min(grid.max_steps(), 256), max_events=max_events,
@@ -478,7 +577,8 @@ def load_ski(path: str, num_packets: int | None = None,
         kinematics=kinematics, polarization=mueller is not None,
         min_weight_reduction=_f(pa, "minWeightReduction", 1e4),
         min_scatt_events=int(_f(pa, "minScattEvents", 0)),
-        explicit_absorption=pa.get("explicitAbsorption", "false") == "true")
+        explicit_absorption=pa.get("explicitAbsorption", "false") == "true",
+        xray=xray_tabs is not None, **lya)
 
     # cosmology: redshifted observers are not ported
     cos = cosmo.from_ski(_child(mcs, "cosmology"))
@@ -507,4 +607,5 @@ def load_ski(path: str, num_packets: int | None = None,
         include_primary=ia.get("includePrimaryEmission", "false") == "true",
         cmb_temperature=cmb_temperature,
         units=unitsystem.from_ski(_child(mcs, "units")), cosmology=cos,
-        probes=build_probes(mcs), mueller=mueller, device=device)
+        probes=build_probes(mcs), mueller=mueller, xray_tabs=xray_tabs,
+        device=device)

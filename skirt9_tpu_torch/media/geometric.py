@@ -1,10 +1,10 @@
 """Geometric media: per-cell medium state from analytic geometries.
 
 Port of the part of `skirt9_tpu/media/geometric.py` (host numpy) that
-configs 2 and 5 reach: the optical-depth and number normalisations, the
-deterministic midpoint cell quadrature `cell_densities`, and
-`build_medium` onto `media.system.make_medium`. The mass and
-column-density normalisations are not ported yet.
+the golden ski files reach: the optical-depth, number and number-column
+normalisations, the deterministic midpoint cell quadrature
+`cell_densities`, and `build_medium` onto `media.system.make_medium`. The
+mass and mass-column normalisations are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,6 +49,34 @@ class NumberNormalization:
 
     def number_factor(self, geometry, mix: mx.MixTables) -> float:
         return self.number
+
+
+def _axis_column(geometry, axis: str, rmax: float = 0.0) -> float:
+    """The normalised column (the integral of the unit-mass density) along a
+    full axis through the origin [1/m^2]."""
+    rmax = rmax or getattr(geometry, "rmax", None)
+    if rmax is None:
+        raise ValueError("provide rmax for column normalization")
+    s = np.linspace(-rmax, rmax, 20001)
+    unit = {"x": [1, 0, 0], "y": [0, 1, 0], "z": [0, 0, 1]}[axis]
+    pos = s[:, None] * np.asarray(unit, np.float64)
+    col = np.trapezoid(geometry.density_np(pos), s)
+    if col <= 0:
+        raise ValueError("geometry has zero column along the axis")
+    return col
+
+
+@dataclasses.dataclass(frozen=True)
+class NumberColumnNormalization:
+    """Number column density along a full coordinate axis
+    (ref: NumberColumnMaterialNormalization)."""
+
+    column: float    # [1/m^2]
+    axis: str = "z"
+    rmax: float = 0.0
+
+    def number_factor(self, geometry, mix: mx.MixTables) -> float:
+        return self.column / _axis_column(geometry, self.axis, self.rmax)
 
 
 def cell_densities(grid, geometry, samples: int = 64) -> np.ndarray:

@@ -3,7 +3,8 @@
 Port of `skirt9_tpu/media/system.py:30-183`. The medium is a pair of dense
 tables: nd[cell, h] number densities and (H, T) cross-section / asymmetry
 tables on a wavelength axis, gathered once per packet wavelength into
-(B, H) `Optics`, and the per-cell bulk velocities of moving media.
+(B, H) `Optics`, the per-cell bulk velocities of moving media and the
+per-cell gas temperatures of resonant-line media (Lyman-alpha).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ class MediumTables(NamedTuple):
     sigma_sca: torch.Tensor  # (H, T) scattering cross section [m^2]
     g: torch.Tensor          # (H, T) HG asymmetry parameter
     bulk_v: torch.Tensor     # (ncells, 3) bulk velocity [m/s]
+    temperature: torch.Tensor  # (ncells,) gas kinetic temperature [K]
 
     @property
     def ncomp(self) -> int:
@@ -108,13 +110,14 @@ def uniform_density_sphere(grid, tau_radius: float, sigma_ext_val: float,
 def make_medium(grid, nd: np.ndarray, lam_t: np.ndarray, sigma_ext: np.ndarray,
                 albedo: np.ndarray, g: np.ndarray,
                 bulk_v: np.ndarray | None = None,
+                temperature: np.ndarray | None = None,
                 **unsupported) -> MediumTables:
     """Assemble MediumTables (on the CPU) from host arrays.
 
     nd: (ncells,) or (ncells, H); tables: (T,) or (H, T); bulk_v: (ncells,
-    3) per-cell bulk velocities, zeros by default. Per-cell temperatures,
-    magnetic fields and metallicities serve features that are not ported
-    yet and raise."""
+    3) per-cell bulk velocities and temperature: (ncells,) gas temperatures,
+    zeros by default. Per-cell magnetic fields and metallicities serve
+    features that are not ported yet and raise."""
     given = [k for k, v in unsupported.items() if v is not None]
     if given:
         raise NotImplementedError(
@@ -128,6 +131,8 @@ def make_medium(grid, nd: np.ndarray, lam_t: np.ndarray, sigma_ext: np.ndarray,
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32))
     if bulk_v is None:
         bulk_v = np.zeros((nd.shape[0], 3), np.float32)
+    if temperature is None:
+        temperature = np.zeros(nd.shape[0], np.float32)
     return MediumTables(nd=f32(nd), lam_t=f32(lam_t), sigma_ext=f32(sigma_ext),
                         sigma_sca=f32(sigma_ext * albedo), g=f32(g),
-                        bulk_v=f32(bulk_v))
+                        bulk_v=f32(bulk_v), temperature=f32(temperature))

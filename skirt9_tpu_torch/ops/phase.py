@@ -1,4 +1,4 @@
-"""Henyey-Greenstein phase function and direction rotation.
+"""Henyey-Greenstein and dipole phase functions and direction rotation.
 
 Port of `skirt9_tpu/ops/phase.py:16-76`: batched, branch-free functions on
 (B,) and (B, 3) tensors.
@@ -27,6 +27,22 @@ def hg_sample_costheta(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     ct_aniso = (1.0 + gs * gs - f * f) / (2.0 * gs)
     ct_iso = 2.0 * u - 1.0
     return torch.clamp(torch.where(near_iso, ct_iso, ct_aniso), -1.0, 1.0)
+
+
+def dipole_phase(costheta: torch.Tensor) -> torch.Tensor:
+    """The dipole (Rayleigh) phase function normalised over 4 pi sr:
+    (3 / 16 pi)(1 + cos^2 theta)."""
+    return 3.0 / (16.0 * math.pi) * (1.0 + costheta * costheta)
+
+
+def dipole_sample_costheta(u: torch.Tensor) -> torch.Tensor:
+    """Invert the dipole cdf: cos theta is the real root of mu^3 + 3 mu +
+    (4 - 8 u) = 0, by Cardano's formula (cube roots through f64)."""
+    p = 4.0 * u - 2.0
+    d = torch.sqrt((1.0 + p * p).double()).float()
+    cbrt = lambda v: (torch.sign(v.double())
+                      * torch.abs(v.double()) ** (1.0 / 3.0)).float()
+    return torch.clamp(cbrt(p + d) + cbrt(p - d), -1.0, 1.0)
 
 
 def rotate_direction(k: torch.Tensor, costheta: torch.Tensor,

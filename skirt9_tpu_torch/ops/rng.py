@@ -7,6 +7,10 @@ random bits exactly as `jax.random.uniform` builds them (jax 0.9 with
 `jax_threefry_partitionable=True`, impl `threefry2x32`, x64 off). So a port
 run consumes the same random numbers as the reference, draw for draw.
 
+`gauss` draws `jax.random.normal`'s normals bit for bit: XLA's erf_inv,
+log1p and fused multiply-adds replayed in IEEE operations
+(`ops/xlamath.py`).
+
 Keys are raw uint32 pairs held in int64 tensors of shape (..., 2), masked to
 32 bits after every operation that could carry past them; the same code runs
 on the CPU and on CUDA. (Many small elementwise launches per draw on the
@@ -18,6 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import xlamath
 
 # purpose tags (identical to the reference)
 LAUNCH_WAVELENGTH = 1
@@ -93,14 +99,19 @@ def purpose_key(keys: torch.Tensor, tag: int) -> torch.Tensor:
     return fold_in(keys, tag)
 
 
+def bits_to_unit_exact(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> float32 in [0, 1) as jax.random.uniform builds it."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) \
+        - 1.0
+
+
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
-    """uint32 bits -> float32 in [0, 1) as jax.random.uniform builds it, with
-    exact zero replaced by the smallest normal (the reference's rule)."""
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, _TINY)
+    """bits_to_unit_exact with exact zero replaced by the smallest normal
+    (the reference's rule for its one-per-key uniforms)."""
+    return torch.clamp_min(bits_to_unit_exact(bits), _TINY)
 
 
-def _draw(keys: torch.Tensor, count: int) -> torch.Tensor:
+def draw(keys: torch.Tensor, count: int) -> torch.Tensor:
     """32 random bits of element `count` of a 1-D draw under each key."""
     k1, k2 = keys[..., 0], keys[..., 1]
     y1, y2 = threefry2x32(k1, k2, torch.zeros_like(k1),
@@ -110,7 +121,7 @@ def _draw(keys: torch.Tensor, count: int) -> torch.Tensor:
 
 def uniform(keys: torch.Tensor, tag: int) -> torch.Tensor:
     """One uniform in (0, 1) per key."""
-    return _bits_to_unit(_draw(purpose_key(keys, tag), 0))
+    return _bits_to_unit(draw(purpose_key(keys, tag), 0))
 
 
 def uniforms(keys: torch.Tensor, tags) -> torch.Tensor:
@@ -121,21 +132,35 @@ def uniforms(keys: torch.Tensor, tags) -> torch.Tensor:
     if not torch.is_tensor(tags):
         tags = torch.tensor(list(tags), dtype=torch.int64, device=keys.device)
     pk = fold_in(keys.unsqueeze(0), tags.unsqueeze(1))
-    return _bits_to_unit(_draw(pk, 0))
+    return _bits_to_unit(draw(pk, 0))
 
 
 def uniform2(keys: torch.Tensor, tag: int):
     """Two independent uniforms per key (elements 0 and 1 of one draw)."""
     pk = purpose_key(keys, tag)
-    return _bits_to_unit(_draw(pk, 0)), _bits_to_unit(_draw(pk, 1))
+    return _bits_to_unit(draw(pk, 0)), _bits_to_unit(draw(pk, 1))
 
 
 def uniform_vec(keys: torch.Tensor, tag: int, n: int) -> torch.Tensor:
     """`jax.random.uniform(k, (n,))` under each purpose key: (B, n) in
     [0, 1), exact zeros kept (no smallest-normal floor)."""
     pk = purpose_key(keys, tag)
-    bits = torch.stack([_draw(pk, i) for i in range(n)], dim=-1)
-    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return bits_to_unit_exact(torch.stack([draw(pk, i) for i in range(n)],
+                                          dim=-1))
+
+
+_SQRT2 = xlamath.f32(math.sqrt(2.0))
+_NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+
+
+def gauss(keys: torch.Tensor, tag: int) -> torch.Tensor:
+    """One standard normal per key, as `jax.random.normal(k, ())` draws it
+    under the purpose key: a uniform on [nextafter(-1, 0), 1) from the same
+    bits (u * (hi - lo) + lo, floored at lo), then sqrt(2) erf_inv(u)."""
+    f = bits_to_unit_exact(draw(purpose_key(keys, tag), 0))
+    # hi - lo rounds to 2 in f32
+    u = torch.clamp_min(f * 2.0 + _NORMAL_LO, _NORMAL_LO)
+    return _SQRT2 * xlamath.erf_inv(u)
 
 
 def expon(keys: torch.Tensor, tag: int) -> torch.Tensor:

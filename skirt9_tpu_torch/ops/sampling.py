@@ -4,13 +4,19 @@ Port of `skirt9_tpu/ops/sampling.py`. The cdf builds run once at set-up in
 float64 numpy, as in the reference; the lookups and inversions run on
 tensors. The reference's dense compare-reduce lookups are TPU gather
 workarounds; here they are `torch.searchsorted` and plain indexing, which
-give the same indices and values.
+give the same indices and values. With `xla=True` the interpolations
+evaluate as XLA does on the CPU (its log and exp, each product fused into
+the sum it feeds: `ops.xlamath`), bit for bit with the reference there,
+and the same bits on any device; the launch samplers take that form, where
+an ulp of a logarithm moves a narrow line's wavelength by 1e-6 of itself.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import xlamath as xm
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -62,20 +68,23 @@ def locate_clip(xv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(searchsorted_right(xv, x) - 1, 0, xv.shape[0] - 2)
 
 
-def interp_linlin(x: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor):
+def interp_linlin(x: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
+                  xla: bool = False):
     """Batched linear interpolation with edge clamping."""
     i = locate_clip(xv, x)
     x0, x1 = xv[i], xv[i + 1]
     y0, y1 = yv[i], yv[i + 1]
     t = torch.clamp((x - x0) / torch.clamp_min(x1 - x0, _TINY), 0.0, 1.0)
-    return y0 + t * (y1 - y0)
+    return xm.fma(t, y1 - y0, y0) if xla else y0 + t * (y1 - y0)
 
 
-def interp_loglog(x: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor):
+def interp_loglog(x: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
+                  xla: bool = False):
     """Batched log-log (power-law) interpolation, clamped; values from the
     tiny-clamped floor come back as exact zeros."""
-    out = torch.exp(interp_linlin(torch.log(x), torch.log(xv),
-                                  torch.log(torch.clamp_min(yv, _TINY))))
+    log, exp = (xm.log_xla, xm.exp_xla) if xla else (torch.log, torch.exp)
+    out = exp(interp_linlin(log(x), log(xv),
+                            log(torch.clamp_min(yv, _TINY)), xla=xla))
     return torch.where(out < 1e-35, torch.zeros_like(out), out)
 
 
@@ -94,9 +103,12 @@ def sample_cdf_linlin(u: torch.Tensor, xv: torch.Tensor,
 
 
 def sample_cdf_loglog(u: torch.Tensor, xv: torch.Tensor,
-                      cdf: torch.Tensor) -> torch.Tensor:
+                      cdf: torch.Tensor, xla: bool = False) -> torch.Tensor:
     """Invert a tabulated cdf, linear in log x within bins."""
     i = locate_clip(cdf, u)
+    if xla:
+        lx0, lx1 = xm.log_xla(xv[i]), xm.log_xla(xv[i + 1])
+        return xm.exp_xla(xm.fma(_cdf_frac(u, cdf, i), lx1 - lx0, lx0))
     lx0 = torch.log(xv[i])
     lx1 = torch.log(xv[i + 1])
     return torch.exp(lx0 + _cdf_frac(u, cdf, i) * (lx1 - lx0))

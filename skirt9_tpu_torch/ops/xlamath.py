@@ -1,0 +1,166 @@
+"""XLA's f32 arithmetic on the CPU, operation for operation, in PyTorch.
+
+The reference runs its f32 math through XLA, whose CPU code fuses a
+product into the sum it feeds (a fused multiply-add, rounded once) and
+evaluates log, log1p, exp and erf_inv by its own polynomials (Cephes' logf
+and expf, Giles' erf_inv). PyTorch rounds every product and has other
+polynomials, ulps away. Where an ulp decides a discrete outcome (a
+Gaussian draw's value, a rejection test, a table row), the port uses these
+replicas: pure IEEE operations that give XLA's bits on any device (its
+subnormal inputs aside, which XLA flushes to zero). `fma` forms a * b + c
+in f64, where the product of two f32 values is exact, and rounds once
+more to f32, which equals the fused rounding but in a vanishing share of
+ties.
+"""
+
+from __future__ import annotations
+
+import math
+import struct
+
+import torch
+
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def f32(v: float) -> float:
+    """v rounded to f32: a Python float as the reference's jax.numpy takes
+    it into an f32 expression (XLA folds constant expressions in f32)."""
+    return struct.unpack("<f", struct.pack("<f", v))[0]
+
+
+def sqrt(t: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's (through f64:
+    PyTorch's f32 sqrt on the CPU is not correctly rounded on some
+    inputs)."""
+    return torch.sqrt(t.double()).float()
+
+
+def _f32_of(bits: int) -> float:
+    """The f32 constant whose f64 encoding is `bits`."""
+    return struct.unpack("<d", struct.pack("<Q", bits))[0]
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to f32 (through f64, where the product of two
+    f32 values is exact), as the fused multiply-add that XLA's CPU code
+    emits rounds it. Python floats among a, b and c act as f32 constants,
+    as they do in the reference's jax.numpy expressions (one of a and b is
+    a tensor)."""
+    to64 = lambda v: v.double() if torch.is_tensor(v) else f32(v)
+    return (to64(a) * to64(b) + to64(c)).float()
+
+
+def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
+    """The f32 quotient c / t, rounded once (PyTorch forms a Python float
+    over a tensor as the reciprocal times the float, rounded twice)."""
+    return torch.full_like(t, f32(c)) / t
+
+
+# XLA's f32 log1p on the CPU: Cephes' logf of 1 + a (its polynomial in an
+# Estrin order) beside a rational approximation for |a| < sqrt(2) - 1
+_LOGF_P = tuple(_f32_of(b) for b in (
+    0x3FB2043760000000, 0xBFBD7A3700000000, 0x3FBDE4A340000000,
+    0xBFBFCBA9E0000000, 0x3FC23D37E0000000, 0xBFC555CA00000000,
+    0x3FC999D580000000, 0xBFCFFFFF80000000, 0x3FD5555540000000))
+_LOGF_LN2_LO = _f32_of(0xBF2BD01060000000)
+_LOGF_LN2_HI = _f32_of(0x3FE6300000000000)
+_LOG1P_DEN = tuple(_f32_of(b) for b in (
+    0x402E2035A0000000, 0x4054C30B60000000, 0x406BB865A0000000,
+    0x4073519460000000, 0x406B0DB140000000, 0x404E0F3040000000))
+_LOG1P_NUM = tuple(_f32_of(b) for b in (
+    0x3F07BC0960000000, 0x3FDFE818A0000000, 0x401A509F40000000,
+    0x403DE97380000000, 0x404E798EC0000000, 0x404C8E75A0000000,
+    0x40340A2020000000))
+_LOG1P_SMALL = _f32_of(0x3FDA8279A0000000)
+
+
+def log_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU log of f32 x > 0 (Cephes' logf), operation for operation
+    with its fused multiply-adds: bit for bit except on subnormals."""
+    bits = torch.clamp_min(x, torch.finfo(torch.float32).tiny).view(
+        torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < _f32_of(0x3FE6A09E60000000)
+    e = (((bits >> 23) - 127).float() + 1.0) - low.float()
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    z = t * t
+    t3 = z * t
+    p = _LOGF_P
+    b1 = fma(fma(t, p[0], p[1]), t, p[2])
+    b2 = fma(fma(t, p[3], p[4]), t, p[5])
+    b3 = fma(fma(t, p[6], p[7]), t, p[8])
+    y = fma(fma(fma(b1, t3, b2), t3, b3), t3, e * _LOGF_LN2_LO)
+    out = ((t - z * 0.5) + y) + e * _LOGF_LN2_HI
+    return torch.where(x == 0.0, torch.full_like(out, -math.inf), out)
+
+
+def log1p_xla(a: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU log1p of f32 a > -1: log_xla(1 + a), or a rational
+    approximation for |a| < sqrt(2) - 1; bit for bit except on subnormal
+    inputs, which XLA flushes to zero."""
+    a2 = a * a
+    den = torch.ones_like(a)
+    for c in _LOG1P_DEN:
+        den = fma(den, a, c)
+    num = torch.full_like(a, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = fma(num, a, c)
+    small = a + (a2 * -0.5 + (a * a2) * (num / den))
+    return torch.where(a.abs() < _LOG1P_SMALL, small, log_xla(a + 1.0))
+
+
+# XLA's f32 erf_inv (Giles' single-precision approximation): Horner
+# coefficients in w - 2.5 for w = -log1p(-x^2) < 5, else in sqrt(w) - 3
+_ERFINV_CENTRAL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 inverse error function on the CPU, step for step (its
+    log1p, and each Horner step one fused multiply-add). PyTorch's erfinv
+    is another algorithm, tens of ulps away."""
+    w = -log1p_xla(x * -x)
+    central = w < 5.0
+    w = torch.where(central, w - 2.5, sqrt(w) - 3.0)
+    coef = lambda i: torch.where(central,
+                                 torch.full_like(w, _ERFINV_CENTRAL[i]),
+                                 torch.full_like(w, _ERFINV_TAIL[i]))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_CENTRAL)):
+        p = fma(p, w, coef(i))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+
+
+# Cephes' expf: e^x = 2^n e^r, n = floor(x log2(e) + 1/2), r reduced in two
+# parts of ln 2, e^r a degree-5 polynomial
+_EXPF_P = tuple(_f32_of(b) for b in (
+    0x3F2A0D2CE0000000, 0x3F56E879C0000000, 0x3F81112100000000,
+    0x3FA5553820000000, 0x3FC5555540000000))
+_EXPF_LO = _f32_of(0xC055F33340000000)
+_EXPF_HI = _f32_of(0x4056333340000000)
+_LOG2E = _f32_of(0x3FF7154760000000)
+
+
+def exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU exp of f32 x, operation for operation (subnormal results
+    flushed to zero, as XLA flushes them)."""
+    x = torch.clamp(x, _EXPF_LO, _EXPF_HI)
+    n = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma(n, -_LOGF_LN2_HI, x)
+    r = fma(n, -_LOGF_LN2_LO, r)
+    y = _EXPF_P[0]
+    for c in _EXPF_P[1:] + (0.5,):
+        y = fma(r, y, c)
+    y = fma(y, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * scale
+    # XLA flushes subnormal results to zero
+    return torch.where(out < _TINY, torch.zeros_like(out), out)

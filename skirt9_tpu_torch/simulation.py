@@ -1,7 +1,8 @@
 """Monte Carlo simulation orchestrator on PyTorch tensors.
 
 Port of `skirt9_tpu/simulation.py` on one device, on uniform Cartesian
-grids, octrees and bintrees: `run_primary` launches each source's history
+grids, octrees and bintrees (with the wavelength-changing Compton, Lya and
+X-ray physics on uniform grids): `run_primary` launches each source's history
 range in batches through `transport.lifecycle.life_cycle` and accumulates
 the radiation field and instrument records on the device;
 `run_with_dust_emission` adds equilibrium dust emission (the optional
@@ -97,6 +98,9 @@ class Simulation:
     probes: list = dataclasses.field(default_factory=list)
     # the Mueller tables of polarized scattering (`ops.stokes`), or None
     mueller: object = None
+    # the X-ray gas's channel tables (`media.xray.device_tables`), which the
+    # life cycle's X-ray option reads, or None
+    xray_tabs: dict | None = None
     device: object = dataclasses.field(default="cuda", kw_only=True)
 
     def __post_init__(self):
@@ -129,11 +133,17 @@ class Simulation:
             if self.rf_borders is not None else None)
         self._sweep_tabs = self._engine_tables()
         lc.check_engine(self.options, self._sweep_tabs)
-        lc.check_kinematics(self.medium, self.options,
-                            len(self.rf_borders) - 1 if self.options.store_rf
-                            and self.rf_borders is not None else 0)
+        rf_nbins = (len(self.rf_borders) - 1 if self.options.store_rf
+                    and self.rf_borders is not None else 0)
+        lc.check_kinematics(self.medium, self.options, rf_nbins)
+        lc.check_wavelength_changing(self.medium, self.options, rf_nbins)
         if self.mueller is not None:
             self.mueller = self.mueller.to(dev)
+        if self.xray_tabs is not None:
+            self.xray_tabs = {k: v.to(dev) for k, v in self.xray_tabs.items()}
+        elif self.options.xray:
+            raise ValueError("the X-ray option needs xray_tabs "
+                             "(media.xray.device_tables)")
         # RF accumulator unit [W m]: keeps f32 in range for luminous sources
         self.rf_scale = max(L_tot / max(self.num_packets, 1)
                             * self.grid.diagonal(), 1e-300)
@@ -347,7 +357,8 @@ class Simulation:
                                      self._inst_tabs, self._rf_borders_dev,
                                      pkt, rf, accs, self._sweep_tabs,
                                      stats=self.last_stats,
-                                     mueller=self.mueller)
+                                     mueller=self.mueller,
+                                     xray_tabs=self.xray_tabs)
             _log().progress(min((b + 1) * B, n_packets), n_packets)
         return rf, accs
 
@@ -391,7 +402,7 @@ class Simulation:
                 self.medium, opts_k, self.instruments, self._inst_tabs,
                 self._rf_borders_dev, pkt, rf, accs, self._sweep_tabs,
                 stats=stats, emit_mask=refill, return_state=True,
-                mueller=self.mueller)
+                mueller=self.mueller, xray_tabs=self.xray_tabs)
             next_hist += min(B - n_alive, hist_end - next_hist)
             n_alive = int(pkt.alive.sum())
             stats["syncs"] = stats.get("syncs", 0) + 1

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import rng, sampling
+from ..ops import xlamath as xm
 from ..transport.packets import PacketBatch
 
 
@@ -90,18 +91,22 @@ def _sample_wavelength(tabs, keys, lum, sed, lam0, xi):
     if "strata" in tabs:
         return _sample_wavelength_stratified(sedt, tabs["strata"], keys, lum,
                                              xi, tabs.get("strata_w"))
+    # XLA's log, exp and fused multiply-adds (`ops.xlamath`): an ulp of a
+    # logarithm moves a narrow line's wavelength by 1e-6 of itself
     u = rng.uniform(keys, rng.LAUNCH_WAVELENGTH)
-    lam_sed = sampling.sample_cdf_loglog(u, sedt["lam"], sedt["cdf"])
+    lam_sed = sampling.sample_cdf_loglog(u, sedt["lam"], sedt["cdf"],
+                                         xla=True)
     if xi <= 0:
         return lam_sed, lum
     u2 = rng.uniform(keys, rng.LAUNCH_CELL)
     u3 = rng.uniform(keys, rng.LAUNCH_SOURCE)
     lmin, lmax = sedt["lam"][0], sedt["lam"][-1]
-    lam_bias = lmin * torch.exp(u2 * torch.log(lmax / lmin))
+    log_w = xm.log_xla(lmax / lmin)
+    lam_bias = lmin * xm.exp_xla(u2 * log_w)
     lam = torch.where(u3 < xi, lam_bias, lam_sed)
-    b = 1.0 / (lam * torch.log(lmax / lmin))
-    s = sampling.interp_loglog(lam, sedt["lam"], sedt["pdf"])
-    w = s / torch.clamp_min((1.0 - xi) * s + xi * b, 1e-37)
+    b = 1.0 / (lam * log_w)
+    s = sampling.interp_loglog(lam, sedt["lam"], sedt["pdf"], xla=True)
+    w = s / torch.clamp_min(xm.fma(1.0 - xi, s, xi * b), 1e-37)
     return lam, lum * w
 
 

@@ -1,10 +1,11 @@
 """SED templates on wavelength grids (host numpy).
 
-Port of `skirt9_tpu/spectral/seds.py` for the templates config 2 reaches:
-`blackbody`, `clipped`, `integrate` and `normalized`. Each returns a
+Port of `skirt9_tpu/spectral/seds.py` for the templates the golden ski
+files reach: `blackbody`, `from_file` (FileSED), `lya_gaussian`
+(LyaGaussianSED), `clipped`, `integrate` and `normalized`. Each returns a
 `sources.base.TabulatedSED` (lam [m], s_lambda up to normalisation); the
 source normalises it to its luminosity. The reference's quasar, line and
-Lyman-alpha templates are not ported yet.
+double-peaked Lyman-alpha templates are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,28 @@ def blackbody(T: float, lam_min: float = 0.01e-6, lam_max: float = 100e-6,
     """(ref: SKIRT/core/BlackBodySED)"""
     lam = np.geomspace(lam_min, lam_max, n)
     return TabulatedSED(lam=lam, s=np.pi * planck.b_lambda_np(lam, T))
+
+
+def from_file(path: str, lam_unit: float = 1.0,
+              s_unit: float = 1.0) -> TabulatedSED:
+    """Two-column text file: wavelength, specific luminosity
+    (ref: FileSED via TextInFile)."""
+    data = np.loadtxt(path)
+    return TabulatedSED(lam=data[:, 0] * lam_unit, s=data[:, 1] * s_unit)
+
+
+LAM_LYA = 1215.67e-10   # Lyman-alpha centre [m] (ref: Constants::lambdaLya)
+_C = 2.99792458e8
+
+
+def lya_gaussian(dispersion: float, n: int = 1200) -> TabulatedSED:
+    """A Gaussian Lyman-alpha line in velocity space with dispersion s
+    [m/s] (ref: LyaGaussianSED: exp(-v^2 / 2 s^2) over v = (lam - lam_a) /
+    lam_a c), on +-6 s."""
+    v = np.linspace(-6.0, 6.0, n) * dispersion
+    lam = LAM_LYA * (1.0 + v / _C)
+    s = np.exp(-0.5 * (v / dispersion) ** 2)
+    return TabulatedSED(lam=lam, s=s)
 
 
 def clipped(sed: TabulatedSED, lam_min: float, lam_max: float) -> TabulatedSED:

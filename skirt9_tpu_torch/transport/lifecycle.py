@@ -23,6 +23,22 @@ cross sections are wavelength-independent and at most one RF bin is stored
 the perceived-wavelength opacity then equals the launch-wavelength one, so
 the sweep's constant per-lane cross sections stay exact.
 
+With Compton, Lyman-alpha or X-ray physics (`TransportOptions.compton`,
+`lya`, `xray`) a scattering changes the packet's wavelength, so each event
+re-derives the optics and the per-lane cross sections the sweep kernels
+take, and each of these branches peels off at its own detection
+wavelengths, the observer ray's optical depth taken there (the
+reference's `march_uses_lam_fn`): Klein-Nishina scattering with its
+Compton shift (`ops/compton.py`); Lya resonant scattering (`ops/lya.py`:
+the atom's velocity by rejection, core skipping, the dipole or isotropic
+direction, the redistributed wavelength; the Voigt opacity at the one gas
+temperature of the medium, albedo 1); the X-ray gas's electron and
+fluorescence channels (`lifecycle.xray_channels`, the line from the
+absorbing bin's cdf, two peel-offs). They ride the resident sweep only,
+with at most one RF bin, and Lya only in a static one-component medium at
+one gas temperature (the reference's `lam_sweep_ok` and `lya_sweep_ok`,
+`skirt9_tpu/transport/lifecycle.py:543-568`); elsewhere they raise.
+
 On the resident sweep, pass 1 is one `sweep_dtau_prefix` launch (the slab
 prefix and the lane range come out of the kernel), pass 2 one
 `sweep_deposit_prefix` launch (it takes the prefix, the range, the
@@ -76,8 +92,11 @@ from torch.profiler import record_function
 
 from ..instruments import distant as dinst
 from ..media import system as msys
+from ..ops import compton as co
+from ..ops import lya as lyo
 from ..ops import phase as phs
 from ..ops import rng
+from ..ops import sampling
 from ..ops import stokes as stk
 from . import mlsweep as ml
 from . import sweep as sw
@@ -92,8 +111,18 @@ _TAG_PATH_TAU_EXP = 23
 _TAG_SCATTER_COMP = 24
 _TAG_SCATTER_CT = 25
 _TAG_SCATTER_PHI = 26
+# the wavelength-changing branches' draws (the reference's tags)
+_TAG_LYA_UPAR = _TAG_SCATTER_COMP + 40      # the rejection rounds' base
+_TAG_LYA_PERP1 = _TAG_SCATTER_COMP + 41     # a Gaussian
+_TAG_LYA_SKIP_R = _TAG_SCATTER_COMP + 43
+_TAG_LYA_SKIP_A = _TAG_SCATTER_COMP + 44
+_TAG_LYA_DIPOLE = _TAG_SCATTER_COMP + 45
+_TAG_XRAY_LINE = _TAG_SCATTER_COMP + 50
+_TAG_XRAY_CHANNEL = _TAG_SCATTER_COMP + 51
+_TAG_XRAY_ISO = _TAG_SCATTER_COMP + 52
 
 _ISO = 1.0 / (4.0 * math.pi)
+_INV_SQRT2 = 0.7071067811865476
 _INV_C = 1.0 / 2.99792458e8  # inverse speed of light [s/m]
 
 
@@ -129,9 +158,6 @@ class TransportOptions:
 
 
 _NOT_PORTED = (
-    ("compton", lambda o: o.compton),
-    ("lya", lambda o: o.lya or o.lya_variable or o.lya_xcrit > 0),
-    ("xray", lambda o: o.xray),
     ("emission_doppler", lambda o: o.emission_doppler),
     ("explicit_absorption", lambda o: o.explicit_absorption),
 )
@@ -145,14 +171,21 @@ def check_supported(opts: TransportOptions) -> None:
             f"transport options not ported yet: {', '.join(missing)}")
 
 
+def lam_changing(opts: TransportOptions) -> bool:
+    """Whether scatterings change the packets' wavelengths (Compton,
+    Lyman-alpha or X-ray physics)."""
+    return opts.compton or opts.lya or opts.xray
+
+
 def check_engine(opts: TransportOptions, sweep_tabs) -> None:
-    """Polarization and kinematics ride the resident sweep only: on the
-    tree (multi-level) and large-grid (XL) engines they raise."""
+    """Polarization, kinematics and the wavelength-changing physics
+    (Compton, Lya, X-ray) ride the resident sweep only: on the tree
+    (multi-level) and large-grid (XL) engines they raise."""
     engine = ("tree (multi-level)" if isinstance(sweep_tabs, ml.MLTables)
               else "large-grid (XL)" if isinstance(sweep_tabs, xl.XLTables)
               else None)
-    on = [name for name in ("polarization", "kinematics")
-          if getattr(opts, name)]
+    on = [name for name in ("polarization", "kinematics", "compton", "lya",
+                            "xray") if getattr(opts, name)]
     if engine is not None and on:
         raise NotImplementedError(f"{' and '.join(on)} on the {engine} "
                                   "sweep not ported yet (the resident sweep)")
@@ -176,6 +209,45 @@ def check_kinematics(med: msys.MediumTables, opts: TransportOptions,
         raise NotImplementedError(
             "kinematics with a multi-bin radiation field (the reference's "
             "scan march; not ported)")
+
+
+def check_wavelength_changing(med: msys.MediumTables, opts: TransportOptions,
+                              rf_nbins: int) -> float:
+    """The reference's `lam_sweep_ok` gate (`skirt9_tpu/transport/
+    lifecycle.py:543-568`): wavelength-changing physics rides the sweep
+    only where at most one RF bin is stored, and Lya only in a static
+    one-component medium at one gas temperature, where the Voigt opacity
+    factors into one cross section per lane. Elsewhere the reference takes
+    its scan march, which is not ported, so this raises. Returns that
+    temperature for Lya (0 otherwise)."""
+    if not lam_changing(opts):
+        return 0.0
+    if rf_nbins > 1:
+        raise NotImplementedError(
+            "Compton, Lya or X-ray physics with a multi-bin radiation field "
+            "(the reference's scan march; not ported)")
+    if not opts.lya:
+        return 0.0
+    if med.ncomp != 1:
+        raise NotImplementedError(
+            f"Lya in a medium of {med.ncomp} components (the reference's "
+            "scan march; not ported)")
+    if bool(torch.any(med.bulk_v != 0)):
+        raise NotImplementedError(
+            "Lya in a moving medium (bulk velocities; the reference's scan "
+            "march; not ported)")
+    occ = med.nd[:, 0] > 0
+    if not bool(occ.any()):
+        raise NotImplementedError(
+            "Lya in an empty medium (the reference's scan march; not "
+            "ported)")
+    t_occ = med.temperature[occ].double()
+    t_min, t_max = float(t_occ.min()), float(t_occ.max())
+    if not (t_min > 0 and t_max - t_min <= 1e-6 * t_max):
+        raise NotImplementedError(
+            "Lya with a varying gas temperature (the reference's scan "
+            "march; not ported)")
+    return float(t_occ[0])
 
 
 def _dot3(a, b):
@@ -298,18 +370,23 @@ def _observer_groups(inst_cfgs) -> list[list[int]]:
 
 
 def peel_off(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr, kind: int,
-             active, tracer, transparent_too: bool = False, lam_fn=None):
+             active, tracer, transparent_too: bool = False, lam_fn=None,
+             march_at_lam_fn: bool = False):
     """Peel a batch of events off toward every distant instrument.
     contrib_per_sr(i, kobs) -> ((B,) luminosity per steradian toward
     instrument i's direction kobs, (B, 3) Stokes Q, U, V in its frame or
     None); lam_fn(kobs): the detection wavelengths where they are not lam
-    (a moving cell's Doppler shift). The transparent kind records no
-    Stokes, as in the reference."""
+    (a moving cell's Doppler shift, a Compton shift, a fluorescence line,
+    a Lya redistribution). With march_at_lam_fn the observer ray's optical
+    depth is taken at those wavelengths (the group's first observer's), as
+    the reference's `march_uses_lam_fn` does. The transparent kind records
+    no Stokes, as in the reference."""
     B = lam.shape[0]
     for group in _observer_groups(inst_cfgs):
         kobs = inst_tabs[group[0]]["kobs"]
+        lam_m = lam_fn(kobs) if march_at_lam_fn else None
         tau_obs = tracer(pos, kobs.expand(B, 3), active,
-                         inst_cfgs[group[0]].frame_axes()[0])
+                         inst_cfgs[group[0]].frame_axes()[0], lam_m)
         att = torch.exp(-tau_obs)
         for i in group:
             ko = inst_tabs[i]["kobs"]
@@ -395,7 +472,7 @@ def _unsort(x, perm):
 def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                inst_tabs, rf_borders, pkt, rf, accs, sweep_tabs,
                stats: dict | None = None, emit_mask=None,
-               return_state: bool = False, mueller=None):
+               return_state: bool = False, mueller=None, xray_tabs=None):
     """Run the complete life cycle of one launched packet batch.
 
     rf: (ncells, nbins) radiation-field accumulator or None; accs: one dict of
@@ -408,33 +485,53 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     (early-exit tests) and "sync_s" (host seconds spent waiting in them).
     mueller: the `ops.stokes.MuellerTables` of polarized scattering, on the
     batch's device; without them the scattering is not polarized, as in the
-    reference.
+    reference. xray_tabs: `media.xray.device_tables` on the batch's device,
+    which the X-ray option needs.
     """
     check_supported(opts)
     check_engine(opts, sweep_tabs)
-    check_kinematics(med, opts, rf.shape[1] if opts.store_rf
-                     and rf is not None else 0)
-    polarized = opts.polarization and mueller is not None
-    opt = msys.optics_at(med, pkt.lam)
-    sigma_lanes = opt.sigma_ext.T.contiguous()   # (H, B)
+    rf_nbins = rf.shape[1] if opts.store_rf and rf is not None else 0
+    check_kinematics(med, opts, rf_nbins)
+    lya_T0 = check_wavelength_changing(med, opts, rf_nbins)
+    if opts.xray and xray_tabs is None:
+        raise ValueError("the X-ray option needs xray_tabs "
+                         "(media.xray.device_tables)")
+    changing = lam_changing(opts)
+    polarized = opts.polarization and mueller is not None and not changing
     h_cells = np.asarray(sweep_tabs.h)
     is_xl = isinstance(sweep_tabs, xl.XLTables)
     is_ml = isinstance(sweep_tabs, ml.MLTables)
 
-    def tracer(pos, kdir, mask, kobs_host):
-        # every lane marches toward the same observer: one shared slab axis
+    def sig_lanes(o, lam):
+        """(H, B) cross sections of optics o at wavelengths lam; in Lya mode
+        component 0 adds the Voigt cross section at the uniform gas
+        temperature (the marker mix's own tables are zero), as the
+        reference's `sig_lanes_of` does (`lifecycle.py:610-618`)."""
+        sig = o.sigma_ext.T
+        if opts.lya:
+            sig = sig.clone()
+            sig[0] += lyo.cross_section(lam, lya_T0)
+        return sig.contiguous()
+
+    opt = msys.optics_at(med, pkt.lam)
+    sigma_lanes = sig_lanes(opt, pkt.lam)      # (H, B)
+
+    def tracer(pos, kdir, mask, kobs_host, lam_m=None):
+        # every lane marches toward the same observer: one shared slab axis;
+        # lam_m: the detection wavelengths, where the opacity is taken there
+        sig = (sigma_lanes if lam_m is None
+               else sig_lanes(msys.optics_at(med, lam_m), lam_m))
         hint = int(np.argmax(np.abs(np.asarray(kobs_host, np.float64))
                              / h_cells))
         if is_xl:
             prm = xl.entry_order(sweep_tabs, pos, hint)
             tau = xl.sweep_tau_total(sweep_tabs, pos[prm], kdir[prm],
-                                     sigma_lanes[:, prm], mask[prm],
-                                     axis_hint=hint)
+                                     sig[:, prm], mask[prm], axis_hint=hint)
             return _unsort(tau, prm)
         if is_ml:
-            return ml.sweep_tau_total(sweep_tabs, pos, kdir, sigma_lanes,
-                                      mask, axis_hint=hint)
-        return sw.sweep_tau_total(sweep_tabs, pos, kdir, sigma_lanes, mask,
+            return ml.sweep_tau_total(sweep_tabs, pos, kdir, sig, mask,
+                                      axis_hint=hint)
+        return sw.sweep_tau_total(sweep_tabs, pos, kdir, sig, mask,
                                   axis_hint=hint)
 
     kind_direct = (dinst.KIND_PRIMARY_DIRECT if opts.primary
@@ -449,7 +546,8 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     # copies nothing from the host
     bin_map = None
     if use_rf:
-        rf_in_range = (pkt.lam >= rf_borders[0]) & (pkt.lam < rf_borders[-1])
+        in_range = lambda lam: (lam >= rf_borders[0]) & (lam < rf_borders[-1])
+        rf_in_range = in_range(pkt.lam)
         bin_map = _bin_map(opts, rf, n_groups, rf.device)
         if is_xl and bin_map is None and rf.shape[1] > 1:
             # kernel 7 adds into the RF itself: the one group of a
@@ -461,7 +559,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
         s11n_h = stk.s11_norm(mueller)
         n_dets = _detector_normals(inst_tabs)
 
-    # ---- emission peel-off
+    # ---- emission peel-off (at the launch wavelengths' opacity)
     if do_peel:
         emit = pkt.alive if emit_mask is None else emit_mask & pkt.alive
         peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos,
@@ -471,6 +569,12 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     tags = _path_tags(opts) + (_TAG_SCATTER_CT, _TAG_SCATTER_PHI)
     if med.ncomp > 1:
         tags = tags + (_TAG_SCATTER_COMP,)
+    if opts.lya:
+        tags = tags + (_TAG_LYA_DIPOLE,)
+        if opts.lya_xcrit > 0 or opts.lya_variable:
+            tags = tags + (_TAG_LYA_SKIP_R, _TAG_LYA_SKIP_A)
+    if opts.xray:
+        tags = tags + (_TAG_XRAY_LINE, _TAG_XRAY_CHANNEL, _TAG_XRAY_ISO)
     tag_t = torch.tensor(tags, dtype=torch.int64, device=pkt.lam.device)
     inv_sqrt = 1.0 / float(np.sqrt(opts.rf_scale))
 
@@ -491,6 +595,13 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             keys = rng.event_keys(pkt.hkey, pkt.nscat)
             u = dict(zip(tags, rng.uniforms(keys, tag_t)))
             active = pkt.alive
+            if changing:
+                # the optics follow the packets' current wavelengths (the
+                # reference's `:786` and `:805`)
+                opt = msys.optics_at(med, pkt.lam)
+                sigma_lanes = sig_lanes(opt, pkt.lam)
+                if use_rf:
+                    rf_in_range = in_range(pkt.lam)
 
             # pass 1: optical depth per slab and along the whole path
             if is_xl:
@@ -572,6 +683,10 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                 lam_cell, opt_int = pkt.lam, opt
             lum_at = pkt.lum * w_bias
             albedo = msys.albedo_for_scattering(med, opt_int, icell)
+            if opts.lya:
+                albedo = torch.ones_like(lum_at)      # resonant scattering
+            if opts.xray:
+                albedo, p_fl = xray_channels(xray_tabs, lam_cell)
             pkt = pkt._replace(
                 pos=torch.where(active_int[:, None], ipos, pkt.pos),
                 cell=torch.where(active_int, icell, pkt.cell),
@@ -582,49 +697,73 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             else:
                 h = torch.zeros_like(icell)
 
-            # scattering peel-off
-            if do_peel:
-                lum_alb = pkt.lum * albedo
-                lam_fn = None
-                if polarized:
-                    # detected at the packet's incoming lab-frame
-                    # wavelength, as the reference's polarized peel-off
-                    # does (`lifecycle.py:1323-1329`)
-                    s11n = s11n_h[h]
-                    per_sr = lambda i, kobs: polarized_per_sr(
-                        pkt, mueller, h, s11n, lum_alb, kobs, n_dets[i])
-                else:
-                    w_comp = msys.scattering_weights(med, opt_int, icell)
-
-                    def per_sr(i, kobs):
-                        ct = torch.sum(pkt.dir * kobs, dim=-1)
-                        ph = torch.sum(w_comp * phs.hg_phase(
-                            opt_int.g, ct[:, None]), dim=-1)
-                        return lum_alb * ph, None
-
-                    if opts.kinematics:
-                        # Doppler-shifted toward each observer
-                        lam_fn = lambda kobs: lam_cell * (
-                            1.0 - _dot3(kobs.expand_as(v_int), v_int)
-                            * _INV_C)
-                peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos, per_sr,
-                         kind_scat, active_int, tracer, lam_fn=lam_fn)
-
-            # the scattering event proper
-            if polarized:
-                newdir, n_rot, st_new = polarized_scatter(
-                    pkt, mueller, h, u[_TAG_SCATTER_CT], u[_TAG_SCATTER_PHI])
-                pkt = pkt._replace(
-                    stokes=torch.where(active_int[:, None], st_new,
-                                       pkt.stokes),
-                    normal=torch.where(active_int[:, None], n_rot,
-                                       pkt.normal))
+            if opts.lya:
+                newdir, lam_new, per_sr, lam_fn = lya_event(
+                    med, opts, keys, u, pkt, icell, lam_cell)
+            elif opts.compton:
+                newdir, lam_new, per_sr, lam_fn = compton_event(
+                    u, pkt, albedo, lam_cell)
+            elif opts.xray:
+                newdir, lam_new, peels = xray_event(
+                    xray_tabs, u, pkt, albedo, p_fl, lam_cell)
+            if changing:
+                # the branch's own peel-offs, marched at their detection
+                # wavelengths
+                if do_peel:
+                    for per_sr_b, lam_fn_b in (peels if opts.xray
+                                               else ((per_sr, lam_fn),)):
+                        peel_off(inst_cfgs, inst_tabs, accs, pkt.lam,
+                                 pkt.pos, per_sr_b, kind_scat, active_int,
+                                 tracer, lam_fn=lam_fn_b,
+                                 march_at_lam_fn=True)
+                pkt = pkt._replace(lam=torch.where(active_int, lam_new,
+                                                   pkt.lam))
             else:
-                g_sel = opt_int.g.gather(1, h[:, None])[:, 0]
-                newdir = hg_scatter_direction(u[_TAG_SCATTER_CT],
-                                              u[_TAG_SCATTER_PHI], g_sel,
-                                              pkt.dir)
-            if opts.kinematics:
+                # scattering peel-off
+                if do_peel:
+                    lum_alb = pkt.lum * albedo
+                    lam_fn = None
+                    if polarized:
+                        # detected at the packet's incoming lab-frame
+                        # wavelength, as the reference's polarized
+                        # peel-off does (`lifecycle.py:1323-1329`)
+                        s11n = s11n_h[h]
+                        per_sr = lambda i, kobs: polarized_per_sr(
+                            pkt, mueller, h, s11n, lum_alb, kobs, n_dets[i])
+                    else:
+                        w_comp = msys.scattering_weights(med, opt_int, icell)
+
+                        def per_sr(i, kobs):
+                            ct = torch.sum(pkt.dir * kobs, dim=-1)
+                            ph = torch.sum(w_comp * phs.hg_phase(
+                                opt_int.g, ct[:, None]), dim=-1)
+                            return lum_alb * ph, None
+
+                        if opts.kinematics:
+                            # Doppler-shifted toward each observer
+                            lam_fn = lambda kobs: lam_cell * (
+                                1.0 - _dot3(kobs.expand_as(v_int), v_int)
+                                * _INV_C)
+                    peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos,
+                             per_sr, kind_scat, active_int, tracer,
+                             lam_fn=lam_fn)
+
+                # the scattering event proper
+                if polarized:
+                    newdir, n_rot, st_new = polarized_scatter(
+                        pkt, mueller, h, u[_TAG_SCATTER_CT],
+                        u[_TAG_SCATTER_PHI])
+                    pkt = pkt._replace(
+                        stokes=torch.where(active_int[:, None], st_new,
+                                           pkt.stokes),
+                        normal=torch.where(active_int[:, None], n_rot,
+                                           pkt.normal))
+                else:
+                    g_sel = opt_int.g.gather(1, h[:, None])[:, 0]
+                    newdir = hg_scatter_direction(u[_TAG_SCATTER_CT],
+                                                  u[_TAG_SCATTER_PHI], g_sel,
+                                                  pkt.dir)
+            if opts.kinematics and not opts.lya:
                 # the Doppler shift of the new direction out of the cell
                 lam_new = lam_cell * (1.0 - _dot3(newdir, v_int) * _INV_C)
                 pkt = pkt._replace(lam=torch.where(active_int, lam_new,
@@ -640,3 +779,125 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     if return_state:
         return rf, accs, pkt
     return rf, accs
+
+
+# ------------------------------------------- wavelength-changing scattering
+
+def lya_event(med: msys.MediumTables, opts: TransportOptions, keys, u: dict,
+              pkt, icell, lam_cell):
+    """The Lya resonant scattering (`skirt9_tpu/transport/lifecycle.py:
+    1054-1123`): the atom's velocity along the photon by rejection, a
+    Gaussian perpendicular component (boosted by core skipping, Constant or
+    Variable), the direction by the dipole or, for 2/3 of the core
+    scatterings judged in the atom's frame, isotropically, and the
+    redistributed wavelength. Returns (new direction, new wavelength, the
+    peel-off's per_sr(i, kobs) and its detection wavelengths lam_fn(kobs))."""
+    T = torch.clamp_min(med.temperature[icell.clamp_min(0)], 1.0)
+    a = lyo.damping_parameter(T, lam_cell)
+    x_in = lyo.dimensionless_x(lam_cell, T)
+    u_par = lyo.sample_parallel_velocity(keys, _TAG_LYA_UPAR, a, x_in)
+    up1 = rng.gauss(keys, _TAG_LYA_PERP1) * _INV_SQRT2
+    if opts.lya_xcrit > 0 or opts.lya_variable:
+        # core skipping: a lane in the core leaves with its perpendicular
+        # velocity drawn beyond xcrit
+        if opts.lya_variable:
+            n_h = torch.sum(med.nd[icell.clamp_min(0)], dim=-1)
+            xc = opts.lya_strength * (torch.clamp_min(n_h, 1e-30) / T) \
+                ** (1.0 / 6.0)
+        else:
+            xc = torch.full_like(x_in, opts.lya_xcrit)
+        mag = torch.sqrt(xc * xc - torch.log(u[_TAG_LYA_SKIP_R]))
+        up1 = torch.where(torch.abs(x_in) < xc,
+                          mag * torch.cos((2.0 * math.pi) * u[_TAG_LYA_SKIP_A]),
+                          up1)
+    core = (torch.abs(x_in - u_par) <= 0.2) & (u[_TAG_LYA_DIPOLE] >= 1.0 / 3.0)
+    u_ct = u[_TAG_SCATTER_CT]
+    ct = torch.where(core, 2.0 * u_ct - 1.0, phs.dipole_sample_costheta(u_ct))
+    newdir = phs.rotate_direction(pkt.dir, ct,
+                                  (2.0 * math.pi) * u[_TAG_SCATTER_PHI])
+    lam_new = lyo.scatter_wavelength(lam_cell, pkt.dir, newdir, u_par, up1, T)
+
+    def per_sr(i, kobs):
+        ph = torch.where(core, torch.full_like(ct, _ISO),
+                         phs.dipole_phase(torch.sum(pkt.dir * kobs, dim=-1)))
+        return pkt.lum * ph, None
+
+    def lam_fn(kobs):
+        return lyo.scatter_wavelength(lam_cell, pkt.dir, kobs.expand_as(
+            pkt.dir), u_par, up1, T)
+
+    return newdir, lam_new, per_sr, lam_fn
+
+
+def compton_event(u: dict, pkt, albedo, lam_cell):
+    """Compton scattering on free electrons (`skirt9_tpu/transport/
+    lifecycle.py:1125-1154`): the Klein-Nishina peel-off at the shifted
+    wavelength toward each observer, then mu from the KN distribution and
+    the shifted wavelength. Returns (new direction, new wavelength,
+    per_sr, lam_fn)."""
+    x_c = co.x_of_lambda(lam_cell)
+    mu_s = co.sample_costheta(u[_TAG_SCATTER_CT], x_c)
+    newdir = phs.rotate_direction(pkt.dir, mu_s,
+                                  (2.0 * math.pi) * u[_TAG_SCATTER_PHI])
+    per_sr = lambda i, kobs: (pkt.lum * albedo * co.phase_value(
+        x_c, torch.sum(pkt.dir * kobs, dim=-1)), None)
+    lam_fn = lambda kobs: co.shifted_wavelength(
+        lam_cell, x_c, torch.sum(pkt.dir * kobs, dim=-1))
+    return newdir, co.shifted_wavelength(lam_cell, x_c, mu_s), per_sr, lam_fn
+
+
+def xray_channels(xray_tabs: dict, lam):
+    """The X-ray gas's albedo, (electron + fluorescence) over extinction
+    cross section, and the fluorescence channel's share of the scattering,
+    at wavelengths lam (`skirt9_tpu/transport/lifecycle.py:1015-1031`),
+    interpolated in XLA's arithmetic: the channel test compares a uniform
+    with that share, and an ulp of a logarithm near -50 moves a cross
+    section by 4e-6 of itself."""
+    xt = xray_tabs
+    interp = lambda key: sampling.interp_loglog(lam, xt["lam"], xt[key],
+                                                xla=True)
+    sig_e, sig_fl, sig_ext = (interp(k) for k in ("sigma_sca", "sigma_fluor",
+                                                  "sigma_ext"))
+    sca = sig_e + sig_fl
+    zero = torch.zeros_like(sca)
+    albedo = torch.where(sig_ext > 0, sca / torch.clamp_min(sig_ext, 1e-37),
+                         zero)
+    p_fl = torch.where(sca > 0, sig_fl / torch.clamp_min(sca, 1e-37), zero)
+    return albedo, p_fl
+
+
+def xray_event(xray_tabs: dict, u: dict, pkt, albedo, p_fl, lam_cell):
+    """The X-ray gas's scattering (`skirt9_tpu/transport/lifecycle.py:
+    1156-1229`): the fluorescence line from the absorbing wavelength bin's
+    line cdf; two peel-offs, Klein-Nishina at the shifted wavelength with
+    the electron channel's weight and isotropic at the line wavelength with
+    the fluorescence channel's; then the channel, and the direction and
+    wavelength it gives. Returns (new direction, new wavelength, the
+    peel-offs' (per_sr, lam_fn) pairs)."""
+    xt = xray_tabs
+    x_c = co.x_of_lambda(lam_cell)
+    n_lines = xt["line_lam"].shape[0]
+    if n_lines > 0:
+        kbin = torch.clamp(sampling.searchsorted_right(xt["lam"], lam_cell)
+                           - 1, 0, xt["lam"].shape[0] - 1)
+        rows = xt["line_cdf"][kbin]                              # (B, L)
+        li = torch.clamp(torch.sum(rows < u[_TAG_XRAY_LINE][:, None], dim=1),
+                         0, n_lines - 1)
+        lam_line = xt["line_lam"][li]
+    else:
+        lam_line = lam_cell
+    mu_o = lambda kobs: torch.sum(pkt.dir * kobs, dim=-1)
+    peels = (
+        (lambda i, kobs: (pkt.lum * albedo * (1.0 - p_fl) * co.phase_value(
+            x_c, mu_o(kobs)), None),
+         lambda kobs: co.shifted_wavelength(lam_cell, x_c, mu_o(kobs))),
+        (lambda i, kobs: (pkt.lum * albedo * p_fl * _ISO, None),
+         lambda kobs: lam_line))
+    is_fl = u[_TAG_XRAY_CHANNEL] < p_fl
+    mu_s = co.sample_costheta(u[_TAG_SCATTER_CT], x_c)
+    mu = torch.where(is_fl, 2.0 * u[_TAG_XRAY_ISO] - 1.0, mu_s)
+    newdir = phs.rotate_direction(pkt.dir, mu,
+                                  (2.0 * math.pi) * u[_TAG_SCATTER_PHI])
+    lam_new = torch.where(is_fl, lam_line,
+                          co.shifted_wavelength(lam_cell, x_c, mu_s))
+    return newdir, lam_new, peels

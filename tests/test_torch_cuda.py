@@ -55,6 +55,15 @@ hand-built reference for indices outside the table (gather 0, scatter
 nothing); the row-lookup select loop and row gather bit for bit, also off
 their block grids.
 
+Configs 6 and 7: kernels 1, 2 and detect at a reduced bench6's first
+event (line-centre optical depths up to 10^5, detection wavelengths outside
+the grid) against their plain versions; the Gaussian draws, the Voigt cross
+sections and the Compton angle sampler equal on the card and the CPU, the
+Lya rejection sampler within 1e-6 of its scale but on its flipped lanes;
+the reduced bench6 and bench7 on the card against the CPU within
+chip_smoke.py's B6_BOUNDS and B7_BOUNDS, kernels 1, 2 and detect launched;
+no host-to-device copy in their event loops.
+
 Lane refill: bench1h through the port's `load_ski` (8,192 packets in
 batches of 2,048, generations of 16 events) on the card launches kernels 1,
 2 and detect and matches the same seed on the CPU, each SED kind within
@@ -1535,3 +1544,95 @@ def test_xl_multibin_on_cuda_matches_cpu(dev):
         else:
             tot = float(sed_c[k].sum())
             assert abs(float(sed_g[k].sum()) - tot) <= 1e-3 * tot
+
+
+# ------------------------------------------------------------ configs 6, 7
+
+def test_kernels_at_lya_depths(dev):
+    """Kernels 1, 2 and detect at a reduced config 6's first event (8,192
+    lanes; line-centre optical depths up to 10^5 along a path, detection
+    wavelengths per lane, some outside the grid) against their plain
+    versions, as chip_smoke.py's kernels_b6 phase holds them: the lane
+    range, found and icell identical, tau within 1e-6 of each lane's tau,
+    s_int within 1e-5 of a cell, detect within 1e-5 of each maximum."""
+    cs = _chip_smoke()
+    sim = cs.config6(dev, num_packets=8192, batch_size=8192)
+    out = cs.check_kernels_b6(torch, sim, timed=False)
+    assert out["sweep_dtau_prefix"]["max_tau"] > 1e4
+    assert out["detect"]["lanes_outside_grid"] > 0
+
+
+def test_lya_and_compton_ops_on_cuda_match_cpu(dev):
+    """The Gaussian draws, the Voigt cross sections and the Compton angle
+    sampler replay XLA's arithmetic in IEEE operations: the same bits on
+    the card as on the CPU. The parallel velocity and the redistributed
+    wavelength go through PyTorch's tan and atan, which differ by ulps
+    between the devices: within 1e-6 of max(|u|, |x|, 1) but on at most
+    1e-3 of the lanes (a flipped rejection test), and 1e-6 relative."""
+    from skirt9_tpu_torch.ops import compton as co
+    from skirt9_tpu_torch.ops import lya
+    from skirt9_tpu_torch.ops import rng
+    n = 1 << 16
+    rs = np.random.default_rng(3)
+    keys = rng.event_keys(rng.history_keys(rng.seed_key(2, "cpu"),
+                                           torch.arange(n)), 4)
+    lam = torch.tensor((lya.LAM0 * (1 + rs.normal(0, 3e-4, n))).astype(
+        np.float32))
+    T = torch.full((n,), 1e4)
+    u = torch.tensor(rs.uniform(size=n).astype(np.float32))
+    xl_ = torch.tensor(np.exp(rs.uniform(np.log(1e-12), np.log(1e-8),
+                                         n)).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        k, l_, t_, u_, x_ = (v.to(d) for v in (keys, lam, T, u, xl_))
+        a, x = lya.damping_parameter(t_, t_), lya.dimensionless_x(l_, t_)
+        out[str(d)] = [v.cpu() for v in (
+            rng.gauss(k, 65), lya.cross_section(l_, 1e4),
+            co.sample_costheta(u_, co.x_of_lambda(x_)),
+            lya.sample_parallel_velocity(k, 64, a, x), x)]
+    cpu, gpu = out["cpu"], out[str(dev)]
+    for a, b in zip(cpu[:3], gpu[:3]):
+        assert torch.equal(a, b)
+    scale = torch.maximum(torch.maximum(cpu[3].abs(), cpu[4].abs()),
+                          torch.ones_like(cpu[3]))
+    off = (gpu[3] - cpu[3]).abs() / scale > 1e-6
+    assert float(off.float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["bench6", "bench7"])
+def test_config67_on_cuda_matches_cpu(dev, name):
+    """The reduced config 6 or 7 (chip_smoke.B67_SMALL) on the card
+    launches kernels 1, 2 and detect and no other sweep, and matches the
+    same seed on the CPU within chip_smoke.B6_BOUNDS or B7_BOUNDS."""
+    cs = _chip_smoke()
+    config = cs.config6 if name == "bench6" else cs.config7
+    runs = {}
+    for d in ("cpu", dev):
+        sim = config(d, **cs.B67_SMALL[name])
+        kb.reset_launches()
+        runs[str(d)] = sim.run_primary(verbose=False)[1][0]
+        launches = dict(kb.LAUNCHES)
+    for k in ("sweep_tau_total", "sweep_dtau_prefix", "sweep_deposit_prefix",
+              "detect"):
+        assert launches[k] > 0, k
+    assert launches["sweep_dtau"] == launches["sweep_deposit"] == 0
+    assert sum(launches[k] for k in launches if k.startswith(
+        ("sweepxl", "mlsweep"))) == 0
+    gaps = cs.sed_gaps(runs["cpu"], runs[str(dev)])
+    cs.hold_gaps(name, gaps, cs.B6_BOUNDS if name == "bench6"
+                 else cs.B7_BOUNDS)
+
+
+@pytest.mark.parametrize("name", ["bench6", "bench7"])
+def test_lya_and_xray_loops_copy_nothing_from_host(dev, name):
+    """Three profiled events of the Lya and X-ray loops: no host-to-device
+    copy inside the loop's profiler range."""
+    from skirt9_tpu_torch.tools import event_profile as ep
+    cs = _chip_smoke()
+    config = cs.config6 if name == "bench6" else cs.config7
+    sim = config(dev, num_packets=4096, batch_size=4096, max_events=3)
+    sim.run_primary(verbose=False)
+    prof = ep.profile_run(torch, lambda: sim.run_primary(verbose=False))
+    assert ep._events(sim) > 0 and prof["loop_ranges"] == 1
+    assert prof["unattributed"] == 0, prof
+    assert prof["loop"]["h2d_copies"] == 0, prof["loop"]

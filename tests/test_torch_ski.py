@@ -141,12 +141,12 @@ def _edited(tmp_path, name: str, old: str, new: str) -> str:
     ("ShellGeometry", "NoSuchGeometry", "NoSuchGeometry"),
     # types the reference loads but the port does not run yet
     ("CartesianSpatialGrid", "Sphere1DSpatialGrid", "Sphere1DSpatialGrid"),
-    ('BlackBodySED temperature="5778 K"', 'FileSED filename="sed.txt"',
-     "FileSED"),
+    ('BlackBodySED temperature="5778 K"', 'QuasarSED', "QuasarSED"),
     ("TrivialGasMix", "MeanInterstellarDustMix", "MeanInterstellarDustMix"),
     # a property outside the port's items
-    ("<probeSystem", '<lyaOptions type="LyaOptions"/><probeSystem',
-     "lyaOptions"),
+    ("<probeSystem", '<wavelengthBiasDistribution '
+     'type="WavelengthDistribution"/><probeSystem',
+     "wavelengthBiasDistribution"),
     ('simulationMode="OligoExtinctionOnly"', 'simulationMode="GasEmission"',
      "GasEmission"),
 ])

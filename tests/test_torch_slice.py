@@ -31,7 +31,8 @@ its voxel raster through the XL contracts, a small config 2 with dust
 emission (`chip_smoke.config2`) on the resident sweep and on XL tables
 (a 4-bin RF in lane groups), the gather and row-lookup probes, a reduced config 3 (bench3.ski at maxLevel 4 with a 4-bin RF
 through the loader, with and without merged iterations) and the CLI
-(bench1.ski, and bench2.ski's set-up), imports the variant scripts of
+(bench1.ski, and bench2.ski's set-up), configs 6 and 7 (bench6.ski and
+bench7.ski through the loader and the CLI), imports the variant scripts of
 kernels 8-9 (`perf/`), and then finds no such module loaded and no kernel
 launched;
 an `ast` scan of the package (the loader, probes, CLI, unit copies, trees,
@@ -413,6 +414,20 @@ with tempfile.TemporaryDirectory() as tmp:
     rf, accs = sim.run_primary(verbose=False)
     assert float(accs[0]["stokes"].abs().sum()) > 0
     assert len(sim.write_outputs(accs, "b5", tmp)) == 5
+# configs 6 and 7: bench6.ski (Lyman-alpha) and bench7.ski (X-ray gas)
+# through the CLI, a few packets and events each
+with tempfile.TemporaryDirectory() as tmp:
+    for name in ("bench6", "bench7"):
+        sim = load_ski(f"tests/golden/{name}.ski", num_packets=256,
+                       batch_size=128, max_events=3, device="cpu")
+        assert sim.options.lya == (name == "bench6")
+        assert sim.options.xray == (name == "bench7")
+        rf, accs = sim.run_primary(verbose=False)
+        assert float(accs[0]["sed"][2].sum()) > 0
+        assert main([f"tests/golden/{name}.ski", "--device", "cpu", "-p",
+                     "256", "-b", "128", "-o", tmp]) == 0
+    assert sorted(os.listdir(tmp)) == ["bench6_i0_sed.dat", "bench6_log.txt",
+                                       "bench7_i0_sed.dat", "bench7_log.txt"]
 assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}, kb.LAUNCHES
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = sorted(m for m in sys.modules
