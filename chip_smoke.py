@@ -22,8 +22,10 @@ raster through the XL contracts); then config 5 (bench5.ski: polarized
 Thomson scattering in a 2000 km/s outflow, detect in its Stokes mode); last
 configs 6 and 7 (bench6.ski: Lyman-alpha resonant line transfer at
 line-centre optical depths up to 10^5; bench7.ski: X-ray gas with Compton
-scattering and Fe K fluorescence). Every path detects through the fused detect kernel (csrc/detect.cu), which took
-kernel 3's place there. Each hand-written CUDA kernel is checked against
+scattering and Fe K fluorescence); last config 4 (bench4.ski: 40 imported
+SSP star particles and a 2,895-site Voronoi medium, rasterized onto 73^3
+voxels for kernels 4-5). Every path detects through the fused detect
+kernel (csrc/detect.cu), which took kernel 3's place there. Each hand-written CUDA kernel is checked against
 its plain PyTorch version.
 Phases, one JSON line each:
 
@@ -189,7 +191,8 @@ Phases, one JSON line each:
                     fresh and old lanes side by side) against their plain
                     versions; one batch profiled as breakdown (idle share)
   cli               the port's CLI (skirt9_tpu_torch.__main__.main) on
-                    bench1.ski and bench2.ski at their 10^6 packets and
+                    bench1.ski, bench2.ski and bench4.ski at their 10^6
+                    packets and
                     bench3.ski at 2^18 (-p), -b 131072, into a temporary
                     directory, bench5.ski and its static copy at
                     their 2 x 10^6, bench6.ski at its 10^5 (128 events,
@@ -200,11 +203,13 @@ Phases, one JSON line each:
                     Stokes cubes: bench5_gates; bench1's SED against
                     tests/test_reference_parity.py:26-49, bench2's and
                     bench3's SED, RF and dust temperature probe files
-                    against their golden gates), the probe files one row
-                    per cell, equal to the run's RF and dust temperature,
-                    and bench3's cell-properties file its volumes and
-                    densities; bench6's and bench7's SEDs through
-                    b67_file_gates (bench6's highest peak reported)
+                    against their golden gates; bench4's SED and
+                    temperature files against bench4_gates), the probe
+                    files one row per cell, equal to the run's RF and dust
+                    temperature, and bench3's and bench4's cell-properties
+                    files their volumes and densities; bench6's and
+                    bench7's SEDs through b67_file_gates (bench6's highest
+                    peak reported)
   kernels_xl_grouped  kernel 7's prefix mode with lane groups on config 2's
                     first event at 256^3 (B = 131,072, 32 groups folded
                     into the 25 RF rows by the launch's bin map) against
@@ -288,6 +293,32 @@ Phases, one JSON line each:
                     test_bench7_xray_parity (:528-566)
   breakdown_b6      one batch of config 6 under torch.profiler, as
                     breakdown (the Lya loop's operations per event)
+  kernels_b4        kernels 4-5 and detect at config 4's first event (B =
+                    65,536 star-particle lanes in 32 groups on the 73^3
+                    raster of the 2,895 Voronoi cells, a 73-step plan):
+                    kernel 4's prefix mode on the event rays and its total
+                    mode toward the instrument (lane range and leaf ids
+                    identical, record, step sums, prefix and totals within
+                    1e-6 of each lane's tau), kernel 5's grouped mode into
+                    the 25 RF rows (RF within 1e-6 of its maximum, s_int,
+                    icell and found identical) and detect, each against its
+                    plain version; timed, with bounds
+  draw_for_draw_b4  the reduced config 4 (B4_SMALL: 8,192 packets, 4
+                    events, the 73^3 raster), CPU vs GPU within B4_BOUNDS:
+                    the primary light and RF draw for draw, the secondary
+                    light by its sums (the secondary launch's cell cdf);
+                    kernels 4-5 and detect launched, no other sweep
+  full_width_b4     bench4.ski (bench.py:152-172: 2^19 packets in batches
+                    of 2^16, 24 events) through load_ski, timed after a
+                    warm-up: packets/s as bench.py counts them, seconds and
+                    events per segment, the host set-up (Voronoi build,
+                    raster); kernels 4-5 and detect launched, kernels 1, 2,
+                    6 and 7 not; every gate of test_bench4_* (tests/
+                    test_reference_parity.py:376-458: bench4_gates), and
+                    the same gates at that test's own width (B4_TEST: 10^5
+                    packets in batches of 8,192, 16 events), reported
+  breakdown_b4      one batch of config 4 per segment under torch.profiler,
+                    as breakdown
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -2153,7 +2184,9 @@ def config1h(device, num_packets=1 << 19, batch_size=B_FULL):
 
 def edited_ski(name: str, directory, edits: dict, out: str = "small") -> str:
     """tests/golden/<name>.ski with each `old` replaced by `new`, written
-    into directory beside a copy of the dust mix file it reads."""
+    into directory beside copies of the input files it reads (the dust mix
+    file, and bench4's particles, sites and SSP table)."""
+    import re
     import shutil
     with open(os.path.join(GOLDEN, f"{name}.ski")) as f:
         text = f.read()
@@ -2163,7 +2196,9 @@ def edited_ski(name: str, directory, edits: dict, out: str = "small") -> str:
     path = os.path.join(str(directory), f"{out}.ski")
     with open(path, "w") as f:
         f.write(text)
-    shutil.copy(os.path.join(GOLDEN, "mrn_mean.txt"), str(directory))
+    for fn in {"mrn_mean.txt", *re.findall(r'filename="([^"/]+)"', text)}:
+        if os.path.exists(os.path.join(GOLDEN, fn)):
+            shutil.copy(os.path.join(GOLDEN, fn), str(directory))
     return path
 
 
@@ -2355,19 +2390,20 @@ CLI_B3_PACKETS = 1 << 18
 
 
 def phase_cli(torch, smi: str) -> dict:
-    """`skirt9_tpu_torch.__main__.main` on bench1.ski and bench2.ski at
-    their own 10^6 packets and on bench3.ski at 2^18 packets
+    """`skirt9_tpu_torch.__main__.main` on bench1.ski, bench2.ski and
+    bench4.ski at their own 10^6 packets and on bench3.ski at 2^18 packets
     (`CLI_B3_PACKETS`), bench5.ski and its static copy at 2 x 10^6, bench6.ski
     at 10^5 (128 events, `--max-events`) and bench7.ski at 10^6, in batches
     of 131,072, into a temporary directory,
     each driven with the launch counts set to 0: kernels 1-2 and detect
-    launched for bench1 and bench2, kernels 4-5 and detect for bench3. The
-    gates read the written files: bench1's SED against
+    launched for bench1 and bench2, kernels 4-5 and detect for bench3 and
+    bench4. The gates read the written files: bench1's SED against
     test_bench1_parity_with_reference's thresholds, bench2's SED, RF and
     temperature probe files against bench2_gates, bench3's against
-    bench3_gates; the probe files hold one row per cell and equal the run's
-    RF and dust temperature (and bench3's cell properties its volumes and
-    densities); bench6's and bench7's SED files through their golden gates
+    bench3_gates, bench4's SED and temperature files against bench4_gates;
+    the probe files hold one row per cell and equal the run's RF and dust
+    temperature (and bench3's and bench4's cell properties their volumes
+    and densities); bench6's and bench7's SED files through their golden gates
     (b67_file_gates)."""
     from skirt9_tpu_torch import __main__ as cli
     from skirt9_tpu_torch.probes import probes
@@ -2390,6 +2426,7 @@ def phase_cli(torch, smi: str) -> dict:
                     ("bench1", RESIDENT + DETECT, []),
                     ("bench2", RESIDENT + DETECT, []),
                     ("bench3", ML + DETECT, ["-p", str(CLI_B3_PACKETS)]),
+                    ("bench4", ML + DETECT, []),
                     ("bench5", RESIDENT + DETECT, []),
                     ("bench5static", RESIDENT + DETECT, [])):
                 must_not = tuple(k for k in RESIDENT + XL + ML + NOT_PATH
@@ -2436,10 +2473,11 @@ def phase_cli(torch, smi: str) -> dict:
             require(runs["bench1"][0].num_packets == 10 ** 6
                     and runs["bench2"][0].num_packets == 10 ** 6
                     and runs["bench3"][0].num_packets == CLI_B3_PACKETS
+                    and runs["bench4"][0].num_packets == 10 ** 6
                     and runs["bench5"][0].num_packets == 2 * 10 ** 6,
-                    "10^6 packets each for bench1 and bench2 and 2 x 10^6 "
-                    "for bench5, as the ski files say, and the flag's for "
-                    "bench3")
+                    "10^6 packets each for bench1, bench2 and bench4 and "
+                    "2 x 10^6 for bench5, as the ski files say, and the "
+                    "flag's for bench3")
             # bench5's gates from its files: the SED's Q, U, V columns and
             # the total and Stokes cubes, the static run's scattered column
             sed5, cube5, cube5_q, R5 = _b5_files(tmp, "bench5", None)
@@ -2486,6 +2524,27 @@ def phase_cli(torch, smi: str) -> dict:
                         .numpy())),
                     "bench3's cell-properties file holds the leaves' "
                     "volumes and densities")
+            # bench4: its Voronoi cells' probe files and the golden gates
+            # from the written SED and temperature files
+            sim, rf = runs["bench4"]
+            cells = np.loadtxt(os.path.join(tmp, "bench4_cells_cellprops.dat"))
+            T = np.loadtxt(os.path.join(tmp, "bench4_T_temperature.dat"))
+            require(cells.shape == (2895, 5) and T.shape == (2895, 4)
+                    and bool(np.array_equal(
+                        cells[:, :3], sim.grid.sites.double().cpu().numpy()))
+                    and bool(np.array_equal(cells[:, 3], sim.grid.volumes()))
+                    and bool(np.array_equal(
+                        cells[:, 4], sim.medium.nd[:, 0].double().cpu()
+                        .numpy())),
+                    "bench4's cell-properties file holds the sites, their "
+                    "exact volumes and densities")
+            require(bool(np.array_equal(T[:, 3],
+                                        sim.dust_temperature(rf)[:, 0])),
+                    "the bench4 temperature probe file holds the run's dust "
+                    "temperature")
+            res["bench4"] = bench4_gates(
+                sim, np.loadtxt(os.path.join(tmp, "bench4_i0_sed.dat")),
+                T[:, 3])
     finally:
         probes.run_probe_system = real
     res.update(launches=launches, device=torch.cuda.get_device_name(0),
@@ -2500,7 +2559,8 @@ ML_NOT_PATH = RESIDENT + XL + NOT_PATH
 
 
 def first_event_b3(torch, sim):
-    """Config 3's first event as the tree path sees it: the first stratified
+    """Config 3's (or config 4's) first event as the tree path sees it (a
+    Voronoi raster is a one-level tree): the first stratified
     batch of the primary source launched, and kernel 4's pass 1 on it (the
     record with leaf ids, step sums, prefix, total and lane range)."""
     from skirt9_tpu_torch.media import system as msys
@@ -3988,6 +4048,407 @@ def phase_breakdown_b6(torch) -> None:
           **prof})
 
 
+# ------------------------------------------------------------- config 4
+
+B_B4 = 1 << 16            # bench_config4's batch (bench.py:152-172)
+N_B4 = 1 << 19            # and its packets
+# the reduced bench4 of draw_for_draw_b4 (tests/test_torch_config4.py's run)
+B4_SMALL = dict(num_packets=8192, batch_size=4096, max_events=4)
+# test_reference_parity.py's own bench4 run (_run_bench4: 10^5 packets in
+# batches of 8,192, 16 events)
+B4_TEST = dict(num_packets=100_000, batch_size=8192, max_events=16)
+# CPU against GPU on config 4: the primary light (SED kinds 0-2, the RF)
+# draw for draw within `primary` of each maximum; the secondary light by
+# its sums within `secondary_sum`: the secondary launch draws each packet's
+# cell from a cdf over the 2,895 cells built from the RF's f32 sums, which
+# differ between the devices in their last bits, so a packet here and there
+# starts in another cell (ROADMAP queue C); the frame within 1e-3 of its
+# brightest pixel
+B4_BOUNDS = {"primary": 2e-5, "secondary_sum": 1e-3, "frame": 1e-3}
+L_SUN_B4 = 3.846e26       # test_bench4_source_luminosity's solar luminosity
+
+
+def config4(device, num_packets=N_B4, batch_size=B_B4, max_events=24,
+            path=None):
+    """bench.py's config 4 (bench.py:152-172): tests/golden/bench4.ski
+    through the port's `load_ski` (40 star particles with a FileSSPSEDFamily,
+    a 2,895-site Voronoi medium of MRN dust rasterized onto 73^3 voxels for
+    kernels 4-5, a 25-bin RF in 32 lane groups, a 40-bin emission grid, a
+    40-bin SED and 64x64 frame). path: another ski file (a reduced copy)."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    return load_ski(path or os.path.join(GOLDEN, "bench4.ski"),
+                    num_packets=num_packets, batch_size=batch_size,
+                    max_events=max_events, device=device)
+
+
+def _kernel4_b4(torch, sim, pkt, sig) -> dict:
+    """Kernel 4's prefix mode on the event rays and its total mode on the
+    peel-off toward the instrument, against their plain versions: the lane
+    range and the leaf ids identical, the record, step sums, prefix and
+    totals within 1e-6 of each lane's tau; timed, with their bounds."""
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    from skirt9_tpu_torch.transport import sweep as sw
+    tabs = sim._sweep_tabs
+    B = pkt.lam.shape[0]
+    ev = (tabs, pkt.pos, pkt.dir, sig, pkt.alive)
+    kobs = sim._inst_tabs[0]["kobs"].expand(B, 3).contiguous()
+    hint = int(np.argmax(np.abs(sim._inst_tabs[0]["kobs"].cpu().numpy())
+                         / np.asarray(tabs.h)))
+    pl = (tabs, pkt.pos, kobs, sig, pkt.alive, hint)
+    pre_k = ml.sweep_dtau_prefix(*ev)
+    pre_p = ml.sweep_dtau_prefix_plain(*ev)
+    tot_k, tot_p = ml.sweep_tau_total(*pl), ml.sweep_tau_total_plain(*pl)
+    torch.cuda.synchronize()
+    tau = pre_p[4]
+    require(int((tau > 0).sum()) > B // 2 and int((tot_p > 0).sum()) > B // 2,
+            "config 4's rays and peel-offs see dust")
+    of_tau = lambda a, b, t: float(((a - b).abs()
+                                    / t.clamp_min(1e-30)).max())
+    errs = {"record": of_tau(pre_k[0], pre_p[0], tau[None, None, :]),
+            "step_sums": of_tau(pre_k[2], pre_p[2], tau[None, :]),
+            "prefix": of_tau(pre_k[3], pre_p[3], tau[None, :]),
+            "total": of_tau(pre_k[4], tau, tau),
+            "peel_off_total": of_tau(tot_k, tot_p, tot_p)}
+    for what, e in errs.items():
+        require(e <= 1e-6, f"kernel 4 {what} within 1e-6 of each lane's tau "
+                f"(73^3 raster): {e}")
+    require(bool(torch.equal(pre_k[1], pre_p[1])),
+            "kernel 4 leaf ids identical (73^3 raster)")
+    for a, b, name in zip(pre_k[5], pre_p[5], ("axis", "smin", "smax")):
+        require(bool(torch.equal(a, b)), f"kernel 4 lane range's {name} "
+                "identical (73^3 raster)")
+    # the record and its step sums (the prefix and totals add in another
+    # order)
+    identical = all(bool(torch.equal(a, b)) for a, b in (
+        (pre_k[0], pre_p[0]), (pre_k[2], pre_p[2])))
+    g, smin, smax = pre_p[5]
+    n_live = int(ml._plan_substeps(tabs, pkt.pos, pkt.dir, g, smin,
+                                   smax)[3].sum())
+    gz, sminz, smaxz = sw._lane_range(tabs, pkt.pos, kobs, pkt.alive)
+    n_live_z = int(ml._plan_substeps(tabs, pkt.pos, kobs,
+                                     torch.full_like(gz, hint), sminz,
+                                     smaxz)[3].sum())
+    del pre_k, pre_p
+    NS = tabs.n_steps
+    rec = NS * 3 * B * 4
+    base = (ray_bytes(B, 1) + tabs.nd.numel() * 4 + tabs.leafmap.numel() * 4
+            + 2 * NS * 4)
+    march = lambda n: B * OPS_LANE + n * (OPS_SLAB + 3 * (OPS_SUB + 2 + 1))
+    out = {}
+    for name, fn, plain, out_b, ops, live, e in (
+            ("mlsweep_dtau_prefix", lambda: ml.sweep_dtau_prefix(*ev),
+             lambda: ml.sweep_dtau_prefix_plain(*ev),
+             2 * rec + 2 * NS * B * 4 + 4 * B * 4,
+             march(n_live) + 2 * NS * B, n_live,
+             max(errs["record"], errs["prefix"], errs["total"])),
+            ("mlsweep_tau_total", lambda: ml.sweep_tau_total(*pl),
+             lambda: ml.sweep_tau_total_plain(*pl), B * 4, march(n_live_z),
+             n_live_z, errs["peel_off_total"])):
+        out[name] = dict(
+            max_abs_err=e, max_err_of_tau=e,
+            record_bit_identical=identical,
+            ms=cuda_ms(fn), device_ms=device_ms(fn)["ours"],
+            plain_ms=cuda_ms(plain, reps=3), library_ms=None,
+            live_pairs=live, live_share=live / (NS * B),
+            fine_grid=list(tabs.n),
+            n_steps=NS, leaves=tabs.nd.shape[0], **bound(base + out_b, ops))
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels_b4(torch) -> dict:
+    """Kernels 4-5 and detect at config 4's first event: the first
+    stratified batch of the star particles (2^16 lanes, 32 lane groups)
+    on the 73^3 raster of the 2,895 Voronoi cells, a 73-step plan of one
+    fine slab each (73 is no multiple of kernel 4's 16-step runs). Kernel
+    4's prefix and total modes (_kernel4_b4); kernel 5's grouped mode into
+    the 25 RF rows (the global path: 2,895 leaves, 32 groups) against its
+    plain version, RF within 1e-6 of its maximum, s_int, icell and found
+    identical; detect on the first scattering peel-off (40 bins, 40x64x64
+    frame) against the plain version's terms summed exactly. Timed, with
+    bounds."""
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    sim = config4("cuda")
+    tabs = sim._sweep_tabs
+    require(tabs.n == (73, 73, 73) and tabs.n_steps == 73
+            and tabs.n_steps % ml.RUN != 0,
+            f"bench4 rasterizes onto 73^3 with a 73-step plan ({tabs.n}, "
+            f"{tabs.n_steps})")
+    pkt, opts, (rec, cells, _, tb, tot, lane) = first_event_b3(torch, sim)
+    B, n_groups = pkt.lam.shape[0], opts.rf_strata
+    nbins = len(sim.rf_borders) - 1
+    require(n_groups == 32 and B == B_B4 and nbins == 25,
+            f"config 4 runs 32 lane groups of a 2^16 batch into 25 bins "
+            f"({n_groups}, {B}, {nbins})")
+    sig = msys.optics_at(sim.medium, pkt.lam).sigma_ext.T.contiguous()
+    out = _kernel4_b4(torch, sim, pkt, sig)
+    ncells = tabs.nd.shape[0]
+    rs = np.random.default_rng(9)
+    inv_sqrt = 1.0 / math.sqrt(sim.rf_scale)
+    rfb = sim._rf_borders_dev
+    in_rf = (pkt.lam >= rfb[0]) & (pkt.lam < rfb[-1])
+    lum_half = (pkt.lum * (pkt.alive & in_rf)) * inv_sqrt
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=sim.device) * tot
+    bin_map = torch.tensor(opts.rf_bin_map, dtype=torch.int32,
+                           device=sim.device)
+    args = (tabs, pkt.pos, pkt.dir, pkt.alive, rec, cells, lum_half, tau_int,
+            tb, inv_sqrt)
+    kw = dict(n_groups=n_groups, lane=lane, bin_map=bin_map, nbins=nbins)
+    rf_k, s_k, c_k, f_k = ml.sweep_deposit(*args, **kw)
+    rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(*args, **kw)
+    torch.cuda.synchronize()
+    what = f"kernel 5, 32 groups ({ncells} Voronoi cells, 73^3 raster)"
+    require(int(f_p.sum()) > B // 2, f"{what} test rays interact")
+    require(bool(torch.equal(f_k, f_p)), f"{what} found identical")
+    require(bool(torch.equal(s_k[f_k], s_p[f_p])), f"{what} s_int identical")
+    require(bool(torch.equal(c_k, c_p)), f"{what} interaction cells equal")
+    require(rf_k.shape == rf_p.shape == (nbins, ncells), f"{what} RF rows")
+    rf_err = float((rf_k - rf_p).abs().max())
+    rf_max = float(rf_p.abs().max())
+    require(rf_max > 0 and rf_err <= 1e-6 * rf_max,
+            f"{what} rf error {rf_err} <= 1e-6 * {rf_max}")
+    rows_lit = int((rf_p.abs().sum(dim=1) > 0).sum())
+    require(rows_lit == nbins, f"{what} fills the 25 bins' rows ({rows_lit})")
+    g, smin, smax = lane
+    dep = (tabs, pkt.pos, pkt.dir, g, smin, smax, rec, cells, lum_half,
+           tau_int, tb, inv_sqrt, n_groups, bin_map, nbins)
+    del rf_p
+    plain_ms = cuda_ms(lambda: ml._deposit_plain(*dep), reps=3)
+    torch.cuda.empty_cache()
+    n_live = int(ml._plan_substeps(tabs, pkt.pos, pkt.dir, g, smin,
+                                   smax)[3].sum())
+    out["mlsweep_deposit"] = dict(
+        max_abs_err=rf_err, rf_max=rf_max, err_of_max=rf_err / rf_max,
+        n_groups=n_groups, rows=nbins, rows_lit=rows_lit, leaves=ncells,
+        shared_table=False, live_pairs=n_live,
+        live_share=n_live / (tabs.n_steps * B),
+        ms=cuda_ms(lambda: ml._deposit_cuda(*dep)),
+        device_ms=device_ms(lambda: ml._deposit_cuda(*dep))["ours"],
+        plain_ms=plain_ms, library_ms=None,
+        **bound(lane_bytes(B, 0) + 8 * B + n_live * (3 * 4 + 3 * 4 + 4)
+                + 2 * tabs.n_steps * 4 + n_groups * 4 + nbins * ncells * 4
+                + 8 * B,
+                n_live * (OPS_SLAB + 3 + 3 * (OPS_SUB + OPS_DEP))))
+    # detect at the first scattering peel-off of these lanes
+    cfg, itab = sim.instruments[0], sim._inst_tabs[0]
+    contrib = torch.tensor(rs.uniform(0.0, 1e-3, B), dtype=torch.float32,
+                           device=sim.device)
+    out["detect"] = check_detect(torch, cfg, itab, pkt.lam,
+                                 pkt.pos + s_p[:, None] * pkt.dir, contrib,
+                                 f_p, 2)
+    emit({"phase": "kernels_b4", "batch": B, "fine_grid": list(tabs.n),
+          "n_steps": tabs.n_steps, "run": ml.RUN, "cells": ncells, **out})
+    return out
+
+
+def b4_gaps(acc_c, acc_g, rf_c, rf_g) -> dict:
+    """Config 4's gaps between a CPU and a GPU run (B4_BOUNDS): the primary
+    SED kinds and the RF as shares of each maximum, the secondary kinds'
+    sums, the frame's rows as shares of the brightest pixel."""
+    from skirt9_tpu_torch.instruments import distant as dinst
+    rel = lambda g, c: float((g.double().cpu() - c.double()).abs().max()
+                             / c.double().abs().max())
+    sed_c, sed_g = acc_c["sed"].double(), acc_g["sed"].double().cpu()
+    out = {"rf_err_of_max": rel(rf_g, rf_c)}
+    primary = (dinst.KIND_TRANSPARENT, dinst.KIND_PRIMARY_DIRECT,
+               dinst.KIND_PRIMARY_SCATTERED)
+    for k in range(sed_c.shape[0]):
+        require(float(sed_c[k].abs().max()) > 0, f"SED kind {k} lit")
+        name = dinst.KIND_NAMES[k]
+        out[f"{name}_err_of_max"] = rel(sed_g[k], sed_c[k])
+        out[f"{name}_sum_rel_err"] = abs(float(sed_g[k].sum())
+                                         / float(sed_c[k].sum()) - 1.0)
+        if k in primary:
+            require(out[f"{name}_err_of_max"] <= B4_BOUNDS["primary"],
+                    f"config 4 {name} SED {out[f'{name}_err_of_max']} <= "
+                    f"{B4_BOUNDS['primary']}")
+        else:
+            require(out[f"{name}_sum_rel_err"] <= B4_BOUNDS["secondary_sum"],
+                    f"config 4 {name} SED sum {out[f'{name}_sum_rel_err']} "
+                    f"<= {B4_BOUNDS['secondary_sum']}")
+    require(out["rf_err_of_max"] <= B4_BOUNDS["primary"],
+            f"config 4 RF {out['rf_err_of_max']} <= {B4_BOUNDS['primary']}")
+    out["frame_err"] = rel(acc_g["frame"], acc_c["frame"])
+    require(out["frame_err"] <= B4_BOUNDS["frame"],
+            f"config 4 frame {out['frame_err']} <= {B4_BOUNDS['frame']}")
+    return out
+
+
+def phase_draw_for_draw_b4(torch) -> dict:
+    """The reduced config 4 (bench4.ski at 8,192 packets in batches of
+    4,096, which the 32 lane groups round to one batch of 32,768 lanes a
+    segment; 4 events; the 73^3 raster) through run_with_dust_emission on
+    the CPU (plain versions) and on the GPU (kernels 4, 5 and detect
+    launched, no other sweep), the same seed: iterations equal, L_dust
+    within 1e-4, the gaps within B4_BOUNDS."""
+    runs = {}
+    for device in ("cpu", "cuda"):
+        sim = config4(device, **B4_SMALL)
+        run = lambda: sim.run_with_dust_emission(verbose=False)
+        if device == "cuda":
+            out, launches = drive(ML + DETECT, ML_NOT_PATH, run)
+        else:
+            out = run()
+        runs[device] = (sim, *out)
+    (sc, rfc, ac, ic), (sg, rfg, ag, ig) = runs["cpu"], runs["cuda"]
+    require(ic["iterations"] == ig["iterations"],
+            f"draw-for-draw (config 4) iterations {ic['iterations']}, "
+            f"{ig['iterations']}")
+    e_l = abs(ig["L_dust"] / ic["L_dust"] - 1.0)
+    require(e_l <= 1e-4, f"draw-for-draw (config 4) L_dust {e_l} <= 1e-4")
+    res = {"phase": "draw_for_draw_b4", "cells": sc.grid.ncells,
+           "raster": list(sc._sweep_tabs.n), **B4_SMALL, "lanes": 32768,
+           "iterations": ic["iterations"], "L_dust_rel_err": e_l,
+           "bounds": B4_BOUNDS, **b4_gaps(ac[0], ag[0], rfc, rfg),
+           "segments": [s[0] for s in sg.last_stats["segments"]],
+           "launches": launches}
+    emit(res)
+    return res
+
+
+def bench4_gates(sim, sed, T, strict: bool = True) -> dict:
+    """Every gate of test_bench4_* (tests/test_reference_parity.py:
+    376-458) against tests/golden/bench4_*: the stellar luminosity between
+    0.9e8 and 1.2e8 Lsun, the SED column medians and the integrated total,
+    the dust temperature at the golden cells matched to the nearest site
+    (median and mass-weighted mean within 8%), and the cell volumes
+    (median within 1e-3, 99% within 2%). sed: the SED file's columns; T:
+    (ncells,) dust temperature [K]. strict: raise on a failed gate, else
+    report it (`passed`)."""
+    from scipy.spatial import cKDTree
+    res, failed = {}, []
+
+    def gate(name, value, ok):
+        res[name] = value
+        if not ok:
+            failed.append(name)
+            require(not strict, f"bench4 {name} {value}")
+
+    L = sim.sources[0].luminosity / L_SUN_B4
+    gate("source_luminosity_lsun", L, 0.9e8 < L < 1.2e8)
+    ref = np.loadtxt(os.path.join(GOLDEN, "bench4_i0_sed.dat"))
+    require(sed.shape[0] == ref.shape[0], "40 SED rows")
+    require(bool(np.allclose(sed[:, 0], ref[:, 0], rtol=1e-3)),
+            "SED wavelengths")
+    for col, name, tol in ((2, "transparent", 0.05), (3, "primarydirect", 0.1),
+                           (4, "primaryscattered", 0.15),
+                           (5, "secondarydirect", 0.15)):
+        hi = ref[:, col] > 0.05 * ref[:, col].max()
+        med = float(np.median(sed[hi, col] / ref[hi, col]))
+        gate(f"{name}_median_ratio", med, abs(med - 1.0) < tol)
+    lam = ref[:, 0]
+    tot = float(np.trapezoid(sed[:, 1], lam) / np.trapezoid(ref[:, 1], lam))
+    gate("total_ratio", tot, abs(tot - 1.0) < 0.1)
+    with gzip.open(os.path.join(GOLDEN, "bench4_cellprops.dat.gz"),
+                   "rt") as f:
+        props = np.loadtxt(f)
+    T_ref = np.loadtxt(os.path.join(GOLDEN, "bench4_T_dust_T.dat"))[:, 1]
+    sites = sim.grid.sites.double().cpu().numpy()
+    _, idx = cKDTree(sites).query(props[:, 1:4] * PC)
+    T_at, rho = T[idx], props[:, 6]
+    ok = (rho > 0) & (T_ref > 1.0) & (T_at > 1.0)
+    gate("cells_compared", int(ok.sum()), ok.sum() > 1000)
+    med = float(np.median(T_at[ok] / T_ref[ok]))
+    gate("T_median_ratio", med, abs(med - 1.0) < 0.08)
+    w = (rho * props[:, 4])[ok]
+    mw = float(np.sum(T_at[ok] * w) / np.sum(T_ref[ok] * w))
+    gate("T_mass_weighted_ratio", mw, abs(mw - 1.0) < 0.08)
+    vr = sim.grid.volumes()[idx] / (props[:, 4] * PC ** 3)
+    vmed = float(np.median(np.abs(vr - 1.0)))
+    gate("volume_median_rel_err", vmed, vmed < 1e-3)
+    v99 = float((np.abs(vr - 1.0) < 0.02).mean())
+    gate("volume_share_within_2pc", v99, v99 > 0.99)
+    res["passed"] = not failed
+    res["failed"] = failed
+    return res
+
+
+def _b4_run_gates(torch, sim, rf, accs, strict: bool = True) -> dict:
+    from skirt9_tpu_torch.utils.fits import read_fits
+    require(bool(torch.isfinite(rf).all()) and float(rf.min()) >= 0,
+            "RF finite and non-negative")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = sim.write_outputs(accs, "b4", tmp)
+        sed = np.loadtxt(paths[0])
+        cube, _ = read_fits(paths[1])
+    require(cube.shape == (40, 64, 64) and bool(np.isfinite(cube).all())
+            and cube.max() > 0, "frame FITS finite and lit")
+    return bench4_gates(sim, sed, sim.dust_temperature(rf)[:, 0],
+                        strict=strict)
+
+
+def phase_full_width_b4(torch, smi: str):
+    """Config 4 at bench_config4's width (bench.py:152-172: 2^19 packets in
+    batches of 2^16, 24 events, seed 0), a warm-up run and a timed run on
+    the same object: kernels 4, 5 and detect launched, kernels 1, 2, 6 and
+    7 not; packets/s as bench.py counts them, packets x (1 + iterations +
+    [L_dust > 0]); each segment's seconds and events; every gate of
+    test_bench4_*; then the same gates at that test's own width (B4_TEST),
+    reported. Also the host set-up: the Voronoi build and the raster."""
+    from skirt9_tpu_torch.grids import voronoi
+    from skirt9_tpu_torch.transport import raster
+    t0 = time.perf_counter()
+    sim = config4("cuda")
+    setup_s = time.perf_counter() - t0
+    sites = sim.grid.sites.double().cpu().numpy()
+    ext = tuple(zip(sim.grid.box_lo.double().cpu().numpy(),
+                    sim.grid.box_hi.double().cpu().numpy()))
+    t0 = time.perf_counter()
+    voronoi.build_voronoi(sites, ext)
+    voronoi_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raster.build_tables(sim.grid, sim.medium)
+    raster_s = time.perf_counter() - t0
+    require(type(sim._sweep_tabs).__name__ == "MLTables",
+            "bench4 builds MLTables (its raster)")
+    sim.run_with_dust_emission(verbose=False)            # warm-up
+    t0 = time.perf_counter()
+    (rf, accs, info), launches = drive(
+        ML + DETECT, ML_NOT_PATH,
+        lambda: sim.run_with_dust_emission(verbose=False))
+    dt = time.perf_counter() - t0
+    stats = dict(sim.last_stats)
+    n_pk = sim.num_packets
+    packets = n_pk * (1 + info["iterations"] + int(info["L_dust"] > 0))
+    gates = _b4_run_gates(torch, sim, rf, accs)
+    events = sum(seg[3] for seg in stats["segments"])
+    tabs = sim._sweep_tabs
+    small = config4("cuda", **B4_TEST)
+    rf_t, accs_t, info_t = small.run_with_dust_emission(verbose=False)
+    gates_test = _b4_run_gates(torch, small, rf_t, accs_t, strict=False)
+    res = {"phase": "full_width_b4", "cells": sim.grid.ncells,
+           "raster": list(tabs.n), "n_steps": tabs.n_steps,
+           "packets": n_pk, "batch": sim.batch_size, "rf_bins": rf.shape[1],
+           "packets_per_s": packets / dt, "seconds": dt,
+           "iterations": info["iterations"], "L_dust": info["L_dust"],
+           "L_abs_primary": info["L_abs_primary"],
+           "L_dust_over_L_abs_primary": info["L_dust"] / info["L_abs_primary"],
+           "segments": [{"name": n, "packets": p, "seconds": t, "events": e}
+                        for n, p, t, e in stats["segments"]],
+           "events": events, "launches": launches,
+           "kernel_launches_per_event": sum(launches.values()) / events,
+           "host_setup_s": setup_s, "voronoi_build_s": voronoi_s,
+           "raster_build_s": raster_s, **gates,
+           "test_width": dict(B4_TEST, iterations=info_t["iterations"],
+                              **gates_test),
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit(res)
+    return launches
+
+
+def phase_breakdown_b4(torch) -> None:
+    """Config 4 with one batch of 2^16 packets per segment under
+    torch.profiler (host_per_event): device operations, stream syncs and
+    host copies per event, busy and idle shares, the kernels that take the
+    most device time."""
+    prof = host_per_event(
+        torch, config4("cuda", num_packets=B_B4),
+        lambda s: s.run_with_dust_emission(verbose=False))
+    emit({"phase": "breakdown_b4", "packets": B_B4, **prof})
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -4077,6 +4538,12 @@ def main() -> int:
     launches_b6 = phase_full_width_b67(torch, smi, "bench6")
     launches_b7 = phase_full_width_b67(torch, smi, "bench7")
     phase_breakdown_b6(torch)
+    torch.cuda.empty_cache()
+    kern_b4 = phase_kernels_b4(torch)
+    torch.cuda.empty_cache()
+    phase_draw_for_draw_b4(torch)
+    launches_b4 = phase_full_width_b4(torch, smi)
+    phase_breakdown_b4(torch)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -4208,6 +4675,19 @@ def main() -> int:
                     "lanes_outside_grid", "lit_lanes", "touched_entries",
                     "device_launches")
                     if key in kern_b6[name]}
+        if name in ("mlsweep_dtau",) + ML + DETECT:
+            # the config-4 path (full_width_b4: the Voronoi raster) and
+            # kernels 4-5 and detect at its first event (kernels_b4)
+            row["launches_config4"] = launches_b4[name]
+            if name in kern_b4:
+                row["config4"] = {key: kern_b4[name][key] for key in (
+                    "max_abs_err", "max_err_of_tau", "err_of_max",
+                    "max_err_of_max", "record_bit_identical", "ms",
+                    "device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "n_groups", "rows", "leaves", "live_share", "fine_grid",
+                    "n_steps", "touched_entries", "lit_lanes")
+                    if key in kern_b4[name]}
         if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",):
             # config 1h's refill path (refill_b1h)
             row["launches_config1h"] = (sum(launches_1h[m] for m in k1_modes)

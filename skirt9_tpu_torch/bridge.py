@@ -1,13 +1,16 @@
 """Convert a reference `skirt9_tpu.simulation.Simulation` into port objects.
 
 Used by the tests to run one configuration through both packages, on
-uniform grids and on the trees the reference's loader builds. The
-reference's arrays are read with `np.asarray`, and its classes are matched
-by name, so this module never imports jax or the reference's jax modules.
-Anything the port does not run yet raises NotImplementedError. Where the
-reference runs the large-grid (XL) engine (its `_sweep_tabs`, also a tree
-on its voxel raster), the port's Simulation gets its own XL tables of the
-same kind, the cell map equal to the reference's.
+uniform grids, on the trees the reference's loader builds and on Voronoi
+grids with imported star particles. The reference's arrays are read with
+`np.asarray`, and its classes are matched by name, so this module never
+imports jax or the reference's jax modules. Anything the port does not run
+yet raises NotImplementedError. Where the reference runs the large-grid
+(XL) engine (its `_sweep_tabs`, also a tree on its voxel raster), the
+port's Simulation gets its own XL tables of the same kind, the cell map
+equal to the reference's; where it rasterizes a Voronoi grid, the port's
+own raster at the reference's resolution, its leaf map equal to the
+reference's owner map.
 """
 
 from __future__ import annotations
@@ -20,11 +23,15 @@ import torch
 from .grids.bintree import BinTreeGrid
 from .grids.cartesian import UniformCartesianGrid
 from .grids.octree import OctreeGrid
+from .grids.voronoi import VoronoiGrid
+from .imports.snapshots import FamilyParticleSource, ParticleSnapshot
 from .instruments.distant import DistantInstrumentCfg
 from .media.system import MediumTables
 from .ops.stokes import MuellerTables
 from .simulation import Simulation
 from .sources.base import PointSource, TabulatedSED
+from .spectral.sedfamily import FamilyTables, SEDFamily
+from .transport import raster
 from .transport import sweepxl as xl
 from .transport.lifecycle import TransportOptions
 
@@ -62,6 +69,11 @@ def grid(ref_grid):
         return _tree(OctreeGrid, ref_grid)
     if name == "BinTreeGrid":
         return _tree(BinTreeGrid, ref_grid)
+    if name == "VoronoiGrid":
+        return VoronoiGrid(**{
+            f: int(getattr(ref_grid, f)) if f == "walk_steps" else
+            torch.tensor(np.asarray(getattr(ref_grid, f)))
+            for f in VoronoiGrid._fields})
     _kind(ref_grid, "UniformCartesianGrid")
     return UniformCartesianGrid(
         lo=_f32(ref_grid.lo), hi=_f32(ref_grid.hi), inv_h=_f32(ref_grid.inv_h),
@@ -110,7 +122,27 @@ def sed(ref_sed) -> TabulatedSED | None:
                         s=np.asarray(ref_sed.s, np.float64))
 
 
-def source(ref_src) -> PointSource:
+def _family_source(ref_src) -> FamilyParticleSource:
+    """A reference FamilyParticleSource: its particles, and the family
+    tables rebuilt from its family over the same clip range."""
+    if ref_src.snapshot.velocity is not None:
+        raise NotImplementedError("particle velocities not ported yet")
+    ft, fam = ref_src.family_tables, ref_src.family_tables.family
+    snap = ref_src.snapshot
+    return FamilyParticleSource(
+        snapshot=ParticleSnapshot(positions=snap.positions, h=snap.h,
+                                  mass=snap.mass),
+        family_tables=FamilyTables(
+            SEDFamily(lam=np.asarray(fam.lam), L=np.asarray(fam.L),
+                      param_axes=list(fam.param_axes),
+                      scale_name=fam.scale_name), lam_range=ft.lam_range),
+        scales=np.asarray(ref_src.scales), params=np.asarray(ref_src.params),
+        kernel_kind=ref_src.kernel_kind)
+
+
+def source(ref_src):
+    if type(ref_src).__name__ == "FamilyParticleSource":
+        return _family_source(ref_src)
     _kind(ref_src, "PointSource")
     return dataclasses.replace(_same_fields(PointSource, ref_src),
                                sed=sed(ref_src.sed))
@@ -172,7 +204,22 @@ def simulation(ref_sim, device) -> Simulation:
     ref_tabs = getattr(ref_sim, "_sweep_tabs", None)
     if type(ref_tabs).__name__ == "XLTables":
         _xl_tables(sim, ref_tabs)
+    elif isinstance(sim.grid, VoronoiGrid) and ref_tabs is not None:
+        _raster_tables(sim, ref_tabs)
     return sim
+
+
+def _raster_tables(sim: Simulation, ref_tabs) -> None:
+    """Put the port's raster at the reference's resolution in place where
+    the reference rasterizes a Voronoi grid; its leaf map is checked equal
+    to the reference's owner map."""
+    tabs = raster.build_tables(sim.grid, sim.medium,
+                               resolution=tuple(ref_tabs.n))
+    if not np.array_equal(tabs.leafmap.cpu().numpy(),
+                          np.asarray(ref_tabs.leafmap)):
+        raise ValueError("the port's raster differs from the reference's "
+                         "owner map")
+    sim._sweep_tabs = tabs
 
 
 def _xl_tables(sim: Simulation, ref_tabs) -> None:

@@ -3,19 +3,23 @@
 Port of `skirt9_tpu/config/ski.py` (`load_ski`, `_load_ski` and the
 `build_*` functions) for the item types the port runs: primary emission
 of point sources with a blackbody, file or Gaussian Lyman-alpha SED (or
-oligochromatic, at one wavelength), shell and exponential-disk geometries
+oligochromatic, at one wavelength) and of imported star particles with an
+SSP family (`ParticleSource` with a cubic-spline kernel and a
+`FileSSPSEDFamily`), shell and exponential-disk geometries
 of trivial gas, mean-file dust, electron (with polarized Thomson
 scattering), neutral-hydrogen Lyman-alpha (`LyaExtinctionOnly` with its
 `LyaOptions`) or X-ray atomic gas mixes normalised by optical depth,
 entity number or number column, moving media (a vector field times a
-velocity magnitude, sampled at the cell centres), uniform Cartesian grids
+velocity magnitude, sampled at the cell centres), an imported Voronoi mesh
+medium (`VoronoiMeshMedium`, one density per site) on its own
+`VoronoiMeshSpatialGrid` (policy ImportedMesh), uniform Cartesian grids
 (linear meshes) and density-policy octrees and bintrees
 (`PolicyTreeSpatialGrid` with a `DensityTreePolicy`), full and SED
 instruments (with polarization) on logarithmic or linear wavelength grids,
 equilibrium dust emission over all cells with the iteration options, and
 the temperature, radiation-field and cell-properties probes. This is what
-the golden ski files bench1, bench1h, bench2, bench3, bench5, bench6 and
-bench7 use. Every item type outside `ITEMS`, and every property
+the golden ski files bench1, bench1h, bench2, bench3, bench4, bench5,
+bench6 and bench7 use. Every item type outside `ITEMS`, and every property
 outside `PROPERTIES`, raises NotImplementedError naming itself before
 anything is built, so no element is dropped silently. The arrays are built
 with numpy and torch by the port's own constructors, bit for bit as the
@@ -39,17 +43,22 @@ from ..geometries import analytic as ga
 from ..geometries import vectorfield as vf
 from ..grids import bintree, octree
 from ..grids.cartesian import make_cartesian
+from ..grids.voronoi import build_voronoi
+from ..imports import snapshots as snap
 from ..instruments import distant as dinst
 from ..media import geometric as gm
 from ..media import mixes as mx
+from ..media import system as msys
 from ..media import xray as xr
 from ..ops import stokes as stk
 from ..probes.probes import ProbeSpec
 from ..simulation import Simulation
 from ..sources.base import PointSource
+from ..spectral import sedfamily as sf
 from ..spectral import seds as sedlib
 from ..spectral import wavelengths as wl
 from ..transport import lifecycle as lc
+from ..utils import constants as const
 from ..utils import cosmology as cosmo
 from ..utils import units as U
 from ..utils import unitsystem
@@ -59,7 +68,8 @@ ITEMS = frozenset((
     "MonteCarloSimulation", "Random", "SIUnits", "StellarUnits",
     "ExtragalacticUnits", "LocalUniverseCosmology", "FlatUniverseCosmology",
     "SourceSystem", "PointSource", "BlackBodySED", "FileSED",
-    "LyaGaussianSED",
+    "LyaGaussianSED", "ParticleSource", "CubicSplineSmoothingKernel",
+    "FileSSPSEDFamily",
     "IntegratedLuminosityNormalization",
     "MediumSystem", "PhotonPacketOptions", "RadiationFieldOptions",
     "DustEmissionOptions", "AllCellsLibrary", "LogWavelengthGrid",
@@ -71,7 +81,8 @@ ITEMS = frozenset((
     "CylindricalVectorField", "HollowRadialVectorField",
     "HubbleRadialVectorField", "UnidirectionalVectorField",
     "RotateVectorFieldDecorator", "OffsetVectorFieldDecorator",
-    "CartesianSpatialGrid", "LinMesh",
+    "CartesianSpatialGrid", "LinMesh", "VoronoiMeshMedium",
+    "VoronoiMeshSpatialGrid",
     "PolicyTreeSpatialGrid", "DensityTreePolicy", "IterationOptions",
     "InstrumentSystem", "FullInstrument", "SEDInstrument",
     "ProbeSystem", "TemperatureProbe", "RadiationFieldProbe", "PerCellForm",
@@ -80,6 +91,7 @@ ITEMS = frozenset((
 # the properties (lower-case elements) that hold those items
 PROPERTIES = frozenset((
     "random", "units", "cosmology", "sourceSystem", "sources", "sed",
+    "smoothingKernel", "sedFamily",
     "normalization", "mediumSystem", "photonPacketOptions", "lyaOptions",
     "radiationFieldOptions", "radiationFieldWLG", "dustEmissionOptions",
     "cellLibrary", "dustEmissionWLG", "media", "geometry", "materialMix",
@@ -151,10 +163,8 @@ def build_sed(el, base_dir: str):
     if el.tag == "FileSED":
         # wavelengths in micron; the file resolves against the ski file's
         # directory
-        fn = a["filename"]
-        if not os.path.isabs(fn):
-            fn = os.path.join(base_dir, fn)
-        return sedlib.from_file(fn, lam_unit=1e-6)
+        return sedlib.from_file(_resolve(a["filename"], base_dir),
+                                lam_unit=1e-6)
     if el.tag == "LyaGaussianSED":
         return sedlib.lya_gaussian(_q(a, "dispersion", "velocity", 50e3))
     return sedlib.blackbody(_q(a, "temperature", "temperature"))
@@ -173,9 +183,63 @@ def source_luminosity(el) -> float:
     return _q(norm.attrib, "integratedLuminosity", "bolluminosity")
 
 
-def build_source(el, base_dir: str):
-    # PointSource is the one source of ITEMS; its velocity and weight are
-    # read and ignored, as the reference ignores them
+def _import_flags(el) -> None:
+    """Raise NotImplementedError naming an imported item's `import*` flag
+    that is set, or its `useColumns`: the port reads the default columns
+    only."""
+    on = [k for k, v in el.attrib.items()
+          if k.startswith("import") and v == "true"]
+    if el.attrib.get("useColumns"):
+        on.append("useColumns")
+    if on:
+        raise NotImplementedError(f"{el.tag} {', '.join(on)} not ported yet")
+
+
+def build_particle_source(el, base_dir: str, lam_range):
+    """ParticleSource with a FileSSPSEDFamily (`skirt9_tpu/config/ski.py:
+    754-860`): text columns x y z h (pc), Minit (Msun), Z and age (yr);
+    the family's table is per Msun with ages in years, so the imported SI
+    values are scaled back (ref: FileSSPSEDFamily.cpp:44-47). The
+    source's `wavelengthBias` and weight are read and ignored, as the
+    reference ignores them."""
+    _import_flags(el)
+    fam_el = _child(el, "sedFamily")
+    if fam_el is None or fam_el.tag != "FileSSPSEDFamily":
+        raise NotImplementedError(
+            f"SED family '{fam_el.tag if fam_el is not None else 'none'}' "
+            "not ported yet (FileSSPSEDFamily)")
+    if fam_el.attrib.get("hasIonizationParameter", "false") == "true":
+        raise NotImplementedError("FileSSPSEDFamily hasIonizationParameter "
+                                  "not ported yet")
+    kern_el = _child(el, "smoothingKernel")
+    d = snap.read_column_file(_resolve(el.attrib["filename"], base_dir), [
+        ("x", "length", "pc"), ("y", "length", "pc"), ("z", "length", "pc"),
+        ("h", "length", "pc"), ("Minit", "mass", "Msun"), ("Z", "", ""),
+        ("t", "time", "yr")])
+    pos = np.stack([d["x"], d["y"], d["z"]], axis=-1)
+    ps = snap.ParticleSnapshot(positions=pos, h=d["h"],
+                               mass=np.ones(len(pos)))
+    fam = sf.load_ssp_family(_resolve(fam_el.attrib["filename"], base_dir))
+    return snap.FamilyParticleSource(
+        snapshot=ps, family_tables=sf.FamilyTables(fam, lam_range=lam_range),
+        scales=d["Minit"] / sf.M_SUN,
+        params=np.stack([d["Z"], d["t"] / const.YEAR], axis=-1),
+        kernel_kind=(kern_el.tag if kern_el is not None
+                     else "CubicSplineSmoothingKernel"))
+
+
+def _resolve(fn: str, base_dir: str) -> str:
+    """An input file name, resolved against the ski file's directory."""
+    return fn if os.path.isabs(fn) else os.path.join(base_dir, fn)
+
+
+def build_source(el, base_dir: str, lam_range=None):
+    """A PointSource, or a ParticleSource over lam_range (the source range,
+    else 1e-8 to 1e-3 m, as the reference takes it). A PointSource's
+    velocity and weight are read and ignored, as the reference ignores
+    them."""
+    if el.tag == "ParticleSource":
+        return build_particle_source(el, base_dir, lam_range or (1e-8, 1e-3))
     a = el.attrib
     pos = (_q(a, "positionX", "length", 0.0),
            _q(a, "positionY", "length", 0.0),
@@ -216,10 +280,7 @@ def build_mix(el, base_dir: str) -> mx.MixTables:
                               _q(a, "scatteringCrossSection", "section"),
                               _f(a, "asymmetryParameter", 0.0))
     # MeanFileDustMix: input files resolve against the ski file's directory
-    fn = el.attrib["filename"]
-    if not os.path.isabs(fn):
-        fn = os.path.join(base_dir, fn)
-    return mx.from_file(fn)
+    return mx.from_file(_resolve(el.attrib["filename"], base_dir))
 
 
 def build_xray_mix(el, base_dir: str) -> mx.MixTables:
@@ -305,6 +366,43 @@ def build_vector_field(el):
                 _q(a, "offsetZ", "length", 0.0)))
 
 
+def build_voronoi_medium(media, grid_el, base_dir: str):
+    """An imported Voronoi mesh medium on its own grid (`skirt9_tpu/config/
+    ski.py:1763-1800, 1983-2000`): columns x y z (pc) and a mass (Msun/pc3)
+    or number (1/cm3) density per site; the VoronoiMeshSpatialGrid with the
+    ImportedMesh policy tessellates the medium's sites in the medium's box.
+    The medium's massFraction and maxTemperature and the grid's numSites,
+    filename and relaxSites are read and ignored, as the reference ignores
+    them. Returns (grid, medium, mix)."""
+    if len(media) != 1:
+        raise NotImplementedError("mixing VoronoiMeshMedium with other media "
+                                  "not ported yet")
+    m_el = media[0]
+    if grid_el.tag != "VoronoiMeshSpatialGrid":
+        raise NotImplementedError(
+            f"VoronoiMeshMedium on a {grid_el.tag} not ported yet (its own "
+            "VoronoiMeshSpatialGrid)")
+    policy = grid_el.attrib.get("policy", "DustDensity")
+    if policy != "ImportedMesh":
+        raise NotImplementedError(f"VoronoiMeshSpatialGrid policy='{policy}'"
+                                  " not ported yet (ImportedMesh)")
+    _import_flags(m_el)
+    a = m_el.attrib
+    mass_type = a.get("massType", "MassDensity")
+    density = {"MassDensity": ("massvolumedensity", "Msun/pc3"),
+               "NumberDensity": ("numbervolumedensity", "1/cm3")}
+    if mass_type not in density:
+        raise NotImplementedError(f"VoronoiMeshMedium massType='{mass_type}'"
+                                  " not ported yet")
+    d = snap.read_column_file(_resolve(a["filename"], base_dir), [
+        ("x", "length", "pc"), ("y", "length", "pc"), ("z", "length", "pc"),
+        ("rho", *density[mass_type])])
+    mix = build_mix(_child(m_el, "materialMix"), base_dir)
+    grid = build_voronoi(np.stack([d["x"], d["y"], d["z"]], axis=-1),
+                         _extent(a))
+    return grid, msys.site_medium(grid, d["rho"], mass_type, mix), mix
+
+
 def bulk_velocities(grid, nd, velocity_fields) -> np.ndarray:
     """Per-cell bulk velocity: the number-density-weighted average over the
     moving components of magnitude x field at the cell centres
@@ -334,6 +432,10 @@ def build_grid(el, geometry):
     2005-2049`). Tree levels in the ski file count octree levels, so a
     bintree's count three times."""
     a = el.attrib
+    if el.tag == "VoronoiMeshSpatialGrid":
+        raise NotImplementedError(
+            f"VoronoiMeshSpatialGrid policy='{a.get('policy', 'DustDensity')}'"
+            " not ported yet (ImportedMesh, with a VoronoiMeshMedium)")
     if el.tag == "PolicyTreeSpatialGrid":
         pol = _child(el, "policy")
         pa = pol.attrib if pol is not None else {}
@@ -438,14 +540,20 @@ def load_ski(path: str, num_packets: int | None = None,
     n_pk = num_packets or int(float(mcs.attrib.get("numPackets", 1e6)))
 
     # sources
+    # (the SourceSystem's sourceBias is read and ignored, as the reference
+    # ignores it: the allocation bias is the Simulation's default)
     src_sys = mcs.find("sourceSystem/SourceSystem")
-    sources = ([build_source(e, base_dir) for e in src_sys.find("sources")]
-               if src_sys is not None else [])
     src_range = None
     if src_sys is not None and "minWavelength" in src_sys.attrib:
         a = src_sys.attrib
         src_range = (U.parse("wavelength", a["minWavelength"]),
                      U.parse("wavelength", a["maxWavelength"]))
+    sources = ([build_source(e, base_dir, src_range)
+                for e in src_sys.find("sources")]
+               if src_sys is not None else [])
+    if oligo and any(not isinstance(s, PointSource) for s in sources):
+        raise NotImplementedError("imported sources in oligochromatic mode "
+                                  "not ported yet")
     if oligo:
         # sources emit at the discrete wavelength with their luminosity
         lams = U.parse_list("wavelength", src_sys.attrib["wavelengths"])
@@ -459,7 +567,8 @@ def load_ski(path: str, num_packets: int | None = None,
         # SEDs normalised and sampled over the source range
         sources = [dataclasses.replace(s, sed=sedlib.clipped(s.sed,
                                                              *src_range))
-                   if s.sed is not None else s for s in sources]
+                   if getattr(s, "sed", None) is not None else s
+                   for s in sources]
 
     # media + grid
     med_sys = mcs.find("mediumSystem/MediumSystem")
@@ -468,18 +577,25 @@ def load_ski(path: str, num_packets: int | None = None,
                                   "ported yet")
     components = []
     velocity_fields = []    # (component, field, magnitude [m/s])
-    for m_el in med_sys.find("media"):
-        vd_el = _child(m_el, "velocityDistribution")
-        if vd_el is not None:
-            vmag = _q(m_el.attrib, "velocityMagnitude", "velocity", 0.0)
-            if vmag != 0.0:
-                velocity_fields.append((len(components),
-                                        build_vector_field(vd_el), vmag))
-        components.append((build_geometry(_child(m_el, "geometry")),
-                           build_mix(_child(m_el, "materialMix"), base_dir),
-                           build_medium_normalization(m_el)))
-    grid = build_grid(list(med_sys.find("grid"))[0], components[0][0])
-    medium = gm.build_medium(grid, components)
+    media = list(med_sys.find("media"))
+    grid_el = list(med_sys.find("grid"))[0]
+    if any(m.tag == "VoronoiMeshMedium" for m in media):
+        grid, medium, mix = build_voronoi_medium(media, grid_el, base_dir)
+        components.append((None, mix, None))
+    else:
+        for m_el in media:
+            vd_el = _child(m_el, "velocityDistribution")
+            if vd_el is not None:
+                vmag = _q(m_el.attrib, "velocityMagnitude", "velocity", 0.0)
+                if vmag != 0.0:
+                    velocity_fields.append((len(components),
+                                            build_vector_field(vd_el), vmag))
+            components.append((build_geometry(_child(m_el, "geometry")),
+                               build_mix(_child(m_el, "materialMix"),
+                                         base_dir),
+                               build_medium_normalization(m_el)))
+        grid = build_grid(grid_el, components[0][0])
+        medium = gm.build_medium(grid, components)
     if velocity_fields:
         medium = medium._replace(bulk_v=torch.tensor(bulk_velocities(
             grid, medium.nd, velocity_fields).astype(np.float32)))

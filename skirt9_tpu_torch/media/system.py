@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import sampling
+from . import mixes as mx
 
 
 class MediumTables(NamedTuple):
@@ -136,3 +137,20 @@ def make_medium(grid, nd: np.ndarray, lam_t: np.ndarray, sigma_ext: np.ndarray,
     return MediumTables(nd=f32(nd), lam_t=f32(lam_t), sigma_ext=f32(sigma_ext),
                         sigma_sca=f32(sigma_ext * albedo), g=f32(g),
                         bulk_v=f32(bulk_v), temperature=f32(temperature))
+
+
+def site_medium(grid, density: np.ndarray, mass_type: str,
+                mix) -> MediumTables:
+    """One imported component with a density per cell, as a Voronoi mesh's
+    sites carry it (the reference's loader, `skirt9_tpu/config/ski.py:
+    1783-1800, 1983-2000`): a MassDensity [kg/m^3] becomes a number density
+    through the mix's mass per entity, a NumberDensity [1/m^3] is one."""
+    if mass_type == "MassDensity":
+        nd = np.asarray(density, np.float64) / mix.mu
+    elif mass_type == "NumberDensity":
+        nd = np.asarray(density, np.float64)
+    else:
+        raise NotImplementedError(f"massType '{mass_type}' not ported yet "
+                                  "(MassDensity, NumberDensity)")
+    lam, se, al, gg = mx.stack([mix])
+    return make_medium(grid, nd.astype(np.float32), lam, se, al, gg)

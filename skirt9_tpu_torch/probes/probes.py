@@ -1,8 +1,9 @@
 """Probes: outputs of internal simulation state.
 
-Port of the part of `skirt9_tpu/probes/probes.py` that bench2's and
-bench3's probes reach: the per-cell and planar-cut forms (on uniform grids
-and trees), `temperature_probe`, `radiation_field_probe`, the cell
+Port of the part of `skirt9_tpu/probes/probes.py` that bench2's,
+bench3's and bench4's probes reach: the per-cell and planar-cut forms (on
+uniform grids, trees and Voronoi grids, whose cells are centred on their
+sites), `temperature_probe`, `radiation_field_probe`, the cell
 properties (`cellprops`), `ProbeSpec` and `run_probe_system`. A probe is a
 function of the simulation state that writes text or FITS files through a
 form. Any other probe kind raises NotImplementedError naming itself.
@@ -21,8 +22,9 @@ from ..utils import fits as fitsio
 # -------------------------------------------------------------------- forms
 
 def _device(grid):
-    """The device of a grid's tables: a uniform grid's or a tree's."""
-    return grid.cell_lo.device if hasattr(grid, "cell_lo") else grid.lo.device
+    """The device of a grid's tables: a uniform grid's, a tree's or a
+    Voronoi grid's."""
+    return grid.box_lo.device if hasattr(grid, "box_lo") else grid.lo.device
 
 
 def per_cell_form(path: str, grid, quantities: dict[str, np.ndarray],
@@ -47,7 +49,7 @@ def planar_cut_form(path: str, grid, values_fn, axis: str = "z",
                     offset: float = 0.0, npix: int = 256) -> str:
     """FITS image of a scalar field on a planar cut through the domain
     (ref: DefaultCutsForm / PlanarCutsForm): values_fn(pos (N, 3)) -> (N,).
-    The cut spans the grid's borders, or a tree's root box."""
+    The cut spans the grid's borders, or a tree's or Voronoi grid's box."""
     if hasattr(grid, "xb"):
         lo = [float(grid.xb[0]), float(grid.yb[0]), float(grid.zb[0])]
         hi = [float(grid.xb[-1]), float(grid.yb[-1]), float(grid.zb[-1])]

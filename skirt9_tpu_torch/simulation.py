@@ -1,7 +1,8 @@
 """Monte Carlo simulation orchestrator on PyTorch tensors.
 
 Port of `skirt9_tpu/simulation.py` on one device, on uniform Cartesian
-grids, octrees and bintrees (with the wavelength-changing Compton, Lya and
+grids, octrees and bintrees, and Voronoi grids rasterized onto a voxel grid
+(with the wavelength-changing Compton, Lya and
 X-ray physics on uniform grids): `run_primary` launches each source's history
 range in batches through `transport.lifecycle.life_cycle` and accumulates
 the radiation field and instrument records on the device;
@@ -43,6 +44,7 @@ from .emission import equilibrium as eq
 from .grids.bintree import BinTreeGrid
 from .grids.cartesian import UniformCartesianGrid
 from .grids.octree import OctreeGrid
+from .grids.voronoi import VoronoiGrid
 from .instruments import distant as dinst
 from .media import system as msys
 from .ops import rng
@@ -50,6 +52,7 @@ from .sources import base as src
 from .sources import secondary as sec
 from .transport import lifecycle as lc
 from .transport import mlsweep as ml
+from .transport import raster
 from .transport import sweep as sw
 from .transport import sweepxl as xl
 from .utils import fits as fitsio
@@ -57,14 +60,14 @@ from .utils.guards import check_finite
 from .utils.log import default as _log
 from .utils.unitsystem import UnitSystem
 
-_GRIDS = (UniformCartesianGrid, OctreeGrid, BinTreeGrid)
+_GRIDS = (UniformCartesianGrid, OctreeGrid, BinTreeGrid, VoronoiGrid)
 
 
 @dataclasses.dataclass
 class Simulation:
     """A configured simulation: grid + medium + sources + instruments."""
 
-    grid: UniformCartesianGrid | OctreeGrid | BinTreeGrid
+    grid: UniformCartesianGrid | OctreeGrid | BinTreeGrid | VoronoiGrid
     medium: msys.MediumTables
     sources: list
     instruments: list           # list[DistantInstrumentCfg]
@@ -109,7 +112,7 @@ class Simulation:
         if not isinstance(self.grid, _GRIDS):
             raise NotImplementedError(
                 f"grid {type(self.grid).__name__} not ported yet (uniform "
-                "Cartesian grids, octrees and bintrees only)")
+                "Cartesian grids, octrees, bintrees and Voronoi grids only)")
         if self.dust_emission_type != "Equilibrium":
             raise NotImplementedError(f"{self.dust_emission_type} dust "
                                       "emission not ported yet (Equilibrium)")
@@ -157,11 +160,13 @@ class Simulation:
     def _engine_tables(self):
         """The reference's engine choice (`skirt9_tpu/simulation.py:194-217`)
         without its backend tests: the resident sweep while it supports the
-        grid, then the multi-level sweep for trees, then trees on their
-        voxel raster through the large-grid (XL) contracts, then uniform XL
+        grid, then the multi-level sweep for trees, then Voronoi grids
+        rasterized onto the multi-level sweep, then trees on their voxel
+        raster through the large-grid (XL) contracts, then uniform XL
         grids. A tree gets its fine leaf map (on the voxel raster: the
         tables' cell map, the same array) attached, so that launch-time
-        `locate` is one gather (`:199-202`)."""
+        `locate` is one gather (`:199-202`); a Voronoi grid keeps its own
+        locate, as in the reference (`:203-206`)."""
         if sw.supports_sweep(self.grid, self.medium):
             return sw.build_tables(self.grid, self.medium)
         if self.options.kinematics and isinstance(self.grid, (OctreeGrid,
@@ -169,6 +174,15 @@ class Simulation:
             raise NotImplementedError(
                 f"kinematics on a {type(self.grid).__name__} not ported yet "
                 "(the resident sweep)")
+        if isinstance(self.grid, VoronoiGrid):
+            if raster.supports(self.grid, self.medium, self.options):
+                return raster.build_tables(self.grid, self.medium)
+            raise NotImplementedError(
+                f"no transport engine for this VoronoiGrid ({self.grid.ncells}"
+                f" cells, {self.medium.ncomp} components): the rasterized "
+                "sweep takes <= 4 components and none of kinematics, Lya, "
+                "Compton, X-ray or explicit absorption; the scan march "
+                "(the exact bisector walk) is not ported yet")
         tabs = None
         if ml.supports(self.grid, self.medium, self.options):
             tabs = ml.build_tables(self.grid, self.medium)
@@ -225,8 +239,9 @@ class Simulation:
 
     def _strata_for(self, source, opts):
         """Wavelength strata of a bin-pure launch, or None: (borders, bin
-        map) over the source's SED support (or a secondary source's
-        `lam_range`), one stratum per RF bin it covers plus edge strata
+        map) over the source's SED support (or the `lam_range` of a
+        secondary source or of star particles with an SED family), one
+        stratum per RF bin it covers plus edge strata
         outside the RF grid (bin -1), padded to a power of two by splitting
         the widest in-grid strata (`skirt9_tpu/simulation.py:396-465`)."""
         if self.rf_borders is None or not opts.store_rf:

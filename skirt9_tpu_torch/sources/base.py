@@ -173,8 +173,10 @@ def _sample_wavelength_stratified(sedt, borders, keys, lum, xi,
 def launch_batch(source, tabs: dict, grid, seed_key: torch.Tensor,
                  history: torch.Tensor, n_total: int,
                  hist_end: int | None = None) -> PacketBatch:
-    """A full PacketBatch for absolute history indices (B,). n_total is this
-    source's packet count; lanes with history >= hist_end carry no weight."""
+    """A full PacketBatch for absolute history indices (B,), from any source
+    with `launch(tabs, keys, n_total)` (a point source, the dust emission,
+    `imports.snapshots.FamilyParticleSource`). n_total is this source's
+    packet count; lanes with history >= hist_end carry no weight."""
     hkeys = rng.history_keys(seed_key, history)
     keys0 = rng.event_keys(hkeys, rng.LAUNCH_EVENT)
     f = source.launch(tabs, keys0, n_total)

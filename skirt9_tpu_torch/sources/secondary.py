@@ -185,6 +185,8 @@ def prepare_device(grid, L_cell: torch.Tensor, eps: torch.Tensor, ems_borders,
 
 def cell_bounds(grid):
     """Axis-aligned bounds (lo, hi) per cell, (ncells, 3) each, for
-    position sampling: the voxels of a uniform grid, the leaves of a
-    tree."""
+    position sampling: the voxels of a uniform grid, the leaves of a tree,
+    a Voronoi cell's exact bounding box. In a Voronoi cell's box the launch
+    is uniform, as in the reference (`skirt9_tpu/sources/secondary.py:177,
+    241-246`), so a packet may start in a neighbouring cell."""
     return grid.cell_bounds()

@@ -59,7 +59,8 @@ go back to launch order. On a tree raster the interaction voxel maps to
 its leaf through the tables' `cellmap` (`lifecycle.py:927-933` of the
 reference), so that albedo, scattering and detection index leaves.
 
-With `mlsweep.MLTables` (octrees and bintrees) the event follows the
+With `mlsweep.MLTables` (octrees and bintrees, and Voronoi grids on their
+raster) the event follows the
 reference's tree branch: pass 1 is one `mlsweep.sweep_dtau_prefix` launch
 (the optical depth per sub-step of the multi-granularity plan, with the
 leaf ids where an RF is stored, the step sums, their slab prefix, which

@@ -1,6 +1,8 @@
 """Multi-level slab sweep: the tree-grid engine's contracts.
 
-Port of `skirt9_tpu/transport/mlsweep.py` for octrees and bintrees. Every
+Port of `skirt9_tpu/transport/mlsweep.py` for octrees and bintrees, and
+for Voronoi grids rasterized onto a uniform voxel grid (`transport/
+raster.py`: one level, one plan step per fine slab, any voxel counts). Every
 leaf of a power-of-two tree is an aligned block of voxels of the finest
 level's uniform raster (the fine grid, nf per axis), so a ray marches that
 raster's slabs with the resident sweep's <= 3-cell sub-DDA

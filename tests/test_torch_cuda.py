@@ -23,6 +23,15 @@ lane range bit for bit; the tree event loop launches the prefix mode once
 per event and the total once per peel-off, and calls no `slab_prefix`,
 `_lane_range` or `torch.sum` over a record.
 
+Config 4's Voronoi raster: kernel 4 in its four modes on the raster of a
+300-site Voronoi grid at 73^3 and 37x50x29 (one level, a plan of
+max(shape) steps, no multiple of its 16-step runs), as the trees hold it;
+kernel 5 there with one group (its shared-memory table) and 32 groups
+into 25 rows (its global path), as `_grouped_check` holds the trees; the
+reduced config 4 (chip_smoke.B4_SMALL) on the card against the CPU within
+chip_smoke.py's B4_BOUNDS, kernels 4, 5 and detect launched, no other
+sweep.
+
 Kernel 1's three output modes: `sweep_dtau` bit for bit against its plain
 version, `sweep_tau_total` and `sweep_dtau_prefix` within 1e-6 of each
 lane's total tau, and the lane range the kernel forms equal to
@@ -1636,3 +1645,110 @@ def test_lya_and_xray_loops_copy_nothing_from_host(dev, name):
     assert ep._events(sim) > 0 and prof["loop_ranges"] == 1
     assert prof["unattributed"] == 0, prof
     assert prof["loop"]["h2d_copies"] == 0, prof["loop"]
+
+
+# ------------------------------------------- config 4: the Voronoi raster
+
+def _raster_inputs(dev, shape, B, seed):
+    """A 300-site Voronoi grid rasterized at `shape` (single level, one
+    plan step per slab) with random rays, as `_tree_inputs` makes them."""
+    from skirt9_tpu_torch.grids.voronoi import build_voronoi
+    from skirt9_tpu_torch.transport import raster
+    rs = np.random.default_rng(seed)
+    grid = build_voronoi(rs.uniform(-1.2 * PC, 1.2 * PC, (300, 3)),
+                         ((-1.2 * PC, 1.2 * PC),) * 3, lookup_res=8)
+    nd = _dens(grid.cell_centers().double().numpy()) / (1e-24 * PC)
+    med = msys.make_medium(grid, nd.astype(np.float32),
+                           np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), 1e-24),
+                           albedo=np.full((1, 2), 0.5), g=np.full((1, 2), 0.3))
+    tabs = raster.build_tables(grid, med.to(dev), resolution=shape)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos = t32(rs.uniform(-1.1 * PC, 1.1 * PC, (B, 3)))
+    d = rs.normal(size=(B, 3))
+    d = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    sig = t32(1e-24 * rs.uniform(0.5, 1.5, (1, B)))
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    return tabs, pos, d, sig, active, rs
+
+
+@pytest.mark.parametrize("shape", [(73, 73, 73), (37, 50, 29)])
+@pytest.mark.parametrize("hint", [None, 2])
+def test_mlsweep_raster_kernel4(dev, shape, hint):
+    """Kernel 4 on a Voronoi raster (one level, shift 0, max(shape) plan
+    steps: no multiple of the kernel's 16-step runs) in its four modes
+    against its plain versions: the record, leaf ids and summed form bit
+    for bit, the total and the prefix within 1e-6 of each lane's tau, the
+    step sums and lane range bit for bit."""
+    tabs, pos, d, sig, active, _ = _raster_inputs(dev, shape, 4096, 31)
+    assert tabs.n_steps == max(shape) and tabs.n_steps % ml.RUN
+    args = (tabs, pos, d, sig, active, hint)
+    sub, cells = ml.sweep_dtau(*args, want_sub=True)
+    sub_p, cells_p = ml.sweep_dtau_plain(*args, want_sub=True)
+    assert torch.equal(cells, cells_p) and torch.equal(sub, sub_p)
+    assert torch.equal(ml.sweep_dtau(*args), ml.sweep_dtau_plain(*args))
+    tot_p = ml.sweep_tau_total_plain(*args)
+    assert int((tot_p > 0).sum()) > 2000
+    assert bool(((ml.sweep_tau_total(*args) - tot_p).abs()
+                 <= 1e-6 * tot_p).all())
+    rec, cl, steps, tb, tot, lane = ml.sweep_dtau_prefix(*args)
+    rec_p, cl_p, steps_p, tb_p, _, lane_p = ml.sweep_dtau_prefix_plain(*args)
+    assert torch.equal(rec, rec_p) and torch.equal(cl, cl_p)
+    assert torch.equal(steps, steps_p)
+    assert bool(((tb - tb_p).abs() <= 1e-6 * tot_p[None, :]).all())
+    assert bool(((tot - tot_p).abs() <= 1e-6 * tot_p).all())
+    for a, b in zip(lane, lane_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(73, 73, 73), (37, 50, 29)])
+def test_mlsweep_raster_kernel5(dev, shape):
+    """Kernel 5 on a Voronoi raster, one group (its shared-memory table)
+    and 32 groups folded into 25 rows (its global path): as
+    `_grouped_check` holds the trees."""
+    B = 32 * 128
+    tabs, pos, d, sig, active, rs = _raster_inputs(dev, shape, B, 32)
+    rec, cells, _, tb, tot, lane = ml.sweep_dtau_prefix(tabs, pos, d, sig,
+                                                        active)
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev)
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dev) * tot
+    bin_map = tuple(int(v) for v in np.minimum(np.arange(32) * 25 // 32, 24))
+    for n_groups, bmap, nbins in ((1, None, 0), (32, bin_map, 25)):
+        rf = _grouped_check(tabs, pos, d, active, rec, cells, lum, tau_int,
+                            tb, lane, n_groups, bmap, nbins)
+        assert rf.shape == (max(nbins, 1), 300)
+
+
+@pytest.fixture(scope="module")
+def config4_runs(dev):
+    """The reduced config 4 (chip_smoke.B4_SMALL: 8,192 packets, 4 events,
+    the 73^3 raster) on the card and on the CPU, with the card's
+    launches."""
+    cs = _chip_smoke()
+    out = {}
+    for d in ("cpu", dev):
+        sim = cs.config4(d, **cs.B4_SMALL)
+        kb.reset_launches()
+        out[str(d)] = (sim, *sim.run_with_dust_emission(verbose=False))
+    return out, dict(kb.LAUNCHES)
+
+
+def test_config4_on_cuda_matches_cpu(dev, config4_runs):
+    """CPU against GPU within chip_smoke.py's B4_BOUNDS (`b4_gaps`)."""
+    cs = _chip_smoke()
+    out, n = config4_runs
+    (_, rf_c, acc_c, info_c), (sim, rf_g, acc_g, info_g) = (out["cpu"],
+                                                            out[str(dev)])
+    assert info_c["iterations"] == info_g["iterations"]
+    assert info_g["L_dust"] == pytest.approx(info_c["L_dust"], rel=1e-4)
+    cs.b4_gaps(acc_c[0], acc_g[0], rf_c, rf_g)
+    # kernel 5 once per primary event, kernel 4 every event, no other sweep
+    segs = sim.last_stats["segments"]
+    assert [s[0] for s in segs] == ["primary", "secondary"]
+    assert n["mlsweep_deposit"] == segs[0][3]
+    assert n["mlsweep_dtau_prefix"] == segs[0][3] + segs[1][3]
+    assert n["mlsweep_tau_total"] > 0 and n["detect"] > 0
+    for k in cs.ML_NOT_PATH:
+        assert n[k] == 0, k

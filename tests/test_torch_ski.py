@@ -19,8 +19,9 @@ All on the CPU.
   to ~3e-9); on bench2 it writes the probe files, one row per cell; on the
   reduced bench3.ski (maxLevel 4, one self-absorption iteration) it writes
   the SED, the frame and the cells, rf and T probe files equal to the API
-  run's; what is not ported exits non-zero, and so does the default device
-  without a GPU.
+  run's; on bench4.ski with 2,048 packets and 2 events the SED, the frame
+  and the cells and T probe files of its Voronoi cells; what is not ported
+  exits non-zero, and so does the default device without a GPU.
 """
 
 import dataclasses
@@ -331,6 +332,36 @@ def test_cli_on_reduced_bench3(tmp_path):
     assert sed.shape == (40, 9) and sed[:, 5].max() > 0   # secondary flux
     J = np.loadtxt(out / "small_rf_radiationfield.dat")
     assert J.shape == (api.grid.ncells, 3 + 25) and J[:, 3:].max() > 0
+
+
+def test_cli_on_reduced_bench4(tmp_path):
+    """The CLI on bench4.ski with its packets cut to 2,048 (one stratified
+    batch of 32,768 lanes a segment) and 2 events a packet writes the SED,
+    the frame, the cells probe (the Voronoi sites, their exact volumes and
+    densities) and the temperature probe, one row per cell."""
+    path = chip_smoke.edited_ski("bench4", tmp_path, {
+        'numPackets="1e6"': 'numPackets="2048"'})
+    out = tmp_path / "cli"
+    assert main([path, "--device", "cpu", "-b", "4096", "--max-events", "2",
+                 "-o", str(out)]) == 0
+    assert sorted(os.listdir(out)) == [
+        "small_T_temperature.dat", "small_T_temperature_z.fits",
+        "small_cells_cellprops.dat", "small_i0_sed.dat",
+        "small_i0_total.fits", "small_log.txt"]
+    sed = np.loadtxt(out / "small_i0_sed.dat")
+    assert sed.shape == (40, 9) and np.isfinite(sed).all()
+    assert sed[:, 2].max() > 0 and sed[:, 5].max() > 0   # secondary flux
+    cube, _ = read_fits(str(out / "small_i0_total.fits"))
+    assert cube.shape == (40, 64, 64) and np.isfinite(cube).all()
+    sim = load_ski(path, device="cpu")
+    cells = np.loadtxt(out / "small_cells_cellprops.dat")
+    assert cells.shape == (2895, 5)
+    assert np.array_equal(cells[:, :3], sim.grid.sites.double().numpy())
+    assert np.array_equal(cells[:, 3], sim.grid.volumes())
+    assert np.array_equal(cells[:, 4], sim.medium.nd[:, 0].double().numpy())
+    T = np.loadtxt(out / "small_T_temperature.dat")
+    assert T.shape == (2895, 4) and np.isfinite(T).all()
+    assert 5 < np.median(T[T[:, 3] > 0, 3]) < 200
 
 
 @pytest.mark.parametrize("argv,named", [

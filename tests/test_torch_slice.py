@@ -32,9 +32,10 @@ emission (`chip_smoke.config2`) on the resident sweep and on XL tables
 (a 4-bin RF in lane groups), the gather and row-lookup probes, a reduced config 3 (bench3.ski at maxLevel 4 with a 4-bin RF
 through the loader, with and without merged iterations) and the CLI
 (bench1.ski, and bench2.ski's set-up), configs 6 and 7 (bench6.ski and
-bench7.ski through the loader and the CLI), imports the variant scripts of
-kernels 8-9 (`perf/`), and then finds no such module loaded and no kernel
-launched;
+bench7.ski through the loader and the CLI), a tiny Voronoi grid on its
+raster (73^3, then 8 x 6 x 10) and bench4.ski's set-up through the CLI,
+imports the variant scripts of kernels 8-9 (`perf/`), and then finds no
+such module loaded and no kernel launched;
 an `ast` scan of the package (the loader, probes, CLI, unit copies, trees,
 tree and XL sweeps, voxel rasters and event loop among it), chip_smoke.py and `perf/*.py` finds
 no such import.
@@ -428,6 +429,33 @@ with tempfile.TemporaryDirectory() as tmp:
                      "256", "-b", "128", "-o", tmp]) == 0
     assert sorted(os.listdir(tmp)) == ["bench6_i0_sed.dat", "bench6_log.txt",
                                        "bench7_i0_sed.dat", "bench7_log.txt"]
+# config 4's engine: a tiny Voronoi grid rasterized onto the multi-level
+# sweep (its own 73^3 raster, then an anisotropic 8 x 6 x 10 one), and
+# bench4.ski's set-up through the CLI (the star particles, their SSP
+# family and the imported Voronoi mesh)
+from skirt9_tpu_torch.grids.voronoi import build_voronoi
+from skirt9_tpu_torch.transport import raster
+rs = np.random.default_rng(4)
+grid = build_voronoi(rs.uniform(-PC, PC, (40, 3)), ext, lookup_res=8)
+nd = np.full(40, 1.0 / (1e-24 * PC), np.float32)
+med = msys.make_medium(grid, nd, np.array([0.4e-6, 0.7e-6]),
+                       sigma_ext=np.full((1, 2), 1e-24),
+                       albedo=np.full((1, 2), 0.6), g=np.full((1, 2), 0.5))
+sim = Simulation(grid=grid, medium=med, sources=[PointSource()],
+                 instruments=[inst],
+                 options=TransportOptions(max_steps=grid.max_steps(),
+                                          max_events=3),
+                 rf_borders=np.array([0.5e-6, 0.6e-6]), num_packets=256,
+                 batch_size=128, device="cpu")
+for n in ((73, 73, 73), (8, 6, 10)):
+    assert isinstance(sim._sweep_tabs, MLTables) and sim._sweep_tabs.n == n
+    rf, accs = sim.run_primary(verbose=False)
+    assert rf.shape == (40, 1) and float(rf.sum()) > 0
+    assert float(accs[0]["sed"][2].sum()) > 0
+    sim._sweep_tabs = raster.build_tables(grid, med, resolution=(8, 6, 10))
+with tempfile.TemporaryDirectory() as tmp:
+    assert main(["tests/golden/bench4.ski", "--device", "cpu", "-e",
+                 "-o", tmp]) == 0
 assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}, kb.LAUNCHES
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = sorted(m for m in sys.modules
@@ -477,5 +505,7 @@ def test_port_sources_import_no_reference():
         "transport/sweepxl.py", "parallel/domain.py",
         "sources/secondary.py", "tools/event_profile.py",
         "tools/kernel5_split.py", "ops/stokes.py",
-        "geometries/vectorfield.py")} <= set(bad)
+        "geometries/vectorfield.py", "grids/voronoi.py",
+        "transport/raster.py", "spectral/sedfamily.py",
+        "imports/snapshots.py", "utils/storedtable.py")} <= set(bad)
     assert not {f: n for f, n in bad.items() if n}
