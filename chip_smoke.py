@@ -319,6 +319,36 @@ Phases, one JSON line each:
                     packets in batches of 8,192, 16 events), reported
   breakdown_b4      one batch of config 4 per segment under torch.profiler,
                     as breakdown
+  kernels_march     (right after build, in a fresh process's profiler) the
+                    scan march kernel (csrc/march.cu) against its plain
+                    version on the card in its three modes: march_voronoi
+                    at bench4's first event (2^16 lanes, S = 76, the
+                    2,895-site grid), march_uniform on config 1's 32^3 grid
+                    and march_mesh on a 32^3 SymPowMesh copy of it (2^17
+                    lanes, S = 99); cells equal on every (step, lane) pair
+                    (or at most 1e-4 of the lanes differing, counted), each
+                    lane's summed length within 1e-6; kernel ms by CUDA
+                    events, device ms by the profiler (checked for a
+                    dropped kernel), the bound from the bytes written and
+                    read
+  draw_for_draw_march  the reduced configurations of tests/
+                    test_torch_config_march.py (MARCH_SMALL) on the CPU and
+                    on the card: SEDs and RF within 2e-5 of their maxima
+                    (a one-bin SED 1e-4), after dust emission the
+                    secondary light by its sums (1e-3), bench6 within
+                    B6_BOUNDS; the march kernel and detect launched
+  full_width_b4_walk  bench4.ski at bench_config4's width with
+                    raster_fallback off: the exact Voronoi walk, every
+                    bench4 gate strict, march_voronoi and detect launched,
+                    kernels 4-5 not; packets/s, events, the loop's device
+                    operations, syncs and host copies per event and the
+                    idle share; the SED and per-cell T beside full_width_b4's
+                    raster run (the raster's chord error, not gated)
+  full_width_b1_march  config 1 at 2^20 packets with explicit absorption
+                    (march_uniform: config 1's gates) and on a 32^3
+                    SymPowMesh grid (march_mesh: the transparent SED exact,
+                    the scattered SED within 2% of full_width's sweep run),
+                    packets/s beside full_width's
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -390,8 +420,10 @@ def nvidia_smi_line() -> str:
 
 
 def config1(device, num_packets=1 << 20, batch_size=B_FULL, n=32,
-            store_rf=False, npix=64):
-    """Config 1 of bench.py (bench.py:39-76) through the port's API."""
+            store_rf=False, npix=64, meshes=None, **options):
+    """Config 1 of bench.py (bench.py:39-76) through the port's API. meshes:
+    per-axis borders of a meshed Cartesian grid (the scan march); options:
+    further TransportOptions (explicit_absorption)."""
     from skirt9_tpu_torch.grids.cartesian import make_cartesian
     from skirt9_tpu_torch.instruments.distant import DistantInstrumentCfg
     from skirt9_tpu_torch.media import system as msys
@@ -401,7 +433,7 @@ def config1(device, num_packets=1 << 20, batch_size=B_FULL, n=32,
 
     R = PC
     box = 1.2 * R
-    grid = make_cartesian(((-box, box),) * 3, (n,) * 3)
+    grid = make_cartesian(((-box, box),) * 3, (n,) * 3, meshes=meshes)
     sigma = 1e-24
     nd = msys.uniform_density_sphere(grid, 1.0, sigma, R)
     med = msys.make_medium(grid, nd, np.array([0.4e-6, 0.7e-6]),
@@ -412,7 +444,7 @@ def config1(device, num_packets=1 << 20, batch_size=B_FULL, n=32,
                                 distance=100 * PC, npx=npix, npy=npix,
                                 fovx=4 * PC, fovy=4 * PC)
     opts = TransportOptions(max_steps=grid.max_steps(), max_events=24,
-                            store_rf=store_rf)
+                            store_rf=store_rf, **options)
     return Simulation(grid=grid, medium=med,
                       sources=[PointSource(luminosity=1.0, lam0=0.55e-6)],
                       instruments=[inst], options=opts,
@@ -1175,7 +1207,6 @@ def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
                      **kw):
     """A config-1 path at full width, timed after one warm-up run, with the
     correctness gates. kw: config1's arguments (grid size, packets)."""
-    from skirt9_tpu_torch.utils.fits import read_fits
     sim = config1("cuda", **kw)
     require(type(sim._sweep_tabs).__name__ == tables,
             f"{sim.grid.nx}^3 builds {tables}")
@@ -1183,22 +1214,43 @@ def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
     (rf, accs), launches = drive(must, must_not,
                                  lambda: sim.run_primary(verbose=False))
     stats = dict(sim.last_stats)
+    gates = config1_gates(sim, accs)
+    emit({"phase": phase, "grid": list(sim.grid.shape),
+          "tables": tables, "packets": sim.num_packets,
+          "batch": sim.batch_size, "packets_per_s": sim.last_rate,
+          "seconds": stats["seconds"], "events": stats["events"],
+          "launches": launches, **gates,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    stats["gates"] = gates
+    return sim, stats, launches
+
+
+def config1_gates(sim, accs, direct: bool = True) -> dict:
+    """Config 1's gates on a run: the transparent SED analytic within 1e-5,
+    direct/transparent = exp(-tau) of the +z ray within 1e-3 (on a uniform
+    grid; skipped with direct=False), SED relative error R < 0.01, the SED
+    and frame files finite and lit. Returns the measured values."""
+    from skirt9_tpu_torch.utils.fits import read_fits
     sed = _sed(sim, accs)
     cfg = sim.instruments[0]
     dlam = cfg.wave_borders[1] - cfg.wave_borders[0]
     expect = 1.0 / (4.0 * math.pi * cfg.distance ** 2 * dlam)
     e_tr = abs(sed["transparent"][0] - expect) / expect
     require(e_tr <= 1e-5, f"transparent SED {e_tr} <= 1e-5 of L/(4 pi d^2)")
-    # optical depth of the +z ray from the source, summed in numpy over the
-    # cells it crosses (the source sits on the corner of the central cells)
-    n = sim.grid.nx
-    nd = sim.medium.nd[:, 0].double().cpu().numpy().reshape(n, n, n)
-    h = float(sim.grid.h[2])
-    tau_grid = float(nd[n // 2, n // 2, n // 2:].sum() * 1e-24 * h)
     ratio = sed["primarydirect"][0] / sed["transparent"][0]
-    e_dir = abs(ratio - math.exp(-tau_grid))
-    require(e_dir <= 1e-3, f"direct/transparent {ratio} vs "
-            f"exp(-{tau_grid}) within 1e-3")
+    out = {"transparent_rel_err": e_tr, "direct_over_transparent": ratio}
+    if direct:
+        # optical depth of the +z ray from the source, summed in numpy over
+        # the cells it crosses (the source sits on the corner of the
+        # central cells)
+        n = sim.grid.nx
+        nd = sim.medium.nd[:, 0].double().cpu().numpy().reshape(n, n, n)
+        h = float(sim.grid.h[2])
+        tau_grid = float(nd[n // 2, n // 2, n // 2:].sum() * 1e-24 * h)
+        e_dir = abs(ratio - math.exp(-tau_grid))
+        require(e_dir <= 1e-3, f"direct/transparent {ratio} vs "
+                f"exp(-{tau_grid}) within 1e-3")
+        out["exp_minus_tau"] = math.exp(-tau_grid)
     require(sed["R"][0] < 0.01, f"SED relative error R {sed['R'][0]} < 0.01")
     with tempfile.TemporaryDirectory() as tmp:
         paths = sim.write_outputs(accs, "config1", tmp)
@@ -1207,16 +1259,9 @@ def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
     require(cube.shape == (1, 64, 64) and bool(np.isfinite(cube).all())
             and cube.max() > 0, "frame FITS finite and lit")
     require(bool(np.all(np.isfinite(sed_cols))), "SED file finite")
-    emit({"phase": phase, "grid": list(sim.grid.shape),
-          "tables": tables, "packets": sim.num_packets,
-          "batch": sim.batch_size, "packets_per_s": sim.last_rate,
-          "seconds": stats["seconds"], "events": stats["events"],
-          "launches": launches, "transparent_rel_err": e_tr,
-          "direct_over_transparent": ratio, "exp_minus_tau": math.exp(-tau_grid),
-          "R": float(sed["R"][0]), "scattered_over_transparent":
-          float(sed["primaryscattered"][0] / sed["transparent"][0]),
-          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
-    return sim, stats, launches
+    return dict(out, R=float(sed["R"][0]), scattered=float(
+        sed["primaryscattered"][0]), scattered_over_transparent=float(
+        sed["primaryscattered"][0] / sed["transparent"][0]))
 
 
 def host_per_event(torch, sim, run) -> dict:
@@ -4386,7 +4431,9 @@ def phase_full_width_b4(torch, smi: str):
     7 not; packets/s as bench.py counts them, packets x (1 + iterations +
     [L_dust > 0]); each segment's seconds and events; every gate of
     test_bench4_*; then the same gates at that test's own width (B4_TEST),
-    reported. Also the host set-up: the Voronoi build and the raster."""
+    reported. Also the host set-up: the Voronoi build and the raster.
+    Returns the launches and the run's SED, dust temperatures and rate,
+    which full_width_b4_walk sets beside the exact walk's."""
     from skirt9_tpu_torch.grids import voronoi
     from skirt9_tpu_torch.transport import raster
     t0 = time.perf_counter()
@@ -4413,6 +4460,10 @@ def phase_full_width_b4(torch, smi: str):
     n_pk = sim.num_packets
     packets = n_pk * (1 + info["iterations"] + int(info["L_dust"] > 0))
     gates = _b4_run_gates(torch, sim, rf, accs)
+    with tempfile.TemporaryDirectory() as tmp:
+        raster = {"sed": np.loadtxt(sim.write_outputs(accs, "b4", tmp)[0]),
+                  "T": sim.dust_temperature(rf)[:, 0],
+                  "packets_per_s": packets / dt}
     events = sum(seg[3] for seg in stats["segments"])
     tabs = sim._sweep_tabs
     small = config4("cuda", **B4_TEST)
@@ -4435,7 +4486,7 @@ def phase_full_width_b4(torch, smi: str):
                               **gates_test),
            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     emit(res)
-    return launches
+    return launches, raster
 
 
 def phase_breakdown_b4(torch) -> None:
@@ -4449,6 +4500,330 @@ def phase_breakdown_b4(torch) -> None:
     emit({"phase": "breakdown_b4", "packets": B_B4, **prof})
 
 
+# ------------------------------------------------------------- scan march
+
+MARCH = ("march_uniform", "march_mesh", "march_voronoi")
+# the sweeps' kernels, none of which a march path launches
+SWEEPS = RESIDENT + XL + ML + NOT_PATH
+# f32 operations per walked (step, lane) in csrc/march.cu: a Cartesian step
+# (the three exit distances, the least, the move, the neighbour index), and
+# per neighbour of a Voronoi step (the bisector's normal, midpoint, two dot
+# products and the division) plus its wall test and move
+OPS_MARCH = {"march_uniform": 36, "march_mesh": 33, "march_voronoi": 24}
+OPS_MARCH_WALL = 24
+# the reduced configurations of tests/test_torch_config_march.py: ski file,
+# edits, run sizes, dust emission
+MARCH_SMALL = {
+    "bench1_explicit_absorption": ("bench1", {
+        'numBins="32"': 'numBins="16"', 'forceScattering="true"':
+        'forceScattering="true" explicitAbsorption="true"'},
+        dict(num_packets=4096, batch_size=4096, max_events=8), False),
+    "bench1_sympow_mesh": ("bench1", {
+        '<LinMesh numBins="32"/>': '<SymPowMesh numBins="16" ratio="8"/>'},
+        dict(num_packets=4096, batch_size=4096, max_events=8), False),
+    "bench4_walk": ("bench4", {
+        'numWavelengths="25"': 'numWavelengths="4"'},
+        dict(num_packets=2048, batch_size=2048, max_events=3), True),
+    "bench2_explicit_absorption": ("bench2", {
+        'numBins="32"': 'numBins="8"', 'forceScattering="true"':
+        'forceScattering="true" explicitAbsorption="true"'},
+        dict(num_packets=4096, batch_size=4096, max_events=4), True),
+    "bench6_varying_T": ("bench6", {},
+                         dict(num_packets=2048, batch_size=2048,
+                              max_events=8), False),
+    "bench5_dust": ("bench5", {
+        '<ElectronMix includePolarization="true"/>':
+        '<MeanFileDustMix filename="mrn_mean.txt"/>',
+        'numBins="32"': 'numBins="8"'},
+        dict(num_packets=2048, batch_size=2048, max_events=6), False)}
+# CPU against card on them: the RF and the SEDs within 2e-5 of their
+# maxima, a one-bin SED within 1e-4 (the f32 sum of every detection into
+# one entry: the CPU's index_add_ in lane order strays ~1e-5 by itself at
+# 4,096 lanes, the card's atomics in another order, as `draw_for_draw`
+# holds config 1), after dust emission the secondary light by its sums;
+# bench6's Lyman-alpha light as config 6's (B6_BOUNDS: the rejection
+# sampler's tan and atan differ by an ulp between the devices)
+MARCH_BOUNDS = {"primary": 2e-5, "one_bin": 1e-4, "secondary_sum": 1e-3}
+
+
+def march_config(name, device, directory):
+    """One reduced march configuration through the port's load_ski, as the
+    CPU test builds it from the reference: no sweep tables (no bin-pure
+    strata), the Voronoi grid walked exactly, bench6's gas temperature
+    rising 1x to 2x over its occupied cells, bench2 with one
+    self-absorption iteration. Returns (sim, dust emission)."""
+    import dataclasses
+    import torch
+    from skirt9_tpu_torch.config.ski import load_ski
+    ski, edits, run, dust = MARCH_SMALL[name]
+    path = edited_ski(ski, directory, edits, out=name)
+    sim = load_ski(path, device=device, **run)
+    if ski == "bench4":
+        sim = dataclasses.replace(sim, options=dataclasses.replace(
+            sim.options, raster_fallback=False))
+    if ski == "bench6":
+        T = sim.medium.temperature.clone()
+        occ = sim.medium.nd[:, 0] > 0
+        T[occ] *= torch.linspace(1.0, 2.0, int(occ.sum()), device=T.device)
+        sim = dataclasses.replace(sim, medium=sim.medium._replace(
+            temperature=T))
+    if ski == "bench2":
+        sim.iterate_secondary, sim.max_iterations = True, 1
+    sim._sweep_tabs = None
+    return sim, dust
+
+
+def march_gaps(out_c, out_g, dust: bool) -> dict:
+    """CPU against card on a march configuration (MARCH_BOUNDS): each
+    primary SED kind and the RF within 2e-5 of its maximum (a one-bin SED
+    1e-4); after dust emission the secondary kinds by their sums within
+    1e-3."""
+    from skirt9_tpu_torch.instruments import distant as dinst
+    rel = lambda g, c: float((g.double().cpu() - c.double()).abs().max()
+                             / max(float(c.double().abs().max()), 1e-300))
+    acc_c, acc_g = out_c[1][0], out_g[1][0]
+    gaps = {}
+    if out_c[0] is not None:
+        gaps["rf"] = rel(out_g[0], out_c[0])
+        require(gaps["rf"] <= MARCH_BOUNDS["primary"],
+                f"march RF {gaps['rf']}")
+    secondary = (dinst.KIND_SECONDARY_DIRECT, dinst.KIND_SECONDARY_SCATTERED)
+    for k in range(acc_c["sed"].shape[0]):
+        c, g = acc_c["sed"][k], acc_g["sed"][k]
+        if dust and k in secondary:
+            e = abs(float(g.double().sum()) / max(float(c.double().sum()),
+                                                  1e-300) - 1.0)
+            gaps[f"sed{k}_sum"] = e
+            require(e <= MARCH_BOUNDS["secondary_sum"],
+                    f"march secondary SED {k} sum {e}")
+        elif float(c.abs().max()) > 0:
+            gaps[f"sed{k}"] = rel(g, c)
+            limit = MARCH_BOUNDS["primary" if c.numel() > 1 else "one_bin"]
+            require(gaps[f"sed{k}"] <= limit,
+                    f"march SED {k} {gaps[f'sed{k}']} <= {limit}")
+    return gaps
+
+
+def phase_draw_for_draw_march(torch) -> dict:
+    """MARCH_SMALL on the CPU (the plain march) and on the card (the march
+    kernel and detect launched, no sweep), the same seed: march_gaps, and
+    bench6 within B6_BOUNDS."""
+    res, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in MARCH_SMALL:
+            outs = {}
+            for device in ("cpu", "cuda"):
+                sim, dust = march_config(name, device, tmp)
+                mode = "march_" + {"UniformCartesianGrid": "uniform",
+                                   "CartesianGrid": "mesh",
+                                   "VoronoiGrid": "voronoi"}[
+                    type(sim.grid).__name__]
+                run = (lambda: sim.run_with_dust_emission(verbose=False)) \
+                    if dust else (lambda: sim.run_primary(verbose=False))
+                if device == "cuda":
+                    outs[device], n = drive((mode,) + DETECT, SWEEPS, run)
+                    launches[name] = {k: v for k, v in n.items() if v}
+                else:
+                    outs[device] = run()
+            if MARCH_SMALL[name][0] == "bench6":
+                res[name] = sed_gaps(outs["cpu"][1][0], outs["cuda"][1][0])
+                hold_gaps(name, res[name], B6_BOUNDS)
+            else:
+                res[name] = march_gaps(outs["cpu"], outs["cuda"], dust)
+            torch.cuda.empty_cache()
+    emit({"phase": "draw_for_draw_march", "bounds": MARCH_BOUNDS,
+          "configs": {k: dict(zip(("ski", "edits", "run", "dust"), v))
+                      for k, v in MARCH_SMALL.items()}, "gaps": res,
+          "launches": launches})
+    return launches
+
+
+def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
+    """The march kernel in one mode against its plain version on the same
+    CUDA tensors: cells on every (step, lane) pair (the lanes differing
+    counted, at most 1e-4 of them), each lane's summed length within 1e-6;
+    timed by CUDA events and the profiler, with the bound."""
+    from skirt9_tpu_torch.kernels import build as kb
+    from skirt9_tpu_torch.transport import march as mr
+    B = pos.shape[0]
+    kb.reset_launches()
+    ck, dk = mr._march_cuda(grid, pos, dirn, cell, S, mask)
+    require(kb.LAUNCHES[name] == 1, f"{name} launched once")
+    cp, dp = mr.march_geometry_plain(grid, pos, dirn, cell, S, mask)
+    lanes_off = int((ck != cp).any(dim=0).sum())
+    require(lanes_off <= 1e-4 * B, f"{name}: {lanes_off} lanes' cells differ")
+    sk, sp = dk.double().sum(dim=0), dp.double().sum(dim=0)
+    ds_err = float(((sk - sp).abs() / sp.abs().clamp_min(1e-300)).max())
+    require(ds_err <= 1e-6, f"{name}: summed lengths within 1e-6 ({ds_err})")
+    walked = int((dp > 0).sum())
+    require(walked > B, f"{name} walks ({walked} steps)")
+    kern = lambda: mr._march_cuda(grid, pos, dirn, cell, S, mask)
+    dev = device_ms(kern)
+    if name == "march_voronoi":
+        tables = 12 * grid.ncells + 4 * grid.neighbors.numel()
+    else:
+        tables = 4 * (sum(grid.shape) + 3) if name == "march_mesh" else 24
+    nbytes = S * B * 8 + B * (12 + 12 + 4 + 1) + tables
+    per_step = OPS_MARCH[name] * (grid.neighbors.shape[1]
+                                  if name == "march_voronoi" else 1)
+    if name == "march_voronoi":
+        per_step += OPS_MARCH_WALL
+    plain_ms = cuda_ms(lambda: mr.march_geometry_plain(grid, pos, dirn, cell,
+                                                       S, mask), reps=2)
+    return dict(max_abs_err=float((dk - dp).abs().max()),
+                ds_sum_rel_err=ds_err,
+                lanes_cells_differ=lanes_off, lanes=B, steps=S,
+                walked_pairs=walked, live_share=walked / (S * B),
+                ms=cuda_ms(kern), device_ms=dev["ours"] or None,
+                profiler_dropped=dev["ours"] == 0,
+                device_launches=dev["launches"], plain_ms=plain_ms,
+                library_ms=None, **bound(nbytes, walked * per_step))
+
+
+def phase_kernels_march(torch) -> dict:
+    """The march kernel's three modes against their plain versions at the
+    main paths' shapes (_march_check)."""
+    import dataclasses
+    from skirt9_tpu_torch.grids import meshes
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.sources import base as src
+    out = {}
+    sim = config4("cuda")
+    sim = dataclasses.replace(sim, options=dataclasses.replace(
+        sim.options, raster_fallback=False))
+    require(sim._sweep_tabs is None, "bench4 without its raster")
+    dev = sim.device
+    pkt = src.launch_batch(sim.sources[0], sim._src_tabs[0], sim.grid,
+                           rng.seed_key(sim.seed, dev),
+                           torch.arange(B_B4, device=dev), sim.num_packets)
+    S = sim.options.max_steps
+    require(S == 76, f"bench4's march takes 76 steps ({S})")
+    out["march_voronoi"] = _march_check(torch, "march_voronoi", sim.grid,
+                                        pkt.pos, pkt.dir, pkt.cell, S,
+                                        pkt.alive)
+    del sim, pkt
+    rs = np.random.default_rng(21)
+    sym = meshes.scale(meshes.sym_pow_mesh(32, 8.0), -1.2 * PC, 1.2 * PC)
+    for name, meshed in (("march_uniform", None), ("march_mesh", [sym] * 3)):
+        sim = config1("cuda", meshes=meshed)
+        pos, dirn, _, inside = sphere_rays(torch, sim, rs, B_FULL)
+        S = sim.options.max_steps
+        require(S == 99, f"config 1's march takes 99 steps ({S})")
+        out[name] = _march_check(torch, name, sim.grid, pos, dirn,
+                                 sim.grid.locate(pos), S, inside)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_march", **out})
+    return out
+
+
+def phase_full_width_b4_walk(torch, smi: str, raster: dict) -> dict:
+    """bench4.ski at bench_config4's width with raster_fallback off (the
+    exact Voronoi walk, no sweep tables), a warm-up run and a timed run:
+    march_voronoi and detect launched, kernels 4-5 and the other sweeps
+    not; every bench4 gate strict; packets/s as bench.py counts them; one
+    batch per segment profiled (host_per_event); the SED's total column
+    and the per-cell dust temperature beside the raster run's (raster:
+    full_width_b4's), the raster's chord error, stated and not gated."""
+    sim = _walk_sim()
+    sim.run_with_dust_emission(verbose=False)            # warm-up
+    t0 = time.perf_counter()
+    (rf, accs, info), launches = drive(
+        ("march_voronoi",) + DETECT, SWEEPS + ("march_uniform", "march_mesh"),
+        lambda: sim.run_with_dust_emission(verbose=False))
+    dt = time.perf_counter() - t0
+    stats = dict(sim.last_stats)
+    packets = sim.num_packets * (1 + info["iterations"]
+                                 + int(info["L_dust"] > 0))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = sim.write_outputs(accs, "b4", tmp)
+        sed = np.loadtxt(paths[0])
+    T = sim.dust_temperature(rf)[:, 0]
+    gates = _b4_run_gates(torch, sim, rf, accs)
+    events = sum(seg[3] for seg in stats["segments"])
+    prof = host_per_event(torch, _walk_sim(num_packets=B_B4),
+                          lambda s: s.run_with_dust_emission(verbose=False))
+    lit = raster["sed"][:, 1] > 0.05 * raster["sed"][:, 1].max()
+    sed_ratio = sed[lit, 1] / raster["sed"][lit, 1]
+    dusty = sim.medium.nd[:, 0].cpu().numpy() > 0
+    t_ratio = T[dusty] / np.maximum(raster["T"][dusty], 1e-30)
+    res = {"phase": "full_width_b4_walk", "cells": sim.grid.ncells,
+           "max_steps": sim.options.max_steps, "packets": sim.num_packets,
+           "batch": sim.batch_size, "rf_bins": rf.shape[1],
+           "packets_per_s": packets / dt, "seconds": dt,
+           "iterations": info["iterations"], "L_dust": info["L_dust"],
+           "segments": [{"name": n, "packets": p, "seconds": t, "events": e}
+                        for n, p, t, e in stats["segments"]],
+           "events": events, "launches": {k: v for k, v in launches.items()
+                                          if v},
+           **gates, "breakdown": prof,
+           "walk_vs_raster": {
+               "sed_total_ratio_median": float(np.median(sed_ratio)),
+               "sed_total_ratio_p5_p95": [float(q) for q in np.quantile(
+                   sed_ratio, [0.05, 0.95])],
+               "dusty_cells": int(dusty.sum()),
+               "T_ratio_median": float(np.median(t_ratio)),
+               "T_ratio_p5_p95": [float(q) for q in np.quantile(
+                   t_ratio, [0.05, 0.95])],
+               "T_share_within_5pc": float((np.abs(t_ratio - 1) < 0.05)
+                                           .mean()),
+               # cells the raster leaves without deposits: no voxel
+               # centre falls in them
+               "cells_raster_cold": int((t_ratio > 2.0).sum()),
+               "raster_packets_per_s": raster["packets_per_s"]},
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit(res)
+    return launches
+
+
+def _walk_sim(**kw):
+    """config4 with raster_fallback off: no sweep tables, the exact walk."""
+    import dataclasses
+    sim = config4("cuda", **kw)
+    sim = dataclasses.replace(sim, options=dataclasses.replace(
+        sim.options, raster_fallback=False))
+    require(sim._sweep_tabs is None, "bench4 walked exactly")
+    return sim
+
+
+def phase_full_width_b1_march(torch, smi: str, sweep: dict) -> dict:
+    """Config 1 at 2^20 packets in batches of 2^17 on the scan march, each
+    timed after a warm-up: with explicit absorption on its 32^3 grid
+    (march_uniform; config1_gates), and on a 32^3 SymPowMesh grid
+    (march_mesh; the transparent SED exact, R < 0.01, the scattered SED
+    within 2% of full_width's sweep run, sweep: its gates and rate)."""
+    from skirt9_tpu_torch.grids import meshes
+    sym = meshes.scale(meshes.sym_pow_mesh(32, 8.0), -1.2 * PC, 1.2 * PC)
+    res = {"phase": "full_width_b1_march",
+           "sweep_packets_per_s": sweep["packets_per_s"]}
+    launches = {}
+    for name, mode, kw in (
+            ("explicit_absorption", "march_uniform",
+             dict(explicit_absorption=True)),
+            ("sympow_mesh", "march_mesh", dict(meshes=[sym] * 3))):
+        sim = config1("cuda", **kw)
+        require(sim._sweep_tabs is None or "meshes" not in kw,
+                "the meshed grid has no sweep tables")
+        sim.run_primary(verbose=False)                  # warm-up
+        (rf, accs), n = drive((mode,) + DETECT,
+                              SWEEPS + tuple(m for m in MARCH if m != mode),
+                              lambda: sim.run_primary(verbose=False))
+        gates = config1_gates(sim, accs, direct="meshes" not in kw)
+        if "meshes" in kw:
+            e = abs(gates["scattered"] / sweep["scattered"] - 1.0)
+            require(e <= 0.02, f"meshed scattered SED within 2% of the "
+                    f"sweep run's ({e})")
+            gates["scattered_vs_sweep"] = e
+        res[name] = {"packets_per_s": sim.last_rate,
+                     "seconds": sim.last_stats["seconds"],
+                     "events": sim.last_stats["events"],
+                     "launches": {k: v for k, v in n.items() if v}, **gates}
+        launches[mode] = n
+        del sim
+        torch.cuda.empty_cache()
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
+    return launches
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -4459,6 +4834,8 @@ def main() -> int:
         return 2
     smi = phase_env(torch)
     phase_build()
+    # the march kernel's device times first, while the profiler is fresh
+    kern_march = phase_kernels_march(torch)
     kern = phase_kernels(torch)
     kern.update(phase_kernels_xl(torch))
     torch.cuda.empty_cache()
@@ -4468,6 +4845,8 @@ def main() -> int:
     phase_draw_for_draw(torch)
     phase_draw_for_draw(torch, "draw_for_draw_xl", n=80, tables="XLTables")
     sim, stats, launches = phase_full_width(torch, smi)
+    sweep_b1 = {"scattered": stats["gates"]["scattered"],
+                "packets_per_s": sim.last_rate}
     phase_breakdown(torch, sim, stats)
     del sim
     _, _, launches_xl = phase_full_width(
@@ -4542,8 +4921,15 @@ def main() -> int:
     kern_b4 = phase_kernels_b4(torch)
     torch.cuda.empty_cache()
     phase_draw_for_draw_b4(torch)
-    launches_b4 = phase_full_width_b4(torch, smi)
+    launches_b4, raster_b4 = phase_full_width_b4(torch, smi)
     phase_breakdown_b4(torch)
+    torch.cuda.empty_cache()
+    # the scan march
+    phase_draw_for_draw_march(torch)
+    torch.cuda.empty_cache()
+    launches_walk = phase_full_width_b4_walk(torch, smi, raster_b4)
+    torch.cuda.empty_cache()
+    launches_b1_march = phase_full_width_b1_march(torch, smi, sweep_b1)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -4738,6 +5124,25 @@ def main() -> int:
                          "launches", "max_abs_err", "ms", "plain_ms",
                          "bound_ms", "bound_by", "library_ms", "device_ms",
                          "library_device_ms", "floor_ms", "variants") if key in k}})
+    # the scan march: not a TPU kernel (an XLA scan in the reference); its
+    # launches on the walk (Voronoi) and on config 1's march paths
+    for name, path, counts in (
+            ("march_voronoi", "full_width_b4_walk", launches_walk),
+            ("march_uniform", "full_width_b1_march",
+             launches_b1_march["march_uniform"]),
+            ("march_mesh", "full_width_b1_march",
+             launches_b1_march["march_mesh"])):
+        k = kern_march[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "skirt9_tpu_torch/csrc/march.cu",
+                     "replaces": "skirt9_tpu/transport/lifecycle.py:132 "
+                     "(march_geometry, an XLA scan: not a TPU kernel)",
+                     "path": path, "launches": counts[name],
+                     **{key: k[key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "device_ms",
+                         "profiler_dropped", "lanes_cells_differ",
+                         "ds_sum_rel_err", "live_share")}})
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

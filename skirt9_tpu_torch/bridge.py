@@ -1,16 +1,19 @@
 """Convert a reference `skirt9_tpu.simulation.Simulation` into port objects.
 
 Used by the tests to run one configuration through both packages, on
-uniform grids, on the trees the reference's loader builds and on Voronoi
-grids with imported star particles. The reference's arrays are read with
-`np.asarray`, and its classes are matched by name, so this module never
-imports jax or the reference's jax modules. Anything the port does not run
-yet raises NotImplementedError. Where the reference runs the large-grid
-(XL) engine (its `_sweep_tabs`, also a tree on its voxel raster), the
-port's Simulation gets its own XL tables of the same kind, the cell map
-equal to the reference's; where it rasterizes a Voronoi grid, the port's
-own raster at the reference's resolution, its leaf map equal to the
-reference's owner map.
+uniform and meshed Cartesian grids, on the trees the reference's loader
+builds and on Voronoi grids with imported star particles. The reference's
+arrays are read with `np.asarray`, and its classes are matched by name, so
+this module never imports jax or the reference's jax modules. Anything the
+port does not run yet raises NotImplementedError. Where the reference runs
+the large-grid (XL) engine (its `_sweep_tabs`, also a tree on its voxel
+raster), the port's Simulation gets its own XL tables of the same kind, the
+cell map equal to the reference's; where it rasterizes a Voronoi grid, the
+port's own raster at the reference's resolution, its leaf map equal to the
+reference's owner map. With `simulation(..., march=True)` the port has no
+sweep tables where the reference has none, which on the CPU is every
+configuration (the reference sweeps only on its accelerator): both run the
+scan march.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from .grids.bintree import BinTreeGrid
-from .grids.cartesian import UniformCartesianGrid
+from .grids.cartesian import CartesianGrid, UniformCartesianGrid
 from .grids.octree import OctreeGrid
 from .grids.voronoi import VoronoiGrid
 from .imports.snapshots import FamilyParticleSource, ParticleSnapshot
@@ -74,6 +77,9 @@ def grid(ref_grid):
             f: int(getattr(ref_grid, f)) if f == "walk_steps" else
             torch.tensor(np.asarray(getattr(ref_grid, f)))
             for f in VoronoiGrid._fields})
+    if name == "CartesianGrid":
+        return CartesianGrid(*(_f32(b) for b in (ref_grid.xb, ref_grid.yb,
+                                                 ref_grid.zb)))
     _kind(ref_grid, "UniformCartesianGrid")
     return UniformCartesianGrid(
         lo=_f32(ref_grid.lo), hi=_f32(ref_grid.hi), inv_h=_f32(ref_grid.inv_h),
@@ -172,8 +178,12 @@ _EMISSION = ("ems_borders", "spatial_bias", "iterate_secondary",
              "cell_library", "cmb_temperature", "checkpoint_path")
 
 
-def simulation(ref_sim, device) -> Simulation:
-    """The port's Simulation of a reference Simulation, on `device`."""
+def simulation(ref_sim, device, march: bool = False) -> Simulation:
+    """The port's Simulation of a reference Simulation, on `device`. march:
+    leave the port's `_sweep_tabs` None where the reference's is None, so
+    that the port runs the scan march where the reference does (by
+    default the port keeps its own engine choice, without the reference's
+    backend test)."""
     active = [k for k, v in _INACTIVE.items()
               if getattr(ref_sim, k, v) not in (v, None)]
     if "dynamic_recipes" in active:
@@ -202,7 +212,9 @@ def simulation(ref_sim, device) -> Simulation:
         device=device,
         **{k: getattr(ref_sim, k) for k in _EMISSION})
     ref_tabs = getattr(ref_sim, "_sweep_tabs", None)
-    if type(ref_tabs).__name__ == "XLTables":
+    if march and ref_tabs is None:
+        sim._sweep_tabs = None
+    elif type(ref_tabs).__name__ == "XLTables":
         _xl_tables(sim, ref_tabs)
     elif isinstance(sim.grid, VoronoiGrid) and ref_tabs is not None:
         _raster_tables(sim, ref_tabs)

@@ -12,8 +12,11 @@ scattering), neutral-hydrogen Lyman-alpha (`LyaExtinctionOnly` with its
 entity number or number column, moving media (a vector field times a
 velocity magnitude, sampled at the cell centres), an imported Voronoi mesh
 medium (`VoronoiMeshMedium`, one density per site) on its own
-`VoronoiMeshSpatialGrid` (policy ImportedMesh), uniform Cartesian grids
-(linear meshes) and density-policy octrees and bintrees
+`VoronoiMeshSpatialGrid` (policy ImportedMesh), Cartesian grids (linear
+meshes, or any of the reference's meshes: power-law, symmetric power-law,
+logarithmic, symmetric logarithmic, symmetric cosine, tabulated, list and
+file meshes, which the scan march walks) and density-policy octrees and
+bintrees
 (`PolicyTreeSpatialGrid` with a `DensityTreePolicy`), full and SED
 instruments (with polarization) on logarithmic or linear wavelength grids,
 equilibrium dust emission over all cells with the iteration options, and
@@ -42,6 +45,7 @@ import torch
 from ..geometries import analytic as ga
 from ..geometries import vectorfield as vf
 from ..grids import bintree, octree
+from ..grids import meshes as msh
 from ..grids.cartesian import make_cartesian
 from ..grids.voronoi import build_voronoi
 from ..imports import snapshots as snap
@@ -81,7 +85,9 @@ ITEMS = frozenset((
     "CylindricalVectorField", "HollowRadialVectorField",
     "HubbleRadialVectorField", "UnidirectionalVectorField",
     "RotateVectorFieldDecorator", "OffsetVectorFieldDecorator",
-    "CartesianSpatialGrid", "LinMesh", "VoronoiMeshMedium",
+    "CartesianSpatialGrid", "LinMesh", "PowMesh", "SymPowMesh", "LogMesh",
+    "SymLogMesh", "SymCosMesh", "TabulatedMesh", "ListMesh", "FileMesh",
+    "VoronoiMeshMedium",
     "VoronoiMeshSpatialGrid",
     "PolicyTreeSpatialGrid", "DensityTreePolicy", "IterationOptions",
     "InstrumentSystem", "FullInstrument", "SEDInstrument",
@@ -424,9 +430,12 @@ def _extent(a) -> tuple:
                  for x in "XYZ")
 
 
-def build_grid(el, geometry):
-    """A CartesianSpatialGrid with LinMesh meshes (32 bins where one is
-    absent), or a PolicyTreeSpatialGrid: an octree or a bintree refined by
+def build_grid(el, geometry, base_dir: str = "."):
+    """A CartesianSpatialGrid (32 linear bins where a mesh is absent; a
+    `CartesianGrid` with the reference's borders, `grids.meshes.from_ski`,
+    where any mesh is not a LinMesh, as the reference's
+    `skirt9_tpu/config/ski.py:1274-1300` builds it), or a
+    PolicyTreeSpatialGrid: an octree or a bintree refined by
     the DensityTreePolicy on the first medium's normalised density (the
     reference's non-nested branch, `skirt9_tpu/config/ski.py:1302-1316,
     2005-2049`). Tree levels in the ski file count octree levels, so a
@@ -450,11 +459,16 @@ def build_grid(el, geometry):
                        max_level=int(pa.get("maxLevel", 6)) * mul,
                        min_level=int(pa.get("minLevel", 2)) * mul,
                        max_fraction=max(frac or 1e-4, 1e-4))
-    ns = []
-    for mesh_name in ("meshX", "meshY", "meshZ"):
+    ext = _extent(a)
+    ns, borders = [], []
+    for ax, mesh_name in enumerate(("meshX", "meshY", "meshZ")):
         m = _child(el, mesh_name)
         ns.append(32 if m is None else int(m.attrib.get("numBins", 32)))
-    return make_cartesian(_extent(a), tuple(ns))
+        borders.append(None if m is None or m.tag == "LinMesh" else msh.scale(
+            msh.from_ski(m, base_dir, default_bins=32), *ext[ax]))
+    if any(b is not None for b in borders):
+        return make_cartesian(ext, tuple(ns), meshes=borders)
+    return make_cartesian(ext, tuple(ns))
 
 
 def build_wavelength_grid(el) -> np.ndarray:
@@ -594,7 +608,7 @@ def load_ski(path: str, num_packets: int | None = None,
                                build_mix(_child(m_el, "materialMix"),
                                          base_dir),
                                build_medium_normalization(m_el)))
-        grid = build_grid(grid_el, components[0][0])
+        grid = build_grid(grid_el, components[0][0], base_dir)
         medium = gm.build_medium(grid, components)
     if velocity_fields:
         medium = medium._replace(bulk_v=torch.tensor(bulk_velocities(

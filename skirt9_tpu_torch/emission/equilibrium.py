@@ -24,6 +24,7 @@ import torch
 
 from ..media.system import MediumTables
 from ..ops import planck, sampling
+from ..ops import xlamath as xm
 
 
 class EmissionTables(NamedTuple):
@@ -123,10 +124,13 @@ def cell_emission_spectra(med: MediumTables, tabs: EmissionTables,
 def emission_state_device(med: MediumTables, tabs: EmissionTables, rf,
                           volumes, rf_scale: float, p_cmb=None):
     """Per-cell emission state on the device: (L_cell [W], T [K], eps);
-    only the (ncells,) luminosities leave it, for the launch cdf."""
-    a = rf @ tabs.sigma_abs_rf.T                # (ncells, H), rf_scale units
+    only the (ncells,) luminosities leave it, for the launch cdf. Subnormal
+    absorption terms flush to zero as in the reference's XLA arithmetic: a
+    cell that a sparse RF barely touches then emits nothing there too, and
+    the launch cdf's count of emitting cells (its uniform share) agrees."""
+    a = xm.ftz(xm.ftz(rf) @ tabs.sigma_abs_rf.T)  # (ncells, H), rf_scale units
     half = float(np.float32(np.sqrt(rf_scale)))
-    L_cell = (torch.sum(a * med.nd, dim=1) * half) * half       # [W]
+    L_cell = (xm.ftz(torch.sum(xm.ftz(a * med.nd), dim=1)) * half) * half
     # temperatures in logs: volumes (~1e47 m^3) and rf_scale leave f32
     log_v = torch.tensor(np.log(np.asarray(volumes, np.float64)),
                          dtype=torch.float32, device=rf.device)

@@ -10,11 +10,12 @@ halfspace intersection for wall cells), with a Monte-Carlo estimate for a
 degenerate cell.
 
 The port's transport rasterizes the cells (`transport/raster.py`) as the
-reference's accelerator run does, so the grid serves the launch
-(`move_inside`), the probes and the secondary source's cell boxes. The
-exact bisector walk (`step`), Lloyd relaxation (`lloyd_relax`) and
-density-sampled sites (`density_sites`) belong to the scan march and the
-other site policies, which are not ported yet.
+reference's accelerator run does; where the raster declines the grid (its
+`raster_fallback` off, kinematics, Lya, Compton, X-ray, explicit
+absorption, more than 4 components) the scan march walks the cells exactly
+through `step`, the reference's bisector walk (`voronoi.py:77-110`). Lloyd
+relaxation (`lloyd_relax`) and density-sampled sites (`density_sites`)
+belong to the other site policies, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +25,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import xlamath as xm
+
 _BIG = 3e38
+
+
+def _dot3(a, b):
+    """Dot products over the last axis of size 3 as XLA's CPU reduction
+    forms them: each product fused into the running sum."""
+    return xm.fma(a[..., 2], b[..., 2],
+                  xm.fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 class VoronoiGrid(NamedTuple):
@@ -71,6 +81,40 @@ class VoronoiGrid(NamedTuple):
             d2 = torch.where(cand >= 0, d2, torch.full_like(d2, _BIG))
             cell = cand.gather(1, torch.argmin(d2, dim=-1)[:, None])[:, 0]
         return torch.where(inside, cell, torch.full_like(cell, -1))
+
+    def step(self, pos: torch.Tensor, dirn: torch.Tensor, cell: torch.Tensor):
+        """One step of the exact walk (the reference's `voronoi.py:77-110`):
+        the nearest positive crossing of a bisector plane between the cell's
+        site and a neighbour's (over the -1-padded neighbour list), or the
+        domain wall if that comes first (next cell -1); the position moves
+        on by ds * (1 + 1e-6), off the plane. Returns (ds, next cell, next
+        position); a lane outside (cell < 0) stays there with ds 0."""
+        c = torch.clamp_min(cell, 0)
+        si = self.sites[c]                                   # (B, 3)
+        nb = self.neighbors[c].to(torch.int64)               # (B, D)
+        sj = self.sites[torch.clamp_min(nb, 0)]              # (B, D, 3)
+        n = sj - si[:, None, :]
+        m = 0.5 * (sj + si[:, None, :])
+        dn = _dot3(dirn[:, None, :], n)
+        t = _dot3(m - pos[:, None, :], n) / torch.where(
+            torch.abs(dn) < 1e-30, torch.ones_like(dn), dn)
+        t = torch.where((nb >= 0) & (dn > 0) & (t > 0), t,
+                        torch.full_like(t, _BIG))
+        t_nb, j_nb = torch.min(t, dim=-1)
+        tiny = torch.abs(dirn) < 1e-30
+        tgt = torch.where(dirn > 0, self.box_hi, self.box_lo)
+        t_ax = torch.clamp_min((tgt - pos) / torch.where(
+            tiny, torch.ones_like(dirn), dirn), 0.0)
+        t_wall = torch.amin(torch.where(tiny, torch.full_like(dirn, _BIG),
+                                        t_ax), dim=-1)
+        ds = torch.minimum(t_nb, t_wall)
+        nxt = torch.where(t_wall <= t_nb, -1,
+                          nb.gather(1, j_nb[:, None])[:, 0])
+        newpos = xm.fma((ds * xm.f32(1.0 + 1e-6))[:, None], dirn, pos)
+        out = cell < 0
+        return (torch.where(out, torch.zeros_like(ds), ds),
+                torch.where(out, -1, nxt),
+                torch.where(out[:, None], pos, newpos))
 
     def move_inside(self, pos: torch.Tensor, dirn: torch.Tensor):
         """Advance packets launched outside the box to its surface (the

@@ -44,6 +44,8 @@ KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            "sweepxl_dtau", "sweepxl_tau_total", "sweepxl_dtau_prefix",
            "sweepxl_deposit", "sweepxl_deposit_prefix", "mlsweep_dtau",
            "mlsweep_tau_total", "mlsweep_dtau_prefix", "mlsweep_deposit",
+           # the scan march (csrc/march.cu), one counter per grid mode
+           "march_uniform", "march_mesh", "march_voronoi",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -87,6 +89,9 @@ _SIGNATURES = {
     # step_gs, bin_map, rf, first_hit, B, nx, ny, nz, n_steps, ncells,
     # n_groups, rows, shared, lox, loy, loz, hx, hy, hz, inv2, stream
     "mlsweep_deposit_launch": [_P] * 15 + [_I] * 9 + [_F] * 7 + [_P],
+    # pos, dir, cell0, mask, three tables, the six grid constants, cells,
+    # ds, B, S, n0, n1, n2, degree, mode, stream
+    "march_launch": [_P] * 10 + [_I] * 7 + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

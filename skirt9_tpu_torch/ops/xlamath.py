@@ -164,3 +164,37 @@ def exp_xla(x: torch.Tensor) -> torch.Tensor:
     out = y * scale
     # XLA flushes subnormal results to zero
     return torch.where(out < _TINY, torch.zeros_like(out), out)
+
+
+def _running_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The f32 running sum along dim, one addition after another."""
+    out = x.clone()
+    a, b = out.movedim(dim, 0), x.movedim(dim, 0)
+    for k in range(1, a.shape[0]):
+        a[k] = a[k - 1] + b[k]
+    return out
+
+
+def cumsum(x: torch.Tensor, tile: int = 16) -> torch.Tensor:
+    """XLA's CPU f32 cumsum over dim 0: a running sum inside tiles of 16
+    steps, the tiles' totals summed the same way (recursively), and each
+    tile's running sum plus the total before it. (PyTorch's CPU cumsum
+    accumulates in f64, and XLA's order is not one running sum, so the two
+    differ in the last bit, which decides the step of a crossing.)"""
+    S = x.shape[0]
+    if S <= tile:
+        return _running_sum(x, 0)
+    nt = -(-S // tile)
+    pad = x.new_zeros((nt * tile - S,) + tuple(x.shape[1:]))
+    inner = _running_sum(torch.cat([x, pad]).reshape(
+        (nt, tile) + tuple(x.shape[1:])), 1)
+    outer = cumsum(inner[:, -1], tile)
+    before = torch.cat([torch.zeros_like(outer[:1]), outer[:-1]])
+    return (inner + before[:, None]).reshape(
+        (nt * tile,) + tuple(x.shape[1:]))[:S]
+
+
+def ftz(t: torch.Tensor) -> torch.Tensor:
+    """t with its subnormal f32 values flushed to zero, as XLA's CPU code
+    flushes subnormal inputs and results (PyTorch keeps them)."""
+    return torch.where(t.abs() < _TINY, torch.zeros_like(t), t)

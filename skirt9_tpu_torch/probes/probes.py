@@ -22,9 +22,11 @@ from ..utils import fits as fitsio
 # -------------------------------------------------------------------- forms
 
 def _device(grid):
-    """The device of a grid's tables: a uniform grid's, a tree's or a
+    """The device of a grid's tables: a Cartesian grid's, a tree's or a
     Voronoi grid's."""
-    return grid.box_lo.device if hasattr(grid, "box_lo") else grid.lo.device
+    if hasattr(grid, "box_lo"):
+        return grid.box_lo.device
+    return grid.lo.device if hasattr(grid, "lo") else grid.xb.device
 
 
 def per_cell_form(path: str, grid, quantities: dict[str, np.ndarray],

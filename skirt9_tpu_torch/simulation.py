@@ -1,18 +1,18 @@
 """Monte Carlo simulation orchestrator on PyTorch tensors.
 
-Port of `skirt9_tpu/simulation.py` on one device, on uniform Cartesian
-grids, octrees and bintrees, and Voronoi grids rasterized onto a voxel grid
-(with the wavelength-changing Compton, Lya and
-X-ray physics on uniform grids): `run_primary` launches each source's history
-range in batches through `transport.lifecycle.life_cycle` and accumulates
-the radiation field and instrument records on the device;
-`run_with_dust_emission` adds equilibrium dust emission (the optional
-self-absorption iterations, then a secondary segment with peel-off), and
-`run_merged_iterations` its merged form (each iteration relaunches the
-primary packets beside the secondary ones, `include_primary`);
-`write_outputs` calibrates and writes the SED text files and frame FITS
-cubes in the reference's format, in the ski file's unit system where the
-loader set one.
+Port of `skirt9_tpu/simulation.py` on one device, on uniform and meshed
+Cartesian grids, octrees and bintrees, and Voronoi grids, rasterized onto a
+voxel grid or walked exactly by the scan march (with the
+wavelength-changing Compton, Lya and X-ray physics): `run_primary` launches
+each source's history range in batches through
+`transport.lifecycle.life_cycle` and accumulates the radiation field and
+instrument records on the device; `run_with_dust_emission` adds equilibrium
+dust emission (the optional self-absorption iterations, then a secondary
+segment with peel-off), and `run_merged_iterations` its merged form (each
+iteration relaunches the primary packets beside the secondary ones,
+`include_primary`); `write_outputs` calibrates and writes the SED text
+files and frame FITS cubes in the reference's format, in the ski file's
+unit system where the loader set one.
 
 With `refill_events` > 0 a segment runs in lane-refill generations
 (`_run_segment_refilled`): each runs that many events on the resident
@@ -42,7 +42,7 @@ import torch
 from . import device as dv
 from .emission import equilibrium as eq
 from .grids.bintree import BinTreeGrid
-from .grids.cartesian import UniformCartesianGrid
+from .grids.cartesian import CartesianGrid, UniformCartesianGrid
 from .grids.octree import OctreeGrid
 from .grids.voronoi import VoronoiGrid
 from .instruments import distant as dinst
@@ -60,14 +60,16 @@ from .utils.guards import check_finite
 from .utils.log import default as _log
 from .utils.unitsystem import UnitSystem
 
-_GRIDS = (UniformCartesianGrid, OctreeGrid, BinTreeGrid, VoronoiGrid)
+_GRIDS = (UniformCartesianGrid, CartesianGrid, OctreeGrid, BinTreeGrid,
+          VoronoiGrid)
 
 
 @dataclasses.dataclass
 class Simulation:
     """A configured simulation: grid + medium + sources + instruments."""
 
-    grid: UniformCartesianGrid | OctreeGrid | BinTreeGrid | VoronoiGrid
+    grid: (UniformCartesianGrid | CartesianGrid | OctreeGrid | BinTreeGrid
+           | VoronoiGrid)
     medium: msys.MediumTables
     sources: list
     instruments: list           # list[DistantInstrumentCfg]
@@ -111,8 +113,8 @@ class Simulation:
         lc.check_supported(self.options)
         if not isinstance(self.grid, _GRIDS):
             raise NotImplementedError(
-                f"grid {type(self.grid).__name__} not ported yet (uniform "
-                "Cartesian grids, octrees, bintrees and Voronoi grids only)")
+                f"grid {type(self.grid).__name__} not ported yet (Cartesian "
+                "grids, octrees, bintrees and Voronoi grids only)")
         if self.dust_emission_type != "Equilibrium":
             raise NotImplementedError(f"{self.dust_emission_type} dust "
                                       "emission not ported yet (Equilibrium)")
@@ -135,11 +137,9 @@ class Simulation:
             torch.tensor(np.asarray(self.rf_borders, np.float32), device=dev)
             if self.rf_borders is not None else None)
         self._sweep_tabs = self._engine_tables()
-        lc.check_engine(self.options, self._sweep_tabs)
-        rf_nbins = (len(self.rf_borders) - 1 if self.options.store_rf
-                    and self.rf_borders is not None else 0)
-        lc.check_kinematics(self.medium, self.options, rf_nbins)
-        lc.check_wavelength_changing(self.medium, self.options, rf_nbins)
+        if isinstance(self._sweep_tabs, ml.MLTables):
+            # a tree's sweep has no march to fall back to
+            lc.check_engine(self.options, self._sweep_tabs)
         if self.mueller is not None:
             self.mueller = self.mueller.to(dev)
         if self.xray_tabs is not None:
@@ -158,31 +158,31 @@ class Simulation:
     # -------------------------------------------------------------- internals
 
     def _engine_tables(self):
-        """The reference's engine choice (`skirt9_tpu/simulation.py:194-217`)
+        """The reference's engine choice (`skirt9_tpu/simulation.py:194-225`)
         without its backend tests: the resident sweep while it supports the
         grid, then the multi-level sweep for trees, then Voronoi grids
         rasterized onto the multi-level sweep, then trees on their voxel
         raster through the large-grid (XL) contracts, then uniform XL
-        grids. A tree gets its fine leaf map (on the voxel raster: the
-        tables' cell map, the same array) attached, so that launch-time
-        `locate` is one gather (`:199-202`); a Voronoi grid keeps its own
-        locate, as in the reference (`:203-206`)."""
+        grids; None, the scan march, where none takes the grid (meshed
+        Cartesian grids, uniform grids past the sweeps, Voronoi grids the
+        raster declines: the exact walk). A tree gets its fine leaf map (on
+        the voxel raster: the tables' cell map, the same array) attached, so
+        that launch-time `locate` is one gather (`:199-202`); a Voronoi grid
+        keeps its own locate, as in the reference (`:203-206`). Trees that
+        no sweep takes raise: their march steps are not ported."""
         if sw.supports_sweep(self.grid, self.medium):
             return sw.build_tables(self.grid, self.medium)
         if self.options.kinematics and isinstance(self.grid, (OctreeGrid,
                                                               BinTreeGrid)):
             raise NotImplementedError(
                 f"kinematics on a {type(self.grid).__name__} not ported yet "
-                "(the resident sweep)")
+                "(the resident sweep, the scan march)")
         if isinstance(self.grid, VoronoiGrid):
             if raster.supports(self.grid, self.medium, self.options):
                 return raster.build_tables(self.grid, self.medium)
-            raise NotImplementedError(
-                f"no transport engine for this VoronoiGrid ({self.grid.ncells}"
-                f" cells, {self.medium.ncomp} components): the rasterized "
-                "sweep takes <= 4 components and none of kinematics, Lya, "
-                "Compton, X-ray or explicit absorption; the scan march "
-                "(the exact bisector walk) is not ported yet")
+            _log().info(f"transport: VoronoiGrid ({self.grid.ncells} cells) "
+                        "walked exactly by the scan march")
+            return None
         tabs = None
         if ml.supports(self.grid, self.medium, self.options):
             tabs = ml.build_tables(self.grid, self.medium)
@@ -199,22 +199,27 @@ class Simulation:
                 self.grid = self.grid._replace(leafmap=leafmap, fine_n=tabs.n)
             return tabs
         if isinstance(self.grid, (OctreeGrid, BinTreeGrid)):
+            on = [name for name in ("kinematics", "lya", "compton", "xray",
+                                    "explicit_absorption")
+                  if getattr(self.options, name)]
             raise NotImplementedError(
                 f"no transport engine for this {type(self.grid).__name__} "
-                f"({self.grid.ncells} leaves, {self.medium.ncomp} components):"
-                " the multi-level sweep takes power-of-two trees with fine "
+                f"({self.grid.ncells} leaves, {self.medium.ncomp} components"
+                f"{', options ' + ', '.join(on) if on else ''}): the "
+                "multi-level sweep takes power-of-two trees with fine "
                 f"rasters <= {ml.NF_MAX} per axis, <= 4 components and none "
                 "of kinematics, Lya, Compton, X-ray or explicit absorption, "
                 "the XL sweep their voxel rasters up to "
-                f"{xl.TREE_NF_MAX} per axis; the scan march is not ported yet")
+                f"{xl.TREE_NF_MAX} per axis; the scan march on trees is not "
+                "ported yet")
         if xl.supports_xl(self.grid, self.medium):
             _log().info("transport: large-grid (XL) sweep for "
                         f"{'x'.join(map(str, self.grid.shape))}")
             return xl.build_tables(self.grid, self.medium)
-        raise NotImplementedError(
-            f"no transport engine for a {'x'.join(map(str, self.grid.shape))} "
-            f"grid with {self.medium.ncomp} components (the sweeps take axes "
-            "<= 512 and <= 4 components; the scan march is not ported yet)")
+        _log().info(f"transport: scan march for a "
+                    f"{type(self.grid).__name__} "
+                    f"{'x'.join(map(str, self.grid.shape))}")
+        return None
 
     def _source_allocation(self, n: int) -> np.ndarray:
         """History counts per source with the composite luminosity/uniform
@@ -243,8 +248,11 @@ class Simulation:
         secondary source or of star particles with an SED family), one
         stratum per RF bin it covers plus edge strata
         outside the RF grid (bin -1), padded to a power of two by splitting
-        the widest in-grid strata (`skirt9_tpu/simulation.py:396-465`)."""
-        if self.rf_borders is None or not opts.store_rf:
+        the widest in-grid strata (`skirt9_tpu/simulation.py:396-465`).
+        None without sweep tables: the scan march bins each lane's own
+        wavelength."""
+        if self._sweep_tabs is None or self.rf_borders is None \
+                or not opts.store_rf:
             return None
         R = len(self.rf_borders) - 1
         if R <= 1:
@@ -296,8 +304,10 @@ class Simulation:
         return borders, tuple(bin_map)
 
     def _mono_rf_bin(self, source, opts) -> int:
-        """RF bin of a monochromatic source in a multi-bin RF, else -1."""
-        if self.rf_borders is None or not opts.store_rf:
+        """RF bin of a monochromatic source in a multi-bin RF, else -1 (also
+        without sweep tables, as in the reference)."""
+        if self._sweep_tabs is None or self.rf_borders is None \
+                or not opts.store_rf:
             return -1
         R = len(self.rf_borders) - 1
         lam0 = getattr(source, "lam0", None)
@@ -373,7 +383,7 @@ class Simulation:
                                      pkt, rf, accs, self._sweep_tabs,
                                      stats=self.last_stats,
                                      mueller=self.mueller,
-                                     xray_tabs=self.xray_tabs)
+                                     xray_tabs=self.xray_tabs, grid=self.grid)
             _log().progress(min((b + 1) * B, n_packets), n_packets)
         return rf, accs
 
@@ -417,7 +427,8 @@ class Simulation:
                 self.medium, opts_k, self.instruments, self._inst_tabs,
                 self._rf_borders_dev, pkt, rf, accs, self._sweep_tabs,
                 stats=stats, emit_mask=refill, return_state=True,
-                mueller=self.mueller, xray_tabs=self.xray_tabs)
+                mueller=self.mueller, xray_tabs=self.xray_tabs,
+                grid=self.grid)
             next_hist += min(B - n_alive, hist_end - next_hist)
             n_alive = int(pkt.alive.sum())
             stats["syncs"] = stats.get("syncs", 0) + 1

@@ -1,11 +1,12 @@
 """The photon-packet life cycle of one batch, on PyTorch tensors.
 
-Port of `skirt9_tpu/transport/lifecycle.py` for its slab-sweep paths: the
-emission peel-off, then up to max_events forced-scattering events, each
+Port of `skirt9_tpu/transport/lifecycle.py`: the emission peel-off, then
+up to max_events forced-scattering events, each
 
-  1. pass 1: optical depth per slab and its ray-ordered prefix,
+  1. pass 1: optical depth per slab and its ray-ordered prefix (a sweep)
+     or per step of the scan march,
   2. biased interaction optical depth (composite uniform/exponential),
-  3. pass 2 `sweep_deposit`: RF deposits and the interaction point,
+  3. pass 2: RF deposits and the interaction point,
   4. HG peel-off toward every distant instrument (the optical depth along
      the observer direction, then `instruments.distant.detect`),
   5. HG scattering, albedo weighting and the weight-cutoff test.
@@ -16,12 +17,12 @@ the scattering plane, applies the Mueller matrix and records Q, U, V in
 the instrument frame, and the scattering event samples the polarized phase
 function and carries the Stokes vector and reference normal on. With
 kinematics each interaction sees the wavelength in its cell's rest frame,
-and the scattered packet takes the Doppler shift of its new direction. Both
-ride the resident sweep only, and kinematics only where every component's
-cross sections are wavelength-independent and at most one RF bin is stored
-(the reference's `kin_ok`, `skirt9_tpu/transport/lifecycle.py:529-542`):
-the perceived-wavelength opacity then equals the launch-wavelength one, so
-the sweep's constant per-lane cross sections stay exact.
+and the scattered packet takes the Doppler shift of its new direction. Of
+the sweeps, both ride the resident one only, and kinematics only where
+every component's cross sections are wavelength-independent and at most
+one RF bin is stored (the reference's `kin_ok`): the perceived-wavelength
+opacity then equals the launch-wavelength one, so the sweep's constant
+per-lane cross sections stay exact. Elsewhere kinematics takes the march.
 
 With Compton, Lyman-alpha or X-ray physics (`TransportOptions.compton`,
 `lya`, `xray`) a scattering changes the packet's wavelength, so each event
@@ -31,13 +32,29 @@ wavelengths, the observer ray's optical depth taken there (the
 reference's `march_uses_lam_fn`): Klein-Nishina scattering with its
 Compton shift (`ops/compton.py`); Lya resonant scattering (`ops/lya.py`:
 the atom's velocity by rejection, core skipping, the dipole or isotropic
-direction, the redistributed wavelength; the Voigt opacity at the one gas
-temperature of the medium, albedo 1); the X-ray gas's electron and
-fluorescence channels (`lifecycle.xray_channels`, the line from the
-absorbing bin's cdf, two peel-offs). They ride the resident sweep only,
-with at most one RF bin, and Lya only in a static one-component medium at
-one gas temperature (the reference's `lam_sweep_ok` and `lya_sweep_ok`,
-`skirt9_tpu/transport/lifecycle.py:543-568`); elsewhere they raise.
+direction, the redistributed wavelength; albedo 1); the X-ray gas's
+electron and fluorescence channels (`lifecycle.xray_channels`, the line
+from the absorbing bin's cdf, two peel-offs).
+
+Which engine an event runs is the reference's `use_sweep` gate
+(`skirt9_tpu/transport/lifecycle.py:566-608`, `sweep_gate` here): a sweep
+where the simulation built sweep tables and the options and the batch
+suit them, else the scan march (`transport/march.py`). The march takes
+explicit absorption (the interaction sampled on the scattering optical
+depth, absorption an exp(-tau_abs) weight, albedo 1), kinematics with
+wavelength-dependent cross sections or a multi-bin RF (per-cell perceived
+wavelengths), Compton, Lya and X-ray physics with a multi-bin RF (binned by
+each lane's current wavelength), Lya in multi-component, moving or
+multi-temperature media (the Voigt opacity at each cell's temperature and
+perceived wavelength), multi-bin RFs without bin-pure lane groups, batches
+that do not divide into 128-lane blocks (1,024-lane rows on XL tables),
+and every grid without sweep tables (meshed Cartesian grids, Voronoi
+grids walked exactly). On the march, pass 1 is one march recording (S, B)
+step tables and their cumulative sums, pass 2 the RF deposits into the bin
+of each lane's current wavelength (an f64 table over the life cycle, added
+into the RF rounded once) and the interaction point; the tracer marches
+again. Everything after pass 2 is the same code on both engines. A tree
+whose sweep declines the options raises, as in the reference.
 
 On the resident sweep, pass 1 is one `sweep_dtau_prefix` launch (the slab
 prefix and the lane range come out of the kernel), pass 2 one
@@ -76,9 +93,8 @@ bin-pure lane groups (a stratified launch, `rf_strata` groups with their
 and pass 2 deposits each group into the row of its bin.
 
 The event loop exits early once no lane is alive; that test is the one
-host sync per event on the resident sweep. There is no scan-march
-fallback: every option outside this path raises NotImplementedError and
-names itself.
+host sync per event on the resident sweep and on the march. Options
+outside the port raise NotImplementedError and name themselves.
 """
 
 from __future__ import annotations
@@ -86,6 +102,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import typing
 
 import numpy as np
 import torch
@@ -99,6 +116,8 @@ from ..ops import phase as phs
 from ..ops import rng
 from ..ops import sampling
 from ..ops import stokes as stk
+from ..ops import xlamath as xm
+from . import march as mr
 from . import mlsweep as ml
 from . import sweep as sw
 from . import sweepxl as xl
@@ -160,7 +179,6 @@ class TransportOptions:
 
 _NOT_PORTED = (
     ("emission_doppler", lambda o: o.emission_doppler),
-    ("explicit_absorption", lambda o: o.explicit_absorption),
 )
 
 
@@ -181,7 +199,7 @@ def lam_changing(opts: TransportOptions) -> bool:
 def check_engine(opts: TransportOptions, sweep_tabs) -> None:
     """Polarization, kinematics and the wavelength-changing physics
     (Compton, Lya, X-ray) ride the resident sweep only: on the tree
-    (multi-level) and large-grid (XL) engines they raise."""
+    (multi-level) and large-grid (XL) sweeps they raise."""
     engine = ("tree (multi-level)" if isinstance(sweep_tabs, ml.MLTables)
               else "large-grid (XL)" if isinstance(sweep_tabs, xl.XLTables)
               else None)
@@ -193,62 +211,92 @@ def check_engine(opts: TransportOptions, sweep_tabs) -> None:
 
 
 def check_kinematics(med: msys.MediumTables, opts: TransportOptions,
-                     rf_nbins: int) -> None:
-    """The reference's `kin_ok` gate (`skirt9_tpu/transport/lifecycle.py:
-    537-542`): kinematics rides the sweep only where every component's
-    cross sections are wavelength-independent and at most one RF bin is
-    stored; otherwise the reference takes its scan march, which is not
-    ported, so this raises."""
+                     rf_nbins: int) -> bool:
+    """The reference's `kin_ok` (`skirt9_tpu/transport/lifecycle.py:
+    566-573`): whether kinematics, where it is on, can ride a sweep, that is
+    whether every component's cross sections are wavelength-independent
+    and at most one RF bin is stored; where not, the scan march takes it."""
     if not opts.kinematics:
-        return
+        return True
     se, ss = med.sigma_ext, med.sigma_sca
-    if not bool(torch.all(se == se[:, :1]) and torch.all(ss == ss[:, :1])):
-        raise NotImplementedError(
-            "kinematics with wavelength-dependent cross sections (the "
-            "reference's scan march; not ported)")
-    if rf_nbins > 1:
-        raise NotImplementedError(
-            "kinematics with a multi-bin radiation field (the reference's "
-            "scan march; not ported)")
+    return (bool(torch.all(se == se[:, :1]) and torch.all(ss == ss[:, :1]))
+            and rf_nbins <= 1)
 
 
 def check_wavelength_changing(med: msys.MediumTables, opts: TransportOptions,
-                              rf_nbins: int) -> float:
-    """The reference's `lam_sweep_ok` gate (`skirt9_tpu/transport/
-    lifecycle.py:543-568`): wavelength-changing physics rides the sweep
-    only where at most one RF bin is stored, and Lya only in a static
-    one-component medium at one gas temperature, where the Voigt opacity
-    factors into one cross section per lane. Elsewhere the reference takes
-    its scan march, which is not ported, so this raises. Returns that
-    temperature for Lya (0 otherwise)."""
+                              rf_nbins: int, n_groups: int = 1):
+    """The reference's `lam_sweep_ok` and `lya_sweep_ok` (`skirt9_tpu/
+    transport/lifecycle.py:584-599`): wavelength-changing physics rides a
+    sweep only where at most one RF bin is stored in one lane group, and
+    Lya only in a static one-component medium at one gas temperature,
+    where the Voigt opacity factors into one cross section per lane.
+    Returns that temperature for Lya (0.0 for the others and without such
+    physics), or None where the scan march takes the case."""
     if not lam_changing(opts):
         return 0.0
-    if rf_nbins > 1:
-        raise NotImplementedError(
-            "Compton, Lya or X-ray physics with a multi-bin radiation field "
-            "(the reference's scan march; not ported)")
+    if rf_nbins > 1 or n_groups != 1:
+        return None
     if not opts.lya:
         return 0.0
-    if med.ncomp != 1:
-        raise NotImplementedError(
-            f"Lya in a medium of {med.ncomp} components (the reference's "
-            "scan march; not ported)")
-    if bool(torch.any(med.bulk_v != 0)):
-        raise NotImplementedError(
-            "Lya in a moving medium (bulk velocities; the reference's scan "
-            "march; not ported)")
-    occ = med.nd[:, 0] > 0
-    if not bool(occ.any()):
-        raise NotImplementedError(
-            "Lya in an empty medium (the reference's scan march; not "
-            "ported)")
+    occ = med.nd.sum(dim=-1) > 0
+    if med.ncomp != 1 or bool(torch.any(med.bulk_v != 0)) \
+            or not bool(occ.any()):
+        return None
     t_occ = med.temperature[occ].double()
     t_min, t_max = float(t_occ.min()), float(t_occ.max())
     if not (t_min > 0 and t_max - t_min <= 1e-6 * t_max):
-        raise NotImplementedError(
-            "Lya with a varying gas temperature (the reference's scan "
-            "march; not ported)")
+        return None
     return float(t_occ[0])
+
+
+class Gate(typing.NamedTuple):
+    """The reference's engine choice for one batch: whether a sweep runs
+    it, the bin-pure lane groups of its deposits, the Lya gas temperature
+    of the sweep's cross sections, and why the march runs instead."""
+
+    use_sweep: bool
+    n_groups: int
+    lya_T0: float
+    why: tuple
+
+
+def sweep_gate(med: msys.MediumTables, opts: TransportOptions, sweep_tabs,
+               rf, B: int) -> Gate:
+    """The reference's `use_sweep` (`skirt9_tpu/transport/lifecycle.py:
+    566-608`) for a batch of B lanes, sweep_tabs the simulation's tables
+    (None: none) and rf its stored RF (None: none): a sweep runs unless
+    explicit absorption is on, kinematics or wavelength-changing physics
+    fail their gates, a multi-bin RF has no bin-pure lane layout, or the
+    batch does not divide into the groups' 128-lane blocks (on XL tables,
+    into rows of 8 blocks). A tree's tables cannot fall back to the march
+    there, and raise, as the reference's do."""
+    rf_nbins = rf.shape[1] if rf is not None and opts.store_rf else 0
+    n_groups = 1
+    if rf_nbins > 1:
+        if opts.rf_strata > 0:
+            n_groups = opts.rf_strata
+        elif opts.rf_mono_bin < 0:
+            rf_nbins = -1
+    is_xl = isinstance(sweep_tabs, xl.XLTables)
+    kin_ok = check_kinematics(med, opts, rf_nbins)
+    lya_T0 = check_wavelength_changing(med, opts, rf_nbins, n_groups)
+    why = tuple(w for w, bad in (
+        ("no sweep tables", sweep_tabs is None),
+        ("explicitAbsorption", opts.explicit_absorption),
+        ("kinematics with wavelength-dependent optics or a multi-bin RF",
+         not kin_ok),
+        ("wavelength-changing physics with a multi-bin RF, or Lya in a "
+         "multi-component, moving or multi-temperature medium",
+         lya_T0 is None),
+        (f"batch {B} not divisible by {128 * n_groups}",
+         B % (128 * n_groups) != 0),
+        (f"batch {B} not divisible into the XL engine's 1024-lane blocks",
+         is_xl and (B // 128) % 8 != 0),
+        ("multi-bin RF without bin-pure lane layout", rf_nbins < 0)) if bad)
+    if isinstance(sweep_tabs, ml.MLTables) and why:
+        raise ValueError("multi-level sweep grid cannot fall back to the "
+                         f"scan march ({', '.join(why)})")
+    return Gate(not why, n_groups, lya_T0 or 0.0, why)
 
 
 def _dot3(a, b):
@@ -304,30 +352,6 @@ def survives_cutoff(opts: TransportOptions, lum_new, nscat_new, lum0):
 
 # ------------------------------------------------- wavelength-binned RF
 
-def _rf_groups(opts: TransportOptions, rf, B: int, xl_grid: bool) -> int:
-    """Bin-pure lane groups of the pass-2 deposits (the reference's choice,
-    `skirt9_tpu/transport/lifecycle.py:515-524,573-578`): one for a one-bin
-    RF or a monochromatic source in a multi-bin one (`rf_mono_bin`), else
-    the `rf_strata` groups of a stratified launch. A layout the reference
-    sends to its scan march raises: groups of 128-lane blocks, and on large
-    (XL) grids a batch of whole 8-block rows."""
-    if rf is None or rf.shape[1] == 1:
-        return 1
-    if opts.rf_strata > 0:
-        if B % (128 * opts.rf_strata) or (xl_grid and (B // 128) % 8):
-            raise NotImplementedError(
-                f"batch {B} not divisible into {opts.rf_strata} groups of "
-                "128-lane blocks" + (" in rows of 8 blocks" if xl_grid
-                                     else "")
-                + " (the reference's scan march; not ported)")
-        return opts.rf_strata
-    if opts.rf_mono_bin < 0:
-        raise NotImplementedError(
-            "multi-bin radiation field without a bin-pure lane layout (the "
-            "reference's scan march; not ported)")
-    return 1
-
-
 def _bin_map(opts: TransportOptions, rf, n_groups: int, device):
     """The (n_groups,) int32 group -> RF bin map of a stratified launch on
     the device, built once per life cycle (-1: outside the RF grid), or
@@ -372,7 +396,8 @@ def _observer_groups(inst_cfgs) -> list[list[int]]:
 
 def peel_off(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr, kind: int,
              active, tracer, transparent_too: bool = False, lam_fn=None,
-             march_at_lam_fn: bool = False):
+             march_at_lam_fn: bool = False, cell=None, lam_march=None,
+             lya: bool = False):
     """Peel a batch of events off toward every distant instrument.
     contrib_per_sr(i, kobs) -> ((B,) luminosity per steradian toward
     instrument i's direction kobs, (B, 3) Stokes Q, U, V in its frame or
@@ -380,14 +405,17 @@ def peel_off(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr, kind: int,
     (a moving cell's Doppler shift, a Compton shift, a fluorescence line,
     a Lya redistribution). With march_at_lam_fn the observer ray's optical
     depth is taken at those wavelengths (the group's first observer's), as
-    the reference's `march_uses_lam_fn` does. The transparent kind records
-    no Stokes, as in the reference."""
+    the reference's `march_uses_lam_fn` does, else at lam_march where one
+    is given (the march's per-cell perceived wavelengths); cell: the lanes'
+    cells, where the march starts; lya: the march's Voigt opacity. The
+    transparent kind records no Stokes, as in the reference."""
     B = lam.shape[0]
     for group in _observer_groups(inst_cfgs):
         kobs = inst_tabs[group[0]]["kobs"]
-        lam_m = lam_fn(kobs) if march_at_lam_fn else None
+        lam_m = lam_fn(kobs) if march_at_lam_fn else lam_march
         tau_obs = tracer(pos, kobs.expand(B, 3), active,
-                         inst_cfgs[group[0]].frame_axes()[0], lam_m)
+                         inst_cfgs[group[0]].frame_axes()[0], lam_m, cell,
+                         lya)
         att = torch.exp(-tau_obs)
         for i in group:
             ko = inst_tabs[i]["kobs"]
@@ -473,7 +501,8 @@ def _unsort(x, perm):
 def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                inst_tabs, rf_borders, pkt, rf, accs, sweep_tabs,
                stats: dict | None = None, emit_mask=None,
-               return_state: bool = False, mueller=None, xray_tabs=None):
+               return_state: bool = False, mueller=None, xray_tabs=None,
+               grid=None):
     """Run the complete life cycle of one launched packet batch.
 
     rf: (ncells, nbins) radiation-field accumulator or None; accs: one dict of
@@ -487,21 +516,29 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     mueller: the `ops.stokes.MuellerTables` of polarized scattering, on the
     batch's device; without them the scattering is not polarized, as in the
     reference. xray_tabs: `media.xray.device_tables` on the batch's device,
-    which the X-ray option needs.
+    which the X-ray option needs. sweep_tabs: the simulation's sweep tables
+    or None; grid: the simulation's grid, which the scan march walks where
+    `sweep_gate` sends the batch there.
     """
     check_supported(opts)
-    check_engine(opts, sweep_tabs)
-    rf_nbins = rf.shape[1] if opts.store_rf and rf is not None else 0
-    check_kinematics(med, opts, rf_nbins)
-    lya_T0 = check_wavelength_changing(med, opts, rf_nbins)
+    B = pkt.lam.shape[0]
+    gate = sweep_gate(med, opts, sweep_tabs, rf, B)
+    use_sweep, n_groups, lya_T0 = gate.use_sweep, gate.n_groups, gate.lya_T0
+    if use_sweep:
+        check_engine(opts, sweep_tabs)
+    elif grid is None:
+        raise ValueError("the scan march needs the grid (life_cycle(..., "
+                         f"grid=)): {', '.join(gate.why)}")
     if opts.xray and xray_tabs is None:
         raise ValueError("the X-ray option needs xray_tabs "
                          "(media.xray.device_tables)")
     changing = lam_changing(opts)
     polarized = opts.polarization and mueller is not None and not changing
-    h_cells = np.asarray(sweep_tabs.h)
-    is_xl = isinstance(sweep_tabs, xl.XLTables)
-    is_ml = isinstance(sweep_tabs, ml.MLTables)
+    march = not use_sweep
+    is_xl = use_sweep and isinstance(sweep_tabs, xl.XLTables)
+    is_ml = use_sweep and isinstance(sweep_tabs, ml.MLTables)
+    # the march takes the cells' perceived wavelengths
+    lam_moving = opts.kinematics or opts.lya
 
     def sig_lanes(o, lam):
         """(H, B) cross sections of optics o at wavelengths lam; in Lya mode
@@ -515,11 +552,20 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
         return sig.contiguous()
 
     opt = msys.optics_at(med, pkt.lam)
-    sigma_lanes = sig_lanes(opt, pkt.lam)      # (H, B)
+    if use_sweep:
+        h_cells = np.asarray(sweep_tabs.h)
+        sigma_lanes = sig_lanes(opt, pkt.lam)      # (H, B)
 
-    def tracer(pos, kdir, mask, kobs_host, lam_m=None):
-        # every lane marches toward the same observer: one shared slab axis;
-        # lam_m: the detection wavelengths, where the opacity is taken there
+    def tracer(pos, kdir, mask, kobs_host, lam_m=None, cell=None,
+               lya=False):
+        # every lane marches toward the same observer. On the march: from
+        # the lanes' cells, at their current optics or, with lam_m, at the
+        # cells' perceived wavelengths (the Voigt opacity with lya). On a
+        # sweep: one shared slab axis; lam_m: the detection wavelengths,
+        # where the opacity is taken there
+        if march:
+            return mr.trace_tau(grid, med, opt, pos, kdir, cell,
+                                opts.max_steps, mask, lam=lam_m, lya=lya)
         sig = (sigma_lanes if lam_m is None
                else sig_lanes(msys.optics_at(med, lam_m), lam_m))
         hint = int(np.argmax(np.abs(np.asarray(kobs_host, np.float64))
@@ -541,20 +587,27 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                  else dinst.KIND_SECONDARY_SCATTERED)
 
     use_rf = opts.store_rf and rf is not None and rf_borders is not None
-    n_groups = _rf_groups(opts, rf if use_rf else None, pkt.lam.shape[0],
-                          is_xl)
     # the small tensors the event loop needs, built here so that the loop
     # copies nothing from the host
-    bin_map = None
+    bin_map = rf_acc = None
     if use_rf:
+        nrf = rf_borders.shape[0] - 1
         in_range = lambda lam: (lam >= rf_borders[0]) & (lam < rf_borders[-1])
+        bin_of = lambda lam: torch.clamp(
+            sampling.searchsorted_right(rf_borders, lam) - 1, 0, nrf - 1)
         rf_in_range = in_range(pkt.lam)
-        bin_map = _bin_map(opts, rf, n_groups, rf.device)
-        if is_xl and bin_map is None and rf.shape[1] > 1:
-            # kernel 7 adds into the RF itself: the one group of a
-            # monochromatic source maps to the source's bin
-            bin_map = torch.tensor([opts.rf_mono_bin], dtype=torch.int32,
-                                   device=rf.device)
+        if march:
+            # the march's deposits sum in f64 over the life cycle: an event
+            # that leaves a point source puts thousands into a hot cell
+            rf_bin = bin_of(pkt.lam)
+            rf_acc = rf if rf.dtype == torch.float64 else rf.double()
+        else:
+            bin_map = _bin_map(opts, rf, n_groups, rf.device)
+            if is_xl and bin_map is None and rf.shape[1] > 1:
+                # kernel 7 adds into the RF itself: the one group of a
+                # monochromatic source maps to the source's bin
+                bin_map = torch.tensor([opts.rf_mono_bin], dtype=torch.int32,
+                                       device=rf.device)
     do_peel = bool(inst_cfgs) and opts.peel_off
     if polarized:
         s11n_h = stk.s11_norm(mueller)
@@ -565,7 +618,9 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
         emit = pkt.alive if emit_mask is None else emit_mask & pkt.alive
         peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos,
                  lambda i, kobs: (pkt.lum * _ISO, None), kind_direct, emit,
-                 tracer, transparent_too=True)
+                 tracer, transparent_too=True, cell=pkt.cell,
+                 lam_march=pkt.lam if march and lam_moving else None,
+                 lya=opts.lya)
 
     tags = _path_tags(opts) + (_TAG_SCATTER_CT, _TAG_SCATTER_PHI)
     if med.ncomp > 1:
@@ -598,14 +653,32 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             active = pkt.alive
             if changing:
                 # the optics follow the packets' current wavelengths (the
-                # reference's `:786` and `:805`)
+                # reference's `:786` and `:805`), and so does the RF bin
                 opt = msys.optics_at(med, pkt.lam)
-                sigma_lanes = sig_lanes(opt, pkt.lam)
+                if use_sweep:
+                    sigma_lanes = sig_lanes(opt, pkt.lam)
                 if use_rf:
                     rf_in_range = in_range(pkt.lam)
+                    if march:
+                        rf_bin = bin_of(pkt.lam)
+            rf_mask = ((active & rf_in_range) if use_rf
+                       else torch.zeros_like(active))
 
-            # pass 1: optical depth per slab and along the whole path
-            if is_xl:
+            # pass 1: optical depth per slab, or per march step, and along
+            # the whole path
+            if march:
+                # one march records the path; the interaction is sampled on
+                # the scattering optical depth under explicit absorption
+                cells, ds, dtau_ext, *sca = mr.march_record(
+                    grid, med, opt, pkt.pos, pkt.dir, pkt.cell,
+                    opts.max_steps, active,
+                    record_sca=opts.explicit_absorption,
+                    lam=pkt.lam if lam_moving else None, lya=opts.lya)
+                dtau_s = sca[0] if sca else dtau_ext
+                tb_ext = mr.tau_before(dtau_ext)
+                tb_s = mr.tau_before(dtau_s) if sca else tb_ext
+                tau_path = tb_s[-1] + dtau_s[-1]
+            elif is_xl:
                 # the record, its prefix and the lane range come out of the
                 # kernel, in sorted lane order
                 perm = xl.lane_order(sweep_tabs, pkt.pos, pkt.dir,
@@ -631,10 +704,23 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             active_int = active & tau_ok
 
             # pass 2: RF deposits and the exact interaction point
-            rf_mask = ((active & rf_in_range) if use_rf
-                       else torch.zeros_like(active))
-            lum_half = (pkt.lum * rf_mask) * inv_sqrt
-            if is_xl:
+            lum_half = None if march else (pkt.lum * rf_mask) * inv_sqrt
+            if march:
+                # the deposits along the whole path, into each lane's bin
+                if use_rf:
+                    mr.deposit_rf(rf_acc, cells, ds, dtau_ext, tb_ext,
+                                  pkt.lum, rf_bin, rf_mask, opts.rf_scale)
+                ipos, icell, found, idx, frac = mr.interaction_point(
+                    pkt.pos, pkt.dir, cells, ds, dtau_s, tb_s, tau_int,
+                    active_int)
+                if opts.explicit_absorption:
+                    # the absorption optical depth up to the interaction
+                    take = lambda a: a.gather(0, idx[None, :])[0]
+                    tau_abs_at = xm.fma(frac, take(dtau_ext - dtau_s),
+                                        take(tb_ext) - take(tb_s))
+                # free the step tables before the peel-off's march
+                del cells, ds, dtau_ext, dtau_s, tb_ext, tb_s, sca
+            elif is_xl:
                 # the scale per slab is formed inside from the prefix; the
                 # lane groups' deposits land in their bins of the RF itself
                 _, *res = xl.sweep_deposit_prefix(
@@ -671,7 +757,8 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                     bin_map=bin_map, nbins=rf.shape[1] if use_rf else 0)
                 if use_rf:
                     _add_rf(rf, rf_delta, opts, n_groups)
-            ipos = pkt.pos + s_int[:, None] * pkt.dir
+            if use_sweep:
+                ipos = pkt.pos + s_int[:, None] * pkt.dir
             active_int = active_int & found
 
             if opts.kinematics:
@@ -683,7 +770,12 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
             else:
                 lam_cell, opt_int = pkt.lam, opt
             lum_at = pkt.lum * w_bias
-            albedo = msys.albedo_for_scattering(med, opt_int, icell)
+            if opts.explicit_absorption:
+                # absorption as a weight, every interaction a scattering
+                lum_at = lum_at * torch.exp(-torch.clamp_min(tau_abs_at, 0.0))
+                albedo = torch.ones_like(lum_at)
+            else:
+                albedo = msys.albedo_for_scattering(med, opt_int, icell)
             if opts.lya:
                 albedo = torch.ones_like(lum_at)      # resonant scattering
             if opts.xray:
@@ -716,14 +808,15 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                         peel_off(inst_cfgs, inst_tabs, accs, pkt.lam,
                                  pkt.pos, per_sr_b, kind_scat, active_int,
                                  tracer, lam_fn=lam_fn_b,
-                                 march_at_lam_fn=True)
+                                 march_at_lam_fn=True, cell=pkt.cell,
+                                 lya=opts.lya)
                 pkt = pkt._replace(lam=torch.where(active_int, lam_new,
                                                    pkt.lam))
             else:
                 # scattering peel-off
                 if do_peel:
                     lum_alb = pkt.lum * albedo
-                    lam_fn = None
+                    lam_fn = lam_march = None
                     if polarized:
                         # detected at the packet's incoming lab-frame
                         # wavelength, as the reference's polarized
@@ -745,9 +838,12 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                             lam_fn = lambda kobs: lam_cell * (
                                 1.0 - _dot3(kobs.expand_as(v_int), v_int)
                                 * _INV_C)
+                            if march:
+                                lam_march = pkt.lam
                     peel_off(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos,
                              per_sr, kind_scat, active_int, tracer,
-                             lam_fn=lam_fn)
+                             lam_fn=lam_fn, cell=pkt.cell,
+                             lam_march=lam_march)
 
                 # the scattering event proper
                 if polarized:
@@ -777,6 +873,8 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                 lum=torch.where(active_int, lum_new, pkt.lum),
                 nscat=torch.where(active_int, nscat_new, pkt.nscat),
                 alive=active_int & survive & (lum_new > 0))
+    if rf_acc is not None and rf_acc is not rf:
+        rf.copy_(rf_acc)
     if return_state:
         return rf, accs, pkt
     return rf, accs

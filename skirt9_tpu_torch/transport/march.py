@@ -1,0 +1,239 @@
+"""The scan march: a bounded walk through the grid's cells per lane.
+
+Port of the ray marches of `skirt9_tpu/transport/lifecycle.py:132-276`,
+the engine the reference runs wherever no sweep takes the grid or the
+options (every configuration on its CPU): one march records the path as
+(S, B) tables of the cell and the length of each step, and everything
+downstream, the optical depths, the radiation-field deposits and the
+interaction point, is dense tensor math on those tables.
+
+`march_geometry` is the walk itself. On a CUDA tensor it is one launch of
+the march kernel (`csrc/march.cu`, one thread per lane, in the mode of the
+grid: `march_uniform`, `march_mesh` or `march_voronoi`); on a CPU tensor
+its plain version, a loop of the grid's `step` over the steps. Both follow
+the reference's f32 operations, with XLA's CPU fusions replayed, so that
+each step lands in the reference's cell. A lane masked off, or outside the
+grid, records cell 0 and length 0 for every step: the reference records the
+cell a masked lane would have walked, which nothing downstream reads (its
+length is 0).
+
+The cumulative sums follow XLA's CPU cumsum (`ops.xlamath.cumsum`), whose
+order decides in the last bit which step holds the interaction.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..grids.cartesian import CartesianGrid, UniformCartesianGrid
+from ..grids.voronoi import VoronoiGrid
+from ..kernels import build as kb
+from ..media import system as msys
+from ..ops import lya as lyo
+from ..ops import xlamath as xm
+
+_INV_C = 1.0 / 2.99792458e8  # inverse speed of light [s/m]
+
+# the kernel's mode per grid class, each its own launch counter
+MODES = {UniformCartesianGrid: "march_uniform", CartesianGrid: "march_mesh",
+         VoronoiGrid: "march_voronoi"}
+_MODE_IDS = {"march_uniform": 0, "march_mesh": 1, "march_voronoi": 2}
+
+
+def _check(grid, pos0, dirn, cell0, max_steps: int, mask) -> None:
+    B = pos0.shape[0]
+    if type(grid) not in MODES:
+        name = type(grid).__name__
+        what = (f"trees ({name})" if name in ("OctreeGrid", "BinTreeGrid")
+                else f"a {name}")
+        raise NotImplementedError(
+            f"the scan march on {what} is not ported yet (it walks uniform "
+            "and meshed Cartesian grids and Voronoi grids)")
+    if pos0.shape != (B, 3) or dirn.shape != (B, 3) or cell0.shape != (B,) \
+            or mask.shape != (B,):
+        raise ValueError(f"pos0 {tuple(pos0.shape)}, dirn "
+                         f"{tuple(dirn.shape)}, cell0 {tuple(cell0.shape)} "
+                         f"and mask {tuple(mask.shape)} must be (B, 3) and "
+                         "(B,)")
+    if not 1 <= max_steps or max_steps * max(B, 1) >= 2 ** 31:
+        raise ValueError(f"{max_steps} steps of {B} lanes out of range")
+
+
+def march_geometry_plain(grid, pos0, dirn, cell0, max_steps: int, mask):
+    """The plain version of `march_geometry`: the grid's `step` per step,
+    ending early once every lane has left the grid."""
+    _check(grid, pos0, dirn, cell0, max_steps, mask)
+    B = pos0.shape[0]
+    cells = torch.zeros((max_steps, B), dtype=torch.int32,
+                        device=pos0.device)
+    ds = torch.zeros((max_steps, B), dtype=torch.float32, device=pos0.device)
+    p = pos0
+    c = torch.where(mask, cell0.to(torch.int64), -1)
+    for s in range(max_steps):
+        if not bool((c >= 0).any()):
+            break
+        step, nc, np_ = grid.step(p, dirn, c)
+        cells[s] = torch.clamp_min(c, 0).to(torch.int32)
+        ds[s] = step
+        p, c = np_, nc
+    return cells, ds
+
+
+def _march_cuda(grid, pos0, dirn, cell0, max_steps: int, mask):
+    _check(grid, pos0, dirn, cell0, max_steps, mask)
+    mode = MODES[type(grid)]
+    B = pos0.shape[0]
+    dev = pos0.device
+    cells = torch.empty((max_steps, B), dtype=torch.int32, device=dev)
+    ds = torch.empty((max_steps, B), dtype=torch.float32, device=dev)
+    pos0 = pos0.to(torch.float32).contiguous()
+    dirn = dirn.to(torch.float32).contiguous()
+    cell0 = cell0.to(torch.int32).contiguous()
+    mask = mask.to(torch.uint8).contiguous()
+    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+    tabs, consts, degree = (None, None, None), None, 0
+    n = (grid.ncells, 0, 0) if mode == "march_voronoi" else grid.shape
+    if mode == "march_uniform":
+        consts = f32(torch.cat([grid.lo, grid.h]))
+    elif mode == "march_mesh":
+        tabs = tuple(f32(b) for b in grid)
+    else:
+        nbrs = grid.neighbors.to(device=dev, dtype=torch.int32).contiguous()
+        tabs = (f32(grid.sites), nbrs, None)
+        consts = f32(torch.cat([grid.box_lo, grid.box_hi]))
+        degree = nbrs.shape[1]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    kb.launch("march", pos0.data_ptr(), dirn.data_ptr(), cell0.data_ptr(),
+              mask.data_ptr(), *(ptr(t) for t in tabs), ptr(consts),
+              cells.data_ptr(), ds.data_ptr(), B, max_steps, *n, degree,
+              _MODE_IDS[mode], kb.stream_of(pos0), count_as=mode)
+    return cells, ds
+
+
+def march_geometry(grid, pos0, dirn, cell0, max_steps: int, mask):
+    """The geometric march (the reference's `lifecycle.py:132-150`): per
+    step s and lane b the cell walked (int32) and the step's length (f32),
+    (S, B) each with S = max_steps, from the positions pos0 (B, 3), the
+    directions dirn (B, 3) and the start cells cell0 (B,) of the lanes in
+    mask (B,) bool. One launch of the march kernel on the card, the plain
+    loop on the CPU."""
+    if pos0.device.type == "cpu":
+        return march_geometry_plain(grid, pos0, dirn, cell0, max_steps, mask)
+    if pos0.device.type != "cuda":
+        raise ValueError(f"no march kernel for device {pos0.device}")
+    return _march_cuda(grid, pos0, dirn, cell0, max_steps, mask)
+
+
+def _doppler(lam, dirn, v):
+    """The wavelengths (S, B) that the cells' bulk velocities v (S, B, 3)
+    perceive of lanes at lam (B,) moving along dirn (B, 3)."""
+    p = dirn[None, :, :] * v
+    return lam[None, :] / (1.0 - ((p[..., 0] + p[..., 1]) + p[..., 2])
+                           * _INV_C)
+
+
+def _comp_sum(nd, sig):
+    """sum_h nd[..., h] * sig[..., h] with each product fused into the sum,
+    as XLA forms the reference's einsum and sum over components."""
+    out = nd[..., 0] * sig[..., 0]
+    for h in range(1, nd.shape[-1]):
+        out = xm.fma(nd[..., h], sig[..., h], out)
+    return out
+
+
+def opacity_on_path(med: msys.MediumTables, opt: msys.Optics, cells, ds,
+                    dirn, lam=None, lya: bool = False,
+                    scattering: bool = False):
+    """Per-step optical depths (S, B) of a recorded march (the reference's
+    `lifecycle.py:153-181`): the lanes' cross sections at their own
+    wavelengths, or with lam (B,) the cells' perceived wavelengths
+    (kinematics), or with lya the Voigt cross section at each cell's gas
+    temperature and perceived wavelength on component 0. A step of length 0
+    adds nothing."""
+    c = cells.to(torch.int64)
+    if lya:
+        lam_c = _doppler(lam, dirn, med.bulk_v[c])
+        T = torch.clamp_min(med.temperature[c], 1.0)
+        return med.nd[c, 0] * lyo.cross_section(lam_c, T) * ds
+    nd = med.nd[c]                                           # (S, B, H)
+    if lam is None:
+        sig = opt.sigma_sca if scattering else opt.sigma_ext  # (B, H)
+        return _comp_sum(nd, sig[None].expand_as(nd)) * ds
+    lam_c = _doppler(lam, dirn, med.bulk_v[c])
+    o = msys.optics_at(med, lam_c.reshape(-1))
+    sig = (o.sigma_sca if scattering else o.sigma_ext).reshape(nd.shape)
+    return _comp_sum(nd, sig) * ds
+
+
+def trace_tau(grid, med: msys.MediumTables, opt: msys.Optics, pos, dirn,
+              cell, max_steps: int, active, lam=None, lya: bool = False):
+    """The extinction optical depth (B,) from pos along dirn to the grid's
+    edge (the reference's `lifecycle.py:184-196`): the peel-off's."""
+    cells, ds = march_geometry(grid, pos, dirn, cell, max_steps, active)
+    return torch.sum(opacity_on_path(med, opt, cells, ds, dirn, lam, lya),
+                     dim=0)
+
+
+def march_record(grid, med: msys.MediumTables, opt: msys.Optics, pos0, dirn,
+                 cell0, max_steps: int, mask, record_sca: bool = False,
+                 lam=None, lya: bool = False):
+    """One march recording (cells, ds, dtau) per step, (S, B) each, and the
+    scattering optical depths too with record_sca (explicit absorption;
+    the reference's `lifecycle.py:199-219`)."""
+    cells, ds = march_geometry(grid, pos0, dirn, cell0, max_steps, mask)
+    dtau = opacity_on_path(med, opt, cells, ds, dirn, lam, lya)
+    if record_sca:
+        return cells, ds, dtau, opacity_on_path(med, opt, cells, ds, dirn,
+                                                lam, lya, scattering=True)
+    return cells, ds, dtau
+
+
+def tau_before(dtau):
+    """The optical depth (S, B) before each step, in XLA's cumsum order
+    (the reference's `jnp.cumsum(dtau, axis=0) - dtau`)."""
+    return xm.cumsum(dtau) - dtau
+
+
+def deposit_rf(rf, cells, ds, dtau, tau_b, lum, rf_bin, rf_mask,
+               rf_scale: float) -> None:
+    """Add a recorded march's radiation-field deposits into rf (ncells,
+    nbins), in place (the reference's `lifecycle.py:222-247`): per step
+    L e^-tau0 (1 - e^-dtau) / k, the path integral of L e^-tau ds over the
+    step (L e^-tau0 ds (1 - dtau / 2) below dtau 1e-4), into the bin rf_bin
+    (B,) of each lane in rf_mask, in units of rf_scale, as one index_add_
+    into rf's own dtype (f64 on the card's segments). The two square-root
+    factors of 1 / rf_scale go on different tensors, as in the reference,
+    whose f32 would underflow their product."""
+    inv_sqrt = 1.0 / float(np.sqrt(rf_scale))
+    lum_half = (lum * rf_mask) * inv_sqrt                      # (B,)
+    small = dtau < 1e-4
+    expfac = torch.where(small, ds * xm.fma(-0.5, dtau, 1.0),
+                         -torch.expm1(-dtau) * ds
+                         / torch.clamp_min(dtau, 1e-37))
+    contrib = (lum_half * torch.exp(-tau_b)) * (expfac * inv_sqrt)
+    flat = cells.to(torch.int64) * rf.shape[1] + rf_bin[None, :]
+    rf.view(-1).index_add_(0, flat.reshape(-1),
+                           contrib.reshape(-1).to(rf.dtype))
+
+
+def _take(a, idx):
+    return a.gather(0, idx[None, :])[0]
+
+
+def interaction_point(pos0, dirn, cells, ds, dtau, tau_b, tau_int, int_mask):
+    """The interaction on a recorded march (the reference's
+    `lifecycle.py:250-276`): the first step where the cumulative depth
+    reaches tau_int, linear in tau inside it. Returns (ipos (B, 3), icell
+    int64, found, idx, frac); idx and frac place any other cumulative
+    quantity at the interaction."""
+    hit = ((tau_b + dtau) >= tau_int[None, :]) & (dtau > 0)
+    found = torch.any(hit, dim=0) & int_mask
+    idx = torch.argmax(hit.to(torch.uint8), dim=0)           # first hit
+    ds_i, dtau_i, tb_i = _take(ds, idx), _take(dtau, idx), _take(tau_b, idx)
+    sb_i = _take(xm.cumsum(ds) - ds, idx)
+    frac = torch.clamp((tau_int - tb_i) / torch.clamp_min(dtau_i, 1e-37),
+                       0.0, 1.0)
+    s_total = xm.fma(frac, ds_i, sb_i)
+    ipos = xm.fma(s_total[:, None], dirn, pos0)
+    return ipos, _take(cells, idx).to(torch.int64), found, idx, frac

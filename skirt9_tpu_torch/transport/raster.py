@@ -22,6 +22,8 @@ ported yet and raise.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -114,12 +116,15 @@ def build_tables(grid, med, resolution: tuple | None = None) -> ml.MLTables:
     """Rasterize (grid, medium) into single-level `mlsweep.MLTables` on the
     medium's device: the medium's own density table, the owner map as the
     leaf map (-1 for a voxel no cell owns) and a plan of one step per slab.
-    resolution: the voxel counts, else `choose_resolution`'s."""
+    resolution: the voxel counts, else `choose_resolution`'s with each axis
+    capped at `SKIRT9_TPU_RASTER_MAX_N` (default 256), as the reference
+    reads it (`skirt9_tpu/transport/raster.py:142-145`)."""
+    cap = int(os.environ.get("SKIRT9_TPU_RASTER_MAX_N", "256"))
     lo = grid.box_lo.cpu().numpy().astype(np.float64)
     hi = grid.box_hi.cpu().numpy().astype(np.float64)
     box = hi - lo
     n = tuple(int(v) for v in (resolution or choose_resolution(
-        box, ncomp=med.ncomp)))
+        box, max_n=cap, ncomp=med.ncomp)))
     h = box / np.asarray(n, np.float64)
     c = [lo[a] + (np.arange(n[a]) + 0.5) * h[a] for a in range(3)]
     centers = np.stack(np.meshgrid(*c, indexing="ij"), axis=-1).reshape(-1, 3)

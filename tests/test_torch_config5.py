@@ -12,9 +12,9 @@ Stokes outputs.
   the instrument; the static variant (velocityMagnitude 0) without
   kinematics.
 - The gates: kinematics with wavelength-dependent cross sections or a
-  multi-bin RF raises, naming the scan march; polarization and kinematics
-  on the tree and XL engines raise, as do polarized and spheroidal
-  emission.
+  multi-bin RF takes the scan march, draw for draw with the reference's;
+  polarization and kinematics on the tree and XL engines raise, as do
+  polarized and spheroidal emission.
 - A reduced bench5 (16^3, 4,096 packets in batches of 1,024, 8 events),
   moving and static, draw for draw against the reference on the CPU (its
   scan march), the detections of every scattering peel-off compared lane
@@ -164,24 +164,45 @@ def test_static_variant_has_no_kinematics(tmp_path):
 # ------------------------------------------------------------------- gates
 
 def test_kinematics_outside_the_sweep_raises(tmp_path):
-    dusty = chip_smoke.edited_ski("bench5", tmp_path, {
-        '<ElectronMix includePolarization="true"/>':
-            '<MeanFileDustMix filename="mrn_mean.txt"/>'}, out="dusty")
-    with pytest.raises(NotImplementedError,
-                       match="wavelength-dependent.*scan march"):
-        load_ski(dusty, device="cpu")
-    sim = load_ski(_edited(tmp_path, {}), device="cpu", **RUN)
-    multi = dataclasses.replace(
-        sim.options, store_rf=True)
-    with pytest.raises(NotImplementedError,
-                       match="multi-bin radiation field.*scan march"):
-        dataclasses.replace(sim, options=multi,
-                            rf_borders=np.geomspace(0.4e-6, 0.8e-6, 4))
-    # a one-bin RF rides the sweep, as in the reference
-    one = dataclasses.replace(sim, options=multi,
-                              rf_borders=np.array([0.4e-6, 0.8e-6]))
-    with pytest.raises(NotImplementedError, match="scan march"):
-        lc.check_kinematics(one.medium, one.options, 3)
+    """Where the reference's `kin_ok` declines the sweep, kinematics takes
+    the scan march: bench5's outflow filled with the MRN dust mix
+    (wavelength-dependent cross sections), and the electron outflow without
+    polarization storing a 3-bin RF. Both agree with the reference's march
+    on the CPU, SEDs, frames and RF within 1e-5 of each maximum (they agree
+    to ~1e-6)."""
+    kw = dict(num_packets=1024, batch_size=1024, max_events=4)
+    mix = '<ElectronMix includePolarization="true"/>'
+    dusty = _edited(tmp_path, {mix: '<MeanFileDustMix '
+                               'filename="mrn_mean.txt"/>'})
+    ref = ref_load_ski(dusty, **kw)
+    unpolarized = chip_smoke.edited_ski("bench5", tmp_path, dict(SMALL, **{
+        mix: '<ElectronMix includePolarization="false"/>'}), out="unpol")
+    ref_u = ref_load_ski(unpolarized, **kw)
+    ref_multi = dataclasses.replace(
+        ref_u, options=dataclasses.replace(ref_u.options, store_rf=True),
+        rf_borders=np.geomspace(0.4e-6, 0.8e-6, 4))
+    for ref_sim, nbins in ((ref, 0), (ref_multi, 3)):
+        assert ref_sim.options.kinematics
+        port = bridge.simulation(ref_sim, "cpu", march=True)
+        own = bridge.simulation(ref_sim, "cpu")
+        gate = lc.sweep_gate(port.medium, port.options, own._sweep_tabs,
+                             torch.zeros((1, nbins)) if nbins else None,
+                             1024)
+        assert not gate.use_sweep and not lc.check_kinematics(
+            port.medium, port.options, nbins)
+        rf_r, accs_r = ref_sim.run_primary(verbose=False)
+        kb.reset_launches()
+        rf_p, accs_p = port.run_primary(verbose=False)
+        assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}
+        pairs = [(accs_r[0][k], accs_p[0][k]) for k in ("sed", "frame")]
+        if nbins:
+            assert rf_p.shape[1] == nbins
+            pairs.append((rf_r, rf_p))
+        for a, b in pairs:
+            a = np.asarray(a, np.float64)
+            assert np.abs(a).max() > 0
+            assert np.abs(b.double().numpy() - a).max() <= \
+                1e-5 * np.abs(a).max()
 
 
 @pytest.mark.parametrize("edits,match", [

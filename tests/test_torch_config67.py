@@ -15,11 +15,12 @@ grid. Both ride the resident sweep (kernels 1-2 and detect on the GPU).
   the Lya mix's default), options (Lya's Constant scheme and its
   path-length bias forced to 0; the X-ray flag), instrument, SED tables,
   the X-ray channel tables.
-- The gates, each raising NotImplementedError that names what is not
-  ported (the reference's scan march or another engine): Lya with a
-  varying gas temperature, with two medium components or in a moving
-  medium; wavelength-changing physics with a multi-bin radiation field;
-  Lya and X-ray physics on the large-grid (XL) and tree engines.
+- The gates: Lya with a varying gas temperature, with two medium
+  components or in a moving medium, and wavelength-changing physics with
+  a multi-bin radiation field take the scan march, draw for draw with the
+  reference's march (1,024 packets, 4 events: within 1e-5 of each
+  maximum); Lya and X-ray physics on the large-grid (XL) and tree engines
+  raise NotImplementedError naming the engine.
 - Both configs end to end at a small size (bench6: 4,096 packets, 12
   events; bench7: 2,048 packets, 16 events; one torch thread) draw for
   draw against the reference on the CPU (its scan march), each scattering
@@ -49,6 +50,7 @@ import shutil
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -60,6 +62,7 @@ from skirt9_tpu_torch.__main__ import main
 from skirt9_tpu_torch.config.ski import load_ski
 from skirt9_tpu_torch.instruments import distant as dinst
 from skirt9_tpu_torch.kernels import build as kb
+from skirt9_tpu_torch.transport import lifecycle as lc
 from skirt9_tpu_torch.transport import sweep as sw
 from skirt9_tpu_torch.transport import sweepxl as xl
 
@@ -151,43 +154,76 @@ def _second_medium(name: str) -> dict:
     return {medium: medium + medium}
 
 
+def _march_agrees(ref, bound: float = EXACT) -> None:
+    """The port on the scan march (no sweep tables where the reference has
+    none) against the reference's march on the CPU: every SED kind and the
+    RF within bound of each maximum, no kernel launched."""
+    port = bridge.simulation(ref, "cpu", march=True)
+    assert port._sweep_tabs is None
+    rf_r, accs_r = ref.run_primary(verbose=False)
+    kb.reset_launches()
+    rf_p, accs_p = port.run_primary(verbose=False)
+    assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}
+    pairs = [(accs_r[0]["sed"][k], accs_p[0]["sed"][k]) for k in range(3)]
+    if rf_r is not None:
+        pairs.append((rf_r, rf_p))
+    for a, b in pairs:
+        a = np.asarray(a, np.float64)
+        assert np.abs(a).max() > 0
+        assert np.abs(b.double().numpy() - a).max() <= bound * np.abs(a).max()
+
+
+SMALL67 = dict(num_packets=1024, batch_size=1024, max_events=4)
+
+
 def test_lya_outside_the_sweep_raises(tmp_path):
     """Lya rides the resident sweep only in a static one-component medium
-    at one gas temperature (the reference's `lya_sweep_ok`)."""
-    with pytest.raises(NotImplementedError,
-                       match="Lya in a medium of 2 components.*scan march"):
-        load_ski(_edited(tmp_path, "bench6", _second_medium("bench6")),
-                 device="cpu")
-    moving = _edited(tmp_path, "bench6", {
+    at one gas temperature (the reference's `lya_sweep_ok`); with two
+    medium components, in a moving medium and with a varying gas
+    temperature it takes the scan march (the Voigt opacity at each cell's
+    temperature and perceived wavelength), draw for draw with the
+    reference's march within 1e-5 of each maximum."""
+    two = ref_load_ski(_edited(tmp_path, "bench6", _second_medium("bench6")),
+                       **SMALL67)
+    moving = ref_load_ski(_edited(tmp_path, "bench6", {
         _MEDIUM6[0]: '<GeometricMedium velocityMagnitude="100 km/s">'
         '<velocityDistribution type="VectorField"><RadialVectorField '
         'unityRadius="0.1 pc" exponent="1"/></velocityDistribution>'},
-        out="moving")
-    with pytest.raises(NotImplementedError,
-                       match="Lya in a moving medium.*scan march"):
-        load_ski(moving, device="cpu")
-    sim = load_ski(_ski("bench6"), device="cpu", **RUNS["bench6"])
-    T = sim.medium.temperature.clone()
-    T[sim.medium.nd[:, 0] > 0] *= torch.linspace(
-        1.0, 2.0, int((sim.medium.nd[:, 0] > 0).sum()))
-    with pytest.raises(NotImplementedError,
-                       match="Lya with a varying gas temperature"):
-        dataclasses.replace(sim, medium=sim.medium._replace(temperature=T))
+        out="moving"), **SMALL67)
+    warm = ref_load_ski(_ski("bench6"), **SMALL67)
+    T = np.asarray(warm.medium.temperature).copy()
+    occ = np.asarray(warm.medium.nd)[:, 0] > 0
+    T[occ] *= np.linspace(1.0, 2.0, int(occ.sum()))
+    warm.medium = warm.medium._replace(temperature=jnp.asarray(T))
+    for ref in (two, moving, warm):
+        port = bridge.simulation(ref, "cpu")
+        assert lc.check_wavelength_changing(port.medium, port.options,
+                                            0) is None
+        assert isinstance(port._sweep_tabs, sw.SweepTables)
+        assert not lc.sweep_gate(port.medium, port.options,
+                                 port._sweep_tabs, None, 1024).use_sweep
+        _march_agrees(ref)
 
 
 @pytest.mark.parametrize("name", ["bench6", "bench7"])
 def test_multi_bin_rf_raises(name):
-    sim = load_ski(_ski(name), device="cpu", **RUNS[name])
-    opts = dataclasses.replace(sim.options, store_rf=True)
-    lam = float(sim.sources[0].sed.lam[0])
-    with pytest.raises(NotImplementedError,
-                       match="Compton, Lya or X-ray physics with a multi-bin"):
-        dataclasses.replace(sim, options=opts, rf_borders=np.geomspace(
-            lam, 4 * lam, 4))
-    # a one-bin radiation field rides the sweep, as in the reference
-    one = dataclasses.replace(sim, options=opts,
-                              rf_borders=np.array([lam, 4 * lam]))
-    assert one.options.store_rf
+    """Wavelength-changing physics with a multi-bin RF takes the scan
+    march, which bins each deposit by the lane's current wavelength: the
+    RF and SEDs agree with the reference's march within 1e-5 of each
+    maximum; a one-bin RF still rides the sweep."""
+    ref = ref_load_ski(_ski(name), **SMALL67)
+    lam = float(ref.sources[0].sed.lam[0])
+    multi = dataclasses.replace(
+        ref, options=dataclasses.replace(ref.options, store_rf=True),
+        rf_borders=np.geomspace(lam, 4 * lam, 4))
+    port = bridge.simulation(multi, "cpu")
+    assert not lc.sweep_gate(port.medium, port.options, port._sweep_tabs,
+                             torch.zeros((1, 3)), 1024).use_sweep
+    _march_agrees(multi)
+    one = bridge.simulation(dataclasses.replace(
+        multi, rf_borders=np.array([lam, 4 * lam])), "cpu")
+    assert lc.sweep_gate(one.medium, one.options, one._sweep_tabs,
+                         torch.zeros((1, 1)), 1024).use_sweep
 
 
 @pytest.mark.parametrize("name,flag,named", [("bench6", "lya", "Lya"),

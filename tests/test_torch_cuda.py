@@ -73,6 +73,14 @@ the reduced bench6 and bench7 on the card against the CPU within
 chip_smoke.py's B6_BOUNDS and B7_BOUNDS, kernels 1, 2 and detect launched;
 no host-to-device copy in their event loops.
 
+The scan march (`csrc/march.cu`): each mode (`march_uniform`,
+`march_mesh` with its border tables in shared memory and, past 48 KB, in
+global memory, `march_voronoi`) bit for bit against its plain version on
+random, axis-parallel and corner rays with masked lanes; the reduced march
+configurations of chip_smoke.py (a SymPowMesh bench1, bench4 walked
+exactly with dust emission) on the card against the CPU within
+`MARCH_BOUNDS`; no host-to-device copy in the march's event loop.
+
 Lane refill: bench1h through the port's `load_ski` (8,192 packets in
 batches of 2,048, generations of 16 events) on the card launches kernels 1,
 2 and detect and matches the same seed on the CPU, each SED kind within
@@ -851,18 +859,23 @@ def test_mlsweep_deposit_kernel_global(dev, kind, monkeypatch):
     assert float((rf_k - rf_p).abs().max()) <= 1e-5 * float(rf_p.abs().max())
 
 
-@pytest.mark.parametrize("engine", ["tree", "tree_no_rf", "xl"])
+@pytest.mark.parametrize("engine", ["tree", "tree_no_rf", "xl", "march"])
 def test_event_loop_copies_nothing_from_host(dev, engine):
     """Three profiled events of the tree loop (with an RF: pass 2 in kernel
-    5; without: `resolve_interaction`) and of the XL loop: no host-to-device
-    copy issued inside the loop's profiler range, and every device
-    operation traced to the runtime call that issued it."""
+    5; without: `resolve_interaction`), of the XL loop and of the scan
+    march (a meshed grid): no host-to-device copy issued inside the loop's
+    profiler range, and every device operation traced to the runtime call
+    that issued it."""
     from skirt9_tpu_torch.tools import event_profile as ep
-    if engine != "xl":
+    if engine.startswith("tree"):
         grid = _tree("octree")
         med = _tree_medium(grid, 1, np.random.default_rng(0))
     else:
-        grid = make_cartesian(((-1.2 * PC, 1.2 * PC),) * 3, (80, 80, 80))
+        from skirt9_tpu_torch.grids import meshes
+        sym = meshes.scale(meshes.sym_pow_mesh(24, 8.0), -1.2 * PC, 1.2 * PC)
+        grid = make_cartesian(((-1.2 * PC, 1.2 * PC),) * 3,
+                              (80, 80, 80) if engine == "xl" else (24,) * 3,
+                              meshes=[sym] * 3 if engine == "march" else None)
         med = msys.make_medium(
             grid, msys.uniform_density_sphere(grid, 1.0, 1e-24, PC),
             np.array([0.4e-6, 0.7e-6]), sigma_ext=np.full((1, 2), 1e-24),
@@ -878,8 +891,11 @@ def test_event_loop_copies_nothing_from_host(dev, engine):
         rf_borders=(None if engine == "tree_no_rf"
                     else np.array([0.5e-6, 0.6e-6])),
         num_packets=4096, batch_size=4096, seed=1, device=dev)
-    assert isinstance(sim._sweep_tabs, xl.XLTables if engine == "xl"
-                      else ml.MLTables)
+    if engine == "march":
+        assert sim._sweep_tabs is None
+    else:
+        assert isinstance(sim._sweep_tabs, xl.XLTables if engine == "xl"
+                          else ml.MLTables)
     sim.run_primary(verbose=False)
     prof = ep.profile_run(torch, lambda: sim.run_primary(verbose=False))
     assert ep._events(sim) > 0 and prof["loop_ranges"] == 1
@@ -1751,4 +1767,80 @@ def test_config4_on_cuda_matches_cpu(dev, config4_runs):
     assert n["mlsweep_dtau_prefix"] == segs[0][3] + segs[1][3]
     assert n["mlsweep_tau_total"] > 0 and n["detect"] > 0
     for k in cs.ML_NOT_PATH:
+        assert n[k] == 0, k
+
+
+# ------------------------------------------------------------ the scan march
+
+def _march_rays(dev, mode, B, seed):
+    """A grid of each march mode with rays through it, on the card: random
+    rays, rays along an axis, diagonal rays from cell corners, a tenth of
+    the lanes masked off."""
+    from skirt9_tpu_torch.grids import meshes
+    from skirt9_tpu_torch.grids.voronoi import build_voronoi
+    rs = np.random.default_rng(seed)
+    ext = ((-1.2 * PC, 1.2 * PC),) * 3
+    if mode == "voronoi":
+        grid = build_voronoi(rs.uniform(-PC, PC, (300, 3)), ext, lookup_res=8)
+    elif mode == "uniform":
+        grid = make_cartesian(ext, (16, 12, 20))
+    else:
+        n = 16 if mode == "mesh" else 5000       # past shared memory
+        b = meshes.scale(meshes.pow_mesh(n, 10.0), -1.2 * PC, 1.2 * PC)
+        sym = meshes.scale(meshes.sym_pow_mesh(12, 8.0), -1.2 * PC, 1.2 * PC)
+        grid = make_cartesian(ext, (12, 7, n), meshes=[sym, None, b])
+    pos = rs.uniform(-1.1 * PC, 1.1 * PC, (B, 3))
+    d = rs.normal(size=(B, 3))
+    k = B // 8
+    d[:k] = 0.0
+    d[np.arange(k), rs.integers(0, 3, k)] = rs.choice([-1.0, 1.0], k)
+    d[k:2 * k] = rs.choice([-1.0, 1.0], (k, 3))
+    if mode != "voronoi":
+        bs = [x.double().numpy() for x in (grid.xb, grid.yb, grid.zb)]
+        pos[k:2 * k] = np.stack([rs.choice(x[1:-1], k) for x in bs], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    grid = grid.to(dev)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos, d = t32(pos), t32(d)
+    mask = torch.tensor(rs.uniform(size=B) < 0.9, device=dev)
+    return grid, pos, d, grid.locate(pos), mask
+
+
+@pytest.mark.parametrize("mode", ["uniform", "mesh", "mesh_global",
+                                  "voronoi"])
+def test_march_kernel(dev, mode):
+    """The march kernel against its plain version on the same CUDA tensors:
+    one launch under its mode's counter, cells and step lengths bit for
+    bit (the border tables staged in shared memory and, past 48 KB, read
+    from global memory)."""
+    from skirt9_tpu_torch.transport import march as mr
+    grid, pos, d, cell, mask = _march_rays(dev, mode, 3000, seed=7)
+    S = min(grid.max_steps(), 256)
+    kb.reset_launches()
+    ck, dk = mr.march_geometry(grid, pos, d, cell, S, mask)
+    name = mr.MODES[type(grid)]
+    assert kb.LAUNCHES[name] == 1 and sum(kb.LAUNCHES.values()) == 1
+    cp, dp = mr.march_geometry_plain(grid, pos, d, cell, S, mask)
+    assert torch.equal(ck, cp) and torch.equal(dk, dp)
+    assert int((dp > 0).sum()) > 3000
+    assert bool((ck[:, ~mask] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["bench1_sympow_mesh", "bench4_walk"])
+def test_march_on_cuda_matches_cpu(dev, name, tmp_path):
+    """A reduced march configuration (chip_smoke.MARCH_SMALL) on the card
+    against the CPU within chip_smoke.py's MARCH_BOUNDS (`march_gaps`): the
+    march kernel and detect launched, no sweep."""
+    cs = _chip_smoke()
+    outs = {}
+    for d in ("cpu", dev):
+        sim, dust = cs.march_config(name, d, tmp_path)
+        kb.reset_launches()
+        outs[str(d)] = (sim.run_with_dust_emission(verbose=False) if dust
+                        else sim.run_primary(verbose=False))
+    n = dict(kb.LAUNCHES)
+    cs.march_gaps(outs["cpu"], outs[str(dev)], dust)
+    mode = "march_mesh" if "mesh" in name else "march_voronoi"
+    assert n[mode] > 0 and n["detect"] > 0
+    for k in cs.SWEEPS:
         assert n[k] == 0, k

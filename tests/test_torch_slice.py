@@ -25,9 +25,16 @@ atol 1e-5 of its total) as the outer limit. It comes much closer (SEDs within
 1e-4, the frame 1e-5 of its brightest pixel, the RF per cell rtol 1e-4 with
 atol 1e-6 of its total.
 
+With explicit absorption the port takes the scan march, as the
+reference's gate does, and agrees with the reference at the same bounds.
+
 The port imports neither jax nor any module of the JAX package: a
 subprocess runs a uniform-grid and an octree simulation, the octree on
-its voxel raster through the XL contracts, a small config 2 with dust
+its voxel raster through the XL contracts (and the scan march on trees
+raising where a batch of 128 lanes leaves those contracts), the scan
+march on a meshed Cartesian grid (bench1.ski with a SymPowMesh and
+explicit absorption) and on a tiny Voronoi grid walked exactly, a small
+config 2 with dust
 emission (`chip_smoke.config2`) on the resident sweep and on XL tables
 (a 4-bin RF in lane groups), the gather and row-lookup probes, a reduced config 3 (bench3.ski at maxLevel 4 with a 4-bin RF
 through the loader, with and without merged iterations) and the CLI
@@ -37,8 +44,8 @@ raster (73^3, then 8 x 6 x 10) and bench4.ski's set-up through the CLI,
 imports the variant scripts of kernels 8-9 (`perf/`), and then finds no
 such module loaded and no kernel launched;
 an `ast` scan of the package (the loader, probes, CLI, unit copies, trees,
-tree and XL sweeps, voxel rasters and event loop among it), chip_smoke.py and `perf/*.py` finds
-no such import.
+tree and XL sweeps, voxel rasters, the scan march, the meshes and the
+event loop among it), chip_smoke.py and `perf/*.py` finds no such import.
 """
 
 import ast
@@ -240,13 +247,22 @@ def test_device_must_be_named(config1, monkeypatch):
 
 
 def test_unported_options_raise(config1):
+    """Explicit absorption runs on the scan march (the reference's gate
+    declines the sweep) and agrees with the reference's march at the
+    slice's bounds; polarization and kinematics on XL tables raise naming
+    themselves, and kinematics with wavelength-dependent cross sections
+    now takes the march too."""
     ref_sim, sim = config1
-    bad = dataclasses.replace(ref_sim.options, explicit_absorption=True)
-    with pytest.raises(NotImplementedError, match="explicit_absorption"):
-        dataclasses.replace(sim, options=bridge.options(bad))
+    ref_abs = dataclasses.replace(ref_sim, options=dataclasses.replace(
+        ref_sim.options, explicit_absorption=True))
+    port_abs = bridge.simulation(ref_abs, device="cpu")
+    assert isinstance(port_abs._sweep_tabs, sw.SweepTables)
+    gate = lc.sweep_gate(port_abs.medium, port_abs.options,
+                         port_abs._sweep_tabs, None, 1024)
+    assert not gate.use_sweep and gate.why == ("explicitAbsorption",)
+    _compare(ref_abs, port_abs)
     # polarization and kinematics run on the resident sweep only: on XL
-    # tables they raise naming themselves, and kinematics with
-    # wavelength-dependent cross sections names the reference's scan march
+    # tables they raise naming themselves
     for name in ("polarization", "kinematics"):
         opts = bridge.options(dataclasses.replace(ref_sim.options,
                                                   **{name: True}))
@@ -257,9 +273,10 @@ def test_unported_options_raise(config1):
             other.run_primary(verbose=False)
     varying = sim.medium._replace(
         sigma_ext=sim.medium.sigma_ext * torch.tensor([1.0, 2.0]))
-    with pytest.raises(NotImplementedError,
-                       match="kinematics with wavelength-dependent.*scan"):
-        dataclasses.replace(sim, medium=varying, options=opts)
+    moving = dataclasses.replace(sim, medium=varying, options=opts)
+    assert not lc.check_kinematics(moving.medium, moving.options, 0)
+    assert not lc.sweep_gate(moving.medium, moving.options,
+                             moving._sweep_tabs, None, 1024).use_sweep
 
 
 def _reference_octree():
@@ -350,11 +367,53 @@ for grid in (make_cartesian(ext, (6,) * 3), octree):
     rf, accs = sim.run_primary(verbose=False)
     assert float(accs[0]["sed"].sum()) > 0 and float(rf.sum()) > 0
 assert isinstance(sim._sweep_tabs, MLTables)
-# the octree on its voxel raster (the XL contracts' tables put in place)
+# the octree on its voxel raster (the XL contracts' tables put in place),
+# in whole 1,024-lane rows: a batch of 128 would take the scan march,
+# which trees do not have yet
 from skirt9_tpu_torch.transport import sweepxl as xl
 sim._sweep_tabs = xl.build_tree_tables(sim.grid, sim.medium)
+try:
+    sim.run_primary(verbose=False)
+    raise AssertionError("the scan march on trees raises")
+except NotImplementedError as err:
+    assert "scan march on trees" in str(err)
+sim.batch_size = 1024
 rf, accs = sim.run_primary(verbose=False)
 assert rf.shape == (octree.ncells, 1) and float(rf.sum()) > 0
+# the scan march: bench1.ski on a symmetric power-law mesh (a meshed
+# Cartesian grid) with explicit absorption, and a tiny Voronoi grid walked
+# exactly
+import dataclasses, tempfile
+import chip_smoke
+from skirt9_tpu_torch.config.ski import load_ski
+from skirt9_tpu_torch.grids.cartesian import CartesianGrid
+from skirt9_tpu_torch.grids.voronoi import build_voronoi
+with tempfile.TemporaryDirectory() as tmp:
+    path = chip_smoke.edited_ski("bench1", tmp, {
+        '<LinMesh numBins="32"/>': '<SymPowMesh numBins="6" ratio="4"/>',
+        'forceScattering="true"':
+        'forceScattering="true" explicitAbsorption="true"'})
+    sim = load_ski(path, num_packets=256, batch_size=128, max_events=3,
+                   device="cpu")
+    assert isinstance(sim.grid, CartesianGrid) and sim._sweep_tabs is None
+    rf, accs = sim.run_primary(verbose=False)
+    assert float(accs[0]["sed"][2].sum()) > 0
+vgrid = build_voronoi(np.random.default_rng(4).uniform(-PC, PC, (40, 3)),
+                      ext, lookup_res=8)
+nd = np.full(40, 1.0 / (1e-24 * PC), np.float32)
+vmed = msys.make_medium(vgrid, nd, np.array([0.4e-6, 0.7e-6]),
+                        sigma_ext=np.full((1, 2), 1e-24),
+                        albedo=np.full((1, 2), 0.6), g=np.full((1, 2), 0.5))
+sim = Simulation(grid=vgrid, medium=vmed, sources=[PointSource()],
+                 instruments=[inst],
+                 options=TransportOptions(max_steps=vgrid.max_steps(),
+                                          max_events=3,
+                                          raster_fallback=False),
+                 rf_borders=np.array([0.5e-6, 0.6e-6]), num_packets=256,
+                 batch_size=128, device="cpu")
+assert sim._sweep_tabs is None
+rf, accs = sim.run_primary(verbose=False)
+assert float(rf.sum()) > 0 and float(accs[0]["sed"][2].sum()) > 0
 # config 2 (dust emission, a stratified 4-bin RF, one self-absorption
 # iteration) through chip_smoke.config2, on the resident sweep and on XL
 # tables, and the probes
@@ -507,5 +566,7 @@ def test_port_sources_import_no_reference():
         "tools/kernel5_split.py", "ops/stokes.py",
         "geometries/vectorfield.py", "grids/voronoi.py",
         "transport/raster.py", "spectral/sedfamily.py",
-        "imports/snapshots.py", "utils/storedtable.py")} <= set(bad)
+        "imports/snapshots.py", "utils/storedtable.py",
+        "transport/march.py", "grids/meshes.py", "grids/cartesian.py",
+        "ops/xlamath.py", "emission/equilibrium.py")} <= set(bad)
     assert not {f: n for f, n in bad.items() if n}

@@ -13,8 +13,10 @@ box, built by both packages' `build_voronoi`:
 - on a tiny tessellation with a wall cell that Qhull's region leaves
   open, the halfspace clipping gives the reference's volumes;
 - the rasterized sweep's gates: a Voronoi grid takes it with <= 4
-  components and none of the options it lacks, and a grid it cannot take
-  raises at set-up, naming the scan march.
+  components and none of the options it lacks; a grid it cannot take
+  (here `raster_fallback` off) has no sweep tables and is walked exactly by
+  the scan march, draw for draw with the reference's march on the CPU
+  (SEDs and frames within 1e-5 of each maximum; they agree to ~1e-7).
 """
 
 import dataclasses
@@ -160,5 +162,38 @@ def test_raster_gates():
     five = sim.medium._replace(nd=sim.medium.nd.repeat(1, 5),
                                sigma_ext=sim.medium.sigma_ext.repeat(5, 1))
     assert not raster.supports(grid, five, sim.options)
-    with pytest.raises(NotImplementedError, match="scan march"):
-        _voronoi_sim(grid, raster_fallback=False)
+    walk = _voronoi_sim(grid, raster_fallback=False)
+    assert walk._sweep_tabs is None
+    # the exact walk against the reference's march on the same sites
+    from skirt9_tpu.instruments.distant import DistantInstrumentCfg as RefCfg
+    from skirt9_tpu.media import system as ref_msys
+    from skirt9_tpu.simulation import Simulation as RefSimulation
+    from skirt9_tpu.sources.base import PointSource as RefPointSource
+    from skirt9_tpu.transport import lifecycle as ref_lc
+    from skirt9_tpu_torch import bridge
+    ref_grid = ref_voronoi.build_voronoi(
+        np.random.default_rng(4).uniform(-PC, PC, (40, 3)), EXT,
+        lookup_res=8)
+    med = ref_msys.make_medium(ref_grid, np.full(40, 1.0 / (1e-24 * PC)),
+                               np.array([0.4e-6, 0.7e-6]),
+                               sigma_ext=np.full((1, 2), 1e-24),
+                               albedo=np.full((1, 2), 0.6),
+                               g=np.full((1, 2), 0.5))
+    ref = RefSimulation(
+        grid=ref_grid, medium=med, sources=[RefPointSource()],
+        instruments=[RefCfg(name="i0", wave_borders=(0.5e-6, 0.6e-6),
+                            distance=100 * PC, npx=8, npy=8, fovx=4 * PC,
+                            fovy=4 * PC)],
+        options=ref_lc.TransportOptions(max_steps=ref_grid.max_steps(),
+                                        max_events=4, raster_fallback=False),
+        rf_borders=np.array([0.5e-6, 0.6e-6]), num_packets=512,
+        batch_size=512)
+    port = bridge.simulation(ref, "cpu")
+    assert port._sweep_tabs is None
+    rf_r, accs_r = ref.run_primary(verbose=False)
+    rf_p, accs_p = port.run_primary(verbose=False)
+    for a, b in ((rf_r, rf_p), (accs_r[0]["sed"], accs_p[0]["sed"]),
+                 (accs_r[0]["frame"], accs_p[0]["frame"])):
+        a = np.asarray(a, np.float64)
+        assert np.abs(a).max() > 0
+        assert np.abs(b.double().numpy() - a).max() <= 1e-5 * np.abs(a).max()

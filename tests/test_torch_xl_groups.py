@@ -26,8 +26,10 @@ the CPU, against the reference.
   exact to 2^-16 of each cell).
 """
 
+import dataclasses
 import os
 import shutil
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +48,8 @@ from test_torch_sweepxl import _port, _prefix_inputs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
 
 
 def _fold(rf_g, bin_map, nbins):
@@ -136,20 +140,62 @@ def test_lane_order_matches_reference_key(n_groups):
 
 @pytest.mark.parametrize("B,ok", [(4096, True), (1536, False), (2560, False)],
                          ids=["4096", "1536", "2560"])
-def test_xl_lane_groups_need_the_reference_layout(B, ok):
+def test_xl_lane_groups_need_the_reference_layout(B, ok, tmp_path):
     """Four lane groups on XL grids need B a multiple of 4 x 128 lanes and
     B / 128 a multiple of 8 (`lifecycle.py:573-578` of the reference);
-    elsewhere the reference runs its scan march, which the port does not
-    have. The resident sweep takes 1536."""
+    elsewhere the batch takes the scan march, as in the reference. The
+    resident sweep takes 1536. On the march a monochromatic source in a
+    4-bin RF on XL tables (one lane group) runs draw for draw with the
+    reference's march on the same tables: SEDs, frame and RF within 1e-5
+    of each maximum."""
     opts = lc.TransportOptions(max_steps=8, rf_strata=4,
                                rf_bin_map=(0, 1, 2, 3))
     rf = torch.zeros((8, 4))
-    assert lc._rf_groups(opts, rf, 1536, False) == 4
+    grid = bridge.grid(_tiny_grid())
+    med = bridge.medium(_tiny_medium())
+    tabs = sw.build_tables(grid, med)
+    tabs_xl = xl.build_tables(grid, med)
+    gate = lc.sweep_gate(med, opts, tabs, rf, 1536)
+    assert gate.use_sweep and gate.n_groups == 4
+    gate = lc.sweep_gate(med, opts, tabs_xl, rf, B)
+    assert gate.use_sweep == ok and gate.n_groups == 4
     if ok:
-        assert lc._rf_groups(opts, rf, B, True) == 4
-    else:
-        with pytest.raises(NotImplementedError, match="scan march"):
-            lc._rf_groups(opts, rf, B, True)
+        return
+    assert gate.why == (f"batch {B} not divisible into the XL engine's "
+                        "1024-lane blocks",)
+    path = chip_smoke.edited_ski("bench1", tmp_path,
+                                 {'numBins="32"': 'numBins="8"'})
+    ref = load_ski(path, num_packets=B, batch_size=B, max_events=3)
+    ref = dataclasses.replace(
+        ref, options=dataclasses.replace(ref.options, store_rf=True),
+        rf_borders=np.geomspace(0.4e-6, 0.8e-6, 5))
+    ref._sweep_tabs = ref_xl.build_tables(ref.grid, ref.medium)
+    port = bridge.simulation(ref, "cpu")
+    assert isinstance(port._sweep_tabs, xl.XLTables)
+    assert port._mono_rf_bin(port.sources[0], port.options) >= 0
+    rf_r, accs_r = ref.run_primary(verbose=False)
+    kb.reset_launches()
+    rf_p, accs_p = port.run_primary(verbose=False)
+    assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}
+    for a, b in ((rf_r, rf_p), (accs_r[0]["sed"], accs_p[0]["sed"]),
+                 (accs_r[0]["frame"], accs_p[0]["frame"])):
+        a = np.asarray(a, np.float64)
+        assert np.abs(a).max() > 0
+        assert np.abs(b.double().numpy() - a).max() <= 1e-5 * np.abs(a).max()
+
+
+def _tiny_grid():
+    from skirt9_tpu.grids.cartesian import make_cartesian
+    return make_cartesian(((-1.0, 1.0),) * 3, (4, 4, 4))
+
+
+def _tiny_medium():
+    from skirt9_tpu.media import system as ref_msys
+    return ref_msys.make_medium(_tiny_grid(), np.ones(64, np.float32),
+                                np.array([0.4e-6, 0.7e-6]),
+                                sigma_ext=np.full((1, 2), 0.1),
+                                albedo=np.full((1, 2), 0.5),
+                                g=np.full((1, 2), 0.0))
 
 
 def test_reduced_config2_on_xl_draw_for_draw(tmp_path, monkeypatch):
