@@ -349,6 +349,37 @@ Phases, one JSON line each:
                     SymPowMesh grid (march_mesh: the transparent SED exact,
                     the scattered SED within 2% of full_width's sweep run),
                     packets/s beside full_width's
+  kernels_march_tree  (right after kernels_march) the march kernel's tree
+                    modes against their plain versions on the card:
+                    march_octree on bench3's octree (55,574 leaves, 2^16
+                    lanes at its first event, S = 256), march_bintree on
+                    bench3 with treeType="BinTree" (the loader's triple
+                    levels) and march_octree on a level-10 octree (2^16
+                    random lanes); cells identical and lengths
+                    bit-identical on every (step, lane), timed, the bound
+                    from the bytes of the (S, B) tables
+  draw_for_draw_tree  the reduced tree configurations (TREE_SMALL) on the
+                    CPU and on the card: bench3 at maxLevel 4 with explicit
+                    absorption, a 4-bin RF and one self-absorption iteration
+                    (the octree march; also on a bintree), bench5 on an
+                    octree moving (polarization and kinematics on the
+                    tree's XL raster) and static (polarization on the tree
+                    sweep), bench6 on an octree with its gas temperature
+                    rising 1x to 2x (Lya on the tree march) and bench7 on
+                    an octree (X-ray on the XL raster), within
+                    MARCH_BOUNDS, B5_BOUNDS or B6_BOUNDS/B7_BOUNDS
+  full_width_b3_march  bench3.ski with explicitAbsorption at bench_config3's
+                    width (2^18 packets in batches of 2^16, 24 events): the
+                    raster's XL tables built and declined by the gate,
+                    march_octree and detect launched, no sweep kernel; every
+                    bench3 gate; packets/s beside full_width_b3's tree-sweep
+                    run and its gates; one batch per segment profiled
+  full_width_b5_tree  bench5.ski on a maxLevel-6 density octree (24,571
+                    leaves, its 64^3 voxel raster) at bench_config5's width:
+                    kernels 6-7 and detect's Stokes mode, no march; the
+                    transparent SED equal to full_width_b5's (the same
+                    histories) within 1e-5, V identically 0, R < 0.01;
+                    bench5's golden ratios beside full_width_b5's, reported
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -2230,7 +2261,9 @@ def config1h(device, num_packets=1 << 19, batch_size=B_FULL):
 def edited_ski(name: str, directory, edits: dict, out: str = "small") -> str:
     """tests/golden/<name>.ski with each `old` replaced by `new`, written
     into directory beside copies of the input files it reads (the dust mix
-    file, and bench4's particles, sites and SSP table)."""
+    file, bench4's particles, sites and SSP table, bench7's SED and the
+    X-ray gas's atomic data, which the loader reads beside the ski
+    file)."""
     import re
     import shutil
     with open(os.path.join(GOLDEN, f"{name}.ski")) as f:
@@ -2241,10 +2274,31 @@ def edited_ski(name: str, directory, edits: dict, out: str = "small") -> str:
     path = os.path.join(str(directory), f"{out}.ski")
     with open(path, "w") as f:
         f.write(text)
-    for fn in {"mrn_mean.txt", *re.findall(r'filename="([^"/]+)"', text)}:
+    files = {"mrn_mean.txt", *re.findall(r'filename="([^"/]+)"', text)}
+    if "XRayAtomicGasMix" in text:
+        files |= {"XRay_PA.txt", "XRay_FL.txt"}
+    for fn in files:
         if os.path.exists(os.path.join(GOLDEN, fn)):
             shutil.copy(os.path.join(GOLDEN, fn), str(directory))
     return path
+
+
+def tree_edits(name: str, max_level: int, min_level: int = 2) -> dict:
+    """The edit of tests/golden/<name>.ski that replaces its
+    CartesianSpatialGrid by a density octree over the same box, levels
+    min_level to max_level (DensityTreePolicy, maxDustFraction 1e-4)."""
+    with open(os.path.join(GOLDEN, f"{name}.ski")) as f:
+        text = f.read()
+    start = text.index("<CartesianSpatialGrid")
+    end = text.index("</CartesianSpatialGrid>") + len(
+        "</CartesianSpatialGrid>")
+    grid = text[start:end]
+    head = grid[:grid.index(">")].replace("<CartesianSpatialGrid",
+                                          "<PolicyTreeSpatialGrid")
+    return {grid: f'{head} treeType="OctTree"><policy type="TreePolicy">'
+            f'<DensityTreePolicy minLevel="{min_level}" maxLevel='
+            f'"{max_level}" maxDustFraction="1e-4"/></policy>'
+            '</PolicyTreeSpatialGrid>'}
 
 
 # the reduced bench3: levels 2-4 (2,122 leaves on a 16^3 fine raster)
@@ -2852,7 +2906,7 @@ def phase_full_width_b3(torch, smi: str):
            **gates, "device": torch.cuda.get_device_name(0),
            "nvidia_smi": smi}
     emit(res)
-    return sim, launches
+    return sim, launches, res
 
 
 def phase_breakdown_b3(torch) -> None:
@@ -3473,20 +3527,15 @@ def bench5_gates(sed_um, sed_static_um) -> dict:
     (tests/test_reference_parity.py:280-353) on a run's SED [W/m2/micron]
     (dict of kinds and Q, U, V) and the static variant's scattered SED."""
     g = np.loadtxt(os.path.join(GOLDEN, "bench5_i0_sed.dat"))
-
-    def med_ratio(ours, ref):
-        m = np.abs(ref) > 0.1 * np.max(np.abs(ref))
-        return float(np.median(ours[m] / ref[m]))
-
+    ratios = bench5_ratios(sed_um)
     res = {}
-    for kind, col, tol in (("transparent", 2, 0.02),
-                           ("primarydirect", 3, 0.02), ("total", 1, 0.02),
-                           ("primaryscattered", 4, 0.05)):
-        r = med_ratio(sed_um[kind], g[:, col])
+    for kind, tol in (("transparent", 0.02), ("primarydirect", 0.02),
+                      ("total", 0.02), ("primaryscattered", 0.05)):
+        r = ratios[kind]
         require(abs(r - 1) < tol, f"bench5 {kind} median ratio {r} within "
                 f"{tol}")
         res[f"{kind}_ratio"] = r
-    q = med_ratio(sed_um["Q"], g[:, 8])
+    q = ratios["Q"]
     require(abs(q - 1) < 0.15, f"bench5 Q median ratio {q} within 0.15")
     p_ours = np.median(sed_um["Q"] / np.maximum(sed_um["primaryscattered"],
                                                 1e-300))
@@ -3639,7 +3688,10 @@ def phase_full_width_b5(torch, smi: str):
            / stats["events"], **gates,
            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     emit(res)
-    return sim, launches
+    uniform = {"packets_per_s": sim.last_rate,
+               "golden_ratios": bench5_ratios(sed),
+               "transparent_sed": sed["transparent"]}
+    return sim, launches, uniform
 
 
 def phase_breakdown_b5(torch) -> None:
@@ -4553,7 +4605,6 @@ def march_config(name, device, directory):
     rising 1x to 2x over its occupied cells, bench2 with one
     self-absorption iteration. Returns (sim, dust emission)."""
     import dataclasses
-    import torch
     from skirt9_tpu_torch.config.ski import load_ski
     ski, edits, run, dust = MARCH_SMALL[name]
     path = edited_ski(ski, directory, edits, out=name)
@@ -4562,15 +4613,24 @@ def march_config(name, device, directory):
         sim = dataclasses.replace(sim, options=dataclasses.replace(
             sim.options, raster_fallback=False))
     if ski == "bench6":
-        T = sim.medium.temperature.clone()
-        occ = sim.medium.nd[:, 0] > 0
-        T[occ] *= torch.linspace(1.0, 2.0, int(occ.sum()), device=T.device)
-        sim = dataclasses.replace(sim, medium=sim.medium._replace(
-            temperature=T))
+        sim = temperature_ramp(sim)
     if ski == "bench2":
         sim.iterate_secondary, sim.max_iterations = True, 1
     sim._sweep_tabs = None
     return sim, dust
+
+
+def temperature_ramp(sim):
+    """The simulation with its gas temperature rising 1x to 2x over the
+    occupied cells (Lya at many temperatures: the Voigt opacity per cell,
+    on the march)."""
+    import dataclasses
+    import torch
+    T = sim.medium.temperature.clone()
+    occ = sim.medium.nd[:, 0] > 0
+    T[occ] *= torch.linspace(1.0, 2.0, int(occ.sum()), device=T.device)
+    return dataclasses.replace(sim, medium=sim.medium._replace(
+        temperature=T))
 
 
 def march_gaps(out_c, out_g, dust: bool) -> dict:
@@ -4824,6 +4884,348 @@ def phase_full_width_b1_march(torch, smi: str, sweep: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- trees marched
+
+MARCH_TREE = ("march_octree", "march_bintree")
+# f32 operations of a tree step in csrc/march.cu (the exit distances, the
+# least, the move and the nudge, the root box test), and per level of the
+# descent (an octree's three comparisons and two adds, a bintree's one)
+OPS_TREE_STEP = 30
+OPS_TREE_LEVEL = {"march_octree": 5, "march_bintree": 2}
+# bench3 with explicit absorption: the interaction sampled on the
+# scattering depth, so the gate declines the tree raster's XL tables and
+# the octree marches
+B3_EXPLICIT = {'forceScattering="true"':
+               'forceScattering="true" explicitAbsorption="true"'}
+B3_BINTREE = {'treeType="OctTree"': 'treeType="BinTree"'}
+# the reduced tree configurations of draw_for_draw_tree (the CPU tests
+# build the same cases from the reference's loader): ski file, edits (a
+# ("tree", maxLevel) entry replaces the Cartesian grid by a density
+# octree), run sizes, dust emission, the kernels the card must launch
+TREE_SMALL = {
+    "bench3_explicit_absorption": (
+        "bench3", dict(B3_SMALL, **B3_EXPLICIT,
+                       **{'numWavelengths="25"': 'numWavelengths="4"'}),
+        dict(num_packets=4096, batch_size=4096, max_events=8), True,
+        ("march_octree",)),
+    "bench3_bintree_explicit_absorption": (
+        "bench3", dict(B3_SMALL, **B3_EXPLICIT, **B3_BINTREE,
+                       **{'numWavelengths="25"': 'numWavelengths="4"'}),
+        dict(num_packets=4096, batch_size=4096, max_events=8), True,
+        ("march_bintree",)),
+    "bench5_moving": ("bench5", {"tree": 3},
+                      dict(num_packets=4096, batch_size=1024, max_events=8),
+                      False, XL),
+    "bench5_static": ("bench5", dict({"tree": 3}, **B5_STATIC),
+                      dict(num_packets=4096, batch_size=1024, max_events=8),
+                      False, ML_PASS1),
+    "bench6_varying_T": ("bench6", {"tree": 3},
+                         dict(num_packets=2048, batch_size=2048,
+                              max_events=8), False, ("march_octree",)),
+    "bench7": ("bench7", {"tree": 3},
+               dict(num_packets=2048, batch_size=2048, max_events=16),
+               False, XL)}
+
+
+def tree_config(name, device, directory):
+    """One reduced tree configuration (TREE_SMALL) through the port's
+    load_ski: bench3 with one self-absorption iteration, bench6 with its gas
+    temperature rising 1x to 2x over the occupied cells. Returns (sim,
+    dust emission)."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    ski, edits, run, dust, _ = TREE_SMALL[name]
+    edits = dict(edits)
+    if "tree" in edits:
+        edits.update(tree_edits(ski, edits.pop("tree")))
+    sim = load_ski(edited_ski(ski, directory, edits, out=name),
+                   device=device, **run)
+    if ski == "bench6":
+        sim = temperature_ramp(sim)
+    if ski == "bench3":
+        sim.max_iterations = 1
+    return sim, dust
+
+
+def leaf_depth(grid):
+    """(ncells,) levels of the descent that ends in each leaf: an octree
+    leaf's halvings of the root box along x, a bintree leaf's along all
+    three axes."""
+    import torch
+    ratio = ((grid.box_hi - grid.box_lo)[None, :].double()
+             / (grid.cell_hi - grid.cell_lo).double())
+    lv = torch.round(torch.log2(ratio))
+    return lv[:, 0] if type(grid).__name__ == "OctreeGrid" else lv.sum(dim=1)
+
+
+def _march_tree_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
+    """A tree mode of the march kernel against its plain version on the
+    same CUDA tensors: cells identical and lengths bit-identical on every
+    (step, lane); timed by CUDA events and the profiler (a dropped kernel
+    event flagged), beside the plain version; the bound from the bytes of
+    the (S, B) tables, the lanes' inputs and the trees' tables, or the
+    operations of the walked steps, each descending to its next leaf."""
+    from skirt9_tpu_torch.kernels import build as kb
+    from skirt9_tpu_torch.transport import march as mr
+    B = pos.shape[0]
+    kb.reset_launches()
+    ck, dk = mr._march_cuda(grid, pos, dirn, cell, S, mask)
+    require(kb.LAUNCHES[name] == 1, f"{name} launched once")
+    cp, dp = mr.march_geometry_plain(grid, pos, dirn, cell, S, mask)
+    lanes_off = int(((ck != cp) | (dk != dp)).any(dim=0).sum())
+    require(lanes_off == 0 and torch.equal(ck, cp) and torch.equal(dk, dp),
+            f"{name}: cells and lengths bit-identical ({lanes_off} lanes "
+            "differ)")
+    walked = dp > 0
+    require(int(walked.sum()) > B, f"{name} walks ({int(walked.sum())})")
+    kern = lambda: mr._march_cuda(grid, pos, dirn, cell, S, mask)
+    dev = device_ms(kern)
+    depth = leaf_depth(grid)[cp.long()][walked]
+    ops = float((OPS_TREE_STEP + OPS_TREE_LEVEL[name] * depth).sum())
+    node_bytes = sum(t.numel() * t.element_size() for t in grid[:-2]
+                     if isinstance(t, torch.Tensor))
+    nbytes = S * B * 8 + B * (12 + 12 + 4 + 1) + node_bytes
+    plain_ms = cuda_ms(lambda: mr.march_geometry_plain(grid, pos, dirn, cell,
+                                                       S, mask), reps=2)
+    return dict(max_abs_err=float((dk - dp).abs().max()),
+                lanes_cells_differ=lanes_off, lanes=B, steps=S,
+                leaves=grid.ncells, levels=grid.levels,
+                walked_pairs=int(walked.sum()),
+                live_share=float(walked.float().mean()),
+                max_walk=int(walked.sum(dim=0).max()),
+                mean_depth=float(depth.double().mean()),
+                ms=cuda_ms(kern), device_ms=dev["ours"] or None,
+                profiler_dropped=dev["ours"] == 0,
+                device_launches=dev["launches"], plain_ms=plain_ms,
+                library_ms=None, **bound(nbytes, ops))
+
+
+def _first_event_lanes(torch, sim, B):
+    """The positions, directions, cells and alive mask of the first B
+    histories of the simulation's first source, as its first event's
+    march sees them."""
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.sources import base as src
+    pkt = src.launch_batch(sim.sources[0], sim._src_tabs[0], sim.grid,
+                           rng.seed_key(sim.seed, sim.device),
+                           torch.arange(B, device=sim.device),
+                           sim.num_packets)
+    return pkt.pos, pkt.dir, pkt.cell, pkt.alive
+
+
+def phase_kernels_march_tree(torch) -> dict:
+    """The march kernel's tree modes against their plain versions
+    (_march_tree_check): march_octree on bench3's octree and march_bintree
+    on bench3 loaded as a bintree (2^16 lanes at the first event, S =
+    256), and march_octree on a level-10 octree (2^16 random lanes)."""
+    from skirt9_tpu_torch import device
+    from skirt9_tpu_torch.grids.octree import build_octree
+    dev = device.resolve("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path in (
+                ("march_octree", None),
+                ("march_bintree", edited_ski("bench3", tmp, B3_BINTREE))):
+            sim = config3("cuda", path=path)
+            S = sim.options.max_steps
+            require(S == 256, f"bench3's march takes 256 steps ({S})")
+            pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_B3)
+            out[name] = _march_tree_check(torch, name, sim.grid, pos, dirn,
+                                          cell, S, alive)
+            del sim
+    p = np.array([0.1, 0.2, 0.3]) * PC
+    deep = build_octree(((-1.2 * PC, 1.2 * PC),) * 3, None, max_level=10,
+                        min_level=2, refine_fn=lambda lo, hi, level: np.all(
+                            (lo <= p) & (p < hi), axis=-1)).to(dev)
+    require(deep.levels == 11, f"the level-10 octree ({deep.levels})")
+    rs = np.random.default_rng(23)
+    pos = np.concatenate([rs.uniform(-1.2 * PC, 1.2 * PC, (B_B3 // 2, 3)),
+                          p + rs.normal(scale=0.01 * PC, size=(B_B3 // 2, 3))])
+    d = rs.normal(size=(B_B3, 3))
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos, dirn = t32(pos), t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    cell = deep.locate(pos)
+    out["march_octree_level10"] = _march_tree_check(
+        torch, "march_octree", deep, pos, dirn, cell,
+        min(deep.max_steps(), 256), cell >= 0)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_march_tree", **out})
+    return out
+
+
+def phase_draw_for_draw_tree(torch) -> dict:
+    """TREE_SMALL on the CPU (plain versions) and on the card (kernels),
+    the same seed: bench3 by march_gaps, bench5 by b5_errors within
+    B5_BOUNDS, bench6 and bench7 by sed_gaps within B6_BOUNDS and
+    B7_BOUNDS; each case's kernels launched on the card, and neither
+    another march mode nor a sweep outside its engine."""
+    res, launches = {}, {}
+    every = SWEEPS + MARCH + MARCH_TREE
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (ski, _, _, dust, must) in TREE_SMALL.items():
+            outs = {}
+            for device in ("cpu", "cuda"):
+                sim, dust = tree_config(name, device, tmp)
+                run = (lambda: sim.run_with_dust_emission(verbose=False)) \
+                    if dust else (lambda: sim.run_primary(verbose=False))
+                if device == "cuda":
+                    outs[device], n = drive(
+                        must + DETECT, tuple(k for k in every
+                                             if k not in must), run)
+                    launches[name] = {k: v for k, v in n.items() if v}
+                else:
+                    outs[device] = run()
+            acc_c, acc_g = outs["cpu"][1][0], outs["cuda"][1][0]
+            if ski == "bench5":
+                res[name] = b5_errors(acc_c, acc_g)
+                for k, e in res[name].items():
+                    limit = B5_BOUNDS.get(k, MARCH_BOUNDS["primary"])
+                    require(e <= limit, f"draw-for-draw ({name}) {k} {e} "
+                            f"<= {limit}")
+            elif ski in ("bench6", "bench7"):
+                res[name] = sed_gaps(acc_c, acc_g)
+                hold_gaps(name, res[name],
+                          B6_BOUNDS if ski == "bench6" else B7_BOUNDS)
+            else:
+                res[name] = march_gaps(outs["cpu"], outs["cuda"], dust)
+            torch.cuda.empty_cache()
+    emit({"phase": "draw_for_draw_tree", "march_bounds": MARCH_BOUNDS,
+          "b5_bounds": B5_BOUNDS, "b6_bounds": B6_BOUNDS,
+          "b7_bounds": B7_BOUNDS,
+          "configs": {k: dict(zip(("ski", "edits", "run", "dust", "must"),
+                                  v)) for k, v in TREE_SMALL.items()},
+          "gaps": res, "launches": launches})
+    return launches
+
+
+def config3_march(device, **kw):
+    """config 3 with explicitAbsorption (B3_EXPLICIT): the tree raster's
+    XL tables built, as the reference builds them, and declined by the
+    gate; the octree marches."""
+    from skirt9_tpu_torch.transport import lifecycle as lc
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = config3(device, path=edited_ski("bench3", tmp, B3_EXPLICIT),
+                      **kw)
+    require(type(sim._sweep_tabs).__name__ == "XLTables"
+            and sim.options.explicit_absorption,
+            "bench3 with explicit absorption builds its raster's XLTables")
+    gate = lc.sweep_gate(sim.medium, sim.options, sim._sweep_tabs,
+                         sim._init_rf(), sim.batch_size)
+    require(not gate.use_sweep and "explicitAbsorption" in gate.why,
+            f"the gate declines the XL tables ({gate.why})")
+    return sim
+
+
+def phase_full_width_b3_march(torch, smi: str, sweep: dict) -> dict:
+    """bench3.ski with explicit absorption at bench_config3's width (2^18
+    packets in batches of 2^16, 24 events, seed 0), a warm-up run and a
+    timed run: march_octree and detect launched, no sweep kernel and no
+    other march mode; every bench3 gate; packets/s as bench.py counts them
+    beside full_width_b3's tree-sweep run (sweep: its rate and gates);
+    one batch per segment profiled (host_per_event)."""
+    sim = config3_march("cuda")
+    sim.run_with_dust_emission(verbose=False)            # warm-up
+    t0 = time.perf_counter()
+    (rf, accs, info), launches = drive(
+        ("march_octree",) + DETECT,
+        SWEEPS + MARCH + ("march_bintree",),
+        lambda: sim.run_with_dust_emission(verbose=False))
+    dt = time.perf_counter() - t0
+    stats = dict(sim.last_stats)
+    packets = sim.num_packets * (1 + info["iterations"]
+                                 + int(info["L_dust"] > 0))
+    require(bool(torch.isfinite(rf).all()) and float(rf.min()) >= 0,
+            "RF finite and non-negative")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = sim.write_outputs(accs, "b3m", tmp)
+        sed = np.loadtxt(paths[0])
+    gates = bench3_gates(sim, sed, mean_intensity(sim, rf),
+                         sim.dust_temperature(rf)[:, 0])
+    events = sum(seg[3] for seg in stats["segments"])
+    prof = host_per_event(torch, config3_march("cuda", num_packets=B_B3),
+                          lambda s: s.run_with_dust_emission(verbose=False))
+    emit({"phase": "full_width_b3_march", "leaves": sim.grid.ncells,
+          "max_steps": sim.options.max_steps, "packets": sim.num_packets,
+          "batch": sim.batch_size, "rf_bins": rf.shape[1],
+          "packets_per_s": packets / dt, "seconds": dt,
+          "iterations": info["iterations"], "L_dust": info["L_dust"],
+          "L_dust_over_L_abs_primary": info["L_dust"] / info["L_abs_primary"],
+          "segments": [{"name": n, "packets": p, "seconds": t, "events": e}
+                       for n, p, t, e in stats["segments"]],
+          "events": events, "launches": {k: v for k, v in launches.items()
+                                         if v},
+          **gates, "breakdown": prof, "tree_sweep": sweep,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    return launches
+
+
+def config5_tree(device, **kw):
+    """config 5 with its grid replaced by a density octree of levels 2-6
+    (tree_edits): 24,571 leaves on a 64^3 voxel raster, which the XL
+    contracts take (kinematics leaves the tree sweep)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = config5(device, path=edited_ski(
+            "bench5", tmp, tree_edits("bench5", 6), out="tree"), **kw)
+    require(type(sim.grid).__name__ == "OctreeGrid"
+            and type(sim._sweep_tabs).__name__ == "XLTables"
+            and sim._sweep_tabs.cellmap is not None,
+            "bench5 on an octree: its voxel raster's XL tables")
+    return sim
+
+
+def phase_full_width_b5_tree(torch, smi: str, uniform: dict) -> dict:
+    """bench5 on a maxLevel-6 octree (config5_tree) at bench_config5's
+    width, a warm-up run and a timed run: kernels 6-7 and detect (its
+    Stokes mode) launched, no march and no other sweep; gated: the
+    transparent SED equal to full_width_b5's within 1e-5 of its maximum
+    (the same histories: the transparent light does not see the grid), V
+    identically 0, the SED's R < 0.01 in every bin; reported beside
+    full_width_b5's (uniform: its rate, ratios and transparent SED): the
+    bench5 golden ratios, which the tree, resolving the disk otherwise,
+    need not meet."""
+    sim = config5_tree("cuda")
+    sim.run_primary(verbose=False)                       # warm-up
+    (rf, accs), launches = drive(
+        XL + DETECT, RESIDENT + ML + NOT_PATH + MARCH + MARCH_TREE,
+        lambda: sim.run_primary(verbose=False))
+    stats = dict(sim.last_stats)
+    with tempfile.TemporaryDirectory() as tmp:
+        sed = _b5_outputs(sim, accs, tmp, "b5tree")[0]
+        cols = np.loadtxt(os.path.join(tmp, "b5tree_i0_sed.dat"))
+    tr = uniform["transparent_sed"]
+    e_tr = float(np.abs(sed["transparent"] - tr).max() / np.abs(tr).max())
+    require(e_tr <= 1e-5, f"transparent SED {e_tr} <= 1e-5 of the uniform "
+            "run's")
+    require(bool(np.all(sed["V"] == 0)), "V identically 0")
+    R = cols[:, 10]
+    require(float(R.max()) < 0.01, f"SED relative error R {R.max()} < 0.01")
+    emit({"phase": "full_width_b5_tree", "leaves": sim.grid.ncells,
+          "raster": list(sim._sweep_tabs.n), "packets": sim.num_packets,
+          "batch": sim.batch_size, "packets_per_s": sim.last_rate,
+          "seconds": stats["seconds"], "events": stats["events"],
+          "launches": {k: v for k, v in launches.items() if v},
+          "transparent_vs_uniform": e_tr, "R_max": float(R.max()),
+          "R_median": float(np.median(R)),
+          "golden_ratios": bench5_ratios(sed),
+          "uniform": {k: v for k, v in uniform.items()
+                      if k != "transparent_sed"},
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    return launches
+
+
+def bench5_ratios(sed_um) -> dict:
+    """The median ratios of a run's SED [W/m2/micron] to the golden one's
+    (tests/test_reference_parity.py:280-353) over the bins above a tenth of
+    the golden maximum: the total, transparent, direct, scattered and Q
+    columns."""
+    g = np.loadtxt(os.path.join(GOLDEN, "bench5_i0_sed.dat"))
+    out = {}
+    for kind, col in (("transparent", 2), ("primarydirect", 3), ("total", 1),
+                      ("primaryscattered", 4), ("Q", 8)):
+        m = np.abs(g[:, col]) > 0.1 * np.max(np.abs(g[:, col]))
+        out[kind] = float(np.median(sed_um[kind][m] / g[m, col]))
+    return out
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -4836,6 +5238,7 @@ def main() -> int:
     phase_build()
     # the march kernel's device times first, while the profiler is fresh
     kern_march = phase_kernels_march(torch)
+    kern_march.update(phase_kernels_march_tree(torch))
     kern = phase_kernels(torch)
     kern.update(phase_kernels_xl(torch))
     torch.cuda.empty_cache()
@@ -4877,7 +5280,9 @@ def main() -> int:
     kern_b3 = phase_kernels_b3(torch)
     torch.cuda.empty_cache()
     phase_draw_for_draw_b3(torch)
-    sim, launches_b3 = phase_full_width_b3(torch, smi)
+    sim, launches_b3, res_b3 = phase_full_width_b3(torch, smi)
+    sweep_b3 = {k: res_b3[k] for k in res_b3 if k.endswith("ratio")
+                or k in ("packets_per_s", "seconds", "iterations")}
     del sim
     phase_breakdown_b3(torch)
     torch.cuda.empty_cache()
@@ -4906,7 +5311,7 @@ def main() -> int:
     kern_b5 = phase_kernels_b5(torch)
     torch.cuda.empty_cache()
     phase_draw_for_draw_b5(torch)
-    sim, launches_b5 = phase_full_width_b5(torch, smi)
+    sim, launches_b5, uniform_b5 = phase_full_width_b5(torch, smi)
     del sim
     phase_breakdown_b5(torch)
     torch.cuda.empty_cache()
@@ -4930,6 +5335,14 @@ def main() -> int:
     launches_walk = phase_full_width_b4_walk(torch, smi, raster_b4)
     torch.cuda.empty_cache()
     launches_b1_march = phase_full_width_b1_march(torch, smi, sweep_b1)
+    torch.cuda.empty_cache()
+    # trees on the march, and the options on the tree and XL sweeps
+    launches_tree_small = phase_draw_for_draw_tree(torch)
+    torch.cuda.empty_cache()
+    launches_b3_march = phase_full_width_b3_march(torch, smi, sweep_b3)
+    torch.cuda.empty_cache()
+    launches_b5_tree = phase_full_width_b5_tree(torch, smi, uniform_b5)
+    torch.cuda.empty_cache()
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -5143,6 +5556,37 @@ def main() -> int:
                          "bound_by", "library_ms", "device_ms",
                          "profiler_dropped", "lanes_cells_differ",
                          "ds_sum_rel_err", "live_share")}})
+    # its tree modes: the octree on config 3's march (and a level-10
+    # octree, checked in kernels_march_tree), the bintree on the reduced
+    # bench3 bintree of draw_for_draw_tree
+    tree_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "device_ms", "profiler_dropped",
+                 "lanes_cells_differ", "live_share", "leaves", "levels",
+                 "mean_depth", "max_walk")
+    for name, path, counts in (
+            ("march_octree", "full_width_b3_march", launches_b3_march),
+            ("march_bintree", "draw_for_draw_tree "
+             "(bench3_bintree_explicit_absorption)",
+             launches_tree_small["bench3_bintree_explicit_absorption"])):
+        k = kern_march[name]
+        row = {"name": name, "route": "cuda",
+               "source": "skirt9_tpu_torch/csrc/march.cu",
+               "replaces": "skirt9_tpu/transport/lifecycle.py:132 "
+               "(march_geometry, an XLA scan: not a TPU kernel)",
+               "path": path, "launches": counts[name],
+               **{key: k[key] for key in tree_keys}}
+        if name == "march_octree":
+            row["level10"] = {key: kern_march["march_octree_level10"][key]
+                              for key in tree_keys}
+            row["launches_draw_for_draw_tree"] = {
+                case: n.get(name, 0)
+                for case, n in launches_tree_small.items()}
+        rows.append(row)
+    for name in ("sweepxl_tau_total", "sweepxl_dtau_prefix",
+                 "sweepxl_deposit_prefix", "detect"):
+        # kernels 6-7 and detect's Stokes mode on bench5's tree raster
+        next(r for r in rows if r["name"] == name)[
+            "launches_config5_tree"] = launches_b5_tree[name]
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,8 @@ port's own raster at the reference's resolution, its leaf map equal to the
 reference's owner map. With `simulation(..., march=True)` the port has no
 sweep tables where the reference has none, which on the CPU is every
 configuration (the reference sweeps only on its accelerator): both run the
-scan march.
+scan march, and a tree keeps no leaf map, as the reference's CPU tree has
+none.
 """
 
 from __future__ import annotations
@@ -214,6 +215,10 @@ def simulation(ref_sim, device, march: bool = False) -> Simulation:
     ref_tabs = getattr(ref_sim, "_sweep_tabs", None)
     if march and ref_tabs is None:
         sim._sweep_tabs = None
+        if isinstance(sim.grid, (OctreeGrid, BinTreeGrid)):
+            # the reference's CPU tree has no leaf map: launches locate by
+            # descent, as its march does
+            sim.grid = sim.grid._replace(leafmap=None, fine_n=())
     elif type(ref_tabs).__name__ == "XLTables":
         _xl_tables(sim, ref_tabs)
     elif isinstance(sim.grid, VoronoiGrid) and ref_tabs is not None:

@@ -6,7 +6,7 @@
 // which is not a Pallas kernel: the plain PyTorch version
 // (skirt9_tpu_torch/transport/march.py `march_geometry_plain`) is one torch
 // step per step, about 30 launches each, times up to 256 steps, times three
-// marches an event. Three modes, one per grid kind, each with its own launch
+// marches an event. Five modes, one per grid kind, each with its own launch
 // counter:
 //   march_uniform  a uniform Cartesian grid: the next border of each axis is
 //                  lo + index * h (UniformCartesianGrid.step,
@@ -17,7 +17,16 @@
 //   march_voronoi  the exact Voronoi walk: the nearest positive crossing of a
 //                  bisector plane over the -1-padded neighbour list, or the
 //                  domain wall; the sites and neighbour lists are read through
-//                  L1/L2 (VoronoiGrid.step, skirt9_tpu/grids/voronoi.py:77-110).
+//                  L1/L2 (VoronoiGrid.step, skirt9_tpu/grids/voronoi.py:77-110);
+//   march_octree   an octree: exit the leaf box, nudge past the face by 1e-4
+//                  of the leaf's smallest edge, and find the next leaf by
+//                  descent from the root, `levels` levels at most, the node
+//                  tables read through the read-only cache (OctreeGrid.step,
+//                  skirt9_tpu/grids/octree.py:81-101);
+//   march_bintree  a bintree: the same step, each node's descent along its
+//                  split axis (BinTreeGrid.step, skirt9_tpu/grids/bintree.py:
+//                  67-83).
+// The two tree modes have their own entry point, march_tree_launch.
 // Every f32 operation follows the plain version one for one (built with
 // -fmad=false); where the plain version replays one of XLA's fused
 // multiply-adds (ops/xlamath.py `fma`), because an ulp there decides which
@@ -198,7 +207,111 @@ __global__ void march_kernel(const float* __restrict__ pos,
   }
 }
 
+// One tree step from leaf c: the exit distance, the position moved onto the
+// exit face, and the next leaf (-1 past the root box) located by descent at
+// the exit point nudged on along the direction.
+template <bool kOctree>
+__device__ __forceinline__ Step tree_step(
+    int c, int levels, const int* __restrict__ node_child,
+    const int* __restrict__ node_axis, const float* __restrict__ node_geom,
+    const int* __restrict__ node_cell, const float* __restrict__ cell_lo,
+    const float* __restrict__ cell_hi, const float blo[3],
+    const float bhi[3], float p[3], const float d[3]) {
+  float lo[3], hi[3], s[3];
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = __ldg(cell_lo + 3 * c + a);
+    hi[a] = __ldg(cell_hi + 3 * c + a);
+    const float tgt = d[a] > 0.0f ? hi[a] : lo[a];
+    const bool tiny = fabsf(d[a]) < 1e-30f;
+    s[a] = tiny ? kBig : fmaxf(__fdiv_rn(tgt - p[a], d[a]), 0.0f);
+  }
+  const float ds = fminf(fminf(s[0], s[1]), s[2]);
+  const float eps =
+      1e-4f * fminf(fminf(hi[0] - lo[0], hi[1] - lo[1]), hi[2] - lo[2]);
+  float q[3];
+  bool inside = true;
+  for (int a = 0; a < 3; ++a) {
+    p[a] = fmaf(ds, d[a], p[a]);
+    q[a] = fmaf(eps, d[a], p[a]);
+    inside = inside && q[a] >= blo[a] && q[a] < bhi[a];
+  }
+  int node = 0;
+  for (int l = 0; l < levels; ++l) {
+    const int child = __ldg(node_child + node);
+    if (child < 0) break;  // a leaf stays where it is
+    if (kOctree) {
+      const float* ctr = node_geom + 3 * node;
+      node = child + (q[0] >= __ldg(ctr) ? 1 : 0) +
+             (q[1] >= __ldg(ctr + 1) ? 2 : 0) +
+             (q[2] >= __ldg(ctr + 2) ? 4 : 0);
+    } else {
+      const int ax = __ldg(node_axis + node);
+      node = child + (q[ax] >= __ldg(node_geom + node) ? 1 : 0);
+    }
+  }
+  return {ds, inside ? __ldg(node_cell + node) : -1};
+}
+
+// The tree modes: node_geom holds the octree's split centres (N, 3) or the
+// bintree's split values (N,), node_axis the bintree's split axes (unused
+// for an octree); box = root lo, hi on the device.
+template <bool kOctree>
+__global__ void march_tree_kernel(
+    const float* __restrict__ pos, const float* __restrict__ dir,
+    const int* __restrict__ cell0, const unsigned char* __restrict__ mask,
+    const int* __restrict__ node_child, const int* __restrict__ node_axis,
+    const float* __restrict__ node_geom, const int* __restrict__ node_cell,
+    const float* __restrict__ cell_lo, const float* __restrict__ cell_hi,
+    const float* __restrict__ box, int* __restrict__ cells,
+    float* __restrict__ dss, int B, int S, int levels) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const float blo[3] = {box[0], box[1], box[2]};
+  const float bhi[3] = {box[3], box[4], box[5]};
+  float p[3] = {pos[3 * lane], pos[3 * lane + 1], pos[3 * lane + 2]};
+  const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
+  int c = mask[lane] ? cell0[lane] : -1;
+  for (int s = 0; s < S; ++s) {
+    const long long at = (long long)s * B + lane;
+    if (c < 0) {
+      cells[at] = 0;
+      dss[at] = 0.0f;
+      continue;
+    }
+    const Step st = tree_step<kOctree>(c, levels, node_child, node_axis,
+                                       node_geom, node_cell, cell_lo, cell_hi,
+                                       blo, bhi, p, d);
+    cells[at] = c;
+    dss[at] = st.ds;
+    c = st.next;
+  }
+}
+
 }  // namespace skirt9
+
+extern "C" int march_tree_launch(const void* pos, const void* dir,
+                                 const void* cell0, const void* mask,
+                                 const void* node_child, const void* node_axis,
+                                 const void* node_geom, const void* node_cell,
+                                 const void* cell_lo, const void* cell_hi,
+                                 const void* box, void* cells, void* ds,
+                                 int B, int S, int levels, int octree,
+                                 void* stream) {
+  if (B <= 0 || S <= 0 || levels < 0 || node_child == nullptr ||
+      node_geom == nullptr || node_cell == nullptr || cell_lo == nullptr ||
+      cell_hi == nullptr || box == nullptr || (!octree && node_axis == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (B + skirt9::kThreads - 1) / skirt9::kThreads;
+  auto* kern = octree ? skirt9::march_tree_kernel<true>
+                      : skirt9::march_tree_kernel<false>;
+  kern<<<blocks, skirt9::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)dir, (const int*)cell0,
+      (const unsigned char*)mask, (const int*)node_child,
+      (const int*)node_axis, (const float*)node_geom, (const int*)node_cell,
+      (const float*)cell_lo, (const float*)cell_hi, (const float*)box,
+      (int*)cells, (float*)ds, B, S, levels);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int march_launch(const void* pos, const void* dir,
                             const void* cell0, const void* mask,

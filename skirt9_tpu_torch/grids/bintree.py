@@ -5,7 +5,8 @@ one axis, cycling x, y, z with depth, so a leaf three levels down equals one
 octree child and intermediate leaves are anisotropic slabs. Flat node arrays
 built on the host in numpy (the reference's arrays for the same arguments),
 a fixed-depth descent or the fine leaf map for `locate`, and the helpers the
-octree shares (`grids/octree.py`). The scan-march `step` is not ported.
+octree shares (`grids/octree.py`), the scan-march `step` among them (the
+reference's `bintree.py:67-83`, the same formula with this tree's descent).
 """
 
 from __future__ import annotations
@@ -36,10 +37,17 @@ class BinTreeGrid(NamedTuple):
         return self.cell_lo.shape[0]
 
     def locate(self, pos: torch.Tensor) -> torch.Tensor:
-        """(B, 3) -> (B,) int64 leaf index, -1 outside the root box."""
+        """(B, 3) -> (B,) int64 leaf index, -1 outside the root box: one
+        gather from the leaf map where one is attached, else `descend`."""
         if self.leafmap is not None:
             return ot.leafmap_locate(self, pos)
-        inside = torch.all((pos >= self.box_lo) & (pos < self.box_hi), dim=-1)
+        return self.descend(pos)
+
+    def descend(self, pos: torch.Tensor) -> torch.Tensor:
+        """(B, 3) -> (B,) int64 leaf index by descent from the root along
+        each node's split axis (the reference's `bintree.py:54-65`), -1
+        outside the root box."""
+        inside = ot.inside_box(self, pos)
         child_t = self.node_child.to(torch.int64)
         axis_t = self.node_axis.to(torch.int64)
         node = torch.zeros(pos.shape[:-1], dtype=torch.int64,
@@ -52,6 +60,7 @@ class BinTreeGrid(NamedTuple):
         cell = self.node_cell[node].to(torch.int64)
         return torch.where(inside, cell, torch.full_like(cell, -1))
 
+    step = ot.tree_step
     move_inside = ot.move_inside
     volumes = ot.volumes
     diagonal = ot.diagonal

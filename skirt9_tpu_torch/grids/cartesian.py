@@ -101,7 +101,8 @@ class UniformCartesianGrid(NamedTuple):
         already = self.locate(pos) >= 0
         t_entry = torch.where(already, torch.zeros_like(tmin),
                               torch.clamp_min(tmin, 0.0) * (1.0 + 1e-6))
-        newpos = pos + t_entry[..., None] * dirn
+        # fused, as XLA's CPU code forms it (bit for bit on every axis)
+        newpos = xm.fma(t_entry[..., None], dirn, pos)
         # clamp hi-face entries just inside the box
         eps = 1e-6 * (self.hi - self.lo)
         newpos = torch.where(already[..., None], newpos,
@@ -244,7 +245,8 @@ class CartesianGrid(NamedTuple):
         already = self.locate(pos) >= 0
         t_entry = torch.where(already, torch.zeros_like(tmin),
                               torch.clamp_min(tmin, 0.0) * (1.0 + 1e-6))
-        newpos = pos + t_entry[..., None] * dirn
+        # fused, as XLA's CPU code forms it (bit for bit on every axis)
+        newpos = xm.fma(t_entry[..., None], dirn, pos)
         # rays entering exactly on the hi face would locate outside: clamp
         # entries just inside the box
         eps = 1e-6 * (hi - lo)

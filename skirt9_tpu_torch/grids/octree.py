@@ -10,9 +10,11 @@ Port of `skirt9_tpu/grids/octree.py:32-263`. The tree is flat arrays
 built on the host in numpy (the same arguments and seed give the reference's
 arrays) and moved to a device with `.to(device)`. `locate` is a fixed-depth
 descent from the root, or one gather from the fine leaf map (fine voxel ->
-leaf id) when a `Simulation` has attached it. The reference's scan-march
-`step` and its topology save/load are not ported: the port marches trees with
-the multi-level sweep (`transport/mlsweep.py`) only.
+leaf id) when a `Simulation` has attached it. `step` is the reference's
+scan-march step (`octree.py:81-101`): exit the leaf box, nudge past the face
+and find the next leaf by descent from the root, with or without a leaf map
+attached, as the reference's march descends. The topology save/load is not
+ported.
 """
 
 from __future__ import annotations
@@ -22,13 +24,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import xlamath as xm
+
+_BIG = 3e38
+
 
 # ------------------------------------------------- shared by the tree grids
 
 def leafmap_locate(grid, pos: torch.Tensor) -> torch.Tensor:
     """(B, 3) -> (B,) int64 leaf index through the fine leaf map, -1 outside
     the root box (the reference's f32 arithmetic, `octree.py:56-63`)."""
-    inside = torch.all((pos >= grid.box_lo) & (pos < grid.box_hi), dim=-1)
+    inside = inside_box(grid, pos)
     nf = torch.tensor(grid.fine_n, dtype=torch.int64, device=pos.device)
     h = (grid.box_hi - grid.box_lo) / nf.to(torch.float32)
     ijk = torch.floor((pos - grid.box_lo) / h).to(torch.int64)
@@ -39,9 +45,38 @@ def leafmap_locate(grid, pos: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, cell, torch.full_like(cell, -1))
 
 
+def inside_box(grid, pos: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: pos inside the root box, hi faces excluded."""
+    return torch.all((pos >= grid.box_lo) & (pos < grid.box_hi), dim=-1)
+
+
+def tree_step(grid, pos: torch.Tensor, dirn: torch.Tensor, cell: torch.Tensor):
+    """One scan-march step of a tree (the reference's `octree.py:81-101`,
+    `bintree.py:67-83`): exit the leaf box, then locate the next leaf by
+    descent at the exit point nudged on by 1e-4 of the leaf's smallest
+    edge. Returns (ds, next cell int64, next position); a lane outside
+    (cell < 0) stays where it is with ds 0 and cell -1. The move and the
+    nudge are the fused multiply-adds XLA's CPU code forms of them."""
+    c = torch.clamp_min(cell, 0)
+    lo, hi = grid.cell_lo[c], grid.cell_hi[c]
+    tgt = torch.where(dirn > 0, hi, lo)
+    tiny = torch.abs(dirn) < 1e-30
+    s = torch.where(tiny, torch.full_like(pos, _BIG), torch.clamp_min(
+        (tgt - pos) / torch.where(tiny, torch.ones_like(dirn), dirn), 0.0))
+    ds = torch.amin(s, dim=-1)
+    newpos = xm.fma(ds[..., None], dirn, pos)
+    eps = 1e-4 * torch.amin(hi - lo, dim=-1)
+    nxt = grid.descend(xm.fma(eps[..., None], dirn, newpos))
+    out = cell < 0
+    return (torch.where(out, torch.zeros_like(ds), ds),
+            torch.where(out, torch.full_like(nxt, -1), nxt),
+            torch.where(out[..., None], pos, newpos))
+
+
 def move_inside(grid, pos: torch.Tensor, dirn: torch.Tensor):
-    """Advance packets launched outside the root box to its surface
-    (`octree.py:103-114`). Returns (pos', cell' int64, distance)."""
+    """Advance packets launched outside the root box to its surface (the
+    reference's `octree.py:103-114`, `bintree.py:85-97`). Returns (pos',
+    cell' int64, distance)."""
     tiny = torch.abs(dirn) < 1e-30
     inv = 1.0 / torch.where(tiny, torch.full_like(dirn, 1e-30), dirn)
     t1 = (grid.box_lo - pos) * inv
@@ -52,7 +87,11 @@ def move_inside(grid, pos: torch.Tensor, dirn: torch.Tensor):
     already = grid.locate(pos) >= 0
     t_entry = torch.where(already, torch.zeros_like(tmin),
                           torch.clamp_min(tmin, 0.0) * (1.0 + 1e-6))
-    newpos = pos + t_entry[..., None] * dirn
+    # XLA's CPU code fuses the move into a multiply-add on x and y but not
+    # on z (bit for bit against the reference's, whatever the batch)
+    t = t_entry[..., None]
+    newpos = torch.cat([xm.fma(t, dirn[..., :2], pos[..., :2]),
+                        pos[..., 2:] + t * dirn[..., 2:]], dim=-1)
     cell = grid.locate(newpos)
     return newpos, torch.where(already | hits, cell,
                                torch.full_like(cell, -1)), t_entry
@@ -142,10 +181,16 @@ class OctreeGrid(NamedTuple):
         return self.cell_lo.shape[0]
 
     def locate(self, pos: torch.Tensor) -> torch.Tensor:
-        """(B, 3) -> (B,) int64 leaf index, -1 outside the root box."""
+        """(B, 3) -> (B,) int64 leaf index, -1 outside the root box: one
+        gather from the leaf map where one is attached, else `descend`."""
         if self.leafmap is not None:
             return leafmap_locate(self, pos)
-        inside = torch.all((pos >= self.box_lo) & (pos < self.box_hi), dim=-1)
+        return self.descend(pos)
+
+    def descend(self, pos: torch.Tensor) -> torch.Tensor:
+        """(B, 3) -> (B,) int64 leaf index by descent from the root (the
+        reference's `octree.py:65-79`), -1 outside the root box."""
+        inside = inside_box(self, pos)
         child_t = self.node_child.to(torch.int64)
         node = torch.zeros(pos.shape[:-1], dtype=torch.int64,
                            device=pos.device)
@@ -159,6 +204,7 @@ class OctreeGrid(NamedTuple):
         cell = self.node_cell[node].to(torch.int64)
         return torch.where(inside, cell, torch.full_like(cell, -1))
 
+    step = tree_step
     move_inside = move_inside
     volumes = volumes
     diagonal = diagonal

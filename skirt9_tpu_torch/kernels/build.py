@@ -45,7 +45,8 @@ KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            "sweepxl_deposit", "sweepxl_deposit_prefix", "mlsweep_dtau",
            "mlsweep_tau_total", "mlsweep_dtau_prefix", "mlsweep_deposit",
            # the scan march (csrc/march.cu), one counter per grid mode
-           "march_uniform", "march_mesh", "march_voronoi",
+           "march_uniform", "march_mesh", "march_voronoi", "march_octree",
+           "march_bintree",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -92,6 +93,9 @@ _SIGNATURES = {
     # pos, dir, cell0, mask, three tables, the six grid constants, cells,
     # ds, B, S, n0, n1, n2, degree, mode, stream
     "march_launch": [_P] * 10 + [_I] * 7 + [_P],
+    # pos, dir, cell0, mask, node_child, node_axis, node_geom, node_cell,
+    # cell_lo, cell_hi, box, cells, ds, B, S, levels, octree, stream
+    "march_tree_launch": [_P] * 13 + [_I] * 4 + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

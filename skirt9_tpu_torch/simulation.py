@@ -1,9 +1,11 @@
 """Monte Carlo simulation orchestrator on PyTorch tensors.
 
 Port of `skirt9_tpu/simulation.py` on one device, on uniform and meshed
-Cartesian grids, octrees and bintrees, and Voronoi grids, rasterized onto a
-voxel grid or walked exactly by the scan march (with the
-wavelength-changing Compton, Lya and X-ray physics): `run_primary` launches
+Cartesian grids, octrees and bintrees (on the tree sweep or their voxel
+raster, or walked by the scan march where no sweep takes them), and Voronoi
+grids, rasterized onto a voxel grid or walked exactly by the scan march
+(with the wavelength-changing Compton, Lya and X-ray physics on every
+grid): `run_primary` launches
 each source's history range in batches through
 `transport.lifecycle.life_cycle` and accumulates the radiation field and
 instrument records on the device; `run_with_dust_emission` adds equilibrium
@@ -66,7 +68,12 @@ _GRIDS = (UniformCartesianGrid, CartesianGrid, OctreeGrid, BinTreeGrid,
 
 @dataclasses.dataclass
 class Simulation:
-    """A configured simulation: grid + medium + sources + instruments."""
+    """A configured simulation: grid + medium + sources + instruments.
+
+    The engine is the reference's (`_engine_tables`, then the life cycle's
+    `sweep_gate` per batch): a sweep where one takes the grid and the
+    options, else the scan march, on trees too (a tree whose options or
+    shape no sweep takes is walked leaf by leaf)."""
 
     grid: (UniformCartesianGrid | CartesianGrid | OctreeGrid | BinTreeGrid
            | VoronoiGrid)
@@ -137,9 +144,6 @@ class Simulation:
             torch.tensor(np.asarray(self.rf_borders, np.float32), device=dev)
             if self.rf_borders is not None else None)
         self._sweep_tabs = self._engine_tables()
-        if isinstance(self._sweep_tabs, ml.MLTables):
-            # a tree's sweep has no march to fall back to
-            lc.check_engine(self.options, self._sweep_tabs)
         if self.mueller is not None:
             self.mueller = self.mueller.to(dev)
         if self.xray_tabs is not None:
@@ -162,21 +166,20 @@ class Simulation:
         without its backend tests: the resident sweep while it supports the
         grid, then the multi-level sweep for trees, then Voronoi grids
         rasterized onto the multi-level sweep, then trees on their voxel
-        raster through the large-grid (XL) contracts, then uniform XL
-        grids; None, the scan march, where none takes the grid (meshed
-        Cartesian grids, uniform grids past the sweeps, Voronoi grids the
-        raster declines: the exact walk). A tree gets its fine leaf map (on
-        the voxel raster: the tables' cell map, the same array) attached, so
-        that launch-time `locate` is one gather (`:199-202`); a Voronoi grid
-        keeps its own locate, as in the reference (`:203-206`). Trees that
-        no sweep takes raise: their march steps are not ported."""
+        raster through the large-grid (XL) contracts (also the trees whose
+        options the multi-level sweep declines: kinematics, Lya, Compton,
+        X-ray, explicit absorption), then uniform XL grids; None, the scan
+        march, where none takes the grid (meshed Cartesian grids, uniform
+        grids past the sweeps, Voronoi grids the raster declines: the exact
+        walk, and trees that no sweep takes: more than 4 components, a fine
+        raster past 512, cells that are no power-of-two fraction of the
+        root box). A tree gets its fine leaf map (on the voxel raster: the
+        tables' cell map, the same array) attached, so that launch-time
+        `locate` is one gather (`:199-202`); its march steps descend all
+        the same. A Voronoi grid keeps its own locate, as in the reference
+        (`:203-206`)."""
         if sw.supports_sweep(self.grid, self.medium):
             return sw.build_tables(self.grid, self.medium)
-        if self.options.kinematics and isinstance(self.grid, (OctreeGrid,
-                                                              BinTreeGrid)):
-            raise NotImplementedError(
-                f"kinematics on a {type(self.grid).__name__} not ported yet "
-                "(the resident sweep, the scan march)")
         if isinstance(self.grid, VoronoiGrid):
             if raster.supports(self.grid, self.medium, self.options):
                 return raster.build_tables(self.grid, self.medium)
@@ -187,7 +190,7 @@ class Simulation:
         if ml.supports(self.grid, self.medium, self.options):
             tabs = ml.build_tables(self.grid, self.medium)
             leafmap = tabs.leafmap
-        elif xl.supports_tree_xl(self.grid, self.medium):
+        elif xl.supports_tree_xl(self.grid, self.medium, self.options):
             tabs = xl.build_tree_tables(self.grid, self.medium)
             leafmap = tabs.cellmap
             _log().info(
@@ -199,19 +202,15 @@ class Simulation:
                 self.grid = self.grid._replace(leafmap=leafmap, fine_n=tabs.n)
             return tabs
         if isinstance(self.grid, (OctreeGrid, BinTreeGrid)):
-            on = [name for name in ("kinematics", "lya", "compton", "xray",
-                                    "explicit_absorption")
-                  if getattr(self.options, name)]
-            raise NotImplementedError(
-                f"no transport engine for this {type(self.grid).__name__} "
-                f"({self.grid.ncells} leaves, {self.medium.ncomp} components"
-                f"{', options ' + ', '.join(on) if on else ''}): the "
-                "multi-level sweep takes power-of-two trees with fine "
-                f"rasters <= {ml.NF_MAX} per axis, <= 4 components and none "
-                "of kinematics, Lya, Compton, X-ray or explicit absorption, "
-                "the XL sweep their voxel rasters up to "
-                f"{xl.TREE_NF_MAX} per axis; the scan march on trees is not "
-                "ported yet")
+            # the reference's warning (`skirt9_tpu/simulation.py:231-240`)
+            _log().warning(
+                "transport: no sweep engine supports "
+                f"{type(self.grid).__name__} ({self.grid.ncells} leaves, "
+                f"{self.medium.ncomp} components; the sweeps take "
+                "power-of-two trees with <= 4 components and fine rasters "
+                f"<= {xl.TREE_NF_MAX} per axis) — falling back to the "
+                "scan-march engine")
+            return None
         if xl.supports_xl(self.grid, self.medium):
             _log().info("transport: large-grid (XL) sweep for "
                         f"{'x'.join(map(str, self.grid.shape))}")

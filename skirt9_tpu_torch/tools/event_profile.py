@@ -25,7 +25,9 @@ iterations; a checkout from before config 3 has none), `config2x256`
 (bench2.ski at 256^3: the XL loop with the 25-bin RF in 32 lane groups)
 and `config3ismxl9` (bench_config3ismxl's recipe at max_level 9: the XL
 loop on a tree's 512^3 voxel raster); a checkout from before them has
-neither:
+neither; `config3_march` (bench3.ski with explicit absorption: the octree
+on the scan march, its raster's XL tables declined by the gate; a
+checkout from before the tree march has none):
 
     python3 skirt9_tpu_torch/tools/event_profile.py --root DIR [--root DIR2 ...]
         [--config NAME ...]
@@ -148,6 +150,8 @@ CONFIGS = {
                     "B_FULL", True),
     "config3ismxl9": (lambda cs, dev, **kw: cs.config3ism(
         dev, "config3ismxl9", **kw)[0], "B_ML", False),
+    "config3_march": (lambda cs, dev, **kw: cs.config3_march(dev, **kw),
+                      "B_B3", True),
 }
 
 

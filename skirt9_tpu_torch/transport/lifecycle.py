@@ -17,12 +17,18 @@ the scattering plane, applies the Mueller matrix and records Q, U, V in
 the instrument frame, and the scattering event samples the polarized phase
 function and carries the Stokes vector and reference normal on. With
 kinematics each interaction sees the wavelength in its cell's rest frame,
-and the scattered packet takes the Doppler shift of its new direction. Of
-the sweeps, both ride the resident one only, and kinematics only where
-every component's cross sections are wavelength-independent and at most
-one RF bin is stored (the reference's `kin_ok`): the perceived-wavelength
-opacity then equals the launch-wavelength one, so the sweep's constant
-per-lane cross sections stay exact. Elsewhere kinematics takes the march.
+and the scattered packet takes the Doppler shift of its new direction.
+Both ride every sweep, the resident, the tree (multi-level) and the XL one
+(uniform grids and tree rasters) alike, as in the reference: polarization
+touches only the peel-off and the scattering, and kinematics rides a
+sweep only where every component's cross sections are
+wavelength-independent and at most one RF bin is stored (the reference's
+`kin_ok`): the perceived-wavelength opacity then equals the
+launch-wavelength one, so the sweep's constant per-lane cross sections
+stay exact. Elsewhere kinematics takes the march. The multi-level sweep
+itself declines kinematics and the wavelength-changing physics (its
+tables are never built for them, `mlsweep.supports`), so a tree with them
+runs on its voxel raster's XL tables or on the march.
 
 With Compton, Lyman-alpha or X-ray physics (`TransportOptions.compton`,
 `lya`, `xray`) a scattering changes the packet's wavelength, so each event
@@ -49,12 +55,16 @@ multi-temperature media (the Voigt opacity at each cell's temperature and
 perceived wavelength), multi-bin RFs without bin-pure lane groups, batches
 that do not divide into 128-lane blocks (1,024-lane rows on XL tables),
 and every grid without sweep tables (meshed Cartesian grids, Voronoi
-grids walked exactly). On the march, pass 1 is one march recording (S, B)
-step tables and their cumulative sums, pass 2 the RF deposits into the bin
-of each lane's current wavelength (an f64 table over the life cycle, added
-into the RF rounded once) and the interaction point; the tracer marches
-again. Everything after pass 2 is the same code on both engines. A tree
-whose sweep declines the options raises, as in the reference.
+grids walked exactly, trees that no sweep takes). On the march, pass 1 is
+one march recording (S, B) step tables and their cumulative sums, pass 2
+the RF deposits into the bin of each lane's current wavelength (an f64
+table over the life cycle, added into the RF rounded once) and the
+interaction point; the tracer marches again. Everything after pass 2 is
+the same code on every engine. A tree's multi-level sweep tables cannot
+fall back to the march: `sweep_gate` raises there, as the reference does
+(a batch that does not divide into 128-lane blocks, a multi-bin RF
+without bin-pure lanes); the XL tables of a tree's raster fall back like
+a uniform grid's.
 
 On the resident sweep, pass 1 is one `sweep_dtau_prefix` launch (the slab
 prefix and the lane range come out of the kernel), pass 2 one
@@ -194,20 +204,6 @@ def lam_changing(opts: TransportOptions) -> bool:
     """Whether scatterings change the packets' wavelengths (Compton,
     Lyman-alpha or X-ray physics)."""
     return opts.compton or opts.lya or opts.xray
-
-
-def check_engine(opts: TransportOptions, sweep_tabs) -> None:
-    """Polarization, kinematics and the wavelength-changing physics
-    (Compton, Lya, X-ray) ride the resident sweep only: on the tree
-    (multi-level) and large-grid (XL) sweeps they raise."""
-    engine = ("tree (multi-level)" if isinstance(sweep_tabs, ml.MLTables)
-              else "large-grid (XL)" if isinstance(sweep_tabs, xl.XLTables)
-              else None)
-    on = [name for name in ("polarization", "kinematics", "compton", "lya",
-                            "xray") if getattr(opts, name)]
-    if engine is not None and on:
-        raise NotImplementedError(f"{' and '.join(on)} on the {engine} "
-                                  "sweep not ported yet (the resident sweep)")
 
 
 def check_kinematics(med: msys.MediumTables, opts: TransportOptions,
@@ -524,9 +520,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
     B = pkt.lam.shape[0]
     gate = sweep_gate(med, opts, sweep_tabs, rf, B)
     use_sweep, n_groups, lya_T0 = gate.use_sweep, gate.n_groups, gate.lya_T0
-    if use_sweep:
-        check_engine(opts, sweep_tabs)
-    elif grid is None:
+    if not use_sweep and grid is None:
         raise ValueError("the scan march needs the grid (life_cycle(..., "
                          f"grid=)): {', '.join(gate.why)}")
     if opts.xray and xray_tabs is None:

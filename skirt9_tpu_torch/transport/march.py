@@ -9,8 +9,11 @@ interaction point, is dense tensor math on those tables.
 
 `march_geometry` is the walk itself. On a CUDA tensor it is one launch of
 the march kernel (`csrc/march.cu`, one thread per lane, in the mode of the
-grid: `march_uniform`, `march_mesh` or `march_voronoi`); on a CPU tensor
-its plain version, a loop of the grid's `step` over the steps. Both follow
+grid: `march_uniform`, `march_mesh`, `march_voronoi`, `march_octree` or
+`march_bintree`; a tree's node tables go in whole, and each step descends
+from the root, as the reference's does, whether or not a leaf map is
+attached); on a CPU tensor its plain version, a loop of the grid's `step`
+over the steps. Both follow
 the reference's f32 operations, with XLA's CPU fusions replayed, so that
 each step lands in the reference's cell. A lane masked off, or outside the
 grid, records cell 0 and length 0 for every step: the reference records the
@@ -26,7 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..grids.bintree import BinTreeGrid
 from ..grids.cartesian import CartesianGrid, UniformCartesianGrid
+from ..grids.octree import OctreeGrid
 from ..grids.voronoi import VoronoiGrid
 from ..kernels import build as kb
 from ..media import system as msys
@@ -37,19 +42,18 @@ _INV_C = 1.0 / 2.99792458e8  # inverse speed of light [s/m]
 
 # the kernel's mode per grid class, each its own launch counter
 MODES = {UniformCartesianGrid: "march_uniform", CartesianGrid: "march_mesh",
-         VoronoiGrid: "march_voronoi"}
+         VoronoiGrid: "march_voronoi", OctreeGrid: "march_octree",
+         BinTreeGrid: "march_bintree"}
 _MODE_IDS = {"march_uniform": 0, "march_mesh": 1, "march_voronoi": 2}
 
 
 def _check(grid, pos0, dirn, cell0, max_steps: int, mask) -> None:
     B = pos0.shape[0]
     if type(grid) not in MODES:
-        name = type(grid).__name__
-        what = (f"trees ({name})" if name in ("OctreeGrid", "BinTreeGrid")
-                else f"a {name}")
         raise NotImplementedError(
-            f"the scan march on {what} is not ported yet (it walks uniform "
-            "and meshed Cartesian grids and Voronoi grids)")
+            f"the scan march on a {type(grid).__name__} is not ported yet "
+            "(it walks Cartesian grids, octrees, bintrees and Voronoi "
+            "grids)")
     if pos0.shape != (B, 3) or dirn.shape != (B, 3) or cell0.shape != (B,) \
             or mask.shape != (B,):
         raise ValueError(f"pos0 {tuple(pos0.shape)}, dirn "
@@ -92,6 +96,20 @@ def _march_cuda(grid, pos0, dirn, cell0, max_steps: int, mask):
     cell0 = cell0.to(torch.int32).contiguous()
     mask = mask.to(torch.uint8).contiguous()
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    if mode in ("march_octree", "march_bintree"):
+        i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
+        octree = mode == "march_octree"
+        tabs = (i32(grid.node_child),
+                None if octree else i32(grid.node_axis),
+                f32(grid.node_center if octree else grid.node_split),
+                i32(grid.node_cell), f32(grid.cell_lo), f32(grid.cell_hi),
+                f32(torch.cat([grid.box_lo, grid.box_hi])))
+        kb.launch("march_tree", pos0.data_ptr(), dirn.data_ptr(),
+                  cell0.data_ptr(), mask.data_ptr(), *(ptr(t) for t in tabs),
+                  cells.data_ptr(), ds.data_ptr(), B, max_steps, grid.levels,
+                  int(octree), kb.stream_of(pos0), count_as=mode)
+        return cells, ds
     tabs, consts, degree = (None, None, None), None, 0
     n = (grid.ncells, 0, 0) if mode == "march_voronoi" else grid.shape
     if mode == "march_uniform":
@@ -103,7 +121,6 @@ def _march_cuda(grid, pos0, dirn, cell0, max_steps: int, mask):
         tabs = (f32(grid.sites), nbrs, None)
         consts = f32(torch.cat([grid.box_lo, grid.box_hi]))
         degree = nbrs.shape[1]
-    ptr = lambda t: None if t is None else t.data_ptr()
     kb.launch("march", pos0.data_ptr(), dirn.data_ptr(), cell0.data_ptr(),
               mask.data_ptr(), *(ptr(t) for t in tabs), ptr(consts),
               cells.data_ptr(), ds.data_ptr(), B, max_steps, *n, degree,

@@ -14,9 +14,10 @@
   (they agree to 3e-7: f32 rounding).
 - A monochromatic source in a multi-bin RF deposits into its own bin
   exactly what a one-bin RF over that bin holds; checkpoints resume a run;
-  what is not ported raises (a tree whose fine raster is over 512 per
-  axis, dynamic medium recipes, stochastic emission, cell libraries,
-  spheroidal grains).
+  a tree whose fine raster is over 512 per axis takes the scan march, as
+  in the reference (draw for draw with its CPU run, a two-bin RF); what is
+  not ported raises (dynamic medium recipes, stochastic emission, cell
+  libraries, spheroidal grains).
 """
 
 import dataclasses
@@ -182,13 +183,15 @@ def test_checkpoint_resume(tmp_path):
 
 @pytest.mark.parametrize("case", ["tree_over_512", "stochastic", "library",
                                   "merged_dynamic", "spheroidal"])
-def test_not_ported_raises(case, tmp_path):
+def test_not_ported_raises(case, tmp_path, monkeypatch):
     if case == "tree_over_512":
         # a level-10 octree (a 1024 fine raster): past the multi-level
-        # sweep and the XL voxel raster, which leaves the reference's scan
-        # march
+        # sweep and the XL voxel raster, the scan march, as the reference's
+        from skirt9_tpu.grids.octree import build_octree as ref_octree
+        from skirt9_tpu.grids.octree import site_list_refine_fn as ref_sites
         from skirt9_tpu_torch.grids.octree import (build_octree,
                                                    site_list_refine_fn)
+        from test_torch_trees import _reference, marches_as_reference
         sites = np.array([[0.1, 0.2, 0.3], [0.1005, 0.2005, 0.3005]]) * PC
         grid = build_octree(((-PC, PC),) * 3, lambda p: np.ones(len(p)),
                             max_level=10, min_level=1,
@@ -198,12 +201,19 @@ def test_not_ported_raises(case, tmp_path):
                                sigma_ext=np.full((1, 2), 1e-30),
                                albedo=np.full((1, 2), 0.5),
                                g=np.full((1, 2), 0.0))
-        with pytest.raises(NotImplementedError, match="scan march"):
-            Simulation(grid=grid, medium=med, sources=[PointSource()],
-                       instruments=[],
-                       options=TransportOptions(max_steps=grid.max_steps()),
-                       rf_borders=np.array([0.1e-6, 0.5e-6, 2e-6]),
-                       device="cpu")
+        sim = Simulation(grid=grid, medium=med, sources=[PointSource()],
+                         instruments=[],
+                         options=TransportOptions(max_steps=grid.max_steps()),
+                         rf_borders=np.array([0.1e-6, 0.5e-6, 2e-6]),
+                         device="cpu")
+        assert sim._sweep_tabs is None and sim.grid.leafmap is None
+        ref = _reference(ref_octree(((-PC, PC),) * 3,
+                                    lambda p: np.ones(len(p)), max_level=10,
+                                    min_level=1,
+                                    refine_fn=ref_sites(sites, 1)),
+                         rf_borders=np.array([0.1e-6, 0.5e-6, 2e-6]))
+        assert ref.grid.levels == 11
+        marches_as_reference(ref, monkeypatch)
         return
     if case == "spheroidal":
         from skirt9_tpu_torch.sources.secondary import DustSecondarySource

@@ -13,8 +13,9 @@ Stokes outputs.
   kinematics.
 - The gates: kinematics with wavelength-dependent cross sections or a
   multi-bin RF takes the scan march, draw for draw with the reference's;
-  polarization and kinematics on the tree and XL engines raise, as do
-  polarized and spheroidal emission.
+  polarization and kinematics take the tree and XL engines (on a uniform
+  grid with XL tables draw for draw with the reference's XL sweep);
+  polarized and spheroidal emission raise.
 - A reduced bench5 (16^3, 4,096 packets in batches of 1,024, 8 events),
   moving and static, draw for draw against the reference on the CPU (its
   scan march), the detections of every scattering peel-off compared lane
@@ -205,33 +206,36 @@ def test_kinematics_outside_the_sweep_raises(tmp_path):
                 1e-5 * np.abs(a).max()
 
 
-@pytest.mark.parametrize("edits,match", [
-    ({}, "kinematics on a OctreeGrid"),
-    (STATIC, "polarization on the tree"),
-])
-def test_other_engines_raise(tmp_path, edits, match):
-    """On a density octree the static variant takes the tree sweep, where
-    polarization raises, and the moving one raises before an engine is
-    chosen; on the uniform grid with XL tables put in place both raise."""
-    tree = {'<CartesianSpatialGrid minX="-1.2 pc" maxX="1.2 pc" minY="-1.2 '
-            'pc" maxY="1.2 pc" minZ="-1.2 pc" maxZ="1.2 pc">':
-            '<PolicyTreeSpatialGrid minX="-1.2 pc" maxX="1.2 pc" minY="-1.2 '
-            'pc" maxY="1.2 pc" minZ="-1.2 pc" maxZ="1.2 pc" treeType="OctTree">'
-            '<policy type="TreePolicy"><DensityTreePolicy minLevel="2" '
-            'maxLevel="4" maxDustFraction="1e-4"/></policy>',
-            '</CartesianSpatialGrid>': '</PolicyTreeSpatialGrid>'}
-    text = open(BENCH5).read()
-    start = text.index('<meshX')
-    end = text.index('</CartesianSpatialGrid>')
-    tree[text[start:end]] = ""
-    path = chip_smoke.edited_ski("bench5", tmp_path, dict(tree, **edits))
-    with pytest.raises(NotImplementedError, match=match):
-        load_ski(path, device="cpu")
-    name = "polarization" + ("" if edits else " and kinematics")
-    sim = load_ski(_edited(tmp_path, edits), device="cpu", **RUN)
-    sim._sweep_tabs = xl.build_tables(sim.grid, sim.medium)
-    with pytest.raises(NotImplementedError, match=f"{name} on the large"):
-        sim.run_primary(verbose=False)
+@pytest.mark.parametrize("edits,engine", [({}, "XLTables"),
+                                          (STATIC, "MLTables")],
+                         ids=["edits0-kinematics on a OctreeGrid",
+                              "edits1-polarization on the tree"])
+def test_other_engines_raise(tmp_path, edits, engine, monkeypatch):
+    """On a density octree the static variant takes the tree sweep and the
+    moving one the tree's voxel raster (XL tables: the multi-level sweep
+    declines kinematics), as the reference's chain gives them (their runs:
+    `tests/test_torch_tree_engines.py`); on the uniform grid with XL
+    tables put in place, polarization (and kinematics) run on the XL
+    contracts draw for draw with the reference's interpret-mode XL sweep
+    (1,024 packets, 4 events; `test_torch_tree_engines.run_both`)."""
+    from skirt9_tpu.transport import sweepxl as ref_xl
+    from test_torch_tree_engines import run_both
+    monkeypatch.setenv("SKIRT9_TPU_FORCE_SWEEP", "1")
+    tree = chip_smoke.tree_edits("bench5", 4)
+    sim = load_ski(chip_smoke.edited_ski("bench5", tmp_path,
+                                         dict(tree, **edits), out="tree"),
+                   device="cpu")
+    assert type(sim.grid).__name__ == "OctreeGrid"
+    assert type(sim._sweep_tabs).__name__ == engine
+    ref = ref_load_ski(_edited(tmp_path, edits), num_packets=1024,
+                       batch_size=1024, max_events=4)
+    assert ref.options.kinematics == (not edits)
+    ref._sweep_tabs = ref_xl.build_tables(ref.grid, ref.medium)
+    port = bridge.simulation(ref, "cpu")
+    assert isinstance(port._sweep_tabs, xl.XLTables)
+    assert lc.sweep_gate(port.medium, port.options, port._sweep_tabs, None,
+                         1024).use_sweep
+    run_both(ref, port)
 
 
 def test_polarized_and_spheroidal_emission_raise():

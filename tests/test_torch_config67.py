@@ -19,8 +19,9 @@ grid. Both ride the resident sweep (kernels 1-2 and detect on the GPU).
   components or in a moving medium, and wavelength-changing physics with
   a multi-bin radiation field take the scan march, draw for draw with the
   reference's march (1,024 packets, 4 events: within 1e-5 of each
-  maximum); Lya and X-ray physics on the large-grid (XL) and tree engines
-  raise NotImplementedError naming the engine.
+  maximum); Lya and X-ray physics take the large-grid (XL) contracts on a
+  uniform grid with XL tables (draw for draw with the reference's XL
+  sweep) and a tree's voxel raster.
 - Both configs end to end at a small size (bench6: 4,096 packets, 12
   events; bench7: 2,048 packets, 16 events; one torch thread) draw for
   draw against the reference on the CPU (its scan march), each scattering
@@ -46,7 +47,6 @@ grid. Both ride the resident sweep (kernels 1-2 and detect on the GPU).
 
 import dataclasses
 import os
-import shutil
 import sys
 
 import jax
@@ -135,11 +135,8 @@ def test_load_ski_matches_reference(name):
 # ------------------------------------------------------------------- gates
 
 def _edited(tmp_path, name, edits, out="edited"):
-    """An edited copy of the ski file, with the input files it names beside
+    """An edited copy of the ski file, with the input files it reads beside
     it (bench7's SED and X-ray data)."""
-    if name == "bench7":
-        for f in ("bench7_sed.dat", "XRay_PA.txt", "XRay_FL.txt"):
-            shutil.copy(os.path.join(GOLDEN, f), tmp_path)
     return chip_smoke.edited_ski(name, tmp_path, edits, out=out)
 
 
@@ -228,27 +225,30 @@ def test_multi_bin_rf_raises(name):
 
 @pytest.mark.parametrize("name,flag,named", [("bench6", "lya", "Lya"),
                                              ("bench7", "xray", "X-ray")])
-def test_other_engines_raise(tmp_path, name, flag, named):
-    """With XL tables put in place the run raises; on a density octree the
-    engine choice does (the multi-level sweep excludes these physics, and
-    the tree's voxel raster is an XL engine)."""
-    sim = load_ski(_ski(name), device="cpu", **RUNS[name])
-    sim._sweep_tabs = xl.build_tables(sim.grid, sim.medium)
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag} on the large-grid \\(XL\\) sweep"):
-        sim.run_primary(verbose=False)
-    text = open(_ski(name)).read()
-    start = text.index("<CartesianSpatialGrid")
-    end = text.index("</CartesianSpatialGrid>")
-    grid = text[start:end + len("</CartesianSpatialGrid>")]
-    tree = grid.replace("<CartesianSpatialGrid", "<PolicyTreeSpatialGrid")
-    tree = tree[:tree.index(">") + 1] + (
-        '<policy type="TreePolicy"><DensityTreePolicy minLevel="2" '
-        'maxLevel="3" maxDustFraction="1e-4"/></policy>'
-        '</PolicyTreeSpatialGrid>')
-    path = _edited(tmp_path, name, {grid: tree}, out="tree")
-    with pytest.raises(NotImplementedError, match=f"OctreeGrid.*{named}"):
-        load_ski(path, device="cpu")
+def test_other_engines_raise(tmp_path, name, flag, named, monkeypatch):
+    """On a density octree the engine choice is the tree's voxel raster (the
+    multi-level sweep excludes these physics, the XL contracts take them;
+    the runs: `tests/test_torch_tree_engines.py`); with XL tables put in
+    place on the uniform grid, Lya or X-ray physics runs draw for draw with the
+    reference's interpret-mode XL sweep (1,024 packets, 4 events;
+    `test_torch_tree_engines.run_both`)."""
+    from skirt9_tpu.transport import sweepxl as ref_xl
+    from test_torch_tree_engines import load_reference, run_both
+    monkeypatch.setenv("SKIRT9_TPU_FORCE_SWEEP", "1")
+    path = _edited(tmp_path, name, chip_smoke.tree_edits(name, 3),
+                   out="tree")
+    sim = load_ski(path, device="cpu")
+    assert type(sim.grid).__name__ == "OctreeGrid" and getattr(
+        sim.options, flag)
+    assert isinstance(sim._sweep_tabs, xl.XLTables), named
+    assert sim._sweep_tabs.cellmap is not None
+    ref = load_reference(name, tmp_path, {})
+    ref._sweep_tabs = ref_xl.build_tables(ref.grid, ref.medium)
+    port = bridge.simulation(ref, "cpu")
+    assert isinstance(port._sweep_tabs, xl.XLTables)
+    assert lc.sweep_gate(port.medium, port.options, port._sweep_tabs, None,
+                         1024).use_sweep
+    run_both(ref, port)
 
 
 # ------------------------------------------------------- draw for draw

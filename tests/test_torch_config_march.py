@@ -24,6 +24,22 @@ SEDs, frames and RF must agree within 1e-5 of each maximum; measured:
   flip of the rejection sampler in this run, ROADMAP queue C);
 - bench5's moving outflow with the MRN dust mix (kinematics with
   wavelength-dependent cross sections), 8^3, 6 events: 7.9e-7.
+
+Trees on the march (the reference's CPU tree has no leaf map, and neither
+has the port's here: both locate by descent):
+
+- bench3 at maxLevel 4 (2,122 leaves) with explicit absorption, its RF cut
+  to 4 bins and one self-absorption iteration, 2,048 packets, 4 events:
+  RF 7.0e-7, SEDs 1.2e-6;
+- bench6 on a maxLevel-3 density octree with the gas temperature rising
+  1x to 2x over the occupied cells (Lya on the octree march), 2,048
+  packets, 8 events;
+- bench7 (X-ray gas) on a maxLevel-3 octree, 2,048 packets, 8 events;
+- bench5's moving outflow on a maxLevel-3 octree (polarization and
+  kinematics on the octree march), 1,024 packets, 6 events: the
+  unpolarized light within 1e-5, the polarized sums within
+  `chip_smoke.B5_BOUNDS` (the reference's azimuth is chaotic to an ulp,
+  ROADMAP C).
 """
 
 import dataclasses
@@ -185,3 +201,71 @@ def test_kinematics_with_dust(tmp_path, monkeypatch):
     out_r, out_p, _ = _run(monkeypatch, ref, port)
     gaps = _gaps(out_r, out_p)
     assert max(gaps.values()) <= EXACT, gaps
+
+
+def _tree_march(name, tmp_path, edits, level=3, **run):
+    """The reference loaded with its grid replaced by a density octree (or
+    bench3's own tree, level None), and the port through bridge.simulation
+    (march=True): no sweep tables and no leaf map on either side."""
+    if level is not None:
+        edits = dict(chip_smoke.tree_edits(name, level), **edits)
+    ref = _load(name, tmp_path, edits, **run)
+    assert type(ref.grid).__name__ == "OctreeGrid"
+    assert ref._sweep_tabs is None and ref.grid.leafmap is None
+    port = bridge.simulation(ref, "cpu", march=True)
+    assert port._sweep_tabs is None and port.grid.leafmap is None
+    return ref, port
+
+
+def test_bench3_explicit_absorption_octree(tmp_path, monkeypatch):
+    ref, port = _tree_march(
+        "bench3", tmp_path, dict(chip_smoke.B3_SMALL, **{
+            'numWavelengths="25"': 'numWavelengths="4"',
+            'forceScattering="true"':
+            'forceScattering="true" explicitAbsorption="true"'}),
+        level=None, num_packets=2048, batch_size=2048, max_events=4)
+    ref.iterate_secondary, ref.max_iterations = True, 1
+    port.iterate_secondary, port.max_iterations = True, 1
+    assert port.options.explicit_absorption and port.grid.ncells == 2122
+    assert port.options.max_steps == min(port.grid.max_steps(), 256)
+    out_r, out_p, calls = _run(monkeypatch, ref, port, dust=True)
+    assert calls > 0
+    gaps = _gaps(out_r, out_p)
+    assert max(gaps.values()) <= EXACT, gaps
+    assert out_p[2]["iterations"] == out_r[2]["iterations"] == 1
+    assert out_p[2]["L_dust"] == pytest.approx(out_r[2]["L_dust"], rel=1e-5)
+
+
+def test_lya_on_a_tree_with_varying_temperature(tmp_path, monkeypatch):
+    ref, port = _tree_march("bench6", tmp_path, {}, num_packets=2048,
+                            batch_size=2048, max_events=8)
+    T = np.asarray(ref.medium.temperature).copy()
+    occ = np.asarray(ref.medium.nd)[:, 0] > 0
+    T[occ] *= np.linspace(1.0, 2.0, int(occ.sum()))
+    ref.medium = ref.medium._replace(temperature=jnp.asarray(T, jnp.float32))
+    port = bridge.simulation(ref, "cpu", march=True)
+    assert lc.check_wavelength_changing(port.medium, port.options, 0) is None
+    out_r, out_p, _ = _run(monkeypatch, ref, port)
+    gaps = _gaps(out_r, out_p)
+    assert max(gaps.values()) <= EXACT, gaps
+
+
+def test_xray_on_a_tree(tmp_path, monkeypatch):
+    ref, port = _tree_march("bench7", tmp_path, {}, num_packets=2048,
+                            batch_size=2048, max_events=8)
+    assert port.options.xray and port.xray_tabs is not None
+    out_r, out_p, _ = _run(monkeypatch, ref, port)
+    gaps = _gaps(out_r, out_p)
+    assert max(gaps.values()) <= EXACT, gaps
+
+
+def test_polarized_outflow_on_a_tree(tmp_path, monkeypatch):
+    ref, port = _tree_march("bench5", tmp_path, {}, num_packets=1024,
+                            batch_size=1024, max_events=6)
+    assert port.options.kinematics and port.options.polarization
+    out_r, out_p, _ = _run(monkeypatch, ref, port)
+    as_torch = lambda acc: {k: torch.tensor(np.asarray(v))
+                            for k, v in acc.items()}
+    gaps = chip_smoke.b5_errors(as_torch(out_r[1][0]), out_p[1][0])
+    for k, e in gaps.items():
+        assert e <= chip_smoke.B5_BOUNDS.get(k, EXACT), (k, e, gaps)

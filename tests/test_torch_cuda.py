@@ -859,13 +859,15 @@ def test_mlsweep_deposit_kernel_global(dev, kind, monkeypatch):
     assert float((rf_k - rf_p).abs().max()) <= 1e-5 * float(rf_p.abs().max())
 
 
-@pytest.mark.parametrize("engine", ["tree", "tree_no_rf", "xl", "march"])
+@pytest.mark.parametrize("engine", ["tree", "tree_no_rf", "xl", "march",
+                                    "tree_march"])
 def test_event_loop_copies_nothing_from_host(dev, engine):
     """Three profiled events of the tree loop (with an RF: pass 2 in kernel
     5; without: `resolve_interaction`), of the XL loop and of the scan
-    march (a meshed grid): no host-to-device copy issued inside the loop's
-    profiler range, and every device operation traced to the runtime call
-    that issued it."""
+    march (a meshed grid; an octree with explicit absorption, whose
+    raster's XL tables the gate declines): no host-to-device copy issued
+    inside the loop's profiler range, and every device operation traced to
+    the runtime call that issued it."""
     from skirt9_tpu_torch.tools import event_profile as ep
     if engine.startswith("tree"):
         grid = _tree("octree")
@@ -886,13 +888,17 @@ def test_event_loop_copies_nothing_from_host(dev, engine):
         instruments=[dinst.DistantInstrumentCfg(
             name="i", wave_borders=(0.5e-6, 0.6e-6), distance=100 * PC,
             npx=16, npy=16, fovx=4 * PC, fovy=4 * PC)],
-        options=lc.TransportOptions(max_steps=grid.max_steps(),
-                                    max_events=3),
+        options=lc.TransportOptions(
+            max_steps=grid.max_steps(), max_events=3,
+            explicit_absorption=engine == "tree_march"),
         rf_borders=(None if engine == "tree_no_rf"
                     else np.array([0.5e-6, 0.6e-6])),
         num_packets=4096, batch_size=4096, seed=1, device=dev)
     if engine == "march":
         assert sim._sweep_tabs is None
+    elif engine == "tree_march":
+        assert isinstance(sim._sweep_tabs, xl.XLTables)
+        kb.reset_launches()
     else:
         assert isinstance(sim._sweep_tabs, xl.XLTables if engine == "xl"
                           else ml.MLTables)
@@ -902,6 +908,9 @@ def test_event_loop_copies_nothing_from_host(dev, engine):
     assert prof["unattributed"] == 0, prof
     assert prof["loop"]["device_ops"] > 0 and prof["loop"]["d2h_copies"] > 0
     assert prof["loop"]["h2d_copies"] == 0, prof["loop"]
+    if engine == "tree_march":
+        assert kb.LAUNCHES["march_octree"] > 0
+        assert kb.LAUNCHES["sweepxl_dtau_prefix"] == 0
 
 
 def test_tree_simulation_launches(dev):
@@ -1782,6 +1791,13 @@ def _march_rays(dev, mode, B, seed):
     ext = ((-1.2 * PC, 1.2 * PC),) * 3
     if mode == "voronoi":
         grid = build_voronoi(rs.uniform(-PC, PC, (300, 3)), ext, lookup_res=8)
+    elif mode in ("octree", "bintree"):
+        grid = _tree(mode)
+    elif mode == "octree_level10":
+        p = np.array([0.1, 0.2, 0.3]) * PC
+        grid = build_octree(ext, None, max_level=10, min_level=1,
+                            refine_fn=lambda lo, hi, lv: np.all(
+                                (lo <= p) & (p < hi), axis=-1))
     elif mode == "uniform":
         grid = make_cartesian(ext, (16, 12, 20))
     else:
@@ -1795,7 +1811,12 @@ def _march_rays(dev, mode, B, seed):
     d[:k] = 0.0
     d[np.arange(k), rs.integers(0, 3, k)] = rs.choice([-1.0, 1.0], k)
     d[k:2 * k] = rs.choice([-1.0, 1.0], (k, 3))
-    if mode != "voronoi":
+    if mode.startswith(("octree", "bintree")):
+        lo = grid.cell_lo.double().numpy()        # leaf corners
+        pos[k:2 * k] = lo[rs.integers(0, lo.shape[0], k)]
+        if mode == "octree_level10":              # lanes in the deep leaves
+            pos[2 * k:4 * k] = p + rs.normal(scale=0.01 * PC, size=(2 * k, 3))
+    elif mode != "voronoi":
         bs = [x.double().numpy() for x in (grid.xb, grid.yb, grid.zb)]
         pos[k:2 * k] = np.stack([rs.choice(x[1:-1], k) for x in bs], axis=1)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -1807,12 +1828,13 @@ def _march_rays(dev, mode, B, seed):
 
 
 @pytest.mark.parametrize("mode", ["uniform", "mesh", "mesh_global",
-                                  "voronoi"])
+                                  "voronoi", "octree", "bintree",
+                                  "octree_level10"])
 def test_march_kernel(dev, mode):
     """The march kernel against its plain version on the same CUDA tensors:
     one launch under its mode's counter, cells and step lengths bit for
     bit (the border tables staged in shared memory and, past 48 KB, read
-    from global memory)."""
+    from global memory; a tree's descent 11 levels deep)."""
     from skirt9_tpu_torch.transport import march as mr
     grid, pos, d, cell, mask = _march_rays(dev, mode, 3000, seed=7)
     S = min(grid.max_steps(), 256)
@@ -1826,21 +1848,27 @@ def test_march_kernel(dev, mode):
     assert bool((ck[:, ~mask] == 0).all())
 
 
-@pytest.mark.parametrize("name", ["bench1_sympow_mesh", "bench4_walk"])
+@pytest.mark.parametrize("name", ["bench1_sympow_mesh", "bench4_walk",
+                                  "bench3_explicit_absorption_tree"])
 def test_march_on_cuda_matches_cpu(dev, name, tmp_path):
-    """A reduced march configuration (chip_smoke.MARCH_SMALL) on the card
-    against the CPU within chip_smoke.py's MARCH_BOUNDS (`march_gaps`): the
-    march kernel and detect launched, no sweep."""
+    """A reduced march configuration (chip_smoke.MARCH_SMALL, or
+    TREE_SMALL's bench3 with explicit absorption, whose raster's XL tables
+    the gate declines) on the card against the CPU within chip_smoke.py's
+    MARCH_BOUNDS (`march_gaps`): the march kernel and detect launched, no
+    sweep."""
     cs = _chip_smoke()
     outs = {}
     for d in ("cpu", dev):
-        sim, dust = cs.march_config(name, d, tmp_path)
+        sim, dust = (cs.tree_config("bench3_explicit_absorption", d,
+                                    tmp_path) if name.endswith("_tree")
+                     else cs.march_config(name, d, tmp_path))
         kb.reset_launches()
         outs[str(d)] = (sim.run_with_dust_emission(verbose=False) if dust
                         else sim.run_primary(verbose=False))
     n = dict(kb.LAUNCHES)
     cs.march_gaps(outs["cpu"], outs[str(dev)], dust)
-    mode = "march_mesh" if "mesh" in name else "march_voronoi"
+    mode = ("march_octree" if name.endswith("_tree") else
+            "march_mesh" if "mesh" in name else "march_voronoi")
     assert n[mode] > 0 and n["detect"] > 0
     for k in cs.SWEEPS:
         assert n[k] == 0, k

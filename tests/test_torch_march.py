@@ -1,13 +1,21 @@
 """The scan march (`skirt9_tpu_torch/transport/march.py`) and the grids'
 `step` against the reference's (`skirt9_tpu/transport/lifecycle.py:
-132-276`, `skirt9_tpu/grids/cartesian.py`, `voronoi.py`) on the CPU, on
-rays made from numpy seeds: random rays, rays along an axis, diagonal rays
-started on cell corners, and lanes outside the grid.
+132-276`, `skirt9_tpu/grids/cartesian.py`, `voronoi.py`, `octree.py`,
+`bintree.py`) on the CPU, on rays made from numpy seeds: random rays, rays
+along an axis, diagonal rays started on cell corners (a tree's leaf
+corners), and lanes outside the grid.
 
 - `step` of a uniform, a meshed (SymPowMesh and a power-law axis) and a
   Voronoi grid: the next cells identical, the step lengths and positions
   within 2 f32 ulps (they agree bit for bit: the steps replay XLA's fused
-  multiply-adds, without which a tenth of the lengths are off).
+  multiply-adds, without which a tenth of the lengths are off); of a
+  density octree and bintree bit for bit (the exit move and the nudge are
+  XLA's fused multiply-adds; each next leaf by descent from the root).
+- `move_inside` of both Cartesian grids and both trees bit for bit on
+  lanes that start outside (XLA fuses the move into a multiply-add on
+  every axis of a Cartesian grid, on x and y only of a tree).
+- A tree march with the fine leaf map attached takes the same cells: the
+  step descends all the same.
 - `march_geometry` (the plain loop) against the reference's jitted scan:
   the cells of the lanes in the mask identical, every step length within 2
   ulps; a masked lane records cell 0, length 0.
@@ -28,8 +36,10 @@ import numpy as np
 import pytest
 import torch
 
+from skirt9_tpu.grids import bintree as ref_bt
 from skirt9_tpu.grids import cartesian as ref_cart
 from skirt9_tpu.grids import meshes as ref_meshes
+from skirt9_tpu.grids import octree as ref_ot
 from skirt9_tpu.grids import voronoi as ref_voronoi
 from skirt9_tpu.media import system as ref_msys
 from skirt9_tpu.transport import lifecycle as ref_lc
@@ -39,6 +49,7 @@ from skirt9_tpu_torch.kernels import build as kb
 from skirt9_tpu_torch.media import system as msys
 from skirt9_tpu_torch.ops import xlamath as xm
 from skirt9_tpu_torch.transport import march as mr
+from skirt9_tpu_torch.transport import mlsweep as ml
 from skirt9_tpu_torch.transport import raster
 
 PC = 3.0857e16
@@ -54,6 +65,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+def _dens(p):
+    r = np.linalg.norm(p, axis=-1)
+    return np.where(r < PC, (PC / np.maximum(r, 0.1 * PC)) ** 2, 0.0)
+
+
 def _grids():
     rs = np.random.default_rng(5)
     sym = ref_meshes.scale(ref_meshes.sym_pow_mesh(12, 8.0), *EXT[0])
@@ -64,10 +80,15 @@ def _grids():
                                         meshes=[sym, None, powm]),
         "voronoi": ref_voronoi.build_voronoi(rs.uniform(-PC, PC, (200, 3)),
                                              EXT, lookup_res=8),
+        "octree": ref_ot.build_octree(EXT, _dens, max_level=4, min_level=1,
+                                      max_fraction=2e-2),
+        "bintree": ref_bt.build_bintree(EXT, _dens, max_level=10,
+                                        min_level=3, max_fraction=2e-2),
     }
 
 
 GRIDS = _grids()
+TREES = ("octree", "bintree")
 
 
 def _rays(grid, seed: int, n: int = B):
@@ -83,6 +104,9 @@ def _rays(grid, seed: int, n: int = B):
     if hasattr(grid, "xb"):
         b = [np.asarray(x, np.float64) for x in (grid.xb, grid.yb, grid.zb)]
         pos[k:2 * k] = np.stack([rs.choice(x[1:-1], k) for x in b], axis=1)
+    if hasattr(grid, "cell_lo"):
+        lo = np.asarray(grid.cell_lo, np.float64)
+        pos[k:2 * k] = lo[rs.integers(0, lo.shape[0], k)]
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return pos.astype(np.float32), d.astype(np.float32)
 
@@ -111,6 +135,9 @@ def test_step_matches_reference(name):
         assert np.array_equal(nc.numpy(), nc_r)
         assert _ulps(ds.numpy(), ds_r).max() <= 2
         assert _ulps(np_.numpy(), np_r).max() <= 2
+        if name in TREES:
+            assert np.array_equal(ds.numpy(), ds_r)
+            assert np.array_equal(np_.numpy(), np_r)
         assert np.all(ds_r[:16] == 0) and np.all(nc_r[:16] == -1)
         p, c = np_r, nc_r
 
@@ -141,9 +168,55 @@ def test_march_geometry_matches_reference(name):
     assert np.array_equal(cells.numpy()[:, mask], cells_r[:, mask])
     assert np.all(cells.numpy()[:, ~mask] == 0)
     assert _ulps(ds.numpy(), ds_r).max() <= 2
+    if name in TREES:
+        assert np.array_equal(ds.numpy(), ds_r)
     # every walking lane leaves the grid within S steps
     assert np.all(ds_r[-1] == 0)
     assert (ds_r > 0).sum(axis=0).max() > 3
+
+
+@pytest.mark.parametrize("name", TREES)
+def test_tree_march_with_leaf_map(name):
+    """The fine leaf map attached (as a Simulation attaches it on the
+    sweeps) changes no cell of the march: its steps descend."""
+    grid = GRIDS[name]
+    port = bridge.grid(grid)
+    med = bridge.medium(_media(grid, np.random.default_rng(4))[0])
+    tabs = ml.build_tables(port, med)
+    mapped = port._replace(leafmap=tabs.leafmap, fine_n=tabs.n)
+    pos, d = _rays(grid, 6)
+    cell = np.asarray(grid.locate(jnp.asarray(pos)))
+    assert np.array_equal(mapped.locate(torch.tensor(pos)).numpy(), cell)
+    mask = np.ones(B, bool)
+    S = min(grid.max_steps(), 256)
+    cells_r, ds_r = _ref_march(grid, pos, d, cell, S, mask)
+    cells, ds = mr.march_geometry(mapped, torch.tensor(pos), torch.tensor(d),
+                                  torch.tensor(cell, dtype=torch.int64), S,
+                                  torch.tensor(mask))
+    assert np.array_equal(cells.numpy(), cells_r)
+    assert np.array_equal(ds.numpy(), ds_r)
+
+
+@pytest.mark.parametrize("name", ["uniform", "mesh"] + list(TREES))
+def test_move_inside_matches_reference(name):
+    """Lanes launched outside the grid's box move onto it as the
+    reference's do, bit for bit; lanes that miss it get -1."""
+    grid = GRIDS[name]
+    rs = np.random.default_rng(8)
+    pos = rs.uniform(-3 * PC, 3 * PC, (B, 3)).astype(np.float32)
+    d = rs.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pos[:8] = 0.0                                  # lanes already inside
+    toward = -pos[8:] / np.linalg.norm(pos[8:], axis=1, keepdims=True)
+    d[8:B // 2] = toward[:B // 2 - 8]              # lanes aimed at the box
+    d = d.astype(np.float32)
+    ref = [np.asarray(x) for x in jax.jit(grid.move_inside)(
+        jnp.asarray(pos), jnp.asarray(d))]
+    ours = [x.numpy() for x in bridge.grid(grid).move_inside(
+        torch.tensor(pos), torch.tensor(d))]
+    assert (ref[1] >= 0).sum() > B // 3 and (ref[1] < 0).sum() > B // 8
+    for a, b in zip(ours, ref):
+        assert np.array_equal(a, b)
 
 
 def _media(grid, rs):

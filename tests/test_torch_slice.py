@@ -30,8 +30,8 @@ reference's gate does, and agrees with the reference at the same bounds.
 
 The port imports neither jax nor any module of the JAX package: a
 subprocess runs a uniform-grid and an octree simulation, the octree on
-its voxel raster through the XL contracts (and the scan march on trees
-raising where a batch of 128 lanes leaves those contracts), the scan
+its voxel raster through the XL contracts (and on the scan march where
+a batch of 128 lanes leaves those contracts), the scan
 march on a meshed Cartesian grid (bench1.ski with a SymPowMesh and
 explicit absorption) and on a tiny Voronoi grid walked exactly, a small
 config 2 with dust
@@ -249,9 +249,10 @@ def test_device_must_be_named(config1, monkeypatch):
 def test_unported_options_raise(config1):
     """Explicit absorption runs on the scan march (the reference's gate
     declines the sweep) and agrees with the reference's march at the
-    slice's bounds; polarization and kinematics on XL tables raise naming
-    themselves, and kinematics with wavelength-dependent cross sections
-    now takes the march too."""
+    slice's bounds; polarization and kinematics run on XL tables put in
+    place (the gate passes them) and agree with the reference's march at
+    the same bounds, and kinematics with wavelength-dependent cross
+    sections takes the march."""
     ref_sim, sim = config1
     ref_abs = dataclasses.replace(ref_sim, options=dataclasses.replace(
         ref_sim.options, explicit_absorption=True))
@@ -261,16 +262,16 @@ def test_unported_options_raise(config1):
                          port_abs._sweep_tabs, None, 1024)
     assert not gate.use_sweep and gate.why == ("explicitAbsorption",)
     _compare(ref_abs, port_abs)
-    # polarization and kinematics run on the resident sweep only: on XL
-    # tables they raise naming themselves
+    # polarization and kinematics ride the XL sweep as the resident one
     for name in ("polarization", "kinematics"):
-        opts = bridge.options(dataclasses.replace(ref_sim.options,
-                                                  **{name: True}))
+        ref_on = dataclasses.replace(ref_sim, options=dataclasses.replace(
+            ref_sim.options, **{name: True}))
+        opts = bridge.options(ref_on.options)
         other = dataclasses.replace(sim, options=opts)
         other._sweep_tabs = xl.build_tables(other.grid, other.medium)
-        with pytest.raises(NotImplementedError,
-                           match=f"{name} on the large-grid"):
-            other.run_primary(verbose=False)
+        assert lc.sweep_gate(other.medium, opts, other._sweep_tabs, None,
+                             other.batch_size).use_sweep
+        _compare(ref_on, other)
     varying = sim.medium._replace(
         sigma_ext=sim.medium.sigma_ext * torch.tensor([1.0, 2.0]))
     moving = dataclasses.replace(sim, medium=varying, options=opts)
@@ -367,19 +368,23 @@ for grid in (make_cartesian(ext, (6,) * 3), octree):
     rf, accs = sim.run_primary(verbose=False)
     assert float(accs[0]["sed"].sum()) > 0 and float(rf.sum()) > 0
 assert isinstance(sim._sweep_tabs, MLTables)
-# the octree on its voxel raster (the XL contracts' tables put in place),
-# in whole 1,024-lane rows: a batch of 128 would take the scan march,
-# which trees do not have yet
+# the octree on its voxel raster (the XL contracts' tables put in place):
+# a batch of 128 fails their 1,024-lane rows and marches the octree, a
+# batch of 1,024 sweeps
+from skirt9_tpu_torch.transport import march as mr
 from skirt9_tpu_torch.transport import sweepxl as xl
 sim._sweep_tabs = xl.build_tree_tables(sim.grid, sim.medium)
-try:
-    sim.run_primary(verbose=False)
-    raise AssertionError("the scan march on trees raises")
-except NotImplementedError as err:
-    assert "scan march on trees" in str(err)
+marched, plain = [], mr.march_geometry_plain
+mr.march_geometry_plain = lambda *a: marched.append(a[0]) or plain(*a)
+rf, accs = sim.run_primary(verbose=False)
+assert marched and all(g is sim.grid for g in marched)
+assert float(accs[0]["sed"].sum()) > 0 and float(rf.sum()) > 0
+marched.clear()
 sim.batch_size = 1024
 rf, accs = sim.run_primary(verbose=False)
 assert rf.shape == (octree.ncells, 1) and float(rf.sum()) > 0
+assert not marched
+mr.march_geometry_plain = plain
 # the scan march: bench1.ski on a symmetric power-law mesh (a meshed
 # Cartesian grid) with explicit absorption, and a tiny Voronoi grid walked
 # exactly
