@@ -336,7 +336,19 @@ Phases, one JSON line each:
                     on the card: SEDs and RF within 2e-5 of their maxima
                     (a one-bin SED 1e-4), after dust emission the
                     secondary light by its sums (1e-3), bench6 within
-                    B6_BOUNDS; the march kernel and detect launched
+                    B6_BOUNDS, bench7 within B7_BOUNDS, the polarized
+                    bench5 within B5_BOUNDS; the Cartesian and Voronoi
+                    cases march without sweep tables, the trees take the
+                    engine chain's: bench3 at maxLevel 4 with explicit
+                    absorption, a 4-bin RF and one self-absorption
+                    iteration (the octree march; also on a bintree),
+                    bench5 on an octree moving (polarization and
+                    kinematics on the tree's XL raster) and static
+                    (polarization on the tree sweep), bench6 on an octree
+                    with its gas temperature rising 1x to 2x (Lya on the
+                    tree march) and bench7 on an octree (X-ray on the XL
+                    raster); each case's kernels and detect launched, no
+                    other march mode or sweep
   full_width_b4_walk  bench4.ski at bench_config4's width with
                     raster_fallback off: the exact Voronoi walk, every
                     bench4 gate strict, march_voronoi and detect launched,
@@ -356,29 +368,27 @@ Phases, one JSON line each:
                     bench3 with treeType="BinTree" (the loader's triple
                     levels) and march_octree on a level-10 octree (2^16
                     random lanes); cells identical and lengths
-                    bit-identical on every (step, lane), timed, the bound
-                    from the bytes of the (S, B) tables
-  draw_for_draw_tree  the reduced tree configurations (TREE_SMALL) on the
-                    CPU and on the card: bench3 at maxLevel 4 with explicit
-                    absorption, a 4-bin RF and one self-absorption iteration
-                    (the octree march; also on a bintree), bench5 on an
-                    octree moving (polarization and kinematics on the
-                    tree's XL raster) and static (polarization on the tree
-                    sweep), bench6 on an octree with its gas temperature
-                    rising 1x to 2x (Lya on the tree march) and bench7 on
-                    an octree (X-ray on the XL raster), within
-                    MARCH_BOUNDS, B5_BOUNDS or B6_BOUNDS/B7_BOUNDS
+                    bit-identical on every (step, lane) (_march_check),
+                    timed, the bound from the bytes of the (S, B) tables
   full_width_b3_march  bench3.ski with explicitAbsorption at bench_config3's
                     width (2^18 packets in batches of 2^16, 24 events): the
                     raster's XL tables built and declined by the gate,
                     march_octree and detect launched, no sweep kernel; every
                     bench3 gate; packets/s beside full_width_b3's tree-sweep
                     run and its gates; one batch per segment profiled
+  kernels_b5_tree   (right after kernels_march_tree) kernel 6's prefix
+                    and total modes and kernel 7's prefix mode without an
+                    RF against their plain versions at full_width_b5_tree's
+                    first event (2^17 lanes, the 64^3 tree raster), timed,
+                    with bounds
   full_width_b5_tree  bench5.ski on a maxLevel-6 density octree (24,571
                     leaves, its 64^3 voxel raster) at bench_config5's width:
-                    kernels 6-7 and detect's Stokes mode, no march; the
-                    transparent SED equal to full_width_b5's (the same
-                    histories) within 1e-5, V identically 0, R < 0.01;
+                    kernels 6-7 and detect's Stokes mode, no march; gated (point_source_gates): the transparent
+                    SED against the blackbody integrated over each bin
+                    (within 5 sigma of the run's sampling noise per bin and
+                    in total), the direct SED over the transparent one
+                    equal to exp(-tau) of the line of sight through the
+                    tree's leaves (1e-4), V identically 0, R < 0.01;
                     bench5's golden ratios beside full_width_b5's, reported
 
 Each path is driven with the launch counts set to 0 just before it and read
@@ -3073,13 +3083,50 @@ def phase_kernels_xl_grouped(torch) -> dict:
     return res
 
 
+def check_prefix_xl(torch, what, tabs, rays, pre) -> dict:
+    """Kernel 6's prefix mode against its plain version on one event's
+    sorted lanes (first_event_xl: rays and the kernel's outputs pre): the
+    record and the lane range bit for bit, the prefix and the total within
+    1e-6 of each lane's tau; timed by CUDA events and the profiler, beside
+    the plain version, with its bound (the rays, the voxel densities, the
+    record, prefix and lane range written; the crossed slabs' DDA)."""
+    from skirt9_tpu_torch.transport import sweepxl as xl
+    pos, dirn, _, _, alive, sig = rays
+    B = pos.shape[0]
+    ev = (tabs, pos, dirn, sig, alive)
+    rec_p, tb_p, tot_p, lane_p = xl.sweep_dtau_prefix_plain(*ev)
+    rec_k, tb_k, tot_k, lane_k = pre
+    torch.cuda.synchronize()
+    require(bool((tot_p > 0).sum() > B // 2), f"{what}: the rays see matter")
+    require(bool(torch.equal(rec_k, rec_p)), f"{what}: kernel 6 record")
+    for a, b, name in zip(lane_k, lane_p, ("axis", "smin", "smax")):
+        require(bool(torch.equal(a, b)), f"{what}: kernel 6 lane {name}")
+    rel = float(((tb_k - tb_p).abs() / tot_p.clamp_min(1e-30)).max())
+    rel_t = float(((tot_k - tot_p).abs() / tot_p.clamp_min(1e-30)).max())
+    require(max(rel, rel_t) <= 1e-6, f"{what}: kernel 6 prefix and total "
+            f"within 1e-6 of tau ({rel}, {rel_t})")
+    del rec_p, tb_p
+    g, smin, smax = lane_p
+    n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
+    res = dict(max_abs_err=float((tot_k - tot_p).abs().max()),
+               max_err_of_tau=max(rel, rel_t), active_pairs=n_act,
+               ms=cuda_ms(lambda: xl.sweep_dtau_prefix(*ev)),
+               device_ms=device_ms(lambda: xl.sweep_dtau_prefix(*ev))["ours"],
+               plain_ms=cuda_ms(lambda: xl.sweep_dtau_prefix_plain(*ev),
+                                reps=3), library_ms=None,
+               **bound(ray_bytes(B, 1) + tabs.nd.numel() * 4
+                       + 4 * tabs.nmax * B * 4 + 4 * B * 4,
+                       B * OPS_LANE + n_act * (OPS_SLAB + 3 * (OPS_SUB + 2)
+                                               + 4)))
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_kernels_treexl(torch) -> dict:
     """On bench_config3ismxl's recipe at max_level 9 (a 512^3 voxel raster)
     with a one-bin RF, its first event: kernel 6's prefix mode at nmax =
-    512 against its plain version (the record and lane range bit for bit,
-    the prefix and total within 1e-6 of each lane's tau), and kernel 7's
-    prefix mode with the cell map (`check_grouped_xl`)."""
-    from skirt9_tpu_torch.transport import sweep as sw
+    512 against its plain version (check_prefix_xl), and kernel 7's prefix
+    mode with the cell map (`check_grouped_xl`)."""
     from skirt9_tpu_torch.transport import sweepxl as xl
     sim, t_tree, t_setup = config3ism("cuda", "config3ismxl9", store_rf=True)
     tabs = sim._sweep_tabs
@@ -3087,39 +3134,13 @@ def phase_kernels_treexl(torch) -> dict:
             and tabs.n == (512,) * 3, "the level-9 tree builds its 512^3 "
             "voxel raster")
     rays, _, _, pre = first_event_xl(torch, sim)
-    pos, dirn, _, _, alive, sig = rays
-    B = pos.shape[0]
-    ev = (tabs, pos, dirn, sig, alive)
-    rec_p, tb_p, tot_p, lane_p = xl.sweep_dtau_prefix_plain(*ev)
-    rec_k, tb_k, tot_k, lane_k = pre
-    torch.cuda.synchronize()
-    require(bool((tot_p > 0).sum() > B // 2), "the tree's rays see dust")
-    require(bool(torch.equal(rec_k, rec_p)), "kernel 6 record at 512^3")
-    for a, b, name in zip(lane_k, lane_p, ("axis", "smin", "smax")):
-        require(bool(torch.equal(a, b)), f"kernel 6 lane {name} at 512^3")
-    rel = float(((tb_k - tb_p).abs() / tot_p.clamp_min(1e-30)).max())
-    rel_t = float(((tot_k - tot_p).abs() / tot_p.clamp_min(1e-30)).max())
-    require(max(rel, rel_t) <= 1e-6,
-            f"kernel 6 prefix and total within 1e-6 of tau ({rel}, {rel_t})")
-    del rec_p, tb_p
-    g, smin, smax = lane_p
-    n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
-    k6 = dict(max_abs_err=float((tot_k - tot_p).abs().max()),
-              max_err_of_tau=max(rel, rel_t), active_pairs=n_act,
-              ms=cuda_ms(lambda: xl.sweep_dtau_prefix(*ev)),
-              device_ms=device_ms(lambda: xl.sweep_dtau_prefix(*ev))["ours"],
-              plain_ms=cuda_ms(lambda: xl.sweep_dtau_prefix_plain(*ev),
-                               reps=3), library_ms=None,
-              **bound(ray_bytes(B, 1) + tabs.nd.numel() * 4
-                      + 4 * tabs.nmax * B * 4 + 4 * B * 4,
-                      B * OPS_LANE + n_act * (OPS_SLAB + 3 * (OPS_SUB + 2)
-                                              + 4)))
-    torch.cuda.empty_cache()
+    k6 = check_prefix_xl(torch, "the level-9 tree at 512^3", tabs, rays, pre)
     k7 = check_grouped_xl(torch, "kernel 7 with the cell map", sim, rays,
                           pre, 1, None, 0)
-    emit({"phase": "kernels_treexl", "batch": B, "leaves": sim.grid.ncells,
-          "voxel_grid": list(tabs.n), "tree_build_s": t_tree,
-          "setup_s": t_setup, "sweepxl_dtau_prefix_tree512": k6,
+    emit({"phase": "kernels_treexl", "batch": rays[0].shape[0],
+          "leaves": sim.grid.ncells, "voxel_grid": list(tabs.n),
+          "tree_build_s": t_tree, "setup_s": t_setup,
+          "sweepxl_dtau_prefix_tree512": k6,
           "sweepxl_deposit_prefix_cellmap": k7})
     return {"sweepxl_dtau_prefix_tree512": k6,
             "sweepxl_deposit_prefix_cellmap": k7}
@@ -4555,6 +4576,7 @@ def phase_breakdown_b4(torch) -> None:
 # ------------------------------------------------------------- scan march
 
 MARCH = ("march_uniform", "march_mesh", "march_voronoi")
+MARCH_TREE = ("march_octree", "march_bintree")
 # the sweeps' kernels, none of which a march path launches
 SWEEPS = RESIDENT + XL + ML + NOT_PATH
 # f32 operations per walked (step, lane) in csrc/march.cu: a Cartesian step
@@ -4563,60 +4585,111 @@ SWEEPS = RESIDENT + XL + ML + NOT_PATH
 # products and the division) plus its wall test and move
 OPS_MARCH = {"march_uniform": 36, "march_mesh": 33, "march_voronoi": 24}
 OPS_MARCH_WALL = 24
+# of a tree step (the exit distances, the least, the move and the nudge,
+# the root box test), and per level of the descent (an octree's three
+# comparisons and two adds, a bintree's one)
+OPS_TREE_STEP = 30
+OPS_TREE_LEVEL = {"march_octree": 5, "march_bintree": 2}
+# bench3 with explicit absorption: the interaction sampled on the
+# scattering depth, so the gate declines the tree raster's XL tables and
+# the octree marches
+B3_EXPLICIT = {'forceScattering="true"':
+               'forceScattering="true" explicitAbsorption="true"'}
+B3_BINTREE = {'treeType="OctTree"': 'treeType="BinTree"'}
+B3_RF4 = {'numWavelengths="25"': 'numWavelengths="4"'}
 # the reduced configurations of tests/test_torch_config_march.py: ski file,
-# edits, run sizes, dust emission
+# edits (a "tree" entry, its maxLevel, replaces the Cartesian grid by a
+# density octree: tree_edits), run sizes, dust emission, the kernels the
+# card must launch. The Cartesian and Voronoi cases drop their sweep
+# tables and march; the trees keep theirs, and the engine chain gives
+# each its engine: bench3 with explicit absorption and bench6 with a
+# varying temperature march, the moving bench5 and bench7 run on the
+# tree's XL raster, the static bench5 on the tree sweep
 MARCH_SMALL = {
     "bench1_explicit_absorption": ("bench1", {
         'numBins="32"': 'numBins="16"', 'forceScattering="true"':
         'forceScattering="true" explicitAbsorption="true"'},
-        dict(num_packets=4096, batch_size=4096, max_events=8), False),
+        dict(num_packets=4096, batch_size=4096, max_events=8), False,
+        ("march_uniform",)),
     "bench1_sympow_mesh": ("bench1", {
         '<LinMesh numBins="32"/>': '<SymPowMesh numBins="16" ratio="8"/>'},
-        dict(num_packets=4096, batch_size=4096, max_events=8), False),
+        dict(num_packets=4096, batch_size=4096, max_events=8), False,
+        ("march_mesh",)),
     "bench4_walk": ("bench4", {
         'numWavelengths="25"': 'numWavelengths="4"'},
-        dict(num_packets=2048, batch_size=2048, max_events=3), True),
+        dict(num_packets=2048, batch_size=2048, max_events=3), True,
+        ("march_voronoi",)),
     "bench2_explicit_absorption": ("bench2", {
         'numBins="32"': 'numBins="8"', 'forceScattering="true"':
         'forceScattering="true" explicitAbsorption="true"'},
-        dict(num_packets=4096, batch_size=4096, max_events=4), True),
+        dict(num_packets=4096, batch_size=4096, max_events=4), True,
+        ("march_uniform",)),
     "bench6_varying_T": ("bench6", {},
                          dict(num_packets=2048, batch_size=2048,
-                              max_events=8), False),
+                              max_events=8), False, ("march_uniform",)),
     "bench5_dust": ("bench5", {
         '<ElectronMix includePolarization="true"/>':
         '<MeanFileDustMix filename="mrn_mean.txt"/>',
         'numBins="32"': 'numBins="8"'},
-        dict(num_packets=2048, batch_size=2048, max_events=6), False)}
+        dict(num_packets=2048, batch_size=2048, max_events=6), False,
+        ("march_uniform",)),
+    "bench3_explicit_absorption": (
+        "bench3", dict(B3_SMALL, **B3_EXPLICIT, **B3_RF4),
+        dict(num_packets=4096, batch_size=4096, max_events=8), True,
+        ("march_octree",)),
+    "bench3_bintree_explicit_absorption": (
+        "bench3", dict(B3_SMALL, **B3_EXPLICIT, **B3_BINTREE, **B3_RF4),
+        dict(num_packets=4096, batch_size=4096, max_events=8), True,
+        ("march_bintree",)),
+    "bench5_tree_moving": ("bench5", {"tree": 3},
+                           dict(num_packets=4096, batch_size=1024,
+                                max_events=8), False, XL),
+    "bench5_tree_static": ("bench5", dict({"tree": 3}, **B5_STATIC),
+                           dict(num_packets=4096, batch_size=1024,
+                                max_events=8), False, ML_PASS1),
+    "bench6_tree_varying_T": ("bench6", {"tree": 3},
+                              dict(num_packets=2048, batch_size=2048,
+                                   max_events=8), False, ("march_octree",)),
+    "bench7_tree": ("bench7", {"tree": 3},
+                    dict(num_packets=2048, batch_size=2048, max_events=16),
+                    False, XL)}
 # CPU against card on them: the RF and the SEDs within 2e-5 of their
 # maxima, a one-bin SED within 1e-4 (the f32 sum of every detection into
 # one entry: the CPU's index_add_ in lane order strays ~1e-5 by itself at
 # 4,096 lanes, the card's atomics in another order, as `draw_for_draw`
 # holds config 1), after dust emission the secondary light by its sums;
 # bench6's Lyman-alpha light as config 6's (B6_BOUNDS: the rejection
-# sampler's tan and atan differ by an ulp between the devices)
+# sampler's tan and atan differ by an ulp between the devices), bench7's
+# as config 7's (B7_BOUNDS), the polarized bench5 as config 5's
+# (B5_BOUNDS, its other rows 2e-5)
 MARCH_BOUNDS = {"primary": 2e-5, "one_bin": 1e-4, "secondary_sum": 1e-3}
 
 
 def march_config(name, device, directory):
-    """One reduced march configuration through the port's load_ski, as the
-    CPU test builds it from the reference: no sweep tables (no bin-pure
-    strata), the Voronoi grid walked exactly, bench6's gas temperature
-    rising 1x to 2x over its occupied cells, bench2 with one
-    self-absorption iteration. Returns (sim, dust emission)."""
+    """One reduced march configuration (MARCH_SMALL) through the port's
+    load_ski, as the CPU test builds it from the reference: the Cartesian
+    and Voronoi cases without sweep tables (no bin-pure strata), the
+    Voronoi grid walked exactly, bench6's gas temperature rising 1x to 2x
+    over its occupied cells, bench2 and bench3 with one self-absorption
+    iteration. Returns (sim, dust emission)."""
     import dataclasses
     from skirt9_tpu_torch.config.ski import load_ski
-    ski, edits, run, dust = MARCH_SMALL[name]
-    path = edited_ski(ski, directory, edits, out=name)
-    sim = load_ski(path, device=device, **run)
+    ski, edits, run, dust, _ = MARCH_SMALL[name]
+    edits = dict(edits)
+    tree = edits.pop("tree", None)
+    if tree is not None:
+        edits.update(tree_edits(ski, tree))
+    sim = load_ski(edited_ski(ski, directory, edits, out=name),
+                   device=device, **run)
     if ski == "bench4":
         sim = dataclasses.replace(sim, options=dataclasses.replace(
             sim.options, raster_fallback=False))
     if ski == "bench6":
         sim = temperature_ramp(sim)
-    if ski == "bench2":
+    if ski in ("bench2", "bench3"):
         sim.iterate_secondary, sim.max_iterations = True, 1
-    sim._sweep_tabs = None
+    if type(sim.grid).__name__ not in ("OctreeGrid", "BinTreeGrid"):
+        sim._sweep_tabs = None
     return sim, dust
 
 
@@ -4665,44 +4738,93 @@ def march_gaps(out_c, out_g, dust: bool) -> dict:
 
 
 def phase_draw_for_draw_march(torch) -> dict:
-    """MARCH_SMALL on the CPU (the plain march) and on the card (the march
-    kernel and detect launched, no sweep), the same seed: march_gaps, and
-    bench6 within B6_BOUNDS."""
+    """MARCH_SMALL on the CPU (plain versions) and on the card (kernels),
+    the same seed: march_gaps, bench6 and bench7 by sed_gaps within
+    B6_BOUNDS and B7_BOUNDS, the polarized bench5 by b5_errors within
+    B5_BOUNDS; each case's kernels and detect launched on the card, and
+    neither another march mode nor a sweep outside its engine."""
     res, launches = {}, {}
+    every = SWEEPS + MARCH + MARCH_TREE
     with tempfile.TemporaryDirectory() as tmp:
-        for name in MARCH_SMALL:
+        for name, (ski, _, _, _, must) in MARCH_SMALL.items():
             outs = {}
             for device in ("cpu", "cuda"):
                 sim, dust = march_config(name, device, tmp)
-                mode = "march_" + {"UniformCartesianGrid": "uniform",
-                                   "CartesianGrid": "mesh",
-                                   "VoronoiGrid": "voronoi"}[
-                    type(sim.grid).__name__]
                 run = (lambda: sim.run_with_dust_emission(verbose=False)) \
                     if dust else (lambda: sim.run_primary(verbose=False))
                 if device == "cuda":
-                    outs[device], n = drive((mode,) + DETECT, SWEEPS, run)
+                    outs[device], n = drive(
+                        must + DETECT, tuple(k for k in every
+                                             if k not in must), run)
                     launches[name] = {k: v for k, v in n.items() if v}
                 else:
                     outs[device] = run()
-            if MARCH_SMALL[name][0] == "bench6":
-                res[name] = sed_gaps(outs["cpu"][1][0], outs["cuda"][1][0])
-                hold_gaps(name, res[name], B6_BOUNDS)
+            acc_c, acc_g = outs["cpu"][1][0], outs["cuda"][1][0]
+            if ski in ("bench6", "bench7"):
+                res[name] = sed_gaps(acc_c, acc_g)
+                hold_gaps(name, res[name],
+                          B6_BOUNDS if ski == "bench6" else B7_BOUNDS)
+            elif sim.options.polarization:
+                res[name] = b5_errors(acc_c, acc_g)
+                for k, e in res[name].items():
+                    limit = B5_BOUNDS.get(k, MARCH_BOUNDS["primary"])
+                    require(e <= limit, f"draw-for-draw ({name}) {k} {e} "
+                            f"<= {limit}")
             else:
                 res[name] = march_gaps(outs["cpu"], outs["cuda"], dust)
             torch.cuda.empty_cache()
-    emit({"phase": "draw_for_draw_march", "bounds": MARCH_BOUNDS,
-          "configs": {k: dict(zip(("ski", "edits", "run", "dust"), v))
-                      for k, v in MARCH_SMALL.items()}, "gaps": res,
-          "launches": launches})
+    emit({"phase": "draw_for_draw_march", "march_bounds": MARCH_BOUNDS,
+          "b5_bounds": B5_BOUNDS, "b6_bounds": B6_BOUNDS,
+          "b7_bounds": B7_BOUNDS,
+          "configs": {k: dict(zip(("ski", "edits", "run", "dust", "must"),
+                                  v)) for k, v in MARCH_SMALL.items()},
+          "gaps": res, "launches": launches})
     return launches
+
+
+def leaf_depth(grid):
+    """(ncells,) levels of the descent that ends in each leaf: an octree
+    leaf's halvings of the root box along x, a bintree leaf's along all
+    three axes."""
+    import torch
+    ratio = ((grid.box_hi - grid.box_lo)[None, :].double()
+             / (grid.cell_hi - grid.cell_lo).double())
+    lv = torch.round(torch.log2(ratio))
+    return lv[:, 0] if type(grid).__name__ == "OctreeGrid" else lv.sum(dim=1)
+
+
+def march_cost(name, grid, cells, walked) -> tuple:
+    """The bytes of a march mode's grid tables and the f32 operations of
+    its walked (step, lane) pairs (cells, walked: the plain version's (S,
+    B) cells and walked mask), with the keys that describe them: a tree
+    step descends to its next leaf, a Voronoi step tests every
+    neighbour."""
+    import torch
+    n = int(walked.sum())
+    if name in MARCH_TREE:
+        depth = leaf_depth(grid)[cells.long()][walked]
+        tables = sum(t.numel() * t.element_size() for t in grid[:-2]
+                     if isinstance(t, torch.Tensor))
+        ops = float((OPS_TREE_STEP + OPS_TREE_LEVEL[name] * depth).sum())
+        return tables, ops, dict(leaves=grid.ncells, levels=grid.levels,
+                                 mean_depth=float(depth.double().mean()))
+    if name == "march_voronoi":
+        return (12 * grid.ncells + 4 * grid.neighbors.numel(),
+                n * (OPS_MARCH[name] * grid.neighbors.shape[1]
+                     + OPS_MARCH_WALL), {})
+    tables = 4 * (sum(grid.shape) + 3) if name == "march_mesh" else 24
+    return tables, n * OPS_MARCH[name], {}
 
 
 def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
     """The march kernel in one mode against its plain version on the same
-    CUDA tensors: cells on every (step, lane) pair (the lanes differing
-    counted, at most 1e-4 of them), each lane's summed length within 1e-6;
-    timed by CUDA events and the profiler, with the bound."""
+    CUDA tensors: a tree mode bit-identical, cells and lengths, on every
+    (step, lane); a Cartesian or Voronoi mode with its cells on every
+    (step, lane) pair (the lanes differing counted, at most 1e-4 of them)
+    and each lane's summed length within 1e-6. Timed by CUDA events and
+    the profiler (a dropped kernel event flagged), beside the plain
+    version; the bound from the bytes of the (S, B) tables, the lanes'
+    inputs and the grid's tables, or the operations (march_cost)."""
     from skirt9_tpu_torch.kernels import build as kb
     from skirt9_tpu_torch.transport import march as mr
     B = pos.shape[0]
@@ -4710,34 +4832,32 @@ def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
     ck, dk = mr._march_cuda(grid, pos, dirn, cell, S, mask)
     require(kb.LAUNCHES[name] == 1, f"{name} launched once")
     cp, dp = mr.march_geometry_plain(grid, pos, dirn, cell, S, mask)
-    lanes_off = int((ck != cp).any(dim=0).sum())
-    require(lanes_off <= 1e-4 * B, f"{name}: {lanes_off} lanes' cells differ")
+    exact = name in MARCH_TREE
+    off = ((ck != cp) | (dk != dp)) if exact else ck != cp
+    lanes_off = int(off.any(dim=0).sum())
+    require(lanes_off <= (0 if exact else 1e-4 * B),
+            f"{name}: {lanes_off} lanes' cells{' or lengths' * exact} "
+            "differ")
     sk, sp = dk.double().sum(dim=0), dp.double().sum(dim=0)
     ds_err = float(((sk - sp).abs() / sp.abs().clamp_min(1e-300)).max())
     require(ds_err <= 1e-6, f"{name}: summed lengths within 1e-6 ({ds_err})")
-    walked = int((dp > 0).sum())
-    require(walked > B, f"{name} walks ({walked} steps)")
+    walked = dp > 0
+    require(int(walked.sum()) > B, f"{name} walks ({int(walked.sum())})")
+    tables, ops, extra = march_cost(name, grid, cp, walked)
+    nbytes = S * B * 8 + B * (12 + 12 + 4 + 1) + tables
     kern = lambda: mr._march_cuda(grid, pos, dirn, cell, S, mask)
     dev = device_ms(kern)
-    if name == "march_voronoi":
-        tables = 12 * grid.ncells + 4 * grid.neighbors.numel()
-    else:
-        tables = 4 * (sum(grid.shape) + 3) if name == "march_mesh" else 24
-    nbytes = S * B * 8 + B * (12 + 12 + 4 + 1) + tables
-    per_step = OPS_MARCH[name] * (grid.neighbors.shape[1]
-                                  if name == "march_voronoi" else 1)
-    if name == "march_voronoi":
-        per_step += OPS_MARCH_WALL
     plain_ms = cuda_ms(lambda: mr.march_geometry_plain(grid, pos, dirn, cell,
                                                        S, mask), reps=2)
     return dict(max_abs_err=float((dk - dp).abs().max()),
-                ds_sum_rel_err=ds_err,
-                lanes_cells_differ=lanes_off, lanes=B, steps=S,
-                walked_pairs=walked, live_share=walked / (S * B),
-                ms=cuda_ms(kern), device_ms=dev["ours"] or None,
+                ds_sum_rel_err=ds_err, lanes_cells_differ=lanes_off,
+                lanes=B, steps=S, walked_pairs=int(walked.sum()),
+                live_share=float(walked.float().mean()),
+                max_walk=int(walked.sum(dim=0).max()), ms=cuda_ms(kern),
+                device_ms=dev["ours"] or None,
                 profiler_dropped=dev["ours"] == 0,
                 device_launches=dev["launches"], plain_ms=plain_ms,
-                library_ms=None, **bound(nbytes, walked * per_step))
+                library_ms=None, **extra, **bound(nbytes, ops))
 
 
 def phase_kernels_march(torch) -> dict:
@@ -4886,119 +5006,6 @@ def phase_full_width_b1_march(torch, smi: str, sweep: dict) -> dict:
 
 # ---------------------------------------------------------- trees marched
 
-MARCH_TREE = ("march_octree", "march_bintree")
-# f32 operations of a tree step in csrc/march.cu (the exit distances, the
-# least, the move and the nudge, the root box test), and per level of the
-# descent (an octree's three comparisons and two adds, a bintree's one)
-OPS_TREE_STEP = 30
-OPS_TREE_LEVEL = {"march_octree": 5, "march_bintree": 2}
-# bench3 with explicit absorption: the interaction sampled on the
-# scattering depth, so the gate declines the tree raster's XL tables and
-# the octree marches
-B3_EXPLICIT = {'forceScattering="true"':
-               'forceScattering="true" explicitAbsorption="true"'}
-B3_BINTREE = {'treeType="OctTree"': 'treeType="BinTree"'}
-# the reduced tree configurations of draw_for_draw_tree (the CPU tests
-# build the same cases from the reference's loader): ski file, edits (a
-# ("tree", maxLevel) entry replaces the Cartesian grid by a density
-# octree), run sizes, dust emission, the kernels the card must launch
-TREE_SMALL = {
-    "bench3_explicit_absorption": (
-        "bench3", dict(B3_SMALL, **B3_EXPLICIT,
-                       **{'numWavelengths="25"': 'numWavelengths="4"'}),
-        dict(num_packets=4096, batch_size=4096, max_events=8), True,
-        ("march_octree",)),
-    "bench3_bintree_explicit_absorption": (
-        "bench3", dict(B3_SMALL, **B3_EXPLICIT, **B3_BINTREE,
-                       **{'numWavelengths="25"': 'numWavelengths="4"'}),
-        dict(num_packets=4096, batch_size=4096, max_events=8), True,
-        ("march_bintree",)),
-    "bench5_moving": ("bench5", {"tree": 3},
-                      dict(num_packets=4096, batch_size=1024, max_events=8),
-                      False, XL),
-    "bench5_static": ("bench5", dict({"tree": 3}, **B5_STATIC),
-                      dict(num_packets=4096, batch_size=1024, max_events=8),
-                      False, ML_PASS1),
-    "bench6_varying_T": ("bench6", {"tree": 3},
-                         dict(num_packets=2048, batch_size=2048,
-                              max_events=8), False, ("march_octree",)),
-    "bench7": ("bench7", {"tree": 3},
-               dict(num_packets=2048, batch_size=2048, max_events=16),
-               False, XL)}
-
-
-def tree_config(name, device, directory):
-    """One reduced tree configuration (TREE_SMALL) through the port's
-    load_ski: bench3 with one self-absorption iteration, bench6 with its gas
-    temperature rising 1x to 2x over the occupied cells. Returns (sim,
-    dust emission)."""
-    from skirt9_tpu_torch.config.ski import load_ski
-    ski, edits, run, dust, _ = TREE_SMALL[name]
-    edits = dict(edits)
-    if "tree" in edits:
-        edits.update(tree_edits(ski, edits.pop("tree")))
-    sim = load_ski(edited_ski(ski, directory, edits, out=name),
-                   device=device, **run)
-    if ski == "bench6":
-        sim = temperature_ramp(sim)
-    if ski == "bench3":
-        sim.max_iterations = 1
-    return sim, dust
-
-
-def leaf_depth(grid):
-    """(ncells,) levels of the descent that ends in each leaf: an octree
-    leaf's halvings of the root box along x, a bintree leaf's along all
-    three axes."""
-    import torch
-    ratio = ((grid.box_hi - grid.box_lo)[None, :].double()
-             / (grid.cell_hi - grid.cell_lo).double())
-    lv = torch.round(torch.log2(ratio))
-    return lv[:, 0] if type(grid).__name__ == "OctreeGrid" else lv.sum(dim=1)
-
-
-def _march_tree_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
-    """A tree mode of the march kernel against its plain version on the
-    same CUDA tensors: cells identical and lengths bit-identical on every
-    (step, lane); timed by CUDA events and the profiler (a dropped kernel
-    event flagged), beside the plain version; the bound from the bytes of
-    the (S, B) tables, the lanes' inputs and the trees' tables, or the
-    operations of the walked steps, each descending to its next leaf."""
-    from skirt9_tpu_torch.kernels import build as kb
-    from skirt9_tpu_torch.transport import march as mr
-    B = pos.shape[0]
-    kb.reset_launches()
-    ck, dk = mr._march_cuda(grid, pos, dirn, cell, S, mask)
-    require(kb.LAUNCHES[name] == 1, f"{name} launched once")
-    cp, dp = mr.march_geometry_plain(grid, pos, dirn, cell, S, mask)
-    lanes_off = int(((ck != cp) | (dk != dp)).any(dim=0).sum())
-    require(lanes_off == 0 and torch.equal(ck, cp) and torch.equal(dk, dp),
-            f"{name}: cells and lengths bit-identical ({lanes_off} lanes "
-            "differ)")
-    walked = dp > 0
-    require(int(walked.sum()) > B, f"{name} walks ({int(walked.sum())})")
-    kern = lambda: mr._march_cuda(grid, pos, dirn, cell, S, mask)
-    dev = device_ms(kern)
-    depth = leaf_depth(grid)[cp.long()][walked]
-    ops = float((OPS_TREE_STEP + OPS_TREE_LEVEL[name] * depth).sum())
-    node_bytes = sum(t.numel() * t.element_size() for t in grid[:-2]
-                     if isinstance(t, torch.Tensor))
-    nbytes = S * B * 8 + B * (12 + 12 + 4 + 1) + node_bytes
-    plain_ms = cuda_ms(lambda: mr.march_geometry_plain(grid, pos, dirn, cell,
-                                                       S, mask), reps=2)
-    return dict(max_abs_err=float((dk - dp).abs().max()),
-                lanes_cells_differ=lanes_off, lanes=B, steps=S,
-                leaves=grid.ncells, levels=grid.levels,
-                walked_pairs=int(walked.sum()),
-                live_share=float(walked.float().mean()),
-                max_walk=int(walked.sum(dim=0).max()),
-                mean_depth=float(depth.double().mean()),
-                ms=cuda_ms(kern), device_ms=dev["ours"] or None,
-                profiler_dropped=dev["ours"] == 0,
-                device_launches=dev["launches"], plain_ms=plain_ms,
-                library_ms=None, **bound(nbytes, ops))
-
-
 def _first_event_lanes(torch, sim, B):
     """The positions, directions, cells and alive mask of the first B
     histories of the simulation's first source, as its first event's
@@ -5014,7 +5021,7 @@ def _first_event_lanes(torch, sim, B):
 
 def phase_kernels_march_tree(torch) -> dict:
     """The march kernel's tree modes against their plain versions
-    (_march_tree_check): march_octree on bench3's octree and march_bintree
+    (_march_check): march_octree on bench3's octree and march_bintree
     on bench3 loaded as a bintree (2^16 lanes at the first event, S =
     256), and march_octree on a level-10 octree (2^16 random lanes)."""
     from skirt9_tpu_torch import device
@@ -5029,8 +5036,8 @@ def phase_kernels_march_tree(torch) -> dict:
             S = sim.options.max_steps
             require(S == 256, f"bench3's march takes 256 steps ({S})")
             pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_B3)
-            out[name] = _march_tree_check(torch, name, sim.grid, pos, dirn,
-                                          cell, S, alive)
+            out[name] = _march_check(torch, name, sim.grid, pos, dirn, cell,
+                                     S, alive)
             del sim
     p = np.array([0.1, 0.2, 0.3]) * PC
     deep = build_octree(((-1.2 * PC, 1.2 * PC),) * 3, None, max_level=10,
@@ -5044,57 +5051,12 @@ def phase_kernels_march_tree(torch) -> dict:
     t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     pos, dirn = t32(pos), t32(d / np.linalg.norm(d, axis=1, keepdims=True))
     cell = deep.locate(pos)
-    out["march_octree_level10"] = _march_tree_check(
+    out["march_octree_level10"] = _march_check(
         torch, "march_octree", deep, pos, dirn, cell,
         min(deep.max_steps(), 256), cell >= 0)
     torch.cuda.empty_cache()
     emit({"phase": "kernels_march_tree", **out})
     return out
-
-
-def phase_draw_for_draw_tree(torch) -> dict:
-    """TREE_SMALL on the CPU (plain versions) and on the card (kernels),
-    the same seed: bench3 by march_gaps, bench5 by b5_errors within
-    B5_BOUNDS, bench6 and bench7 by sed_gaps within B6_BOUNDS and
-    B7_BOUNDS; each case's kernels launched on the card, and neither
-    another march mode nor a sweep outside its engine."""
-    res, launches = {}, {}
-    every = SWEEPS + MARCH + MARCH_TREE
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, (ski, _, _, dust, must) in TREE_SMALL.items():
-            outs = {}
-            for device in ("cpu", "cuda"):
-                sim, dust = tree_config(name, device, tmp)
-                run = (lambda: sim.run_with_dust_emission(verbose=False)) \
-                    if dust else (lambda: sim.run_primary(verbose=False))
-                if device == "cuda":
-                    outs[device], n = drive(
-                        must + DETECT, tuple(k for k in every
-                                             if k not in must), run)
-                    launches[name] = {k: v for k, v in n.items() if v}
-                else:
-                    outs[device] = run()
-            acc_c, acc_g = outs["cpu"][1][0], outs["cuda"][1][0]
-            if ski == "bench5":
-                res[name] = b5_errors(acc_c, acc_g)
-                for k, e in res[name].items():
-                    limit = B5_BOUNDS.get(k, MARCH_BOUNDS["primary"])
-                    require(e <= limit, f"draw-for-draw ({name}) {k} {e} "
-                            f"<= {limit}")
-            elif ski in ("bench6", "bench7"):
-                res[name] = sed_gaps(acc_c, acc_g)
-                hold_gaps(name, res[name],
-                          B6_BOUNDS if ski == "bench6" else B7_BOUNDS)
-            else:
-                res[name] = march_gaps(outs["cpu"], outs["cuda"], dust)
-            torch.cuda.empty_cache()
-    emit({"phase": "draw_for_draw_tree", "march_bounds": MARCH_BOUNDS,
-          "b5_bounds": B5_BOUNDS, "b6_bounds": B6_BOUNDS,
-          "b7_bounds": B7_BOUNDS,
-          "configs": {k: dict(zip(("ski", "edits", "run", "dust", "must"),
-                                  v)) for k, v in TREE_SMALL.items()},
-          "gaps": res, "launches": launches})
-    return launches
 
 
 def config3_march(device, **kw):
@@ -5172,14 +5134,187 @@ def config5_tree(device, **kw):
     return sim
 
 
+def phase_kernels_b5_tree(torch) -> dict:
+    """(right after kernels_march_tree, while the profiler is fresh)
+    Kernels 6-7 on config5_tree's first event (B = 2^17, its 64^3 voxel
+    raster with the cell map), each mode against its plain version on the
+    same CUDA tensors: kernel 6's prefix mode (check_prefix_xl); kernel 7's
+    prefix mode without an RF, as the loop calls it on bench5 (tau_int a
+    uniform share up to 1.1 of each lane's tau: s_int, icell and found
+    identical); kernel 6's total mode toward the instrument from the
+    interaction points in entry-slab order, as the peel-off calls it
+    (within 1e-6 of each lane's tau). Each timed by CUDA events and the
+    profiler, beside the plain version, with its bound."""
+    from skirt9_tpu_torch.transport import sweep as sw
+    from skirt9_tpu_torch.transport import sweepxl as xl
+    sim = config5_tree("cuda")
+    tabs = sim._sweep_tabs
+    rays, _, n_groups, pre = first_event_xl(torch, sim)
+    pos, dirn, _, _, alive, sig = rays
+    B = pos.shape[0]
+    require(n_groups == 1 and B == B_FULL, f"bench5 on its tree: one lane "
+            f"group of 2^17 ({n_groups}, {B})")
+    out = {"sweepxl_dtau_prefix": check_prefix_xl(
+        torch, "bench5's tree raster", tabs, rays, pre)}
+
+    rec, tb, tot, lane = pre
+    u = np.random.default_rng(5).uniform(0.0, 1.1, B)
+    tau_int = torch.tensor(u, dtype=torch.float32, device=pos.device) * tot
+    act = alive & (tot > 1e-6)
+    args = (tabs, pos, dirn, act, rec, None, tau_int, tb, 1.0, lane)
+    _, *hit_k = xl.sweep_deposit_prefix(*args)
+    _, *hit_p = xl.sweep_deposit_prefix_plain(*args)
+    torch.cuda.synchronize()
+    s_int, _, found = hit_p
+    require(int(found.sum()) > B // 2, "bench5's tree: the rays interact "
+            f"({int(found.sum())})")
+    for a, b, name in zip(hit_k, hit_p, ("s_int", "icell", "found")):
+        require(bool(torch.equal(a, b)), f"bench5's tree: kernel 7 {name} "
+                "identical")
+    kern = lambda: xl.sweep_deposit_prefix(*args)
+    out["sweepxl_deposit_prefix"] = dict(
+        max_abs_err=float((hit_k[0] - s_int).abs().max()),
+        found_lanes=int(found.sum()), ms=cuda_ms(kern),
+        device_ms=device_ms(kern)["ours"] or None,
+        plain_ms=cuda_ms(lambda: xl.sweep_deposit_prefix_plain(*args),
+                         reps=3), library_ms=None,
+        **bound(lane_bytes(B, 0) + 9 * B + tabs.nmax * B * 4 + 12 * B
+                + 13 * B, B * (OPS_SLAB + 3 * OPS_SUB + 12)
+                + 3 * tabs.nmax * B))
+    del hit_k, rec, tb
+    torch.cuda.empty_cache()
+
+    kobs = sim._inst_tabs[0]["kobs"]
+    hint = int(np.argmax(np.abs(sim.instruments[0].frame_axes()[0])
+                         / np.asarray(tabs.h)))
+    ipos = pos + s_int[:, None] * dirn
+    prm = xl.entry_order(tabs, ipos, hint)
+    kdir = kobs.expand(B, 3).contiguous()
+    pl = (tabs, ipos[prm].contiguous(), kdir, sig[:, prm].contiguous(),
+          found[prm].contiguous(), hint)
+    tot_k = xl.sweep_tau_total(*pl)
+    tot_p = xl.sweep_tau_total_plain(*pl)
+    torch.cuda.synchronize()
+    require(int((tot_p > 0).sum()) > B // 2, "bench5's tree: the peel-off "
+            "rays see matter")
+    rel = float(((tot_k - tot_p).abs() / tot_p.clamp_min(1e-30)).max())
+    require(rel <= 1e-6, f"bench5's tree: kernel 6 totals within 1e-6 of "
+            f"each lane's tau ({rel})")
+    g, smin, smax, _ = sw._prep(tabs, pl[1], kdir, pl[3], pl[4])
+    n_act = active_slabs(tabs, pl[1], kdir, torch.full_like(g, hint), smin,
+                         smax)
+    kern = lambda: xl.sweep_tau_total(*pl)
+    out["sweepxl_tau_total"] = dict(
+        max_abs_err=float((tot_k - tot_p).abs().max()), max_err_of_tau=rel,
+        active_pairs=n_act, ms=cuda_ms(kern),
+        device_ms=device_ms(kern)["ours"] or None,
+        plain_ms=cuda_ms(lambda: xl.sweep_tau_total_plain(*pl), reps=3),
+        library_ms=None,
+        **bound(ray_bytes(B, 1) + tabs.nd.numel() * 4 + B * 4,
+                B * OPS_LANE + n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 3)))
+    emit({"phase": "kernels_b5_tree", "batch": B, "leaves": sim.grid.ncells,
+          "raster": list(tabs.n), **out})
+    del sim, pl
+    torch.cuda.empty_cache()
+    return out
+
+
+def los_tau(sim, lam: float) -> float:
+    """The optical depth at wavelength lam from the first source toward
+    the first instrument (the f32 direction the tracer takes) through the
+    grid's cells, in f64 on the host from the cells' boxes and the
+    medium's densities: each cell's crossed length on the ray (its slab
+    interval; along an axis the ray does not move on, the cell that holds
+    the source's coordinate, lo <= x < hi, as locate has it) times its
+    extinction coefficient."""
+    import torch
+    from skirt9_tpu_torch.media import system as msys
+    host = lambda t: t.detach().double().cpu().numpy()
+    lo, hi = host(sim.grid.cell_lo), host(sim.grid.cell_hi)
+    p0 = np.asarray(sim.sources[0].position, np.float32).astype(np.float64)
+    k = host(sim._inst_tabs[0]["kobs"])
+    t0, t1 = np.zeros(len(lo)), np.full(len(lo), np.inf)
+    for a in range(3):
+        if k[a] == 0.0:
+            held = (lo[:, a] <= p0[a]) & (p0[a] < hi[:, a])
+            t1 = np.where(held, t1, -np.inf)
+        else:
+            ta, tb = (lo[:, a] - p0[a]) / k[a], (hi[:, a] - p0[a]) / k[a]
+            t0 = np.maximum(t0, np.minimum(ta, tb))
+            t1 = np.minimum(t1, np.maximum(ta, tb))
+    sig = host(msys.optics_at(sim.medium, torch.tensor(
+        [lam], dtype=torch.float32, device=sim.device)).sigma_ext)[0]
+    kappa = host(sim.medium.nd) @ sig
+    return float((np.clip(t1 - t0, 0.0, None) * kappa).sum())
+
+
+# bench5.ski's source: 1 Lsun (SKIRT's 3.839e26 W) of a 5778 K blackbody
+# over 0.4-0.8 micron, wavelength bias 0.5 (half the packets log-uniform),
+# seen from 100 pc
+B5_SOURCE = dict(L=3.839e26, T=5778.0, lo=0.4e-6, hi=0.8e-6, bias=0.5,
+                 d=100 * 3.08567758149e16)
+
+
+def point_source_gates(sim, sed_um, n_sigma: float = 5.0) -> dict:
+    """bench5's transparent and direct SEDs [W/m2/micron] against values
+    the port does not compute. The transparent one bin by bin against
+    L / (4 pi d^2) times the blackbody's share of each bin over its width,
+    within n_sigma of the run's sampling noise there (the wavelength bias's
+    weights: per-packet variance int_bin p^2 / q - P^2, p the blackbody's
+    pdf, q the biased one, over num_packets), and in total within n_sigma of
+    its noise; the direct one over the transparent one, bin by bin, equal
+    to exp(-tau) of the line of sight (los_tau) within 1e-4 (both f32 sums
+    of the same lanes' detections)."""
+    h, c, kB = 6.62607015e-34, 2.99792458e8, 1.380649e-23
+    src = B5_SOURCE
+    x = np.geomspace(src["lo"], src["hi"], 400_001)
+    p = x ** -5 / np.expm1(h * c / (x * kB * src["T"]))
+    p /= np.trapezoid(p, x)
+    q = (1 - src["bias"]) * p + src["bias"] / (x * np.log(src["hi"]
+                                                          / src["lo"]))
+    cum = lambda f: np.concatenate([[0.0], np.cumsum(
+        0.5 * (f[1:] + f[:-1]) * np.diff(x))])
+    borders = np.asarray(sim.instruments[0].wave_borders, np.float64)
+    at = lambda f: np.diff(np.interp(np.clip(borders, src["lo"], src["hi"]),
+                                     x, cum(f)))
+    P, Q = at(p), at(p * p / q)
+    N = sim.num_packets
+    flux = src["L"] / (4 * np.pi * src["d"] ** 2)
+    want = flux * P / (np.diff(borders) * 1e6)
+    lit = P > 0
+    ratio = sed_um["transparent"][lit] / want[lit]
+    sigma = np.sqrt(np.maximum(Q - P * P, 0.0) / N)[lit] / P[lit]
+    z = np.abs(ratio - 1) / sigma
+    require(float(z.max()) <= n_sigma, f"transparent SED within {n_sigma} "
+            f"sigma of the blackbody in every bin ({float(z.max())})")
+    total = float((sed_um["transparent"] * np.diff(borders) * 1e6).sum()
+                  / flux)
+    sigma_tot = math.sqrt((float(Q.sum()) - 1.0) / N)
+    require(abs(total - 1) <= n_sigma * sigma_tot,
+            f"transparent SED's integral {total} within {n_sigma} sigma "
+            f"({sigma_tot}) of L / (4 pi d^2)")
+    att = math.exp(-los_tau(sim, 0.55e-6))
+    e_dir = float(np.abs(sed_um["primarydirect"][lit]
+                         / sed_um["transparent"][lit] / att - 1).max())
+    require(e_dir <= 1e-4, f"direct over transparent SED {e_dir} <= 1e-4 "
+            f"from exp(-tau) = {att}")
+    return dict(transparent_max_sigmas=float(z.max()),
+                transparent_max_rel_err=float(np.abs(ratio - 1).max()),
+                transparent_sigma_range=[float(sigma.min()),
+                                         float(sigma.max())],
+                transparent_integral=total,
+                transparent_integral_sigma=sigma_tot,
+                los_attenuation=att, direct_over_transparent_err=e_dir)
+
+
 def phase_full_width_b5_tree(torch, smi: str, uniform: dict) -> dict:
     """bench5 on a maxLevel-6 octree (config5_tree) at bench_config5's
     width, a warm-up run and a timed run: kernels 6-7 and detect (its
-    Stokes mode) launched, no march and no other sweep; gated: the
-    transparent SED equal to full_width_b5's within 1e-5 of its maximum
-    (the same histories: the transparent light does not see the grid), V
-    identically 0, the SED's R < 0.01 in every bin; reported beside
-    full_width_b5's (uniform: its rate, ratios and transparent SED): the
+    Stokes mode) launched, no march and no other sweep; gated: point_source_gates (the transparent SED against the
+    blackbody, the direct one against the line of sight through the
+    tree), V identically 0, the SED's R < 0.01 in every bin; reported
+    beside full_width_b5's (uniform: its rate, ratios and transparent
+    SED): the transparent SED's gap to it (the same histories), and the
     bench5 golden ratios, which the tree, resolving the disk otherwise,
     need not meet."""
     sim = config5_tree("cuda")
@@ -5191,20 +5326,19 @@ def phase_full_width_b5_tree(torch, smi: str, uniform: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         sed = _b5_outputs(sim, accs, tmp, "b5tree")[0]
         cols = np.loadtxt(os.path.join(tmp, "b5tree_i0_sed.dat"))
-    tr = uniform["transparent_sed"]
-    e_tr = float(np.abs(sed["transparent"] - tr).max() / np.abs(tr).max())
-    require(e_tr <= 1e-5, f"transparent SED {e_tr} <= 1e-5 of the uniform "
-            "run's")
+    gates = point_source_gates(sim, sed)
     require(bool(np.all(sed["V"] == 0)), "V identically 0")
     R = cols[:, 10]
     require(float(R.max()) < 0.01, f"SED relative error R {R.max()} < 0.01")
+    tr = uniform["transparent_sed"]
     emit({"phase": "full_width_b5_tree", "leaves": sim.grid.ncells,
           "raster": list(sim._sweep_tabs.n), "packets": sim.num_packets,
           "batch": sim.batch_size, "packets_per_s": sim.last_rate,
           "seconds": stats["seconds"], "events": stats["events"],
           "launches": {k: v for k, v in launches.items() if v},
-          "transparent_vs_uniform": e_tr, "R_max": float(R.max()),
-          "R_median": float(np.median(R)),
+          **gates, "R_max": float(R.max()), "R_median": float(np.median(R)),
+          "transparent_vs_uniform": float(np.abs(sed["transparent"] - tr).max()
+                                          / np.abs(tr).max()),
           "golden_ratios": bench5_ratios(sed),
           "uniform": {k: v for k, v in uniform.items()
                       if k != "transparent_sed"},
@@ -5239,6 +5373,7 @@ def main() -> int:
     # the march kernel's device times first, while the profiler is fresh
     kern_march = phase_kernels_march(torch)
     kern_march.update(phase_kernels_march_tree(torch))
+    kern_b5_tree = phase_kernels_b5_tree(torch)
     kern = phase_kernels(torch)
     kern.update(phase_kernels_xl(torch))
     torch.cuda.empty_cache()
@@ -5330,15 +5465,13 @@ def main() -> int:
     phase_breakdown_b4(torch)
     torch.cuda.empty_cache()
     # the scan march
-    phase_draw_for_draw_march(torch)
+    launches_small = phase_draw_for_draw_march(torch)
     torch.cuda.empty_cache()
     launches_walk = phase_full_width_b4_walk(torch, smi, raster_b4)
     torch.cuda.empty_cache()
     launches_b1_march = phase_full_width_b1_march(torch, smi, sweep_b1)
     torch.cuda.empty_cache()
     # trees on the march, and the options on the tree and XL sweeps
-    launches_tree_small = phase_draw_for_draw_tree(torch)
-    torch.cuda.empty_cache()
     launches_b3_march = phase_full_width_b3_march(torch, smi, sweep_b3)
     torch.cuda.empty_cache()
     launches_b5_tree = phase_full_width_b5_tree(torch, smi, uniform_b5)
@@ -5558,16 +5691,16 @@ def main() -> int:
                          "ds_sum_rel_err", "live_share")}})
     # its tree modes: the octree on config 3's march (and a level-10
     # octree, checked in kernels_march_tree), the bintree on the reduced
-    # bench3 bintree of draw_for_draw_tree
+    # bench3 bintree of draw_for_draw_march
     tree_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "device_ms", "profiler_dropped",
                  "lanes_cells_differ", "live_share", "leaves", "levels",
                  "mean_depth", "max_walk")
     for name, path, counts in (
             ("march_octree", "full_width_b3_march", launches_b3_march),
-            ("march_bintree", "draw_for_draw_tree "
+            ("march_bintree", "draw_for_draw_march "
              "(bench3_bintree_explicit_absorption)",
-             launches_tree_small["bench3_bintree_explicit_absorption"])):
+             launches_small["bench3_bintree_explicit_absorption"])):
         k = kern_march[name]
         row = {"name": name, "route": "cuda",
                "source": "skirt9_tpu_torch/csrc/march.cu",
@@ -5578,15 +5711,18 @@ def main() -> int:
         if name == "march_octree":
             row["level10"] = {key: kern_march["march_octree_level10"][key]
                               for key in tree_keys}
-            row["launches_draw_for_draw_tree"] = {
-                case: n.get(name, 0)
-                for case, n in launches_tree_small.items()}
+            row["launches_draw_for_draw_march"] = {
+                case: n[name] for case, n in launches_small.items()
+                if name in n}
         rows.append(row)
     for name in ("sweepxl_tau_total", "sweepxl_dtau_prefix",
                  "sweepxl_deposit_prefix", "detect"):
-        # kernels 6-7 and detect's Stokes mode on bench5's tree raster
-        next(r for r in rows if r["name"] == name)[
-            "launches_config5_tree"] = launches_b5_tree[name]
+        # kernels 6-7 and detect's Stokes mode on bench5's tree raster, and
+        # kernels 6-7 against their plain versions at its first event
+        row = next(r for r in rows if r["name"] == name)
+        row["launches_config5_tree"] = launches_b5_tree[name]
+        if name in kern_b5_tree:
+            row["config5_tree"] = kern_b5_tree[name]
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -190,7 +190,7 @@ class Simulation:
         if ml.supports(self.grid, self.medium, self.options):
             tabs = ml.build_tables(self.grid, self.medium)
             leafmap = tabs.leafmap
-        elif xl.supports_tree_xl(self.grid, self.medium, self.options):
+        elif xl.supports_tree_xl(self.grid, self.medium):
             tabs = xl.build_tree_tables(self.grid, self.medium)
             leafmap = tabs.cellmap
             _log().info(

@@ -105,17 +105,17 @@ def supports_xl(grid, med) -> bool:
     return not sw.supports_sweep(grid, med)
 
 
-def supports_tree_xl(grid, med, options=None) -> bool:
+def supports_tree_xl(grid, med) -> bool:
     """The reference's rule (`sweepxl.py:128-166`) without its backend
-    test: a power-of-two octree or bintree that the multi-level sweep does
-    not take with these transport options (kinematics, Lya, Compton, X-ray
-    and explicit absorption send a tree here, as in the reference's chain,
-    `skirt9_tpu/simulation.py:196-230`), with a fine raster <= 512 per
+    test: a power-of-two octree or bintree with a fine raster <= 512 per
     axis, <= 4 components, table bytes under the reference's ceiling, and
-    not every leaf a fine voxel (a uniform grid in disguise)."""
+    not every leaf a fine voxel (a uniform grid in disguise). The caller's
+    order decides between the sweeps: `Simulation._engine_tables` asks the
+    multi-level sweep first, which declines a tree for its raster or for
+    the transport options (kinematics, Lya, Compton, X-ray, explicit
+    absorption), as the reference's chain does
+    (`skirt9_tpu/simulation.py:196-230`)."""
     if not isinstance(grid, (OctreeGrid, BinTreeGrid)) or med.ncomp > 4:
-        return False
-    if ml.supports(grid, med, options):
         return False
     try:
         nf = ml._analyze(grid)["nf"]

@@ -1851,24 +1851,23 @@ def test_march_kernel(dev, mode):
 @pytest.mark.parametrize("name", ["bench1_sympow_mesh", "bench4_walk",
                                   "bench3_explicit_absorption_tree"])
 def test_march_on_cuda_matches_cpu(dev, name, tmp_path):
-    """A reduced march configuration (chip_smoke.MARCH_SMALL, or
-    TREE_SMALL's bench3 with explicit absorption, whose raster's XL tables
-    the gate declines) on the card against the CPU within chip_smoke.py's
+    """A reduced march configuration (chip_smoke.MARCH_SMALL; its bench3
+    with explicit absorption, whose raster's XL tables the gate declines,
+    for the tree) on the card against the CPU within chip_smoke.py's
     MARCH_BOUNDS (`march_gaps`): the march kernel and detect launched, no
     sweep."""
     cs = _chip_smoke()
+    case = ("bench3_explicit_absorption" if name.endswith("_tree")
+            else name)
     outs = {}
     for d in ("cpu", dev):
-        sim, dust = (cs.tree_config("bench3_explicit_absorption", d,
-                                    tmp_path) if name.endswith("_tree")
-                     else cs.march_config(name, d, tmp_path))
+        sim, dust = cs.march_config(case, d, tmp_path)
         kb.reset_launches()
         outs[str(d)] = (sim.run_with_dust_emission(verbose=False) if dust
                         else sim.run_primary(verbose=False))
     n = dict(kb.LAUNCHES)
     cs.march_gaps(outs["cpu"], outs[str(dev)], dust)
-    mode = ("march_octree" if name.endswith("_tree") else
-            "march_mesh" if "mesh" in name else "march_voronoi")
+    (mode,) = cs.MARCH_SMALL[case][4]
     assert n[mode] > 0 and n["detect"] > 0
     for k in cs.SWEEPS:
         assert n[k] == 0, k

@@ -280,7 +280,7 @@ def test_unported_tree_options_raise(option, monkeypatch):
     grid = _build(ot, bt, "octree")
     opts = lc.TransportOptions(max_steps=8, **{option: True})
     assert not ml.supports(grid, _medium(grid), opts)
-    assert xl.supports_tree_xl(grid, _medium(grid), opts)
+    assert xl.supports_tree_xl(grid, _medium(grid))
     ref = _reference(_build(ref_ot, ref_bt, "octree"), **{option: True})
     port = marches_as_reference(ref, monkeypatch, xl.XLTables)
     gate = lc.sweep_gate(port.medium, port.options, port._sweep_tabs, None,

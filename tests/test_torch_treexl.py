@@ -5,11 +5,11 @@ the CPU, against the reference.
   for array against the reference's `voxelize_for_dd` on the density
   octree and bintree of `tests/test_mlsweep.py` and a site-list octree:
   the voxel grid, the voxel density and the voxel -> leaf map equal.
-- `supports_tree_xl` takes a tree past the multi-level sweep's 256 raster
-  (a level-9 octree: True) and leaves a 256-raster tree to the
-  multi-level sweep, a raster over 512 to nothing and a tree whose every
-  leaf is a fine voxel (a uniform grid in disguise) to the uniform-grid
-  engines (False each); the engine choice follows.
+- `supports_tree_xl` is the reference's rule alone: it takes a 256 or a
+  512 raster (True each; the multi-level sweep, asked first, takes only
+  the 256 one) and leaves a raster over 512 to nothing and a tree whose
+  every leaf is a fine voxel (a uniform grid in disguise) to the
+  uniform-grid engines (False each); the engine choice follows.
 - Draw for draw: the density octree of `tests/test_mlsweep.py:30` on the
   reference's tree XL route (forced by its own `SKIRT9_TPU_ML_ENC_CAP=1`
   and `SKIRT9_TPU_FORCE_SWEEP=1`, as its test at `:190-232` does; its
@@ -83,26 +83,25 @@ class _Medium:
 
 
 @pytest.mark.parametrize("case,want", [
-    ("raster_512", True), ("raster_256", False), ("raster_1024", False),
+    ("raster_512", True), ("raster_256", True), ("raster_1024", False),
     ("uniform_in_disguise", False), ("components_5", False)])
-def test_supports_tree_xl(case, want, monkeypatch):
+def test_supports_tree_xl(case, want):
     med = _Medium()
     if case == "uniform_in_disguise":
-        # every leaf a fine voxel; the multi-level sweep refused, as the
-        # reference's encoding cap refuses it, so that only the disguise
-        # rule decides
+        # every leaf a fine voxel
         grid = build_octree(((-PC, PC),) * 3, lambda p: np.ones(len(p)),
                             max_level=2, min_level=2)
         assert grid.ncells == 64
-        monkeypatch.setattr(ml, "supports", lambda *a, **k: False)
     else:
         grid = _site_tree({"raster_512": 9, "raster_256": 8,
                            "raster_1024": 10, "components_5": 9}[case])
     if case == "components_5":
         med.ncomp = 5
     assert xl.supports_tree_xl(grid, med) is want
-    if case == "raster_256":
-        assert ml.supports(grid, med)
+    if case in ("raster_256", "raster_512"):
+        # the chain asks the multi-level sweep first: a 256 raster is its
+        # own, a 512 raster the voxel raster's
+        assert ml.supports(grid, med) is (case == "raster_256")
 
 
 def test_engine_choice_for_trees(monkeypatch):
