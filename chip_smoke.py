@@ -24,7 +24,9 @@ configs 6 and 7 (bench6.ski: Lyman-alpha resonant line transfer at
 line-centre optical depths up to 10^5; bench7.ski: X-ray gas with Compton
 scattering and Fe K fluorescence); last config 4 (bench4.ski: 40 imported
 SSP star particles and a 2,895-site Voronoi medium, rasterized onto 73^3
-voxels for kernels 4-5). Every path detects through the fused detect
+voxels for kernels 4-5); last an analytic galaxy of geometric sources on
+the 2D cylinder and on an octree, and the Ivezic shell on the 1D sphere.
+Every path detects through the fused detect
 kernel (csrc/detect.cu), which took kernel 3's place there. Each hand-written CUDA kernel is checked against
 its plain PyTorch version.
 Phases, one JSON line each:
@@ -390,6 +392,41 @@ Phases, one JSON line each:
                     equal to exp(-tau) of the line of sight through the
                     tree's leaves (1e-4), V identically 0, R < 0.01;
                     bench5's golden ratios beside full_width_b5's, reported
+  kernels_march_curvi  (right after kernels_march_tree) the march kernel's
+                    curvilinear modes bit for bit against their plain
+                    versions: march_cylinder2d at disk_cyl's first event
+                    (2^16 lanes of its stellar disk, a 128 x 128 cylinder
+                    to 25 kpc, shift 10, S = 256) and march_sphere1d at the
+                    Ivezic setup's (40 shells), both also on seeded rays
+                    from inside and outside linear-mesh grids; timed, the
+                    bound from the bytes of the (S, B) tables
+  draw_for_draw_geometric  the generated reduced configurations of
+                    MARCH_SMALL (GEO_CASES) on the CPU and on the card
+                    within MARCH_BOUNDS: the galaxy (an exponential disk
+                    and a flattened Sersic bulge in a dust disk) on a 16 x
+                    16 cylinder (march_cylinder2d), on a 16^3 uniform grid
+                    (kernels 1-2) and on a maxLevel-4 octree with a spiral
+                    dust disk (kernels 4-5), the Ivezic shell on a 40-shell
+                    sphere (march_sphere1d), a combined, rotated and
+                    clipped source on the cylinder
+  full_width_disk_cyl  disk_cyl (galaxy_ski: 2^20 packets in batches of
+                    2^16, 24 events, an 8-bin RF, two instruments of 40
+                    bins and 128 x 128 pixels) on its 128 x 128 cylinder:
+                    march_cylinder2d and detect launched, nothing else;
+                    gated: the transparent SED against the two blackbodies
+                    per bin and in total within 5 sigma of the sampling
+                    noise (blackbody_mix_gates), R < 0.01, 2^22 positions
+                    of each source against its cell masses (chi-square
+                    within 5 sigma, sampling_gates), and the face-on direct
+                    over transparent light of a central point source in
+                    the disk (disk_cyl_point) and of the Ivezic shell on
+                    the 1D sphere against exp(-tau) of the host's column
+                    (1e-3, direct_gate); packets/s, operations, syncs and
+                    host copies per event and the idle share of one
+                    profiled batch
+  full_width_disk_tree  the same galaxy with a spiral dust disk on a
+                    density octree (maxLevel 8): kernels 4-5 and detect on
+                    the tree sweep, the transparent SED and R gates
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -4577,13 +4614,20 @@ def phase_breakdown_b4(torch) -> None:
 
 MARCH = ("march_uniform", "march_mesh", "march_voronoi")
 MARCH_TREE = ("march_octree", "march_bintree")
+MARCH_CURVI = ("march_sphere1d", "march_cylinder2d")
 # the sweeps' kernels, none of which a march path launches
 SWEEPS = RESIDENT + XL + ML + NOT_PATH
 # f32 operations per walked (step, lane) in csrc/march.cu: a Cartesian step
 # (the three exit distances, the least, the move, the neighbour index), and
 # per neighbour of a Voronoi step (the bisector's normal, midpoint, two dot
 # products and the division) plus its wall test and move
-OPS_MARCH = {"march_uniform": 36, "march_mesh": 33, "march_voronoi": 24}
+OPS_MARCH = {"march_uniform": 36, "march_mesh": 33, "march_voronoi": 24,
+             # the sphere's two dot products, the quadratics of both
+             # borders (two square roots), the choice and the move; the
+             # cylinder's three in-plane sums, both quadratics (two square
+             # roots, two divisions), the plane's division, the least of
+             # three and the move
+             "march_sphere1d": 24, "march_cylinder2d": 40}
 OPS_MARCH_WALL = 24
 # of a tree step (the exit distances, the least, the move and the nudge,
 # the root box test), and per level of the descent (an octree's three
@@ -4652,7 +4696,25 @@ MARCH_SMALL = {
                                    max_events=8), False, ("march_octree",)),
     "bench7_tree": ("bench7", {"tree": 3},
                     dict(num_packets=2048, batch_size=2048, max_events=16),
-                    False, XL)}
+                    False, XL),
+    # geometric sources (GEOMETRIC: generated ski files): the galaxy on a
+    # 16x16 cylinder and the Ivezic shell on a 40-shell sphere march, on a
+    # 16^3 uniform grid the resident sweep (kernels 1-2), on a maxLevel-4
+    # density octree with a spiral dust disk the tree sweep (kernels 4-5),
+    # and a combined, rotated and clipped source on the cylinder
+    "disk_cyl_small": ("disk_cyl_small", {}, dict(
+        num_packets=4096, batch_size=4096, max_events=8), False,
+        ("march_cylinder2d",)),
+    "ivezic_sphere1d": ("ivezic_sphere1d", {}, dict(
+        num_packets=4096, batch_size=4096, max_events=8), False,
+        ("march_sphere1d",)),
+    "geometric_cartesian": ("geometric_cartesian", {}, dict(
+        num_packets=4096, batch_size=4096, max_events=8), False, RESIDENT),
+    "disk_tree_small": ("disk_tree_small", {}, dict(
+        num_packets=4096, batch_size=4096, max_events=8), False, ML),
+    "decorated_cyl": ("decorated_cyl", {}, dict(
+        num_packets=4096, batch_size=4096, max_events=8), False,
+        ("march_cylinder2d",))}
 # CPU against card on them: the RF and the SEDs within 2e-5 of their
 # maxima, a one-bin SED within 1e-4 (the f32 sum of every detection into
 # one entry: the CPU's index_add_ in lane order strays ~1e-5 by itself at
@@ -4671,16 +4733,19 @@ def march_config(name, device, directory):
     and Voronoi cases without sweep tables (no bin-pure strata), the
     Voronoi grid walked exactly, bench6's gas temperature rising 1x to 2x
     over its occupied cells, bench2 and bench3 with one self-absorption
-    iteration. Returns (sim, dust emission)."""
+    iteration; a generated configuration (GEOMETRIC) keeps the sweep
+    tables of a uniform grid whose case must launch kernels 1-2. Returns
+    (sim, dust emission)."""
     import dataclasses
     from skirt9_tpu_torch.config.ski import load_ski
-    ski, edits, run, dust, _ = MARCH_SMALL[name]
+    ski, edits, run, dust, must = MARCH_SMALL[name]
     edits = dict(edits)
     tree = edits.pop("tree", None)
     if tree is not None:
         edits.update(tree_edits(ski, tree))
-    sim = load_ski(edited_ski(ski, directory, edits, out=name),
-                   device=device, **run)
+    path = geometric_ski(ski, directory) if ski in GEOMETRIC else \
+        edited_ski(ski, directory, edits, out=name)
+    sim = load_ski(path, device=device, **run)
     if ski == "bench4":
         sim = dataclasses.replace(sim, options=dataclasses.replace(
             sim.options, raster_fallback=False))
@@ -4688,7 +4753,8 @@ def march_config(name, device, directory):
         sim = temperature_ramp(sim)
     if ski in ("bench2", "bench3"):
         sim.iterate_secondary, sim.max_iterations = True, 1
-    if type(sim.grid).__name__ not in ("OctreeGrid", "BinTreeGrid"):
+    if type(sim.grid).__name__ not in ("OctreeGrid", "BinTreeGrid") and \
+            not set(must) & set(RESIDENT):
         sim._sweep_tabs = None
     return sim, dust
 
@@ -4737,16 +4803,20 @@ def march_gaps(out_c, out_g, dust: bool) -> dict:
     return gaps
 
 
-def phase_draw_for_draw_march(torch) -> dict:
-    """MARCH_SMALL on the CPU (plain versions) and on the card (kernels),
+def phase_draw_for_draw_march(torch, phase="draw_for_draw_march",
+                              names=None) -> dict:
+    """MARCH_SMALL (the cases `names`, by default those of no generated
+    configuration) on the CPU (plain versions) and on the card (kernels),
     the same seed: march_gaps, bench6 and bench7 by sed_gaps within
     B6_BOUNDS and B7_BOUNDS, the polarized bench5 by b5_errors within
     B5_BOUNDS; each case's kernels and detect launched on the card, and
     neither another march mode nor a sweep outside its engine."""
     res, launches = {}, {}
-    every = SWEEPS + MARCH + MARCH_TREE
+    every = SWEEPS + MARCH + MARCH_TREE + MARCH_CURVI
+    names = names or [n for n in MARCH_SMALL if n not in GEO_CASES]
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (ski, _, _, _, must) in MARCH_SMALL.items():
+        for name in names:
+            ski, _, _, _, must = MARCH_SMALL[name]
             outs = {}
             for device in ("cpu", "cuda"):
                 sim, dust = march_config(name, device, tmp)
@@ -4773,11 +4843,11 @@ def phase_draw_for_draw_march(torch) -> dict:
             else:
                 res[name] = march_gaps(outs["cpu"], outs["cuda"], dust)
             torch.cuda.empty_cache()
-    emit({"phase": "draw_for_draw_march", "march_bounds": MARCH_BOUNDS,
+    emit({"phase": phase, "march_bounds": MARCH_BOUNDS,
           "b5_bounds": B5_BOUNDS, "b6_bounds": B6_BOUNDS,
           "b7_bounds": B7_BOUNDS,
           "configs": {k: dict(zip(("ski", "edits", "run", "dust", "must"),
-                                  v)) for k, v in MARCH_SMALL.items()},
+                                  MARCH_SMALL[k])) for k in names},
           "gaps": res, "launches": launches})
     return launches
 
@@ -4812,6 +4882,9 @@ def march_cost(name, grid, cells, walked) -> tuple:
         return (12 * grid.ncells + 4 * grid.neighbors.numel(),
                 n * (OPS_MARCH[name] * grid.neighbors.shape[1]
                      + OPS_MARCH_WALL), {})
+    if name in MARCH_CURVI:
+        tables = 4 * sum(t.numel() for t in grid if torch.is_tensor(t))
+        return tables, n * OPS_MARCH[name], {}
     tables = 4 * (sum(grid.shape) + 3) if name == "march_mesh" else 24
     return tables, n * OPS_MARCH[name], {}
 
@@ -4832,7 +4905,7 @@ def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
     ck, dk = mr._march_cuda(grid, pos, dirn, cell, S, mask)
     require(kb.LAUNCHES[name] == 1, f"{name} launched once")
     cp, dp = mr.march_geometry_plain(grid, pos, dirn, cell, S, mask)
-    exact = name in MARCH_TREE
+    exact = name in MARCH_TREE + MARCH_CURVI
     off = ((ck != cp) | (dk != dp)) if exact else ck != cp
     lanes_off = int(off.any(dim=0).sum())
     require(lanes_off <= (0 if exact else 1e-4 * B),
@@ -5143,8 +5216,11 @@ def phase_kernels_b5_tree(torch) -> dict:
     uniform share up to 1.1 of each lane's tau: s_int, icell and found
     identical); kernel 6's total mode toward the instrument from the
     interaction points in entry-slab order, as the peel-off calls it
-    (within 1e-6 of each lane's tau). Each timed by CUDA events and the
-    profiler, beside the plain version, with its bound."""
+    (within 1e-6 of each lane's tau); detect's Stokes mode at that first
+    scattering peel-off (check_detect); and kernel 4's total and prefix
+    modes on MARCH_SMALL's static bench5 octree (_dtau_ml, 2^16 rays in
+    its box). Each timed by CUDA events and the profiler, beside the plain
+    version, with its bound."""
     from skirt9_tpu_torch.transport import sweep as sw
     from skirt9_tpu_torch.transport import sweepxl as xl
     sim = config5_tree("cuda")
@@ -5212,9 +5288,45 @@ def phase_kernels_b5_tree(torch) -> dict:
         library_ms=None,
         **bound(ray_bytes(B, 1) + tabs.nd.numel() * 4 + B * 4,
                 B * OPS_LANE + n_act * (OPS_SLAB + 3 * (OPS_SUB + 2) + 3)))
-    emit({"phase": "kernels_b5_tree", "batch": B, "leaves": sim.grid.ncells,
-          "raster": list(tabs.n), **out})
+    # detect's Stokes mode at the first scattering peel-off on the tree
+    # raster: the interaction points above, each lane's polarized phase
+    # and Stokes values toward the instrument, attenuated by the totals
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.ops import stokes as stk
+    from skirt9_tpu_torch.sources import base as src
+    from skirt9_tpu_torch.transport import lifecycle as lc
+    dev = pos.device
+    pkt = src.launch_batch(sim.sources[0], sim._src_tabs[0], sim.grid,
+                           rng.seed_key(sim.seed, dev),
+                           torch.arange(B, device=dev), sim.num_packets)
+    perm = xl.lane_order(tabs, pkt.pos, pkt.dir,
+                         sw.dominant_axis(tabs, pkt.dir), 1)
+    pkt = pkt._replace(**{f: getattr(pkt, f)[perm] for f in pkt._fields})
+    require(bool(torch.equal(pkt.pos, pos)), "bench5's tree: the first "
+            "event's lanes are the launch batch's, in the loop's order")
+    pkt = pkt._replace(pos=ipos)
+    tab = sim._inst_tabs[0]
+    h = torch.zeros(B, dtype=torch.int64, device=dev)
+    contrib, quv = lc.polarized_per_sr(
+        pkt, sim.mueller, h, stk.s11_norm(sim.mueller)[h], pkt.lum, kobs,
+        lc._detector_normals([tab])[0])
+    att = torch.empty_like(tot_p)
+    att[prm] = torch.exp(-tot_p)
+    res = check_detect(torch, sim.instruments[0], tab, pkt.lam, ipos,
+                       contrib * att, found, 2, quv=quv)
+    require(res["stokes_v_zero"], "bench5's tree: Stokes V identically 0")
+    out["detect"] = res
     del sim, pl
+    torch.cuda.empty_cache()
+    # kernel 4's tracer and pass-1 modes on the static bench5 octree of
+    # MARCH_SMALL (polarization on the tree sweep), 2^16 rays in its box
+    with tempfile.TemporaryDirectory() as tmp:
+        sim_s, _ = march_config("bench5_tree_static", "cuda", tmp)
+        _, more, *_ = _dtau_ml(torch, sim_s, np.random.default_rng(6))
+        out.update({f"{k}_static_tree": dict(v, leaves=sim_s.grid.ncells)
+                    for k, v in more.items()})
+        del sim_s
+    emit({"phase": "kernels_b5_tree", "batch": B, **out})
     torch.cuda.empty_cache()
     return out
 
@@ -5360,6 +5472,506 @@ def bench5_ratios(sed_um) -> dict:
     return out
 
 
+
+# ------------------------------------------------- geometric sources, curvi
+
+KPC = 1e3 * PC
+# disk_cyl's galaxy: an exponential stellar disk (5000 K) and a flattened
+# Sersic bulge (4000 K, 0.3 of the disk's luminosity) in an exponential dust
+# disk of face-on tau_V = 1, in a box of R 25 kpc and |z| 4 kpc
+GALAXY = dict(L_disk=1e10, T_disk=5000.0, h_r=4.0, h_z=0.35, reff=1.6,
+              sersic=4.0, q_bulge=0.6, T_bulge=4000.0, bulge_frac=0.3,
+              dust_h_r=6.0, dust_h_z=0.25, tau_v=1.0, r_max=25.0, z_max=4.0,
+              lam=(0.1, 3.0), distance_mpc=10.0)
+B_GEO = 1 << 16           # the full-width batch of disk_cyl and disk_tree
+N_GEO = 1 << 20           # and their packets
+
+
+def _sigma_v() -> float:
+    """The MRN mix's extinction cross section at 0.55 micron [m2]."""
+    from skirt9_tpu_torch.media import mixes as mx
+    return float(mx.from_file(os.path.join(GOLDEN, "mrn_mean.txt"))
+                 .at(0.55e-6)[0])
+
+
+def dust_disk_number(unit: str = "kpc") -> float:
+    """The dust disk's entity count for face-on tau_V through the whole z
+    axis: the exponential disk's column at R = 0 is N / (2 pi h_r^2)."""
+    g = GALAXY
+    h = g["dust_h_r"] * (KPC if unit == "kpc" else PC)
+    return g["tau_v"] * 2 * math.pi * h ** 2 / _sigma_v()
+
+
+def _disk_sources(kind: str, unit: str = "kpc") -> str:
+    g = GALAXY
+    bb = lambda T: (f'<sed type="SED"><BlackBodySED temperature="{T} K"/>'
+                    '</sed>')
+    norm = lambda L: ('<normalization type="LuminosityNormalization">'
+                      '<IntegratedLuminosityNormalization wavelengthRange='
+                      f'"Source" integratedLuminosity="{L:.6g} Lsun"/>'
+                      '</normalization>')
+    disk = (f'<ExpDiskGeometry scaleLength="{g["h_r"]} {unit}" '
+            f'scaleHeight="{g["h_z"]} {unit}"/>')
+    bulge = (f'<SpheroidalGeometryDecorator flattening="{g["q_bulge"]}">'
+             '<geometry type="Geometry"><SersicGeometry effectiveRadius='
+             f'"{g["reff"]} {unit}" index="{g["sersic"]}"/></geometry>'
+             '</SpheroidalGeometryDecorator>')
+    src = lambda geom, T, L: (
+        '<GeometricSource sourceWeight="1" wavelengthBias="0.5"><geometry '
+        f'type="Geometry">{geom}</geometry>{bb(T)}{norm(L)}</GeometricSource>')
+    if kind == "point":
+        return ('<PointSource positionX="0 pc" positionY="0 pc" positionZ='
+                f'"0 pc">{norm(g["L_disk"])}</PointSource>')
+    if kind == "decorated":
+        # a rotated disk combined with a clipped Plummer sphere
+        geom = ('<CombineGeometryDecorator firstWeight="1" secondWeight='
+                '"0.4"><firstGeometry type="Geometry">'
+                '<RotateGeometryDecorator eulerAlpha="20 deg" eulerBeta='
+                f'"50 deg" eulerGamma="-30 deg"><geometry type="Geometry">'
+                f'{disk}</geometry></RotateGeometryDecorator></firstGeometry>'
+                '<secondGeometry type="Geometry"><SphericalClipGeometry'
+                f'Decorator remove="Inside" clipRadius="0.5 {unit}" centerX='
+                f'"0 {unit}" centerY="0 {unit}" centerZ="0 {unit}"><geometry '
+                'type="Geometry"><PlummerGeometry scaleLength='
+                f'"1.5 {unit}"/></geometry></SphericalClipGeometryDecorator>'
+                '</secondGeometry></CombineGeometryDecorator>')
+        return src(geom, g["T_disk"], g["L_disk"])
+    return (src(disk, g["T_disk"], g["L_disk"])
+            + src(bulge, g["T_bulge"], g["bulge_frac"] * g["L_disk"]))
+
+
+def galaxy_ski(directory, name: str, grid: str = "cylinder", nr: int = 128,
+               nz: int = 128, level: int = 8, spiral: bool = False,
+               sources: str = "galaxy", rf_bins: int = 8, npix: int = 128,
+               nlam: int = 40, unit: str = "kpc") -> str:
+    """A ski file of disk_cyl's galaxy (GALAXY) written into directory
+    beside the MRN mix file: ExtinctionOnly over 0.1-3 micron with an
+    rf_bins-bin RF; grid "cylinder" (a Cylinder2DSpatialGrid, a PowMesh of
+    nr radial and a SymPowMesh of nz z bins, both ratio 50), "tree" (a
+    density octree over the same box, maxLevel level) or "cartesian" (a
+    uniform nr^3 grid); the dust disk wrapped in a 2-arm spiral decorator
+    with spiral; sources "galaxy" (disk and bulge), "point" (a central
+    point source at 0.55 micron, OligoExtinctionOnly) or "decorated";
+    instruments at inclinations 0 and 90 deg, npix^2 pixels, nlam log
+    bins. unit "pc" shrinks every length of the model 1000-fold (the tests
+    hold the port against the reference there: the reference's curvilinear
+    steps overflow f32 past 0.6 kpc)."""
+    import shutil
+    g = GALAXY
+    R, Z = g["r_max"], g["z_max"]
+    dust = (f'<ExpDiskGeometry scaleLength="{g["dust_h_r"]} {unit}" '
+            f'scaleHeight="{g["dust_h_z"]} {unit}"/>')
+    if spiral:
+        dust = ('<SpiralStructureGeometryDecorator numArms="2" pitchAngle='
+                f'"18 deg" radiusZeroPoint="{g["dust_h_r"]} {unit}" '
+                'phaseZeroPoint="0 deg" perturbationWeight="0.5" index="1">'
+                f'<geometry type="Geometry">{dust}</geometry>'
+                '</SpiralStructureGeometryDecorator>')
+    box = (f'minX="-{R} {unit}" maxX="{R} {unit}" minY="-{R} {unit}" '
+           f'maxY="{R} {unit}" minZ="-{Z} {unit}" maxZ="{Z} {unit}"')
+    if grid == "cylinder":
+        grid_xml = (f'<Cylinder2DSpatialGrid maxRadius="{R} {unit}" minZ='
+                    f'"-{Z} {unit}" maxZ="{Z} {unit}"><meshRadial type="Mesh">'
+                    f'<PowMesh numBins="{nr}" ratio="50"/></meshRadial>'
+                    f'<meshZ type="Mesh"><SymPowMesh numBins="{nz}" '
+                    'ratio="50"/></meshZ></Cylinder2DSpatialGrid>')
+    elif grid == "tree":
+        grid_xml = (f'<PolicyTreeSpatialGrid {box} treeType="OctTree">'
+                    '<policy type="TreePolicy"><DensityTreePolicy minLevel='
+                    f'"2" maxLevel="{level}" maxDustFraction="1e-4"/>'
+                    '</policy></PolicyTreeSpatialGrid>')
+    else:
+        mesh = lambda ax: (f'<mesh{ax} type="Mesh"><LinMesh numBins="{nr}"/>'
+                           f'</mesh{ax}>')
+        grid_xml = (f'<CartesianSpatialGrid {box}>{mesh("X")}{mesh("Y")}'
+                    f'{mesh("Z")}</CartesianSpatialGrid>')
+    oligo = sources == "point"
+    lo, hi = g["lam"]
+    src_sys = ('<SourceSystem wavelengths="0.55 micron" sourceBias="0.5">'
+               if oligo else f'<SourceSystem minWavelength="{lo} micron" '
+               f'maxWavelength="{hi} micron" sourceBias="0.5">')
+    rf = ('' if oligo else
+          '<radiationFieldOptions type="RadiationFieldOptions">'
+          '<RadiationFieldOptions storeRadiationField="true">'
+          '<radiationFieldWLG type="DisjointWavelengthGrid">'
+          f'<LogWavelengthGrid minWavelength="{lo} micron" maxWavelength='
+          f'"{hi} micron" numWavelengths="{rf_bins}"/></radiationFieldWLG>'
+          '</RadiationFieldOptions></radiationFieldOptions>')
+    wlg = ('' if oligo else '<defaultWavelengthGrid type="WavelengthGrid">'
+           f'<LogWavelengthGrid minWavelength="{lo} micron" maxWavelength='
+           f'"{hi} micron" numWavelengths="{nlam}"/></defaultWavelengthGrid>')
+    fov = 2.2 * R
+    inst = lambda name, inc: (
+        f'<FullInstrument instrumentName="{name}" distance='
+        f'"{g["distance_mpc"]} Mpc" inclination="{inc} deg" azimuth="0 deg" '
+        f'roll="0 deg" fieldOfViewX="{fov} {unit}" numPixelsX="{npix}" '
+        f'centerX="0 pc" fieldOfViewY="{fov} {unit}" numPixelsY="{npix}" '
+        'centerY="0 pc" recordComponents="true" numScatteringLevels="0" '
+        'recordPolarization="false" recordStatistics="true"/>')
+    mode = "OligoExtinctionOnly" if oligo else "ExtinctionOnly"
+    text = f"""<?xml version='1.0' encoding='UTF-8'?>
+<skirt-simulation-hierarchy type="MonteCarloSimulation" format="9" producer="chip_smoke">
+  <MonteCarloSimulation userLevel="Expert" simulationMode="{mode}" numPackets="{N_GEO}">
+    <random type="Random"><Random seed="0"/></random>
+    <units type="Units"><ExtragalacticUnits fluxOutputStyle="Wavelength"/></units>
+    <cosmology type="Cosmology"><LocalUniverseCosmology/></cosmology>
+    <sourceSystem type="SourceSystem">{src_sys}<sources type="Source">{_disk_sources(sources, unit)}</sources></SourceSystem></sourceSystem>
+    <mediumSystem type="MediumSystem"><MediumSystem>
+      <photonPacketOptions type="PhotonPacketOptions"><PhotonPacketOptions forceScattering="true" minWeightReduction="1e4" minScattEvents="0" pathLengthBias="0.5"/></photonPacketOptions>
+      {rf}
+      <media type="Medium"><GeometricMedium velocityMagnitude="0 km/s">
+        <geometry type="Geometry">{dust}</geometry>
+        <materialMix type="MaterialMix"><MeanFileDustMix filename="mrn_mean.txt"/></materialMix>
+        <normalization type="MaterialNormalization"><NumberMaterialNormalization number="{dust_disk_number(unit):.9e}"/></normalization>
+      </GeometricMedium></media>
+      <grid type="SpatialGrid">{grid_xml}</grid>
+    </MediumSystem></mediumSystem>
+    <instrumentSystem type="InstrumentSystem"><InstrumentSystem>{wlg}<instruments type="Instrument">{inst("i0", 0)}{inst("i90", 90)}</instruments></InstrumentSystem></instrumentSystem>
+  </MonteCarloSimulation>
+</skirt-simulation-hierarchy>
+"""
+    path = os.path.join(str(directory), f"{name}.ski")
+    with open(path, "w") as f:
+        f.write(text)
+    shutil.copy(os.path.join(GOLDEN, "mrn_mean.txt"), str(directory))
+    return path
+
+
+# the Ivezic et al. (1997) setup of tests/test_sphere_grid.py:48-88 on the
+# 1D sphere: a central point source at 0.55 micron in an r^-1.5 MRN shell
+# from 0.1 to 1 pc of tau_V = 1 through the whole z axis
+IVEZIC = dict(r_in=0.1, r_out=1.0, p=1.5, r_grid=1.05, L=1e5)
+
+
+def ivezic_ski(directory, name: str = "ivezic_sphere1d", nr: int = 60,
+               mesh: str = "PowMesh") -> str:
+    """The Ivezic setup as a ski file (OligoExtinctionOnly at 0.55 micron,
+    a Sphere1DSpatialGrid of nr shells on a radial `mesh` of ratio 20 to
+    1.05 pc, one FullInstrument face-on at 1 kpc)."""
+    import shutil
+    v = IVEZIC
+    text = f"""<?xml version='1.0' encoding='UTF-8'?>
+<skirt-simulation-hierarchy type="MonteCarloSimulation" format="9" producer="chip_smoke">
+  <MonteCarloSimulation userLevel="Expert" simulationMode="OligoExtinctionOnly" numPackets="{N_GEO}">
+    <random type="Random"><Random seed="0"/></random>
+    <units type="Units"><ExtragalacticUnits fluxOutputStyle="Wavelength"/></units>
+    <cosmology type="Cosmology"><LocalUniverseCosmology/></cosmology>
+    <sourceSystem type="SourceSystem"><SourceSystem wavelengths="0.55 micron" sourceBias="0.5"><sources type="Source">
+      <PointSource positionX="0 pc" positionY="0 pc" positionZ="0 pc"><normalization type="LuminosityNormalization"><IntegratedLuminosityNormalization wavelengthRange="Source" integratedLuminosity="{v['L']} Lsun"/></normalization></PointSource>
+    </sources></SourceSystem></sourceSystem>
+    <mediumSystem type="MediumSystem"><MediumSystem>
+      <photonPacketOptions type="PhotonPacketOptions"><PhotonPacketOptions forceScattering="true" minWeightReduction="1e4" minScattEvents="0" pathLengthBias="0.5"/></photonPacketOptions>
+      <media type="Medium"><GeometricMedium velocityMagnitude="0 km/s">
+        <geometry type="Geometry"><ShellGeometry minRadius="{v['r_in']} pc" maxRadius="{v['r_out']} pc" exponent="{v['p']}"/></geometry>
+        <materialMix type="MaterialMix"><MeanFileDustMix filename="mrn_mean.txt"/></materialMix>
+        <normalization type="MaterialNormalization"><OpticalDepthMaterialNormalization axis="Z" wavelength="0.55 micron" opticalDepth="1"/></normalization>
+      </GeometricMedium></media>
+      <grid type="SpatialGrid"><Sphere1DSpatialGrid maxRadius="{v['r_grid']} pc"><meshRadial type="Mesh"><{mesh} numBins="{nr}" ratio="20"/></meshRadial></Sphere1DSpatialGrid></grid>
+    </MediumSystem></mediumSystem>
+    <instrumentSystem type="InstrumentSystem"><InstrumentSystem><instruments type="Instrument">
+      <FullInstrument instrumentName="i0" distance="1 kpc" inclination="0 deg" azimuth="0 deg" roll="0 deg" fieldOfViewX="2.2 pc" numPixelsX="64" centerX="0 pc" fieldOfViewY="2.2 pc" numPixelsY="64" centerY="0 pc" recordComponents="true" numScatteringLevels="0" recordPolarization="false" recordStatistics="true"/>
+    </instruments></InstrumentSystem></instrumentSystem>
+  </MonteCarloSimulation>
+</skirt-simulation-hierarchy>
+"""
+    path = os.path.join(str(directory), f"{name}.ski")
+    with open(path, "w") as f:
+        f.write(text)
+    shutil.copy(os.path.join(GOLDEN, "mrn_mean.txt"), str(directory))
+    return path
+
+
+# the generated configurations of MARCH_SMALL and the full-width phases:
+# name -> (the function that writes its ski file, its arguments)
+GEOMETRIC = {
+    "disk_cyl": (galaxy_ski, {}),
+    "disk_tree": (galaxy_ski, dict(grid="tree", spiral=True)),
+    "disk_cyl_small": (galaxy_ski, dict(nr=16, nz=16, npix=32, nlam=12,
+                                        rf_bins=4)),
+    "ivezic_sphere1d": (ivezic_ski, dict(nr=40)),
+    "geometric_cartesian": (galaxy_ski, dict(grid="cartesian", nr=16,
+                                             npix=32, nlam=12, rf_bins=4)),
+    "disk_tree_small": (galaxy_ski, dict(grid="tree", level=4, spiral=True,
+                                         npix=32, nlam=12, rf_bins=4)),
+    "decorated_cyl": (galaxy_ski, dict(nr=16, nz=16, npix=32, nlam=12,
+                                       rf_bins=4, sources="decorated")),
+    "disk_cyl_point": (galaxy_ski, dict(sources="point")),
+}
+
+
+def geometric_ski(name: str, directory, **over) -> str:
+    """The ski file of GEOMETRIC[name] (its arguments updated by over),
+    written into directory."""
+    write, kw = GEOMETRIC[name]
+    return write(directory, name, **dict(kw, **over))
+
+
+
+GEO_CASES = ("disk_cyl_small", "ivezic_sphere1d", "geometric_cartesian",
+             "disk_tree_small", "decorated_cyl")
+
+
+def geometric_config(name: str, device, directory, **run):
+    """GEOMETRIC[name] through the port's load_ski at full width (N_GEO
+    packets in batches of B_GEO, 24 events) unless run says otherwise."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    return load_ski(geometric_ski(name, directory), device=device,
+                    **dict(dict(num_packets=N_GEO, batch_size=B_GEO,
+                                max_events=24), **run))
+
+
+def phase_kernels_march_curvi(torch) -> dict:
+    """The march kernel's curvilinear modes against their plain versions,
+    bit for bit (_march_check): march_cylinder2d at disk_cyl's first event
+    (2^16 lanes of its disk, the 128 x 128 cylinder to 25 kpc, shift 10,
+    S = 256) and march_sphere1d at the Ivezic setup's (40 shells); both
+    also on seeded rays from inside and outside a linear-mesh grid."""
+    from skirt9_tpu_torch.grids.cylinder import make_cylinder2d
+    from skirt9_tpu_torch.grids.sphere import make_sphere1d
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mode in (("disk_cyl", "march_cylinder2d"),
+                           ("ivezic_sphere1d", "march_sphere1d")):
+            sim = geometric_config(name, "cuda", tmp, **(
+                dict(num_packets=B_GEO) if name.startswith("ivezic") else {}))
+            S = sim.options.max_steps
+            pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_GEO)
+            out[mode] = dict(_march_check(torch, mode, sim.grid, pos, dirn,
+                                          cell, S, alive),
+                             cells=sim.grid.ncells, shift=sim.grid.shift)
+            del sim
+    rs = np.random.default_rng(31)
+    dev = torch.device("cuda")
+    for mode, grid in (
+            ("march_sphere1d", make_sphere1d(PC, 100)),
+            ("march_cylinder2d", make_cylinder2d(PC, -0.5 * PC, 0.5 * PC,
+                                                 100, 60))):
+        grid = grid.to(dev)
+        pos = rs.uniform(-1.5 * PC, 1.5 * PC, (B_GEO, 3))
+        d = rs.normal(size=(B_GEO, 3))
+        t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+        pos, d = t32(pos), t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+        pos, cell, _ = grid.move_inside(pos, d)
+        out[f"{mode}_linear"] = _march_check(
+            torch, mode, grid, pos, d, cell, min(grid.max_steps(), 256),
+            cell >= 0)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_march_curvi", **out})
+    return out
+
+
+def blackbody_mix_gates(sim, sed_um, n_sigma: float = 5.0) -> dict:
+    """The transparent SED [W/m2/micron] of GeometricSources with blackbody
+    SEDs over 0.1-3 micron, bin by bin, against the sum of each source's
+    L / (4 pi d^2) times its blackbody's share of the bin over the bin's
+    width, within n_sigma of the run's sampling noise there (each source's
+    packets by the simulation's source allocation, the wavelength bias's
+    per-packet variance int_bin p^2 / q - P^2), and its integral within
+    n_sigma of its noise."""
+    h, c, kB = 6.62607015e-34, 2.99792458e8, 1.380649e-23
+    lo, hi = (x * 1e-6 for x in GALAXY["lam"])
+    x = np.geomspace(lo, hi, 400_001)
+    borders = np.asarray(sim.instruments[0].wave_borders, np.float64)
+    cum = lambda f: np.concatenate([[0.0], np.cumsum(
+        0.5 * (f[1:] + f[:-1]) * np.diff(x))])
+    at = lambda f: np.diff(np.interp(np.clip(borders, lo, hi), x, cum(f)))
+    counts = sim._source_allocation(sim.num_packets)
+    d = GALAXY["distance_mpc"] * 1e6 * 3.08567758149e16
+    want, var = 0.0, 0.0
+    L_tot = 0.0
+    # the galaxy's sources in order: the disk's blackbody, the bulge's
+    for src, n, T in zip(sim.sources, counts,
+                         (GALAXY["T_disk"], GALAXY["T_bulge"])):
+        p = x ** -5 / np.expm1(h * c / (x * kB * T))
+        p /= np.trapezoid(p, x)
+        xi = src.wavelength_bias
+        q = (1 - xi) * p + xi / (x * np.log(hi / lo))
+        P, Q = at(p), at(p * p / q)
+        flux = src.luminosity / (4 * np.pi * d ** 2)
+        want = want + flux * P
+        var = var + flux ** 2 * np.maximum(Q - P * P, 0.0) / n
+        L_tot += flux
+    width = np.diff(borders) * 1e6
+    lit = want > 0
+    ratio = sed_um["transparent"][lit] * width[lit] / want[lit]
+    sigma = np.sqrt(var[lit]) / want[lit]
+    z = np.abs(ratio - 1) / sigma
+    require(float(z.max()) <= n_sigma, f"transparent SED within {n_sigma} "
+            f"sigma of the two blackbodies in every bin ({float(z.max())})")
+    total = float((sed_um["transparent"] * width).sum() / L_tot)
+    sigma_tot = math.sqrt(float(var.sum())) / L_tot
+    require(abs(total - 1) <= n_sigma * sigma_tot,
+            f"transparent SED's integral {total} within {n_sigma} sigma "
+            f"({sigma_tot}) of the sources' L / (4 pi d^2)")
+    return dict(transparent_max_sigmas=float(z.max()),
+                transparent_max_rel_err=float(np.abs(ratio - 1).max()),
+                transparent_integral=total,
+                transparent_integral_sigma=sigma_tot)
+
+
+def cell_masses(grid, geometry) -> np.ndarray:
+    """The mass of a unit-mass axisymmetric geometry in each cell of a 2D
+    cylinder: 8 x 8 Gauss-Legendre nodes per cell in (R, z) of its
+    density_np on the x-z plane times 2 pi R, in f64 on the host."""
+    g, w = np.polynomial.legendre.leggauss(8)
+    rb = grid.rb.double().cpu().numpy()
+    zb = grid.zb.double().cpu().numpy()
+    R = 0.5 * (rb[1:, None] + rb[:-1, None]) + 0.5 * np.diff(rb)[:, None] * g
+    Z = 0.5 * (zb[1:, None] + zb[:-1, None]) + 0.5 * np.diff(zb)[:, None] * g
+    wr = 0.5 * np.diff(rb)[:, None] * w * 2 * np.pi * R     # (nr, 8)
+    wz = 0.5 * np.diff(zb)[:, None] * w                     # (nz, 8)
+    nr, nz = len(rb) - 1, len(zb) - 1
+    out = np.zeros((nr, nz))
+    for a in range(8):
+        pos = np.zeros((nr, nz, 8, 3))
+        pos[..., 0] = R[:, None, a, None]
+        pos[..., 2] = Z[None, :, :]
+        rho = geometry.density_np(pos.reshape(-1, 3)).reshape(nr, nz, 8)
+        out += wr[:, None, a] * (rho * wz[None, :, :]).sum(axis=-1)
+    return out.reshape(-1)
+
+
+def sampling_gates(torch, sim, n: int = 1 << 22,
+                   n_sigma: float = 5.0) -> dict:
+    """2^22 positions from each source's geometry (its `sample` on the
+    card, in batches of 2^20) binned into the 2D cylinder's cells against
+    the geometry's cell masses (cell_masses) and the mass outside the grid
+    as one more bin: chi-square over the bins expecting at least 5 within
+    n_sigma of its degrees of freedom."""
+    from skirt9_tpu_torch.ops import rng
+    out = {}
+    for k, src in enumerate(sim.sources):
+        counts = torch.zeros(sim.grid.ncells + 1, dtype=torch.float64,
+                             device=sim.device)
+        for b in range(n // (1 << 20)):
+            hist = torch.arange(b << 20, (b + 1) << 20, device=sim.device)
+            keys = rng.event_keys(rng.history_keys(rng.seed_key(
+                97 + k, sim.device), hist), rng.LAUNCH_EVENT)
+            cell = sim.grid.locate(src.geometry.sample(keys))
+            counts += torch.bincount(torch.where(cell < 0, sim.grid.ncells,
+                                                 cell),
+                                     minlength=sim.grid.ncells + 1).double()
+        m = cell_masses(sim.grid, src.geometry)
+        exp = n * np.concatenate([m, [max(1.0 - m.sum(), 0.0)]])
+        obs = counts.cpu().numpy()
+        use = exp >= 5
+        chi2 = float((((obs - exp) ** 2 / np.maximum(exp, 1e-300))[use]).sum())
+        dof = int(use.sum()) - 1
+        z = (chi2 - dof) / math.sqrt(2 * dof)
+        require(z <= n_sigma, f"source {k}'s positions chi-square {chi2} "
+                f"on {dof} dof: {z} sigma <= {n_sigma}")
+        out[f"source{k}"] = dict(chi2=chi2, dof=dof, sigmas=z,
+                                 outside_obs=float(obs[-1]),
+                                 outside_exp=float(exp[-1]))
+    return out
+
+
+def column_tau(sim, lam: float = 0.55e-6) -> float:
+    """The optical depth from the centre along +z through the 2D cylinder's
+    innermost annulus, or from the centre outward through the 1D sphere's
+    shells, in f64 on the host from the cells' extents and densities."""
+    import torch
+    from skirt9_tpu_torch.media import system as msys
+    sig = msys.optics_at(sim.medium, torch.tensor(
+        [lam], dtype=torch.float32, device=sim.device)).sigma_ext
+    kappa = (sim.medium.nd.double() @ sig.double()[0]).cpu().numpy()
+    if type(sim.grid).__name__ == "Sphere1DGrid":
+        return float((np.diff(sim.grid.rb.double().cpu().numpy())
+                      * kappa).sum())
+    zb = sim.grid.zb.double().cpu().numpy()
+    nz = len(zb) - 1
+    up = zb[:-1] >= 0.0
+    return float((np.diff(zb)[up] * kappa[:nz][up]).sum())
+
+
+def direct_gate(torch, sim, what: str) -> dict:
+    """A central point source's run: direct over transparent SED (one
+    bin, at 0.55 micron) face-on equal to exp(-tau) of column_tau within
+    1e-3."""
+    (rf, accs), launches = drive(
+        (MODES_OF[type(sim.grid).__name__],) + DETECT, SWEEPS,
+        lambda: sim.run_primary(verbose=False))
+    from skirt9_tpu_torch.instruments import distant as dinst
+    sed = accs[0]["sed"].double().cpu()
+    att = float(sed[dinst.KIND_PRIMARY_DIRECT].sum() / sed[
+        dinst.KIND_TRANSPARENT].sum())
+    tau = column_tau(sim)
+    e = abs(att / math.exp(-tau) - 1)
+    require(e <= 1e-3, f"{what}: direct / transparent {att} against "
+            f"exp(-{tau}) within 1e-3 ({e})")
+    return {"tau": tau, "direct_over_transparent": att, "rel_err": e,
+            "packets": sim.num_packets, "launch_counts": launches}
+
+
+MODES_OF = {"Sphere1DGrid": "march_sphere1d",
+            "Cylinder2DGrid": "march_cylinder2d"}
+
+
+def phase_full_width_geometric(torch, smi: str, name: str) -> dict:
+    """disk_cyl (the galaxy's two geometric sources on the 128 x 128
+    cylinder march) or disk_tree (on a density octree of maxLevel 8 with a
+    spiral dust disk, the tree sweep: kernels 4-5) at N_GEO packets in
+    batches of B_GEO, 24 events, after a one-batch warm-up: its kernels and
+    detect launched, no other; gated: the transparent SED against the two
+    blackbodies (blackbody_mix_gates), R < 0.01 in the bins above 1% of
+    the peak; for
+    disk_cyl also 2^22 positions of each source against its cell masses
+    (sampling_gates), and the face-on direct light of a central point
+    source in the disk (disk_cyl_point, 2^18 packets) and of the Ivezic
+    shell on the 1D sphere (2^18) against exp(-tau) (direct_gate); one
+    batch profiled (host_per_event)."""
+    cyl = name == "disk_cyl"
+    must = ("march_cylinder2d",) if cyl else ML
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = geometric_config(name, "cuda", tmp)
+        warm = geometric_config(name, "cuda", tmp, num_packets=B_GEO)
+        warm.run_primary(verbose=False)
+        t0 = time.perf_counter()
+        (rf, accs), launches = drive(
+            must + DETECT, tuple(k for k in SWEEPS + MARCH + MARCH_TREE
+                                 + MARCH_CURVI if k not in must),
+            lambda: sim.run_primary(verbose=False))
+        dt = time.perf_counter() - t0
+        stats = dict(sim.last_stats)
+        paths = [p for p in sim.write_outputs(accs, name, tmp)
+                 if p.endswith("_sed.dat")]
+        cols = np.loadtxt(paths[0])
+        cols90 = np.loadtxt(paths[1])
+        gates = blackbody_mix_gates(sim, {"transparent": cols[:, 2]})
+        lit = cols[:, 1] > 1e-2 * cols[:, 1].max()
+        R = cols[lit, 7]
+        require(float(R.max()) < 0.01, f"SED relative error R {R.max()}")
+        gates["R_max"] = float(R.max())
+        res = {"phase": f"full_width_{name}", "cells": sim.grid.ncells,
+               "max_steps": sim.options.max_steps, "packets": sim.num_packets,
+               "batch": sim.batch_size, "packets_per_s": sim.num_packets / dt,
+               "seconds": dt, "events": stats["events"],
+               "rf_bins": rf.shape[1],
+               "launches": {k: v for k, v in launches.items() if v}, **gates,
+               "direct_over_transparent_i0": float(
+                   cols[lit, 3].sum() / cols[lit, 2].sum()),
+               "direct_over_transparent_i90": float(
+                   cols90[lit, 3].sum() / cols90[lit, 2].sum())}
+        if cyl:
+            res["shift"] = sim.grid.shift
+            res["sampling"] = sampling_gates(torch, sim)
+            res["point_source"] = direct_gate(torch, geometric_config(
+                "disk_cyl_point", "cuda", tmp, num_packets=1 << 18),
+                "disk_cyl_point")
+            res["ivezic"] = direct_gate(torch, geometric_config(
+                "ivezic_sphere1d", "cuda", tmp, num_packets=1 << 18),
+                "ivezic_sphere1d")
+        else:
+            res["leaves"] = sim.grid.ncells
+        res["breakdown"] = host_per_event(
+            torch, geometric_config(name, "cuda", tmp, num_packets=B_GEO),
+            lambda s: s.run_primary(verbose=False))
+        del sim
+    torch.cuda.empty_cache()
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
+    return launches, res["ivezic"]["launch_counts"] if cyl else None
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -5373,6 +5985,7 @@ def main() -> int:
     # the march kernel's device times first, while the profiler is fresh
     kern_march = phase_kernels_march(torch)
     kern_march.update(phase_kernels_march_tree(torch))
+    kern_march.update(phase_kernels_march_curvi(torch))
     kern_b5_tree = phase_kernels_b5_tree(torch)
     kern = phase_kernels(torch)
     kern.update(phase_kernels_xl(torch))
@@ -5476,6 +6089,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_b5_tree = phase_full_width_b5_tree(torch, smi, uniform_b5)
     torch.cuda.empty_cache()
+    # geometric sources, the 1D sphere and the 2D cylinder
+    launches_geo_small = phase_draw_for_draw_march(
+        torch, "draw_for_draw_geometric", list(GEO_CASES))
+    torch.cuda.empty_cache()
+    launches_disk_cyl, ivezic_launches = phase_full_width_geometric(
+        torch, smi, "disk_cyl")
+    launches_disk_tree, _ = phase_full_width_geometric(torch, smi,
+                                                        "disk_tree")
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -5620,6 +6241,11 @@ def main() -> int:
                     "n_groups", "rows", "leaves", "live_share", "fine_grid",
                     "n_steps", "touched_entries", "lit_lanes")
                     if key in kern_b4[name]}
+        if name in ("mlsweep_dtau",) + ML + DETECT:
+            # disk_tree: geometric sources on a density octree
+            row["launches_disk_tree"] = launches_disk_tree[name]
+        if name in DETECT:
+            row["launches_disk_cyl"] = launches_disk_cyl[name]
         if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",):
             # config 1h's refill path (refill_b1h)
             row["launches_config1h"] = (sum(launches_1h[m] for m in k1_modes)
@@ -5715,14 +6341,40 @@ def main() -> int:
                 case: n[name] for case, n in launches_small.items()
                 if name in n}
         rows.append(row)
+    # the curvilinear modes: the cylinder on disk_cyl, the sphere on the
+    # Ivezic gate's run inside full_width_disk_cyl
+    for name, path, counts in (
+            ("march_cylinder2d", "full_width_disk_cyl", launches_disk_cyl),
+            ("march_sphere1d", "full_width_disk_cyl (its Ivezic run)",
+             ivezic_launches)):
+        k = kern_march[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "skirt9_tpu_torch/csrc/march.cu",
+                     "replaces": "skirt9_tpu/transport/lifecycle.py:132 "
+                     "(march_geometry, an XLA scan: not a TPU kernel)",
+                     "path": path, "launches": counts[name],
+                     **{key: k[key] for key in tree_keys + (
+                         "cells", "shift", "ds_sum_rel_err") if key in k},
+                     "linear_mesh": {
+                         key: v for key, v in
+                         kern_march[f"{name}_linear"].items()
+                         if key in tree_keys},
+                     "launches_draw_for_draw_geometric": {
+                         case: n[name] for case, n in
+                         launches_geo_small.items() if name in n}})
     for name in ("sweepxl_tau_total", "sweepxl_dtau_prefix",
                  "sweepxl_deposit_prefix", "detect"):
-        # kernels 6-7 and detect's Stokes mode on bench5's tree raster, and
-        # kernels 6-7 against their plain versions at its first event
+        # kernels 6-7 and detect's Stokes mode on bench5's tree raster,
+        # against their plain versions at its first event
         row = next(r for r in rows if r["name"] == name)
         row["launches_config5_tree"] = launches_b5_tree[name]
-        if name in kern_b5_tree:
-            row["config5_tree"] = kern_b5_tree[name]
+        row["config5_tree"] = kern_b5_tree[name]
+    for name in ("mlsweep_tau_total", "mlsweep_dtau_prefix"):
+        # kernel 4 with polarization on the static bench5 octree
+        row = next(r for r in rows if r["name"] == name)
+        row["launches_config5_static_tree"] = launches_small[
+            "bench5_tree_static"][name]
+        row["config5_static_tree"] = kern_b5_tree[f"{name}_static_tree"]
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,9 @@
 
 Used by the tests to run one configuration through both packages, on
 uniform and meshed Cartesian grids, on the trees the reference's loader
-builds and on Voronoi grids with imported star particles. The reference's
+builds, on Voronoi grids with imported star particles, and on 1D spheres
+and 2D cylinders with geometric sources (their geometries and decorators
+converted class by class). The reference's
 arrays are read with `np.asarray`, and its classes are matched by name, so
 this module never imports jax or the reference's jax modules. Anything the
 port does not run yet raises NotImplementedError. Where the reference runs
@@ -25,15 +27,18 @@ import numpy as np
 import torch
 
 from .grids.bintree import BinTreeGrid
+from .geometries import analytic, axial, decorators
 from .grids.cartesian import CartesianGrid, UniformCartesianGrid
+from .grids.cylinder import Cylinder2DGrid
 from .grids.octree import OctreeGrid
+from .grids.sphere import Sphere1DGrid, length_shift
 from .grids.voronoi import VoronoiGrid
 from .imports.snapshots import FamilyParticleSource, ParticleSnapshot
 from .instruments.distant import DistantInstrumentCfg
 from .media.system import MediumTables
 from .ops.stokes import MuellerTables
 from .simulation import Simulation
-from .sources.base import PointSource, TabulatedSED
+from .sources.base import GeometricSource, PointSource, TabulatedSED
 from .spectral.sedfamily import FamilyTables, SEDFamily
 from .transport import raster
 from .transport import sweepxl as xl
@@ -81,6 +86,12 @@ def grid(ref_grid):
     if name == "CartesianGrid":
         return CartesianGrid(*(_f32(b) for b in (ref_grid.xb, ref_grid.yb,
                                                  ref_grid.zb)))
+    if name == "Sphere1DGrid":
+        return Sphere1DGrid(rb=_f32(ref_grid.rb),
+                            shift=length_shift(ref_grid.rb))
+    if name == "Cylinder2DGrid":
+        return Cylinder2DGrid(rb=_f32(ref_grid.rb), zb=_f32(ref_grid.zb),
+                              shift=length_shift(ref_grid.rb, ref_grid.zb))
     _kind(ref_grid, "UniformCartesianGrid")
     return UniformCartesianGrid(
         lo=_f32(ref_grid.lo), hi=_f32(ref_grid.hi), inv_h=_f32(ref_grid.inv_h),
@@ -147,9 +158,26 @@ def _family_source(ref_src) -> FamilyParticleSource:
         kernel_kind=ref_src.kernel_kind)
 
 
+def geometry(ref_geom):
+    """A reference analytic geometry or decorator (nested ones too), class
+    by name and field by field."""
+    name = type(ref_geom).__name__
+    cls = next((getattr(m, name) for m in (analytic, axial, decorators)
+                if hasattr(m, name)), None)
+    if cls is None or not dataclasses.is_dataclass(ref_geom):
+        raise NotImplementedError(f"geometry {name} not ported yet")
+    conv = lambda v: geometry(v) if hasattr(v, "density_np") else v
+    return cls(**{f.name: conv(getattr(ref_geom, f.name))
+                  for f in dataclasses.fields(cls) if f.init})
+
+
 def source(ref_src):
     if type(ref_src).__name__ == "FamilyParticleSource":
         return _family_source(ref_src)
+    if type(ref_src).__name__ == "GeometricSource":
+        return dataclasses.replace(_same_fields(GeometricSource, ref_src),
+                                   geometry=geometry(ref_src.geometry),
+                                   sed=sed(ref_src.sed))
     _kind(ref_src, "PointSource")
     return dataclasses.replace(_same_fields(PointSource, ref_src),
                                sed=sed(ref_src.sed))

@@ -5,8 +5,9 @@ Port of `skirt9_tpu/config/ski.py` (`load_ski`, `_load_ski` and the
 of point sources with a blackbody, file or Gaussian Lyman-alpha SED (or
 oligochromatic, at one wavelength) and of imported star particles with an
 SSP family (`ParticleSource` with a cubic-spline kernel and a
-`FileSSPSEDFamily`), shell and exponential-disk geometries
-of trivial gas, mean-file dust, electron (with polarized Thomson
+`FileSSPSEDFamily`), geometric sources (`GeometricSource`) and media of
+every analytic, axial and decorator geometry the reference's loader
+builds, of trivial gas, mean-file dust, electron (with polarized Thomson
 scattering), neutral-hydrogen Lyman-alpha (`LyaExtinctionOnly` with its
 `LyaOptions`) or X-ray atomic gas mixes normalised by optical depth,
 entity number or number column, moving media (a vector field times a
@@ -15,8 +16,9 @@ medium (`VoronoiMeshMedium`, one density per site) on its own
 `VoronoiMeshSpatialGrid` (policy ImportedMesh), Cartesian grids (linear
 meshes, or any of the reference's meshes: power-law, symmetric power-law,
 logarithmic, symmetric logarithmic, symmetric cosine, tabulated, list and
-file meshes, which the scan march walks) and density-policy octrees and
-bintrees
+file meshes, which the scan march walks), the 1D sphere and the 2D
+cylinder (`Sphere1DSpatialGrid`, `Cylinder2DSpatialGrid`, on the march)
+and density-policy octrees and bintrees
 (`PolicyTreeSpatialGrid` with a `DensityTreePolicy`), full and SED
 instruments (with polarization) on logarithmic or linear wavelength grids,
 equilibrium dust emission over all cells with the iteration options, and
@@ -43,10 +45,14 @@ import numpy as np
 import torch
 
 from ..geometries import analytic as ga
+from ..geometries import axial as gax
+from ..geometries import decorators as dec
 from ..geometries import vectorfield as vf
 from ..grids import bintree, octree
 from ..grids import meshes as msh
 from ..grids.cartesian import make_cartesian
+from ..grids.cylinder import Cylinder2DGrid, make_cylinder2d
+from ..grids.sphere import Sphere1DGrid, make_sphere1d
 from ..grids.voronoi import build_voronoi
 from ..imports import snapshots as snap
 from ..instruments import distant as dinst
@@ -57,7 +63,7 @@ from ..media import xray as xr
 from ..ops import stokes as stk
 from ..probes.probes import ProbeSpec
 from ..simulation import Simulation
-from ..sources.base import PointSource
+from ..sources.base import GeometricSource, PointSource
 from ..spectral import sedfamily as sf
 from ..spectral import seds as sedlib
 from ..spectral import wavelengths as wl
@@ -92,7 +98,22 @@ ITEMS = frozenset((
     "PolicyTreeSpatialGrid", "DensityTreePolicy", "IterationOptions",
     "InstrumentSystem", "FullInstrument", "SEDInstrument",
     "ProbeSystem", "TemperatureProbe", "RadiationFieldProbe", "PerCellForm",
-    "SpatialCellPropertiesProbe"))
+    "SpatialCellPropertiesProbe",
+    # analytic geometries, their decorators and sources, and the 1D sphere
+    # and 2D cylinder grids
+    "GeometricSource", "PlummerGeometry", "GammaGeometry",
+    "GaussianGeometry", "SersicGeometry", "UniformSphereGeometry",
+    "EinastoGeometry", "PseudoSersicGeometry", "UniformBoxGeometry",
+    "TorusGeometry", "ConicalShellGeometry", "TTauriDiskGeometry",
+    "RingGeometry", "AnnulusGeometry", "DonutGeometry",
+    "BrokenExpDiskGeometry", "OffsetGeometryDecorator",
+    "RotateGeometryDecorator", "SpheroidalGeometryDecorator",
+    "TriaxialGeometryDecorator", "SphericalClipGeometryDecorator",
+    "SphePowerLawRedistributeGeometryDecorator",
+    "AxPowerLawRedistributeGeometryDecorator", "BoxClipGeometryDecorator",
+    "CylindricalClipGeometryDecorator", "CombineGeometryDecorator",
+    "ClumpyGeometryDecorator", "SpiralStructureGeometryDecorator",
+    "Sphere1DSpatialGrid", "Cylinder2DSpatialGrid"))
 
 # the properties (lower-case elements) that hold those items
 PROPERTIES = frozenset((
@@ -104,7 +125,7 @@ PROPERTIES = frozenset((
     "velocityDistribution", "vectorField", "grid", "meshX", "meshY", "meshZ", "policy", "iterationOptions",
     "instrumentSystem",
     "defaultWavelengthGrid", "instruments", "wavelengthGrid", "probeSystem",
-    "probes", "form"))
+    "probes", "form", "firstGeometry", "secondGeometry", "meshRadial"))
 
 # simulation modes of those items (the reference's `mode` branches)
 MODES = ("ExtinctionOnly", "OligoExtinctionOnly", "DustEmission",
@@ -155,13 +176,154 @@ def check_items(root) -> None:
 # ------------------------------------------------------- build functions
 
 def build_geometry(el):
-    a = el.attrib
-    if el.tag == "ExpDiskGeometry":
+    """An analytic geometry or a decorator of one (`skirt9_tpu/config/
+    ski.py:84-255`, the file-backed geometries left out), with the
+    reference's attributes, defaults and units."""
+    t, a = el.tag, el.attrib
+    if t == "PlummerGeometry":
+        return ga.PlummerGeometry(b=_q(a, "scaleLength", "length"))
+    if t == "GammaGeometry":
+        return ga.GammaGeometry(b=_q(a, "scaleLength", "length"),
+                                gamma=_f(a, "gamma"))
+    if t == "ShellGeometry":
+        return ga.ShellGeometry(rmin=_q(a, "minRadius", "length"),
+                                rmax=_q(a, "maxRadius", "length"),
+                                p=_f(a, "exponent", 0.0))
+    if t == "GaussianGeometry":
+        return ga.GaussianGeometry(sigma=_q(a, "dispersion", "length"))
+    if t == "ExpDiskGeometry":
         return ga.ExpDiskGeometry(h_r=_q(a, "scaleLength", "length"),
                                   h_z=_q(a, "scaleHeight", "length"))
-    return ga.ShellGeometry(rmin=_q(a, "minRadius", "length"),
-                            rmax=_q(a, "maxRadius", "length"),
-                            p=_f(a, "exponent", 0.0))
+    if t == "SersicGeometry":
+        return ga.SersicGeometry(reff=_q(a, "effectiveRadius", "length"),
+                                 m=_f(a, "index", 4.0))
+    if t == "UniformSphereGeometry":
+        return ga.UniformSphereGeometry(rmax=_q(a, "maxRadius", "length"))
+    if t == "EinastoGeometry":
+        # the reference's scale radius from the half-mass radius, on the
+        # host: M(< rh) = M / 2 on a log grid to 30 rs
+        rh = _q(a, "halfMassRadius", "length")
+        n = _f(a, "index")
+        x = np.geomspace(1e-4, 30.0, 8192)
+        w = x ** 2 * np.exp(-2 * n * (x ** (1.0 / n) - 1.0))
+        cum = np.cumsum(w * np.gradient(x))
+        xh = x[int(np.searchsorted(cum, 0.5 * cum[-1]))]
+        return ga.EinastoGeometry(rs=rh / xh, n=n)
+    if t == "PseudoSersicGeometry":
+        return ga.PseudoSersicGeometry(
+            reff=_q(a, "effectiveRadius", "length"), m=_f(a, "index", 4.0))
+    if t == "UniformBoxGeometry":
+        x0, x1 = _q(a, "minX", "length"), _q(a, "maxX", "length")
+        y0, y1 = _q(a, "minY", "length"), _q(a, "maxY", "length")
+        z0, z1 = _q(a, "minZ", "length"), _q(a, "maxZ", "length")
+        return ga.UniformBoxGeometry(lx=x1 - x0, ly=y1 - y0, lz=z1 - z0,
+                                     cx=0.5 * (x0 + x1), cy=0.5 * (y0 + y1),
+                                     cz=0.5 * (z0 + z1))
+    if t == "TorusGeometry":
+        return gax.TorusGeometry(
+            p=_f(a, "exponent"), q=_f(a, "index"),
+            delta=_q(a, "openingAngle", "posangle"),
+            rmin=_q(a, "minRadius", "length"),
+            rmax=_q(a, "maxRadius", "length"))
+    if t == "ConicalShellGeometry":
+        return gax.ConicalShellGeometry(
+            p=_f(a, "exponent"), delta_in=_q(a, "minAngle", "posangle"),
+            delta_out=_q(a, "maxAngle", "posangle"),
+            rmin=_q(a, "minRadius", "length"),
+            rmax=_q(a, "maxRadius", "length"))
+    if t == "TTauriDiskGeometry":
+        return gax.TTauriDiskGeometry(
+            rd=_q(a, "scaleLength", "length"),
+            zd=_q(a, "scaleHeight", "length"),
+            rinn=_q(a, "minRadius", "length"),
+            rout=_q(a, "maxRadius", "length"))
+    if t == "RingGeometry":
+        return gax.RingGeometry(r0=_q(a, "ringRadius", "length"),
+                                width=_q(a, "width", "length"),
+                                hz=_q(a, "height", "length"))
+    if t == "AnnulusGeometry":
+        return gax.AnnulusGeometry(rmin=_q(a, "minRadius", "length"),
+                                   rmax=_q(a, "maxRadius", "length"),
+                                   height=_q(a, "height", "length"))
+    if t == "DonutGeometry":
+        return gax.DonutGeometry(r0=_q(a, "largeRadius", "length"),
+                                 rc=_q(a, "smallRadius", "length"))
+    if t == "BrokenExpDiskGeometry":
+        return gax.BrokenExpDiskGeometry(
+            h_inn=_q(a, "scaleLengthInner", "length"),
+            h_out=_q(a, "scaleLengthOuter", "length"),
+            hz=_q(a, "scaleHeight", "length"),
+            rb=_q(a, "breakRadius", "length"))
+    return build_decorator(el)
+
+
+def build_decorator(el):
+    """A geometry decorator wrapping the geometry of its nested item."""
+    t, a = el.tag, el.attrib
+    base = lambda: build_geometry(_child(el, "geometry"))
+    remove_inside = a.get("remove", "Inside") == "Inside"
+    if t == "OffsetGeometryDecorator":
+        return dec.OffsetDecorator(
+            base=base(), offset=(_q(a, "offsetX", "length", 0.0),
+                                 _q(a, "offsetY", "length", 0.0),
+                                 _q(a, "offsetZ", "length", 0.0)))
+    if t == "RotateGeometryDecorator":
+        return dec.RotateDecorator(
+            base=base(), alpha=_q(a, "eulerAlpha", "posangle", 0.0),
+            beta=_q(a, "eulerBeta", "posangle", 0.0),
+            gamma=_q(a, "eulerGamma", "posangle", 0.0))
+    if t == "SpheroidalGeometryDecorator":
+        return dec.SpheroidalDecorator(base=base(),
+                                       q=_f(a, "flattening", 1.0))
+    if t == "TriaxialGeometryDecorator":
+        return dec.TriaxialDecorator(base=base(), p=_f(a, "flatteningY", 1.0),
+                                     q=_f(a, "flatteningZ", 1.0))
+    if t == "SphericalClipGeometryDecorator":
+        return dec.SphereClipDecorator(
+            base=base(), remove_inside=remove_inside,
+            center=(_q(a, "centerX", "length", 0.0),
+                    _q(a, "centerY", "length", 0.0),
+                    _q(a, "centerZ", "length", 0.0)),
+            radius=_q(a, "clipRadius", "length"))
+    if t == "SphePowerLawRedistributeGeometryDecorator":
+        return dec.SphePowerLawRedistributeDecorator(
+            base=base(), exponent=_f(a, "exponent", 1.0),
+            min_radius=_q(a, "minRadius", "length"))
+    if t == "AxPowerLawRedistributeGeometryDecorator":
+        return dec.AxPowerLawRedistributeDecorator(
+            base=base(), exponent=_f(a, "exponent", 1.0),
+            min_radius=_q(a, "minRadius", "length"))
+    if t == "BoxClipGeometryDecorator":
+        return dec.BoxClipDecorator(
+            base=base(), remove_inside=remove_inside,
+            lo=(_q(a, "minX", "length"), _q(a, "minY", "length"),
+                _q(a, "minZ", "length")),
+            hi=(_q(a, "maxX", "length"), _q(a, "maxY", "length"),
+                _q(a, "maxZ", "length")))
+    if t == "CylindricalClipGeometryDecorator":
+        return dec.CylinderClipDecorator(
+            base=base(), remove_inside=remove_inside,
+            radius=_q(a, "clipRadius", "length"))
+    if t == "CombineGeometryDecorator":
+        return dec.CombineDecorator(
+            first=build_geometry(_child(el, "firstGeometry")),
+            second=build_geometry(_child(el, "secondGeometry")),
+            w1=_f(a, "firstWeight", 1.0), w2=_f(a, "secondWeight", 1.0))
+    if t == "ClumpyGeometryDecorator":
+        return dec.ClumpyDecorator(
+            base=base(), clump_fraction=_f(a, "clumpFraction", 0.3),
+            num_clumps=int(_f(a, "numClumps", 100)),
+            clump_radius=_q(a, "clumpRadius", "length"),
+            seed=int(_f(a, "seed", 99)) or 99)
+    if t == "SpiralStructureGeometryDecorator":
+        return dec.SpiralStructureDecorator(
+            base=base(), num_arms=int(_f(a, "numArms", 1)),
+            pitch_angle=_q(a, "pitchAngle", "posangle", 0.1745),
+            radius_zero_point=_q(a, "radiusZeroPoint", "length"),
+            phase_zero_point=_q(a, "phaseZeroPoint", "posangle", 0.0),
+            perturbation_weight=_f(a, "perturbationWeight", 0.25),
+            index=int(_f(a, "index", 1)))
+    raise NotImplementedError(f"geometry type '{t}' not ported yet")
 
 
 def build_sed(el, base_dir: str):
@@ -240,13 +402,24 @@ def _resolve(fn: str, base_dir: str) -> str:
 
 
 def build_source(el, base_dir: str, lam_range=None):
-    """A PointSource, or a ParticleSource over lam_range (the source range,
-    else 1e-8 to 1e-3 m, as the reference takes it). A PointSource's
-    velocity and weight are read and ignored, as the reference ignores
-    them."""
+    """A PointSource, a GeometricSource, or a ParticleSource over lam_range
+    (the source range, else 1e-8 to 1e-3 m, as the reference takes it). A
+    point or geometric source's velocity and weight are read and ignored,
+    as the reference ignores them."""
     if el.tag == "ParticleSource":
         return build_particle_source(el, base_dir, lam_range or (1e-8, 1e-3))
     a = el.attrib
+    if el.tag == "GeometricSource":
+        # `skirt9_tpu/config/ski.py:608-616`
+        sed_el = _child(el, "sed")
+        kw = {}
+        if "wavelengthBias" in a:
+            kw["wavelength_bias"] = _f(a, "wavelengthBias", 0.5)
+        return GeometricSource(
+            geometry=build_geometry(_child(el, "geometry")),
+            luminosity=source_luminosity(el),
+            sed=build_sed(sed_el, base_dir) if sed_el is not None else None,
+            **kw)
     pos = (_q(a, "positionX", "length", 0.0),
            _q(a, "positionY", "length", 0.0),
            _q(a, "positionZ", "length", 0.0))
@@ -441,6 +614,8 @@ def build_grid(el, geometry, base_dir: str = "."):
     2005-2049`). Tree levels in the ski file count octree levels, so a
     bintree's count three times."""
     a = el.attrib
+    if el.tag in ("Sphere1DSpatialGrid", "Cylinder2DSpatialGrid"):
+        return build_curvilinear_grid(el, base_dir)
     if el.tag == "VoronoiMeshSpatialGrid":
         raise NotImplementedError(
             f"VoronoiMeshSpatialGrid policy='{a.get('policy', 'DustDensity')}'"
@@ -469,6 +644,33 @@ def build_grid(el, geometry, base_dir: str = "."):
     if any(b is not None for b in borders):
         return make_cartesian(ext, tuple(ns), meshes=borders)
     return make_cartesian(ext, tuple(ns))
+
+
+def build_curvilinear_grid(el, base_dir: str = "."):
+    """A Sphere1DSpatialGrid or a Cylinder2DSpatialGrid with its radial
+    (and z) mesh, 32 linear bins where one is absent
+    (`skirt9_tpu/config/ski.py:1338-1347, 1379-1385`)."""
+    a = el.attrib
+
+    def mesh(name, lo, hi):
+        m = _child(el, name)
+        if m is None:
+            return 32, None
+        n = int(m.attrib.get("numBins", 32))
+        if m.tag == "LinMesh":
+            return n, None
+        return n, msh.scale(msh.from_ski(m, base_dir, default_bins=32), lo,
+                            hi)
+
+    r_max = _q(a, "maxRadius", "length")
+    if el.tag == "Sphere1DSpatialGrid":
+        r_min = _q(a, "minRadius", "length") if "minRadius" in a else 0.0
+        nr, rb = mesh("meshRadial", r_min, r_max)
+        return make_sphere1d(r_max, nr, r_min=r_min, rb=rb)
+    z_min, z_max = _q(a, "minZ", "length"), _q(a, "maxZ", "length")
+    nr, rb = mesh("meshRadial", 0.0, r_max)
+    nz, zb = mesh("meshZ", z_min, z_max)
+    return make_cylinder2d(r_max, z_min, z_max, nr, nz, rb=rb, zb=zb)
 
 
 def build_wavelength_grid(el) -> np.ndarray:
@@ -565,7 +767,8 @@ def load_ski(path: str, num_packets: int | None = None,
     sources = ([build_source(e, base_dir, src_range)
                 for e in src_sys.find("sources")]
                if src_sys is not None else [])
-    if oligo and any(not isinstance(s, PointSource) for s in sources):
+    if oligo and any(not isinstance(s, (PointSource, GeometricSource))
+                     for s in sources):
         raise NotImplementedError("imported sources in oligochromatic mode "
                                   "not ported yet")
     if oligo:
@@ -609,6 +812,10 @@ def load_ski(path: str, num_packets: int | None = None,
                                          base_dir),
                                build_medium_normalization(m_el)))
         grid = build_grid(grid_el, components[0][0], base_dir)
+        if mode == "DustEmission" and isinstance(grid, (Sphere1DGrid,
+                                                        Cylinder2DGrid)):
+            raise NotImplementedError(
+                f"DustEmission on a {grid_el.tag} not ported yet")
         medium = gm.build_medium(grid, components)
     if velocity_fields:
         medium = medium._replace(bulk_v=torch.tensor(bulk_velocities(

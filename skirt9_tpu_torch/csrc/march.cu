@@ -6,7 +6,7 @@
 // which is not a Pallas kernel: the plain PyTorch version
 // (skirt9_tpu_torch/transport/march.py `march_geometry_plain`) is one torch
 // step per step, about 30 launches each, times up to 256 steps, times three
-// marches an event. Five modes, one per grid kind, each with its own launch
+// marches an event. Seven modes, one per grid kind, each with its own launch
 // counter:
 //   march_uniform  a uniform Cartesian grid: the next border of each axis is
 //                  lo + index * h (UniformCartesianGrid.step,
@@ -26,7 +26,17 @@
 //   march_bintree  a bintree: the same step, each node's descent along its
 //                  split axis (BinTreeGrid.step, skirt9_tpu/grids/bintree.py:
 //                  67-83).
-// The two tree modes have their own entry point, march_tree_launch.
+//   march_sphere1d concentric shells: the ray-sphere quadratics of the outer
+//                  border and, heading inward with r_in > 0 and a positive
+//                  discriminant, of the inner one; the inner wins a tie
+//                  (Sphere1DGrid.step, skirt9_tpu/grids/sphere.py:35-64);
+//   march_cylinder2d annular (R, z) cells: the ray-cylinder quadratics of
+//                  the outer and inner borders and the z-plane crossing, on
+//                  a tie the inner cylinder, then the outer, then the plane
+//                  (Cylinder2DGrid.step, skirt9_tpu/grids/cylinder.py:53-100).
+// The two tree modes have their own entry point, march_tree_launch, and the
+// two curvilinear ones theirs, march_curvi_launch, with the border tables
+// staged in shared memory (a few hundred floats).
 // Every f32 operation follows the plain version one for one (built with
 // -fmad=false); where the plain version replays one of XLA's fused
 // multiply-adds (ops/xlamath.py `fma`), because an ulp there decides which
@@ -287,7 +297,144 @@ __global__ void march_tree_kernel(
   }
 }
 
+// One shell step from shell c: the nearer positive crossing, the position
+// moved there, and the next shell (-1 past the grid). The dot products are
+// running fused sums, as XLA forms the reference's; square roots correctly
+// rounded.
+__device__ __forceinline__ Step sphere_step(int c, int nr,
+                                            const float* __restrict__ rb,
+                                            float ts, float p[3],
+                                            const float d[3]) {
+  const float r_in = rb[c] * ts, r_out = rb[c + 1] * ts;
+  const float b = fmaf(p[2], d[2], fmaf(p[1], d[1], p[0] * d[0]));
+  const float r2 = fmaf(p[2], p[2], fmaf(p[1], p[1], p[0] * p[0]));
+  const float p2 = fmaf(-b, b, r2);
+  const float t_out = -b + __fsqrt_rn(fmaxf(fmaf(r_out, r_out, -p2), 0.0f));
+  const float disc_in = fmaf(r_in, r_in, -p2);
+  const bool can_in = r_in > 0.0f && b < 0.0f && disc_in > 0.0f;
+  float t_in = can_in ? -b - __fsqrt_rn(fmaxf(disc_in, 0.0f)) : kBig;
+  if (!(t_in > 0.0f)) t_in = kBig;
+  const bool inward = t_in < t_out;
+  const float ds = inward ? t_in : t_out;
+  int next = inward ? c - 1 : c + 1;
+  if (next < 0 || next >= nr) next = -1;
+  for (int a = 0; a < 3; ++a) p[a] = fmaf(ds, d[a], p[a]);
+  return {ds, next};
+}
+
+// One annular-cell step from cell c = ir * nz + iz: the least of the outer
+// and inner cylinder crossings and the z-plane crossing (ties: inner, outer,
+// plane), the position moved there, and the next cell (-1 past the grid).
+__device__ __forceinline__ Step cylinder_step(int c, int nr, int nz,
+                                              const float* __restrict__ rb,
+                                              const float* __restrict__ zb,
+                                              float ts, float p[3],
+                                              const float d[3]) {
+  const int ir = c / nz, iz = c % nz;
+  const float q = fmaf(d[0], d[0], d[1] * d[1]);
+  const float b = fmaf(p[0], d[0], p[1] * d[1]);
+  const float R2 = fmaf(p[0], p[0], p[1] * p[1]);
+  const float r_in = rb[ir] * ts, r_out = rb[ir + 1] * ts;
+  const float safe_q = fmaxf(q, 1e-30f);
+  const bool moves = q > 1e-30f;
+  const float disc_out =
+      fmaxf(fmaf(b, b, safe_q * fmaf(r_out, r_out, -R2)), 0.0f);
+  float t_out = __fdiv_rn(__fsqrt_rn(disc_out) - b, safe_q);
+  t_out = moves ? fmaxf(t_out, 0.0f) : kBig;
+  const float disc_in = fmaf(b, b, safe_q * fmaf(r_in, r_in, -R2));
+  const bool can_in = r_in > 0.0f && b < 0.0f && disc_in > 0.0f;
+  float t_in = can_in && moves
+                   ? __fdiv_rn(-b - __fsqrt_rn(fmaxf(disc_in, 0.0f)), safe_q)
+                   : kBig;
+  if (!(t_in > 0.0f)) t_in = kBig;
+  const bool up = d[2] > 0.0f;
+  const float z_tgt = (up ? zb[iz + 1] : zb[iz]) * ts;
+  const float t_z = fabsf(d[2]) < 1e-30f
+                        ? kBig
+                        : fmaxf(__fdiv_rn(z_tgt - p[2], d[2]), 0.0f);
+  const float ds = fminf(fminf(t_out, t_in), t_z);
+  const bool hit_rin = ds == t_in;
+  const bool hit_rout = ds == t_out && !hit_rin;
+  const int jr = ir + (hit_rout ? 1 : 0) - (hit_rin ? 1 : 0);
+  const int jz = iz + (!hit_rin && !hit_rout ? (up ? 1 : -1) : 0);
+  const bool inside = jr >= 0 && jr < nr && jz >= 0 && jz < nz;
+  for (int a = 0; a < 3; ++a) p[a] = fmaf(ds, d[a], p[a]);
+  return {ds, inside ? jr * nz + jz : -1};
+}
+
+// The curvilinear modes: rb (nr + 1 radii) and, for the cylinder, zb (nz + 1
+// planes), staged in shared memory when they fit, else read from global.
+// Lengths enter times `scale` (2^-shift, exact; 1 on grids inside 2^60 m)
+// and the step lengths leave times `unscale`, so that the squares of galaxy
+// radii stay inside f32, as the plain version's `shift` has it.
+template <bool kCylinder>
+__global__ void march_curvi_kernel(const float* __restrict__ pos,
+                                   const float* __restrict__ dir,
+                                   const int* __restrict__ cell0,
+                                   const unsigned char* __restrict__ mask,
+                                   const float* __restrict__ rb_g,
+                                   const float* __restrict__ zb_g,
+                                   int* __restrict__ cells,
+                                   float* __restrict__ dss, int B, int S,
+                                   int nr, int nz, float scale, float unscale,
+                                   bool staged) {
+  extern __shared__ float tables[];
+  const float* rb = rb_g;
+  const float* zb = zb_g;
+  if (staged) {
+    const int len = (nr + 1) + (kCylinder ? nz + 1 : 0);
+    for (int k = threadIdx.x; k < len; k += blockDim.x)
+      tables[k] = (k <= nr ? rb_g[k] : zb_g[k - nr - 1]) * scale;
+    __syncthreads();
+    rb = tables;
+    zb = tables + nr + 1;
+  }
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  float p[3] = {pos[3 * lane] * scale, pos[3 * lane + 1] * scale,
+                pos[3 * lane + 2] * scale};
+  const float ts = staged ? 1.0f : scale;  // the tables' own scale
+  const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
+  int c = mask[lane] ? cell0[lane] : -1;
+  for (int s = 0; s < S; ++s) {
+    const long long at = (long long)s * B + lane;
+    if (c < 0) {
+      cells[at] = 0;
+      dss[at] = 0.0f;
+      continue;
+    }
+    const Step st = kCylinder ? cylinder_step(c, nr, nz, rb, zb, ts, p, d)
+                              : sphere_step(c, nr, rb, ts, p, d);
+    cells[at] = c;
+    dss[at] = st.ds * unscale;
+    c = st.next;
+  }
+}
+
 }  // namespace skirt9
+
+extern "C" int march_curvi_launch(const void* pos, const void* dir,
+                                  const void* cell0, const void* mask,
+                                  const void* rb, const void* zb, void* cells,
+                                  void* ds, int B, int S, int nr, int nz,
+                                  int cylinder, int shift, void* stream) {
+  if (B <= 0 || S <= 0 || nr <= 0 || rb == nullptr || shift < 0 ||
+      shift > 100 || (cylinder && (nz <= 0 || zb == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int len = (nr + 1) + (cylinder ? nz + 1 : 0);
+  const bool staged = len <= skirt9::kSmemFloats;
+  const float scale = ldexpf(1.0f, -shift), unscale = ldexpf(1.0f, shift);
+  const size_t smem = staged ? (size_t)len * sizeof(float) : 0;
+  const int blocks = (B + skirt9::kThreads - 1) / skirt9::kThreads;
+  auto* kern = cylinder ? skirt9::march_curvi_kernel<true>
+                        : skirt9::march_curvi_kernel<false>;
+  kern<<<blocks, skirt9::kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)dir, (const int*)cell0,
+      (const unsigned char*)mask, (const float*)rb, (const float*)zb,
+      (int*)cells, (float*)ds, B, S, nr, cylinder ? nz : 0, scale, unscale,
+      staged);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int march_tree_launch(const void* pos, const void* dir,
                                  const void* cell0, const void* mask,

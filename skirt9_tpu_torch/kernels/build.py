@@ -46,7 +46,7 @@ KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            "mlsweep_tau_total", "mlsweep_dtau_prefix", "mlsweep_deposit",
            # the scan march (csrc/march.cu), one counter per grid mode
            "march_uniform", "march_mesh", "march_voronoi", "march_octree",
-           "march_bintree",
+           "march_bintree", "march_sphere1d", "march_cylinder2d",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -96,6 +96,9 @@ _SIGNATURES = {
     # pos, dir, cell0, mask, node_child, node_axis, node_geom, node_cell,
     # cell_lo, cell_hi, box, cells, ds, B, S, levels, octree, stream
     "march_tree_launch": [_P] * 13 + [_I] * 4 + [_P],
+    # pos, dir, cell0, mask, rb, zb (or null), cells, ds, B, S, nr, nz,
+    # cylinder, shift, stream
+    "march_curvi_launch": [_P] * 8 + [_I] * 6 + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

@@ -82,11 +82,17 @@ class NumberColumnNormalization:
 def cell_densities(grid, geometry, samples: int = 64) -> np.ndarray:
     """Normalised density averaged over the midpoints of an n^3 subdivision
     of each cell (n = cbrt(samples)); the pattern is symmetric, so every
-    mirror symmetry of the geometry survives exactly."""
+    mirror symmetry of the geometry survives exactly. The subdivision spans
+    the grid's `cell_jitter_halfwidths` where it has them (an annular
+    cell, thin in R and z, wide in azimuth), else a cube of the cell's
+    volume."""
     centers = grid.cell_centers().cpu().numpy().astype(np.float64)
     if samples <= 1:
         return geometry.density_np(centers)
-    h = np.cbrt(np.asarray(grid.volumes(), np.float64))[:, None]
+    if hasattr(grid, "cell_jitter_halfwidths"):
+        h = 2.0 * np.asarray(grid.cell_jitter_halfwidths(), np.float64)
+    else:
+        h = np.cbrt(np.asarray(grid.volumes(), np.float64))[:, None]
     n = max(int(round(samples ** (1.0 / 3.0))), 2)
     mid = (np.arange(n) + 0.5) / n - 0.5          # symmetric midpoints
     ox, oy, oz = np.meshgrid(mid, mid, mid, indexing="ij")

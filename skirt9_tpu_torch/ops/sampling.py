@@ -1,6 +1,7 @@
 """Table lookups and cdf sampling: host cdf builds, batched inversion.
 
-Port of `skirt9_tpu/ops/sampling.py`. The cdf builds run once at set-up in
+Port of `skirt9_tpu/ops/sampling.py`, with `interp_jnp`, the counterpart
+of `jnp.interp` and its edge clamping that the spiral decorator calls. The cdf builds run once at set-up in
 float64 numpy, as in the reference; the lookups and inversions run on
 tensors. The reference's dense compare-reduce lookups are TPU gather
 workarounds; here they are `torch.searchsorted` and plain indexing, which
@@ -112,3 +113,22 @@ def sample_cdf_loglog(u: torch.Tensor, xv: torch.Tensor,
     lx0 = torch.log(xv[i])
     lx1 = torch.log(xv[i + 1])
     return torch.exp(lx0 + _cdf_frac(u, cdf, i) * (lx1 - lx0))
+
+
+def interp_jnp(x: torch.Tensor, xp: torch.Tensor,
+               fp: torch.Tensor) -> torch.Tensor:
+    """`jnp.interp(x, xp, fp)`: linear between the table's points, clamped
+    to fp[0] below xp[0] and fp[-1] above xp[-1], with jax's operations
+    (the slope's product fused into the sum)."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1,
+                    n - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, fp[i - 1], xm.fma(
+        delta / torch.where(dx0, torch.ones_like(dx), dx), df, fp[i - 1]))
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)

@@ -37,9 +37,62 @@ def sqrt(t: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(t.double()).float()
 
 
+def cos(t: torch.Tensor) -> torch.Tensor:
+    """f32 cosine rounded from f64, which equals XLA's CPU cosine on ~99%
+    of inputs (PyTorch's f32 one on ~95%)."""
+    return torch.cos(t.double()).float()
+
+
+def sin(t: torch.Tensor) -> torch.Tensor:
+    """f32 sine rounded from f64 (see `cos`)."""
+    return torch.sin(t.double()).float()
+
+
+def hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """`jnp.hypot` of f32 x and y as jax forms it: a sqrt(1 + (b/a)^2) with
+    a = max(|x|, |y|), b = min (the square fused into the sum), and 0
+    where a is 0."""
+    x, y = torch.abs(x), torch.abs(y)
+    a, b = torch.maximum(x, y), torch.minimum(x, y)
+    zero = a == 0
+    q = b / torch.where(zero, torch.ones_like(a), a)
+    return torch.where(zero, a, a * sqrt(fma(q, q, 1.0)))
+
+
+def move_xy_fused(pos: torch.Tensor, t: torch.Tensor,
+                  dirn: torch.Tensor) -> torch.Tensor:
+    """pos + t dirn over (B, 3) as XLA's CPU code forms the move of a
+    `move_inside`: fused into a multiply-add on x and y, not on z."""
+    t = t[:, None]
+    return torch.cat([fma(t, dirn[:, :2], pos[:, :2]),
+                      pos[:, 2:] + t * dirn[:, 2:]], dim=1)
+
+
 def _f32_of(bits: int) -> float:
     """The f32 constant whose f64 encoding is `bits`."""
     return struct.unpack("<d", struct.pack("<Q", bits))[0]
+
+
+# set by `eager()`: jax.numpy run op by op compiles each operation alone,
+# so no product fuses into a sum
+_EAGER = [False]
+
+
+class eager:
+    """Inside `with xlamath.eager():` `fma` rounds the product and the sum
+    apart, as the reference's jax.numpy does outside a jitted function (its
+    set-up draws), and `is_eager()` is true."""
+
+    def __enter__(self):
+        self._was = _EAGER[0]
+        _EAGER[0] = True
+
+    def __exit__(self, *exc):
+        _EAGER[0] = self._was
+
+
+def is_eager() -> bool:
+    return _EAGER[0]
 
 
 def fma(a, b, c) -> torch.Tensor:
@@ -47,8 +100,10 @@ def fma(a, b, c) -> torch.Tensor:
     f32 values is exact), as the fused multiply-add that XLA's CPU code
     emits rounds it. Python floats among a, b and c act as f32 constants,
     as they do in the reference's jax.numpy expressions (one of a and b is
-    a tensor)."""
+    a tensor). Inside `eager()` the product is rounded before the sum."""
     to64 = lambda v: v.double() if torch.is_tensor(v) else f32(v)
+    if _EAGER[0]:
+        return ((to64(a) * to64(b)).float().double() + to64(c)).float()
     return (to64(a) * to64(b) + to64(c)).float()
 
 

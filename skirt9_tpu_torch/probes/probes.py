@@ -26,6 +26,8 @@ def _device(grid):
     Voronoi grid's."""
     if hasattr(grid, "box_lo"):
         return grid.box_lo.device
+    if hasattr(grid, "rb"):
+        return grid.rb.device
     return grid.lo.device if hasattr(grid, "lo") else grid.xb.device
 
 
@@ -55,6 +57,9 @@ def planar_cut_form(path: str, grid, values_fn, axis: str = "z",
     if hasattr(grid, "xb"):
         lo = [float(grid.xb[0]), float(grid.yb[0]), float(grid.zb[0])]
         hi = [float(grid.xb[-1]), float(grid.yb[-1]), float(grid.zb[-1])]
+    elif not hasattr(grid, "box_lo"):
+        raise NotImplementedError(f"planar cuts of a {type(grid).__name__} "
+                                  "not ported yet")
     else:
         lo = grid.box_lo.cpu().numpy().astype(np.float64)
         hi = grid.box_hi.cpu().numpy().astype(np.float64)

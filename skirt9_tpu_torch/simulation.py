@@ -45,7 +45,9 @@ from . import device as dv
 from .emission import equilibrium as eq
 from .grids.bintree import BinTreeGrid
 from .grids.cartesian import CartesianGrid, UniformCartesianGrid
+from .grids.cylinder import Cylinder2DGrid
 from .grids.octree import OctreeGrid
+from .grids.sphere import Sphere1DGrid
 from .grids.voronoi import VoronoiGrid
 from .instruments import distant as dinst
 from .media import system as msys
@@ -63,7 +65,9 @@ from .utils.log import default as _log
 from .utils.unitsystem import UnitSystem
 
 _GRIDS = (UniformCartesianGrid, CartesianGrid, OctreeGrid, BinTreeGrid,
-          VoronoiGrid)
+          VoronoiGrid, Sphere1DGrid, Cylinder2DGrid)
+# grids that only the scan march walks, in the reference on every backend
+_MARCH_ONLY = (Sphere1DGrid, Cylinder2DGrid)
 
 
 @dataclasses.dataclass
@@ -76,7 +80,7 @@ class Simulation:
     shape no sweep takes is walked leaf by leaf)."""
 
     grid: (UniformCartesianGrid | CartesianGrid | OctreeGrid | BinTreeGrid
-           | VoronoiGrid)
+           | VoronoiGrid | Sphere1DGrid | Cylinder2DGrid)
     medium: msys.MediumTables
     sources: list
     instruments: list           # list[DistantInstrumentCfg]
@@ -121,7 +125,8 @@ class Simulation:
         if not isinstance(self.grid, _GRIDS):
             raise NotImplementedError(
                 f"grid {type(self.grid).__name__} not ported yet (Cartesian "
-                "grids, octrees, bintrees and Voronoi grids only)")
+                "grids, octrees, bintrees, Voronoi grids, 1D spheres and 2D "
+                "cylinders only)")
         if self.dust_emission_type != "Equilibrium":
             raise NotImplementedError(f"{self.dust_emission_type} dust "
                                       "emission not ported yet (Equilibrium)")
@@ -177,7 +182,14 @@ class Simulation:
         tables' cell map, the same array) attached, so that launch-time
         `locate` is one gather (`:199-202`); its march steps descend all
         the same. A Voronoi grid keeps its own locate, as in the reference
-        (`:203-206`)."""
+        (`:203-206`). The 1D sphere and the 2D cylinder go to the march
+        outright: every sweep's `supports` declines them, as the
+        reference's do."""
+        if isinstance(self.grid, _MARCH_ONLY):
+            _log().info(f"transport: {type(self.grid).__name__} "
+                        f"({self.grid.ncells} cells) walked by the scan "
+                        "march")
+            return None
         if sw.supports_sweep(self.grid, self.medium):
             return sw.build_tables(self.grid, self.medium)
         if isinstance(self.grid, VoronoiGrid):

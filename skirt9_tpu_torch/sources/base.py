@@ -1,10 +1,11 @@
 """Primary sources: packet launching as batched functions of RNG keys.
 
-Port of `skirt9_tpu/sources/base.py:29-51,87-131,177-331`: `TabulatedSED`,
+Port of `skirt9_tpu/sources/base.py:29-51,87-162,177-331`: `TabulatedSED`,
 the isotropic `PointSource` (monochromatic, or with a tabulated SED and the
 composite wavelength bias: with probability 1-xi from the SED, else
 log-uniform over its range, weighted by s / ((1-xi) s + xi b)), the
-stratified wavelength launch and `launch_batch`. Wavelength-bias
+`GeometricSource` (positions from an analytic geometry), the stratified
+wavelength launch and `launch_batch`. Wavelength-bias
 distributions, angular distributions and polarisation profiles are not
 ported yet and raise.
 """
@@ -74,6 +75,44 @@ class PointSource:
         per-packet launch keys (B, 2)."""
         B = keys.shape[0]
         pos = tabs["pos"].expand(B, 3)
+        dirn = rng.isotropic_direction(keys, rng.LAUNCH_DIRECTION)
+        lum = torch.full((B,), self.luminosity / n_total, dtype=torch.float32,
+                         device=keys.device)
+        lam, lum = _sample_wavelength(tabs, keys, lum, self.sed, self.lam0,
+                                      self.wavelength_bias)
+        return {"lam": lam, "lum": lum, "pos": pos, "dir": dirn}
+
+
+@dataclasses.dataclass(frozen=True)
+class GeometricSource:
+    """A source with an analytic geometry and an SED (the reference's
+    `skirt9_tpu/sources/base.py:135-162`; ref: SKIRT/core/GeometricSource):
+    positions drawn from the geometry's normalised density (its `sample`,
+    `geometries/`), isotropic directions, and the wavelength sampling of a
+    point source. The velocity is carried and unused, as in the
+    reference."""
+
+    geometry: object
+    luminosity: float = 1.0
+    lam0: float = 0.55e-6
+    sed: TabulatedSED | None = None
+    wavelength_bias: float = 0.5
+    velocity: tuple = (0.0, 0.0, 0.0)
+    bias_dist: object = None
+
+    def __post_init__(self):
+        if self.bias_dist is not None:
+            raise NotImplementedError("GeometricSource wavelengthBias"
+                                      "Distribution not ported yet")
+
+    def tables(self, device) -> dict:
+        return {} if self.sed is None else {"sed": self.sed.tables(device)}
+
+    def launch(self, tabs: dict, keys: torch.Tensor, n_total: int) -> dict:
+        """Launch fields lam (B,), lum (B,), pos (B, 3), dir (B, 3) from the
+        per-packet launch keys (B, 2)."""
+        B = keys.shape[0]
+        pos = self.geometry.sample(keys, rng.LAUNCH_POSITION)
         dirn = rng.isotropic_direction(keys, rng.LAUNCH_DIRECTION)
         lum = torch.full((B,), self.luminosity / n_total, dtype=torch.float32,
                          device=keys.device)

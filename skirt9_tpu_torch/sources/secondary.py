@@ -188,5 +188,11 @@ def cell_bounds(grid):
     position sampling: the voxels of a uniform grid, the leaves of a tree,
     a Voronoi cell's exact bounding box. In a Voronoi cell's box the launch
     is uniform, as in the reference (`skirt9_tpu/sources/secondary.py:177,
-    241-246`), so a packet may start in a neighbouring cell."""
+    241-246`), so a packet may start in a neighbouring cell. Dust
+    emission on a 1D sphere or a 2D cylinder is not ported: the reference
+    launches a shell's packets in its bounding cube, and on the cylinder
+    has no cell bounds at all."""
+    if type(grid).__name__ in ("Sphere1DGrid", "Cylinder2DGrid"):
+        raise NotImplementedError(f"DustEmission on a {type(grid).__name__} "
+                                  "not ported yet")
     return grid.cell_bounds()

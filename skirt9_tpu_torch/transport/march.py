@@ -9,11 +9,12 @@ interaction point, is dense tensor math on those tables.
 
 `march_geometry` is the walk itself. On a CUDA tensor it is one launch of
 the march kernel (`csrc/march.cu`, one thread per lane, in the mode of the
-grid: `march_uniform`, `march_mesh`, `march_voronoi`, `march_octree` or
-`march_bintree`; a tree's node tables go in whole, and each step descends
-from the root, as the reference's does, whether or not a leaf map is
-attached); on a CPU tensor its plain version, a loop of the grid's `step`
-over the steps. Both follow
+grid: `march_uniform`, `march_mesh`, `march_voronoi`, `march_octree`,
+`march_bintree`, `march_sphere1d` or `march_cylinder2d`; a tree's node
+tables go in whole, and each step descends from the root, as the
+reference's does, whether or not a leaf map is attached; a curvilinear
+grid's border tables are staged in shared memory); on a CPU tensor its
+plain version, a loop of the grid's `step` over the steps. Both follow
 the reference's f32 operations, with XLA's CPU fusions replayed, so that
 each step lands in the reference's cell. A lane masked off, or outside the
 grid, records cell 0 and length 0 for every step: the reference records the
@@ -31,7 +32,9 @@ import torch
 
 from ..grids.bintree import BinTreeGrid
 from ..grids.cartesian import CartesianGrid, UniformCartesianGrid
+from ..grids.cylinder import Cylinder2DGrid
 from ..grids.octree import OctreeGrid
+from ..grids.sphere import Sphere1DGrid
 from ..grids.voronoi import VoronoiGrid
 from ..kernels import build as kb
 from ..media import system as msys
@@ -43,7 +46,8 @@ _INV_C = 1.0 / 2.99792458e8  # inverse speed of light [s/m]
 # the kernel's mode per grid class, each its own launch counter
 MODES = {UniformCartesianGrid: "march_uniform", CartesianGrid: "march_mesh",
          VoronoiGrid: "march_voronoi", OctreeGrid: "march_octree",
-         BinTreeGrid: "march_bintree"}
+         BinTreeGrid: "march_bintree", Sphere1DGrid: "march_sphere1d",
+         Cylinder2DGrid: "march_cylinder2d"}
 _MODE_IDS = {"march_uniform": 0, "march_mesh": 1, "march_voronoi": 2}
 
 
@@ -52,8 +56,8 @@ def _check(grid, pos0, dirn, cell0, max_steps: int, mask) -> None:
     if type(grid) not in MODES:
         raise NotImplementedError(
             f"the scan march on a {type(grid).__name__} is not ported yet "
-            "(it walks Cartesian grids, octrees, bintrees and Voronoi "
-            "grids)")
+            "(it walks Cartesian grids, octrees, bintrees, Voronoi grids, "
+            "1D spheres and 2D cylinders)")
     if pos0.shape != (B, 3) or dirn.shape != (B, 3) or cell0.shape != (B,) \
             or mask.shape != (B,):
         raise ValueError(f"pos0 {tuple(pos0.shape)}, dirn "
@@ -97,6 +101,16 @@ def _march_cuda(grid, pos0, dirn, cell0, max_steps: int, mask):
     mask = mask.to(torch.uint8).contiguous()
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()
+    if mode in ("march_sphere1d", "march_cylinder2d"):
+        cyl = mode == "march_cylinder2d"
+        rb = f32(grid.rb)
+        zb = f32(grid.zb) if cyl else None
+        kb.launch("march_curvi", pos0.data_ptr(), dirn.data_ptr(),
+                  cell0.data_ptr(), mask.data_ptr(), rb.data_ptr(), ptr(zb),
+                  cells.data_ptr(), ds.data_ptr(), B, max_steps,
+                  rb.shape[0] - 1, 0 if zb is None else zb.shape[0] - 1,
+                  int(cyl), grid.shift, kb.stream_of(pos0), count_as=mode)
+        return cells, ds
     if mode in ("march_octree", "march_bintree"):
         i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
         octree = mode == "march_octree"

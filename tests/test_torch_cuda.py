@@ -859,6 +859,59 @@ def test_mlsweep_deposit_kernel_global(dev, kind, monkeypatch):
     assert float((rf_k - rf_p).abs().max()) <= 1e-5 * float(rf_p.abs().max())
 
 
+@pytest.mark.parametrize("name", ["disk_cyl_small", "ivezic_sphere1d"])
+def test_curvilinear_loops_copy_nothing_from_host(dev, name, tmp_path):
+    """Three profiled events of the march loop on the 2D cylinder (two
+    geometric sources) and the 1D sphere: no host-to-device copy inside
+    the loop's profiler range."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    from skirt9_tpu_torch.tools import event_profile as ep
+    cs = _chip_smoke()
+    sim = load_ski(cs.geometric_ski(name, tmp_path), num_packets=4096,
+                   batch_size=4096, max_events=3, device=dev)
+    assert sim._sweep_tabs is None
+    sim.run_primary(verbose=False)
+    prof = ep.profile_run(torch, lambda: sim.run_primary(verbose=False))
+    # one loop range per source's segment
+    assert ep._events(sim) > 0
+    assert prof["loop_ranges"] == len(sim.sources)
+    assert prof["unattributed"] == 0, prof
+    assert prof["loop"]["h2d_copies"] == 0, prof["loop"]
+
+
+@pytest.mark.parametrize("name", ["disk_cyl_small", "decorated_cyl"])
+def test_geometric_launch_on_cuda_matches_cpu(dev, name, tmp_path):
+    """A geometric source's positions on the card bit for bit the CPU's
+    (the disk and bulge; a combined, rotated and clipped geometry), and
+    its launch batch: the same cells on all but 1e-3 of the lanes, the
+    positions moved onto the cylinder within 1e-5 of their norm (the
+    launch direction's f32 sine and cosine differ by an ulp between the
+    devices on about a third of the lanes, which a grazing entry into
+    the cylinder amplifies: measured 4.4e-6)."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.sources import base as src
+    cs = _chip_smoke()
+    out, pos = {}, {}
+    for d in ("cpu", dev):
+        sim = load_ski(cs.geometric_ski(name, tmp_path), num_packets=8192,
+                       batch_size=8192, device=d)
+        hist = torch.arange(8192, device=sim.device)
+        skey = rng.seed_key(0, sim.device)
+        keys = rng.event_keys(rng.history_keys(skey, hist), rng.LAUNCH_EVENT)
+        pos[str(d)] = torch.cat([s.geometry.sample(keys).cpu()
+                                 for s in sim.sources])
+        out[str(d)] = src.launch_batch(sim.sources[0], sim._src_tabs[0],
+                                       sim.grid, skey, hist, 8192)
+    assert torch.equal(pos["cpu"], pos[str(dev)])
+    c, g = out["cpu"], out[str(dev)]
+    pc, pg = c.pos.double(), g.pos.double().cpu()
+    err = (pg - pc).abs().max(dim=1).values / pc.norm(dim=1)
+    assert float(err.max()) <= 1e-5
+    assert float((g.cell.cpu() != c.cell).double().mean()) <= 1e-3
+    assert float((g.lam.cpu() - c.lam).abs().max() / c.lam.max()) <= 1e-6
+
+
 @pytest.mark.parametrize("engine", ["tree", "tree_no_rf", "xl", "march",
                                     "tree_march"])
 def test_event_loop_copies_nothing_from_host(dev, engine):
@@ -1789,6 +1842,32 @@ def _march_rays(dev, mode, B, seed):
     from skirt9_tpu_torch.grids.voronoi import build_voronoi
     rs = np.random.default_rng(seed)
     ext = ((-1.2 * PC, 1.2 * PC),) * 3
+    if mode.startswith(("sphere", "cylinder")):
+        from skirt9_tpu_torch.grids import meshes
+        from skirt9_tpu_torch.grids.cylinder import make_cylinder2d
+        from skirt9_tpu_torch.grids.sphere import make_sphere1d
+        unit = 2.5e4 if mode.endswith("_kpc") else 1.0   # shift 10
+        rb = meshes.scale(meshes.pow_mesh(40, 20.0), 0.0, 1.2 * PC * unit)
+        if mode.startswith("sphere"):
+            grid = make_sphere1d(1.2 * PC * unit, 40, rb=rb)
+        else:
+            zb = meshes.scale(meshes.sym_pow_mesh(
+                13000 if mode.endswith("_global") else 30, 8.0),
+                -0.5 * PC * unit, 0.5 * PC * unit)
+            grid = make_cylinder2d(1.2 * PC * unit, -0.5 * PC * unit,
+                                   0.5 * PC * unit, 40, zb.shape[0] - 1,
+                                   rb=rb, zb=zb)
+        pos = rs.uniform(-1.3 * PC, 1.3 * PC, (B, 3)) * unit
+        d = rs.normal(size=(B, 3))
+        d[:B // 8] = 0.0                          # rays along the axes
+        d[np.arange(B // 8), rs.integers(0, 3, B // 8)] = 1.0
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        grid = grid.to(dev)
+        t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+        pos, d = t32(pos), t32(d)
+        pos, cell, _ = grid.move_inside(pos, d)
+        mask = torch.tensor(rs.uniform(size=B) < 0.9, device=dev)
+        return grid, pos, d, cell, mask
     if mode == "voronoi":
         grid = build_voronoi(rs.uniform(-PC, PC, (300, 3)), ext, lookup_res=8)
     elif mode in ("octree", "bintree"):
@@ -1829,7 +1908,9 @@ def _march_rays(dev, mode, B, seed):
 
 @pytest.mark.parametrize("mode", ["uniform", "mesh", "mesh_global",
                                   "voronoi", "octree", "bintree",
-                                  "octree_level10"])
+                                  "octree_level10", "sphere", "sphere_kpc",
+                                  "cylinder", "cylinder_kpc",
+                                  "cylinder_global"])
 def test_march_kernel(dev, mode):
     """The march kernel against its plain version on the same CUDA tensors:
     one launch under its mode's counter, cells and step lengths bit for
@@ -1849,7 +1930,9 @@ def test_march_kernel(dev, mode):
 
 
 @pytest.mark.parametrize("name", ["bench1_sympow_mesh", "bench4_walk",
-                                  "bench3_explicit_absorption_tree"])
+                                  "bench3_explicit_absorption_tree",
+                                  "disk_cyl_small", "ivezic_sphere1d",
+                                  "decorated_cyl"])
 def test_march_on_cuda_matches_cpu(dev, name, tmp_path):
     """A reduced march configuration (chip_smoke.MARCH_SMALL; its bench3
     with explicit absorption, whose raster's XL tables the gate declines,

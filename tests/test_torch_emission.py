@@ -211,8 +211,16 @@ def test_shell_medium_identical():
     pgeo, rgeo = ga.ShellGeometry(**args), ref_ga.ShellGeometry(**args)
     pts = np.random.default_rng(1).normal(size=(500, 3)) * PC
     assert np.array_equal(pgeo.density_np(pts), rgeo.density_np(pts))
-    with pytest.raises(NotImplementedError):
-        pgeo.sample(None)
+    # sampled as the reference's jitted launch samples it
+    keys = rng.event_keys(rng.history_keys(rng.seed_key(2, "cpu"),
+                                           torch.arange(4096)),
+                          rng.LAUNCH_EVENT)
+    want = np.asarray(jax.jit(rgeo.sample)(
+        jnp.asarray(keys.numpy().astype(np.uint32))), np.float64)
+    got = pgeo.sample(keys).numpy().astype(np.float64)
+    assert np.all(np.abs(got - want).max(axis=1)
+                  <= 1e-6 * np.linalg.norm(want, axis=1))
+    assert np.all(got == want, axis=1).mean() > 0.95
     assert np.array_equal(gm.cell_densities(pg, pgeo, samples=8),
                           ref_gm.cell_densities(rg, rgeo, samples=8))
     norm_p = gm.OpticalDepthNormalization(tau=2.0, lam=0.55 * UM, axis="z")

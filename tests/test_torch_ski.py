@@ -141,7 +141,7 @@ def _edited(tmp_path, name: str, old: str, new: str) -> str:
     # a type nobody knows
     ("ShellGeometry", "NoSuchGeometry", "NoSuchGeometry"),
     # types the reference loads but the port does not run yet
-    ("CartesianSpatialGrid", "Sphere1DSpatialGrid", "Sphere1DSpatialGrid"),
+    ("CartesianSpatialGrid", "Sphere2DSpatialGrid", "Sphere2DSpatialGrid"),
     ('BlackBodySED temperature="5778 K"', 'QuasarSED', "QuasarSED"),
     ("TrivialGasMix", "MeanInterstellarDustMix", "MeanInterstellarDustMix"),
     # a property outside the port's items

@@ -261,8 +261,19 @@ def test_expdisk_numbernorm_electrons_match_reference():
     np.testing.assert_allclose(ga.ExpDiskGeometry(**kw).density_np(pos),
                                ref_ga.ExpDiskGeometry(**kw).density_np(pos),
                                rtol=1e-12, atol=0.0)
-    with pytest.raises(NotImplementedError, match="GeometricSource"):
-        ga.ExpDiskGeometry(**kw).sample(None)
+    # sampled as the reference's jitted launch samples it
+    import jax
+    from skirt9_tpu.ops import rng as ref_rng
+    from skirt9_tpu_torch.ops import rng
+    keys = rng.event_keys(rng.history_keys(rng.seed_key(5, "cpu"),
+                                           torch.arange(B)), rng.LAUNCH_EVENT)
+    want = np.asarray(jax.jit(ref_ga.ExpDiskGeometry(**kw).sample)(
+        jnp.asarray(keys.numpy().astype(np.uint32))), np.float64)
+    got = ga.ExpDiskGeometry(**kw).sample(keys).numpy().astype(np.float64)
+    assert np.all(np.abs(got - want).max(axis=1)
+                  <= 1e-6 * np.linalg.norm(want, axis=1))
+    assert np.all(got == want, axis=1).mean() > 0.95
+    assert ref_rng.LAUNCH_POSITION == rng.LAUNCH_POSITION
     ours, ref = mx.electron_mix(), ref_mx.electron_mix()
     for f in ("lam", "sigma_ext", "albedo", "g"):
         np.testing.assert_allclose(getattr(ours, f), getattr(ref, f),
