@@ -24,8 +24,11 @@ configs 6 and 7 (bench6.ski: Lyman-alpha resonant line transfer at
 line-centre optical depths up to 10^5; bench7.ski: X-ray gas with Compton
 scattering and Fe K fluorescence); last config 4 (bench4.ski: 40 imported
 SSP star particles and a 2,895-site Voronoi medium, rasterized onto 73^3
-voxels for kernels 4-5); last an analytic galaxy of geometric sources on
-the 2D cylinder and on an octree, and the Ivezic shell on the 1D sphere.
+voxels for kernels 4-5); then an analytic galaxy of geometric sources on
+the 2D cylinder and on an octree, and the Ivezic shell on the 1D sphere;
+last the same galaxy as imported hydro snapshots: an adaptive mesh on the
+tree sweep and under a 3 3 3 root on march_amr, and SPH gas and star
+particles on a density octree.
 Every path detects through the fused detect
 kernel (csrc/detect.cu), which took kernel 3's place there. Each hand-written CUDA kernel is checked against
 its plain PyTorch version.
@@ -427,6 +430,47 @@ Phases, one JSON line each:
   full_width_disk_tree  the same galaxy with a spiral dust disk on a
                     density octree (maxLevel 8): kernels 4-5 and detect on
                     the tree sweep, the transparent SED and R gates
+  kernels_march_amr  (right after kernels_march_curvi) the march kernel's
+                    adaptive-mesh mode bit for bit against its plain
+                    version: tests/test_amr.py's two-level and 3 3 3 /
+                    2 2 2 / 2 1 2 meshes (2^16 random lanes) and
+                    amr_galaxy_march's mesh at its first event (2^16
+                    lanes, S = its max_steps), timed, the bound from the
+                    bytes of the (S, B) tables
+  kernels_amr       (right after kernels_b5_tree) kernels 4-5 at
+                    amr_galaxy's first event (kernel 4's prefix and total
+                    modes, kernel 5 grouped into the 25 RF rows) on the
+                    tree sweep's 256^3 raster, kernels 6-7 on the same
+                    mesh's voxel raster (kernel 6's prefix mode, kernel 7
+                    grouped through the cell map), against their plain
+                    versions, timed; one batch through the XL engine there
+  draw_for_draw_imports  the reduced snapshot configurations of SNAPSHOTS
+                    on the CPU and on the card within MARCH_BOUNDS and
+                    L_dust 1e-4: amr_galaxy_small (the tree sweep, dust
+                    emission), amr_galaxy_march_small (march_amr),
+                    sph_galaxy_small (an SPH octree, dust emission)
+  full_width_amr    amr_galaxy (snapshot_ski: a RAMSES-style Morton file
+                    of GALAXY's clumpy dust disk, a 2 2 2 root refined to
+                    level 8, ~10^5 leaves, its star-forming leaves an
+                    AdaptiveMeshSource of bench4's SSP family; dust
+                    emission, a 25-bin RF; 2^20 packets in batches of
+                    2^16, 24 events) on the tree sweep: kernels 4-5 and
+                    detect; gated: the dust on the grid against the
+                    file's (1e-6), L_dust = L_abs_primary (1e-4), tau
+                    through the tree sweep against march_amr (tau_gate);
+                    one batch profiled
+  full_width_amr_march  the same file's leaves under a 3 3 3 root
+                    (ExtinctionOnly, march_amr): 2^22 launch positions
+                    over the leaves against their luminosity cdf (3
+                    sigma), a primary run's transparent SED against the
+                    leaves' luminosities (5 sigma)
+  full_width_sph    sph_galaxy: 10^5 gas particles (ParticleMedium) on a
+                    density octree of maxLevel 8 and 2x10^4 star
+                    particles (ParticleSource, SSP family), dust emission
+                    on the tree sweep; the set-up seconds; gated: the
+                    resampled dust against the particles' (5%), L_dust
+                    (1e-4), the star launches' particles and kernel radii
+                    (3 sigma), the transparent SED (5 sigma)
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -4236,11 +4280,12 @@ def config4(device, num_packets=N_B4, batch_size=B_B4, max_events=24,
                     max_events=max_events, device=device)
 
 
-def _kernel4_b4(torch, sim, pkt, sig) -> dict:
+def _kernel4_b4(torch, sim, pkt, sig, where: str = "73^3 raster") -> dict:
     """Kernel 4's prefix mode on the event rays and its total mode on the
     peel-off toward the instrument, against their plain versions: the lane
     range and the leaf ids identical, the record, step sums, prefix and
-    totals within 1e-6 of each lane's tau; timed, with their bounds."""
+    totals within 1e-6 of each lane's tau; timed, with their bounds.
+    where names the configuration in the failure messages."""
     from skirt9_tpu_torch.transport import mlsweep as ml
     from skirt9_tpu_torch.transport import sweep as sw
     tabs = sim._sweep_tabs
@@ -4256,7 +4301,7 @@ def _kernel4_b4(torch, sim, pkt, sig) -> dict:
     torch.cuda.synchronize()
     tau = pre_p[4]
     require(int((tau > 0).sum()) > B // 2 and int((tot_p > 0).sum()) > B // 2,
-            "config 4's rays and peel-offs see dust")
+            f"the rays and peel-offs see dust ({where})")
     of_tau = lambda a, b, t: float(((a - b).abs()
                                     / t.clamp_min(1e-30)).max())
     errs = {"record": of_tau(pre_k[0], pre_p[0], tau[None, None, :]),
@@ -4266,12 +4311,12 @@ def _kernel4_b4(torch, sim, pkt, sig) -> dict:
             "peel_off_total": of_tau(tot_k, tot_p, tot_p)}
     for what, e in errs.items():
         require(e <= 1e-6, f"kernel 4 {what} within 1e-6 of each lane's tau "
-                f"(73^3 raster): {e}")
+                f"({where}): {e}")
     require(bool(torch.equal(pre_k[1], pre_p[1])),
-            "kernel 4 leaf ids identical (73^3 raster)")
+            f"kernel 4 leaf ids identical ({where})")
     for a, b, name in zip(pre_k[5], pre_p[5], ("axis", "smin", "smax")):
         require(bool(torch.equal(a, b)), f"kernel 4 lane range's {name} "
-                "identical (73^3 raster)")
+                f"identical ({where})")
     # the record and its step sums (the prefix and totals add in another
     # order)
     identical = all(bool(torch.equal(a, b)) for a, b in (
@@ -4615,6 +4660,7 @@ def phase_breakdown_b4(torch) -> None:
 MARCH = ("march_uniform", "march_mesh", "march_voronoi")
 MARCH_TREE = ("march_octree", "march_bintree")
 MARCH_CURVI = ("march_sphere1d", "march_cylinder2d")
+MARCH_AMR = ("march_amr",)
 # the sweeps' kernels, none of which a march path launches
 SWEEPS = RESIDENT + XL + ML + NOT_PATH
 # f32 operations per walked (step, lane) in csrc/march.cu: a Cartesian step
@@ -4634,6 +4680,10 @@ OPS_MARCH_WALL = 24
 # comparisons and two adds, a bintree's one)
 OPS_TREE_STEP = 30
 OPS_TREE_LEVEL = {"march_octree": 5, "march_bintree": 2}
+# per level of an adaptive mesh's descent: per axis the offset, the
+# division by the node's span, the product by its subdivisions, the
+# truncation and two clamps, and the child's flat index
+OPS_AMR_LEVEL = 22
 # bench3 with explicit absorption: the interaction sampled on the
 # scattering depth, so the gate declines the tree raster's XL tables and
 # the octree marches
@@ -4871,6 +4921,13 @@ def march_cost(name, grid, cells, walked) -> tuple:
     neighbour."""
     import torch
     n = int(walked.sum())
+    if name in MARCH_AMR:
+        depth = amr_leaf_depth(grid)[cells.long()][walked]
+        tables = sum(t.numel() * t.element_size() for t in grid
+                     if isinstance(t, torch.Tensor))
+        ops = float((OPS_TREE_STEP + OPS_AMR_LEVEL * depth).sum())
+        return tables, ops, dict(leaves=grid.ncells, levels=grid.depth,
+                                 mean_depth=float(depth.double().mean()))
     if name in MARCH_TREE:
         depth = leaf_depth(grid)[cells.long()][walked]
         tables = sum(t.numel() * t.element_size() for t in grid[:-2]
@@ -4905,7 +4962,7 @@ def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
     ck, dk = mr._march_cuda(grid, pos, dirn, cell, S, mask)
     require(kb.LAUNCHES[name] == 1, f"{name} launched once")
     cp, dp = mr.march_geometry_plain(grid, pos, dirn, cell, S, mask)
-    exact = name in MARCH_TREE + MARCH_CURVI
+    exact = name in MARCH_TREE + MARCH_CURVI + MARCH_AMR
     off = ((ck != cp) | (dk != dp)) if exact else ck != cp
     lanes_off = int(off.any(dim=0).sum())
     require(lanes_off <= (0 if exact else 1e-4 * B),
@@ -5972,6 +6029,911 @@ def phase_full_width_geometric(torch, smi: str, name: str) -> dict:
     return launches, res["ivezic"]["launch_counts"] if cyl else None
 
 
+# ------------------------------------------------------ imported snapshots
+# GALAXY's dust disk as hydro snapshots: a clumpy exponential disk (SNAP's
+# clumps: Gaussian blobs drawn from the disk, a share of its mass) on an
+# adaptive mesh written as a RAMSES-style Morton '!' file (its leaves' gas
+# density, metallicity and temperature; its star-forming leaves, in a second
+# file of the same tree, an AdaptiveMeshSource with bench4's SSP family),
+# and as SPH particles (gas particles of the dust disk, star particles of
+# the stellar disk).
+SNAP = dict(n_clumps=300, clump_frac=0.3, clump_sigma=0.15, seed=31,
+            z_scale=10.0, m_stars=1e9, sf_share=0.02, n_gas=100_000,
+            n_stars=20_000, h_stars=0.1, ngb=32)
+MSUN_AMR, PC_AMR = 1.98892e30, 3.0857e16   # the loader's AMR units
+MU_MRN = 1.5e-29                           # MeanFileDustMix's mass per entity
+
+
+def _disk_points(rs, n: int, h_r: float, h_z: float) -> np.ndarray:
+    """n positions [kpc] of an exponential disk: R ~ Gamma(2, h_r), z ~
+    Laplace(h_z)."""
+    R = rs.gamma(2.0, h_r, n)
+    phi = rs.uniform(0.0, 2 * np.pi, n)
+    return np.stack([R * np.cos(phi), R * np.sin(phi),
+                     rs.laplace(0.0, h_z, n)], axis=-1)
+
+
+def clumpy_disk(pts: np.ndarray) -> np.ndarray:
+    """The unit-mass density [1/kpc^3] of the clumpy dust disk at pts
+    [kpc]: (1 - f) of GALAXY's exponential dust disk and f in SNAP's
+    Gaussian clumps."""
+    g, s = GALAXY, SNAP
+    h_r, h_z = g["dust_h_r"], g["dust_h_z"]
+    R = np.hypot(pts[:, 0], pts[:, 1])
+    disk = np.exp(-R / h_r - np.abs(pts[:, 2]) / h_z) \
+        / (4 * np.pi * h_r ** 2 * h_z)
+    from scipy.spatial import cKDTree
+    centers = _disk_points(np.random.default_rng(s["seed"]), s["n_clumps"],
+                           h_r, h_z)
+    sig = s["clump_sigma"]
+    # the clumps within 6 sigma of each point (the rest adds < 1e-7)
+    pairs = cKDTree(pts).sparse_distance_matrix(
+        cKDTree(centers), 6 * sig, output_type="ndarray")
+    clump = np.bincount(pairs["i"], np.exp(-0.5 * (pairs["v"] / sig) ** 2),
+                        minlength=len(pts))
+    clump /= (2 * np.pi) ** 1.5 * sig ** 3 * s["n_clumps"]
+    return (1 - s["clump_frac"]) * disk + s["clump_frac"] * clump
+
+
+def amr_mesh(root=(2, 2, 2), level: int = 8, threshold: float = 3e-5):
+    """The adaptive mesh of the clumpy dust disk in GALAXY's box [kpc]: the
+    root divided by `root`, then each cell halved along every axis while
+    its mass (the mean density at its 8 sub-cell midpoints times its
+    volume) exceeds `threshold` of the unit total, `level` levels of cells
+    in all. Returns (Morton node list: ('!', div) or ('leaf', i), leaf
+    boxes lo, hi (N, 3) [kpc] in f64, leaf masses (N,))."""
+    g = GALAXY
+    lo0 = np.array([-g["r_max"], -g["r_max"], -g["z_max"]])
+    hi0 = -lo0
+    mid = (np.stack(np.meshgrid(*[[0.25, 0.75]] * 3, indexing="ij"),
+                    axis=-1).reshape(-1, 3))
+
+    def mass(lo, size):
+        size = np.broadcast_to(size, lo.shape)
+        pts = (lo[:, None, :] + mid[None] * size[:, None, :]).reshape(-1, 3)
+        return clumpy_disk(pts).reshape(-1, 8).mean(1) \
+            * np.prod(size, axis=-1)
+
+    def children(lo, size, div):
+        div = np.asarray(div)
+        sub = size / div
+        ijk = np.stack(np.meshgrid(*[np.arange(n) for n in div[::-1]],
+                                   indexing="ij"), axis=-1).reshape(-1, 3)
+        ijk = ijk[:, ::-1]                       # x fastest
+        return (lo[:, None, :] + ijk[None] * sub).reshape(-1, 3), sub
+
+    # per level: the cells' corners, their size, which of them refine
+    los, sizes, refine = [], [], []
+    lo, size = children(lo0[None], hi0 - lo0, root)
+    for lev in range(1, level + 1):
+        ref = (mass(lo, size) > threshold) if lev < level \
+            else np.zeros(len(lo), bool)
+        los.append(lo)
+        sizes.append(size)
+        refine.append(ref)
+        if not ref.any():
+            break
+        lo, size = children(lo[ref], size, (2, 2, 2))
+    first = [np.cumsum(r) - r for r in refine]   # child block of each
+    nodes, leaf_lo, leaf_size = [("!", tuple(root))], [], []
+    stack = [(0, i) for i in reversed(range(len(los[0])))]
+    while stack:
+        lev, i = stack.pop()
+        if refine[lev][i]:
+            nodes.append(("!", (2, 2, 2)))
+            base = 8 * first[lev][i]
+            stack.extend((lev + 1, base + k) for k in reversed(range(8)))
+        else:
+            nodes.append(("leaf", len(leaf_lo)))
+            leaf_lo.append(los[lev][i])
+            leaf_size.append(sizes[lev])
+    lo = np.asarray(leaf_lo)
+    hi = lo + np.asarray(leaf_size)
+    return nodes, lo, hi, mass(lo, hi - lo)
+
+
+def write_amr(path: str, nodes, rows: np.ndarray) -> None:
+    """A Morton-order AMR text file: '!' lines, leaf rows from rows."""
+    fmt = " ".join(["%.9e"] * rows.shape[1])
+    with open(path, "w") as f:
+        f.write("# RAMSES-style adaptive mesh, Morton order, x fastest\n")
+        for kind, v in nodes:
+            f.write(f"! {v[0]} {v[1]} {v[2]}\n" if kind == "!"
+                    else fmt % tuple(rows[v]) + "\n")
+
+
+def amr_columns(lo, hi, mass, unit: str = "kpc") -> dict:
+    """The leaf columns of the AMR galaxy (boxes in `unit`, unit masses;
+    "pc" shrinks the galaxy 1000-fold at the same optical depths): the gas
+    density [Msun/pc3] whose metallicity share is the dust disk's
+    (dust_disk_number entities of the MRN mix, face-on tau_V 1), the
+    metallicity (0.02 e^-R/10 kpc within the SSP table's 0.004-0.05), the
+    gas temperature, and for the source file the star-forming leaves'
+    initial mass [Msun] (SNAP's m_stars over the densest sf_share of the
+    leaves by gas mass), metallicity and age [yr] (seeded, 1e6-1e8)."""
+    s = SNAP
+    c = 0.5 * (lo + hi)
+    R = np.hypot(c[:, 0], c[:, 1])
+    Z = np.clip(0.02 * np.exp(-R / s["z_scale"]), 0.004, 0.05)
+    vol_pc3 = np.prod(hi - lo, axis=-1) * (1e9 if unit == "kpc" else 1.0)
+    dust_msun = mass * dust_disk_number(unit) * MU_MRN / MSUN_AMR
+    rho = dust_msun / Z / vol_pc3
+    T = 8000.0 * (1.0 + 0.5 * R / GALAXY["h_r"])
+    dens = dust_msun / vol_pc3
+    sf = dens >= np.quantile(dens, 1.0 - s["sf_share"])
+    minit = np.where(sf, mass, 0.0)
+    minit *= s["m_stars"] / minit.sum()
+    age = np.exp(np.random.default_rng(s["seed"] + 1).uniform(
+        np.log(1e6), np.log(1e8), len(lo)))
+    return dict(rho=rho, Z=Z, T=T, minit=minit, age=age)
+
+
+def sph_particles(n_gas: int, n_stars: int, unit: str = "kpc") -> tuple:
+    """(gas rows x y z h [pc] M [Msun], star rows x y z h [pc] Minit
+    [Msun] Z age [yr]) of the SPH galaxy: n_gas equal-mass particles of
+    the dust disk (the dust mass of dust_disk_number, h the distance to
+    the SNAP['ngb']-th neighbour) and n_stars of the stellar disk (SNAP's
+    m_stars, fixed h, metallicities and ages seeded within the SSP
+    table); `unit` as in amr_columns."""
+    from scipy.spatial import cKDTree
+    s, g = SNAP, GALAXY
+    to_pc = 1e3 if unit == "kpc" else 1.0
+    rs = np.random.default_rng(s["seed"] + 2)
+    box = np.array([g["r_max"], g["r_max"], g["z_max"]])
+    gas = _disk_points(rs, 2 * n_gas, g["dust_h_r"], g["dust_h_z"])
+    gas = gas[np.all(np.abs(gas) < 0.98 * box, axis=1)][:n_gas]
+    ngb = min(s["ngb"], len(gas) - 1)
+    h = cKDTree(gas).query(gas, k=ngb + 1)[0][:, -1]
+    m_gas = dust_disk_number(unit) * MU_MRN / MSUN_AMR / len(gas)
+    stars = _disk_points(rs, 2 * n_stars, g["h_r"], g["h_z"])
+    stars = stars[np.all(np.abs(stars) < 0.98 * box, axis=1)][:n_stars]
+    n = len(stars)
+    return (np.column_stack([gas * to_pc, h * to_pc,
+                             np.full(len(gas), m_gas)]),
+            np.column_stack([stars * to_pc, np.full(n, s["h_stars"] * to_pc),
+                             np.full(n, s["m_stars"] / n),
+                             rs.uniform(0.004, 0.05, n),
+                             np.exp(rs.uniform(np.log(1e6), np.log(1e10),
+                                               n))]))
+
+
+def snapshot_ski(directory, name: str, kind: str = "amr", root=(2, 2, 2),
+                 level: int = 8, threshold: float = 3e-5,
+                 mode: str = "DustEmission", rf_bins: int = 25,
+                 n_gas: int = SNAP["n_gas"], n_stars: int = SNAP["n_stars"],
+                 npix: int = 64, nlam: int = 40, unit: str = "kpc") -> str:
+    """A ski file of the imported galaxy written into directory with its
+    data files, bench4's SSP table and the MRN mix: kind "amr" (an
+    AdaptiveMeshMedium with importMetallicity and importTemperature on its
+    AdaptiveMeshSpatialGrid, the mesh of amr_mesh(root, level, threshold),
+    and an AdaptiveMeshSource of its star-forming leaves) or "sph" (a
+    ParticleMedium of n_gas gas particles on a density octree of maxLevel
+    `level`, a ParticleSource of n_stars star particles); mode
+    DustEmission (an rf_bins-bin RF, bench4's emission grid) or
+    ExtinctionOnly; a face-on and an edge-on FullInstrument of npix^2
+    pixels on nlam log bins over 0.09-1000 micron, at GALAXY's distance.
+    unit "pc" shrinks every length 1000-fold at the same optical depths
+    (the reference's f32 tree diagonal and AMR span overflow past ~0.6
+    kpc, and the tests hold the port against it)."""
+    import shutil
+    g = GALAXY
+    R, Z = g["r_max"], g["z_max"]
+    box = (f'minX="-{R} {unit}" maxX="{R} {unit}" minY="-{R} {unit}" '
+           f'maxY="{R} {unit}" minZ="-{Z} {unit}" maxZ="{Z} {unit}"')
+    ssp = ('<sedFamily type="SEDFamily"><FileSSPSEDFamily filename='
+           '"bench4_ssp.stab" hasIonizationParameter="false"/></sedFamily>')
+    mix = ('<materialMix type="MaterialMix"><MeanFileDustMix filename='
+           '"mrn_mean.txt"/></materialMix>')
+    if kind == "amr":
+        nodes, lo, hi, mass = amr_mesh(root, level, threshold)
+        col = amr_columns(lo, hi, mass, unit)
+        write_amr(os.path.join(str(directory), f"{name}_gas.amr"), nodes,
+                  np.column_stack([col["rho"], col["Z"], col["T"]]))
+        write_amr(os.path.join(str(directory), f"{name}_stars.amr"), nodes,
+                  np.column_stack([col["minit"], col["Z"], col["age"]]))
+        source = (f'<AdaptiveMeshSource filename="{name}_stars.amr" {box} '
+                  'importVelocity="false" sourceWeight="1" wavelengthBias='
+                  f'"0.5">{ssp}</AdaptiveMeshSource>')
+        medium = (f'<AdaptiveMeshMedium filename="{name}_gas.amr" {box} '
+                  'massType="MassDensity" massFraction="1" importMetallicity'
+                  '="true" importTemperature="true" maxTemperature="0 K" '
+                  'importVelocity="false" importMagneticField="false" '
+                  f'importVariableMixParams="false">{mix}'
+                  '</AdaptiveMeshMedium>')
+        grid = '<AdaptiveMeshSpatialGrid/>'
+    else:
+        gas, stars = sph_particles(n_gas, n_stars, unit)
+        np.savetxt(os.path.join(str(directory), f"{name}_gas.txt"), gas,
+                   header="x y z h (pc) M (Msun)")
+        np.savetxt(os.path.join(str(directory), f"{name}_stars.txt"), stars,
+                   header="x y z h (pc) Minit (Msun) Z t (yr)")
+        kern = ('<smoothingKernel type="SmoothingKernel">'
+                '<CubicSplineSmoothingKernel/></smoothingKernel>')
+        source = (f'<ParticleSource filename="{name}_stars.txt" '
+                  'importVelocity="false" useColumns="" sourceWeight="1" '
+                  f'wavelengthBias="0.5">{kern}{ssp}</ParticleSource>')
+        medium = (f'<ParticleMedium filename="{name}_gas.txt" '
+                  'massType="Mass" massFraction="1" importMetallicity='
+                  '"false" importTemperature="false" importVelocity="false" '
+                  f'importMagneticField="false">{kern}{mix}</ParticleMedium>')
+        grid = (f'<PolicyTreeSpatialGrid {box} treeType="OctTree"><policy '
+                'type="TreePolicy"><DensityTreePolicy minLevel="2" maxLevel='
+                f'"{level}" maxDustFraction="1e-6"/></policy>'
+                '</PolicyTreeSpatialGrid>')
+    emission = mode == "DustEmission"
+    rf = ('<radiationFieldOptions type="RadiationFieldOptions">'
+          '<RadiationFieldOptions storeRadiationField="true">'
+          '<radiationFieldWLG type="DisjointWavelengthGrid">'
+          '<LogWavelengthGrid minWavelength="0.09 micron" maxWavelength='
+          f'"100 micron" numWavelengths="{rf_bins}"/></radiationFieldWLG>'
+          '</RadiationFieldOptions></radiationFieldOptions>'
+          '<dustEmissionOptions type="DustEmissionOptions">'
+          '<DustEmissionOptions dustEmissionType="Equilibrium" '
+          'includeHeatingByCMB="false" maxFractionOfPrimary="0.01" '
+          'maxFractionOfPrevious="0.03" sourceWeight="1" wavelengthBias='
+          '"0.5"><cellLibrary type="SpatialCellLibrary"><AllCellsLibrary/>'
+          '</cellLibrary><dustEmissionWLG type="DisjointWavelengthGrid">'
+          '<LogWavelengthGrid minWavelength="1 micron" maxWavelength='
+          '"2000 micron" numWavelengths="40"/></dustEmissionWLG>'
+          '</DustEmissionOptions></dustEmissionOptions>') if emission else ""
+    fov = 2.2 * R
+    inst = lambda iname, inc: (
+        f'<FullInstrument instrumentName="{iname}" distance='
+        f'"{g["distance_mpc"]} Mpc" inclination="{inc} deg" azimuth="0 deg" '
+        f'roll="0 deg" fieldOfViewX="{fov} {unit}" numPixelsX="{npix}" '
+        f'centerX="0 pc" fieldOfViewY="{fov} {unit}" numPixelsY="{npix}" '
+        'centerY="0 pc" recordComponents="true" numScatteringLevels="0" '
+        'recordPolarization="false" recordStatistics="true"/>')
+    text = f"""<?xml version='1.0' encoding='UTF-8'?>
+<skirt-simulation-hierarchy type="MonteCarloSimulation" format="9" producer="chip_smoke">
+  <MonteCarloSimulation userLevel="Expert" simulationMode="{mode}" numPackets="{N_GEO}">
+    <random type="Random"><Random seed="0"/></random>
+    <units type="Units"><ExtragalacticUnits fluxOutputStyle="Wavelength"/></units>
+    <cosmology type="Cosmology"><LocalUniverseCosmology/></cosmology>
+    <sourceSystem type="SourceSystem"><SourceSystem minWavelength="0.09 micron" maxWavelength="100 micron" sourceBias="0.5"><sources type="Source">{source}</sources></SourceSystem></sourceSystem>
+    <mediumSystem type="MediumSystem"><MediumSystem>
+      <photonPacketOptions type="PhotonPacketOptions"><PhotonPacketOptions forceScattering="true" minWeightReduction="1e4" minScattEvents="0" pathLengthBias="0.5"/></photonPacketOptions>
+      {rf}
+      <media type="Medium">{medium}</media>
+      <grid type="SpatialGrid">{grid}</grid>
+    </MediumSystem></mediumSystem>
+    <instrumentSystem type="InstrumentSystem"><InstrumentSystem><defaultWavelengthGrid type="WavelengthGrid"><LogWavelengthGrid minWavelength="0.09 micron" maxWavelength="1000 micron" numWavelengths="{nlam}"/></defaultWavelengthGrid><instruments type="Instrument">{inst("i0", 0)}{inst("i90", 90)}</instruments></InstrumentSystem></instrumentSystem>
+  </MonteCarloSimulation>
+</skirt-simulation-hierarchy>
+"""
+    path = os.path.join(str(directory), f"{name}.ski")
+    with open(path, "w") as f:
+        f.write(text)
+    for fn in ("mrn_mean.txt", "bench4_ssp.stab"):
+        shutil.copy(os.path.join(GOLDEN, fn), str(directory))
+    return path
+
+
+# the configurations of this section: (snapshot_ski's arguments, run
+# sizes); the full-width ones at N_GEO packets in batches of B_GEO, the
+# reduced ones of tests/test_torch_amr.py, tests/test_torch_imports.py and
+# draw_for_draw_imports
+SNAPSHOTS = {
+    "amr_galaxy": (dict(), dict(num_packets=N_GEO, batch_size=B_GEO,
+                                max_events=24)),
+    "amr_galaxy_march": (dict(root=(3, 3, 3), mode="ExtinctionOnly"),
+                         dict(num_packets=N_GEO, batch_size=B_GEO,
+                              max_events=24)),
+    "sph_galaxy": (dict(kind="sph"), dict(num_packets=N_GEO, batch_size=B_GEO,
+                                          max_events=24)),
+    "amr_galaxy_small": (dict(level=4, threshold=3e-3, rf_bins=4, npix=16,
+                              nlam=12, unit="pc"),
+                         dict(num_packets=1024, batch_size=1024,
+                              max_events=3)),
+    "amr_galaxy_march_small": (dict(root=(3, 3, 3), level=5, threshold=1e-3,
+                                    mode="ExtinctionOnly", npix=16, nlam=12,
+                                    unit="pc"),
+                               dict(num_packets=2048, batch_size=1024,
+                                    max_events=4)),
+    "sph_galaxy_small": (dict(kind="sph", level=4, n_gas=1000, n_stars=100,
+                              rf_bins=4, npix=16, nlam=12, unit="pc"),
+                         dict(num_packets=1024, batch_size=1024,
+                              max_events=3)),
+}
+
+
+def snapshot_config(name: str, device, directory, **run):
+    """SNAPSHOTS[name] through the port's load_ski (its run sizes updated
+    by run)."""
+    from skirt9_tpu_torch.config.ski import load_ski
+    kw, sizes = SNAPSHOTS[name]
+    return load_ski(snapshot_ski(directory, name, **kw), device=device,
+                    **dict(sizes, **run))
+
+
+# tests/test_amr.py's meshes, for the march kernel's checks
+AMR_TWO_LEVEL = ("! 2 2 2\n! 2 2 2\n"
+                 + "".join(f"{v}\n" for v in range(1, 16)))
+
+
+def amr_deep_text(rs, root=(3, 3, 3)) -> str:
+    """tests/test_amr.py's random 3-level mesh under root: children refined
+    2x2x2, grandchildren 2x1x2, at random."""
+    lines = ["! %d %d %d" % root]
+    for _ in range(int(np.prod(root))):
+        if rs.random() < 0.4:
+            lines.append("! 2 2 2")
+            for _ in range(8):
+                if rs.random() < 0.3:
+                    lines.append("! 2 1 2")
+                    lines.extend("0.5" for _ in range(4))
+                else:
+                    lines.append("0.5")
+        else:
+            lines.append("0.5")
+    return "\n".join(lines) + "\n"
+
+
+def amr_leaf_depth(grid):
+    """(ncells,) levels of descent that end in each leaf of an adaptive
+    mesh, from its node tables (nodes in file order: a parent before its
+    children)."""
+    import torch
+    child = grid.node_child.cpu().numpy()
+    div = grid.node_div.cpu().numpy()
+    flat = grid.child_flat.cpu().numpy()
+    depth = np.zeros(len(child), np.int64)
+    for n in np.flatnonzero(child >= 0):
+        k = int(np.prod(div[n]))
+        depth[flat[child[n]:child[n] + k]] = depth[n] + 1
+    cells = grid.node_cell.cpu().numpy()
+    out = np.zeros(grid.ncells, np.int64)
+    out[cells[cells >= 0]] = depth[cells >= 0]
+    return torch.tensor(out, device=grid.cell_lo.device)
+
+
+def _random_lanes(torch, grid, B: int, seed: int):
+    """B lanes in the grid's box (an eighth on leaf corners) with isotropic
+    directions, on the grid's device, and their cells."""
+    rs = np.random.default_rng(seed)
+    lo = grid.box_lo.double().cpu().numpy()
+    hi = grid.box_hi.double().cpu().numpy()
+    pos = lo + (hi - lo) * rs.uniform(0.0, 1.0, (B, 3))
+    clo = grid.cell_lo.double().cpu().numpy()
+    pos[:B // 8] = clo[rs.integers(0, len(clo), B // 8)]
+    d = rs.normal(size=(B, 3))
+    dev = grid.cell_lo.device
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos = t32(pos)
+    dirn = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    return pos, dirn, grid.locate(pos)
+
+
+def phase_kernels_march_amr(torch) -> dict:
+    """The march kernel's adaptive-mesh mode against its plain version
+    (_march_check, bit for bit): on tests/test_amr.py's two-level mesh and
+    its 3 3 3 / 2 2 2 / 2 1 2 mesh (2^16 random lanes each, S = their
+    max_steps), and on amr_galaxy_march's 3 3 3 root at its first event
+    (2^16 lanes, S = 256), the main path's shape."""
+    from skirt9_tpu_torch import device
+    from skirt9_tpu_torch.grids import amr
+    dev = device.resolve("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, text in (("amr_two_level", AMR_TWO_LEVEL),
+                           ("amr_deep", amr_deep_text(
+                               np.random.default_rng(5)))):
+            path = os.path.join(tmp, f"{name}.amr")
+            with open(path, "w") as f:
+                f.write(text)
+            grid = amr.build_amr(path, ((-PC, PC),) * 3)[0].to(dev)
+            pos, dirn, cell = _random_lanes(torch, grid, B_GEO, 31)
+            out[name] = _march_check(torch, "march_amr", grid, pos, dirn,
+                                     cell, min(grid.max_steps(), 256),
+                                     cell >= 0)
+        sim = snapshot_config("amr_galaxy_march", "cuda", tmp)
+        S = sim.options.max_steps
+        require(sim._sweep_tabs is None and S == min(sim.grid.max_steps(),
+                                                     256),
+                f"amr_galaxy_march marches ({S} steps)")
+        pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_GEO)
+        out["march_amr"] = _march_check(torch, "march_amr", sim.grid, pos,
+                                        dirn, cell, S, alive)
+        del sim
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_march_amr", **out})
+    return out
+
+
+def _kernel5_grouped(torch, sim, pkt, opts, pre, what: str) -> dict:
+    """Kernel 5's grouped mode on one event (first_event_b3: pkt, opts,
+    pre) into the RF rows against its plain version: the RF within 1e-6
+    of its maximum, s_int, icell and found identical; timed, with its
+    bound (as phase_kernels_b3)."""
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    tabs = sim._sweep_tabs
+    rec, cells, _, tb, tot, lane = pre
+    B, n_groups = pkt.lam.shape[0], opts.rf_strata
+    nbins = len(sim.rf_borders) - 1
+    ncells = tabs.nd.shape[0]
+    rs = np.random.default_rng(9)
+    inv_sqrt = 1.0 / math.sqrt(sim.rf_scale)
+    rfb = sim._rf_borders_dev
+    in_rf = (pkt.lam >= rfb[0]) & (pkt.lam < rfb[-1])
+    lum_half = (pkt.lum * (pkt.alive & in_rf)) * inv_sqrt
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=sim.device) * tot
+    bin_map = torch.tensor(opts.rf_bin_map, dtype=torch.int32,
+                           device=sim.device)
+    args = (tabs, pkt.pos, pkt.dir, pkt.alive, rec, cells, lum_half, tau_int,
+            tb, inv_sqrt)
+    kw = dict(n_groups=n_groups, lane=lane, bin_map=bin_map, nbins=nbins)
+    rf_k, s_k, c_k, f_k = ml.sweep_deposit(*args, **kw)
+    rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(*args, **kw)
+    torch.cuda.synchronize()
+    require(int(f_p.sum()) > B // 2, f"{what}: test rays interact")
+    require(bool(torch.equal(f_k, f_p)), f"{what}: found identical")
+    require(bool(torch.equal(s_k[f_k], s_p[f_p])), f"{what}: s_int identical")
+    require(bool(torch.equal(c_k, c_p)), f"{what}: interaction cells equal")
+    require(rf_k.shape == rf_p.shape == (nbins, ncells), f"{what}: RF rows")
+    rf_err = float((rf_k - rf_p).abs().max())
+    rf_max = float(rf_p.abs().max())
+    require(rf_max > 0 and rf_err <= 1e-6 * rf_max,
+            f"{what}: rf error {rf_err} <= 1e-6 * {rf_max}")
+    rows_lit = int((rf_p.abs().sum(dim=1) > 0).sum())
+    g, smin, smax = lane
+    dep = (tabs, pkt.pos, pkt.dir, g, smin, smax, rec, cells, lum_half,
+           tau_int, tb, inv_sqrt, n_groups, bin_map, nbins)
+    del rf_p
+    plain_ms = cuda_ms(lambda: ml._deposit_plain(*dep), reps=3)
+    torch.cuda.empty_cache()
+    n_live = int(ml._plan_substeps(tabs, pkt.pos, pkt.dir, g, smin,
+                                   smax)[3].sum())
+    return dict(
+        max_abs_err=rf_err, rf_max=rf_max, err_of_max=rf_err / rf_max,
+        n_groups=n_groups, rows=nbins, rows_lit=rows_lit, leaves=ncells,
+        shared_table=ncells <= ml.SHARED_LEAVES, live_pairs=n_live,
+        live_share=n_live / (tabs.n_steps * B),
+        ms=cuda_ms(lambda: ml._deposit_cuda(*dep)),
+        device_ms=device_ms(lambda: ml._deposit_cuda(*dep))["ours"],
+        plain_ms=plain_ms, library_ms=None,
+        **bound(lane_bytes(B, 0) + 8 * B + n_live * (3 * 4 + 3 * 4 + 4)
+                + 2 * tabs.n_steps * 4 + n_groups * 4 + nbins * ncells * 4
+                + 8 * B,
+                n_live * (OPS_SLAB + 3 + 3 * (OPS_SUB + OPS_DEP))))
+
+
+def phase_kernels_amr(torch) -> dict:
+    """Kernels 4-7 at amr_galaxy's shapes, against their plain versions:
+    at its first event (the first stratified batch of its mesh source,
+    2^16 lanes in 32 lane groups) kernel 4's prefix and total modes and
+    kernel 5's grouped mode into the 25 RF rows on the tree sweep's tables
+    (a 256^3 fine raster); then, on the same mesh's voxel raster (the XL
+    tables with the cell map), kernel 6's prefix mode and kernel 7's
+    grouped prefix mode. Timed, with bounds."""
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    from skirt9_tpu_torch.transport import sweepxl as xl
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = snapshot_config("amr_galaxy", "cuda", tmp)
+    tabs = sim._sweep_tabs
+    fine = tabs.n
+    require(isinstance(tabs, ml.MLTables),
+            f"amr_galaxy on the tree sweep ({type(tabs).__name__})")
+    pkt, opts, pre = first_event_b3(torch, sim)
+    require(opts.rf_strata > 1, f"amr_galaxy runs lane groups "
+            f"({opts.rf_strata})")
+    sig = msys.optics_at(sim.medium, pkt.lam).sigma_ext.T.contiguous()
+    out = _kernel4_b4(torch, sim, pkt, sig, "amr_galaxy")
+    out["mlsweep_deposit"] = _kernel5_grouped(
+        torch, sim, pkt, opts, pre, f"kernel 5 on amr_galaxy "
+        f"({sim.grid.ncells} leaves)")
+    del pkt, pre
+    torch.cuda.empty_cache()
+    sim._sweep_tabs = xl.build_tree_tables(sim.grid, sim.medium)
+    tabs = sim._sweep_tabs
+    require(tabs.n == fine and tabs.cellmap is not None,
+            "amr_galaxy's voxel raster")
+    rays, opts, n_groups, pre = first_event_xl(torch, sim)
+    out["sweepxl_dtau_prefix"] = check_prefix_xl(
+        torch, "kernel 6 on amr_galaxy's voxel raster", tabs, rays, pre)
+    bin_map = torch.tensor(opts.rf_bin_map, dtype=torch.int32,
+                           device=sim.device)
+    out["sweepxl_deposit_prefix"] = check_grouped_xl(
+        torch, "kernel 7 on amr_galaxy's voxel raster", sim, rays, pre,
+        n_groups, bin_map, len(sim.rf_borders) - 1)
+    del rays, pre
+    torch.cuda.empty_cache()
+    # one batch of the primary emission through the XL engine on the
+    # voxel raster: the path an AMR mesh past a 256 raster takes
+    sim.num_packets = B_GEO
+    (rf, _), launches = drive(XL + DETECT, RESIDENT + ML + MARCH_AMR,
+                              lambda: sim.run_primary(verbose=False))
+    require(bool(torch.isfinite(rf).all()) and float(rf.sum()) > 0,
+            "amr_galaxy's RF on its voxel raster")
+    out["xl_run_launches"] = {k: v for k, v in launches.items() if v}
+    emit({"phase": "kernels_amr", "batch": B_GEO, "lane_groups": n_groups,
+          "leaves": sim.grid.ncells, "fine_grid": list(fine), **out})
+    del sim, rf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_draw_for_draw_imports(torch) -> dict:
+    """The reduced snapshot configurations on the CPU (plain versions) and
+    on the card (kernels), the same seed: amr_galaxy_small (the tree
+    sweep, kernels 4-5) and sph_galaxy_small (a density octree of SPH
+    gas, kernels 4-5) with dust emission, amr_galaxy_march_small (the 3 3
+    3 root on march_amr); march_gaps' bounds (the RF and each primary SED
+    kind within 2e-5 of its maximum, the secondary kinds' sums 1e-3)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, must in (("amr_galaxy_small", ML),
+                           ("amr_galaxy_march_small", MARCH_AMR),
+                           ("sph_galaxy_small", ML)):
+            runs = []
+            for dev in ("cpu", "cuda"):
+                sim = snapshot_config(name, dev, tmp)
+                dust = sim.ems_borders is not None
+                run = (lambda s=sim: s.run_with_dust_emission(verbose=False)) \
+                    if dust else (lambda s=sim: s.run_primary(verbose=False))
+                if dev == "cpu":
+                    runs.append(run())
+                else:
+                    res, launches = drive(must + DETECT, (), run)
+                    runs.append(res)
+            gaps = march_gaps(runs[0], runs[1], dust)
+            out[name] = dict(gaps=gaps, launches={k: v for k, v in
+                                                  launches.items() if v})
+            if dust:
+                e = abs(runs[1][2]["L_dust"] / runs[0][2]["L_dust"] - 1)
+                require(e <= 1e-4, f"{name}: L_dust CPU against card {e}")
+                out[name]["L_dust_rel_err"] = e
+    emit({"phase": "draw_for_draw_imports", **out})
+    return out
+
+
+def ssp_entity_luminosities(path: str, minit, Z, age, lam_range):
+    """Each entity's luminosity [W] over lam_range from an SSP table, on
+    the host in f64: the table's spectra (per Msun, ages in years)
+    interpolated linearly onto the range clipped at its ends, mixed
+    geometrically between the parameter-grid corners (metallicity
+    linear, age logarithmic, as the family's axes say), integrated by the
+    trapezoid rule, times the initial mass."""
+    from skirt9_tpu_torch.utils.storedtable import read_stored_table
+    tab = read_stored_table(path)
+    lam = tab.axes_points[0]
+    Zs, ts = tab.axes_points[1], tab.axes_points[2]
+    q = tab.quantity(tab.quantity_names[0])      # (t, Z, lambda)
+    lo, hi = lam_range
+    lam_c = np.unique(np.concatenate([[lo], lam[(lam >= lo) & (lam <= hi)],
+                                      [hi]]))
+    L = np.stack([[np.interp(lam_c, lam, q[it, iz]) for iz in range(len(Zs))]
+                  for it in range(len(ts))])      # (t, Z, lam_c)
+
+    def frac(x, pts, log):
+        x, pts = (np.log(x), np.log(pts)) if log else (x, pts)
+        j = np.clip(np.searchsorted(pts, x) - 1, 0, len(pts) - 2)
+        f = np.clip((x - pts[j]) / (pts[j + 1] - pts[j]), 0.0, 1.0)
+        return j, f
+    jz, fz = frac(np.asarray(Z, np.float64), Zs, False)
+    jt, ft = frac(np.asarray(age, np.float64), ts, True)
+    logL = np.log(np.maximum(L, 1e-300))
+    out = np.zeros(len(jz))
+    for i in np.flatnonzero(np.asarray(minit) > 0):
+        spec = np.exp((1 - ft[i]) * ((1 - fz[i]) * logL[jt[i], jz[i]]
+                                     + fz[i] * logL[jt[i], jz[i] + 1])
+                      + ft[i] * ((1 - fz[i]) * logL[jt[i] + 1, jz[i]]
+                                 + fz[i] * logL[jt[i] + 1, jz[i] + 1]))
+        out[i] = minit[i] * np.trapezoid(spec, lam_c)
+    return out
+
+
+def launch_weight_sigma(torch, sim, n: int = 1 << 20) -> float:
+    """The relative standard error of a primary run's transparent SED
+    integral: the standard deviation of the first source's launch weights
+    over n launches, stratified as the primary segment strata them, over
+    their mean and the square root of the run's packets."""
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.sources import base as src
+    strata = sim._strata_for(sim.sources[0], sim.options)
+    B, stabs = sim.batch_size, sim._src_tabs[0]
+    lanes = torch.arange(B, device=sim.device)
+    if strata is not None:
+        B, stabs, _, lanes = sim._stratify(strata, stabs, sim.options, n)
+    lums = [src.launch_batch(sim.sources[0], stabs, sim.grid,
+                             rng.seed_key(sim.seed + 5, sim.device),
+                             b * B + lanes, n).lum.double()
+            for b in range(max(n // B, 1))]
+    lum = torch.cat(lums)
+    return float(lum.std() / lum.mean()) / math.sqrt(sim.num_packets)
+
+
+def transparent_gate(torch, sim, L_host: float, n_sigma: float = 5.0) -> dict:
+    """A primary run's transparent SED (the first instrument's file, in
+    W/m2/micron) integrated over its bins times 4 pi d^2 against the
+    entities' luminosity L_host [W], within n_sigma of the launch weights'
+    standard error (launch_weight_sigma)."""
+    _, accs = sim.run_primary(verbose=False)
+    cfg = sim.instruments[0]
+    d = GALAXY["distance_mpc"] * 1e6 * 3.08567758149e16
+    with tempfile.TemporaryDirectory() as tmp:
+        cols = np.loadtxt([p for p in sim.write_outputs(accs, "t", tmp)
+                           if p.endswith("_sed.dat")][0])
+    borders = np.asarray(cfg.wave_borders, np.float64) * 1e6
+    flux = float((cols[:, 2] * np.diff(borders)).sum())   # W/m2
+    ratio = flux * 4 * math.pi * d ** 2 / L_host
+    sigma = launch_weight_sigma(torch, sim)
+    require(abs(ratio - 1) <= n_sigma * sigma,
+            f"transparent SED's integral over the entities' luminosity "
+            f"{ratio} within {n_sigma} sigma ({sigma})")
+    return dict(transparent_over_entities=ratio, sigma=sigma,
+                sigmas=abs(ratio - 1) / sigma, packets=sim.num_packets)
+
+
+def chi2_gate(counts, expect, what: str, n_sigma: float = 3.0) -> dict:
+    """Chi-square of counts against expected counts over the bins that
+    expect at least 5, its z-score against its degrees of freedom within
+    n_sigma."""
+    use = expect >= 5
+    chi2 = float((((counts - expect) ** 2 / np.maximum(expect, 1e-300))
+                  [use]).sum())
+    dof = int(use.sum()) - 1
+    z = (chi2 - dof) / math.sqrt(2 * dof)
+    require(z <= n_sigma, f"{what}: chi-square {chi2} on {dof} dof, {z} "
+            f"sigma <= {n_sigma}")
+    return dict(chi2=chi2, dof=dof, sigmas=z,
+                lost=float(counts[~use].sum()), lost_expect=float(
+                    expect[~use].sum()))
+
+
+def tau_gate(torch, sim, n: int = 1 << 14) -> dict:
+    """tau at 0.55 micron along n seeded rays from inside the disk through
+    the tree sweep's tables (kernel 4's total mode) and through march_amr
+    (the march kernel, S = the run's max_steps), on the rays with tau >
+    0.01 that the march takes to the grid's edge within S steps (the
+    shares it cuts short or that stall on a face, as the reference's march
+    does, are reported): within
+    1e-4 relative plus what the march skips by design, the 1e-6 of the
+    diagonal it moves on past every face (the reference's AMR step), at
+    most twice the nudge times the larger opacity of the two cells at
+    each face (the nudge itself, and a thinner cell it crosses)."""
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.transport import march as mr
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    rs = np.random.default_rng(41)
+    box = (sim.grid.box_hi - sim.grid.box_lo).double().cpu().numpy()
+    pos = np.stack([rs.normal(0, 0.1, n), rs.normal(0, 0.1, n),
+                    rs.normal(0, 0.025, n)], -1) * box
+    d = rs.normal(size=(n, 3))
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32),
+                                 device=sim.device)
+    pos, dirn = t32(pos), t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    cell = sim.grid.locate(pos)
+    act = cell >= 0
+    opt = msys.optics_at(sim.medium, torch.full((n,), 0.55e-6,
+                                                device=sim.device))
+    t_ml = ml.sweep_tau_total(sim._sweep_tabs, pos, dirn,
+                              opt.sigma_ext.T.contiguous(), act)
+    S = sim.options.max_steps
+    cells, ds = mr.march_geometry(sim.grid, pos, dirn, cell, S, act)
+    t_mr = mr.opacity_on_path(sim.medium, opt, cells, ds, dirn).sum(dim=0)
+    kappa = (sim.medium.nd.double() @ opt.sigma_ext[0].double())
+    k = kappa[cells.long()] * (ds > 0)                     # (S, B)
+    k_face = torch.maximum(k, torch.cat([k[1:], torch.zeros_like(k[:1])]))
+    skipped = 2.0 * sim.grid.nudge() * k_face.sum(dim=0)
+    # a lane that left the grid records cell 0 and length 0; one that
+    # stalls on a face (its nudge below an ulp of a coordinate) keeps its
+    # cell with length 0, as the reference's march does
+    done = act & (ds[-1] == 0) & (cells[-1] == 0)
+    stalled = act & (ds[-1] == 0) & (cells[-1] != 0)
+    big = done & (t_mr > 0.01)
+    gap = (t_ml.double() - t_mr.double()).abs()
+    excess = ((gap - skipped) / t_mr.double().clamp_min(1e-30))[big]
+    rel = float((gap / t_mr.double().clamp_min(1e-30))[big].max())
+    require(int(big.sum()) > n // 4 and float(excess.max()) <= 1e-4,
+            f"tau: tree sweep against march_amr within 1e-4 beyond the "
+            f"march's nudges ({float(excess.max())}, {int(big.sum())} rays)")
+    return dict(rays=int(big.sum()), max_rel_err=rel,
+                max_excess_over_nudges=float(excess.max()), steps=S,
+                nudge_m=sim.grid.nudge(),
+                cut_short=float((act & (ds[-1] != 0)).sum() / act.sum()),
+                stalled=float(stalled.sum() / act.sum()),
+                median_tau=float(t_mr[big].median()))
+
+
+def _run_phase(torch, sim, must, dust: bool):
+    """A timed run of a configuration on the card, after a warm-up of one
+    batch: the kernels in must and detect launched, no other sweep or
+    march kernel."""
+    run = (lambda: sim.run_with_dust_emission(verbose=False)) if dust \
+        else (lambda: sim.run_primary(verbose=False))
+    t0 = time.perf_counter()
+    out, launches = drive(must + DETECT, tuple(
+        k for k in SWEEPS + MARCH + MARCH_TREE + MARCH_CURVI + MARCH_AMR
+        if k not in must), run)
+    return out, launches, time.perf_counter() - t0
+
+
+def phase_full_width_amr(torch, smi: str, name: str = "amr_galaxy") -> dict:
+    """amr_galaxy (about 10^5 leaves of a 2 2 2 root to level 8, the tree
+    sweep on its 256^3 raster: kernels 4-5, detect; dust emission with a
+    25-bin RF; 2^20 packets in batches of 2^16, 24 events) or
+    amr_galaxy_march (the 3 3 3 root: march_amr, ExtinctionOnly), timed
+    after a one-batch warm-up. Gates: the medium's dust entities on the
+    grid against the file's (1e-6); for amr_galaxy L_dust = L_abs_primary
+    (1e-4) and tau along seeded rays, the tree sweep against march_amr
+    (tau_gate); for amr_galaxy_march 2^22 launch positions over the leaves
+    against the leaves' luminosity cdf (3 sigma) and a primary run's
+    transparent SED against the leaves' luminosities (5 sigma); one batch
+    profiled (host_per_event)."""
+    from skirt9_tpu_torch.grids import amr
+    from skirt9_tpu_torch.ops import rng
+    dust = name == "amr_galaxy"
+    must = ML if dust else MARCH_AMR
+    res = {"phase": f"full_width_{name.replace('_galaxy', '')}"}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sim = snapshot_config(name, "cuda", tmp)
+        res["setup_s"] = time.perf_counter() - t0
+        require(isinstance(sim.grid, amr.AMRGrid), f"{name} on its mesh")
+        kw = SNAPSHOTS[name][0]
+        unit = kw.get("unit", "kpc")
+        nodes, lo, hi, mass = amr_mesh(kw.get("root", (2, 2, 2)),
+                                       kw.get("level", 8),
+                                       kw.get("threshold", 3e-5))
+        col = amr_columns(lo, hi, mass, unit)
+        to_m = 3.08567758149e16 * (1e3 if unit == "kpc" else 1.0)
+        vol = np.prod(hi - lo, axis=-1) * to_m ** 3
+        n_file = float((col["rho"] * col["Z"] * (MSUN_AMR / PC_AMR ** 3)
+                        / MU_MRN * vol).sum())
+        n_grid = float((sim.medium.nd[:, 0].double().cpu().numpy()
+                        * sim.grid.volumes()).sum())
+        e = abs(n_grid / n_file - 1)
+        require(e <= 1e-6, f"{name}: dust on the grid against the file {e}")
+        res.update(leaves=sim.grid.ncells, depth=sim.grid.depth,
+                   dust_entities=n_grid, dust_rel_err=e,
+                   max_steps=sim.options.max_steps)
+        sim.num_packets = B_GEO                  # the warm-up: one batch
+        sim.run_primary(verbose=False)
+        sim.num_packets = N_GEO
+        out, launches, dt = _run_phase(torch, sim, must, dust)
+        res.update(packets=sim.num_packets, batch=sim.batch_size,
+                   seconds=dt, packets_per_s=sim.num_packets / dt,
+                   events=sim.last_stats.get("events"),
+                   launches={k: v for k, v in launches.items() if v})
+        L_host = ssp_entity_luminosities(
+            os.path.join(tmp, "bench4_ssp.stab"), col["minit"], col["Z"],
+            col["age"], sim.sources[0].family_tables.lam_range)
+        if dust:
+            info = out[2]
+            e_l = abs(info["L_dust"] / info["L_abs_primary"] - 1)
+            require(e_l <= 1e-4, f"{name}: L_dust / L_abs_primary - 1 {e_l}")
+            res.update(iterations=info["iterations"], L_dust=info["L_dust"],
+                       L_abs_primary=info["L_abs_primary"],
+                       L_dust_rel_err=e_l, tau=tau_gate(torch, sim))
+        else:
+            n = 1 << 22
+            counts = torch.zeros(sim.grid.ncells, dtype=torch.float64,
+                                 device=sim.device)
+            src, tabs = sim.sources[0], sim._src_tabs[0]
+            for b in range(n // (1 << 20)):
+                hist = torch.arange(b << 20, (b + 1) << 20, device=sim.device)
+                keys = rng.event_keys(rng.history_keys(rng.seed_key(
+                    97, sim.device), hist), rng.LAUNCH_EVENT)
+                cell = sim.grid.locate(src.launch(tabs, keys, n)["pos"])
+                require(bool((cell >= 0).all()), "launches inside the mesh")
+                counts += torch.bincount(cell, minlength=sim.grid.ncells
+                                         ).double()
+            res["sampling"] = chi2_gate(
+                counts.cpu().numpy(), n * L_host / L_host.sum(),
+                f"{name}'s launch positions over the leaves")
+            sim.num_packets = 1 << 18
+            res["transparent"] = transparent_gate(torch, sim, L_host.sum())
+        res["source_luminosity_W"] = float(L_host.sum())
+        sim.num_packets = B_GEO
+        res["breakdown"] = host_per_event(
+            torch, sim, (lambda s: s.run_with_dust_emission(verbose=False))
+            if dust else (lambda s: s.run_primary(verbose=False)))
+        del sim
+    torch.cuda.empty_cache()
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
+    return launches
+
+
+def phase_full_width_sph(torch, smi: str) -> dict:
+    """sph_galaxy: 10^5 gas particles (ParticleMedium, cubic spline) on a
+    density octree of maxLevel 8 and 2*10^4 star particles
+    (ParticleSource, bench4's SSP family), dust emission with a 25-bin
+    RF on the tree sweep (kernels 4-5, detect), 2^20 packets in batches of
+    2^16, 24 events, after a one-batch warm-up; the set-up seconds (the
+    tree refined on the kernel-smoothed density) recorded. Gates: the
+    resampled dust on the grid against the particles' (within 5%: cell
+    centres sample the kernel sum), L_dust = L_abs_primary (1e-4), 2^22
+    launch positions' kernel radii against the cubic spline's mass cdf
+    and their particles against the particles' luminosity cdf (3 sigma
+    each), a primary run's transparent SED against the particles'
+    luminosities (5 sigma); one batch profiled. The radii are held to the
+    cubic spline's cdf as the reference tabulates it (a 513-point running
+    sum, which puts a few 1e-3 of the mass half a point inward: 2^22
+    launches see that against the exact cdf)."""
+    from skirt9_tpu_torch.grids.octree import OctreeGrid
+    from skirt9_tpu_torch.imports import snapshots as snap
+    from skirt9_tpu_torch.ops import rng
+    res = {"phase": "full_width_sph"}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sim = snapshot_config("sph_galaxy", "cuda", tmp)
+        res["setup_s"] = time.perf_counter() - t0
+        require(isinstance(sim.grid, OctreeGrid), "sph_galaxy's octree")
+        gas = np.loadtxt(os.path.join(tmp, "sph_galaxy_gas.txt"))
+        stars = np.loadtxt(os.path.join(tmp, "sph_galaxy_stars.txt"))
+        n_file = float(gas[:, 4].sum() * 1.98892e30 / MU_MRN)
+        n_grid = float((sim.medium.nd[:, 0].double().cpu().numpy()
+                        * sim.grid.volumes()).sum())
+        e = abs(n_grid / n_file - 1)
+        require(e <= 0.05, f"sph_galaxy: dust on the grid against the "
+                f"particles' {e} <= 0.05")
+        res.update(leaves=sim.grid.ncells, levels=sim.grid.levels,
+                   gas_particles=len(gas), star_particles=len(stars),
+                   dust_entities=n_grid, dust_rel_err=e)
+        sim.num_packets = B_GEO                  # the warm-up: one batch
+        sim.run_primary(verbose=False)
+        sim.num_packets = N_GEO
+        out, launches, dt = _run_phase(torch, sim, ML, True)
+        info = out[2]
+        e_l = abs(info["L_dust"] / info["L_abs_primary"] - 1)
+        require(e_l <= 1e-4, f"sph_galaxy: L_dust / L_abs_primary - 1 {e_l}")
+        res.update(packets=sim.num_packets, batch=sim.batch_size, seconds=dt,
+                   packets_per_s=sim.num_packets / dt,
+                   events=sim.last_stats.get("events"),
+                   launches={k: v for k, v in launches.items() if v},
+                   iterations=info["iterations"], L_dust=info["L_dust"],
+                   L_abs_primary=info["L_abs_primary"], L_dust_rel_err=e_l)
+        src, tabs = sim.sources[0], sim._src_tabs[0]
+        L_host = ssp_entity_luminosities(
+            os.path.join(tmp, "bench4_ssp.stab"), stars[:, 4], stars[:, 5],
+            stars[:, 6], src.family_tables.lam_range)
+        n = 1 << 22
+        counts = torch.zeros(len(stars), dtype=torch.float64,
+                             device=sim.device)
+        q_edges = np.linspace(0.0, 1.0, 21)
+        q_counts = np.zeros(20)
+        pos_t = torch.tensor(stars[:, :3] * 3.08567758149e16,
+                             dtype=torch.float64, device=sim.device)
+        h_t = torch.tensor(stars[:, 3] * 3.08567758149e16,
+                           dtype=torch.float64, device=sim.device)
+        # the loader reads pc through its units: the same conversion
+        require(np.allclose(src.snapshot.positions, pos_t.cpu().numpy(),
+                            rtol=1e-12, atol=0), "star positions in m")
+        for b in range(n // (1 << 20)):
+            hist = torch.arange(b << 20, (b + 1) << 20, device=sim.device)
+            keys = rng.event_keys(rng.history_keys(rng.seed_key(
+                98, sim.device), hist), rng.LAUNCH_EVENT)
+            p = snap._pick(tabs, keys)
+            pos = src.launch(tabs, keys, n)["pos"].double()
+            q = ((pos - pos_t[p]).norm(dim=1) / h_t[p]).cpu().numpy()
+            q_counts += np.histogram(np.minimum(q, 1 - 1e-12), q_edges)[0]
+            counts += torch.bincount(p, minlength=len(stars)).double()
+        # the cubic spline's mass cdf as the reference tabulates it: the
+        # running sum of W(q) q^2 on 513 points, linear between them
+        qq = np.linspace(0.0, 1.0, 513)
+        w = np.where(qq < 0.5, 1 - 6 * qq ** 2 + 6 * qq ** 3,
+                     2 * (1 - qq) ** 3) * qq ** 2
+        cum = np.cumsum(w)
+        shares = np.diff(np.interp(q_edges, qq, cum / cum[-1]))
+        res["kernel_radii"] = chi2_gate(q_counts, n * shares,
+                                        "star launches' kernel radii")
+        res["sampling"] = chi2_gate(counts.cpu().numpy(),
+                                    n * L_host / L_host.sum(),
+                                    "star launches over the particles")
+        res["source_luminosity_W"] = float(L_host.sum())
+        sim.num_packets = 1 << 18
+        res["transparent"] = transparent_gate(torch, sim, L_host.sum())
+        sim.num_packets = B_GEO
+        res["breakdown"] = host_per_event(
+            torch, sim, lambda s: s.run_with_dust_emission(verbose=False))
+        del sim
+    torch.cuda.empty_cache()
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
+    return launches
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -5986,7 +6948,9 @@ def main() -> int:
     kern_march = phase_kernels_march(torch)
     kern_march.update(phase_kernels_march_tree(torch))
     kern_march.update(phase_kernels_march_curvi(torch))
+    kern_march.update(phase_kernels_march_amr(torch))
     kern_b5_tree = phase_kernels_b5_tree(torch)
+    kern_amr = phase_kernels_amr(torch)
     kern = phase_kernels(torch)
     kern.update(phase_kernels_xl(torch))
     torch.cuda.empty_cache()
@@ -6097,6 +7061,12 @@ def main() -> int:
         torch, smi, "disk_cyl")
     launches_disk_tree, _ = phase_full_width_geometric(torch, smi,
                                                         "disk_tree")
+    torch.cuda.empty_cache()
+    # imported hydro snapshots: AMR meshes and SPH particles
+    imports_small = phase_draw_for_draw_imports(torch)
+    launches_amr = phase_full_width_amr(torch, smi, "amr_galaxy")
+    launches_amr_march = phase_full_width_amr(torch, smi, "amr_galaxy_march")
+    launches_sph = phase_full_width_sph(torch, smi)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -6244,6 +7214,12 @@ def main() -> int:
         if name in ("mlsweep_dtau",) + ML + DETECT:
             # disk_tree: geometric sources on a density octree
             row["launches_disk_tree"] = launches_disk_tree[name]
+            # the imported snapshots: the AMR mesh and the SPH octree on
+            # the tree sweep, kernels 4-5 at amr_galaxy's first event
+            row["launches_amr_galaxy"] = launches_amr[name]
+            row["launches_sph_galaxy"] = launches_sph[name]
+            if name in kern_amr:
+                row["amr_galaxy"] = kern_amr[name]
         if name in DETECT:
             row["launches_disk_cyl"] = launches_disk_cyl[name]
         if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",):
@@ -6362,6 +7338,30 @@ def main() -> int:
                      "launches_draw_for_draw_geometric": {
                          case: n[name] for case, n in
                          launches_geo_small.items() if name in n}})
+    # the adaptive mesh's mode: amr_galaxy_march's 3 3 3 root on its
+    # full-width run, and tests/test_amr.py's meshes
+    k = kern_march["march_amr"]
+    rows.append({"name": "march_amr", "route": "cuda",
+                 "source": "skirt9_tpu_torch/csrc/march.cu",
+                 "replaces": "skirt9_tpu/transport/lifecycle.py:132 "
+                 "(march_geometry over skirt9_tpu/grids/amr.py:73 "
+                 "AMRGrid.step, an XLA scan: not a TPU kernel)",
+                 "path": "full_width_amr_march",
+                 "launches": launches_amr_march["march_amr"],
+                 **{key: k[key] for key in tree_keys},
+                 "amr_two_level": {key: kern_march["amr_two_level"][key]
+                                   for key in tree_keys},
+                 "amr_deep": {key: kern_march["amr_deep"][key]
+                              for key in tree_keys},
+                 "launches_draw_for_draw_imports": imports_small[
+                     "amr_galaxy_march_small"]["launches"]["march_amr"]})
+    for name in ("sweepxl_dtau_prefix", "sweepxl_deposit_prefix"):
+        # kernels 6-7 on amr_galaxy's 256^3 voxel raster (kernels_amr,
+        # with its one XL batch's launches)
+        row = next(r for r in rows if r["name"] == name)
+        row["amr_galaxy_voxel_raster"] = kern_amr[name]
+        row["launches_amr_galaxy_voxel_raster"] = kern_amr[
+            "xl_run_launches"].get(name, 0)
     for name in ("sweepxl_tau_total", "sweepxl_dtau_prefix",
                  "sweepxl_deposit_prefix", "detect"):
         # kernels 6-7 and detect's Stokes mode on bench5's tree raster,

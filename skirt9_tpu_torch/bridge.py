@@ -2,9 +2,11 @@
 
 Used by the tests to run one configuration through both packages, on
 uniform and meshed Cartesian grids, on the trees the reference's loader
-builds, on Voronoi grids with imported star particles, and on 1D spheres
-and 2D cylinders with geometric sources (their geometries and decorators
-converted class by class). The reference's
+builds, on adaptive meshes, on Voronoi grids with imported star particles,
+and on 1D spheres and 2D cylinders with geometric sources (their
+geometries and decorators converted class by class), and with the
+imported snapshots, geometries and sources (particles with a blackbody or
+an SED family, cells, AMR leaves and Voronoi cells). The reference's
 arrays are read with `np.asarray`, and its classes are matched by name, so
 this module never imports jax or the reference's jax modules. Anything the
 port does not run yet raises NotImplementedError. Where the reference runs
@@ -27,12 +29,14 @@ import numpy as np
 import torch
 
 from .grids.bintree import BinTreeGrid
-from .geometries import analytic, axial, decorators
+from .geometries import analytic, axial, decorators, imported
+from .grids.amr import AMRGrid
 from .grids.cartesian import CartesianGrid, UniformCartesianGrid
 from .grids.cylinder import Cylinder2DGrid
 from .grids.octree import OctreeGrid
 from .grids.sphere import Sphere1DGrid, length_shift
 from .grids.voronoi import VoronoiGrid
+from .imports import snapshots as snaps
 from .imports.snapshots import FamilyParticleSource, ParticleSnapshot
 from .instruments.distant import DistantInstrumentCfg
 from .media.system import MediumTables
@@ -78,6 +82,11 @@ def grid(ref_grid):
         return _tree(OctreeGrid, ref_grid)
     if name == "BinTreeGrid":
         return _tree(BinTreeGrid, ref_grid)
+    if name == "AMRGrid":
+        return AMRGrid(**{
+            f: int(getattr(ref_grid, f)) if f == "depth" else
+            torch.tensor(np.asarray(getattr(ref_grid, f)))
+            for f in AMRGrid._fields})
     if name == "VoronoiGrid":
         return VoronoiGrid(**{
             f: int(getattr(ref_grid, f)) if f == "walk_steps" else
@@ -108,7 +117,8 @@ def medium(ref_med) -> MediumTables:
                         sigma_ext=_f32(ref_med.sigma_ext),
                         sigma_sca=_f32(ref_med.sigma_sca), g=_f32(ref_med.g),
                         bulk_v=_f32(ref_med.bulk_v),
-                        temperature=_f32(ref_med.temperature))
+                        temperature=_f32(ref_med.temperature),
+                        metallicity=_f32(ref_med.metallicity))
 
 
 def mueller(ref_tabs) -> MuellerTables | None:
@@ -140,20 +150,35 @@ def sed(ref_sed) -> TabulatedSED | None:
                         s=np.asarray(ref_sed.s, np.float64))
 
 
+def snapshot(ref_ss):
+    """A reference snapshot, class by name and field by field."""
+    cls = getattr(snaps, type(ref_ss).__name__, None)
+    if cls is None or not dataclasses.is_dataclass(ref_ss):
+        raise NotImplementedError(f"snapshot {type(ref_ss).__name__} not "
+                                  "ported yet")
+    return cls(**{f.name: getattr(ref_ss, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def _family_tables(ft) -> FamilyTables:
+    """The family tables rebuilt from a reference family over the same
+    clip range."""
+    fam = ft.family
+    return FamilyTables(SEDFamily(lam=np.asarray(fam.lam),
+                                  L=np.asarray(fam.L),
+                                  param_axes=list(fam.param_axes),
+                                  scale_name=fam.scale_name),
+                        lam_range=ft.lam_range)
+
+
 def _family_source(ref_src) -> FamilyParticleSource:
     """A reference FamilyParticleSource: its particles, and the family
     tables rebuilt from its family over the same clip range."""
-    if ref_src.snapshot.velocity is not None:
-        raise NotImplementedError("particle velocities not ported yet")
-    ft, fam = ref_src.family_tables, ref_src.family_tables.family
     snap = ref_src.snapshot
     return FamilyParticleSource(
         snapshot=ParticleSnapshot(positions=snap.positions, h=snap.h,
-                                  mass=snap.mass),
-        family_tables=FamilyTables(
-            SEDFamily(lam=np.asarray(fam.lam), L=np.asarray(fam.L),
-                      param_axes=list(fam.param_axes),
-                      scale_name=fam.scale_name), lam_range=ft.lam_range),
+                                  mass=snap.mass, velocity=snap.velocity),
+        family_tables=_family_tables(ref_src.family_tables),
         scales=np.asarray(ref_src.scales), params=np.asarray(ref_src.params),
         kernel_kind=ref_src.kernel_kind)
 
@@ -162,18 +187,45 @@ def geometry(ref_geom):
     """A reference analytic geometry or decorator (nested ones too), class
     by name and field by field."""
     name = type(ref_geom).__name__
-    cls = next((getattr(m, name) for m in (analytic, axial, decorators)
+    cls = next((getattr(m, name) for m in (analytic, axial, decorators,
+                                           imported)
                 if hasattr(m, name)), None)
     if cls is None or not dataclasses.is_dataclass(ref_geom):
         raise NotImplementedError(f"geometry {name} not ported yet")
-    conv = lambda v: geometry(v) if hasattr(v, "density_np") else v
+
+    def conv(v):
+        if hasattr(v, "density_np"):
+            return geometry(v)
+        if type(v).__name__.endswith("Snapshot"):
+            return snapshot(v)
+        if type(v).__name__ == "AMRGrid":
+            return grid(v)
+        return v
     return cls(**{f.name: conv(getattr(ref_geom, f.name))
                   for f in dataclasses.fields(cls) if f.init})
 
 
 def source(ref_src):
-    if type(ref_src).__name__ == "FamilyParticleSource":
+    name = type(ref_src).__name__
+    if name == "FamilyParticleSource":
         return _family_source(ref_src)
+    if name == "ParticleSource":
+        return snaps.ParticleSource(
+            snapshot=snapshot(ref_src.snapshot),
+            luminosities=np.asarray(ref_src.luminosities),
+            temperatures=np.asarray(ref_src.temperatures))
+    if name == "CellFamilySource":
+        return snaps.CellFamilySource(
+            lo=np.asarray(ref_src.lo), hi=np.asarray(ref_src.hi),
+            family_tables=_family_tables(ref_src.family_tables),
+            scales=np.asarray(ref_src.scales),
+            params=np.asarray(ref_src.params), velocity=ref_src.velocity)
+    if name == "EntityFamilySource":
+        return snaps.EntityFamilySource(
+            sampler=geometry(ref_src.sampler),
+            family_tables=_family_tables(ref_src.family_tables),
+            scales=np.asarray(ref_src.scales),
+            params=np.asarray(ref_src.params), velocity=ref_src.velocity)
     if type(ref_src).__name__ == "GeometricSource":
         return dataclasses.replace(_same_fields(GeometricSource, ref_src),
                                    geometry=geometry(ref_src.geometry),

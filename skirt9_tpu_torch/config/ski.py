@@ -3,17 +3,25 @@
 Port of `skirt9_tpu/config/ski.py` (`load_ski`, `_load_ski` and the
 `build_*` functions) for the item types the port runs: primary emission
 of point sources with a blackbody, file or Gaussian Lyman-alpha SED (or
-oligochromatic, at one wavelength) and of imported star particles with an
-SSP family (`ParticleSource` with a cubic-spline kernel and a
-`FileSSPSEDFamily`), geometric sources (`GeometricSource`) and media of
-every analytic, axial and decorator geometry the reference's loader
-builds, of trivial gas, mean-file dust, electron (with polarized Thomson
+oligochromatic, at one wavelength), of imported entities with a blackbody,
+indexed or SSP family (`ParticleSource` with any of the four smoothing
+kernels, `CellSource`, `VoronoiMeshSource`, `AdaptiveMeshSource`),
+geometric sources (`GeometricSource`) and media of every analytic, axial,
+imported and decorator geometry the reference's loader builds (the
+imported ones: `ParticleGeometry`, `CellGeometry`,
+`CylindricalCellGeometry`, `SphericalCellGeometry`, `VoronoiMeshGeometry`,
+`AdaptiveMeshGeometry`), of trivial gas, mean-file dust, the reference's
+mean interstellar dust, electron (with polarized Thomson
 scattering), neutral-hydrogen Lyman-alpha (`LyaExtinctionOnly` with its
 `LyaOptions`) or X-ray atomic gas mixes normalised by optical depth,
 entity number or number column, moving media (a vector field times a
 velocity magnitude, sampled at the cell centres), an imported Voronoi mesh
 medium (`VoronoiMeshMedium`, one density per site) on its own
-`VoronoiMeshSpatialGrid` (policy ImportedMesh), Cartesian grids (linear
+`VoronoiMeshSpatialGrid` (policy ImportedMesh), an imported adaptive mesh
+(`AdaptiveMeshMedium`) on its own `AdaptiveMeshSpatialGrid`, imported
+particle and cell media (`ParticleMedium`, `CellMedium`) resampled onto
+any grid below (the media's metallicity, temperature and velocity
+imports as the reference reads them), Cartesian grids (linear
 meshes, or any of the reference's meshes: power-law, symmetric power-law,
 logarithmic, symmetric logarithmic, symmetric cosine, tabulated, list and
 file meshes, which the scan march walks), the 1D sphere and the 2D
@@ -47,8 +55,10 @@ import torch
 from ..geometries import analytic as ga
 from ..geometries import axial as gax
 from ..geometries import decorators as dec
+from ..geometries import imported as ig
 from ..geometries import vectorfield as vf
 from ..grids import bintree, octree
+from ..grids.amr import build_amr
 from ..grids import meshes as msh
 from ..grids.cartesian import make_cartesian
 from ..grids.cylinder import Cylinder2DGrid, make_cylinder2d
@@ -113,7 +123,25 @@ ITEMS = frozenset((
     "AxPowerLawRedistributeGeometryDecorator", "BoxClipGeometryDecorator",
     "CylindricalClipGeometryDecorator", "CombineGeometryDecorator",
     "ClumpyGeometryDecorator", "SpiralStructureGeometryDecorator",
-    "Sphere1DSpatialGrid", "Cylinder2DSpatialGrid"))
+    "Sphere1DSpatialGrid", "Cylinder2DSpatialGrid",
+    # imported snapshots: AMR meshes, particle and cell media, the mesh and
+    # cell sources with their SED families, the imported geometries
+    "AdaptiveMeshMedium", "AdaptiveMeshSpatialGrid", "ParticleMedium",
+    "CellMedium", "CellSource", "VoronoiMeshSource", "AdaptiveMeshSource",
+    "BlackBodySEDFamily", "FileIndexedSEDFamily",
+    "QuarticSplineSmoothingKernel", "UniformSmoothingKernel",
+    "ScaledGaussianSmoothingKernel", "MeanInterstellarDustMix",
+    "ParticleGeometry", "CellGeometry", "CylindricalCellGeometry",
+    "SphericalCellGeometry", "VoronoiMeshGeometry",
+    "AdaptiveMeshGeometry"))
+
+# the imported geometries (`build_imported_geometry`)
+IMPORTED_GEOMETRIES = ("ParticleGeometry", "CellGeometry",
+                       "CylindricalCellGeometry", "SphericalCellGeometry",
+                       "VoronoiMeshGeometry", "AdaptiveMeshGeometry")
+
+# the reference's AMR unit constants (`skirt9_tpu/config/ski.py:1944`)
+_MSUN, _PC = 1.98892e30, 3.0857e16
 
 # the properties (lower-case elements) that hold those items
 PROPERTIES = frozenset((
@@ -175,11 +203,14 @@ def check_items(root) -> None:
 
 # ------------------------------------------------------- build functions
 
-def build_geometry(el):
-    """An analytic geometry or a decorator of one (`skirt9_tpu/config/
-    ski.py:84-255`, the file-backed geometries left out), with the
-    reference's attributes, defaults and units."""
+def build_geometry(el, base_dir: str = "."):
+    """An analytic, axial or imported geometry or a decorator of one
+    (`skirt9_tpu/config/ski.py:84-263`), with the reference's attributes,
+    defaults and units; an imported geometry's file resolves against
+    base_dir, also inside a decorator."""
     t, a = el.tag, el.attrib
+    if t in IMPORTED_GEOMETRIES:
+        return build_imported_geometry(el, base_dir)
     if t == "PlummerGeometry":
         return ga.PlummerGeometry(b=_q(a, "scaleLength", "length"))
     if t == "GammaGeometry":
@@ -254,13 +285,13 @@ def build_geometry(el):
             h_out=_q(a, "scaleLengthOuter", "length"),
             hz=_q(a, "scaleHeight", "length"),
             rb=_q(a, "breakRadius", "length"))
-    return build_decorator(el)
+    return build_decorator(el, base_dir)
 
 
-def build_decorator(el):
+def build_decorator(el, base_dir: str = "."):
     """A geometry decorator wrapping the geometry of its nested item."""
     t, a = el.tag, el.attrib
-    base = lambda: build_geometry(_child(el, "geometry"))
+    base = lambda: build_geometry(_child(el, "geometry"), base_dir)
     remove_inside = a.get("remove", "Inside") == "Inside"
     if t == "OffsetGeometryDecorator":
         return dec.OffsetDecorator(
@@ -306,8 +337,8 @@ def build_decorator(el):
             radius=_q(a, "clipRadius", "length"))
     if t == "CombineGeometryDecorator":
         return dec.CombineDecorator(
-            first=build_geometry(_child(el, "firstGeometry")),
-            second=build_geometry(_child(el, "secondGeometry")),
+            first=build_geometry(_child(el, "firstGeometry"), base_dir),
+            second=build_geometry(_child(el, "secondGeometry"), base_dir),
             w1=_f(a, "firstWeight", 1.0), w2=_f(a, "secondWeight", 1.0))
     if t == "ClumpyGeometryDecorator":
         return dec.ClumpyDecorator(
@@ -324,6 +355,107 @@ def build_decorator(el):
             perturbation_weight=_f(a, "perturbationWeight", 0.25),
             index=int(_f(a, "index", 1)))
     raise NotImplementedError(f"geometry type '{t}' not ported yet")
+
+
+def build_imported_geometry(el, base_dir: str):
+    """Snapshot data as a normalized geometry (`skirt9_tpu/config/ski.py:
+    263-392`; ref: ImportedGeometry.hpp:19): the snapshot's columns in the
+    reference's order and units, an imported metallicity scaling each
+    entity's mass, a positive maxTemperature dropping the hotter
+    entities."""
+    t, a = el.tag, el.attrib
+    fn = _resolve(a["filename"], base_dir)
+    import_z = a.get("importMetallicity", "false") == "true"
+    import_t = a.get("importTemperature", "false") == "true"
+    max_t = _q(a, "maxTemperature", "temperature", 0.0) if import_t else 0.0
+    mt = a.get("massType", "MassDensity")
+
+    def zt_cols(cols):
+        if import_z:
+            cols.append(("Z", "", ""))
+        if import_t:
+            cols.append(("T", "temperature", "K"))
+        return cols
+
+    def mass_post(mass, d):
+        mass = np.asarray(mass, np.float64)
+        if import_z:
+            mass = mass * d["Z"]
+        if import_t and max_t > 0:
+            mass = np.where(d["T"] <= max_t, mass, 0.0)
+        return mass
+
+    if t == "ParticleGeometry":
+        kern_el = _child(el, "smoothingKernel")
+        d = snap.read_column_file(fn, zt_cols([
+            ("x", "length", "pc"), ("y", "length", "pc"),
+            ("z", "length", "pc"), ("h", "length", "pc"),
+            ("M", "mass", "Msun")]))
+        ss = snap.ParticleSnapshot(
+            positions=np.stack([d["x"], d["y"], d["z"]], axis=-1),
+            h=d["h"], mass=mass_post(d["M"], d))
+        return ig.ParticleGeometry(
+            snapshot=ss, kernel_kind=(kern_el.tag if kern_el is not None
+                                      else "CubicSplineSmoothingKernel"))
+    if t == "CellGeometry":
+        cols = [(f"{x}{e}", "length", "pc") for e in ("min", "max")
+                for x in "xyz"]
+        cols.append(("rho", "massvolumedensity", "Msun/pc3")
+                    if mt == "MassDensity" else ("M", "mass", "Msun"))
+        d = snap.read_column_file(fn, zt_cols(cols))
+        lo = np.stack([d["xmin"], d["ymin"], d["zmin"]], axis=-1)
+        hi = np.stack([d["xmax"], d["ymax"], d["zmax"]], axis=-1)
+        mass = (d["rho"] * np.prod(hi - lo, axis=-1)
+                if mt == "MassDensity" else d["M"])
+        return ig.CellGeometry(snapshot=snap.CellSnapshot(
+            lo=lo, hi=hi, mass=mass_post(mass, d)))
+    if t in ("CylindricalCellGeometry", "SphericalCellGeometry"):
+        names = (("R", "phi", "z") if t == "CylindricalCellGeometry"
+                 else ("r", "theta", "phi"))
+        qty = {"R": ("length", "pc"), "r": ("length", "pc"),
+               "z": ("length", "pc"), "phi": ("posangle", "deg"),
+               "theta": ("posangle", "deg")}
+        cols = [(f"{n}{e}", *qty[n]) for e in ("min", "max") for n in names]
+        d = snap.read_column_file(fn, zt_cols(cols + [("M", "mass",
+                                                       "Msun")]))
+        lo = np.stack([d[f"{n}min"] for n in names], axis=-1)
+        hi = np.stack([d[f"{n}max"] for n in names], axis=-1)
+        if t == "CylindricalCellGeometry":
+            return ig.CylindricalCellGeometry(
+                snapshot=snap.CylindricalCellSnapshot(
+                    lo=lo, hi=hi, mass=mass_post(d["M"], d)))
+        return ig.SphericalCellGeometry(snapshot=snap.SphericalCellSnapshot(
+            lo=lo, hi=hi, mass=mass_post(d["M"], d)))
+    ext_box = _extent(a)
+    if t == "VoronoiMeshGeometry":
+        cols = [("x", "length", "pc"), ("y", "length", "pc"),
+                ("z", "length", "pc")]
+        cols.append(("rho", "massvolumedensity", "Msun/pc3")
+                    if mt == "MassDensity" else ("M", "mass", "Msun"))
+        d = snap.read_column_file(fn, zt_cols(cols))
+        sites = np.stack([d["x"], d["y"], d["z"]], axis=-1)
+        if mt == "MassDensity":
+            return ig.VoronoiMeshGeometry(
+                sites=sites, mass_density=mass_post(d["rho"], d),
+                extent=ext_box)
+        return ig.VoronoiMeshGeometry(sites=sites, mass=mass_post(d["M"], d),
+                                      extent=ext_box)
+    # AdaptiveMeshGeometry: leaf rows density or mass, [Z], [T]
+    grid, leaf = build_amr(fn, ext_box)
+    q = leaf[:, 0]
+    if mt == "MassDensity":
+        mass = q * (_MSUN / _PC ** 3) * grid.volumes()
+    elif mt == "Mass":
+        mass = q * _MSUN
+    else:
+        raise NotImplementedError(f"AdaptiveMeshGeometry massType='{mt}' "
+                                  "not ported yet (MassDensity, Mass)")
+    d, col = {}, 1
+    for name, on in (("Z", import_z), ("T", import_t)):
+        if on:
+            d[name] = leaf[:, col]
+            col += 1
+    return ig.AdaptiveMeshGeometry(grid=grid, mass=mass_post(mass, d))
 
 
 def build_sed(el, base_dir: str):
@@ -351,49 +483,148 @@ def source_luminosity(el) -> float:
     return _q(norm.attrib, "integratedLuminosity", "bolluminosity")
 
 
-def _import_flags(el) -> None:
+# why an import flag the port does not read is not ported yet
+_FLAG_REASONS = {
+    "importVelocity": "moving sources need emission Doppler shifts (ROADMAP "
+                      "queue A item 45)",
+    "importMagneticField": "the field serves the aligned spheroidal grains "
+                           "(ROADMAP queue A item 32)",
+    "importVariableMixParams": "variable material mixes (ROADMAP queue A "
+                               "item 31)"}
+
+
+def _import_flags(el, allowed=()) -> None:
     """Raise NotImplementedError naming an imported item's `import*` flag
-    that is set, or its `useColumns`: the port reads the default columns
-    only."""
+    that is set and not in `allowed`, or its `useColumns`: the port reads
+    the default columns only."""
     on = [k for k, v in el.attrib.items()
-          if k.startswith("import") and v == "true"]
+          if k.startswith("import") and v == "true" and k not in allowed]
     if el.attrib.get("useColumns"):
         on.append("useColumns")
     if on:
-        raise NotImplementedError(f"{el.tag} {', '.join(on)} not ported yet")
+        why = [_FLAG_REASONS[k] for k in on if k in _FLAG_REASONS]
+        raise NotImplementedError(
+            f"{el.tag} {', '.join(on)} not ported yet"
+            + (f": {'; '.join(why)}" if why else ""))
+
+
+# the SED families of the imported sources and their parameter columns
+# (ref: SEDFamily::parameterInfo; `skirt9_tpu/config/ski.py:693-710`)
+FAMILY_COLUMNS = {
+    "BlackBodySEDFamily": [("R", "length", "km"), ("T", "temperature", "K")],
+    "FileIndexedSEDFamily": [("L", "", ""), ("index", "", "")],
+    "FileSSPSEDFamily": [("Minit", "mass", "Msun"), ("Z", "", ""),
+                         ("t", "time", "yr")]}
+
+
+def _family_kind(el):
+    """(family element, family type) of an imported source; BlackBody by
+    default, as in the reference."""
+    fam_el = _child(el, "sedFamily")
+    ft = fam_el.tag if fam_el is not None else "BlackBodySEDFamily"
+    if ft not in FAMILY_COLUMNS:
+        raise NotImplementedError(
+            f"SED family '{ft}' not ported yet ({', '.join(FAMILY_COLUMNS)};"
+            " the named families need resource packs)")
+    if fam_el is not None and \
+            fam_el.attrib.get("hasIonizationParameter", "false") == "true":
+        raise NotImplementedError(f"{ft} hasIonizationParameter not ported "
+                                  "yet")
+    return fam_el, ft
+
+
+def _family_tables(ft, fam_el, base_dir: str, lam_range, d):
+    """(FamilyTables over lam_range, scales, params) of an imported
+    source's entities from their columns d (`skirt9_tpu/config/ski.py:
+    661-690`): a blackbody family on a temperature grid spanning the
+    entities' with area scales 4 pi R^2, an indexed family with luminosity
+    scales, an SSP family per Msun of initial mass with ages in years (its
+    table's units: the SI columns are scaled back, ref:
+    FileSSPSEDFamily.cpp:44-47)."""
+    if ft == "BlackBodySEDFamily":
+        lam_grid = np.geomspace(max(lam_range[0] * 0.5, 1e-9),
+                                lam_range[1] * 2.0, 600)
+        Tgrid = np.geomspace(max(d["T"].min() * 0.9, 1.0),
+                             d["T"].max() * 1.1, 48)
+        fam = sf.blackbody_family(Tgrid, lam_grid)
+        scales, params = 4.0 * np.pi * d["R"] ** 2, d["T"][:, None]
+    elif ft == "FileIndexedSEDFamily":
+        fam = sf.load_indexed_family(_resolve(fam_el.attrib["filename"],
+                                              base_dir))
+        scales, params = d["L"], d["index"][:, None]
+    else:
+        fam = sf.load_ssp_family(_resolve(fam_el.attrib["filename"],
+                                          base_dir))
+        scales = d["Minit"] / sf.M_SUN
+        params = np.stack([d["Z"], d["t"] / const.YEAR], axis=-1)
+    return sf.FamilyTables(fam, lam_range=lam_range), scales, params
 
 
 def build_particle_source(el, base_dir: str, lam_range):
-    """ParticleSource with a FileSSPSEDFamily (`skirt9_tpu/config/ski.py:
-    754-860`): text columns x y z h (pc), Minit (Msun), Z and age (yr);
-    the family's table is per Msun with ages in years, so the imported SI
-    values are scaled back (ref: FileSSPSEDFamily.cpp:44-47). The
-    source's `wavelengthBias` and weight are read and ignored, as the
-    reference ignores them."""
+    """ParticleSource with a blackbody, indexed or SSP family (`skirt9_tpu/
+    config/ski.py:754-860`): text columns x y z h (pc) and the family's
+    columns; a smoothing kernel of any of the four kinds. The source's
+    `wavelengthBias` and weight are read and ignored, as the reference
+    ignores them."""
     _import_flags(el)
-    fam_el = _child(el, "sedFamily")
-    if fam_el is None or fam_el.tag != "FileSSPSEDFamily":
-        raise NotImplementedError(
-            f"SED family '{fam_el.tag if fam_el is not None else 'none'}' "
-            "not ported yet (FileSSPSEDFamily)")
-    if fam_el.attrib.get("hasIonizationParameter", "false") == "true":
-        raise NotImplementedError("FileSSPSEDFamily hasIonizationParameter "
-                                  "not ported yet")
+    fam_el, ft = _family_kind(el)
     kern_el = _child(el, "smoothingKernel")
     d = snap.read_column_file(_resolve(el.attrib["filename"], base_dir), [
         ("x", "length", "pc"), ("y", "length", "pc"), ("z", "length", "pc"),
-        ("h", "length", "pc"), ("Minit", "mass", "Msun"), ("Z", "", ""),
-        ("t", "time", "yr")])
+        ("h", "length", "pc")] + FAMILY_COLUMNS[ft])
     pos = np.stack([d["x"], d["y"], d["z"]], axis=-1)
     ps = snap.ParticleSnapshot(positions=pos, h=d["h"],
                                mass=np.ones(len(pos)))
-    fam = sf.load_ssp_family(_resolve(fam_el.attrib["filename"], base_dir))
+    tabs, scales, params = _family_tables(ft, fam_el, base_dir, lam_range, d)
     return snap.FamilyParticleSource(
-        snapshot=ps, family_tables=sf.FamilyTables(fam, lam_range=lam_range),
-        scales=d["Minit"] / sf.M_SUN,
-        params=np.stack([d["Z"], d["t"] / const.YEAR], axis=-1),
+        snapshot=ps, family_tables=tabs, scales=scales, params=params,
         kernel_kind=(kern_el.tag if kern_el is not None
                      else "CubicSplineSmoothingKernel"))
+
+
+def build_cell_source(el, base_dir: str, lam_range):
+    """CellSource (`skirt9_tpu/config/ski.py:865-930`): box cells xmin ymin
+    zmin xmax ymax zmax (pc) and the family's columns, uniform in-cell
+    launch positions."""
+    _import_flags(el)
+    fam_el, ft = _family_kind(el)
+    d = snap.read_column_file(_resolve(el.attrib["filename"], base_dir), [
+        (f"{x}{e}", "length", "pc") for e in ("min", "max") for x in "xyz"]
+        + FAMILY_COLUMNS[ft])
+    tabs, scales, params = _family_tables(ft, fam_el, base_dir, lam_range, d)
+    return snap.CellFamilySource(
+        lo=np.stack([d["xmin"], d["ymin"], d["zmin"]], axis=-1),
+        hi=np.stack([d["xmax"], d["ymax"], d["zmax"]], axis=-1),
+        family_tables=tabs, scales=scales, params=params)
+
+
+def build_mesh_source(el, base_dir: str, lam_range):
+    """VoronoiMeshSource (sites x y z (pc) and the family's columns) or
+    AdaptiveMeshSource (a Morton-order AMR file whose leaf rows are the
+    family's columns) in the item's box (`skirt9_tpu/config/ski.py:
+    693-752`): every cell an emitting entity, positions uniform in the
+    Voronoi cell or the leaf box through the imported geometry's
+    sampler."""
+    _import_flags(el)
+    fam_el, ft = _family_kind(el)
+    fn = _resolve(el.attrib["filename"], base_dir)
+    ext_box = _extent(el.attrib)
+    if el.tag == "VoronoiMeshSource":
+        d = snap.read_column_file(fn, [("x", "length", "pc"),
+                                       ("y", "length", "pc"),
+                                       ("z", "length", "pc")]
+                                  + FAMILY_COLUMNS[ft])
+        sites = np.stack([d["x"], d["y"], d["z"]], axis=-1)
+        sampler = ig.VoronoiMeshGeometry(sites=sites, mass=np.ones(len(sites)),
+                                         extent=ext_box)
+    else:
+        grid, leaf = build_amr(fn, ext_box)
+        d = {name: leaf[:, i] * (U.to_si(qty, 1.0, unit) if unit else 1.0)
+             for i, (name, qty, unit) in enumerate(FAMILY_COLUMNS[ft])}
+        sampler = ig.AdaptiveMeshGeometry(grid=grid, mass=np.ones(grid.ncells))
+    tabs, scales, params = _family_tables(ft, fam_el, base_dir, lam_range, d)
+    return snap.EntityFamilySource(sampler=sampler, family_tables=tabs,
+                                   scales=scales, params=params)
 
 
 def _resolve(fn: str, base_dir: str) -> str:
@@ -401,13 +632,21 @@ def _resolve(fn: str, base_dir: str) -> str:
     return fn if os.path.isabs(fn) else os.path.join(base_dir, fn)
 
 
+_IMPORTED_SOURCES = {"ParticleSource": build_particle_source,
+                     "CellSource": build_cell_source,
+                     "VoronoiMeshSource": build_mesh_source,
+                     "AdaptiveMeshSource": build_mesh_source}
+
+
 def build_source(el, base_dir: str, lam_range=None):
-    """A PointSource, a GeometricSource, or a ParticleSource over lam_range
-    (the source range, else 1e-8 to 1e-3 m, as the reference takes it). A
-    point or geometric source's velocity and weight are read and ignored,
-    as the reference ignores them."""
-    if el.tag == "ParticleSource":
-        return build_particle_source(el, base_dir, lam_range or (1e-8, 1e-3))
+    """A PointSource, a GeometricSource, or an imported source (particles,
+    cells, a Voronoi or an adaptive mesh) over lam_range (the source range,
+    else 1e-8 to 1e-3 m, as the reference takes it). A point or geometric
+    source's velocity and weight are read and ignored, as the reference
+    ignores them."""
+    if el.tag in _IMPORTED_SOURCES:
+        return _IMPORTED_SOURCES[el.tag](el, base_dir,
+                                         lam_range or (1e-8, 1e-3))
     a = el.attrib
     if el.tag == "GeometricSource":
         # `skirt9_tpu/config/ski.py:608-616`
@@ -416,7 +655,7 @@ def build_source(el, base_dir: str, lam_range=None):
         if "wavelengthBias" in a:
             kw["wavelength_bias"] = _f(a, "wavelengthBias", 0.5)
         return GeometricSource(
-            geometry=build_geometry(_child(el, "geometry")),
+            geometry=build_geometry(_child(el, "geometry"), base_dir),
             luminosity=source_luminosity(el),
             sed=build_sed(sed_el, base_dir) if sed_el is not None else None,
             **kw)
@@ -453,6 +692,8 @@ def build_mix(el, base_dir: str) -> mx.MixTables:
             # as in the reference (ref: ElectronMix.hpp:60)
             object.__setattr__(emix, "_mueller", stk.electron_mueller())
         return emix
+    if el.tag == "MeanInterstellarDustMix":
+        return mx.mean_interstellar_approx()
     if el.tag == "TrivialGasMix":
         a = el.attrib
         return mx.trivial_gas(_q(a, "absorptionCrossSection", "section"),
@@ -550,7 +791,9 @@ def build_voronoi_medium(media, grid_el, base_dir: str):
     ski.py:1763-1800, 1983-2000`): columns x y z (pc) and a mass (Msun/pc3)
     or number (1/cm3) density per site; the VoronoiMeshSpatialGrid with the
     ImportedMesh policy tessellates the medium's sites in the medium's box.
-    The medium's massFraction and maxTemperature and the grid's numSites,
+    The imported metallicity (which scales the density), temperature and
+    velocity (km/s) follow in that order, as the reference reads them. The
+    medium's massFraction and maxTemperature and the grid's numSites,
     filename and relaxSites are read and ignored, as the reference ignores
     them. Returns (grid, medium, mix)."""
     if len(media) != 1:
@@ -565,7 +808,8 @@ def build_voronoi_medium(media, grid_el, base_dir: str):
     if policy != "ImportedMesh":
         raise NotImplementedError(f"VoronoiMeshSpatialGrid policy='{policy}'"
                                   " not ported yet (ImportedMesh)")
-    _import_flags(m_el)
+    _import_flags(m_el, ("importMetallicity", "importTemperature",
+                         "importVelocity"))
     a = m_el.attrib
     mass_type = a.get("massType", "MassDensity")
     density = {"MassDensity": ("massvolumedensity", "Msun/pc3"),
@@ -575,11 +819,148 @@ def build_voronoi_medium(media, grid_el, base_dir: str):
                                   " not ported yet")
     d = snap.read_column_file(_resolve(a["filename"], base_dir), [
         ("x", "length", "pc"), ("y", "length", "pc"), ("z", "length", "pc"),
-        ("rho", *density[mass_type])])
+        ("rho", *density[mass_type])] + _state_columns(a))
     mix = build_mix(_child(m_el, "materialMix"), base_dir)
     grid = build_voronoi(np.stack([d["x"], d["y"], d["z"]], axis=-1),
                          _extent(a))
-    return grid, msys.site_medium(grid, d["rho"], mass_type, mix), mix
+    return grid, msys.site_medium(
+        grid, d["rho"], mass_type, mix, metallicity=d.get("Z"),
+        temperature=d.get("T"), bulk_v=_velocity(d)), mix
+
+
+def _state_columns(a) -> list:
+    """The columns of an imported medium's state after its density: [Z],
+    [T (K)], [vx vy vz (km/s)], in the order the reference imports them
+    (ref: ImportedMedium.cpp:18-24)."""
+    cols = []
+    if a.get("importMetallicity", "false") == "true":
+        cols.append(("Z", "", ""))
+    if a.get("importTemperature", "false") == "true":
+        cols.append(("T", "temperature", "K"))
+    if a.get("importVelocity", "false") == "true":
+        cols += [(f"v{x}", "velocity", "km/s") for x in "xyz"]
+    return cols
+
+
+def _velocity(d):
+    return (np.stack([d["vx"], d["vy"], d["vz"]], axis=-1) if "vx" in d
+            else None)
+
+
+def build_amr_medium(media, grid_el, base_dir: str):
+    """An AdaptiveMeshMedium on its AdaptiveMeshSpatialGrid (`skirt9_tpu/
+    config/ski.py:1733-1762, 1932-1977`): the Morton-order file's leaf rows
+    hold the density as massType says (MassDensity in Msun/pc3, Mass in
+    Msun, NumberDensity in 1/cm3, Number), then [Z] (which scales the
+    density), [T (K)] and [vx vy vz (km/s)]. The medium's massFraction is
+    read and ignored, as the reference ignores it. Returns (grid, medium,
+    mix)."""
+    if len(media) != 1:
+        raise NotImplementedError("mixing AdaptiveMeshMedium with other "
+                                  "media not ported yet")
+    m_el = media[0]
+    if grid_el.tag != "AdaptiveMeshSpatialGrid":
+        raise NotImplementedError(
+            f"AdaptiveMeshMedium on a {grid_el.tag} not ported yet (its own "
+            "AdaptiveMeshSpatialGrid)")
+    _import_flags(m_el, ("importMetallicity", "importTemperature",
+                         "importVelocity"))
+    a = m_el.attrib
+    mix = build_mix(_child(m_el, "materialMix"), base_dir)
+    grid, leaf = build_amr(_resolve(a["filename"], base_dir), _extent(a))
+    vol = grid.volumes()
+    q = leaf[:, 0]
+    mtype = a.get("massType", "MassDensity")
+    if mtype == "MassDensity":
+        nd = q * (_MSUN / _PC ** 3) / mix.mu
+    elif mtype == "Mass":
+        nd = q * _MSUN / (mix.mu * vol)
+    elif mtype == "NumberDensity":
+        nd = q * 1e6
+    elif mtype == "Number":
+        nd = q / vol
+    else:
+        raise NotImplementedError(f"AdaptiveMeshMedium massType='{mtype}' "
+                                  "not ported yet")
+    d, col = {}, 1
+    for name, qty, unit in _state_columns(a):
+        d[name] = leaf[:, col] * (1e3 if qty == "velocity" else 1.0)
+        col += 1
+    if "Z" in d:
+        nd = nd * d["Z"]
+    lam, se, al, gg = mx.stack([mix])
+    vel = _velocity(d)
+    return grid, msys.make_medium(
+        grid, nd.astype(np.float32), lam, se, al, gg,
+        bulk_v=None if vel is None else vel.astype(np.float32),
+        temperature=d.get("T"), metallicity=d.get("Z")), mix
+
+
+class _SnapshotDensity:
+    """A snapshot's mass density as the density_np of a grid-refinement
+    policy (the reference's `_SnapGeom`, `skirt9_tpu/config/ski.py:
+    1880-1897`)."""
+
+    def __init__(self, ss):
+        self.ss = ss
+
+    def density_np(self, pts):
+        if hasattr(self.ss, "density_at"):
+            return self.ss.density_at(pts)
+        return self.ss.box_density(pts)
+
+
+def build_snapshot_medium(media, grid_el, base_dir: str):
+    """A ParticleMedium (columns x y z h (pc), M (Msun)) or a CellMedium
+    (xmin ymin zmin xmax ymax zmax (pc), a density in Msun/pc3 or a mass
+    in Msun), then [Z] (which scales the mass) and [vx vy vz (km/s)],
+    resampled onto the ski file's grid (`skirt9_tpu/config/ski.py:
+    1828-1900, 2070-2088`): a density-policy tree refines on the
+    snapshot's density, the cells take the kernel-smoothed density at
+    their centres (particles) or the box density at 4 seeded points
+    (cells), and the nearest particle's or the holding box's velocity.
+    Returns (grid, medium, mix)."""
+    if len(media) != 1:
+        raise NotImplementedError(f"mixing {media[0].tag} with other media "
+                                  "not ported yet")
+    m_el = media[0]
+    a = m_el.attrib
+    if a.get("importTemperature", "false") == "true":
+        raise NotImplementedError(
+            f"{m_el.tag} importTemperature not ported yet (the reference "
+            "stores the entities' temperatures as the cells')")
+    _import_flags(m_el, ("importMetallicity", "importVelocity"))
+    if m_el.tag == "ParticleMedium":
+        cols = [("x", "length", "pc"), ("y", "length", "pc"),
+                ("z", "length", "pc"), ("h", "length", "pc"),
+                ("M", "mass", "Msun")]
+    else:
+        cols = [(f"{x}{e}", "length", "pc") for e in ("min", "max")
+                for x in "xyz"]
+        cols.append(("rho", "massvolumedensity", "Msun/pc3")
+                    if a.get("massType", "MassDensity") == "MassDensity"
+                    else ("M", "mass", "Msun"))
+    d = snap.read_column_file(_resolve(a["filename"], base_dir),
+                              cols + _state_columns(a))
+    mix = build_mix(_child(m_el, "materialMix"), base_dir)
+    zfac = d["Z"] if "Z" in d else 1.0
+    if m_el.tag == "ParticleMedium":
+        ss = snap.ParticleSnapshot(
+            positions=np.stack([d["x"], d["y"], d["z"]], axis=-1), h=d["h"],
+            mass=d["M"] * zfac, velocity=_velocity(d))
+    else:
+        lo = np.stack([d["xmin"], d["ymin"], d["zmin"]], axis=-1)
+        hi = np.stack([d["xmax"], d["ymax"], d["zmax"]], axis=-1)
+        mass = (d["rho"] * np.prod(hi - lo, axis=-1) if "rho" in d
+                else d["M"]) * zfac
+        ss = snap.CellSnapshot(lo=lo, hi=hi, mass=mass, velocity=_velocity(d))
+    grid = build_grid(grid_el, _SnapshotDensity(ss), base_dir)
+    nd = ss.density_on_cells(grid) / mix.mu
+    vel = ss.velocity_on_cells(grid) if ss.velocity is not None else None
+    lam, se, al, gg = mx.stack([mix])
+    return grid, msys.make_medium(
+        grid, nd.astype(np.float32), lam, se, al, gg,
+        bulk_v=None if vel is None else vel.astype(np.float32)), mix
 
 
 def bulk_velocities(grid, nd, velocity_fields) -> np.ndarray:
@@ -620,6 +1001,9 @@ def build_grid(el, geometry, base_dir: str = "."):
         raise NotImplementedError(
             f"VoronoiMeshSpatialGrid policy='{a.get('policy', 'DustDensity')}'"
             " not ported yet (ImportedMesh, with a VoronoiMeshMedium)")
+    if el.tag == "AdaptiveMeshSpatialGrid":
+        raise NotImplementedError("AdaptiveMeshSpatialGrid without an "
+                                  "AdaptiveMeshMedium not ported yet")
     if el.tag == "PolicyTreeSpatialGrid":
         pol = _child(el, "policy")
         pa = pol.attrib if pol is not None else {}
@@ -796,8 +1180,13 @@ def load_ski(path: str, num_packets: int | None = None,
     velocity_fields = []    # (component, field, magnitude [m/s])
     media = list(med_sys.find("media"))
     grid_el = list(med_sys.find("grid"))[0]
-    if any(m.tag == "VoronoiMeshMedium" for m in media):
-        grid, medium, mix = build_voronoi_medium(media, grid_el, base_dir)
+    imported = {"VoronoiMeshMedium": build_voronoi_medium,
+                "AdaptiveMeshMedium": build_amr_medium,
+                "ParticleMedium": build_snapshot_medium,
+                "CellMedium": build_snapshot_medium}
+    kind = next((m.tag for m in media if m.tag in imported), None)
+    if kind is not None:
+        grid, medium, mix = imported[kind](media, grid_el, base_dir)
         components.append((None, mix, None))
     else:
         for m_el in media:
@@ -807,16 +1196,17 @@ def load_ski(path: str, num_packets: int | None = None,
                 if vmag != 0.0:
                     velocity_fields.append((len(components),
                                             build_vector_field(vd_el), vmag))
-            components.append((build_geometry(_child(m_el, "geometry")),
+            components.append((build_geometry(_child(m_el, "geometry"),
+                                              base_dir),
                                build_mix(_child(m_el, "materialMix"),
                                          base_dir),
                                build_medium_normalization(m_el)))
         grid = build_grid(grid_el, components[0][0], base_dir)
-        if mode == "DustEmission" and isinstance(grid, (Sphere1DGrid,
-                                                        Cylinder2DGrid)):
-            raise NotImplementedError(
-                f"DustEmission on a {grid_el.tag} not ported yet")
         medium = gm.build_medium(grid, components)
+    if mode == "DustEmission" and isinstance(grid, (Sphere1DGrid,
+                                                    Cylinder2DGrid)):
+        raise NotImplementedError(
+            f"DustEmission on a {grid_el.tag} not ported yet")
     if velocity_fields:
         medium = medium._replace(bulk_v=torch.tensor(bulk_velocities(
             grid, medium.nd, velocity_fields).astype(np.float32)))

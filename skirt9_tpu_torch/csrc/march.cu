@@ -6,7 +6,7 @@
 // which is not a Pallas kernel: the plain PyTorch version
 // (skirt9_tpu_torch/transport/march.py `march_geometry_plain`) is one torch
 // step per step, about 30 launches each, times up to 256 steps, times three
-// marches an event. Seven modes, one per grid kind, each with its own launch
+// marches an event. Eight modes, one per grid kind, each with its own launch
 // counter:
 //   march_uniform  a uniform Cartesian grid: the next border of each axis is
 //                  lo + index * h (UniformCartesianGrid.step,
@@ -34,9 +34,16 @@
 //                  the outer and inner borders and the z-plane crossing, on
 //                  a tie the inner cylinder, then the outer, then the plane
 //                  (Cylinder2DGrid.step, skirt9_tpu/grids/cylinder.py:53-100).
-// The two tree modes have their own entry point, march_tree_launch, and the
+//   march_amr      an adaptive mesh: exit the leaf box, move on by the
+//                  run's nudge (1e-6 of the root box's diagonal) and find the
+//                  next leaf by the bounded descent from the root over the
+//                  node tables (box, subdivisions, child lists), read through
+//                  the read-only cache (AMRGrid.step, skirt9_tpu/grids/amr.py:
+//                  73-91).
+// The two tree modes have their own entry point, march_tree_launch, the
 // two curvilinear ones theirs, march_curvi_launch, with the border tables
-// staged in shared memory (a few hundred floats).
+// staged in shared memory (a few hundred floats), and the adaptive mesh its
+// own, march_amr_launch.
 // Every f32 operation follows the plain version one for one (built with
 // -fmad=false); where the plain version replays one of XLA's fused
 // multiply-adds (ops/xlamath.py `fma`), because an ulp there decides which
@@ -411,7 +418,111 @@ __global__ void march_curvi_kernel(const float* __restrict__ pos,
   }
 }
 
+// The leaf of the adaptive mesh holding q: at most `depth` levels of
+// descent, each the child whose slot the position's fraction of the node box
+// picks (truncated toward zero, clamped to the node's subdivisions).
+__device__ __forceinline__ int amr_descend(
+    const float q[3], const float* __restrict__ node_lo,
+    const float* __restrict__ node_span, const int* __restrict__ node_div,
+    const int* __restrict__ node_child, const int* __restrict__ node_cell,
+    const int* __restrict__ child_flat, int depth) {
+  int node = 0;
+  for (int l = 0; l < depth; ++l) {
+    const int child = __ldg(node_child + node);
+    if (child < 0) break;  // a leaf stays where it is
+    int div[3], ijk[3];
+    for (int a = 0; a < 3; ++a) {
+      div[a] = __ldg(node_div + 3 * node + a);
+      const float rel = __fdiv_rn(q[a] - __ldg(node_lo + 3 * node + a),
+                                  __ldg(node_span + 3 * node + a));
+      const int i = __float2int_rz(__fmul_rn(rel, (float)div[a]));
+      ijk[a] = min(max(i, 0), max(div[a] - 1, 0));
+    }
+    node = __ldg(child_flat + child + ijk[0] +
+                 div[0] * (ijk[1] + div[1] * ijk[2]));
+  }
+  return __ldg(node_cell + node);
+}
+
+// The adaptive-mesh mode: the exit distance of leaf c's box, the position
+// moved on past the face by ds + nudge (fused on x and y, as XLA forms the
+// plain version's move), and the next leaf there (-1 outside the root box).
+__global__ void march_amr_kernel(
+    const float* __restrict__ pos, const float* __restrict__ dir,
+    const int* __restrict__ cell0, const unsigned char* __restrict__ mask,
+    const float* __restrict__ node_lo, const float* __restrict__ node_span,
+    const int* __restrict__ node_div, const int* __restrict__ node_child,
+    const int* __restrict__ node_cell, const int* __restrict__ child_flat,
+    const float* __restrict__ cell_lo, const float* __restrict__ cell_hi,
+    const float* __restrict__ box, int* __restrict__ cells,
+    float* __restrict__ dss, int B, int S, int depth, float nudge) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const float blo[3] = {box[0], box[1], box[2]};
+  const float bhi[3] = {box[3], box[4], box[5]};
+  float p[3] = {pos[3 * lane], pos[3 * lane + 1], pos[3 * lane + 2]};
+  const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
+  float inv[3];
+  for (int a = 0; a < 3; ++a)
+    inv[a] = __fdiv_rn(1.0f, fabsf(d[a]) < 1e-30f ? 1e-30f : d[a]);
+  int c = mask[lane] ? cell0[lane] : -1;
+  for (int s = 0; s < S; ++s) {
+    const long long at = (long long)s * B + lane;
+    if (c < 0) {
+      cells[at] = 0;
+      dss[at] = 0.0f;
+      continue;
+    }
+    float t[3];
+    for (int a = 0; a < 3; ++a) {
+      const float tgt = d[a] > 0.0f ? __ldg(cell_hi + 3 * c + a)
+                                    : __ldg(cell_lo + 3 * c + a);
+      t[a] = fabsf(d[a]) < 1e-30f
+                 ? kBig
+                 : fmaxf(__fmul_rn(tgt - p[a], inv[a]), 0.0f);
+    }
+    const float ds = fminf(fminf(t[0], t[1]), t[2]);
+    const float move = __fadd_rn(ds, nudge);
+    p[0] = fmaf(move, d[0], p[0]);
+    p[1] = fmaf(move, d[1], p[1]);
+    p[2] = __fadd_rn(p[2], __fmul_rn(move, d[2]));
+    bool inside = true;
+    for (int a = 0; a < 3; ++a)
+      inside = inside && p[a] >= blo[a] && p[a] < bhi[a];
+    cells[at] = c;
+    dss[at] = ds;
+    c = inside ? amr_descend(p, node_lo, node_span, node_div, node_child,
+                             node_cell, child_flat, depth)
+               : -1;
+  }
+}
+
 }  // namespace skirt9
+
+extern "C" int march_amr_launch(const void* pos, const void* dir,
+                                const void* cell0, const void* mask,
+                                const void* node_lo, const void* node_span,
+                                const void* node_div, const void* node_child,
+                                const void* node_cell, const void* child_flat,
+                                const void* cell_lo, const void* cell_hi,
+                                const void* box, void* cells, void* ds, int B,
+                                int S, int depth, float nudge, void* stream) {
+  if (B <= 0 || S <= 0 || depth < 0 || node_lo == nullptr ||
+      node_span == nullptr || node_div == nullptr || node_child == nullptr ||
+      node_cell == nullptr || child_flat == nullptr || cell_lo == nullptr ||
+      cell_hi == nullptr || box == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (B + skirt9::kThreads - 1) / skirt9::kThreads;
+  skirt9::march_amr_kernel<<<blocks, skirt9::kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)dir, (const int*)cell0,
+      (const unsigned char*)mask, (const float*)node_lo,
+      (const float*)node_span, (const int*)node_div, (const int*)node_child,
+      (const int*)node_cell, (const int*)child_flat, (const float*)cell_lo,
+      (const float*)cell_hi, (const float*)box, (int*)cells, (float*)ds, B, S,
+      depth, nudge);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int march_curvi_launch(const void* pos, const void* dir,
                                   const void* cell0, const void* mask,

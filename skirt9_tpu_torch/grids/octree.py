@@ -108,9 +108,13 @@ def diagonal(grid) -> float:
     """Length of the root box's diagonal [m], in f32 from the f32 corners
     as the reference's `Simulation._grid_diagonal` takes it for trees
     (`skirt9_tpu/simulation.py:370-374`), so that rf_scale, and with it
-    every stored RF, is the reference's."""
-    lo, hi = grid.box_lo.cpu().numpy(), grid.box_hi.cpu().numpy()
-    return float(np.linalg.norm(hi - lo))
+    every stored RF, is the reference's. Past ~0.6 kpc the f32 squares
+    overflow (the reference's rf_scale is infinite there and its RF 0): the
+    corners are then scaled by an exact power of two, which changes no
+    finite result."""
+    d = grid.box_hi.cpu().numpy() - grid.box_lo.cpu().numpy()
+    k = max(0, int(np.ceil(np.log2(float(np.abs(d).max()) or 1.0))) - 60)
+    return float(np.ldexp(np.linalg.norm(np.ldexp(d, -k)), k))
 
 
 def to_device(grid, device):

@@ -47,6 +47,7 @@ KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            # the scan march (csrc/march.cu), one counter per grid mode
            "march_uniform", "march_mesh", "march_voronoi", "march_octree",
            "march_bintree", "march_sphere1d", "march_cylinder2d",
+           "march_amr",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -96,6 +97,10 @@ _SIGNATURES = {
     # pos, dir, cell0, mask, node_child, node_axis, node_geom, node_cell,
     # cell_lo, cell_hi, box, cells, ds, B, S, levels, octree, stream
     "march_tree_launch": [_P] * 13 + [_I] * 4 + [_P],
+    # pos, dir, cell0, mask, node_lo, node_span, node_div, node_child,
+    # node_cell, child_flat, cell_lo, cell_hi, box, cells, ds, B, S, depth,
+    # nudge, stream
+    "march_amr_launch": [_P] * 15 + [_I] * 3 + [_F] + [_P],
     # pos, dir, cell0, mask, rb, zb (or null), cells, ds, B, S, nr, nz,
     # cylinder, shift, stream
     "march_curvi_launch": [_P] * 8 + [_I] * 6 + [_P],

@@ -4,9 +4,10 @@ A copy of the part of `skirt9_tpu/media/mixes.py` (host numpy, no jax) that
 the golden ski files bench1, bench1h, bench2, bench3 and bench5 reach:
 `MixTables`, `tabulated`, `trivial_gas` (TrivialGasMix, which the
 reference's loader builds inline), `from_file` (the MeanFileDustMix text
-format of `tests/golden/mrn_mean.txt`), `electron_mix` and `stack`.
-The reference's analytic benchmark mixes and resource-pack readers are not
-ported yet.
+format of `tests/golden/mrn_mean.txt`), `mean_interstellar_approx` (the
+reference's stand-in for MeanInterstellarDustMix), `electron_mix` and
+`stack`. The reference's other analytic benchmark mixes and resource-pack
+readers are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +79,33 @@ def from_file(path: str) -> MixTables:
         d = d[::-1]
         lam = lam[::-1]
     return tabulated(lam, d[:, 1] * mu, d[:, 2], d[:, 3], mu=mu)
+
+
+def mean_interstellar_approx(n: int = 300) -> MixTables:
+    """The reference's analytic approximation of the mean Milky Way dust
+    extinction curve, standing in for MeanInterstellarDustMix's resource
+    table (`skirt9_tpu/media/mixes.py:77-105`): sigma ~ lam^-1.3 with a
+    Drude 2175 A bump in the UV and optical, ~lam^-2 beyond 10 micron,
+    kappa_ext(0.55 micron) = 2.4e3 m2/kg of dust."""
+    lam = np.geomspace(0.01e-6, 3000e-6, n)
+    l_um = lam * 1e6
+    s_opt = (l_um / 0.55) ** -1.3
+    x = 1.0 / l_um
+    x0, gam = 4.6, 1.0
+    drude = 0.35 * x**2 / ((x**2 - x0**2) ** 2 + x**2 * gam**2) * gam**2 \
+        * x0**2 / 4.6**2 * 4
+    shape = np.where(l_um < 10.0, s_opt * (1 + drude),
+                     (l_um / 10.0) ** -2.0 * (10.0 / 0.55) ** -1.3)
+    mu = 4.0 / 3.0 * np.pi * (0.1e-6) ** 3 * 3000.0  # grain mass [kg]
+    kappa_v = 2.4e3  # m^2/kg of dust
+    sigma = shape / np.interp(0.55, l_um, shape) * kappa_v * mu
+    albedo = 0.6 * np.exp(-((np.log(l_um / 0.4)) ** 2) / 8.0) * (l_um < 20) \
+        + 0.0
+    g = np.clip(0.6 - 0.25 * np.log10(np.maximum(l_um, 1e-3) / 0.2), 0.0,
+                0.9) * (l_um < 5)
+    return MixTables(lam=lam, sigma_ext=sigma,
+                     albedo=np.clip(albedo, 0, 0.95), g=np.clip(g, 0, 0.95),
+                     mu=mu)
 
 
 def electron_mix(n: int = 8) -> MixTables:

@@ -3,8 +3,9 @@
 Port of `skirt9_tpu/media/system.py:30-183`. The medium is a pair of dense
 tables: nd[cell, h] number densities and (H, T) cross-section / asymmetry
 tables on a wavelength axis, gathered once per packet wavelength into
-(B, H) `Optics`, the per-cell bulk velocities of moving media and the
-per-cell gas temperatures of resonant-line media (Lyman-alpha).
+(B, H) `Optics`, the per-cell bulk velocities of moving media, the
+per-cell gas temperatures of resonant-line media (Lyman-alpha) and the
+metallicities an imported medium carries.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ class MediumTables(NamedTuple):
     g: torch.Tensor          # (H, T) HG asymmetry parameter
     bulk_v: torch.Tensor     # (ncells, 3) bulk velocity [m/s]
     temperature: torch.Tensor  # (ncells,) gas kinetic temperature [K]
+    metallicity: torch.Tensor  # (ncells,) imported metallicity, else zeros
 
     @property
     def ncomp(self) -> int:
@@ -112,17 +114,19 @@ def make_medium(grid, nd: np.ndarray, lam_t: np.ndarray, sigma_ext: np.ndarray,
                 albedo: np.ndarray, g: np.ndarray,
                 bulk_v: np.ndarray | None = None,
                 temperature: np.ndarray | None = None,
-                **unsupported) -> MediumTables:
+                magnetic_field: np.ndarray | None = None,
+                metallicity: np.ndarray | None = None) -> MediumTables:
     """Assemble MediumTables (on the CPU) from host arrays.
 
     nd: (ncells,) or (ncells, H); tables: (T,) or (H, T); bulk_v: (ncells,
-    3) per-cell bulk velocities and temperature: (ncells,) gas temperatures,
-    zeros by default. Per-cell magnetic fields and metallicities serve
-    features that are not ported yet and raise."""
-    given = [k for k, v in unsupported.items() if v is not None]
-    if given:
+    3) per-cell bulk velocities, temperature: (ncells,) gas temperatures
+    and metallicity: (ncells,) imported metallicities, zeros by default.
+    Per-cell magnetic fields serve the aligned spheroidal grains, which
+    are not ported yet (ROADMAP queue A item 32), and raise."""
+    if magnetic_field is not None:
         raise NotImplementedError(
-            f"medium state {', '.join(given)} is not ported yet")
+            "medium state magnetic_field is not ported yet (it serves the "
+            "aligned spheroidal grains' emission)")
     nd = np.asarray(nd, np.float32)
     if nd.ndim == 1:
         nd = nd[:, None]
@@ -134,17 +138,24 @@ def make_medium(grid, nd: np.ndarray, lam_t: np.ndarray, sigma_ext: np.ndarray,
         bulk_v = np.zeros((nd.shape[0], 3), np.float32)
     if temperature is None:
         temperature = np.zeros(nd.shape[0], np.float32)
+    if metallicity is None:
+        metallicity = np.zeros(nd.shape[0], np.float32)
     return MediumTables(nd=f32(nd), lam_t=f32(lam_t), sigma_ext=f32(sigma_ext),
                         sigma_sca=f32(sigma_ext * albedo), g=f32(g),
-                        bulk_v=f32(bulk_v), temperature=f32(temperature))
+                        bulk_v=f32(bulk_v), temperature=f32(temperature),
+                        metallicity=f32(metallicity))
 
 
-def site_medium(grid, density: np.ndarray, mass_type: str,
-                mix) -> MediumTables:
+def site_medium(grid, density: np.ndarray, mass_type: str, mix,
+                metallicity: np.ndarray | None = None,
+                temperature: np.ndarray | None = None,
+                bulk_v: np.ndarray | None = None) -> MediumTables:
     """One imported component with a density per cell, as a Voronoi mesh's
     sites carry it (the reference's loader, `skirt9_tpu/config/ski.py:
     1783-1800, 1983-2000`): a MassDensity [kg/m^3] becomes a number density
-    through the mix's mass per entity, a NumberDensity [1/m^3] is one."""
+    through the mix's mass per entity, a NumberDensity [1/m^3] is one; an
+    imported metallicity scales it and is kept, as are the imported
+    temperatures and velocities."""
     if mass_type == "MassDensity":
         nd = np.asarray(density, np.float64) / mix.mu
     elif mass_type == "NumberDensity":
@@ -152,5 +163,10 @@ def site_medium(grid, density: np.ndarray, mass_type: str,
     else:
         raise NotImplementedError(f"massType '{mass_type}' not ported yet "
                                   "(MassDensity, NumberDensity)")
+    if metallicity is not None:
+        nd = nd * metallicity
     lam, se, al, gg = mx.stack([mix])
-    return make_medium(grid, nd.astype(np.float32), lam, se, al, gg)
+    return make_medium(grid, nd.astype(np.float32), lam, se, al, gg,
+                       bulk_v=None if bulk_v is None else
+                       np.asarray(bulk_v, np.float32),
+                       temperature=temperature, metallicity=metallicity)

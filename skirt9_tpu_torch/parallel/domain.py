@@ -1,11 +1,11 @@
 """Voxel rasters of grids for the slab engines.
 
 Port of the tree branch of `skirt9_tpu/parallel/domain.py`
-`voxelize_for_dd` (`:568-612, 626-636`). Every leaf of a power-of-two tree
-is an aligned block of voxels of its finest level's uniform raster, so the
-tree rasterizes exactly onto that raster: the owner map (fine voxel ->
-leaf id) and the voxel density (each voxel its leaf's) describe the same
-medium on a uniform grid. The large-grid (XL) contracts run trees past the
+`voxelize_for_dd` (`:568-612, 626-636`), octrees, bintrees and adaptive
+meshes. Every leaf of a power-of-two tree is an aligned block of voxels of
+its finest level's uniform raster, so the tree rasterizes exactly onto
+that raster: the owner map (fine voxel -> leaf id) and the voxel density
+(each voxel its leaf's) describe the same medium on a uniform grid. The large-grid (XL) contracts run trees past the
 multi-level sweep's raster on it (`transport/sweepxl.build_tree_tables`).
 
 The owner map is built vectorised per level (`mlsweep.owner_map`, the leaf
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..grids.amr import AMRGrid
 from ..grids.bintree import BinTreeGrid
 from ..grids.cartesian import UniformCartesianGrid, make_cartesian
 from ..grids.octree import OctreeGrid
@@ -34,10 +35,11 @@ def voxelize_for_dd(grid, med, n_slabs: int = 1):
     not ported."""
     if isinstance(grid, UniformCartesianGrid):
         return grid, med, None
-    if not isinstance(grid, (OctreeGrid, BinTreeGrid)):
+    if not isinstance(grid, (OctreeGrid, BinTreeGrid, AMRGrid)):
         raise NotImplementedError(
             f"voxel raster of a {type(grid).__name__} not ported yet (trees "
-            "only; Voronoi and tetrahedral grids come with ROADMAP item 22)")
+            "and adaptive meshes only; Voronoi and tetrahedral grids come "
+            "with ROADMAP item 22)")
     meta = ml._analyze(grid)
     nf = meta["nf"]
     lo0, box = meta["lo0"], meta["box"]

@@ -43,6 +43,7 @@ import torch
 
 from . import device as dv
 from .emission import equilibrium as eq
+from .grids.amr import AMRGrid
 from .grids.bintree import BinTreeGrid
 from .grids.cartesian import CartesianGrid, UniformCartesianGrid
 from .grids.cylinder import Cylinder2DGrid
@@ -65,7 +66,7 @@ from .utils.log import default as _log
 from .utils.unitsystem import UnitSystem
 
 _GRIDS = (UniformCartesianGrid, CartesianGrid, OctreeGrid, BinTreeGrid,
-          VoronoiGrid, Sphere1DGrid, Cylinder2DGrid)
+          AMRGrid, VoronoiGrid, Sphere1DGrid, Cylinder2DGrid)
 # grids that only the scan march walks, in the reference on every backend
 _MARCH_ONLY = (Sphere1DGrid, Cylinder2DGrid)
 
@@ -80,7 +81,7 @@ class Simulation:
     shape no sweep takes is walked leaf by leaf)."""
 
     grid: (UniformCartesianGrid | CartesianGrid | OctreeGrid | BinTreeGrid
-           | VoronoiGrid | Sphere1DGrid | Cylinder2DGrid)
+           | AMRGrid | VoronoiGrid | Sphere1DGrid | Cylinder2DGrid)
     medium: msys.MediumTables
     sources: list
     instruments: list           # list[DistantInstrumentCfg]
@@ -125,8 +126,8 @@ class Simulation:
         if not isinstance(self.grid, _GRIDS):
             raise NotImplementedError(
                 f"grid {type(self.grid).__name__} not ported yet (Cartesian "
-                "grids, octrees, bintrees, Voronoi grids, 1D spheres and 2D "
-                "cylinders only)")
+                "grids, octrees, bintrees, adaptive meshes, Voronoi grids, "
+                "1D spheres and 2D cylinders only)")
         if self.dust_emission_type != "Equilibrium":
             raise NotImplementedError(f"{self.dust_emission_type} dust "
                                       "emission not ported yet (Equilibrium)")
@@ -178,13 +179,16 @@ class Simulation:
         grids past the sweeps, Voronoi grids the raster declines: the exact
         walk, and trees that no sweep takes: more than 4 components, a fine
         raster past 512, cells that are no power-of-two fraction of the
-        root box). A tree gets its fine leaf map (on the voxel raster: the
+        root box). Adaptive meshes (`AMRGrid`) take the same chain as the
+        trees. A tree gets its fine leaf map (on the voxel raster: the
         tables' cell map, the same array) attached, so that launch-time
         `locate` is one gather (`:199-202`); its march steps descend all
-        the same. A Voronoi grid keeps its own locate, as in the reference
-        (`:203-206`). The 1D sphere and the 2D cylinder go to the march
-        outright: every sweep's `supports` declines them, as the
-        reference's do."""
+        the same. An adaptive mesh gets none (the reference's attaches
+        where the grid's `leafmap` is None, and an AMR grid has no such
+        field): it locates by its own descent. A Voronoi grid keeps its
+        own locate, as in the reference (`:203-206`). The 1D sphere and the
+        2D cylinder go to the march outright: every sweep's `supports`
+        declines them, as the reference's do."""
         if isinstance(self.grid, _MARCH_ONLY):
             _log().info(f"transport: {type(self.grid).__name__} "
                         f"({self.grid.ncells} cells) walked by the scan "
@@ -210,10 +214,10 @@ class Simulation:
                 "leaves) on its exact "
                 f"{'x'.join(map(str, tabs.n))} voxel raster (XL sweep)")
         if tabs is not None:
-            if self.grid.leafmap is None:
+            if getattr(self.grid, "leafmap", "absent") is None:
                 self.grid = self.grid._replace(leafmap=leafmap, fine_n=tabs.n)
             return tabs
-        if isinstance(self.grid, (OctreeGrid, BinTreeGrid)):
+        if isinstance(self.grid, (OctreeGrid, BinTreeGrid, AMRGrid)):
             # the reference's warning (`skirt9_tpu/simulation.py:231-240`)
             _log().warning(
                 "transport: no sweep engine supports "

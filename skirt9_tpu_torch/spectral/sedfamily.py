@@ -18,8 +18,10 @@ dense compare-reduce row searches are `torch.searchsorted` and its takes
 indexing. Where an ulp decides a discrete outcome (the node-cdf inversion
 at a stratum's edge picks a cdf row) the sums that XLA fuses with their
 product are `ops.xlamath.fma`, so the same row comes out; the importance
-weight exp(sum w ln L) may differ by f32 rounding. `load_indexed_family`
-and `blackbody_family` are not ported yet.
+weight exp(sum w ln L) may differ by f32 rounding. The families are the
+stored-table SSP family (`FileSSPSEDFamily`), the indexed family
+(`FileIndexedSEDFamily`) and the blackbody family on a temperature grid
+(`BlackBodySEDFamily`); the named resource families are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from ..ops import rng, sampling
 from ..ops import xlamath as xm
+from ..ops.planck import b_lambda_np
 from ..utils.storedtable import read_stored_table
 
 M_SUN = 1.98892e30  # kg (reference Constants::Msun)
@@ -134,6 +137,28 @@ def load_family_stab(path: str, scale_name: str = "Minit") -> SEDFamily:
                      scale_name=scale_name)
 
 
+def load_indexed_family(path: str) -> SEDFamily:
+    """FileIndexedSEDFamily: .stab with axes lambda(m), index(1); entities
+    carry (luminosity, index) (ref: FileIndexedSEDFamily.hpp). The
+    per-index spectra are normalized shapes scaled by the entity's
+    luminosity."""
+    tab = read_stored_table(path)
+    q = tab.quantity(tab.quantity_names[0])  # (nindex, nlam)
+    return SEDFamily(lam=tab.axes_points[0], L=np.atleast_2d(q),
+                     param_axes=[("index", tab.axes_points[1], "lin")],
+                     scale_name="L")
+
+
+def blackbody_family(temperatures: np.ndarray,
+                     lam: np.ndarray) -> SEDFamily:
+    """BlackBodySEDFamily as a tabulated family on a temperature grid
+    (ref: BlackBodySEDFamily.hpp; the scale parameter is the emitting
+    area 4 pi R^2)."""
+    T = np.asarray(temperatures, np.float64)
+    return SEDFamily(lam=lam, L=np.pi * b_lambda_np(lam[None, :], T[:, None]),
+                     param_axes=[("T", T, "log")], scale_name="area")
+
+
 def _take(rows: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return rows.gather(1, k[:, None])[:, 0]
 
@@ -213,7 +238,7 @@ class FamilyTables:
         idx, w = self.family._corners(params)
         return (w * self.Ltot_np[idx]).sum(1)
 
-    def corner_tables(self, params: np.ndarray, device="cpu"):
+    def corner_tables(self, params: np.ndarray, device):
         """Launch tables on `device`: corner node indices (N, C) int32, the
         corner-selection cdf (N, C) proportional to weight x corner
         integrated luminosity, the raw multilinear weights (N, C), and the

@@ -10,9 +10,10 @@ interaction point, is dense tensor math on those tables.
 `march_geometry` is the walk itself. On a CUDA tensor it is one launch of
 the march kernel (`csrc/march.cu`, one thread per lane, in the mode of the
 grid: `march_uniform`, `march_mesh`, `march_voronoi`, `march_octree`,
-`march_bintree`, `march_sphere1d` or `march_cylinder2d`; a tree's node
-tables go in whole, and each step descends from the root, as the
-reference's does, whether or not a leaf map is attached; a curvilinear
+`march_bintree`, `march_sphere1d`, `march_cylinder2d` or `march_amr`; a
+tree's or an adaptive mesh's node tables go in whole, and each step
+descends from the root, as the reference's does, whether or not a leaf map
+is attached; a curvilinear
 grid's border tables are staged in shared memory); on a CPU tensor its
 plain version, a loop of the grid's `step` over the steps. Both follow
 the reference's f32 operations, with XLA's CPU fusions replayed, so that
@@ -30,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..grids.amr import AMRGrid
 from ..grids.bintree import BinTreeGrid
 from ..grids.cartesian import CartesianGrid, UniformCartesianGrid
 from ..grids.cylinder import Cylinder2DGrid
@@ -47,7 +49,7 @@ _INV_C = 1.0 / 2.99792458e8  # inverse speed of light [s/m]
 MODES = {UniformCartesianGrid: "march_uniform", CartesianGrid: "march_mesh",
          VoronoiGrid: "march_voronoi", OctreeGrid: "march_octree",
          BinTreeGrid: "march_bintree", Sphere1DGrid: "march_sphere1d",
-         Cylinder2DGrid: "march_cylinder2d"}
+         Cylinder2DGrid: "march_cylinder2d", AMRGrid: "march_amr"}
 _MODE_IDS = {"march_uniform": 0, "march_mesh": 1, "march_voronoi": 2}
 
 
@@ -56,8 +58,8 @@ def _check(grid, pos0, dirn, cell0, max_steps: int, mask) -> None:
     if type(grid) not in MODES:
         raise NotImplementedError(
             f"the scan march on a {type(grid).__name__} is not ported yet "
-            "(it walks Cartesian grids, octrees, bintrees, Voronoi grids, "
-            "1D spheres and 2D cylinders)")
+            "(it walks Cartesian grids, octrees, bintrees, adaptive meshes, "
+            "Voronoi grids, 1D spheres and 2D cylinders)")
     if pos0.shape != (B, 3) or dirn.shape != (B, 3) or cell0.shape != (B,) \
             or mask.shape != (B,):
         raise ValueError(f"pos0 {tuple(pos0.shape)}, dirn "
@@ -110,6 +112,18 @@ def _march_cuda(grid, pos0, dirn, cell0, max_steps: int, mask):
                   cells.data_ptr(), ds.data_ptr(), B, max_steps,
                   rb.shape[0] - 1, 0 if zb is None else zb.shape[0] - 1,
                   int(cyl), grid.shift, kb.stream_of(pos0), count_as=mode)
+        return cells, ds
+    if mode == "march_amr":
+        i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
+        tabs = (f32(grid.node_lo), f32(grid.node_span), i32(grid.node_div),
+                i32(grid.node_child), i32(grid.node_cell),
+                i32(grid.child_flat), f32(grid.cell_lo), f32(grid.cell_hi),
+                f32(torch.cat([grid.box_lo, grid.box_hi])))
+        kb.launch("march_amr", pos0.data_ptr(), dirn.data_ptr(),
+                  cell0.data_ptr(), mask.data_ptr(),
+                  *(t.data_ptr() for t in tabs),
+                  cells.data_ptr(), ds.data_ptr(), B, max_steps, grid.depth,
+                  grid.nudge(), kb.stream_of(pos0), count_as=mode)
         return cells, ds
     if mode in ("march_octree", "march_bintree"):
         i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()

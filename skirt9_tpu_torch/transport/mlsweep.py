@@ -1,8 +1,10 @@
 """Multi-level slab sweep: the tree-grid engine's contracts.
 
-Port of `skirt9_tpu/transport/mlsweep.py` for octrees and bintrees, and
-for Voronoi grids rasterized onto a uniform voxel grid (`transport/
-raster.py`: one level, one plan step per fine slab, any voxel counts). Every
+Port of `skirt9_tpu/transport/mlsweep.py` for octrees, bintrees and
+adaptive meshes (`grids/amr.py`: every leaf a power-of-two fraction of the
+root box, so a `! 3 3 3` root declines), and for Voronoi grids
+rasterized onto a uniform voxel grid (`transport/raster.py`: one level,
+one plan step per fine slab, any voxel counts). Every
 leaf of a power-of-two tree is an aligned block of voxels of the finest
 level's uniform raster (the fine grid, nf per axis), so a ray marches that
 raster's slabs with the resident sweep's <= 3-cell sub-DDA
@@ -50,6 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..grids.amr import AMRGrid
 from ..grids.bintree import BinTreeGrid
 from ..grids.octree import OctreeGrid
 from ..kernels import build as kb
@@ -197,7 +200,7 @@ def supports(grid, med, options=None) -> bool:
     example, `bench_config3ismxl`'s 1.4e5-leaf octree (nf = 256) rides
     this engine here, where the reference sends it to the XL fine raster
     (`skirt9_tpu/simulation.py:216-217`)."""
-    if not isinstance(grid, (OctreeGrid, BinTreeGrid)):
+    if not isinstance(grid, (OctreeGrid, BinTreeGrid, AMRGrid)):
         return False
     if options is not None and (options.kinematics or options.lya
                                 or options.compton or options.xray

@@ -54,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..grids.amr import AMRGrid
 from ..grids.bintree import BinTreeGrid
 from ..grids.cartesian import UniformCartesianGrid
 from ..grids.octree import OctreeGrid
@@ -107,15 +108,17 @@ def supports_xl(grid, med) -> bool:
 
 def supports_tree_xl(grid, med) -> bool:
     """The reference's rule (`sweepxl.py:128-166`) without its backend
-    test: a power-of-two octree or bintree with a fine raster <= 512 per
-    axis, <= 4 components, table bytes under the reference's ceiling, and
+    test: a power-of-two octree, bintree or adaptive mesh with a fine
+    raster <= 512 per axis, <= 4 components, table bytes under the
+    reference's ceiling, and
     not every leaf a fine voxel (a uniform grid in disguise). The caller's
     order decides between the sweeps: `Simulation._engine_tables` asks the
     multi-level sweep first, which declines a tree for its raster or for
     the transport options (kinematics, Lya, Compton, X-ray, explicit
     absorption), as the reference's chain does
     (`skirt9_tpu/simulation.py:196-230`)."""
-    if not isinstance(grid, (OctreeGrid, BinTreeGrid)) or med.ncomp > 4:
+    if not isinstance(grid, (OctreeGrid, BinTreeGrid, AMRGrid)) \
+            or med.ncomp > 4:
         return False
     try:
         nf = ml._analyze(grid)["nf"]

@@ -245,6 +245,52 @@ def test_probe_files_match_reference(reduced, tmp_path):
      "mixing VoronoiMeshMedium"),
 ])
 def test_unported_items_raise(tmp_path, old, new, named):
-    path = chip_smoke.edited_ski("bench4", tmp_path, {old: new})
+    edits = {old: new}
+    if named == "importTemperature":
+        # ported since: bench4's gas with a temperature column, the medium
+        # held to the reference's loader below
+        gas = np.loadtxt(os.path.join(GOLDEN, "bench4_gas.txt"))
+        T = np.random.default_rng(3).uniform(1e3, 1e4, len(gas))
+        np.savetxt(tmp_path / "gas_T.txt", np.column_stack([gas, T]))
+        edits['filename="bench4_gas.txt"'] = 'filename="gas_T.txt"'
+    path = chip_smoke.edited_ski("bench4", tmp_path, edits)
+    if named in ("QuarticSplineSmoothingKernel", "importTemperature"):
+        run = dict(num_packets=1024, batch_size=1024, max_events=2)
+        ref = ref_load_ski(path, **run)
+        port = load_ski(path, device="cpu", **run)
+        conv = bridge.simulation(ref, "cpu")
+        for f in ("nd", "temperature", "metallicity", "bulk_v"):
+            assert torch.equal(getattr(port.medium, f),
+                               getattr(conv.medium, f)), f
+        if named == "importTemperature":
+            assert float(port.medium.temperature.min()) >= 1e3
+        (ps,), (rs,) = port.sources, ref.sources
+        assert ps.kernel_kind == rs.kernel_kind == (
+            "QuarticSplineSmoothingKernel" if named.startswith("Quartic")
+            else "CubicSplineSmoothingKernel")
+        tp, tr = ps.tables("cpu"), rs.tables()
+        for k in set(tr) - {"v"}:
+            assert np.array_equal(_np(tp[k]), np.asarray(tr[k])), k
+        f_p = ps.launch(tp, *_keys_b4(2048, "port"))
+        f_r = rs.launch(tr, *_keys_b4(2048, "ref"))
+        for k in ("pos", "dir", "lam", "lum"):
+            a, b = _np(f_p[k]).astype(np.float64), np.asarray(f_r[k],
+                                                              np.float64)
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), k
+        return
     with pytest.raises(NotImplementedError, match=named):
         load_ski(path, device="cpu")
+
+
+def _keys_b4(n, side):
+    """(launch keys, n) of n histories on one side."""
+    if side == "ref":
+        import jax
+        import jax.numpy as jnp
+        from skirt9_tpu.ops import rng as ref_rng
+        return ref_rng.event_keys(ref_rng.history_keys(
+            jax.random.PRNGKey(0), jnp.arange(n)), ref_rng.LAUNCH_EVENT), n
+    from skirt9_tpu_torch.ops import rng
+    return rng.event_keys(rng.history_keys(rng.seed_key(0, "cpu"),
+                                           torch.arange(n)),
+                          rng.LAUNCH_EVENT), n

@@ -90,6 +90,8 @@ detect hold their plain versions as chip_smoke.py's
 `check_refilled_batch` does.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1868,6 +1870,8 @@ def _march_rays(dev, mode, B, seed):
         pos, cell, _ = grid.move_inside(pos, d)
         mask = torch.tensor(rs.uniform(size=B) < 0.9, device=dev)
         return grid, pos, d, cell, mask
+    if mode.startswith("amr"):
+        return _amr_rays(dev, mode, B, rs)
     if mode == "voronoi":
         grid = build_voronoi(rs.uniform(-PC, PC, (300, 3)), ext, lookup_res=8)
     elif mode in ("octree", "bintree"):
@@ -1906,16 +1910,60 @@ def _march_rays(dev, mode, B, seed):
     return grid, pos, d, grid.locate(pos), mask
 
 
+def _amr_grid(mode, directory):
+    """tests/test_amr.py's two-level and deep meshes, or amr_galaxy's
+    (chip_smoke.amr_mesh: about 10^5 leaves, 50 x 50 x 8 kpc)."""
+    from skirt9_tpu_torch.grids import amr
+    cs = _chip_smoke()
+    path = os.path.join(str(directory), f"{mode}.amr")
+    if mode == "amr_galaxy":
+        nodes, lo, hi, mass = cs.amr_mesh()
+        col = cs.amr_columns(lo, hi, mass)
+        cs.write_amr(path, nodes, np.column_stack([col["rho"], col["Z"]]))
+        r, z = cs.GALAXY["r_max"] * 3.08567758149e19, \
+            cs.GALAXY["z_max"] * 3.08567758149e19
+        return amr.build_amr(path, ((-r, r), (-r, r), (-z, z)))[0]
+    with open(path, "w") as f:
+        f.write(cs.AMR_TWO_LEVEL if mode == "amr_two_level"
+                else cs.amr_deep_text(np.random.default_rng(5)))
+    return amr.build_amr(path, ((-1.2 * PC, 1.2 * PC),) * 3)[0]
+
+
+def _amr_rays(dev, mode, B, rs):
+    """An adaptive mesh with rays through it: random in its box, an eighth
+    from leaf corners, an eighth axis-aligned, a tenth masked off."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = _amr_grid(mode, tmp)
+    lo, hi = grid.box_lo.double().numpy(), grid.box_hi.double().numpy()
+    pos = lo + (hi - lo) * rs.uniform(0.0, 1.0, (B, 3))
+    k = B // 8
+    clo = grid.cell_lo.double().numpy()
+    pos[:k] = clo[rs.integers(0, len(clo), k)]
+    d = rs.normal(size=(B, 3))
+    d[k:2 * k] = 0.0
+    d[np.arange(k, 2 * k), rs.integers(0, 3, k)] = rs.choice([-1.0, 1.0], k)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    grid = grid.to(dev)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos, d = t32(pos), t32(d)
+    mask = torch.tensor(rs.uniform(size=B) < 0.9, device=dev)
+    return grid, pos, d, grid.locate(pos), mask
+
+
 @pytest.mark.parametrize("mode", ["uniform", "mesh", "mesh_global",
                                   "voronoi", "octree", "bintree",
                                   "octree_level10", "sphere", "sphere_kpc",
                                   "cylinder", "cylinder_kpc",
-                                  "cylinder_global"])
+                                  "cylinder_global", "amr_two_level",
+                                  "amr_deep", "amr_galaxy"])
 def test_march_kernel(dev, mode):
     """The march kernel against its plain version on the same CUDA tensors:
     one launch under its mode's counter, cells and step lengths bit for
     bit (the border tables staged in shared memory and, past 48 KB, read
-    from global memory; a tree's descent 11 levels deep)."""
+    from global memory; a tree's descent 11 levels deep; an adaptive
+    mesh's descent over its node tables, amr_galaxy's 10^5 leaves at kpc
+    scale among them)."""
     from skirt9_tpu_torch.transport import march as mr
     grid, pos, d, cell, mask = _march_rays(dev, mode, 3000, seed=7)
     S = min(grid.max_steps(), 256)
@@ -1954,3 +2002,175 @@ def test_march_on_cuda_matches_cpu(dev, name, tmp_path):
     assert n[mode] > 0 and n["detect"] > 0
     for k in cs.SWEEPS:
         assert n[k] == 0, k
+
+
+def _amr_kernel_inputs(dev, B=4096, seed=17):
+    """tests/test_amr.py's generator under a 2 2 2 root (a power-of-two
+    mesh), a seeded medium and rays, on the card."""
+    import tempfile
+    from skirt9_tpu_torch.grids import amr
+    cs = _chip_smoke()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pow2.amr")
+        with open(path, "w") as f:
+            f.write(cs.amr_deep_text(np.random.default_rng(6), (2, 2, 2)))
+        grid = amr.build_amr(path, ((-1.2 * PC, 1.2 * PC),) * 3)[0]
+    rs = np.random.default_rng(seed)
+    med = _tree_medium(grid, 1, rs)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos = t32(rs.uniform(-1.1 * PC, 1.1 * PC, (B, 3)))
+    d = rs.normal(size=(B, 3))
+    d = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    sig = t32(np.full((1, B), 1e-24))
+    grid, med = grid.to(dev), med.to(dev)
+    return grid, med, pos, d, sig, grid.locate(pos) >= 0, rs
+
+
+def test_tree_kernels_on_amr_tables(dev):
+    """Kernels 4-5 on an adaptive mesh's tree-sweep tables against their
+    plain versions: kernel 4's total and prefix modes (totals and prefix
+    within 1e-6 of each lane's tau, record, leaf ids and lane range bit
+    for bit), kernel 5 (RF within 1e-5 of its maximum, s_int, cells and
+    found identical)."""
+    grid, med, pos, d, sig, active, rs = _amr_kernel_inputs(dev)
+    assert ml.supports(grid, med)
+    tabs = ml.build_tables(grid, med)
+    args = (tabs, pos, d, sig, active, None)
+    kb.reset_launches()
+    tot = ml.sweep_tau_total(*args)
+    rec, cells, steps, tb, tot_c, lane = ml.sweep_dtau_prefix(*args)
+    assert (kb.LAUNCHES["mlsweep_tau_total"],
+            kb.LAUNCHES["mlsweep_dtau_prefix"]) == (1, 1)
+    tot_p = ml.sweep_tau_total_plain(*args)
+    assert int((tot_p > 0).sum()) > 1000
+    for t in (tot, tot_c):
+        assert bool(((t - tot_p).abs() <= 1e-6 * tot_p).all())
+    rec_p, cells_p, steps_p, tb_p, _, lane_p = ml.sweep_dtau_prefix_plain(
+        *args)
+    assert torch.equal(rec, rec_p) and torch.equal(cells, cells_p)
+    for a, b in zip(lane, lane_p):
+        assert torch.equal(a, b)
+    B = pos.shape[0]
+    lum = torch.tensor(rs.uniform(0.5, 2, B), dtype=torch.float32,
+                       device=dev) * active
+    tau_int = torch.tensor(rs.uniform(size=B), dtype=torch.float32,
+                           device=dev) * tot_p
+    dep = (tabs, pos, d, active, rec_p, cells_p, lum, tau_int, tb_p, 0.7)
+    kb.reset_launches()
+    rf_k, s_k, c_k, f_k = ml.sweep_deposit(*dep, lane=lane_p)
+    assert kb.LAUNCHES["mlsweep_deposit"] == 1
+    rf_p, s_p, c_p, f_p = ml.sweep_deposit_plain(*dep, lane=lane_p)
+    assert int(f_p.sum()) > B // 4
+    assert torch.equal(f_k, f_p) and torch.equal(c_k, c_p)
+    assert torch.equal(s_k[f_k], s_p[f_p])
+    assert float((rf_k - rf_p).abs().max()) <= 1e-5 * float(rf_p.abs().max())
+
+
+def test_xl_kernels_on_amr_raster(dev):
+    """Kernels 6-7 on an adaptive mesh's voxel raster (the XL tables with
+    the cell map) against their plain versions: kernel 6's prefix mode
+    (record and lane range bit for bit, prefix within 1e-6 of tau) and
+    kernel 7's prefix mode in 4 lane groups through the cell map."""
+    grid, med, pos, d, sig, active, _ = _amr_kernel_inputs(dev, seed=18)
+    assert xl.supports_tree_xl(grid, med)
+    tabs = xl.build_tree_tables(grid, med)
+    assert tabs.cellmap is not None and tabs.rf_cells == grid.ncells
+    kb.reset_launches()
+    rec, tb, tot, lane = xl.sweep_dtau_prefix(tabs, pos, d, sig, active)
+    assert kb.LAUNCHES["sweepxl_dtau_prefix"] == 1
+    rec_p, tb_p, tot_p, lane_p = xl.sweep_dtau_prefix_plain(tabs, pos, d,
+                                                            sig, active)
+    assert torch.equal(rec, rec_p)
+    for a, b in zip(lane, lane_p):
+        assert torch.equal(a, b)
+    assert bool(((tb - tb_p).abs() <= 1e-6 * tot_p[None, :]).all())
+    ins = _xl_grouped_inputs(dev, tabs, pos, d, sig, active, 4, 9)
+    rf = _xl_grouped_check(tabs, *ins, 4, (0, -1, 2, 2), 3)
+    assert rf.shape == (3, grid.ncells)
+
+
+@pytest.mark.parametrize("name", ["amr_galaxy_small",
+                                  "amr_galaxy_march_small"])
+def test_amr_loops_copy_nothing_from_host(dev, name, tmp_path):
+    """Three profiled events of an adaptive mesh's loop, on the tree sweep
+    and on march_amr: no host-to-device copy inside the loop's profiler
+    range, and the reduced configuration on the card against the CPU
+    within chip_smoke.py's MARCH_BOUNDS."""
+    from skirt9_tpu_torch.tools import event_profile as ep
+    cs = _chip_smoke()
+    outs = {}
+    for d in ("cpu", dev):
+        sim = cs.snapshot_config(name, d, tmp_path, max_events=3)
+        dust = sim.ems_borders is not None
+        kb.reset_launches()
+        outs[str(d)] = (sim.run_with_dust_emission(verbose=False) if dust
+                        else sim.run_primary(verbose=False))
+    n = dict(kb.LAUNCHES)
+    cs.march_gaps(outs["cpu"], outs[str(dev)], dust)
+    if name == "amr_galaxy_march_small":
+        assert n["march_amr"] > 0 and sim._sweep_tabs is None
+    else:
+        assert n["mlsweep_dtau_prefix"] > 0 and n["mlsweep_deposit"] > 0
+    prof = ep.profile_run(torch, lambda: sim.run_primary(verbose=False))
+    assert ep._events(sim) > 0 and prof["unattributed"] == 0, prof
+    assert prof["loop"]["h2d_copies"] == 0, prof["loop"]
+
+
+@pytest.mark.parametrize("kind", ["particle", "cell", "cylindrical",
+                                  "spherical", "mesh", "adaptive_mesh",
+                                  "voronoi"])
+def test_imported_geometry_launch_on_cuda_matches_cpu(dev, kind, tmp_path):
+    """An imported geometry's positions on the card against the CPU's from
+    the same keys: within 1e-6 of each position's norm, the entity picks
+    (the positions' nearest sites) the same."""
+    from skirt9_tpu_torch.geometries import imported as ig
+    from skirt9_tpu_torch.grids import amr
+    from skirt9_tpu_torch.imports import snapshots as snap
+    from skirt9_tpu_torch.ops import rng
+    rs = np.random.default_rng(12)
+    pos = rs.normal(size=(300, 3)) * 0.6 * PC
+    h = rs.uniform(0.1, 0.8, 300) * PC
+    lo = rs.uniform(-PC, PC, (60, 3))
+    hi = lo + rs.uniform(0.1, 0.8, (60, 3)) * PC
+    ext = ((-2 * PC, 2 * PC),) * 3
+    sec_lo = np.stack([rs.uniform(0, PC, 40), rs.uniform(0, 2.5, 40),
+                       rs.uniform(0, 5, 40)], 1)
+    sec_hi = sec_lo + np.stack([rs.uniform(0.1, 0.5, 40) * PC,
+                                rs.uniform(0.1, 0.6, 40),
+                                rs.uniform(0.1, 1, 40)], 1)
+    m = rs.uniform(0.5, 2, 300)
+    if kind == "particle":
+        geo = ig.ParticleGeometry(snapshot=snap.ParticleSnapshot(pos, h, m))
+    elif kind == "cell":
+        geo = ig.CellGeometry(snapshot=snap.CellSnapshot(lo, hi, m[:60]))
+    elif kind == "cylindrical":
+        geo = ig.CylindricalCellGeometry(snapshot=snap.CylindricalCellSnapshot(
+            sec_lo, sec_hi, m[:40]))
+    elif kind == "spherical":
+        geo = ig.SphericalCellGeometry(snapshot=snap.SphericalCellSnapshot(
+            sec_lo, sec_hi, m[:40]))
+    elif kind == "mesh":
+        geo = ig.MeshGeometry(snapshot=snap.MeshSnapshot(
+            np.array([-PC, -PC, -PC]), np.array([PC, 2 * PC, PC]),
+            rs.uniform(0.1, 1, (4, 5, 3))))
+    elif kind == "adaptive_mesh":
+        path = tmp_path / "g.amr"
+        path.write_text("! 2 2 2\n! 2 1 2\n" + "".join(
+            f"{v}\n" for v in range(1, 12)))
+        geo = ig.AdaptiveMeshGeometry(grid=amr.build_amr(str(path), ext)[0],
+                                      mass=np.arange(1.0, 12.0))
+    else:
+        geo = ig.VoronoiMeshGeometry(sites=rs.uniform(-PC, PC, (50, 3)),
+                                     mass=m[:50], extent=ext)
+    out = {}
+    for d in ("cpu", dev):
+        keys = rng.event_keys(rng.history_keys(
+            rng.seed_key(3, d), torch.arange(1 << 14, device=d)),
+            rng.LAUNCH_EVENT)
+        out[str(d)] = geo.sample(keys).double().cpu()
+    c, g = out["cpu"], out[str(dev)]
+    err = (g - c).abs().max(dim=1).values / c.norm(dim=1)
+    assert float(err.max()) <= 1e-6, float(err.max())
+    sites = torch.tensor(geo.sites_np())
+    assert torch.equal(torch.cdist(c, sites).argmin(dim=1),
+                       torch.cdist(g, sites).argmin(dim=1))

@@ -21,6 +21,7 @@ against the reference, on the CPU with one torch thread.
 - DustEmission on the new grids raises, naming itself.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -201,6 +202,14 @@ def test_draw_for_draw(name, tmp_path, monkeypatch):
     port = bridge.simulation(ref, "cpu", march=not tree)
     if tree:
         assert type(port._sweep_tabs).__name__ == "MLTables"
+        # the reference's f32 tree diagonal overflows at the galaxy's 50
+        # kpc (its rf_scale is infinite and its RF 0); the port scales the
+        # corners by a power of two: the reference runs at the port's scale
+        assert not np.isfinite(ref.rf_scale)
+        assert np.isfinite(port.rf_scale) and port.rf_scale > 0
+        ref.rf_scale = port.rf_scale
+        ref.options = dataclasses.replace(ref.options,
+                                          rf_scale=port.rf_scale)
     else:
         assert port._sweep_tabs is None
     marched = []

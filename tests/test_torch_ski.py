@@ -153,6 +153,13 @@ def _edited(tmp_path, name: str, old: str, new: str) -> str:
 ])
 def test_unported_items_raise(tmp_path, old, new, named):
     path = _edited(tmp_path, "bench1", old, new)
+    if named == "MeanInterstellarDustMix":
+        # ported since: the reference's analytic mean interstellar curve,
+        # held to its loader array for array
+        kw = dict(num_packets=1024, batch_size=1024, max_events=4)
+        conv = bridge.simulation(ref_load_ski(path, **kw), "cpu")
+        _assert_same(load_ski(path, device="cpu", **kw), conv)
+        return
     with pytest.raises(NotImplementedError, match=named):
         load_ski(path, device="cpu")
 

@@ -41,11 +41,14 @@ through the loader, with and without merged iterations) and the CLI
 (bench1.ski, and bench2.ski's set-up), configs 6 and 7 (bench6.ski and
 bench7.ski through the loader and the CLI), a tiny Voronoi grid on its
 raster (73^3, then 8 x 6 x 10) and bench4.ski's set-up through the CLI,
-imports the variant scripts of kernels 8-9 (`perf/`), and then finds no
-such module loaded and no kernel launched;
-an `ast` scan of the package (the loader, probes, CLI, unit copies, trees,
-tree and XL sweeps, voxel rasters, the scan march, the meshes and the
-event loop among it), chip_smoke.py and `perf/*.py` finds no such import.
+imports the variant scripts of kernels 8-9 (`perf/`), runs the reduced
+imported snapshots (an AMR galaxy on the tree sweep and under a 3 3 3 root
+on the march, an SPH galaxy's octree), and then finds no such module
+loaded and no kernel launched; an `ast` scan of the package (the loader,
+probes, CLI, unit copies, trees, adaptive meshes, tree and XL sweeps,
+voxel rasters, the scan march, the meshes, the imported snapshots and
+geometries and the event loop among it), chip_smoke.py and `perf/*.py`
+finds no such import.
 """
 
 import ast
@@ -528,6 +531,23 @@ with tempfile.TemporaryDirectory() as tmp:
                    device="cpu")
     rf, accs = sim.run_primary(verbose=False)
     assert float(rf.sum()) > 0 and float(accs[0]["sed"][1].sum()) > 0
+# imported snapshots: the reduced AMR galaxy (its mesh source,
+# importMetallicity and importTemperature) on the tree sweep with dust
+# emission, its 3 3 3 root on the march, and the SPH galaxy's octree
+from skirt9_tpu_torch.grids.amr import AMRGrid
+with tempfile.TemporaryDirectory() as tmp:
+    for name in ("amr_galaxy_small", "amr_galaxy_march_small",
+                 "sph_galaxy_small"):
+        sim = chip_smoke.snapshot_config(name, "cpu", tmp, num_packets=128,
+                                         batch_size=128, max_events=2)
+        assert isinstance(sim.grid, AMRGrid) == name.startswith("amr")
+        assert (sim._sweep_tabs is None) == ("march" in name)
+        if sim.ems_borders is None:
+            rf, accs = sim.run_primary(verbose=False)
+        else:
+            rf, accs, info = sim.run_with_dust_emission(verbose=False)
+            assert info["L_dust"] > 0
+        assert float(accs[0]["sed"][0].sum()) > 0
 assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}, kb.LAUNCHES
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = sorted(m for m in sys.modules
@@ -584,5 +604,7 @@ def test_port_sources_import_no_reference():
         "ops/xlamath.py", "emission/equilibrium.py",
         "geometries/analytic.py", "geometries/axial.py",
         "geometries/decorators.py", "grids/sphere.py", "grids/cylinder.py",
-        "sources/base.py", "media/geometric.py")} <= set(bad)
+        "sources/base.py", "media/geometric.py", "grids/amr.py",
+        "geometries/imported.py", "media/mixes.py",
+        "media/system.py")} <= set(bad)
     assert not {f: n for f, n in bad.items() if n}
