@@ -659,10 +659,11 @@ def sphere_rays(torch, sim, rs, B):
     return pos, dirn, sig, sim.grid.locate(pos) >= 0
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn() in ms over reps back-to-back calls."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms over reps back-to-back calls after
+    warmup calls."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -4235,15 +4236,15 @@ def phase_full_width_b67(torch, smi: str, name):
 
 
 def phase_breakdown_b6(torch) -> None:
-    """One batch of config 6 (2^16 packets, its first 16 events: every Lya
+    """One batch of config 6 (2^15 packets, its first 16 events: every Lya
     event issues the same operations) under torch.profiler
     (host_per_event): device operations, stream syncs and host copies per
     event of the Lya loop, busy and idle shares, the kernels that take the
     most device time."""
-    prof = host_per_event(torch, config6("cuda", num_packets=B_B67,
+    prof = host_per_event(torch, config6("cuda", num_packets=B_B67 // 2,
                                          max_events=16),
                           lambda s: s.run_primary(verbose=False))
-    emit({"phase": "breakdown_b6", "packets": B_B67, "max_events": 16,
+    emit({"phase": "breakdown_b6", "packets": B_B67 // 2, "max_events": 16,
           **prof})
 
 
@@ -4822,11 +4823,12 @@ def temperature_ramp(sim):
         temperature=T))
 
 
-def march_gaps(out_c, out_g, dust: bool) -> dict:
+def march_gaps(out_c, out_g, dust: bool, bounds=None) -> dict:
     """CPU against card on a march configuration (MARCH_BOUNDS): each
     primary SED kind and the RF within 2e-5 of its maximum (a one-bin SED
     1e-4); after dust emission the secondary kinds by their sums within
-    1e-3."""
+    1e-3. bounds: other limits by gap name ("rf", "sed2", ...)."""
+    bounds = bounds or {}
     from skirt9_tpu_torch.instruments import distant as dinst
     rel = lambda g, c: float((g.double().cpu() - c.double()).abs().max()
                              / max(float(c.double().abs().max()), 1e-300))
@@ -4834,20 +4836,22 @@ def march_gaps(out_c, out_g, dust: bool) -> dict:
     gaps = {}
     if out_c[0] is not None:
         gaps["rf"] = rel(out_g[0], out_c[0])
-        require(gaps["rf"] <= MARCH_BOUNDS["primary"],
+        require(gaps["rf"] <= bounds.get("rf", MARCH_BOUNDS["primary"]),
                 f"march RF {gaps['rf']}")
     secondary = (dinst.KIND_SECONDARY_DIRECT, dinst.KIND_SECONDARY_SCATTERED)
     for k in range(acc_c["sed"].shape[0]):
         c, g = acc_c["sed"][k], acc_g["sed"][k]
         if dust and k in secondary:
-            e = abs(float(g.double().sum()) / max(float(c.double().sum()),
-                                                  1e-300) - 1.0)
+            cs_, gs_ = float(c.double().sum()), float(g.double().sum())
+            e = 0.0 if cs_ == gs_ == 0.0 else abs(gs_ / max(cs_, 1e-300)
+                                                  - 1.0)
             gaps[f"sed{k}_sum"] = e
             require(e <= MARCH_BOUNDS["secondary_sum"],
                     f"march secondary SED {k} sum {e}")
         elif float(c.abs().max()) > 0:
             gaps[f"sed{k}"] = rel(g, c)
-            limit = MARCH_BOUNDS["primary" if c.numel() > 1 else "one_bin"]
+            limit = bounds.get(f"sed{k}", MARCH_BOUNDS[
+                "primary" if c.numel() > 1 else "one_bin"])
             require(gaps[f"sed{k}"] <= limit,
                     f"march SED {k} {gaps[f'sed{k}']} <= {limit}")
     return gaps
@@ -4939,9 +4943,11 @@ def march_cost(name, grid, cells, walked) -> tuple:
         return (12 * grid.ncells + 4 * grid.neighbors.numel(),
                 n * (OPS_MARCH[name] * grid.neighbors.shape[1]
                      + OPS_MARCH_WALL), {})
-    if name in MARCH_CURVI:
+    if name in MARCH_CURVI + MARCH_POLAR:
         tables = 4 * sum(t.numel() for t in grid if torch.is_tensor(t))
         return tables, n * OPS_MARCH[name], {}
+    if name == "march_tetra":
+        return (4 * (12 + 4 + 4) * grid.ncells, n * OPS_MARCH[name], {})
     tables = 4 * (sum(grid.shape) + 3) if name == "march_mesh" else 24
     return tables, n * OPS_MARCH[name], {}
 
@@ -4962,7 +4968,8 @@ def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
     ck, dk = mr._march_cuda(grid, pos, dirn, cell, S, mask)
     require(kb.LAUNCHES[name] == 1, f"{name} launched once")
     cp, dp = mr.march_geometry_plain(grid, pos, dirn, cell, S, mask)
-    exact = name in MARCH_TREE + MARCH_CURVI + MARCH_AMR
+    exact = name in MARCH_TREE + MARCH_CURVI + MARCH_AMR + MARCH_POLAR \
+        + MARCH_TETRA
     off = ((ck != cp) | (dk != dp)) if exact else ck != cp
     lanes_off = int(off.any(dim=0).sum())
     require(lanes_off <= (0 if exact else 1e-4 * B),
@@ -4977,8 +4984,11 @@ def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
     nbytes = S * B * 8 + B * (12 + 12 + 4 + 1) + tables
     kern = lambda: mr._march_cuda(grid, pos, dirn, cell, S, mask)
     dev = device_ms(kern)
+    # the plain version once (its first run above was the warm-up): a step
+    # is dozens to hundreds of launches, S of them a march
     plain_ms = cuda_ms(lambda: mr.march_geometry_plain(grid, pos, dirn, cell,
-                                                       S, mask), reps=2)
+                                                       S, mask), reps=1,
+                       warmup=0)
     return dict(max_abs_err=float((dk - dp).abs().max()),
                 ds_sum_rel_err=ds_err, lanes_cells_differ=lanes_off,
                 lanes=B, steps=S, walked_pairs=int(walked.sum()),
@@ -5424,7 +5434,8 @@ B5_SOURCE = dict(L=3.839e26, T=5778.0, lo=0.4e-6, hi=0.8e-6, bias=0.5,
                  d=100 * 3.08567758149e16)
 
 
-def point_source_gates(sim, sed_um, n_sigma: float = 5.0) -> dict:
+def point_source_gates(sim, sed_um, n_sigma: float = 5.0, src=B5_SOURCE,
+                       direct: bool = True) -> dict:
     """bench5's transparent and direct SEDs [W/m2/micron] against values
     the port does not compute. The transparent one bin by bin against
     L / (4 pi d^2) times the blackbody's share of each bin over its width,
@@ -5433,9 +5444,9 @@ def point_source_gates(sim, sed_um, n_sigma: float = 5.0) -> dict:
     pdf, q the biased one, over num_packets), and in total within n_sigma of
     its noise; the direct one over the transparent one, bin by bin, equal
     to exp(-tau) of the line of sight (los_tau) within 1e-4 (both f32 sums
-    of the same lanes' detections)."""
+    of the same lanes' detections; with direct). src: the source's
+    luminosity, temperature, range, wavelength bias and distance."""
     h, c, kB = 6.62607015e-34, 2.99792458e8, 1.380649e-23
-    src = B5_SOURCE
     x = np.geomspace(src["lo"], src["hi"], 400_001)
     p = x ** -5 / np.expm1(h * c / (x * kB * src["T"]))
     p /= np.trapezoid(p, x)
@@ -5462,18 +5473,20 @@ def point_source_gates(sim, sed_um, n_sigma: float = 5.0) -> dict:
     require(abs(total - 1) <= n_sigma * sigma_tot,
             f"transparent SED's integral {total} within {n_sigma} sigma "
             f"({sigma_tot}) of L / (4 pi d^2)")
+    out = dict(transparent_max_sigmas=float(z.max()),
+               transparent_max_rel_err=float(np.abs(ratio - 1).max()),
+               transparent_sigma_range=[float(sigma.min()),
+                                        float(sigma.max())],
+               transparent_integral=total,
+               transparent_integral_sigma=sigma_tot)
+    if not direct:
+        return out
     att = math.exp(-los_tau(sim, 0.55e-6))
     e_dir = float(np.abs(sed_um["primarydirect"][lit]
                          / sed_um["transparent"][lit] / att - 1).max())
     require(e_dir <= 1e-4, f"direct over transparent SED {e_dir} <= 1e-4 "
             f"from exp(-tau) = {att}")
-    return dict(transparent_max_sigmas=float(z.max()),
-                transparent_max_rel_err=float(np.abs(ratio - 1).max()),
-                transparent_sigma_range=[float(sigma.min()),
-                                         float(sigma.max())],
-                transparent_integral=total,
-                transparent_integral_sigma=sigma_tot,
-                los_attenuation=att, direct_over_transparent_err=e_dir)
+    return dict(out, los_attenuation=att, direct_over_transparent_err=e_dir)
 
 
 def phase_full_width_b5_tree(torch, smi: str, uniform: dict) -> dict:
@@ -5600,7 +5613,9 @@ def _disk_sources(kind: str, unit: str = "kpc") -> str:
 def galaxy_ski(directory, name: str, grid: str = "cylinder", nr: int = 128,
                nz: int = 128, level: int = 8, spiral: bool = False,
                sources: str = "galaxy", rf_bins: int = 8, npix: int = 128,
-               nlam: int = 40, unit: str = "kpc") -> str:
+               nlam: int = 40, unit: str = "kpc", nphi: int = 64,
+               sites: int = 100_000, relax: bool = False,
+               emission: bool = False) -> str:
     """A ski file of disk_cyl's galaxy (GALAXY) written into directory
     beside the MRN mix file: ExtinctionOnly over 0.1-3 micron with an
     rf_bins-bin RF; grid "cylinder" (a Cylinder2DSpatialGrid, a PowMesh of
@@ -5612,7 +5627,15 @@ def galaxy_ski(directory, name: str, grid: str = "cylinder", nr: int = 128,
     instruments at inclinations 0 and 90 deg, npix^2 pixels, nlam log
     bins. unit "pc" shrinks every length of the model 1000-fold (the tests
     hold the port against the reference there: the reference's curvilinear
-    steps overflow f32 past 0.6 kpc)."""
+    steps overflow f32 past 0.6 kpc). Grid "sphere3d" is a
+    Sphere3DSpatialGrid of nr radial (PowMesh, ratio 50), nz polar
+    (SymPowMesh, ratio 20) and nphi azimuthal bins to R; "cylinder3d" a
+    Cylinder3DSpatialGrid of nr radial (PowMesh), nphi azimuthal and nz z
+    (SymPowMesh) bins; "tetra" and "voronoi" a TetraMeshSpatialGrid or
+    VoronoiMeshSpatialGrid of `sites` DustDensity sites over the box,
+    Lloyd-relaxed with relax. With emission the mode is DustEmission
+    (equilibrium emission over 1-2000 micron, the RF over the sources'
+    range)."""
     import shutil
     g = GALAXY
     R, Z = g["r_max"], g["z_max"]
@@ -5637,6 +5660,25 @@ def galaxy_ski(directory, name: str, grid: str = "cylinder", nr: int = 128,
                     '<policy type="TreePolicy"><DensityTreePolicy minLevel='
                     f'"2" maxLevel="{level}" maxDustFraction="1e-4"/>'
                     '</policy></PolicyTreeSpatialGrid>')
+    elif grid == "sphere3d":
+        grid_xml = (f'<Sphere3DSpatialGrid maxRadius="{R} {unit}">'
+                    '<meshRadial type="Mesh"><PowMesh numBins='
+                    f'"{nr}" ratio="50"/></meshRadial><meshPolar type="Mesh">'
+                    f'<SymPowMesh numBins="{nz}" ratio="20"/></meshPolar>'
+                    f'<meshAzimuthal type="Mesh"><LinMesh numBins="{nphi}"/>'
+                    '</meshAzimuthal></Sphere3DSpatialGrid>')
+    elif grid == "cylinder3d":
+        grid_xml = (f'<Cylinder3DSpatialGrid maxRadius="{R} {unit}" minZ='
+                    f'"-{Z} {unit}" maxZ="{Z} {unit}"><meshRadial type="Mesh">'
+                    f'<PowMesh numBins="{nr}" ratio="50"/></meshRadial>'
+                    f'<meshAzimuthal type="Mesh"><LinMesh numBins="{nphi}"/>'
+                    '</meshAzimuthal><meshZ type="Mesh"><SymPowMesh numBins='
+                    f'"{nz}" ratio="50"/></meshZ></Cylinder3DSpatialGrid>')
+    elif grid in ("tetra", "voronoi"):
+        tag = "TetraMeshSpatialGrid" if grid == "tetra" else \
+            "VoronoiMeshSpatialGrid"
+        grid_xml = (f'<{tag} {box} policy="DustDensity" numSites="{sites}" '
+                    f'relaxSites="{str(relax).lower()}"/>')
     else:
         mesh = lambda ax: (f'<mesh{ax} type="Mesh"><LinMesh numBins="{nr}"/>'
                            f'</mesh{ax}>')
@@ -5654,6 +5696,17 @@ def galaxy_ski(directory, name: str, grid: str = "cylinder", nr: int = 128,
           f'<LogWavelengthGrid minWavelength="{lo} micron" maxWavelength='
           f'"{hi} micron" numWavelengths="{rf_bins}"/></radiationFieldWLG>'
           '</RadiationFieldOptions></radiationFieldOptions>')
+    if emission:
+        rf += ('<dustEmissionOptions type="DustEmissionOptions">'
+               '<DustEmissionOptions dustEmissionType="Equilibrium" '
+               'includeHeatingByCMB="false" maxFractionOfPrimary="0.01" '
+               'maxFractionOfPrevious="0.03" sourceWeight="1" '
+               'wavelengthBias="0.5"><cellLibrary type="SpatialCellLibrary">'
+               '<AllCellsLibrary/></cellLibrary><dustEmissionWLG type='
+               '"DisjointWavelengthGrid"><LogWavelengthGrid minWavelength='
+               '"1 micron" maxWavelength="2000 micron" numWavelengths="40"/>'
+               '</dustEmissionWLG></DustEmissionOptions>'
+               '</dustEmissionOptions>')
     wlg = ('' if oligo else '<defaultWavelengthGrid type="WavelengthGrid">'
            f'<LogWavelengthGrid minWavelength="{lo} micron" maxWavelength='
            f'"{hi} micron" numWavelengths="{nlam}"/></defaultWavelengthGrid>')
@@ -5665,7 +5718,8 @@ def galaxy_ski(directory, name: str, grid: str = "cylinder", nr: int = 128,
         f'centerX="0 pc" fieldOfViewY="{fov} {unit}" numPixelsY="{npix}" '
         'centerY="0 pc" recordComponents="true" numScatteringLevels="0" '
         'recordPolarization="false" recordStatistics="true"/>')
-    mode = "OligoExtinctionOnly" if oligo else "ExtinctionOnly"
+    mode = "OligoExtinctionOnly" if oligo else (
+        "DustEmission" if emission else "ExtinctionOnly")
     text = f"""<?xml version='1.0' encoding='UTF-8'?>
 <skirt-simulation-hierarchy type="MonteCarloSimulation" format="9" producer="chip_smoke">
   <MonteCarloSimulation userLevel="Expert" simulationMode="{mode}" numPackets="{N_GEO}">
@@ -5923,11 +5977,16 @@ def sampling_gates(torch, sim, n: int = 1 << 22,
     return out
 
 
-def column_tau(sim, lam: float = 0.55e-6) -> float:
+def column_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
     """The optical depth from the centre along +z through the 2D cylinder's
     innermost annulus, or from the centre outward through the 1D sphere's
-    shells, in f64 on the host from the cells' extents and densities."""
+    shells, in f64 on the host from the cells' extents and densities; on
+    the polar grids and the tetrahedral mesh toward instrument inst
+    (walk_tau)."""
     import torch
+    if type(sim.grid).__name__ in ("Sphere2DGrid", "Sphere3DGrid",
+                                   "Cylinder3DGrid", "TetraGrid"):
+        return walk_tau(sim, lam, inst)
     from skirt9_tpu_torch.media import system as msys
     sig = msys.optics_at(sim.medium, torch.tensor(
         [lam], dtype=torch.float32, device=sim.device)).sigma_ext
@@ -5941,18 +6000,18 @@ def column_tau(sim, lam: float = 0.55e-6) -> float:
     return float((np.diff(zb)[up] * kappa[:nz][up]).sum())
 
 
-def direct_gate(torch, sim, what: str) -> dict:
+def direct_gate(torch, sim, what: str, inst: int = 0) -> dict:
     """A central point source's run: direct over transparent SED (one
-    bin, at 0.55 micron) face-on equal to exp(-tau) of column_tau within
-    1e-3."""
+    bin, at 0.55 micron) of instrument inst (face-on by default) equal to
+    exp(-tau) of column_tau within 1e-3."""
     (rf, accs), launches = drive(
         (MODES_OF[type(sim.grid).__name__],) + DETECT, SWEEPS,
         lambda: sim.run_primary(verbose=False))
     from skirt9_tpu_torch.instruments import distant as dinst
-    sed = accs[0]["sed"].double().cpu()
+    sed = accs[inst]["sed"].double().cpu()
     att = float(sed[dinst.KIND_PRIMARY_DIRECT].sum() / sed[
         dinst.KIND_TRANSPARENT].sum())
-    tau = column_tau(sim)
+    tau = column_tau(sim, inst=inst)
     e = abs(att / math.exp(-tau) - 1)
     require(e <= 1e-3, f"{what}: direct / transparent {att} against "
             f"exp(-{tau}) within 1e-3 ({e})")
@@ -6746,7 +6805,7 @@ def _run_phase(torch, sim, must, dust: bool):
     t0 = time.perf_counter()
     out, launches = drive(must + DETECT, tuple(
         k for k in SWEEPS + MARCH + MARCH_TREE + MARCH_CURVI + MARCH_AMR
-        if k not in must), run)
+        + MARCH_POLAR + MARCH_TETRA if k not in must), run)
     return out, launches, time.perf_counter() - t0
 
 
@@ -6934,6 +6993,505 @@ def phase_full_width_sph(torch, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------ polar grids and unstructured meshes
+# The 2D and 3D spheres, the 3D cylinder and the tetrahedral mesh on the
+# march kernel's modes march_sphere2d, march_sphere3d, march_cylinder3d and
+# march_tetra; the tetrahedral mesh and a density-sampled, Lloyd-relaxed
+# Voronoi mesh also on their rasters (kernels 4-5).
+MARCH_POLAR = ("march_sphere2d", "march_sphere3d", "march_cylinder3d")
+MARCH_TETRA = ("march_tetra",)
+# f32 operations per walked (step, lane): a tetrahedron's four faces (two
+# dot products, the division, the test) and the move; a polar step's sphere
+# quadratics (24), per cone its sums and quadratic with both roots and the
+# choice (45), per half-plane its crossing and side test (14), and the
+# relocation (the move, the radius or hypot, per atan2 about 40, a binary
+# search of ~7 comparisons per coordinate)
+OPS_MARCH.update(march_tetra=76, march_sphere2d=24 + 2 * 45 + 70,
+                 march_sphere3d=24 + 2 * 45 + 2 * 14 + 120,
+                 march_cylinder3d=40 + 2 * 14 + 80)
+MODES_OF.update(Sphere2DGrid="march_sphere2d", Sphere3DGrid="march_sphere3d",
+                Cylinder3DGrid="march_cylinder3d", TetraGrid="march_tetra")
+# a SKIRTOR-style AGN torus (the reference's TorusGeometry): rho ~ r^-p
+# exp(-q |cos theta|) within 40 deg of the equator from 0.05 to 15 pc, of
+# equatorial tau_V = 5 from the centre, around a central 20,000 K blackbody
+# of 1e11 Lsun over 0.1-3 micron, seen at 10 Mpc from 30 deg (through the
+# opening) and 80 deg (through the torus)
+TORUS = dict(rmin=0.05, rmax=15.0, p=1.0, q=0.0, delta=40.0, tau_v=5.0,
+             T=20000.0, L=1e11, lam=(0.1, 3.0), distance_mpc=10.0,
+             inclinations=(30, 80))
+L_SUN = 3.839e26          # SKIRT's solar luminosity [W]
+
+
+def torus_number() -> float:
+    """The torus's dust entity count for TORUS's equatorial tau_V from the
+    centre: its normalised density along +x (the port's TorusGeometry, as
+    the loader builds it) integrated on the host over 2 x 10^5 log-spaced
+    radii, times the mean interstellar mix's cross section at 0.55
+    micron (MeanInterstellarDustMix has no optical-depth normalization in
+    the port's loader)."""
+    from skirt9_tpu_torch.geometries import axial as gax
+    from skirt9_tpu_torch.media import mixes as mx
+    t = TORUS
+    geom = gax.TorusGeometry(p=t["p"], q=t["q"], delta=math.radians(
+        t["delta"]), rmin=t["rmin"] * PC, rmax=t["rmax"] * PC)
+    r = np.geomspace(t["rmin"] * PC, t["rmax"] * PC, 200_001)
+    pos = np.zeros((len(r), 3))
+    pos[:, 0] = r
+    col = float(np.trapezoid(geom.density_np(pos), r))
+    sig = float(mx.mean_interstellar_approx().at(0.55e-6)[0])
+    return t["tau_v"] / (sig * col)
+
+
+def torus_ski(directory, name: str, nr: int = 100, nt: int = 90,
+              npix: int = 64, nlam: int = 40, oligo: bool = False) -> str:
+    """The torus (TORUS) as a ski file: ExtinctionOnly over 0.1-3 micron
+    (OligoExtinctionOnly at 0.55 micron with oligo), a Sphere2DSpatialGrid
+    to 15 pc of nr radial (PowMesh, ratio 50) x nt polar (SymPowMesh, ratio
+    10) bins, two FullInstruments of npix^2 pixels on nlam log bins."""
+    t = TORUS
+    norm = ('<normalization type="LuminosityNormalization">'
+            '<IntegratedLuminosityNormalization wavelengthRange="Source" '
+            f'integratedLuminosity="{t["L"]:.6g} Lsun"/></normalization>')
+    sed = ('' if oligo else '<sed type="SED"><BlackBodySED temperature='
+           f'"{t["T"]} K"/></sed>')
+    lo, hi = t["lam"]
+    src_sys = ('<SourceSystem wavelengths="0.55 micron" sourceBias="0.5">'
+               if oligo else f'<SourceSystem minWavelength="{lo} micron" '
+               f'maxWavelength="{hi} micron" sourceBias="0.5">')
+    wlg = ('' if oligo else '<defaultWavelengthGrid type="WavelengthGrid">'
+           f'<LogWavelengthGrid minWavelength="{lo} micron" maxWavelength='
+           f'"{hi} micron" numWavelengths="{nlam}"/></defaultWavelengthGrid>')
+    fov = 2.2 * t["rmax"]
+    inst = lambda inc: (
+        f'<FullInstrument instrumentName="i{inc}" distance='
+        f'"{t["distance_mpc"]} Mpc" inclination="{inc} deg" azimuth="0 deg" '
+        f'roll="0 deg" fieldOfViewX="{fov} pc" numPixelsX="{npix}" '
+        f'centerX="0 pc" fieldOfViewY="{fov} pc" numPixelsY="{npix}" '
+        'centerY="0 pc" recordComponents="true" numScatteringLevels="0" '
+        'recordPolarization="false" recordStatistics="true"/>')
+    mode = "OligoExtinctionOnly" if oligo else "ExtinctionOnly"
+    text = f"""<?xml version='1.0' encoding='UTF-8'?>
+<skirt-simulation-hierarchy type="MonteCarloSimulation" format="9" producer="chip_smoke">
+  <MonteCarloSimulation userLevel="Expert" simulationMode="{mode}" numPackets="{N_GEO}">
+    <random type="Random"><Random seed="0"/></random>
+    <units type="Units"><ExtragalacticUnits fluxOutputStyle="Wavelength"/></units>
+    <cosmology type="Cosmology"><LocalUniverseCosmology/></cosmology>
+    <sourceSystem type="SourceSystem">{src_sys}<sources type="Source"><PointSource positionX="0 pc" positionY="0 pc" positionZ="0 pc" velocityX="0 km/s" velocityY="0 km/s" velocityZ="0 km/s" sourceWeight="1" wavelengthBias="0.5">{sed}{norm}</PointSource></sources></SourceSystem></sourceSystem>
+    <mediumSystem type="MediumSystem"><MediumSystem>
+      <photonPacketOptions type="PhotonPacketOptions"><PhotonPacketOptions forceScattering="true" minWeightReduction="1e4" minScattEvents="0" pathLengthBias="0.5"/></photonPacketOptions>
+      <media type="Medium"><GeometricMedium velocityMagnitude="0 km/s">
+        <geometry type="Geometry"><TorusGeometry exponent="{t['p']}" index="{t['q']}" openingAngle="{t['delta']} deg" minRadius="{t['rmin']} pc" maxRadius="{t['rmax']} pc"/></geometry>
+        <materialMix type="MaterialMix"><MeanInterstellarDustMix/></materialMix>
+        <normalization type="MaterialNormalization"><NumberMaterialNormalization number="{torus_number():.9e}"/></normalization>
+      </GeometricMedium></media>
+      <grid type="SpatialGrid"><Sphere2DSpatialGrid maxRadius="{t['rmax']} pc"><meshRadial type="Mesh"><PowMesh numBins="{nr}" ratio="50"/></meshRadial><meshPolar type="Mesh"><SymPowMesh numBins="{nt}" ratio="10"/></meshPolar></Sphere2DSpatialGrid></grid>
+    </MediumSystem></mediumSystem>
+    <instrumentSystem type="InstrumentSystem"><InstrumentSystem>{wlg}<instruments type="Instrument">{inst(t["inclinations"][0])}{inst(t["inclinations"][1])}</instruments></InstrumentSystem></instrumentSystem>
+  </MonteCarloSimulation>
+</skirt-simulation-hierarchy>
+"""
+    path = os.path.join(str(directory), f"{name}.ski")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+# the configurations of this section: (writer, its arguments, run sizes,
+# raster_fallback); the full-width ones with their point-source variants
+# (a central source at 0.55 micron for the direct-light gate), the reduced
+# ones of tests/test_torch_polar.py and tests/test_torch_tetra.py and of
+# draw_for_draw_meshes (the galaxies 1000-fold smaller: unit "pc")
+_FW = dict(num_packets=N_GEO // 2, batch_size=B_GEO, max_events=24)
+_PT = dict(num_packets=1 << 18, batch_size=B_GEO, max_events=24)
+_SM = dict(num_packets=2048, batch_size=1024, max_events=6)
+_SPH3 = dict(grid="sphere3d", nr=64, nz=64, nphi=64, spiral=True, npix=64)
+_CYL3 = dict(grid="cylinder3d", nr=128, nz=64, nphi=64, spiral=True,
+             npix=64)
+_TET = dict(grid="tetra", spiral=True, npix=64)
+_VOR = dict(grid="voronoi", spiral=True, npix=64, relax=True, emission=True,
+            rf_bins=25)
+_SMALL = dict(npix=16, nlam=12, rf_bins=4, unit="pc")
+MESHES = {
+    "torus_sphere2d": (torus_ski, {}, dict(_FW, num_packets=N_GEO), True),
+    "torus_sphere2d_point": (torus_ski, dict(oligo=True), _PT, True),
+    "spiral_sphere3d": (galaxy_ski, _SPH3, _FW, True),
+    "spiral_sphere3d_point": (galaxy_ski, dict(_SPH3, sources="point"), _PT,
+                              True),
+    "spiral_cylinder3d": (galaxy_ski, _CYL3, _FW, True),
+    "spiral_cylinder3d_point": (galaxy_ski, dict(_CYL3, sources="point"),
+                                _PT, True),
+    "tetra_galaxy": (galaxy_ski, _TET, _FW, True),
+    "tetra_galaxy_march": (galaxy_ski, _TET, _FW, False),
+    "tetra_galaxy_point": (galaxy_ski, dict(_TET, sources="point",
+                                            sites=20_000), _PT, False),
+    "voronoi_density": (galaxy_ski, _VOR, _FW, True),
+    "torus_sphere2d_small": (torus_ski, dict(nr=20, nt=18, npix=16, nlam=12),
+                             _SM, True),
+    "spiral_sphere3d_small": (galaxy_ski, dict(_SPH3, nr=12, nz=10, nphi=8,
+                                               **_SMALL), _SM, True),
+    "spiral_cylinder3d_small": (galaxy_ski, dict(_CYL3, nr=12, nz=10, nphi=8,
+                                                 **_SMALL), _SM, True),
+    "tetra_galaxy_small": (galaxy_ski, dict(_TET, sites=300, **_SMALL), _SM,
+                           True),
+    "tetra_galaxy_march_small": (galaxy_ski, dict(_TET, sites=300, **_SMALL),
+                                 _SM, False),
+    "voronoi_density_small": (galaxy_ski, dict(_VOR, sites=300, **dict(
+        _SMALL, rf_bins=4)), dict(_SM, max_events=3), True),
+}
+# the full-width phases profiled (host_per_event): a polar march and the
+# tetrahedral raster (the others' loops issue the same operations an event
+# as one of these, PERF.md section 5)
+BREAKDOWN_OF = ("torus_sphere2d", "tetra_galaxy")
+# a full-width configuration's central point source on the same grid (the
+# direct-light gate of an exact walk; the tetrahedral one on a mesh of
+# 2 x 10^4 sites, whose build is five times quicker)
+POINT_OF = {"torus_sphere2d": "torus_sphere2d_point",
+            "spiral_sphere3d": "spiral_sphere3d_point",
+            "spiral_cylinder3d": "spiral_cylinder3d_point",
+            "tetra_galaxy_march": "tetra_galaxy_point"}
+# the CPU-against-card bounds of the reduced spheres' scattered light and
+# RF (tests/test_torch_cuda.py's test_march_on_cuda_matches_cpu): their
+# lanes part by an ulp before any step of this section (the
+# launch and scattering directions' f32 sine and cosine differ between
+# PyTorch's CPU and CUDA code, as they differ from the reference's), and
+# the spheres' small polar cells amplify a moved scattering; measured on
+# the card 4.0e-5 (the torus's scattered SED) and 1.4e-2 (the 3D sphere's
+# RF), the same gaps as against the reference (tests/test_torch_polar.py
+# BOUNDS); every other quantity of every case within MARCH_BOUNDS
+MESH_BOUNDS = {"torus_sphere2d_small": {"sed2": 2e-4},
+               "spiral_sphere3d_small": {"sed2": 2e-3, "rf": 5e-2}}
+# draw_for_draw_meshes: a raster with dust emission (kernels 4-5 CPU
+# against card) and march_tetra; the polar marches' and the tetrahedral
+# raster's CPU-against-card runs are tests/test_torch_cuda.py's
+# (test_march_on_cuda_matches_cpu, test_polar_and_tetra_loops_...)
+MESH_DRAW = ("tetra_galaxy_march_small", "voronoi_density_small")
+
+
+def mesh_ski(name: str, directory, **over) -> str:
+    """The ski file of MESHES[name] (its arguments updated by over),
+    written into directory (a _march variant shares its ski file)."""
+    write, kw, _, _ = MESHES[name]
+    return write(directory, name.replace("_march", ""), **dict(kw, **over))
+
+
+def mesh_config(name: str, device, directory, **run):
+    """MESHES[name] through the port's load_ski at its run sizes (updated
+    by run); the _march variants and the tetrahedral point source with
+    raster_fallback off (the exact walk, march_tetra)."""
+    import dataclasses
+    from skirt9_tpu_torch.config.ski import load_ski
+    _, _, sizes, raster = MESHES[name]
+    sim = load_ski(mesh_ski(name, directory), device=device,
+                   **dict(sizes, **run))
+    if not raster:
+        sim = dataclasses.replace(sim, options=dataclasses.replace(
+            sim.options, raster_fallback=False))
+    return sim
+
+
+def walk_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
+    """The optical depth at lam from a central source (at the origin)
+    toward instrument inst through the grid's cells, in f64 on the host
+    from the cells' geometry and the medium's densities: on a 2D or 3D
+    sphere the radial ray's shells in the polar (and azimuthal) bin of the
+    direction (atan2 in f64); on the 3D cylinder (a face-on direction) the
+    z slabs above the origin in the innermost annulus's wedge of azimuth
+    0; on a tetrahedral mesh each tetrahedron's chord, the ray's interval
+    inside its four face planes."""
+    import torch
+    from skirt9_tpu_torch.media import system as msys
+    host = lambda t: t.detach().double().cpu().numpy()
+    k = host(sim._inst_tabs[inst]["kobs"])
+    sig = host(msys.optics_at(sim.medium, torch.tensor(
+        [lam], dtype=torch.float32, device=sim.device)).sigma_ext)[0]
+    kappa = host(sim.medium.nd) @ sig
+    g = sim.grid
+    name = type(g).__name__
+    bin_of = lambda b, v: int(np.clip(np.searchsorted(host(b), v, "right")
+                                      - 1, 0, len(b) - 2))
+    if name == "TetraGrid":
+        n, d = host(g.face_n), host(g.face_d)            # (N, 4, 3), (N, 4)
+        kn = n @ k                                       # (N, 4)
+        t = np.where(np.abs(kn) > 0, -d / np.where(kn == 0, 1, kn), 0.0)
+        t_in = np.max(np.where(kn < 0, t, 0.0), axis=1)
+        t_out = np.min(np.where(kn > 0, t, np.inf), axis=1)
+        outside = np.any((kn == 0) & (d > 0), axis=1)
+        return float((np.where(outside, 0.0, np.clip(t_out - t_in, 0, None))
+                      * kappa).sum())
+    phi = math.atan2(k[1], k[0])
+    if name == "Cylinder3DGrid":
+        require(abs(k[2]) == 1.0, "walk_tau: a face-on cylinder")
+        zb = host(g.zb)
+        ip = bin_of(g.pb, phi)
+        z0 = np.clip(zb[:-1], 0.0, None) if k[2] > 0 else \
+            np.clip(-zb[1:], 0.0, None)
+        z1 = np.clip(zb[1:], 0.0, None) if k[2] > 0 else \
+            np.clip(-zb[:-1], 0.0, None)
+        cells = (0 * g.nphi + ip) * g.nz + np.arange(g.nz)
+        return float(((z1 - z0) * kappa[cells]).sum())
+    rb = host(g.rb)
+    it = bin_of(g.tb, math.atan2(math.hypot(k[0], k[1]), k[2]))
+    cells = np.arange(g.nr) * g.nt + it
+    if name == "Sphere3DGrid":
+        cells = cells * g.nphi + bin_of(g.pb, phi)
+    return float((np.diff(rb) * kappa[cells]).sum())
+
+
+def mass_gate(sim, number: float, bound: float, what: str) -> dict:
+    """The dust entities on the grid (per-cell density times volume, f64)
+    against the normalization's number, within bound: the reference's
+    own deviation at the same set-up (cell-averaged densities on cones,
+    wedges and tetrahedra are approximate in the reference too)."""
+    n_grid = float((sim.medium.nd[:, 0].double().cpu().numpy()
+                    * sim.grid.volumes()).sum())
+    e = abs(n_grid / number - 1)
+    require(e <= bound, f"{what}: dust entities on the grid within {bound} "
+            f"of the normalization ({e})")
+    return dict(dust_entities=n_grid, number=number, mass_rel_err=e,
+                mass_bound=bound)
+
+
+# the bound of the mass gate: the reference's deviation of the dust on the
+# grid from the normalization at each full-width set-up, measured on the
+# CPU (its load_ski; PERF.md section 4), rounded up in the third digit:
+# +1.92%, -7.47%, -6.76%, -4.45%, -0.236% (the galaxy's dust past 25 kpc
+# is off the grid; cell-averaged densities on cones and tetrahedra)
+MASS_BOUNDS = {"torus_sphere2d": 0.0193, "spiral_sphere3d": 0.0748,
+               "spiral_cylinder3d": 0.0676, "tetra_galaxy": 0.0446,
+               "voronoi_density": 0.00237}
+
+
+# the configurations loaded on the card, with their set-up seconds: the
+# kernel phases and the full-width phases share them (a Voronoi mesh of
+# 10^5 relaxed sites takes a minute of host work)
+_MESH_SIMS: dict = {}
+
+
+def _mesh_sim(name):
+    """MESHES[name] on the card, loaded once per run; (sim, set-up s). A
+    _march variant is its configuration with raster_fallback off, made
+    from the loaded one: the same grid, medium and sources, without the
+    raster's tables, so that it marches (as `bridge.simulation(...,
+    march=True)` makes a march of a rasterized configuration)."""
+    import copy
+    import dataclasses
+    if name not in _MESH_SIMS:
+        t0 = time.perf_counter()
+        if name.endswith("_march"):
+            base, setup = _mesh_sim(name[:-len("_march")])
+            t0 = time.perf_counter()
+            sim = copy.copy(base)
+            sim.options = dataclasses.replace(base.options,
+                                              raster_fallback=False)
+            sim._sweep_tabs = None
+            _MESH_SIMS[name] = (sim, setup + time.perf_counter() - t0)
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                _MESH_SIMS[name] = (mesh_config(name, "cuda", tmp),
+                                    time.perf_counter() - t0)
+    return _MESH_SIMS[name]
+
+
+def phase_kernels_march_polar(torch) -> dict:
+    """The march kernel's polar modes against their plain versions, cells
+    and lengths bit for bit (_march_check): march_sphere2d at
+    torus_sphere2d's first event (2^16 lanes, 100 x 90 cells, S = 256),
+    march_sphere3d at spiral_sphere3d's (64^3 cells to 25 kpc, shift 10)
+    and march_cylinder3d at spiral_cylinder3d's (128 x 64 x 64). Seeded
+    rays through each mode's grids, staged and unstaged, at pc and kpc
+    scale: tests/test_torch_cuda.py's test_march_kernel."""
+    out = {}
+    for name, mode in (("torus_sphere2d", "march_sphere2d"),
+                       ("spiral_sphere3d", "march_sphere3d"),
+                       ("spiral_cylinder3d", "march_cylinder3d")):
+        sim, _ = _mesh_sim(name)
+        S = sim.options.max_steps
+        pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_GEO)
+        out[mode] = dict(_march_check(torch, mode, sim.grid, pos, dirn,
+                                      cell, S, alive),
+                         cells=sim.grid.ncells, shift=sim.grid.shift)
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_march_polar", **out})
+    return out
+
+
+def phase_kernels_march_tetra(torch) -> dict:
+    """march_tetra at tetra_galaxy_march's first event (2^16 lanes, about
+    6.5 x 10^5 tetrahedra of 10^5 density-sampled sites) and on seeded rays
+    through a 300-site mesh, bit for bit (_march_check); kernels 4-5 at
+    the tetrahedral raster (tetra_galaxy) and at the relaxed Voronoi
+    raster (voronoi_density, 25 RF rows) first events against their plain
+    versions (_kernel4_b4, _kernel5_grouped)."""
+    from skirt9_tpu_torch.grids import tetra
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.transport import mlsweep as ml
+    out = {}
+    sim, setup = _mesh_sim("tetra_galaxy_march")
+    require(sim._sweep_tabs is None, "tetra_galaxy_march walks exactly")
+    pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_GEO)
+    out["march_tetra"] = dict(_march_check(
+        torch, "march_tetra", sim.grid, pos, dirn, cell,
+        sim.options.max_steps, alive), cells=sim.grid.ncells,
+        setup_s=setup, walk_steps=sim.grid.walk_steps)
+    dev = sim.device
+    rs = np.random.default_rng(41)
+    small = tetra.build_tetra(rs.uniform(-PC, PC, (300, 3)),
+                              ((-PC, PC),) * 3).to(dev)
+    p = torch.tensor(rs.uniform(-1.5 * PC, 1.5 * PC, (B_GEO, 3)).astype(
+        np.float32), device=dev)
+    d = rs.normal(size=(B_GEO, 3))
+    d = torch.tensor((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
+        np.float32), device=dev)
+    p, c, _ = small.move_inside(p, d)
+    out["march_tetra_300"] = _march_check(
+        torch, "march_tetra", small, p, d, c, small.max_steps(), c >= 0)
+    del pos, dirn, cell, alive
+    torch.cuda.empty_cache()
+    for name in ("tetra_galaxy", "voronoi_density"):
+        sim, setup = _mesh_sim(name)
+        tabs = sim._sweep_tabs
+        require(isinstance(tabs, ml.MLTables), f"{name} on its raster")
+        pkt, opts, pre = first_event_b3(torch, sim)
+        sig = msys.optics_at(sim.medium, pkt.lam).sigma_ext.T.contiguous()
+        res = _kernel4_b4(torch, sim, pkt, sig, f"{name}'s raster")
+        res["mlsweep_deposit"] = _kernel5_grouped(
+            torch, sim, pkt, opts, pre, f"kernel 5 on {name}'s raster")
+        out[name] = dict(res, cells=sim.grid.ncells, raster=list(tabs.n),
+                         setup_s=setup)
+        del pkt, pre
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_march_tetra", **out})
+    return out
+
+
+def phase_draw_for_draw_meshes(torch) -> dict:
+    """MESH_DRAW on the CPU (plain versions) and on the card (kernels),
+    the same seed: march_gaps within MARCH_BOUNDS; each case's march mode
+    (or kernels 4-5 on a raster) and detect launched, no other march mode
+    or sweep."""
+    res, launches = {}, {}
+    every = SWEEPS + MARCH + MARCH_TREE + MARCH_CURVI + MARCH_AMR \
+        + MARCH_POLAR + MARCH_TETRA
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in MESH_DRAW:
+            outs = {}
+            for device in ("cpu", "cuda"):
+                sim = mesh_config(name, device, tmp)
+                dust = sim.ems_borders is not None
+                run = (lambda: sim.run_with_dust_emission(verbose=False)) \
+                    if dust else (lambda: sim.run_primary(verbose=False))
+                if device == "cuda":
+                    must = ML if sim._sweep_tabs is not None else (
+                        MODES_OF[type(sim.grid).__name__],)
+                    outs[device], n = drive(must + DETECT, tuple(
+                        k for k in every if k not in must), run)
+                    launches[name] = {k: v for k, v in n.items() if v}
+                else:
+                    outs[device] = run()
+            res[name] = march_gaps(outs["cpu"], outs["cuda"], dust,
+                                   MESH_BOUNDS.get(name))
+            torch.cuda.empty_cache()
+    emit({"phase": "draw_for_draw_meshes", "march_bounds": MARCH_BOUNDS,
+          "mesh_bounds": MESH_BOUNDS,
+          "gaps": res, "launches": launches})
+    return launches
+
+
+def torus_gates(sim, sed_um, n_sigma: float = 5.0) -> dict:
+    """The torus's transparent SED against its blackbody (point_source_gates'
+    transparent part with TORUS's source, seen at 10 Mpc)."""
+    t = TORUS
+    src = dict(L=t["L"] * L_SUN, T=t["T"], lo=t["lam"][0] * 1e-6,
+               hi=t["lam"][1] * 1e-6, bias=0.5,
+               d=t["distance_mpc"] * 1e6 * 3.08567758149e16)
+    return point_source_gates(sim, sed_um, n_sigma, src=src, direct=False)
+
+
+def phase_full_width_mesh(torch, smi: str, name: str) -> dict:
+    """One configuration of MESHES at full width, timed after a one-batch
+    warm-up: its march mode (or kernels 4-5 on a raster) and detect
+    launched, no other. Gates: the transparent SED against the sources'
+    blackbodies (torus_gates, blackbody_mix_gates), R < 0.01 in the bins
+    above 1% of the peak, the dust on the grid against the normalization
+    (mass_gate); on the exact walks the direct light of a central source
+    at 0.55 micron against exp(-tau) through the cells (walk_tau,
+    direct_gate; the torus at 80 deg); on a tetrahedral mesh the cell
+    volumes tiling the box (1e-6); with dust emission L_dust = L_abs_primary
+    (1e-4). One batch profiled (host_per_event)."""
+    from skirt9_tpu_torch.transport import march as mr
+    raster = MESHES[name][3]
+    sim, setup = _mesh_sim(name)
+    dust = sim.ems_borders is not None
+    mode = mr.MODES[type(sim.grid)]
+    rasterized = sim._sweep_tabs is not None
+    require(rasterized == (raster and mode in ("march_tetra",
+                                               "march_voronoi")),
+            f"{name}'s engine")
+    must = ML if rasterized else (mode,)
+    res = {"phase": f"full_width_{name}", "cells": sim.grid.ncells,
+           "setup_s": setup, "max_steps": sim.options.max_steps}
+    if sim._sweep_tabs is not None:
+        res["raster"] = list(sim._sweep_tabs.n)
+    base = name.replace("_march", "")
+    number = torus_number() if base.startswith("torus") else \
+        dust_disk_number(MESHES[name][1].get("unit", "kpc"))
+    res.update(mass_gate(sim, number, MASS_BOUNDS[base], name))
+    if mode == "march_tetra":
+        vt = float(sim.grid.volumes().sum())
+        lo, hi = (sim.grid.box_lo.double().cpu().numpy(),
+                  sim.grid.box_hi.double().cpu().numpy())
+        e = abs(vt / float(np.prod(hi - lo)) - 1)
+        require(e <= 1e-6, f"{name}: tetrahedra tile the box ({e})")
+        res["volume_tiling_err"] = e
+    n_full = sim.num_packets
+    sim.num_packets = sim.batch_size                 # the warm-up: one batch
+    (sim.run_with_dust_emission if dust else sim.run_primary)(verbose=False)
+    sim.num_packets = n_full
+    out, launches, dt = _run_phase(torch, sim, must, dust)
+    rf, accs = out[0], out[1]
+    res.update(packets=sim.num_packets, batch=sim.batch_size, seconds=dt,
+               packets_per_s=sim.num_packets / dt,
+               events=sim.last_stats.get("events"),
+               launches={k: v for k, v in launches.items() if v})
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [p for p in sim.write_outputs(accs, name, tmp)
+                 if p.endswith("_sed.dat")]
+        cols = [np.loadtxt(p) for p in paths]
+    if base.startswith("torus"):
+        res.update(torus_gates(sim, {"transparent": cols[0][:, 2]}))
+    else:
+        res.update(blackbody_mix_gates(sim, {"transparent": cols[0][:, 2]}))
+    lit = cols[0][:, 1] > 1e-2 * cols[0][:, 1].max()
+    R = cols[0][lit, 7]
+    require(float(R.max()) < 0.01, f"{name}: SED relative error R {R.max()}")
+    res["R_max"] = float(R.max())
+    res["direct_over_transparent"] = [
+        float(c[lit, 3].sum() / c[lit, 2].sum()) for c in cols]
+    if dust:
+        info = out[2]
+        e_l = abs(info["L_dust"] / info["L_abs_primary"] - 1)
+        require(e_l <= 1e-4, f"{name}: L_dust / L_abs_primary - 1 {e_l}")
+        res.update(iterations=info["iterations"], L_dust=info["L_dust"],
+                   L_abs_primary=info["L_abs_primary"], L_dust_rel_err=e_l)
+    pt = POINT_OF.get(name)
+    if pt is not None:
+        psim, _ = _mesh_sim(pt)
+        res["point_source"] = direct_gate(
+            torch, psim, pt, inst=1 if base.startswith("torus") else 0)
+        del _MESH_SIMS[pt], psim
+    if name in BREAKDOWN_OF:
+        sim.num_packets = sim.batch_size
+        res["breakdown"] = host_per_event(
+            torch, sim, (lambda s: s.run_with_dust_emission(verbose=False))
+            if dust else (lambda s: s.run_primary(verbose=False)))
+        sim.num_packets = n_full
+    del sim
+    torch.cuda.empty_cache()
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
+    return launches, res.get("point_source", {}).get("launch_counts")
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -6949,6 +7507,9 @@ def main() -> int:
     kern_march.update(phase_kernels_march_tree(torch))
     kern_march.update(phase_kernels_march_curvi(torch))
     kern_march.update(phase_kernels_march_amr(torch))
+    kern_march.update(phase_kernels_march_polar(torch))
+    kern_mesh = phase_kernels_march_tetra(torch)
+    kern_march["march_tetra"] = kern_mesh["march_tetra"]
     kern_b5_tree = phase_kernels_b5_tree(torch)
     kern_amr = phase_kernels_amr(torch)
     kern = phase_kernels(torch)
@@ -7067,6 +7628,17 @@ def main() -> int:
     launches_amr = phase_full_width_amr(torch, smi, "amr_galaxy")
     launches_amr_march = phase_full_width_amr(torch, smi, "amr_galaxy_march")
     launches_sph = phase_full_width_sph(torch, smi)
+    torch.cuda.empty_cache()
+    # the polar grids and the unstructured meshes
+    launches_mesh_small = phase_draw_for_draw_meshes(torch)
+    launches_mesh, point_launches = {}, {}
+    for name in ("torus_sphere2d", "spiral_sphere3d", "spiral_cylinder3d",
+                 "tetra_galaxy", "tetra_galaxy_march", "voronoi_density"):
+        launches_mesh[name], point_launches[name] = phase_full_width_mesh(
+            torch, smi, name)
+        torch.cuda.empty_cache()
+    _MESH_SIMS.clear()
+    torch.cuda.empty_cache()
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -7220,6 +7792,14 @@ def main() -> int:
             row["launches_sph_galaxy"] = launches_sph[name]
             if name in kern_amr:
                 row["amr_galaxy"] = kern_amr[name]
+            # the tetrahedral and the relaxed Voronoi rasters: kernels 4-5
+            # at their first events (kernels_march_tetra), launched on
+            # their full-width runs
+            for mesh in ("tetra_galaxy", "voronoi_density"):
+                row[f"launches_{mesh}"] = launches_mesh[mesh][name]
+                k45 = kern_mesh[mesh]
+                if name in k45:
+                    row[mesh] = k45[name]
         if name in DETECT:
             row["launches_disk_cyl"] = launches_disk_cyl[name]
         if name in k1_modes + RESIDENT + DETECT + ("sweep_deposit",):
@@ -7355,6 +7935,39 @@ def main() -> int:
                               for key in tree_keys},
                  "launches_draw_for_draw_imports": imports_small[
                      "amr_galaxy_march_small"]["launches"]["march_amr"]})
+    kern_march["march_tetra_300"] = kern_mesh["march_tetra_300"]
+    # the polar modes on their configurations' full-width runs, the
+    # tetrahedral mode on tetra_galaxy_march's, each held bit for bit at its
+    # first event (kernels_march_polar, kernels_march_tetra)
+    for name, path in (("march_sphere2d", "full_width_torus_sphere2d"),
+                       ("march_sphere3d", "full_width_spiral_sphere3d"),
+                       ("march_cylinder3d", "full_width_spiral_cylinder3d"),
+                       ("march_tetra", "full_width_tetra_galaxy_march")):
+        k = kern_march[name]
+        run = path.replace("full_width_", "")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "skirt9_tpu_torch/csrc/march.cu",
+                     "replaces": "skirt9_tpu/transport/lifecycle.py:132 "
+                     "(march_geometry over " + (
+                         "skirt9_tpu/grids/tetra.py:84 TetraGrid.step"
+                         if name == "march_tetra" else
+                         "skirt9_tpu/grids/polar.py " + {
+                             "march_sphere2d": ":154 Sphere2DGrid.step",
+                             "march_sphere3d": ":265 Sphere3DGrid.step",
+                             "march_cylinder3d": ":386 Cylinder3DGrid.step"}[
+                                 name]) + ", an XLA scan: not a TPU kernel)",
+                     "path": path, "launches": launches_mesh[run][name],
+                     **{key: k[key] for key in tree_keys + (
+                         "cells", "shift", "ds_sum_rel_err") if key in k},
+                     "launches_point_source": (point_launches[run] or {}).get(
+                         name, 0),
+                     **({"seeded_300_sites": {
+                         key: v for key, v in kern_march[
+                             "march_tetra_300"].items() if key in tree_keys}}
+                        if name == "march_tetra" else {}),
+                     "launches_draw_for_draw_meshes": {
+                         case: n[name] for case, n in
+                         launches_mesh_small.items() if name in n}})
     for name in ("sweepxl_dtau_prefix", "sweepxl_deposit_prefix"):
         # kernels 6-7 on amr_galaxy's 256^3 voxel raster (kernels_amr,
         # with its one XL batch's launches)

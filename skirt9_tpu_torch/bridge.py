@@ -34,7 +34,9 @@ from .grids.amr import AMRGrid
 from .grids.cartesian import CartesianGrid, UniformCartesianGrid
 from .grids.cylinder import Cylinder2DGrid
 from .grids.octree import OctreeGrid
+from .grids import polar
 from .grids.sphere import Sphere1DGrid, length_shift
+from .grids.tetra import TetraGrid
 from .grids.voronoi import VoronoiGrid
 from .imports import snapshots as snaps
 from .imports.snapshots import FamilyParticleSource, ParticleSnapshot
@@ -87,11 +89,23 @@ def grid(ref_grid):
             f: int(getattr(ref_grid, f)) if f == "depth" else
             torch.tensor(np.asarray(getattr(ref_grid, f)))
             for f in AMRGrid._fields})
-    if name == "VoronoiGrid":
-        return VoronoiGrid(**{
+    if name in ("VoronoiGrid", "TetraGrid"):
+        cls = VoronoiGrid if name == "VoronoiGrid" else TetraGrid
+        return cls(**{
             f: int(getattr(ref_grid, f)) if f == "walk_steps" else
             torch.tensor(np.asarray(getattr(ref_grid, f)))
-            for f in VoronoiGrid._fields})
+            for f in cls._fields})
+    if name in ("Sphere2DGrid", "Sphere3DGrid", "Cylinder3DGrid"):
+        # the border tables as they are; the port tabulates their cosines
+        # and sines
+        b = {f: np.asarray(getattr(ref_grid, f))
+             for f in ("rb", "tb", "pb", "zb") if hasattr(ref_grid, f)}
+        if name == "Sphere2DGrid":
+            return polar.make_sphere2d(0.0, 0, 0, **b)
+        if name == "Sphere3DGrid":
+            return polar.make_sphere3d(0.0, 0, 0, len(b["pb"]) - 1, **b)
+        return polar.make_cylinder3d(0.0, 0.0, 0.0, 0, len(b["pb"]) - 1, 0,
+                                     **b)
     if name == "CartesianGrid":
         return CartesianGrid(*(_f32(b) for b in (ref_grid.xb, ref_grid.yb,
                                                  ref_grid.zb)))
@@ -301,15 +315,16 @@ def simulation(ref_sim, device, march: bool = False) -> Simulation:
             sim.grid = sim.grid._replace(leafmap=None, fine_n=())
     elif type(ref_tabs).__name__ == "XLTables":
         _xl_tables(sim, ref_tabs)
-    elif isinstance(sim.grid, VoronoiGrid) and ref_tabs is not None:
+    elif isinstance(sim.grid, (VoronoiGrid, TetraGrid)) \
+            and ref_tabs is not None:
         _raster_tables(sim, ref_tabs)
     return sim
 
 
 def _raster_tables(sim: Simulation, ref_tabs) -> None:
     """Put the port's raster at the reference's resolution in place where
-    the reference rasterizes a Voronoi grid; its leaf map is checked equal
-    to the reference's owner map."""
+    the reference rasterizes a Voronoi or tetrahedral grid; its leaf map is
+    checked equal to the reference's owner map."""
     tabs = raster.build_tables(sim.grid, sim.medium,
                                resolution=tuple(ref_tabs.n))
     if not np.array_equal(tabs.leafmap.cpu().numpy(),

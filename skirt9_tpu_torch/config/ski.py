@@ -25,7 +25,11 @@ imports as the reference reads them), Cartesian grids (linear
 meshes, or any of the reference's meshes: power-law, symmetric power-law,
 logarithmic, symmetric logarithmic, symmetric cosine, tabulated, list and
 file meshes, which the scan march walks), the 1D sphere and the 2D
-cylinder (`Sphere1DSpatialGrid`, `Cylinder2DSpatialGrid`, on the march)
+cylinder (`Sphere1DSpatialGrid`, `Cylinder2DSpatialGrid`, on the march),
+the polar grids (`Sphere2DSpatialGrid`, `Sphere3DSpatialGrid`,
+`Cylinder3DSpatialGrid`, on the march), standalone Voronoi and
+tetrahedral meshes (`VoronoiMeshSpatialGrid`, `TetraMeshSpatialGrid`)
+with the DustDensity and Uniform site policies and Lloyd relaxation,
 and density-policy octrees and bintrees
 (`PolicyTreeSpatialGrid` with a `DensityTreePolicy`), full and SED
 instruments (with polarization) on logarithmic or linear wavelength grids,
@@ -61,9 +65,11 @@ from ..grids import bintree, octree
 from ..grids.amr import build_amr
 from ..grids import meshes as msh
 from ..grids.cartesian import make_cartesian
+from ..grids import polar
 from ..grids.cylinder import Cylinder2DGrid, make_cylinder2d
 from ..grids.sphere import Sphere1DGrid, make_sphere1d
-from ..grids.voronoi import build_voronoi
+from ..grids.tetra import TetraGrid, build_tetra
+from ..grids.voronoi import build_voronoi, density_sites, lloyd_relax
 from ..imports import snapshots as snap
 from ..instruments import distant as dinst
 from ..media import geometric as gm
@@ -124,6 +130,10 @@ ITEMS = frozenset((
     "CylindricalClipGeometryDecorator", "CombineGeometryDecorator",
     "ClumpyGeometryDecorator", "SpiralStructureGeometryDecorator",
     "Sphere1DSpatialGrid", "Cylinder2DSpatialGrid",
+    # the polar grids and the tetrahedral mesh (the unstructured grids' site
+    # policies DustDensity and Uniform on VoronoiMeshSpatialGrid too)
+    "Sphere2DSpatialGrid", "Sphere3DSpatialGrid", "Cylinder3DSpatialGrid",
+    "TetraMeshSpatialGrid",
     # imported snapshots: AMR meshes, particle and cell media, the mesh and
     # cell sources with their SED families, the imported geometries
     "AdaptiveMeshMedium", "AdaptiveMeshSpatialGrid", "ParticleMedium",
@@ -153,7 +163,8 @@ PROPERTIES = frozenset((
     "velocityDistribution", "vectorField", "grid", "meshX", "meshY", "meshZ", "policy", "iterationOptions",
     "instrumentSystem",
     "defaultWavelengthGrid", "instruments", "wavelengthGrid", "probeSystem",
-    "probes", "form", "firstGeometry", "secondGeometry", "meshRadial"))
+    "probes", "form", "firstGeometry", "secondGeometry", "meshRadial",
+    "meshPolar", "meshAzimuthal"))
 
 # simulation modes of those items (the reference's `mode` branches)
 MODES = ("ExtinctionOnly", "OligoExtinctionOnly", "DustEmission",
@@ -993,14 +1004,16 @@ def build_grid(el, geometry, base_dir: str = "."):
     the DensityTreePolicy on the first medium's normalised density (the
     reference's non-nested branch, `skirt9_tpu/config/ski.py:1302-1316,
     2005-2049`). Tree levels in the ski file count octree levels, so a
-    bintree's count three times."""
+    bintree's count three times. The curvilinear grids go to
+    `build_curvilinear_grid`, the standalone Voronoi and tetrahedral
+    meshes to `build_site_grid`."""
     a = el.attrib
-    if el.tag in ("Sphere1DSpatialGrid", "Cylinder2DSpatialGrid"):
+    if el.tag in ("Sphere1DSpatialGrid", "Cylinder2DSpatialGrid",
+                  "Sphere2DSpatialGrid", "Sphere3DSpatialGrid",
+                  "Cylinder3DSpatialGrid"):
         return build_curvilinear_grid(el, base_dir)
-    if el.tag == "VoronoiMeshSpatialGrid":
-        raise NotImplementedError(
-            f"VoronoiMeshSpatialGrid policy='{a.get('policy', 'DustDensity')}'"
-            " not ported yet (ImportedMesh, with a VoronoiMeshMedium)")
+    if el.tag in ("VoronoiMeshSpatialGrid", "TetraMeshSpatialGrid"):
+        return build_site_grid(el, geometry)
     if el.tag == "AdaptiveMeshSpatialGrid":
         raise NotImplementedError("AdaptiveMeshSpatialGrid without an "
                                   "AdaptiveMeshMedium not ported yet")
@@ -1030,30 +1043,79 @@ def build_grid(el, geometry, base_dir: str = "."):
     return make_cartesian(ext, tuple(ns))
 
 
-def build_curvilinear_grid(el, base_dir: str = "."):
-    """A Sphere1DSpatialGrid or a Cylinder2DSpatialGrid with its radial
-    (and z) mesh, 32 linear bins where one is absent
-    (`skirt9_tpu/config/ski.py:1338-1347, 1379-1385`)."""
+def build_site_grid(el, geometry):
+    """A standalone VoronoiMeshSpatialGrid or TetraMeshSpatialGrid (the
+    reference's `skirt9_tpu/config/ski.py:1395-1407, 2050-2075`): numSites
+    sites drawn from the first medium's density (policy DustDensity,
+    `density_sites` with seed 3), else uniform in the box
+    (`default_rng(3)`), moved to their cells' centroids by Lloyd
+    relaxation where relaxSites is true, then tessellated. The
+    ImportedMesh policy belongs to a VoronoiMeshMedium
+    (`build_voronoi_medium`)."""
     a = el.attrib
+    policy = a.get("policy", "DustDensity")
+    if policy == "ImportedMesh":
+        raise NotImplementedError(
+            f"{el.tag} policy='ImportedMesh' without a VoronoiMeshMedium not "
+            "ported yet")
+    if policy not in ("DustDensity", "Uniform"):
+        raise NotImplementedError(f"{el.tag} policy='{policy}' not ported "
+                                  "yet (DustDensity, Uniform)")
+    ext = _extent(a)
+    n = int(_f(a, "numSites", 500))
+    if policy == "DustDensity" and geometry is not None:
+        sites = density_sites(geometry.density_np, ext, n, seed=3)
+    else:
+        lo = np.array([e[0] for e in ext])
+        hi = np.array([e[1] for e in ext])
+        sites = lo + np.random.default_rng(3).uniform(size=(n, 3)) * (hi - lo)
+    if a.get("relaxSites", "false") == "true":
+        sites = lloyd_relax(sites, ext)
+    if el.tag == "TetraMeshSpatialGrid":
+        return build_tetra(sites, ext)
+    return build_voronoi(sites, ext)
 
-    def mesh(name, lo, hi):
-        m = _child(el, name)
-        if m is None:
-            return 32, None
-        n = int(m.attrib.get("numBins", 32))
-        if m.tag == "LinMesh":
-            return n, None
-        return n, msh.scale(msh.from_ski(m, base_dir, default_bins=32), lo,
-                            hi)
 
+def _grid_mesh(el, name: str, lo: float, hi: float, base_dir: str,
+               default: int):
+    """(bins, borders scaled onto [lo, hi], or None for a linear mesh) of
+    a curvilinear grid's mesh child, default bins where it is absent."""
+    m = _child(el, name)
+    if m is None:
+        return default, None
+    n = int(m.attrib.get("numBins", default))
+    if m.tag == "LinMesh":
+        return n, None
+    return n, msh.scale(msh.from_ski(m, base_dir, default_bins=default), lo,
+                        hi)
+
+
+def build_curvilinear_grid(el, base_dir: str = "."):
+    """A Sphere1DSpatialGrid, Cylinder2DSpatialGrid, Sphere2DSpatialGrid,
+    Sphere3DSpatialGrid or Cylinder3DSpatialGrid with its radial, polar
+    and z meshes (32 radial and z bins, 16 polar and azimuthal ones where
+    a mesh is absent; the azimuthal mesh is always linear, its bin count
+    read), as `skirt9_tpu/config/ski.py:1338-1394` builds them."""
+    a = el.attrib
+    mesh = lambda name, lo, hi, default=32: _grid_mesh(el, name, lo, hi,
+                                                       base_dir, default)
     r_max = _q(a, "maxRadius", "length")
     if el.tag == "Sphere1DSpatialGrid":
         r_min = _q(a, "minRadius", "length") if "minRadius" in a else 0.0
         nr, rb = mesh("meshRadial", r_min, r_max)
         return make_sphere1d(r_max, nr, r_min=r_min, rb=rb)
-    z_min, z_max = _q(a, "minZ", "length"), _q(a, "maxZ", "length")
     nr, rb = mesh("meshRadial", 0.0, r_max)
+    nphi = mesh("meshAzimuthal", -np.pi, np.pi, 16)[0]
+    if el.tag.startswith("Sphere"):
+        nt, tb = mesh("meshPolar", 0.0, np.pi, 16)
+        if el.tag == "Sphere2DSpatialGrid":
+            return polar.make_sphere2d(r_max, nr, nt, rb=rb, tb=tb)
+        return polar.make_sphere3d(r_max, nr, nt, nphi, rb=rb, tb=tb)
+    z_min, z_max = _q(a, "minZ", "length"), _q(a, "maxZ", "length")
     nz, zb = mesh("meshZ", z_min, z_max)
+    if el.tag == "Cylinder3DSpatialGrid":
+        return polar.make_cylinder3d(r_max, z_min, z_max, nr, nphi, nz,
+                                     rb=rb, zb=zb)
     return make_cylinder2d(r_max, z_min, z_max, nr, nz, rb=rb, zb=zb)
 
 
@@ -1203,8 +1265,10 @@ def load_ski(path: str, num_packets: int | None = None,
                                build_medium_normalization(m_el)))
         grid = build_grid(grid_el, components[0][0], base_dir)
         medium = gm.build_medium(grid, components)
-    if mode == "DustEmission" and isinstance(grid, (Sphere1DGrid,
-                                                    Cylinder2DGrid)):
+    if mode == "DustEmission" and isinstance(grid, (
+            Sphere1DGrid, Cylinder2DGrid, polar.Sphere2DGrid,
+            polar.Sphere3DGrid, polar.Cylinder3DGrid, TetraGrid)):
+        # the reference's fails on these grids (no cell bounds)
         raise NotImplementedError(
             f"DustEmission on a {grid_el.tag} not ported yet")
     if velocity_fields:

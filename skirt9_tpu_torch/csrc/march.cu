@@ -40,10 +40,29 @@
 //                  node tables (box, subdivisions, child lists), read through
 //                  the read-only cache (AMRGrid.step, skirt9_tpu/grids/amr.py:
 //                  73-91).
+//   march_tetra    a tetrahedral mesh: the nearest outgoing face of the four
+//                  planes (normals and offsets read through the read-only
+//                  cache), the neighbour across it, the position moved on by
+//                  ds (1 + 1e-6) (TetraGrid.step, skirt9_tpu/grids/tetra.py:
+//                  84-105);
+//   march_sphere2d shells x polar cones: the least crossing of the two
+//                  spheres and the two cones, then the next cell located at
+//                  pos + (ds + eta) dir, eta = 1e-6 of the outer radius
+//                  (Sphere2DGrid.step, skirt9_tpu/grids/polar.py:154-168);
+//   march_sphere3d the same with the two azimuthal half-planes of the cell
+//                  (Sphere3DGrid.step, polar.py:265-284);
+//   march_cylinder3d annuli x half-planes x z slabs: the two cylinders, the
+//                  two half-planes and the z plane, then the relocation
+//                  (Cylinder3DGrid.step, polar.py:386-423).
 // The two tree modes have their own entry point, march_tree_launch, the
 // two curvilinear ones theirs, march_curvi_launch, with the border tables
-// staged in shared memory (a few hundred floats), and the adaptive mesh its
-// own, march_amr_launch.
+// staged in shared memory (a few hundred floats), the adaptive mesh its
+// own, march_amr_launch, the tetrahedral mesh march_tetra_launch, and the
+// three polar modes march_polar_launch, their border tables and the
+// tabulated cosines and sines of their angles staged in shared memory. A
+// polar step locates with the C library's atan2f (glibc's, the function
+// XLA's CPU code calls, and the plain version's `ops/xlamath.atan2`),
+// written out here operation for operation.
 // Every f32 operation follows the plain version one for one (built with
 // -fmad=false); where the plain version replays one of XLA's fused
 // multiply-adds (ops/xlamath.py `fma`), because an ulp there decides which
@@ -497,6 +516,396 @@ __global__ void march_amr_kernel(
   }
 }
 
+// One tetrahedron step from cell c: over the four face planes (outward
+// normal n, offset d: n.x + d <= 0 inside) the least t = -(n.p + d) / (n.dir)
+// of the faces the ray leaves through (n.dir > 0; t at least 0), the first
+// face on a tie; the position moved on by ds (1 + 1e-6) and the neighbour
+// across that face (-1 at the hull).
+__device__ __forceinline__ Step tetra_step(int c,
+                                           const float* __restrict__ face_n,
+                                           const float* __restrict__ face_d,
+                                           const int* __restrict__ nbrs,
+                                           float p[3], const float d[3]) {
+  float best = 0.0f;
+  int j = 0;
+  for (int k = 0; k < 4; ++k) {
+    const float* n = face_n + 12 * (long long)c + 3 * k;
+    const float n0 = __ldg(n), n1 = __ldg(n + 1), n2 = __ldg(n + 2);
+    const float dn = fmaf(d[2], n2, fmaf(d[1], n1, d[0] * n0));
+    const float sd =
+        fmaf(n2, p[2], fmaf(n1, p[1], n0 * p[0])) + __ldg(face_d + 4 * c + k);
+    float t = __fdiv_rn(-sd, fabsf(dn) < 1e-30f ? 1.0f : dn);
+    t = dn > 0.0f ? fmaxf(t, 0.0f) : kBig;
+    if (k == 0 || t < best) {
+      best = t;
+      j = k;
+    }
+  }
+  const float moved = best * (float)(1.0 + 1e-6);
+  for (int a = 0; a < 3; ++a) p[a] = fmaf(moved, d[a], p[a]);
+  return {best, __ldg(nbrs + 4 * c + j)};
+}
+
+__global__ void march_tetra_kernel(const float* __restrict__ pos,
+                                   const float* __restrict__ dir,
+                                   const int* __restrict__ cell0,
+                                   const unsigned char* __restrict__ mask,
+                                   const float* __restrict__ face_n,
+                                   const float* __restrict__ face_d,
+                                   const int* __restrict__ nbrs,
+                                   int* __restrict__ cells,
+                                   float* __restrict__ dss, int B, int S) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  float p[3] = {pos[3 * lane], pos[3 * lane + 1], pos[3 * lane + 2]};
+  const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
+  int c = mask[lane] ? cell0[lane] : -1;
+  for (int s = 0; s < S; ++s) {
+    const long long at = (long long)s * B + lane;
+    if (c < 0) {
+      cells[at] = 0;
+      dss[at] = 0.0f;
+      continue;
+    }
+    const Step st = tetra_step(c, face_n, face_d, nbrs, p, d);
+    cells[at] = c;
+    dss[at] = st.ds;
+    c = st.next;
+  }
+}
+
+// glibc's atanf of finite x >= 0 (fdlibm's, each operation rounded alone):
+// the argument reduction at 7/16, 11/16, 19/16 and 39/16 and the two
+// polynomials in w = x^4.
+__device__ __forceinline__ float atanf_glibc(float x) {
+  constexpr float kHi[4] = {4.6364760399e-01f, 7.8539812565e-01f,
+                            9.8279368877e-01f, 1.5707962513e+00f};
+  constexpr float kLo[4] = {5.0121582440e-09f, 3.7748947079e-08f,
+                            3.4473217170e-08f, 7.5497894159e-08f};
+  const int ix = __float_as_int(x);
+  if (ix >= 0x4C000000) return __fadd_rn(kHi[3], kLo[3]);
+  int band;
+  float r;
+  if (ix < 0x3EE00000) {
+    band = -1;
+    r = x;
+  } else if (ix < 0x3F300000) {
+    band = 0;
+    r = __fdiv_rn(__fsub_rn(__fmul_rn(x, 2.0f), 1.0f), __fadd_rn(x, 2.0f));
+  } else if (ix < 0x3F980000) {
+    band = 1;
+    r = __fdiv_rn(__fsub_rn(x, 1.0f), __fadd_rn(x, 1.0f));
+  } else if (ix < 0x401C0000) {
+    band = 2;
+    r = __fdiv_rn(__fsub_rn(x, 1.5f), __fadd_rn(__fmul_rn(x, 1.5f), 1.0f));
+  } else {
+    band = 3;
+    r = __fdiv_rn(-1.0f, x > 0.0f ? x : 1.0f);
+  }
+  const float z = __fmul_rn(r, r);
+  const float w = __fmul_rn(z, z);
+  float s1 = __fadd_rn(__fmul_rn(w, 1.6285819933e-02f), 4.9768779427e-02f);
+  s1 = __fadd_rn(__fmul_rn(s1, w), 6.6610731184e-02f);
+  s1 = __fadd_rn(__fmul_rn(s1, w), 9.0908870101e-02f);
+  s1 = __fadd_rn(__fmul_rn(s1, w), 1.4285714924e-01f);
+  s1 = __fadd_rn(__fmul_rn(s1, w), __int_as_float(0x3EAAAAAB));
+  float s2 = __fadd_rn(__fmul_rn(w, -3.6531571299e-02f), -5.8335702866e-02f);
+  s2 = __fadd_rn(__fmul_rn(s2, w), -7.6918758452e-02f);
+  s2 = __fadd_rn(__fmul_rn(s2, w), -1.1111110449e-01f);
+  s2 = __fadd_rn(__fmul_rn(s2, w), -2.0000000298e-01f);
+  const float poly =
+      __fmul_rn(r, __fadd_rn(__fmul_rn(s1, z), __fmul_rn(s2, w)));
+  if (band < 0) return __fsub_rn(r, poly);
+  return __fsub_rn(kHi[band], __fsub_rn(__fsub_rn(poly, kLo[band]), r));
+}
+
+// glibc's atan2f(y, x) on finite inputs: atanf of |y / x| (past a ratio of
+// 2^60 pi/2, below 2^-60 with x < 0 zero) moved into the quadrant with
+// pi in two parts; +-0 and +-pi for y = 0, +-pi/2 for x = 0, atanf(y) for
+// x = 1.
+__device__ __forceinline__ float atan2_glibc(float y, float x) {
+  const float kPi = __int_as_float(0x40490FDB);
+  const float kPiLo = __int_as_float(0xB3BBBD2E);
+  const float kPi2 = __int_as_float(0x3FC90FDB);
+  const int hx = __float_as_int(x), hy = __float_as_int(y);
+  const int ix = hx & 0x7FFFFFFF, iy = hy & 0x7FFFFFFF;
+  const bool neg_x = hx < 0, neg_y = hy < 0;
+  if (hx == 0x3F800000) {
+    const float a = atanf_glibc(fabsf(y));
+    return neg_y ? -a : a;
+  }
+  if (iy == 0) return neg_x ? (neg_y ? -kPi : kPi) : y;
+  if (ix == 0) return neg_y ? -kPi2 : kPi2;
+  const int k = (iy - ix) >> 23;
+  float z;
+  if (k > 60) {
+    z = __fadd_rn(kPi2, __fmul_rn(0.5f, kPiLo));
+  } else if (neg_x && k < -60) {
+    z = 0.0f;
+  } else {
+    float q = fabsf(__fdiv_rn(y, x));
+    if (!isfinite(q)) q = 0.0f;
+    z = atanf_glibc(q);
+  }
+  if (!neg_x) return neg_y ? -z : z;
+  return neg_y ? __fsub_rn(__fsub_rn(z, kPiLo), kPi)
+               : __fsub_rn(kPi, __fsub_rn(z, kPiLo));
+}
+
+// jnp.hypot's form: a sqrt(1 + (b / a)^2), a = max(|x|, |y|), 0 where a is.
+__device__ __forceinline__ float hypot_jax(float x, float y) {
+  const float a = fmaxf(fabsf(x), fabsf(y)), b = fminf(fabsf(x), fabsf(y));
+  if (a == 0.0f) return a;
+  const float q = __fdiv_rn(b, a);
+  return __fmul_rn(a, __fsqrt_rn(fmaf(q, q, 1.0f)));
+}
+
+// The index i of the last border <= v (-1 below the first), as
+// torch.searchsorted(borders, v, right=True) - 1.
+__device__ __forceinline__ int border_bin(const float* b, int len, float v) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (b[mid] > v)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo - 1;
+}
+
+__device__ __forceinline__ float dot3f(const float a[3], const float b[3]) {
+  return fmaf(a[2], b[2], fmaf(a[1], b[1], a[0] * b[0]));
+}
+
+__device__ __forceinline__ float sign_of(float v) {
+  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
+}
+
+// The polar grids' tables: border radii (scaled by 2^-shift), polar border
+// angles and their cosines, azimuthal border angles and their cosines and
+// sines, z borders (scaled).
+struct PolarTabs {
+  const float* rb;
+  const float* tb;
+  const float* cos_t;
+  const float* pb;
+  const float* cos_p;
+  const float* sin_p;
+  const float* zb;
+  int nr, nt, nphi, nz;
+};
+
+// The cell of the (scaled) position q, -1 outside: Sphere2D ir * nt + it,
+// Sphere3D (ir * nt + it) * nphi + ip, Cylinder3D (ir * nphi + ip) * nz + iz.
+template <int kKind>
+__device__ __forceinline__ int polar_locate(const PolarTabs& g,
+                                            const float q[3]) {
+  if (kKind == 2) {
+    const float R = hypot_jax(q[0], q[1]);
+    const int ir = border_bin(g.rb, g.nr + 1, R);
+    const int ip =
+        min(max(border_bin(g.pb, g.nphi + 1, atan2_glibc(q[1], q[0])), 0),
+            g.nphi - 1);
+    const int iz = border_bin(g.zb, g.nz + 1, q[2]);
+    const bool inside = R >= g.rb[0] && R < g.rb[g.nr] && q[2] >= g.zb[0] &&
+                        q[2] < g.zb[g.nz];
+    if (!inside) return -1;
+    return (min(max(ir, 0), g.nr - 1) * g.nphi + ip) * g.nz +
+           min(max(iz, 0), g.nz - 1);
+  }
+  const float r = __fsqrt_rn(dot3f(q, q));
+  const int ir = border_bin(g.rb, g.nr + 1, r);
+  const float th = atan2_glibc(hypot_jax(q[0], q[1]), q[2]);
+  const int it = min(max(border_bin(g.tb, g.nt + 1, th), 0), g.nt - 1);
+  if (!(r >= g.rb[0] && r < g.rb[g.nr])) return -1;
+  const int cell = min(max(ir, 0), g.nr - 1) * g.nt + it;
+  if (kKind == 0) return cell;
+  const int ip =
+      min(max(border_bin(g.pb, g.nphi + 1, atan2_glibc(q[1], q[0])), 0),
+          g.nphi - 1);
+  return cell * g.nphi + ip;
+}
+
+// The least crossing (> eta) of the polar cone cos(theta) = c (see the plain
+// version, grids/polar.py cone_cross, for the fused products).
+__device__ __forceinline__ float cone_cross(const float p[3], const float d[3],
+                                            float c, float eta) {
+  const float x = p[0], y = p[1], z = p[2], dz = d[2];
+  const float c2 = c * c;
+  const float zdz = z * dz, zz = z * z, dzdz = dz * dz;
+  const float pd = zdz + fmaf(x, d[0], y * d[1]);
+  const float r2 = zz + fmaf(x, x, y * y);
+  const float A = dzdz - c2;
+  const float B = fmaf(-c2, pd, zdz);
+  const float C = fmaf(-c2, r2, zz);
+  float t_plane = fabsf(dz) > 1e-30f ? __fdiv_rn(-z, dz) : kBig;
+  if (!(t_plane > eta)) t_plane = kBig;
+  const float disc = fmaf(B, B, -(A * C));
+  const float sq = __fsqrt_rn(fmaxf(disc, 0.0f));
+  const float safe_A = fabsf(A) > 1e-30f ? A : 1.0f;
+  const float t1 = __fdiv_rn(-B - sq, safe_A);
+  const float t2 = __fdiv_rn(sq - B, safe_A);
+  const float t_lin =
+      fabsf(B) > 1e-30f ? __fdiv_rn(-C, 2.0f * B) : kBig;
+  const bool lin = fabsf(A) < (float)1e-12 * ((dzdz + c2) + (float)1e-30);
+  const float sc = sign_of(c);
+  auto valid = [&](float t) {
+    const float zc = fmaf(t, dz, z);
+    return t > eta && disc >= 0.0f && sign_of(zc) == sc ? t : kBig;
+  };
+  const float t_quad = fminf(valid(lin ? t_lin : t1), valid(lin ? kBig : t2));
+  if (fabsf(c) > (float)(1 - 1e-7)) return kBig;
+  return fabsf(c) < (float)1e-7 ? t_plane : t_quad;
+}
+
+// The least crossing (> eta) of the azimuthal half-plane of cosine cb and
+// sine sb (its half with x cb + y sb > 0).
+__device__ __forceinline__ float halfplane_cross(const float p[3],
+                                                 const float d[3], float cb,
+                                                 float sb, float eta) {
+  const float num = -fmaf(p[0], sb, -(p[1] * cb));
+  const float den = fmaf(d[0], sb, -(d[1] * cb));
+  const float t = fabsf(den) > 1e-30f ? __fdiv_rn(num, den) : kBig;
+  const bool on_half =
+      fmaf(fmaf(t, d[0], p[0]), cb, fmaf(t, d[1], p[1]) * sb) > 0.0f;
+  return t > eta && on_half ? t : kBig;
+}
+
+// One polar step from cell c in scaled lengths: ds, the position moved to
+// p + ds dir, and the cell located at p + (ds + eta) dir.
+template <int kKind>
+__device__ __forceinline__ Step polar_step(int c, const PolarTabs& g,
+                                           float eta, float p[3],
+                                           const float d[3]) {
+  float ds;
+  if (kKind == 2) {
+    const int iz = c % g.nz, ip = (c / g.nz) % g.nphi,
+              ir = c / (g.nz * g.nphi);
+    const float x = p[0], y = p[1], z = p[2];
+    const float q = fmaf(d[0], d[0], d[1] * d[1]);
+    const float b = fmaf(x, d[0], y * d[1]);
+    const float R2 = fmaf(x, x, y * y);
+    const bool moves = q > 1e-30f;
+    const float safe_q = fmaxf(q, 1e-30f);
+    const float r_out = g.rb[ir + 1], r_in = g.rb[ir];
+    const float disc_out =
+        fmaxf(fmaf(safe_q, fmaf(r_out, r_out, -R2), b * b), 0.0f);
+    const float t_out =
+        moves ? fmaxf(__fdiv_rn(__fsqrt_rn(disc_out) - b, safe_q), 0.0f)
+              : kBig;
+    const float disc_in = fmaf(safe_q, fmaf(r_in, r_in, -R2), b * b);
+    const bool can_in = r_in > 0.0f && b < 0.0f && disc_in > 0.0f && moves;
+    float t_in =
+        can_in ? __fdiv_rn(-b - __fsqrt_rn(fmaxf(disc_in, 0.0f)), safe_q)
+               : kBig;
+    if (!(t_in > 0.0f)) t_in = kBig;
+    const float t_p0 =
+        halfplane_cross(p, d, g.cos_p[ip], g.sin_p[ip], eta);
+    const float t_p1 =
+        halfplane_cross(p, d, g.cos_p[ip + 1], g.sin_p[ip + 1], eta);
+    const float z_tgt = d[2] > 0.0f ? g.zb[iz + 1] : g.zb[iz];
+    const float t_z = fabsf(d[2]) < 1e-30f
+                          ? kBig
+                          : fmaxf(__fdiv_rn(z_tgt - z, d[2]), 0.0f);
+    ds = fminf(fminf(fminf(t_out, t_in), fminf(t_p0, t_p1)), t_z);
+  } else {
+    int ir, it, ip = 0;
+    if (kKind == 0) {
+      ir = c / g.nt;
+      it = c % g.nt;
+    } else {
+      ip = c % g.nphi;
+      it = (c / g.nphi) % g.nt;
+      ir = c / (g.nphi * g.nt);
+    }
+    const float b = dot3f(p, d), r2 = dot3f(p, p);
+    const float r_out = g.rb[ir + 1], r_in = g.rb[ir];
+    const float disc_out =
+        fmaxf(fmaf(r_out, r_out, -fmaf(-b, b, r2)), 0.0f);
+    const float t_out = fmaxf(__fsqrt_rn(disc_out) - b, 0.0f);
+    const float disc_in = fmaf(r_in, r_in, -fmaf(-b, b, r2));
+    const float t_root = -b - __fsqrt_rn(fmaxf(disc_in, 0.0f));
+    const float t_in = r_in > 0.0f && b < 0.0f && disc_in > 0.0f &&
+                               t_root > 0.0f
+                           ? t_root
+                           : kBig;
+    const float t_up = cone_cross(p, d, g.cos_t[it], eta);
+    const float t_dn = cone_cross(p, d, g.cos_t[it + 1], eta);
+    ds = fminf(fminf(t_out, t_in), fminf(t_up, t_dn));
+    if (kKind == 1) {
+      const float t_p0 =
+          halfplane_cross(p, d, g.cos_p[ip], g.sin_p[ip], eta);
+      const float t_p1 =
+          halfplane_cross(p, d, g.cos_p[ip + 1], g.sin_p[ip + 1], eta);
+      ds = fminf(ds, fminf(t_p0, t_p1));
+    }
+  }
+  const float ahead = ds + eta;
+  float q[3];
+  for (int a = 0; a < 3; ++a) {
+    q[a] = fmaf(ahead, d[a], p[a]);
+    p[a] = fmaf(ds, d[a], p[a]);
+  }
+  return {ds, polar_locate<kKind>(g, q)};
+}
+
+// The polar modes (kKind 0 Sphere2D, 1 Sphere3D, 2 Cylinder3D) over the
+// packed tables (rb, tb, cos_t, pb, cos_p, sin_p, zb one after another,
+// the radii and z borders times 2^-shift, an absent table's count 0),
+// staged in shared memory when they fit, else read from global; lengths
+// enter times `scale` = 2^-shift and the step lengths leave times
+// `unscale`, exactly.
+template <int kKind>
+__global__ void march_polar_kernel(
+    const float* __restrict__ pos, const float* __restrict__ dir,
+    const int* __restrict__ cell0, const unsigned char* __restrict__ mask,
+    const float* __restrict__ tabs, int* __restrict__ cells,
+    float* __restrict__ dss, int B, int S, int nr, int nt, int nphi, int nz,
+    float scale, float unscale, int len, bool staged) {
+  extern __shared__ float tables[];
+  const float* tab = tabs;
+  if (staged) {
+    for (int k = threadIdx.x; k < len; k += blockDim.x) tables[k] = tabs[k];
+    __syncthreads();
+    tab = tables;
+  }
+  const auto count = [](int n) { return n > 0 ? n + 1 : 0; };
+  PolarTabs g;
+  g.rb = tab;
+  g.tb = g.rb + count(nr);
+  g.cos_t = g.tb + count(nt);
+  g.pb = g.cos_t + count(nt);
+  g.cos_p = g.pb + count(nphi);
+  g.sin_p = g.cos_p + count(nphi);
+  g.zb = g.sin_p + count(nphi);
+  g.nr = nr;
+  g.nt = nt;
+  g.nphi = nphi;
+  g.nz = nz;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const float eta =
+      kKind == 2 ? fmaxf(g.rb[nr], g.zb[nz] - g.zb[0]) * (float)1e-6
+                 : g.rb[nr] * (float)1e-6;
+  float p[3] = {pos[3 * lane] * scale, pos[3 * lane + 1] * scale,
+                pos[3 * lane + 2] * scale};
+  const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
+  int c = mask[lane] ? cell0[lane] : -1;
+  for (int s = 0; s < S; ++s) {
+    const long long at = (long long)s * B + lane;
+    if (c < 0) {
+      cells[at] = 0;
+      dss[at] = 0.0f;
+      continue;
+    }
+    const Step st = polar_step<kKind>(c, g, eta, p, d);
+    cells[at] = c;
+    dss[at] = st.ds >= kBig ? st.ds : st.ds * unscale;
+    c = st.next;
+  }
+}
+
 }  // namespace skirt9
 
 extern "C" int march_amr_launch(const void* pos, const void* dir,
@@ -592,5 +1001,51 @@ extern "C" int march_launch(const void* pos, const void* dir,
       (const unsigned char*)mask, (const float*)t0, (const float*)t1,
       (const float*)t2, (const float*)consts, (int*)cells, (float*)ds, B, S,
       n0, n1, n2, degree, mode, staged);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int march_tetra_launch(const void* pos, const void* dir,
+                                  const void* cell0, const void* mask,
+                                  const void* face_n, const void* face_d,
+                                  const void* nbrs, void* cells, void* ds,
+                                  int B, int S, void* stream) {
+  if (B <= 0 || S <= 0 || face_n == nullptr || face_d == nullptr ||
+      nbrs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (B + skirt9::kThreads - 1) / skirt9::kThreads;
+  skirt9::march_tetra_kernel<<<blocks, skirt9::kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)dir, (const int*)cell0,
+      (const unsigned char*)mask, (const float*)face_n, (const float*)face_d,
+      (const int*)nbrs, (int*)cells, (float*)ds, B, S);
+  return (int)cudaGetLastError();
+}
+
+// kind 0: Sphere2D (rb, tb, cos_t), 1: Sphere3D (and pb, cos_p, sin_p), 2:
+// Cylinder3D (rb, pb, cos_p, sin_p, zb), packed in that order into `tabs`
+// (rb and zb times 2^-shift), an absent table's count 0.
+extern "C" int march_polar_launch(const void* pos, const void* dir,
+                                  const void* cell0, const void* mask,
+                                  const void* tabs, void* cells, void* ds,
+                                  int B, int S, int nr, int nt, int nphi,
+                                  int nz, int kind, int shift, void* stream) {
+  const bool sphere = kind == 0 || kind == 1, azim = kind == 1 || kind == 2;
+  if (B <= 0 || S <= 0 || kind < 0 || kind > 2 || nr <= 0 ||
+      tabs == nullptr || shift < 0 || shift > 100 || (sphere != (nt > 0)) ||
+      (azim ? nphi < 3 : nphi != 0) || ((kind == 2) != (nz > 0)))
+    return (int)cudaErrorInvalidValue;
+  const auto count = [](int n) { return n > 0 ? n + 1 : 0; };
+  const int len = count(nr) + 2 * count(nt) + 3 * count(nphi) + count(nz);
+  const bool staged = len <= skirt9::kSmemFloats;
+  const float scale = ldexpf(1.0f, -shift), unscale = ldexpf(1.0f, shift);
+  const size_t smem = staged ? (size_t)len * sizeof(float) : 0;
+  const int blocks = (B + skirt9::kThreads - 1) / skirt9::kThreads;
+  auto* kern = kind == 0   ? skirt9::march_polar_kernel<0>
+               : kind == 1 ? skirt9::march_polar_kernel<1>
+                           : skirt9::march_polar_kernel<2>;
+  kern<<<blocks, skirt9::kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)dir, (const int*)cell0,
+      (const unsigned char*)mask, (const float*)tabs, (int*)cells,
+      (float*)ds, B, S, nr, nt, nphi, nz, scale, unscale, len, staged);
   return (int)cudaGetLastError();
 }

@@ -13,9 +13,10 @@ The port's transport rasterizes the cells (`transport/raster.py`) as the
 reference's accelerator run does; where the raster declines the grid (its
 `raster_fallback` off, kinematics, Lya, Compton, X-ray, explicit
 absorption, more than 4 components) the scan march walks the cells exactly
-through `step`, the reference's bisector walk (`voronoi.py:77-110`). Lloyd
-relaxation (`lloyd_relax`) and density-sampled sites (`density_sites`)
-belong to the other site policies, which are not ported yet.
+through `step`, the reference's bisector walk (`voronoi.py:77-110`).
+Density-sampled sites (`density_sites`) and Lloyd relaxation
+(`lloyd_relax`) serve the loader's DustDensity and Uniform site policies
+(`config/ski.build_site_grid`), for Voronoi and tetrahedral meshes alike.
 """
 
 from __future__ import annotations
@@ -281,3 +282,47 @@ def exact_volumes(sites: np.ndarray, neighbors: np.ndarray,
         except (QhullError, ValueError):
             pass
     return vols, blo * span + lo, bhi * span + lo
+
+
+def lloyd_relax(sites: np.ndarray, extent, n_iter: int = 10,
+                samples: int = 500_000, seed: int = 17) -> np.ndarray:
+    """Lloyd (centroidal) relaxation of the sites, the reference's
+    (`skirt9_tpu/grids/voronoi.py:222-247`): n_iter times each site moves
+    to its cell's centroid, estimated from one shared uniform sample of the
+    box through a nearest-site query (ref: VoronoiMeshSnapshot.cpp:609
+    relax; the reference iterates Voro++'s centroids, the same fixed point
+    by another estimator). An empty cell keeps its site."""
+    from scipy.spatial import cKDTree
+
+    sites = np.array(sites, np.float64, copy=True)
+    n = len(sites)
+    lo = np.array([extent[a][0] for a in range(3)], np.float64)
+    hi = np.array([extent[a][1] for a in range(3)], np.float64)
+    pts = lo + np.random.default_rng(seed).uniform(size=(samples, 3)) \
+        * (hi - lo)
+    for _ in range(n_iter):
+        _, owner = cKDTree(sites).query(pts)
+        cnt = np.bincount(owner, minlength=n)
+        cen = np.stack([np.bincount(owner, weights=pts[:, a], minlength=n)
+                        for a in range(3)], axis=-1)
+        ok = cnt > 0
+        sites[ok] = cen[ok] / cnt[ok, None]
+    return sites
+
+
+def density_sites(density_fn, extent, n_sites: int, seed: int = 3,
+                  oversample: int = 40) -> np.ndarray:
+    """n_sites sites drawn from a density field, the reference's
+    (`skirt9_tpu/grids/voronoi.py:304-317`; ref: VoronoiMeshSpatialGrid's
+    DustDensity policy): oversample times as many uniform candidates in the
+    box, then n_sites of them without replacement, each with probability
+    proportional to its density."""
+    rs = np.random.default_rng(seed)
+    lo = np.array([extent[a][0] for a in range(3)])
+    hi = np.array([extent[a][1] for a in range(3)])
+    cand = lo + rs.uniform(size=(n_sites * oversample, 3)) * (hi - lo)
+    w = np.maximum(density_fn(cand), 0.0)
+    if w.sum() <= 0:
+        raise ValueError("density is zero everywhere in the extent")
+    idx = rs.choice(len(cand), size=n_sites, replace=False, p=w / w.sum())
+    return cand[idx]

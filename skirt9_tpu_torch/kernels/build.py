@@ -47,7 +47,8 @@ KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            # the scan march (csrc/march.cu), one counter per grid mode
            "march_uniform", "march_mesh", "march_voronoi", "march_octree",
            "march_bintree", "march_sphere1d", "march_cylinder2d",
-           "march_amr",
+           "march_amr", "march_tetra", "march_sphere2d", "march_sphere3d",
+           "march_cylinder3d",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -104,6 +105,12 @@ _SIGNATURES = {
     # pos, dir, cell0, mask, rb, zb (or null), cells, ds, B, S, nr, nz,
     # cylinder, shift, stream
     "march_curvi_launch": [_P] * 8 + [_I] * 6 + [_P],
+    # pos, dir, cell0, mask, face_n, face_d, neighbors, cells, ds, B, S,
+    # stream
+    "march_tetra_launch": [_P] * 9 + [_I] * 2 + [_P],
+    # pos, dir, cell0, mask, packed tables, cells, ds, B, S, nr, nt, nphi,
+    # nz, kind, shift, stream
+    "march_polar_launch": [_P] * 7 + [_I] * 8 + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

@@ -48,15 +48,15 @@ def sin(t: torch.Tensor) -> torch.Tensor:
     return torch.sin(t.double()).float()
 
 
-def hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def hypot(x: torch.Tensor, y: torch.Tensor, fma_fn=None) -> torch.Tensor:
     """`jnp.hypot` of f32 x and y as jax forms it: a sqrt(1 + (b/a)^2) with
-    a = max(|x|, |y|), b = min (the square fused into the sum), and 0
-    where a is 0."""
+    a = max(|x|, |y|), b = min (the square fused into the sum, by fma_fn,
+    `fma` by default), and 0 where a is 0."""
     x, y = torch.abs(x), torch.abs(y)
     a, b = torch.maximum(x, y), torch.minimum(x, y)
     zero = a == 0
     q = b / torch.where(zero, torch.ones_like(a), a)
-    return torch.where(zero, a, a * sqrt(fma(q, q, 1.0)))
+    return torch.where(zero, a, a * sqrt((fma_fn or fma)(q, q, 1.0)))
 
 
 def move_xy_fused(pos: torch.Tensor, t: torch.Tensor,
@@ -105,6 +105,26 @@ def fma(a, b, c) -> torch.Tensor:
     if _EAGER[0]:
         return ((to64(a) * to64(b)).float().double() + to64(c)).float()
     return (to64(a) * to64(b) + to64(c)).float()
+
+
+def fma_rn(a, b, c) -> torch.Tensor:
+    """`fma` rounded once in every case: the f64 sum is rounded to odd
+    (its rounding error, exact by TwoSum, pulls it toward zero and sets
+    its last bit) before it is rounded to f32, so a sum that lands on an
+    f32 midpoint in f64 (about one in 10^9) rounds as CUDA's fmaf and
+    XLA's fused multiply-add round it. The plain versions of the march
+    kernel's polar and tetrahedral modes use it: the card holds them bit
+    for bit; it costs four times `fma`'s operations."""
+    to64 = lambda v: v.double() if torch.is_tensor(v) else f32(v)
+    p, c = to64(a) * to64(b), to64(c)
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    inexact = (err != 0) & torch.isfinite(s)
+    bits = s.view(torch.int64)
+    bits = (bits - (inexact & ((err < 0) != (s < 0))).long()) \
+        | inexact.long()
+    return bits.view(torch.float64).float()
 
 
 def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
@@ -253,3 +273,100 @@ def ftz(t: torch.Tensor) -> torch.Tensor:
     """t with its subnormal f32 values flushed to zero, as XLA's CPU code
     flushes subnormal inputs and results (PyTorch keeps them)."""
     return torch.where(t.abs() < _TINY, torch.zeros_like(t), t)
+
+
+# The C library's atan2f and atanf (glibc 2.36, from fdlibm), which XLA's
+# CPU code calls for f32 atan2: the argument reduction of atanf at 7/16,
+# 11/16, 19/16 and 39/16, its two polynomials in w = x^4, each operation
+# rounded alone (glibc's generic build has no fused multiply-adds)
+_ATAN_HI = tuple(_f32_of(b) for b in (
+    0x3FDDAC6700000000, 0x3FE921FB40000000, 0x3FEF730BC0000000,
+    0x3FF921FB40000000))
+_ATAN_LO = tuple(_f32_of(b) for b in (
+    0x3E3586ED20000000, 0x3E64442D00000000, 0x3E6281F680000000,
+    0x3E74442D00000000))
+_ATAN_T = tuple(_f32_of(b) for b in (
+    0x3FD5555560000000, 0xBFC99999A0000000, 0x3FC24924A0000000,
+    0xBFBC71C700000000, 0x3FB745CDC0000000, 0xBFB3B0F2A0000000,
+    0x3FB10D66A0000000, 0xBFADDE2D60000000, 0x3FA97B4B20000000,
+    0xBFA2B44420000000, 0x3F90AD3AE0000000))
+_PI = _f32_of(0x400921FB60000000)
+_PI_LO = _f32_of(0xBE7777A5C0000000)          # pi - f32(pi), negative
+_PI_2 = _f32_of(0x3FF921FB60000000)
+
+
+def _atanf_pos(x: torch.Tensor) -> torch.Tensor:
+    """glibc's atanf of finite f32 x >= 0, operation for operation."""
+    ix = x.view(torch.int32)
+    band = torch.where(ix < 0x3EE00000, -1, torch.where(
+        ix < 0x3F300000, 0, torch.where(ix < 0x3F980000, 1, torch.where(
+            ix < 0x401C0000, 2, 3))))
+    safe = torch.where(x > 0, x, torch.ones_like(x))
+    r = torch.where(band == -1, x, torch.where(
+        band == 0, (x * 2.0 - 1.0) / (x + 2.0), torch.where(
+            band == 1, (x - 1.0) / (x + 1.0), torch.where(
+                band == 2, (x - 1.5) / (x * 1.5 + 1.0),
+                rdiv(-1.0, safe)))))
+    z = r * r
+    w = z * z
+    s1 = w * _ATAN_T[10] + _ATAN_T[8]
+    for c in _ATAN_T[6::-2]:
+        s1 = s1 * w + c
+    s2 = w * _ATAN_T[9] + _ATAN_T[7]
+    for c in _ATAN_T[5::-2]:
+        s2 = s2 * w + c
+    poly = r * (s1 * z + s2 * w)
+    pick = lambda tab: torch.where(band == 0, tab[0], torch.where(
+        band == 1, tab[1], torch.where(band == 2, tab[2], tab[3])))
+    hi = pick(_ATAN_HI) + torch.zeros_like(x)
+    out = torch.where(band < 0, r - poly,
+                      hi - ((poly - pick(_ATAN_LO)) - r))
+    return torch.where(ix >= 0x4C000000,
+                       torch.full_like(x, f32(_ATAN_HI[3] + _ATAN_LO[3])),
+                       out)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """f32 atan2(y, x) as XLA's CPU code computes it, a call of the C
+    library's atan2f (glibc's): atanf of |y / x| (past a ratio of 2^60 the
+    constant pi/2, below 2^-60 with x < 0 zero) moved into the quadrant, in
+    two parts of pi. Bit for bit on finite inputs (NaN aside); the march
+    kernel's `atan2_glibc` (`csrc/march.cu`) is the same code in CUDA."""
+    hx, hy = x.view(torch.int32), y.view(torch.int32)
+    ix, iy = hx & 0x7FFFFFFF, hy & 0x7FFFFFFF
+    k = (iy - ix) >> 23
+    q = torch.abs(y / torch.where(ix == 0, torch.ones_like(x), x))
+    q = torch.where(torch.isfinite(q), q, torch.zeros_like(q))
+    z = _atanf_pos(q)
+    z = torch.where(k > 60, torch.full_like(z, f32(_PI_2 + 0.5 * _PI_LO)), z)
+    z = torch.where((hx < 0) & (k < -60), torch.zeros_like(z), z)
+    neg_x, neg_y = hx < 0, hy < 0
+    pi = torch.full_like(z, _PI)
+    out = torch.where(~neg_x, torch.where(neg_y, -z, z),
+                      torch.where(neg_y, (z - _PI_LO) - pi,
+                                  pi - (z - _PI_LO)))
+    # y = +-0: +-0 for x >= +0, +-pi for x <= -0 (1e-30 below an ulp)
+    out = torch.where(iy == 0, torch.where(neg_x, torch.where(
+        neg_y, -pi, pi), y), out)
+    # x = +-0 and y != 0: +-pi/2
+    out = torch.where((ix == 0) & (iy != 0), torch.where(
+        neg_y, torch.full_like(z, -_PI_2), torch.full_like(z, _PI_2)), out)
+    # x = 1: atanf(y) itself
+    one = hx == 0x3F800000
+    return torch.where(one, torch.where(neg_y, -1.0, 1.0) * _atanf_pos(
+        torch.abs(y)), out)
+
+
+def libm_f32(name: str, values) -> "np.ndarray":
+    """The C library's f32 function `name` ("cosf", "sinf") of each value,
+    on the host: the function XLA's CPU code calls. For tables of a few
+    hundred entries (the angles of a grid's borders)."""
+    import ctypes
+    import ctypes.util
+
+    import numpy as np
+    fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), name)
+    fn.argtypes, fn.restype = [ctypes.c_float], ctypes.c_float
+    vals = np.asarray(values, np.float32).reshape(-1)
+    out = np.array([fn(float(v)) for v in vals], np.float32)
+    return out.reshape(np.shape(values))

@@ -54,6 +54,10 @@ def planar_cut_form(path: str, grid, values_fn, axis: str = "z",
     """FITS image of a scalar field on a planar cut through the domain
     (ref: DefaultCutsForm / PlanarCutsForm): values_fn(pos (N, 3)) -> (N,).
     The cut spans the grid's borders, or a tree's or Voronoi grid's box."""
+    if type(grid).__name__ in ("Sphere2DGrid", "Sphere3DGrid",
+                               "Cylinder3DGrid", "TetraGrid"):
+        raise NotImplementedError(f"planar cuts of a {type(grid).__name__} "
+                                  "not ported yet")
     if hasattr(grid, "xb"):
         lo = [float(grid.xb[0]), float(grid.yb[0]), float(grid.zb[0])]
         hi = [float(grid.xb[-1]), float(grid.yb[-1]), float(grid.zb[-1])]

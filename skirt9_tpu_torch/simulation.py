@@ -48,7 +48,9 @@ from .grids.bintree import BinTreeGrid
 from .grids.cartesian import CartesianGrid, UniformCartesianGrid
 from .grids.cylinder import Cylinder2DGrid
 from .grids.octree import OctreeGrid
+from .grids.polar import Cylinder3DGrid, Sphere2DGrid, Sphere3DGrid
 from .grids.sphere import Sphere1DGrid
+from .grids.tetra import TetraGrid
 from .grids.voronoi import VoronoiGrid
 from .instruments import distant as dinst
 from .media import system as msys
@@ -66,9 +68,11 @@ from .utils.log import default as _log
 from .utils.unitsystem import UnitSystem
 
 _GRIDS = (UniformCartesianGrid, CartesianGrid, OctreeGrid, BinTreeGrid,
-          AMRGrid, VoronoiGrid, Sphere1DGrid, Cylinder2DGrid)
+          AMRGrid, VoronoiGrid, TetraGrid, Sphere1DGrid, Cylinder2DGrid,
+          Sphere2DGrid, Sphere3DGrid, Cylinder3DGrid)
 # grids that only the scan march walks, in the reference on every backend
-_MARCH_ONLY = (Sphere1DGrid, Cylinder2DGrid)
+_MARCH_ONLY = (Sphere1DGrid, Cylinder2DGrid, Sphere2DGrid, Sphere3DGrid,
+               Cylinder3DGrid)
 
 
 @dataclasses.dataclass
@@ -81,7 +85,8 @@ class Simulation:
     shape no sweep takes is walked leaf by leaf)."""
 
     grid: (UniformCartesianGrid | CartesianGrid | OctreeGrid | BinTreeGrid
-           | AMRGrid | VoronoiGrid | Sphere1DGrid | Cylinder2DGrid)
+           | AMRGrid | VoronoiGrid | TetraGrid | Sphere1DGrid | Cylinder2DGrid
+           | Sphere2DGrid | Sphere3DGrid | Cylinder3DGrid)
     medium: msys.MediumTables
     sources: list
     instruments: list           # list[DistantInstrumentCfg]
@@ -126,8 +131,9 @@ class Simulation:
         if not isinstance(self.grid, _GRIDS):
             raise NotImplementedError(
                 f"grid {type(self.grid).__name__} not ported yet (Cartesian "
-                "grids, octrees, bintrees, adaptive meshes, Voronoi grids, "
-                "1D spheres and 2D cylinders only)")
+                "grids, octrees, bintrees, adaptive meshes, Voronoi and "
+                "tetrahedral grids, 1D, 2D and 3D spheres, 2D and 3D "
+                "cylinders only)")
         if self.dust_emission_type != "Equilibrium":
             raise NotImplementedError(f"{self.dust_emission_type} dust "
                                       "emission not ported yet (Equilibrium)")
@@ -186,8 +192,9 @@ class Simulation:
         the same. An adaptive mesh gets none (the reference's attaches
         where the grid's `leafmap` is None, and an AMR grid has no such
         field): it locates by its own descent. A Voronoi grid keeps its
-        own locate, as in the reference (`:203-206`). The 1D sphere and the
-        2D cylinder go to the march outright: every sweep's `supports`
+        own locate, as in the reference (`:203-206`), and so does a
+        tetrahedral grid, rasterized or walked the same way. The spheres
+        and cylinders go to the march outright: every sweep's `supports`
         declines them, as the reference's do."""
         if isinstance(self.grid, _MARCH_ONLY):
             _log().info(f"transport: {type(self.grid).__name__} "
@@ -196,11 +203,12 @@ class Simulation:
             return None
         if sw.supports_sweep(self.grid, self.medium):
             return sw.build_tables(self.grid, self.medium)
-        if isinstance(self.grid, VoronoiGrid):
+        if isinstance(self.grid, (VoronoiGrid, TetraGrid)):
             if raster.supports(self.grid, self.medium, self.options):
                 return raster.build_tables(self.grid, self.medium)
-            _log().info(f"transport: VoronoiGrid ({self.grid.ncells} cells) "
-                        "walked exactly by the scan march")
+            _log().info(f"transport: {type(self.grid).__name__} "
+                        f"({self.grid.ncells} cells) walked exactly by the "
+                        "scan march")
             return None
         tabs = None
         if ml.supports(self.grid, self.medium, self.options):

@@ -191,8 +191,12 @@ def cell_bounds(grid):
     241-246`), so a packet may start in a neighbouring cell. Dust
     emission on a 1D sphere or a 2D cylinder is not ported: the reference
     launches a shell's packets in its bounding cube, and on the cylinder
-    has no cell bounds at all."""
-    if type(grid).__name__ in ("Sphere1DGrid", "Cylinder2DGrid"):
+    has no cell bounds at all, nor on the 2D and 3D spheres, the 3D
+    cylinder and the tetrahedral grid (`skirt9_tpu/sources/secondary.py:
+    241-255` fails on them)."""
+    if type(grid).__name__ in ("Sphere1DGrid", "Cylinder2DGrid",
+                               "Sphere2DGrid", "Sphere3DGrid",
+                               "Cylinder3DGrid", "TetraGrid"):
         raise NotImplementedError(f"DustEmission on a {type(grid).__name__} "
                                   "not ported yet")
     return grid.cell_bounds()

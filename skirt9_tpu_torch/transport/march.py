@@ -10,11 +10,13 @@ interaction point, is dense tensor math on those tables.
 `march_geometry` is the walk itself. On a CUDA tensor it is one launch of
 the march kernel (`csrc/march.cu`, one thread per lane, in the mode of the
 grid: `march_uniform`, `march_mesh`, `march_voronoi`, `march_octree`,
-`march_bintree`, `march_sphere1d`, `march_cylinder2d` or `march_amr`; a
-tree's or an adaptive mesh's node tables go in whole, and each step
+`march_bintree`, `march_sphere1d`, `march_cylinder2d`, `march_amr`,
+`march_tetra`, `march_sphere2d`, `march_sphere3d` or `march_cylinder3d`;
+a tree's or an adaptive mesh's node tables go in whole, and each step
 descends from the root, as the reference's does, whether or not a leaf map
-is attached; a curvilinear
-grid's border tables are staged in shared memory); on a CPU tensor its
+is attached; a curvilinear or polar grid's border tables are staged in
+shared memory, a polar grid's with the cosines and sines of its angles);
+on a CPU tensor its
 plain version, a loop of the grid's `step` over the steps. Both follow
 the reference's f32 operations, with XLA's CPU fusions replayed, so that
 each step lands in the reference's cell. A lane masked off, or outside the
@@ -36,7 +38,9 @@ from ..grids.bintree import BinTreeGrid
 from ..grids.cartesian import CartesianGrid, UniformCartesianGrid
 from ..grids.cylinder import Cylinder2DGrid
 from ..grids.octree import OctreeGrid
+from ..grids.polar import Cylinder3DGrid, Sphere2DGrid, Sphere3DGrid
 from ..grids.sphere import Sphere1DGrid
+from ..grids.tetra import TetraGrid
 from ..grids.voronoi import VoronoiGrid
 from ..kernels import build as kb
 from ..media import system as msys
@@ -49,7 +53,11 @@ _INV_C = 1.0 / 2.99792458e8  # inverse speed of light [s/m]
 MODES = {UniformCartesianGrid: "march_uniform", CartesianGrid: "march_mesh",
          VoronoiGrid: "march_voronoi", OctreeGrid: "march_octree",
          BinTreeGrid: "march_bintree", Sphere1DGrid: "march_sphere1d",
-         Cylinder2DGrid: "march_cylinder2d", AMRGrid: "march_amr"}
+         Cylinder2DGrid: "march_cylinder2d", AMRGrid: "march_amr",
+         TetraGrid: "march_tetra", Sphere2DGrid: "march_sphere2d",
+         Sphere3DGrid: "march_sphere3d", Cylinder3DGrid: "march_cylinder3d"}
+# the polar modes' kind in march_polar_launch
+_POLAR = {"march_sphere2d": 0, "march_sphere3d": 1, "march_cylinder3d": 2}
 _MODE_IDS = {"march_uniform": 0, "march_mesh": 1, "march_voronoi": 2}
 
 
@@ -59,7 +67,7 @@ def _check(grid, pos0, dirn, cell0, max_steps: int, mask) -> None:
         raise NotImplementedError(
             f"the scan march on a {type(grid).__name__} is not ported yet "
             "(it walks Cartesian grids, octrees, bintrees, adaptive meshes, "
-            "Voronoi grids, 1D spheres and 2D cylinders)")
+            "Voronoi and tetrahedral grids, spheres and cylinders)")
     if pos0.shape != (B, 3) or dirn.shape != (B, 3) or cell0.shape != (B,) \
             or mask.shape != (B,):
         raise ValueError(f"pos0 {tuple(pos0.shape)}, dirn "
@@ -112,6 +120,32 @@ def _march_cuda(grid, pos0, dirn, cell0, max_steps: int, mask):
                   cells.data_ptr(), ds.data_ptr(), B, max_steps,
                   rb.shape[0] - 1, 0 if zb is None else zb.shape[0] - 1,
                   int(cyl), grid.shift, kb.stream_of(pos0), count_as=mode)
+        return cells, ds
+    if mode == "march_tetra":
+        nbrs = grid.neighbors.to(device=dev, dtype=torch.int32).contiguous()
+        face_n, face_d = f32(grid.face_n), f32(grid.face_d)
+        kb.launch("march_tetra", pos0.data_ptr(), dirn.data_ptr(),
+                  cell0.data_ptr(), mask.data_ptr(), face_n.data_ptr(),
+                  face_d.data_ptr(), nbrs.data_ptr(), cells.data_ptr(),
+                  ds.data_ptr(), B, max_steps, kb.stream_of(pos0),
+                  count_as=mode)
+        return cells, ds
+    if mode in _POLAR:
+        # rb, tb, cos_t, pb, cos_p, sin_p, zb, the lengths times 2^-shift
+        s = 2.0 ** -grid.shift
+        parts = [grid.rb * s] + [getattr(grid, f) for f in (
+            "tb", "cos_t", "pb", "cos_p", "sin_p") if hasattr(grid, f)]
+        if hasattr(grid, "zb"):
+            parts.append(grid.zb * s)
+        tabs = f32(torch.cat([t.to(dev) for t in parts]))
+        counts = (grid.nt if hasattr(grid, "tb") else 0,
+                  grid.nphi if hasattr(grid, "pb") else 0,
+                  grid.nz if hasattr(grid, "zb") else 0)
+        kb.launch("march_polar", pos0.data_ptr(), dirn.data_ptr(),
+                  cell0.data_ptr(), mask.data_ptr(), tabs.data_ptr(),
+                  cells.data_ptr(), ds.data_ptr(), B, max_steps, grid.nr,
+                  *counts, _POLAR[mode], grid.shift, kb.stream_of(pos0),
+                  count_as=mode)
         return cells, ds
     if mode == "march_amr":
         i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()

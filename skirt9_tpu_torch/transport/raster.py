@@ -16,8 +16,13 @@ and interactions stay in the cell that supplied the opacity.
 
 `choose_resolution` keeps the reference's result (73^3 for a cubic box):
 its caps (128 encoding rows, 5 MB of tables) are TPU limits, but its output
-defines the medium, so the port reproduces it. Tetrahedral grids are not
-ported yet and raise.
+defines the medium, so the port reproduces it.
+
+Tetrahedral grids rasterize the same way. The reference's owner map of a
+tetrahedral grid is its own `locate` in chunks of 2^16 voxel centres (its
+`_delaunay` shortcut is never set on the grid), so the port's is the
+port's `locate`, which walks as the reference's does, on the grid's
+device.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from ..grids.tetra import TetraGrid
 from ..grids.voronoi import VoronoiGrid
 from ..utils.log import default as _log
 from . import mlsweep as ml
@@ -73,10 +79,22 @@ def choose_resolution(box: np.ndarray, max_enc: int = 128,
 
 
 def _owner_map(grid, centers: np.ndarray) -> np.ndarray:
-    """Host voxel-centre -> cell id map: the nearest site."""
+    """Host voxel-centre -> cell id map: the nearest site of a Voronoi
+    grid; the tetrahedron that a tetrahedral grid's `locate` walks to from
+    each f32 centre, 2^16 at a time (-1 outside)."""
+    if isinstance(grid, TetraGrid):
+        dev = grid.box_lo.device
+        out = np.empty(len(centers), np.int32)
+        step = 1 << 16
+        for i in range(0, len(centers), step):
+            pos = torch.tensor(centers[i:i + step].astype(np.float32),
+                               device=dev)
+            out[i:i + step] = grid.locate(pos).cpu().numpy()
+        return out
     if not isinstance(grid, VoronoiGrid):
         raise NotImplementedError(f"rasterizing a {type(grid).__name__} not "
-                                  "ported yet (Voronoi grids)")
+                                  "ported yet (Voronoi and tetrahedral "
+                                  "grids)")
     from scipy.spatial import cKDTree
     kdt = cKDTree(grid.sites.cpu().numpy().astype(np.float64))
     _, owner = kdt.query(centers)
@@ -87,7 +105,7 @@ def supports(grid, med, options=None) -> bool:
     """True when (grid, medium, options) takes the rasterized sweep: the
     reference's grid, option and component gates (`raster.py:113-135`)
     without its backend test, as `mlsweep.supports` drops it."""
-    if not isinstance(grid, VoronoiGrid):
+    if not isinstance(grid, (VoronoiGrid, TetraGrid)):
         return False
     if options is not None and (options.kinematics or options.lya
                                 or options.compton or options.xray

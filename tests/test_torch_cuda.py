@@ -1844,6 +1844,8 @@ def _march_rays(dev, mode, B, seed):
     from skirt9_tpu_torch.grids.voronoi import build_voronoi
     rs = np.random.default_rng(seed)
     ext = ((-1.2 * PC, 1.2 * PC),) * 3
+    if mode.startswith(("sphere2d", "sphere3d", "cylinder3d", "tetra")):
+        return _polar_rays(dev, mode, B, rs)
     if mode.startswith(("sphere", "cylinder")):
         from skirt9_tpu_torch.grids import meshes
         from skirt9_tpu_torch.grids.cylinder import make_cylinder2d
@@ -1910,6 +1912,43 @@ def _march_rays(dev, mode, B, seed):
     return grid, pos, d, grid.locate(pos), mask
 
 
+def _polar_rays(dev, mode, B, rs):
+    """A polar grid or a tetrahedral mesh with rays through it, on the
+    card: random rays from inside and outside, an eighth along the axes, a
+    tenth of the lanes masked off; power-law radial and cosine-spaced
+    polar meshes; _kpc at 25 kpc (shift 10); sphere2d_global with tables
+    past 48 KB (read from global memory); tetra from 2,000 sites."""
+    from skirt9_tpu_torch.grids import meshes, polar, tetra
+    unit = 2.5e4 if mode.endswith("_kpc") else 1.0
+    R = 1.2 * PC * unit
+    rb = meshes.scale(meshes.pow_mesh(40, 20.0), 0.0, R)
+    tb = np.arccos(np.linspace(1.0, -1.0, 25))
+    if mode == "tetra":
+        grid = tetra.build_tetra(rs.uniform(-R, R, (2000, 3)),
+                                 ((-R, R),) * 3)
+    elif mode == "sphere2d_global":
+        grid = polar.make_sphere2d(R, 9000, 3000)
+    elif mode.startswith("sphere2d"):
+        grid = polar.make_sphere2d(R, 40, 24, rb=rb, tb=tb)
+    elif mode.startswith("sphere3d"):
+        grid = polar.make_sphere3d(R, 40, 24, 16, rb=rb, tb=tb)
+    else:
+        zb = meshes.scale(meshes.sym_pow_mesh(30, 8.0), -0.5 * R, 0.5 * R)
+        grid = polar.make_cylinder3d(R, -0.5 * R, 0.5 * R, 40, 16, 30,
+                                     rb=rb, zb=zb)
+    pos = rs.uniform(-1.1 * R, 1.1 * R, (B, 3))
+    d = rs.normal(size=(B, 3))
+    d[:B // 8] = 0.0                              # rays along the axes
+    d[np.arange(B // 8), rs.integers(0, 3, B // 8)] = 1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    grid = grid.to(dev)
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos, d = t32(pos), t32(d)
+    pos, cell, _ = grid.move_inside(pos, d)
+    mask = torch.tensor(rs.uniform(size=B) < 0.9, device=dev)
+    return grid, pos, d, cell, mask
+
+
 def _amr_grid(mode, directory):
     """tests/test_amr.py's two-level and deep meshes, or amr_galaxy's
     (chip_smoke.amr_mesh: about 10^5 leaves, 50 x 50 x 8 kpc)."""
@@ -1956,14 +1995,18 @@ def _amr_rays(dev, mode, B, rs):
                                   "octree_level10", "sphere", "sphere_kpc",
                                   "cylinder", "cylinder_kpc",
                                   "cylinder_global", "amr_two_level",
-                                  "amr_deep", "amr_galaxy"])
+                                  "amr_deep", "amr_galaxy", "tetra",
+                                  "sphere2d", "sphere2d_global", "sphere3d",
+                                  "sphere3d_kpc", "cylinder3d",
+                                  "cylinder3d_kpc"])
 def test_march_kernel(dev, mode):
     """The march kernel against its plain version on the same CUDA tensors:
     one launch under its mode's counter, cells and step lengths bit for
     bit (the border tables staged in shared memory and, past 48 KB, read
     from global memory; a tree's descent 11 levels deep; an adaptive
     mesh's descent over its node tables, amr_galaxy's 10^5 leaves at kpc
-    scale among them)."""
+    scale among them; the polar grids' tables staged with their cosines
+    and sines, and past 48 KB read from global memory)."""
     from skirt9_tpu_torch.transport import march as mr
     grid, pos, d, cell, mask = _march_rays(dev, mode, 3000, seed=7)
     S = min(grid.max_steps(), 256)
@@ -1980,25 +2023,35 @@ def test_march_kernel(dev, mode):
 @pytest.mark.parametrize("name", ["bench1_sympow_mesh", "bench4_walk",
                                   "bench3_explicit_absorption_tree",
                                   "disk_cyl_small", "ivezic_sphere1d",
-                                  "decorated_cyl"])
+                                  "decorated_cyl", "torus_sphere2d_small",
+                                  "spiral_sphere3d_small",
+                                  "spiral_cylinder3d_small",
+                                  "tetra_galaxy_march_small"])
 def test_march_on_cuda_matches_cpu(dev, name, tmp_path):
     """A reduced march configuration (chip_smoke.MARCH_SMALL; its bench3
     with explicit absorption, whose raster's XL tables the gate declines,
-    for the tree) on the card against the CPU within chip_smoke.py's
-    MARCH_BOUNDS (`march_gaps`): the march kernel and detect launched, no
-    sweep."""
+    for the tree; the polar and tetrahedral cases of chip_smoke.MESHES) on
+    the card against the CPU within chip_smoke.py's MARCH_BOUNDS
+    (`march_gaps`; the reduced spheres' scattered light and RF within
+    MESH_BOUNDS): the march kernel and detect launched, no sweep."""
     cs = _chip_smoke()
     case = ("bench3_explicit_absorption" if name.endswith("_tree")
             else name)
     outs = {}
     for d in ("cpu", dev):
-        sim, dust = cs.march_config(case, d, tmp_path)
+        if case in cs.MESHES:
+            sim, dust = cs.mesh_config(case, d, tmp_path), False
+        else:
+            sim, dust = cs.march_config(case, d, tmp_path)
         kb.reset_launches()
         outs[str(d)] = (sim.run_with_dust_emission(verbose=False) if dust
                         else sim.run_primary(verbose=False))
     n = dict(kb.LAUNCHES)
-    cs.march_gaps(outs["cpu"], outs[str(dev)], dust)
-    (mode,) = cs.MARCH_SMALL[case][4]
+    cs.march_gaps(outs["cpu"], outs[str(dev)], dust,
+                  cs.MESH_BOUNDS.get(case))
+    from skirt9_tpu_torch.transport import march as mr
+    (mode,) = cs.MARCH_SMALL[case][4] if case in cs.MARCH_SMALL else (
+        mr.MODES[type(sim.grid)],)
     assert n[mode] > 0 and n["detect"] > 0
     for k in cs.SWEEPS:
         assert n[k] == 0, k
@@ -2087,6 +2140,24 @@ def test_xl_kernels_on_amr_raster(dev):
     ins = _xl_grouped_inputs(dev, tabs, pos, d, sig, active, 4, 9)
     rf = _xl_grouped_check(tabs, *ins, 4, (0, -1, 2, 2), 3)
     assert rf.shape == (3, grid.ncells)
+
+
+@pytest.mark.parametrize("name", ["torus_sphere2d_small",
+                                  "spiral_sphere3d_small",
+                                  "spiral_cylinder3d_small",
+                                  "tetra_galaxy_march_small",
+                                  "tetra_galaxy_small"])
+def test_polar_and_tetra_loops_copy_nothing_from_host(dev, name, tmp_path):
+    """Three profiled events of the loop on each polar grid's march, on
+    march_tetra and on the tetrahedral raster (kernels 4-5): no
+    host-to-device copy inside the loop's profiler range."""
+    from skirt9_tpu_torch.tools import event_profile as ep
+    sim = _chip_smoke().mesh_config(name, dev, tmp_path, max_events=3)
+    assert (sim._sweep_tabs is None) == (name != "tetra_galaxy_small")
+    sim.run_primary(verbose=False)
+    prof = ep.profile_run(torch, lambda: sim.run_primary(verbose=False))
+    assert ep._events(sim) > 0 and prof["unattributed"] == 0, prof
+    assert prof["loop"]["h2d_copies"] == 0, prof["loop"]
 
 
 @pytest.mark.parametrize("name", ["amr_galaxy_small",
