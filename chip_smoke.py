@@ -1387,14 +1387,24 @@ def config1_gates(sim, accs, direct: bool = True) -> dict:
         sed["primaryscattered"][0] / sed["transparent"][0]))
 
 
-def host_per_event(torch, sim, run) -> dict:
-    """One batch of a configuration profiled after a warm-up
-    (event_profile.profile_run): device operations, kernel launches, stream
-    syncs and copies per event of the loop and of the whole run, and the
-    device's busy and idle shares."""
+def host_per_event(torch, sim, run, warm: bool = False) -> dict:
+    """One batch of a configuration profiled (event_profile.profile_run),
+    after a warm-up unless the simulation has run already (warm): device
+    operations, kernel launches, stream syncs and copies per event of the
+    loop and of the whole run, and the device's busy and idle shares. The
+    events are capped at 8 (every event of a loop issues the same
+    operations; the profiler's cost grows with them)."""
+    import dataclasses
     from skirt9_tpu_torch.tools import event_profile as ep
-    run(sim)                                     # warm-up
-    prof = ep.profile_run(torch, lambda: run(sim))
+    opts = sim.options
+    sim.options = dataclasses.replace(opts, max_events=min(opts.max_events,
+                                                           8))
+    try:
+        if not warm:
+            run(sim)                             # warm-up
+        prof = ep.profile_run(torch, lambda: run(sim))
+    finally:
+        sim.options = opts
     events = ep._events(sim)
     require(prof["loop_ranges"] > 0 and prof["loop"]["h2d_copies"] == 0,
             f"no host-to-device copy in the event loop: {prof['loop']}")
@@ -4236,15 +4246,15 @@ def phase_full_width_b67(torch, smi: str, name):
 
 
 def phase_breakdown_b6(torch) -> None:
-    """One batch of config 6 (2^15 packets, its first 16 events: every Lya
+    """One batch of config 6 (2^15 packets, its first 8 events: every Lya
     event issues the same operations) under torch.profiler
     (host_per_event): device operations, stream syncs and host copies per
     event of the Lya loop, busy and idle shares, the kernels that take the
     most device time."""
     prof = host_per_event(torch, config6("cuda", num_packets=B_B67 // 2,
-                                         max_events=16),
+                                         max_events=8),
                           lambda s: s.run_primary(verbose=False))
-    emit({"phase": "breakdown_b6", "packets": B_B67 // 2, "max_events": 16,
+    emit({"phase": "breakdown_b6", "packets": B_B67 // 2, "max_events": 8,
           **prof})
 
 
@@ -4943,6 +4953,12 @@ def march_cost(name, grid, cells, walked) -> tuple:
         return (12 * grid.ncells + 4 * grid.neighbors.numel(),
                 n * (OPS_MARCH[name] * grid.neighbors.shape[1]
                      + OPS_MARCH_WALL), {})
+    if name == "march_clumpy":
+        sph = grid.sph
+        tables = 4 * (sum(t.numel() for t in sph if torch.is_tensor(t))
+                      + 4 * grid.n_clumps)
+        return tables, n * (OPS_MARCH[name] + OPS_CLUMP * grid.n_clumps), \
+            dict(clumps=grid.n_clumps)
     if name in MARCH_CURVI + MARCH_POLAR:
         tables = 4 * sum(t.numel() for t in grid if torch.is_tensor(t))
         return tables, n * OPS_MARCH[name], {}
@@ -4967,9 +4983,17 @@ def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
     kb.reset_launches()
     ck, dk = mr._march_cuda(grid, pos, dirn, cell, S, mask)
     require(kb.LAUNCHES[name] == 1, f"{name} launched once")
+    # the plain version once, timed: a step is dozens to hundreds of
+    # launches, S of them a march
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
     cp, dp = mr.march_geometry_plain(grid, pos, dirn, cell, S, mask)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
     exact = name in MARCH_TREE + MARCH_CURVI + MARCH_AMR + MARCH_POLAR \
-        + MARCH_TETRA
+        + MARCH_TETRA + MARCH_CLUMPY
     off = ((ck != cp) | (dk != dp)) if exact else ck != cp
     lanes_off = int(off.any(dim=0).sum())
     require(lanes_off <= (0 if exact else 1e-4 * B),
@@ -4984,11 +5008,6 @@ def _march_check(torch, name, grid, pos, dirn, cell, S, mask) -> dict:
     nbytes = S * B * 8 + B * (12 + 12 + 4 + 1) + tables
     kern = lambda: mr._march_cuda(grid, pos, dirn, cell, S, mask)
     dev = device_ms(kern)
-    # the plain version once (its first run above was the warm-up): a step
-    # is dozens to hundreds of launches, S of them a march
-    plain_ms = cuda_ms(lambda: mr.march_geometry_plain(grid, pos, dirn, cell,
-                                                       S, mask), reps=1,
-                       warmup=0)
     return dict(max_abs_err=float((dk - dp).abs().max()),
                 ds_sum_rel_err=ds_err, lanes_cells_differ=lanes_off,
                 lanes=B, steps=S, walked_pairs=int(walked.sum()),
@@ -5060,8 +5079,11 @@ def phase_full_width_b4_walk(torch, smi: str, raster: dict) -> dict:
     T = sim.dust_temperature(rf)[:, 0]
     gates = _b4_run_gates(torch, sim, rf, accs)
     events = sum(seg[3] for seg in stats["segments"])
-    prof = host_per_event(torch, _walk_sim(num_packets=B_B4),
-                          lambda s: s.run_with_dust_emission(verbose=False))
+    n_full, sim.num_packets = sim.num_packets, B_B4
+    prof = host_per_event(torch, sim,
+                          lambda s: s.run_with_dust_emission(verbose=False),
+                          warm=True)
+    sim.num_packets = n_full
     lit = raster["sed"][:, 1] > 0.05 * raster["sed"][:, 1].max()
     sed_ratio = sed[lit, 1] / raster["sed"][lit, 1]
     dusty = sim.medium.nd[:, 0].cpu().numpy() > 0
@@ -5243,8 +5265,11 @@ def phase_full_width_b3_march(torch, smi: str, sweep: dict) -> dict:
     gates = bench3_gates(sim, sed, mean_intensity(sim, rf),
                          sim.dust_temperature(rf)[:, 0])
     events = sum(seg[3] for seg in stats["segments"])
-    prof = host_per_event(torch, config3_march("cuda", num_packets=B_B3),
-                          lambda s: s.run_with_dust_emission(verbose=False))
+    n_full, sim.num_packets = sim.num_packets, B_B3
+    prof = host_per_event(torch, sim,
+                          lambda s: s.run_with_dust_emission(verbose=False),
+                          warm=True)
+    sim.num_packets = n_full
     emit({"phase": "full_width_b3_march", "leaves": sim.grid.ncells,
           "max_steps": sim.options.max_steps, "packets": sim.num_packets,
           "batch": sim.batch_size, "rf_bins": rf.shape[1],
@@ -5755,23 +5780,48 @@ IVEZIC = dict(r_in=0.1, r_out=1.0, p=1.5, r_grid=1.05, L=1e5)
 
 
 def ivezic_ski(directory, name: str = "ivezic_sphere1d", nr: int = 60,
-               mesh: str = "PowMesh") -> str:
+               mesh: str = "PowMesh", dust: bool = False, nlam: int = 25,
+               npix: int = 64) -> str:
     """The Ivezic setup as a ski file (OligoExtinctionOnly at 0.55 micron,
     a Sphere1DSpatialGrid of nr shells on a radial `mesh` of ratio 20 to
-    1.05 pc, one FullInstrument face-on at 1 kpc)."""
+    1.05 pc, one FullInstrument face-on at 1 kpc). dust: a DustEmission run
+    instead, bench2's: a 20,000 K blackbody, 0.09-100 micron, an RF of
+    nlam bins, equilibrium emission on nlam bins of 1-2000 micron, the
+    instrument on 2 * nlam bins of 0.09-1000 micron, and the temperature
+    and radiation-field probes."""
     import shutil
     v = IVEZIC
+    if dust:
+        mode, waves = "DustEmission", (
+            'minWavelength="0.09 micron" maxWavelength="100 micron"')
+        sed = '<sed type="SED"><BlackBodySED temperature="20000 K"/></sed>'
+        log = lambda lo, hi, n: (f'<LogWavelengthGrid minWavelength="{lo} '
+                                 f'micron" maxWavelength="{hi} micron" '
+                                 f'numWavelengths="{n}"/>')
+        options = f"""
+      <radiationFieldOptions type="RadiationFieldOptions"><RadiationFieldOptions storeRadiationField="true"><radiationFieldWLG type="DisjointWavelengthGrid">{log(0.09, 100, nlam)}</radiationFieldWLG></RadiationFieldOptions></radiationFieldOptions>
+      <dustEmissionOptions type="DustEmissionOptions"><DustEmissionOptions dustEmissionType="Equilibrium" includeHeatingByCMB="false" maxFractionOfPrimary="0.01" maxFractionOfPrevious="0.03" sourceWeight="1" wavelengthBias="0.5"><cellLibrary type="SpatialCellLibrary"><AllCellsLibrary/></cellLibrary><dustEmissionWLG type="DisjointWavelengthGrid">{log(1, 2000, nlam)}</dustEmissionWLG></DustEmissionOptions></dustEmissionOptions>"""
+        default_wlg = (f'<defaultWavelengthGrid type="WavelengthGrid">'
+                       f'{log(0.09, 1000, 2 * nlam)}</defaultWavelengthGrid>')
+        probes = """<probes type="Probe">
+      <RadiationFieldProbe probeName="rf" writeWavelengthGrid="true" probeAfter="Run"><form type="Form"><PerCellForm/></form></RadiationFieldProbe>
+      <TemperatureProbe probeName="T" aggregation="Type" probeAfter="Run"><form type="Form"><PerCellForm/></form></TemperatureProbe>
+    </probes>"""
+    else:
+        mode, waves, sed, options = ("OligoExtinctionOnly",
+                                     'wavelengths="0.55 micron"', "", "")
+        default_wlg = probes = ""
     text = f"""<?xml version='1.0' encoding='UTF-8'?>
 <skirt-simulation-hierarchy type="MonteCarloSimulation" format="9" producer="chip_smoke">
-  <MonteCarloSimulation userLevel="Expert" simulationMode="OligoExtinctionOnly" numPackets="{N_GEO}">
+  <MonteCarloSimulation userLevel="Expert" simulationMode="{mode}" numPackets="{N_GEO}">
     <random type="Random"><Random seed="0"/></random>
     <units type="Units"><ExtragalacticUnits fluxOutputStyle="Wavelength"/></units>
     <cosmology type="Cosmology"><LocalUniverseCosmology/></cosmology>
-    <sourceSystem type="SourceSystem"><SourceSystem wavelengths="0.55 micron" sourceBias="0.5"><sources type="Source">
-      <PointSource positionX="0 pc" positionY="0 pc" positionZ="0 pc"><normalization type="LuminosityNormalization"><IntegratedLuminosityNormalization wavelengthRange="Source" integratedLuminosity="{v['L']} Lsun"/></normalization></PointSource>
+    <sourceSystem type="SourceSystem"><SourceSystem {waves} sourceBias="0.5"><sources type="Source">
+      <PointSource positionX="0 pc" positionY="0 pc" positionZ="0 pc">{sed}<normalization type="LuminosityNormalization"><IntegratedLuminosityNormalization wavelengthRange="Source" integratedLuminosity="{v['L']} Lsun"/></normalization></PointSource>
     </sources></SourceSystem></sourceSystem>
     <mediumSystem type="MediumSystem"><MediumSystem>
-      <photonPacketOptions type="PhotonPacketOptions"><PhotonPacketOptions forceScattering="true" minWeightReduction="1e4" minScattEvents="0" pathLengthBias="0.5"/></photonPacketOptions>
+      <photonPacketOptions type="PhotonPacketOptions"><PhotonPacketOptions forceScattering="true" minWeightReduction="1e4" minScattEvents="0" pathLengthBias="0.5"/></photonPacketOptions>{options}
       <media type="Medium"><GeometricMedium velocityMagnitude="0 km/s">
         <geometry type="Geometry"><ShellGeometry minRadius="{v['r_in']} pc" maxRadius="{v['r_out']} pc" exponent="{v['p']}"/></geometry>
         <materialMix type="MaterialMix"><MeanFileDustMix filename="mrn_mean.txt"/></materialMix>
@@ -5779,9 +5829,10 @@ def ivezic_ski(directory, name: str = "ivezic_sphere1d", nr: int = 60,
       </GeometricMedium></media>
       <grid type="SpatialGrid"><Sphere1DSpatialGrid maxRadius="{v['r_grid']} pc"><meshRadial type="Mesh"><{mesh} numBins="{nr}" ratio="20"/></meshRadial></Sphere1DSpatialGrid></grid>
     </MediumSystem></mediumSystem>
-    <instrumentSystem type="InstrumentSystem"><InstrumentSystem><instruments type="Instrument">
-      <FullInstrument instrumentName="i0" distance="1 kpc" inclination="0 deg" azimuth="0 deg" roll="0 deg" fieldOfViewX="2.2 pc" numPixelsX="64" centerX="0 pc" fieldOfViewY="2.2 pc" numPixelsY="64" centerY="0 pc" recordComponents="true" numScatteringLevels="0" recordPolarization="false" recordStatistics="true"/>
+    <instrumentSystem type="InstrumentSystem"><InstrumentSystem>{default_wlg}<instruments type="Instrument">
+      <FullInstrument instrumentName="i0" distance="1 kpc" inclination="0 deg" azimuth="0 deg" roll="0 deg" fieldOfViewX="2.2 pc" numPixelsX="{npix}" centerX="0 pc" fieldOfViewY="2.2 pc" numPixelsY="{npix}" centerY="0 pc" recordComponents="true" numScatteringLevels="0" recordPolarization="false" recordStatistics="true"/>
     </instruments></InstrumentSystem></instrumentSystem>
+    <probeSystem type="ProbeSystem"><ProbeSystem>{probes}</ProbeSystem></probeSystem>
   </MonteCarloSimulation>
 </skirt-simulation-hierarchy>
 """
@@ -5800,6 +5851,11 @@ GEOMETRIC = {
     "disk_cyl_small": (galaxy_ski, dict(nr=16, nz=16, npix=32, nlam=12,
                                         rf_bins=4)),
     "ivezic_sphere1d": (ivezic_ski, dict(nr=40)),
+    # DustEmission on the 1D sphere: its shells launch in their bounding
+    # cubes (full width, and reduced for the draw-for-draw test)
+    "ivezic_dust": (ivezic_ski, dict(nr=40, dust=True)),
+    "ivezic_dust_small": (ivezic_ski, dict(nr=12, dust=True, nlam=8,
+                                           npix=16)),
     "geometric_cartesian": (galaxy_ski, dict(grid="cartesian", nr=16,
                                              npix=32, nlam=12, rf_bins=4)),
     "disk_tree_small": (galaxy_ski, dict(grid="tree", level=4, spiral=True,
@@ -5984,6 +6040,8 @@ def column_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
     the polar grids and the tetrahedral mesh toward instrument inst
     (walk_tau)."""
     import torch
+    if type(sim.grid).__name__ == "ClumpySphericalGrid":
+        return march_tau(sim, lam, inst)[0]
     if type(sim.grid).__name__ in ("Sphere2DGrid", "Sphere3DGrid",
                                    "Cylinder3DGrid", "TetraGrid"):
         return walk_tau(sim, lam, inst)
@@ -5998,6 +6056,32 @@ def column_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
     nz = len(zb) - 1
     up = zb[:-1] >= 0.0
     return float((np.diff(zb)[up] * kappa[:nz][up]).sum())
+
+
+def march_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> tuple:
+    """(tau, reach): the optical depth at lam from the centre toward
+    instrument inst summed in f64 on the host over the grid's own march
+    from the centre (the march kernel on the card), and the share of the
+    grid's radius that march covers. The clumpy sphere's step, the
+    reference's bit for bit, locates its structured cell at the moved
+    position, which rounds into the shell behind; on a ray from the centre
+    it then steps 0 and stalls (ROADMAP.md queue C), so a central source's
+    direct light is held against the walk that step defines, beside the
+    cells' geometry (walk_tau)."""
+    import torch
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.transport import march as mr
+    k = sim._inst_tabs[inst]["kobs"].reshape(1, 3).float().contiguous()
+    pos = torch.zeros_like(k)
+    cell = sim.grid.locate(pos)
+    cells, ds = mr.march_geometry(sim.grid, pos, k, cell,
+                                  sim.options.max_steps, cell >= 0)
+    sig = msys.optics_at(sim.medium, torch.tensor(
+        [lam], dtype=torch.float32, device=sim.device)).sigma_ext
+    kappa = sim.medium.nd.double() @ sig.double()[0]
+    ds = ds[:, 0].double()
+    tau = float((ds * kappa[cells[:, 0].long()]).sum())
+    return tau, float(ds.sum() / float(sim.grid.sph.rb[-1]))
 
 
 def direct_gate(torch, sim, what: str, inst: int = 0) -> dict:
@@ -6015,8 +6099,12 @@ def direct_gate(torch, sim, what: str, inst: int = 0) -> dict:
     e = abs(att / math.exp(-tau) - 1)
     require(e <= 1e-3, f"{what}: direct / transparent {att} against "
             f"exp(-{tau}) within 1e-3 ({e})")
-    return {"tau": tau, "direct_over_transparent": att, "rel_err": e,
-            "packets": sim.num_packets, "launch_counts": launches}
+    res = {"tau": tau, "direct_over_transparent": att, "rel_err": e,
+           "packets": sim.num_packets, "launch_counts": launches}
+    if type(sim.grid).__name__ == "ClumpySphericalGrid":
+        res.update(march_reach=march_tau(sim, inst=inst)[1],
+                   geometric_tau=walk_tau(sim, inst=inst))
+    return res
 
 
 MODES_OF = {"Sphere1DGrid": "march_sphere1d",
@@ -6079,9 +6167,10 @@ def phase_full_width_geometric(torch, smi: str, name: str) -> dict:
                 "ivezic_sphere1d")
         else:
             res["leaves"] = sim.grid.ncells
+        n_full, sim.num_packets = sim.num_packets, B_GEO
         res["breakdown"] = host_per_event(
-            torch, geometric_config(name, "cuda", tmp, num_packets=B_GEO),
-            lambda s: s.run_primary(verbose=False))
+            torch, sim, lambda s: s.run_primary(verbose=False), warm=True)
+        sim.num_packets = n_full
         del sim
     torch.cuda.empty_cache()
     emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
@@ -6805,7 +6894,7 @@ def _run_phase(torch, sim, must, dust: bool):
     t0 = time.perf_counter()
     out, launches = drive(must + DETECT, tuple(
         k for k in SWEEPS + MARCH + MARCH_TREE + MARCH_CURVI + MARCH_AMR
-        + MARCH_POLAR + MARCH_TETRA if k not in must), run)
+        + MARCH_POLAR + MARCH_TETRA + MARCH_CLUMPY if k not in must), run)
     return out, launches, time.perf_counter() - t0
 
 
@@ -6888,7 +6977,7 @@ def phase_full_width_amr(torch, smi: str, name: str = "amr_galaxy") -> dict:
         sim.num_packets = B_GEO
         res["breakdown"] = host_per_event(
             torch, sim, (lambda s: s.run_with_dust_emission(verbose=False))
-            if dust else (lambda s: s.run_primary(verbose=False)))
+            if dust else (lambda s: s.run_primary(verbose=False)), warm=True)
         del sim
     torch.cuda.empty_cache()
     emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
@@ -6986,7 +7075,8 @@ def phase_full_width_sph(torch, smi: str) -> dict:
         res["transparent"] = transparent_gate(torch, sim, L_host.sum())
         sim.num_packets = B_GEO
         res["breakdown"] = host_per_event(
-            torch, sim, lambda s: s.run_with_dust_emission(verbose=False))
+            torch, sim, lambda s: s.run_with_dust_emission(verbose=False),
+            warm=True)
         del sim
     torch.cuda.empty_cache()
     emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
@@ -7042,12 +7132,37 @@ def torus_number() -> float:
     return t["tau_v"] / (sig * col)
 
 
+def clump_file(path, n: int, seed: int = 5, r_lo: float = 0.1,
+               r_hi: float = 0.4) -> str:
+    """n clumps for a ClumpySphericalSpatialGrid (columns x y z radius in
+    pc), drawn from seed: radii uniform in [r_lo, r_hi] pc, centres in the
+    torus's wedge (TORUS: within its opening angle of the equator, at
+    radii from 0.5 pc to 1 pc inside its outer radius, uniform in volume),
+    so that the grid keeps the clumps wholly inside it that overlap no
+    clump before them."""
+    t = TORUS
+    rs = np.random.default_rng(seed)
+    rad = rs.uniform(r_lo, r_hi, n)
+    r = np.cbrt(rs.uniform(0.5 ** 3, (t["rmax"] - 1.0) ** 3, n))
+    lat = np.arcsin(rs.uniform(-1, 1, n) * np.sin(np.radians(t["delta"])))
+    phi = rs.uniform(-np.pi, np.pi, n)
+    xyz = np.stack([r * np.cos(lat) * np.cos(phi), r * np.cos(lat)
+                    * np.sin(phi), r * np.sin(lat)], -1)
+    np.savetxt(str(path), np.column_stack([xyz, rad]), fmt="%.6f")
+    return str(path)
+
+
 def torus_ski(directory, name: str, nr: int = 100, nt: int = 90,
-              npix: int = 64, nlam: int = 40, oligo: bool = False) -> str:
+              npix: int = 64, nlam: int = 40, oligo: bool = False,
+              clumps: int = 0, nphi: int = 32) -> str:
     """The torus (TORUS) as a ski file: ExtinctionOnly over 0.1-3 micron
     (OligoExtinctionOnly at 0.55 micron with oligo), a Sphere2DSpatialGrid
     to 15 pc of nr radial (PowMesh, ratio 50) x nt polar (SymPowMesh, ratio
-    10) bins, two FullInstruments of npix^2 pixels on nlam log bins."""
+    10) bins, two FullInstruments of npix^2 pixels on nlam log bins. With
+    clumps > 0 the grid is a ClumpySphericalSpatialGrid (nphi azimuthal
+    bins, from the centre: a grid with an inner hole has no entry from it
+    for the central source's packets) with that many clumps of clump_file,
+    written beside the ski file."""
     t = TORUS
     norm = ('<normalization type="LuminosityNormalization">'
             '<IntegratedLuminosityNormalization wavelengthRange="Source" '
@@ -7070,6 +7185,19 @@ def torus_ski(directory, name: str, nr: int = 100, nt: int = 90,
         'centerY="0 pc" recordComponents="true" numScatteringLevels="0" '
         'recordPolarization="false" recordStatistics="true"/>')
     mode = "OligoExtinctionOnly" if oligo else "ExtinctionOnly"
+    meshes = (f'<meshRadial type="Mesh"><PowMesh numBins="{nr}" ratio="50"/>'
+              f'</meshRadial><meshPolar type="Mesh"><SymPowMesh numBins='
+              f'"{nt}" ratio="10"/></meshPolar>')
+    if clumps:
+        clump_file(os.path.join(str(directory), f"{name}_clumps.txt"),
+                   clumps)
+        grid = (f'<ClumpySphericalSpatialGrid minRadius="0 pc" maxRadius='
+                f'"{t["rmax"]} pc" filename="{name}_clumps.txt">{meshes}'
+                f'<meshAzimuthal type="Mesh"><LinMesh numBins="{nphi}"/>'
+                '</meshAzimuthal></ClumpySphericalSpatialGrid>')
+    else:
+        grid = (f'<Sphere2DSpatialGrid maxRadius="{t["rmax"]} pc">{meshes}'
+                '</Sphere2DSpatialGrid>')
     text = f"""<?xml version='1.0' encoding='UTF-8'?>
 <skirt-simulation-hierarchy type="MonteCarloSimulation" format="9" producer="chip_smoke">
   <MonteCarloSimulation userLevel="Expert" simulationMode="{mode}" numPackets="{N_GEO}">
@@ -7084,7 +7212,7 @@ def torus_ski(directory, name: str, nr: int = 100, nt: int = 90,
         <materialMix type="MaterialMix"><MeanInterstellarDustMix/></materialMix>
         <normalization type="MaterialNormalization"><NumberMaterialNormalization number="{torus_number():.9e}"/></normalization>
       </GeometricMedium></media>
-      <grid type="SpatialGrid"><Sphere2DSpatialGrid maxRadius="{t['rmax']} pc"><meshRadial type="Mesh"><PowMesh numBins="{nr}" ratio="50"/></meshRadial><meshPolar type="Mesh"><SymPowMesh numBins="{nt}" ratio="10"/></meshPolar></Sphere2DSpatialGrid></grid>
+      <grid type="SpatialGrid">{grid}</grid>
     </MediumSystem></mediumSystem>
     <instrumentSystem type="InstrumentSystem"><InstrumentSystem>{wlg}<instruments type="Instrument">{inst(t["inclinations"][0])}{inst(t["inclinations"][1])}</instruments></InstrumentSystem></instrumentSystem>
   </MonteCarloSimulation>
@@ -7108,7 +7236,10 @@ _SPH3 = dict(grid="sphere3d", nr=64, nz=64, nphi=64, spiral=True, npix=64)
 _CYL3 = dict(grid="cylinder3d", nr=128, nz=64, nphi=64, spiral=True,
              npix=64)
 _TET = dict(grid="tetra", spiral=True, npix=64)
+# voronoi_density on 3 x 10^4 relaxed sites (with 10^5 its set-up took
+# 48-65 s)
 _VOR = dict(grid="voronoi", spiral=True, npix=64, relax=True, emission=True,
+            sites=30_000,
             rf_bins=25)
 _SMALL = dict(npix=16, nlam=12, rf_bins=4, unit="pc")
 MESHES = {
@@ -7137,6 +7268,16 @@ MESHES = {
                                  _SM, False),
     "voronoi_density_small": (galaxy_ski, dict(_VOR, sites=300, **dict(
         _SMALL, rf_bins=4)), dict(_SM, max_events=3), True),
+    # the torus on the clumpy sphere: 100 x 90 x 32 cells and 1,000 clumps
+    # of 0.1-0.4 pc in its wedge (those kept: inside, no overlap), 2^19
+    # packets in batches of 2^16; its central source at 0.55 micron for
+    # the direct-light gate; reduced for the tests
+    "clumpy_torus": (torus_ski, dict(clumps=1000), dict(
+        _FW, num_packets=1 << 19), False),
+    "clumpy_torus_point": (torus_ski, dict(clumps=1000, oligo=True),
+                           dict(_PT, num_packets=1 << 17), False),
+    "clumpy_torus_small": (torus_ski, dict(nr=16, nt=12, nphi=8, npix=16,
+                                           nlam=12, clumps=40), _SM, False),
 }
 # the full-width phases profiled (host_per_event): a polar march and the
 # tetrahedral raster (the others' loops issue the same operations an event
@@ -7149,17 +7290,18 @@ POINT_OF = {"torus_sphere2d": "torus_sphere2d_point",
             "spiral_sphere3d": "spiral_sphere3d_point",
             "spiral_cylinder3d": "spiral_cylinder3d_point",
             "tetra_galaxy_march": "tetra_galaxy_point"}
-# the CPU-against-card bounds of the reduced spheres' scattered light and
-# RF (tests/test_torch_cuda.py's test_march_on_cuda_matches_cpu): their
-# lanes part by an ulp before any step of this section (the
-# launch and scattering directions' f32 sine and cosine differ between
-# PyTorch's CPU and CUDA code, as they differ from the reference's), and
-# the spheres' small polar cells amplify a moved scattering; measured on
-# the card 4.0e-5 (the torus's scattered SED) and 1.4e-2 (the 3D sphere's
-# RF), the same gaps as against the reference (tests/test_torch_polar.py
-# BOUNDS); every other quantity of every case within MARCH_BOUNDS
-MESH_BOUNDS = {"torus_sphere2d_small": {"sed2": 2e-4},
-               "spiral_sphere3d_small": {"sed2": 2e-3, "rf": 5e-2}}
+# the CPU-against-card bounds of tests/test_torch_cuda.py's
+# test_march_on_cuda_matches_cpu beyond MARCH_BOUNDS: the launch and
+# scattering directions are the same bits on both (xlamath.sincos), but
+# PyTorch's CPU and CUDA log and exp part by an ulp here and there, and
+# that moves an interaction point; the 3D sphere's small polar cells
+# amplify a moved scattering in its RF per cell (measured on the card 8.6e-4,
+# 1.4e-2 before the directions were exact; the torus's scattered SED 9.2e-7,
+# 4.0e-5 before), and on the clumpy sphere a ray that grazes a clump or
+# stalls on a radial ray (ROADMAP.md queue C) turns on the last ulp of its
+# start (its scattered SED 1.9e-2)
+MESH_BOUNDS = {"spiral_sphere3d_small": {"rf": 2e-3},
+               "clumpy_torus_small": {"sed2": 5e-2}}
 # draw_for_draw_meshes: a raster with dust emission (kernels 4-5 CPU
 # against card) and march_tetra; the polar marches' and the tetrahedral
 # raster's CPU-against-card runs are tests/test_torch_cuda.py's
@@ -7219,6 +7361,25 @@ def walk_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
         return float((np.where(outside, 0.0, np.clip(t_out - t_in, 0, None))
                       * kappa).sum())
     phi = math.atan2(k[1], k[0])
+    if name == "ClumpySphericalGrid":
+        # the clumps' chords of the ray, then the shells of its (polar,
+        # azimuthal) bin less the lengths inside clumps
+        sph, nc = g.sph, g.n_clumps
+        cen, rad = host(g.ccen), host(g.crad)
+        rb = host(sph.rb)
+        b = cen @ k
+        disc = b * b - ((cen * cen).sum(1) - rad * rad)
+        sq = np.sqrt(np.clip(disc, 0.0, None))
+        t0 = np.clip(b - sq, 0.0, rb[-1])
+        t1 = np.clip(b + sq, 0.0, rb[-1])
+        hit = (disc > 0) & (t1 > t0)
+        tau = float(((t1 - t0)[hit] * kappa[:nc][hit]).sum())
+        cells = (np.arange(sph.nr) * sph.nt + bin_of(sph.tb, math.atan2(
+            math.hypot(k[0], k[1]), k[2]))) * sph.nphi + bin_of(sph.pb, phi)
+        lo, hi = rb[:-1], rb[1:]
+        inside = sum(np.clip(np.minimum(hi, b1) - np.maximum(lo, a1), 0.0,
+                             None) for a1, b1 in zip(t0[hit], t1[hit]))
+        return tau + float(((hi - lo - inside) * kappa[nc + cells]).sum())
     if name == "Cylinder3DGrid":
         require(abs(k[2]) == 1.0, "walk_tau: a face-on cylinder")
         zb = host(g.zb)
@@ -7254,11 +7415,12 @@ def mass_gate(sim, number: float, bound: float, what: str) -> dict:
 # the bound of the mass gate: the reference's deviation of the dust on the
 # grid from the normalization at each full-width set-up, measured on the
 # CPU (its load_ski; PERF.md section 4), rounded up in the third digit:
-# +1.92%, -7.47%, -6.76%, -4.45%, -0.236% (the galaxy's dust past 25 kpc
-# is off the grid; cell-averaged densities on cones and tetrahedra)
+# +1.92%, -7.47%, -6.76%, -4.45%, +2.41% (the galaxy's dust past 25 kpc
+# is off the grid; cell-averaged densities on cones, tetrahedra and
+# Voronoi cells: -0.236% on 10^5 relaxed sites, +2.41% on 3 x 10^4)
 MASS_BOUNDS = {"torus_sphere2d": 0.0193, "spiral_sphere3d": 0.0748,
                "spiral_cylinder3d": 0.0676, "tetra_galaxy": 0.0446,
-               "voronoi_density": 0.00237}
+               "voronoi_density": 0.0242}
 
 
 # the configurations loaded on the card, with their set-up seconds: the
@@ -7433,8 +7595,11 @@ def phase_full_width_mesh(torch, smi: str, name: str) -> dict:
            "setup_s": setup, "max_steps": sim.options.max_steps}
     if sim._sweep_tabs is not None:
         res["raster"] = list(sim._sweep_tabs.n)
+    if mode == "march_clumpy":
+        res["clumps_retained"] = sim.grid.n_clumps
     base = name.replace("_march", "")
-    number = torus_number() if base.startswith("torus") else \
+    torus = "torus" in base
+    number = torus_number() if torus else \
         dust_disk_number(MESHES[name][1].get("unit", "kpc"))
     res.update(mass_gate(sim, number, MASS_BOUNDS[base], name))
     if mode == "march_tetra":
@@ -7458,7 +7623,7 @@ def phase_full_width_mesh(torch, smi: str, name: str) -> dict:
         paths = [p for p in sim.write_outputs(accs, name, tmp)
                  if p.endswith("_sed.dat")]
         cols = [np.loadtxt(p) for p in paths]
-    if base.startswith("torus"):
+    if torus:
         res.update(torus_gates(sim, {"transparent": cols[0][:, 2]}))
     else:
         res.update(blackbody_mix_gates(sim, {"transparent": cols[0][:, 2]}))
@@ -7478,18 +7643,245 @@ def phase_full_width_mesh(torch, smi: str, name: str) -> dict:
     if pt is not None:
         psim, _ = _mesh_sim(pt)
         res["point_source"] = direct_gate(
-            torch, psim, pt, inst=1 if base.startswith("torus") else 0)
+            torch, psim, pt, inst=1 if torus else 0)
         del _MESH_SIMS[pt], psim
     if name in BREAKDOWN_OF:
         sim.num_packets = sim.batch_size
         res["breakdown"] = host_per_event(
             torch, sim, (lambda s: s.run_with_dust_emission(verbose=False))
-            if dust else (lambda s: s.run_primary(verbose=False)))
+            if dust else (lambda s: s.run_primary(verbose=False)), warm=True)
         sim.num_packets = n_full
     del sim
     torch.cuda.empty_cache()
     emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
     return launches, res.get("point_source", {}).get("launch_counts")
+
+
+# ----------------------------------------------- the clumpy sphere, DP
+# The torus on a ClumpySphericalSpatialGrid (the march kernel's mode
+# march_clumpy: a Sphere3D step plus a loop over the clump table), the
+# Ivezic shell with dust emission on the 1D sphere, and packet data
+# parallelism (parallel/dp.py) through the CLI and two ranks on one card.
+MARCH_CLUMPY = ("march_clumpy",)
+# f32 operations per walked (step, lane): march_sphere3d's step and
+# relocation, and per clump its crossing (the offset, two fused dot
+# products, the discriminant, the root, both roots, the tests: 20) and in
+# the relocation its point test (8)
+OPS_MARCH.update(march_clumpy=OPS_MARCH["march_sphere3d"])
+OPS_CLUMP = 28
+MODES_OF.update(ClumpySphericalGrid="march_clumpy")
+POINT_OF["clumpy_torus"] = "clumpy_torus_point"
+# the reference's deviation of the dust on the clumpy torus's grid from the
+# normalization (tests/reference_mass.py: -0.409237%, rounded up in the third
+# digit)
+MASS_BOUNDS["clumpy_torus"] = 0.00410
+
+
+def phase_kernels_sincos(torch) -> dict:
+    """glibc's sinf and cosf (csrc/sincos.cu) against the plain version
+    (ops/xlamath.py `sincos_plain`) on the same CUDA tensor, bit for bit:
+    config 1's launch azimuths (2^17 lanes, 2 pi times a uniform) with the
+    edge values of every branch and arguments past 120. Timed by CUDA
+    events and the profiler; the bound from its bytes (4 in, 8 out a
+    value; its ~40 f64 operations a value have no rate in the published
+    table of the measurement guide)."""
+    from skirt9_tpu_torch.kernels import build as kb
+    from skirt9_tpu_torch.ops import xlamath as xm
+    rs = np.random.default_rng(47)
+    edges = np.array([0.0, -0.0, 1e-40, 2.0 ** -12, 0.75, 119.99, 120.0,
+                      -3 * math.pi, 1e6], np.float32)
+    x = torch.tensor(np.concatenate([
+        (rs.random(B_FULL) * 2 * math.pi).astype(np.float32), edges]),
+        device="cuda")
+    kb.reset_launches()
+    s, c = xm.sincos(x)
+    require(kb.LAUNCHES["sincos"] == 1, "sincos launched once")
+    ps, pc = xm.sincos_plain(x)
+    same = bool(torch.equal(s.view(torch.int32), ps.view(torch.int32))
+                and torch.equal(c.view(torch.int32), pc.view(torch.int32)))
+    require(same, "sincos bit for bit its plain version")
+    kern = lambda: xm.sincos(x)
+    dev = device_ms(kern)
+    out = {"sincos": dict(
+        max_abs_err=float(max((s - ps).abs().max(), (c - pc).abs().max())),
+        lanes=x.numel(), ms=cuda_ms(kern), device_ms=dev["ours"] or None,
+        profiler_dropped=dev["ours"] == 0, plain_ms=cuda_ms(
+            lambda: xm.sincos_plain(x), reps=5),
+        plain_device_launches=device_ms(lambda: xm.sincos_plain(x),
+                                        reps=3)["launches"],
+        library_ms=None, **bound(12 * x.numel(), 0.0))}
+    emit({"phase": "kernels_sincos", **out})
+    return out
+
+
+def phase_kernels_march_clumpy(torch) -> dict:
+    """march_clumpy against its plain version, cells and lengths bit for
+    bit (_march_check): at clumpy_torus's first event (2^16 lanes, 100 x 90
+    x 32 cells and its retained clumps, staged in shared memory beside the
+    sphere's tables) and on 64 steps of seeded rays through a sphere with
+    ~6,000 clumps (past 48 KB: the clumps through the read-only cache)."""
+    from skirt9_tpu_torch.grids import clumpy
+    sim, setup = _mesh_sim("clumpy_torus")
+    pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_GEO)
+    out = {"march_clumpy": dict(_march_check(
+        torch, "march_clumpy", sim.grid, pos, dirn, cell,
+        sim.options.max_steps, alive), cells=sim.grid.ncells,
+        shift=sim.grid.shift, setup_s=setup)}
+    del pos, dirn, cell, alive
+    rs = np.random.default_rng(43)
+    R = TORUS["rmax"] * PC
+    cen = rs.uniform(-0.85 * R, 0.85 * R, (6000, 3))
+    g = clumpy.make_clumpy_spherical(R, 40, 24, 16, cen,
+                                     rs.uniform(0.004, 0.008, 6000) * R,
+                                     overlap_samples=200,
+                                     device=sim.device).to(sim.device)
+    require(4 * g.n_clumps > 12 * 1024, "the clump table past 48 KB")
+    B = 1 << 11
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32),
+                                 device=sim.device)
+    d = rs.normal(size=(B, 3))
+    p, c, _ = g.move_inside(t32(rs.uniform(-1.2 * R, 1.2 * R, (B, 3))),
+                            t32(d / np.linalg.norm(d, axis=1, keepdims=True)))
+    d = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    out["march_clumpy_global"] = dict(_march_check(
+        torch, "march_clumpy", g, p, d, c, 64, c >= 0), clumps=g.n_clumps)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_march_clumpy", **out})
+    return out
+
+
+def phase_full_width_ivezic_dust(torch, smi: str) -> dict:
+    """The Ivezic shell with dust emission (ivezic_dust: 40 shells, a
+    25-bin RF, 25 emission bins) on the 1D sphere at 2^19 packets in
+    batches of 2^16, timed after a one-batch warm-up: march_sphere1d and
+    detect launched, no other; gated: L_dust = L_abs_primary within 1e-4,
+    the secondary light lit, R < 0.01 where the SED is lit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = geometric_config("ivezic_dust", "cuda", tmp,
+                               num_packets=1 << 19)
+        require(sim.ems_borders is not None and sim._sweep_tabs is None,
+                "ivezic_dust: dust emission on the march")
+        n_full = sim.num_packets
+        sim.num_packets = sim.batch_size
+        sim.run_with_dust_emission(verbose=False)
+        sim.num_packets = n_full
+        out, launches, dt = _run_phase(torch, sim, ("march_sphere1d",), True)
+        rf, accs, info = out
+        e = abs(info["L_dust"] / info["L_abs_primary"] - 1)
+        require(e <= 1e-4, f"ivezic_dust: L_dust / L_abs_primary - 1 {e}")
+        paths = [p for p in sim.write_outputs(accs, "ivezic_dust", tmp)
+                 if p.endswith("_sed.dat")]
+        cols = np.loadtxt(paths[0])
+    lit = cols[:, 1] > 1e-2 * cols[:, 1].max()
+    require(float(cols[lit, 7].max()) < 0.01, "ivezic_dust: SED R < 0.01")
+    from skirt9_tpu_torch.instruments import distant as dinst
+    sec = float(accs[0]["sed"][dinst.KIND_SECONDARY_DIRECT].sum())
+    require(sec > 0, "ivezic_dust: the secondary light reaches i0")
+    res = {"phase": "full_width_ivezic_dust", "cells": sim.grid.ncells,
+           "packets": n_full, "batch": sim.batch_size, "seconds": dt,
+           "packets_per_s": n_full / dt,
+           "segments": [x[0] for x in sim.last_stats["segments"]],
+           "launches": {k: v for k, v in launches.items() if v},
+           "L_dust": info["L_dust"], "L_abs_primary": info["L_abs_primary"],
+           "L_dust_rel_err": e, "R_max": float(cols[lit, 7].max()),
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    del sim
+    torch.cuda.empty_cache()
+    emit(res)
+    return launches
+
+
+def _dp_rank(group, out: str, n_packets: int) -> None:
+    """One rank of phase_dp's two-rank run: config 1 at full width on the
+    rank's device, its histories shared with the other rank; rank 0 saves
+    the accumulators and the ranks' seconds."""
+    import torch
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "skirt9_tpu"))
+    require(not bad, f"rank {group.rank} imported {bad[:3]}")
+    sim = config1(group.device, num_packets=n_packets)
+    sim.group = group
+    sim.num_packets = sim.batch_size * group.size
+    sim.run_primary(verbose=False)                    # warm-up
+    sim.num_packets = n_packets
+    torch.cuda.synchronize()
+    group.barrier()
+    t0 = time.perf_counter()
+    _, accs = sim.run_primary(verbose=False)
+    torch.cuda.synchronize()
+    dt = torch.tensor([time.perf_counter() - t0], dtype=torch.float64)
+    group.all_reduce([dt])                              # the ranks' sum
+    if group.writes:
+        np.savez(out, seconds=float(dt) / group.size,
+                 **{k: v.cpu().numpy() for k, v in accs[0].items()})
+
+
+def phase_dp(torch, smi: str) -> dict:
+    """Packet data parallelism (parallel/dp.py). bench1.ski (2^18 packets)
+    through the CLI with -d 1 (one NCCL rank) against the run without -d:
+    every SED column within 1e-5 of its maximum (the detect kernel's f32
+    atomics add in an order that varies from run to run, so no two runs on
+    the card are equal byte for byte).
+    Config 1 at full width on two
+    ranks sharing cuda:0 over gloo (the partials' all_reduce on host
+    copies, once per segment) against one process: every SED kind within
+    1e-5 and every frame within 1e-4 of its maximum (f32 sums of up to 2^20
+    terms in another order); the packets/s of both."""
+    import chip_smoke as cs
+    from skirt9_tpu_torch.parallel import dp
+    res = {"phase": "dp"}
+    golden = os.path.join(GOLDEN, "bench1.ski")
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, seds = {}, {}
+        for key, extra in (("plain", []), ("d1", ["-d", "1"])):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "skirt9_tpu_torch", golden, "-o",
+                 os.path.join(tmp, key), "-p", str(1 << 18), *extra],
+                capture_output=True, text=True, timeout=300,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            require(r.returncode == 0, f"dp: the CLI {key}: {r.stderr[-800:]}")
+            runs[key] = time.perf_counter() - t0
+            seds[key] = np.loadtxt(os.path.join(tmp, key,
+                                                "bench1_i0_sed.dat"))
+        g1 = float((np.abs(seds["d1"] - seds["plain"]).max(axis=0)
+                    / np.abs(seds["plain"]).max(axis=0).clip(1e-300)).max())
+        require(g1 <= 1e-5, f"dp: -d 1 against the run without -d ({g1})")
+        res["cli"] = dict(seconds=runs, packets=1 << 18, sed_gap_d1=g1)
+        n = 1 << 20
+        sim = config1("cuda", num_packets=n)
+        sim.run_primary(verbose=False)                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, accs = sim.run_primary(verbose=False)
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t0
+        del sim
+        torch.cuda.empty_cache()
+        out = os.path.join(tmp, "two.npz")
+        dp.spawn(cs._dp_rank, 2, args=(out, n), device="cuda:0",
+                 backend="gloo")
+        two = np.load(out)
+        gaps = {}
+        for key in ("sed", "frame"):
+            a = accs[0][key].double().cpu().numpy()
+            for k in range(a.shape[0]):
+                m = np.abs(a[k]).max()
+                if m > 0:
+                    gaps[f"{key}{k}"] = float(np.abs(two[key][k] - a[k]).max()
+                                              / m)
+        # f32 sums of up to 2^20 terms a frame pixel (the central source's),
+        # added in another order: ~1e-4 apart (measured 4.4e-5)
+        far = {k: v for k, v in gaps.items()
+               if v > (1e-4 if k.startswith("frame") else 1e-5)}
+        require(not far, f"dp: two ranks against one within 1e-5 (SEDs) "
+                f"and 1e-4 (frames) ({gaps})")
+        res["two_ranks_shared_card"] = dict(
+            packets=n, gaps=gaps, packets_per_s_one=n / one,
+            packets_per_s_two=n / float(two["seconds"]), seconds_one=one,
+            seconds_two=float(two["seconds"]), backend="gloo")
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
+    return res
 
 
 def main() -> int:
@@ -7508,6 +7900,8 @@ def main() -> int:
     kern_march.update(phase_kernels_march_curvi(torch))
     kern_march.update(phase_kernels_march_amr(torch))
     kern_march.update(phase_kernels_march_polar(torch))
+    kern_march.update(phase_kernels_march_clumpy(torch))
+    kern_sincos = phase_kernels_sincos(torch)
     kern_mesh = phase_kernels_march_tetra(torch)
     kern_march["march_tetra"] = kern_mesh["march_tetra"]
     kern_b5_tree = phase_kernels_b5_tree(torch)
@@ -7633,12 +8027,15 @@ def main() -> int:
     launches_mesh_small = phase_draw_for_draw_meshes(torch)
     launches_mesh, point_launches = {}, {}
     for name in ("torus_sphere2d", "spiral_sphere3d", "spiral_cylinder3d",
-                 "tetra_galaxy", "tetra_galaxy_march", "voronoi_density"):
+                 "tetra_galaxy", "tetra_galaxy_march", "voronoi_density",
+                 "clumpy_torus"):
         launches_mesh[name], point_launches[name] = phase_full_width_mesh(
             torch, smi, name)
         torch.cuda.empty_cache()
     _MESH_SIMS.clear()
     torch.cuda.empty_cache()
+    launches_ivezic_dust = phase_full_width_ivezic_dust(torch, smi)
+    phase_dp(torch, smi)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -7968,6 +8365,38 @@ def main() -> int:
                      "launches_draw_for_draw_meshes": {
                          case: n[name] for case, n in
                          launches_mesh_small.items() if name in n}})
+    # the clumpy sphere's mode on clumpy_torus's full-width run, held bit
+    # for bit at its first event and on 4,000 clumps (kernels_march_clumpy)
+    k = kern_march["march_clumpy"]
+    rows.append({"name": "march_clumpy", "route": "cuda",
+                 "source": "skirt9_tpu_torch/csrc/march.cu",
+                 "replaces": "skirt9_tpu/transport/lifecycle.py:132 "
+                 "(march_geometry over skirt9_tpu/grids/clumpy.py:80 "
+                 "ClumpySphericalGrid.step, an XLA scan: not a TPU kernel)",
+                 "path": "full_width_clumpy_torus",
+                 "launches": launches_mesh["clumpy_torus"]["march_clumpy"],
+                 **{key: k[key] for key in tree_keys + (
+                     "cells", "clumps", "ds_sum_rel_err") if key in k},
+                 "launches_point_source": (point_launches["clumpy_torus"]
+                                           or {}).get("march_clumpy", 0),
+                 "clumps_past_48kb": {key: v for key, v in kern_march[
+                     "march_clumpy_global"].items()
+                     if key in tree_keys + ("clumps",)}})
+    row = next(r for r in rows if r["name"] == "march_sphere1d")
+    row["launches_full_width_ivezic_dust"] = launches_ivezic_dust[
+        "march_sphere1d"]
+    # glibc's sinf and cosf of every launch and scattering direction
+    k = kern_sincos["sincos"]
+    rows.append({"name": "sincos", "route": "cuda",
+                 "source": "skirt9_tpu_torch/csrc/sincos.cu",
+                 "replaces": "skirt9_tpu/ops/rng.py:100 and skirt9_tpu/ops/"
+                 "phase.py:67-68 (jnp.cos, jnp.sin: XLA's calls of glibc's "
+                 "cosf and sinf, not a TPU kernel)",
+                 "path": "full_width", "launches": launches["sincos"],
+                 **{key: k[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "device_ms", "profiler_dropped",
+                     "plain_device_launches")}})
     for name in ("sweepxl_dtau_prefix", "sweepxl_deposit_prefix"):
         # kernels 6-7 on amr_galaxy's 256^3 voxel raster (kernels_amr,
         # with its one XL batch's launches)

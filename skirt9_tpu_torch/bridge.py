@@ -32,6 +32,7 @@ from .grids.bintree import BinTreeGrid
 from .geometries import analytic, axial, decorators, imported
 from .grids.amr import AMRGrid
 from .grids.cartesian import CartesianGrid, UniformCartesianGrid
+from .grids.clumpy import ClumpySphericalGrid
 from .grids.cylinder import Cylinder2DGrid
 from .grids.octree import OctreeGrid
 from .grids import polar
@@ -95,6 +96,15 @@ def grid(ref_grid):
             f: int(getattr(ref_grid, f)) if f == "walk_steps" else
             torch.tensor(np.asarray(getattr(ref_grid, f)))
             for f in cls._fields})
+    if name == "ClumpySphericalGrid":
+        # the sphere beneath, the retained clumps and the set-up volumes
+        # as the reference holds them
+        sph = polar.make_sphere3d(0.0, 0, 0, len(ref_grid.pb) - 1, **{
+            f: np.asarray(getattr(ref_grid, f)) for f in ("rb", "tb", "pb")})
+        return ClumpySphericalGrid(
+            sph=sph, ccen=torch.tensor(np.asarray(ref_grid.ccen)),
+            crad=torch.tensor(np.asarray(ref_grid.crad)),
+            vols=torch.tensor(np.asarray(ref_grid.vols_np, np.float64)))
     if name in ("Sphere2DGrid", "Sphere3DGrid", "Cylinder3DGrid"):
         # the border tables as they are; the port tabulates their cosines
         # and sines

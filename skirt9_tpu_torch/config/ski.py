@@ -27,13 +27,16 @@ logarithmic, symmetric logarithmic, symmetric cosine, tabulated, list and
 file meshes, which the scan march walks), the 1D sphere and the 2D
 cylinder (`Sphere1DSpatialGrid`, `Cylinder2DSpatialGrid`, on the march),
 the polar grids (`Sphere2DSpatialGrid`, `Sphere3DSpatialGrid`,
-`Cylinder3DSpatialGrid`, on the march), standalone Voronoi and
+`Cylinder3DSpatialGrid`, on the march), the clumpy sphere
+(`ClumpySphericalSpatialGrid`, its clumps from a text file, on the
+march), standalone Voronoi and
 tetrahedral meshes (`VoronoiMeshSpatialGrid`, `TetraMeshSpatialGrid`)
 with the DustDensity and Uniform site policies and Lloyd relaxation,
 and density-policy octrees and bintrees
 (`PolicyTreeSpatialGrid` with a `DensityTreePolicy`), full and SED
 instruments (with polarization) on logarithmic or linear wavelength grids,
-equilibrium dust emission over all cells with the iteration options, and
+equilibrium dust emission over all cells with the iteration options (on
+the 1D sphere too, its shells launched in their bounding cubes), and
 the temperature, radiation-field and cell-properties probes. This is what
 the golden ski files bench1, bench1h, bench2, bench3, bench4, bench5,
 bench6 and bench7 use. Every item type outside `ITEMS`, and every property
@@ -56,6 +59,7 @@ import xml.etree.ElementTree as ET
 import numpy as np
 import torch
 
+from .. import device as dv
 from ..geometries import analytic as ga
 from ..geometries import axial as gax
 from ..geometries import decorators as dec
@@ -65,9 +69,10 @@ from ..grids import bintree, octree
 from ..grids.amr import build_amr
 from ..grids import meshes as msh
 from ..grids.cartesian import make_cartesian
+from ..grids.clumpy import ClumpySphericalGrid, make_clumpy_spherical
 from ..grids import polar
 from ..grids.cylinder import Cylinder2DGrid, make_cylinder2d
-from ..grids.sphere import Sphere1DGrid, make_sphere1d
+from ..grids.sphere import make_sphere1d
 from ..grids.tetra import TetraGrid, build_tetra
 from ..grids.voronoi import build_voronoi, density_sites, lloyd_relax
 from ..imports import snapshots as snap
@@ -133,7 +138,7 @@ ITEMS = frozenset((
     # the polar grids and the tetrahedral mesh (the unstructured grids' site
     # policies DustDensity and Uniform on VoronoiMeshSpatialGrid too)
     "Sphere2DSpatialGrid", "Sphere3DSpatialGrid", "Cylinder3DSpatialGrid",
-    "TetraMeshSpatialGrid",
+    "TetraMeshSpatialGrid", "ClumpySphericalSpatialGrid",
     # imported snapshots: AMR meshes, particle and cell media, the mesh and
     # cell sources with their SED families, the imported geometries
     "AdaptiveMeshMedium", "AdaptiveMeshSpatialGrid", "ParticleMedium",
@@ -995,7 +1000,7 @@ def _extent(a) -> tuple:
                  for x in "XYZ")
 
 
-def build_grid(el, geometry, base_dir: str = "."):
+def build_grid(el, geometry, base_dir: str = ".", device="cpu"):
     """A CartesianSpatialGrid (32 linear bins where a mesh is absent; a
     `CartesianGrid` with the reference's borders, `grids.meshes.from_ski`,
     where any mesh is not a LinMesh, as the reference's
@@ -1010,8 +1015,8 @@ def build_grid(el, geometry, base_dir: str = "."):
     a = el.attrib
     if el.tag in ("Sphere1DSpatialGrid", "Cylinder2DSpatialGrid",
                   "Sphere2DSpatialGrid", "Sphere3DSpatialGrid",
-                  "Cylinder3DSpatialGrid"):
-        return build_curvilinear_grid(el, base_dir)
+                  "Cylinder3DSpatialGrid", "ClumpySphericalSpatialGrid"):
+        return build_curvilinear_grid(el, base_dir, device)
     if el.tag in ("VoronoiMeshSpatialGrid", "TetraMeshSpatialGrid"):
         return build_site_grid(el, geometry)
     if el.tag == "AdaptiveMeshSpatialGrid":
@@ -1090,12 +1095,15 @@ def _grid_mesh(el, name: str, lo: float, hi: float, base_dir: str,
                         hi)
 
 
-def build_curvilinear_grid(el, base_dir: str = "."):
+def build_curvilinear_grid(el, base_dir: str = ".", device="cpu"):
     """A Sphere1DSpatialGrid, Cylinder2DSpatialGrid, Sphere2DSpatialGrid,
-    Sphere3DSpatialGrid or Cylinder3DSpatialGrid with its radial, polar
-    and z meshes (32 radial and z bins, 16 polar and azimuthal ones where
-    a mesh is absent; the azimuthal mesh is always linear, its bin count
-    read), as `skirt9_tpu/config/ski.py:1338-1394` builds them."""
+    Sphere3DSpatialGrid, Cylinder3DSpatialGrid or
+    ClumpySphericalSpatialGrid with its radial, polar and z meshes (32
+    radial and z bins, 16 polar and azimuthal ones where a mesh is absent;
+    the azimuthal mesh is always linear, its bin count read), as
+    `skirt9_tpu/config/ski.py:1338-1394` builds them; a clumpy sphere's
+    set-up locates its overlap samples on device (the grid is built on
+    the CPU)."""
     a = el.attrib
     mesh = lambda name, lo, hi, default=32: _grid_mesh(el, name, lo, hi,
                                                        base_dir, default)
@@ -1104,8 +1112,18 @@ def build_curvilinear_grid(el, base_dir: str = "."):
         r_min = _q(a, "minRadius", "length") if "minRadius" in a else 0.0
         nr, rb = mesh("meshRadial", r_min, r_max)
         return make_sphere1d(r_max, nr, r_min=r_min, rb=rb)
-    nr, rb = mesh("meshRadial", 0.0, r_max)
     nphi = mesh("meshAzimuthal", -np.pi, np.pi, 16)[0]
+    if el.tag == "ClumpySphericalSpatialGrid":
+        # a Sphere3D grid and the clumps of a text file: columns x y z radius
+        # in pc, extra columns ignored (`skirt9_tpu/config/ski.py:1361-1378`)
+        r_min = _q(a, "minRadius", "length") if "minRadius" in a else 0.0
+        nr, rb = mesh("meshRadial", r_min, r_max)
+        nt, tb = mesh("meshPolar", 0.0, np.pi, 16)
+        d = np.loadtxt(_resolve(a["filename"], base_dir), ndmin=2)
+        return make_clumpy_spherical(r_max, nr, nt, nphi, d[:, :3] * _PC,
+                                     d[:, 3] * _PC, r_min=r_min, rb=rb,
+                                     tb=tb, device=dv.resolve(device))
+    nr, rb = mesh("meshRadial", 0.0, r_max)
     if el.tag.startswith("Sphere"):
         nt, tb = mesh("meshPolar", 0.0, np.pi, 16)
         if el.tag == "Sphere2DSpatialGrid":
@@ -1178,9 +1196,13 @@ def build_probes(mcs) -> list[ProbeSpec]:
 
 def load_ski(path: str, num_packets: int | None = None,
              batch_size: int = 16384, seed: int = 0, max_events: int = 64,
-             device="cuda") -> Simulation:
+             device="cuda", group=None) -> Simulation:
     """Parse a .ski file into a runnable Simulation on `device` (the
-    reference's `load_ski` flow, `skirt9_tpu/config/ski.py:1659`)."""
+    reference's `load_ski` flow, `skirt9_tpu/config/ski.py:1659`); group:
+    this rank's `parallel.dp.Group` under packet data parallelism, whose
+    device the simulation takes."""
+    if group is not None:
+        device = group.device
     base_dir = os.path.dirname(os.path.abspath(path))
     root = ET.parse(path).getroot()
     mcs = root.find("MonteCarloSimulation")
@@ -1263,11 +1285,11 @@ def load_ski(path: str, num_packets: int | None = None,
                                build_mix(_child(m_el, "materialMix"),
                                          base_dir),
                                build_medium_normalization(m_el)))
-        grid = build_grid(grid_el, components[0][0], base_dir)
+        grid = build_grid(grid_el, components[0][0], base_dir, device)
         medium = gm.build_medium(grid, components)
     if mode == "DustEmission" and isinstance(grid, (
-            Sphere1DGrid, Cylinder2DGrid, polar.Sphere2DGrid,
-            polar.Sphere3DGrid, polar.Cylinder3DGrid, TetraGrid)):
+            Cylinder2DGrid, polar.Sphere2DGrid, polar.Sphere3DGrid,
+            polar.Cylinder3DGrid, TetraGrid, ClumpySphericalGrid)):
         # the reference's fails on these grids (no cell bounds)
         raise NotImplementedError(
             f"DustEmission on a {grid_el.tag} not ported yet")
@@ -1399,4 +1421,4 @@ def load_ski(path: str, num_packets: int | None = None,
         cmb_temperature=cmb_temperature,
         units=unitsystem.from_ski(_child(mcs, "units")), cosmology=cos,
         probes=build_probes(mcs), mueller=mueller, xray_tabs=xray_tabs,
-        device=device)
+        device=device, group=group)

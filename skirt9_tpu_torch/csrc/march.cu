@@ -6,7 +6,7 @@
 // which is not a Pallas kernel: the plain PyTorch version
 // (skirt9_tpu_torch/transport/march.py `march_geometry_plain`) is one torch
 // step per step, about 30 launches each, times up to 256 steps, times three
-// marches an event. Eight modes, one per grid kind, each with its own launch
+// marches an event. One mode per grid kind, each with its own launch
 // counter:
 //   march_uniform  a uniform Cartesian grid: the next border of each axis is
 //                  lo + index * h (UniformCartesianGrid.step,
@@ -54,12 +54,18 @@
 //   march_cylinder3d annuli x half-planes x z slabs: the two cylinders, the
 //                  two half-planes and the z plane, then the relocation
 //                  (Cylinder3DGrid.step, polar.py:386-423).
+//   march_clumpy   the clumpy sphere: march_sphere3d's step from the
+//                  structured cell, cut at the first clump entry ahead, or
+//                  out of a clump through its far crossing, then the
+//                  relocation among the clumps first (ClumpySphericalGrid.
+//                  step, skirt9_tpu/grids/clumpy.py:80-97).
 // The two tree modes have their own entry point, march_tree_launch, the
 // two curvilinear ones theirs, march_curvi_launch, with the border tables
 // staged in shared memory (a few hundred floats), the adaptive mesh its
 // own, march_amr_launch, the tetrahedral mesh march_tetra_launch, and the
 // three polar modes march_polar_launch, their border tables and the
-// tabulated cosines and sines of their angles staged in shared memory. A
+// tabulated cosines and sines of their angles staged in shared memory, the
+// clumpy sphere march_clumpy_launch, its clump table staged beside them. A
 // polar step locates with the C library's atan2f (glibc's, the function
 // XLA's CPU code calls, and the plain version's `ops/xlamath.atan2`),
 // written out here operation for operation.
@@ -74,6 +80,8 @@
 namespace skirt9 {
 
 constexpr float kBig = 3e38f;
+// a missed clump's crossings (the reference's _BIG of grids/clumpy.py)
+constexpr float kClumpBig = 1e30f;
 constexpr int kThreads = 128;
 constexpr int kSmemFloats = 48 * 1024 / 4;
 
@@ -772,12 +780,12 @@ __device__ __forceinline__ float halfplane_cross(const float p[3],
   return t > eta && on_half ? t : kBig;
 }
 
-// One polar step from cell c in scaled lengths: ds, the position moved to
-// p + ds dir, and the cell located at p + (ds + eta) dir.
+// The length of one polar step from cell c in scaled lengths: the least
+// crossing of the cell's bounding surfaces.
 template <int kKind>
-__device__ __forceinline__ Step polar_step(int c, const PolarTabs& g,
-                                           float eta, float p[3],
-                                           const float d[3]) {
+__device__ __forceinline__ float polar_length(int c, const PolarTabs& g,
+                                              float eta, const float p[3],
+                                              const float d[3]) {
   float ds;
   if (kKind == 2) {
     const int iz = c % g.nz, ip = (c / g.nz) % g.nphi,
@@ -841,12 +849,29 @@ __device__ __forceinline__ Step polar_step(int c, const PolarTabs& g,
       ds = fminf(ds, fminf(t_p0, t_p1));
     }
   }
+  return ds;
+}
+
+// The position moved to p + ds dir, and q = p + (ds + eta) dir, where the
+// next cell is located.
+__device__ __forceinline__ void relocate(float ds, float eta, float p[3],
+                                         const float d[3], float q[3]) {
   const float ahead = ds + eta;
-  float q[3];
   for (int a = 0; a < 3; ++a) {
     q[a] = fmaf(ahead, d[a], p[a]);
     p[a] = fmaf(ds, d[a], p[a]);
   }
+}
+
+// One polar step from cell c in scaled lengths: ds, the position moved to
+// p + ds dir, and the cell located at p + (ds + eta) dir.
+template <int kKind>
+__device__ __forceinline__ Step polar_step(int c, const PolarTabs& g,
+                                           float eta, float p[3],
+                                           const float d[3]) {
+  const float ds = polar_length<kKind>(c, g, eta, p, d);
+  float q[3];
+  relocate(ds, eta, p, d, q);
   return {ds, polar_locate<kKind>(g, q)};
 }
 
@@ -903,6 +928,126 @@ __global__ void march_polar_kernel(
     cells[at] = c;
     dss[at] = st.ds >= kBig ? st.ds : st.ds * unscale;
     c = st.next;
+  }
+}
+
+
+// The clumps' ray crossings and point test, clump k's centre and radius at
+// cl[4k .. 4k+3] (scaled lengths), as grids/clumpy.py forms them: rel . dir
+// and rel . rel running sums with each product fused, b^2 - c0 fused.
+struct Crossing {
+  float t0, t1;
+};
+
+// A clump table entry: from shared memory, or from global memory through the
+// read-only cache.
+template <bool kLdg>
+__device__ __forceinline__ float clump_at(const float* cl, int i) {
+  return kLdg ? __ldg(cl + i) : cl[i];
+}
+
+template <bool kLdg>
+__device__ __forceinline__ Crossing clump_crossing(const float* cl,
+                                                   const float p[3],
+                                                   const float d[3]) {
+  const float r = clump_at<kLdg>(cl, 3);
+  const float rel[3] = {p[0] - clump_at<kLdg>(cl, 0),
+                        p[1] - clump_at<kLdg>(cl, 1),
+                        p[2] - clump_at<kLdg>(cl, 2)};
+  const float b = dot3f(rel, d);
+  const float c0 = dot3f(rel, rel) - r * r;
+  const float disc = fmaf(b, b, -c0);
+  const float sq = __fsqrt_rn(fmaxf(disc, 0.0f));
+  if (disc <= 0.0f) return {kClumpBig, kClumpBig};
+  return {-b - sq, -b + sq};
+}
+
+// The cell of the (scaled) position q on the clumpy sphere: the first clump
+// holding it (cells 0 .. nc-1), else the sphere's cell + nc; -1 outside.
+template <bool kLdg>
+__device__ __forceinline__ int clumpy_locate(const PolarTabs& g,
+                                             const float* cl, int nc,
+                                             const float q[3]) {
+  const int s = polar_locate<1>(g, q);
+  if (s < 0) return -1;
+  for (int k = 0; k < nc; ++k) {
+    const float* c = cl + 4 * k;
+    const float r = clump_at<kLdg>(c, 3);
+    const float rel[3] = {q[0] - clump_at<kLdg>(c, 0),
+                          q[1] - clump_at<kLdg>(c, 1),
+                          q[2] - clump_at<kLdg>(c, 2)};
+    if (dot3f(rel, rel) <= r * r) return k;
+  }
+  return s + nc;
+}
+
+// The clumpy sphere (ClumpySphericalGrid.step, skirt9_tpu/grids/clumpy.py:
+// 80-97): the Sphere3D step from the located structured cell, cut at the
+// first clump entry ahead (> eta); in a clump, out through its far crossing;
+// then the relocation. The Sphere3D tables as march_polar_kernel<1> packs
+// them, then the clumps (x, y, z, r each, scaled), staged in shared memory
+// together when they fit (a thousand clumps are 16 KB), else all read from
+// global memory, the clumps through the read-only cache.
+template <bool kStaged>
+__global__ void march_clumpy_kernel(
+    const float* __restrict__ pos, const float* __restrict__ dir,
+    const int* __restrict__ cell0, const unsigned char* __restrict__ mask,
+    const float* __restrict__ tabs, int* __restrict__ cells,
+    float* __restrict__ dss, int B, int S, int nr, int nt, int nphi, int nc,
+    float scale, float unscale, int len) {
+  extern __shared__ float tables[];
+  const float* tab = tabs;
+  if (kStaged) {
+    for (int k = threadIdx.x; k < len; k += blockDim.x) tables[k] = tabs[k];
+    __syncthreads();
+    tab = tables;
+  }
+  constexpr bool kLdg = !kStaged;
+  PolarTabs g;
+  g.rb = tab;
+  g.tb = g.rb + nr + 1;
+  g.cos_t = g.tb + nt + 1;
+  g.pb = g.cos_t + nt + 1;
+  g.cos_p = g.pb + nphi + 1;
+  g.sin_p = g.cos_p + nphi + 1;
+  g.zb = nullptr;
+  g.nr = nr;
+  g.nt = nt;
+  g.nphi = nphi;
+  g.nz = 0;
+  const float* cl = g.sin_p + nphi + 1;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const float eta = g.rb[nr] * (float)1e-6;
+  float p[3] = {pos[3 * lane] * scale, pos[3 * lane + 1] * scale,
+                pos[3 * lane + 2] * scale};
+  const float d[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
+  int c = mask[lane] ? cell0[lane] : -1;
+  for (int s = 0; s < S; ++s) {
+    const long long at = (long long)s * B + lane;
+    if (c < 0) {
+      cells[at] = 0;
+      dss[at] = 0.0f;
+      continue;
+    }
+    float ds;
+    if (c < nc) {
+      ds = fmaxf(clump_crossing<kLdg>(cl + 4 * c, p, d).t1, 0.0f);
+    } else {
+      const int sc = polar_locate<1>(g, p);
+      ds = sc < 0 ? 0.0f : polar_length<1>(sc, g, eta, p, d);
+      float t_entry = kClumpBig;
+      for (int k = 0; k < nc; ++k) {
+        const float t0 = clump_crossing<kLdg>(cl + 4 * k, p, d).t0;
+        t_entry = fminf(t_entry, t0 > eta ? t0 : kClumpBig);
+      }
+      ds = fminf(ds, t_entry);
+    }
+    float q[3];
+    relocate(ds, eta, p, d, q);
+    cells[at] = c;
+    dss[at] = ds >= kBig ? ds : ds * unscale;
+    c = clumpy_locate<kLdg>(g, cl, nc, q);
   }
 }
 
@@ -1047,5 +1192,31 @@ extern "C" int march_polar_launch(const void* pos, const void* dir,
       (const float*)pos, (const float*)dir, (const int*)cell0,
       (const unsigned char*)mask, (const float*)tabs, (int*)cells,
       (float*)ds, B, S, nr, nt, nphi, nz, scale, unscale, len, staged);
+  return (int)cudaGetLastError();
+}
+
+// The clumpy sphere: the Sphere3D tables (rb, tb, cos_t, pb, cos_p, sin_p)
+// then nc clumps (x, y, z, r), packed in that order into `tabs`, every
+// length times 2^-shift.
+extern "C" int march_clumpy_launch(const void* pos, const void* dir,
+                                   const void* cell0, const void* mask,
+                                   const void* tabs, void* cells, void* ds,
+                                   int B, int S, int nr, int nt, int nphi,
+                                   int nc, int shift, void* stream) {
+  if (B <= 0 || S <= 0 || nr <= 0 || nt <= 0 || nphi < 3 || nc < 0 ||
+      tabs == nullptr || shift < 0 || shift > 100)
+    return (int)cudaErrorInvalidValue;
+  const long long len =
+      (long long)(nr + 1) + 2LL * (nt + 1) + 3LL * (nphi + 1) + 4LL * nc;
+  const bool staged = len <= skirt9::kSmemFloats;
+  const float scale = ldexpf(1.0f, -shift), unscale = ldexpf(1.0f, shift);
+  const size_t smem = staged ? (size_t)len * sizeof(float) : 0;
+  const int blocks = (B + skirt9::kThreads - 1) / skirt9::kThreads;
+  auto* kern = staged ? skirt9::march_clumpy_kernel<true>
+                      : skirt9::march_clumpy_kernel<false>;
+  kern<<<blocks, skirt9::kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)dir, (const int*)cell0,
+      (const unsigned char*)mask, (const float*)tabs, (int*)cells,
+      (float*)ds, B, S, nr, nt, nphi, nc, scale, unscale, (int)len);
   return (int)cudaGetLastError();
 }

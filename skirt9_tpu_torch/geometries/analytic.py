@@ -115,7 +115,7 @@ class SphericalProfileGeometry(Geometry):
         rv = self._dev("r", lambda: self._tables()[0], dev)
         cdf = self._dev("cdf", lambda: self._tables()[1], dev)
         r = sample_cdf_linlin(rng.uniform(keys, tag), rv, cdf)
-        d = rng.isotropic_direction_xla(keys, tag + 50)
+        d = rng.isotropic_direction(keys, tag + 50)
         return r[:, None].expand_as(d), d
 
 

@@ -311,7 +311,7 @@ class ClumpyDecorator(Geometry):
         u_r = torch.pow(rng.uniform(keys, tag + 90).double(),
                         xm.f32(1.0 / 3.0)).float()
         s = u_r * xm.f32(self.clump_radius)
-        p_clump = xm.fma(rng.isotropic_direction_xla(keys, tag + 91),
+        p_clump = xm.fma(rng.isotropic_direction(keys, tag + 91),
                          s[:, None], centers[ci])
         return torch.where((u < xm.f32(self.clump_fraction))[:, None],
                            p_clump, p_smooth), None

@@ -117,7 +117,7 @@ class ParticleGeometry(ImportedGeometry):
         else:
             kq, kc = snap.kernel_tables(self.kernel_kind, dev)
         q = sampling.sample_cdf_linlin(rng.uniform(keys, tag), kq, kc)
-        d = rng.isotropic_direction_xla(keys, tag + 60)
+        d = rng.isotropic_direction(keys, tag + 60)
         pos = self._dev("pos", lambda: self.snapshot.positions, dev)
         h = self._dev("h", lambda: self.snapshot.h, dev)
         return xm.fma((q * h[j])[:, None], d, pos[j])

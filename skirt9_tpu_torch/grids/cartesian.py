@@ -10,9 +10,9 @@ linear index m = (ix*ny + iy)*nz + iz.
 the next cell and the next position with the crossed coordinate snapped
 onto the border. It follows the reference's f32 operations one for one,
 with XLA's CPU fusion of a product into the sum it feeds replayed by
-`ops.xlamath.fma` (an ulp there decides which cell a step lands in), so
-that the port's march takes the reference's cells on the CPU; the march
-kernel (`csrc/march.cu`) does the same with `fmaf`.
+`ops.xlamath.fma_rn` (rounded once; an ulp there decides which cell a
+step lands in), so that the port's march takes the reference's cells on
+the CPU; the march kernel (`csrc/march.cu`) does the same with `fmaf`.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def _exit_step(i3, n, border, s, pos, dirn, cell):
     lane already outside, whose ds is 0 and position unchanged)."""
     ds, ax = torch.min(s, dim=-1)
     onehot = torch.arange(3, device=pos.device) == ax[:, None]
-    newpos = torch.where(onehot, border, xm.fma(ds[:, None], dirn, pos))
+    newpos = torch.where(onehot, border, xm.fma_rn(ds[:, None], dirn, pos))
     stp = torch.where(dirn >= 0, 1, -1)
     j3 = i3 + torch.where(onehot, stp, 0)
     inside = torch.all((j3 >= 0) & (j3 < n), dim=-1)
@@ -102,7 +102,7 @@ class UniformCartesianGrid(NamedTuple):
         t_entry = torch.where(already, torch.zeros_like(tmin),
                               torch.clamp_min(tmin, 0.0) * (1.0 + 1e-6))
         # fused, as XLA's CPU code forms it (bit for bit on every axis)
-        newpos = xm.fma(t_entry[..., None], dirn, pos)
+        newpos = xm.fma_rn(t_entry[..., None], dirn, pos)
         # clamp hi-face entries just inside the box
         eps = 1e-6 * (self.hi - self.lo)
         newpos = torch.where(already[..., None], newpos,
@@ -118,7 +118,7 @@ class UniformCartesianGrid(NamedTuple):
         i3 = _split(cell, self.ny, self.nz)
         n = self._n(pos.device)
         nxt_idx = i3 + (dirn > 0).to(i3.dtype)
-        border = xm.fma(nxt_idx.to(pos.dtype), self.h, self.lo)
+        border = xm.fma_rn(nxt_idx.to(pos.dtype), self.h, self.lo)
         tiny = torch.abs(dirn) < 1e-30
         s = torch.where(tiny, torch.full_like(pos, _BIG), torch.clamp_min(
             (border - pos) / torch.where(tiny, torch.ones_like(dirn), dirn),
@@ -246,7 +246,7 @@ class CartesianGrid(NamedTuple):
         t_entry = torch.where(already, torch.zeros_like(tmin),
                               torch.clamp_min(tmin, 0.0) * (1.0 + 1e-6))
         # fused, as XLA's CPU code forms it (bit for bit on every axis)
-        newpos = xm.fma(t_entry[..., None], dirn, pos)
+        newpos = xm.fma_rn(t_entry[..., None], dirn, pos)
         # rays entering exactly on the hi face would locate outside: clamp
         # entries just inside the box
         eps = 1e-6 * (hi - lo)

@@ -61,7 +61,7 @@ class Cylinder2DGrid(NamedTuple):
     def locate(self, pos: torch.Tensor) -> torch.Tensor:
         """(B, 3) -> (B,) int64 cell index, -1 outside."""
         pos, rb, zb = self._scaled(pos)
-        R = xm.hypot(pos[:, 0], pos[:, 1])
+        R = xm.hypot(pos[:, 0], pos[:, 1], xm.fma_rn)
         ir = torch.searchsorted(rb, R.contiguous(), right=True) - 1
         iz = torch.searchsorted(zb, pos[:, 2].contiguous(), right=True) - 1
         inside = ((R >= rb[0]) & (R < rb[-1])
@@ -82,17 +82,17 @@ class Cylinder2DGrid(NamedTuple):
         dx, dy, dz = dirn[:, 0], dirn[:, 1], dirn[:, 2]
         big = torch.full_like(x, _BIG)
         # the 2-term sums as XLA fuses them: the first product into the sum
-        q = xm.fma(dx, dx, dy * dy)            # in-plane direction norm^2
-        b = xm.fma(x, dx, y * dy)              # in-plane projection
-        R2 = xm.fma(x, x, y * y)
+        q = xm.fma_rn(dx, dx, dy * dy)            # in-plane direction norm^2
+        b = xm.fma_rn(x, dx, y * dy)              # in-plane projection
+        R2 = xm.fma_rn(x, x, y * y)
         r_in, r_out = rb[ir], rb[ir + 1]
         safe_q = torch.clamp_min(q, xm.f32(1e-30))
         disc_out = torch.clamp_min(
-            xm.fma(b, b, safe_q * xm.fma(r_out, r_out, -R2)), 0.0)
+            xm.fma_rn(b, b, safe_q * xm.fma_rn(r_out, r_out, -R2)), 0.0)
         t_out = (xm.sqrt(disc_out) - b) / safe_q
         t_out = torch.where(q > xm.f32(1e-30), torch.clamp_min(t_out, 0.0),
                             big)
-        disc_in = xm.fma(b, b, safe_q * xm.fma(r_in, r_in, -R2))
+        disc_in = xm.fma_rn(b, b, safe_q * xm.fma_rn(r_in, r_in, -R2))
         can_in = (r_in > 0) & (b < 0) & (disc_in > 0)
         t_in = torch.where(can_in & (q > xm.f32(1e-30)),
                            (-b - xm.sqrt(torch.clamp_min(disc_in, 0.0)))
@@ -113,7 +113,7 @@ class Cylinder2DGrid(NamedTuple):
         nxt = torch.clamp(jr, 0, self.nr - 1) * self.nz \
             + torch.clamp(jz, 0, self.nz - 1)
         out = cell < 0
-        newpos = xm.fma(ds[:, None], dirn, pos)
+        newpos = xm.fma_rn(ds[:, None], dirn, pos)
         if self.shift:
             ds, newpos = ds * 2.0 ** self.shift, newpos * 2.0 ** self.shift
         return (torch.where(out, torch.zeros_like(ds), ds),
@@ -129,11 +129,11 @@ class Cylinder2DGrid(NamedTuple):
         R_out = rb[-1]
         x, y = pos[:, 0], pos[:, 1]
         dx, dy, dz = dirn[:, 0], dirn[:, 1], dirn[:, 2]
-        q = torch.clamp_min(xm.fma(dx, dx, dy * dy), xm.f32(1e-30))
-        b = xm.fma(x, dx, y * dy)
+        q = torch.clamp_min(xm.fma_rn(dx, dx, dy * dy), xm.f32(1e-30))
+        b = xm.fma_rn(x, dx, y * dy)
         # R_out^2 is a constant of the jitted launch, folded in f32; here
         # XLA does not fuse x^2 into R^2
-        disc = xm.fma(b, b, q * (R_out * R_out - (x * x + y * y)))
+        disc = xm.fma_rn(b, b, q * (R_out * R_out - (x * x + y * y)))
         t_cyl = torch.where(disc > 0, (-b - xm.sqrt(torch.clamp_min(
             disc, 0.0))) / q, torch.full_like(b, _BIG))
         dzs = torch.where(torch.abs(dz) < xm.f32(1e-30),

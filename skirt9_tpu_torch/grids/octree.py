@@ -64,9 +64,9 @@ def tree_step(grid, pos: torch.Tensor, dirn: torch.Tensor, cell: torch.Tensor):
     s = torch.where(tiny, torch.full_like(pos, _BIG), torch.clamp_min(
         (tgt - pos) / torch.where(tiny, torch.ones_like(dirn), dirn), 0.0))
     ds = torch.amin(s, dim=-1)
-    newpos = xm.fma(ds[..., None], dirn, pos)
+    newpos = xm.fma_rn(ds[..., None], dirn, pos)
     eps = 1e-4 * torch.amin(hi - lo, dim=-1)
-    nxt = grid.descend(xm.fma(eps[..., None], dirn, newpos))
+    nxt = grid.descend(xm.fma_rn(eps[..., None], dirn, newpos))
     out = cell < 0
     return (torch.where(out, torch.zeros_like(ds), ds),
             torch.where(out, torch.full_like(nxt, -1), nxt),
@@ -90,7 +90,7 @@ def move_inside(grid, pos: torch.Tensor, dirn: torch.Tensor):
     # XLA's CPU code fuses the move into a multiply-add on x and y but not
     # on z (bit for bit against the reference's, whatever the batch)
     t = t_entry[..., None]
-    newpos = torch.cat([xm.fma(t, dirn[..., :2], pos[..., :2]),
+    newpos = torch.cat([xm.fma_rn(t, dirn[..., :2], pos[..., :2]),
                         pos[..., 2:] + t * dirn[..., 2:]], dim=-1)
     cell = grid.locate(newpos)
     return newpos, torch.where(already | hits, cell,

@@ -382,6 +382,13 @@ class Sphere3DGrid(_Sphere3DTables, _Polar):
         pos_m = pos
         pos, rb = self._scale(pos, self.rb)
         eta = self._eta(rb)
+        ds = self.step_length(pos, dirn, cell, rb, eta)
+        return self._finish(pos_m, pos, dirn, cell, ds, eta)
+
+    def step_length(self, pos, dirn, cell, rb, eta):
+        """The step's length from cell in scaled lengths (pos and rb times
+        2^-shift): the least crossing of the cell's two spheres, two cones
+        and two half-planes."""
         i = torch.clamp_min(cell, 0)
         ip = i % self.nphi
         it = (i // self.nphi) % self.nt
@@ -394,10 +401,9 @@ class Sphere3DGrid(_Sphere3DTables, _Polar):
                                eta)
         t_p1 = halfplane_cross(pos, dirn, self.cos_p[ip + 1],
                                self.sin_p[ip + 1], eta)
-        ds = torch.minimum(torch.minimum(torch.minimum(t_out, t_in),
-                                         torch.minimum(t_up, t_dn)),
-                           torch.minimum(t_p0, t_p1))
-        return self._finish(pos_m, pos, dirn, cell, ds, eta)
+        return torch.minimum(torch.minimum(torch.minimum(t_out, t_in),
+                                           torch.minimum(t_up, t_dn)),
+                             torch.minimum(t_p0, t_p1))
 
     def _entry(self, pos, dirn):
         (rb,) = self._scale(self.rb)

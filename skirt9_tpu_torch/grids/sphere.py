@@ -46,7 +46,7 @@ def length_shift(*borders) -> int:
 def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """`jnp.sum(a * b, axis=-1)` over (B, 3) as XLA's CPU code forms it in
     a jitted function: a running sum, each product fused into it."""
-    return xm.fma(a[:, 2], b[:, 2], xm.fma(a[:, 1], b[:, 1], a[:, 0] * b[:, 0]))
+    return xm.fma_rn(a[:, 2], b[:, 2], xm.fma_rn(a[:, 1], b[:, 1], a[:, 0] * b[:, 0]))
 
 
 class Sphere1DGrid(NamedTuple):
@@ -84,9 +84,9 @@ class Sphere1DGrid(NamedTuple):
         i = torch.clamp_min(cell, 0)
         r_in, r_out = rb[i], rb[i + 1]
         b = dot3(pos, dirn)
-        p2 = xm.fma(-b, b, dot3(pos, pos))           # impact parameter^2
-        t_out = -b + xm.sqrt(torch.clamp_min(xm.fma(r_out, r_out, -p2), 0.0))
-        disc_in = xm.fma(r_in, r_in, -p2)
+        p2 = xm.fma_rn(-b, b, dot3(pos, pos))           # impact parameter^2
+        t_out = -b + xm.sqrt(torch.clamp_min(xm.fma_rn(r_out, r_out, -p2), 0.0))
+        disc_in = xm.fma_rn(r_in, r_in, -p2)
         can_in = (r_in > 0) & (b < 0) & (disc_in > 0)
         t_in = torch.where(can_in, -b - xm.sqrt(torch.clamp_min(disc_in, 0.0)),
                            torch.full_like(b, _BIG))
@@ -96,7 +96,7 @@ class Sphere1DGrid(NamedTuple):
         nxt = torch.where(inward, i - 1, i + 1)
         nxt = torch.where((nxt < 0) | (nxt >= self.ncells), -1, nxt)
         out = cell < 0
-        newpos = xm.fma(ds[:, None], dirn, pos)
+        newpos = xm.fma_rn(ds[:, None], dirn, pos)
         if self.shift:
             ds, newpos = ds * 2.0 ** self.shift, newpos * 2.0 ** self.shift
         return (torch.where(out, torch.zeros_like(ds), ds),
@@ -113,7 +113,7 @@ class Sphere1DGrid(NamedTuple):
         b = dot3(pos, dirn)
         r2 = dot3(pos, pos)
         RR = R * R
-        disc = RR - xm.fma(-b, b, r2)
+        disc = RR - xm.fma_rn(-b, b, r2)
         hits = (disc > 0) & (b < 0)
         t = torch.where(hits, (-b - xm.sqrt(torch.clamp_min(disc, 0.0)))
                         * xm.f32(1 + 1e-6), torch.zeros_like(b))

@@ -34,8 +34,8 @@ _BIG = 3e38
 def _dot3(a, b):
     """Dot products over the last axis of size 3 as XLA's CPU reduction
     forms them: each product fused into the running sum."""
-    return xm.fma(a[..., 2], b[..., 2],
-                  xm.fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+    return xm.fma_rn(a[..., 2], b[..., 2],
+                  xm.fma_rn(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 class VoronoiGrid(NamedTuple):
@@ -111,7 +111,7 @@ class VoronoiGrid(NamedTuple):
         ds = torch.minimum(t_nb, t_wall)
         nxt = torch.where(t_wall <= t_nb, -1,
                           nb.gather(1, j_nb[:, None])[:, 0])
-        newpos = xm.fma((ds * xm.f32(1.0 + 1e-6))[:, None], dirn, pos)
+        newpos = xm.fma_rn((ds * xm.f32(1.0 + 1e-6))[:, None], dirn, pos)
         out = cell < 0
         return (torch.where(out, torch.zeros_like(ds), ds),
                 torch.where(out, -1, nxt),

@@ -48,7 +48,9 @@ KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            "march_uniform", "march_mesh", "march_voronoi", "march_octree",
            "march_bintree", "march_sphere1d", "march_cylinder2d",
            "march_amr", "march_tetra", "march_sphere2d", "march_sphere3d",
-           "march_cylinder3d",
+           "march_cylinder3d", "march_clumpy",
+           # glibc's sinf and cosf of the directions (csrc/sincos.cu)
+           "sincos",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -111,6 +113,11 @@ _SIGNATURES = {
     # pos, dir, cell0, mask, packed tables, cells, ds, B, S, nr, nt, nphi,
     # nz, kind, shift, stream
     "march_polar_launch": [_P] * 7 + [_I] * 8 + [_P],
+    # pos, dir, cell0, mask, packed tables, cells, ds, B, S, nr, nt, nphi,
+    # nc, shift, stream
+    "march_clumpy_launch": [_P] * 7 + [_I] * 7 + [_P],
+    # x, sin, cos, n, stream
+    "sincos_launch": [_P] * 3 + [_I] + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from . import xlamath as xm
+
 _ISO = 1.0 / (4.0 * math.pi)
 
 
@@ -20,11 +22,14 @@ def hg_phase(g: torch.Tensor, costheta: torch.Tensor) -> torch.Tensor:
 
 
 def hg_sample_costheta(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Inverse-cdf sample of cos(theta) from HG; isotropic for |g| < 1e-5."""
+    """Inverse-cdf sample of cos(theta) from HG; isotropic for |g| < 1e-5.
+    The fusions of the reference's life cycle (XLA's vectorised loop):
+    1 - g^2, 1 - g + 2g u, 1 + g^2 and 1 + g^2 - f^2 each one fused
+    multiply-add."""
     near_iso = torch.abs(g) < 1e-5
     gs = torch.where(near_iso, torch.full_like(g, 0.5), g)
-    f = (1.0 - gs * gs) / (1.0 - gs + 2.0 * gs * u)
-    ct_aniso = (1.0 + gs * gs - f * f) / (2.0 * gs)
+    f = xm.fma(-gs, gs, 1.0) / xm.fma(2.0 * gs, u, 1.0 - gs)
+    ct_aniso = xm.fma(-f, f, xm.fma(gs, gs, 1.0)) / (2.0 * gs)
     ct_iso = 2.0 * u - 1.0
     return torch.clamp(torch.where(near_iso, ct_iso, ct_aniso), -1.0, 1.0)
 
@@ -48,16 +53,28 @@ def dipole_sample_costheta(u: torch.Tensor) -> torch.Tensor:
 def rotate_direction(k: torch.Tensor, costheta: torch.Tensor,
                      phi: torch.Tensor) -> torch.Tensor:
     """New direction at polar angle (costheta, phi) about axis k (B, 3),
-    through a branch-free orthonormal frame, renormalised."""
+    through a branch-free orthonormal frame, renormalised, with the fused
+    multiply-adds of the reference's life cycle (its vectorised loop over
+    the (B, 3) components): 1 + s kx^2 a, s + ky^2 a, cos(phi) e1 +
+    sin(phi) e2 (the first product fused), then x and y sint (...) +
+    costheta k with the first product fused and z with the second, and
+    |out|^2 summed in x, y, z order; glibc's cosf and sinf of phi
+    (`xlamath.sincos`). XLA's scalar loop over the last few lanes of a
+    batch fuses z's way on all three, so those lanes may differ by an
+    ulp."""
     kx, ky, kz = k[..., 0], k[..., 1], k[..., 2]
     sign = torch.where(kz >= 0.0, torch.ones_like(kz), -torch.ones_like(kz))
-    a = -1.0 / (sign + kz)
+    a = xm.rdiv(-1.0, sign + kz)
     b = kx * ky * a
-    e1 = torch.stack([1.0 + sign * kx * kx * a, sign * b, -sign * kx], dim=-1)
-    e2 = torch.stack([b, sign + ky * ky * a, -ky], dim=-1)
-    sint = torch.sqrt(torch.clamp_min(1.0 - costheta * costheta, 0.0))
-    cp = torch.cos(phi)
-    sp = torch.sin(phi)
-    out = (sint[..., None] * (cp[..., None] * e1 + sp[..., None] * e2)
-           + costheta[..., None] * k)
-    return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+    e1 = torch.stack([xm.fma(sign * kx * kx, a, 1.0), sign * b, -sign * kx],
+                     dim=-1)
+    e2 = torch.stack([b, xm.fma(ky * ky, a, sign), -ky], dim=-1)
+    sint = xm.sqrt(torch.clamp_min(xm.fma(-costheta, costheta, 1.0), 0.0))
+    sp, cp = xm.sincos(phi)
+    inner = xm.fma(cp[..., None], e1, sp[..., None] * e2)
+    ct, st = costheta[..., None], sint[..., None]
+    out = torch.cat([xm.fma(st, inner[..., :2], ct * k[..., :2]),
+                     xm.fma(ct, k[..., 2:], st * inner[..., 2:])], dim=-1)
+    ox, oy, oz = out[..., 0], out[..., 1], out[..., 2]
+    n2 = xm.fma(oz, oz, xm.fma(oy, oy, ox * ox))
+    return out / xm.sqrt(n2)[..., None]

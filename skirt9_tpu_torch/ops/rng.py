@@ -179,23 +179,13 @@ def expon_cutoff(keys: torch.Tensor, tag: int, taumax: torch.Tensor):
 
 
 def isotropic_direction(keys: torch.Tensor, tag: int) -> torch.Tensor:
-    """Uniform directions on the unit sphere, (B, 3)."""
-    u, v = uniform2(keys, tag)
-    cost = 2.0 * u - 1.0
-    sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
-    phi = (2.0 * math.pi) * v
-    return torch.stack([sint * torch.cos(phi), sint * torch.sin(phi), cost],
-                       dim=-1)
-
-
-def isotropic_direction_xla(keys: torch.Tensor, tag: int) -> torch.Tensor:
-    """`isotropic_direction` as XLA forms it inside a jitted function on
-    the CPU: 1 - cos^2 as one fused multiply-add, its correctly rounded
-    square root, and sine and cosine rounded from f64 (XLA's are correctly
-    rounded on all but ~1% of inputs, PyTorch's f32 ones on ~95%)."""
+    """Uniform directions on the unit sphere, (B, 3): cos t = 2u - 1, phi =
+    2 pi v, formed as the reference's jitted code forms them: 1 - cos^2 t
+    one fused multiply-add (rounded apart inside `xlamath.eager()`, the
+    reference's op-by-op set-up draws), its correctly rounded square root,
+    glibc's cosf and sinf of phi (`xlamath.sincos`) and one product each."""
     u, v = uniform2(keys, tag)
     cost = 2.0 * u - 1.0
     sint = xlamath.sqrt(torch.clamp_min(xlamath.fma(-cost, cost, 1.0), 0.0))
-    phi = xlamath.f32(2.0 * math.pi) * v
-    return torch.stack([sint * xlamath.cos(phi), sint * xlamath.sin(phi),
-                        cost], dim=-1)
+    s, c = xlamath.sincos(xlamath.f32(2.0 * math.pi) * v)
+    return torch.stack([sint * c, sint * s, cost], dim=-1)

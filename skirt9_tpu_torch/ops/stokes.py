@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import sampling
+from . import xlamath as xm
 
 
 class MuellerTables(NamedTuple):
@@ -95,8 +96,7 @@ def build_mueller(theta, S11, S12, S33, S34) -> MuellerTables:
 
 def rotate_stokes(stokes: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     """Rotate the reference frame by phi around k: (B, 4)."""
-    c2 = torch.cos(2 * phi)
-    s2 = torch.sin(2 * phi)
+    s2, c2 = xm.sincos(2 * phi)
     I, Q, U, V = stokes.unbind(-1)
     return torch.stack([I, Q * c2 + U * s2, -Q * s2 + U * c2, V], dim=-1)
 
@@ -180,10 +180,11 @@ def sample_azimuth(S11, S12, stokes: torch.Tensor, u: torch.Tensor,
     phi0 = 0.5 * torch.atan2(U, Q)
     two_pi = 2 * math.pi
     phi = two_pi * u
+    s0 = xm.sin(2 * phi0)
     for _ in range(newton_iters):
-        F = (phi + 0.5 * PL * (torch.sin(2 * (phi - phi0))
-                               + torch.sin(2 * phi0))) / two_pi - u
-        dF = (1 + PL * torch.cos(2 * (phi - phi0))) / two_pi
+        s, c = xm.sincos(2 * (phi - phi0))
+        F = (phi + 0.5 * PL * (s + s0)) / two_pi - u
+        dF = (1 + PL * c) / two_pi
         phi = phi - F / torch.clamp_min(dF, 1e-4)
     return torch.remainder(phi, two_pi)
 
@@ -194,7 +195,8 @@ def phase_value(S11, S12, stokes: torch.Tensor, costheta: torch.Tensor,
     frame, unit integral over the sphere:
     [S11 I + S12 (Q cos2phi + U sin2phi)] / (2 pi N I)."""
     I, Q, U = stokes[..., 0], stokes[..., 1], stokes[..., 2]
-    val = S11 * I + S12 * (Q * torch.cos(2 * phi) + U * torch.sin(2 * phi))
+    s2, c2 = xm.sincos(2 * phi)
+    val = S11 * I + S12 * (Q * c2 + U * s2)
     return val / torch.clamp_min(2 * math.pi * norm
                                  * torch.clamp_min(I, 1e-30), 1e-30)
 

@@ -38,14 +38,14 @@ def sqrt(t: torch.Tensor) -> torch.Tensor:
 
 
 def cos(t: torch.Tensor) -> torch.Tensor:
-    """f32 cosine rounded from f64, which equals XLA's CPU cosine on ~99%
-    of inputs (PyTorch's f32 one on ~95%)."""
-    return torch.cos(t.double()).float()
+    """f32 cosine as XLA's CPU code computes it: glibc's cosf
+    (`sincos`)."""
+    return sincos(t)[1]
 
 
 def sin(t: torch.Tensor) -> torch.Tensor:
-    """f32 sine rounded from f64 (see `cos`)."""
-    return torch.sin(t.double()).float()
+    """f32 sine as XLA's CPU code computes it: glibc's sinf (`sincos`)."""
+    return sincos(t)[0]
 
 
 def hypot(x: torch.Tensor, y: torch.Tensor, fma_fn=None) -> torch.Tensor:
@@ -62,9 +62,10 @@ def hypot(x: torch.Tensor, y: torch.Tensor, fma_fn=None) -> torch.Tensor:
 def move_xy_fused(pos: torch.Tensor, t: torch.Tensor,
                   dirn: torch.Tensor) -> torch.Tensor:
     """pos + t dirn over (B, 3) as XLA's CPU code forms the move of a
-    `move_inside`: fused into a multiply-add on x and y, not on z."""
+    `move_inside`: fused into a multiply-add on x and y (`fma_rn`, rounded
+    once as the march kernel's fmaf), not on z."""
     t = t[:, None]
-    return torch.cat([fma(t, dirn[:, :2], pos[:, :2]),
+    return torch.cat([fma_rn(t, dirn[:, :2], pos[:, :2]),
                       pos[:, 2:] + t * dirn[:, 2:]], dim=1)
 
 
@@ -95,6 +96,31 @@ def is_eager() -> bool:
     return _EAGER[0]
 
 
+def _split(a: torch.Tensor):
+    """Veltkamp's split of f64 a into two halves of 26 bits, so that a
+    product of two halves is exact."""
+    c = a * 134217729.0
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_sum(a, b):
+    """s = a + b rounded, and its rounding error, exactly (Knuth)."""
+    s = a + b
+    bp = s - a
+    return s, (a - (s - bp)) + (b - bp)
+
+
+def _round_odd(s: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+    """The f64 value s + err (err the exact error of s) rounded to odd:
+    truncated toward zero, its last bit set where it was inexact."""
+    inexact = (err != 0) & torch.isfinite(s)
+    bits = s.view(torch.int64)
+    bits = (bits - (inexact & ((err < 0) != (s < 0))).long()) \
+        | inexact.long()
+    return bits.view(torch.float64)
+
+
 def fma(a, b, c) -> torch.Tensor:
     """a * b + c rounded once to f32 (through f64, where the product of two
     f32 values is exact), as the fused multiply-add that XLA's CPU code
@@ -112,19 +138,12 @@ def fma_rn(a, b, c) -> torch.Tensor:
     (its rounding error, exact by TwoSum, pulls it toward zero and sets
     its last bit) before it is rounded to f32, so a sum that lands on an
     f32 midpoint in f64 (about one in 10^9) rounds as CUDA's fmaf and
-    XLA's fused multiply-add round it. The plain versions of the march
-    kernel's polar and tetrahedral modes use it: the card holds them bit
-    for bit; it costs four times `fma`'s operations."""
+    XLA's fused multiply-add round it. The grids' steps (the plain
+    versions of every march-kernel mode) use it: the card holds them bit
+    for bit; it costs four times `fma`'s operations, so the life cycle's
+    own f32 math keeps `fma`."""
     to64 = lambda v: v.double() if torch.is_tensor(v) else f32(v)
-    p, c = to64(a) * to64(b), to64(c)
-    s = p + c
-    bp = s - p
-    err = (p - (s - bp)) + (c - bp)
-    inexact = (err != 0) & torch.isfinite(s)
-    bits = s.view(torch.int64)
-    bits = (bits - (inexact & ((err < 0) != (s < 0))).long()) \
-        | inexact.long()
-    return bits.view(torch.float64).float()
+    return _round_odd(*_two_sum(to64(a) * to64(b), to64(c))).float()
 
 
 def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
@@ -355,6 +374,100 @@ def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     one = hx == 0x3F800000
     return torch.where(one, torch.where(neg_y, -1.0, 1.0) * _atanf_pos(
         torch.abs(y)), out)
+
+
+def fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of f64 tensors rounded once, as an FMA instruction rounds
+    it. PyTorch has no fused f64 multiply-add that is one on every device,
+    so the product is made exact by Dekker's TwoProduct (Veltkamp's split)
+    and the three-term sum rounded once by Boldo and Melquiond's rounding
+    to odd: th + tl = c + ph exactly, then th + RO(tl + pl) rounded to
+    nearest. Pure IEEE f64 adds and products: the same bits on the CPU and
+    on the card. Finite operands far from overflow (the polynomials and
+    reductions of `sincos`)."""
+    ph = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pl = ((ah * bh - ph) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, ph)
+    return th + _round_odd(*_two_sum(tl, pl))
+
+
+# glibc 2.36's sinf and cosf (sysdeps/ieee754/flt-32/s_sinf.c, s_cosf.c,
+# sincosf.h, sincosf_data.c), which XLA's CPU code calls for f32 sin and
+# cos: the argument in f64, reduced by the nearest multiple n of pi/2
+# (reduce_fast: n from x 2/pi 2^24 truncated to an int, plus 2^23, shifted
+# down 24 bits), then an odd polynomial for the sine and an even one for
+# the cosine of the remainder. On x86-64 with FMA and AVX2 glibc runs
+# __sinf_fma/__cosf_fma, the same C compiled with contraction: the
+# reduction x - n pi/2 and every `a + x * b` of the polynomials are f64
+# fused multiply-adds (`fma64`)
+_SC_C = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SC_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+_HPI_INV_2_24 = float.fromhex("0x1.45f306dc9c883p+23")
+_HPI = float.fromhex("0x1.921fb54442d18p0")
+
+
+def sincos(t: torch.Tensor):
+    """(sinf(t), cosf(t)) of f32 t as glibc 2.36 computes them on x86-64
+    with FMA: on a CUDA tensor one launch of `csrc/sincos.cu` (counted as
+    `sincos`), on a CPU tensor `sincos_plain`, bit for bit the same."""
+    if t.device.type == "cpu":
+        return sincos_plain(t)
+    if t.device.type != "cuda":
+        raise ValueError(f"no sincos kernel for device {t.device}")
+    from ..kernels import build as kb
+    x = t.to(torch.float32).contiguous()
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    kb.launch("sincos", x.data_ptr(), s.data_ptr(), c.data_ptr(), x.numel(),
+              kb.stream_of(x))
+    return s.reshape(t.shape), c.reshape(t.shape)
+
+
+def sincos_plain(t: torch.Tensor):
+    """(sinf(t), cosf(t)) of f32 t as glibc 2.36 computes them on x86-64
+    with FMA (the __sinf_fma and __cosf_fma variants), operation for
+    operation: bit for bit for |t| < 120, every branch there (|t| < 2^-12:
+    t and 1; below 0.75 the polynomials alone, which equal reduce_fast's
+    quadrant 0). Larger arguments are outside: glibc reduces them by a
+    192-bit 4/pi table, and these fall back to f64 sin and cos rounded to
+    f32, within an ulp of glibc's. The direction, geometry, Stokes and
+    Lyman-alpha sites stay inside [-4 pi, 4 pi]; only the polarized azimuth
+    sampler's Newton iterates go past 120, at the most polarized packets.
+    The sine and cosine share one reduction."""
+    shape, t = t.shape, t.reshape(-1)
+    x = t.double()
+    top = (t.view(torch.int32) >> 20) & 0x7FF
+    # n is 0 below 0.75, where glibc skips the reduction
+    n = ((x * _HPI_INV_2_24).trunc().to(torch.int32) + 0x800000) >> 24
+    xr = fma64(-n.double(), torch.full_like(x, _HPI), x)
+    q = n & 3
+    xs = torch.where((q == 1) | (q == 2), -xr, xr)
+    x2 = xr * xr
+    x3 = xs * x2
+    x4 = x2 * x2
+    k = lambda v: torch.full_like(x, v)
+    # sinf_poly: s1 = s2 + x2 s3, s = x + x3 s1, sin = s + x5 s1; c2 = c3 +
+    # x2 c4, c1 = c0 + x2 c1, c = c1 + x4 c2, cos = c + x6 c2
+    s1 = fma64(x2, k(_SC_S[2]), k(_SC_S[1]))
+    c2 = fma64(x2, k(_SC_C[4]), k(_SC_C[3]))
+    c1 = fma64(x2, k(_SC_C[1]), k(_SC_C[0]))
+    sp = fma64(x3 * x2, s1, fma64(x3, k(_SC_S[0]), xs)).float()
+    cp = fma64(x4 * x2, c2, fma64(x4, k(_SC_C[2]), c1)).float()
+    cp = torch.where((n & 2) != 0, -cp, cp)
+    odd = (n & 1) != 0
+    s, c = torch.where(odd, cp, sp), torch.where(odd, sp, cp)
+    tiny = top < 0x398
+    s = torch.where(tiny, t, s)
+    c = torch.where(tiny, torch.ones_like(c), c)
+    big = top >= 0x42F
+    s = torch.where(big, torch.sin(x).float(), s)
+    c = torch.where(big, torch.cos(x).float(), c)
+    return s.reshape(shape), c.reshape(shape)
 
 
 def libm_f32(name: str, values) -> "np.ndarray":

@@ -55,7 +55,8 @@ def planar_cut_form(path: str, grid, values_fn, axis: str = "z",
     (ref: DefaultCutsForm / PlanarCutsForm): values_fn(pos (N, 3)) -> (N,).
     The cut spans the grid's borders, or a tree's or Voronoi grid's box."""
     if type(grid).__name__ in ("Sphere2DGrid", "Sphere3DGrid",
-                               "Cylinder3DGrid", "TetraGrid"):
+                               "Cylinder3DGrid", "TetraGrid",
+                               "ClumpySphericalGrid"):
         raise NotImplementedError(f"planar cuts of a {type(grid).__name__} "
                                   "not ported yet")
     if hasattr(grid, "xb"):

@@ -1,6 +1,9 @@
 """Monte Carlo simulation orchestrator on PyTorch tensors.
 
-Port of `skirt9_tpu/simulation.py` on one device, on uniform and meshed
+Port of `skirt9_tpu/simulation.py` on one device or several (packet data
+parallelism, `parallel/dp.py`: a `group` shards every segment's histories
+over ranks that sum their partial accumulators once per segment), on
+uniform and meshed
 Cartesian grids, octrees and bintrees (on the tree sweep or their voxel
 raster, or walked by the scan march where no sweep takes them), and Voronoi
 grids, rasterized onto a voxel grid or walked exactly by the scan march
@@ -46,6 +49,7 @@ from .emission import equilibrium as eq
 from .grids.amr import AMRGrid
 from .grids.bintree import BinTreeGrid
 from .grids.cartesian import CartesianGrid, UniformCartesianGrid
+from .grids.clumpy import ClumpySphericalGrid
 from .grids.cylinder import Cylinder2DGrid
 from .grids.octree import OctreeGrid
 from .grids.polar import Cylinder3DGrid, Sphere2DGrid, Sphere3DGrid
@@ -69,10 +73,10 @@ from .utils.unitsystem import UnitSystem
 
 _GRIDS = (UniformCartesianGrid, CartesianGrid, OctreeGrid, BinTreeGrid,
           AMRGrid, VoronoiGrid, TetraGrid, Sphere1DGrid, Cylinder2DGrid,
-          Sphere2DGrid, Sphere3DGrid, Cylinder3DGrid)
+          Sphere2DGrid, Sphere3DGrid, Cylinder3DGrid, ClumpySphericalGrid)
 # grids that only the scan march walks, in the reference on every backend
 _MARCH_ONLY = (Sphere1DGrid, Cylinder2DGrid, Sphere2DGrid, Sphere3DGrid,
-               Cylinder3DGrid)
+               Cylinder3DGrid, ClumpySphericalGrid)
 
 
 @dataclasses.dataclass
@@ -86,7 +90,8 @@ class Simulation:
 
     grid: (UniformCartesianGrid | CartesianGrid | OctreeGrid | BinTreeGrid
            | AMRGrid | VoronoiGrid | TetraGrid | Sphere1DGrid | Cylinder2DGrid
-           | Sphere2DGrid | Sphere3DGrid | Cylinder3DGrid)
+           | Sphere2DGrid | Sphere3DGrid | Cylinder3DGrid
+           | ClumpySphericalGrid)
     medium: msys.MediumTables
     sources: list
     instruments: list           # list[DistantInstrumentCfg]
@@ -124,16 +129,23 @@ class Simulation:
     # life cycle's X-ray option reads, or None
     xray_tabs: dict | None = None
     device: object = dataclasses.field(default="cuda", kw_only=True)
+    # packet data parallelism: this rank's `parallel.dp.Group` (the
+    # reference's `mesh`), its device the simulation's; None is one device
+    group: object = dataclasses.field(default=None, kw_only=True)
 
     def __post_init__(self):
         self.device = dv.resolve(self.device)
+        if self.group is not None and self.group.device != self.device:
+            raise ValueError(f"rank {self.group.rank} runs on "
+                             f"{self.group.device}, the simulation on "
+                             f"{self.device}")
         lc.check_supported(self.options)
         if not isinstance(self.grid, _GRIDS):
             raise NotImplementedError(
                 f"grid {type(self.grid).__name__} not ported yet (Cartesian "
                 "grids, octrees, bintrees, adaptive meshes, Voronoi and "
                 "tetrahedral grids, 1D, 2D and 3D spheres, 2D and 3D "
-                "cylinders only)")
+                "cylinders and the clumpy sphere only)")
         if self.dust_emission_type != "Equilibrium":
             raise NotImplementedError(f"{self.dust_emission_type} dust "
                                       "emission not ported yet (Equilibrium)")
@@ -193,9 +205,9 @@ class Simulation:
         where the grid's `leafmap` is None, and an AMR grid has no such
         field): it locates by its own descent. A Voronoi grid keeps its
         own locate, as in the reference (`:203-206`), and so does a
-        tetrahedral grid, rasterized or walked the same way. The spheres
-        and cylinders go to the march outright: every sweep's `supports`
-        declines them, as the reference's do."""
+        tetrahedral grid, rasterized or walked the same way. The spheres,
+        the cylinders and the clumpy sphere go to the march outright:
+        every sweep's `supports` declines them, as the reference's do."""
         if isinstance(self.grid, _MARCH_ONLY):
             _log().info(f"transport: {type(self.grid).__name__} "
                         f"({self.grid.ncells} cells) walked by the scan "
@@ -340,20 +352,31 @@ class Simulation:
                                 side="right")) - 1
         return min(max(b, 0), R - 1)
 
+    def _ranks(self) -> tuple[int, int]:
+        """(D, r): the number of ranks and this one's (1, 0 alone)."""
+        g = self.group
+        return (1, 0) if g is None else (g.size, g.rank)
+
     def _stratify(self, strata, stabs, opts, n_packets: int):
         """The reference's bin-pure batch layout (`skirt9_tpu/simulation.py:
-        601-641`): the batch rounded to 1024-lane blocks per stratum, the
-        strata and their valid-lane corrections in the source tables, and a
-        history permutation that interleaves histories across strata, so a
-        partial batch samples every stratum. Returns (B, stabs, opts,
-        history permutation)."""
+        601-641`): the batch rounded to 1024-lane blocks per stratum on each
+        of the D ranks, the strata and their valid-lane corrections (over
+        the whole batch) in the source tables, and a history permutation
+        that interleaves histories across the strata of each rank's block,
+        so a partial batch samples every stratum. Returns (B, stabs, opts,
+        history permutation of the whole batch)."""
         borders, bin_map = strata
         R_g = len(bin_map)
+        D, _ = self._ranks()
         opts = dataclasses.replace(opts, rf_strata=R_g, rf_bin_map=bin_map)
-        B = max(1, round(self.batch_size / (1024 * R_g))) * 1024 * R_g
+        B = max(1, round(self.batch_size / (D * 1024 * R_g))) \
+            * D * 1024 * R_g
+        Bd = B // D
         lanes = np.arange(B, dtype=np.int64)
-        s_np = (lanes * R_g) // B
-        hist_perm = (lanes - s_np * (B // R_g)) * R_g + s_np
+        li = lanes % Bd
+        s_np = (li * R_g) // Bd
+        hist_perm = (lanes // Bd) * Bd + (li - s_np * (Bd // R_g)) * R_g \
+            + s_np
         n_valid = np.zeros(R_g, np.int64)
         for b in range(-(-n_packets // B)):
             valid = (b * B + hist_perm) < n_packets
@@ -371,31 +394,59 @@ class Simulation:
         batch; lanes past the range carry no weight. On the XL contracts
         the segment's deposits sum in an f64 table that the RF takes once,
         rounded, at its end: kernel 7 adds into it, and an event that
-        leaves a point source puts 10^3-10^4 deposits into each hot cell."""
-        if rf is not None and isinstance(self._sweep_tabs, xl.XLTables):
-            rf_seg, accs = self._run_batches(
-                source, stabs, opts, n_packets, seed_key,
-                torch.zeros(rf.shape, dtype=torch.float64, device=rf.device),
-                accs, hist_base)
-            rf += rf_seg.float()
-            return rf, accs
-        return self._run_batches(source, stabs, opts, n_packets, seed_key, rf,
-                                 accs, hist_base)
+        leaves a point source puts 10^3-10^4 deposits into each hot cell.
+        Under packet data parallelism each rank runs its lanes into
+        partial accumulators from zero, and one all_reduce per segment
+        sums them into rf and accs on every rank (the reference's
+        `skirt9_tpu/simulation.py:652-667`)."""
+        xl_rf = rf is not None and isinstance(self._sweep_tabs, xl.XLTables)
+        if self.group is None and not xl_rf:
+            return self._run_batches(source, stabs, opts, n_packets,
+                                     seed_key, rf, accs, hist_base)
+        part_rf = None if rf is None else torch.zeros(
+            rf.shape, dtype=torch.float64 if xl_rf else rf.dtype,
+            device=rf.device)
+        part_accs = accs if self.group is None else [
+            {k: torch.zeros_like(v) for k, v in a.items()} for a in accs]
+        part_rf, part_accs = self._run_batches(
+            source, stabs, opts, n_packets, seed_key, part_rf, part_accs,
+            hist_base)
+        if self.group is None:
+            accs = part_accs
+        else:
+            self.group.all_reduce(
+                ([] if part_rf is None else [part_rf])
+                + [t for _, _, t in self._acc_leaves(part_accs)])
+            for a, p in zip(accs, part_accs):
+                for k in a:
+                    a[k] += p[k]
+        if rf is not None:
+            rf += part_rf.to(rf.dtype)
+        return rf, accs
 
     def _run_batches(self, source, stabs, opts, n_packets, seed_key, rf, accs,
                      hist_base):
+        """The segment's batches on this rank: rank r of D takes lanes
+        [r B/D, (r+1) B/D) of each batch of B (B rounded to D 128-lane
+        blocks under data parallelism, as the reference's sweep needs)."""
+        D, r = self._ranks()
         B = self.batch_size
-        lanes = torch.arange(B, dtype=torch.int64, device=self.device)
+        if self.group is not None:
+            B = -(-B // (D * 128)) * (D * 128)
+        perm = torch.arange(B, dtype=torch.int64, device=self.device)
         strata = self._strata_for(source, opts)
         if strata is not None:
-            B, stabs, opts, lanes = self._stratify(strata, stabs, opts,
-                                                   n_packets)
+            B, stabs, opts, perm = self._stratify(strata, stabs, opts,
+                                                  n_packets)
         elif self._mono_rf_bin(source, opts) >= 0:
             opts = dataclasses.replace(
                 opts, rf_mono_bin=self._mono_rf_bin(source, opts))
         if self.refill_events > 0 and strata is None:
             return self._run_segment_refilled(source, stabs, opts, n_packets,
-                                              seed_key, rf, accs, hist_base)
+                                              seed_key, rf, accs, hist_base,
+                                              B)
+        Bd = B // D
+        lanes = perm[r * Bd:(r + 1) * Bd]
         hist_end = hist_base + n_packets
         for b in range(-(-n_packets // B)):
             history = hist_base + b * B + lanes
@@ -411,40 +462,46 @@ class Simulation:
         return rf, accs
 
     def _run_segment_refilled(self, source, stabs, opts, n_packets, seed_key,
-                              rf, accs, hist_base):
+                              rf, accs, hist_base, B):
         """Generation loop with in-place lane refill (the reference's
-        `_run_segment_refilled`, `skirt9_tpu/simulation.py:685-846`, on one
-        device). Each generation runs up to refill_events events on the
-        resident batch, after its dead lanes took the next histories in lane
-        order. Per-lane RNG event counters keep every packet's draws those
-        of an unrefilled run, and the emission peel-off fires for the
-        freshly launched lanes only. The refill runs on the device; the
-        loop runs on the host, with one sync per generation (the count of
-        alive lanes, from which the next history and the loop condition
-        follow) beside the event loop's own."""
-        B = self.batch_size
+        `_run_segment_refilled`, `skirt9_tpu/simulation.py:685-846`). Each
+        generation runs up to refill_events events on the resident batch,
+        after its dead lanes took the next histories in lane order. Per-lane
+        RNG event counters keep every packet's draws those of an unrefilled
+        run, and the emission peel-off fires for the freshly launched lanes
+        only. The refill runs on the device; the loop runs on the host, with
+        one sync per generation (the count of alive lanes, from which the
+        next history and the loop condition follow) beside the event loop's
+        own. Under data parallelism rank r of D keeps B/D resident lanes
+        and refills from its own range of ceil(n / D) histories, as the
+        reference's sharded refill does."""
+        D, r = self._ranks()
+        lanes = B // D
+        npd = -(-n_packets // D)
         K = self.refill_events
-        hist_end = hist_base + n_packets
+        hist_lo = hist_base + r * npd
+        hist_end = min(hist_lo + npd, hist_base + n_packets)
         # lanes die by the weight cutoff; allow generous but finite
         # lifetimes (a pure scatterer would otherwise spin forever)
-        max_gens = (n_packets // B + 2) * (
+        max_gens = (npd // lanes + 2) * (
             max(4 * self.options.max_events, 64) // K + 2)
         opts_k = dataclasses.replace(opts, max_events=K)
         launch = lambda history: src.launch_batch(
             source, stabs, self.grid, seed_key, history, n_packets,
             hist_end=hist_end)
         # every lane starts dead at the sentinel history, with weight 0
-        pkt = launch(torch.full((B,), hist_end, dtype=torch.int64,
+        pkt = launch(torch.full((lanes,), hist_end, dtype=torch.int64,
                                 device=self.device))
         stats = self.last_stats
-        next_hist, n_alive, gens = hist_base, 0, 0
+        next_hist, n_alive, gens = hist_lo, 0, 0
         while (next_hist < hist_end or n_alive > 0) and gens < max_gens:
             dead = ~pkt.alive
             new_hist = next_hist + torch.cumsum(dead, 0) - 1
             refill = dead & (new_hist < hist_end)
             fresh = launch(torch.where(refill, new_hist, hist_end))
             pkt = type(pkt)(*(
-                torch.where(refill.view((B,) + (1,) * (a.dim() - 1)), a, b)
+                torch.where(refill.view((lanes,) + (1,) * (a.dim() - 1)), a,
+                            b)
                 for a, b in zip(fresh, pkt)))
             rf, accs, pkt = lc.life_cycle(
                 self.medium, opts_k, self.instruments, self._inst_tabs,
@@ -452,11 +509,11 @@ class Simulation:
                 stats=stats, emit_mask=refill, return_state=True,
                 mueller=self.mueller, xray_tabs=self.xray_tabs,
                 grid=self.grid)
-            next_hist += min(B - n_alive, hist_end - next_hist)
+            next_hist += min(lanes - n_alive, hist_end - next_hist)
             n_alive = int(pkt.alive.sum())
             stats["syncs"] = stats.get("syncs", 0) + 1
             gens += 1
-            _log().progress(next_hist - hist_base, n_packets)
+            _log().progress(next_hist - hist_lo, hist_end - hist_lo)
         stats["generations"] = stats.get("generations", 0) + gens
         left = n_alive + (hist_end - next_hist)
         stats["abandoned"] = stats.get("abandoned", 0) + left
@@ -751,8 +808,9 @@ class Simulation:
     def _save_checkpoint(self, rf_prim, rf_total, accs, L_abs_prev,
                          L_prim_abs, iterations):
         """Persist the state between emission segments (.npz, atomic
-        swap)."""
-        if not self.checkpoint_path:
+        swap), by rank 0 alone under data parallelism."""
+        if not self.checkpoint_path or (self.group is not None
+                                        and not self.group.writes):
             return
         host = lambda t: t.detach().cpu().numpy()
         payload = {f"acc{i}_{k}": host(t) for i, k, t in self._acc_leaves(accs)}

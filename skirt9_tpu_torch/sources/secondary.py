@@ -186,17 +186,19 @@ def prepare_device(grid, L_cell: torch.Tensor, eps: torch.Tensor, ems_borders,
 def cell_bounds(grid):
     """Axis-aligned bounds (lo, hi) per cell, (ncells, 3) each, for
     position sampling: the voxels of a uniform grid, the leaves of a tree,
-    a Voronoi cell's exact bounding box. In a Voronoi cell's box the launch
-    is uniform, as in the reference (`skirt9_tpu/sources/secondary.py:177,
-    241-246`), so a packet may start in a neighbouring cell. Dust
-    emission on a 1D sphere or a 2D cylinder is not ported: the reference
-    launches a shell's packets in its bounding cube, and on the cylinder
-    has no cell bounds at all, nor on the 2D and 3D spheres, the 3D
-    cylinder and the tetrahedral grid (`skirt9_tpu/sources/secondary.py:
-    241-255` fails on them)."""
-    if type(grid).__name__ in ("Sphere1DGrid", "Cylinder2DGrid",
-                               "Sphere2DGrid", "Sphere3DGrid",
-                               "Cylinder3DGrid", "TetraGrid"):
+    a Voronoi cell's exact bounding box, a 1D sphere's shell's bounding
+    cube. In a Voronoi cell's box and a shell's cube the launch is uniform,
+    as in the reference (`skirt9_tpu/sources/secondary.py:177, 241-246`),
+    so a packet may start in another cell, or outside the sphere, whence
+    the launch's `move_inside` carries it along its direction to the outer
+    shell (or it misses and carries nothing), as the reference's does. The
+    reference has no cell bounds on the 2D cylinder, the 2D and 3D spheres,
+    the 3D cylinder, the tetrahedral grid and the clumpy sphere, and its
+    dust emission fails on them (`skirt9_tpu/sources/secondary.py:
+    241-255`); the port raises, naming the grid."""
+    if type(grid).__name__ in ("Cylinder2DGrid", "Sphere2DGrid",
+                               "Sphere3DGrid", "Cylinder3DGrid", "TetraGrid",
+                               "ClumpySphericalGrid"):
         raise NotImplementedError(f"DustEmission on a {type(grid).__name__} "
                                   "not ported yet")
     return grid.cell_bounds()

@@ -473,8 +473,9 @@ def polarized_scatter(pkt, mueller, h, u_ct, u_phi):
     ct = stk.sample_costheta(mueller, h, u_ct)
     S11, S12, S33, S34 = stk.mueller_at(mueller, h, ct)
     phi = stk.sample_azimuth(S11, S12, pkt.stokes, u_phi)
-    n_rot = (torch.cos(phi)[:, None] * pkt.normal
-             + torch.sin(phi)[:, None] * torch.cross(pkt.dir, pkt.normal,
+    sp, cp = xm.sincos(phi)
+    n_rot = (cp[:, None] * pkt.normal
+             + sp[:, None] * torch.cross(pkt.dir, pkt.normal,
                                                      dim=-1))
     m = torch.cross(n_rot, pkt.dir, dim=-1)
     st = torch.sqrt(torch.clamp_min(1.0 - ct * ct, 0.0))
@@ -901,7 +902,7 @@ def lya_event(med: msys.MediumTables, opts: TransportOptions, keys, u: dict,
             xc = torch.full_like(x_in, opts.lya_xcrit)
         mag = torch.sqrt(xc * xc - torch.log(u[_TAG_LYA_SKIP_R]))
         up1 = torch.where(torch.abs(x_in) < xc,
-                          mag * torch.cos((2.0 * math.pi) * u[_TAG_LYA_SKIP_A]),
+                          mag * xm.cos((2.0 * math.pi) * u[_TAG_LYA_SKIP_A]),
                           up1)
     core = (torch.abs(x_in - u_par) <= 0.2) & (u[_TAG_LYA_DIPOLE] >= 1.0 / 3.0)
     u_ct = u[_TAG_SCATTER_CT]

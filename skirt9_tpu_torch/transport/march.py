@@ -11,11 +11,13 @@ interaction point, is dense tensor math on those tables.
 the march kernel (`csrc/march.cu`, one thread per lane, in the mode of the
 grid: `march_uniform`, `march_mesh`, `march_voronoi`, `march_octree`,
 `march_bintree`, `march_sphere1d`, `march_cylinder2d`, `march_amr`,
-`march_tetra`, `march_sphere2d`, `march_sphere3d` or `march_cylinder3d`;
+`march_tetra`, `march_sphere2d`, `march_sphere3d`, `march_cylinder3d` or
+`march_clumpy`;
 a tree's or an adaptive mesh's node tables go in whole, and each step
 descends from the root, as the reference's does, whether or not a leaf map
 is attached; a curvilinear or polar grid's border tables are staged in
-shared memory, a polar grid's with the cosines and sines of its angles);
+shared memory, a polar grid's with the cosines and sines of its angles,
+the clumpy sphere's with its clumps beside them);
 on a CPU tensor its
 plain version, a loop of the grid's `step` over the steps. Both follow
 the reference's f32 operations, with XLA's CPU fusions replayed, so that
@@ -36,6 +38,7 @@ import torch
 from ..grids.amr import AMRGrid
 from ..grids.bintree import BinTreeGrid
 from ..grids.cartesian import CartesianGrid, UniformCartesianGrid
+from ..grids.clumpy import ClumpySphericalGrid
 from ..grids.cylinder import Cylinder2DGrid
 from ..grids.octree import OctreeGrid
 from ..grids.polar import Cylinder3DGrid, Sphere2DGrid, Sphere3DGrid
@@ -55,7 +58,8 @@ MODES = {UniformCartesianGrid: "march_uniform", CartesianGrid: "march_mesh",
          BinTreeGrid: "march_bintree", Sphere1DGrid: "march_sphere1d",
          Cylinder2DGrid: "march_cylinder2d", AMRGrid: "march_amr",
          TetraGrid: "march_tetra", Sphere2DGrid: "march_sphere2d",
-         Sphere3DGrid: "march_sphere3d", Cylinder3DGrid: "march_cylinder3d"}
+         Sphere3DGrid: "march_sphere3d", Cylinder3DGrid: "march_cylinder3d",
+         ClumpySphericalGrid: "march_clumpy"}
 # the polar modes' kind in march_polar_launch
 _POLAR = {"march_sphere2d": 0, "march_sphere3d": 1, "march_cylinder3d": 2}
 _MODE_IDS = {"march_uniform": 0, "march_mesh": 1, "march_voronoi": 2}
@@ -67,7 +71,8 @@ def _check(grid, pos0, dirn, cell0, max_steps: int, mask) -> None:
         raise NotImplementedError(
             f"the scan march on a {type(grid).__name__} is not ported yet "
             "(it walks Cartesian grids, octrees, bintrees, adaptive meshes, "
-            "Voronoi and tetrahedral grids, spheres and cylinders)")
+            "Voronoi and tetrahedral grids, spheres, cylinders and the "
+            "clumpy sphere)")
     if pos0.shape != (B, 3) or dirn.shape != (B, 3) or cell0.shape != (B,) \
             or mask.shape != (B,):
         raise ValueError(f"pos0 {tuple(pos0.shape)}, dirn "
@@ -79,22 +84,24 @@ def _check(grid, pos0, dirn, cell0, max_steps: int, mask) -> None:
 
 
 def march_geometry_plain(grid, pos0, dirn, cell0, max_steps: int, mask):
-    """The plain version of `march_geometry`: the grid's `step` per step,
-    ending early once every lane has left the grid."""
+    """The plain version of `march_geometry`: the grid's `step` per step on
+    the lanes still inside the grid (a step is lane by lane), ending once
+    every lane has left it."""
     _check(grid, pos0, dirn, cell0, max_steps, mask)
     B = pos0.shape[0]
     cells = torch.zeros((max_steps, B), dtype=torch.int32,
                         device=pos0.device)
     ds = torch.zeros((max_steps, B), dtype=torch.float32, device=pos0.device)
-    p = pos0
+    p = pos0.clone()
     c = torch.where(mask, cell0.to(torch.int64), -1)
     for s in range(max_steps):
-        if not bool((c >= 0).any()):
+        live = torch.nonzero(c >= 0).squeeze(1)
+        if live.numel() == 0:
             break
-        step, nc, np_ = grid.step(p, dirn, c)
-        cells[s] = torch.clamp_min(c, 0).to(torch.int32)
-        ds[s] = step
-        p, c = np_, nc
+        step, nc, np_ = grid.step(p[live], dirn[live], c[live])
+        cells[s, live] = c[live].to(torch.int32)
+        ds[s, live] = step
+        p[live], c[live] = np_, nc
     return cells, ds
 
 
@@ -146,6 +153,20 @@ def _march_cuda(grid, pos0, dirn, cell0, max_steps: int, mask):
                   cells.data_ptr(), ds.data_ptr(), B, max_steps, grid.nr,
                   *counts, _POLAR[mode], grid.shift, kb.stream_of(pos0),
                   count_as=mode)
+        return cells, ds
+    if mode == "march_clumpy":
+        # the Sphere3D tables as march_polar packs them, then the clumps
+        # (x, y, z, r), every length times 2^-shift
+        sph, s = grid.sph, 2.0 ** -grid.shift
+        clumps = torch.cat([grid.ccen, grid.crad[:, None]], dim=1) * s
+        tabs = f32(torch.cat([t.to(dev).reshape(-1) for t in (
+            sph.rb * s, sph.tb, sph.cos_t, sph.pb, sph.cos_p, sph.sin_p,
+            clumps)]))
+        kb.launch("march_clumpy", pos0.data_ptr(), dirn.data_ptr(),
+                  cell0.data_ptr(), mask.data_ptr(), tabs.data_ptr(),
+                  cells.data_ptr(), ds.data_ptr(), B, max_steps, sph.nr,
+                  sph.nt, sph.nphi, grid.n_clumps, grid.shift,
+                  kb.stream_of(pos0), count_as=mode)
         return cells, ds
     if mode == "march_amr":
         i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()

@@ -131,12 +131,13 @@ def default() -> Log:
     return _default
 
 
-def configure(prefix: str, outdir: str = ".", level: str = "info") -> Log:
+def configure(prefix: str, outdir: str | None = ".",
+              level: str = "info") -> Log:
     """Install a file-backed default logger: `<outdir>/<prefix>_log.txt`
-    (ref: FileLog naming)."""
+    (ref: FileLog naming); outdir None logs to the console alone."""
     global _default
     if _default is not None:
         _default.close()
-    _default = Log(level=level,
-                   path=os.path.join(outdir, f"{prefix}_log.txt"))
+    _default = Log(level=level, path=None if outdir is None else
+                   os.path.join(outdir, f"{prefix}_log.txt"))
     return _default

@@ -31,7 +31,7 @@ def deviation(name: str) -> tuple:
                        batch_size=1024, max_events=1)
     nd = np.asarray(sim.medium.nd, np.float64)[:, 0]
     n_grid = float((nd * np.asarray(sim.grid.volumes(), np.float64)).sum())
-    number = chip_smoke.torus_number() if name.startswith("torus") else \
+    number = chip_smoke.torus_number() if "torus" in name else \
         chip_smoke.dust_disk_number()
     return sim.grid.ncells, n_grid / number - 1
 

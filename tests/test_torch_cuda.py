@@ -1844,7 +1844,8 @@ def _march_rays(dev, mode, B, seed):
     from skirt9_tpu_torch.grids.voronoi import build_voronoi
     rs = np.random.default_rng(seed)
     ext = ((-1.2 * PC, 1.2 * PC),) * 3
-    if mode.startswith(("sphere2d", "sphere3d", "cylinder3d", "tetra")):
+    if mode.startswith(("sphere2d", "sphere3d", "cylinder3d", "tetra",
+                        "clumpy")):
         return _polar_rays(dev, mode, B, rs)
     if mode.startswith(("sphere", "cylinder")):
         from skirt9_tpu_torch.grids import meshes
@@ -1917,8 +1918,10 @@ def _polar_rays(dev, mode, B, rs):
     card: random rays from inside and outside, an eighth along the axes, a
     tenth of the lanes masked off; power-law radial and cosine-spaced
     polar meshes; _kpc at 25 kpc (shift 10); sphere2d_global with tables
-    past 48 KB (read from global memory); tetra from 2,000 sites."""
-    from skirt9_tpu_torch.grids import meshes, polar, tetra
+    past 48 KB (read from global memory); tetra from 2,000 sites; clumpy a
+    3D sphere with 300 seeded clumps (staged), clumpy_global with ~6,000
+    (past 48 KB: the clumps through the read-only cache)."""
+    from skirt9_tpu_torch.grids import clumpy, meshes, polar, tetra
     unit = 2.5e4 if mode.endswith("_kpc") else 1.0
     R = 1.2 * PC * unit
     rb = meshes.scale(meshes.pow_mesh(40, 20.0), 0.0, R)
@@ -1932,6 +1935,15 @@ def _polar_rays(dev, mode, B, rs):
         grid = polar.make_sphere2d(R, 40, 24, rb=rb, tb=tb)
     elif mode.startswith("sphere3d"):
         grid = polar.make_sphere3d(R, 40, 24, 16, rb=rb, tb=tb)
+    elif mode.startswith("clumpy"):
+        n = 6000 if mode.endswith("_global") else 300
+        cen = rs.uniform(-0.85 * R, 0.85 * R, (n, 3))
+        rad = rs.uniform(0.004, 0.008, n) * R if n > 300 else \
+            rs.uniform(0.01, 0.06, n) * R
+        grid = clumpy.make_clumpy_spherical(R, 40, 24, 16, cen, rad, rb=rb,
+                                            tb=tb, overlap_samples=200,
+                                            device=dev)
+        assert (4 * grid.n_clumps > 12 * 1024) == (n > 300)
     else:
         zb = meshes.scale(meshes.sym_pow_mesh(30, 8.0), -0.5 * R, 0.5 * R)
         grid = polar.make_cylinder3d(R, -0.5 * R, 0.5 * R, 40, 16, 30,
@@ -1947,6 +1959,28 @@ def _polar_rays(dev, mode, B, rs):
     pos, cell, _ = grid.move_inside(pos, d)
     mask = torch.tensor(rs.uniform(size=B) < 0.9, device=dev)
     return grid, pos, d, cell, mask
+
+
+def test_sincos_kernel(dev):
+    """glibc's sinf and cosf on the card (csrc/sincos.cu) against the plain
+    version on the same CUDA tensor, bit for bit, one launch: seeded
+    arguments in [-4 pi, 4 pi], past 120, and the edges of every branch."""
+    from skirt9_tpu_torch.ops import xlamath as xm
+    rs = np.random.default_rng(13)
+    x = np.concatenate([rs.uniform(-4 * np.pi, 4 * np.pi, 1 << 18),
+                        rs.uniform(-1e6, 1e6, 4096),
+                        [0.0, -0.0, 1e-40, 2.0 ** -12, 0.75, 119.99, 120.0,
+                         np.nan]]).astype(np.float32)
+    t = torch.tensor(x, device=dev)
+    kb.reset_launches()
+    s, c = xm.sincos(t)
+    assert kb.LAUNCHES["sincos"] == 1 and sum(kb.LAUNCHES.values()) == 1
+    ps, pc = xm.sincos_plain(t)
+    assert torch.equal(s.view(torch.int32), ps.view(torch.int32))
+    assert torch.equal(c.view(torch.int32), pc.view(torch.int32))
+    cs, cc = xm.sincos_plain(t.cpu())
+    assert torch.equal(s.cpu()[:1 << 18], cs[:1 << 18])
+    assert torch.equal(c.cpu()[:1 << 18], cc[:1 << 18])
 
 
 def _amr_grid(mode, directory):
@@ -1998,7 +2032,8 @@ def _amr_rays(dev, mode, B, rs):
                                   "amr_deep", "amr_galaxy", "tetra",
                                   "sphere2d", "sphere2d_global", "sphere3d",
                                   "sphere3d_kpc", "cylinder3d",
-                                  "cylinder3d_kpc"])
+                                  "cylinder3d_kpc", "clumpy",
+                                  "clumpy_global", "clumpy_kpc"])
 def test_march_kernel(dev, mode):
     """The march kernel against its plain version on the same CUDA tensors:
     one launch under its mode's counter, cells and step lengths bit for
@@ -2026,7 +2061,8 @@ def test_march_kernel(dev, mode):
                                   "decorated_cyl", "torus_sphere2d_small",
                                   "spiral_sphere3d_small",
                                   "spiral_cylinder3d_small",
-                                  "tetra_galaxy_march_small"])
+                                  "tetra_galaxy_march_small",
+                                  "clumpy_torus_small"])
 def test_march_on_cuda_matches_cpu(dev, name, tmp_path):
     """A reduced march configuration (chip_smoke.MARCH_SMALL; its bench3
     with explicit absorption, whose raster's XL tables the gate declines,
@@ -2047,8 +2083,9 @@ def test_march_on_cuda_matches_cpu(dev, name, tmp_path):
         outs[str(d)] = (sim.run_with_dust_emission(verbose=False) if dust
                         else sim.run_primary(verbose=False))
     n = dict(kb.LAUNCHES)
-    cs.march_gaps(outs["cpu"], outs[str(dev)], dust,
-                  cs.MESH_BOUNDS.get(case))
+    gaps = cs.march_gaps(outs["cpu"], outs[str(dev)], dust,
+                         cs.MESH_BOUNDS.get(case))
+    print(f"march_gaps {case}: {gaps}")
     from skirt9_tpu_torch.transport import march as mr
     (mode,) = cs.MARCH_SMALL[case][4] if case in cs.MARCH_SMALL else (
         mr.MODES[type(sim.grid)],)

@@ -18,7 +18,8 @@ against the reference, on the CPU with one torch thread.
   reference's curvilinear steps overflow f32 past 0.6 kpc, so the cylinder
   configuration is held against it with every length 1000-fold smaller
   (`unit="pc"`); the uniform grid and the tree at their own size.
-- DustEmission on the new grids raises, naming itself.
+- DustEmission on the 2D cylinder raises, naming itself; on the 1D
+  sphere it loads, its shells launching in their bounding cubes.
 """
 
 import dataclasses
@@ -39,6 +40,7 @@ from skirt9_tpu_torch.config.ski import load_ski
 from skirt9_tpu_torch.grids import cylinder as cyl
 from skirt9_tpu_torch.grids import sphere as sph
 from skirt9_tpu_torch.kernels import build as kb
+from skirt9_tpu_torch.sources import secondary as sec
 from skirt9_tpu_torch.transport import march as mr
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -240,9 +242,22 @@ def test_decorated_sources_run(tmp_path):
 @pytest.mark.parametrize("grid", ["Sphere1DSpatialGrid",
                                   "Cylinder2DSpatialGrid"])
 def test_dust_emission_on_new_grids_raises(grid, tmp_path):
-    path = chip_smoke.geometric_ski(
-        "ivezic_sphere1d" if grid.startswith("Sphere") else "disk_cyl_small",
-        tmp_path)
+    """DustEmission on the 2D cylinder raises, naming it (the reference has
+    no cell bounds there); on the 1D sphere it loads and launches in each
+    shell's bounding cube, as the reference does
+    (tests/test_torch_dust1d.py runs it against the reference)."""
+    if grid.startswith("Sphere"):
+        sim = load_ski(chip_smoke.geometric_ski("ivezic_dust_small",
+                                                tmp_path),
+                       device="cpu", num_packets=128)
+        assert type(sim.grid).__name__ == "Sphere1DGrid"
+        assert sim.ems_borders is not None
+        lo, hi = sec.cell_bounds(sim.grid)
+        r = sim.grid.rb.double().numpy()[1:]
+        assert np.array_equal(hi, np.stack([r] * 3, -1))
+        assert np.array_equal(lo, -hi)
+        return
+    path = chip_smoke.geometric_ski("disk_cyl_small", tmp_path)
     text = open(path).read()
     mode = 'simulationMode="OligoExtinctionOnly"' if "Sphere" in grid else \
         'simulationMode="ExtinctionOnly"'

@@ -52,6 +52,7 @@ from skirt9_tpu_torch.media import geometric as gm
 from skirt9_tpu_torch.media import mixes as mx
 from skirt9_tpu_torch.ops import planck
 from skirt9_tpu_torch.ops import rng
+from skirt9_tpu_torch.ops import xlamath as xm
 from skirt9_tpu_torch.sources import base as src
 from skirt9_tpu_torch.sources import secondary as sec
 from skirt9_tpu_torch.spectral import seds
@@ -156,7 +157,9 @@ def test_sample_wavelength(xi):
                             wavelength_bias=xi)
     r_src = ref_src.PointSource(luminosity=3.0, sed=_bench2_sed(True),
                                 wavelength_bias=xi)
-    f_p = p_src.launch(p_src.tables("cpu"), pk, B)
+    # the reference runs op by op here, outside jax.jit: so does the port
+    with xm.eager():
+        f_p = p_src.launch(p_src.tables("cpu"), pk, B)
     f_r = r_src.launch(r_src.tables(), rk, B)
     for k in ("lam", "dir"):
         _close(f_p[k], f_r[k], 1e-6, k)
@@ -339,7 +342,10 @@ def test_secondary_launch(emission_case, stratified, on_device):
         rt.update(strata=jnp.asarray(borders, jnp.float32),
                   strata_w=jnp.asarray(w, jnp.float32))
     rk, pk = _keys(B, seed=11)
-    f_p, f_r = s_p.launch(pt, pk, B), s_r.launch(rt, rk, B)
+    # the reference runs op by op here, outside jax.jit: so does the port
+    with xm.eager():
+        f_p = s_p.launch(pt, pk, B)
+    f_r = s_r.launch(rt, rk, B)
     for k in ("lam", "lum", "pos", "dir"):
         _close(f_p[k], f_r[k], 1e-5, k)
     assert kb.LAUNCHES == {k: 0 for k in kb.LAUNCHES}

@@ -6,14 +6,16 @@ launches no kernel on the CPU: the grids and the imports
   bench4.ski's set-up through the CLI (the star particles, their SSP
   family and the imported Voronoi mesh);
 - geometric_snapshots: a geometric source (an exponential disk and a
-  flattened Sersic bulge) on the 2D cylinder march, and the reduced
+  flattened Sersic bulge) on the 2D cylinder march, the Ivezic shell's
+  dust emission on the 1D sphere, and the reduced
   imported snapshots (an AMR galaxy on the tree sweep with dust emission
   and under a 3 3 3 root on the march, an SPH galaxy's octree);
 - polar_tetra: the reduced configurations of the polar and unstructured
   grids (`chip_smoke.MESHES`): the AGN torus on the 2D sphere, the spiral
   galaxy on the 3D sphere and the 3D cylinder, the disk on a tetrahedral
-  mesh of density-sampled sites on its raster and on the march, and on a
-  relaxed Voronoi mesh with dust emission.
+  mesh of density-sampled sites on its raster and on the march, on a
+  relaxed Voronoi mesh with dust emission, and the torus on the clumpy
+  sphere.
 """
 
 import pytest
@@ -54,6 +56,11 @@ with tempfile.TemporaryDirectory() as tmp:
                    device="cpu")
     rf, accs = sim.run_primary(verbose=False)
     assert float(rf.sum()) > 0 and float(accs[0]["sed"][1].sum()) > 0
+    sim = load_ski(chip_smoke.geometric_ski("ivezic_dust_small", tmp),
+                   num_packets=256, batch_size=256, max_events=2,
+                   device="cpu")
+    rf, accs, info = sim.run_with_dust_emission(verbose=False)
+    assert info["L_dust"] > 0 and float(accs[0]["sed"][3].sum()) > 0
 with tempfile.TemporaryDirectory() as tmp:
     for name in ("amr_galaxy_small", "amr_galaxy_march_small",
                  "sph_galaxy_small"):
@@ -72,11 +79,13 @@ with tempfile.TemporaryDirectory() as tmp:
 with tempfile.TemporaryDirectory() as tmp:
     for name in ("torus_sphere2d_small", "spiral_sphere3d_small",
                  "spiral_cylinder3d_small", "tetra_galaxy_small",
-                 "tetra_galaxy_march_small", "voronoi_density_small"):
+                 "tetra_galaxy_march_small", "voronoi_density_small",
+                 "clumpy_torus_small"):
         sim = chip_smoke.mesh_config(name, "cpu", tmp, num_packets=128,
                                      batch_size=128, max_events=2)
         assert (sim._sweep_tabs is None) == ("sphere" in name or "cylinder"
-                                             in name or "march" in name)
+                                             in name or "march" in name
+                                             or "clumpy" in name)
         if sim.ems_borders is None:
             rf, accs = sim.run_primary(verbose=False)
         else:
