@@ -7683,8 +7683,8 @@ def phase_kernels_sincos(torch) -> dict:
     config 1's launch azimuths (2^17 lanes, 2 pi times a uniform) with the
     edge values of every branch and arguments past 120. Timed by CUDA
     events and the profiler; the bound from its bytes (4 in, 8 out a
-    value; its ~40 f64 operations a value have no rate in the published
-    table of the measurement guide)."""
+    value; its ~40 f64 operations a value have no rate in the H100's
+    table of peak rates)."""
     from skirt9_tpu_torch.kernels import build as kb
     from skirt9_tpu_torch.ops import xlamath as xm
     rs = np.random.default_rng(47)
