@@ -1321,13 +1321,16 @@ ML = ML_PASS1 + ("mlsweep_deposit",)
 # takes kernels 1, 2, 4, 6 and 7 in their fused modes, never in the
 # reference's
 DETECT = ("detect",)
+# the launch directions' sinf and cosf and the HG scattering direction
+# (csrc/sincos.cu), on every path that launches and scatters
+DIRECTIONS = ("sincos", "hg_direction")
 NOT_PATH = ("sweep_dtau", "sweep_deposit", "sweepxl_dtau", "sweepxl_deposit",
             "mlsweep_dtau", "scatter_add")
 
 
 def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
-                     must=RESIDENT + DETECT, must_not=XL + ML + NOT_PATH,
-                     **kw):
+                     must=RESIDENT + DETECT + DIRECTIONS,
+                     must_not=XL + ML + NOT_PATH, **kw):
     """A config-1 path at full width, timed after one warm-up run, with the
     correctness gates. kw: config1's arguments (grid size, packets)."""
     sim = config1("cuda", **kw)
@@ -6040,8 +6043,6 @@ def column_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
     the polar grids and the tetrahedral mesh toward instrument inst
     (walk_tau)."""
     import torch
-    if type(sim.grid).__name__ == "ClumpySphericalGrid":
-        return march_tau(sim, lam, inst)[0]
     if type(sim.grid).__name__ in ("Sphere2DGrid", "Sphere3DGrid",
                                    "Cylinder3DGrid", "TetraGrid"):
         return walk_tau(sim, lam, inst)
@@ -6059,35 +6060,42 @@ def column_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
 
 
 def march_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> tuple:
-    """(tau, reach): the optical depth at lam from the centre toward
-    instrument inst summed in f64 on the host over the grid's own march
-    from the centre (the march kernel on the card), and the share of the
-    grid's radius that march covers. The clumpy sphere's step, the
-    reference's bit for bit, locates its structured cell at the moved
-    position, which rounds into the shell behind; on a ray from the centre
-    it then steps 0 and stalls (ROADMAP.md queue C), so a central source's
-    direct light is held against the walk that step defines, beside the
-    cells' geometry (walk_tau)."""
+    """(tau, reach): the optical depth at lam from the simulation's point
+    source toward instrument inst summed in f64 on the host over the
+    grid's own step, walked by the plain march (`march_geometry_plain`,
+    torch operations, independent of the march kernel), and the share of
+    the ray's length to the grid's edge that walk covers. The clumpy
+    sphere's step, the reference's bit for bit, locates its structured
+    cell at the moved position, which can round into the shell behind; the
+    next step is then 0 and the lane stalls (ROADMAP.md queue C), on rays
+    from the centre and at times on oblique ones."""
     import torch
     from skirt9_tpu_torch.media import system as msys
     from skirt9_tpu_torch.transport import march as mr
     k = sim._inst_tabs[inst]["kobs"].reshape(1, 3).float().contiguous()
-    pos = torch.zeros_like(k)
+    pos = torch.tensor([sim.sources[0].position], dtype=torch.float32,
+                       device=k.device)
     cell = sim.grid.locate(pos)
-    cells, ds = mr.march_geometry(sim.grid, pos, k, cell,
-                                  sim.options.max_steps, cell >= 0)
+    cells, ds = mr.march_geometry_plain(sim.grid, pos, k, cell,
+                                        sim.options.max_steps, cell >= 0)
     sig = msys.optics_at(sim.medium, torch.tensor(
         [lam], dtype=torch.float32, device=sim.device)).sigma_ext
     kappa = sim.medium.nd.double() @ sig.double()[0]
     ds = ds[:, 0].double()
     tau = float((ds * kappa[cells[:, 0].long()]).sum())
-    return tau, float(ds.sum() / float(sim.grid.sph.rb[-1]))
+    p0 = np.asarray(sim.sources[0].position, np.float64)
+    kd = k[0].double().cpu().numpy()
+    pk, R = float(p0 @ kd), float(sim.grid.sph.rb[-1])
+    length = -pk + math.sqrt(pk * pk - (float(p0 @ p0) - R * R))
+    return tau, float(ds.sum()) / length
 
 
 def direct_gate(torch, sim, what: str, inst: int = 0) -> dict:
-    """A central point source's run: direct over transparent SED (one
-    bin, at 0.55 micron) of instrument inst (face-on by default) equal to
-    exp(-tau) of column_tau within 1e-3."""
+    """A point source's run: direct over transparent SED (one bin, at 0.55
+    micron) of instrument inst (face-on by default) equal to exp(-tau) of
+    column_tau within 1e-3; on the clumpy sphere (an off-centre source)
+    every instrument's by clumpy_direct, one of them at least on the
+    cells' geometry."""
     (rf, accs), launches = drive(
         (MODES_OF[type(sim.grid).__name__],) + DETECT, SWEEPS,
         lambda: sim.run_primary(verbose=False))
@@ -6095,16 +6103,44 @@ def direct_gate(torch, sim, what: str, inst: int = 0) -> dict:
     sed = accs[inst]["sed"].double().cpu()
     att = float(sed[dinst.KIND_PRIMARY_DIRECT].sum() / sed[
         dinst.KIND_TRANSPARENT].sum())
+    res = {"packets": sim.num_packets, "launch_counts": launches,
+           "packets_per_s": sim.last_rate}
+    if type(sim.grid).__name__ == "ClumpySphericalGrid":
+        res.update(source_pc=[v / PC for v in sim.sources[0].position],
+                   instruments=[clumpy_direct(sim, accs, what, i)
+                                for i in range(len(accs))])
+        require(any(r["reach"] >= 1 - 1e-6 for r in res["instruments"]),
+                f"{what}: a ray reaches the edge, gated on the geometry")
+        return res
     tau = column_tau(sim, inst=inst)
     e = abs(att / math.exp(-tau) - 1)
     require(e <= 1e-3, f"{what}: direct / transparent {att} against "
             f"exp(-{tau}) within 1e-3 ({e})")
-    res = {"tau": tau, "direct_over_transparent": att, "rel_err": e,
-           "packets": sim.num_packets, "launch_counts": launches}
-    if type(sim.grid).__name__ == "ClumpySphericalGrid":
-        res.update(march_reach=march_tau(sim, inst=inst)[1],
-                   geometric_tau=walk_tau(sim, inst=inst))
+    res.update(tau=tau, direct_over_transparent=att, rel_err=e)
     return res
+
+
+def clumpy_direct(sim, accs, what: str, inst: int) -> dict:
+    """The clumpy sphere's direct light toward instrument inst (direct over
+    transparent SED at 0.55 micron) equal to exp(-tau) of the step's plain
+    march (march_tau) within 1e-3, and, where that march reaches the
+    grid's edge, to exp(-tau) of the cells' geometry (walk_tau) too; a ray
+    that stalls (ROADMAP.md queue C) is reported with its reach."""
+    from skirt9_tpu_torch.instruments import distant as dinst
+    sed = accs[inst]["sed"].double().cpu()
+    att = float(sed[dinst.KIND_PRIMARY_DIRECT].sum() / sed[
+        dinst.KIND_TRANSPARENT].sum())
+    tau_m, reach = march_tau(sim, inst=inst)
+    tau_w = walk_tau(sim, inst=inst)
+    e_m = abs(att / math.exp(-tau_m) - 1)
+    require(e_m <= 1e-3, f"{what} {inst}: direct / transparent {att} "
+            f"against the plain march's exp(-{tau_m}) within 1e-3 ({e_m})")
+    e_w = abs(att / math.exp(-tau_w) - 1)
+    require(reach < 1 - 1e-6 or e_w <= 1e-3, f"{what} {inst}: direct / "
+            f"transparent {att} against exp(-{tau_w}) within 1e-3 ({e_w})")
+    return {"inst": inst, "direct_over_transparent": att, "march_tau": tau_m,
+            "march_rel_err": e_m, "reach": reach, "geometric_tau": tau_w,
+            "geometric_rel_err": e_w}
 
 
 MODES_OF = {"Sphere1DGrid": "march_sphere1d",
@@ -7132,10 +7168,10 @@ def torus_number() -> float:
     return t["tau_v"] / (sig * col)
 
 
-def clump_file(path, n: int, seed: int = 5, r_lo: float = 0.1,
-               r_hi: float = 0.4) -> str:
-    """n clumps for a ClumpySphericalSpatialGrid (columns x y z radius in
-    pc), drawn from seed: radii uniform in [r_lo, r_hi] pc, centres in the
+def clump_table(n: int, seed: int = 5, r_lo: float = 0.1,
+                r_hi: float = 0.4) -> np.ndarray:
+    """n clumps for a ClumpySphericalSpatialGrid, (n, 4): x y z radius in
+    pc, drawn from seed: radii uniform in [r_lo, r_hi] pc, centres in the
     torus's wedge (TORUS: within its opening angle of the equator, at
     radii from 0.5 pc to 1 pc inside its outer radius, uniform in volume),
     so that the grid keeps the clumps wholly inside it that overlap no
@@ -7148,13 +7184,39 @@ def clump_file(path, n: int, seed: int = 5, r_lo: float = 0.1,
     phi = rs.uniform(-np.pi, np.pi, n)
     xyz = np.stack([r * np.cos(lat) * np.cos(phi), r * np.cos(lat)
                     * np.sin(phi), r * np.sin(lat)], -1)
-    np.savetxt(str(path), np.column_stack([xyz, rad]), fmt="%.6f")
+    return np.column_stack([xyz, rad])
+
+
+def clump_file(path, n: int) -> str:
+    """clump_table(n) written as a clump file."""
+    np.savetxt(str(path), clump_table(n), fmt="%.6f")
     return str(path)
+
+
+def aimed_source(n: int) -> np.ndarray:
+    """An off-centre source position [pc] on the clumpy torus of n clumps:
+    0.3 pc before one clump of clump_table(n), on the ray through its
+    centre toward the torus's 80-degree instrument (azimuth 0), the clump
+    whose ray crosses the most clumps of the table, starts at least 1 pc
+    from the centre and leads outward (each shell crossed once, the walk
+    well inside the march's 256 steps). Its rays cross shells, cones and
+    clumps at an angle; the central source's are radial."""
+    inc = math.radians(TORUS["inclinations"][1])
+    k = np.array([math.sin(inc), 0.0, math.cos(inc)])
+    tab = clump_table(n)
+    cen, rad = tab[:, :3], tab[:, 3]
+    p0 = cen - (rad + 0.3)[:, None] * k
+    rel = cen[None, :, :] - p0[:, None, :]             # (source, clump)
+    b = rel @ k
+    miss2 = (rel * rel).sum(-1) - b * b
+    hits = ((miss2 < rad[None, :] ** 2) & (b > 0)).sum(1)
+    ok = (np.linalg.norm(p0, axis=1) >= 1.0) & (p0 @ k >= 0.0)
+    return p0[int(np.argmax(np.where(ok, hits, -1)))]
 
 
 def torus_ski(directory, name: str, nr: int = 100, nt: int = 90,
               npix: int = 64, nlam: int = 40, oligo: bool = False,
-              clumps: int = 0, nphi: int = 32) -> str:
+              clumps: int = 0, nphi: int = 32, aimed: bool = False) -> str:
     """The torus (TORUS) as a ski file: ExtinctionOnly over 0.1-3 micron
     (OligoExtinctionOnly at 0.55 micron with oligo), a Sphere2DSpatialGrid
     to 15 pc of nr radial (PowMesh, ratio 50) x nt polar (SymPowMesh, ratio
@@ -7162,8 +7224,10 @@ def torus_ski(directory, name: str, nr: int = 100, nt: int = 90,
     clumps > 0 the grid is a ClumpySphericalSpatialGrid (nphi azimuthal
     bins, from the centre: a grid with an inner hole has no entry from it
     for the central source's packets) with that many clumps of clump_file,
-    written beside the ski file."""
+    written beside the ski file; aimed puts the point source off the
+    centre, at aimed_source(clumps)."""
     t = TORUS
+    x, y, z = aimed_source(clumps) if aimed else (0.0, 0.0, 0.0)
     norm = ('<normalization type="LuminosityNormalization">'
             '<IntegratedLuminosityNormalization wavelengthRange="Source" '
             f'integratedLuminosity="{t["L"]:.6g} Lsun"/></normalization>')
@@ -7204,7 +7268,7 @@ def torus_ski(directory, name: str, nr: int = 100, nt: int = 90,
     <random type="Random"><Random seed="0"/></random>
     <units type="Units"><ExtragalacticUnits fluxOutputStyle="Wavelength"/></units>
     <cosmology type="Cosmology"><LocalUniverseCosmology/></cosmology>
-    <sourceSystem type="SourceSystem">{src_sys}<sources type="Source"><PointSource positionX="0 pc" positionY="0 pc" positionZ="0 pc" velocityX="0 km/s" velocityY="0 km/s" velocityZ="0 km/s" sourceWeight="1" wavelengthBias="0.5">{sed}{norm}</PointSource></sources></SourceSystem></sourceSystem>
+    <sourceSystem type="SourceSystem">{src_sys}<sources type="Source"><PointSource positionX="{x:.9g} pc" positionY="{y:.9g} pc" positionZ="{z:.9g} pc" velocityX="0 km/s" velocityY="0 km/s" velocityZ="0 km/s" sourceWeight="1" wavelengthBias="0.5">{sed}{norm}</PointSource></sources></SourceSystem></sourceSystem>
     <mediumSystem type="MediumSystem"><MediumSystem>
       <photonPacketOptions type="PhotonPacketOptions"><PhotonPacketOptions forceScattering="true" minWeightReduction="1e4" minScattEvents="0" pathLengthBias="0.5"/></photonPacketOptions>
       <media type="Medium"><GeometricMedium velocityMagnitude="0 km/s">
@@ -7270,14 +7334,19 @@ MESHES = {
         _SMALL, rf_bins=4)), dict(_SM, max_events=3), True),
     # the torus on the clumpy sphere: 100 x 90 x 32 cells and 1,000 clumps
     # of 0.1-0.4 pc in its wedge (those kept: inside, no overlap), 2^19
-    # packets in batches of 2^16; its central source at 0.55 micron for
-    # the direct-light gate; reduced for the tests
+    # packets in batches of 2^16; for the direct-light gate one batch of an
+    # off-centre source at 0.55 micron (aimed_source: the central source's
+    # radial rays stall); reduced for the tests
     "clumpy_torus": (torus_ski, dict(clumps=1000), dict(
         _FW, num_packets=1 << 19), False),
-    "clumpy_torus_point": (torus_ski, dict(clumps=1000, oligo=True),
-                           dict(_PT, num_packets=1 << 17), False),
+    "clumpy_torus_point": (torus_ski, dict(clumps=1000, oligo=True,
+                                           aimed=True),
+                           dict(_PT, num_packets=B_GEO), False),
     "clumpy_torus_small": (torus_ski, dict(nr=16, nt=12, nphi=8, npix=16,
                                            nlam=12, clumps=40), _SM, False),
+    "clumpy_torus_small_point": (torus_ski, dict(
+        nr=16, nt=12, nphi=8, npix=16, clumps=40, oligo=True, aimed=True),
+        _SM, False),
 }
 # the full-width phases profiled (host_per_event): a polar march and the
 # tetrahedral raster (the others' loops issue the same operations an event
@@ -7332,14 +7401,18 @@ def mesh_config(name: str, device, directory, **run):
 
 
 def walk_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
-    """The optical depth at lam from a central source (at the origin)
-    toward instrument inst through the grid's cells, in f64 on the host
-    from the cells' geometry and the medium's densities: on a 2D or 3D
-    sphere the radial ray's shells in the polar (and azimuthal) bin of the
-    direction (atan2 in f64); on the 3D cylinder (a face-on direction) the
-    z slabs above the origin in the innermost annulus's wedge of azimuth
-    0; on a tetrahedral mesh each tetrahedron's chord, the ray's interval
-    inside its four face planes."""
+    """The optical depth at lam from the simulation's point source toward
+    instrument inst through the grid's cells, in f64 on the host from the
+    cells' geometry and the medium's densities: on a 2D or 3D sphere (a
+    central source) the radial ray's shells in the polar (and azimuthal)
+    bin of the direction (atan2 in f64); on the 3D cylinder (a central
+    source, a face-on direction) the z slabs above the origin in the
+    innermost annulus's wedge of azimuth 0; on a tetrahedral mesh (a
+    central source) each tetrahedron's chord, the ray's interval inside
+    its four face planes; on the clumpy sphere, from any source inside it,
+    the ray cut at every crossing of a shell, a polar cone, an azimuthal
+    half-plane and a clump, each piece in the cell that holds its middle
+    (the clumps first, as the grid's locate)."""
     import torch
     from skirt9_tpu_torch.media import system as msys
     host = lambda t: t.detach().double().cpu().numpy()
@@ -7349,8 +7422,52 @@ def walk_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
     kappa = host(sim.medium.nd) @ sig
     g = sim.grid
     name = type(g).__name__
-    bin_of = lambda b, v: int(np.clip(np.searchsorted(host(b), v, "right")
-                                      - 1, 0, len(b) - 2))
+    p0 = np.asarray(sim.sources[0].position, np.float64)
+    bin_of = lambda b, v: np.clip(np.searchsorted(host(b), v, "right") - 1,
+                                  0, len(b) - 2)
+    if name == "ClumpySphericalGrid":
+        sph, nc = g.sph, g.n_clumps
+        cen, rad = host(g.ccen), host(g.crad)
+        rb, tb, pb = host(sph.rb), host(sph.tb), host(sph.pb)
+
+        def roots(a, b, c):
+            """The real roots of a t^2 + b t + c (or b t + c)."""
+            if a == 0.0:
+                return [-c / b] if b != 0.0 else []
+            d = b * b - 4 * a * c
+            if d < 0:
+                return []
+            q = -0.5 * (b + math.copysign(math.sqrt(d), b))
+            return [q / a] + ([c / q] if q != 0.0 else [])
+
+        pk, pp = float(p0 @ k), float(p0 @ p0)
+        t_end = -pk + math.sqrt(pk * pk - (pp - rb[-1] ** 2))
+        ts = [0.0, t_end]
+        for r in rb:
+            ts += roots(1.0, 2 * pk, pp - r * r)
+        for th in tb:
+            c2 = math.cos(th) ** 2
+            ts += roots(k[2] ** 2 - c2, 2 * (p0[2] * k[2] - c2 * pk),
+                        p0[2] ** 2 - c2 * pp)
+        for ph in pb:
+            ts += roots(0.0, math.sin(ph) * k[0] - math.cos(ph) * k[1],
+                        math.sin(ph) * p0[0] - math.cos(ph) * p0[1])
+        rel = cen - p0
+        b = rel @ k
+        sq = np.sqrt(np.clip(b * b - ((rel * rel).sum(1) - rad * rad), 0.0,
+                             None))
+        ts += list(b - sq) + list(b + sq)
+        ts = np.unique(np.clip(np.asarray(ts), 0.0, t_end))
+        mid = 0.5 * (ts[1:] + ts[:-1])
+        pts = p0 + mid[:, None] * k
+        inside = ((pts[:, None, :] - cen[None]) ** 2).sum(-1) < rad ** 2
+        r = np.linalg.norm(pts, axis=1)
+        cells = nc + (bin_of(sph.rb, r) * sph.nt + bin_of(
+            sph.tb, np.arctan2(np.hypot(pts[:, 0], pts[:, 1]), pts[:, 2]))) \
+            * sph.nphi + bin_of(sph.pb, np.arctan2(pts[:, 1], pts[:, 0]))
+        cells = np.where(inside.any(1), inside.argmax(1), cells)
+        return float((np.diff(ts) * kappa[cells]).sum())
+    require(not p0.any(), f"walk_tau: a central source on {name}")
     if name == "TetraGrid":
         n, d = host(g.face_n), host(g.face_d)            # (N, 4, 3), (N, 4)
         kn = n @ k                                       # (N, 4)
@@ -7361,25 +7478,6 @@ def walk_tau(sim, lam: float = 0.55e-6, inst: int = 0) -> float:
         return float((np.where(outside, 0.0, np.clip(t_out - t_in, 0, None))
                       * kappa).sum())
     phi = math.atan2(k[1], k[0])
-    if name == "ClumpySphericalGrid":
-        # the clumps' chords of the ray, then the shells of its (polar,
-        # azimuthal) bin less the lengths inside clumps
-        sph, nc = g.sph, g.n_clumps
-        cen, rad = host(g.ccen), host(g.crad)
-        rb = host(sph.rb)
-        b = cen @ k
-        disc = b * b - ((cen * cen).sum(1) - rad * rad)
-        sq = np.sqrt(np.clip(disc, 0.0, None))
-        t0 = np.clip(b - sq, 0.0, rb[-1])
-        t1 = np.clip(b + sq, 0.0, rb[-1])
-        hit = (disc > 0) & (t1 > t0)
-        tau = float(((t1 - t0)[hit] * kappa[:nc][hit]).sum())
-        cells = (np.arange(sph.nr) * sph.nt + bin_of(sph.tb, math.atan2(
-            math.hypot(k[0], k[1]), k[2]))) * sph.nphi + bin_of(sph.pb, phi)
-        lo, hi = rb[:-1], rb[1:]
-        inside = sum(np.clip(np.minimum(hi, b1) - np.maximum(lo, a1), 0.0,
-                             None) for a1, b1 in zip(t0[hit], t1[hit]))
-        return tau + float(((hi - lo - inside) * kappa[nc + cells]).sum())
     if name == "Cylinder3DGrid":
         require(abs(k[2]) == 1.0, "walk_tau: a face-on cylinder")
         zb = host(g.zb)
@@ -7577,8 +7675,9 @@ def phase_full_width_mesh(torch, smi: str, name: str) -> dict:
     blackbodies (torus_gates, blackbody_mix_gates), R < 0.01 in the bins
     above 1% of the peak, the dust on the grid against the normalization
     (mass_gate); on the exact walks the direct light of a central source
-    at 0.55 micron against exp(-tau) through the cells (walk_tau,
-    direct_gate; the torus at 80 deg); on a tetrahedral mesh the cell
+    (on the clumpy sphere an off-centre one) at 0.55 micron against
+    exp(-tau) through the cells (walk_tau, direct_gate; the torus at 80
+    deg); on a tetrahedral mesh the cell
     volumes tiling the box (1e-6); with dust emission L_dust = L_abs_primary
     (1e-4). One batch profiled (host_per_event)."""
     from skirt9_tpu_torch.transport import march as mr
@@ -7596,7 +7695,14 @@ def phase_full_width_mesh(torch, smi: str, name: str) -> dict:
     if sim._sweep_tabs is not None:
         res["raster"] = list(sim._sweep_tabs.n)
     if mode == "march_clumpy":
-        res["clumps_retained"] = sim.grid.n_clumps
+        # the central source's ray toward the 80-degree instrument: the
+        # cells' geometry against the step's own walk, which stalls
+        # (ROADMAP.md queue C); the direct-light gates are the off-centre
+        # point source's (POINT_OF, clumpy_direct)
+        tau_m, reach = march_tau(sim, inst=1)
+        res.update(clumps_retained=sim.grid.n_clumps, central_ray_i80=dict(
+            geometric_tau=walk_tau(sim, inst=1), march_tau=tau_m,
+            march_reach=reach))
     base = name.replace("_march", "")
     torus = "torus" in base
     number = torus_number() if torus else \
@@ -7684,7 +7790,9 @@ def phase_kernels_sincos(torch) -> dict:
     edge values of every branch and arguments past 120. Timed by CUDA
     events and the profiler; the bound from its bytes (4 in, 8 out a
     value; its ~40 f64 operations a value have no rate in the H100's
-    table of peak rates)."""
+    table of peak rates). Then the HG scattering direction (csrc/sincos.cu
+    hg_direction) against ops/phase.py `hg_scatter_plain` at config 1's
+    batch, bit for bit, timed alike."""
     from skirt9_tpu_torch.kernels import build as kb
     from skirt9_tpu_torch.ops import xlamath as xm
     rs = np.random.default_rng(47)
@@ -7710,6 +7818,33 @@ def phase_kernels_sincos(torch) -> dict:
         plain_device_launches=device_ms(lambda: xm.sincos_plain(x),
                                         reps=3)["launches"],
         library_ms=None, **bound(12 * x.numel(), 0.0))}
+    # the HG scattering direction at config 1's batch: seeded unit
+    # directions, asymmetries and uniforms
+    from skirt9_tpu_torch.ops import phase as phs
+    k = rs.normal(size=(B_FULL, 3))
+    k = (k / np.linalg.norm(k, axis=1, keepdims=True)).astype(np.float32)
+    args = [torch.tensor(a, device="cuda") for a in (
+        k, rs.uniform(-0.99, 0.99, B_FULL).astype(np.float32),
+        rs.random(B_FULL).astype(np.float32),
+        rs.random(B_FULL).astype(np.float32))]
+    kb.reset_launches()
+    d = phs.hg_scatter(*args)
+    require(kb.LAUNCHES["hg_direction"] == 1, "hg_direction launched once")
+    pd = phs.hg_scatter_plain(*args)
+    require(torch.equal(d.view(torch.int32), pd.view(torch.int32)),
+            "hg_direction bit for bit its plain version")
+    kern = lambda: phs.hg_scatter(*args)
+    dev = device_ms(kern)
+    # 24 bytes in and 12 out a lane; 53 f32 operations a lane beside the
+    # sine and cosine's f64 ones
+    out["hg_direction"] = dict(
+        max_abs_err=float((d - pd).abs().max()), lanes=B_FULL,
+        ms=cuda_ms(kern), device_ms=dev["ours"] or None,
+        profiler_dropped=dev["ours"] == 0,
+        plain_ms=cuda_ms(lambda: phs.hg_scatter_plain(*args), reps=5),
+        plain_device_launches=device_ms(
+            lambda: phs.hg_scatter_plain(*args), reps=3)["launches"],
+        library_ms=None, **bound(36 * B_FULL, 53 * B_FULL))
     emit({"phase": "kernels_sincos", **out})
     return out
 
@@ -7718,16 +7853,43 @@ def phase_kernels_march_clumpy(torch) -> dict:
     """march_clumpy against its plain version, cells and lengths bit for
     bit (_march_check): at clumpy_torus's first event (2^16 lanes, 100 x 90
     x 32 cells and its retained clumps, staged in shared memory beside the
-    sphere's tables) and on 64 steps of seeded rays through a sphere with
-    ~6,000 clumps (past 48 KB: the clumps through the read-only cache)."""
+    sphere's tables: its central source's radial rays, most of which
+    stall, ROADMAP.md queue C), on the first 2^13 of 2^16 isotropic rays
+    from the off-centre aimed_source on the same grid (oblique to the
+    shells; the kernel timed on all 2^16, its bound from the kernel's own
+    walk, bit for bit with the plain version's where both ran), and on 64
+    steps of seeded rays through a sphere with ~6,000 clumps (past 48 KB:
+    the clumps through the read-only cache)."""
     from skirt9_tpu_torch.grids import clumpy
+    from skirt9_tpu_torch.transport import march as mr
     sim, setup = _mesh_sim("clumpy_torus")
+    S = sim.options.max_steps
     pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_GEO)
     out = {"march_clumpy": dict(_march_check(
-        torch, "march_clumpy", sim.grid, pos, dirn, cell,
-        sim.options.max_steps, alive), cells=sim.grid.ncells,
-        shift=sim.grid.shift, setup_s=setup)}
+        torch, "march_clumpy", sim.grid, pos, dirn, cell, S, alive),
+        cells=sim.grid.ncells, shift=sim.grid.shift, setup_s=setup)}
     del pos, dirn, cell, alive
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32),
+                                 device=sim.device)
+    d = np.random.default_rng(44).normal(size=(B_GEO, 3))
+    d = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    p = t32(np.repeat(aimed_source(1000)[None] * PC, B_GEO, axis=0))
+    c = sim.grid.locate(p)
+    n = 1 << 13
+    aimed = _march_check(torch, "march_clumpy", sim.grid, p[:n], d[:n],
+                         c[:n], S, c[:n] >= 0)
+    kern = lambda: mr._march_cuda(sim.grid, p, d, c, S, c >= 0)
+    ck, dk = kern()
+    walked = dk > 0
+    tables, ops, _ = march_cost("march_clumpy", sim.grid, ck, walked)
+    dev = device_ms(kern)
+    out["march_clumpy_aimed"] = dict(
+        aimed, source_pc=aimed_source(1000).tolist(), lanes_timed=B_GEO,
+        ms_timed=cuda_ms(kern, reps=5), device_ms_timed=dev["ours"] or None,
+        live_share_timed=float(walked.float().mean()),
+        max_walk_timed=int(walked.sum(dim=0).max()),
+        bound_timed=bound(S * B_GEO * 8 + B_GEO * 29 + tables, ops))
+    del p, d, c, ck, dk, walked
     rs = np.random.default_rng(43)
     R = TORUS["rmax"] * PC
     cen = rs.uniform(-0.85 * R, 0.85 * R, (6000, 3))
@@ -7737,8 +7899,6 @@ def phase_kernels_march_clumpy(torch) -> dict:
                                      device=sim.device).to(sim.device)
     require(4 * g.n_clumps > 12 * 1024, "the clump table past 48 KB")
     B = 1 << 11
-    t32 = lambda a: torch.tensor(np.asarray(a, np.float32),
-                                 device=sim.device)
     d = rs.normal(size=(B, 3))
     p, c, _ = g.move_inside(t32(rs.uniform(-1.2 * R, 1.2 * R, (B, 3))),
                             t32(d / np.linalg.norm(d, axis=1, keepdims=True)))
@@ -7816,12 +7976,21 @@ def _dp_rank(group, out: str, n_packets: int) -> None:
                  **{k: v.cpu().numpy() for k, v in accs[0].items()})
 
 
+# -d 1 against the CLI run without -d: the bounds on each file's largest
+# gap (per SED column and over the FITS frame, relative to its maximum),
+# from the spread between two runs without -d on the card (detect's f32
+# atomics add in an order that varies from run to run; measured on an H100:
+# the SED 1.0e-16, the frame 2.7e-9, and -d 1 2.0e-16 and 2.7e-9)
+DP_CLI_BOUNDS = {"sed": 1e-12, "frame": 1e-6}
+
+
 def phase_dp(torch, smi: str) -> dict:
     """Packet data parallelism (parallel/dp.py). bench1.ski (2^18 packets)
-    through the CLI with -d 1 (one NCCL rank) against the run without -d:
-    every SED column within 1e-5 of its maximum (the detect kernel's f32
-    atomics add in an order that varies from run to run, so no two runs on
-    the card are equal byte for byte).
+    through the CLI twice without -d and once with -d 1 (one NCCL rank):
+    the SED and the FITS frame of -d 1 against the first plain run within
+    DP_CLI_BOUNDS, and the spread between the two plain runs, which sets
+    those bounds (no two runs on the card are equal byte for byte: the
+    detect kernel's f32 atomics add in an order that varies).
     Config 1 at full width on two
     ranks sharing cuda:0 over gloo (the partials' all_reduce on host
     copies, once per segment) against one process: every SED kind within
@@ -7831,9 +8000,11 @@ def phase_dp(torch, smi: str) -> dict:
     from skirt9_tpu_torch.parallel import dp
     res = {"phase": "dp"}
     golden = os.path.join(GOLDEN, "bench1.ski")
+    from skirt9_tpu_torch.utils import fits
     with tempfile.TemporaryDirectory() as tmp:
-        runs, seds = {}, {}
-        for key, extra in (("plain", []), ("d1", ["-d", "1"])):
+        runs, files = {}, {}
+        for key, extra in (("plain", []), ("d1", ["-d", "1"]),
+                           ("plain2", [])):
             t0 = time.perf_counter()
             r = subprocess.run(
                 [sys.executable, "-m", "skirt9_tpu_torch", golden, "-o",
@@ -7842,12 +8013,24 @@ def phase_dp(torch, smi: str) -> dict:
                 cwd=os.path.dirname(os.path.abspath(__file__)))
             require(r.returncode == 0, f"dp: the CLI {key}: {r.stderr[-800:]}")
             runs[key] = time.perf_counter() - t0
-            seds[key] = np.loadtxt(os.path.join(tmp, key,
-                                                "bench1_i0_sed.dat"))
-        g1 = float((np.abs(seds["d1"] - seds["plain"]).max(axis=0)
-                    / np.abs(seds["plain"]).max(axis=0).clip(1e-300)).max())
-        require(g1 <= 1e-5, f"dp: -d 1 against the run without -d ({g1})")
-        res["cli"] = dict(seconds=runs, packets=1 << 18, sed_gap_d1=g1)
+            out = os.path.join(tmp, key, "bench1_i0")
+            files[key] = {"sed": np.loadtxt(out + "_sed.dat"),
+                          "frame": fits.read_fits(out + "_total.fits")[0]}
+
+        def gaps(key):
+            a, b = files[key], files["plain"]
+            m = np.abs(b["sed"]).max(axis=0).clip(1e-300)
+            return {"sed": float((np.abs(a["sed"] - b["sed"]).max(axis=0)
+                                  / m).max()),
+                    "frame": float(np.abs(a["frame"] - b["frame"]).max()
+                                   / np.abs(b["frame"]).max())}
+
+        g1, spread = gaps("d1"), gaps("plain2")
+        far = {k: v for k, v in g1.items() if v > DP_CLI_BOUNDS[k]}
+        require(not far, f"dp: -d 1's files against the run without -d "
+                f"within {DP_CLI_BOUNDS} ({g1}; two plain runs {spread})")
+        res["cli"] = dict(seconds=runs, packets=1 << 18, gap_d1=g1,
+                          spread_plain=spread, bounds=DP_CLI_BOUNDS)
         n = 1 << 20
         sim = config1("cuda", num_packets=n)
         sim.run_primary(verbose=False)                 # warm-up
@@ -8381,7 +8564,10 @@ def main() -> int:
                                            or {}).get("march_clumpy", 0),
                  "clumps_past_48kb": {key: v for key, v in kern_march[
                      "march_clumpy_global"].items()
-                     if key in tree_keys + ("clumps",)}})
+                     if key in tree_keys + ("clumps",)},
+                 # the central source's rays stall (ROADMAP.md queue C);
+                 # the off-centre source's traverse
+                 "aimed_source": kern_march["march_clumpy_aimed"]})
     row = next(r for r in rows if r["name"] == "march_sphere1d")
     row["launches_full_width_ivezic_dust"] = launches_ivezic_dust[
         "march_sphere1d"]
@@ -8393,6 +8579,19 @@ def main() -> int:
                  "phase.py:67-68 (jnp.cos, jnp.sin: XLA's calls of glibc's "
                  "cosf and sinf, not a TPU kernel)",
                  "path": "full_width", "launches": launches["sincos"],
+                 **{key: k[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "device_ms", "profiler_dropped",
+                     "plain_device_launches")}})
+    # the HG scattering direction of every scattering
+    k = kern_sincos["hg_direction"]
+    rows.append({"name": "hg_direction", "route": "cuda",
+                 "source": "skirt9_tpu_torch/csrc/sincos.cu",
+                 "replaces": "skirt9_tpu/transport/lifecycle.py:314 "
+                 "(hg_scatter_direction: XLA's fused loop over skirt9_tpu/"
+                 "ops/phase.py's hg_sample_costheta and rotate_direction, "
+                 "not a TPU kernel)",
+                 "path": "full_width", "launches": launches["hg_direction"],
                  **{key: k[key] for key in (
                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "device_ms", "profiler_dropped",

@@ -79,7 +79,76 @@ __global__ void sincos_kernel(const float* __restrict__ x,
   }
 }
 
+constexpr int kHgTail = 8;
+
+__global__ void hg_direction_kernel(const float* __restrict__ k,
+                                    const float* __restrict__ g,
+                                    const float* __restrict__ u_ct,
+                                    const float* __restrict__ u_phi,
+                                    float* __restrict__ out, int n) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    // cos(theta): isotropic for |g| < 1e-5; 1 - g^2, 1 - g + 2 g u,
+    // 1 + g^2 and 1 + g^2 - f^2 each one fused multiply-add
+    const float gi = g[i], u = u_ct[i];
+    const bool iso = fabsf(gi) < 1e-5f;
+    const float gs = iso ? 0.5f : gi;
+    const float f = __fdiv_rn(__fmaf_rn(-gs, gs, 1.0f),
+                              __fmaf_rn(2.0f * gs, u, 1.0f - gs));
+    const float ct_aniso = __fdiv_rn(
+        __fmaf_rn(-f, f, __fmaf_rn(gs, gs, 1.0f)), 2.0f * gs);
+    const float ct = fminf(fmaxf(iso ? 2.0f * u - 1.0f : ct_aniso, -1.0f),
+                           1.0f);
+    // the frame about k: e1 = (1 + s kx^2 a, s b, -s kx), e2 = (b, s +
+    // ky^2 a, -ky), a = -1 / (s + kz), b = kx ky a
+    const float kx = k[3 * i], ky = k[3 * i + 1], kz = k[3 * i + 2];
+    const float sg = kz >= 0.0f ? 1.0f : -1.0f;
+    const float a = __fdiv_rn(-1.0f, sg + kz);
+    const float b = kx * ky * a;
+    const float e1x = __fmaf_rn(sg * kx * kx, a, 1.0f), e1y = sg * b,
+                e1z = -sg * kx;
+    const float e2x = b, e2y = __fmaf_rn(ky * ky, a, sg), e2z = -ky;
+    const float st = __fsqrt_rn(fmaxf(__fmaf_rn(-ct, ct, 1.0f), 0.0f));
+    float sp, cp;
+    sincosf_glibc(6.283185307179586f * u_phi[i], &sp, &cp);
+    const float ix = __fmaf_rn(cp, e1x, sp * e2x);
+    const float iy = __fmaf_rn(cp, e1y, sp * e2y);
+    const float iz = __fmaf_rn(cp, e1z, sp * e2z);
+    float ox, oy;
+    if (i >= n - kHgTail) {
+      ox = __fmaf_rn(ct, kx, st * ix);
+      oy = __fmaf_rn(ct, ky, st * iy);
+    } else {
+      ox = __fmaf_rn(st, ix, ct * kx);
+      oy = __fmaf_rn(st, iy, ct * ky);
+    }
+    const float oz = __fmaf_rn(ct, kz, st * iz);
+    const float norm = __fsqrt_rn(__fmaf_rn(oz, oz, __fmaf_rn(oy, oy,
+                                                               ox * ox)));
+    out[3 * i] = __fdiv_rn(ox, norm);
+    out[3 * i + 1] = __fdiv_rn(oy, norm);
+    out[3 * i + 2] = __fdiv_rn(oz, norm);
+  }
+}
+
 }  // namespace skirt9
+
+extern "C" int hg_direction_launch(const void* k, const void* g,
+                                   const void* u_ct, const void* u_phi,
+                                   void* out, int n, void* stream) {
+  if (n < 0 || (n > 0 && (k == nullptr || g == nullptr || u_ct == nullptr ||
+                          u_phi == nullptr || out == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads < 4096
+                         ? (n + threads - 1) / threads
+                         : 4096;
+  skirt9::hg_direction_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)k, (const float*)g, (const float*)u_ct,
+      (const float*)u_phi, (float*)out, n);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int sincos_launch(const void* x, void* s, void* c, int n,
                              void* stream) {

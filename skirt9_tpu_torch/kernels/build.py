@@ -49,8 +49,9 @@ KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            "march_bintree", "march_sphere1d", "march_cylinder2d",
            "march_amr", "march_tetra", "march_sphere2d", "march_sphere3d",
            "march_cylinder3d", "march_clumpy",
-           # glibc's sinf and cosf of the directions (csrc/sincos.cu)
-           "sincos",
+           # glibc's sinf and cosf of the directions, and the HG scattering
+           # direction (csrc/sincos.cu)
+           "sincos", "hg_direction",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -118,6 +119,8 @@ _SIGNATURES = {
     "march_clumpy_launch": [_P] * 7 + [_I] * 7 + [_P],
     # x, sin, cos, n, stream
     "sincos_launch": [_P] * 3 + [_I] + [_P],
+    # dir, g, u_ct, u_phi, out, n, stream
+    "hg_direction_launch": [_P] * 5 + [_I] + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

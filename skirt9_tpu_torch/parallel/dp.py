@@ -34,6 +34,9 @@ import socket
 import torch
 import torch.distributed as dist
 
+# how long a rank waits for the others at set-up and in a collective
+TIMEOUT = datetime.timedelta(seconds=600)
+
 
 @dataclasses.dataclass
 class Group:
@@ -50,16 +53,22 @@ class Group:
         return self.rank == 0
 
     def all_reduce(self, tensors) -> None:
-        """Sum each tensor over the ranks, in place: one collective per
-        tensor, on the device under NCCL, on host copies under gloo with
-        CUDA tensors."""
+        """Sum the tensors over the ranks, in place: flattened into one
+        buffer of each dtype and device, one collective a buffer (one per
+        segment where the partials share a dtype), on the device under
+        NCCL, on a host copy under gloo with CUDA tensors."""
+        groups: dict = {}
         for t in tensors:
-            if self.backend == "gloo" and t.device.type == "cuda":
-                host = t.cpu()
-                dist.all_reduce(host, op=dist.ReduceOp.SUM)
-                t.copy_(host)
-            else:
-                dist.all_reduce(t, op=dist.ReduceOp.SUM)
+            groups.setdefault((t.dtype, t.device), []).append(t)
+        for ts in groups.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            host = self.backend == "gloo" and flat.device.type == "cuda"
+            buf = flat.cpu() if host else flat
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+            if host:
+                flat.copy_(buf)
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view(t.shape))
 
     def barrier(self) -> None:
         dist.barrier()
@@ -77,7 +86,7 @@ def free_port() -> int:
 
 
 def init(rank: int, size: int, port: int, device="cuda",
-         backend: str | None = None, timeout_s: float = 600.0) -> Group:
+         backend: str | None = None) -> Group:
     """Join the process group of `size` ranks as `rank`, through a TCP store
     on 127.0.0.1:port. device "cuda" puts rank r on cuda:r under NCCL; an
     explicit "cuda:i" with backend "gloo" lets ranks share card i; "cpu"
@@ -104,7 +113,7 @@ def init(rank: int, size: int, port: int, device="cuda",
         raise ValueError(f"backend {backend} on {dev}")
     dist.init_process_group(
         backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-        world_size=size, timeout=datetime.timedelta(seconds=timeout_s))
+        world_size=size, timeout=TIMEOUT)
     return Group(rank=rank, size=size, device=dev, backend=backend)
 
 

@@ -334,10 +334,9 @@ def sample_interaction_tau(opts: TransportOptions, u: dict, tau_path):
 
 
 def hg_scatter_direction(u_ct, u_phi, g_sel, dirn):
-    """Henyey-Greenstein direction update from two uniforms."""
-    ct = phs.hg_sample_costheta(g_sel, u_ct)
-    phi = (2.0 * math.pi) * u_phi
-    return phs.rotate_direction(dirn, ct, phi)
+    """Henyey-Greenstein direction update from two uniforms
+    (`phase.hg_scatter`)."""
+    return phs.hg_scatter(dirn, g_sel, u_ct, u_phi)
 
 
 def survives_cutoff(opts: TransportOptions, lum_new, nscat_new, lum0):

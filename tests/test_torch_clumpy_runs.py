@@ -13,6 +13,12 @@ the CPU with one torch thread (the grid itself: tests/test_torch_clumpy.py).
   of the reference's life cycle reproduced exactly on its own inputs.
 - DustEmission on it raises, naming the grid (the reference has no cell
   bounds for it).
+- An off-centre point source on the reduced torus (chip_smoke's
+  aimed_source, its rays through clumps at an angle): the direct light
+  toward the 80-degree instrument equal to exp(-tau) of the cells'
+  geometry (chip_smoke.walk_tau, f64 on the host) and of the step's own
+  plain walk (chip_smoke.march_tau) within 1e-3, as chip_smoke gates it
+  at full width.
 """
 
 import inspect
@@ -152,3 +158,19 @@ def test_dust_emission_raises(tmp_path):
     with pytest.raises(NotImplementedError,
                        match="DustEmission on a ClumpySphericalSpatialGrid"):
         load_ski(path, device="cpu", num_packets=128)
+
+
+def test_off_centre_direct_light(tmp_path):
+    sim = chip_smoke.mesh_config("clumpy_torus_small_point", "cpu", tmp_path,
+                                 num_packets=256, batch_size=256,
+                                 max_events=1)
+    _, accs = sim.run_primary(verbose=False)
+    sed = accs[1]["sed"].double()
+    att = float(sed[1].sum() / sed[0].sum())
+    tau = chip_smoke.walk_tau(sim, inst=1)
+    tau_m, reach = chip_smoke.march_tau(sim, inst=1)
+    src = np.asarray(sim.sources[0].position) / chip_smoke.PC
+    assert np.linalg.norm(src) >= 1.0
+    assert tau > 0.1 and reach == pytest.approx(1.0, abs=1e-6)
+    assert att == pytest.approx(np.exp(-tau), rel=1e-3)
+    assert att == pytest.approx(np.exp(-tau_m), rel=1e-3)

@@ -1983,6 +1983,32 @@ def test_sincos_kernel(dev):
     assert torch.equal(c.cpu()[:1 << 18], cc[:1 << 18])
 
 
+@pytest.mark.parametrize("B", [5, 1 << 17])
+def test_hg_direction_kernel(dev, B):
+    """The HG scattering direction on the card (csrc/sincos.cu
+    hg_direction) against the plain version on the same CUDA tensors and on
+    their CPU copies, bit for bit, one launch: seeded unit directions (the
+    poles among them), asymmetries in [-0.99, 0.99] with the isotropic
+    |g| < 1e-5, and uniforms; B below the scalar tail of 8 lanes too."""
+    from skirt9_tpu_torch.ops import phase as phs
+    rs = np.random.default_rng(17)
+    k = rs.normal(size=(B, 3))
+    k[:2] = [[0, 0, 1], [0, 0, -1]]
+    k = (k / np.linalg.norm(k, axis=1, keepdims=True)).astype(np.float32)
+    g = rs.uniform(-0.99, 0.99, B).astype(np.float32)
+    g[::7] = 0.0
+    g[1::11] = 3e-6
+    u = rs.random((2, B)).astype(np.float32)
+    t = [torch.tensor(a, device=dev) for a in (k, g, u[0], u[1])]
+    kb.reset_launches()
+    out = phs.hg_scatter(*t)
+    assert kb.LAUNCHES["hg_direction"] == 1 and sum(
+        kb.LAUNCHES.values()) == 1
+    plain = phs.hg_scatter_plain(*t)
+    assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+    assert torch.equal(out.cpu(), phs.hg_scatter(*(a.cpu() for a in t)))
+
+
 def _amr_grid(mode, directory):
     """tests/test_amr.py's two-level and deep meshes, or amr_galaxy's
     (chip_smoke.amr_mesh: about 10^5 leaves, 50 x 50 x 8 kpc)."""

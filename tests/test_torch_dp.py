@@ -20,10 +20,12 @@ groups, a refilled rank its own history range.
 - Reduced config 1h (bench1h.ski, refill generations of 16 events): within
   1e-5 but the scattered kind and the statistics' higher power sums
   (measured up to 8.6e-6), within 1e-4: one device alone already
-  parts from the reference by 6.7e-5 there (the last 8 lanes of a batch,
-  whose scattering directions XLA's scalar loop fuses its other way,
-  diverge over the optically thick walk); 2 ranks against 1 differ by
-  1.0e-5 at most (the transparent frame's f32 sums in another order).
+  parts from the reference by 6.7e-5 there. Its packets scatter into the
+  same directions at every event, bit for bit, but one peel-off lands in
+  the pixel beside the reference's (the projection onto the frame, the
+  reference's `pos @ ex` dot, an ulp apart at a pixel border); 2 ranks
+  against 1 differ by 1.0e-5 at most (the transparent frame's f32 sums in
+  another order).
 - The CLI: tests/test_torch_dp_cli.py.
 """
 

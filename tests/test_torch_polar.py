@@ -217,13 +217,13 @@ def _gaps(out_r, out_p):
 
 # draw for draw: every quantity within 1e-5 of its maximum but the 3D
 # sphere's RF per cell. The port's launch and scattering directions are the
-# reference's bit for bit (glibc's cosf and sinf written out,
-# tests/test_torch_directions.py) but on the last 8 lanes of a batch, where
-# XLA's scalar loop fuses the rotation's other product; the sphere's small
-# polar cells amplify such a moved scattering. Measured: the 3D sphere's RF
-# per cell 2.2e-5 (its total 1.8e-7, its scattered frame 9.4e-6); the
-# torus's scattered frame 3.0e-7 (before the directions were exact: 9.0e-3
-# and 1.4e-2 on the 3D sphere, 1.9e-4 on the torus).
+# reference's bit for bit on every lane (glibc's cosf and sinf written out,
+# XLA's fusions of the rotation, its scalar tail included:
+# tests/test_torch_directions.py); the 3D sphere's RF per cell still parts
+# by 2.2e-5 (its total 1.8e-7, its scattered frame 9.4e-6), the same with
+# the tail replayed as without, so another ulp moves it (ROADMAP.md queue
+# C); the torus's scattered frame 3.0e-7 (before the directions were
+# exact: 9.0e-3 and 1.4e-2 on the 3D sphere, 1.9e-4 on the torus).
 BOUNDS = {"torus_sphere2d_small": {},
           "spiral_sphere3d_small": {"rf": 5e-5},
           "spiral_cylinder3d_small": {}}
