@@ -471,6 +471,14 @@ Phases, one JSON line each:
                     resampled dust against the particles' (5%), L_dust
                     (1e-4), the star launches' particles and kernel radii
                     (3 sigma), the transparent SED (5 sigma)
+  dd                spatial domain decomposition: configs 1 and 2 (32^3,
+                    2^18 and 2^16 packets, their RF stored, config 2 with
+                    dust emission and one iteration) on two ranks sharing
+                    cuda:0 over gloo, each slab marched by march_uniform
+                    (bit for bit against its plain version at the first
+                    event's gathered lanes), against one process on the
+                    march route within DD_BOUNDS; packets/s of both, host
+                    round trips per event
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -626,6 +634,22 @@ def config2(device, num_packets=1 << 20, batch_size=B_FULL, n=32, n_rf=25,
         num_packets=num_packets, batch_size=batch_size, seed=0,
         iterate_secondary=iterate_secondary, max_iterations=max_iterations,
         device=device)
+
+
+def one_batch(sim, run) -> None:
+    """A warm-up of one batch (run(verbose=False) with the simulation's
+    packets cut to its batch and its events to 8: the kernels loaded, the
+    tables and the allocator's blocks built), its packet count and options
+    restored."""
+    import dataclasses
+    n, opts = sim.num_packets, sim.options
+    sim.num_packets = sim.batch_size
+    sim.options = dataclasses.replace(opts, max_events=min(opts.max_events,
+                                                           8))
+    try:
+        run(verbose=False)
+    finally:
+        sim.num_packets, sim.options = n, opts
 
 
 def drive(must: tuple, must_not: tuple, fn):
@@ -1336,7 +1360,7 @@ def phase_full_width(torch, smi: str, phase="full_width", tables="SweepTables",
     sim = config1("cuda", **kw)
     require(type(sim._sweep_tabs).__name__ == tables,
             f"{sim.grid.nx}^3 builds {tables}")
-    sim.run_primary(verbose=False)          # warm-up
+    one_batch(sim, sim.run_primary)            # warm-up
     (rf, accs), launches = drive(must, must_not,
                                  lambda: sim.run_primary(verbose=False))
     stats = dict(sim.last_stats)
@@ -1910,7 +1934,7 @@ def phase_full_width_ml(torch, smi: str, phase="full_width_ml",
     require(type(tabs).__name__ == ("XLTables" if raster else "MLTables")
             and (not raster or tabs.cellmap is not None),
             f"{name} builds its engine's tables")
-    sim.run_primary(verbose=False)          # warm-up
+    one_batch(sim, sim.run_primary)            # warm-up
     must = ML_PASS1 + DETECT + (("mlsweep_deposit",) if store_rf else ())
     must_not = RESIDENT + XL + NOT_PATH + (() if store_rf
                                            else ("mlsweep_deposit",))
@@ -2168,10 +2192,8 @@ def phase_kernels_b2(torch) -> dict:
     ipos = pkt.pos + s_p[:, None] * pkt.dir
     b = torch.searchsorted(itab["wave_borders"], pkt.lam, right=True) - 1
     ok = f_p & (b >= 0) & (b < nb)
-    xp = torch.sum(ipos * itab["ex"], dim=-1) - cfg.centerx
-    yp = torch.sum(ipos * itab["ey"], dim=-1) - cfg.centery
-    ix = torch.floor((xp / cfg.fovx + 0.5) * cfg.npx).clamp(0, cfg.npx - 1)
-    iy = torch.floor((yp / cfg.fovy + 0.5) * cfg.npy).clamp(0, cfg.npy - 1)
+    ix, iy = dinst.frame_pixels(cfg, itab, ipos)
+    ix, iy = ix.clamp(0, cfg.npx - 1), iy.clamp(0, cfg.npy - 1)
     size = nb * cfg.npy * cfg.npx
     flat = ((b.clamp(0, nb - 1) * cfg.npy + iy.long()) * cfg.npx
             + ix.long()).to(torch.int32)
@@ -2307,7 +2329,7 @@ def phase_full_width_b2(torch, smi: str):
     3; bench2's golden gates and L_dust = L_abs_primary within 1e-4 (no
     iterations)."""
     sim = config2("cuda")
-    sim.run_with_dust_emission(verbose=False)            # warm-up
+    one_batch(sim, sim.run_with_dust_emission)            # warm-up
     t0 = time.perf_counter()
     (rf, accs, info), launches = drive(
         RESIDENT + DETECT, XL + ML + NOT_PATH,
@@ -2340,14 +2362,15 @@ def phase_full_width_b2(torch, smi: str):
     return sim, launches
 
 
-def phase_breakdown_b2(torch) -> None:
+def phase_breakdown_b2(torch, sim) -> None:
     """Config 2 with one batch per segment (2^17 packets) under
-    torch.profiler (host_per_event): launches, stream syncs and copies per
-    event, busy and idle shares, the kernels that take the most device
-    time."""
+    torch.profiler (host_per_event, on full_width_b2's simulation, which
+    has run): launches, stream syncs and copies per event, busy and idle
+    shares, the kernels that take the most device time."""
+    sim.num_packets = B_FULL
     prof = host_per_event(
-        torch, config2("cuda", num_packets=B_FULL),
-        lambda s: s.run_with_dust_emission(verbose=False))
+        torch, sim, lambda s: s.run_with_dust_emission(verbose=False),
+        warm=True)
     emit({"phase": "breakdown_b2", "packets": B_FULL, **prof})
 
 
@@ -2562,20 +2585,23 @@ def phase_refill_b1h(torch, smi: str) -> dict:
     sim = config1h("cuda")
     require(type(sim._sweep_tabs).__name__ == "SweepTables",
             "bench1h builds SweepTables")
-    sim.run_primary(verbose=False)                       # warm-up
+    one_batch(sim, sim.run_primary)            # warm-up
     (_, accs), launches = drive(RESIDENT + DETECT, XL + ML + NOT_PATH,
                                 lambda: sim.run_primary(verbose=False))
-    st = dict(sim.last_stats)
+    st, rate = dict(sim.last_stats), sim.last_rate
     require(st["abandoned"] == 0, f"refill: {st['abandoned']} lanes "
             "abandoned at the generation cap")
     gates = bench1h_gates(_sed(sim, accs))
-    kernels = check_refilled_batch(torch, config1h("cuda"))
-    prof = host_per_event(torch, config1h("cuda", num_packets=B_FULL),
-                          lambda s: s.run_primary(verbose=False))
+    n_full = sim.num_packets
+    kernels = check_refilled_batch(torch, sim)
+    sim.num_packets = B_FULL
+    prof = host_per_event(torch, sim, lambda s: s.run_primary(verbose=False),
+                          warm=True)
+    sim.num_packets = n_full
     res = {"phase": "refill_b1h", "grid": list(sim.grid.shape),
            "packets": sim.num_packets, "batch": sim.batch_size,
            "refill_events": sim.refill_events,
-           "packets_per_s": sim.last_rate, "seconds": st["seconds"],
+           "packets_per_s": rate, "seconds": st["seconds"],
            "generations": st["generations"], "events": st["events"],
            "events_per_generation": st["events"] / st["generations"],
            "syncs": st["syncs"],
@@ -2973,7 +2999,7 @@ def phase_full_width_b3(torch, smi: str):
     sim = config3("cuda")
     require(type(sim._sweep_tabs).__name__ == "MLTables",
             "bench3 builds MLTables")
-    sim.run_with_dust_emission(verbose=False)            # warm-up
+    one_batch(sim, sim.run_with_dust_emission)            # warm-up
     t0 = time.perf_counter()
     (rf, accs, info), launches = drive(
         ML + DETECT, ML_NOT_PATH,
@@ -3014,14 +3040,15 @@ def phase_full_width_b3(torch, smi: str):
     return sim, launches, res
 
 
-def phase_breakdown_b3(torch) -> None:
+def phase_breakdown_b3(torch, sim) -> None:
     """Config 3 with one batch of 2^16 packets per segment under
-    torch.profiler (host_per_event): device operations, stream syncs and
-    host copies per event, busy and idle shares, the kernels that take the
-    most device time."""
+    torch.profiler (host_per_event, on full_width_b3's simulation, which
+    has run): device operations, stream syncs and host copies per event,
+    busy and idle shares, the kernels that take the most device time."""
+    sim.num_packets = B_B3
     prof = host_per_event(
-        torch, config3("cuda", num_packets=B_B3),
-        lambda s: s.run_with_dust_emission(verbose=False))
+        torch, sim, lambda s: s.run_with_dust_emission(verbose=False),
+        warm=True)
     emit({"phase": "breakdown_b3", "packets": B_B3, **prof})
 
 
@@ -3342,9 +3369,7 @@ def phase_full_width_b2x256(torch, smi: str):
     require(isinstance(sim._sweep_tabs, xl.XLTables)
             and sim.grid.shape == (256,) * 3, "bench2 at 256^3 builds XL")
     n_pk = sim.num_packets
-    sim.num_packets = sim.batch_size                    # warm-up: one batch
-    sim.run_with_dust_emission(verbose=False)
-    sim.num_packets = n_pk
+    one_batch(sim, sim.run_with_dust_emission)            # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     (rf, accs, info), launches = drive(
@@ -3771,7 +3796,7 @@ def phase_full_width_b5(torch, smi: str):
             and sim.options.path_length_bias == 0.0,
             "bench5: the resident sweep, kinematics, polarization, no "
             "path-length bias")
-    sim.run_primary(verbose=False)          # warm-up
+    one_batch(sim, sim.run_primary)            # warm-up
     (rf, accs), launches = drive(RESIDENT + DETECT, XL + ML + NOT_PATH,
                                  lambda: sim.run_primary(verbose=False))
     stats = dict(sim.last_stats)
@@ -3810,13 +3835,14 @@ def phase_full_width_b5(torch, smi: str):
     return sim, launches, uniform
 
 
-def phase_breakdown_b5(torch) -> None:
+def phase_breakdown_b5(torch, sim) -> None:
     """Config 5 with one batch of 2^17 packets under torch.profiler
-    (host_per_event): device operations, stream syncs and host copies per
-    event of the loop, busy and idle shares, the kernels that take the
-    most device time."""
-    prof = host_per_event(torch, config5("cuda", num_packets=B_FULL),
-                          lambda s: s.run_primary(verbose=False))
+    (host_per_event, on full_width_b5's simulation, which has run): device
+    operations, stream syncs and host copies per event of the loop, busy
+    and idle shares, the kernels that take the most device time."""
+    sim.num_packets = B_FULL
+    prof = host_per_event(
+        torch, sim, lambda s: s.run_primary(verbose=False), warm=True)
     emit({"phase": "breakdown_b5", "packets": B_FULL, **prof})
 
 
@@ -4218,9 +4244,7 @@ def phase_full_width_b67(torch, smi: str, name):
             and (sim.options.lya if name == "bench6" else sim.options.xray),
             f"{name}: the resident sweep, its physics on")
     n_pk = sim.num_packets
-    sim.num_packets = sim.batch_size
-    sim.run_primary(verbose=False)          # warm-up: one batch
-    sim.num_packets = n_pk
+    one_batch(sim, sim.run_primary)            # warm-up
     (rf, accs), launches = drive(RESIDENT + DETECT, XL + ML + NOT_PATH,
                                  lambda: sim.run_primary(verbose=False))
     stats = dict(sim.last_stats)
@@ -4619,7 +4643,7 @@ def phase_full_width_b4(torch, smi: str):
     raster_s = time.perf_counter() - t0
     require(type(sim._sweep_tabs).__name__ == "MLTables",
             "bench4 builds MLTables (its raster)")
-    sim.run_with_dust_emission(verbose=False)            # warm-up
+    one_batch(sim, sim.run_with_dust_emission)            # warm-up
     t0 = time.perf_counter()
     (rf, accs, info), launches = drive(
         ML + DETECT, ML_NOT_PATH,
@@ -5067,7 +5091,7 @@ def phase_full_width_b4_walk(torch, smi: str, raster: dict) -> dict:
     and the per-cell dust temperature beside the raster run's (raster:
     full_width_b4's), the raster's chord error, stated and not gated."""
     sim = _walk_sim()
-    sim.run_with_dust_emission(verbose=False)            # warm-up
+    one_batch(sim, sim.run_with_dust_emission)            # warm-up
     t0 = time.perf_counter()
     (rf, accs, info), launches = drive(
         ("march_voronoi",) + DETECT, SWEEPS + ("march_uniform", "march_mesh"),
@@ -5148,7 +5172,7 @@ def phase_full_width_b1_march(torch, smi: str, sweep: dict) -> dict:
         sim = config1("cuda", **kw)
         require(sim._sweep_tabs is None or "meshes" not in kw,
                 "the meshed grid has no sweep tables")
-        sim.run_primary(verbose=False)                  # warm-up
+        one_batch(sim, sim.run_primary)            # warm-up
         (rf, accs), n = drive((mode,) + DETECT,
                               SWEEPS + tuple(m for m in MARCH if m != mode),
                               lambda: sim.run_primary(verbose=False))
@@ -5250,7 +5274,7 @@ def phase_full_width_b3_march(torch, smi: str, sweep: dict) -> dict:
     beside full_width_b3's tree-sweep run (sweep: its rate and gates);
     one batch per segment profiled (host_per_event)."""
     sim = config3_march("cuda")
-    sim.run_with_dust_emission(verbose=False)            # warm-up
+    one_batch(sim, sim.run_with_dust_emission)            # warm-up
     t0 = time.perf_counter()
     (rf, accs, info), launches = drive(
         ("march_octree",) + DETECT,
@@ -5528,7 +5552,7 @@ def phase_full_width_b5_tree(torch, smi: str, uniform: dict) -> dict:
     bench5 golden ratios, which the tree, resolving the disk otherwise,
     need not meet."""
     sim = config5_tree("cuda")
-    sim.run_primary(verbose=False)                       # warm-up
+    one_batch(sim, sim.run_primary)            # warm-up
     (rf, accs), launches = drive(
         XL + DETECT, RESIDENT + ML + NOT_PATH + MARCH + MARCH_TREE,
         lambda: sim.run_primary(verbose=False))
@@ -6164,8 +6188,7 @@ def phase_full_width_geometric(torch, smi: str, name: str) -> dict:
     must = ("march_cylinder2d",) if cyl else ML
     with tempfile.TemporaryDirectory() as tmp:
         sim = geometric_config(name, "cuda", tmp)
-        warm = geometric_config(name, "cuda", tmp, num_packets=B_GEO)
-        warm.run_primary(verbose=False)
+        one_batch(sim, sim.run_primary)            # warm-up
         t0 = time.perf_counter()
         (rf, accs), launches = drive(
             must + DETECT, tuple(k for k in SWEEPS + MARCH + MARCH_TREE
@@ -6973,9 +6996,7 @@ def phase_full_width_amr(torch, smi: str, name: str = "amr_galaxy") -> dict:
         res.update(leaves=sim.grid.ncells, depth=sim.grid.depth,
                    dust_entities=n_grid, dust_rel_err=e,
                    max_steps=sim.options.max_steps)
-        sim.num_packets = B_GEO                  # the warm-up: one batch
-        sim.run_primary(verbose=False)
-        sim.num_packets = N_GEO
+        one_batch(sim, sim.run_primary)            # warm-up
         out, launches, dt = _run_phase(torch, sim, must, dust)
         res.update(packets=sim.num_packets, batch=sim.batch_size,
                    seconds=dt, packets_per_s=sim.num_packets / dt,
@@ -7056,9 +7077,7 @@ def phase_full_width_sph(torch, smi: str) -> dict:
         res.update(leaves=sim.grid.ncells, levels=sim.grid.levels,
                    gas_particles=len(gas), star_particles=len(stars),
                    dust_entities=n_grid, dust_rel_err=e)
-        sim.num_packets = B_GEO                  # the warm-up: one batch
-        sim.run_primary(verbose=False)
-        sim.num_packets = N_GEO
+        one_batch(sim, sim.run_primary)            # warm-up
         out, launches, dt = _run_phase(torch, sim, ML, True)
         info = out[2]
         e_l = abs(info["L_dust"] / info["L_abs_primary"] - 1)
@@ -7716,9 +7735,8 @@ def phase_full_width_mesh(torch, smi: str, name: str) -> dict:
         require(e <= 1e-6, f"{name}: tetrahedra tile the box ({e})")
         res["volume_tiling_err"] = e
     n_full = sim.num_packets
-    sim.num_packets = sim.batch_size                 # the warm-up: one batch
-    (sim.run_with_dust_emission if dust else sim.run_primary)(verbose=False)
-    sim.num_packets = n_full
+    one_batch(sim, sim.run_with_dust_emission if dust
+              else sim.run_primary)                  # warm-up
     out, launches, dt = _run_phase(torch, sim, must, dust)
     rf, accs = out[0], out[1]
     res.update(packets=sim.num_packets, batch=sim.batch_size, seconds=dt,
@@ -7851,7 +7869,7 @@ def phase_kernels_sincos(torch) -> dict:
 
 def phase_kernels_march_clumpy(torch) -> dict:
     """march_clumpy against its plain version, cells and lengths bit for
-    bit (_march_check): at clumpy_torus's first event (2^16 lanes, 100 x 90
+    bit (_march_check): at clumpy_torus's first event (2^14 lanes, 100 x 90
     x 32 cells and its retained clumps, staged in shared memory beside the
     sphere's tables: its central source's radial rays, most of which
     stall, ROADMAP.md queue C), on the first 2^13 of 2^16 isotropic rays
@@ -7864,7 +7882,7 @@ def phase_kernels_march_clumpy(torch) -> dict:
     from skirt9_tpu_torch.transport import march as mr
     sim, setup = _mesh_sim("clumpy_torus")
     S = sim.options.max_steps
-    pos, dirn, cell, alive = _first_event_lanes(torch, sim, B_GEO)
+    pos, dirn, cell, alive = _first_event_lanes(torch, sim, 1 << 14)
     out = {"march_clumpy": dict(_march_check(
         torch, "march_clumpy", sim.grid, pos, dirn, cell, S, alive),
         cells=sim.grid.ncells, shift=sim.grid.shift, setup_s=setup)}
@@ -7986,7 +8004,9 @@ DP_CLI_BOUNDS = {"sed": 1e-12, "frame": 1e-6}
 
 def phase_dp(torch, smi: str) -> dict:
     """Packet data parallelism (parallel/dp.py). bench1.ski (2^18 packets)
-    through the CLI twice without -d and once with -d 1 (one NCCL rank):
+    through the CLI twice without -d and once with -d 1 (one NCCL rank),
+    the three processes at once (their seconds are each one's wall from
+    the common start):
     the SED and the FITS frame of -d 1 against the first plain run within
     DP_CLI_BOUNDS, and the spread between the two plain runs, which sets
     those bounds (no two runs on the card are equal byte for byte: the
@@ -8002,16 +8022,20 @@ def phase_dp(torch, smi: str) -> dict:
     golden = os.path.join(GOLDEN, "bench1.ski")
     from skirt9_tpu_torch.utils import fits
     with tempfile.TemporaryDirectory() as tmp:
-        runs, files = {}, {}
+        runs, files, procs = {}, {}, {}
+        # the three CLI runs at once: the card idles in each, and their
+        # files, not their times, are held against each other
+        t0 = time.perf_counter()
         for key, extra in (("plain", []), ("d1", ["-d", "1"]),
                            ("plain2", [])):
-            t0 = time.perf_counter()
-            r = subprocess.run(
+            procs[key] = subprocess.Popen(
                 [sys.executable, "-m", "skirt9_tpu_torch", golden, "-o",
                  os.path.join(tmp, key), "-p", str(1 << 18), *extra],
-                capture_output=True, text=True, timeout=300,
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
                 cwd=os.path.dirname(os.path.abspath(__file__)))
-            require(r.returncode == 0, f"dp: the CLI {key}: {r.stderr[-800:]}")
+        for key, proc in procs.items():
+            _, err = proc.communicate(timeout=300)
+            require(proc.returncode == 0, f"dp: the CLI {key}: {err[-800:]}")
             runs[key] = time.perf_counter() - t0
             out = os.path.join(tmp, key, "bench1_i0")
             files[key] = {"sed": np.loadtxt(out + "_sed.dat"),
@@ -8033,7 +8057,7 @@ def phase_dp(torch, smi: str) -> dict:
                           spread_plain=spread, bounds=DP_CLI_BOUNDS)
         n = 1 << 20
         sim = config1("cuda", num_packets=n)
-        sim.run_primary(verbose=False)                 # warm-up
+        one_batch(sim, sim.run_primary)            # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, accs = sim.run_primary(verbose=False)
@@ -8067,6 +8091,219 @@ def phase_dp(torch, smi: str) -> dict:
     return res
 
 
+# spatial domain decomposition (phase_dd): config 1 (32^3, its RF stored)
+# and config 2 (32^3, its 25-bin RF, dust emission with one secondary
+# iteration) on 2 ranks, against one process on the march route; the
+# reference's own bounds for its decomposed run against its replicated one
+# (tests/test_domain.py:189-196, 264-269). Its per-entry RF bound, rtol
+# 1e-4 on every (cell, bin) above 1% of the maximum, holds at 2^16
+# packets for the 99th percentile and the median (measured on the CPU at
+# the same size: 2.7e-5 and 1.1e-6) but not for every entry: the slabs sum
+# a lane's depth in another order than one march, so now and then an
+# interaction lands across a cell face, and after dust emission a
+# secondary packet's path differs; 41 of 5,305 entries, all in the dust's
+# emission bins (20-22), part by up to 3.2e-2. So every entry is held
+# within 0.1, the RF's total within 1e-4.
+DD_PACKETS = {"config1": 1 << 18, "config2": 1 << 16}
+DD_BOUNDS = {"rf": 1e-3, "sed": 2e-3, "frame_sums": 3e-3, "sed_sum": 1e-4,
+             "L_dust": 1e-4, "rf_hot_median": 1e-4, "rf_hot_p99": 1e-4,
+             "rf_hot_max": 0.1, "rf_sum": 1e-4}
+
+
+def dd_config(name: str, device, num_packets: int):
+    """phase_dd's configuration on device: config 1 with its RF stored, or
+    config 2 with one secondary iteration."""
+    if name == "config1":
+        return config1(device, num_packets=num_packets, store_rf=True)
+    return config2(device, num_packets=num_packets, iterate_secondary=True,
+                   max_iterations=1)
+
+
+def dd_sim(sim, group):
+    """Turn spatial domain decomposition on for a simulation built by the
+    API (`Simulation.dd` with group, its engine tables rebuilt: none)."""
+    sim.group, sim.dd = group, True
+    sim._build_sweep_tables()
+    return sim
+
+
+def _dd_run(sim, name: str):
+    """(rf, accs, info) of phase_dd's run of sim."""
+    if name == "config2":
+        return sim.run_with_dust_emission(verbose=False)
+    rf, accs = sim.run_primary(verbose=False)
+    return rf, accs, {}
+
+
+def _dd_rank(group, out: str) -> None:
+    """One rank of phase_dd's decomposed runs, each configuration of
+    DD_PACKETS in turn: the first event's slab march held to its plain
+    version bit for bit (_march_check, on the gathered lanes of the first
+    batch), then the run with the launch counts set to 0 just before it
+    and summed over the ranks just after; rank 0 saves the results."""
+    import torch
+    from skirt9_tpu_torch.kernels import build as kb
+    from skirt9_tpu_torch.ops import rng
+    from skirt9_tpu_torch.parallel import domain as dom
+    from skirt9_tpu_torch.sources import base as src
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "skirt9_tpu"))
+    require(not bad, f"rank {group.rank} imported {bad[:3]}")
+    saved, arrays = {}, {}
+    for name, n in DD_PACKETS.items():
+        sim = dd_sim(dd_config(name, group.device, n), group)
+        st = sim._ensure_dd()
+        dec = st["dec"]
+        B = -(-sim.batch_size // (group.size * 128)) * (group.size * 128)
+        hist = torch.arange(B, device=sim.device)
+        pkt = src.launch_batch(sim.sources[0], sim._src_tabs[0], sim.grid,
+                               rng.seed_key(sim.seed, sim.device), hist, n)
+        grid_loc = dom._local_grid(dec, group.rank, sim.device)
+        p0, c0, _ = grid_loc.move_inside(pkt.pos, pkt.dir)
+        check = _march_check(torch, "march_uniform", grid_loc, p0, pkt.dir,
+                             c0, dec.max_steps_local, pkt.alive & (c0 >= 0))
+        require(check["lanes_cells_differ"] == 0
+                and check["max_abs_err"] == 0.0,
+                f"dd: rank {group.rank}'s slab march bit for bit {check}")
+        del pkt, p0, c0
+        torch.cuda.synchronize()
+        trips0 = group.host_trips
+        group.barrier()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        rf, accs, info = _dd_run(sim, name)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(kb.LAUNCHES)
+        events = sum(x[3] for x in sim.last_stats["segments"]) \
+            if "segments" in sim.last_stats else sim.last_stats["events"]
+        trips = group.host_trips - trips0
+        tot = torch.tensor([dt, events, trips] + list(counts.values()),
+                           dtype=torch.float64)
+        group.all_reduce([tot])
+        if group.writes:
+            arrays[f"{name}__rf"] = rf.double().cpu().numpy()
+            arrays.update({f"{name}__{k}": v.double().cpu().numpy()
+                           for k, v in accs[0].items()})
+            saved[name] = dict(
+                **{k: v for k, v in info.items() if isinstance(v, float)},
+                seconds=float(tot[0]) / group.size,
+                events=float(tot[1]) / group.size,
+                host_trips=float(tot[2]) / group.size,
+                launches=dict(zip(counts, map(int, tot[3:].tolist()))),
+                march_check=check, slabs=group.size,
+                slab_cells=dec.ncells_local, S_loc=dec.max_steps_local)
+        del sim, rf, accs
+        torch.cuda.empty_cache()
+    if group.writes:
+        meta = json.dumps(saved, default=lambda o: o.item()
+                          if hasattr(o, "item") else str(o))
+        np.savez(out, meta=np.array(meta), **arrays)
+
+
+def dd_gaps(one, two, name: str) -> dict:
+    """The decomposed run (two) against one process (one) within
+    DD_BOUNDS: config 1's RF and SED per kind by their maxima and its frame
+    sums per kind and bin; config 2's SED sum, L_dust, its RF's total and
+    the relative gaps of its RF entries above 1% of the maximum (median,
+    99th percentile, largest)."""
+    rf1, rf2 = one["rf"], np.asarray(two["rf"])
+    gaps = {}
+    if name == "config1":
+        gaps["rf"] = float(np.abs(rf2 - rf1).max() / np.abs(rf1).max())
+        for k in range(one["sed"].shape[0]):
+            m = np.abs(one["sed"][k]).max()
+            if m > 0:
+                gaps[f"sed{k}"] = float(np.abs(np.asarray(two["sed"][k])
+                                               - one["sed"][k]).max() / m)
+        fa = one["frame"].sum(axis=(2, 3))
+        fb = np.asarray(two["frame"]).sum(axis=(2, 3))
+        atol = 1e-6 * max(fa.max(), 1e-30)
+        gaps["frame_sums"] = float((np.abs(fb - fa) / (np.abs(fa) + atol
+                                                       / 3e-3)).max())
+        far = {k: v for k, v in gaps.items()
+               if v > DD_BOUNDS["sed" if k.startswith("sed") else k]}
+    else:
+        sa, sb = one["sed"].sum(), np.asarray(two["sed"]).sum()
+        gaps["sed_sum"] = float(abs(sb / sa - 1))
+        gaps["L_dust"] = float(abs(two["L_dust"] / one["L_dust"] - 1))
+        hot = rf1 > 0.01 * rf1.max()
+        rel = np.abs(rf2[hot] - rf1[hot]) / rf1[hot]
+        gaps.update(rf_hot_median=float(np.median(rel)),
+                    rf_hot_p99=float(np.quantile(rel, 0.99)),
+                    rf_hot_max=float(rel.max()),
+                    rf_sum=float(abs(rf2.sum() / rf1.sum() - 1)))
+        far = {k: v for k, v in gaps.items() if v > DD_BOUNDS[k]}
+        gaps["rf_hot_share_1e-4"] = float((rel <= 1e-4).mean())
+    require(not far, f"dd: {name} decomposed against one process within "
+            f"{DD_BOUNDS} ({gaps})")
+    return gaps
+
+
+def phase_dd(torch, smi: str) -> dict:
+    """Spatial domain decomposition (parallel/domain.py) at full width: the
+    configurations of DD_PACKETS on two ranks sharing cuda:0 over gloo
+    (each collective a host round trip), each slab marched by
+    `march_uniform` at S_loc = 16 + 32 + 32 + 3 over the gathered lanes,
+    against one process without decomposition on the march route
+    (dd_gaps); the packets/s of both, the host round trips per event, and
+    the slab march against its plain version (_march_check: device and
+    plain ms, bound)."""
+    import chip_smoke as cs
+    from skirt9_tpu_torch.parallel import dp
+    res = {"phase": "dd"}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dd.npz")
+        t0 = time.perf_counter()
+        dp.spawn(cs._dd_rank, 2, args=(out,), device="cuda:0",
+                 backend="gloo")
+        res["ranks_wall_s"] = time.perf_counter() - t0
+        with np.load(out) as f:
+            two = json.loads(str(f["meta"]))
+            for key in f.files:
+                if "__" in key:
+                    name, k = key.split("__")
+                    two[name][k] = f[key]
+    launches = {}
+    for name, n in DD_PACKETS.items():
+        d = two[name]
+        n_two = d.pop("launches")
+        sim = dd_config(name, "cuda", n)
+        sim._sweep_tabs = None                       # the march route
+        (rf, accs, info), n_one = drive(
+            ("march_uniform",) + DETECT + DIRECTIONS, SWEEPS,
+            lambda: _dd_run(sim, name))
+        for k in ("march_uniform",) + DETECT + DIRECTIONS:
+            require(n_two[k] > 0, f"dd: {name}: {k} launched on the "
+                    f"decomposed path ({n_two[k]})")
+        for k in SWEEPS + tuple(m for m in MARCH if m != "march_uniform"):
+            require(n_two[k] == 0,
+                    f"dd: {name}: {k} not launched ({n_two[k]})")
+        one = {"rf": rf.double().cpu().numpy(),
+               **{k: v.double().cpu().numpy() for k, v in accs[0].items()},
+               **info}
+        gaps = dd_gaps(one, d, name)
+        seconds_one = sim.last_stats.get("seconds") if name == "config1" \
+            else sum(x[2] for x in sim.last_stats["segments"])
+        res[name] = dict(
+            packets=n, gaps=gaps, bounds=DD_BOUNDS,
+            packets_per_s_one=n / seconds_one, packets_per_s_two=n
+            / d["seconds"], seconds_one=seconds_one,
+            seconds_two=d["seconds"], events=d["events"],
+            host_round_trips_per_event=d["host_trips"] / max(d["events"], 1),
+            slabs=d["slabs"], slab_cells=d["slab_cells"], S_loc=d["S_loc"],
+            launches_two={k: v for k, v in n_two.items() if v},
+            launches_one={k: v for k, v in n_one.items() if v},
+            slab_march=d["march_check"])
+        launches[name] = n_two
+        del sim
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+              backend="gloo"))
+    return dict(res, launches=launches)
+
+
 def main() -> int:
     import torch
     from skirt9_tpu_torch import device  # fails outside the repository
@@ -8075,6 +8312,10 @@ def main() -> int:
     except RuntimeError as err:
         print(f"chip_smoke: {err}", file=sys.stderr)
         return 2
+    # the plain versions' CPU runs beside the card: four torch threads ran
+    # config 1's CPU run 3.7x faster than eight on the card's 8-core host
+    # (perf/cpu_threads.py: 3.77 s against 13.80 s)
+    torch.set_num_threads(min(4, torch.get_num_threads()))
     smi = phase_env(torch)
     phase_build()
     # the march kernel's device times first, while the profiler is fresh
@@ -8124,8 +8365,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_draw_for_draw_b2(torch)
     sim, launches_b2 = phase_full_width_b2(torch, smi)
+    phase_breakdown_b2(torch, sim)
     del sim
-    phase_breakdown_b2(torch)
     torch.cuda.empty_cache()
     kern_b3 = phase_kernels_b3(torch)
     torch.cuda.empty_cache()
@@ -8133,8 +8374,8 @@ def main() -> int:
     sim, launches_b3, res_b3 = phase_full_width_b3(torch, smi)
     sweep_b3 = {k: res_b3[k] for k in res_b3 if k.endswith("ratio")
                 or k in ("packets_per_s", "seconds", "iterations")}
+    phase_breakdown_b3(torch, sim)
     del sim
-    phase_breakdown_b3(torch)
     torch.cuda.empty_cache()
     launches_1h = phase_refill_b1h(torch, smi)
     torch.cuda.empty_cache()
@@ -8162,8 +8403,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_draw_for_draw_b5(torch)
     sim, launches_b5, uniform_b5 = phase_full_width_b5(torch, smi)
+    phase_breakdown_b5(torch, sim)
     del sim
-    phase_breakdown_b5(torch)
     torch.cuda.empty_cache()
     kern_b6 = phase_kernels_b6(torch)
     torch.cuda.empty_cache()
@@ -8219,6 +8460,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_ivezic_dust = phase_full_width_ivezic_dust(torch, smi)
     phase_dp(torch, smi)
+    dd = phase_dd(torch, smi)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -8616,6 +8858,25 @@ def main() -> int:
         row["launches_config5_static_tree"] = launches_small[
             "bench5_tree_static"][name]
         row["config5_static_tree"] = kern_b5_tree[f"{name}_static_tree"]
+    # the slab march of domain decomposition: march_uniform on one slab of
+    # config 1's 32^3 grid over the gathered lanes of both ranks (dd)
+    k = dd["config1"]["slab_march"]
+    rows.append({"name": "march_uniform_dd_slab", "route": "cuda",
+                 "source": "skirt9_tpu_torch/csrc/march.cu",
+                 "replaces": "skirt9_tpu/parallel/domain.py:169 "
+                 "(_slab_march: march_geometry on a slab, an XLA scan: "
+                 "not a TPU kernel)",
+                 "path": "dd (two ranks, config 1, both ranks' launches)",
+                 "launches": dd["launches"]["config1"]["march_uniform"],
+                 "launches_config2": dd["launches"]["config2"][
+                     "march_uniform"],
+                 **{key: k[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "device_ms", "profiler_dropped",
+                     "lanes_cells_differ", "live_share", "lanes", "steps")}})
+    for name in DETECT + DIRECTIONS:
+        row = next(r for r in rows if r["name"] == name)
+        row["launches_dd"] = dd["launches"]["config1"][name]
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

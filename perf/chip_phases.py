@@ -1,7 +1,7 @@
 """Run chosen phases of chip_smoke.py alone on the card, and two probes of
 its clumpy-sphere gates.
 
-    python3 perf/chip_phases.py [sincos] [clumpy] [mesh] [dp] [fw]
+    python3 perf/chip_phases.py [sincos] [clumpy] [mesh] [dp] [dd] [fw]
                                 [readings] [aimed]
 
 Each phase named runs after the environment and build phases, caught: a
@@ -100,6 +100,7 @@ def main() -> int:
         "clumpy": lambda: cs.phase_kernels_march_clumpy(torch),
         "mesh": lambda: cs.phase_full_width_mesh(torch, smi, "clumpy_torus"),
         "dp": lambda: cs.phase_dp(torch, smi),
+        "dd": lambda: cs.phase_dd(torch, smi),
         "fw": lambda: cs.phase_full_width(torch, smi),
         "readings": readings, "aimed": aimed}
     ok = True

@@ -15,9 +15,13 @@ runs N packet-parallel ranks (`parallel/dp.py`), one process group even
 at N = 1: on the card one per GPU under NCCL (N past the GPUs present
 exits 2), with `--device cpu` N gloo ranks on the CPU; `-d 0` takes every
 GPU (one rank on the CPU); rank 0 alone writes the output files and the
-log. Without -d the run is on one device, with no process group. Accepted for compatibility but
-inert: -t, -m, -v. Not ported (the command exits non-zero and names them):
---dd (spatial domain decomposition, ROADMAP.md item 26), --export-schema
+log. Without -d the run is on one device, with no process group. With an
+indexed card (`--device cuda:0`) the N ranks share it over gloo. `--dd`
+with `-d N`, N > 1, shards the grid's tables into N x-slabs, one per rank
+(spatial domain decomposition, `parallel/domain.py`); with `-d 1` it is
+inert, as in the reference, whose mesh needs two devices, and without -d
+the command exits 2. Accepted for compatibility but inert: -t, -m, -v.
+Not ported (the command exits non-zero and names them): --export-schema
 and the no-argument ski wizard.
 """
 
@@ -56,8 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--export-schema", metavar="FILE", default=None,
                     help="not ported")
     ap.add_argument("--dd", action="store_true",
-                    help="spatial domain decomposition: not ported yet "
-                    "(ROADMAP.md item 26)")
+                    help="spatial domain decomposition over the -d N ranks "
+                    "(N > 1): the grid's tables in one x-slab per rank")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu asks "
                     "for the CPU)")
@@ -66,15 +70,15 @@ def main(argv=None) -> int:
     missing = []
     if args.export_schema:
         missing.append("--export-schema (the SMILE schema export)")
-    if args.dd:
-        missing.append("-d/--dd spatial domain decomposition (--dd, "
-                       "ROADMAP.md item 26; -d N alone runs packet data "
-                       "parallelism)")
     if not args.skifiles:
         missing.append("the no-argument ski wizard")
     if missing:
         print(f"skirt9_tpu_torch: not ported yet: {'; '.join(missing)}",
               file=sys.stderr)
+        return 2
+    if args.dd and args.devices is None:
+        print("skirt9_tpu_torch: -d/--dd: spatial domain decomposition runs "
+              "over the ranks of -d N (N > 1)", file=sys.stderr)
         return 2
 
     from . import device as dv
@@ -89,7 +93,13 @@ def main(argv=None) -> int:
         _run(args, device)
         return 0
     import torch
-    if device.type == "cuda":
+    backend = None
+    if device.type == "cuda" and device.index is not None:
+        # ranks sharing one card: gloo (NCCL refuses two ranks on one card)
+        n, backend = max(args.devices, 1), "gloo"
+        from .kernels import build as kb
+        kb.build()
+    elif device.type == "cuda":
         n = torch.cuda.device_count() if args.devices == 0 else args.devices
         if n > torch.cuda.device_count() or n < 1:
             print(f"skirt9_tpu_torch: -d {args.devices} needs {n} GPUs, "
@@ -107,7 +117,8 @@ def main(argv=None) -> int:
     # the ranks import this module by its package name (run as __main__,
     # its functions do not pickle)
     from . import __main__ as cli
-    dp.spawn(cli._rank, n, args=(args,), device=device.type)
+    dp.spawn(cli._rank, n, args=(args,),
+             device=str(device) if backend else device.type, backend=backend)
     return 0
 
 
@@ -128,16 +139,19 @@ def _run(args, device, group=None) -> None:
         prefix = os.path.splitext(os.path.basename(ski))[0]
         # file log next to the outputs (ref: FileLog; <prefix>_log.txt)
         log = logmod.configure(prefix, args.outdir if writes else None)
+        dd = args.dd and group is not None and group.size > 1
         if group is not None:
-            log.info(f"packet data parallelism: rank {group.rank} of "
-                     f"{group.size} on {group.device} ({group.backend})")
+            what = ("spatial domain decomposition" if dd
+                    else "packet data parallelism")
+            log.info(f"{what}: rank {group.rank} of {group.size} on "
+                     f"{group.device} ({group.backend})")
         t0 = time.perf_counter()
         log.info(f"Constructing a simulation from ski file {ski}...")
         with log.timed("setup"):
             sim = load_ski(ski, num_packets=args.packets,
                            batch_size=args.batch, seed=args.seed,
                            max_events=args.max_events, device=device,
-                           group=group)
+                           group=group, dd=dd)
         if args.emulate:
             log.success(f"emulation: setup OK, {sim.grid.ncells} cells, "
                         f"{len(sim.sources)} sources, "

@@ -1196,11 +1196,12 @@ def build_probes(mcs) -> list[ProbeSpec]:
 
 def load_ski(path: str, num_packets: int | None = None,
              batch_size: int = 16384, seed: int = 0, max_events: int = 64,
-             device="cuda", group=None) -> Simulation:
+             device="cuda", group=None, dd: bool = False) -> Simulation:
     """Parse a .ski file into a runnable Simulation on `device` (the
     reference's `load_ski` flow, `skirt9_tpu/config/ski.py:1659`); group:
     this rank's `parallel.dp.Group` under packet data parallelism, whose
-    device the simulation takes."""
+    device the simulation takes; dd: spatial domain decomposition over the
+    group's ranks (`Simulation.dd`)."""
     if group is not None:
         device = group.device
     base_dir = os.path.dirname(os.path.abspath(path))
@@ -1421,4 +1422,4 @@ def load_ski(path: str, num_packets: int | None = None,
         cmb_temperature=cmb_temperature,
         units=unitsystem.from_ski(_child(mcs, "units")), cosmology=cos,
         probes=build_probes(mcs), mueller=mueller, xray_tabs=xray_tabs,
-        device=device, group=group)
+        device=device, group=group, dd=dd)

@@ -53,10 +53,11 @@
 // so that their atomics and loads overlap: on config 2 it alone flushes
 // ~21,000 frame entries.
 //
-// The pixel arithmetic is PyTorch's on the card: xp = ((x ex0 + y ex1) +
-// z ex2) - cx, then a division by a host scalar as a multiply by its float
-// reciprocal, which the wrapper passes. Float atomics make the sums
-// order-dependent from run to run.
+// The pixel arithmetic is the reference's XLA arithmetic on the CPU
+// (`frame_pixels`, the plain version): xp = fma(z, ex2, fma(y, ex1, x ex0))
+// - cx, then fma(xp, 1/fovx, 0.5) with the float reciprocal of the float
+// field of view, which the wrapper passes, times npx rounded on its own.
+// Float atomics make the sums order-dependent from run to run.
 #include "scatter_common.cuh"
 
 namespace skirt9 {
@@ -207,10 +208,18 @@ __global__ void detect_kernel(const float* __restrict__ lam,
       int pix = -1;
       if (ok) {
         const float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
-        const float xp = ((px * f.ex[0] + py * f.ex[1]) + pz * f.ex[2]) - f.cx;
-        const float yp = ((px * f.ey[0] + py * f.ey[1]) + pz * f.ey[2]) - f.cy;
-        const float ix = floorf((xp * f.inv_fovx + 0.5f) * (float)f.npx);
-        const float iy = floorf((yp * f.inv_fovy + 0.5f) * (float)f.npy);
+        // the reference's XLA arithmetic, every rounding spelled out so
+        // that nvcc contracts nothing on its own
+        const float xp = __fsub_rn(
+            __fmaf_rn(pz, f.ex[2], __fmaf_rn(py, f.ex[1], __fmul_rn(px, f.ex[0]))),
+            f.cx);
+        const float yp = __fsub_rn(
+            __fmaf_rn(pz, f.ey[2], __fmaf_rn(py, f.ey[1], __fmul_rn(px, f.ey[0]))),
+            f.cy);
+        const float ix =
+            floorf(__fmul_rn(__fmaf_rn(xp, f.inv_fovx, 0.5f), (float)f.npx));
+        const float iy =
+            floorf(__fmul_rn(__fmaf_rn(yp, f.inv_fovy, 0.5f), (float)f.npy));
         if (ix >= 0.0f && ix < (float)f.npx && iy >= 0.0f &&
             iy < (float)f.npy)
           pix = (b * f.npy + (int)iy) * f.npx + (int)ix;

@@ -23,6 +23,7 @@ import torch
 
 from ..kernels import build as kb
 from ..ops import sampling
+from ..ops import xlamath as xm
 from ..ops import scatteradd as sca
 
 KIND_TRANSPARENT = 0
@@ -236,6 +237,29 @@ def _detect_cuda(cfg, tables, acc, lam, pos, contrib, kind, active,
               kb.stream_of(lam))
 
 
+def frame_pixels(cfg: DistantInstrumentCfg, tables: dict, pos: torch.Tensor):
+    """The frame's pixel coordinates (ix, iy) of positions pos (B, 3), as
+    f32 floors, in the reference's XLA arithmetic on the CPU (the detect
+    kernel performs the same operations): its dot `pos @ ex` is
+    fma(z, ex2, fma(y, ex1, x ex0)), the centre subtracted after it; its
+    division by the field of view is a product with the f32 reciprocal of
+    the f32 field of view, fused with the + 0.5 into one multiply-add, and
+    the product with the pixel count is rounded on its own. The
+    multiply-adds are `xlamath.fma`'s, as in the life cycle's own math
+    (`fma_rn`, exact on the ~1 sum in 10^9 that `fma` rounds twice, costs
+    four times the operations)."""
+    e = torch.stack([tables["ex"], tables["ey"]], dim=1)       # (3, 2)
+    consts = lambda *v: torch.tensor(np.asarray(v, np.float32),
+                                     device=pos.device)
+    inv_fov = consts(*(np.float32(1.0) / np.float32(f)
+                       for f in (cfg.fovx, cfg.fovy)))
+    dot = xm.fma(pos[:, 2:3], e[2], xm.fma(pos[:, 1:2], e[1],
+                                           pos[:, 0:1] * e[0]))
+    t = xm.fma(dot - consts(cfg.centerx, cfg.centery), inv_fov, 0.5)
+    pix = torch.floor(t * consts(cfg.npx, cfg.npy))
+    return pix[:, 0], pix[:, 1]
+
+
 def detect_plain(cfg: DistantInstrumentCfg, tables: dict, acc: dict,
                  lam: torch.Tensor, pos: torch.Tensor, contrib: torch.Tensor,
                  kind: int, active: torch.Tensor,
@@ -266,15 +290,7 @@ def detect_plain(cfg: DistantInstrumentCfg, tables: dict, acc: dict,
         powers = [ok.to(torch.float32), cn, cn2, cn * cn2, cn2 * cn2]
         acc["stats"] += torch.stack([scatter(bq, p, nb) for p in powers])
     if cfg.has_frame:
-        # the dot products in the order of the CPU's three-term sum, which
-        # the detect kernel follows (PyTorch's CUDA sum adds in another one)
-        ex, ey = tables["ex"], tables["ey"]
-        xp = (pos[:, 0] * ex[0] + pos[:, 1] * ex[1]) + pos[:, 2] * ex[2] \
-            - cfg.centerx
-        yp = (pos[:, 0] * ey[0] + pos[:, 1] * ey[1]) + pos[:, 2] * ey[2] \
-            - cfg.centery
-        ix = torch.floor((xp / cfg.fovx + 0.5) * cfg.npx)
-        iy = torch.floor((yp / cfg.fovy + 0.5) * cfg.npy)
+        ix, iy = frame_pixels(cfg, tables, pos)
         okf = ok & (ix >= 0) & (ix < cfg.npx) & (iy >= 0) & (iy < cfg.npy)
         ixc = torch.clamp(ix, 0, cfg.npx - 1).to(torch.int64)
         iyc = torch.clamp(iy, 0, cfg.npy - 1).to(torch.int64)

@@ -14,12 +14,18 @@ each batch (its own R_g groups), and a refilled segment gives each rank
 its own contiguous history range.
 
 A `Group` is one rank's view: its rank, the world size, its device and
-the process group. On the card the backend is NCCL, rank r on `cuda:r`;
+the process group; a group of one rank needs no process group (its
+collectives copy). On the card the backend is NCCL, rank r on `cuda:r`;
 on the CPU it is gloo. Several ranks may share one card over gloo (NCCL
-refuses two ranks on one device); gloo's all_reduce then runs on host
-copies of the partials, copied back once per segment, by design: the
-simulation itself never leaves the card. The store is TCP on 127.0.0.1.
-A failed set-up or collective raises; nothing falls back to one device.
+refuses two ranks on one device); gloo's collectives then run on host
+copies of their tensors, copied back after each, by design: the
+simulation itself never leaves the card. That host round trip is the
+one-card route's cost: once per segment for packet data parallelism, and
+for spatial domain decomposition (`parallel/domain.py`, whose all_gather
+and all_to_all serve every event) four or more per event, counted in
+`Group.host_trips`. Under NCCL every collective runs on the device. The
+store is TCP on 127.0.0.1. A failed set-up or collective raises; nothing
+falls back to one device.
 
 `spawn` starts the ranks (`python -m skirt9_tpu_torch -d N`); only rank 0
 writes files.
@@ -46,29 +52,83 @@ class Group:
     size: int
     device: torch.device
     backend: str
+    # collectives that went through a host copy
+    host_trips: int = 0
 
     @property
     def writes(self) -> bool:
         """Whether this rank writes the run's files (rank 0 only)."""
         return self.rank == 0
 
+    def _buffer(self, flat: torch.Tensor):
+        """The collective's buffer: flat itself, or its host copy under
+        gloo with a CUDA tensor (one copy each way, counted)."""
+        if self.backend == "gloo" and flat.device.type == "cuda":
+            self.host_trips += 1
+            return flat.cpu()
+        return flat
+
     def all_reduce(self, tensors) -> None:
         """Sum the tensors over the ranks, in place: flattened into one
         buffer of each dtype and device, one collective a buffer (one per
         segment where the partials share a dtype), on the device under
         NCCL, on a host copy under gloo with CUDA tensors."""
+        if self.size == 1:
+            return
         groups: dict = {}
         for t in tensors:
             groups.setdefault((t.dtype, t.device), []).append(t)
         for ts in groups.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
-            host = self.backend == "gloo" and flat.device.type == "cuda"
-            buf = flat.cpu() if host else flat
+            buf = self._buffer(flat)
             dist.all_reduce(buf, op=dist.ReduceOp.SUM)
-            if host:
+            if buf is not flat:
                 flat.copy_(buf)
             for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(part.view(t.shape))
+
+    def all_gather(self, tensors) -> list:
+        """Every rank's copy of each tensor, concatenated along dim 0 in
+        rank order ((D B, ...) from (B, ...), the reference's tiled
+        all_gather): one collective for the tensors of each dtype and
+        device, packed into one buffer."""
+        if self.size == 1:
+            return [t.clone() for t in tensors]
+        out: list = [None] * len(tensors)
+        groups: dict = {}
+        for i, t in enumerate(tensors):
+            groups.setdefault((t.dtype, t.device), []).append(i)
+        for (_, dev), idx in groups.items():
+            ts = [tensors[i] for i in idx]
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            buf = self._buffer(flat)
+            got = buf.new_empty((self.size, buf.numel()))
+            if self.backend == "nccl":
+                dist.all_gather_into_tensor(got, buf)
+            else:
+                dist.all_gather(list(got.unbind(0)), buf)
+            got = got.to(dev)
+            for i, t, part in zip(idx, ts, got.split(
+                    [t.numel() for t in ts], dim=1)):
+                out[i] = part.reshape((self.size * t.shape[0],)
+                                      + tuple(t.shape[1:]))
+        return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Split t (D k, ...) along dim 0 into D blocks, send block j to
+        rank j, and return the blocks received, concatenated along dim 0 in
+        rank order (the reference's all_to_all with split and concat axis
+        0)."""
+        if t.shape[0] % self.size:
+            raise ValueError(f"all_to_all of {t.shape[0]} rows over "
+                             f"{self.size} ranks")
+        if self.size == 1:
+            return t.clone()
+        flat = t.contiguous()
+        buf = self._buffer(flat)
+        got = torch.empty_like(buf)
+        dist.all_to_all_single(got, buf)
+        return got.to(t.device)
 
     def barrier(self) -> None:
         dist.barrier()

@@ -132,6 +132,10 @@ class Simulation:
     # packet data parallelism: this rank's `parallel.dp.Group` (the
     # reference's `mesh`), its device the simulation's; None is one device
     group: object = dataclasses.field(default=None, kw_only=True)
+    # spatial domain decomposition (`parallel/domain.py`, set together with
+    # a group): the per-cell tables shard into one x-slab per rank of the
+    # (voxel-rastered) grid, and every segment runs `_run_segment_dd`
+    dd: bool = dataclasses.field(default=False, kw_only=True)
 
     def __post_init__(self):
         self.device = dv.resolve(self.device)
@@ -139,6 +143,9 @@ class Simulation:
             raise ValueError(f"rank {self.group.rank} runs on "
                              f"{self.group.device}, the simulation on "
                              f"{self.device}")
+        if self.dd and self.group is None:
+            raise ValueError("domain decomposition (dd=True, --dd) needs a "
+                             "group of ranks (parallel.dp)")
         lc.check_supported(self.options)
         if not isinstance(self.grid, _GRIDS):
             raise NotImplementedError(
@@ -167,7 +174,7 @@ class Simulation:
         self._rf_borders_dev = (
             torch.tensor(np.asarray(self.rf_borders, np.float32), device=dev)
             if self.rf_borders is not None else None)
-        self._sweep_tabs = self._engine_tables()
+        self._build_sweep_tables()
         if self.mueller is not None:
             self.mueller = self.mueller.to(dev)
         if self.xray_tabs is not None:
@@ -184,6 +191,15 @@ class Simulation:
         self._bounds_dev = None
 
     # -------------------------------------------------------------- internals
+
+    def _build_sweep_tables(self) -> None:
+        """The engine's tables (`_engine_tables`), none under domain
+        decomposition, whose slabs march on their own tables (the
+        reference's `skirt9_tpu/simulation.py:184-193`); the decomposition's
+        state is rebuilt on its next use."""
+        self._dd_state = None
+        self._dd_cache = {}
+        self._sweep_tabs = None if self.dd else self._engine_tables()
 
     def _engine_tables(self):
         """The reference's engine choice (`skirt9_tpu/simulation.py:194-225`)
@@ -388,6 +404,117 @@ class Simulation:
         stabs = dict(stabs, strata=f32(borders), strata_w=f32(corr))
         return B, stabs, opts, torch.tensor(hist_perm, device=self.device)
 
+    def _check_dd_envelope(self, opts: lc.TransportOptions) -> None:
+        """Refuse, naming each, the physics that the domain-decomposed event
+        does not run (the reference's list, `skirt9_tpu/simulation.py:
+        549-582`): it scatters elastically, unpolarized, at the launch
+        wavelength's optics."""
+        unsupported = [
+            ("polarization", opts.polarization,
+             "Mueller/Stokes scattering"),
+            ("kinematics", opts.kinematics,
+             "per-cell Doppler-shifted opacities"),
+            ("lya", opts.lya, "Lyman-alpha resonant redistribution"),
+            ("compton", opts.compton, "Compton wavelength shifts"),
+            ("xray", opts.xray,
+             "X-ray fluorescence and bound-Compton channels"),
+            ("emission_doppler", opts.emission_doppler,
+             "emitter-velocity peel-off shifts"),
+            ("explicit_absorption", opts.explicit_absorption,
+             "scattering-depth interaction sampling"),
+        ]
+        bad = [f"{name} ({what})" for name, on, what in unsupported if on]
+        if bad:
+            raise NotImplementedError(
+                "domain decomposition (--dd) does not support: "
+                + "; ".join(bad) + ". Run this configuration replicated "
+                "(packet data parallelism, -d) instead, or drop the feature "
+                "from the ski file.")
+
+    def _ensure_dd(self) -> dict:
+        """The decomposition's state, built once (the reference's
+        `skirt9_tpu/simulation.py:277-294`): the grid's voxel raster
+        (`parallel/domain.voxelize_for_dd`; the grid itself where it is
+        Cartesian), its x-slabs, one per rank, this rank's slab densities
+        and the voxel -> cell map (None on a Cartesian grid)."""
+        if self._dd_state is None:
+            from .parallel import domain as dom
+            D, r = self._ranks()
+            vox_grid, med_vox, cellmap = dom.voxelize_for_dd(
+                self.grid, self.medium, D)
+            dec = dom.decompose_slabs(vox_grid, D)
+            nd_local, _ = dom.shard_tables(dec, med_vox, 1, r)
+            self._dd_state = dict(dec=dec, nd_local=nd_local,
+                                  cellmap=cellmap)
+            _log().info(f"spatial domain decomposition: "
+                        f"{'x'.join(map(str, vox_grid.shape))} cells in "
+                        f"{D} x-slabs of {dec.nx_local}, slab {r} on "
+                        f"{self.device}")
+        return self._dd_state
+
+    def _run_segment_dd(self, source, stabs, opts, n_packets, seed_key, rf,
+                        accs, hist_base):
+        """One segment under domain decomposition (the reference's
+        `skirt9_tpu/simulation.py:296-368`, its march route): the batch
+        rounded to D 128-lane blocks, rank r launching the r-th block of
+        each; the slab's RF rows and the instrument accumulators start at
+        zero and are reduced once at the segment's end, the RF gathered on
+        every rank and summed through the cell map into the grid's cells.
+        The reference's other route, the XL sweep on each slab (a TPU, or
+        `SKIRT9_TPU_FORCE_SWEEP=1`, with one RF bin), is not ported."""
+        from .parallel import domain as dom
+        st = self._ensure_dd()
+        nrf = (len(self.rf_borders) - 1
+               if self.rf_borders is not None and opts.store_rf else 1)
+        if nrf == 1 and os.environ.get("SKIRT9_TPU_FORCE_SWEEP") == "1":
+            raise NotImplementedError(
+                "domain decomposition on the XL sweep (SKIRT9_TPU_FORCE_SWEEP"
+                "=1 with one RF bin: the reference's build_local_xl) is not "
+                "ported yet (ROADMAP.md item 26b); unset it for the march "
+                "route")
+        use_rf = rf is not None and opts.store_rf \
+            and self.rf_borders is not None
+        key = (id(source), int(n_packets), int(hist_base), nrf, opts)
+        if key not in self._dd_cache:
+            if len(self._dd_cache) > 8:
+                self._dd_cache.clear()
+            self._dd_cache[key] = (source, dom.dd_segment(
+                self.group, st["dec"], self.grid, st["nd_local"],
+                self.medium, opts, self.instruments, self._inst_tabs,
+                self._rf_borders_dev if use_rf else None, source,
+                int(n_packets), hist_base=hist_base))
+        run = self._dd_cache[key][1]
+        D, r = self._ranks()
+        B = -(-self.batch_size // (D * 128)) * (D * 128)
+        Bd = B // D
+        lanes = torch.arange(r * Bd, (r + 1) * Bd, dtype=torch.int64,
+                             device=self.device)
+        rf_loc = (torch.zeros((st["dec"].ncells_local, nrf),
+                              dtype=torch.float64, device=self.device)
+                  if use_rf else None)
+        part = [{k: torch.zeros_like(v) for k, v in a.items()} for a in accs]
+        for b in range(-(-n_packets // B)):
+            run(seed_key, hist_base + b * B + lanes, stabs, rf_loc, part,
+                stats=self.last_stats)
+            _log().progress(min((b + 1) * B, n_packets), n_packets)
+        self.group.all_reduce([t for _, _, t in self._acc_leaves(part)])
+        for a, p in zip(accs, part):
+            for k in a:
+                a[k] += p[k]
+        if use_rf:
+            rf_vox = self.group.all_gather([rf_loc])[0]
+            cm = st["cellmap"]
+            if cm is not None:
+                # the voxels' deposits into the grid's cells
+                rf_vox = torch.zeros(rf.shape, dtype=torch.float64,
+                                     device=self.device).index_add_(
+                    0, cm.clamp_min(0).long(),
+                    torch.where((cm >= 0)[:, None], rf_vox,
+                                torch.zeros((), dtype=torch.float64,
+                                            device=self.device)))
+            rf += rf_vox.to(rf.dtype)
+        return rf, accs
+
     def _run_segment(self, source, stabs, opts, n_packets, seed_key, rf, accs,
                      hist_base=0):
         """Loop a source's history range through the life cycle, batch by
@@ -398,7 +525,12 @@ class Simulation:
         Under packet data parallelism each rank runs its lanes into
         partial accumulators from zero, and one all_reduce per segment
         sums them into rf and accs on every rank (the reference's
-        `skirt9_tpu/simulation.py:652-667`)."""
+        `skirt9_tpu/simulation.py:652-667`). Under domain decomposition the
+        segment is `_run_segment_dd`'s, after `_check_dd_envelope`."""
+        if self.dd:
+            self._check_dd_envelope(opts)
+            return self._run_segment_dd(source, stabs, opts, n_packets,
+                                        seed_key, rf, accs, hist_base)
         xl_rf = rf is not None and isinstance(self._sweep_tabs, xl.XLTables)
         if self.group is None and not xl_rf:
             return self._run_batches(source, stabs, opts, n_packets,
@@ -547,6 +679,14 @@ class Simulation:
                 rf, accs, hist_base=hist_base)
             hist_base += n_src
         return rf, accs
+
+    def set_density(self, nd) -> None:
+        """Replace the per-cell density table (ncells, H) (the reference's
+        `skirt9_tpu/simulation.py:867-880`): the engine's tables and the
+        decomposition's slabs are rebuilt from it."""
+        self.medium = self.medium._replace(nd=torch.as_tensor(
+            np.asarray(nd, np.float32)).to(self.device))
+        self._build_sweep_tables()
 
     def run_primary(self, verbose: bool = True):
         """Primary-emission segment. Returns (rf, accs): the radiation field

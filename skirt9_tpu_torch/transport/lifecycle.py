@@ -345,6 +345,51 @@ def survives_cutoff(opts: TransportOptions, lum_new, nscat_new, lum0):
         (nscat_new < opts.min_scatt_events)
 
 
+def albedo_and_weights(opt: msys.Optics, nd_at):
+    """The albedo and the normalised per-component scattering weights (B,
+    H) from the densities at the interaction nd_at (B, H), with no table
+    gather (the reference's `skirt9_tpu/transport/lifecycle.py:328-340`):
+    under domain decomposition nd_at comes from the slab that found the
+    interaction."""
+    ke = torch.sum(nd_at * opt.sigma_ext, dim=-1)
+    ks = torch.sum(nd_at * opt.sigma_sca, dim=-1)
+    albedo = torch.where(ke > 0, ks / torch.clamp_min(ke, 1e-30),
+                         torch.zeros_like(ke))
+    w = nd_at * opt.sigma_sca
+    return albedo, w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True),
+                                       1e-30)
+
+
+def select_component_from_weights(w, u):
+    """The scattering component of each lane from its normalised weights
+    (B, H) and a uniform u (B,): the first whose cumulative weight reaches
+    u (`lifecycle.py:343-347` of the reference)."""
+    cdf = torch.cumsum(w, dim=-1)
+    return torch.argmax((cdf >= u[..., None]).to(torch.int8), dim=-1)
+
+
+def scatter_nonpolarized(u: dict, opt: msys.Optics, h, dirn):
+    """The non-polarized scattering direction: Henyey-Greenstein with
+    the asymmetry of each lane's component h, from the event's uniforms
+    (`lifecycle.py:350-362` of the reference without its tabulated phase
+    functions, which the port does not load). The replicated and the
+    domain-decomposed events share it."""
+    g_sel = opt.g.gather(1, h[:, None])[:, 0]
+    return hg_scatter_direction(u[_TAG_SCATTER_CT], u[_TAG_SCATTER_PHI],
+                                g_sel, dirn)
+
+
+def peel_phase_nonpolarized(opt: msys.Optics, w, dirn):
+    """The non-polarized peel-off's phase toward an observer: kobs ->
+    (B,) the components' Henyey-Greenstein phases weighted by w (B, H)
+    (`lifecycle.py:365-375` of the reference). The replicated and the
+    domain-decomposed events share it."""
+    def phase(kobs):
+        ct = torch.sum(dirn * kobs, dim=-1)
+        return torch.sum(w * phs.hg_phase(opt.g, ct[:, None]), dim=-1)
+    return phase
+
+
 # ------------------------------------------------- wavelength-binned RF
 
 def _bin_map(opts: TransportOptions, rf, n_groups: int, device):
@@ -819,13 +864,11 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                         per_sr = lambda i, kobs: polarized_per_sr(
                             pkt, mueller, h, s11n, lum_alb, kobs, n_dets[i])
                     else:
-                        w_comp = msys.scattering_weights(med, opt_int, icell)
-
-                        def per_sr(i, kobs):
-                            ct = torch.sum(pkt.dir * kobs, dim=-1)
-                            ph = torch.sum(w_comp * phs.hg_phase(
-                                opt_int.g, ct[:, None]), dim=-1)
-                            return lum_alb * ph, None
+                        phase = peel_phase_nonpolarized(
+                            opt_int, msys.scattering_weights(
+                                med, opt_int, icell), pkt.dir)
+                        per_sr = lambda i, kobs: (lum_alb * phase(kobs),
+                                                  None)
 
                         if opts.kinematics:
                             # Doppler-shifted toward each observer
@@ -850,10 +893,7 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                         normal=torch.where(active_int[:, None], n_rot,
                                            pkt.normal))
                 else:
-                    g_sel = opt_int.g.gather(1, h[:, None])[:, 0]
-                    newdir = hg_scatter_direction(u[_TAG_SCATTER_CT],
-                                                  u[_TAG_SCATTER_PHI], g_sel,
-                                                  pkt.dir)
+                    newdir = scatter_nonpolarized(u, opt_int, h, pkt.dir)
             if opts.kinematics and not opts.lya:
                 # the Doppler shift of the new direction out of the cell
                 lam_new = lam_cell * (1.0 - _dot3(newdir, v_int) * _INV_C)

@@ -233,7 +233,7 @@ def _doppler(lam, dirn, v):
                            * _INV_C)
 
 
-def _comp_sum(nd, sig):
+def comp_sum(nd, sig):
     """sum_h nd[..., h] * sig[..., h] with each product fused into the sum,
     as XLA forms the reference's einsum and sum over components."""
     out = nd[..., 0] * sig[..., 0]
@@ -259,11 +259,11 @@ def opacity_on_path(med: msys.MediumTables, opt: msys.Optics, cells, ds,
     nd = med.nd[c]                                           # (S, B, H)
     if lam is None:
         sig = opt.sigma_sca if scattering else opt.sigma_ext  # (B, H)
-        return _comp_sum(nd, sig[None].expand_as(nd)) * ds
+        return comp_sum(nd, sig[None].expand_as(nd)) * ds
     lam_c = _doppler(lam, dirn, med.bulk_v[c])
     o = msys.optics_at(med, lam_c.reshape(-1))
     sig = (o.sigma_sca if scattering else o.sigma_ext).reshape(nd.shape)
-    return _comp_sum(nd, sig) * ds
+    return comp_sum(nd, sig) * ds
 
 
 def trace_tau(grid, med: msys.MediumTables, opt: msys.Optics, pos, dirn,

@@ -88,6 +88,12 @@ batches of 2,048, generations of 16 events) on the card launches kernels 1,
 refilled batch (dead, fresh and old lanes side by side) kernels 1, 2 and
 detect hold their plain versions as chip_smoke.py's
 `check_refilled_batch` does.
+
+Domain decomposition: detect.cu's frame pixel of every one of 2^20 lanes
+equal to the plain version's (`distant.frame_pixels`); the march kernel on
+each slab grid of a 2-slab 32^3 decomposition (uniform and meshed) bit for
+bit against its plain version; one rank of DD (a group of one) on the card
+against the CPU within `MARCH_BOUNDS`.
 """
 
 import os
@@ -2308,3 +2314,121 @@ def test_imported_geometry_launch_on_cuda_matches_cpu(dev, kind, tmp_path):
     sites = torch.tensor(geo.sites_np())
     assert torch.equal(torch.cdist(c, sites).argmin(dim=1),
                        torch.cdist(g, sites).argmin(dim=1))
+
+
+@pytest.mark.parametrize("view", [(0.4, 0.9, 4.0, 64, 0.0),
+                                  (1.52, -0.8, 3.3, 101, 0.2)])
+def test_detect_frame_pixels_kernel(dev, view):
+    """detect.cu's pixel of every lane equals the plain version's
+    (`distant.frame_pixels`, the reference's XLA arithmetic) on 2^20 lanes:
+    with contributions 1, ix + 1 and iy + 1 of the plain pixel, each
+    frame pixel's three sums equal its count, count (ix + 1) and
+    count (iy + 1) exactly (integers below 2^24 in f32), which a lane in
+    another pixel than the plain version's breaks."""
+    inc, az, fov, npx, cx = view
+    cfg = dinst.DistantInstrumentCfg(
+        name="i", wave_borders=(0.5e-6, 0.6e-6), inclination=inc,
+        azimuth=az, distance=100 * PC, npx=npx, npy=npx + 3, fovx=fov * PC,
+        fovy=1.3 * fov * PC, centerx=cx * PC, record_statistics=False)
+    B = 1 << 20
+    rs = np.random.default_rng(npx)
+    pos = torch.tensor(rs.uniform(-0.65, 0.65, (B, 3)) * fov * PC,
+                       dtype=torch.float32, device=dev)
+    tabs = dinst.device_tables(cfg, dev)
+    ix, iy = dinst.frame_pixels(cfg, tabs, pos)
+    inside = (ix >= 0) & (ix < cfg.npx) & (iy >= 0) & (iy < cfg.npy)
+    lam = torch.full((B,), 0.55e-6, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    frames = []
+    for c in (torch.ones(B, device=dev), ix + 1.0, iy + 1.0):
+        acc = dinst.init_accumulators(cfg, dev)
+        kb.reset_launches()
+        dinst.detect(cfg, tabs, acc, lam, pos, c.clamp_min(1.0), 0, active)
+        assert kb.LAUNCHES["detect"] == 1
+        frames.append(acc["frame"][0, 0].double())
+    count, sx, sy = frames
+    flat = (iy.clamp(0, cfg.npy - 1).long() * cfg.npx
+            + ix.clamp(0, cfg.npx - 1).long())[inside]
+    plain = torch.zeros(cfg.npy * cfg.npx, dtype=torch.float64, device=dev)
+    plain.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float64))
+    assert torch.equal(count.reshape(-1), plain)
+    gx = torch.arange(cfg.npx, device=dev, dtype=torch.float64)[None, :]
+    gy = torch.arange(cfg.npy, device=dev, dtype=torch.float64)[:, None]
+    assert torch.equal(sx, count * (gx + 1.0))
+    assert torch.equal(sy, count * (gy + 1.0))
+    assert float(count.sum()) > 0.5 * B
+
+
+@pytest.mark.parametrize("meshed", [False, True])
+def test_slab_march_kernel(dev, meshed):
+    """The march kernel on each slab grid of a 2-slab decomposition of a
+    32^3 grid (uniform, or meshed along x), over rays from the whole box
+    as a slab march gathers them (most start outside the slab and are
+    moved onto it): cells and lengths bit for bit against the plain
+    version at S_loc = 16 + 32 + 32 + 3 steps."""
+    from skirt9_tpu_torch.grids import meshes
+    from skirt9_tpu_torch.parallel import domain as dom
+    from skirt9_tpu_torch.transport import march as mr
+    ext = ((-1.2 * PC, 1.2 * PC),) * 3
+    mesh = (meshes.scale(meshes.sym_pow_mesh(32, 8.0), -1.2 * PC, 1.2 * PC),
+            None, None) if meshed else None
+    dec = dom.decompose_slabs(make_cartesian(ext, (32,) * 3, meshes=mesh), 2)
+    rs = np.random.default_rng(3)
+    B = 1 << 16
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    pos = t32(rs.uniform(-1.2 * PC, 1.2 * PC, (B, 3)))
+    d = rs.normal(size=(B, 3))
+    d[:B // 16] = 0.0
+    d[np.arange(B // 16), rs.integers(0, 3, B // 16)] = 1.0
+    d = t32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    mask = torch.tensor(rs.uniform(size=B) < 0.9, device=dev)
+    for s in range(2):
+        grid = dom._local_grid(dec, s, dev)
+        p0, c0, _ = grid.move_inside(pos, d)
+        m = mask & (c0 >= 0)
+        kb.reset_launches()
+        ck, dk = mr.march_geometry(grid, p0, d, c0, dec.max_steps_local, m)
+        name = "march_mesh" if meshed else "march_uniform"
+        assert kb.LAUNCHES[name] == 1 and sum(kb.LAUNCHES.values()) == 1
+        cp, dp_ = mr.march_geometry_plain(grid, p0, d, c0,
+                                          dec.max_steps_local, m)
+        assert torch.equal(ck, cp) and torch.equal(dk, dp_)
+        assert int((dp_ > 0).sum()) > B
+
+
+@pytest.mark.parametrize("name", ["config1", "config2"])
+def test_dd_segment_on_cuda_matches_cpu(dev, name):
+    """Domain decomposition over one rank (a group of one, no process
+    group) on the card against the CPU: a reduced config 1 (16^3, its RF
+    stored) and config 2 (8^3, a 4-bin RF, dust emission with one
+    secondary iteration) within chip_smoke.py's MARCH_BOUNDS
+    (`march_gaps`: the RF and the primary SED within 2e-5 of their
+    maxima, the secondary kinds by their sums within 1e-3); the slab
+    march (march_uniform), detect and the HG direction launched on the
+    card, no sweep."""
+    from skirt9_tpu_torch.parallel import dp
+    cs = _chip_smoke()
+    outs = {}
+    for d in ("cpu", dev):
+        one = dp.Group(rank=0, size=1, device=torch.device(d),
+                       backend="gloo")
+        if name == "config1":
+            sim = cs.config1(d, num_packets=1 << 14, batch_size=1 << 13,
+                             n=16, store_rf=True)
+        else:
+            sim = cs.config2(d, num_packets=1 << 13, batch_size=1 << 12,
+                             n=8, n_rf=4, max_events=8,
+                             iterate_secondary=True, max_iterations=1)
+        sim = cs.dd_sim(sim, one)
+        kb.reset_launches()
+        out = cs._dd_run(sim, name)
+        outs[str(d)] = out[:2]
+        if d == "cpu":
+            assert sum(kb.LAUNCHES.values()) == 0
+    n = dict(kb.LAUNCHES)
+    gaps = cs.march_gaps(outs["cpu"], outs[str(dev)], name == "config2")
+    print(f"dd one rank {name}: {gaps}")
+    for k in ("march_uniform", "detect", "hg_direction"):
+        assert n[k] > 0, k
+    for k in cs.SWEEPS + ("march_mesh", "march_voronoi"):
+        assert n[k] == 0, k

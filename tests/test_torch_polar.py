@@ -221,8 +221,11 @@ def _gaps(out_r, out_p):
 # XLA's fusions of the rotation, its scalar tail included:
 # tests/test_torch_directions.py); the 3D sphere's RF per cell still parts
 # by 2.2e-5 (its total 1.8e-7, its scattered frame 9.4e-6), the same with
-# the tail replayed as without, so another ulp moves it (ROADMAP.md queue
-# C); the torus's scattered frame 3.0e-7 (before the directions were
+# the tail replayed as without. Not the reference's f32 sum of its
+# deposits, which lies within 5.2e-7 of their exact sum: the deposits
+# themselves differ, from the first event on, in the per-step optical depth
+# and in XLA's expm1 (`test_rf_gap_is_in_the_deposits`; ROADMAP.md queue C,
+# C-4); the torus's scattered frame 3.0e-7 (before the directions were
 # exact: 9.0e-3 and 1.4e-2 on the 3D sphere, 1.9e-4 on the torus).
 BOUNDS = {"torus_sphere2d_small": {},
           "spiral_sphere3d_small": {"rf": 5e-5},
@@ -281,6 +284,65 @@ def test_life_cycle_marches_exact(name, tmp_path, monkeypatch):
         walked = ds_r > 0
         assert np.array_equal(ds_r, ds_p.numpy())
         assert np.array_equal(cells_r[walked], cells_p.numpy()[walked])
+
+
+def test_rf_gap_is_in_the_deposits(tmp_path, monkeypatch):
+    """Where the 3D sphere's RF per cell parts from the reference's (C-4):
+    every deposit of the reference's life cycle, its own operands and
+    contributions taken by a spy that is its `deposit_rf` (the same jnp
+    code, a `jax.debug.callback` beside it), summed exactly in f64. The
+    reference's f32 RF lies within 1e-6 of that exact sum (measured 5.2e-7
+    on RUN), so its f32 summation is not the gap; the port's RF lies
+    within the draw-for-draw bound of it (measured 2.2e-5). At the first
+    event the march's cells and lengths are the reference's on every
+    walked step, while the per-step optical depths (the reference's einsum
+    times ds) are not all equal, nor are XLA's expm1 and PyTorch's on
+    them: the deposits part there."""
+    ref = ref_load_ski(chip_smoke.mesh_ski("spiral_sphere3d_small",
+                                           tmp_path), **RUN)
+    port = bridge.simulation(ref, "cpu", march=True)
+    got_r, got_p = [], []
+
+    def spy(rf, cells, ds, dtau, tau_before, lum, rf_bin, rf_mask,
+            rf_scale):
+        inv_sqrt = 1.0 / float(np.sqrt(rf_scale))
+        lum_half = (lum * rf_mask) * inv_sqrt
+        expfac = jnp.where(dtau < 1e-4, ds * (1.0 - 0.5 * dtau),
+                           -jnp.expm1(-dtau) * ds / jnp.maximum(dtau, 1e-37))
+        contrib = (lum_half * jnp.exp(-tau_before)) * (expfac * inv_sqrt)
+        flat = cells * rf.shape[1] + jnp.broadcast_to(rf_bin, cells.shape)
+        jax.debug.callback(lambda *a: got_r.append(
+            [np.asarray(x) for x in a]), flat, cells, ds, dtau, expfac,
+            contrib)
+        return rf.reshape(-1).at[flat.reshape(-1)].add(
+            contrib.reshape(-1)).reshape(rf.shape)
+
+    plain = mr.deposit_rf
+    monkeypatch.setattr(ref_lc, "deposit_rf", spy)
+    monkeypatch.setattr(mr, "deposit_rf", lambda rf, cells, ds, dtau, *a: (
+        got_p.append([cells.numpy().copy(), ds.numpy().copy(),
+                      dtau.numpy().copy()]), plain(rf, cells, ds, dtau, *a)))
+    rf_r = np.asarray(ref.run_primary(verbose=False)[0], np.float64)
+    rf_p = port.run_primary(verbose=False)[0].double().numpy()
+    exact = np.zeros(rf_r.size)
+    for flat, *_, contrib in got_r:
+        np.add.at(exact, flat.ravel(), contrib.ravel().astype(np.float64))
+    exact = exact.reshape(rf_r.shape)
+    m = np.abs(exact).max()
+    assert np.abs(rf_r - exact).max() <= 1e-6 * m
+    assert np.abs(rf_p - exact).max() <= BOUNDS["spiral_sphere3d_small"][
+        "rf"] * m
+    assert len(got_r) == len(got_p) >= 6
+    _, cells_r, ds_r, dtau_r, expfac_r, _ = got_r[0]
+    cells_p, ds_p, dtau_p = got_p[0]
+    walked = ds_r > 0
+    assert walked.sum() > 1000
+    assert np.array_equal(ds_r, ds_p)
+    assert np.array_equal(cells_r[walked], cells_p[walked])
+    assert not np.array_equal(dtau_r[walked], dtau_p[walked])
+    big = dtau_r[walked & (dtau_r >= 1e-4)]
+    assert not np.array_equal(np.asarray(jax.jit(jnp.expm1)(-big)),
+                              torch.expm1(-torch.tensor(big)).numpy())
 
 
 @pytest.mark.parametrize("grid", ["Sphere2DSpatialGrid", "Sphere3DSpatialGrid",

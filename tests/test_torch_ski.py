@@ -394,7 +394,7 @@ def test_cli_on_reduced_bench4(tmp_path):
 
 
 @pytest.mark.parametrize("argv,named", [
-    (["-d", "2", "--dd"], "-d/--dd"), (["--dd"], "-d/--dd"),
+    (["--dd", "-b", "256"], "-d/--dd"), (["--dd"], "-d/--dd"),
     (["--export-schema", "schema.xml"], "--export-schema"),
     ([], "wizard")])
 def test_cli_refuses_what_is_not_ported(argv, named, tmp_path, capsys):
