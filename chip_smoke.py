@@ -478,7 +478,30 @@ Phases, one JSON line each:
                     (bit for bit against its plain version at the first
                     event's gathered lanes), against one process on the
                     march route within DD_BOUNDS; packets/s of both, host
+                    round trips per event (config 1 held on the march
+                    route by dd_segment(xl_local=None): on the card its one
+                    RF bin takes the XL route)
+  dd_xl             domain decomposition on the XL route: config 1 at 256^3
+                    (the full_width_xl grid, its one-bin RF stored, 2^16
+                    packets) on two ranks sharing cuda:0, each slab on
+                    kernel 6 (want_sub, summed) and kernel 7
+                    (sweep_deposit), held against their plain versions on
+                    the path's own first event; against one process on the
+                    XL route and the two ranks on the march route
+                    (dd_segment(xl_local=None)) within 1e-3 of each maximum
+                    (RF, SEDs, frame sums); packets/s of both routes, host
                     round trips per event
+  local_instruments config 1 (32^3, 2^17 packets) with its distant
+                    instrument and three local ones inside the sphere
+                    (Mollweide all-sky, HEALPix, perspective): the source's
+                    direct flux in each map against L e^-tau / (4 pi d^2)
+                    (tau from the plain march), the perspective's source on
+                    the crosshair's pixel, each map against the CPU's run
+                    within 1e-4 of its maximum; kernel 3 (scatter_add) at
+                    the first scattering peel-off against scatter_add_plain
+                    and the f64 sum, timed beside index_add_; config 2 at
+                    2^16 packets with dust emission: the maps' secondary
+                    kinds
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it names the kernels it must launch and those it must not. Then
@@ -497,6 +520,7 @@ import json
 import math
 import os
 import platform
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -683,11 +707,11 @@ def sphere_rays(torch, sim, rs, B):
     return pos, dirn, sig, sim.grid.locate(pos) >= 0
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int | None = None) -> float:
     """Mean device time of fn() in ms over reps back-to-back calls after
-    warmup calls."""
+    warmup calls (3, or 1 for the few reps of a slow plain version)."""
     import torch
-    for _ in range(warmup):
+    for _ in range(warmup if warmup is not None else 3 if reps > 5 else 1):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -7810,7 +7834,8 @@ def phase_kernels_sincos(torch) -> dict:
     value; its ~40 f64 operations a value have no rate in the H100's
     table of peak rates). Then the HG scattering direction (csrc/sincos.cu
     hg_direction) against ops/phase.py `hg_scatter_plain` at config 1's
-    batch, bit for bit, timed alike."""
+    batch, bit for bit, timed alike; last the interaction depth and the
+    deposit factor in XLA's math (csrc/xla_math.cu, check_xla_math)."""
     from skirt9_tpu_torch.kernels import build as kb
     from skirt9_tpu_torch.ops import xlamath as xm
     rs = np.random.default_rng(47)
@@ -7863,7 +7888,69 @@ def phase_kernels_sincos(torch) -> dict:
         plain_device_launches=device_ms(
             lambda: phs.hg_scatter_plain(*args), reps=3)["launches"],
         library_ms=None, **bound(36 * B_FULL, 53 * B_FULL))
+    out.update(check_xla_math(torch, rs))
     emit({"phase": "kernels_sincos", **out})
+    return out
+
+
+def check_xla_math(torch, rs) -> dict:
+    """XLA's exp, expm1, log and log1p (csrc/xla_math.cu) against their
+    plain versions on the same CUDA tensors, bit for bit: the interaction
+    depth (`lifecycle.sample_interaction_tau`, forced scattering with xi
+    0.5 and 0, and a plain free path) at config 1's batch, path depths from
+    1e-8 to 1e3 with the edges 0, 1e-6 and 1/2; the deposit factor
+    (`march.deposit_factor`) on a march's (99, 2^17) steps, a tenth empty.
+    Timed alike; the bounds from their bytes and the f32 operations of
+    their float replays (their f64 multiply-adds have no rate in the
+    table)."""
+    from skirt9_tpu_torch.kernels import build as kb
+    from skirt9_tpu_torch.transport import lifecycle as lc
+    from skirt9_tpu_torch.transport import march as mr
+    t32 = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    tau = np.concatenate([10 ** rs.uniform(-8, 3, B_FULL - 4),
+                          [0.0, 1e-6, 0.5, 1e-30]])
+    tau_path = t32(tau)
+    u = {t: t32(rs.uniform(1e-7, 1.0, B_FULL)) for t in (
+        lc._TAG_PATH_CHOICE, lc._TAG_PATH_TAU_UNI, lc._TAG_PATH_TAU_EXP)}
+    for forced, xi in ((True, 0.0), (False, 0.5), (True, 0.5)):
+        opts = lc.TransportOptions(max_steps=1, force_scattering=forced,
+                                   path_length_bias=xi)
+        kb.reset_launches()
+        got = lc.sample_interaction_tau(opts, u, tau_path)
+        require(kb.LAUNCHES["interaction_depth"] == 1
+                and sum(kb.LAUNCHES.values()) == 1,
+                "interaction_depth launched once")
+        want = lc.sample_interaction_tau_plain(opts, u, tau_path)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"interaction_depth bit for bit its plain version "
+                f"(forced {forced}, xi {xi})")
+    kern = lambda: lc.sample_interaction_tau(opts, u, tau_path)
+    plain = lambda: lc.sample_interaction_tau_plain(opts, u, tau_path)
+    dev = device_ms(kern)
+    out = {"interaction_depth": dict(
+        max_abs_err=0.0, lanes=B_FULL, ms=cuda_ms(kern),
+        device_ms=dev["ours"] or None, profiler_dropped=dev["ours"] == 0,
+        plain_ms=cuda_ms(plain, reps=5),
+        plain_device_launches=device_ms(plain, reps=3)["launches"],
+        library_ms=None, **bound(25 * B_FULL, 120 * B_FULL))}
+    S = 99
+    ds = t32(rs.uniform(0.0, 1e16, (S, B_FULL)))
+    dtau = t32(10 ** rs.uniform(-9, 1, (S, B_FULL)))
+    ds[:S // 10] = 0.0
+    kb.reset_launches()
+    got = mr.deposit_factor(ds, dtau)
+    require(kb.LAUNCHES["deposit_factor"] == 1, "deposit_factor launched")
+    require(torch.equal(got, mr.deposit_factor_plain(ds, dtau)),
+            "deposit_factor bit for bit its plain version")
+    kern = lambda: mr.deposit_factor(ds, dtau)
+    plain = lambda: mr.deposit_factor_plain(ds, dtau)
+    dev = device_ms(kern)
+    out["deposit_factor"] = dict(
+        max_abs_err=0.0, steps=S, lanes=B_FULL, ms=cuda_ms(kern),
+        device_ms=dev["ours"] or None, profiler_dropped=dev["ours"] == 0,
+        plain_ms=cuda_ms(plain, reps=3),
+        plain_device_launches=device_ms(plain, reps=3)["launches"],
+        library_ms=None, **bound(12 * S * B_FULL, 45 * S * B_FULL))
     return out
 
 
@@ -7998,8 +8085,10 @@ def _dp_rank(group, out: str, n_packets: int) -> None:
 # gap (per SED column and over the FITS frame, relative to its maximum),
 # from the spread between two runs without -d on the card (detect's f32
 # atomics add in an order that varies from run to run; measured on an H100:
-# the SED 1.0e-16, the frame 2.7e-9, and -d 1 2.0e-16 and 2.7e-9)
-DP_CLI_BOUNDS = {"sed": 1e-12, "frame": 1e-6}
+# the SED 1.0e-16, the frame 2.7e-9, and -d 1 2.0e-16 and 2.7e-9 in PR 23;
+# in PR 24 the two runs without -d, started at once, parted by 1.7e-10 in
+# the SED, and -d 1 by as much: 1e-12 was below that spread)
+DP_CLI_BOUNDS = {"sed": 1e-9, "frame": 1e-6}
 
 
 def phase_dp(torch, smi: str) -> dict:
@@ -8168,11 +8257,17 @@ def _dd_rank(group, out: str) -> None:
         del pkt, p0, c0
         torch.cuda.synchronize()
         trips0 = group.host_trips
+        # config 1's one RF bin takes the XL route on the card (dd_xl): its
+        # march route here, as dd_segment's reference API runs it
+        undo = _march_route(dom)
         group.barrier()
         kb.reset_launches()
         t0 = time.perf_counter()
-        rf, accs, info = _dd_run(sim, name)
-        torch.cuda.synchronize()
+        try:
+            rf, accs, info = _dd_run(sim, name)
+            torch.cuda.synchronize()
+        finally:
+            undo()
         dt = time.perf_counter() - t0
         counts = dict(kb.LAUNCHES)
         events = sum(x[3] for x in sim.last_stats["segments"]) \
@@ -8240,7 +8335,25 @@ def dd_gaps(one, two, name: str) -> dict:
     return gaps
 
 
-def phase_dd(torch, smi: str) -> dict:
+def _march_route(dom):
+    """Hold domain decomposition on the march route: dd_segment called with
+    xl_local=None, whatever the simulation's route rule picks. Returns the
+    undo."""
+    orig = dom.dd_segment
+    dom.dd_segment = lambda *a, **kw: orig(*a, **dict(kw, xl_local=None))
+
+    def undo():
+        dom.dd_segment = orig
+    return undo
+
+
+def _dd_both_rank(group, out: str, out_xl: str) -> None:
+    """One rank of phase_dd's runs, then of phase_dd_xl's, in one spawn."""
+    _dd_rank(group, out)
+    _dd_xl_rank(group, out_xl)
+
+
+def phase_dd(torch, smi: str, out_xl: str | None = None) -> dict:
     """Spatial domain decomposition (parallel/domain.py) at full width: the
     configurations of DD_PACKETS on two ranks sharing cuda:0 over gloo
     (each collective a host round trip), each slab marched by
@@ -8248,15 +8361,17 @@ def phase_dd(torch, smi: str) -> dict:
     against one process without decomposition on the march route
     (dd_gaps); the packets/s of both, the host round trips per event, and
     the slab march against its plain version (_march_check: device and
-    plain ms, bound)."""
+    plain ms, bound). With out_xl the same ranks then run phase_dd_xl's
+    decomposed runs into out_xl (one spawn for both phases)."""
     import chip_smoke as cs
     from skirt9_tpu_torch.parallel import dp
     res = {"phase": "dd"}
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "dd.npz")
         t0 = time.perf_counter()
-        dp.spawn(cs._dd_rank, 2, args=(out,), device="cuda:0",
-                 backend="gloo")
+        dp.spawn(cs._dd_rank if out_xl is None else cs._dd_both_rank, 2,
+                 args=(out,) if out_xl is None else (out, out_xl),
+                 device="cuda:0", backend="gloo")
         res["ranks_wall_s"] = time.perf_counter() - t0
         with np.load(out) as f:
             two = json.loads(str(f["meta"]))
@@ -8302,6 +8417,494 @@ def phase_dd(torch, smi: str) -> dict:
     emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
               backend="gloo"))
     return dict(res, launches=launches)
+
+
+# domain decomposition on the XL route (phase_dd_xl): config 1 on the
+# full_width_xl grid (256^3) with its one-bin RF stored, at 2^16 packets, on
+# two gloo ranks sharing cuda:0; the reference's bound for its XL route
+# against its march route, 1e-3 of each maximum (tests/test_domain.py:
+# 109-134), against one process on the XL route and against the two ranks
+# on the march route
+DD_XL_N = 256
+DD_XL_PACKETS = 1 << 16
+DD_XL_BOUND = 1e-3
+
+
+def dd_xl_config(device):
+    """One batch of DD_XL_PACKETS: 2^15 lanes on each of two ranks."""
+    return config1(device, num_packets=DD_XL_PACKETS,
+                   batch_size=DD_XL_PACKETS, n=DD_XL_N, store_rf=True)
+
+
+def _spy_xl(xl):
+    """Wrap sweepxl's sweep_dtau and sweep_deposit, which the XL route of
+    parallel/domain.py calls: count the calls of each mode (each one
+    launch of its kernel on the card) and keep the arguments of the path's
+    first event: pass 1's record and the deposits, and the summed form of
+    its scattering peel-off (the second summed call: the emission
+    peel-off's rays start on the source, on the slabs' border). Returns
+    (counts, first, undo)."""
+    counts = {"want_sub": 0, "summed": 0, "sweep_deposit": 0}
+    first = {}
+    dtau, dep = xl.sweep_dtau, xl.sweep_deposit
+
+    def sweep_dtau(*a, want_sub=False, **kw):
+        mode = "want_sub" if want_sub else "summed"
+        counts[mode] += 1
+        if want_sub or counts[mode] == 2:
+            first.setdefault(mode, (a, kw))
+        return dtau(*a, want_sub=want_sub, **kw)
+
+    def sweep_deposit(*a, **kw):
+        counts["sweep_deposit"] += 1
+        first.setdefault("sweep_deposit", (a, kw))
+        return dep(*a, **kw)
+
+    def undo():
+        xl.sweep_dtau, xl.sweep_deposit = dtau, dep
+    xl.sweep_dtau, xl.sweep_deposit = sweep_dtau, sweep_deposit
+    return counts, first, undo
+
+
+def _xl_checks(torch, first) -> dict:
+    """Kernels 6 (want_sub and summed) and 7 (sweep_deposit) on the first
+    event's arguments of the XL route, against their plain versions: the
+    record and summed form bit for bit, the RF within 1e-4 of its maximum
+    (kernels_xl's bounds); timed, with their bounds from these inputs."""
+    from skirt9_tpu_torch.transport import sweep as sw
+    from skirt9_tpu_torch.transport import sweepxl as xl
+    out = {}
+    march = lambda B, n: B * OPS_LANE + n * (OPS_SLAB + 3 * (OPS_SUB + 2) + 2)
+    for mode in ("want_sub", "summed"):
+        a, kw = first[mode]
+        tabs, pos, dirn, sig, active = a[:5]
+        want = mode == "want_sub"
+        fn = lambda: xl.sweep_dtau(*a, want_sub=want, **kw)
+        plain = lambda: xl.sweep_dtau_plain(*a, want_sub=want, **kw)
+        k, p = fn(), plain()
+        err = float((k - p).abs().max())
+        require(err == 0.0, f"dd_xl: kernel 6 {mode} bit for bit ({err})")
+        B = pos.shape[0]
+        g, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+        n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
+        rec = tabs.nmax * B * 4
+        del k, p
+        out[mode] = dict(
+            max_abs_err=err, lanes=B, active_pairs=n_act, ms=cuda_ms(fn),
+            device_ms=device_ms(fn)["ours"],
+            plain_ms=cuda_ms(plain, reps=3), library_ms=None,
+            **bound(ray_bytes(B, sig.shape[0]) + tabs.nd.numel() * 4
+                    + (3 if want else 1) * rec, march(B, n_act)))
+    a, kw = first["sweep_deposit"]
+    tabs, pos, dirn, active = a[:4]
+    fn = lambda: xl.sweep_deposit(*a, **kw)
+    plain = lambda: xl.sweep_deposit_plain(*a, **kw)
+    k, p = fn(), plain()
+    err = float((k - p).abs().max())
+    m = float(p.abs().max())
+    require(m > 0 and err <= 1e-4 * m,
+            f"dd_xl: kernel 7 RF error {err} <= 1e-4 * {m}")
+    B = pos.shape[0]
+    g, smin, smax = sw._lane_range(tabs, pos, dirn, active)
+    n_act = active_slabs(tabs, pos, dirn, g, smin, smax)
+    out["sweep_deposit"] = dict(
+        max_abs_err=err, err_of_max=err / m, lanes=B, active_pairs=n_act,
+        ms=cuda_ms(fn), device_ms=device_ms(fn)["ours"],
+        plain_ms=cuda_ms(plain, reps=3), library_ms=None,
+        **bound(lane_bytes(B, 0) + 4 * tabs.nmax * B * 4
+                + tabs.nd.shape[0] * 4,
+                n_act * (OPS_SLAB + 3 * (OPS_SUB + OPS_DEP))))
+    return out
+
+
+def _dd_xl_rank(group, out: str) -> None:
+    """One rank of phase_dd_xl: config 1 at 256^3 decomposed, on the XL
+    route (the route rule's on the card, its kernels spied by _spy_xl and,
+    on rank 0, held against their plain versions after the run) and on the
+    march route (dd_segment(xl_local=None)); each run with the launch
+    counts set to 0 just before it and summed over the ranks just after;
+    rank 0 saves the results."""
+    import torch
+    from skirt9_tpu_torch.kernels import build as kb
+    from skirt9_tpu_torch.parallel import domain as dom
+    from skirt9_tpu_torch.transport import sweepxl as xl
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "skirt9_tpu"))
+    require(not bad, f"rank {group.rank} imported {bad[:3]}")
+    saved, arrays = {}, {}
+    sim = dd_sim(dd_xl_config(group.device), group)
+    for route in ("xl", "march"):
+        sim._dd_cache.clear()          # each route builds its own runner
+        if route == "xl":
+            counts, first, undo = _spy_xl(xl)
+        else:
+            counts, first, undo = {}, {}, _march_route(dom)
+        trips0 = group.host_trips
+        group.barrier()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rf, accs = sim.run_primary(verbose=False)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        dt = time.perf_counter() - t0
+        launches = dict(kb.LAUNCHES)
+        require(("xl_local" in sim._dd_state) and launches[
+            "march_uniform"] == 0 if route == "xl" else launches[
+            "sweepxl_dtau"] == 0, f"dd_xl: the {route} route taken")
+        trips = group.host_trips - trips0
+        tot = torch.tensor([dt, sim.last_stats["events"], trips]
+                           + list(launches.values()) + list(counts.values()),
+                           dtype=torch.float64)
+        group.all_reduce([tot])
+        checks = (_xl_checks(torch, first) if route == "xl" and group.writes
+                  else None)
+        first.clear()
+        group.barrier()
+        if group.writes:
+            arrays[f"{route}__rf"] = rf.double().cpu().numpy()
+            arrays.update({f"{route}__{k}": v.double().cpu().numpy()
+                           for k, v in accs[0].items()})
+            nk = len(launches)
+            saved[route] = dict(
+                seconds=float(tot[0]) / group.size,
+                events=float(tot[1]) / group.size,
+                host_trips=float(tot[2]) / group.size,
+                launches=dict(zip(launches, map(int, tot[3:3 + nk]))),
+                modes=dict(zip(counts, map(int, tot[3 + nk:].tolist()))),
+                checks=checks, slab_cells=sim._dd_state["dec"].ncells_local)
+        del rf, accs
+        torch.cuda.empty_cache()
+    if group.writes:
+        meta = json.dumps(saved, default=lambda o: o.item()
+                          if hasattr(o, "item") else str(o))
+        np.savez(out, meta=np.array(meta), **arrays)
+
+
+def route_gaps(a: dict, b: dict, what: str) -> dict:
+    """b against a within DD_XL_BOUND of each maximum: the RF, the SED of
+    each kind and the frame's sums per kind and bin."""
+    g = lambda x, y: float(np.abs(np.asarray(y) - x).max()
+                           / max(np.abs(x).max(), 1e-300))
+    gaps = {"rf": g(a["rf"], b["rf"])}
+    for k in range(a["sed"].shape[0]):
+        if np.abs(a["sed"][k]).max() > 0:
+            gaps[f"sed{k}"] = g(a["sed"][k], b["sed"][k])
+    gaps["frame_sums"] = g(a["frame"].sum(axis=(2, 3)),
+                           np.asarray(b["frame"]).sum(axis=(2, 3)))
+    require(max(gaps.values()) <= DD_XL_BOUND,
+            f"dd_xl: {what} within {DD_XL_BOUND} of each maximum ({gaps})")
+    return gaps
+
+
+def phase_dd_xl(torch, smi: str, ranks_out: str | None = None) -> dict:
+    """Domain decomposition on the XL route at full width (DD_XL_N^3, one
+    RF bin): two ranks sharing cuda:0 over gloo on the XL route (kernels 6
+    and 7 in the modes the reference composes, held against their plain
+    versions on the path's first event) and on the march route, against one
+    process on the XL route (route_gaps); packets/s of the three runs and
+    the host round trips per event. ranks_out: the two ranks' results
+    where phase_dd's ranks ran them, else they are spawned here."""
+    import chip_smoke as cs
+    from skirt9_tpu_torch.parallel import dp
+    res = {"phase": "dd_xl", "grid": [DD_XL_N] * 3, "packets": DD_XL_PACKETS}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = ranks_out or os.path.join(tmp, "dd_xl.npz")
+        t0 = time.perf_counter()
+        if ranks_out is None:
+            dp.spawn(cs._dd_xl_rank, 2, args=(out,), device="cuda:0",
+                     backend="gloo")
+            res["ranks_wall_s"] = time.perf_counter() - t0
+        with np.load(out) as f:
+            two = json.loads(str(f["meta"]))
+            for key in f.files:
+                if "__" in key:
+                    route, k = key.split("__")
+                    two[route][k] = f[key]
+    sim = dd_xl_config("cuda")
+    (rf, accs), n_one = drive(XL + DETECT, RESIDENT + ML + NOT_PATH,
+                              lambda: sim.run_primary(verbose=False))
+    one = {"rf": rf.double().cpu().numpy(),
+           **{k: v.double().cpu().numpy() for k, v in accs[0].items()}}
+    seconds_one = sim.last_stats["seconds"]
+    del sim, rf, accs
+    torch.cuda.empty_cache()
+    xl_two, march_two = two["xl"], two["march"]
+    n_xl, n_march = xl_two["launches"], march_two["launches"]
+    modes = xl_two["modes"]
+    for k in ("want_sub", "summed", "sweep_deposit"):
+        require(modes[k] > 0, f"dd_xl: kernel mode {k} launched ({modes})")
+    require(n_xl["sweepxl_dtau"] == modes["want_sub"] + modes["summed"]
+            and n_xl["sweepxl_deposit"] == modes["sweep_deposit"],
+            f"dd_xl: one launch per call ({n_xl}, {modes})")
+    for k in DETECT + DIRECTIONS:
+        require(n_xl[k] > 0 and n_march[k] > 0, f"dd_xl: {k} launched")
+    for k in RESIDENT + ML + XL + ("sweep_dtau", "sweep_deposit",
+                                   "mlsweep_dtau", "scatter_add") + MARCH:
+        require(n_xl[k] == 0, f"dd_xl: {k} not launched on the XL route")
+    require(n_march["march_uniform"] > 0 and all(
+        n_march[k] == 0 for k in XL + ("sweepxl_dtau", "sweepxl_deposit")),
+        "dd_xl: the march route marches")
+    for route, d in (("xl_two_ranks", xl_two), ("march_two_ranks",
+                                                march_two)):
+        res[route] = dict(
+            packets_per_s=DD_XL_PACKETS / d["seconds"], seconds=d["seconds"],
+            events=d["events"],
+            host_round_trips_per_event=d["host_trips"] / max(d["events"], 1),
+            launches={k: v for k, v in d["launches"].items() if v},
+            gaps_to_xl_one_process=route_gaps(one, d, route))
+    res["xl_two_ranks"]["modes"] = modes
+    res["xl_two_ranks"]["kernels"] = xl_two["checks"]
+    res["xl_two_ranks"]["gaps_to_march_two_ranks"] = route_gaps(
+        march_two, xl_two, "the XL route against the march route")
+    res["xl_one_process"] = dict(
+        packets_per_s=DD_XL_PACKETS / seconds_one, seconds=seconds_one,
+        launches={k: v for k, v in n_one.items() if v})
+    res["slab_cells"] = xl_two["slab_cells"]
+    res["seconds"] = time.perf_counter() - t0
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+              backend="gloo", bound=DD_XL_BOUND))
+    return dict(res, launches=n_xl)
+
+
+# the local instruments (phase_local_instruments): three observers inside
+# config 1's dust sphere (radius 1 pc), their wavelength grid the distant
+# instrument's; the perspective camera looks at the source at the origin
+LOCAL_PACKETS = 1 << 17
+LOCAL_SECONDARY_PACKETS = 1 << 16
+# config 1's source of 1 W puts ~1e-39 W/m^2 into a local map, below f32's
+# normal range, which the reference (and the port after it) flushes to
+# zero: the local runs give it a solar luminosity
+LOCAL_LUMINOSITY = 3.828e26
+LOCAL_FLUX_BOUND = 1e-3          # tests/test_allsky.py:42, rel 1e-3
+# the card's maps against the CPU's: 1e-4 of each map's maximum, but the
+# camera's scattered light, 1e-3: its brightest pixels hold scatterings a
+# hair from the eye, whose 1/z'^2 turns the card's path depths, within
+# 1e-6 of the CPU's (kernel 1's total and prefix), into 1.1e-4 of the map's
+# maximum (measured on an H100, PR 24)
+LOCAL_CPU_BOUND = 1e-4
+LOCAL_CPU_BOUND_CAMERA_SCATTERED = 1e-3
+# the card against the CPU on LOCAL_CPU_PACKETS of the same histories in
+# batches of LOCAL_CPU_BATCH: index_add_ sums a batch's equal direct
+# contributions one after another in f32, which strays ~N 2^-25 from their
+# sum (4.6e-5 at 4,096 of them, 1.2e-3 at 2^17, measured on the CPU)
+LOCAL_CPU_PACKETS = 1 << 14
+LOCAL_CPU_BATCH = 1 << 12
+
+
+def local_instruments(wave_borders) -> list:
+    """The Mollweide all-sky map, the HEALPix map (a crosshair: the source)
+    and the perspective camera (its crosshair the source, 0.7 pc away)."""
+    from skirt9_tpu_torch.instruments.allsky import AllSkyInstrumentCfg
+    from skirt9_tpu_torch.instruments.perspective import (
+        PerspectiveInstrumentCfg)
+    wb = tuple(wave_borders)
+    return [AllSkyInstrumentCfg(name="allsky", wave_borders=wb,
+                                position=(0.5 * PC, 0.0, 0.0), npx=250),
+            AllSkyInstrumentCfg(name="healpix", wave_borders=wb,
+                                position=(0.0, -0.4 * PC, 0.2 * PC),
+                                projection="healpix", order=5,
+                                crosshair=(0.0, 0.0, 0.0)),
+            PerspectiveInstrumentCfg(name="camera", wave_borders=wb,
+                                     npx=250, npy=250, width=1.0 * PC,
+                                     view=(0.0, 0.0, 0.5 * PC),
+                                     cross=(0.0, 0.0, 0.0),
+                                     up=(0.0, 1.0, 0.0), focal=0.2 * PC)]
+
+
+def local_config(device, name: str = "config1", **kw):
+    """Config 1 (or config 2 with dust emission and one secondary
+    iteration) with its distant instrument and the three local ones."""
+    import dataclasses
+    if name == "config1":
+        sim = config1(device, num_packets=kw.pop("num_packets",
+                                                 LOCAL_PACKETS), **kw)
+        sources = [dataclasses.replace(sim.sources[0],
+                                       luminosity=LOCAL_LUMINOSITY)]
+    else:
+        sim = config2(device, num_packets=LOCAL_SECONDARY_PACKETS,
+                      iterate_secondary=True, max_iterations=1, **kw)
+        sources = sim.sources
+    # the statistics' scale follows the new luminosity
+    distant = [dataclasses.replace(c, stats_scale=1.0)
+               for c in sim.instruments]
+    return dataclasses.replace(sim, sources=sources, instruments=distant
+                               + local_instruments(
+                                   sim.instruments[0].wave_borders))
+
+
+def _spy_scatter(sca, keep: int):
+    """Wrap ops.scatteradd.scatter_add, which the local instruments' detect
+    calls: keep the arguments of call number keep (the first scattering
+    peel-off's first map after the emission's three). Returns (kept,
+    undo)."""
+    kept, calls = [], [0]
+    orig = sca.scatter_add
+
+    def scatter_add(idx, val, size):
+        if calls[0] == keep:
+            kept.append((idx.clone(), val.clone(), size))
+        calls[0] += 1
+        return orig(idx, val, size)
+
+    def undo():
+        sca.scatter_add = orig
+    sca.scatter_add = scatter_add
+    return kept, undo
+
+
+def _scatter_check(torch, idx, val, size: int) -> dict:
+    """Kernel 3 on the path's arguments against scatter_add_plain (f32
+    index_add_) and against the f64 sum, within the f32 atomics' own error
+    per bin (n 2^-24 sum |v|, n the bin's terms); timed beside the
+    index_add_ call, bound by its bytes (the indices and values read once,
+    the bins written once)."""
+    from skirt9_tpu_torch.ops import scatteradd as sca
+    k = sca.scatter_add(idx, val, size)
+    p = sca.scatter_add_plain(idx, val, size)
+    ex = torch.zeros(size, dtype=torch.float64, device=val.device).index_add_(
+        0, idx.long(), val.double())
+    n = torch.zeros(size, dtype=torch.float64, device=val.device).index_add_(
+        0, idx.long(), torch.ones_like(val, dtype=torch.float64))
+    a = torch.zeros(size, dtype=torch.float64, device=val.device).index_add_(
+        0, idx.long(), val.double().abs())
+    err = (k.double() - ex).abs()
+    require(bool((err <= n * 2.0 ** -24 * a).all()),
+            "local_instruments: kernel 3 within the f32 atomics' error of "
+            "the f64 sum")
+    lib = lambda: torch.zeros(size, dtype=torch.float32,
+                              device=val.device).index_add_(0, idx.long(), val)
+    fn = lambda: sca.scatter_add(idx, val, size)
+    B = idx.shape[0]
+    return dict(max_abs_err=float((k - p).abs().max()),
+                max_abs_err_f64=float(err.max()), lanes=B, bins=size,
+                lit_bins=int((n > 0).sum()), ms=cuda_ms(fn),
+                device_ms=device_ms(fn)["ours"],
+                plain_ms=cuda_ms(lambda: sca.scatter_add_plain(idx, val,
+                                                               size)),
+                library_ms=cuda_ms(lib), library_device_ms=device_ms(lib)[
+                    "all"], **bound(B * 8 + size * 4, B))
+
+
+def local_flux_gates(torch, sim_cpu, accs) -> dict:
+    """The point source's direct flux in each local map against L e^-tau /
+    (4 pi d^2): d the distance from the source to the observer (the eye for
+    the camera), tau by the plain march from the source toward it through
+    the whole grid, past the observer, as the reference's local peel-off
+    traces it; the camera's brightest direct pixel the crosshair's. The
+    direct light has no Monte Carlo spread (every packet carries L/N along
+    the same ray), so the gate is the reference test's rel 1e-3."""
+    from skirt9_tpu_torch.instruments import distant as dinst
+    from skirt9_tpu_torch.media import system as msys
+    from skirt9_tpu_torch.transport import march as mr
+    src = np.asarray(sim_cpu.sources[0].position, np.float64)
+    L = float(sim_cpu.sources[0].luminosity)
+    out = {}
+    for cfg, tab, acc in zip(sim_cpu.instruments[1:], sim_cpu._inst_tabs[1:],
+                             accs[1:]):
+        obs = tab["obs"].double().numpy()
+        d = float(np.linalg.norm(obs - src))
+        k = torch.tensor(((obs - src) / d)[None], dtype=torch.float32)
+        p0 = torch.tensor(src[None], dtype=torch.float32)
+        c0 = sim_cpu.grid.locate(p0)
+        opt = msys.optics_at(sim_cpu.medium, torch.full((1,), 0.55e-6))
+        tau = float(mr.trace_tau(sim_cpu.grid, sim_cpu.medium, opt, p0, k,
+                                 c0, sim_cpu.options.max_steps, c0 >= 0))
+        expect = L * math.exp(-tau) / (4 * math.pi * d * d)
+        sky = acc["sky"][dinst.KIND_PRIMARY_DIRECT].double()
+        got = float(sky.sum())
+        gap = abs(got / expect - 1)
+        require(gap <= LOCAL_FLUX_BOUND, f"local_instruments: {cfg.name}'s "
+                f"direct flux {got} against {expect} (tau {tau})")
+        out[cfg.name] = dict(direct=got, expected=expect, tau=tau,
+                             distance_pc=d / PC, rel_gap=gap)
+        if getattr(cfg, "is_perspective", False):
+            j, i = np.unravel_index(int(torch.argmax(sky[0])), sky[0].shape)
+            require((i, j) == (cfg.npx // 2, cfg.npy // 2),
+                    f"local_instruments: the source on the crosshair's "
+                    f"pixel ({i}, {j})")
+            out[cfg.name]["pixel"] = [int(i), int(j)]
+    return out
+
+
+def phase_local_instruments(torch, smi: str) -> dict:
+    """Config 1 at full width with the three local instruments on the card
+    (drive: the resident sweep, detect for the distant instrument, kernel
+    3 for the local maps), its maps against the direct flux of the source
+    (local_flux_gates), and LOCAL_CPU_PACKETS of its histories on the card
+    against the CPU's; kernel 3 at the first scattering peel-off (_scatter_check); config 2
+    with dust emission: the secondary kinds of the maps."""
+    from skirt9_tpu_torch.ops import scatteradd as sca
+    t0 = time.perf_counter()
+    sim = local_config("cuda")
+    kept, undo = _spy_scatter(sca, 3)
+    try:
+        (_, accs), launches = drive(
+            RESIDENT + DETECT + DIRECTIONS + ("scatter_add",),
+            XL + ML + NOT_PATH[:-1], lambda: sim.run_primary(verbose=False))
+    finally:
+        undo()
+    seconds = sim.last_stats["seconds"]
+    events = sim.last_stats["events"]
+    flux = local_flux_gates(torch, local_config("cpu"), [
+        {k: v.cpu() for k, v in a.items()} for a in accs])
+    # the card against the CPU on the same histories, in short batches
+    small = lambda dev: local_config(dev, num_packets=LOCAL_CPU_PACKETS,
+                                     batch_size=LOCAL_CPU_BATCH)
+    _, accs_gpu = small("cuda").run_primary(verbose=False)
+    t1 = time.perf_counter()
+    _, accs_cpu = small("cpu").run_primary(verbose=False)
+    cpu_s = time.perf_counter() - t1
+    gaps = {}
+    for cfg, a, b in zip(sim.instruments[1:], accs_gpu[1:], accs_cpu[1:]):
+        for kind in range(a["sky"].shape[0]):
+            x, y = a["sky"][kind].double().cpu(), b["sky"][kind].double()
+            m = float(y.abs().max())
+            if m > 0:
+                gaps[f"{cfg.name}{kind}"] = float((x - y).abs().max()) / m
+    scattered = ("camera2", "camera4")
+    far = {k: g for k, g in gaps.items() if g > (
+        LOCAL_CPU_BOUND_CAMERA_SCATTERED if k in scattered
+        else LOCAL_CPU_BOUND)}
+    require(len(gaps) == 6 and not far,
+            f"local_instruments: the card's maps against the CPU's within "
+            f"{LOCAL_CPU_BOUND} of each maximum ({gaps})")
+    check = _scatter_check(torch, *kept[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = sim.write_outputs(accs, "local", tmp)
+        files = sorted(os.path.basename(p) for p in paths
+                       if "allsky" in p or "camera" in p)
+    del sim, accs, accs_gpu, accs_cpu, kept
+    torch.cuda.empty_cache()
+    # the secondary kinds: config 2 with dust emission
+    sim2 = local_config("cuda", "config2")
+    (_, accs2, info), launches2 = drive(
+        RESIDENT + DETECT + ("scatter_add",), XL + ML + NOT_PATH[:-1],
+        lambda: sim2.run_with_dust_emission(verbose=False))
+    secondary = {}
+    for cfg, a in zip(sim2.instruments[1:], accs2[1:]):
+        sky = a["sky"].double()
+        secondary[cfg.name] = [float(sky[k].sum()) for k in (3, 4)]
+        require(bool(torch.isfinite(sky).all()) and min(
+            secondary[cfg.name]) > 0, f"local_instruments: {cfg.name}'s "
+            f"secondary kinds ({secondary[cfg.name]})")
+    del sim2, accs2
+    torch.cuda.empty_cache()
+    res = {"phase": "local_instruments", "packets": LOCAL_PACKETS,
+           "packets_per_s": LOCAL_PACKETS / seconds, "seconds": seconds,
+           "events": events, "cpu_packets": LOCAL_CPU_PACKETS,
+           "cpu_batch": LOCAL_CPU_BATCH, "cpu_seconds": cpu_s,
+           "cpu_gaps": gaps,
+           "flux": flux, "files": files,
+           "scatter_add_per_event": launches["scatter_add"] / max(events, 1),
+           "launches": {k: v for k, v in launches.items() if v},
+           "scatter_add": check, "secondary_packets": LOCAL_SECONDARY_PACKETS,
+           "secondary_kinds": secondary,
+           "launches_config2": {k: v for k, v in launches2.items() if v},
+           "phase_s": time.perf_counter() - t0}
+    emit(dict(res, device=torch.cuda.get_device_name(0), nvidia_smi=smi))
+    return dict(res, launches=launches, launches2=launches2)
 
 
 def main() -> int:
@@ -8460,7 +9063,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_ivezic_dust = phase_full_width_ivezic_dust(torch, smi)
     phase_dp(torch, smi)
-    dd = phase_dd(torch, smi)
+    # one spawn of two ranks for the dd and dd_xl phases
+    xl_dir = tempfile.mkdtemp()
+    xl_out = os.path.join(xl_dir, "dd_xl.npz")
+    dd = phase_dd(torch, smi, xl_out)
+    dd_xl = phase_dd_xl(torch, smi, xl_out)
+    shutil.rmtree(xl_dir)
+    local = phase_local_instruments(torch, smi)
     rows = []
     k1 = "skirt9_tpu/transport/sweep.py:238"
     k6 = "skirt9_tpu/transport/sweepxl.py:392"
@@ -8838,6 +9447,26 @@ def main() -> int:
                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "device_ms", "profiler_dropped",
                      "plain_device_launches")}})
+    # XLA's exp, expm1, log and log1p of the interaction depth (every
+    # event) and of the march's deposit factor (config 1's march route under
+    # dd, its RF stored)
+    for name, path, n, ref in (
+            ("interaction_depth", "full_width", launches["interaction_depth"],
+             "skirt9_tpu/transport/lifecycle.py:286 (sample_interaction_tau "
+             "over skirt9_tpu/ops/rng.py:84 expon_cutoff: XLA's expm1, "
+             "log1p and exp, not a TPU kernel)"),
+            ("deposit_factor", "dd (config 1 on the march route, both "
+             "ranks)", dd["launches"]["config1"]["deposit_factor"],
+             "skirt9_tpu/transport/lifecycle.py:239-242 (deposit_rf's "
+             "-expm1(-dtau) ds / dtau: XLA's expm1, not a TPU kernel)")):
+        k = kern_sincos[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "skirt9_tpu_torch/csrc/xla_math.cu",
+                     "replaces": ref, "path": path, "launches": n,
+                     **{key: k[key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "device_ms",
+                         "profiler_dropped", "plain_device_launches")}})
     for name in ("sweepxl_dtau_prefix", "sweepxl_deposit_prefix"):
         # kernels 6-7 on amr_galaxy's 256^3 voxel raster (kernels_amr,
         # with its one XL batch's launches)
@@ -8877,6 +9506,27 @@ def main() -> int:
     for name in DETECT + DIRECTIONS:
         row = next(r for r in rows if r["name"] == name)
         row["launches_dd"] = dd["launches"]["config1"][name]
+    # kernel 6's record and summed modes and kernel 7's contract mode on
+    # their simulation path, domain decomposition on the XL route (dd_xl),
+    # held against their plain versions on its first event; kernel 3 on the
+    # local instruments' maps (local_instruments)
+    for name, mode in (("sweepxl_dtau", "want_sub"),
+                       ("sweepxl_dtau_summed", "summed"),
+                       ("sweepxl_deposit", "sweep_deposit")):
+        row = next(r for r in rows if r["name"] == name)
+        row["launches_full_width_xl"] = row["launches"]
+        row["path"] = "dd_xl (two ranks, both ranks' launches)"
+        row["launches"] = row["launches_dd_xl"] = dd_xl["xl_two_ranks"][
+            "modes"][mode]
+        row["dd_xl"] = dd_xl["xl_two_ranks"]["kernels"][mode]
+    row = next(r for r in rows if r["name"] == "scatter_add")
+    row["launches_kernels_probe"] = row["launches"]
+    row["path"] = "local_instruments (config 1, three local maps)"
+    row["launches"] = row["launches_local_instruments"] = local["launches"][
+        "scatter_add"]
+    row["launches_local_instruments_config2"] = local["launches2"][
+        "scatter_add"]
+    row["local_instruments"] = local["scatter_add"]
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

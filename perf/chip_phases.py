@@ -1,8 +1,8 @@
 """Run chosen phases of chip_smoke.py alone on the card, and two probes of
 its clumpy-sphere gates.
 
-    python3 perf/chip_phases.py [sincos] [clumpy] [mesh] [dp] [dd] [fw]
-                                [readings] [aimed]
+    python3 perf/chip_phases.py [sincos] [clumpy] [mesh] [dp] [dd] [dd_xl]
+                                [local] [fw] [readings] [aimed]
 
 Each phase named runs after the environment and build phases, caught: a
 failed phase prints its traceback and a line {"phase_run": name, "ok":
@@ -101,6 +101,8 @@ def main() -> int:
         "mesh": lambda: cs.phase_full_width_mesh(torch, smi, "clumpy_torus"),
         "dp": lambda: cs.phase_dp(torch, smi),
         "dd": lambda: cs.phase_dd(torch, smi),
+        "dd_xl": lambda: cs.phase_dd_xl(torch, smi),
+        "local": lambda: cs.phase_local_instruments(torch, smi),
         "fw": lambda: cs.phase_full_width(torch, smi),
         "readings": readings, "aimed": aimed}
     ok = True

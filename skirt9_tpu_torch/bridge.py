@@ -41,7 +41,9 @@ from .grids.tetra import TetraGrid
 from .grids.voronoi import VoronoiGrid
 from .imports import snapshots as snaps
 from .imports.snapshots import FamilyParticleSource, ParticleSnapshot
+from .instruments.allsky import AllSkyInstrumentCfg
 from .instruments.distant import DistantInstrumentCfg
+from .instruments.perspective import PerspectiveInstrumentCfg
 from .media.system import MediumTables
 from .ops.stokes import MuellerTables
 from .simulation import Simulation
@@ -259,9 +261,14 @@ def source(ref_src):
                                sed=sed(ref_src.sed))
 
 
-def instrument(ref_cfg) -> DistantInstrumentCfg:
+def instrument(ref_cfg):
+    """A distant, all-sky (HEALPix) or perspective instrument, field for
+    field."""
+    for cls in (DistantInstrumentCfg, AllSkyInstrumentCfg,
+                PerspectiveInstrumentCfg):
+        if type(ref_cfg).__name__ == cls.__name__:
+            return _same_fields(cls, ref_cfg)
     _kind(ref_cfg, "DistantInstrumentCfg")
-    return _same_fields(DistantInstrumentCfg, ref_cfg)
 
 
 def options(ref_opts) -> TransportOptions:

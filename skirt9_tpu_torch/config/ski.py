@@ -76,7 +76,9 @@ from ..grids.sphere import make_sphere1d
 from ..grids.tetra import TetraGrid, build_tetra
 from ..grids.voronoi import build_voronoi, density_sites, lloyd_relax
 from ..imports import snapshots as snap
+from ..instruments import allsky as asky
 from ..instruments import distant as dinst
+from ..instruments import perspective as persp
 from ..media import geometric as gm
 from ..media import mixes as mx
 from ..media import system as msys
@@ -118,6 +120,9 @@ ITEMS = frozenset((
     "VoronoiMeshSpatialGrid",
     "PolicyTreeSpatialGrid", "DensityTreePolicy", "IterationOptions",
     "InstrumentSystem", "FullInstrument", "SEDInstrument",
+    # the local instruments and the all-sky projections
+    "PerspectiveInstrument", "AllSkyInstrument", "HEALPixSkyInstrument",
+    "MollweideProjection", "HammerAitoffProjection",
     "ProbeSystem", "TemperatureProbe", "RadiationFieldProbe", "PerCellForm",
     "SpatialCellPropertiesProbe",
     # analytic geometries, their decorators and sources, and the 1D sphere
@@ -169,7 +174,7 @@ PROPERTIES = frozenset((
     "instrumentSystem",
     "defaultWavelengthGrid", "instruments", "wavelengthGrid", "probeSystem",
     "probes", "form", "firstGeometry", "secondGeometry", "meshRadial",
-    "meshPolar", "meshAzimuthal"))
+    "meshPolar", "meshAzimuthal", "projection"))
 
 # simulation modes of those items (the reference's `mode` branches)
 MODES = ("ExtinctionOnly", "OligoExtinctionOnly", "DustEmission",
@@ -1146,14 +1151,18 @@ def build_wavelength_grid(el) -> np.ndarray:
                    int(a["numWavelengths"]))
 
 
-def build_instrument(el, default_wlg) -> dinst.DistantInstrumentCfg:
+def build_instrument(el, default_wlg):
     """A FullInstrument, or an SEDInstrument: a distant instrument without
     a frame, whose components and statistics flags are read and ignored,
-    as the reference ignores them (`skirt9_tpu/config/ski.py:1560-1561`)."""
+    as the reference ignores them (`skirt9_tpu/config/ski.py:1560-1561`);
+    or a local one (`build_local_instrument`)."""
     a = el.attrib
     wlg_el = _child(el, "wavelengthGrid")
     borders = (build_wavelength_grid(wlg_el) if wlg_el is not None
                else default_wlg)
+    if el.tag in ("PerspectiveInstrument", "AllSkyInstrument",
+                  "HEALPixSkyInstrument"):
+        return build_local_instrument(el, borders)
     common = dict(
         name=a.get("instrumentName", el.tag),
         wave_borders=tuple(borders),
@@ -1176,6 +1185,38 @@ def build_instrument(el, default_wlg) -> dinst.DistantInstrumentCfg:
         fovy=_q(a, "fieldOfViewY", "length"),
         centerx=_q(a, "centerX", "length", 0.0),
         centery=_q(a, "centerY", "length", 0.0))
+
+
+def build_local_instrument(el, borders):
+    """A PerspectiveInstrument, AllSkyInstrument (Mollweide, or
+    Hammer-Aitoff, which the reference maps as Mollweide) or
+    HEALPixSkyInstrument, with the reference's attributes and defaults
+    (`skirt9_tpu/config/ski.py:1598-1640`)."""
+    a, t = el.attrib, el.tag
+    name = a.get("instrumentName", t)
+    xyz = lambda p, default: tuple(_q(a, p + c, "length", default)
+                                   for c in "XYZ")
+    up = (_f(a, "upX", 0.0), _f(a, "upY", 0.0), _f(a, "upZ", 1.0))
+    if t == "PerspectiveInstrument":
+        return persp.PerspectiveInstrumentCfg(
+            name=name, wave_borders=tuple(borders),
+            npx=int(a.get("numPixelsX", 250)),
+            npy=int(a.get("numPixelsY", 250)),
+            width=_q(a, "width", "length"), view=xyz("view", None),
+            cross=xyz("cross", 0.0), up=up, focal=_q(a, "focal", "length"))
+    obs, cross = xyz("observer", 0.0), xyz("cross", 0.0)
+    if t == "HEALPixSkyInstrument":
+        return asky.AllSkyInstrumentCfg(
+            name=name, wave_borders=tuple(borders), position=obs,
+            projection="healpix", order=int(a.get("order", 5)),
+            crosshair=cross, up=up)
+    proj_el = _child(el, "projection")
+    proj = ("hammer" if proj_el is not None and "Hammer" in proj_el.tag
+            else "mollweide")
+    return asky.AllSkyInstrumentCfg(
+        name=name, wave_borders=tuple(borders), position=obs,
+        projection=proj, npx=2 * int(a.get("numPixelsY", 125)),
+        crosshair=cross, up=up)
 
 
 def build_probes(mcs) -> list[ProbeSpec]:

@@ -52,6 +52,9 @@ KERNELS = ("sweep_dtau", "sweep_tau_total", "sweep_dtau_prefix",
            # glibc's sinf and cosf of the directions, and the HG scattering
            # direction (csrc/sincos.cu)
            "sincos", "hg_direction",
+           # XLA's exp, expm1, log and log1p: the interaction depth and the
+           # march's deposit factor (csrc/xla_math.cu)
+           "interaction_depth", "deposit_factor",
            # the gather and row-lookup probes (tools/), one counter per
            # variant of their shared entry points
            "probe_gather_smem", "probe_gather_l2", "probe_scatter_smem",
@@ -121,6 +124,11 @@ _SIGNATURES = {
     "sincos_launch": [_P] * 3 + [_I] + [_P],
     # dir, g, u_ct, u_phi, out, n, stream
     "hg_direction_launch": [_P] * 5 + [_I] + [_P],
+    # tau_path, u_choice, u_uni, u_exp, tau_int, w_bias, ok, n, mode, xi,
+    # 1 - xi, stream
+    "interaction_depth_launch": [_P] * 7 + [_I] * 2 + [_F] * 2 + [_P],
+    # ds, dtau, out, n, stream
+    "deposit_factor_launch": [_P] * 3 + [ctypes.c_long] + [_P],
     # nd, idx, out, n, B, staged, stream
     "probe_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     # idx, val, out, n, B, stream

@@ -10,12 +10,14 @@ metallicities an imported medium carries.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import sampling
+from ..ops import xlamath as xm
 from . import mixes as mx
 
 
@@ -49,13 +51,31 @@ class Optics(NamedTuple):
     g: torch.Tensor          # (B, H)
 
 
+@functools.lru_cache(maxsize=64)
+def _log_table(t: torch.Tensor) -> torch.Tensor:
+    """XLA's log of a wavelength or cross-section table (its values clamped
+    to f32's smallest normal), once per table object."""
+    return xm.log_xla(torch.clamp_min(t, torch.finfo(torch.float32).tiny))
+
+
 def optics_at(med: MediumTables, lam: torch.Tensor) -> Optics:
-    """Log-log interpolated cross sections and linear g at wavelengths (B,)."""
+    """Log-log interpolated cross sections and linear g at wavelengths (B,),
+    in XLA's CPU arithmetic (`sampling.interp_loglog(xla=True)`: its log
+    and exp, the fused interpolation): a lane's cross section one ulp off
+    moves its steps' optical depths and with them where it interacts. The
+    lanes' log wavelength is taken once and the tables' logs are kept, as
+    the event loops of changing wavelengths call this every event."""
+    lx, lxv = xm.log_xla(lam), _log_table(med.lam_t)
+    log_ext, log_sca = _log_table(med.sigma_ext), _log_table(med.sigma_sca)
+
+    def loglog(ly):
+        out = xm.exp_xla(sampling.interp_linlin(lx, lxv, ly, xla=True))
+        return torch.where(out < 1e-35, torch.zeros_like(out), out)
     se, ss, gg = [], [], []
     for h in range(med.ncomp):
-        se.append(sampling.interp_loglog(lam, med.lam_t, med.sigma_ext[h]))
-        ss.append(sampling.interp_loglog(lam, med.lam_t, med.sigma_sca[h]))
-        gg.append(sampling.interp_linlin(lam, med.lam_t, med.g[h]))
+        se.append(loglog(log_ext[h]))
+        ss.append(loglog(log_sca[h]))
+        gg.append(sampling.interp_linlin(lam, med.lam_t, med.g[h], xla=True))
     return Optics(sigma_ext=torch.stack(se, dim=1),
                   sigma_sca=torch.stack(ss, dim=1), g=torch.stack(gg, dim=1))
 

@@ -164,13 +164,19 @@ def gauss(keys: torch.Tensor, tag: int) -> torch.Tensor:
 
 
 def expon(keys: torch.Tensor, tag: int) -> torch.Tensor:
-    """Exponential with unit scale: tau = -ln(1-u)."""
-    return -torch.log1p(-uniform(keys, tag))
+    """Exponential with unit scale: tau = -ln(1-u), in XLA's log1p."""
+    return -xlamath.log1p_xla(-uniform(keys, tag))
 
 
-def expon_cutoff_from_uniform(u: torch.Tensor, taumax: torch.Tensor):
-    """Inverse cdf of e^-t / (1-e^-taumax) on [0, taumax] at uniform u."""
-    return -torch.log1p(u * torch.expm1(-taumax))
+def expon_cutoff_from_uniform(u: torch.Tensor, taumax: torch.Tensor,
+                              em1: torch.Tensor | None = None):
+    """Inverse cdf of e^-t / (1-e^-taumax) on [0, taumax] at uniform u, in
+    XLA's log1p and expm1 (PyTorch's part from them in the last bit on a
+    third of the lanes, which moves the interaction); em1: expm1(-taumax)
+    where the caller has it."""
+    if em1 is None:
+        em1 = xlamath.expm1_xla(-taumax)
+    return -xlamath.log1p_xla(u * em1)
 
 
 def expon_cutoff(keys: torch.Tensor, tag: int, taumax: torch.Tensor):

@@ -260,6 +260,45 @@ def exp_xla(x: torch.Tensor) -> torch.Tensor:
     return torch.where(out < _TINY, torch.zeros_like(out), out)
 
 
+# XLA's fast tanh on the CPU: x clamped to +-7.99, a rational function of
+# x^2 (degree 13 over 6 in x), x itself below 4e-4, +-1 from 20 on
+_TANH_P = tuple(_f32_of(b) for b in (
+    0xBCB3E4B800000000, 0x3D4C266FC0000000, 0xBDD7A6FFE0000000,
+    0x3E6B800820000000, 0x3EEF286940000000, 0x3F44E1BDA0000000,
+    0x3F740B3B80000000))
+_TANH_Q = tuple(_f32_of(b) for b in (
+    0x3EB41A7B00000000, 0x3F1F12BAC0000000, 0x3F629540A0000000,
+    0x3F740B3BA0000000))
+_TANH_SMALL = _f32_of(0x3F3A36E2E0000000)
+_TANH_CLAMP = _f32_of(0x401FFEC880000000)
+
+
+def tanh_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU tanh of f32 x, operation for operation (its LLVM IR,
+    each product fused into the sum it feeds)."""
+    c = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    c2 = c * c
+    p = fma(c2, _TANH_P[0], _TANH_P[1])
+    for k in _TANH_P[2:]:
+        p = fma(c2, p, k)
+    q = fma(c2, _TANH_Q[0], _TANH_Q[1])
+    for k in _TANH_Q[2:]:
+        q = fma(c2, q, k)
+    t = torch.where(x.abs() < _TANH_SMALL, x, (c * p) / q)
+    return torch.where(x.abs() >= 20.0, torch.copysign(torch.ones_like(x), x),
+                       t)
+
+
+def expm1_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU expm1 of f32 x: exp(x) - 1 where |x| > 1/2, else
+    tanh(x/2) (exp(x) + 1), and x where x/2 is 0 (`exp_xla`, `tanh_xla`;
+    2^n e^r times the power of two is exact, so the sums round once)."""
+    e = exp_xla(x)
+    h = x * 0.5
+    out = torch.where(x.abs() > 0.5, e - 1.0, tanh_xla(h) * (e + 1.0))
+    return torch.where(h == 0, x, out)
+
+
 def _running_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The f32 running sum along dim, one addition after another."""
     out = x.clone()

@@ -35,10 +35,22 @@ The collectives are gloo's or NCCL's (`Group.all_gather`,
 run gloo, which takes host copies: each collective of an event is then a
 host round trip (`Group.host_trips`), the one-card route's cost.
 
-The reference takes another route on a TPU, or with
-`SKIRT9_TPU_FORCE_SWEEP=1` and one RF bin: each slab on the XL sweep
-(`build_local_xl`, kernels 6-7). The port runs the march route on the CPU
-and on the card alike, and refuses that one (ROADMAP.md item 26b).
+The XL route (the reference's on a TPU, here on the card, or with
+`SKIRT9_TPU_FORCE_SWEEP=1`; one RF bin) runs each slab on the XL sweep's
+contracts instead of the march (`build_local_xl`; `dd_segment(xl_local=)`,
+the reference's `use_xl` branches): the gathered rays sorted by (axis,
+sign, entry slab), pass 1 by `sweepxl.sweep_dtau(want_sub=True)` (kernel
+6's record), the local `sweep.slab_prefix`, the RF by `sweepxl.
+sweep_deposit` (kernel 7's contract mode) on the scale e^-(depth before
+the slab + the local prefix), the interaction by `sweepxl.
+resolve_interaction`, and the peel-off's partial depths by the summed
+`sweepxl.sweep_dtau` (kernel 6). The collectives and the event's tail are
+the march route's. The reference stores each slab's planes as int8 or bf16
+hi/lo splits (`_quantize_rows`); the port's XL tables are the slab's f32
+density rows themselves (`transport/sweepxl.py`), so its depths are the
+f32 sums the reference's splits approximate to ~1e-5. Meshed grids keep
+the march route: the XL tables are uniform (the reference's would take
+the mean cell size).
 
 `voxelize_for_dd` gives a non-Cartesian grid its voxel raster: a tree's
 finest level (exact: every leaf is a block of voxels), or a Voronoi or
@@ -75,6 +87,8 @@ from ..transport import lifecycle as lc
 from ..transport import march as mr
 from ..transport import mlsweep as ml
 from ..transport import raster
+from ..transport import sweep as sw
+from ..transport import sweepxl as xl
 from ..utils.log import default as _log
 
 _ISO = 1.0 / (4.0 * math.pi)
@@ -170,8 +184,41 @@ def _slab_march(grid_loc, nd_local, pos, dirn, sigma, mask, max_steps: int):
     m = mask & (c0 >= 0)
     cells, ds = mr.march_geometry(grid_loc, p0, dirn, c0, max_steps, m)
     nd = nd_local[cells.to(torch.int64)]                      # (S, N, H)
-    dtau = mr.comp_sum(nd, sigma[None].expand_as(nd)) * ds
+    dtau = mr.step_tau(nd, sigma[None].expand_as(nd), ds)
     return p0, cells, ds, dtau
+
+
+def build_local_xl(dec: SlabDecomposition, med: msys.MediumTables) -> list:
+    """One `sweepxl.XLTables` per slab (the reference's `build_local_xl`,
+    `domain.py:183-237`), in slab-local coordinates: x measured from the
+    slab's lower border, so that every slab's tables have lo = (0, lo_y,
+    lo_z) and a ray's position shifts by its slab's x offset. Each table is
+    the slab's rows of the density, a view (cells are x-major), f32."""
+    if not dec.uniform:
+        raise ValueError("the XL tables need a uniform grid")
+    n = dec.ncells_local
+    shape = (dec.nx_local, dec.ny, dec.nz)
+    lo = (0.0, float(dec.slab_lohi[0, 1]), float(dec.slab_lohi[0, 2]))
+    h = tuple(float(v) for v in dec.h)
+    dev = med.nd.device
+    axes = sw.grid_axes(lo, shape, h, dev)
+    geom = sw.axis_tables(lo, shape, h, dev)
+    return [xl.XLTables(nd=med.nd[s * n:(s + 1) * n].contiguous(), n=shape,
+                        lo=lo, h=h, nmax=max(shape), axes=axes, geom=geom)
+            for s in range(dec.n_slabs)]
+
+
+def _xl_sort(tabs: xl.XLTables, pos, dirn):
+    """The (axis, sign, entry slab) sort of the gathered rays (the
+    reference's `_xl_sort`, `domain.py:299-313`, `sweepxl.lane_order`'s
+    key): (permutation, its inverse, each sorted ray's major direction
+    component > 0)."""
+    grp = sw.dominant_axis(tabs, dirn)
+    prm = xl.lane_order(tabs, pos, dirn, grp)
+    inv = torch.empty_like(prm)
+    inv[prm] = torch.arange(prm.shape[0], device=prm.device)
+    d_pos = dirn.gather(1, grp[:, None])[:, 0] > 0
+    return prm, inv, d_pos[prm]
 
 
 def shard_tables(dec: SlabDecomposition, med: msys.MediumTables, nrf: int,
@@ -188,9 +235,11 @@ def shard_tables(dec: SlabDecomposition, med: msys.MediumTables, nrf: int,
 def dd_segment(group, dec: SlabDecomposition, grid, nd_local,
                med: msys.MediumTables, opts: lc.TransportOptions, inst_cfgs,
                inst_tabs, rf_borders, source, n_total: int,
-               hist_base: int = 0):
+               hist_base: int = 0, xl_local=None):
     """The segment runner of this rank under domain decomposition (the
-    reference's `dd_segment`, `domain.py:240-561`, its march branch).
+    reference's `dd_segment`, `domain.py:240-561`): the march route, or
+    with xl_local (`build_local_xl`'s tables, one per slab) the XL route,
+    which takes one RF bin.
 
     Returns run(seed_key, history, stabs, rf_local, accs, stats=None): one
     batch, history the (B,) histories of this rank's lanes (the r-th block
@@ -202,10 +251,16 @@ def dd_segment(group, dec: SlabDecomposition, grid, nd_local,
     them once per segment. stats, when given, counts "events", "syncs" and
     "sync_s" as the life cycle does. grid: the simulation's grid, from
     which the sources launch; nd_local: this rank's slab densities;
-    rf_borders: the RF's bin borders on the device, or None."""
+    rf_borders: the RF's bin borders on the device, or None. Local
+    instruments have no branch here, as in the reference, and raise."""
     D, r = group.size, group.rank
     if dec.n_slabs != D:
         raise ValueError(f"{dec.n_slabs} slabs on {D} ranks")
+    local = [c.name for c in inst_cfgs if lc.is_local(c)]
+    if local and opts.peel_off:
+        raise NotImplementedError(
+            "domain decomposition (--dd) peels off to distant instruments "
+            f"only, as the reference's does; local instruments: {local}")
     dev = nd_local.device
     S_loc = dec.max_steps_local
     grid_loc = _local_grid(dec, r, dev)
@@ -222,6 +277,16 @@ def dd_segment(group, dec: SlabDecomposition, grid, nd_local,
     if ncomp > 1:
         tags = tags + (lc._TAG_SCATTER_COMP,)
     tag_t = torch.tensor(tags, dtype=torch.int64, device=dev)
+    use_xl = xl_local is not None
+    if use_xl:
+        if use_rf and nrf != 1:
+            raise ValueError("dd_segment: the XL route takes one RF bin (the "
+                             "march route takes several)")
+        tabs_loc = xl_local[r]
+        # slab-local coordinates: x from the slab's lower border
+        shift = torch.tensor([dec.slab_lohi[r, 0], 0.0, 0.0],
+                             dtype=torch.float32, device=dev)
+        inv_sqrt = 1.0 / float(np.sqrt(opts.rf_scale))
 
     def run(seed_key, history, stabs, rf_local, accs, stats=None):
         B = history.shape[0]
@@ -245,9 +310,17 @@ def dd_segment(group, dec: SlabDecomposition, grid, nd_local,
             """The observer-direction depth of this rank's lanes: the sum
             over slabs of each slab's partial, an all_reduce."""
             N = gpos.shape[0]
-            *_, dtau = _slab_march(grid_loc, nd_local, gpos,
-                                   kobs.expand(N, 3), gsig, gmask, S_loc)
-            part = torch.sum(dtau, dim=0)
+            kdir = kobs.expand(N, 3)
+            if use_xl:
+                pos_all = gpos - shift
+                prm, inv, _ = _xl_sort(tabs_loc, pos_all, kdir)
+                part = torch.sum(xl.sweep_dtau(
+                    tabs_loc, pos_all[prm], kdir[prm].contiguous(),
+                    gsig.T[:, prm], gmask[prm]), dim=0)[inv]
+            else:
+                *_, dtau = _slab_march(grid_loc, nd_local, gpos, kdir, gsig,
+                                       gmask, S_loc)
+                part = torch.sum(dtau, dim=0)
             group.all_reduce([part])
             return part[mine]
 
@@ -280,9 +353,19 @@ def dd_segment(group, dec: SlabDecomposition, grid, nd_local,
 
             # pass 1: the slab's partial depths of every gathered ray, the
             # owners' path depths
-            p0, cells, ds, dtau = _slab_march(grid_loc, nd_local, gpos, gdir,
-                                              gsig, gact, S_loc)
-            ptau = torch.sum(dtau, dim=0)                          # (N,)
+            if use_xl:
+                pos_all = gpos - shift
+                prm, inv, d_pos = _xl_sort(tabs_loc, pos_all, gdir)
+                p_pos, p_dir = pos_all[prm], gdir[prm]
+                dtau_sub = xl.sweep_dtau(tabs_loc, p_pos, p_dir,
+                                         gsig.T[:, prm], gact[prm],
+                                         want_sub=True)
+                dtau_ls = (dtau_sub[:, 0] + dtau_sub[:, 1]) + dtau_sub[:, 2]
+                ptau = torch.sum(dtau_ls, dim=0)[inv]
+            else:
+                p0, cells, ds, dtau = _slab_march(grid_loc, nd_local, gpos,
+                                                  gdir, gsig, gact, S_loc)
+                ptau = torch.sum(dtau, dim=0)                      # (N,)
             pt_own = group.all_to_all(ptau.reshape(D, B))          # (D, B)
             tau_path = torch.sum(pt_own, dim=0)
             tau_int, w_bias, tau_ok = lc.sample_interaction_tau(opts, u,
@@ -302,13 +385,32 @@ def dd_segment(group, dec: SlabDecomposition, grid, nd_local,
 
             # pass 2: the deposits into the slab's RF rows and the
             # interaction in the one slab where the depth crosses it
-            cum_before = (tb_slab[None, :] + xm.cumsum(dtau)) - dtau
-            if use_rf:
-                mr.deposit_rf(rf_local, cells, ds, dtau, cum_before, glum,
-                              grfbin, grf, opts.rf_scale)
-            ipos_l, icell_l, found_l, _, _ = mr.interaction_point(
-                p0, gdir, cells, ds, dtau, cum_before, gtau_int,
-                (tb_slab < gtau_int) & (tb_slab + ptau >= gtau_int))
+            if use_xl:
+                # the depth before a local slab: the slab's entry depth plus
+                # the local prefix along the ray
+                tb_loc, _ = sw.slab_prefix(dtau_ls, d_pos)
+                if use_rf:
+                    glum_half = ((glum * grf) * inv_sqrt)[prm]
+                    scale_slab = (glum_half[None, :] * torch.exp(
+                        -(tb_slab[prm][None, :] + tb_loc))) * inv_sqrt
+                    rf_delta = xl.sweep_deposit(tabs_loc, p_pos, p_dir,
+                                                grf[prm], dtau_sub,
+                                                scale_slab)
+                    rf_local += rf_delta[0][:, None]
+                s_s, ic_s, fd_s = xl.resolve_interaction(
+                    tabs_loc, p_pos, p_dir, gact[prm], dtau_sub, tb_loc,
+                    (gtau_int - tb_slab)[prm])
+                found_l = fd_s[inv]
+                icell_l = ic_s[inv].clamp_min(0)
+                ipos_l = gpos + s_s[inv][:, None] * gdir
+            else:
+                cum_before = (tb_slab[None, :] + xm.cumsum(dtau)) - dtau
+                if use_rf:
+                    mr.deposit_rf(rf_local, cells, ds, dtau, cum_before,
+                                  glum, grfbin, grf, opts.rf_scale)
+                ipos_l, icell_l, found_l, _, _ = mr.interaction_point(
+                    p0, gdir, cells, ds, dtau, cum_before, gtau_int,
+                    (tb_slab < gtau_int) & (tb_slab + ptau >= gtau_int))
             nd_at_l = nd_local[icell_l]
             f64 = lambda t: torch.where(
                 found_l.view((-1,) + (1,) * (t.dim() - 1)), t,

@@ -38,6 +38,7 @@ back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 
@@ -56,7 +57,9 @@ from .grids.polar import Cylinder3DGrid, Sphere2DGrid, Sphere3DGrid
 from .grids.sphere import Sphere1DGrid
 from .grids.tetra import TetraGrid
 from .grids.voronoi import VoronoiGrid
+from .instruments import allsky as asky
 from .instruments import distant as dinst
+from .instruments import perspective as persp
 from .media import system as msys
 from .ops import rng
 from .sources import base as src
@@ -79,6 +82,22 @@ _MARCH_ONLY = (Sphere1DGrid, Cylinder2DGrid, Sphere2DGrid, Sphere3DGrid,
                Cylinder3DGrid, ClumpySphericalGrid)
 
 
+def _inst_module(cfg):
+    """The instrument module of a configuration: distant, all-sky (and
+    HEALPix) or perspective."""
+    if getattr(cfg, "is_perspective", False):
+        return persp
+    return asky if getattr(cfg, "is_local", False) else dinst
+
+
+def _inst_tables(cfg, device) -> dict:
+    return _inst_module(cfg).device_tables(cfg, device)
+
+
+def _inst_accumulators(cfg, device) -> dict:
+    return _inst_module(cfg).init_accumulators(cfg, device)
+
+
 @dataclasses.dataclass
 class Simulation:
     """A configured simulation: grid + medium + sources + instruments.
@@ -94,7 +113,7 @@ class Simulation:
            | ClumpySphericalGrid)
     medium: msys.MediumTables
     sources: list
-    instruments: list           # list[DistantInstrumentCfg]
+    instruments: list           # distant, all-sky, perspective
     options: lc.TransportOptions
     rf_borders: np.ndarray | None = None   # radiation-field bin borders [m]
     num_packets: int = 100_000
@@ -169,7 +188,7 @@ class Simulation:
         dev = self.device
         self.grid = self.grid.to(dev)
         self.medium = self.medium.to(dev)
-        self._inst_tabs = [dinst.device_tables(c, dev) for c in self.instruments]
+        self._inst_tabs = [_inst_tables(c, dev) for c in self.instruments]
         self._src_tabs = [s.tables(dev) for s in self.sources]
         self._rf_borders_dev = (
             torch.tensor(np.asarray(self.rf_borders, np.float32), device=dev)
@@ -445,7 +464,7 @@ class Simulation:
             dec = dom.decompose_slabs(vox_grid, D)
             nd_local, _ = dom.shard_tables(dec, med_vox, 1, r)
             self._dd_state = dict(dec=dec, nd_local=nd_local,
-                                  cellmap=cellmap)
+                                  cellmap=cellmap, med_vox=med_vox)
             _log().info(f"spatial domain decomposition: "
                         f"{'x'.join(map(str, vox_grid.shape))} cells in "
                         f"{D} x-slabs of {dec.nx_local}, slab {r} on "
@@ -455,26 +474,30 @@ class Simulation:
     def _run_segment_dd(self, source, stabs, opts, n_packets, seed_key, rf,
                         accs, hist_base):
         """One segment under domain decomposition (the reference's
-        `skirt9_tpu/simulation.py:296-368`, its march route): the batch
+        `skirt9_tpu/simulation.py:296-368`): the batch
         rounded to D 128-lane blocks, rank r launching the r-th block of
         each; the slab's RF rows and the instrument accumulators start at
         zero and are reduced once at the segment's end, the RF gathered on
         every rank and summed through the cell map into the grid's cells.
-        The reference's other route, the XL sweep on each slab (a TPU, or
-        `SKIRT9_TPU_FORCE_SWEEP=1`, with one RF bin), is not ported."""
+        The route, as the reference's (`skirt9_tpu/simulation.py:307-311`):
+        each slab on the XL sweep where the RF has one bin and the run is
+        on the card (the reference's accelerator) or
+        `SKIRT9_TPU_FORCE_SWEEP=1`, the gathered batch then rounded to
+        1024-lane blocks as well; else the slab march. A meshed grid's
+        slabs march (the XL tables are uniform)."""
         from .parallel import domain as dom
         st = self._ensure_dd()
         nrf = (len(self.rf_borders) - 1
                if self.rf_borders is not None and opts.store_rf else 1)
-        if nrf == 1 and os.environ.get("SKIRT9_TPU_FORCE_SWEEP") == "1":
-            raise NotImplementedError(
-                "domain decomposition on the XL sweep (SKIRT9_TPU_FORCE_SWEEP"
-                "=1 with one RF bin: the reference's build_local_xl) is not "
-                "ported yet (ROADMAP.md item 26b); unset it for the march "
-                "route")
+        use_xl = (nrf == 1 and st["dec"].uniform
+                  and (self.device.type == "cuda"
+                       or os.environ.get("SKIRT9_TPU_FORCE_SWEEP") == "1"))
+        if use_xl and "xl_local" not in st:
+            st["xl_local"] = dom.build_local_xl(st["dec"], st["med_vox"])
         use_rf = rf is not None and opts.store_rf \
             and self.rf_borders is not None
-        key = (id(source), int(n_packets), int(hist_base), nrf, opts)
+        key = (id(source), int(n_packets), int(hist_base), nrf, opts,
+               use_xl)
         if key not in self._dd_cache:
             if len(self._dd_cache) > 8:
                 self._dd_cache.clear()
@@ -482,10 +505,12 @@ class Simulation:
                 self.group, st["dec"], self.grid, st["nd_local"],
                 self.medium, opts, self.instruments, self._inst_tabs,
                 self._rf_borders_dev if use_rf else None, source,
-                int(n_packets), hist_base=hist_base))
+                int(n_packets), hist_base=hist_base,
+                xl_local=st["xl_local"] if use_xl else None))
         run = self._dd_cache[key][1]
         D, r = self._ranks()
-        B = -(-self.batch_size // (D * 128)) * (D * 128)
+        align = math.lcm(D * 128, 1024) if use_xl else D * 128
+        B = -(-self.batch_size // align) * align
         Bd = B // D
         lanes = torch.arange(r * Bd, (r + 1) * Bd, dtype=torch.int64,
                              device=self.device)
@@ -692,7 +717,7 @@ class Simulation:
         """Primary-emission segment. Returns (rf, accs): the radiation field
         (ncells, nbins) path-length sums in units of rf_scale [W m], or None,
         and the instrument accumulators."""
-        accs = [dinst.init_accumulators(c, self.device)
+        accs = [_inst_accumulators(c, self.device)
                 for c in self.instruments]
         self.last_stats = {}
         t0 = time.perf_counter()
@@ -878,7 +903,7 @@ class Simulation:
                 break
 
         # final segments with peel-off: the primary one as run_primary's
-        accs = [dinst.init_accumulators(c, self.device)
+        accs = [_inst_accumulators(c, self.device)
                 for c in self.instruments]
         rf_prim, accs = timed(
             "primary", self.num_packets, lambda: self._primary(
@@ -970,7 +995,7 @@ class Simulation:
                            "ignoring the checkpoint")
             return None
         dev = lambda a: torch.tensor(np.asarray(a), device=self.device)
-        accs = [dinst.init_accumulators(c, self.device)
+        accs = [_inst_accumulators(c, self.device)
                 for c in self.instruments]
         for i, k, t in self._acc_leaves(accs):
             t.copy_(dev(d[f"acc{i}_{k}"]))
@@ -989,7 +1014,9 @@ class Simulation:
         polarization) and, for frame instruments,
         `<prefix>_<name>_total.fits` and, with polarization,
         `<prefix>_<name>_stokes{Q,U,V}.fits` (the reference's writer,
-        `skirt9_tpu/simulation.py:1398-1461`)."""
+        `skirt9_tpu/simulation.py:1378-1461`); a perspective instrument's
+        image `<prefix>_<name>_total.fits` and an all-sky or HEALPix
+        map `<prefix>_<name>_allsky.fits` (surface brightness, no SED)."""
         paths = []
         us = self.units or UnitSystem()
         names = [("total", "total flux"),
@@ -999,6 +1026,17 @@ class Simulation:
                  ("secondarydirect", "direct secondary flux"),
                  ("secondaryscattered", "scattered secondary flux")]
         for cfg, acc in zip(self.instruments, accs):
+            if getattr(cfg, "is_local", False):
+                persp_ = getattr(cfg, "is_perspective", False)
+                cube = _inst_module(cfg).calibrate(cfg, acc)
+                hdr = ({"BUNIT": "W/m2/m/sr", "CDELT1": cfg.pixel_size,
+                        "CDELT2": cfg.pixel_size} if persp_ else
+                       {"BUNIT": "W/m2/m/sr", "PROJ": cfg.projection})
+                p2 = os.path.join(outdir, f"{prefix}_{cfg.name}_"
+                                  f"{'total' if persp_ else 'allsky'}.fits")
+                fitsio.write_fits(p2, cube.astype(np.float32), hdr)
+                paths.append(p2)
+                continue
             sed = dinst.calibrate_sed(cfg, acc)
             lam_m = np.asarray(sed["wavelength"], np.float64)
             cols = [us.out_wavelength(lam_m)]

@@ -118,7 +118,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..instruments import allsky as asky
 from ..instruments import distant as dinst
+from ..instruments import perspective as persp
 from ..media import system as msys
 from ..ops import compton as co
 from ..ops import lya as lyo
@@ -313,22 +315,50 @@ def sample_interaction_tau(opts: TransportOptions, u: dict, tau_path):
     """Interaction optical depth, bias weight and the mask of lanes whose
     path supports an interaction, from the event's uniforms u[tag]: forced
     scattering with the composite uniform/exponential path-length bias, or
-    a plain exponential free path."""
+    a plain exponential free path, in XLA's expm1, log1p and exp (PyTorch's
+    part from them in the last bit on a third of the lanes, which moves the
+    interaction). On a CUDA tensor one launch of `csrc/xla_math.cu`'s
+    interaction_depth kernel, on the CPU `sample_interaction_tau_plain`,
+    bit for bit the same."""
+    if tau_path.device.type == "cpu":
+        return sample_interaction_tau_plain(opts, u, tau_path)
+    if tau_path.device.type != "cuda":
+        raise ValueError(f"no interaction depth kernel for {tau_path.device}")
+    from ..kernels import build as kb
+    forced, xi = opts.force_scattering, opts.path_length_bias
+    mode = (0 if xi > 0 else 1) if forced else 2
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    tp = f32(tau_path)
+    ue = f32(u[_TAG_PATH_TAU_EXP])
+    uc, uu = ((f32(u[_TAG_PATH_CHOICE]), f32(u[_TAG_PATH_TAU_UNI]))
+              if mode == 0 else (ue, ue))
+    tau_int, w_bias = torch.empty_like(tp), torch.empty_like(tp)
+    ok = torch.empty(tp.shape, dtype=torch.bool, device=tp.device)
+    kb.launch("interaction_depth", *(t.data_ptr() for t in (
+        tp, uc, uu, ue, tau_int, w_bias, ok)), tp.numel(), mode, float(xi),
+        float(1.0 - xi), kb.stream_of(tp))
+    return tau_int, w_bias, ok
+
+
+def sample_interaction_tau_plain(opts: TransportOptions, u: dict, tau_path):
+    """`sample_interaction_tau` in PyTorch operations on any device."""
     if opts.force_scattering:
         xi = opts.path_length_bias
-        one_minus_exp = -torch.expm1(-tau_path)
-        tau_exp = rng.expon_cutoff_from_uniform(u[_TAG_PATH_TAU_EXP], tau_path)
+        em1 = xm.expm1_xla(-tau_path)
+        one_minus_exp = -em1
+        tau_exp = rng.expon_cutoff_from_uniform(u[_TAG_PATH_TAU_EXP], tau_path,
+                                                em1)
         if xi > 0:
             tau_uni = u[_TAG_PATH_TAU_UNI] * tau_path
             tau_int = torch.where(u[_TAG_PATH_CHOICE] < xi, tau_uni, tau_exp)
-            p = torch.exp(-tau_int) / torch.clamp_min(one_minus_exp, 1e-30)
+            p = xm.exp_xla(-tau_int) / torch.clamp_min(one_minus_exp, 1e-30)
             q = (1.0 - xi) * p + xi / torch.clamp_min(tau_path, 1e-30)
             w_bias = one_minus_exp * p / torch.clamp_min(q, 1e-30)
         else:
             tau_int = tau_exp
             w_bias = one_minus_exp
         return tau_int, w_bias, tau_path > 1e-6
-    tau_int = -torch.log1p(-u[_TAG_PATH_TAU_EXP])
+    tau_int = -xm.log1p_xla(-u[_TAG_PATH_TAU_EXP])
     return tau_int, torch.ones_like(tau_path), torch.ones_like(tau_path,
                                                               dtype=torch.bool)
 
@@ -419,12 +449,21 @@ def _add_rf(rf, rf_delta, opts: TransportOptions, n_groups: int) -> None:
 
 # ------------------------------------------------------------------- peel-off
 
+def is_local(cfg) -> bool:
+    """A local instrument (all-sky, HEALPix, perspective): an observer
+    inside the model, which the peel-off reaches along per-lane
+    directions."""
+    return getattr(cfg, "is_local", False)
+
+
 def _observer_groups(inst_cfgs) -> list[list[int]]:
-    """Instrument indices grouped by identical observer geometry, so that
-    one observer-direction march serves the whole group."""
+    """Distant instrument indices grouped by identical observer geometry,
+    so that one observer-direction march serves the whole group."""
     groups: list[list[int]] = []
     seen: dict[tuple, int] = {}
     for i, cfg in enumerate(inst_cfgs):
+        if is_local(cfg):
+            continue
         key = (cfg.inclination, cfg.azimuth, cfg.distance)
         if key in seen:
             groups[seen[key]].append(i)
@@ -438,7 +477,8 @@ def peel_off(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr, kind: int,
              active, tracer, transparent_too: bool = False, lam_fn=None,
              march_at_lam_fn: bool = False, cell=None, lam_march=None,
              lya: bool = False):
-    """Peel a batch of events off toward every distant instrument.
+    """Peel a batch of events off toward every distant instrument (local
+    ones: `peel_off_local`).
     contrib_per_sr(i, kobs) -> ((B,) luminosity per steradian toward
     instrument i's direction kobs, (B, 3) Stokes Q, U, V in its frame or
     None); lam_fn(kobs): the detection wavelengths where they are not lam
@@ -469,6 +509,35 @@ def peel_off(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr, kind: int,
     return accs
 
 
+def peel_off_local(inst_cfgs, inst_tabs, accs, lam, pos, contrib_per_sr,
+                   kind: int, active, tracer, cell=None, lam_march=None):
+    """Peel a batch of events off toward every local instrument (the
+    reference's `peel_off_local`, `lifecycle.py:447-474`): per lane, the
+    direction to the observer and its distance d; the optical depth
+    along that direction from the event through the whole grid (past the
+    observer, as the reference traces it); contributions
+    contrib_per_sr(i, k)[0] e^-tau / d^2 at the lanes' own wavelengths,
+    onto an all-sky map from the arrival direction -k, or through a
+    perspective camera's eye."""
+    for i, cfg in enumerate(inst_cfgs):
+        if not is_local(cfg):
+            continue
+        tab = inst_tabs[i]
+        k, dist = asky.observer_directions(tab, pos)
+        per_sr = contrib_per_sr(i, k)[0]
+        tau = tracer(pos, k, active, None, lam_march, cell)
+        # flushed to zero below f32's normal range, as XLA flushes it: 1/d^2
+        # of a 1 W source at a parsec is ~1e-33
+        contrib = xm.ftz(per_sr * torch.exp(-tau)
+                         / torch.clamp_min(dist * dist, 1e-30))
+        if getattr(cfg, "is_perspective", False):
+            persp.detect(cfg, tab, accs[i], lam, pos, dist, contrib, kind,
+                         active)
+        else:
+            asky.detect(cfg, tab, accs[i], lam, -k, contrib, kind, active)
+    return accs
+
+
 def _detector_normals(inst_tabs) -> list:
     """Per instrument, the Q/U reference normal of its frame, cross(kobs,
     north) with north its up direction e_y made perpendicular to kobs (the
@@ -476,6 +545,9 @@ def _detector_normals(inst_tabs) -> list:
     1303-1312`), on the device once per life cycle."""
     out = []
     for tab in inst_tabs:
+        if "kobs" not in tab:
+            out.append(None)            # a local instrument: no Stokes
+            continue
         kobs, ey = tab["kobs"], tab["ey"]
         north = ey - torch.sum(ey * kobs) * kobs
         north = north / torch.clamp_min(torch.linalg.vector_norm(north),
@@ -597,16 +669,21 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
 
     def tracer(pos, kdir, mask, kobs_host, lam_m=None, cell=None,
                lya=False):
-        # every lane marches toward the same observer. On the march: from
-        # the lanes' cells, at their current optics or, with lam_m, at the
-        # cells' perceived wavelengths (the Voigt opacity with lya). On a
-        # sweep: one shared slab axis; lam_m: the detection wavelengths,
-        # where the opacity is taken there
+        # every lane marches toward the same observer (kobs_host), or each
+        # toward its own (kobs_host None, local instruments). On the march:
+        # from the lanes' cells, at their current optics or, with lam_m, at
+        # the cells' perceived wavelengths (the Voigt opacity with lya). On
+        # a sweep: one shared slab axis where there is one observer; lam_m:
+        # the detection wavelengths, where the opacity is taken there
         if march:
             return mr.trace_tau(grid, med, opt, pos, kdir, cell,
                                 opts.max_steps, mask, lam=lam_m, lya=lya)
         sig = (sigma_lanes if lam_m is None
                else sig_lanes(msys.optics_at(med, lam_m), lam_m))
+        if kobs_host is None:
+            # per-lane directions (local instruments): no shared slab axis
+            eng = xl if is_xl else ml if is_ml else sw
+            return eng.sweep_tau_total(sweep_tabs, pos, kdir, sig, mask)
         hint = int(np.argmax(np.abs(np.asarray(kobs_host, np.float64))
                              / h_cells))
         if is_xl:
@@ -648,6 +725,9 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                 bin_map = torch.tensor([opts.rf_mono_bin], dtype=torch.int32,
                                        device=rf.device)
     do_peel = bool(inst_cfgs) and opts.peel_off
+    # local instruments take the emission and the non-polarized scattering
+    # peel-offs, as in the reference (`lifecycle.py:660-665, 765-772`)
+    has_local = any(is_local(c) for c in inst_cfgs)
     if polarized:
         s11n_h = stk.s11_norm(mueller)
         n_dets = _detector_normals(inst_tabs)
@@ -660,6 +740,12 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                  tracer, transparent_too=True, cell=pkt.cell,
                  lam_march=pkt.lam if march and lam_moving else None,
                  lya=opts.lya)
+        if has_local:
+            peel_off_local(inst_cfgs, inst_tabs, accs, pkt.lam, pkt.pos,
+                           lambda i, k: (pkt.lum * _ISO, None), kind_direct,
+                           emit, tracer, cell=pkt.cell,
+                           lam_march=pkt.lam if march and lam_moving
+                           else None)
 
     tags = _path_tags(opts) + (_TAG_SCATTER_CT, _TAG_SCATTER_PHI)
     if med.ncomp > 1:
@@ -881,6 +967,13 @@ def life_cycle(med: msys.MediumTables, opts: TransportOptions, inst_cfgs,
                              per_sr, kind_scat, active_int, tracer,
                              lam_fn=lam_fn, cell=pkt.cell,
                              lam_march=lam_march)
+                    if has_local and not polarized:
+                        # at the lanes' own wavelengths, as the reference's
+                        # (no Doppler shift toward a local observer)
+                        peel_off_local(inst_cfgs, inst_tabs, accs, pkt.lam,
+                                       pkt.pos, per_sr, kind_scat,
+                                       active_int, tracer, cell=pkt.cell,
+                                       lam_march=lam_march)
 
                 # the scattering event proper
                 if polarized:

@@ -242,6 +242,15 @@ def comp_sum(nd, sig):
     return out
 
 
+def step_tau(nd, sig, ds):
+    """The optical depth of each step, comp_sum(nd, sig) * ds, with the
+    subnormal sum and product flushed to zero as XLA's CPU code flushes
+    them: a cell of density ~1e-12 at a cross section ~1e-27 gives a
+    subnormal nd sig, so the reference's step there has depth 0 and can
+    hold no interaction."""
+    return xm.ftz(xm.ftz(comp_sum(nd, sig)) * ds)
+
+
 def opacity_on_path(med: msys.MediumTables, opt: msys.Optics, cells, ds,
                     dirn, lam=None, lya: bool = False,
                     scattering: bool = False):
@@ -259,11 +268,11 @@ def opacity_on_path(med: msys.MediumTables, opt: msys.Optics, cells, ds,
     nd = med.nd[c]                                           # (S, B, H)
     if lam is None:
         sig = opt.sigma_sca if scattering else opt.sigma_ext  # (B, H)
-        return comp_sum(nd, sig[None].expand_as(nd)) * ds
+        return step_tau(nd, sig[None].expand_as(nd), ds)
     lam_c = _doppler(lam, dirn, med.bulk_v[c])
     o = msys.optics_at(med, lam_c.reshape(-1))
     sig = (o.sigma_sca if scattering else o.sigma_ext).reshape(nd.shape)
-    return comp_sum(nd, sig) * ds
+    return step_tau(nd, sig, ds)
 
 
 def trace_tau(grid, med: msys.MediumTables, opt: msys.Optics, pos, dirn,
@@ -295,6 +304,40 @@ def tau_before(dtau):
     return xm.cumsum(dtau) - dtau
 
 
+def deposit_factor(ds, dtau):
+    """(1 - e^-dtau) ds / dtau per step, ds (1 - dtau / 2) below dtau 1e-4:
+    the path integral of e^-tau ds over a step in units of its entry's
+    attenuation, as the reference forms it (`lifecycle.py:239-242`), in
+    XLA's expm1. On CUDA tensors one launch of `csrc/xla_math.cu`'s
+    deposit_factor kernel, on the CPU `deposit_factor_plain`, bit for bit
+    the same."""
+    if ds.device.type == "cpu":
+        return deposit_factor_plain(ds, dtau)
+    if ds.device.type != "cuda":
+        raise ValueError(f"no deposit factor kernel for device {ds.device}")
+    from ..kernels import build as kb
+    ds, dtau = ds.contiguous(), dtau.contiguous()
+    if ds.dtype != torch.float32 or dtau.shape != ds.shape \
+            or dtau.dtype != torch.float32:
+        raise ValueError("deposit_factor takes f32 ds and dtau of one shape")
+    out = torch.empty_like(ds)
+    kb.launch("deposit_factor", ds.data_ptr(), dtau.data_ptr(),
+              out.data_ptr(), ds.numel(), kb.stream_of(ds))
+    return out
+
+
+def deposit_factor_plain(ds, dtau):
+    """`deposit_factor` in PyTorch operations on any device, on the walked
+    steps only (an empty step's factor is +0 in either branch)."""
+    out = torch.zeros_like(ds)
+    walked = ds > 0
+    s, d = ds[walked], dtau[walked]
+    out[walked] = torch.where(d < 1e-4, s * xm.fma(-0.5, d, 1.0),
+                              -xm.expm1_xla(-d) * s
+                              / torch.clamp_min(d, 1e-37))
+    return out
+
+
 def deposit_rf(rf, cells, ds, dtau, tau_b, lum, rf_bin, rf_mask,
                rf_scale: float) -> None:
     """Add a recorded march's radiation-field deposits into rf (ncells,
@@ -304,14 +347,13 @@ def deposit_rf(rf, cells, ds, dtau, tau_b, lum, rf_bin, rf_mask,
     (B,) of each lane in rf_mask, in units of rf_scale, as one index_add_
     into rf's own dtype (f64 on the card's segments). The two square-root
     factors of 1 / rf_scale go on different tensors, as in the reference,
-    whose f32 would underflow their product."""
+    whose f32 would underflow their product. 1 - e^-dtau is XLA's expm1
+    (`xlamath.expm1_xla`), which parts from PyTorch's in the last bit on
+    ~40% of the steps."""
     inv_sqrt = 1.0 / float(np.sqrt(rf_scale))
     lum_half = (lum * rf_mask) * inv_sqrt                      # (B,)
-    small = dtau < 1e-4
-    expfac = torch.where(small, ds * xm.fma(-0.5, dtau, 1.0),
-                         -torch.expm1(-dtau) * ds
-                         / torch.clamp_min(dtau, 1e-37))
-    contrib = (lum_half * torch.exp(-tau_b)) * (expfac * inv_sqrt)
+    contrib = (lum_half * torch.exp(-tau_b)) * (deposit_factor(ds, dtau)
+                                                * inv_sqrt)
     flat = cells.to(torch.int64) * rf.shape[1] + rf_bin[None, :]
     rf.view(-1).index_add_(0, flat.reshape(-1),
                            contrib.reshape(-1).to(rf.dtype))

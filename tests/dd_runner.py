@@ -10,9 +10,13 @@ Cases (the problems of tests/test_domain.py, built with the port's own
 builders):
   event1 / event1c2   `dd_segment`, one event, one and two components
   events4             four events
+  xl_c1 / xl_c2       `dd_segment` on the XL route (`build_local_xl`), four
+                      events of 1,024 histories, one and two components
+  march_c1 / march_c2 the same on the march route
   meshed              a meshed Cartesian grid, three events
   ski:PATH            `load_ski(PATH, dd=True)` with dust emission and one
                       secondary iteration where the ski file has it
+  skixl:PATH          the same with SKIRT9_TPU_FORCE_SWEEP=1: the XL route
   refuse:PATH         the NotImplementedError of `run_primary`
 """
 
@@ -82,10 +86,10 @@ def same_on_every_rank(group, t, what: str) -> None:
     assert all(torch.equal(g, t) for g in got), f"the ranks' {what} differ"
 
 
-def segment(group, events: int, N: int, **kw) -> dict:
+def segment(group, events: int, N: int, xl: bool = False, **kw) -> dict:
     """One `dd_segment` batch of N histories over the ranks (the
-    reference's `_run_decomposed`): the RF gathered from the slabs, the
-    accumulators summed."""
+    reference's `_run_decomposed`), on the XL route with xl: the RF
+    gathered from the slabs, the accumulators summed."""
     import numpy as np
     import torch
     from skirt9_tpu_torch.instruments import distant as dinst
@@ -101,7 +105,9 @@ def segment(group, events: int, N: int, **kw) -> dict:
     accs = [dinst.init_accumulators(inst, "cpu")]
     run = dom.dd_segment(group, dec, grid, nd_local, med, opts, (inst,),
                          [dinst.device_tables(inst, "cpu")],
-                         torch.tensor(rfb.astype(np.float32)), source, N)
+                         torch.tensor(rfb.astype(np.float32)), source, N,
+                         xl_local=dom.build_local_xl(dec, med) if xl
+                         else None)
     Bd = N // D
     run(rng.seed_key(0, "cpu"), torch.arange(r * Bd, (r + 1) * Bd),
         source.tables("cpu"), rf_local, accs)
@@ -129,6 +135,7 @@ def ski_run(group, path: str) -> dict:
     if rf is not None:
         same_on_every_rank(group, rf, "RFs")
         out["rf"] = rf.numpy()
+    out["xl_route"] = np.bool_("xl_local" in sim._dd_state)
     out.update({f"acc0_{k}": v.numpy() for k, v in accs[0].items()})
     if group.writes:
         prefix = os.path.splitext(os.path.basename(path))[0]
@@ -160,11 +167,17 @@ def rank_main(group, outdir, cases):
             out = segment(group, 1, 1024, ncomp=2)
         elif name == "events4":
             out = segment(group, 4, 2048)
+        elif name in ("xl_c1", "xl_c2", "march_c1", "march_c2"):
+            out = segment(group, 4, 1024, xl=name.startswith("xl"),
+                          ncomp=int(name[-1]))
         elif name == "meshed":
             out = segment(group, 3, 1024, meshed=True)
-        elif name == "ski":
+        elif name in ("ski", "skixl"):
+            if name == "skixl":
+                os.environ["SKIRT9_TPU_FORCE_SWEEP"] = "1"
             out = ski_run(group, arg)
-            name = "ski_" + os.path.splitext(os.path.basename(arg))[0]
+            os.environ.pop("SKIRT9_TPU_FORCE_SWEEP", None)
+            name += "_" + os.path.splitext(os.path.basename(arg))[0]
         elif name == "refuse":
             out = refuse(group, arg)
             name = "refuse_" + os.path.splitext(os.path.basename(arg))[0]

@@ -8,8 +8,9 @@ suite's conftest:
 
 Small shapes (a 16x12x20 grid, a few thousand lanes). Bounds as in
 chip_smoke.py: tau within 1e-5 relative, interaction points on the same
-cells, RF within 1e-4 of its maximum, scatter sums within 1e-5 of the
-largest bin; the XL pass 1's summed form within 1e-6 of its sub-step sum.
+cells, RF within 1e-4 of its maximum, scatter sums within the f32 atomics'
+error of their f64 sums; the XL pass 1's summed form within 1e-6 of its
+sub-step sum.
 
 The tree kernels (4-5) run on the density octree of tests/test_mlsweep.py
 (max_level 4) and a density bintree (anisotropic leaves): pass 1 equal to
@@ -93,7 +94,18 @@ Domain decomposition: detect.cu's frame pixel of every one of 2^20 lanes
 equal to the plain version's (`distant.frame_pixels`); the march kernel on
 each slab grid of a 2-slab 32^3 decomposition (uniform and meshed) bit for
 bit against its plain version; one rank of DD (a group of one) on the card
-against the CPU within `MARCH_BOUNDS`.
+against the CPU within `MARCH_BOUNDS`, on the march route
+(`dd_segment(xl_local=None)`) and on the XL route (the card's by the route
+rule, the CPU's under `SKIRT9_TPU_FORCE_SWEEP=1`: kernels 6 and 7 in the
+record, summed and contract modes).
+
+Local instruments: `allsky.detect` (Mollweide, HEALPix) and
+`perspective.detect` on the card (one `scatter_add` launch a call) against
+the same calls on the CPU, pixels identical and maps within 1e-5 of their
+maxima; kernel 3 into a sky-sized table with a hot pixel. Kernel 3 is held
+against the f64 sums of its values within the f32 atomics' own error per
+bin, n 2^-24 sum |v| (`_within_atomics`), not against `index_add_`'s f32
+atomics, which stray themselves.
 """
 
 import os
@@ -731,8 +743,96 @@ def test_scatter_add_kernel(dev, size):
     kb.reset_launches()
     k = sca.scatter_add(idx, val, size)
     assert kb.LAUNCHES["scatter_add"] == 1
-    p = sca.scatter_add_plain(idx, val, size)
-    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+    _within_atomics(k, idx, val, size)
+
+
+def _within_atomics(k, idx, val, size: int) -> None:
+    """The kernel's f32 sums against the f64 sums of the same values
+    (`scatter_add_plain` in float64) within the f32 atomics' own error per
+    bin, n 2^-24 sum |v| (n the bin's terms): two f32 sums in different
+    orders may each stray by that much, so neither is the reference."""
+    dev = val.device
+    f64 = lambda v: torch.zeros(size, dtype=torch.float64,
+                                device=dev).index_add_(0, idx.long(), v)
+    exact = f64(val.double())
+    n, mag = f64(torch.ones_like(val, dtype=torch.float64)), \
+        f64(val.double().abs())
+    assert bool(((k.double() - exact).abs() <= n * 2.0 ** -24 * mag).all())
+
+
+def test_scatter_add_sky_table(dev):
+    """Kernel 3 as the local instruments call it: 2^17 values into the
+    flattened (NUM_KINDS, nbins, npy, npx) sky of a 250-pixel Mollweide
+    map, a tenth of them into one hot pixel (a point source's direct
+    light), the rest spread; one launch, within the f32 atomics' error of
+    the f64 sums."""
+    from skirt9_tpu_torch.instruments import allsky
+    cfg = allsky.AllSkyInstrumentCfg("sky", (0.5e-6, 0.6e-6), npx=250)
+    size = allsky.init_accumulators(cfg, "cpu")["sky"].numel()
+    rs = np.random.default_rng(4)
+    n = 1 << 17
+    idx = rs.integers(0, size, n)
+    idx[: n // 10] = size // 3
+    idx = torch.tensor(idx.astype(np.int32), device=dev)
+    val = torch.tensor(rs.uniform(0.5, 1.0, n).astype(np.float32) * 1e-12,
+                       device=dev)
+    kb.reset_launches()
+    k = sca.scatter_add(idx, val, size)
+    assert kb.LAUNCHES["scatter_add"] == 1
+    _within_atomics(k, idx, val, size)
+
+
+@pytest.mark.parametrize("kind", ["mollweide", "healpix", "perspective"])
+def test_local_detect_on_cuda_matches_cpu(dev, kind):
+    """`allsky.detect` and `perspective.detect` on the card (their sums one
+    `scatter_add` launch) against the same calls on the CPU (the plain
+    version, index_add_): the pixels identical, each kind's map within
+    1e-5 of its maximum."""
+    from skirt9_tpu_torch.instruments import allsky, perspective
+    if kind == "perspective":
+        cfg = perspective.PerspectiveInstrumentCfg(
+            "cam", (0.5e-6, 0.6e-6), npx=64, npy=48, width=2 * PC,
+            view=(0.9 * PC, 0.1 * PC, 0.0), cross=(0.0, 0.0, 0.0),
+            up=(0.0, 0.2, 1.0), focal=0.5 * PC)
+        mod = perspective
+    else:
+        cfg = allsky.AllSkyInstrumentCfg(
+            "sky", (0.5e-6, 0.6e-6), npx=64, position=(0.5 * PC, 0.1 * PC,
+                                                       -0.2 * PC),
+            projection=kind, order=3, crosshair=(0.0, 0.0, 0.0))
+        mod = allsky
+    rs = np.random.default_rng(5)
+    B = 20000
+    pos = rs.uniform(-PC, PC, (B, 3)).astype(np.float32)
+    lam = rs.uniform(0.45e-6, 0.65e-6, B).astype(np.float32)
+    contrib = rs.uniform(0, 1e-3, B).astype(np.float32)
+    active = rs.uniform(size=B) > 0.1
+    out = {}
+    for where in ("cpu", dev):
+        t = lambda a: torch.tensor(a, device=where)
+        tabs = mod.device_tables(cfg, where)
+        acc = mod.init_accumulators(cfg, where)
+        k, dist = allsky.observer_directions(tabs, t(pos))
+        kb.reset_launches()
+        for kind_ in (1, 2):
+            if kind == "perspective":
+                mod.detect(cfg, tabs, acc, t(lam), t(pos), dist, t(contrib),
+                           kind_, t(active))
+                pix = mod.image_pixels(cfg, tabs, t(pos))[:2]
+            else:
+                mod.detect(cfg, tabs, acc, t(lam), -k, t(contrib), kind_,
+                           t(active))
+                pix = mod.sky_pixels(cfg, tabs, -k)
+        launches = kb.LAUNCHES["scatter_add"]
+        out[str(where)] = (acc["sky"].double().cpu(),
+                           [p.cpu() for p in pix], launches)
+    (a, pa, la), (b, pb, lb) = out["cpu"], out[str(dev)]
+    assert la == 0 and lb == 2
+    assert all(torch.equal(x, y) for x, y in zip(pa, pb))
+    for kind_ in (1, 2):
+        m = float(a[kind_].abs().max())
+        assert m > 0
+        assert float((a[kind_] - b[kind_]).abs().max()) <= 1e-5 * m
 
 
 def test_detect_on_cuda_matches_cpu(dev):
@@ -2399,16 +2499,56 @@ def test_slab_march_kernel(dev, meshed):
 @pytest.mark.parametrize("name", ["config1", "config2"])
 def test_dd_segment_on_cuda_matches_cpu(dev, name):
     """Domain decomposition over one rank (a group of one, no process
-    group) on the card against the CPU: a reduced config 1 (16^3, its RF
-    stored) and config 2 (8^3, a 4-bin RF, dust emission with one
-    secondary iteration) within chip_smoke.py's MARCH_BOUNDS
+    group) on the card against the CPU, both on the march route
+    (`dd_segment(xl_local=None)`, chip_smoke's `_march_route`: on the card
+    config 1's one RF bin would take the XL route): a reduced config 1
+    (16^3, its RF stored) and config 2 (8^3, a 4-bin RF, dust emission with
+    one secondary iteration) within chip_smoke.py's MARCH_BOUNDS
     (`march_gaps`: the RF and the primary SED within 2e-5 of their
     maxima, the secondary kinds by their sums within 1e-3); the slab
     march (march_uniform), detect and the HG direction launched on the
     card, no sweep."""
+    from skirt9_tpu_torch.parallel import domain as dom
     from skirt9_tpu_torch.parallel import dp
     cs = _chip_smoke()
     outs = {}
+    undo = cs._march_route(dom)
+    try:
+        _dd_runs(cs, dp, dev, name, outs)
+    finally:
+        undo()
+    n = dict(kb.LAUNCHES)
+    gaps = cs.march_gaps(outs["cpu"], outs[str(dev)], name == "config2")
+    print(f"dd one rank {name}: {gaps}")
+    for k in ("march_uniform", "detect", "hg_direction"):
+        assert n[k] > 0, k
+    for k in cs.SWEEPS + ("march_mesh", "march_voronoi"):
+        assert n[k] == 0, k
+
+
+def test_dd_xl_on_cuda_matches_cpu(dev, monkeypatch):
+    """Domain decomposition over one rank on the XL route: the card's by
+    the route rule, the CPU's under `SKIRT9_TPU_FORCE_SWEEP=1`; config 1 at
+    16^3 with its RF stored within MARCH_BOUNDS; kernel 6 (record and
+    summed form), kernel 7 (its contract mode), detect and the HG direction
+    launched, no march and no prefix mode."""
+    from skirt9_tpu_torch.parallel import dp
+    cs = _chip_smoke()
+    outs = {}
+    monkeypatch.setenv("SKIRT9_TPU_FORCE_SWEEP", "1")
+    _dd_runs(cs, dp, dev, "config1", outs)
+    n = dict(kb.LAUNCHES)
+    gaps = cs.march_gaps(outs["cpu"], outs[str(dev)], False)
+    print(f"dd one rank on the XL route: {gaps}")
+    for k in ("sweepxl_dtau", "sweepxl_deposit", "detect", "hg_direction"):
+        assert n[k] > 0, k
+    for k in cs.RESIDENT + cs.XL + cs.ML + cs.MARCH:
+        assert n[k] == 0, k
+
+
+def _dd_runs(cs, dp, dev, name, outs) -> None:
+    """The one-rank decomposed run of `name` on the CPU and on the card into
+    outs[device], the card's launches left in kb.LAUNCHES."""
     for d in ("cpu", dev):
         one = dp.Group(rank=0, size=1, device=torch.device(d),
                        backend="gloo")
@@ -2425,10 +2565,46 @@ def test_dd_segment_on_cuda_matches_cpu(dev, name):
         outs[str(d)] = out[:2]
         if d == "cpu":
             assert sum(kb.LAUNCHES.values()) == 0
-    n = dict(kb.LAUNCHES)
-    gaps = cs.march_gaps(outs["cpu"], outs[str(dev)], name == "config2")
-    print(f"dd one rank {name}: {gaps}")
-    for k in ("march_uniform", "detect", "hg_direction"):
-        assert n[k] > 0, k
-    for k in cs.SWEEPS + ("march_mesh", "march_voronoi"):
-        assert n[k] == 0, k
+
+
+@pytest.mark.parametrize("forced,xi", [(True, 0.5), (True, 0.0),
+                                       (False, 0.5)])
+def test_interaction_depth_kernel(dev, forced, xi):
+    """XLA's expm1, log1p and exp of the interaction depth (csrc/
+    xla_math.cu) bit for bit against `sample_interaction_tau_plain`, path
+    depths from 1e-8 to 1e3 with the edges; one launch."""
+    rs = np.random.default_rng(6)
+    n = 50000
+    tau = np.concatenate([10 ** rs.uniform(-8, 3, n - 4),
+                          [0.0, 1e-6, 0.5, 1e-30]]).astype(np.float32)
+    tau_path = torch.tensor(tau, device=dev)
+    u = {t: torch.tensor(rs.uniform(1e-7, 1.0, n).astype(np.float32),
+                         device=dev)
+         for t in (lc._TAG_PATH_CHOICE, lc._TAG_PATH_TAU_UNI,
+                   lc._TAG_PATH_TAU_EXP)}
+    opts = lc.TransportOptions(max_steps=1, force_scattering=forced,
+                               path_length_bias=xi)
+    kb.reset_launches()
+    got = lc.sample_interaction_tau(opts, u, tau_path)
+    assert kb.LAUNCHES["interaction_depth"] == 1
+    assert sum(kb.LAUNCHES.values()) == 1
+    want = lc.sample_interaction_tau_plain(opts, u, tau_path)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_deposit_factor_kernel(dev):
+    """XLA's expm1 in the march's deposit factor (csrc/xla_math.cu) bit for
+    bit against `deposit_factor_plain` on (S, B) steps, empty steps and
+    depths below 1e-4 among them; one launch."""
+    from skirt9_tpu_torch.transport import march as mr
+    rs = np.random.default_rng(7)
+    S, B = 37, 3001
+    ds = torch.tensor(rs.uniform(0.0, 1e16, (S, B)).astype(np.float32),
+                      device=dev)
+    dtau = torch.tensor((10 ** rs.uniform(-9, 1.5, (S, B))).astype(
+        np.float32), device=dev)
+    ds[:3] = 0.0
+    kb.reset_launches()
+    got = mr.deposit_factor(ds, dtau)
+    assert kb.LAUNCHES["deposit_factor"] == 1
+    assert torch.equal(got, mr.deposit_factor_plain(ds, dtau))

@@ -19,8 +19,8 @@ within 1e-5 relative.
   iteration (RF, SED, L_dust); reduced bench3 on its 16^3 voxel raster;
   bench1; bench5 refused, naming polarization and --dd;
 - `-d 2 --dd` through the CLI against the API run of the same ski file,
-  file for file; `SKIRT9_TPU_FORCE_SWEEP=1` with one RF bin refused,
-  naming ROADMAP item 26b.
+  file for file. The XL route (`SKIRT9_TPU_FORCE_SWEEP=1`, one RF bin):
+  tests/test_torch_domain_xl.py.
 """
 
 import os
@@ -31,7 +31,6 @@ import sys
 import jax
 import numpy as np
 import pytest
-import torch
 from jax.sharding import Mesh
 
 from skirt9_tpu.config.ski import load_ski as ref_load_ski
@@ -39,7 +38,6 @@ from skirt9_tpu.parallel import domain as ref_dom
 from skirt9_tpu.transport import lifecycle as ref_lc
 from skirt9_tpu_torch.config.ski import load_ski
 from skirt9_tpu_torch.parallel import domain as dom
-from skirt9_tpu_torch.parallel import dp
 from skirt9_tpu_torch.utils.fits import read_fits
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -218,18 +216,8 @@ def test_cli_matches_api(port):
     assert "spatial domain decomposition" in log
 
 
-def test_outside_the_envelope_raises(port, tmp_path, monkeypatch):
+def test_outside_the_envelope_raises(port):
     msg = str(np.load(os.path.join(port[0], "refuse_bench5.npz"))["message"])
     assert "polarization" in msg and "--dd" in msg
-    # the reference's XL composition (a TPU, or SKIRT9_TPU_FORCE_SWEEP=1,
-    # with one RF bin) is not ported: refused by name, not marched
-    one = dp.Group(rank=0, size=1, device=torch.device("cpu"),
-                   backend="gloo")
-    sim = load_ski(port[1]["bench1"], device="cpu", group=one, dd=True,
-                   num_packets=256, batch_size=256, max_events=2)
-    assert sim._sweep_tabs is None
-    monkeypatch.setenv("SKIRT9_TPU_FORCE_SWEEP", "1")
-    with pytest.raises(NotImplementedError, match="item 26b"):
-        sim.run_primary(verbose=False)
     with pytest.raises(ValueError, match="group"):
         load_ski(port[1]["bench1"], device="cpu", dd=True, num_packets=256)

@@ -287,13 +287,18 @@ def test_march_record_explicit_absorption_matches_reference():
     (explicit absorption), from the port's own march."""
     grid, med_r, med, pos, d, cell, _, _, lam = _recorded("voronoi", 9)
     S = grid.max_steps()
+    # both take the reference's optics, here formed op by op outside a
+    # jitted function: the port's `optics_at` replays them as the life
+    # cycle's jitted code forms them (tests/test_torch_polar.py -k rf_gap),
+    # whose fused interpolation is an ulp of log sigma away
     opt_r = ref_msys.optics_at(med_r, jnp.asarray(lam))
     ref = jax.jit(lambda p, dd, c: ref_lc.march_record(
         grid, med_r, opt_r, p, dd, c, S, jnp.ones(B, bool),
         record_sca=True))(jnp.asarray(pos), jnp.asarray(d),
                           jnp.asarray(cell))
     ours = mr.march_record(bridge.grid(grid), med,
-                           msys.optics_at(med, torch.tensor(lam)),
+                           msys.Optics(*(torch.tensor(np.asarray(t))
+                                         for t in opt_r)),
                            torch.tensor(pos), torch.tensor(d),
                            torch.tensor(cell, dtype=torch.int64), S,
                            torch.ones(B, dtype=torch.bool), record_sca=True)
