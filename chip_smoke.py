@@ -8083,12 +8083,12 @@ def _dp_rank(group, out: str, n_packets: int) -> None:
 
 # -d 1 against the CLI run without -d: the bounds on each file's largest
 # gap (per SED column and over the FITS frame, relative to its maximum),
-# from the spread between two runs without -d on the card (detect's f32
-# atomics add in an order that varies from run to run; measured on an H100:
-# the SED 1.0e-16, the frame 2.7e-9, and -d 1 2.0e-16 and 2.7e-9 in PR 23;
-# in PR 24 the two runs without -d, started at once, parted by 1.7e-10 in
-# the SED, and -d 1 by as much: 1e-12 was below that spread)
-DP_CLI_BOUNDS = {"sed": 1e-9, "frame": 1e-6}
+# from the spread between two runs without -d on the card (measured on an
+# H100: the SED 1.0e-16, the frame 2.7e-9, and -d 1 2.0e-16 and 2.7e-9).
+# The frame's f32 atomics add in an order that varies from run to run; the
+# SED's sums are f64 within each detect call (csrc/detect.cu), since f32
+# ones, in that varying order, parted two runs by 1.7e-10 now and then
+DP_CLI_BOUNDS = {"sed": 1e-12, "frame": 1e-6}
 
 
 def phase_dp(torch, smi: str) -> dict:
@@ -8099,7 +8099,8 @@ def phase_dp(torch, smi: str) -> dict:
     the SED and the FITS frame of -d 1 against the first plain run within
     DP_CLI_BOUNDS, and the spread between the two plain runs, which sets
     those bounds (no two runs on the card are equal byte for byte: the
-    detect kernel's f32 atomics add in an order that varies).
+    detect kernel's f32 atomics into the frame add in an order that
+    varies).
     Config 1 at full width on two
     ranks sharing cuda:0 over gloo (the partials' all_reduce on host
     copies, once per segment) against one process: every SED kind within
@@ -8757,10 +8758,28 @@ def _spy_scatter(sca, keep: int):
 def _scatter_check(torch, idx, val, size: int) -> dict:
     """Kernel 3 on the path's arguments against scatter_add_plain (f32
     index_add_) and against the f64 sum, within the f32 atomics' own error
-    per bin (n 2^-24 sum |v|, n the bin's terms); timed beside the
-    index_add_ call, bound by its bytes (the indices and values read once,
-    the bins written once)."""
+    per bin (n 2^-24 sum |v|, n the bin's terms), and on the path's indices
+    with integer values 0-15 (every sum exact in f32 in any order) bit for
+    bit against the f64 sums, which a dropped lane, warp or block fails;
+    its device ms first (the profiler, retaken where it lost the kernel's
+    events: ROADMAP B item 50), timed beside the index_add_ call, bound by
+    its bytes (the indices and values read once, the bins written once)."""
     from skirt9_tpu_torch.ops import scatteradd as sca
+    fn = lambda: sca.scatter_add(idx, val, size)
+    lib = lambda: torch.zeros(size, dtype=torch.float32,
+                              device=val.device).index_add_(0, idx.long(), val)
+    torch.cuda.synchronize()
+    for tries in range(1, 4):
+        dev_ms, lib_dev = device_ms(fn), device_ms(lib)
+        if dev_ms["ours"] > 0 and lib_dev["all"] > 0:
+            break
+    ints = torch.tensor(np.random.default_rng(3).integers(
+        0, 16, idx.shape[0]).astype(np.float32), device=val.device)
+    exact = torch.zeros(size, dtype=torch.float64, device=val.device
+                        ).index_add_(0, idx.long(), ints.double())
+    require(torch.equal(sca.scatter_add(idx, ints, size).double(), exact),
+            "local_instruments: kernel 3 on the path's indices with integer "
+            "values bit for bit against the f64 sums")
     k = sca.scatter_add(idx, val, size)
     p = sca.scatter_add_plain(idx, val, size)
     ex = torch.zeros(size, dtype=torch.float64, device=val.device).index_add_(
@@ -8773,18 +8792,17 @@ def _scatter_check(torch, idx, val, size: int) -> dict:
     require(bool((err <= n * 2.0 ** -24 * a).all()),
             "local_instruments: kernel 3 within the f32 atomics' error of "
             "the f64 sum")
-    lib = lambda: torch.zeros(size, dtype=torch.float32,
-                              device=val.device).index_add_(0, idx.long(), val)
-    fn = lambda: sca.scatter_add(idx, val, size)
     B = idx.shape[0]
     return dict(max_abs_err=float((k - p).abs().max()),
                 max_abs_err_f64=float(err.max()), lanes=B, bins=size,
-                lit_bins=int((n > 0).sum()), ms=cuda_ms(fn),
-                device_ms=device_ms(fn)["ours"],
+                lit_bins=int((n > 0).sum()), exact_ints=True, ms=cuda_ms(fn),
+                device_ms=dev_ms["ours"], device_ms_all=dev_ms["all"],
+                device_launches=dev_ms["launches"], profiler_tries=tries,
+                profiler_dropped=dev_ms["ours"] == 0,
                 plain_ms=cuda_ms(lambda: sca.scatter_add_plain(idx, val,
                                                                size)),
-                library_ms=cuda_ms(lib), library_device_ms=device_ms(lib)[
-                    "all"], **bound(B * 8 + size * 4, B))
+                library_ms=cuda_ms(lib), library_device_ms=lib_dev["all"],
+                **bound(B * 8 + size * 4, B))
 
 
 def local_flux_gates(torch, sim_cpu, accs) -> dict:

@@ -22,7 +22,7 @@
 // per call for its 79 device launches (PERF.md §6). Design: grid-stride
 // blocks of 1024 threads, one per SM at most. The borders sit in shared
 // memory for a binary search. The SED row and the five statistics rows
-// (6 nb bins) are a block-private table in shared memory; the frame (4,096
+// (6 nb bins) are a block-private f64 table in shared memory; the frame (4,096
 // and 163,840 bins on configs 1 and 2, sparsely hit) takes global atomics: a
 // block-private copy does not pay at that density (PERF.md §6: the probe's
 // 32,768-bin shared-memory scatter loses to global atomics). Both
@@ -40,8 +40,18 @@
 // The call's sums start from zero, as the seven-call form's did, and reach
 // the run's accumulators once per bin: adding every block's or warp's part
 // straight into a run-long sum rounds the same way thousands of times when
-// the parts are equal (1.8e-5 on config 1's transparent SED). So the blocks
-// add into `scratch` (table, then frame cube, then the Stokes cubes), which
+// the parts are equal (1.8e-5 on config 1's transparent SED). The table's
+// sums (SED, statistics and Stokes rows) are f64 from the lanes' f32 terms
+// on, in the warps' shuffles, in shared memory and in `scratch.table`, and
+// round to f32 once per call: the blocks' and warps' parts add in an order
+// that varies from run to run, which with f32 parts moved whole runs'
+// SEDs by ~1e-10 (two runs of bench1 on an H100), and in f64 moves a
+// call's sum by ~1e-16, which its rounding to f32 absorbs. So a call's
+// table is the f64 sum of its terms rounded once, as the plain version
+// summed in f64 gives it (`scatter_f64` in the tests).
+// The last block adds the table's nonzero sums into the accumulators and
+// zeroes them. The frame and the Stokes cubes, too large for that, add in
+// f32 into `scratch.sum` (frame cube, then the Stokes cubes), which
 // is zero on entry, and list each entry they touch, once: a flag per entry
 // set to the call's epoch decides, not the sum, since global float atomics
 // flush a subnormal addend (a cn^4 sum in a Wien-tail bin) to zero, so that
@@ -57,7 +67,7 @@
 // (`frame_pixels`, the plain version): xp = fma(z, ex2, fma(y, ex1, x ex0))
 // - cx, then fma(xp, 1/fovx, 0.5) with the float reciprocal of the float
 // field of view, which the wrapper passes, times npx rounded on its own.
-// Float atomics make the sums order-dependent from run to run.
+// The frame's float atomics make its sums order-dependent from run to run.
 #include "scatter_common.cuh"
 
 namespace skirt9 {
@@ -70,15 +80,17 @@ struct Frame {
   int npx, npy;
 };
 
-// The call's scratch: per-entry sums (zero on entry and on exit) and flags
-// (the epoch of the last call that listed the entry), the list of this
-// call's entries, {blocks done, listed} (zero on entry and on exit), and
-// this call's epoch, which no flag holds on entry.
+// The call's scratch: per-entry f32 sums of the cubes (zero on entry and
+// on exit) and flags (the epoch of the last call that listed the entry),
+// the list of this call's entries, {blocks done, listed} (zero on entry and
+// on exit), the table's f64 sums (zero on entry and on exit), and this
+// call's epoch, which no flag holds on entry.
 struct Scratch {
   float* sum;
   int* flag;
   int* list;
   int* counts;
+  double* table;
   int epoch;
 };
 
@@ -101,6 +113,12 @@ __device__ __forceinline__ void add_listed(const Scratch& s, bool add, int j,
   if (first) s.list[pos + __popc(m & ((1u << lane) - 1u))] = j;
 }
 
+// Sum of v over the warp in f64; the total is valid in lane 0.
+__device__ __forceinline__ double warp_sum_d(double v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+  return v;
+}
+
 // The first lane of each group of lanes with an equal key >= 0, as a mask;
 // all 32 lanes of the warp must call.
 __device__ __forceinline__ unsigned group_heads(int key) {
@@ -119,8 +137,8 @@ __device__ __forceinline__ bool row_on(int r, bool stats, bool quv) {
 // (the Stokes mode); borders: (nb + 1,); sed: the kind's (nb,) row; stats:
 // (5, nb) or null; frame: the kind's (nb, npy, npx) cube or null; sed_quv:
 // (3, nb), given with quv; frame_quv: (3, nb, npy, npx) or null; scratch:
-// sums, flags and list of rows nb + the cubes' bins each, rows = 9 in the
-// Stokes mode, else 6.
+// sums, flags and list of rows nb + the cubes' bins each, and the table's
+// rows nb f64 sums, rows = 9 in the Stokes mode, else 6.
 __global__ void detect_kernel(const float* __restrict__ lam,
                               const float* __restrict__ pos,
                               const float* __restrict__ contrib,
@@ -134,17 +152,18 @@ __global__ void detect_kernel(const float* __restrict__ lam,
                               float* __restrict__ sed_quv,
                               float* __restrict__ frame_quv, Scratch scr,
                               int B) {
-  extern __shared__ float smem[];
+  extern __shared__ double smem[];
   const bool has_stats = stats != nullptr, has_quv = quv != nullptr;
   const int rows = has_quv ? 9 : 6;
-  // scratch layout: the table's rows, the frame cube, the 3 Stokes cubes
+  // scratch.sum layout: the table's rows (unused), the frame cube, the 3
+  // Stokes cubes
   const int cube = frame != nullptr ? nb * f.npy * f.npx : 0;
   const int frame0 = rows * nb, quv0 = frame0 + cube;
-  float* bord = smem;               // nb + 1 borders
-  float* table = smem + nb + 1;     // SED row, 5 statistics, 3 Stokes rows
+  double* table = smem;             // SED row, 5 statistics, 3 Stokes rows
+  float* bord = (float*)(smem + rows * nb);   // nb + 1 borders
   __shared__ int last, listed;
   for (int i = threadIdx.x; i <= nb; i += blockDim.x) bord[i] = borders[i];
-  for (int i = threadIdx.x; i < rows * nb; i += blockDim.x) table[i] = 0.0f;
+  for (int i = threadIdx.x; i < rows * nb; i += blockDim.x) table[i] = 0.0;
   __syncthreads();
 
   const int stride = gridDim.x * blockDim.x;
@@ -192,8 +211,8 @@ __global__ void detect_kernel(const float* __restrict__ lam,
 #pragma unroll
         for (int r = 0; r < 9; ++r) {
           if (row_on(r, has_stats, has_quv)) {
-            const float s = warp_sum(key == k ? row[r] : 0.0f);
-            if (lane == 0 && s != 0.0f) atomicAdd(table + r * nb + k, s);
+            const double s = warp_sum_d(key == k ? (double)row[r] : 0.0);
+            if (lane == 0 && s != 0.0) atomicAdd(table + r * nb + k, s);
           }
         }
       }
@@ -201,7 +220,7 @@ __global__ void detect_kernel(const float* __restrict__ lam,
 #pragma unroll
       for (int r = 0; r < 9; ++r)
         if (row_on(r, has_stats, has_quv) && row[r] != 0.0f)
-          atomicAdd(table + r * nb + b, row[r]);
+          atomicAdd(table + r * nb + b, (double)row[r]);
     }
 
     if (frame != nullptr) {
@@ -250,11 +269,10 @@ __global__ void detect_kernel(const float* __restrict__ lam,
     }
   }
   __syncthreads();
-  // the block's table into the call's sums (whole warps iterate together)
-  for (int base = 0; base < rows * nb; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const float h = i < rows * nb ? table[i] : 0.0f;
-    add_listed(scr, h != 0.0f, i, h);
+  // the block's table into the call's f64 sums
+  for (int i = threadIdx.x; i < rows * nb; i += blockDim.x) {
+    const double h = table[i];
+    if (h != 0.0) atomicAdd(scr.table + i, h);
   }
   __threadfence();
   __syncthreads();
@@ -266,6 +284,17 @@ __global__ void detect_kernel(const float* __restrict__ lam,
   // the flags list each entry once, so no two threads share a target
   if (threadIdx.x == 0) listed = atomicAdd(scr.counts + 1, 0);
   __syncthreads();
+  // the table's sums, each rounded to f32 once (a row that is not on stays
+  // zero)
+  for (int j = threadIdx.x; j < rows * nb; j += blockDim.x) {
+    const double v = __ldcg(scr.table + j);
+    if (v != 0.0) {
+      float* dst = j < nb ? sed + j : j < 6 * nb ? stats + (j - nb)
+                                                 : sed_quv + (j - 6 * nb);
+      *dst = *dst + __double2float_rn(v);
+      scr.table[j] = 0.0;
+    }
+  }
   constexpr int kPer = 4;
   for (int k0 = threadIdx.x; k0 < listed; k0 += kPer * blockDim.x) {
     float* dst[kPer];
@@ -274,12 +303,9 @@ __global__ void detect_kernel(const float* __restrict__ lam,
     for (int u = 0; u < kPer; ++u) {
       const int k = k0 + u * blockDim.x;
       const int j = k < listed ? __ldcg(scr.list + k) : -1;
-      dst[u] = j < 0        ? nullptr
-               : j < nb     ? sed + j
-               : j < 6 * nb ? stats + (j - nb)
-               : j < frame0 ? sed_quv + (j - 6 * nb)
-               : j < quv0   ? frame + (j - frame0)
-                            : frame_quv + (j - quv0);
+      dst[u] = j < 0      ? nullptr
+               : j < quv0 ? frame + (j - frame0)
+                          : frame_quv + (j - quv0);
       v[u] = j < 0 ? 0.0f : atomicExch(scr.sum + j, 0.0f);
     }
     // the targets are distinct, so every load may precede every store
@@ -302,7 +328,8 @@ extern "C" int detect_launch(const void* lam, const void* pos,
                              const void* quv, const void* borders, void* sed,
                              void* stats, void* frame, void* sed_quv,
                              void* frame_quv, void* sums, void* flags,
-                             void* list, void* counts, int B, int nb, int npx,
+                             void* list, void* counts, void* table, int B,
+                             int nb, int npx,
                              int npy, int epoch, float inv_scale, float ex0,
                              float ex1, float ex2, float ey0, float ey1,
                              float ey2, float cx, float cy, float inv_fovx,
@@ -312,12 +339,14 @@ extern "C" int detect_launch(const void* lam, const void* pos,
   // only with a frame
   if (B < 0 || nb < 1 || (frame != nullptr && (npx < 1 || npy < 1)) ||
       sums == nullptr || flags == nullptr || list == nullptr ||
-      counts == nullptr || epoch == 0 || (quv == nullptr) != (sed_quv == nullptr) ||
+      counts == nullptr || table == nullptr || epoch == 0 ||
+      (quv == nullptr) != (sed_quv == nullptr) ||
       (frame_quv != nullptr && (quv == nullptr || frame == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const int rows = quv != nullptr ? 9 : 6;
-  const size_t smem = (size_t)(nb + 1 + rows * nb) * sizeof(float);
+  const size_t smem =
+      (size_t)rows * nb * sizeof(double) + (size_t)(nb + 1) * sizeof(float);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -337,7 +366,8 @@ extern "C" int detect_launch(const void* lam, const void* pos,
       (const unsigned char*)active, (const float*)quv, (const float*)borders,
       nb, inv_scale, f, (float*)sed, (float*)stats, (float*)frame,
       (float*)sed_quv, (float*)frame_quv,
-      Scratch{(float*)sums, (int*)flags, (int*)list, (int*)counts, epoch},
+      Scratch{(float*)sums, (int*)flags, (int*)list, (int*)counts,
+              (double*)table, epoch},
       B);
   return (int)cudaGetLastError();
 }

@@ -114,13 +114,20 @@ def scratch_size(cfg: DistantInstrumentCfg) -> int:
     return rows * cfg.nbins + (4 if cfg.record_polarization else 1) * cube
 
 
+def table_size(cfg: DistantInstrumentCfg) -> int:
+    """Entries of the detect kernel's f64 per-call table: the SED row, the
+    five statistics rows and, with polarization, the three Stokes rows."""
+    return (9 if cfg.record_polarization else 6) * cfg.nbins
+
+
 def device_tables(cfg: DistantInstrumentCfg, device) -> dict:
     """Device copies of (kobs, ex, ey, wave_borders); under "scalars" the
     detect kernel's host arguments: 1/stats_scale, ex, ey, the frame centre
     and 1/fovx, 1/fovy as PyTorch forms them on the card (the float
     reciprocal of the float field of view); on the GPU, under "scratch",
     the kernel's per-call sums, flags, touched-entry list and counters
-    (`scratch_size` entries), and under "epoch" the last call's number,
+    (`scratch_size` entries) and its f64 sums of the SED, statistics and
+    Stokes rows (`table_size`), and under "epoch" the last call's number,
     which marks the flags (the sums and counters are zeroed here and left
     zeroed by every launch, so one stream at a time detects through one
     set of tables)."""
@@ -136,7 +143,8 @@ def device_tables(cfg: DistantInstrumentCfg, device) -> dict:
         n = scratch_size(cfg)
         zeros = lambda k, dtype: torch.zeros(k, dtype=dtype, device=device)
         tabs["scratch"] = (zeros(n, torch.float32), zeros(n, torch.int32),
-                           zeros(n, torch.int32), zeros(2, torch.int32))
+                           zeros(n, torch.int32), zeros(2, torch.int32),
+                           zeros(table_size(cfg), torch.float64))
         tabs["epoch"] = 0
     return tabs
 
@@ -219,7 +227,8 @@ def _detect_cuda(cfg, tables, acc, lam, pos, contrib, kind, active,
     scratch = tables.get("scratch")
     size = scratch_size(cfg)
     if (scratch is None or any(t.device != dev for t in scratch)
-            or scratch[0].numel() != size):
+            or scratch[0].numel() != size
+            or scratch[4].numel() != table_size(cfg)):
         raise ValueError(f"detect needs the tables' scratch of {size} "
                          f"entries on {dev}: device_tables(cfg, {dev})")
     # the call's epoch, 1 .. 2^31 - 1, which no flag holds: flags hold

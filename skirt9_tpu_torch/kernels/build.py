@@ -77,9 +77,10 @@ _SIGNATURES = {
     "scatter_add_launch": [_P] * 3 + [_I] * 2 + [_P],
     # lam, pos, contrib, active, Stokes q/u/v (or null), borders, sed row,
     # stats, frame cube, Stokes rows, Stokes cubes, scratch sums, flags,
-    # list, counts, B, nb, npx, npy, epoch, 1/stats_scale, ex (3), ey (3),
+    # list, counts, f64 table sums, B, nb, npx, npy, epoch, 1/stats_scale,
+    # ex (3), ey (3),
     # centerx, centery, 1/fovx, 1/fovy, stream
-    "detect_launch": [_P] * 15 + [_I] * 5 + [_F] * 11 + [_P],
+    "detect_launch": [_P] * 16 + [_I] * 5 + [_F] * 11 + [_P],
     # pos, dir, active, sig, nd, out, prefix, total, runsum, axis, smin,
     # smax, B, C, nx, ny, nz, nmax, hint, mode, run, lox, loy, loz, hx, hy,
     # hz, 1/hx, 1/hy, 1/hz, stream

@@ -10,7 +10,6 @@ metallicities an imported medium carries.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -21,7 +20,7 @@ from ..ops import xlamath as xm
 from . import mixes as mx
 
 
-class MediumTables(NamedTuple):
+class _MediumFields(NamedTuple):
     nd: torch.Tensor         # (ncells, H) number density [1/m^3]
     lam_t: torch.Tensor      # (T,) wavelength table [m], increasing
     sigma_ext: torch.Tensor  # (H, T) extinction cross section [m^2]
@@ -43,19 +42,30 @@ class MediumTables(NamedTuple):
         return MediumTables(*(t.to(device) for t in self))
 
 
+class MediumTables(_MediumFields):
+    """The medium's tables, and kept on the object at first use (a new
+    object from `to` or `_replace` takes them anew) XLA's log of its
+    wavelength and cross-section tables, which `optics_at` reads every
+    event of a changing wavelength."""
+
+    def log_tables(self) -> tuple:
+        """XLA's log of (lam_t, sigma_ext, sigma_sca), the values clamped
+        to f32's smallest normal."""
+        logs = self.__dict__.get("_logs")
+        if logs is None:
+            tiny = torch.finfo(torch.float32).tiny
+            logs = self.__dict__["_logs"] = tuple(
+                xm.log_xla(torch.clamp_min(t, tiny))
+                for t in (self.lam_t, self.sigma_ext, self.sigma_sca))
+        return logs
+
+
 class Optics(NamedTuple):
     """Per-packet per-component cross sections at the packet wavelength."""
 
     sigma_ext: torch.Tensor  # (B, H)
     sigma_sca: torch.Tensor  # (B, H)
     g: torch.Tensor          # (B, H)
-
-
-@functools.lru_cache(maxsize=64)
-def _log_table(t: torch.Tensor) -> torch.Tensor:
-    """XLA's log of a wavelength or cross-section table (its values clamped
-    to f32's smallest normal), once per table object."""
-    return xm.log_xla(torch.clamp_min(t, torch.finfo(torch.float32).tiny))
 
 
 def optics_at(med: MediumTables, lam: torch.Tensor) -> Optics:
@@ -65,8 +75,8 @@ def optics_at(med: MediumTables, lam: torch.Tensor) -> Optics:
     moves its steps' optical depths and with them where it interacts. The
     lanes' log wavelength is taken once and the tables' logs are kept, as
     the event loops of changing wavelengths call this every event."""
-    lx, lxv = xm.log_xla(lam), _log_table(med.lam_t)
-    log_ext, log_sca = _log_table(med.sigma_ext), _log_table(med.sigma_sca)
+    lx = xm.log_xla(lam)
+    lxv, log_ext, log_sca = med.log_tables()
 
     def loglog(ly):
         out = xm.exp_xla(sampling.interp_linlin(lx, lxv, ly, xla=True))

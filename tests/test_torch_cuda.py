@@ -266,10 +266,15 @@ def test_detect_kernel(dev, nb, npix):
         assert float(ref.abs().max()) > 0
         err = float((acc_k[key] - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), (key, err)
+    # the SED and statistics rows: each call's f64 sums rounded once, in
+    # any order of the atomics, bit for bit (a lost lane or warp fails)
+    for key in ("sed", "stats"):
+        assert torch.equal(acc_k[key], acc_p[key]), key
     # each launch leaves its per-call sums and counters zeroed, and its
     # flags at most its own epoch
-    sums, flags, _, counts = tabs["scratch"]
+    sums, flags, _, counts, table = tabs["scratch"]
     assert float(sums.abs().max()) == 0 and int(counts.abs().max()) == 0
+    assert float(table.abs().max()) == 0
     assert 0 <= int(flags.min()) and int(flags.max()) <= tabs["epoch"]
 
 
@@ -321,8 +326,9 @@ def test_detect_kernel_subnormal_sums(dev):
         if key == "stats":
             assert bool((err[:4] <= 1e-5 * ref[:4].abs()).all())
     assert tabs["epoch"] == 2
-    sums, flags, _, counts = tabs["scratch"]
+    sums, flags, _, counts, table = tabs["scratch"]
     assert float(sums.abs().max()) == 0 and int(counts.abs().max()) == 0
+    assert float(table.abs().max()) == 0
     assert 0 <= int(flags.min()) and int(flags.max()) <= 2
 
 
@@ -744,6 +750,7 @@ def test_scatter_add_kernel(dev, size):
     k = sca.scatter_add(idx, val, size)
     assert kb.LAUNCHES["scatter_add"] == 1
     _within_atomics(k, idx, val, size)
+    _exact_in_any_order(idx, size, rs)
 
 
 def _within_atomics(k, idx, val, size: int) -> None:
@@ -758,6 +765,24 @@ def _within_atomics(k, idx, val, size: int) -> None:
     n, mag = f64(torch.ones_like(val, dtype=torch.float64)), \
         f64(val.double().abs())
     assert bool(((k.double() - exact).abs() <= n * 2.0 ** -24 * mag).all())
+
+
+def _exact_in_any_order(idx, size: int, rs) -> None:
+    """The kernel on the same indices with small integer values (0-15,
+    and 2^-10 multiples of them: every partial sum below 2^24 units, so
+    exact in f32 in any order) against the f64 sums, bit for bit: a lane,
+    warp or block that the kernel drops or adds twice fails, however small
+    its share of the bin."""
+    n = idx.shape[0]
+    for scale in (1.0, 2.0 ** -10):
+        val = torch.tensor(rs.integers(0, 16, n).astype(np.float32) * scale,
+                           device=idx.device)
+        k = sca.scatter_add(idx, val, size)
+        exact = torch.zeros(size, dtype=torch.float64,
+                            device=idx.device).index_add_(0, idx.long(),
+                                                          val.double())
+        assert float(exact.max()) < 2.0 ** 24 * scale
+        assert torch.equal(k.double(), exact), scale
 
 
 def test_scatter_add_sky_table(dev):
@@ -780,6 +805,7 @@ def test_scatter_add_sky_table(dev):
     k = sca.scatter_add(idx, val, size)
     assert kb.LAUNCHES["scatter_add"] == 1
     _within_atomics(k, idx, val, size)
+    _exact_in_any_order(idx, size, rs)
 
 
 @pytest.mark.parametrize("kind", ["mollweide", "healpix", "perspective"])
@@ -1194,8 +1220,9 @@ def test_detect_stokes_kernel(dev, B, case):
                  stokes_quv=q)
     assert float(acc_t["frame_stokes"].abs().max()) == 0.0
     assert float(acc_t["frame"].abs().max()) > 0.0
-    sums, flags, _, counts = tabs["scratch"]
+    sums, flags, _, counts, table = tabs["scratch"]
     assert float(sums.abs().max()) == 0 and int(counts.abs().max()) == 0
+    assert float(table.abs().max()) == 0
 
 
 def test_config5_on_cuda_matches_cpu(dev):
